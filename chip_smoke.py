@@ -1,17 +1,27 @@
 """Smoke run of range_tpu_torch on one CUDA card.
 
-Builds the port's CUDA kernels from `range_tpu_torch/csrc/`, holds each
-against its plain PyTorch version at the main path's shapes, then serves
-requests through `load_model("RANGE+" / "RANGE", device="cuda")` at full
-width (SatCLIP SH-L40 -> SIREN 1600->256->256->256 tower, 100,000-row bank
-with 256-d keys and bf16 1024-d values, 1,280-d output) and checks the
-answers against the exact f32 retrieval.  Every phase that fails raises.
+Builds the port's five CUDA kernels from `range_tpu_torch/csrc/` (one nvcc
+per source, all started together), holds each against its plain PyTorch
+version at the main paths' shapes, then drives both serving paths through
+`load_model(..., device="cuda")` at full width (SatCLIP SH-L40 -> SIREN
+1600->256->256->256 tower, 100,000-row bank with 256-d keys and bf16
+1024-d values, 1,280-d output):
+
+  * the dense path, RANGE+ and RANGE over a `synthetic_device` bank;
+  * the hierarchical flagship path, RANGE+ with ``profile="flagship"``
+    over the informative bank, whose HierBank is built on the card here;
+
+and checks the answers against the exact f32 retrieval (the flagship's
+against its fidelity bars: relerr mean <= 0.04, p99 <= 0.165).  Every
+phase that fails raises.
 
     python3 chip_smoke.py
 
-Prints the card's name and power limit, per-kernel errors and times, one
-JSON line with the kernels, and as its last line
-{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+Prints the card's name and power limit, build logs, per-kernel errors and
+times, one JSON line with the kernels (time, plain time, bound, launches on
+the main path, largest error and largest error over its tolerance), and as
+its last line
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 Exits non-zero, without that line, when there is no CUDA device.
 """
 
@@ -22,6 +32,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
@@ -29,7 +40,18 @@ BANK_ROWS = 100_000
 PAD_TO = 4096
 BATCH = 10_000
 SMALL_BATCH = 1_000
+REQUESTS = (1, 37, 1_000, BATCH)
 L, WIDTH = 40, 256
+KERNELS = ("siren_tower", "fused_retrieval", "hier_scan", "hier_parts_family",
+           "combine_cat")
+
+# H100 SXM peaks (NVIDIA data sheet, dense, 700 W): the bounds below
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
+F32_FLOPS = 67e12
+# real columns of the fast tier's geo block (hi/lo cross terms; the packed
+# operands pad them to 128, `retrieval_fused.packed_dims`)
+GEO_COLS = 9
 
 
 def _cuda_ms(fn, reps: int) -> float:
@@ -48,10 +70,32 @@ def _cuda_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def _host_ms(fn, reps: int) -> float:
+    """Median host-clock milliseconds of fn() ending in a synchronize."""
+    times = []
+    for i in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        if i:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _bound(n_bytes: float, flops: float, peak: float):
+    """(least ms, what bounds it): the larger of bytes over the memory rate
+    and operations over the peak rate of their type."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def _compare(name: str, got: torch.Tensor, ref: torch.Tensor, atol: float,
-             rtol: float, why: str, rows_off_max: int | None = None) -> float:
+             rtol: float, why: str, rows_off_max: int | None = None):
     """Print and assert |got - ref| <= atol + rtol |ref| elementwise and, when
-    given, that at most rows_off_max rows hold any error above 1e-4."""
+    given, that at most rows_off_max rows hold any error above 1e-4.
+    Returns (max abs error, the largest error over its tolerance)."""
     if got.shape != ref.shape:
         raise AssertionError(f"{name}: shape {tuple(got.shape)} != {tuple(ref.shape)}")
     if not torch.isfinite(got).all():
@@ -59,16 +103,46 @@ def _compare(name: str, got: torch.Tensor, ref: torch.Tensor, atol: float,
     err = (got - ref).abs()
     max_abs = err.max().item()
     max_rel = (err / ref.abs().clamp_min(1e-6)).max().item()
-    worst = (err - rtol * ref.abs()).max().item()
+    ratio = (err / (atol + rtol * ref.abs()).clamp_min(1e-30)).max().item()
     rows_off = (err > 1e-4).any(dim=1).sum().item()
     limit = "" if rows_off_max is None else f", at most {rows_off_max} rows off by > 1e-4"
     print(f"{name}: max_abs_err {max_abs:.3e}  mean_abs_err {err.mean().item():.3e}  "
-          f"max_rel_err {max_rel:.3e}  rows off by > 1e-4: {rows_off} of {err.shape[0]}  "
-          f"(tolerance atol {atol:.3g} + rtol {rtol:g}*|ref|{limit}: {why})")
-    if worst > atol or (rows_off_max is not None and rows_off > rows_off_max):
-        raise AssertionError(f"{name}: error {worst:.3e} or {rows_off} rows off "
-                             "out of tolerance")
-    return max_abs
+          f"max_rel_err {max_rel:.3e}  err/tol {ratio:.3e}  rows off by > 1e-4: "
+          f"{rows_off} of {err.shape[0]}  (tolerance atol {atol:.3g} + rtol "
+          f"{rtol:g}*|ref|{limit}: {why})")
+    if ratio > 1.0 or (rows_off_max is not None and rows_off > rows_off_max):
+        raise AssertionError(f"{name}: error {ratio:.3f}x its tolerance or "
+                             f"{rows_off} rows off")
+    return max_abs, ratio
+
+
+def _compare_terms(name: str, got: torch.Tensor, ref: torch.Tensor,
+                   mag: torch.Tensor, why: str, frac: float = 4e-3):
+    """Print and assert |got - ref| <= min(frac * max_row |ref|, 2^-7 * mag)
+    + 1e-6 elementwise, with mag each element's sum of its terms' magnitudes
+    (the plain version over |operands|).  One bf16 ulp (<= 2^-7) of every
+    term holds each element to its own terms, so low-rank columns far below
+    their row's largest value are held as tightly as their own size; the
+    row cap keeps it no looser than frac of the row's largest value where
+    terms cancel.  Also prints each column's scale (the RMS over rows of
+    |ref| / the row's max |ref|): smallest over the nonzero columns, median.
+    Returns (max abs error, the largest error over its tolerance)."""
+    if got.shape != ref.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} or non-finite")
+    err = (got - ref).abs()
+    row = ref.abs().amax(dim=1, keepdim=True)
+    tol = torch.minimum(frac * row, 2.0 ** -7 * mag) + 1e-6
+    ratio = (err / tol).max().item()
+    col = (ref / row.clamp_min(1e-30)).pow(2).mean(dim=0).sqrt()
+    col = col[col > 0]
+    print(f"{name}: max_abs_err {err.max().item():.3e}  err/tol {ratio:.3e}  "
+          f"max err / row scale {(err / row.clamp_min(1e-30)).max().item():.3e}  "
+          f"column scale / row max: min {col.min().item():.3e}, median "
+          f"{col.median().item():.3e} over {col.numel()} nonzero columns  "
+          f"(tolerance min({frac:g} x max_row |ref|, 2^-7 x sum |terms|): {why})")
+    if ratio > 1.0:
+        raise AssertionError(f"{name}: error {ratio:.3f}x its tolerance")
+    return err.max().item(), ratio
 
 
 def _random_coords(n: int, gen: torch.Generator, dev) -> torch.Tensor:
@@ -78,41 +152,38 @@ def _random_coords(n: int, gen: torch.Generator, dev) -> torch.Tensor:
     return torch.stack([lon, lat], 1)
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device available", file=sys.stderr)
-        return 1
-    from range_tpu_torch import GeoBank, load_model
-    from range_tpu_torch.geometry import lonlat_deg_to_xyz
+def _build_all():
+    """One nvcc per kernel source, all started together."""
     from range_tpu_torch.kernels._build import build_kernel
-    from range_tpu_torch.ops import retrieval
-    from range_tpu_torch.ops import retrieval_fused as rf
-    from range_tpu_torch.ops import sh
-    from range_tpu_torch.ops.nets import SirenNet
 
-    # ---- 1. environment
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-    print(smi)  # the card's name and power limit, as nvidia-smi gives them
-    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"{torch.cuda.get_device_name(0)}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(0)
-
-    # ---- 2. build
-    for name in ("siren_tower", "fused_retrieval"):
-        path, seconds, log = build_kernel(name)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        built = list(pool.map(build_kernel, KERNELS))
+    print(f"build: {time.perf_counter() - t0:.1f} s for {len(KERNELS)} kernels in parallel")
+    for name, (path, seconds, log) in zip(KERNELS, built):
         print(f"build {name}: {seconds:.1f} s -> {path.name}")
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas: {line.strip()}")
 
-    # ---- 3. each kernel against its plain version at the main path's shapes
-    report = {}
+
+def _send(enc, c):
+    # the B=37 request arrives as a numpy float64 array, as numpy callers
+    # send coordinates; the entry point casts it to f32
+    return enc(c.double().cpu().numpy() if c.shape[0] == 37 else c)
+
+
+def dense_phases(dev, gen, report) -> float:
+    """Phases 3-4 of the dense slice: its two kernels against their plain
+    versions, then RANGE+ and RANGE through load_model.  Returns the RANGE+
+    end-to-end ms at B=10,000."""
+    from range_tpu_torch import GeoBank, load_model
+    from range_tpu_torch.geometry import lonlat_deg_to_xyz
+    from range_tpu_torch.ops import retrieval
+    from range_tpu_torch.ops import retrieval_fused as rf
+    from range_tpu_torch.ops import sh
+    from range_tpu_torch.ops.nets import SirenNet
+
     net = SirenNet(L * L, WIDTH, WIDTH, 2, device=dev, generator=gen)
     params = net.tower_params()
     coords = _random_coords(BATCH, gen, dev)
@@ -126,13 +197,24 @@ def main() -> int:
             tag = "f32" if md is None else "bf16"
             got = sh.siren_tower(coords, L, params, matmul_dtype=md)
             ref = sh._siren_tower_plain(coords, L, params, matmul_dtype=md)
-            err = _compare(f"siren_tower[{tag}] B={BATCH}", got, ref, atol, 0.0, why)
+            err, ratio = _compare(f"siren_tower[{tag}] B={BATCH}", got, ref, atol, 0.0, why)
             ms = _cuda_ms(lambda: sh.siren_tower(coords, L, params, matmul_dtype=md), 20)
             plain_ms = _cuda_ms(
                 lambda: sh._siren_tower_plain(coords, L, params, matmul_dtype=md), 20)
             print(f"siren_tower[{tag}] B={BATCH}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-            if md is None:  # the main path's mode
-                report["siren_tower"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+            if md is None:  # the dense path's mode
+                # what the tower needs: the basis (Legendre recurrence ~4
+                # operations per entry, the trig product 1), basis @ W0, the
+                # hidden and last layers, two sin layers; not the kernel's
+                # Fourier synthesis or its two folded products
+                flops = (2 * BATCH * (L * L * WIDTH + 2 * WIDTH * WIDTH)
+                         + BATCH * (5 * L * L + 2 * WIDTH))
+                n_bytes = (BATCH * (2 + WIDTH) * 4
+                           + 4 * (L * L * WIDTH + 2 * WIDTH * WIDTH + 3 * WIDTH))
+                b_ms, b_by = _bound(n_bytes, flops, F32_FLOPS)
+                report["siren_tower"] = dict(max_abs_err=err, err_over_tol=ratio, ms=ms,
+                                             plain_ms=plain_ms, bound_ms=b_ms,
+                                             bound_by=b_by)
 
         bank = GeoBank.synthetic_device(0, BANK_ROWS, pad_to=PAD_TO,
                                         value_dtype=torch.bfloat16, device=dev)
@@ -166,35 +248,39 @@ def main() -> int:
                                                 sem_d=sem_d)
 
             tag = f"fused_retrieval[{tier},{mode}] B={b} N={bank.num_rows}"
-            err = _compare(tag, kernel(), plain(), flip_atol, 0.0, retr_why,
-                           rows_off_max=max(2, b // 100))
+            err, ratio = _compare(tag, kernel(), plain(), flip_atol, 0.0, retr_why,
+                                  rows_off_max=max(2, b // 100))
             ms = _cuda_ms(kernel, 5)
             plain_ms = _cuda_ms(plain, 3)
             print(f"{tag}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-            if b == BATCH:  # the main path's tier and shape
-                report["fused_retrieval"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+            if b == BATCH:  # the dense path's tier and shape
+                n, Dv = bank.n_valid, bank.value_dim
+                # bf16 sem logits (sem_d) and hi/lo geo logits (9 columns),
+                # two bf16 value products, over the valid rows
+                flops = 2 * b * n * (sem_d + GEO_COLS) + 2 * 2 * b * n * Dv
+                n_bytes = (b * q_cat.shape[1] * 2 + n * (k_cat.shape[1] * 2 + Dv * 2 + 4)
+                           + b * Dv * 4)
+                b_ms, b_by = _bound(n_bytes, flops, BF16_FLOPS)
+                report["fused_retrieval"] = dict(max_abs_err=err, err_over_tol=ratio, ms=ms,
+                                                 plain_ms=plain_ms, bound_ms=b_ms,
+                                                 bound_by=b_by)
 
-    # ---- 4. the main path, through the entry point
+    # ---- 4. the dense path, through the entry point
     models = {name: load_model(name, db_path=bank, device="cuda")
               for name in ("RANGE+", "RANGE")}
-    requests = [_random_coords(b, gen, dev) for b in (1, 37, 1_000, BATCH)]
-
-    def send(enc, c):
-        # the B=37 request arrives as a numpy float64 array, as numpy
-        # callers send coordinates; the entry point casts it to f32
-        return enc(c.double().cpu().numpy() if c.shape[0] == 37 else c)
-
+    requests = [_random_coords(b, gen, dev) for b in REQUESTS]
     sh.siren_tower.launches = 0
     rf.retrieve_fused.launches = 0
-    answers = {name: [send(enc, c) for c in requests] for name, enc in models.items()}
+    answers = {name: [_send(enc, c) for c in requests] for name, enc in models.items()}
     torch.cuda.synchronize()
     launches = {"siren_tower": sh.siren_tower.launches,
                 "fused_retrieval": rf.retrieve_fused.launches}
-    print(f"main-path launches: {launches}")
+    print(f"dense path launches: {launches}")
     for name, count in launches.items():
         if count != len(models) * len(requests):  # once per request, f64 one too
-            raise AssertionError(f"the main path launched {name} {count} times, "
+            raise AssertionError(f"the dense path launched {name} {count} times, "
                                  f"not once per request")
+        report[name]["launches"] = count
 
     for name, outs in answers.items():
         mode = "range+" if name == "RANGE+" else "range"
@@ -214,32 +300,289 @@ def main() -> int:
                      5e-2, 1e-1, "the fast tier's tolerance in "
                      "tests/test_retrieval_pallas.py: bf16 semantic logits")
 
-    enc = models["RANGE+"]
-    big = requests[-1]
-    times = []
-    for i in range(6):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        enc(big)
-        torch.cuda.synchronize()
-        if i:
-            times.append((time.perf_counter() - t0) * 1e3)
-    print(f"RANGE+ end to end B={BATCH} (coords already on the card): "
-          f"median {statistics.median(times):.3f} ms over {len(times)} calls")
+    e2e = _host_ms(lambda: models["RANGE+"](requests[-1]), 5)
+    print(f"dense RANGE+ end to end B={BATCH} (coords already on the card): "
+          f"median {e2e:.3f} ms over 5 calls")
+    return e2e
 
-    kernels = [
-        dict(name="siren_tower", route="cuda", source="range_tpu_torch/csrc/siren_tower.cu",
-             replaces="range_tpu/ops/sh.py:726", launches=launches["siren_tower"],
-             **report["siren_tower"]),
-        dict(name="fused_retrieval", route="cuda",
-             source="range_tpu_torch/csrc/fused_retrieval.cu",
-             replaces="range_tpu/ops/retrieval_pallas.py:123",
-             launches=launches["fused_retrieval"], **report["fused_retrieval"]),
-    ]
+
+def hier_phases(dev, gen, report) -> float:
+    """The flagship slice: build the informative bank and its HierBank on
+    the card, hold the three hier kernels against their plain versions at
+    the main path's shapes, serve through load_model(profile="flagship"),
+    check fidelity.  Returns the flagship end-to-end ms at B=10,000."""
+    from range_tpu_torch import GeoBank, load_model
+    from range_tpu_torch.api import SERVING_PROFILES
+    from range_tpu_torch.geometry import lonlat_deg_to_xyz
+    from range_tpu_torch.ops import retrieval
+    from range_tpu_torch.ops import retrieval_fused as rf
+    from range_tpu_torch.ops import retrieval_hier as rh
+    from range_tpu_torch.ops import sh
+
+    # ---- 5. the bank build, on the card
+    prof = SERVING_PROFILES["flagship"]
+    t0 = time.perf_counter()
+    bank = GeoBank.synthetic_informative(0, BANK_ROWS, pad_to=PAD_TO,
+                                         value_dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    hb = rh.build_hier_bank(bank, bn=512, gsz_sem=prof["gsz_sem"], gsz_geo=64,
+                            lr_rank=prof["lr_rank"], lr_geo=prof["lr_geo"],
+                            res_rank=prof["res_rank"], topk_gsz=prof["topk_gsz"])
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    print(f"informative bank {BANK_ROWS} rows: {t1 - t0:.2f} s; build_hier_bank "
+          f"(flagship knobs): {t2 - t1:.2f} s; t_real {hb.t_real}, t_pad {hb.t_pad}, "
+          f"rows {hb.bank.num_rows}")
+
+    # ---- 6. each hier kernel against its plain version, main-path shapes
+    enc = load_model("RANGE+", db_path=hb, profile="flagship", device="cuda")
+    cfg = enc.model.config
+    bm, k_tiles, k_geo, j_sem = cfg.hier_plan(BATCH)
+    coords = _random_coords(BATCH, gen, dev)
+    with torch.no_grad():
+        q = enc.model.query_embedding(coords)
+        x = lonlat_deg_to_xyz(coords)
+        q_s, q_x = rh._pad_queries(q, x, bm)
+        order = rh._hybrid_order(q_x, BATCH)
+        q_cat = rf.pack_queries(q_s, q_x, 12.0, 40.0, hb.tier)[order].contiguous()
+        gpt_s, gpt_g = hb.bn // hb.gsz_sem, hb.bn // hb.gsz_geo
+        scan_args = (q_cat, hb.g_sem_cat, hb.g_geo_cat, hb.g_sem_vw_lr, hb.g_geo_vw_lr)
+        scan_kw = dict(gpt_s=gpt_s, gpt_g=gpt_g)
+        got = rh._hier_scan_call(*scan_args, **scan_kw)
+        ref = rh._hier_scan_plain(*scan_args, **scan_kw)
+        Ws, Wg = hb.g_sem_vw_lr.shape[1], hb.g_geo_vw_lr.shape[1]
+        mag = rh._hier_scan_plain(q_cat, hb.g_sem_cat, hb.g_geo_cat, hb.g_sem_vw_lr.abs(),
+                                  hb.g_geo_vw_lr.abs(), **scan_kw)[4]
+        flip = ("an exp2 within the logits' f32 difference of a bf16 boundary rounds "
+                "the other way: one ulp of one term")
+        errs = [
+            _compare("hier_scan m_s", got[0], ref[0], 1e-4, 0.0,
+                     "f32 sums of the same bf16 products in another order, |l| < 60"),
+            _compare("hier_scan s_s", got[1], ref[1], 0.0, 1e-4,
+                     "f32 sums of f32 exp2 in another order"),
+            _compare("hier_scan m_g", got[2], ref[2], 1e-4, 0.0,
+                     "f32 sums of the same bf16 products in another order, |l| < 60"),
+            _compare("hier_scan s_g", got[3], ref[3], 0.0, 1e-4,
+                     "f32 sums of f32 exp2 in another order"),
+            _compare_terms("hier_scan tails[sem]", got[4][:, :Ws], ref[4][:, :Ws],
+                           mag[:, :Ws], flip),
+            _compare_terms("hier_scan tails[geo]", got[4][:, Ws:], ref[4][:, Ws:],
+                           mag[:, Ws:], flip)]
+        m_s, s_s, m_g, s_g, tails = got
+        idx_s = rh.select_tiles(m_s, s_s, m_g, s_g, t_real=hb.t_real, k_tiles=k_tiles,
+                                   bm=bm, n_valid=BATCH, j_sem=j_sem, j_geo=cfg.j_geo,
+                                   mode="range")
+        idx_g = rh.select_tiles(m_g, s_g, m_s, s_s, t_real=hb.t_real, k_tiles=k_geo,
+                                   bm=bm, n_valid=BATCH, j_sem=cfg.j_geo, j_geo=j_sem,
+                                   mode="range")
+        ms = _cuda_ms(lambda: rh._hier_scan_call(*scan_args, **scan_kw), 10)
+        plain_ms = _cuda_ms(lambda: rh._hier_scan_plain(*scan_args, **scan_kw), 3)
+        print(f"hier_scan B={BATCH}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+        Gs, Gg = hb.t_real * gpt_s, hb.t_real * gpt_g
+        ws, wg = hb.g_sem_cat.shape[1], hb.g_geo_cat.shape[1]
+        # the work needed: sem group logits over sem_d columns, geo over the 9
+        # real ones; tails over the lr coefficients and the count column (the
+        # operands pad geo to 128 and W to a multiple of 128)
+        flops = 2 * BATCH * (Gs * (hb.sem_d + hb.lr_rank + 1)
+                             + Gg * (GEO_COLS + hb.lr_geo + 1))
+        n_bytes = (BATCH * (ws + wg) * 2 + (Gs * (ws + Ws) + Gg * (wg + Wg)) * 2
+                   + 4 * BATCH * hb.t_pad * 4 + BATCH * (Ws + Wg) * 4)
+        b_ms, b_by = _bound(n_bytes, flops, BF16_FLOPS)
+        report["hier_scan"] = dict(max_abs_err=max(e for e, _ in errs),
+                                   err_over_tol=max(r for _, r in errs), ms=ms,
+                                   plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+
+        parts = {}
+        p_ms = p_plain = p_bytes = p_flops = 0.0
+        p_errs = []
+        for fam, idx, g_cat, vw, z, gpt, lrr in (
+                ("sem", idx_s, hb.g_sem_cat, hb.g_sem_vw_lr, hb.z_sem, gpt_s, hb.lr_rank),
+                ("geo", idx_g, hb.g_geo_cat, hb.g_geo_vw_lr, hb.z_geo, gpt_g, hb.lr_geo)):
+            args = (q_cat, hb.k_cat, hb.mask_neg, idx, g_cat, vw, z)
+            kw = dict(sem_d=hb.sem_d, bm=bm, bn=hb.bn, gpt=gpt, geo=fam == "geo", lrr=lrr)
+            got = rh._hier_parts_family_call(*args, **kw)
+            ref = rh._hier_parts_family_plain(*args, **kw)
+            mag = rh._hier_parts_family_plain(*args, **kw, magnitude=True)
+            rrp = z.shape[1]
+            why = ("bf16(p) and bf16(e - ps/cnt) can round the other way where the "
+                   "logits' f32 summation order moves them across a bf16 boundary: "
+                   "one ulp of one term")
+            for seg, cols in (("az", slice(0, rrp)), ("alr", slice(rrp + 128, None))):
+                p_errs.append(_compare_terms(f"hier_parts_family[{fam}] {seg}",
+                                             got[:, cols], ref[:, cols], mag[:, cols], why))
+            if got[:, rrp:rrp + 128].abs().max().item() != 0.0:
+                raise AssertionError(f"hier_parts_family[{fam}]: d/pad columns not zero")
+            parts[fam] = got
+            f_ms = _cuda_ms(lambda: rh._hier_parts_family_call(*args, **kw), 10)
+            f_plain = _cuda_ms(lambda: rh._hier_parts_family_plain(*args, **kw), 2)
+            print(f"hier_parts_family[{fam}] B={BATCH} K={idx.shape[1]}: kernel "
+                  f"{f_ms:.3f} ms, plain {f_plain:.3f} ms")
+            p_ms += f_ms
+            p_plain += f_plain
+            K = idx.shape[1]
+            kf = hb.cat_d - hb.sem_d if fam == "geo" else hb.sem_d
+            gw, W = g_cat.shape[1], vw.shape[1]
+            # the work needed: row and group logits over the family's real
+            # columns (sem_d, or the 9 geo ones), az over the rr columns, alr
+            # over the lr coefficients and the count column
+            real = GEO_COLS if fam == "geo" else hb.sem_d
+            U = int(torch.unique(idx).numel())  # tiles read, each once
+            p_flops += 2 * BATCH * K * (hb.bn * (real + rrp) + gpt * (real + lrr + 1))
+            p_bytes += (BATCH * kf * 2 + U * hb.bn * ((kf + rrp) * 2 + 4)
+                        + U * gpt * (gw + W) * 2 + BATCH * (rrp + 128 + W) * 4)
+        b_ms, b_by = _bound(p_bytes, p_flops, BF16_FLOPS)
+        report["hier_parts_family"] = dict(max_abs_err=max(e for e, _ in p_errs),
+                                           err_over_tol=max(r for _, r in p_errs), ms=p_ms,
+                                           plain_ms=p_plain, bound_ms=b_ms, bound_by=b_by)
+
+        q_srt = torch.nn.functional.pad(q, (0, 0, 0, q_cat.shape[0] - BATCH))[order]
+        q_srt = q_srt.contiguous()
+        ck = dict(Ws=Ws, r=hb.lr_rank, rrp=hb.z_sem.shape[1], Dv=hb.value_dim, beta=0.5,
+                  rg=hb.lr_geo, Wg=Wg)
+        c_args = (parts["sem"], parts["geo"], tails, q_srt, hb.w_sem, hb.u_sem, hb.w_geo,
+                  hb.u_geo)
+        err, ratio = _compare("combine_cat", rh._combine_cat_call(*c_args, **ck),
+                              rh._combine_cat_plain(*c_args, **ck), 1e-5, 1e-5,
+                              "f32 products in another summation order")
+        ms = _cuda_ms(lambda: rh._combine_cat_call(*c_args, **ck), 10)
+        plain_ms = _cuda_ms(lambda: rh._combine_cat_plain(*c_args, **ck), 10)
+        print(f"combine_cat B={BATCH}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+        Dv, rrp, Dq = hb.value_dim, ck["rrp"], q_srt.shape[1]
+        flops = 2 * BATCH * Dv * (2 * rrp + ck["r"] + ck["rg"])
+        n_bytes = (BATCH * ((rrp + 128) * 2 + 2 * (Ws + Wg) + Dq) * 4
+                   + (2 * rrp + ck["r"] + ck["rg"]) * Dv * 4 + BATCH * (Dv + Dq) * 4)
+        b_ms, b_by = _bound(n_bytes, flops, F32_FLOPS)
+        report["combine_cat"] = dict(max_abs_err=err, err_over_tol=ratio, ms=ms,
+                                     plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+
+    # ---- 7. the flagship path, through the entry point
+    counters = {"siren_tower": sh.siren_tower, "fused_retrieval": rf.retrieve_fused,
+                "hier_scan": rh._hier_scan_call,
+                "hier_parts_family": rh._hier_parts_family_call,
+                "combine_cat": rh._combine_cat_call}
+    per_request = {"siren_tower": 1, "fused_retrieval": 0, "hier_scan": 1,
+                   "hier_parts_family": 2, "combine_cat": 1}
+    requests = [_random_coords(b, gen, dev) for b in REQUESTS]
+    for fn in counters.values():
+        fn.launches = 0
+    answers = []
+    for c in requests:
+        before = {k: fn.launches for k, fn in counters.items()}
+        answers.append(_send(enc, c))
+        torch.cuda.synchronize()
+        rose = {k: fn.launches - before[k] for k, fn in counters.items()}
+        print(f"flagship B={c.shape[0]}: (bm, K, k_geo, j_sem) = "
+              f"{cfg.hier_plan(c.shape[0])}, launches {rose}")
+        if rose != per_request:
+            raise AssertionError(f"flagship B={c.shape[0]}: launches {rose}, "
+                                 f"expected {per_request}")
+    launches = {k: fn.launches for k, fn in counters.items()}
+    print(f"flagship path launches: {launches}")
+    for k in ("hier_scan", "hier_parts_family", "combine_cat"):
+        report[k]["launches"] = launches[k]
+
+    for c, out in zip(requests, answers):
+        B = c.shape[0]
+        if out.shape != (B, 1280) or not torch.isfinite(out).all():
+            raise AssertionError(f"flagship B={B}: shape {tuple(out.shape)} or non-finite")
+        norm_err = (torch.linalg.norm(out[:, Dv:], dim=1) - 1.0).abs().max().item()
+        if norm_err > 1e-5:
+            raise AssertionError(f"flagship B={B}: query part not unit-norm ({norm_err:.2e})")
+
+    # ---- 8. fidelity at B=10,000 against the exact f32 retrieve
+    out = answers[-1]
+    with torch.no_grad():
+        ref = retrieval.retrieve(out[:, Dv:], lonlat_deg_to_xyz(requests[-1]), hb.bank,
+                                 sem_temp=12.0, beta=0.5)
+    rel = (out[:, :Dv] - ref).abs() / ref.abs().clamp_min(0.1)
+    mean, p99 = rel.mean().item(), torch.quantile(rel.flatten()[::4], 0.99).item()
+    print(f"flagship B={BATCH} relerr vs exact f32 retrieve: mean {mean:.5f} (bar 0.04), "
+          f"p99 {p99:.5f} (bar 0.165; every 4th element)")
+    if mean > 0.04 or p99 > 0.165:
+        raise AssertionError("flagship fidelity outside its bars")
+
+    e2e = _host_ms(lambda: enc(requests[-1]), 5)
+    print(f"flagship RANGE+ end to end B={BATCH} (coords already on the card): "
+          f"median {e2e:.3f} ms over 5 calls")
+    _trace(lambda: enc(requests[-1]), 3, f"flagship B={BATCH}")
+    return e2e
+
+
+def _trace(fn, calls: int, tag: str) -> None:
+    """torch.profiler over `calls` calls after a warm-up: the device's busy
+    time (the sum of its kernels' and copies' spans; one stream, so they do
+    not overlap), the host span of the window, the idle share 1 - busy /
+    span, and the kernels with the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        span = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            dur = (e.time_range.end - e.time_range.start) / 1e3
+            by_name[e.name] = by_name.get(e.name, 0.0) + dur
+    busy = sum(by_name.values())
+    if not busy:
+        print(f"trace {tag}: the profiler recorded no device time (not measured)")
+        return
+    print(f"trace {tag}: {calls} calls, host span {span:.3f} ms, device busy "
+          f"{busy:.3f} ms, idle share {1 - busy / span:.4f}")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"  {ms / calls:9.3f} ms/call  {100 * ms / busy:6.2f}%  {name[:90]}")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    import range_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
+
+    # ---- 1. environment
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(smi)  # the card's name and power limit, as nvidia-smi gives them
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.get_device_name(0)}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    _build_all()  # ---- 2.
+    report = {}
+    dense_ms = dense_phases(dev, gen, report)
+    hier_ms = hier_phases(dev, gen, report)
+    print(f"end to end B={BATCH}: flagship {hier_ms:.3f} ms, dense {dense_ms:.3f} ms")
+
+    sources = {
+        "siren_tower": "range_tpu/ops/sh.py:726",
+        "fused_retrieval": "range_tpu/ops/retrieval_pallas.py:123",
+        "hier_scan": "range_tpu/ops/retrieval_hier.py:1443",
+        "hier_parts_family": "range_tpu/ops/retrieval_hier.py:2282",
+        "combine_cat": "range_tpu/ops/retrieval_hier.py:3102",
+    }
+    kernels = [dict(name=k, route="cuda", source=f"range_tpu_torch/csrc/{k}.cu",
+                    replaces=sources[k], launches=report[k]["launches"],
+                    max_abs_err=report[k]["max_abs_err"],
+                    err_over_tol=report[k]["err_over_tol"], ms=report[k]["ms"],
+                    plain_ms=report[k]["plain_ms"], bound_ms=report[k]["bound_ms"],
+                    bound_by=report[k]["bound_by"], library_ms=None)
+               for k in KERNELS]
     print(json.dumps({"kernels": kernels}))
+    # the run drives one card
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": 1}}))
     return 0
 
 

@@ -1,8 +1,10 @@
 """range_tpu_torch — the PyTorch + CUDA (Hopper) port of range_tpu.
 
-Serves the dense RANGE / RANGE+ path and the SatCLIP tower with two
-hand-written CUDA kernels (`csrc/`): the fused SH + SIREN tower and the
-fused dense dual-softmax retrieval.  Imports torch and numpy, never jax.
+Serves the dense RANGE / RANGE+ path, the hierarchical RANGE+ flagship
+path and the SatCLIP tower with hand-written CUDA kernels (`csrc/`): the
+fused SH + SIREN tower, the fused dense dual-softmax retrieval, and the
+hierarchical scan, family parts and combine kernels.  Imports torch and
+numpy, never jax.
 """
 
 from .api import GeoEncoder, list_models, load_model

@@ -2,9 +2,10 @@
 
 Counterpart of `range_tpu/api.py:31-79,121-266,433-491` (reference
 `range/load_model.py:16-51`) for the models this port serves: RANGE,
-RANGE+ (dense retrieval, the "exact" serving profile) and the SatCLIP
-tower.  A builder returns a `GeoEncoder`: an `nn.Module` plus its static
-``embedding_dim`` and device.  Coordinates go in as [B, 2] (lon, lat)
+RANGE+ (dense retrieval, the "exact" serving profile; RANGE+ also
+hierarchical, the "flagship" and "turbo" profiles) and the SatCLIP tower.
+Each registered constructor returns a `GeoEncoder`: an `nn.Module` plus
+its static ``embedding_dim`` and device.  Coordinates go in as [B, 2] (lon, lat)
 degrees and a [B, D] tensor on the model's device comes out.
 
 ``device`` defaults to "cuda"; CPU use is explicit (``device="cpu"``).
@@ -23,6 +24,7 @@ from torch import nn
 
 from .bank.bank import GeoBank
 from .models.range_encoder import RangeConfig, RangeEncoder
+from .ops.retrieval_hier import HierBank, prepare_hier_bank
 from .models.satclip import SatClipLocationConfig, SatClipLocationEncoder
 
 
@@ -75,19 +77,41 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP.md: {item})")
 
 
-def _as_bank(db: Union[str, GeoBank, None], chunk: int,
-             device: torch.device) -> GeoBank:
+def _as_bank(db: Union[str, GeoBank, HierBank, None], chunk: int,
+             device: torch.device):
     if db is None:
-        raise ValueError("db_path is required for RANGE models "
-                         "(a path to a range_db npz, a GeoBank, or 'synthetic:N')")
-    if isinstance(db, GeoBank):
+        raise ValueError("db_path is required for RANGE models (a path to a "
+                         "range_db npz, a GeoBank, a HierBank, 'synthetic:N' "
+                         "or 'informative:N')")
+    if isinstance(db, (GeoBank, HierBank)):
         return db.to(device)
     if isinstance(db, str) and db.startswith("synthetic:"):
         return GeoBank.synthetic_device(0, int(db.split(":")[1]), pad_to=chunk,
                                         device=device)
     if isinstance(db, str) and db.startswith("informative:"):
-        raise _not_ported("the 'informative:N' bank", "Queue 1, 'Bank build'")
+        # spatially autocorrelated synthetic bank whose keys are the seed-0
+        # tower's embeddings of the bank locations
+        return GeoBank.synthetic_informative(0, int(db.split(":")[1]),
+                                             pad_to=chunk, device=device)
     return GeoBank.from_npz(db, pad_to=chunk, device=device)
+
+
+def _hier_bank(bank, cache: Optional[str], build: Dict[str, Any]) -> HierBank:
+    """The serving HierBank: ``bank`` itself when it is one (its build
+    knobs must be the requested ones), else `prepare_hier_bank` with the
+    signature-checked disk cache ``cache``."""
+    if not isinstance(bank, HierBank):
+        return prepare_hier_bank(bank, cache_path=cache, **build)
+    Dv = bank.value_dim
+    want = {k: build[k] for k in ("bn", "gsz_sem", "gsz_geo", "topk_gsz",
+                                  "tier")}
+    for k in ("lr_rank", "lr_geo", "res_rank"):
+        want[k] = min(build[k], Dv) if build[k] else 0
+    got = {k: getattr(bank, k) for k in want}
+    if got != want:
+        raise ValueError(f"the HierBank was built with {got}, the request "
+                         f"asks for {want}")
+    return bank
 
 
 def _satclip_tower(pretrained_path: Optional[str], dtype, seed: int,
@@ -109,6 +133,17 @@ def _build_range(name: str, mode: str, pretrained_path, db_path, beta, *,
                  chunk: int = 4096, compute_dtype=torch.float32,
                  tier: str = "fast", use_pallas: Optional[bool] = None,
                  value_quant: Optional[str] = None, retrieval: str = "dense",
+                 k_tiles: int = 16, k_geo: int = 0, hier_min_batch: int = 0,
+                 j_sem: int = 2, j_geo: int = 2, hier_bm: int = 256,
+                 adaptive_frac: float = 0.0,
+                 hier_bn: int = 512, gsz_sem: int = 8, gsz_geo: int = 64,
+                 gsz_super: int = 0, group_by: str = "key_value",
+                 group_value_weight: float = 1.0,
+                 lr_rank: Optional[int] = None, lr_geo: Optional[int] = None,
+                 res_rank: Optional[int] = None, topk_gsz: int = 0,
+                 topk_lr: int = 0, tail_super: int = 0, sel_lr: int = 0,
+                 m_corr: int = 0, dedup: int = 0,
+                 hier_cache: Optional[str] = None,
                  tower_matmul: Optional[str] = None, mesh=None,
                  **kw) -> GeoEncoder:
     if mesh is not None:
@@ -118,17 +153,42 @@ def _build_range(name: str, mode: str, pretrained_path, db_path, beta, *,
         raise TypeError(
             f"load_model({name!r}): unknown keyword argument(s) "
             f"{sorted(kw)}; valid knobs: {_RANGE_KWARGS} (the JAX package's "
-            "hierarchical and multi-device knobs are not ported yet: "
-            "ROADMAP.md, Queue 1)")
+            "multi-device knobs and the hierarchical knobs of its unported "
+            "paths are not ported yet: ROADMAP.md, Queue 1)")
     if value_quant == "int8":
         raise _not_ported("value_quant='int8'", "Queue 1, 'int8 values'")
     if value_quant is not None:
         raise ValueError(f"value_quant must be None or 'int8', got {value_quant!r}")
+    if retrieval not in ("dense", "hier"):
+        raise ValueError(f"retrieval must be 'dense' or 'hier', got {retrieval!r}")
+    if retrieval == "hier":
+        # every knob that raises is checked before the (slow) bank build
+        if mode != "range+":
+            raise _not_ported("hierarchical RANGE (needs TPU kernels 9 and "
+                              "15)", "Queue 1, 'Hier serving: what remains'")
+        for knob, val in (("adaptive_frac", adaptive_frac),
+                          ("m_corr", m_corr), ("dedup", dedup),
+                          ("gsz_super", gsz_super), ("tail_super", tail_super),
+                          ("topk_lr", topk_lr), ("sel_lr", sel_lr)):
+            if val:
+                raise _not_ported(f"{knob}={val!r}", "Queue 1, 'Hier serving:"
+                                  " what remains'")
+    tower = _satclip_tower(pretrained_path, dtype, seed, tower_matmul, device)
+    bank = _as_bank(db_path, chunk, device)
+    if retrieval == "hier":
+        bank = _hier_bank(bank, hier_cache, dict(
+            bn=hier_bn, gsz_sem=gsz_sem, gsz_geo=gsz_geo, group_by=group_by,
+            group_value_weight=group_value_weight, lr_rank=lr_rank,
+            lr_geo=lr_geo, res_rank=res_rank, topk_gsz=topk_gsz, tier=tier,
+            seed=seed))
+    elif isinstance(bank, HierBank):
+        bank = bank.bank
     cfg = RangeConfig(mode=mode, beta=beta, chunk=chunk,
                       compute_dtype=compute_dtype, tier=tier,
-                      use_pallas=use_pallas, retrieval=retrieval)
-    tower = _satclip_tower(pretrained_path, dtype, seed, tower_matmul, device)
-    enc = RangeEncoder(tower, _as_bank(db_path, chunk, device), cfg)
+                      use_pallas=use_pallas, retrieval=retrieval,
+                      k_tiles=k_tiles, k_geo=k_geo, j_sem=j_sem, j_geo=j_geo,
+                      hier_bm=hier_bm, hier_min_batch=hier_min_batch)
+    enc = RangeEncoder(tower, bank, cfg)
     return GeoEncoder(name, enc, enc.embedding_dim, device, dtype)
 
 
@@ -162,13 +222,28 @@ def _satclip(pretrained_path=None, *, device: torch.device,
     return GeoEncoder("SatCLIP", tower, tower.embedding_dim, device, dtype)
 
 
-# Named serving profiles (`range_tpu/api.py:433`).  Only "exact" is served
-# by this port; the hierarchical profiles wait for the hier port.
+# Named serving profiles, as `range_tpu/api.py:433-456` defines them.
+# Explicit kwargs override a profile's entries.
 SERVING_PROFILES: Dict[str, Dict[str, Any]] = {
     # exact dense retrieval: the reference semantics
     "exact": {"retrieval": "dense"},
+    # the flagship hierarchical path: joint key+value groups, low-rank sem
+    # and geo tails, residual-rank parts, gsz_sem 16 scan, topk_gsz 8
+    # stats operand, budgets K32/j3/k_geo 16, bf16 tower operands (the JAX
+    # profile's hier_scan_bm sets the TPU scan's block, a speed knob the
+    # CUDA scan has no use for)
+    "flagship": {
+        "retrieval": "hier", "lr_rank": 256, "lr_geo": 384, "res_rank": 128,
+        "gsz_sem": 16, "topk_gsz": 8, "k_tiles": 32, "j_sem": 3,
+        "k_geo": 16, "tower_matmul": "bf16",
+    },
+    # the same kernels at smaller exact budgets
+    "turbo": {
+        "retrieval": "hier", "lr_rank": 256, "lr_geo": 384, "res_rank": 128,
+        "gsz_sem": 16, "topk_gsz": 8, "k_tiles": 8, "j_sem": 2,
+        "k_geo": 4, "tower_matmul": "bf16",
+    },
 }
-_HIER_PROFILES = ("flagship", "turbo")
 
 
 def load_model(model_name: str = "RANGE+",
@@ -176,25 +251,24 @@ def load_model(model_name: str = "RANGE+",
                profile: Optional[str] = None, **kwargs) -> GeoEncoder:
     """Load a location encoder by reference name.
 
-    kwargs: ``db_path`` (required for RANGE/RANGE+; npz path, GeoBank, or
-    'synthetic:N'), ``beta`` (default 0.5), plus dtype, seed, chunk,
-    compute_dtype, tier, use_pallas, tower_matmul.  ``profile`` selects a
-    named serving bundle (SERVING_PROFILES); explicit kwargs override it.
+    kwargs: ``db_path`` (required for RANGE/RANGE+; npz path, GeoBank,
+    HierBank, 'synthetic:N' or 'informative:N'), ``beta`` (default 0.5),
+    plus dtype, seed, chunk, compute_dtype, tier, use_pallas, tower_matmul
+    and the hierarchical knobs (``retrieval='hier'``, ``hier_cache=`` a
+    path for the signature-checked HierBank archive).  ``profile`` selects
+    a named serving bundle (SERVING_PROFILES); explicit kwargs override it.
     ``device`` is where the weights, the bank and the computation live.
     """
     if model_name not in _REGISTRY:
         raise NotImplementedError(
             f"{model_name} not implemented; available: {list_models()}")
-    if profile in _HIER_PROFILES:
-        raise _not_ported(f"the {profile!r} serving profile",
-                          "Queue 1, 'Hier serving'")
     if profile is not None:
         try:
             base = SERVING_PROFILES[profile]
         except KeyError:
             raise ValueError(
                 f"unknown profile {profile!r}; available: "
-                f"{sorted(SERVING_PROFILES) + list(_HIER_PROFILES)}") from None
+                f"{sorted(SERVING_PROFILES)}") from None
         kwargs = {**base, **kwargs}
     if "RANGE" in model_name and "db_path" not in kwargs:
         raise AssertionError("db_path is required for RANGE model.")

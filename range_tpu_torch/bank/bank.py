@@ -155,6 +155,68 @@ class GeoBank:
                    keys_sem=keys, values=vals.to(value_dtype),
                    n_valid=int(n))
 
+    @classmethod
+    def synthetic_informative(cls, seed: int, n: int, key_dim: int = 256,
+                              value_dim: int = 1024, pad_to: int = 4096,
+                              key_dtype=torch.float32,
+                              value_dtype=torch.float32,
+                              key_noise: float = 0.25, tower_seed: int = 0,
+                              *, device) -> "GeoBank":
+        """Spatially autocorrelated synthetic bank generated on ``device``,
+        with the recipe of the JAX package's `synthetic_informative`
+        (`range_tpu/bank/bank.py:191-271`): keys are the seeded SatCLIP
+        tower's embeddings of the bank locations plus ``key_noise``
+        gaussian noise, re-normalized; values are ``tanh`` of a fixed random
+        projection of the tower features plus 0.1 gaussian noise.
+
+        The tower is the one `load_model(..., seed=tower_seed,
+        device=device)` builds (a `torch.Generator` seeded with
+        ``tower_seed`` on the same device: a CUDA generator draws other
+        numbers than a CPU one), so bank keys and served queries are
+        aligned.  Its features come from the plain basis -> net compose, as
+        the JAX package pins them.  Locations, noise and projection come
+        from a generator seeded with ``seed + 7919``; all numbers differ
+        from the JAX package's (another generator)."""
+        from ..models.satclip import (SatClipLocationConfig,
+                                      SatClipLocationEncoder)
+
+        n_rows = _round_up(n, pad_to)
+        g = torch.Generator(device=device).manual_seed(seed + 7919)
+        f32 = torch.float32
+
+        def uniform(lo, hi, *shape):
+            return torch.empty(shape, dtype=f32, device=device).uniform_(
+                lo, hi, generator=g)
+
+        def normal(*shape):
+            return torch.empty(shape, dtype=f32, device=device).normal_(
+                generator=g)
+
+        lons = uniform(-180.0, 180.0, n_rows)
+        lats = torch.rad2deg(torch.arcsin(uniform(-1.0, 1.0, n_rows)))
+        locs = torch.stack([lons, lats], 1)
+        row_ok = (torch.arange(n_rows, device=device) < n)[:, None]
+        tower = SatClipLocationEncoder(
+            SatClipLocationConfig(embed_dim=key_dim), device=device,
+            generator=torch.Generator(device=device).manual_seed(tower_seed))
+        CH = 131_072  # bounds the [rows, L*L] f32 basis of one chunk
+        with torch.no_grad():
+            f = torch.cat([tower.nnet(tower.posenc(locs[lo:lo + CH]))
+                           for lo in range(0, n_rows, CH)])
+        keys = f / torch.clamp_min(torch.linalg.norm(f, dim=1, keepdim=True),
+                                   1e-12)
+        keys = keys + key_noise * normal(n_rows, key_dim) / key_dim ** 0.5
+        keys = keys / torch.clamp_min(
+            torch.linalg.norm(keys, dim=1, keepdim=True), 1e-12)
+        keys = torch.where(row_ok, keys, 0.0).to(key_dtype)
+        w = normal(key_dim, value_dim) / key_dim ** 0.5
+        vals = torch.tanh(f @ w) + 0.1 * normal(n_rows, value_dim)
+        vals = torch.where(row_ok, vals, 0.0).to(value_dtype)
+        locs = torch.where(row_ok, locs, 0.0)
+        return cls(locs_lonlat=locs,
+                   xyz=torch.where(row_ok, lonlat_deg_to_xyz(locs), 0.0),
+                   keys_sem=keys, values=vals, n_valid=int(n))
+
     def row_mask(self) -> torch.Tensor:
         """[Np] float32 {0,1} validity mask."""
         if self.valid_mask is not None:

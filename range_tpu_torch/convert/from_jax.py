@@ -2,6 +2,9 @@
 
 The port never imports jax: callers hand over numpy arrays (or anything
 `np.asarray` accepts, such as JAX arrays in a test that imports both).
+A HierBank the JAX package saved (its `save_hier_bank`, or `python -m
+range_tpu.build_hier`) needs no converter: both packages share the archive
+format, so `ops.retrieval_hier.load_hier_bank(path, device=...)` reads it.
 """
 
 from __future__ import annotations

@@ -29,3 +29,13 @@ def lonlat_rad_to_xyz(lonlat_rad: torch.Tensor) -> torch.Tensor:
 def lonlat_deg_to_xyz(lonlat_deg: torch.Tensor) -> torch.Tensor:
     """Degree (lon, lat) [..., 2] -> unit xyz [..., 3]."""
     return lonlat_rad_to_xyz(deg2rad(lonlat_deg))
+
+
+def geo_sort_order(xyz: torch.Tensor, n_bands: int = 12) -> torch.Tensor:
+    """Spatial sort of unit vectors [N, 3]: latitude bands, then longitude
+    within a band (`range_tpu/geometry.py:115-124`).  Returns the stable
+    argsort permutation [N]."""
+    lat = torch.arcsin(torch.clamp(xyz[:, 2], -1, 1))
+    lon = torch.atan2(xyz[:, 1], xyz[:, 0])
+    band = torch.floor((lat + math.pi / 2) / (math.pi / n_bands))
+    return torch.argsort(band * 10.0 + lon / math.pi, stable=True)

@@ -2,10 +2,11 @@
 
 Each `csrc/<name>.cu` is compiled by `nvcc` at first use into a shared
 library with a plain C interface, under `range_tpu_torch/_build/`, and
-loaded with `ctypes`.  The library's file name carries a hash of its source
-and flags, so a changed source rebuilds.  Nothing outside the checkout is
-written.  Pointers and the CUDA stream go across as `c_void_p`; each C
-entry point returns `cudaGetLastError()` and the wrappers raise on non-zero.
+loaded with `ctypes`.  The library's file name carries a hash of its source,
+the shared headers (`csrc/*.cuh`) and the flags, so a changed source
+rebuilds.  Nothing outside the checkout is written.  Pointers and the CUDA
+stream go across as `c_void_p`; each C entry point returns
+`cudaGetLastError()` and the wrappers raise on non-zero.
 """
 
 from __future__ import annotations
@@ -32,6 +33,10 @@ _SIGNATURES = {
                     [_P] * 8 + [_I] * 4 + [_F, _F, _I, _P]),
     "fused_retrieval": ("fused_retrieval_launch",
                         [_P] * 5 + [_I] * 6 + [_F, _I, _P]),
+    "hier_scan": ("hier_scan_launch", [_P] * 10 + [_I] * 11 + [_P]),
+    "hier_parts_family": ("hier_parts_family_launch",
+                          [_P] * 9 + [_I] * 14 + [_P]),
+    "combine_cat": ("combine_cat_launch", [_P] * 7 + [_I] * 8 + [_F, _P]),
 }
 
 
@@ -50,8 +55,10 @@ def build_kernel(name: str):
     Returns (library path, build seconds, compiler output); seconds is 0.0
     and the output empty when the library was already built."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:16]
     lib = BUILD_DIR / f"lib{name}-{digest}.so"
     if lib.exists():
         return lib, 0.0, ""

@@ -9,8 +9,10 @@ Counterpart of `range_tpu/models/range_encoder.py:44-274` (reference
      blended ``beta * semantic + (1-beta) * angular``
   4. output = concat([retrieved_Dv, query_256])
 
-Only dense retrieval is ported: hierarchical retrieval, multi-device meshes
-and HierBanks raise `NotImplementedError`.
+With a `HierBank` and ``retrieval='hier'`` the retrieval is the
+hierarchical flagship path (`ops/retrieval_hier.retrieve_hier`), with the
+JAX package's batch-size heuristics (`range_encoder.py:147-223`).
+Multi-device meshes are not ported.
 """
 
 from __future__ import annotations
@@ -25,15 +27,12 @@ from ..bank.bank import GeoBank
 from ..geometry import lonlat_deg_to_xyz
 from ..ops import retrieval
 from ..ops.retrieval_fused import retrieve_pallas
+from ..ops.retrieval_hier import HierBank, retrieve_hier
 from .satclip import SatClipLocationEncoder
 
 RANGE_TEMP = 15.0
 RANGE_PLUS_SEM_TEMP = 12.0
 RANGE_PLUS_GEO_TEMP = 40.0
-
-_HIER_TODO = ("hierarchical retrieval (retrieval='hier', HierBank) is not "
-              "ported yet: ROADMAP.md, Queue 1 items 'Bank build' and "
-              "'Hier serving'")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,14 +47,36 @@ class RangeConfig:
     use_pallas: Optional[bool] = None
     # fused-kernel logit precision: 'fast' (default), 'high', 'exact'
     tier: str = "fast"
+    # 'dense' (exact, every bank row) or 'hier' (two-stage approximate
+    # over a HierBank, `ops/retrieval_hier.py`)
     retrieval: str = "dense"
+    k_tiles: int = 16      # hier: exact sem tiles per query block
+    k_geo: int = 0         # hier: exact geo tiles per query block
+    j_sem: int = 2         # hier: per-query top sem tiles kept
+    j_geo: int = 2         # hier: per-query top geo tiles kept
+    hier_bm: int = 256     # hier: largest query block of the selection
+    # hier: batches below this take the dense exact kernel over hb.bank
+    hier_min_batch: int = 0
 
     def __post_init__(self):
-        if self.retrieval == "hier":
-            raise NotImplementedError(_HIER_TODO)
-        if self.retrieval != "dense":
+        if self.retrieval not in ("dense", "hier"):
             raise ValueError(
                 f"retrieval must be 'dense' or 'hier', got {self.retrieval!r}")
+
+    def hier_plan(self, batch: int):
+        """(bm, k_tiles, k_geo, j_sem) for a batch of ``batch`` queries
+        (`range_tpu/models/range_encoder.py:157-175`): bm shrinks with the
+        batch (>= 128) so query blocks stay spatially tight, and batches
+        under 2,048 (8,192) widen the budgets 3x (1.5x)."""
+        bm = min(self.hier_bm, max(128, batch // 40 // 128 * 128))
+        k_tiles, k_geo, j_sem = self.k_tiles, self.k_geo, self.j_sem
+        if batch < 2048:
+            k_tiles, k_geo, j_sem = 3 * k_tiles, 3 * k_geo, j_sem + 2
+        elif batch < 8192:
+            k_tiles = k_tiles + k_tiles // 2
+            k_geo = k_geo + k_geo // 2
+            j_sem = j_sem + 1
+        return bm, k_tiles, k_geo, j_sem
 
     def resolved_sem_temp(self) -> float:
         if self.sem_temp is not None:
@@ -64,14 +85,16 @@ class RangeConfig:
 
 
 class RangeEncoder(nn.Module):
-    """Query tower + dense bank retrieval.  The bank is not a module
-    buffer: move it with `GeoBank.to` (the API places it at load)."""
+    """Query tower + bank retrieval.  The bank (a GeoBank, or a HierBank
+    for ``retrieval='hier'``) is not a module buffer: move it with its
+    ``to`` (the API places it at load)."""
 
-    def __init__(self, query_encoder: SatClipLocationEncoder, bank: GeoBank,
+    def __init__(self, query_encoder: SatClipLocationEncoder, bank,
                  config: RangeConfig):
         super().__init__()
-        if not isinstance(bank, GeoBank):
-            raise NotImplementedError(_HIER_TODO)
+        if not isinstance(bank, (GeoBank, HierBank)):
+            raise TypeError(f"bank must be a GeoBank or a HierBank, got "
+                            f"{type(bank).__name__}")
         self.query_encoder = query_encoder
         self.bank = bank
         self.config = config
@@ -81,16 +104,26 @@ class RangeEncoder(nn.Module):
         q = self.query_encoder(lonlat_deg)
         return q / torch.linalg.norm(q, dim=-1, keepdim=True)
 
-    def forward(self, lonlat_deg: torch.Tensor,
-                bank: Optional[GeoBank] = None) -> torch.Tensor:
+    def forward(self, lonlat_deg: torch.Tensor, bank=None) -> torch.Tensor:
         cfg = self.config
         bank = self.bank if bank is None else bank
-        if not isinstance(bank, GeoBank):
-            raise NotImplementedError(_HIER_TODO)
         q_sem = self.query_embedding(lonlat_deg).to(torch.float32)
         q_xyz = None
         if cfg.mode == "range+":
             q_xyz = lonlat_deg_to_xyz(lonlat_deg.to(torch.float32))
+        B = lonlat_deg.shape[0]
+        if isinstance(bank, HierBank) and (cfg.retrieval != "hier"
+                                           or B < cfg.hier_min_batch):
+            bank = bank.bank  # the dense exact path over the same rows
+        if isinstance(bank, HierBank):
+            bm, k_tiles, k_geo, j_sem = cfg.hier_plan(B)
+            # concat_query: the [retrieved | query] concat happens inside
+            # the combine kernel's epilogue
+            return retrieve_hier(
+                q_sem, q_xyz, bank, sem_temp=cfg.resolved_sem_temp(),
+                geo_temp=cfg.geo_temp, beta=cfg.beta, mode=cfg.mode,
+                k_tiles=k_tiles, k_geo=k_geo, bm=bm, j_sem=j_sem,
+                j_geo=cfg.j_geo, concat_query=q_sem)
         use_pallas = cfg.use_pallas
         if use_pallas is None:
             use_pallas = lonlat_deg.device.type == "cuda"

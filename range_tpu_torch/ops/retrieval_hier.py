@@ -1,0 +1,963 @@
+"""Hierarchical (two-stage) approximate retrieval: bank build and serving.
+
+Counterpart of `range_tpu/ops/retrieval_hier.py` for the flagship RANGE+
+path (`api.SERVING_PROFILES['flagship']` and `['turbo']`).
+
+Build (`build_hier_bank`, offline, on the bank's device): geographic
+k-means reorder with dense packing (`bank/clustered.py`), a key+value
+k-means within each bn-row tile so that every gsz-row window is a coherent
+group, then the packed serving operands: keys, per-group centroids and
+value sums per family, the low-rank tails (`lr_rank`, `lr_geo`) and the
+residual-rank row coefficients (`res_rank`).
+
+Serving (`retrieve_hier`, the family-split lr + rr shape):
+  1. pad and pack the queries, sort them geographically (`_hybrid_order`);
+  2. the SCAN kernel: per (query, tile) max group logit and exp-mass for
+     both families, and the all-tiles group tail  e @ [V_g | n_g]
+     (`_hier_scan_call`);
+  3. `select_tiles` per family (K sem tiles, k_geo geo tiles per block of
+     bm queries);
+  4. the PARTS kernel per family: exact minus group approximation over the
+     selected tiles (`_hier_parts_family_call`);
+  5. the COMBINE kernel: unprojection, normalization, beta blend and the
+     query concat (`_combine_cat_call`); the un-sort is a torch gather.
+
+Each kernel wrapper runs its plain PyTorch version on CPU tensors and the
+CUDA kernel (`csrc/`) on CUDA tensors, and counts launches in
+``.launches``.  The numbers are f32 sums of bf16 products in both; the
+rounding points (bf16 p before every value product) are the JAX
+package's.  Knobs off this path raise `NotImplementedError` naming their
+ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import hashlib
+import json
+import logging
+import math
+import os
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..bank.bank import GeoBank
+from ..bank.clustered import cluster_bank, tile_stats
+from .kmeans import kmeans
+from .retrieval_fused import (CLAMP2, NEG, _round_up, _split_hilo, pack_bank,
+                              pack_queries, packed_dims)
+
+# group operands are padded to a multiple of TC tiles (the JAX scan's tile
+# chunk); kept so that t_pad, and with it every operand shape, matches
+TC = 32
+
+_ROADMAP_BUILD = "ROADMAP.md, Queue 1 'Bank build: knobs left unported'"
+_ROADMAP_SERVE = "ROADMAP.md, Queue 1 'Hier serving: what remains'"
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet ({item})")
+
+
+@dataclasses.dataclass
+class HierBank:
+    """Clustered and prepacked serving bank, with the JAX `HierBank`'s
+    field names (`retrieval_hier.py:97-237`).  N = padded rows, T = N/bn
+    real tiles padded to t_pad (a multiple of 32) in the group operands,
+    G* = t_pad * bn/gsz_*.
+
+      bank:        the clustered GeoBank (row-reordered, dense-packed)
+      k_cat:       [N, cat_d] packed serving keys (pack_bank, `tier`)
+      values:      [N, Dv] serving values (bf16)
+      mask_neg:    [1, N] f32 additive row mask (0 / -1e30)
+      sem_/geo_centroid, sem_/geo_radius: per-tile bounding balls
+      g_sem_cat:   [G_s, sem_d] packed sem group centroids
+      g_geo_cat:   [G_g, cat_d - sem_d] packed geo group centroids
+      g_sem_vw / g_geo_vw: [G*, Dvp] group value sums, count in column Dv
+      khl_sem:     [N, 2*Dk] bf16 [k_hi | k_lo]
+      g_sem_vw_lr: [G_s, rp] rank-lr_rank coefficients, count in column
+                   lr_rank; u_sem [lr_rank, Dv] f32 basis (same for geo)
+      z_sem/z_geo: [N, rrp] residual-rank coefficients; w_sem/w_geo
+                   [rrp, Dv] f32 bases
+      g_topk_cat:  [G_t, sem_d] stats-only sem centroids at topk_gsz
+    The other operands of the JAX HierBank (two-level, tail_super, topk_lr
+    and sel_lr) are carried by save/load but not built or served here.
+    """
+
+    bank: GeoBank
+    k_cat: torch.Tensor
+    values: torch.Tensor
+    value_scale: Optional[torch.Tensor]
+    mask_neg: torch.Tensor
+    sem_centroid: torch.Tensor
+    geo_centroid: torch.Tensor
+    sem_radius: torch.Tensor
+    geo_radius: torch.Tensor
+    g_sem_cat: torch.Tensor
+    g_geo_cat: torch.Tensor
+    g_sem_vw: torch.Tensor
+    g_geo_vw: torch.Tensor
+    khl_sem: Optional[torch.Tensor] = None
+    g_sup_cat: Optional[torch.Tensor] = None
+    g_sup_vw: Optional[torch.Tensor] = None
+    g_sem_vw_lr: Optional[torch.Tensor] = None
+    u_sem: Optional[torch.Tensor] = None
+    g_geo_vw_lr: Optional[torch.Tensor] = None
+    u_geo: Optional[torch.Tensor] = None
+    z_sem: Optional[torch.Tensor] = None
+    w_sem: Optional[torch.Tensor] = None
+    z_geo: Optional[torch.Tensor] = None
+    w_geo: Optional[torch.Tensor] = None
+    g_sem_ts_vw: Optional[torch.Tensor] = None
+    g_sem_ts_dvw: Optional[torch.Tensor] = None
+    g_topk_cat: Optional[torch.Tensor] = None
+    g_topk_lr: Optional[torch.Tensor] = None
+    p_topk: Optional[torch.Tensor] = None
+    g_sem_sel: Optional[torch.Tensor] = None
+    p_sel: Optional[torch.Tensor] = None
+    tier: str = "fast"
+    bn: int = 512
+    gsz_sem: int = 8
+    gsz_geo: int = 64
+    gsz_super: int = 0
+    lr_rank: int = 0
+    lr_geo: int = 0
+    res_rank: int = 0
+    topk_gsz: int = 0
+    topk_lr: int = 0
+    tail_super: int = 0
+    sel_lr: int = 0
+    sem_d: int = 256
+    cat_d: int = 384
+    t_real: int = 0
+    t_pad: int = 0
+
+    @property
+    def value_dim(self) -> int:
+        return self.values.shape[1]
+
+    def to(self, device) -> "HierBank":
+        moved = {f: getattr(self, f).to(device) for f in _ARRAY_FIELDS
+                 if getattr(self, f) is not None}
+        return dataclasses.replace(self, bank=self.bank.to(device), **moved)
+
+
+_ARRAY_FIELDS = (
+    "k_cat", "values", "value_scale", "mask_neg", "sem_centroid",
+    "geo_centroid", "sem_radius", "geo_radius", "g_sem_cat", "g_geo_cat",
+    "g_sem_vw", "g_geo_vw", "khl_sem", "g_sup_cat", "g_sup_vw", "g_sem_vw_lr",
+    "u_sem", "g_geo_vw_lr", "u_geo", "z_sem", "w_sem", "z_geo", "w_geo",
+    "g_sem_ts_vw", "g_sem_ts_dvw", "g_topk_cat", "g_topk_lr", "p_topk",
+    "g_sem_sel", "p_sel")
+_META_FIELDS = ("tier", "bn", "gsz_sem", "gsz_geo", "gsz_super", "lr_rank",
+                "lr_geo", "res_rank", "topk_gsz", "topk_lr", "tail_super",
+                "sel_lr", "sem_d", "cat_d", "t_real", "t_pad")
+
+
+# ---------------------------------------------------------------------------
+# bank build
+
+
+def _order_rows_within_tiles(keys: torch.Tensor, valid: torch.Tensor,
+                             bn: int, n_groups: int,
+                             n_super: int = 0) -> np.ndarray:
+    """Permutation [N] reordering rows WITHIN each bn-row tile so rows with
+    similar features are consecutive (`retrieval_hier.py:256-322`):
+    per-tile k-means (6 Lloyd iterations seeded with strided rows, so no
+    random numbers), rows sorted by cluster label, invalid rows last.  Tile
+    membership is untouched."""
+    if n_super:
+        raise _not_ported("the hierarchical within-tile order (gsz_super)",
+                          _ROADMAP_BUILD)
+    N = keys.shape[0]
+    T = N // bn
+    vs = valid.reshape(T, bn)
+    stride = bn // n_groups
+    assign = []
+    for lo in range(0, T, 256):  # tiles are independent: bound the memory
+        feats = keys[lo * bn:(lo + 256) * bn].to(torch.float32).reshape(
+            -1, bn, keys.shape[1])
+        _, a = kmeans(feats, n_groups, iters=6, valid=vs[lo:lo + 256],
+                      init_points=feats[:, ::stride])
+        assign.append(a.cpu().numpy())
+    label = np.concatenate(assign, axis=0)
+    vn = vs.cpu().numpy()
+    sort_key = label + (1.0 - vn) * (n_groups + 1)  # invalid rows last
+    order = np.argsort(sort_key, axis=1, kind="stable")
+    return (order + (np.arange(T) * bn)[:, None]).reshape(-1)
+
+
+def _group_sum(x: torch.Tensor, mg: torch.Tensor) -> torch.Tensor:
+    """einsum('gi,gid->gd', mg, x.reshape(G, gsz, -1)) in f32."""
+    G, gsz = mg.shape
+    return (mg[:, None, :] @ x.to(torch.float32).reshape(G, gsz, -1))[:, 0]
+
+
+def _eig_top(gram: torch.Tensor, k: int) -> torch.Tensor:
+    """[k, D]: the eigenvectors of the k largest eigenvalues, as rows
+    (ascending order, as `jnp.linalg.eigh`).  Column signs are arbitrary."""
+    _, vecs = torch.linalg.eigh(gram)
+    return vecs[:, -k:].T
+
+
+def build_hier_bank(bank: GeoBank, *, bn: int = 512, gsz_sem: int = 8,
+                    gsz_geo: int = 64, gsz_super: int = 0,
+                    tier: str = "fast", group_by: str = "key_value",
+                    group_value_weight: float = 1.0,
+                    lr_rank: Optional[int] = None,
+                    lr_geo: Optional[int] = None,
+                    res_rank: Optional[int] = None,
+                    topk_gsz: int = 0, topk_lr: int = 0,
+                    tail_super: int = 0, sel_lr: int = 0,
+                    n_clusters: Optional[int] = None, iters: int = 8,
+                    seed: int = 0, shards: int = 1,
+                    host_stage: Optional[bool] = None) -> HierBank:
+    """Offline serving prep on the bank's device (`retrieval_hier.py:337-804`,
+    its device path).  ``seed`` names the build in its cache signature;
+    the clustering is seeded with explicit points and draws nothing."""
+    if bn % gsz_sem or bn % gsz_geo or bn // gsz_sem < 8 or bn // gsz_geo < 8:
+        raise ValueError(f"bn={bn} must hold >= 8 groups of gsz_sem={gsz_sem} "
+                         f"and gsz_geo={gsz_geo}")
+    if topk_gsz and (bn % topk_gsz or bn // topk_gsz < 8 or gsz_sem % topk_gsz):
+        raise ValueError(f"topk_gsz={topk_gsz} must nest inside gsz_sem="
+                         f"{gsz_sem} windows of bn={bn}")
+    for name, val in (("gsz_super", gsz_super), ("tail_super", tail_super),
+                      ("topk_lr", topk_lr), ("sel_lr", sel_lr)):
+        if val:
+            raise _not_ported(f"build_hier_bank({name}=...)", _ROADMAP_BUILD)
+    if shards > 1:
+        raise _not_ported("build_hier_bank(shards>1)", "ROADMAP.md, Queue 1 "
+                          "'Multi-GPU'")
+    if host_stage or bank.num_rows > 262_144:
+        raise _not_ported("the host-staged and bf16 builds above 262,144 rows",
+                          _ROADMAP_BUILD)
+    if group_by not in ("key", "key_value"):
+        raise ValueError(f"group_by must be 'key' or 'key_value', got {group_by!r}")
+    cbank = cluster_bank(bank, bn=bn, n_clusters=n_clusters, iters=iters)
+    if group_by == "key_value":
+        # groups cluster on [key | lam * v/|v|] so group value sums stay
+        # value-pure (`retrieval_hier.py:443-471`)
+        vf = cbank.values.to(torch.float32)
+        vn = vf / torch.clamp_min(torch.linalg.norm(vf, dim=1, keepdim=True),
+                                  1e-9)
+        gfeat = torch.cat([cbank.keys_sem.to(torch.float32),
+                           group_value_weight * vn], 1)
+    else:
+        gfeat = cbank.keys_sem
+    perm = torch.as_tensor(
+        _order_rows_within_tiles(gfeat, cbank.row_mask(), bn, bn // gsz_sem),
+        dtype=torch.long, device=bank.device)
+    del gfeat
+    cbank = dataclasses.replace(
+        cbank, locs_lonlat=cbank.locs_lonlat[perm], xyz=cbank.xyz[perm],
+        keys_sem=cbank.keys_sem[perm], values=cbank.values[perm],
+        valid_mask=cbank.valid_mask[perm])
+    return pack_hier_bank(cbank, bn=bn, gsz_sem=gsz_sem, gsz_geo=gsz_geo,
+                          tier=tier, lr_rank=lr_rank, lr_geo=lr_geo,
+                          res_rank=res_rank, topk_gsz=topk_gsz)
+
+
+def pack_hier_bank(cbank: GeoBank, *, bn: int, gsz_sem: int, gsz_geo: int,
+                   tier: str = "fast", lr_rank: Optional[int] = None,
+                   lr_geo: Optional[int] = None,
+                   res_rank: Optional[int] = None,
+                   topk_gsz: int = 0) -> HierBank:
+    """The serving operands of a bank whose rows are already in their
+    final order (`retrieval_hier.py:494-804`, the ``prep`` stage):
+    `build_hier_bank`'s second half.  Tests feed it the JAX build's row
+    order to hold the operands against JAX's without k-means ties."""
+    Dv = cbank.value_dim
+    lr_rank = min(lr_rank, Dv) if lr_rank else 0
+    lr_geo = min(lr_geo, Dv) if lr_geo else 0
+    res_rank = min(res_rank, Dv) if res_rank else 0
+    f32 = torch.float32
+    N = cbank.num_rows
+    T = N // bn
+    t_pad = _round_up(T, TC)
+    stats = tile_stats(cbank, bn)
+    sem_d, cat_d = packed_dims(cbank.key_dim, tier)
+    Dk = cbank.key_dim
+    Dvp = _round_up(Dv + 1, 128)
+    vw_dtype = f32 if tier == "exact" else torch.bfloat16
+    dev = cbank.device
+    mask = cbank.row_mask()
+    vals_f32 = cbank.values.to(f32) * mask[:, None]
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=f32, device=dev)
+
+    def padg(x, G_pad):
+        return torch.nn.functional.pad(x, (0, 0, 0, G_pad - x.shape[0]))
+
+    def group_ops(feats, gsz, geo, stats_only=False):
+        """Packed slim centroids [G_pad, family cols] and value sums with
+        the count in column Dv [G_pad, Dvp] (`retrieval_hier.py:555-593`)."""
+        G, G_pad = N // gsz, t_pad * (bn // gsz)
+        mg = mask.reshape(G, gsz)
+        cnt = mg.sum(dim=1)
+        cg = _group_sum(feats, mg / torch.clamp_min(cnt, 1.0)[:, None])
+        if geo:
+            cat = pack_bank(zeros(G_pad, Dk), padg(cg, G_pad), tier)[:, sem_d:]
+        else:
+            cat = pack_bank(padg(cg, G_pad), zeros(G_pad, 3), tier)[:, :sem_d]
+        if stats_only:
+            return cat.contiguous(), None
+        vw = torch.cat([_group_sum(vals_f32, mg), cnt[:, None],
+                        zeros(G, Dvp - Dv - 1)], 1)
+        return cat.contiguous(), padg(vw, G_pad).to(vw_dtype)
+
+    def low_rank(gsz, r):
+        """Rank-r Gram eigenbasis of the group value sums: the packed
+        [coef | cnt | 0] operand, and (coef, cnt, u) for the residuals
+        (`retrieval_hier.py:625-670`)."""
+        G, G_pad = N // gsz, t_pad * (bn // gsz)
+        mg = mask.reshape(G, gsz)
+        cnt = mg.sum(dim=1)
+        vsum = _group_sum(vals_f32, mg)
+        u = _eig_top(vsum.T @ vsum, r)
+        coef = vsum @ u.T
+        lrw = torch.cat([coef, cnt[:, None],
+                         zeros(G, _round_up(r + 1, 128) - r - 1)], 1)
+        return padg(lrw, G_pad).to(vw_dtype), u.to(f32), (coef, cnt, u)
+
+    def fam_res(gsz, mean_lr):
+        """Residual-rank row coefficients against the serving group mean
+        (`retrieval_hier.py:695-745`; one chunk, as the JAX build takes at
+        the sizes this build accepts)."""
+        G = N // gsz
+        mg = mask.reshape(G, gsz)
+        if mean_lr is not None:
+            coef, cnt_lr, u = mean_lr
+            vbar = (coef / torch.clamp_min(cnt_lr, 1.0)[:, None]) @ u
+        else:
+            cnt = torch.clamp_min(mg.sum(dim=1), 1.0)
+            vbar = _group_sum(vals_f32, mg) / cnt[:, None]
+        R = ((vals_f32.reshape(G, gsz, Dv) - vbar[:, None, :])
+             * mg[..., None]).reshape(N, Dv)
+        w = _eig_top(R.T @ R, res_rank)
+        rrp = _round_up(res_rank, 128)
+        z = torch.nn.functional.pad(R @ w.T, (0, rrp - res_rank))
+        w = torch.nn.functional.pad(w, (0, 0, 0, rrp - res_rank))
+        return z.to(vw_dtype), w.to(f32)
+
+    g_sem_cat, g_sem_vw = group_ops(cbank.keys_sem, gsz_sem, geo=False)
+    g_geo_cat, g_geo_vw = group_ops(cbank.xyz, gsz_geo, geo=True)
+    g_sem_vw_lr = u_sem = g_geo_vw_lr = u_geo = None
+    lr_s = lr_g = None
+    if lr_rank:
+        g_sem_vw_lr, u_sem, lr_s = low_rank(gsz_sem, lr_rank)
+    if lr_geo:
+        g_geo_vw_lr, u_geo, lr_g = low_rank(gsz_geo, lr_geo)
+    z_sem = w_sem = z_geo = w_geo = None
+    if res_rank:
+        z_sem, w_sem = fam_res(gsz_sem, lr_s)
+        z_geo, w_geo = fam_res(gsz_geo, lr_g)
+    g_topk_cat = (group_ops(cbank.keys_sem, topk_gsz, geo=False,
+                            stats_only=True)[0] if topk_gsz else None)
+    kh, kl = _split_hilo(cbank.keys_sem.to(f32))
+    values = cbank.values.to(torch.bfloat16)  # the kernels' value dtype
+    return HierBank(
+        bank=cbank, k_cat=pack_bank(cbank.keys_sem, cbank.xyz, tier),
+        values=values, value_scale=None,
+        mask_neg=(NEG * (1.0 - mask))[None, :].to(f32),
+        sem_centroid=stats.sem_centroid, geo_centroid=stats.geo_centroid,
+        sem_radius=stats.sem_radius, geo_radius=stats.geo_radius,
+        g_sem_cat=g_sem_cat, g_geo_cat=g_geo_cat, g_sem_vw=g_sem_vw,
+        g_geo_vw=g_geo_vw, khl_sem=torch.cat([kh, kl], 1),
+        g_sem_vw_lr=g_sem_vw_lr, u_sem=u_sem, g_geo_vw_lr=g_geo_vw_lr,
+        u_geo=u_geo, z_sem=z_sem, w_sem=w_sem, z_geo=z_geo, w_geo=w_geo,
+        g_topk_cat=g_topk_cat, tier=tier, bn=bn, gsz_sem=gsz_sem,
+        gsz_geo=gsz_geo, lr_rank=lr_rank, lr_geo=lr_geo, res_rank=res_rank,
+        topk_gsz=topk_gsz, sem_d=sem_d, cat_d=cat_d, t_real=T, t_pad=t_pad)
+
+
+# ---------------------------------------------------------------------------
+# the HierBank archive (the JAX package's npz format) and its cache
+
+
+def bank_fingerprint(bank: GeoBank) -> str:
+    """Content fingerprint of a source bank (`retrieval_hier.py:3402-3414`):
+    the first two key and location rows as f32 bytes, plus the shapes."""
+    h = hashlib.sha1()
+    h.update(bank.keys_sem[:2].to(torch.float32).cpu().numpy().tobytes())
+    h.update(bank.locs_lonlat[:2].to(torch.float32).cpu().numpy().tobytes())
+    for n in (bank.num_rows, int(bank.n_valid), bank.value_dim, bank.key_dim):
+        h.update(str(n).encode())
+    return h.hexdigest()[:16]
+
+
+def hier_build_signature(bank: GeoBank, *, bn: int, gsz_sem: int,
+                         gsz_geo: int, tier: str, seed: int, shards: int,
+                         gsz_super: int = 0, group_by: str = "key_value",
+                         group_value_weight: float = 1.0, lr_rank: int = 0,
+                         lr_geo: int = 0, res_rank: int = 0,
+                         topk_gsz: int = 0, topk_lr: int = 0,
+                         tail_super: int = 0, sel_lr: int = 0) -> dict:
+    """The identity of a build, stored in the archive and checked on load
+    (`retrieval_hier.py:3417-3457`); equal to the JAX package's for the
+    same bank and knobs, so either package's cache serves the other."""
+    Dv = bank.value_dim
+    lr_rank = min(lr_rank, Dv) if lr_rank else lr_rank
+    lr_geo = min(lr_geo, Dv) if lr_geo else lr_geo
+    res_rank = min(res_rank, Dv) if res_rank else res_rank
+    sel_lr = min(sel_lr, bank.key_dim) if sel_lr else sel_lr
+    sig = {"fp": bank_fingerprint(bank), "bn": bn, "gsz_sem": gsz_sem,
+           "gsz_geo": gsz_geo, "gsz_super": gsz_super, "tier": tier,
+           "seed": seed, "shards": shards, "group_by": group_by,
+           "gvw": group_value_weight, "lr_rank": lr_rank,
+           "res_rank": res_rank, "topk_gsz": topk_gsz, "fmt": 2}
+    # keyed only when active, as the JAX package does
+    for key, val in (("topk_lr", topk_lr), ("lr_geo", lr_geo),
+                     ("tail_super", tail_super), ("sel_lr", sel_lr)):
+        if val:
+            sig[key] = val
+    return sig
+
+
+def peek_hier_build(path: str) -> Optional[dict]:
+    """The build signature of an archive (None for archives without one)."""
+    with np.load(path) as z:
+        return json.loads(z["meta_json"].tobytes().decode()).get("build")
+
+
+def _to_numpy(x: torch.Tensor):
+    x = x.detach().cpu().contiguous()
+    if x.dtype == torch.bfloat16:
+        return x.view(torch.int16).numpy().view(np.uint16), "bf16"
+    a = x.numpy()
+    return a, str(a.dtype)
+
+
+def save_hier_bank(hb: HierBank, path: str, build: Optional[dict] = None
+                   ) -> None:
+    """One npz in the JAX package's format (`retrieval_hier.py:3470-3518`):
+    bf16 arrays as uint16 bit patterns, meta as JSON bytes."""
+    arrays, meta = {}, {"dtypes": {}}
+    for field in _ARRAY_FIELDS:
+        v = getattr(hb, field)
+        if v is not None:
+            arrays[field], meta["dtypes"][field] = _to_numpy(v)
+    for field in ("locs_lonlat", "xyz", "keys_sem", "valid_mask", "values"):
+        v = getattr(hb.bank, field)
+        if v is not None:
+            key = "bank_" + field
+            arrays[key], meta["dtypes"][key] = _to_numpy(v)
+    arrays["bank_n_valid"] = np.asarray(int(hb.bank.n_valid))
+    for field in _META_FIELDS:
+        meta[field] = getattr(hb, field)
+    if build is not None:
+        meta["build"] = build
+    arrays["meta_json"] = np.frombuffer(json.dumps(meta).encode(),
+                                        dtype=np.uint8)
+    np.savez(path, **arrays)
+
+
+def load_hier_bank(path: str, device="cuda") -> HierBank:
+    """Load a `save_hier_bank` archive, from either package, onto
+    ``device`` (`retrieval_hier.py:3521-3574`)."""
+    with np.load(path) as z:
+        raw = dict(z)
+    meta = json.loads(raw.pop("meta_json").tobytes().decode())
+    if "value_scale" in raw or "bank_value_scale" in raw:
+        raise _not_ported("int8-valued HierBanks", "ROADMAP.md, Queue 1 "
+                          "'int8 values'")
+
+    def dec(name):
+        if name not in raw:
+            return None
+        x = raw[name]
+        if meta["dtypes"].get(name) == "bf16":
+            t = torch.from_numpy(np.ascontiguousarray(x).view(np.int16))
+            return t.view(torch.bfloat16).to(device)
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    bank = GeoBank(locs_lonlat=dec("bank_locs_lonlat"), xyz=dec("bank_xyz"),
+                   keys_sem=dec("bank_keys_sem"), values=dec("bank_values"),
+                   n_valid=int(raw["bank_n_valid"]),
+                   valid_mask=dec("bank_valid_mask"))
+    defaults = {f.name: f.default for f in dataclasses.fields(HierBank)}
+    return HierBank(bank=bank, **{f: dec(f) for f in _ARRAY_FIELDS},
+                    **{f: meta.get(f, defaults[f]) for f in _META_FIELDS})
+
+
+def prepare_hier_bank(bank: GeoBank, *, cache_path: Optional[str] = None,
+                      **build_kw) -> HierBank:
+    """Build a HierBank, or load it from a signature-checked archive
+    (`retrieval_hier.py:3576-3626`).  A stale archive (another bank or other
+    knobs) is rebuilt and overwritten, never served.  ``build_kw`` are
+    `build_hier_bank`'s knobs."""
+    sig_kw = {k: build_kw.get(k, d) for k, d in (
+        ("bn", 512), ("gsz_sem", 8), ("gsz_geo", 64), ("gsz_super", 0),
+        ("tier", "fast"), ("seed", 0), ("shards", 1),
+        ("group_by", "key_value"), ("group_value_weight", 1.0),
+        ("topk_gsz", 0), ("topk_lr", 0), ("tail_super", 0), ("sel_lr", 0))}
+    sig = hier_build_signature(
+        bank, lr_rank=build_kw.get("lr_rank") or 0,
+        lr_geo=build_kw.get("lr_geo") or 0,
+        res_rank=build_kw.get("res_rank") or 0, **sig_kw)
+    if cache_path and os.path.exists(cache_path):
+        got = peek_hier_build(cache_path)
+        if got == sig:
+            return load_hier_bank(cache_path, device=bank.device)
+        logging.getLogger("range_tpu_torch").warning(
+            "hier cache %s is stale (built %s, requested %s): rebuilding",
+            cache_path, got, sig)
+    hb = build_hier_bank(bank, **build_kw)
+    if cache_path:
+        save_hier_bank(hb, cache_path, build=sig)
+    return hb
+
+
+# ---------------------------------------------------------------------------
+# serving glue: padding, the geographic query sort, tile selection
+
+
+def _pad_queries(q_sem: torch.Tensor, q_xyz: torch.Tensor, bm: int):
+    B = q_sem.shape[0]
+    pad = _round_up(B, bm) - B
+    q_s = torch.nn.functional.pad(q_sem.to(torch.float32), (0, 0, 0, pad))
+    q_x = torch.nn.functional.pad(q_xyz.to(torch.float32), (0, 0, 0, pad))
+    return q_s, q_x
+
+
+def _hybrid_order(q_xyz: torch.Tensor, n_valid: int) -> torch.Tensor:
+    """Query order with spatially coherent bm-query blocks
+    (`retrieval_hier.py:2720-2750`, ``sort='geo'``, the default; the
+    'hybrid' sort needs the stats-only scan, TPU kernel 9, not ported): 12
+    latitude bands x 4096 longitude bins, stable argsort, padded rows
+    last."""
+    lat = torch.arcsin(torch.clamp(q_xyz[:, 2], -1, 1))
+    lon = torch.atan2(q_xyz[:, 1], q_xyz[:, 0])
+    nb = 12
+    band = torch.clamp(((lat / math.pi + 0.5) * nb).to(torch.int32), 0, nb - 1)
+    key = band * 4096 + torch.clamp(
+        ((lon / (2 * math.pi) + 0.5) * 4096).to(torch.int32), 0, 4095)
+    rows = torch.arange(q_xyz.shape[0], device=q_xyz.device)
+    key = torch.where(rows < n_valid, key, torch.iinfo(torch.int32).max)
+    return torch.argsort(key, stable=True)
+
+
+def select_tiles(m_s, s_s, m_g, s_g, *, t_real: int, k_tiles: int, bm: int,
+                 n_valid: int, j_sem: int = 2, j_geo: int = 2,
+                 mode: str = "range+") -> torch.Tensor:
+    """Tile selection from the scan stats [Bp, t_pad] f32
+    (`retrieval_hier.py:1966-2022`): per-query top-j tiles by max group
+    logit (rank weights j..1) unioned over each block of bm queries, then
+    the tile's summed normalized exp-mass as priority.  The score
+    ``sel * 1e9 + pri`` is rounded in f32 as in JAX (within a sel level,
+    pri snaps to multiples of 64-256), and its first K under a stable
+    descending sort reproduce `lax.top_k`'s lowest-index tie order.
+
+    Returns idx [nB, K] int32, distinct tiles."""
+    Bp, t_pad = m_s.shape
+    nB = Bp // bm
+    k_tiles = min(k_tiles, t_real)
+    dev = m_s.device
+    row_valid = (torch.arange(Bp, device=dev) < n_valid)[:, None]
+    col_real = (torch.arange(t_pad, device=dev) < t_real)[None, :]
+    neg_inf = torch.tensor(float("-inf"), device=dev)
+
+    def rank_weights(m, j):
+        m = torch.where(col_real, m, neg_inf)
+        w = torch.zeros_like(m)
+        rem = m
+        for _ in range(j):
+            thr = torch.amax(rem, dim=1, keepdim=True)
+            w = w + (m >= thr).to(torch.float32)
+            rem = torch.where(rem >= thr, neg_inf, rem)
+        w = torch.where(row_valid, w, 0.0)
+        return torch.amax(w.reshape(nB, bm, t_pad), dim=1)
+
+    def tile_mass(s):
+        s = torch.where(col_real, s, 0.0)
+        p = s / torch.clamp_min(s.sum(dim=1, keepdim=True), 1e-30)
+        p = torch.where(row_valid, p, 0.0)
+        return p.reshape(nB, bm, t_pad).sum(dim=1)
+
+    sel = rank_weights(m_s, j_sem)
+    pri = tile_mass(s_s)
+    if mode == "range+":
+        sel = torch.maximum(sel, rank_weights(m_g, j_geo))
+        pri = pri + tile_mass(s_g)
+    score = torch.where(col_real, sel * 1e9 + pri, neg_inf)
+    _, order = torch.sort(score, dim=1, descending=True, stable=True)
+    return order[:, :k_tiles].to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers and their plain versions
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _check_cuda(name: str, tensors: dict, dtypes: dict) -> None:
+    """Raise unless every tensor lies on CUDA with its expected dtype."""
+    for key, t in tensors.items():
+        if t.device.type != "cuda":
+            raise ValueError(f"{name}: {key} is on {t.device}, not CUDA")
+        if t.dtype != dtypes[key]:
+            raise ValueError(f"{name} kernel: {key} must be {dtypes[key]}, "
+                             f"got {t.dtype}")
+
+
+def _launch(name: str, fn: str, *args) -> None:
+    from ..kernels._build import load_kernel_library
+
+    rc = getattr(load_kernel_library(name), fn)(*args)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+
+
+def _hier_scan_plain(q_cat, g_sem_cat, g_geo_cat, g_sem_vw, g_geo_vw, *,
+                     gpt_s: int, gpt_g: int, chunk: int = 2048):
+    """Plain version of the scan kernel (`_hier_scan_kernel`,
+    `retrieval_hier.py:1443-1515`): per family, group logits of the
+    family's query columns (sem: the first ws, geo: the last wg) against
+    the slim centroids; per tile the max logit and the sum of
+    exp2(min(l, 86)); the tail  bf16(exp2(...)) @ vw  in f32."""
+    f32 = torch.float32
+    Bp, cat_d = q_cat.shape
+    ws, wg = g_sem_cat.shape[1], g_geo_cat.shape[1]
+    t_pad = g_sem_cat.shape[0] // gpt_s
+    fams = [(g_sem_cat.to(f32), g_sem_vw, slice(0, ws), gpt_s),
+            (g_geo_cat.to(f32), g_geo_vw, slice(cat_d - wg, cat_d), gpt_g)]
+    stats = [[], [], [], []]
+    tails = []
+    for lo in range(0, Bp, chunk):
+        q = q_cat[lo:lo + chunk].to(f32)
+        tail = []
+        for f, (g, vw, cols, gpt) in enumerate(fams):
+            logit = q[:, cols] @ g.T
+            e = torch.exp2(torch.clamp_max(logit, CLAMP2))
+            b = q.shape[0]
+            stats[2 * f].append(torch.amax(logit.reshape(b, t_pad, gpt), dim=2))
+            stats[2 * f + 1].append(e.reshape(b, t_pad, gpt).sum(dim=2))
+            tail.append(e.to(vw.dtype).to(f32) @ vw.to(f32))
+        tails.append(torch.cat(tail, 1))
+    return tuple(torch.cat(s) for s in stats) + (torch.cat(tails),)
+
+
+def _hier_scan_call(q_cat, g_sem_cat, g_geo_cat, g_sem_vw, g_geo_vw, *,
+                    gpt_s: int, gpt_g: int):
+    """The fused group scan: (m_s, s_s, m_g, s_g [Bp, t_pad] f32, tails
+    [Bp, Ws + Wg] f32).
+
+    CPU tensors: `_hier_scan_plain`.  CUDA tensors: `csrc/hier_scan.cu`,
+    which replaces `_hier_scan_kernel` (`range_tpu/ops/retrieval_hier.py:
+    1443`); bf16 operands only, a launch failure raises.  The TPU tiling
+    knobs (bm, tc) have no counterpart: they only set speed."""
+    if q_cat.device.type == "cpu":
+        return _hier_scan_plain(q_cat, g_sem_cat, g_geo_cat, g_sem_vw,
+                                g_geo_vw, gpt_s=gpt_s, gpt_g=gpt_g)
+    bf = torch.bfloat16
+    ops = dict(q_cat=q_cat, g_sem_cat=g_sem_cat, g_geo_cat=g_geo_cat,
+               g_sem_vw=g_sem_vw, g_geo_vw=g_geo_vw)
+    _check_cuda("hier_scan", ops, dict.fromkeys(ops, bf))
+    Bp, cat_d = q_cat.shape
+    (Gs, ws), (Gg, wg) = g_sem_cat.shape, g_geo_cat.shape
+    Ws, Wg = g_sem_vw.shape[1], g_geo_vw.shape[1]
+    t_pad = Gs // gpt_s
+    for gpt in (gpt_s, gpt_g):
+        if gpt % 8 or (32 % gpt if gpt <= 32 else gpt % 32):
+            raise ValueError(f"hier_scan kernel: groups per tile {gpt} must "
+                             "be 8, 16, 32 or a multiple of 32")
+    if (Gs != t_pad * gpt_s or Gg != t_pad * gpt_g or Gs % 32 or Gg % 32
+            or g_sem_vw.shape[0] != Gs or g_geo_vw.shape[0] != Gg
+            or ws > 256 or wg > 256 or ws % 16 or wg % 16 or ws > cat_d
+            or wg > cat_d or cat_d % 8 or Ws % 128 or Wg % 128
+            or Ws > 512 or Wg > 512):
+        raise ValueError(
+            f"hier_scan kernel: unsupported shapes q {tuple(q_cat.shape)}, "
+            f"g_sem {tuple(g_sem_cat.shape)}, g_geo {tuple(g_geo_cat.shape)}, "
+            f"vw {tuple(g_sem_vw.shape)} / {tuple(g_geo_vw.shape)}")
+    ops = [t.contiguous() for t in ops.values()]
+    dev = q_cat.device
+    stats = [torch.empty((Bp, t_pad), dtype=torch.float32, device=dev)
+             for _ in range(4)]
+    tails = torch.empty((Bp, Ws + Wg), dtype=torch.float32, device=dev)
+    if Bp:
+        _launch("hier_scan", "hier_scan_launch",
+                *[t.data_ptr() for t in ops + stats + [tails]],
+                Bp, cat_d, ws, wg, Gs, Gg, Ws, Wg, gpt_s, gpt_g, t_pad,
+                _stream(q_cat))
+        _hier_scan_call.launches += 1
+    return tuple(stats) + (tails,)
+
+
+_hier_scan_call.launches = 0
+
+
+def _family_cols(geo: bool, sem_d: int, cat_d: int, gw: int):
+    """(row-logit columns, group-logit query columns) of one family."""
+    if geo:
+        return slice(sem_d, cat_d), slice(cat_d - gw, cat_d)
+    return slice(0, sem_d), slice(0, gw)
+
+
+def _hier_parts_family_plain(q_cat, k_cat, mask_neg, idx, g_cat, g_vw, z, *,
+                             sem_d: int, bm: int, bn: int, gpt: int,
+                             geo: bool, lrr: int, magnitude: bool = False):
+    """Plain version of the rr+lr parts kernel (`_hier_parts_family_kernel`,
+    `retrieval_hier.py:2282-2418`).  Per query block and selected tile:
+    p = exp2(min(q.k + mask, 86)) over the family's columns; the group
+    logits e = exp2(min(q.g, 86)); ps = segment sums of bf16(p) in f32;
+    alr += bf16(e - ps / max(cnt, 1)) @ vw, with cnt column ``lrr`` of vw;
+    az += bf16(p) @ z.  Out [Bp, rrp + 128 + W]: az | d (0) | pad | alr.
+
+    ``magnitude=True`` sums the terms' magnitudes instead, (e + ps/cnt) @
+    |vw| and bf16(p) @ |z|: the per-element scale that a bf16 rounding
+    point landing the other way is measured against."""
+    f32 = torch.float32
+    Bp, cat_d = q_cat.shape
+    nB, K = idx.shape
+    W, rrp, gw = g_vw.shape[1], z.shape[1], g_cat.shape[1]
+    gsz = bn // gpt
+    cols, qcols = _family_cols(geo, sem_d, cat_d, gw)
+    out = torch.zeros((Bp, rrp + 128 + W), dtype=f32, device=q_cat.device)
+    ar_rows = torch.arange(bn, device=q_cat.device)
+    ar_grp = torch.arange(gpt, device=q_cat.device)
+    for i in range(nB):
+        tiles = idx[i].long()
+        rows = (tiles[:, None] * bn + ar_rows).reshape(-1)
+        grps = (tiles[:, None] * gpt + ar_grp).reshape(-1)
+        q = q_cat[i * bm:(i + 1) * bm].to(f32)
+        logit = q[:, cols] @ k_cat[rows][:, cols].to(f32).T + mask_neg[0, rows]
+        p = torch.exp2(torch.clamp_max(logit, CLAMP2)).to(z.dtype).to(f32)
+        ps = p.reshape(bm, K, gpt, gsz).sum(dim=3).reshape(bm, K * gpt)
+        vw = g_vw[grps].to(f32)
+        e = torch.exp2(torch.clamp_max(q[:, qcols] @ g_cat[grps].to(f32).T,
+                                       CLAMP2))
+        psn = ps / torch.clamp_min(vw[:, lrr], 1.0)
+        zr = z[rows].to(f32)
+        if magnitude:
+            d, vw, zr = e + psn, vw.abs(), zr.abs()
+        else:
+            d = (e - psn).to(g_vw.dtype).to(f32)
+        out[i * bm:(i + 1) * bm, rrp + 128:] = d @ vw
+        out[i * bm:(i + 1) * bm, :rrp] = p @ zr
+    return out
+
+
+def _hier_parts_family_call(q_cat, k_cat, mask_neg, idx, g_cat, g_vw, z, *,
+                            sem_d: int, bm: int, bn: int, gpt: int,
+                            geo: bool, lrr: int):
+    """Exact minus group approximation of one family over each query
+    block's selected tiles, the residual-rank + low-rank shape.
+
+    CPU tensors: `_hier_parts_family_plain`.  CUDA tensors:
+    `csrc/hier_parts_family.cu`, which replaces `_hier_parts_family_kernel`
+    (`range_tpu/ops/retrieval_hier.py:2282`); a launch failure raises."""
+    if q_cat.device.type == "cpu":
+        return _hier_parts_family_plain(
+            q_cat, k_cat, mask_neg, idx, g_cat, g_vw, z, sem_d=sem_d, bm=bm,
+            bn=bn, gpt=gpt, geo=geo, lrr=lrr)
+    bf = torch.bfloat16
+    ops = dict(q_cat=q_cat, k_cat=k_cat, mask_neg=mask_neg, idx=idx,
+               g_cat=g_cat, g_vw=g_vw, z=z)
+    _check_cuda("hier_parts_family", ops, dict(
+        q_cat=bf, k_cat=bf, mask_neg=torch.float32, idx=torch.int32,
+        g_cat=bf, g_vw=bf, z=bf))
+    Bp, cat_d = q_cat.shape
+    N, kw = k_cat.shape
+    nB, K = idx.shape
+    G, gw = g_cat.shape
+    W, rrp = g_vw.shape[1], z.shape[1]
+    cols, qcols = _family_cols(geo, sem_d, cat_d, gw)
+    kf = cols.stop - cols.start
+    gsz = bn // gpt
+    if (kw != cat_d or Bp != nB * bm or bm % 64 or bn % 32 or gpt * gsz != bn
+            or gsz % 8 or (32 % gsz if gsz <= 32 else gsz % 32)
+            or gpt % 8 or gpt > 64 or kf % 16 or kf > 256 or gw % 16
+            or gw > 256 or cat_d % 8 or W % 128 or W > 512 or rrp % 128
+            or rrp > 256 or not 0 <= lrr < W or z.shape[0] != N
+            or g_vw.shape[0] != G or mask_neg.shape != (1, N) or N % bn):
+        raise ValueError(
+            f"hier_parts_family kernel: unsupported shapes q "
+            f"{tuple(q_cat.shape)}, k {tuple(k_cat.shape)}, idx "
+            f"{tuple(idx.shape)}, g {tuple(g_cat.shape)}, vw "
+            f"{tuple(g_vw.shape)}, z {tuple(z.shape)}, bm={bm}, bn={bn}, "
+            f"gpt={gpt}")
+    ops = [t.contiguous() for t in ops.values()]
+    dev = q_cat.device
+    scratch = torch.empty((Bp, K, gpt), dtype=torch.float32, device=dev)
+    out = torch.empty((Bp, rrp + 128 + W), dtype=torch.float32, device=dev)
+    if Bp and K:
+        _launch("hier_parts_family", "hier_parts_family_launch",
+                *[t.data_ptr() for t in ops + [scratch, out]],
+                Bp, cat_d, cols.start, kf, qcols.start, gw, bm, bn, gpt, K,
+                W, lrr, rrp, N, _stream(q_cat))
+        _hier_parts_family_call.launches += 1
+    elif Bp:
+        out.zero_()
+    return out
+
+
+_hier_parts_family_call.launches = 0
+
+
+def _stacked_bases(w_sem, u_sem, w_geo, u_geo):
+    """[w; u] per family, f32 (`_combine_cat_call`, `:3150-3151`)."""
+    return (torch.cat([w_sem, u_sem], 0).to(torch.float32).contiguous(),
+            torch.cat([w_geo, u_geo], 0).to(torch.float32).contiguous())
+
+
+def _combine_cat_plain(ps, pg, tails, q_srt, w_sem, u_sem, w_geo, u_geo, *,
+                       Ws: int, r: int, rrp: int, Dv: int, beta: float,
+                       rg: int, Wg: int):
+    """Plain version of the combine kernel (`_combine_cat_kernel`,
+    `retrieval_hier.py:3102-3139`, geo-lr shape): corr = tails - approx;
+    [rr coefficients | corr] @ [w; u] per family; d = d_parts + corr[:, r];
+    each family over max(d, 1e-30), beta blend, then the queries."""
+    wsem, wgeo = _stacked_bases(w_sem, u_sem, w_geo, u_geo)
+    corr = tails[:, :Ws] - ps[:, rrp + 128:]
+    acc_s = torch.cat([ps[:, :rrp], corr[:, :r]], 1) @ wsem
+    d_s = ps[:, rrp:rrp + 1] + corr[:, r:r + 1]
+    corr_g = tails[:, Ws:Ws + Wg] - pg[:, rrp + 128:]
+    acc_g = torch.cat([pg[:, :rrp], corr_g[:, :rg]], 1) @ wgeo
+    d_g = pg[:, rrp:rrp + 1] + corr_g[:, rg:rg + 1]
+    sem = acc_s / torch.clamp_min(d_s, 1e-30)
+    geo = acc_g / torch.clamp_min(d_g, 1e-30)
+    return torch.cat([beta * sem + (1.0 - beta) * geo,
+                      q_srt.to(torch.float32)], 1)
+
+
+def _combine_cat_call(ps, pg, tails, q_srt, w_sem, u_sem, w_geo, u_geo, *,
+                      Ws: int, r: int, rrp: int, Dv: int, beta: float,
+                      rg: int, Wg: int):
+    """Combine + concat epilogue: [Bp, Dv + Dq] f32 (``q_srt`` may have 0
+    columns).
+
+    CPU tensors: `_combine_cat_plain`.  CUDA tensors: `csrc/combine_cat.cu`,
+    which replaces `_combine_cat_kernel` (`range_tpu/ops/retrieval_hier.py:
+    3102`); the two unprojection products run inside the kernel in f32."""
+    if not rg:
+        raise _not_ported("the combine without a low-rank geo tail (lr_geo=0)",
+                          _ROADMAP_SERVE)
+    if ps.device.type == "cpu":
+        return _combine_cat_plain(ps, pg, tails, q_srt, w_sem, u_sem, w_geo,
+                                  u_geo, Ws=Ws, r=r, rrp=rrp, Dv=Dv,
+                                  beta=beta, rg=rg, Wg=Wg)
+    f32 = torch.float32
+    ops = dict(ps=ps, pg=pg, tails=tails, q_srt=q_srt)
+    _check_cuda("combine_cat", ops, dict.fromkeys(ops, f32))
+    wsem, wgeo = _stacked_bases(w_sem, u_sem, w_geo, u_geo)
+    Bp, Dq = q_srt.shape
+    if (ps.shape != (Bp, rrp + 128 + Ws) or pg.shape != (Bp, rrp + 128 + Wg)
+            or tails.shape != (Bp, Ws + Wg) or wsem.shape != (rrp + r, Dv)
+            or wgeo.shape != (rrp + rg, Dv) or Dv % 128 or Dq % 4
+            or r >= Ws or rg >= Wg):
+        raise ValueError(
+            f"combine_cat kernel: unsupported shapes ps {tuple(ps.shape)}, "
+            f"pg {tuple(pg.shape)}, tails {tuple(tails.shape)}, q "
+            f"{tuple(q_srt.shape)}, r={r}, rg={rg}, rrp={rrp}, Dv={Dv}")
+    ops = [t.contiguous() for t in ops.values()] + [wsem, wgeo]
+    out = torch.empty((Bp, Dv + Dq), dtype=f32, device=ps.device)
+    if Bp:
+        _launch("combine_cat", "combine_cat_launch",
+                *[t.data_ptr() for t in ops + [out]],
+                Bp, Dq, Ws, r, rrp, Dv, rg, Wg, ctypes.c_float(beta),
+                _stream(ps))
+        _combine_cat_call.launches += 1
+    return out
+
+
+_combine_cat_call.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the serving pipeline
+
+
+def _check_servable(hb: HierBank) -> None:
+    """The port serves the flagship shape: lr + rr + geo-lr banks."""
+    for name in ("gsz_super", "tail_super", "sel_lr"):
+        if getattr(hb, name):
+            raise _not_ported(f"serving {name} banks", _ROADMAP_SERVE)
+    if not (hb.lr_rank and hb.g_sem_vw_lr is not None and hb.res_rank
+            and hb.z_sem is not None and hb.lr_geo
+            and hb.g_geo_vw_lr is not None):
+        raise _not_ported(
+            "serving banks without lr_rank, lr_geo and res_rank (only the "
+            "flagship family-split shape is ported)", _ROADMAP_SERVE)
+
+
+def _hier_partials(q_cat: torch.Tensor, hb: HierBank, *, k_tiles: int,
+                   bm: int, j_sem: int, j_geo: int, n_valid: int,
+                   k_geo: int):
+    """Scan, per-family selection and the two parts kernels on sorted,
+    packed queries: the family-split ``raw=True`` branch of
+    `_hier_partials` (`retrieval_hier.py:2832-2960`).  Returns the
+    pre-combine pieces (parts_s, parts_g, tails)."""
+    gpt_s, gpt_g = hb.bn // hb.gsz_sem, hb.bn // hb.gsz_geo
+    m_s, s_s, m_g, s_g, tails = _hier_scan_call(
+        q_cat, hb.g_sem_cat, hb.g_geo_cat, hb.g_sem_vw_lr, hb.g_geo_vw_lr,
+        gpt_s=gpt_s, gpt_g=gpt_g)
+    idx_s = select_tiles(m_s, s_s, m_g, s_g, t_real=hb.t_real,
+                            k_tiles=k_tiles, bm=bm, n_valid=n_valid,
+                            j_sem=j_sem, j_geo=j_geo, mode="range")
+    idx_g = select_tiles(m_g, s_g, m_s, s_s, t_real=hb.t_real,
+                            k_tiles=k_geo, bm=bm, n_valid=n_valid,
+                            j_sem=j_geo, j_geo=j_sem, mode="range")
+    parts_s = _hier_parts_family_call(
+        q_cat, hb.k_cat, hb.mask_neg, idx_s, hb.g_sem_cat, hb.g_sem_vw_lr,
+        hb.z_sem, sem_d=hb.sem_d, bm=bm, bn=hb.bn, gpt=gpt_s, geo=False,
+        lrr=hb.lr_rank)
+    parts_g = _hier_parts_family_call(
+        q_cat, hb.k_cat, hb.mask_neg, idx_g, hb.g_geo_cat, hb.g_geo_vw_lr,
+        hb.z_geo, sem_d=hb.sem_d, bm=bm, bn=hb.bn, gpt=gpt_g, geo=True,
+        lrr=hb.lr_geo)
+    return parts_s, parts_g, tails
+
+
+def retrieve_hier(q_sem: torch.Tensor, q_xyz: Optional[torch.Tensor],
+                  hb: HierBank, *, sem_temp: float = 12.0,
+                  geo_temp: float = 40.0, beta: float = 0.5,
+                  mode: str = "range+", k_tiles: int = 16, k_geo: int = 0,
+                  bm: int = 256, j_sem: int = 2, j_geo: int = 2,
+                  concat_query: Optional[torch.Tensor] = None,
+                  adaptive_frac: float = 0.0, m_corr: int = 0,
+                  dedup: int = 0) -> torch.Tensor:
+    """Two-stage retrieval over a HierBank (`retrieval_hier.py:3181-3314`,
+    the fused combine + concat path): [B, Dv] f32, or [B, Dv + Dq] with
+    ``concat_query`` [B, Dq] appended.  ``k_tiles``/``j_sem`` and
+    ``k_geo``/``j_geo`` are each family's exact budget, ``bm`` the
+    selection block of geographically sorted queries.  The TPU's scan
+    knobs (tc, scan_bm) set speed only and have no counterpart."""
+    if mode != "range+":
+        raise _not_ported("hierarchical RANGE mode (needs TPU kernels 9 and "
+                          "15)", _ROADMAP_SERVE)
+    for name, val in (("adaptive_frac", adaptive_frac), ("m_corr", m_corr),
+                      ("dedup", dedup)):
+        if val:
+            raise _not_ported(f"retrieve_hier({name}=...)", _ROADMAP_SERVE)
+    if q_xyz is None:
+        raise ValueError("mode='range+' requires q_xyz")
+    _check_servable(hb)
+    if not k_geo:
+        k_geo = max(8, k_tiles // 2)  # rr banks serve family-split
+    B = q_sem.shape[0]
+    q_s, q_x = _pad_queries(q_sem, q_xyz, bm)
+    q_cat = pack_queries(q_s, q_x, sem_temp, geo_temp, tier=hb.tier)
+    Bp = q_cat.shape[0]
+    # geographic sort BEFORE the scan, so its stats come out sorted
+    order = _hybrid_order(q_x, B)
+    inv = torch.argsort(order)
+    q_cat = q_cat[order]
+    ps, pg, tails = _hier_partials(q_cat, hb, k_tiles=k_tiles, bm=bm,
+                                   j_sem=j_sem, j_geo=j_geo, n_valid=B,
+                                   k_geo=k_geo)
+    if concat_query is None:
+        q_srt = torch.zeros((Bp, 0), dtype=torch.float32, device=q_cat.device)
+    else:
+        q_srt = torch.nn.functional.pad(concat_query.to(torch.float32),
+                                        (0, 0, 0, Bp - B))[order]
+    out = _combine_cat_call(
+        ps, pg, tails, q_srt, hb.w_sem, hb.u_sem, hb.w_geo, hb.u_geo,
+        Ws=hb.g_sem_vw_lr.shape[1], r=hb.lr_rank, rrp=hb.z_sem.shape[1],
+        Dv=hb.value_dim, beta=beta, rg=hb.lr_geo, Wg=hb.g_geo_vw_lr.shape[1])
+    return out[inv[:B]]

@@ -131,3 +131,116 @@ def test_float64_numpy_coords_launch_the_tower_kernel(cuda):
     assert out.dtype == torch.float32 and torch.isfinite(out).all()
     with pytest.raises(TypeError, match="float32"):
         enc.model.query_encoder(torch.from_numpy(c64).to(cuda))
+
+
+# ---- the hierarchical flagship slice: scan, family parts, combine
+
+
+@pytest.fixture
+def hier_bank(cuda):
+    """A small informative bank built on the card with the flagship knobs
+    cut to bn=128 (value width 1024, so every kernel sees its real widths)."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    bank = GeoBank.synthetic_informative(3, 9000, pad_to=512,
+                                         value_dtype=torch.bfloat16, device=cuda)
+    return rh.build_hier_bank(bank, bn=128, gsz_sem=16, gsz_geo=16, lr_rank=256,
+                              lr_geo=384, res_rank=128, topk_gsz=8)
+
+
+def _within_terms(got, ref, mag, frac=4e-3):
+    """|got - ref| <= min(frac * the row's max |ref|, 2^-7 * mag) + 1e-6, with
+    mag the sum of each element's terms' magnitudes (the plain version over
+    |operands|): one bf16 ulp (<= 2^-7) of every term bounds each element by
+    its own terms, small low-rank columns included."""
+    err = (got - ref).abs()
+    tol = torch.minimum(frac * ref.abs().amax(dim=1, keepdim=True), 2.0 ** -7 * mag)
+    assert (err <= tol + 1e-6).all()
+
+
+# Tolerances: the logits are f32 sums of the same bf16 products in another
+# order (~1e-6 relative); an exp2 that this moves across a bf16 boundary
+# rounds the other way before a value product, one bf16 ulp of that one
+# term (`_within_terms`).  The combine is f32 products in another order.
+def test_hier_kernels_match_plain(cuda, hier_bank):
+    from range_tpu_torch.ops import retrieval_fused as rf
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    hb = hier_bank
+    B, bm = 700, 128  # a ragged batch: 768 padded rows, 6 selection blocks
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q = torch.nn.functional.normalize(torch.randn(B, 256, generator=g, device=cuda), dim=1)
+    x = lonlat_deg_to_xyz(_coords(B, seed=5, device=cuda))
+    q_s, q_x = rh._pad_queries(q, x, bm)
+    order = rh._hybrid_order(q_x, B)
+    q_cat = rf.pack_queries(q_s, q_x, 12.0, 40.0, "fast")[order].contiguous()
+    scan_args = (q_cat, hb.g_sem_cat, hb.g_geo_cat, hb.g_sem_vw_lr, hb.g_geo_vw_lr)
+    n0 = (rh._hier_scan_call.launches, rh._hier_parts_family_call.launches,
+          rh._combine_cat_call.launches)
+    got = rh._hier_scan_call(*scan_args, gpt_s=8, gpt_g=8)
+    ref = rh._hier_scan_plain(*scan_args, gpt_s=8, gpt_g=8)
+    for i in (0, 2):
+        torch.testing.assert_close(got[i], ref[i], rtol=0, atol=1e-4)
+    for i in (1, 3):
+        torch.testing.assert_close(got[i], ref[i], rtol=1e-4, atol=0)
+    mag = rh._hier_scan_plain(q_cat, hb.g_sem_cat, hb.g_geo_cat, hb.g_sem_vw_lr.abs(),
+                              hb.g_geo_vw_lr.abs(), gpt_s=8, gpt_g=8)[4]
+    for cols in (slice(0, 384), slice(384, None)):  # sem, geo
+        _within_terms(got[4][:, cols], ref[4][:, cols], mag[:, cols])
+    m_s, s_s, m_g, s_g, tails = ref
+    parts = []
+    for geo, k, g_cat, vw, z, lrr in ((False, 24, hb.g_sem_cat, hb.g_sem_vw_lr, hb.z_sem, 256),
+                                       (True, 12, hb.g_geo_cat, hb.g_geo_vw_lr, hb.z_geo, 384)):
+        stats = (m_g, s_g, m_s, s_s) if geo else (m_s, s_s, m_g, s_g)
+        idx = rh.select_tiles(*stats, t_real=hb.t_real, k_tiles=k, bm=bm, n_valid=B,
+                                 mode="range")
+        args = (q_cat, hb.k_cat, hb.mask_neg, idx, g_cat, vw, z)
+        kw = dict(sem_d=256, bm=bm, bn=128, gpt=8, geo=geo, lrr=lrr)
+        got = rh._hier_parts_family_call(*args, **kw)
+        ref = rh._hier_parts_family_plain(*args, **kw)
+        mag = rh._hier_parts_family_plain(*args, **kw, magnitude=True)
+        for cols in (slice(0, 128), slice(256, None)):  # az, alr
+            _within_terms(got[:, cols], ref[:, cols], mag[:, cols])
+        assert not got[:, 128:256].any()
+        parts.append(ref)
+    q_srt = torch.nn.functional.pad(q, (0, 0, 0, 768 - B))[order].contiguous()
+    ck = dict(Ws=384, r=256, rrp=128, Dv=1024, beta=0.5, rg=384, Wg=512)
+    c_args = (*parts, tails, q_srt, hb.w_sem, hb.u_sem, hb.w_geo, hb.u_geo)
+    torch.testing.assert_close(rh._combine_cat_call(*c_args, **ck),
+                               rh._combine_cat_plain(*c_args, **ck), rtol=1e-5, atol=1e-5)
+    torch.cuda.synchronize()
+    assert (rh._hier_scan_call.launches, rh._hier_parts_family_call.launches,
+            rh._combine_cat_call.launches) == (n0[0] + 1, n0[1] + 2, n0[2] + 1)
+
+
+def test_hier_kernels_reject_f32_operands(cuda, hier_bank):
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    hb = hier_bank
+    q = torch.zeros(128, 384, device=cuda)
+    with pytest.raises(ValueError, match="bfloat16"):
+        rh._hier_scan_call(q, hb.g_sem_cat, hb.g_geo_cat, hb.g_sem_vw_lr,
+                           hb.g_geo_vw_lr, gpt_s=8, gpt_g=8)
+
+
+def test_flagship_main_path_launches_the_hier_kernels(cuda, hier_bank):
+    """load_model(profile="flagship") on the card: one scan, two parts and
+    one combine launch per request, within the fidelity bars' order of the
+    exact f32 retrieve (a small bank and a global batch: the bars
+    themselves are for the 100k bank at B=10,000, chip_smoke.py)."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    enc = load_model("RANGE+", db_path=hier_bank, profile="flagship", hier_bn=128,
+                     gsz_geo=16)
+    coords = _coords(3000, seed=6, device=cuda)
+    n0 = (rh._hier_scan_call.launches, rh._hier_parts_family_call.launches,
+          rh._combine_cat_call.launches, sh.siren_tower.launches)
+    out = enc(coords)
+    torch.cuda.synchronize()
+    assert (rh._hier_scan_call.launches, rh._hier_parts_family_call.launches,
+            rh._combine_cat_call.launches, sh.siren_tower.launches) == \
+        (n0[0] + 1, n0[1] + 2, n0[2] + 1, n0[3] + 1)
+    assert out.shape == (3000, 1280) and torch.isfinite(out).all()
+    ref = retrieval.retrieve(out[:, 1024:], lonlat_deg_to_xyz(coords), hier_bank.bank)
+    rel = (out[:, :1024] - ref).abs() / ref.abs().clamp_min(0.1)
+    assert rel.mean() < 0.1
