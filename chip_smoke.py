@@ -1,19 +1,23 @@
 """Smoke run of range_tpu_torch on one CUDA card.
 
-Builds the port's five CUDA kernels from `range_tpu_torch/csrc/` (one nvcc
-per source, all started together), holds each against its plain PyTorch
-version at the main paths' shapes, then drives both serving paths through
-`load_model(..., device="cuda")` at full width (SatCLIP SH-L40 -> SIREN
+Builds the port's eight CUDA kernels from the seven sources of
+`range_tpu_torch/csrc/` (one nvcc per source, all started together), holds
+each against its plain PyTorch version at the main paths' shapes, then
+drives the serving paths at full width (SatCLIP SH-L40 -> SIREN
 1600->256->256->256 tower, 100,000-row bank with 256-d keys and bf16
 1024-d values, 1,280-d output):
 
   * the dense path, RANGE+ and RANGE over a `synthetic_device` bank;
   * the hierarchical flagship path, RANGE+ with ``profile="flagship"``
     over the informative bank, whose HierBank is built on the card here;
+  * the top-k endpoint `hier_topk` (k = 1 and 8), the `hier_nn` harness
+    and `retrieve_hier(sort="hybrid")` over that HierBank, with the
+    tower's query embeddings;
 
 and checks the answers against the exact f32 retrieval (the flagship's
-against its fidelity bars: relerr mean <= 0.04, p99 <= 0.165).  Every
-phase that fails raises.
+against its fidelity bars: relerr mean <= 0.04, p99 <= 0.165; hier_topk's
+recall@1 against the f32 `exact_nn` >= 0.999 at B = 10,000 and 1,000).
+Every phase that fails raises.
 
     python3 chip_smoke.py
 
@@ -42,8 +46,20 @@ BATCH = 10_000
 SMALL_BATCH = 1_000
 REQUESTS = (1, 37, 1_000, BATCH)
 L, WIDTH = 40, 256
-KERNELS = ("siren_tower", "fused_retrieval", "hier_scan", "hier_parts_family",
-           "combine_cat")
+# kernel sources (one library each), and the kernels of the JSON line:
+# (name, source, the TPU kernel it replaces)
+SOURCES = ("siren_tower", "fused_retrieval", "hier_scan", "hier_parts_family",
+           "combine_cat", "hier_scan_stats", "hier_argmax")
+KERNELS = (("siren_tower", "siren_tower", "range_tpu/ops/sh.py:726"),
+           ("fused_retrieval", "fused_retrieval", "range_tpu/ops/retrieval_pallas.py:123"),
+           ("hier_scan", "hier_scan", "range_tpu/ops/retrieval_hier.py:1443"),
+           ("hier_parts_family", "hier_parts_family", "range_tpu/ops/retrieval_hier.py:2282"),
+           ("combine_cat", "combine_cat", "range_tpu/ops/retrieval_hier.py:3102"),
+           ("hier_scan_stats", "hier_scan_stats", "range_tpu/ops/retrieval_hier.py:1582"),
+           ("hier_argmax", "hier_argmax", "range_tpu/ops/retrieval_hier.py:1645"),
+           ("hier_topk", "hier_argmax", "range_tpu/ops/retrieval_hier.py:1682"))
+TOPK_K = 48  # the endpoint's tile budget, bench.py:150
+RECALL_BAR = 0.999  # bench.py:190
 
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): the bounds below
 HBM_BYTES_PER_S = 3.35e12
@@ -157,10 +173,10 @@ def _build_all():
     from range_tpu_torch.kernels._build import build_kernel
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        built = list(pool.map(build_kernel, KERNELS))
-    print(f"build: {time.perf_counter() - t0:.1f} s for {len(KERNELS)} kernels in parallel")
-    for name, (path, seconds, log) in zip(KERNELS, built):
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        built = list(pool.map(build_kernel, SOURCES))
+    print(f"build: {time.perf_counter() - t0:.1f} s for {len(SOURCES)} sources in parallel")
+    for name, (path, seconds, log) in zip(SOURCES, built):
         print(f"build {name}: {seconds:.1f} s -> {path.name}")
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -306,11 +322,24 @@ def dense_phases(dev, gen, report) -> float:
     return e2e
 
 
-def hier_phases(dev, gen, report) -> float:
+def _counters() -> dict:
+    """Each kernel's wrapper, whose `.launches` counts its launches."""
+    from range_tpu_torch.ops import retrieval_fused as rf
+    from range_tpu_torch.ops import retrieval_hier as rh
+    from range_tpu_torch.ops import sh
+
+    return {"siren_tower": sh.siren_tower, "fused_retrieval": rf.retrieve_fused,
+            "hier_scan": rh._hier_scan_call, "hier_parts_family": rh._hier_parts_family_call,
+            "combine_cat": rh._combine_cat_call, "hier_scan_stats": rh._hier_scan_stats_call,
+            "hier_argmax": rh._hier_argmax_call, "hier_topk": rh._hier_topk_call}
+
+
+def hier_phases(dev, gen, report):
     """The flagship slice: build the informative bank and its HierBank on
     the card, hold the three hier kernels against their plain versions at
     the main path's shapes, serve through load_model(profile="flagship"),
-    check fidelity.  Returns the flagship end-to-end ms at B=10,000."""
+    check fidelity.  Returns (the flagship end-to-end ms at B=10,000, the
+    HierBank, the encoder)."""
     from range_tpu_torch import GeoBank, load_model
     from range_tpu_torch.api import SERVING_PROFILES
     from range_tpu_torch.geometry import lonlat_deg_to_xyz
@@ -370,10 +399,10 @@ def hier_phases(dev, gen, report) -> float:
             _compare_terms("hier_scan tails[geo]", got[4][:, Ws:], ref[4][:, Ws:],
                            mag[:, Ws:], flip)]
         m_s, s_s, m_g, s_g, tails = got
-        idx_s = rh.select_tiles(m_s, s_s, m_g, s_g, t_real=hb.t_real, k_tiles=k_tiles,
+        idx_s, _ = rh.select_tiles(m_s, s_s, m_g, s_g, t_real=hb.t_real, k_tiles=k_tiles,
                                    bm=bm, n_valid=BATCH, j_sem=j_sem, j_geo=cfg.j_geo,
                                    mode="range")
-        idx_g = rh.select_tiles(m_g, s_g, m_s, s_s, t_real=hb.t_real, k_tiles=k_geo,
+        idx_g, _ = rh.select_tiles(m_g, s_g, m_s, s_s, t_real=hb.t_real, k_tiles=k_geo,
                                    bm=bm, n_valid=BATCH, j_sem=cfg.j_geo, j_geo=j_sem,
                                    mode="range")
         ms = _cuda_ms(lambda: rh._hier_scan_call(*scan_args, **scan_kw), 10)
@@ -457,27 +486,14 @@ def hier_phases(dev, gen, report) -> float:
                                      plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
 
     # ---- 7. the flagship path, through the entry point
-    counters = {"siren_tower": sh.siren_tower, "fused_retrieval": rf.retrieve_fused,
-                "hier_scan": rh._hier_scan_call,
-                "hier_parts_family": rh._hier_parts_family_call,
-                "combine_cat": rh._combine_cat_call}
-    per_request = {"siren_tower": 1, "fused_retrieval": 0, "hier_scan": 1,
-                   "hier_parts_family": 2, "combine_cat": 1}
+    per_request = {"siren_tower": 1, "hier_scan": 1, "hier_parts_family": 2, "combine_cat": 1}
     requests = [_random_coords(b, gen, dev) for b in REQUESTS]
-    for fn in counters.values():
-        fn.launches = 0
-    answers = []
+    answers, launches = [], dict.fromkeys(per_request, 0)
     for c in requests:
-        before = {k: fn.launches for k, fn in counters.items()}
-        answers.append(_send(enc, c))
-        torch.cuda.synchronize()
-        rose = {k: fn.launches - before[k] for k, fn in counters.items()}
-        print(f"flagship B={c.shape[0]}: (bm, K, k_geo, j_sem) = "
-              f"{cfg.hier_plan(c.shape[0])}, launches {rose}")
-        if rose != per_request:
-            raise AssertionError(f"flagship B={c.shape[0]}: launches {rose}, "
-                                 f"expected {per_request}")
-    launches = {k: fn.launches for k, fn in counters.items()}
+        out, got = _drive(f"flagship B={c.shape[0]}: (bm, K, k_geo, j_sem) = "
+                          f"{cfg.hier_plan(c.shape[0])}", lambda: _send(enc, c), per_request)
+        answers.append(out)
+        launches = {k: n + got[k] for k, n in launches.items()}
     print(f"flagship path launches: {launches}")
     for k in ("hier_scan", "hier_parts_family", "combine_cat"):
         report[k]["launches"] = launches[k]
@@ -506,7 +522,266 @@ def hier_phases(dev, gen, report) -> float:
     print(f"flagship RANGE+ end to end B={BATCH} (coords already on the card): "
           f"median {e2e:.3f} ms over 5 calls")
     _trace(lambda: enc(requests[-1]), 3, f"flagship B={BATCH}")
-    return e2e
+    return e2e, hb, enc
+
+
+def _row_logits(q2, ql, khl, mask, rows) -> torch.Tensor:
+    """f64 hi/lo logits (q2 . khl + ql . kh + mask) of rows [Bp, k]."""
+    kr = khl[rows.long()].double()
+    Dk = ql.shape[1]
+    return ((q2.double()[:, None, :] * kr).sum(-1)
+            + (ql.double()[:, None, :] * kr[..., :Dk]).sum(-1)
+            + mask[0, rows.long()].double())
+
+
+def _compare_klist(name, got, ref, q2, ql, hb, tol, why):
+    """Hold a kernel's (scores, rows) [Bp, k] to its plain version's: scores
+    within tol, and rows equal wherever the kernel's row's logit is more
+    than tol from the plain score at that position (a near-tie).  Prints
+    the largest score error, its ratio to tol, the entries whose rows
+    differ and how many of them are near-ties.  Returns (max abs error,
+    error over tol)."""
+    (gs, gr), (rs, rr) = [(s.reshape(s.shape[0], -1), r.reshape(r.shape[0], -1))
+                          for s, r in (got, ref)]
+    if gr.dtype != torch.int32 or gr.shape != rr.shape or not torch.isfinite(gs).all():
+        raise AssertionError(f"{name}: rows {gr.dtype} {tuple(gr.shape)} or scores non-finite")
+    err = (gs - rs).abs().max().item()
+    off = gr != rr
+    near = (_row_logits(q2, ql, hb.khl_sem, hb.mask_neg, gr) - rs.double()).abs() <= tol
+    n_off, n_near = int(off.sum()), int((off & near).sum())
+    print(f"{name}: max_abs_err {err:.3e}  err/tol {err / tol:.3e}  rows differing "
+          f"{n_off} of {gr.numel()}, {n_near} of them near-ties within {tol:g}  "
+          f"(tolerance {tol:g}: {why})")
+    if err > tol or n_off != n_near:
+        raise AssertionError(f"{name}: score error {err:.3e} or {n_off - n_near} rows off "
+                             f"outside near-ties")
+    return err, err / tol
+
+
+def _drive(tag: str, fn, expected: dict):
+    """Run fn() with every launch count set to 0 just before, read them
+    just after, and assert they equal `expected` (others 0)."""
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    got = {k: c.launches for k, c in counters.items()}
+    want = {k: expected.get(k, 0) for k in counters}
+    print(f"{tag}: launches {got}")
+    if got != want:
+        raise AssertionError(f"{tag}: launches {got}, expected {want}")
+    return out, got
+
+
+def _misses(q, hb, got, true) -> None:
+    """Print what hier_topk's misses are: the f64 exact-logit gap between
+    the true and the returned row, near-ties (gap < 1e-5, where the hi/lo
+    logits, ~2^-17 relative per operand, may order them the other way)
+    apart from the rest (the true row's tile was not selected)."""
+    miss = (got != true).nonzero()[:, 0]
+    if not miss.numel():
+        return
+    keys = hb.bank.keys_sem.double()
+    qm = q[miss].double()
+    gap = (qm * keys[true[miss].long()]).sum(1) - (qm * keys[got[miss].long()]).sum(1)
+    near = int((gap < 1e-5).sum())
+    print(f"hier_topk misses: {miss.numel()}, {near} near-ties (exact-logit gap < 1e-5), "
+          f"{miss.numel() - near} outside the selected tiles; gaps "
+          f"{sorted(round(g, 7) for g in gap.tolist())}")
+
+
+def _recall_batches(dev, enc, hb, q0, x0, true0, rows0):
+    """recall@1 of hier_topk at K = 48 (and, printed only, 56 and 64) on
+    the main batch and four more batches of B random coordinates (seeds
+    1-4).  One batch of 10,000 holds ~0-15 selection misses, so one batch
+    is a noisy measurement of the rate; the bar is held on all five.
+    Returns the K = 48 recall of each batch."""
+    from range_tpu_torch.geometry import lonlat_deg_to_xyz
+    from range_tpu_torch.ops import retrieval, retrieval_hier as rh
+
+    table = []
+    for seed in range(5):
+        if seed:
+            coords = _random_coords(BATCH, torch.Generator(device=dev).manual_seed(seed), dev)
+            with torch.no_grad():
+                q = enc.model.query_embedding(coords).float()
+            x, true = lonlat_deg_to_xyz(coords), retrieval.exact_nn(q, hb.bank)
+            rows = rh.hier_topk(q, x, hb, k_tiles=TOPK_K)
+        else:
+            q, x, true, rows = q0, x0, true0, rows0
+        table.append([(rows == true).float().mean().item()]
+                     + [(rh.hier_topk(q, x, hb, k_tiles=K) == true).float().mean().item()
+                        for K in (56, 64)])
+    print(f"recall@1 hier_topk B={BATCH} (rows: query batch 0-4; columns K = {TOPK_K}, 56, "
+          "64): " + "; ".join(" ".join(f"{r:.5f}" for r in row) for row in table))
+    return [row[0] for row in table]
+
+
+def topk_phases(dev, gen, report, hb, enc) -> float:
+    """The top-k slice over the flagship HierBank: the stats, argmax and
+    top-k kernels against their plain versions at hier_topk's shapes, the
+    recall phase against the f32 exact_nn, the hier_nn harness, the
+    hybrid-sorted retrieve_hier, each path's launches counted.  Returns the
+    endpoint's host-clock ms at B=10,000."""
+    from range_tpu_torch.geometry import lonlat_deg_to_xyz
+    from range_tpu_torch.ops import retrieval
+    from range_tpu_torch.ops import retrieval_fused as rf
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    coords = _random_coords(BATCH, gen, dev)
+    with torch.no_grad():
+        q = enc.model.query_embedding(coords).float()
+    x = lonlat_deg_to_xyz(coords)
+
+    # ---- 9. the three kernels against their plain versions, hier_topk's shapes
+    k_tiles, bm, j_sem = rh._topk_budget(BATCH, TOPK_K, 256, 6)
+    q_s, q_x = rh._pad_queries(q, x, bm)
+    order = rh._hybrid_order(q_x, BATCH)
+    q_cat = rf.pack_queries(q_s, None, 12.0, 40.0, hb.tier)[order].contiguous()
+    # hier_nn and the hybrid sort scan g_sem_cat with the locations packed,
+    # so that operand's geo stats are held on real geo logits
+    q_cat_xyz = rf.pack_queries(q_s, q_x, 12.0, 40.0, hb.tier)[order].contiguous()
+    qh, ql = rf._split_hilo(q_s)
+    q2, ql = torch.cat([qh, qh], 1)[order].contiguous(), ql[order].contiguous()
+    gpt_g = hb.bn // hb.gsz_geo
+    errs = []
+    for operand, gpt, qc in (("g_topk_cat", hb.bn // hb.topk_gsz, q_cat),
+                             ("g_sem_cat", hb.bn // hb.gsz_sem, q_cat_xyz)):
+        args, kw = (qc, getattr(hb, operand), hb.g_geo_cat), dict(gpt_s=gpt, gpt_g=gpt_g)
+        got = rh._hier_scan_stats_call(*args, **kw)
+        ref = rh._hier_scan_stats_plain(*args, **kw)
+        for i, stat in enumerate(("m_s", "s_s", "m_g", "s_g")):
+            tag = f"hier_scan_stats[{operand}, gpt {gpt}] {stat}"
+            errs.append(_compare(tag, got[i], ref[i], *(
+                (1e-4, 0.0, "f32 sums of the same bf16 products in another order, |l| < 60")
+                if stat[0] == "m" else (0.0, 1e-4, "f32 sums of f32 exp2 in another order"))))
+        if operand == "g_topk_cat":  # hier_topk's operand
+            stats = got
+            ms = _cuda_ms(lambda: rh._hier_scan_stats_call(*args, **kw), 10)
+            plain_ms = _cuda_ms(lambda: rh._hier_scan_stats_plain(*args, **kw), 3)
+            print(f"hier_scan_stats[{operand}] B={BATCH}: kernel {ms:.3f} ms, plain "
+                  f"{plain_ms:.3f} ms")
+            ws, wg = hb.g_topk_cat.shape[1], hb.g_geo_cat.shape[1]
+            Gs, Gg = hb.t_real * gpt, hb.t_real * gpt_g
+            # the work needed: sem group logits over sem_d columns, geo over
+            # the 9 real ones, over the real tiles; the four stats written
+            flops = 2 * BATCH * (Gs * hb.sem_d + Gg * GEO_COLS)
+            n_bytes = (BATCH * (ws + wg) * 2 + (Gs * ws + Gg * wg) * 2
+                       + 4 * BATCH * hb.t_pad * 4)
+            b_ms, b_by = _bound(n_bytes, flops, BF16_FLOPS)
+            report["hier_scan_stats"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                             bound_by=b_by)
+    report["hier_scan_stats"].update(max_abs_err=max(e for e, _ in errs),
+                                     err_over_tol=max(r for _, r in errs))
+
+    idx, _ = rh.select_tiles(*stats, t_real=hb.t_real, k_tiles=k_tiles, bm=bm,
+                             n_valid=BATCH, j_sem=j_sem, mode="range")
+    Dk, K = hb.bank.key_dim, idx.shape[1]
+    U = int(torch.unique(idx).numel())  # tiles read, each once
+    why = ("f32 sums of 768 bf16 products, |l| <= ~1, in tensor-core and cuBLAS order; "
+           "rows may differ only at near-ties")
+    for name, k in (("hier_argmax", 1), ("hier_topk", 8)):
+        args = (q2, ql, hb.khl_sem, hb.mask_neg, idx)
+        kw = dict(Dk=Dk, bm=bm, bn=hb.bn)
+        if k == 1:
+            call, plain = rh._hier_argmax_call, rh._hier_argmax_plain
+        else:
+            call, plain = rh._hier_topk_call, rh._hier_topk_plain
+            kw["k"] = k
+        err, ratio = _compare_klist(f"{name} k={k} B={BATCH} K={K}", call(*args, **kw),
+                                    plain(*args, **kw), q2, ql, hb, 1e-5, why)
+        ms = _cuda_ms(lambda: call(*args, **kw), 10)
+        plain_ms = _cuda_ms(lambda: plain(*args, **kw), 3)
+        print(f"{name} k={k} B={BATCH} K={K}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+        # the work needed: the hi/lo logits (3 Dk deep) over the selected
+        # tiles; the union of the selected tiles' keys and mask read once
+        flops = 2 * BATCH * K * hb.bn * 3 * Dk
+        n_bytes = (BATCH * 3 * Dk * 2 + U * hb.bn * (2 * Dk * 2 + 4) + BATCH * k * 8)
+        b_ms, b_by = _bound(n_bytes, flops, BF16_FLOPS)
+        report[name] = dict(max_abs_err=err, err_over_tol=ratio, ms=ms, plain_ms=plain_ms,
+                            bound_ms=b_ms, bound_by=b_by)
+
+    # ---- 10. the paths, each with its launches counted, and recall@1
+    true = retrieval.exact_nn(q, hb.bank)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        true_tf32 = retrieval.exact_nn(q, hb.bank)
+        with torch.no_grad():  # what the flag would do to a plain f32 product
+            keys = hb.bank.keys_sem.float()
+            loose = torch.cat([retrieval.first_argmax(q[lo:lo + 2048] @ keys.T
+                                                      + hb.mask_neg[0])
+                               for lo in range(0, BATCH, 2048)])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"exact_nn with TF32 on globally: {int((true_tf32 != true).sum())} rows differ "
+          f"(a plain f32 argmax under TF32: {int((loose != true).sum())} of {BATCH})")
+    if not torch.equal(true_tf32, true):
+        raise AssertionError("exact_nn depends on the TF32 flag")
+
+    small = SMALL_BATCH
+    drives = {}
+    rows1, drives["topk1"] = _drive(
+        f"hier_topk k=1 B={BATCH} K={TOPK_K}",
+        lambda: rh.hier_topk(q, x, hb, k_tiles=TOPK_K), {"hier_scan_stats": 1, "hier_argmax": 1})
+    rows1s, drives["topk1s"] = _drive(
+        f"hier_topk k=1 B={small} K={TOPK_K} (widened: {rh._topk_budget(small, TOPK_K, 256, 6)})",
+        lambda: rh.hier_topk(q[:small], x[:small], hb, k_tiles=TOPK_K),
+        {"hier_scan_stats": 1, "hier_argmax": 1})
+    rows8, drives["topk8"] = _drive(
+        f"hier_topk k=8 B={BATCH} K={TOPK_K}",
+        lambda: rh.hier_topk(q, x, hb, k=8, k_tiles=TOPK_K), {"hier_scan_stats": 1, "hier_topk": 1})
+    nn, drives["nn"] = _drive(
+        f"hier_nn B={BATCH} K=32 j_sem=3",
+        lambda: rh.hier_nn(q, x, hb, k_tiles=32, j_sem=3), {"hier_scan_stats": 1})
+    bm_f, k_f, kg_f, j_f = enc.model.config.hier_plan(BATCH)
+    hyb, drives["hybrid"] = _drive(
+        f"retrieve_hier sort=hybrid B={BATCH} (bm {bm_f}, K {k_f}, k_geo {kg_f}, j_sem {j_f})",
+        lambda: rh.retrieve_hier(q, x, hb, k_tiles=k_f, k_geo=kg_f, j_sem=j_f, bm=bm_f,
+                                 sort="hybrid", concat_query=q),
+        {"hier_scan_stats": 1, "hier_scan": 1, "hier_parts_family": 2, "combine_cat": 1})
+    for name in ("hier_scan_stats", "hier_argmax", "hier_topk"):
+        report[name]["launches"] = sum(d[name] for d in drives.values())
+
+    rec_s = (rows1s == true[:small]).float().mean().item()
+    rec_nn = (nn == true).float().mean().item()
+    _misses(q, hb, rows1, true)
+    recs = _recall_batches(dev, enc, hb, q, x, true, rows1)
+    rec = sum(recs) / len(recs)
+    print(f"recall@1 hier_topk vs f32 exact_nn, K={TOPK_K}: B={BATCH} batches "
+          f"{' '.join(f'{r:.5f}' for r in recs)}, pooled over {len(recs) * BATCH} queries "
+          f"{rec:.5f}; B={small} {rec_s:.5f} (bar >= {RECALL_BAR} on each of the two); "
+          f"hier_nn (K=32, j_sem=3) {rec_nn:.5f}")
+    if rows1.dtype != torch.int32 or rows8.shape != (BATCH, 8) or rec < RECALL_BAR \
+            or rec_s < RECALL_BAR:
+        raise AssertionError(f"hier_topk recall@1 {rec:.5f} / {rec_s:.5f} below {RECALL_BAR} "
+                             f"or rows of the wrong type or shape")
+    # k=8: the first column is the k=1 row up to near-ties, scores descend
+    q2u = torch.cat([rf._split_hilo(q)[0]] * 2, 1)
+    qlu = rf._split_hilo(q)[1]
+    l8 = _row_logits(q2u, qlu, hb.khl_sem, hb.mask_neg, rows8)
+    l1 = _row_logits(q2u, qlu, hb.khl_sem, hb.mask_neg, rows1[:, None])[:, 0]
+    first_off = rows8[:, 0] != rows1
+    gap = (l8[:, 0] - l1).abs()[first_off]
+    gap = gap.max().item() if first_off.any() else 0.0
+    rise = (l8[:, 1:] - l8[:, :-1]).max().item()
+    print(f"hier_topk k=8: first column != the k=1 row in {int(first_off.sum())} queries "
+          f"(largest logit gap there {gap:.3e}); largest rise along a row {rise:.3e}")
+    if gap > 1e-5 or rise > 1e-5:
+        raise AssertionError("hier_topk k=8 disagrees with k=1 or is not descending")
+    ref = retrieval.retrieve(q, x, hb.bank, sem_temp=12.0, beta=0.5)
+    Dv = hb.value_dim
+    rel = (hyb[:, :Dv] - ref).abs() / ref.abs().clamp_min(0.1)
+    if hyb.shape != (BATCH, Dv + q.shape[1]) or not torch.isfinite(hyb).all():
+        raise AssertionError("retrieve_hier sort=hybrid: shape or non-finite")
+    print(f"retrieve_hier sort=hybrid relerr vs exact f32 retrieve: mean {rel.mean().item():.5f}, "
+          f"p99 {torch.quantile(rel.flatten()[::4], 0.99).item():.5f} (every 4th element)")
+
+    topk_ms = _host_ms(lambda: rh.hier_topk(q, x, hb, k_tiles=TOPK_K), 5)
+    print(f"hier_topk endpoint B={BATCH} K={TOPK_K} (queries on the card): median "
+          f"{topk_ms:.3f} ms over 5 calls")
+    _trace(lambda: rh.hier_topk(q, x, hb, k_tiles=TOPK_K), 3, f"hier_topk B={BATCH}")
+    return topk_ms
 
 
 def _trace(fn, calls: int, tag: str) -> None:
@@ -562,23 +837,18 @@ def main() -> int:
     _build_all()  # ---- 2.
     report = {}
     dense_ms = dense_phases(dev, gen, report)
-    hier_ms = hier_phases(dev, gen, report)
-    print(f"end to end B={BATCH}: flagship {hier_ms:.3f} ms, dense {dense_ms:.3f} ms")
+    hier_ms, hb, enc = hier_phases(dev, gen, report)
+    topk_ms = topk_phases(dev, gen, report, hb, enc)
+    print(f"end to end B={BATCH}: flagship {hier_ms:.3f} ms, dense {dense_ms:.3f} ms, "
+          f"hier_topk {topk_ms:.3f} ms")
 
-    sources = {
-        "siren_tower": "range_tpu/ops/sh.py:726",
-        "fused_retrieval": "range_tpu/ops/retrieval_pallas.py:123",
-        "hier_scan": "range_tpu/ops/retrieval_hier.py:1443",
-        "hier_parts_family": "range_tpu/ops/retrieval_hier.py:2282",
-        "combine_cat": "range_tpu/ops/retrieval_hier.py:3102",
-    }
-    kernels = [dict(name=k, route="cuda", source=f"range_tpu_torch/csrc/{k}.cu",
-                    replaces=sources[k], launches=report[k]["launches"],
+    kernels = [dict(name=k, route="cuda", source=f"range_tpu_torch/csrc/{src}.cu",
+                    replaces=replaces, launches=report[k]["launches"],
                     max_abs_err=report[k]["max_abs_err"],
                     err_over_tol=report[k]["err_over_tol"], ms=report[k]["ms"],
                     plain_ms=report[k]["plain_ms"], bound_ms=report[k]["bound_ms"],
                     bound_by=report[k]["bound_by"], library_ms=None)
-               for k in KERNELS]
+               for k, src, replaces in KERNELS]
     print(json.dumps({"kernels": kernels}))
     # the run drives one card
     print(json.dumps({"ok": True, "device": {

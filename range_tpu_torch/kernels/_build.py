@@ -27,16 +27,19 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C entry point and argument types of each kernel library
+# C entry points and their argument types, per kernel library
 _SIGNATURES = {
-    "siren_tower": ("siren_tower_launch",
-                    [_P] * 8 + [_I] * 4 + [_F, _F, _I, _P]),
-    "fused_retrieval": ("fused_retrieval_launch",
-                        [_P] * 5 + [_I] * 6 + [_F, _I, _P]),
-    "hier_scan": ("hier_scan_launch", [_P] * 10 + [_I] * 11 + [_P]),
-    "hier_parts_family": ("hier_parts_family_launch",
-                          [_P] * 9 + [_I] * 14 + [_P]),
-    "combine_cat": ("combine_cat_launch", [_P] * 7 + [_I] * 8 + [_F, _P]),
+    "siren_tower": {"siren_tower_launch":
+                    [_P] * 8 + [_I] * 4 + [_F, _F, _I, _P]},
+    "fused_retrieval": {"fused_retrieval_launch":
+                        [_P] * 5 + [_I] * 6 + [_F, _I, _P]},
+    "hier_scan": {"hier_scan_launch": [_P] * 10 + [_I] * 11 + [_P]},
+    "hier_scan_stats": {"hier_scan_stats_launch": [_P] * 7 + [_I] * 9 + [_P]},
+    "hier_parts_family": {"hier_parts_family_launch":
+                          [_P] * 9 + [_I] * 14 + [_P]},
+    "combine_cat": {"combine_cat_launch": [_P] * 7 + [_I] * 8 + [_F, _P]},
+    "hier_argmax": {"hier_argmax_launch": [_P] * 7 + [_I] * 5 + [_P],
+                    "hier_topk_launch": [_P] * 7 + [_I] * 6 + [_P]},
 }
 
 
@@ -77,11 +80,11 @@ def build_kernel(name: str):
 
 @functools.lru_cache(maxsize=None)
 def load_kernel_library(name: str) -> ctypes.CDLL:
-    """The built library of kernel ``name`` with its entry point typed."""
+    """The built library of kernel ``name`` with its entry points typed."""
     path, _, _ = build_kernel(name)
     lib = ctypes.CDLL(str(path))
-    fn_name, argtypes = _SIGNATURES[name]
-    fn = getattr(lib, fn_name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    for fn_name, argtypes in _SIGNATURES[name].items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     return lib

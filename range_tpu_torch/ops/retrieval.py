@@ -13,10 +13,12 @@ is the path `RangeEncoder` takes with ``use_pallas=False``, and the
 reference the fused kernel is held to.  The matmuls run in float32; on a
 CUDA device that is true f32 only while
 ``torch.backends.cuda.matmul.allow_tf32`` is False (PyTorch's default).
+`exact_nn`, the recall ground truth, forces true f32 whatever that flag.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -24,6 +26,39 @@ import torch
 from ..bank.bank import GeoBank
 
 _NEG = -1e30
+
+
+@contextlib.contextmanager
+def true_f32_matmul():
+    """Full-f32 products inside, whatever the caller's TF32 setting, which
+    is restored on exit.  The switch is set through the API the caller
+    uses: PyTorch refuses to read its older switches (`allow_tf32`, the
+    matmul precision) once the newer `fp32_precision` has been set, and
+    mixing the two makes later reads raise."""
+    matmul = torch.backends.cuda.matmul
+    try:
+        prev = torch.get_float32_matmul_precision()
+    except RuntimeError:  # the caller set `fp32_precision`
+        prev = matmul.fp32_precision
+        matmul.fp32_precision = "ieee"
+        try:
+            yield
+        finally:
+            matmul.fp32_precision = prev
+        return
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev)
+
+
+def first_argmax(x: torch.Tensor) -> torch.Tensor:
+    """[B] int64: the lowest index of each row's maximum (`jnp.argmax`'s tie
+    rule, written out rather than left to a backend's reduction)."""
+    m = torch.amax(x, dim=1, keepdim=True)
+    cols = torch.arange(x.shape[1], device=x.device)
+    return torch.where(x >= m, cols, x.shape[1]).amin(dim=1)
 
 
 class SoftmaxState(NamedTuple):
@@ -124,3 +159,32 @@ def partial_states(q_sem: torch.Tensor, q_xyz: Optional[torch.Tensor],
             geo_state = update_state(geo_state,
                                      geo_temp * (q_xyz @ k_xyz.T) + mneg, v)
     return sem_state, geo_state
+
+
+def exact_nn(q_sem: torch.Tensor, bank: GeoBank,
+             chunk: int = 8192) -> torch.Tensor:
+    """Exact argmax over semantic similarity, the ground truth for recall@k
+    (`ops/retrieval.py:212-251`): [B] int32 bank rows, streaming over bank
+    chunks.  Within a chunk the lowest index wins; across chunks a later
+    chunk wins only when strictly greater.
+
+    The products are true f32 whatever the caller's TF32 setting: TF32
+    keeps about the serving tier's precision, and a ground truth at that
+    precision makes recall vacuously 1 (the JAX function's HIGHEST)."""
+    n_rows = bank.num_rows
+    chunk = _pick_chunk(n_rows, chunk)
+    mask_neg = _NEG * (1.0 - bank.row_mask().to(torch.float32))
+    q = q_sem.to(torch.float32)
+    best = torch.full((q.shape[0],), _NEG, dtype=torch.float32,
+                      device=q.device)
+    best_idx = torch.zeros((q.shape[0],), dtype=torch.int32, device=q.device)
+    with true_f32_matmul():
+        for lo in range(0, n_rows, chunk):
+            k = bank.keys_sem[lo:lo + chunk].to(torch.float32)
+            sims = q @ k.T + mask_neg[None, lo:lo + chunk]
+            blk_best = sims.amax(dim=1)
+            take = blk_best > best
+            best = torch.where(take, blk_best, best)
+            best_idx = torch.where(take, (first_argmax(sims) + lo).to(
+                torch.int32), best_idx)
+    return best_idx

@@ -10,8 +10,10 @@ group, then the packed serving operands: keys, per-group centroids and
 value sums per family, the low-rank tails (`lr_rank`, `lr_geo`) and the
 residual-rank row coefficients (`res_rank`).
 
-Serving (`retrieve_hier`, the family-split lr + rr shape):
-  1. pad and pack the queries, sort them geographically (`_hybrid_order`);
+Serving features (`retrieve_hier`, the family-split lr + rr shape):
+  1. pad and pack the queries, sort them (`_hybrid_order`: geographically,
+     or with ``sort="hybrid"`` by coarse cell then home tile from a
+     stats-only pre-scan, `_hier_scan_stats_call`);
   2. the SCAN kernel: per (query, tile) max group logit and exp-mass for
      both families, and the all-tiles group tail  e @ [V_g | n_g]
      (`_hier_scan_call`);
@@ -21,6 +23,14 @@ Serving (`retrieve_hier`, the family-split lr + rr shape):
      selected tiles (`_hier_parts_family_call`);
   5. the COMBINE kernel: unprojection, normalization, beta blend and the
      query concat (`_combine_cat_call`); the un-sort is a torch gather.
+
+Serving top-k rows (`hier_topk`, the recall endpoint, k = 1..8): the
+STATS-ONLY scan over the fine `g_topk_cat` operand (`_hier_scan_stats_call`),
+`select_tiles` with a big K, then the exact hi/lo semantic ARGMAX (k = 1,
+`_hier_argmax_call`) or the K-CARRY top-k (`_hier_topk_call`) over each
+block's selected tiles.  `hier_nn` is the harness that measures which
+argmax the feature path can reach (masked logits, chunked, no kernel of
+its own beyond the stats scan).
 
 Each kernel wrapper runs its plain PyTorch version on CPU tensors and the
 CUDA kernel (`csrc/`) on CUDA tensors, and counts launches in
@@ -47,8 +57,10 @@ import torch
 from ..bank.bank import GeoBank
 from ..bank.clustered import cluster_bank, tile_stats
 from .kmeans import kmeans
+from .retrieval import first_argmax
 from .retrieval_fused import (CLAMP2, NEG, _round_up, _split_hilo, pack_bank,
                               pack_queries, packed_dims)
+from .topk import topk_stable
 
 # group operands are padded to a multiple of TC tiles (the JAX scan's tile
 # chunk); kept so that t_pad, and with it every operand shape, matches
@@ -515,34 +527,52 @@ def prepare_hier_bank(bank: GeoBank, *, cache_path: Optional[str] = None,
 # serving glue: padding, the geographic query sort, tile selection
 
 
-def _pad_queries(q_sem: torch.Tensor, q_xyz: torch.Tensor, bm: int):
+def _pad_queries(q_sem: torch.Tensor, q_xyz: Optional[torch.Tensor], bm: int):
     B = q_sem.shape[0]
     pad = _round_up(B, bm) - B
     q_s = torch.nn.functional.pad(q_sem.to(torch.float32), (0, 0, 0, pad))
-    q_x = torch.nn.functional.pad(q_xyz.to(torch.float32), (0, 0, 0, pad))
+    q_x = (torch.nn.functional.pad(q_xyz.to(torch.float32), (0, 0, 0, pad))
+           if q_xyz is not None else None)
     return q_s, q_x
 
 
-def _hybrid_order(q_xyz: torch.Tensor, n_valid: int) -> torch.Tensor:
-    """Query order with spatially coherent bm-query blocks
-    (`retrieval_hier.py:2720-2750`, ``sort='geo'``, the default; the
-    'hybrid' sort needs the stats-only scan, TPU kernel 9, not ported): 12
-    latitude bands x 4096 longitude bins, stable argsort, padded rows
-    last."""
-    lat = torch.arcsin(torch.clamp(q_xyz[:, 2], -1, 1))
-    lon = torch.atan2(q_xyz[:, 1], q_xyz[:, 0])
-    nb = 12
-    band = torch.clamp(((lat / math.pi + 0.5) * nb).to(torch.int32), 0, nb - 1)
-    key = band * 4096 + torch.clamp(
-        ((lon / (2 * math.pi) + 0.5) * 4096).to(torch.int32), 0, 4095)
-    rows = torch.arange(q_xyz.shape[0], device=q_xyz.device)
+def _home_tile(m_s: torch.Tensor, t_real: int) -> torch.Tensor:
+    """Per-query hottest REAL tile from scan stats [Bp, t_pad]
+    (`retrieval_hier.py:2701-2708`).  Pad tiles' zero centroids score
+    logit 0, which would win for queries whose real-tile logits are all
+    negative: they are masked out.  The lowest index wins ties."""
+    real = torch.arange(m_s.shape[1], device=m_s.device) < t_real
+    return first_argmax(torch.where(real[None, :], m_s, float("-inf")))
+
+
+def _hybrid_order(q_xyz: Optional[torch.Tensor], n_valid: int,
+                  home: Optional[torch.Tensor] = None, t_pad: int = 0,
+                  sort: str = "geo") -> torch.Tensor:
+    """Query order with coherent bm-query blocks (`retrieval_hier.py:
+    2720-2750`), padded rows last, stable argsort.  ``sort='geo'``: 12
+    latitude bands x 4096 longitude bins.  ``sort='hybrid'``: 8 bands x 6
+    longitude cells, then each cell's queries by their home tile
+    (`_home_tile` of a stats scan): key = cell * (t_pad + 1) + home.  No
+    locations: the home tile alone."""
+    if q_xyz is None:
+        key = home
+    else:
+        lat = torch.arcsin(torch.clamp(q_xyz[:, 2], -1, 1))
+        lon = torch.atan2(q_xyz[:, 1], q_xyz[:, 0])
+        nb, nl = (12, 4096) if sort == "geo" else (8, 6)
+        band = torch.clamp(((lat / math.pi + 0.5) * nb).to(torch.int32), 0,
+                           nb - 1)
+        cell = band * nl + torch.clamp(
+            ((lon / (2 * math.pi) + 0.5) * nl).to(torch.int32), 0, nl - 1)
+        key = cell if sort == "geo" else cell * (t_pad + 1) + home
+    rows = torch.arange(key.shape[0], device=key.device)
     key = torch.where(rows < n_valid, key, torch.iinfo(torch.int32).max)
     return torch.argsort(key, stable=True)
 
 
 def select_tiles(m_s, s_s, m_g, s_g, *, t_real: int, k_tiles: int, bm: int,
                  n_valid: int, j_sem: int = 2, j_geo: int = 2,
-                 mode: str = "range+") -> torch.Tensor:
+                 mode: str = "range+"):
     """Tile selection from the scan stats [Bp, t_pad] f32
     (`retrieval_hier.py:1966-2022`): per-query top-j tiles by max group
     logit (rank weights j..1) unioned over each block of bm queries, then
@@ -551,7 +581,8 @@ def select_tiles(m_s, s_s, m_g, s_g, *, t_real: int, k_tiles: int, bm: int,
     pri snaps to multiples of 64-256), and its first K under a stable
     descending sort reproduce `lax.top_k`'s lowest-index tie order.
 
-    Returns idx [nB, K] int32, distinct tiles."""
+    Returns (idx [nB, K] int32, distinct tiles; sel [nB, t_pad] f32, 1 at
+    the selected tiles)."""
     Bp, t_pad = m_s.shape
     nB = Bp // bm
     k_tiles = min(k_tiles, t_real)
@@ -583,8 +614,23 @@ def select_tiles(m_s, s_s, m_g, s_g, *, t_real: int, k_tiles: int, bm: int,
         sel = torch.maximum(sel, rank_weights(m_g, j_geo))
         pri = pri + tile_mass(s_g)
     score = torch.where(col_real, sel * 1e9 + pri, neg_inf)
-    _, order = torch.sort(score, dim=1, descending=True, stable=True)
-    return order[:, :k_tiles].to(torch.int32)
+    _, idx = topk_stable(score, k_tiles)
+    onehot = torch.zeros((nB, t_pad), dtype=torch.float32, device=dev)
+    onehot.scatter_(1, idx, 1.0)
+    return idx.to(torch.int32), onehot
+
+
+def _topk_budget(B: int, k_tiles: int, bm: int, j_sem: int):
+    """Small-batch widening of the top-k endpoint's budget
+    (`retrieval_hier.py:1832-1847`): selection tiles are shared by bm
+    sorted queries, and a small batch spans too much sphere per block.
+    bm 128 and 3x tiles / j+4 below 2,048 queries, 2x tiles / j+2 below
+    8,192.  Returns (k_tiles, bm, j_sem)."""
+    if B < 2048:
+        return 3 * k_tiles, min(bm, 128), j_sem + 4
+    if B < 8192:
+        return 2 * k_tiles, min(bm, 128), j_sem + 2
+    return k_tiles, bm, j_sem
 
 
 # ---------------------------------------------------------------------------
@@ -621,25 +667,96 @@ def _hier_scan_plain(q_cat, g_sem_cat, g_geo_cat, g_sem_vw, g_geo_vw, *,
     the slim centroids; per tile the max logit and the sum of
     exp2(min(l, 86)); the tail  bf16(exp2(...)) @ vw  in f32."""
     f32 = torch.float32
-    Bp, cat_d = q_cat.shape
+    cat_d = q_cat.shape[1]
     ws, wg = g_sem_cat.shape[1], g_geo_cat.shape[1]
-    t_pad = g_sem_cat.shape[0] // gpt_s
     fams = [(g_sem_cat.to(f32), g_sem_vw, slice(0, ws), gpt_s),
             (g_geo_cat.to(f32), g_geo_vw, slice(cat_d - wg, cat_d), gpt_g)]
     stats = [[], [], [], []]
     tails = []
-    for lo in range(0, Bp, chunk):
+    for lo in range(0, q_cat.shape[0], chunk):
         q = q_cat[lo:lo + chunk].to(f32)
         tail = []
         for f, (g, vw, cols, gpt) in enumerate(fams):
-            logit = q[:, cols] @ g.T
-            e = torch.exp2(torch.clamp_max(logit, CLAMP2))
-            b = q.shape[0]
-            stats[2 * f].append(torch.amax(logit.reshape(b, t_pad, gpt), dim=2))
-            stats[2 * f + 1].append(e.reshape(b, t_pad, gpt).sum(dim=2))
+            m, s, e = _family_stats(q[:, cols], g, gpt)
+            stats[2 * f].append(m)
+            stats[2 * f + 1].append(s)
             tail.append(e.to(vw.dtype).to(f32) @ vw.to(f32))
         tails.append(torch.cat(tail, 1))
     return tuple(torch.cat(s) for s in stats) + (torch.cat(tails),)
+
+
+def _family_stats(q: torch.Tensor, g: torch.Tensor, gpt: int):
+    """One family's group logits l = q @ g^T (f32) and per tile of gpt
+    groups: (max l, sum exp2(min(l, 86)), and the exponentials)."""
+    logit = q @ g.T
+    e = torch.exp2(torch.clamp_max(logit, CLAMP2))
+    b, t_pad = q.shape[0], g.shape[0] // gpt
+    return (torch.amax(logit.reshape(b, t_pad, gpt), dim=2),
+            e.reshape(b, t_pad, gpt).sum(dim=2), e)
+
+
+def _hier_scan_stats_plain(q_cat, g_sem_cat, g_geo_cat, *, gpt_s: int,
+                           gpt_g: int, chunk: int = 2048):
+    """Plain version of the stats-only scan (`_hier_scan_stats_kernel`,
+    `retrieval_hier.py:1582-1603`): `_hier_scan_plain`'s four stats, the
+    same arithmetic, without the tail."""
+    f32 = torch.float32
+    cat_d = q_cat.shape[1]
+    ws, wg = g_sem_cat.shape[1], g_geo_cat.shape[1]
+    fams = [(g_sem_cat.to(f32), slice(0, ws), gpt_s),
+            (g_geo_cat.to(f32), slice(cat_d - wg, cat_d), gpt_g)]
+    stats = [[], [], [], []]
+    for lo in range(0, q_cat.shape[0], chunk):
+        q = q_cat[lo:lo + chunk].to(f32)
+        for f, (g, cols, gpt) in enumerate(fams):
+            m, s, _ = _family_stats(q[:, cols], g, gpt)
+            stats[2 * f].append(m)
+            stats[2 * f + 1].append(s)
+    return tuple(torch.cat(s) for s in stats)
+
+
+def _gpt_ok(gpt: int) -> bool:
+    """Groups per tile the scan kernels walk: 8, 16, 32 or a multiple of
+    32 (a tile ends inside one 32-group step or on a step boundary)."""
+    return gpt % 8 == 0 and (32 % gpt == 0 if gpt <= 32 else gpt % 32 == 0)
+
+
+def _hier_scan_stats_call(q_cat, g_sem_cat, g_geo_cat, *, gpt_s: int,
+                          gpt_g: int):
+    """The stats-only group scan: (m_s, s_s, m_g, s_g) [Bp, t_pad] f32.
+
+    CPU tensors: `_hier_scan_stats_plain`.  CUDA tensors:
+    `csrc/hier_scan_stats.cu`, which replaces `_hier_scan_stats_kernel`
+    (`range_tpu/ops/retrieval_hier.py:1582`); bf16 operands only, a launch
+    failure raises."""
+    if q_cat.device.type == "cpu":
+        return _hier_scan_stats_plain(q_cat, g_sem_cat, g_geo_cat,
+                                      gpt_s=gpt_s, gpt_g=gpt_g)
+    ops = dict(q_cat=q_cat, g_sem_cat=g_sem_cat, g_geo_cat=g_geo_cat)
+    _check_cuda("hier_scan_stats", ops, dict.fromkeys(ops, torch.bfloat16))
+    Bp, cat_d = q_cat.shape
+    (Gs, ws), (Gg, wg) = g_sem_cat.shape, g_geo_cat.shape
+    t_pad = Gs // gpt_s
+    if (not _gpt_ok(gpt_s) or not _gpt_ok(gpt_g) or Gs != t_pad * gpt_s
+            or Gg != t_pad * gpt_g or Gs % 32 or Gg % 32 or ws > 256
+            or wg > 256 or ws % 16 or wg % 16 or ws > cat_d or wg > cat_d
+            or cat_d % 8):
+        raise ValueError(
+            f"hier_scan_stats kernel: unsupported shapes q "
+            f"{tuple(q_cat.shape)}, g_sem {tuple(g_sem_cat.shape)}, g_geo "
+            f"{tuple(g_geo_cat.shape)}, gpt {gpt_s} / {gpt_g}")
+    ops = [t.contiguous() for t in ops.values()]
+    stats = [torch.empty((Bp, t_pad), dtype=torch.float32, device=q_cat.device)
+             for _ in range(4)]
+    if Bp:
+        _launch("hier_scan_stats", "hier_scan_stats_launch",
+                *[t.data_ptr() for t in ops + stats], Bp, cat_d, ws, wg, Gs,
+                Gg, gpt_s, gpt_g, t_pad, _stream(q_cat))
+        _hier_scan_stats_call.launches += 1
+    return tuple(stats)
+
+
+_hier_scan_stats_call.launches = 0
 
 
 def _hier_scan_call(q_cat, g_sem_cat, g_geo_cat, g_sem_vw, g_geo_vw, *,
@@ -663,7 +780,7 @@ def _hier_scan_call(q_cat, g_sem_cat, g_geo_cat, g_sem_vw, g_geo_vw, *,
     Ws, Wg = g_sem_vw.shape[1], g_geo_vw.shape[1]
     t_pad = Gs // gpt_s
     for gpt in (gpt_s, gpt_g):
-        if gpt % 8 or (32 % gpt if gpt <= 32 else gpt % 32):
+        if not _gpt_ok(gpt):
             raise ValueError(f"hier_scan kernel: groups per tile {gpt} must "
                              "be 8, 16, 32 or a multiple of 32")
     if (Gs != t_pad * gpt_s or Gg != t_pad * gpt_g or Gs % 32 or Gg % 32
@@ -869,6 +986,149 @@ def _combine_cat_call(ps, pg, tails, q_srt, w_sem, u_sem, w_geo, u_geo, *,
 _combine_cat_call.launches = 0
 
 
+def _hier_klist_plain(q2, ql, khl, mask_neg, idx, *, Dk: int, k: int,
+                      bm: int, bn: int):
+    """The k-carry of `_hier_topk_kernel` (`retrieval_hier.py:1700-1722`;
+    k = 1 is `_hier_argmax_kernel`, `:1660-1673`), written out: per query
+    block, over its selected tiles in idx order, the logits
+    (q2 . khl + ql . kh) + mask in f32; the tile's k best in extraction
+    order (value descending, the lower in-tile index first: the kernel's k
+    masked maxes); each replaces the running list's first minimum when
+    strictly greater.  Returns the unsorted list (scores [Bp, k] f32, rows
+    [Bp, k] int32), NEG / row 0 where nothing entered."""
+    f32 = torch.float32
+    nB, K = idx.shape
+    dev = q2.device
+    q2f = q2.to(f32).reshape(nB, bm, -1)
+    qlf = ql.to(f32).reshape(nB, bm, -1)
+    best = torch.full((nB, bm, k), NEG, dtype=f32, device=dev)
+    rows = torch.zeros((nB, bm, k), dtype=torch.int32, device=dev)
+    in_tile = torch.arange(bn, device=dev)
+    kpos = torch.arange(k, device=dev)
+    for j in range(K):
+        row0 = idx[:, j].long() * bn                 # [nB]
+        tile_rows = row0[:, None] + in_tile          # [nB, bn]
+        kt = khl[tile_rows].to(f32)                  # [nB, bn, 2 Dk]
+        logit = (q2f @ kt.transpose(1, 2)
+                 + qlf @ kt[:, :, :Dk].transpose(1, 2))
+        logit = (logit + mask_neg[0, tile_rows][:, None, :]).reshape(-1, bn)
+        if k == 1:
+            tv = logit.amax(dim=1, keepdim=True)
+            ti = first_argmax(logit)[:, None]
+        else:
+            tv, ti = topk_stable(logit, k)
+        tv, ti = tv.reshape(nB, bm, k), ti.reshape(nB, bm, k)
+        for r in range(k):
+            m = tv[..., r:r + 1]
+            cmin = best.amin(dim=2, keepdim=True)
+            cpos = torch.where(best <= cmin, kpos, k).amin(dim=2, keepdim=True)
+            put = (m > cmin) & (kpos == cpos)
+            best = torch.where(put, m, best)
+            rows = torch.where(put, (ti[..., r:r + 1] + row0[:, None, None]).to(
+                torch.int32), rows)
+    return best.reshape(-1, k), rows.reshape(-1, k)
+
+
+def _hier_argmax_plain(q2, ql, khl, mask_neg, idx, *, Dk: int, bm: int,
+                       bn: int):
+    """Plain version of the hi/lo argmax kernel: (score [Bp] f32, row [Bp]
+    int32) of each query's best row over its block's selected tiles."""
+    s, r = _hier_klist_plain(q2, ql, khl, mask_neg, idx, Dk=Dk, k=1, bm=bm,
+                             bn=bn)
+    return s[:, 0], r[:, 0]
+
+
+def _sort_klist(scores, rows):
+    """The wrapper's final sort (`retrieval_hier.py:1779-1782`): descending,
+    ties keeping list order (`lax.top_k`)."""
+    s, sel = topk_stable(scores, scores.shape[1])
+    return s, torch.gather(rows, 1, sel)
+
+
+def _hier_topk_plain(q2, ql, khl, mask_neg, idx, *, Dk: int, k: int,
+                     bm: int, bn: int):
+    """Plain version of the k-carry top-k kernel plus its wrapper's sort:
+    (scores [Bp, k] f32, rows [Bp, k] int32), descending."""
+    return _sort_klist(*_hier_klist_plain(q2, ql, khl, mask_neg, idx, Dk=Dk,
+                                          k=k, bm=bm, bn=bn))
+
+
+def _klist_kernel(entry: str, q2, ql, khl, mask_neg, idx, *, Dk: int, k: int,
+                  bm: int, bn: int):
+    """Launch `csrc/hier_argmax.cu`'s entry point ``entry``: the unsorted
+    running list (scores [Bp, k] f32, rows [Bp, k] int32)."""
+    bf = torch.bfloat16
+    ops = dict(q2=q2, ql=ql, khl=khl, mask_neg=mask_neg, idx=idx)
+    _check_cuda("hier_argmax", ops, dict(q2=bf, ql=bf, khl=bf,
+                                         mask_neg=torch.float32,
+                                         idx=torch.int32))
+    Bp, N = q2.shape[0], khl.shape[0]
+    nB, K = idx.shape
+    if (q2.shape != (Bp, 2 * Dk) or ql.shape != (Bp, Dk)
+            or khl.shape != (N, 2 * Dk) or mask_neg.shape != (1, N)
+            or Bp != nB * bm or bm % 64 or bn % 32 or N % bn or Dk % 16
+            or Dk > 256 or K < 1 or not 1 <= k <= 8):
+        raise ValueError(
+            f"hier_argmax kernel: unsupported shapes q2 {tuple(q2.shape)}, "
+            f"ql {tuple(ql.shape)}, khl {tuple(khl.shape)}, idx "
+            f"{tuple(idx.shape)}, Dk={Dk}, k={k}, bm={bm}, bn={bn}")
+    ops = [t.contiguous() for t in ops.values()]
+    scores = torch.empty((Bp, k), dtype=torch.float32, device=q2.device)
+    rows = torch.empty((Bp, k), dtype=torch.int32, device=q2.device)
+    if Bp:
+        ks = [k] if entry == "hier_topk_launch" else []
+        _launch("hier_argmax", entry,
+                *[t.data_ptr() for t in ops + [scores, rows]], Bp, Dk, bm, bn,
+                K, *ks, _stream(q2))
+    return scores, rows
+
+
+def _hier_argmax_call(q2, ql, khl, mask_neg, idx, *, Dk: int, bm: int,
+                      bn: int):
+    """Exact hi/lo semantic argmax over each block's selected tiles: (score
+    [Bp] f32, row [Bp] int32).  q2 = [qh | qh] [Bp, 2 Dk], ql [Bp, Dk],
+    khl = [kh | kl] [N, 2 Dk], mask_neg [1, N], idx [Bp / bm, K] (tiles
+    < N / bn, as `select_tiles` gives them).
+
+    CPU tensors: `_hier_argmax_plain`.  CUDA tensors: `csrc/hier_argmax.cu`
+    (hier_argmax_launch), which replaces `_hier_argmax_kernel`
+    (`range_tpu/ops/retrieval_hier.py:1645`); bf16 operands, a launch
+    failure raises.  Rows travel as int32, not as the TPU's f32 lanes."""
+    if q2.device.type == "cpu":
+        return _hier_argmax_plain(q2, ql, khl, mask_neg, idx, Dk=Dk, bm=bm,
+                                  bn=bn)
+    s, r = _klist_kernel("hier_argmax_launch", q2, ql, khl, mask_neg, idx,
+                         Dk=Dk, k=1, bm=bm, bn=bn)
+    if q2.shape[0]:
+        _hier_argmax_call.launches += 1
+    return s[:, 0], r[:, 0]
+
+
+_hier_argmax_call.launches = 0
+
+
+def _hier_topk_call(q2, ql, khl, mask_neg, idx, *, Dk: int, k: int, bm: int,
+                    bn: int):
+    """The k-carry top-k (1 <= k <= 8) over each block's selected tiles,
+    operands as `_hier_argmax_call`: (scores [Bp, k] f32, rows [Bp, k]
+    int32) sorted descending, ties keeping the running list's order.
+
+    CPU tensors: `_hier_topk_plain`.  CUDA tensors: `csrc/hier_argmax.cu`
+    (hier_topk_launch), which replaces `_hier_topk_kernel`
+    (`range_tpu/ops/retrieval_hier.py:1682`), then the same sort."""
+    if q2.device.type == "cpu":
+        return _hier_topk_plain(q2, ql, khl, mask_neg, idx, Dk=Dk, k=k,
+                                bm=bm, bn=bn)
+    lists = _klist_kernel("hier_topk_launch", q2, ql, khl, mask_neg, idx,
+                          Dk=Dk, k=k, bm=bm, bn=bn)
+    if q2.shape[0]:
+        _hier_topk_call.launches += 1
+    return _sort_klist(*lists)
+
+
+_hier_topk_call.launches = 0
+
+
 # ---------------------------------------------------------------------------
 # the serving pipeline
 
@@ -897,10 +1157,10 @@ def _hier_partials(q_cat: torch.Tensor, hb: HierBank, *, k_tiles: int,
     m_s, s_s, m_g, s_g, tails = _hier_scan_call(
         q_cat, hb.g_sem_cat, hb.g_geo_cat, hb.g_sem_vw_lr, hb.g_geo_vw_lr,
         gpt_s=gpt_s, gpt_g=gpt_g)
-    idx_s = select_tiles(m_s, s_s, m_g, s_g, t_real=hb.t_real,
+    idx_s, _ = select_tiles(m_s, s_s, m_g, s_g, t_real=hb.t_real,
                             k_tiles=k_tiles, bm=bm, n_valid=n_valid,
                             j_sem=j_sem, j_geo=j_geo, mode="range")
-    idx_g = select_tiles(m_g, s_g, m_s, s_s, t_real=hb.t_real,
+    idx_g, _ = select_tiles(m_g, s_g, m_s, s_s, t_real=hb.t_real,
                             k_tiles=k_geo, bm=bm, n_valid=n_valid,
                             j_sem=j_geo, j_geo=j_sem, mode="range")
     parts_s = _hier_parts_family_call(
@@ -914,11 +1174,17 @@ def _hier_partials(q_cat: torch.Tensor, hb: HierBank, *, k_tiles: int,
     return parts_s, parts_g, tails
 
 
+def _check_sort(sort: str) -> None:
+    if sort not in ("geo", "hybrid"):
+        raise ValueError(f"sort must be 'geo' or 'hybrid', got {sort!r}")
+
+
 def retrieve_hier(q_sem: torch.Tensor, q_xyz: Optional[torch.Tensor],
                   hb: HierBank, *, sem_temp: float = 12.0,
                   geo_temp: float = 40.0, beta: float = 0.5,
                   mode: str = "range+", k_tiles: int = 16, k_geo: int = 0,
                   bm: int = 256, j_sem: int = 2, j_geo: int = 2,
+                  sort_queries: bool = True, sort: str = "geo",
                   concat_query: Optional[torch.Tensor] = None,
                   adaptive_frac: float = 0.0, m_corr: int = 0,
                   dedup: int = 0) -> torch.Tensor:
@@ -926,17 +1192,21 @@ def retrieve_hier(q_sem: torch.Tensor, q_xyz: Optional[torch.Tensor],
     the fused combine + concat path): [B, Dv] f32, or [B, Dv + Dq] with
     ``concat_query`` [B, Dq] appended.  ``k_tiles``/``j_sem`` and
     ``k_geo``/``j_geo`` are each family's exact budget, ``bm`` the
-    selection block of geographically sorted queries.  The TPU's scan
-    knobs (tc, scan_bm) set speed only and have no counterpart."""
+    selection block of sorted queries.  ``sort='geo'`` orders the queries
+    by location before the scan; ``sort='hybrid'`` by coarse cell, then
+    home tile from a stats-only pre-scan (`_hier_scan_stats_call`);
+    ``sort_queries=False`` keeps the caller's order.  The TPU's scan knobs
+    (tc, scan_bm) set speed only and have no counterpart."""
     if mode != "range+":
-        raise _not_ported("hierarchical RANGE mode (needs TPU kernels 9 and "
-                          "15)", _ROADMAP_SERVE)
+        raise _not_ported("hierarchical RANGE mode (needs TPU kernel 15, "
+                          "the merged parts kernel)", _ROADMAP_SERVE)
     for name, val in (("adaptive_frac", adaptive_frac), ("m_corr", m_corr),
                       ("dedup", dedup)):
         if val:
             raise _not_ported(f"retrieve_hier({name}=...)", _ROADMAP_SERVE)
     if q_xyz is None:
         raise ValueError("mode='range+' requires q_xyz")
+    _check_sort(sort)
     _check_servable(hb)
     if not k_geo:
         k_geo = max(8, k_tiles // 2)  # rr banks serve family-split
@@ -944,10 +1214,17 @@ def retrieve_hier(q_sem: torch.Tensor, q_xyz: Optional[torch.Tensor],
     q_s, q_x = _pad_queries(q_sem, q_xyz, bm)
     q_cat = pack_queries(q_s, q_x, sem_temp, geo_temp, tier=hb.tier)
     Bp = q_cat.shape[0]
-    # geographic sort BEFORE the scan, so its stats come out sorted
-    order = _hybrid_order(q_x, B)
-    inv = torch.argsort(order)
-    q_cat = q_cat[order]
+    order = None
+    if sort_queries:
+        home = None
+        if sort == "hybrid":  # the home tiles need a stats scan first
+            m_s0 = _hier_scan_stats_call(
+                q_cat, hb.g_sem_cat, hb.g_geo_cat, gpt_s=hb.bn // hb.gsz_sem,
+                gpt_g=hb.bn // hb.gsz_geo)[0]
+            home = _home_tile(m_s0, hb.t_real)
+        # sort BEFORE the scan, so its stats come out sorted
+        order = _hybrid_order(q_x, B, home, hb.t_pad, sort=sort)
+        q_cat = q_cat[order]
     ps, pg, tails = _hier_partials(q_cat, hb, k_tiles=k_tiles, bm=bm,
                                    j_sem=j_sem, j_geo=j_geo, n_valid=B,
                                    k_geo=k_geo)
@@ -955,9 +1232,126 @@ def retrieve_hier(q_sem: torch.Tensor, q_xyz: Optional[torch.Tensor],
         q_srt = torch.zeros((Bp, 0), dtype=torch.float32, device=q_cat.device)
     else:
         q_srt = torch.nn.functional.pad(concat_query.to(torch.float32),
-                                        (0, 0, 0, Bp - B))[order]
+                                        (0, 0, 0, Bp - B))
+        q_srt = q_srt[order] if order is not None else q_srt
     out = _combine_cat_call(
         ps, pg, tails, q_srt, hb.w_sem, hb.u_sem, hb.w_geo, hb.u_geo,
         Ws=hb.g_sem_vw_lr.shape[1], r=hb.lr_rank, rrp=hb.z_sem.shape[1],
         Dv=hb.value_dim, beta=beta, rg=hb.lr_geo, Wg=hb.g_geo_vw_lr.shape[1])
-    return out[inv[:B]]
+    return out[torch.argsort(order)[:B]] if order is not None else out[:B]
+
+
+# ---------------------------------------------------------------------------
+# the top-k endpoint and the reachable-argmax harness
+
+
+def hier_topk(q_sem: torch.Tensor, q_xyz: Optional[torch.Tensor],
+              hb: HierBank, *, k: int = 1, k_tiles: int = 56, bm: int = 256,
+              j_sem: int = 6, j_geo: int = 2, mode: str = "range",
+              auto_widen: bool = True) -> torch.Tensor:
+    """Serving top-k retrieval (`retrieval_hier.py:1850-1963`): [B] int32
+    bank rows for k = 1, [B, k] rows by descending serving-tier logit for
+    2 <= k <= 8.  Rows outside the selected tiles can never appear.
+
+    The stats-only scan (the fine `g_topk_cat` operand when the bank has
+    one, else `g_sem_cat`), big-K `select_tiles`, then the exact hi/lo
+    semantic argmax (`_hier_argmax_call`) or k-carry top-k
+    (`_hier_topk_call`) over the selected tiles at ~f32 logit accuracy
+    (`khl_sem`).  `mode='range'` spends every tile on the semantic family;
+    q_xyz, when given, drives the geographic query sort, and without it
+    the queries group by home tile.  `auto_widen` applies `_topk_budget`'s
+    small-batch budget.  Held to recall@1 >= 0.999 against `exact_nn` at
+    B = 10,000, K = 48 on the 100k flagship bank (chip_smoke.py).  The
+    JAX function's tc and interpret (TPU knobs), m_tiles (the two-level
+    branch, not ported) and sort (which no branch of it reads: locations
+    always sort geographically, and without them the home tile alone is
+    the key) have no counterpart."""
+    if not 1 <= k <= 8:
+        raise ValueError(f"hier_topk serves 1 <= k <= 8, got k={k}")
+    if hb.gsz_super and hb.g_sup_cat is not None:
+        raise _not_ported("hier_topk on two-level banks (gsz_super, TPU "
+                          "kernel 12)", _ROADMAP_SERVE)
+    if hb.topk_lr and hb.g_topk_lr is not None:
+        raise _not_ported("hier_topk on banks with the low-rank topk_lr "
+                          "selection signal", _ROADMAP_SERVE)
+    B = q_sem.shape[0]
+    if auto_widen:
+        k_tiles, bm, j_sem = _topk_budget(B, k_tiles, bm, j_sem)
+    q_s, q_x = _pad_queries(q_sem, q_xyz, bm)
+    q_cat = pack_queries(q_s, None if mode == "range" else q_x, 12.0, 40.0,
+                         tier=hb.tier)
+    qh, ql = _split_hilo(q_s)
+    q2 = torch.cat([qh, qh], 1)  # [Bp, 2 Dk]
+    order = None
+    if q_x is not None:
+        order = _hybrid_order(q_x, B)
+        q_cat, q2, ql = q_cat[order], q2[order], ql[order]
+    gpt_g = hb.bn // hb.gsz_geo
+    if hb.g_topk_cat is not None and hb.topk_gsz:
+        # fine stats-only centroids: the selection signal of gsz 8 groups
+        stats = _hier_scan_stats_call(q_cat, hb.g_topk_cat, hb.g_geo_cat,
+                                      gpt_s=hb.bn // hb.topk_gsz, gpt_g=gpt_g)
+    else:
+        stats = _hier_scan_stats_call(q_cat, hb.g_sem_cat, hb.g_geo_cat,
+                                      gpt_s=hb.bn // hb.gsz_sem, gpt_g=gpt_g)
+    if q_x is None:
+        order = _hybrid_order(None, B, _home_tile(stats[0], hb.t_real))
+        q2, ql = q2[order], ql[order]
+        stats = [s[order] for s in stats]
+    idx, _ = select_tiles(*stats, t_real=hb.t_real, k_tiles=k_tiles, bm=bm,
+                          n_valid=B, j_sem=j_sem, j_geo=j_geo, mode=mode)
+    Dk = hb.bank.key_dim
+    if k == 1:
+        _, rows = _hier_argmax_call(q2, ql, hb.khl_sem, hb.mask_neg, idx,
+                                    Dk=Dk, bm=bm, bn=hb.bn)
+    else:
+        _, rows = _hier_topk_call(q2, ql, hb.khl_sem, hb.mask_neg, idx,
+                                  Dk=Dk, k=k, bm=bm, bn=hb.bn)
+    return rows[torch.argsort(order)[:B]]
+
+
+def hier_nn(q_sem: torch.Tensor, q_xyz: Optional[torch.Tensor],
+            hb: HierBank, *, sem_temp: float = 12.0, geo_temp: float = 40.0,
+            k_tiles: int = 16, bm: int = 256, j_sem: int = 2, j_geo: int = 2,
+            sort: str = "geo", mode: str = "range+") -> torch.Tensor:
+    """Fidelity harness (`retrieval_hier.py:3344-3394`): [B] int32, the
+    semantic argmax row the feature path can see, i.e. the serving-tier
+    packed logits restricted to the selected tiles; recall@1 of this
+    against `exact_nn` measures the feature path's retrieval fidelity.
+    Materializes [1024, N] masked logits per chunk of queries; not a
+    serving path.
+
+    The JAX harness takes its stats from the fused scan over the
+    full-width `g_sem_vw`; it reads only the four stats, and the port's
+    fused scan kernel refuses tails wider than 512.  The port computes
+    them with the stats-only scan over the same `g_sem_cat` / `g_geo_cat`:
+    by construction the fused scan's stats (held equal in the tests)."""
+    B = q_sem.shape[0]
+    _check_sort(sort)
+    if mode == "range":
+        q_xyz = None
+    q_s, q_x = _pad_queries(q_sem, q_xyz, bm)
+    q_cat = pack_queries(q_s, q_x, sem_temp, geo_temp, tier=hb.tier)
+    stats = _hier_scan_stats_call(q_cat, hb.g_sem_cat, hb.g_geo_cat,
+                                  gpt_s=hb.bn // hb.gsz_sem,
+                                  gpt_g=hb.bn // hb.gsz_geo)
+    home = (_home_tile(stats[0], hb.t_real)
+            if sort == "hybrid" or q_x is None else None)
+    order = _hybrid_order(q_x, B, home, hb.t_pad, sort=sort)
+    q_cat = q_cat[order]
+    stats = [s[order] for s in stats]
+    _, sel = select_tiles(*stats, t_real=hb.t_real, k_tiles=k_tiles, bm=bm,
+                          n_valid=B, j_sem=j_sem, j_geo=j_geo,
+                          mode="range+" if q_x is not None else "range")
+    # chunked masked argmax: the [B, N] logits would not fit at serving B
+    keys = hb.k_cat[:, :hb.sem_d].to(torch.float32)
+    row_ok = hb.mask_neg[0] >= 0
+    keep_t = sel[:, :hb.t_real].repeat_interleave(hb.bn, dim=1) > 0  # [nB, N]
+    best = []
+    for lo in range(0, B, 1024):
+        hi = min(lo + 1024, B)
+        logits = q_cat[lo:hi, :hb.sem_d].to(torch.float32) @ keys.T
+        keep = keep_t[torch.arange(lo, hi, device=keep_t.device) // bm] & row_ok
+        best.append(first_argmax(torch.where(keep, logits, float("-inf"))))
+    best = torch.cat(best).to(torch.int32)
+    return best[torch.argsort(order)[:B]]

@@ -192,7 +192,7 @@ def test_hier_kernels_match_plain(cuda, hier_bank):
     for geo, k, g_cat, vw, z, lrr in ((False, 24, hb.g_sem_cat, hb.g_sem_vw_lr, hb.z_sem, 256),
                                        (True, 12, hb.g_geo_cat, hb.g_geo_vw_lr, hb.z_geo, 384)):
         stats = (m_g, s_g, m_s, s_s) if geo else (m_s, s_s, m_g, s_g)
-        idx = rh.select_tiles(*stats, t_real=hb.t_real, k_tiles=k, bm=bm, n_valid=B,
+        idx, _ = rh.select_tiles(*stats, t_real=hb.t_real, k_tiles=k, bm=bm, n_valid=B,
                                  mode="range")
         args = (q_cat, hb.k_cat, hb.mask_neg, idx, g_cat, vw, z)
         kw = dict(sem_d=256, bm=bm, bn=128, gpt=8, geo=geo, lrr=lrr)
@@ -244,3 +244,200 @@ def test_flagship_main_path_launches_the_hier_kernels(cuda, hier_bank):
     ref = retrieval.retrieve(out[:, 1024:], lonlat_deg_to_xyz(coords), hier_bank.bank)
     rel = (out[:, :1024] - ref).abs() / ref.abs().clamp_min(0.1)
     assert rel.mean() < 0.1
+
+
+# ---- the top-k endpoint: stats scan, argmax, k-carry top-k, exact_nn
+
+# Tolerances: the stats as above.  The hi/lo logits (|l| <= ~1, cosines)
+# are f32 sums of 768 bf16 products, in the kernel's tensor-core order and
+# cuBLAS's: scores within 1e-5, rows equal wherever the rival rows' logits
+# are more than 1e-5 apart.
+KLIST_TOL = 1e-5
+
+
+def _klist_operands(hb, B, bm, k_tiles, device):
+    """Hi/lo queries of B random unit vectors, geo-sorted, and the tiles
+    `hier_topk` would select (stats over g_topk_cat, mode 'range')."""
+    from range_tpu_torch.ops import retrieval_fused as rf
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    g = torch.Generator(device=device).manual_seed(7)
+    q = torch.nn.functional.normalize(torch.randn(B, 256, generator=g, device=device), dim=1)
+    x = lonlat_deg_to_xyz(_coords(B, seed=7, device=device))
+    q_s, q_x = rh._pad_queries(q, x, bm)
+    order = rh._hybrid_order(q_x, B)
+    q_cat = rf.pack_queries(q_s, None, 12.0, 40.0, "fast")[order].contiguous()
+    qh, ql = rf._split_hilo(q_s)
+    q2 = torch.cat([qh, qh], 1)[order].contiguous()
+    stats = rh._hier_scan_stats_plain(q_cat, hb.g_topk_cat, hb.g_geo_cat, gpt_s=16, gpt_g=8)
+    idx, _ = rh.select_tiles(*stats, t_real=hb.t_real, k_tiles=k_tiles, bm=bm, n_valid=B,
+                             j_sem=6, mode="range")
+    return q_cat, q2, ql[order].contiguous(), idx
+
+
+def _row_logits(q2, ql, khl, mask, rows):
+    """f64 hi/lo logits of rows [Bp, k] of each query."""
+    kr = khl[rows.long()].double()
+    Dk = ql.shape[1]
+    return ((q2.double()[:, None, :] * kr).sum(-1)
+            + (ql.double()[:, None, :] * kr[..., :Dk]).sum(-1) + mask[0, rows.long()].double())
+
+
+@pytest.mark.parametrize("operand,gpt", [("g_topk_cat", 16), ("g_sem_cat", 8), ("rand64", 64),
+                                         ("rand32", 32)])
+def test_scan_stats_kernel_matches_plain(cuda, hier_bank, operand, gpt):
+    """The bank's operands, and random ones with the flagship's 64 and 32
+    groups per tile at bn = 512; a ragged batch (700 of 768 rows)."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    hb = hier_bank
+    q_cat = _klist_operands(hb, 700, 128, 24, cuda)[0]
+    if operand.startswith("rand"):
+        g = torch.Generator(device=cuda).manual_seed(gpt)
+        gs = (0.1 * torch.randn(8 * gpt, 256, generator=g, device=cuda)).bfloat16()
+        gg = (0.5 * torch.randn(64, 128, generator=g, device=cuda)).bfloat16()
+        q_cat = torch.randn(q_cat.shape, generator=g, device=cuda).bfloat16()
+    else:
+        gs, gg = getattr(hb, operand), hb.g_geo_cat
+    n0 = rh._hier_scan_stats_call.launches
+    got = rh._hier_scan_stats_call(q_cat, gs, gg, gpt_s=gpt, gpt_g=8)
+    ref = rh._hier_scan_stats_plain(q_cat, gs, gg, gpt_s=gpt, gpt_g=8)
+    torch.cuda.synchronize()
+    assert rh._hier_scan_stats_call.launches == n0 + 1
+    for i in (0, 2):
+        torch.testing.assert_close(got[i], ref[i], rtol=0, atol=1e-4)
+    for i in (1, 3):
+        torch.testing.assert_close(got[i], ref[i], rtol=1e-4, atol=0)
+
+
+def test_scan_stats_kernel_equals_the_fused_scans_stats(cuda, hier_bank):
+    """hier_nn reads the stats-only kernel where JAX reads the fused scan:
+    on the same operands the two kernels' stats agree to summation order."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    from range_tpu_torch.ops import retrieval_fused as rf
+
+    hb = hier_bank
+    g = torch.Generator(device=cuda).manual_seed(8)
+    q = torch.nn.functional.normalize(torch.randn(768, 256, generator=g, device=cuda), dim=1)
+    x = lonlat_deg_to_xyz(_coords(768, seed=8, device=cuda))
+    q_cat = rf.pack_queries(q, x, 12.0, 40.0, "fast")
+    got = rh._hier_scan_stats_call(q_cat, hb.g_sem_cat, hb.g_geo_cat, gpt_s=8, gpt_g=8)
+    ref = rh._hier_scan_call(q_cat, hb.g_sem_cat, hb.g_geo_cat, hb.g_sem_vw_lr,
+                             hb.g_geo_vw_lr, gpt_s=8, gpt_g=8)
+    for i in (0, 2):
+        torch.testing.assert_close(got[i], ref[i], rtol=0, atol=1e-4)
+    for i in (1, 3):
+        torch.testing.assert_close(got[i], ref[i], rtol=1e-4, atol=0)
+
+
+@pytest.mark.parametrize("k", [1, 2, 5, 8])
+def test_klist_kernels_match_plain(cuda, hier_bank, k):
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    hb = hier_bank
+    _, q2, ql, idx = _klist_operands(hb, 700, 128, 24, cuda)
+    args = (q2, ql, hb.khl_sem, hb.mask_neg, idx)
+    kw = dict(Dk=256, bm=128, bn=128)
+    n0 = (rh._hier_argmax_call.launches, rh._hier_topk_call.launches)
+    if k == 1:
+        (gs, gr), (rs, rr) = rh._hier_argmax_call(*args, **kw), rh._hier_argmax_plain(*args, **kw)
+        gs, gr, rs, rr = gs[:, None], gr[:, None], rs[:, None], rr[:, None]
+    else:
+        gs, gr = rh._hier_topk_call(*args, k=k, **kw)
+        rs, rr = rh._hier_topk_plain(*args, k=k, **kw)
+    torch.cuda.synchronize()
+    assert (rh._hier_argmax_call.launches, rh._hier_topk_call.launches) == \
+        (n0[0] + (k == 1), n0[1] + (k > 1))
+    assert gr.dtype == torch.int32 and gr.shape == rr.shape == (768, k)
+    torch.testing.assert_close(gs, rs, rtol=0, atol=KLIST_TOL)
+    off = gr != rr
+    rival = _row_logits(q2, ql, hb.khl_sem, hb.mask_neg, gr)
+    assert not (off & ((rival - rs.double()).abs() > KLIST_TOL)).any()
+
+
+@pytest.mark.parametrize("k", [1, 2, 4, 8])
+def test_klist_kernels_tie_rules(cuda, k):
+    """Duplicated key rows within and across the selected tiles and masked
+    rows, on dyadic operands whose logits are exact in any order: rows and
+    scores equal the plain version's exactly (lowest in-tile index, strict >
+    across tiles, the list's first minimum, the stable final sort)."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    rng = np.random.default_rng(30 + k)
+    Dk, bn, bm, nB, nT = 64, 64, 64, 3, 6
+    pick = rng.integers(0, 4, nT * bn)
+    khl = np.concatenate([rng.choice([-0.5, 0.0, 0.5], (4, Dk))[pick],
+                          rng.choice([-2.0 ** -8, 0.0, 2.0 ** -8], (4, Dk))[pick]], 1)
+    mask = np.where(rng.uniform(size=(1, nT * bn)) < 0.1, -1e30, 0.0)
+    qh = rng.choice([-1.0, -0.5, 0.0, 0.5, 1.0], (nB * bm, Dk))
+    ql = rng.choice([-2.0 ** -9, 0.0, 2.0 ** -9], (nB * bm, Dk))
+    idx = np.stack([rng.permutation(nT)[:4] for _ in range(nB)])
+
+    def dev(a, dtype):
+        return torch.from_numpy(np.asarray(a, np.float64)).to(cuda, dtype)
+
+    args = (dev(np.concatenate([qh, qh], 1), torch.bfloat16), dev(ql, torch.bfloat16),
+            dev(khl, torch.bfloat16), dev(mask, torch.float32),
+            torch.from_numpy(idx.astype(np.int32)).to(cuda))
+    kw = dict(Dk=Dk, bm=bm, bn=bn)
+    if k == 1:
+        got, ref = rh._hier_argmax_call(*args, **kw), rh._hier_argmax_plain(*args, **kw)
+    else:
+        got, ref = rh._hier_topk_call(*args, k=k, **kw), rh._hier_topk_plain(*args, k=k, **kw)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+
+
+def test_klist_and_stats_kernels_reject_f32_operands(cuda, hier_bank):
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    hb = hier_bank
+    q = torch.zeros(128, 384, device=cuda)
+    with pytest.raises(ValueError, match="bfloat16"):
+        rh._hier_scan_stats_call(q, hb.g_topk_cat, hb.g_geo_cat, gpt_s=16, gpt_g=8)
+    q2, ql = torch.zeros(128, 512, device=cuda), torch.zeros(128, 256, device=cuda)
+    idx = torch.zeros(1, 4, dtype=torch.int32, device=cuda)
+    for call in (rh._hier_argmax_call, rh._hier_topk_call):
+        extra = {} if call is rh._hier_argmax_call else {"k": 4}
+        with pytest.raises(ValueError, match="bfloat16"):
+            call(q2, ql, hb.khl_sem, hb.mask_neg, idx, Dk=256, bm=128, bn=128, **extra)
+
+
+def test_hier_topk_launches_and_recall(cuda, hier_bank):
+    """hier_topk on the card: one stats and one argmax launch for k = 1,
+    one stats and one top-k launch for k = 4; recall@1 against exact_nn
+    with every tile selected is 1 up to near-ties."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+    from range_tpu_torch.ops.retrieval import exact_nn
+
+    hb = hier_bank
+    g = torch.Generator(device=cuda).manual_seed(9)
+    q = torch.nn.functional.normalize(torch.randn(3000, 256, generator=g, device=cuda), dim=1)
+    x = lonlat_deg_to_xyz(_coords(3000, seed=9, device=cuda))
+    counters = (rh._hier_scan_stats_call, rh._hier_argmax_call, rh._hier_topk_call)
+    for k, want in ((1, (1, 1, 0)), (4, (1, 0, 1))):
+        n0 = [c.launches for c in counters]
+        rows = rh.hier_topk(q, x, hb, k=k, k_tiles=hb.t_real)
+        torch.cuda.synchronize()
+        assert tuple(c.launches - n for c, n in zip(counters, n0)) == want
+        assert rows.shape == ((3000,) if k == 1 else (3000, k))
+    true = exact_nn(q, hb.bank)
+    assert (rh.hier_topk(q, x, hb, k_tiles=hb.t_real) == true).float().mean() >= 0.999
+
+
+def test_exact_nn_ignores_the_tf32_flag(cuda, hier_bank):
+    """exact_nn forces true f32: the same rows with TF32 switched on
+    globally, and the flag restored after the call."""
+    from range_tpu_torch.ops.retrieval import exact_nn
+
+    g = torch.Generator(device=cuda).manual_seed(10)
+    q = torch.nn.functional.normalize(torch.randn(2000, 256, generator=g, device=cuda), dim=1)
+    ref = exact_nn(q, hier_bank.bank)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = exact_nn(q, hier_bank.bank)
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert torch.equal(got, ref)

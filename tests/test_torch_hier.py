@@ -299,7 +299,7 @@ def test_hybrid_order_equals_jax(packed):
 def _select_both(stats, **kw):
     j = jh.select_tiles(*[jnp.asarray(s) for s in stats], **kw)
     t = th.select_tiles(*[torch.from_numpy(s) for s in stats], **kw)
-    return np.asarray(j[0]), t.numpy()
+    return np.asarray(j[0]), t[0].numpy()
 
 
 @pytest.mark.parametrize("mode", ["range", "range+"])
