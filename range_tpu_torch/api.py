@@ -1,9 +1,10 @@
 """Public API: `load_model` factory + encoder registry.
 
 Counterpart of `range_tpu/api.py:31-79,121-266,433-491` (reference
-`range/load_model.py:16-51`) for the models this port serves: RANGE,
-RANGE+ (dense retrieval, the "exact" serving profile; RANGE+ also
-hierarchical, the "flagship" and "turbo" profiles) and the SatCLIP tower.
+`range/load_model.py:16-51`) for the models this port serves: RANGE and
+RANGE+ (dense retrieval, the "exact" serving profile; hierarchical, the
+"flagship" and "turbo" profiles; ``value_quant="int8"`` stores the bank's
+values as per-row int8 codes for either) and the SatCLIP tower.
 Each registered constructor returns a `GeoEncoder`: an `nn.Module` plus
 its static ``embedding_dim`` and device.  Coordinates go in as [B, 2] (lon, lat)
 degrees and a [B, D] tensor on the model's device comes out.
@@ -22,7 +23,7 @@ from typing import Any, Callable, Dict, Optional, Union
 import torch
 from torch import nn
 
-from .bank.bank import GeoBank
+from .bank.bank import GeoBank, quantize_values
 from .models.range_encoder import RangeConfig, RangeEncoder
 from .ops.retrieval_hier import HierBank, prepare_hier_bank
 from .models.satclip import SatClipLocationConfig, SatClipLocationEncoder
@@ -155,17 +156,16 @@ def _build_range(name: str, mode: str, pretrained_path, db_path, beta, *,
             f"{sorted(kw)}; valid knobs: {_RANGE_KWARGS} (the JAX package's "
             "multi-device knobs and the hierarchical knobs of its unported "
             "paths are not ported yet: ROADMAP.md, Queue 1)")
-    if value_quant == "int8":
-        raise _not_ported("value_quant='int8'", "Queue 1, 'int8 values'")
-    if value_quant is not None:
+    if value_quant not in (None, "int8"):
         raise ValueError(f"value_quant must be None or 'int8', got {value_quant!r}")
     if retrieval not in ("dense", "hier"):
         raise ValueError(f"retrieval must be 'dense' or 'hier', got {retrieval!r}")
     if retrieval == "hier":
         # every knob that raises is checked before the (slow) bank build
-        if mode != "range+":
-            raise _not_ported("hierarchical RANGE (needs TPU kernels 9 and "
-                              "15)", "Queue 1, 'Hier serving: what remains'")
+        if mode == "range" and not lr_rank:
+            raise _not_ported("hierarchical RANGE without lr_rank (TPU "
+                              "kernel 15's plain variant and the wide-tail "
+                              "scan)", "Queue 1, 'Hier serving: what remains'")
         for knob, val in (("adaptive_frac", adaptive_frac),
                           ("m_corr", m_corr), ("dedup", dedup),
                           ("gsz_super", gsz_super), ("tail_super", tail_super),
@@ -175,6 +175,15 @@ def _build_range(name: str, mode: str, pretrained_path, db_path, beta, *,
                                   " what remains'")
     tower = _satclip_tower(pretrained_path, dtype, seed, tower_matmul, device)
     bank = _as_bank(db_path, chunk, device)
+    if value_quant == "int8":
+        # per-row int8 codes + scales, before any hier build (as JAX): half
+        # the value bank's bytes on the card
+        if isinstance(bank, HierBank) and bank.value_scale is None:
+            raise ValueError("value_quant='int8' with a HierBank of bf16 "
+                             "values: build it from a quantized bank "
+                             "(bank.quantize_values)")
+        if not isinstance(bank, HierBank):
+            bank = quantize_values(bank)
     if retrieval == "hier":
         bank = _hier_bank(bank, hier_cache, dict(
             bn=hier_bn, gsz_sem=gsz_sem, gsz_geo=gsz_geo, group_by=group_by,

@@ -1,5 +1,5 @@
 """Retrieval bank."""
 
-from .bank import GeoBank
+from .bank import GeoBank, dequantize_values, quantize_values
 
-__all__ = ["GeoBank"]
+__all__ = ["GeoBank", "dequantize_values", "quantize_values"]

@@ -34,6 +34,9 @@ class GeoBank:
       n_valid:     number of real rows
       valid_mask:  optional [Np] {0,1} mask; None means the prefix
                    [0, n_valid) is valid
+      value_scale: optional [1, Np] f32 per-row dequantization scales, set
+                   by `quantize_values` (values are then int8 codes and row
+                   r is values[r] * value_scale[0, r])
     """
 
     locs_lonlat: torch.Tensor
@@ -42,6 +45,7 @@ class GeoBank:
     values: torch.Tensor
     n_valid: int
     valid_mask: Optional[torch.Tensor] = None
+    value_scale: Optional[torch.Tensor] = None
 
     @property
     def num_rows(self) -> int:
@@ -66,7 +70,8 @@ class GeoBank:
         return dataclasses.replace(
             self, locs_lonlat=move(self.locs_lonlat), xyz=move(self.xyz),
             keys_sem=move(self.keys_sem), values=move(self.values),
-            valid_mask=move(self.valid_mask))
+            valid_mask=move(self.valid_mask),
+            value_scale=move(self.value_scale))
 
     @classmethod
     def from_arrays(cls, locs_lonlat: np.ndarray,
@@ -223,3 +228,31 @@ class GeoBank:
             return self.valid_mask.to(torch.float32)
         return (torch.arange(self.num_rows, device=self.device)
                 < self.n_valid).to(torch.float32)
+
+
+_INV127 = float(np.float32(1.0) / np.float32(127.0))
+
+
+def quantize_values(bank: GeoBank) -> GeoBank:
+    """Per-row symmetric int8 codes of the values (`range_tpu/bank/bank.py:
+    282-301`): scale = max(max |row|, 1e-12) / 127, codes = clip(round(v /
+    scale), -127, 127).  `torch.round` rounds half to even, as `jnp.round`,
+    and the scale is taken as XLA computes it, so the codes and scales are
+    the JAX package's bit for bit.  A bank that
+    already has a scale is returned as it is."""
+    if bank.value_scale is not None:
+        return bank
+    v = bank.values.to(torch.float32)
+    # XLA compiles JAX's `/ 127.0` into a product with the f32 reciprocal
+    scale = torch.clamp_min(v.abs().amax(dim=1), 1e-12) * _INV127
+    codes = torch.clamp(torch.round(v / scale[:, None]), -127, 127)
+    return dataclasses.replace(bank, values=codes.to(torch.int8),
+                               value_scale=scale[None, :])
+
+
+def dequantize_values(bank: GeoBank) -> torch.Tensor:
+    """[Np, Dv] f32 values: the reconstruction of int8 codes, else the
+    stored values (`range_tpu/bank/bank.py:304-308`)."""
+    if bank.value_scale is None:
+        return bank.values.to(torch.float32)
+    return bank.values.to(torch.float32) * bank.value_scale.T

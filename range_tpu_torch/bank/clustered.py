@@ -64,7 +64,7 @@ def cluster_bank(bank: GeoBank, bn: int = 1024,
                  rows_per_cluster: int = 256) -> GeoBank:
     """The bank with its rows in `geo_pack_order`, gathered on its device
     (`clustered.py:106-160`), padding rows zero and an explicit scattered
-    validity mask."""
+    validity mask.  int8 dequantization scales follow their rows."""
     if bank.num_rows % bn:
         raise ValueError(f"bank rows {bank.num_rows} are no multiple of bn={bn}")
     order = geo_pack_order(bank.xyz, bank.row_mask(), bn,
@@ -82,7 +82,9 @@ def cluster_bank(bank: GeoBank, bn: int = 1024,
     return GeoBank(
         locs_lonlat=take(bank.locs_lonlat), xyz=take(bank.xyz),
         keys_sem=take(bank.keys_sem), values=take(bank.values),
-        n_valid=bank.n_valid, valid_mask=sel.to(torch.float32))
+        n_valid=bank.n_valid, valid_mask=sel.to(torch.float32),
+        value_scale=(None if bank.value_scale is None
+                     else take(bank.value_scale[0])[None, :]))
 
 
 def tile_stats(bank: GeoBank, bn: int) -> TileStats:

@@ -36,11 +36,16 @@ def siren_params_from_jax(tree) -> dict:
 
 
 def geobank_from_arrays(locs_lonlat, xyz, keys_sem, values, n_valid,
-                        valid_mask=None, *, device="cpu") -> GeoBank:
+                        valid_mask=None, value_scale=None, *,
+                        device="cpu") -> GeoBank:
     """A JAX `GeoBank`'s fields, taken unchanged (no re-normalization, no
-    recomputed xyz), as a port GeoBank on ``device``."""
+    recomputed xyz; int8 values with their ``value_scale`` [1, Np]), as a
+    port GeoBank on ``device``."""
+    def opt(x):
+        return None if x is None else _tensor(x).to(device)
+
     return GeoBank(
         locs_lonlat=_tensor(locs_lonlat).to(device),
         xyz=_tensor(xyz).to(device), keys_sem=_tensor(keys_sem).to(device),
         values=_tensor(values).to(device), n_valid=int(n_valid),
-        valid_mask=None if valid_mask is None else _tensor(valid_mask).to(device))
+        valid_mask=opt(valid_mask), value_scale=opt(value_scale))

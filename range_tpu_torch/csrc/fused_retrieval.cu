@@ -1,7 +1,9 @@
 // Fused dense dual-softmax retrieval in one pass over the bank.
 //
 // Replaces: range_tpu/ops/retrieval_pallas.py, `_fused_kernel` (reached via
-// retrieve_fused <- retrieve_pallas).  Per bank tile: semantic and geo
+// retrieve_fused <- retrieve_pallas) and, through its int8 entry point,
+// `_fused_kernel_i8` (retrieve_fused_i8 <- retrieve_pallas on a bank with
+// int8 values, bank.quantize_values).  Per bank tile: semantic and geo
 // logits against the packed keys plus the row mask, p = exp2(min(l, 86))
 // (log2(e) and the temperatures are folded into the packed queries), the
 // unnormalized sums d_s, d_g, and acc_s += p_s V, acc_g += p_g V with p cast
@@ -31,6 +33,17 @@
 // flight.  No carry between blocks, no atomics.  Ragged bank and query
 // edges are masked in the kernel (zero-filled tiles, p = 0 past N).
 //
+// int8 values (the I8 variant): each row's codes v8 and scale s stand for
+// v = s * v8, and sum_j p_j v_j = sum_j (p_j s_j) v8_j, so the scale folds
+// into the probability before its bf16 cast (the sums d keep the unscaled
+// p, as the TPU kernel).  The raw int8 tile streams in by cp.async, half the
+// bytes of the bf16 tile, and is converted to bf16 once in shared memory
+// (|v8| <= 127 is exact in bf16) while the logits of the same tile compute;
+// the value products then run exactly as in the bf16 kernel.  The value
+// stream is half the bf16 kernel's (plus 4 bytes of scale a row), which
+// matters where the kernel is memory-bound (small batches); at B = 10,000
+// the exponentials and the value products bound both variants alike.
+//
 // The tensor cores sum one tile into a zeroed fragment and the tile sums
 // join the accumulator with IEEE f32 adds: accumulating all N rows through
 // the tensor cores' accumulator (a chain of N/16 steps) drifted by ~2e-4
@@ -49,6 +62,7 @@ constexpr int BN = 32;          // bank rows per tile
 constexpr int DVS = 256;        // value columns per block
 constexpr int THREADS = 256;    // 8 warps
 constexpr int LDV = DVS + 8;    // bf16 row stride of the value tile
+constexpr int LDV8 = DVS + 16;  // byte row stride of the raw int8 value tile
 constexpr int LDP = BN + 8;     // bf16 row stride of the probability tiles
 constexpr float CLAMP2 = 86.0f;
 constexpr size_t MAX_SMEM = 232448;  // per block, sm_90
@@ -104,52 +118,62 @@ __device__ __forceinline__ float prob(float logit, float mask, bool valid) {
 }
 
 struct Layout {
-  size_t q, k, v, p, mask, dpart, total;
+  size_t q, k, v, vc, p, mask, scale, dpart, total;
   int stages;
 };
 
 // Shared memory: the query block, `stages` key/value tiles (2 = the next
-// tile streams in while this one computes), the bf16 probability tiles of
-// both families, the mask tiles and the per-row sums.
-__host__ __device__ inline Layout layout(int U, bool f32, int stages) {
+// tile streams in while this one computes; int8 tiles are raw codes, plus
+// one bf16 tile they are converted into), the bf16 probability tiles of
+// both families, the mask (and int8 scale) tiles and the per-row sums.
+__host__ __device__ inline Layout layout(int U, bool f32, bool i8, int stages) {
   const size_t es = f32 ? 4 : 2, ldq = U + (f32 ? 4 : 8);
   Layout l;
   l.stages = stages;
   l.q = 0;
   l.k = l.q + BM * ldq * es;
   l.v = l.k + stages * BN * ldq * es;
-  l.p = l.v + stages * BN * LDV * 2;
+  l.vc = l.v + stages * BN * (i8 ? LDV8 : LDV * 2);
+  l.p = l.vc + (i8 ? BN * LDV * 2 : 0);
   l.mask = l.p + 2 * BM * LDP * 2;
-  l.dpart = l.mask + stages * BN * 4;
+  l.scale = l.mask + stages * BN * 4;
+  l.dpart = l.scale + (i8 ? stages * BN * 4 : 0);
   l.total = l.dpart + 2 * 2 * BM * 4;
   return l;
 }
 
 // Packed operands are bf16 (fast/high tiers, tensor cores) or f32 (exact
-// tier, CUDA-core FMAs).  Values are always bf16.
-template <bool F32>
+// tier, CUDA-core FMAs).  Values are bf16, or int8 codes with f32 per-row
+// scales (I8).
+template <bool F32, bool I8>
 __global__ void __launch_bounds__(THREADS, 1)
 fused_retrieval_kernel(const void* __restrict__ q_cat_, const void* __restrict__ k_cat_,
-                       const __nv_bfloat16* __restrict__ values,
+                       const void* __restrict__ values_, const float* __restrict__ scale,
                        const float* __restrict__ mask_neg, float* __restrict__ out, int B,
                        int N, int cat_d, int sem_d, int geo_d, int Dv, float beta,
                        int stages) {
   using T = typename std::conditional<F32, float, __nv_bfloat16>::type;
+  using V = typename std::conditional<I8, int8_t, __nv_bfloat16>::type;
   constexpr int E = 16 / sizeof(T);             // elements per 16-byte copy
+  constexpr int EV = 16 / sizeof(V);            // value elements per 16-byte copy
   const T* q_cat = static_cast<const T*>(q_cat_);
   const T* k_cat = static_cast<const T*>(k_cat_);
+  const V* values = static_cast<const V*>(values_);
   const int U = sem_d + geo_d;                  // packed columns read
   const int ldq = U + (F32 ? 4 : 8);            // 16-byte rows, spread banks
-  const Layout lay = layout(U, F32, stages);
+  const int ldv = I8 ? LDV8 : LDV;              // row stride of the streamed value tile
+  const Layout lay = layout(U, F32, I8, stages);
 
   extern __shared__ float4 smem4[];
   char* base = reinterpret_cast<char*>(smem4);
   T* qs = reinterpret_cast<T*>(base + lay.q);
   T* ks0 = reinterpret_cast<T*>(base + lay.k);
-  __nv_bfloat16* vs0 = reinterpret_cast<__nv_bfloat16*>(base + lay.v);
+  V* vs0 = reinterpret_cast<V*>(base + lay.v);
+  __nv_bfloat16* vconv = reinterpret_cast<__nv_bfloat16*>(base + lay.vc);  // I8 only
   __nv_bfloat16* ps = reinterpret_cast<__nv_bfloat16*>(base + lay.p);
   __nv_bfloat16* pg = ps + BM * LDP;
   float* mask0 = reinterpret_cast<float*>(base + lay.mask);
+  float* scale0 = reinterpret_cast<float*>(base + lay.scale);  // I8 only
   float* dpart = reinterpret_cast<float*>(base + lay.dpart);  // [family][part][BM]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -167,15 +191,19 @@ fused_retrieval_kernel(const void* __restrict__ q_cat_, const void* __restrict__
       const bool ok = n0 + r < N;
       cp_async16(ks + r * ldq + c, k_cat + (ok ? (size_t)(n0 + r) * cat_d + c : 0), ok);
     }
-    __nv_bfloat16* vs = vs0 + buf * BN * LDV;
-    for (int idx = tid; idx < BN * (DVS / 8); idx += THREADS) {
-      const int r = idx / (DVS / 8), c = (idx % (DVS / 8)) * 8;
+    V* vs = vs0 + buf * BN * ldv;
+    for (int idx = tid; idx < BN * (DVS / EV); idx += THREADS) {
+      const int r = idx / (DVS / EV), c = (idx % (DVS / EV)) * EV;
       const bool ok = n0 + r < N && col0 + c < Dv;
-      cp_async16(vs + r * LDV + c, values + (ok ? (size_t)(n0 + r) * Dv + col0 + c : 0), ok);
+      cp_async16(vs + r * ldv + c, values + (ok ? (size_t)(n0 + r) * Dv + col0 + c : 0), ok);
     }
     if (tid < BN) {
       const bool ok = n0 + tid < N;
       cp_async4(mask0 + buf * BN + tid, mask_neg + (ok ? n0 + tid : 0), ok);
+    } else if (I8 && tid < 2 * BN) {
+      const int r = tid - BN;
+      const bool ok = n0 + r < N;
+      cp_async4(scale0 + buf * BN + r, scale + (ok ? n0 + r : 0), ok);
     }
     cp_async_commit();
   };
@@ -222,8 +250,28 @@ fused_retrieval_kernel(const void* __restrict__ q_cat_, const void* __restrict__
     }
     __syncthreads();  // tile `it` (and the queries) visible to all threads
     const T* ks = ks0 + buf * BN * ldq;
-    const __nv_bfloat16* vs = vs0 + buf * BN * LDV;
+    const __nv_bfloat16* vs = reinterpret_cast<const __nv_bfloat16*>(vs0 + buf * BN * ldv);
     const float* mask_s = mask0 + buf * BN;
+    const float* scale_s = scale0 + buf * BN;
+    if constexpr (I8) {
+      // the raw codes -> the bf16 tile the value products read (exact); the
+      // previous tile's products finished before this iteration's first sync
+      const int8_t* v8 = reinterpret_cast<const int8_t*>(vs0) + buf * BN * LDV8;
+      for (int idx = tid; idx < BN * (DVS / 16); idx += THREADS) {
+        const int r = idx / (DVS / 16), c = (idx % (DVS / 16)) * 16;
+        const int4 raw = *reinterpret_cast<const int4*>(v8 + r * LDV8 + c);
+        const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
+        __align__(16) __nv_bfloat162 h[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          h[i] = __floats2bfloat162_rn(static_cast<float>(b[2 * i]),
+                                       static_cast<float>(b[2 * i + 1]));
+        int4* dst = reinterpret_cast<int4*>(vconv + r * LDV + c);
+        dst[0] = reinterpret_cast<const int4*>(h)[0];
+        dst[1] = reinterpret_cast<const int4*>(h)[1];
+      }
+      vs = vconv;
+    }
 
     // ---- logits and p = exp2(min(logit + mask, 86)) -> ps, pg (bf16)
     if constexpr (F32) {
@@ -253,8 +301,9 @@ fused_retrieval_kernel(const void* __restrict__ q_cat_, const void* __restrict__
         const float p_s = prob(sl[i], m, valid), p_g = prob(gl[i], m, valid);
         dsum_s[i] += p_s;
         dsum_g[i] += p_g;
-        ps[(r0 + i) * LDP + n] = __float2bfloat16_rn(p_s);
-        pg[(r0 + i) * LDP + n] = __float2bfloat16_rn(p_g);
+        const float sc = I8 ? scale_s[n] : 1.f;  // I8: the row's scale joins p
+        ps[(r0 + i) * LDP + n] = __float2bfloat16_rn(I8 ? p_s * sc : p_s);
+        pg[(r0 + i) * LDP + n] = __float2bfloat16_rn(I8 ? p_g * sc : p_g);
       }
     } else {
       // warp w: m16 tile (w >> 1), n8 tiles 2*(w & 1) and 2*(w & 1) + 1
@@ -291,8 +340,16 @@ fused_retrieval_kernel(const void* __restrict__ q_cat_, const void* __restrict__
           const float g1 = prob(cg[i][2 * h + 1], mask_s[c + 1], v1);
           t_s += s0 + s1;
           t_g += g0 + g1;
-          *reinterpret_cast<__nv_bfloat162*>(ps + r * LDP + c) = __floats2bfloat162_rn(s0, s1);
-          *reinterpret_cast<__nv_bfloat162*>(pg + r * LDP + c) = __floats2bfloat162_rn(g0, g1);
+          if constexpr (I8) {  // the rows' scales join p before its bf16 cast
+            const float c0 = scale_s[c], c1 = scale_s[c + 1];
+            *reinterpret_cast<__nv_bfloat162*>(ps + r * LDP + c) =
+                __floats2bfloat162_rn(s0 * c0, s1 * c1);
+            *reinterpret_cast<__nv_bfloat162*>(pg + r * LDP + c) =
+                __floats2bfloat162_rn(g0 * c0, g1 * c1);
+          } else {
+            *reinterpret_cast<__nv_bfloat162*>(ps + r * LDP + c) = __floats2bfloat162_rn(s0, s1);
+            *reinterpret_cast<__nv_bfloat162*>(pg + r * LDP + c) = __floats2bfloat162_rn(g0, g1);
+          }
         }
         dsum_s[h] += t_s;
         dsum_g[h] += t_g;
@@ -400,22 +457,22 @@ fused_retrieval_kernel(const void* __restrict__ q_cat_, const void* __restrict__
   }
 }
 
-template <bool F32>
-int launch(const void* q_cat, const void* k_cat, const void* values, const float* mask_neg,
-           float* out, int B, int N, int cat_d, int sem_d, int geo_d, int Dv, float beta,
-           cudaStream_t stream) {
+template <bool F32, bool I8>
+int launch(const void* q_cat, const void* k_cat, const void* values, const float* scale,
+           const float* mask_neg, float* out, int B, int N, int cat_d, int sem_d, int geo_d,
+           int Dv, float beta, cudaStream_t stream) {
   const int U = sem_d + geo_d;
-  Layout lay = layout(U, F32, 2);
-  if (lay.total > MAX_SMEM) lay = layout(U, F32, 1);  // e.g. the 'high' tier's wide rows
+  Layout lay = layout(U, F32, I8, 2);
+  if (lay.total > MAX_SMEM) lay = layout(U, F32, I8, 1);  // e.g. the 'high' tier's wide rows
   if (lay.total > MAX_SMEM) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      fused_retrieval_kernel<F32>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fused_retrieval_kernel<F32, I8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)lay.total);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((B + BM - 1) / BM, (Dv + DVS - 1) / DVS);
-  fused_retrieval_kernel<F32><<<grid, THREADS, lay.total, stream>>>(
-      q_cat, k_cat, static_cast<const __nv_bfloat16*>(values), mask_neg, out, B, N, cat_d,
-      sem_d, geo_d, Dv, beta, lay.stages);
+  fused_retrieval_kernel<F32, I8><<<grid, THREADS, lay.total, stream>>>(
+      q_cat, k_cat, values, scale, mask_neg, out, B, N, cat_d, sem_d, geo_d, Dv, beta,
+      lay.stages);
   return (int)cudaGetLastError();
 }
 
@@ -436,6 +493,30 @@ extern "C" int fused_retrieval_launch(const void* q_cat, const void* k_cat, cons
   const float* m = static_cast<const float*>(mask_neg);
   float* o = static_cast<float*>(out);
   if (f32_logits)
-    return launch<true>(q_cat, k_cat, values, m, o, B, N, cat_d, sem_d, geo_d, Dv, beta, s);
-  return launch<false>(q_cat, k_cat, values, m, o, B, N, cat_d, sem_d, geo_d, Dv, beta, s);
+    return launch<true, false>(q_cat, k_cat, values, nullptr, m, o, B, N, cat_d, sem_d, geo_d,
+                               Dv, beta, s);
+  return launch<false, false>(q_cat, k_cat, values, nullptr, m, o, B, N, cat_d, sem_d, geo_d,
+                              Dv, beta, s);
+}
+
+// The int8-value entry point: values [N, Dv] int8 codes (Dv % 16 == 0) and
+// scale [N] f32, row r standing for values[r] * scale[r]; the rest as
+// fused_retrieval_launch.
+extern "C" int fused_retrieval_i8_launch(const void* q_cat, const void* k_cat,
+                                         const void* values, const void* scale,
+                                         const void* mask_neg, void* out, int B, int N,
+                                         int cat_d, int sem_d, int geo_d, int Dv, float beta,
+                                         int f32_logits, void* stream) {
+  if (B <= 0 || Dv <= 0) return 0;
+  if (sem_d % 16 || geo_d % 16 || sem_d + geo_d > cat_d || cat_d % 8 || Dv % 16 || N < 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* sc = static_cast<const float*>(scale);
+  const float* m = static_cast<const float*>(mask_neg);
+  float* o = static_cast<float*>(out);
+  if (f32_logits)
+    return launch<true, true>(q_cat, k_cat, values, sc, m, o, B, N, cat_d, sem_d, geo_d, Dv,
+                              beta, s);
+  return launch<false, true>(q_cat, k_cat, values, sc, m, o, B, N, cat_d, sem_d, geo_d, Dv,
+                             beta, s);
 }

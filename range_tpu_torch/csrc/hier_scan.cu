@@ -30,6 +30,13 @@
 // next group and value tiles stream in with cp.async while this one
 // computes.  Stats are written straight in [query, tile] order, so the
 // TPU's transposed [tile, query] layout and its transpose disappear.
+//
+// has_geo = 0 (RANGE mode, `_hier_scan_call(..., has_geo=False)`): the grid
+// holds the sem blocks only.  The TPU kernel still computes the geo stats
+// and zero-fills the geo tail there, but RANGE mode reads neither; here the
+// geo operands are not touched (the full-width geo operand that mode
+// passes is wider than this kernel's register tail) and the tails hold the
+// sem columns only.
 
 #include "mma_common.cuh"
 
@@ -259,17 +266,20 @@ bool gpt_ok(int gpt) { return gpt % 8 == 0 && (gpt <= BN ? BN % gpt == 0 : gpt %
 // q_cat [Bp, cat_d] bf16 packed queries: the sem family contracts columns
 // [0, ws), the geo family the last wg.  g_sem [Gs, ws], g_geo [Gg, wg],
 // vw_sem [Gs, Ws], vw_geo [Gg, Wg] bf16.  Out: m_s, s_s, m_g, s_g
-// [Bp, t_pad] f32 and tails [Bp, Ws + Wg] f32 ([sem | geo]).  All
-// contiguous and 16-byte aligned.
+// [Bp, t_pad] f32 and tails [Bp, Ws + Wg] f32 ([sem | geo]).  has_geo = 0:
+// only m_s, s_s and tails [Bp, Ws] are written, the geo pointers are not
+// read.  All contiguous and 16-byte aligned.
 extern "C" int hier_scan_launch(const void* q_cat, const void* g_sem, const void* g_geo,
                                 const void* vw_sem, const void* vw_geo, void* m_s, void* s_s,
                                 void* m_g, void* s_g, void* tails, int Bp, int cat_d, int ws,
                                 int wg, int Gs, int Gg, int Ws, int Wg, int gpt_s, int gpt_g,
-                                int t_pad, void* stream) {
+                                int t_pad, int has_geo, void* stream) {
   if (Bp <= 0) return 0;
-  if (ws % 16 || wg % 16 || ws > cat_d || wg > cat_d || cat_d % 8 || Ws % 128 || Wg % 128 ||
-      Ws > 64 * MAX_NT || Wg > 64 * MAX_NT || Gs % BN || Gg % BN || !gpt_ok(gpt_s) ||
-      !gpt_ok(gpt_g) || Gs != t_pad * gpt_s || Gg != t_pad * gpt_g)
+  if (ws % 16 || ws > cat_d || cat_d % 8 || Ws % 128 || Ws > 64 * MAX_NT || Gs % BN ||
+      !gpt_ok(gpt_s) || Gs != t_pad * gpt_s)
+    return (int)cudaErrorInvalidValue;
+  if (has_geo && (wg % 16 || wg > cat_d || Wg % 128 || Wg > 64 * MAX_NT || Gg % BN ||
+                  !gpt_ok(gpt_g) || Gg != t_pad * gpt_g))
     return (int)cudaErrorInvalidValue;
   using bf = __nv_bfloat16;
   const Family f0{static_cast<const bf*>(g_sem), static_cast<const bf*>(vw_sem),
@@ -277,14 +287,14 @@ extern "C" int hier_scan_launch(const void* q_cat, const void* g_sem, const void
   const Family f1{static_cast<const bf*>(g_geo), static_cast<const bf*>(vw_geo),
                   static_cast<float*>(m_g), static_cast<float*>(s_g), wg, cat_d - wg, Gg, Wg,
                   gpt_g, Ws};
-  const Layout lay = layout(ws > wg ? ws : wg, Ws > Wg ? Ws : Wg);
+  const Layout lay = has_geo ? layout(ws > wg ? ws : wg, Ws > Wg ? Ws : Wg) : layout(ws, Ws);
   if (lay.total > MAX_SMEM) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       hier_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay.total);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Bp + BM - 1) / BM, 2);
+  const dim3 grid((Bp + BM - 1) / BM, has_geo ? 2 : 1);
   hier_scan_kernel<<<grid, THREADS, lay.total, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf*>(q_cat), Bp, cat_d, t_pad, static_cast<float*>(tails), Ws + Wg, f0,
-      f1, lay);
+      static_cast<const bf*>(q_cat), Bp, cat_d, t_pad, static_cast<float*>(tails),
+      has_geo ? Ws + Wg : Ws, f0, f1, lay);
   return (int)cudaGetLastError();
 }

@@ -32,9 +32,12 @@ _SIGNATURES = {
     "siren_tower": {"siren_tower_launch":
                     [_P] * 8 + [_I] * 4 + [_F, _F, _I, _P]},
     "fused_retrieval": {"fused_retrieval_launch":
-                        [_P] * 5 + [_I] * 6 + [_F, _I, _P]},
-    "hier_scan": {"hier_scan_launch": [_P] * 10 + [_I] * 11 + [_P]},
+                        [_P] * 5 + [_I] * 6 + [_F, _I, _P],
+                        "fused_retrieval_i8_launch":
+                        [_P] * 6 + [_I] * 6 + [_F, _I, _P]},
+    "hier_scan": {"hier_scan_launch": [_P] * 10 + [_I] * 12 + [_P]},
     "hier_scan_stats": {"hier_scan_stats_launch": [_P] * 7 + [_I] * 9 + [_P]},
+    "hier_parts": {"hier_parts_launch": [_P] * 11 + [_I] * 14 + [_P]},
     "hier_parts_family": {"hier_parts_family_launch":
                           [_P] * 9 + [_I] * 14 + [_P]},
     "combine_cat": {"combine_cat_launch": [_P] * 7 + [_I] * 8 + [_F, _P]},

@@ -10,8 +10,10 @@ Counterpart of `range_tpu/models/range_encoder.py:44-274` (reference
   4. output = concat([retrieved_Dv, query_256])
 
 With a `HierBank` and ``retrieval='hier'`` the retrieval is the
-hierarchical flagship path (`ops/retrieval_hier.retrieve_hier`), with the
-JAX package's batch-size heuristics (`range_encoder.py:147-223`).
+hierarchical path (`ops/retrieval_hier.retrieve_hier`: RANGE+ through the
+family-split kernels, RANGE through the merged parts kernel), with the
+JAX package's batch-size heuristics (`range_encoder.py:147-223`).  Banks
+with int8 values take the int8 kernels on either path.
 Multi-device meshes are not ported.
 """
 

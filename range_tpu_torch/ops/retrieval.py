@@ -19,11 +19,12 @@ CUDA device that is true f32 only while
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from ..bank.bank import GeoBank
+from ..bank.bank import GeoBank, dequantize_values
 
 _NEG = -1e30
 
@@ -118,7 +119,13 @@ def retrieve(q_sem: torch.Tensor, q_xyz: Optional[torch.Tensor],
       mode: 'range' (semantic only) or 'range+' (blend).
     Returns:
       [B, Dv] float32 retrieved features.
+
+    An int8 bank (`bank.quantize_values`) is served from its f32
+    reconstruction (`ops/retrieval.py:130-138`).
     """
+    if bank.value_scale is not None:
+        bank = dataclasses.replace(bank, values=dequantize_values(bank),
+                                   value_scale=None)
     sem_state, geo_state = partial_states(
         q_sem, q_xyz, bank, sem_temp=sem_temp, geo_temp=geo_temp, mode=mode,
         chunk=chunk, compute_dtype=compute_dtype)

@@ -1,7 +1,7 @@
 """Hierarchical (two-stage) approximate retrieval: bank build and serving.
 
 Counterpart of `range_tpu/ops/retrieval_hier.py` for the flagship RANGE+
-path (`api.SERVING_PROFILES['flagship']` and `['turbo']`).
+and RANGE paths (`api.SERVING_PROFILES['flagship']` and `['turbo']`).
 
 Build (`build_hier_bank`, offline, on the bank's device): geographic
 k-means reorder with dense packing (`bank/clustered.py`), a key+value
@@ -32,6 +32,14 @@ block's selected tiles.  `hier_nn` is the harness that measures which
 argmax the feature path can reach (masked logits, chunked, no kernel of
 its own beyond the stats scan).
 
+RANGE mode (`retrieve_hier(mode="range")`, no locations, beta 1) takes
+the JAX package's merged branch over low-rank banks: the home-tile query
+sort, the scan without its geo family, one selection, the MERGED parts
+kernel (`_hier_parts_call`: both families' exact minus approximation in
+one pass, the geo family skipped where RANGE discards it) and the
+low-rank combine in torch.  Banks with int8 values (`quantize_values`)
+keep their codes and scales; the merged kernel folds the scales in.
+
 Each kernel wrapper runs its plain PyTorch version on CPU tensors and the
 CUDA kernel (`csrc/`) on CUDA tensors, and counts launches in
 ``.launches``.  The numbers are f32 sums of bf16 products in both; the
@@ -54,7 +62,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..bank.bank import GeoBank
+from ..bank.bank import GeoBank, dequantize_values
 from ..bank.clustered import cluster_bank, tile_stats
 from .kmeans import kmeans
 from .retrieval import first_argmax
@@ -83,7 +91,8 @@ class HierBank:
 
       bank:        the clustered GeoBank (row-reordered, dense-packed)
       k_cat:       [N, cat_d] packed serving keys (pack_bank, `tier`)
-      values:      [N, Dv] serving values (bf16)
+      values:      [N, Dv] serving values: bf16, or int8 codes with
+                   value_scale [1, N] f32 (a `quantize_values` bank)
       mask_neg:    [1, N] f32 additive row mask (0 / -1e30)
       sem_/geo_centroid, sem_/geo_radius: per-tile bounding balls
       g_sem_cat:   [G_s, sem_d] packed sem group centroids
@@ -229,7 +238,9 @@ def build_hier_bank(bank: GeoBank, *, bn: int = 512, gsz_sem: int = 8,
                     host_stage: Optional[bool] = None) -> HierBank:
     """Offline serving prep on the bank's device (`retrieval_hier.py:337-804`,
     its device path).  ``seed`` names the build in its cache signature;
-    the clustering is seeded with explicit points and draws nothing."""
+    the clustering is seeded with explicit points and draws nothing.  A
+    `quantize_values` bank keeps its int8 codes and scales (permuted with
+    their rows); every derived operand comes from the dequantized values."""
     if bn % gsz_sem or bn % gsz_geo or bn // gsz_sem < 8 or bn // gsz_geo < 8:
         raise ValueError(f"bn={bn} must hold >= 8 groups of gsz_sem={gsz_sem} "
                          f"and gsz_geo={gsz_geo}")
@@ -252,7 +263,7 @@ def build_hier_bank(bank: GeoBank, *, bn: int = 512, gsz_sem: int = 8,
     if group_by == "key_value":
         # groups cluster on [key | lam * v/|v|] so group value sums stay
         # value-pure (`retrieval_hier.py:443-471`)
-        vf = cbank.values.to(torch.float32)
+        vf = dequantize_values(cbank)
         vn = vf / torch.clamp_min(torch.linalg.norm(vf, dim=1, keepdim=True),
                                   1e-9)
         gfeat = torch.cat([cbank.keys_sem.to(torch.float32),
@@ -266,7 +277,9 @@ def build_hier_bank(bank: GeoBank, *, bn: int = 512, gsz_sem: int = 8,
     cbank = dataclasses.replace(
         cbank, locs_lonlat=cbank.locs_lonlat[perm], xyz=cbank.xyz[perm],
         keys_sem=cbank.keys_sem[perm], values=cbank.values[perm],
-        valid_mask=cbank.valid_mask[perm])
+        valid_mask=cbank.valid_mask[perm],
+        value_scale=(None if cbank.value_scale is None
+                     else cbank.value_scale[:, perm]))
     return pack_hier_bank(cbank, bn=bn, gsz_sem=gsz_sem, gsz_geo=gsz_geo,
                           tier=tier, lr_rank=lr_rank, lr_geo=lr_geo,
                           res_rank=res_rank, topk_gsz=topk_gsz)
@@ -296,7 +309,7 @@ def pack_hier_bank(cbank: GeoBank, *, bn: int, gsz_sem: int, gsz_geo: int,
     vw_dtype = f32 if tier == "exact" else torch.bfloat16
     dev = cbank.device
     mask = cbank.row_mask()
-    vals_f32 = cbank.values.to(f32) * mask[:, None]
+    vals_f32 = dequantize_values(cbank) * mask[:, None]
 
     def zeros(*shape):
         return torch.zeros(shape, dtype=f32, device=dev)
@@ -370,10 +383,13 @@ def pack_hier_bank(cbank: GeoBank, *, bn: int, gsz_sem: int, gsz_geo: int,
     g_topk_cat = (group_ops(cbank.keys_sem, topk_gsz, geo=False,
                             stats_only=True)[0] if topk_gsz else None)
     kh, kl = _split_hilo(cbank.keys_sem.to(f32))
-    values = cbank.values.to(torch.bfloat16)  # the kernels' value dtype
+    if cbank.value_scale is not None:  # int8 codes, served with their scales
+        values, scale = cbank.values, cbank.value_scale.to(f32)
+    else:
+        values, scale = cbank.values.to(torch.bfloat16), None  # the kernels' dtype
     return HierBank(
         bank=cbank, k_cat=pack_bank(cbank.keys_sem, cbank.xyz, tier),
-        values=values, value_scale=None,
+        values=values, value_scale=scale,
         mask_neg=(NEG * (1.0 - mask))[None, :].to(f32),
         sem_centroid=stats.sem_centroid, geo_centroid=stats.geo_centroid,
         sem_radius=stats.sem_radius, geo_radius=stats.geo_radius,
@@ -452,7 +468,8 @@ def save_hier_bank(hb: HierBank, path: str, build: Optional[dict] = None
         v = getattr(hb, field)
         if v is not None:
             arrays[field], meta["dtypes"][field] = _to_numpy(v)
-    for field in ("locs_lonlat", "xyz", "keys_sem", "valid_mask", "values"):
+    for field in ("locs_lonlat", "xyz", "keys_sem", "valid_mask", "values",
+                  "value_scale"):
         v = getattr(hb.bank, field)
         if v is not None:
             key = "bank_" + field
@@ -473,9 +490,6 @@ def load_hier_bank(path: str, device="cuda") -> HierBank:
     with np.load(path) as z:
         raw = dict(z)
     meta = json.loads(raw.pop("meta_json").tobytes().decode())
-    if "value_scale" in raw or "bank_value_scale" in raw:
-        raise _not_ported("int8-valued HierBanks", "ROADMAP.md, Queue 1 "
-                          "'int8 values'")
 
     def dec(name):
         if name not in raw:
@@ -489,7 +503,8 @@ def load_hier_bank(path: str, device="cuda") -> HierBank:
     bank = GeoBank(locs_lonlat=dec("bank_locs_lonlat"), xyz=dec("bank_xyz"),
                    keys_sem=dec("bank_keys_sem"), values=dec("bank_values"),
                    n_valid=int(raw["bank_n_valid"]),
-                   valid_mask=dec("bank_valid_mask"))
+                   valid_mask=dec("bank_valid_mask"),
+                   value_scale=dec("bank_value_scale"))
     defaults = {f.name: f.default for f in dataclasses.fields(HierBank)}
     return HierBank(bank=bank, **{f: dec(f) for f in _ARRAY_FIELDS},
                     **{f: meta.get(f, defaults[f]) for f in _META_FIELDS})
@@ -512,11 +527,17 @@ def prepare_hier_bank(bank: GeoBank, *, cache_path: Optional[str] = None,
         res_rank=build_kw.get("res_rank") or 0, **sig_kw)
     if cache_path and os.path.exists(cache_path):
         got = peek_hier_build(cache_path)
-        if got == sig:
+        # the signature (the JAX package's) does not record int8 values:
+        # an archive whose values are not what the bank's are is stale too
+        with np.load(cache_path) as z:
+            got_i8 = "value_scale" in z.files
+        want_i8 = bank.value_scale is not None
+        if got == sig and got_i8 == want_i8:
             return load_hier_bank(cache_path, device=bank.device)
         logging.getLogger("range_tpu_torch").warning(
-            "hier cache %s is stale (built %s, requested %s): rebuilding",
-            cache_path, got, sig)
+            "hier cache %s is stale (built %s, int8 values %s; requested %s, "
+            "int8 values %s): rebuilding", cache_path, got, got_i8, sig,
+            want_i8)
     hb = build_hier_bank(bank, **build_kw)
     if cache_path:
         save_hier_bank(hb, cache_path, build=sig)
@@ -660,17 +681,22 @@ def _launch(name: str, fn: str, *args) -> None:
 
 
 def _hier_scan_plain(q_cat, g_sem_cat, g_geo_cat, g_sem_vw, g_geo_vw, *,
-                     gpt_s: int, gpt_g: int, chunk: int = 2048):
+                     gpt_s: int, gpt_g: int, has_geo: bool = True,
+                     chunk: int = 2048):
     """Plain version of the scan kernel (`_hier_scan_kernel`,
     `retrieval_hier.py:1443-1515`): per family, group logits of the
     family's query columns (sem: the first ws, geo: the last wg) against
     the slim centroids; per tile the max logit and the sum of
-    exp2(min(l, 86)); the tail  bf16(exp2(...)) @ vw  in f32."""
+    exp2(min(l, 86)); the tail  bf16(exp2(...)) @ vw  in f32.
+    ``has_geo=False`` (RANGE mode) computes the sem family only and returns
+    (m_s, s_s, None, None, tails [Bp, Ws]): what that mode reads."""
     f32 = torch.float32
     cat_d = q_cat.shape[1]
     ws, wg = g_sem_cat.shape[1], g_geo_cat.shape[1]
-    fams = [(g_sem_cat.to(f32), g_sem_vw, slice(0, ws), gpt_s),
-            (g_geo_cat.to(f32), g_geo_vw, slice(cat_d - wg, cat_d), gpt_g)]
+    fams = [(g_sem_cat.to(f32), g_sem_vw, slice(0, ws), gpt_s)]
+    if has_geo:
+        fams.append((g_geo_cat.to(f32), g_geo_vw, slice(cat_d - wg, cat_d),
+                     gpt_g))
     stats = [[], [], [], []]
     tails = []
     for lo in range(0, q_cat.shape[0], chunk):
@@ -682,7 +708,8 @@ def _hier_scan_plain(q_cat, g_sem_cat, g_geo_cat, g_sem_vw, g_geo_vw, *,
             stats[2 * f + 1].append(s)
             tail.append(e.to(vw.dtype).to(f32) @ vw.to(f32))
         tails.append(torch.cat(tail, 1))
-    return tuple(torch.cat(s) for s in stats) + (torch.cat(tails),)
+    return tuple(torch.cat(s) if s else None for s in stats) + (
+        torch.cat(tails),)
 
 
 def _family_stats(q: torch.Tensor, g: torch.Tensor, gpt: int):
@@ -760,9 +787,10 @@ _hier_scan_stats_call.launches = 0
 
 
 def _hier_scan_call(q_cat, g_sem_cat, g_geo_cat, g_sem_vw, g_geo_vw, *,
-                    gpt_s: int, gpt_g: int):
+                    gpt_s: int, gpt_g: int, has_geo: bool = True):
     """The fused group scan: (m_s, s_s, m_g, s_g [Bp, t_pad] f32, tails
-    [Bp, Ws + Wg] f32).
+    [Bp, Ws + Wg] f32).  ``has_geo=False`` (RANGE mode): (m_s, s_s, None,
+    None, tails [Bp, Ws]), the geo operands untouched.
 
     CPU tensors: `_hier_scan_plain`.  CUDA tensors: `csrc/hier_scan.cu`,
     which replaces `_hier_scan_kernel` (`range_tpu/ops/retrieval_hier.py:
@@ -770,39 +798,49 @@ def _hier_scan_call(q_cat, g_sem_cat, g_geo_cat, g_sem_vw, g_geo_vw, *,
     knobs (bm, tc) have no counterpart: they only set speed."""
     if q_cat.device.type == "cpu":
         return _hier_scan_plain(q_cat, g_sem_cat, g_geo_cat, g_sem_vw,
-                                g_geo_vw, gpt_s=gpt_s, gpt_g=gpt_g)
+                                g_geo_vw, gpt_s=gpt_s, gpt_g=gpt_g,
+                                has_geo=has_geo)
     bf = torch.bfloat16
-    ops = dict(q_cat=q_cat, g_sem_cat=g_sem_cat, g_geo_cat=g_geo_cat,
-               g_sem_vw=g_sem_vw, g_geo_vw=g_geo_vw)
+    ops = dict(q_cat=q_cat, g_sem_cat=g_sem_cat, g_sem_vw=g_sem_vw)
+    if has_geo:
+        ops.update(g_geo_cat=g_geo_cat, g_geo_vw=g_geo_vw)
     _check_cuda("hier_scan", ops, dict.fromkeys(ops, bf))
     Bp, cat_d = q_cat.shape
-    (Gs, ws), (Gg, wg) = g_sem_cat.shape, g_geo_cat.shape
-    Ws, Wg = g_sem_vw.shape[1], g_geo_vw.shape[1]
+    Gs, ws = g_sem_cat.shape
+    Ws = g_sem_vw.shape[1]
     t_pad = Gs // gpt_s
-    for gpt in (gpt_s, gpt_g):
+    fams = [(gpt_s, Gs, ws, Ws, g_sem_vw)]
+    if has_geo:
+        fams.append((gpt_g, *g_geo_cat.shape, g_geo_vw.shape[1], g_geo_vw))
+    for gpt, G, w, W, vw in fams:
         if not _gpt_ok(gpt):
             raise ValueError(f"hier_scan kernel: groups per tile {gpt} must "
                              "be 8, 16, 32 or a multiple of 32")
-    if (Gs != t_pad * gpt_s or Gg != t_pad * gpt_g or Gs % 32 or Gg % 32
-            or g_sem_vw.shape[0] != Gs or g_geo_vw.shape[0] != Gg
-            or ws > 256 or wg > 256 or ws % 16 or wg % 16 or ws > cat_d
-            or wg > cat_d or cat_d % 8 or Ws % 128 or Wg % 128
-            or Ws > 512 or Wg > 512):
-        raise ValueError(
-            f"hier_scan kernel: unsupported shapes q {tuple(q_cat.shape)}, "
-            f"g_sem {tuple(g_sem_cat.shape)}, g_geo {tuple(g_geo_cat.shape)}, "
-            f"vw {tuple(g_sem_vw.shape)} / {tuple(g_geo_vw.shape)}")
-    ops = [t.contiguous() for t in ops.values()]
+        if (G != t_pad * gpt or G % 32 or vw.shape[0] != G or w > 256
+                or w % 16 or w > cat_d or cat_d % 8 or W % 128 or W > 512):
+            raise ValueError(
+                f"hier_scan kernel: unsupported shapes q {tuple(q_cat.shape)}"
+                f", g_sem {tuple(g_sem_cat.shape)}, g_geo "
+                f"{tuple(g_geo_cat.shape)}, vw {tuple(g_sem_vw.shape)} / "
+                f"{tuple(g_geo_vw.shape)}")
     dev = q_cat.device
     stats = [torch.empty((Bp, t_pad), dtype=torch.float32, device=dev)
-             for _ in range(4)]
+             for _ in range(4 if has_geo else 2)]
+    Wg = g_geo_vw.shape[1] if has_geo else 0
     tails = torch.empty((Bp, Ws + Wg), dtype=torch.float32, device=dev)
     if Bp:
-        _launch("hier_scan", "hier_scan_launch",
-                *[t.data_ptr() for t in ops + stats + [tails]],
-                Bp, cat_d, ws, wg, Gs, Gg, Ws, Wg, gpt_s, gpt_g, t_pad,
-                _stream(q_cat))
+        q, gs, vs = (t.contiguous() for t in (q_cat, g_sem_cat, g_sem_vw))
+        gg, vg = ((g_geo_cat.contiguous(), g_geo_vw.contiguous()) if has_geo
+                  else (None, None))
+        ptr = [None if t is None else t.data_ptr() for t in (
+            q, gs, gg, vs, vg, *stats[:2], *(stats[2:] or [None, None]),
+            tails)]
+        _launch("hier_scan", "hier_scan_launch", *ptr, Bp, cat_d, ws,
+                g_geo_cat.shape[1], Gs, g_geo_cat.shape[0], Ws, Wg, gpt_s,
+                gpt_g, t_pad, int(has_geo), _stream(q_cat))
         _hier_scan_call.launches += 1
+    if not has_geo:
+        stats += [None, None]
     return tuple(stats) + (tails,)
 
 
@@ -915,6 +953,145 @@ def _hier_parts_family_call(q_cat, k_cat, mask_neg, idx, g_cat, g_vw, z, *,
 
 
 _hier_parts_family_call.launches = 0
+
+
+def _hier_parts_plain(q_cat, k_cat, values, scale, mask_neg, idx, g_sem_cat,
+                      g_geo_cat, g_sem_vw, g_geo_vw, *, sem_d: int, bm: int,
+                      bn: int, gpt_s: int, gpt_g: int, geo: bool = True,
+                      magnitude: bool = False):
+    """Plain version of the merged parts kernel, low-rank variant
+    (`_hier_parts_kernel` with lr, `retrieval_hier.py:2515-2613`).  Per
+    query block and selected tile: p_s, p_g = exp2(min(q . k + mask, 86))
+    over each family's columns; d_s, d_g their sums; acc += bf16(p * s) @ v
+    per family (s the int8 row scale; without ``scale`` p is cast to the
+    value dtype); alr += bf16(exp2(min(q_sem . g_sem, 86))) @ g_sem_vw (the
+    sem approximation, kept apart); [acc_g | d_g] -= bf16(exp2(min(q_geo .
+    g_geo, 86))) @ g_geo_vw (the geo approximation, count in column Dv).
+    Out [Bp, 2 Dv + 128 + Ws]: acc_s | acc_g | d_s | d_g | 0 | alr.
+    ``geo=False`` leaves the geo columns zero (what RANGE mode discards).
+    The group logits take q[:, :gs_w] for sem and the last gg_w columns of
+    q for geo.
+
+    ``magnitude=True`` sums the terms' magnitudes instead (|v|, |vw|, the
+    approximations added): the per-element scale that a bf16 rounding
+    point landing the other way is measured against."""
+    f32 = torch.float32
+    Bp, cat_d = q_cat.shape
+    nB, K = idx.shape
+    Dv, Ws = values.shape[1], g_sem_vw.shape[1]
+    gs_w, gg_w = g_sem_cat.shape[1], g_geo_cat.shape[1]
+    wdt = torch.bfloat16 if scale is not None else values.dtype
+    dev = q_cat.device
+    out = torch.zeros((Bp, 2 * Dv + 128 + Ws), dtype=f32, device=dev)
+    ar_rows = torch.arange(bn, device=dev)
+    for i in range(nB):
+        tiles = idx[i].long()
+        rows = (tiles[:, None] * bn + ar_rows).reshape(-1)
+        q = q_cat[i * bm:(i + 1) * bm].to(f32)
+        k = k_cat[rows].to(f32)
+        v = values[rows].to(f32)
+        m = mask_neg[0, rows]
+        o = out[i * bm:(i + 1) * bm]
+
+        def family(cols):
+            p = torch.exp2(torch.clamp_max(q[:, cols] @ k[:, cols].T + m,
+                                           CLAMP2))
+            w = p * scale[0, rows].to(f32) if scale is not None else p
+            vv = v.abs() if magnitude else v
+            return p.sum(dim=1), w.to(wdt).to(f32) @ vv
+
+        def approx(qcols, g_cat, vw, gpt):
+            grps = (tiles[:, None] * gpt
+                    + torch.arange(gpt, device=dev)).reshape(-1)
+            e = torch.exp2(torch.clamp_max(q[:, qcols] @ g_cat[grps].to(f32).T,
+                                           CLAMP2))
+            w = vw[grps].to(f32)
+            return e.to(vw.dtype).to(f32) @ (w.abs() if magnitude else w)
+
+        o[:, 2 * Dv], o[:, :Dv] = family(slice(0, sem_d))
+        o[:, 2 * Dv + 128:] = approx(slice(0, gs_w), g_sem_cat, g_sem_vw,
+                                     gpt_s)
+        if geo:
+            d_g, acc_g = family(slice(sem_d, cat_d))
+            appr = approx(slice(cat_d - gg_w, cat_d), g_geo_cat, g_geo_vw,
+                          gpt_g)
+            sign = 1.0 if magnitude else -1.0
+            o[:, Dv:2 * Dv] = acc_g + sign * appr[:, :Dv]
+            o[:, 2 * Dv + 1] = d_g + sign * appr[:, Dv]
+    return out
+
+
+def _hier_parts_call(q_cat, k_cat, values, scale, mask_neg, idx, g_sem_cat,
+                     g_geo_cat, g_sem_vw, g_geo_vw, *, sem_d: int, bm: int,
+                     bn: int, gpt_s: int, gpt_g: int, lr: bool = True,
+                     geo: bool = True):
+    """Exact minus group approximation of both families over each query
+    block's selected tiles, the merged shape RANGE mode serves: [Bp, 2 Dv +
+    128 + Ws] f32, the layout of `_hier_parts_plain`.  ``scale`` [1, N]
+    f32 with int8 ``values``, else None; ``geo=False`` skips the geo
+    family (its columns come back zero).  ``lr=False`` (full-width sem
+    group sums) is not ported.
+
+    CPU tensors: `_hier_parts_plain`.  CUDA tensors: `csrc/hier_parts.cu`,
+    which replaces `_hier_parts_kernel` (`range_tpu/ops/retrieval_hier.py:
+    2515`); a launch failure raises."""
+    if not lr:
+        raise _not_ported(
+            "the merged parts kernel over full-width sem group sums (lr=False,"
+            " TPU kernel 15's plain variant; it needs the wide-tail scan)",
+            _ROADMAP_SERVE)
+    if q_cat.device.type == "cpu":
+        return _hier_parts_plain(q_cat, k_cat, values, scale, mask_neg, idx,
+                                 g_sem_cat, g_geo_cat, g_sem_vw, g_geo_vw,
+                                 sem_d=sem_d, bm=bm, bn=bn, gpt_s=gpt_s,
+                                 gpt_g=gpt_g, geo=geo)
+    bf, f32 = torch.bfloat16, torch.float32
+    ops = dict(q_cat=q_cat, k_cat=k_cat, values=values, mask_neg=mask_neg,
+               idx=idx, g_sem_cat=g_sem_cat, g_geo_cat=g_geo_cat,
+               g_sem_vw=g_sem_vw, g_geo_vw=g_geo_vw)
+    dtypes = dict(q_cat=bf, k_cat=bf, values=bf, mask_neg=f32,
+                  idx=torch.int32, g_sem_cat=bf, g_geo_cat=bf, g_sem_vw=bf,
+                  g_geo_vw=bf)
+    if scale is not None:
+        ops["scale"], dtypes["scale"], dtypes["values"] = scale, f32, torch.int8
+    _check_cuda("hier_parts", ops, dtypes)
+    Bp, cat_d = q_cat.shape
+    N, Dv = values.shape
+    nB, K = idx.shape
+    (Gs, gs_w), (Gg, gg_w) = g_sem_cat.shape, g_geo_cat.shape
+    Ws, Wg = g_sem_vw.shape[1], g_geo_vw.shape[1]
+    if (k_cat.shape != (N, cat_d) or mask_neg.shape != (1, N)
+            or (scale is not None and scale.shape != (1, N))
+            or Bp != nB * bm or bm % 64 or bn % 32 or N % bn or sem_d % 16
+            or sem_d + 16 > cat_d or cat_d % 8 or Dv % 16 or gs_w != sem_d
+            or g_sem_vw.shape[0] != Gs or Ws % 128 or Ws > 512
+            or not 1 <= gpt_s <= 64 or bn % gpt_s
+            or (geo and (cat_d - gg_w != sem_d or gg_w % 8 or Wg < Dv + 1
+                         or Wg % 8 or g_geo_vw.shape[0] != Gg
+                         or not 1 <= gpt_g <= 32 or bn % gpt_g))):
+        raise ValueError(
+            f"hier_parts kernel: unsupported shapes q {tuple(q_cat.shape)}, "
+            f"k {tuple(k_cat.shape)}, values {tuple(values.shape)}, idx "
+            f"{tuple(idx.shape)}, g_sem {tuple(g_sem_cat.shape)}, g_geo "
+            f"{tuple(g_geo_cat.shape)}, vw {tuple(g_sem_vw.shape)} / "
+            f"{tuple(g_geo_vw.shape)}, bm={bm}, bn={bn}, gpt {gpt_s} / "
+            f"{gpt_g}")
+    out = torch.empty((Bp, 2 * Dv + 128 + Ws), dtype=f32, device=q_cat.device)
+    if Bp and K:
+        held = [None if t is None else t.contiguous() for t in (
+            q_cat, k_cat, values, scale, mask_neg, idx, g_sem_cat, g_geo_cat,
+            g_sem_vw, g_geo_vw)]  # referenced until the launch is queued
+        ptr = [None if t is None else t.data_ptr() for t in held]
+        _launch("hier_parts", "hier_parts_launch", *ptr, out.data_ptr(), Bp,
+                cat_d, sem_d, Dv, bm, bn, gpt_s, gpt_g, K, Ws, Wg, gg_w,
+                int(geo), int(scale is not None), _stream(q_cat))
+        _hier_parts_call.launches += 1
+    elif Bp:
+        out.zero_()
+    return out
+
+
+_hier_parts_call.launches = 0
 
 
 def _stacked_bases(w_sem, u_sem, w_geo, u_geo):
@@ -1133,11 +1310,20 @@ _hier_topk_call.launches = 0
 # the serving pipeline
 
 
-def _check_servable(hb: HierBank) -> None:
-    """The port serves the flagship shape: lr + rr + geo-lr banks."""
+def _check_servable(hb: HierBank, mode: str) -> None:
+    """The port serves RANGE mode on low-rank banks (lr_rank, the merged
+    parts kernel's lr variant) and RANGE+ on the flagship shape: lr + rr +
+    geo-lr banks (the family-split kernels)."""
     for name in ("gsz_super", "tail_super", "sel_lr"):
         if getattr(hb, name):
             raise _not_ported(f"serving {name} banks", _ROADMAP_SERVE)
+    if mode == "range":
+        if not (hb.lr_rank and hb.g_sem_vw_lr is not None):
+            raise _not_ported(
+                "RANGE mode on banks without lr_rank (TPU kernel 15's plain "
+                "variant over full-width sem group sums, and the wide-tail "
+                "scan it needs)", _ROADMAP_SERVE)
+        return
     if not (hb.lr_rank and hb.g_sem_vw_lr is not None and hb.res_rank
             and hb.z_sem is not None and hb.lr_geo
             and hb.g_geo_vw_lr is not None):
@@ -1174,6 +1360,38 @@ def _hier_partials(q_cat: torch.Tensor, hb: HierBank, *, k_tiles: int,
     return parts_s, parts_g, tails
 
 
+def _hier_partials_merged(q_cat: torch.Tensor, hb: HierBank, *,
+                          k_tiles: int, bm: int, j_sem: int, j_geo: int,
+                          n_valid: int):
+    """RANGE mode's pipeline body on sorted, packed queries: the scan
+    without the geo family, one selection, the merged parts kernel (lr
+    variant, geo skipped) and the low-rank sem combine (`_hier_partials`,
+    `retrieval_hier.py:2832-2835,3004-3018`).  Returns the unnormalized
+    (acc_s [Bp, Dv], d_s [Bp, 1]) f32.
+
+    corr = tails - alr replaces the selected tiles' group approximation
+    with their exact sums: acc_s = parts_s + corr[:, :r] @ u_sem, d_s =
+    parts_d + corr[:, r] (the count column).  The unprojection is a plain
+    f32 matmul, as the JAX package leaves it to XLA."""
+    gpt_s, gpt_g = hb.bn // hb.gsz_sem, hb.bn // hb.gsz_geo
+    m_s, s_s, _, _, tails = _hier_scan_call(
+        q_cat, hb.g_sem_cat, hb.g_geo_cat, hb.g_sem_vw_lr, hb.g_geo_vw,
+        gpt_s=gpt_s, gpt_g=gpt_g, has_geo=False)
+    idx, _ = select_tiles(m_s, s_s, None, None, t_real=hb.t_real,
+                          k_tiles=k_tiles, bm=bm, n_valid=n_valid,
+                          j_sem=j_sem, j_geo=j_geo, mode="range")
+    parts = _hier_parts_call(
+        q_cat, hb.k_cat, hb.values, hb.value_scale, hb.mask_neg, idx,
+        hb.g_sem_cat, hb.g_geo_cat, hb.g_sem_vw_lr, hb.g_geo_vw,
+        sem_d=hb.sem_d, bm=bm, bn=hb.bn, gpt_s=gpt_s, gpt_g=gpt_g, lr=True,
+        geo=False)
+    Dv, r, Ws = hb.value_dim, hb.lr_rank, hb.g_sem_vw_lr.shape[1]
+    corr = tails[:, :Ws] - parts[:, 2 * Dv + 128:]
+    acc_s = parts[:, :Dv] + corr[:, :r] @ hb.u_sem.to(torch.float32)
+    d_s = parts[:, 2 * Dv:2 * Dv + 1] + corr[:, r:r + 1]
+    return acc_s, d_s
+
+
 def _check_sort(sort: str) -> None:
     if sort not in ("geo", "hybrid"):
         raise ValueError(f"sort must be 'geo' or 'hybrid', got {sort!r}")
@@ -1188,26 +1406,33 @@ def retrieve_hier(q_sem: torch.Tensor, q_xyz: Optional[torch.Tensor],
                   concat_query: Optional[torch.Tensor] = None,
                   adaptive_frac: float = 0.0, m_corr: int = 0,
                   dedup: int = 0) -> torch.Tensor:
-    """Two-stage retrieval over a HierBank (`retrieval_hier.py:3181-3314`,
-    the fused combine + concat path): [B, Dv] f32, or [B, Dv + Dq] with
-    ``concat_query`` [B, Dq] appended.  ``k_tiles``/``j_sem`` and
-    ``k_geo``/``j_geo`` are each family's exact budget, ``bm`` the
-    selection block of sorted queries.  ``sort='geo'`` orders the queries
-    by location before the scan; ``sort='hybrid'`` by coarse cell, then
-    home tile from a stats-only pre-scan (`_hier_scan_stats_call`);
-    ``sort_queries=False`` keeps the caller's order.  The TPU's scan knobs
-    (tc, scan_bm) set speed only and have no counterpart."""
-    if mode != "range+":
-        raise _not_ported("hierarchical RANGE mode (needs TPU kernel 15, "
-                          "the merged parts kernel)", _ROADMAP_SERVE)
+    """Two-stage retrieval over a HierBank (`retrieval_hier.py:3181-3341`):
+    [B, Dv] f32, or [B, Dv + Dq] with ``concat_query`` [B, Dq] appended.
+    ``k_tiles``/``j_sem`` and ``k_geo``/``j_geo`` are each family's exact
+    budget, ``bm`` the selection block of sorted queries.  ``sort='geo'``
+    orders the queries by location before the scan; ``sort='hybrid'`` by
+    coarse cell, then home tile from a stats-only pre-scan
+    (`_hier_scan_stats_call`); without locations (RANGE mode) by home tile
+    alone; ``sort_queries=False`` keeps the caller's order.  The TPU's
+    scan knobs (tc, scan_bm) set speed only and have no counterpart.
+
+    ``mode='range+'`` serves the flagship shape through the family-split
+    kernels and the fused combine + concat.  ``mode='range'`` (beta 1, no
+    locations) serves low-rank banks through the geo-less scan, the
+    merged parts kernel and the low-rank combine in torch
+    (`_hier_partials_merged`); k_geo and j_geo do not apply there."""
+    if mode not in ("range", "range+"):
+        raise ValueError(f"mode must be 'range' or 'range+', got {mode!r}")
+    if mode == "range":
+        beta, q_xyz = 1.0, None
     for name, val in (("adaptive_frac", adaptive_frac), ("m_corr", m_corr),
                       ("dedup", dedup)):
         if val:
             raise _not_ported(f"retrieve_hier({name}=...)", _ROADMAP_SERVE)
-    if q_xyz is None:
+    if mode == "range+" and q_xyz is None:
         raise ValueError("mode='range+' requires q_xyz")
     _check_sort(sort)
-    _check_servable(hb)
+    _check_servable(hb, mode)
     if not k_geo:
         k_geo = max(8, k_tiles // 2)  # rr banks serve family-split
     B = q_sem.shape[0]
@@ -1217,7 +1442,7 @@ def retrieve_hier(q_sem: torch.Tensor, q_xyz: Optional[torch.Tensor],
     order = None
     if sort_queries:
         home = None
-        if sort == "hybrid":  # the home tiles need a stats scan first
+        if sort == "hybrid" or q_x is None:  # the home tiles: a stats scan
             m_s0 = _hier_scan_stats_call(
                 q_cat, hb.g_sem_cat, hb.g_geo_cat, gpt_s=hb.bn // hb.gsz_sem,
                 gpt_g=hb.bn // hb.gsz_geo)[0]
@@ -1225,6 +1450,14 @@ def retrieve_hier(q_sem: torch.Tensor, q_xyz: Optional[torch.Tensor],
         # sort BEFORE the scan, so its stats come out sorted
         order = _hybrid_order(q_x, B, home, hb.t_pad, sort=sort)
         q_cat = q_cat[order]
+    if mode == "range":
+        acc_s, d_s = _hier_partials_merged(q_cat, hb, k_tiles=k_tiles, bm=bm,
+                                           j_sem=j_sem, j_geo=j_geo, n_valid=B)
+        out = acc_s / torch.clamp_min(d_s, 1e-30)
+        out = out[torch.argsort(order)[:B]] if order is not None else out[:B]
+        if concat_query is not None:
+            out = torch.cat([out, concat_query.to(torch.float32)], 1)
+        return out
     ps, pg, tails = _hier_partials(q_cat, hb, k_tiles=k_tiles, bm=bm,
                                    j_sem=j_sem, j_geo=j_geo, n_valid=B,
                                    k_geo=k_geo)

@@ -100,9 +100,10 @@ def test_fused_path_on_cpu_within_fast_tier_tolerance():
     (lambda: load_model("RANGE+", db_path="synthetic:100", device="cpu", k_tile=3),
      TypeError),
     (lambda: load_model("RANGE+", device="cpu"), AssertionError),
-    # hierarchical RANGE mode needs TPU kernels 9 and 15, not ported yet
-    (lambda: load_model("RANGE", db_path="synthetic:100", device="cpu",
-                        profile="flagship"), NotImplementedError),
+    # hierarchical RANGE serves (the merged parts kernel): None = no error
+    (lambda: load_model("RANGE", db_path="synthetic:1024", device="cpu",
+                        profile="flagship", hier_bn=128, gsz_geo=16,
+                        chunk=512)(_coords(16, seed=7)), None),
     (lambda: load_model("RANGE+", db_path="synthetic:100", device="cpu",
                         profile="nope"), ValueError),
     (lambda: load_model("RANGE", db_path="synthetic:100", device="cpu",
@@ -113,7 +114,7 @@ def test_fused_path_on_cpu_within_fast_tier_tolerance():
     (lambda: load_model("RANGE+", db_path="synthetic:100", device="cpu",
                         mesh=object()), NotImplementedError),
     (lambda: load_model("RANGE+", db_path="synthetic:100", device="cpu",
-                        value_quant="int8"), NotImplementedError),
+                        value_quant="int8")(_coords(4, seed=8)), None),
     (lambda: load_model("RANGE", db_path="synthetic:100", device="cpu",
                         pretrained_path="ckpt.ckpt"), NotImplementedError),
     (lambda: load_model("SatCLIP", device="cpu", chunk=3), TypeError),
@@ -124,6 +125,10 @@ def test_fused_path_on_cpu_within_fast_tier_tolerance():
         "hier_knob", "mesh", "int8", "pretrained", "satclip_kwarg",
         "unknown_model", "coords_b3"])
 def test_error_contract(call, error):
+    if error is None:  # a path that serves: finite [B, 1280] answers
+        out = call()
+        assert out.shape[1] == 1280 and torch.isfinite(out).all()
+        return
     with pytest.raises(error):
         call()
 

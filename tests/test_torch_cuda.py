@@ -441,3 +441,162 @@ def test_exact_nn_ignores_the_tf32_flag(cuda, hier_bank):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
     assert torch.equal(got, ref)
+
+
+# ---- hierarchical RANGE (the merged parts kernel) and int8 values
+
+
+def _quantized(cuda, hb):
+    """The same bank's int8 HierBank, built on the card."""
+    from range_tpu_torch.bank import quantize_values
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    bank = GeoBank.synthetic_informative(3, 9000, pad_to=512, value_dtype=torch.bfloat16,
+                                         device=cuda)
+    return rh.build_hier_bank(quantize_values(bank), bn=128, gsz_sem=16, gsz_geo=16,
+                              lr_rank=256, lr_geo=384, res_rank=128, topk_gsz=8)
+
+
+# Same logits up to summation order; a p (times its row's scale) that this
+# moves across a bf16 rounding boundary rounds the other way before the
+# value product: one bf16 ulp of one weight times at most max |v|, in rare
+# rows (the dense kernel's rule).
+@pytest.mark.parametrize("tier", ["exact", "fast"])
+@pytest.mark.parametrize("mode", ["range+", "range"])
+def test_int8_fused_kernel_matches_plain(cuda, tier, mode):
+    """A ragged batch (77) and a masked bank whose 3,003 rows are no
+    multiple of the 32-row tile, with int8 values."""
+    from range_tpu_torch.bank import dequantize_values, quantize_values
+
+    bank = quantize_values(GeoBank.synthetic(0, 3001, key_dim=256, value_dim=1024, pad_to=7,
+                                             device=cuda))
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q = torch.nn.functional.normalize(torch.randn(77, 256, generator=g, device=cuda), dim=1)
+    x = lonlat_deg_to_xyz(_coords(77, seed=2, device=cuda))
+    temp, beta = (12.0, 0.5) if mode == "range+" else (15.0, 1.0)
+    n0 = (rf.retrieve_fused.launches, rf.retrieve_fused_i8.launches)
+    got = rf.retrieve_pallas(q, x, bank, sem_temp=temp, mode=mode, tier=tier)
+    q_cat = rf.pack_queries(q, x if mode == "range+" else None, temp, 40.0, tier)
+    ref = rf._retrieve_fused_plain(
+        q_cat, rf.pack_bank(bank.keys_sem, bank.xyz, tier), bank.values,
+        (rf.NEG * (1 - bank.row_mask()))[None], beta, bank.value_scale,
+        sem_d=rf.packed_dims(256, tier)[0])
+    torch.cuda.synchronize()
+    assert (rf.retrieve_fused.launches, rf.retrieve_fused_i8.launches) == (n0[0], n0[1] + 1)
+    err = (got - ref).abs()
+    assert err.max() <= dequantize_values(bank).abs().max() / 128
+    assert (err > 1e-4).any(dim=1).sum() <= 2
+
+
+def _merged_operands(hb, cuda, B=700, bm=128, k_tiles=24):
+    """Packed queries with their locations (both families live), geo
+    sorted, and the merged path's selection over the plain stats."""
+    from range_tpu_torch.ops import retrieval_fused as rf
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    g = torch.Generator(device=cuda).manual_seed(11)
+    q = torch.nn.functional.normalize(torch.randn(B, 256, generator=g, device=cuda), dim=1)
+    x = lonlat_deg_to_xyz(_coords(B, seed=11, device=cuda))
+    q_s, q_x = rh._pad_queries(q, x, bm)
+    q_cat = rf.pack_queries(q_s, q_x, 12.0, 40.0, "fast")[rh._hybrid_order(q_x, B)].contiguous()
+    stats = rh._hier_scan_stats_plain(q_cat, hb.g_sem_cat, hb.g_geo_cat, gpt_s=8, gpt_g=8)
+    idx, _ = rh.select_tiles(*stats, t_real=hb.t_real, k_tiles=k_tiles, bm=bm, n_valid=B)
+    return q_cat, idx
+
+
+@pytest.mark.parametrize("geo", [True, False], ids=["geo", "no_geo"])
+@pytest.mark.parametrize("quant", ["bf16", "int8"])
+def test_merged_parts_kernel_matches_plain(cuda, hier_bank, geo, quant):
+    """The merged parts kernel (lr variant) against its plain version: all
+    2 Dv + 2 + Ws columns with the geo family, the read ones (acc_s, d_s,
+    alr) without it and the geo columns then zero.  Tolerances as the
+    other parts kernel (`_within_terms`); the sums d are f32 sums of f32
+    exponentials in another order."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    hb = hier_bank if quant == "bf16" else _quantized(cuda, hier_bank)
+    q_cat, idx = _merged_operands(hb, cuda)
+    args = (q_cat, hb.k_cat, hb.values, hb.value_scale, hb.mask_neg, idx, hb.g_sem_cat,
+            hb.g_geo_cat, hb.g_sem_vw_lr, hb.g_geo_vw)
+    kw = dict(sem_d=256, bm=128, bn=128, gpt_s=8, gpt_g=8, geo=geo)
+    n0 = rh._hier_parts_call.launches
+    got = rh._hier_parts_call(*args, **kw)
+    ref = rh._hier_parts_plain(*args, **kw)
+    mag = rh._hier_parts_plain(*args, **kw, magnitude=True)
+    torch.cuda.synchronize()
+    assert rh._hier_parts_call.launches == n0 + 1
+    assert got.shape == (768, 2 * 1024 + 128 + 384)
+    segs = [slice(0, 1024), slice(2048, 2049), slice(2176, None)]
+    if geo:
+        segs += [slice(1024, 2048), slice(2049, 2050)]
+    else:
+        assert not got[:, 1024:2048].any() and not got[:, 2049].any()
+    assert not got[:, 2050:2176].any()
+    for cols in segs:
+        _within_terms(got[:, cols], ref[:, cols], mag[:, cols])
+
+
+def test_scan_without_geo_matches_plain(cuda, hier_bank):
+    """The geo-less scan launch (RANGE mode: the full-width geo operand is
+    passed and not touched): m_s, s_s and the sem tail against the plain
+    version, and the sem stats equal to the two-family launch's."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    hb = hier_bank
+    q_cat, _ = _merged_operands(hb, cuda)
+    args = (q_cat, hb.g_sem_cat, hb.g_geo_cat, hb.g_sem_vw_lr, hb.g_geo_vw)
+    n0 = rh._hier_scan_call.launches
+    got = rh._hier_scan_call(*args, gpt_s=8, gpt_g=8, has_geo=False)
+    ref = rh._hier_scan_plain(*args, gpt_s=8, gpt_g=8, has_geo=False)
+    mag = rh._hier_scan_plain(q_cat, hb.g_sem_cat, hb.g_geo_cat, hb.g_sem_vw_lr.abs(),
+                              hb.g_geo_vw, gpt_s=8, gpt_g=8, has_geo=False)[4]
+    both = rh._hier_scan_call(q_cat, hb.g_sem_cat, hb.g_geo_cat, hb.g_sem_vw_lr,
+                              hb.g_geo_vw_lr, gpt_s=8, gpt_g=8)
+    torch.cuda.synchronize()
+    assert rh._hier_scan_call.launches == n0 + 2
+    assert got[2] is None and got[4].shape == (768, 384)
+    torch.testing.assert_close(got[0], ref[0], rtol=0, atol=1e-4)
+    torch.testing.assert_close(got[1], ref[1], rtol=1e-4, atol=0)
+    _within_terms(got[4], ref[4], mag)
+    assert torch.equal(got[0], both[0]) and torch.equal(got[1], both[1])
+
+
+@pytest.mark.parametrize("quant", ["bf16", "int8"])
+def test_range_flagship_main_path_launches(cuda, hier_bank, quant):
+    """load_model("RANGE", profile="flagship") on the card: one stats scan
+    (the home-tile sort), one geo-less scan and one merged parts launch
+    per request, no family parts and no combine; int8 within relerr 0.01
+    of bf16 (`tests/test_hier.py:139-149`)."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    encs = {k: load_model("RANGE", db_path=hb, profile="flagship", hier_bn=128, gsz_geo=16,
+                          value_quant="int8" if k == "int8" else None)
+            for k, hb in (("bf16", hier_bank), ("int8", _quantized(cuda, hier_bank)))}
+    coords = _coords(3000, seed=12, device=cuda)
+    counters = (rh._hier_scan_stats_call, rh._hier_scan_call, rh._hier_parts_call,
+                rh._hier_parts_family_call, rh._combine_cat_call, sh.siren_tower)
+    n0 = [c.launches for c in counters]
+    out = encs[quant](coords)
+    torch.cuda.synchronize()
+    assert [c.launches - n for c, n in zip(counters, n0)] == [1, 1, 1, 0, 0, 1]
+    assert out.shape == (3000, 1280) and torch.isfinite(out).all()
+    torch.testing.assert_close(out[:, 1024:], encs["bf16"](coords)[:, 1024:])
+    if quant == "int8":
+        ref = encs["bf16"](coords)[:, :1024]
+        rel = (out[:, :1024] - ref).abs() / ref.abs().clamp_min(0.1)
+        assert rel.mean() < 0.01
+
+
+def test_int8_dense_main_path(cuda):
+    """value_quant="int8" on the dense path: the int8 kernel, once per
+    request, within the fast tier's tolerance of the exact f32 retrieve
+    over the dequantized bank (tests/test_retrieval_pallas.py:47)."""
+    enc = load_model("RANGE+", db_path="synthetic:5000", chunk=1024, value_quant="int8")
+    coords = _coords(300, seed=13, device=cuda)
+    n0 = (rf.retrieve_fused.launches, rf.retrieve_fused_i8.launches)
+    out = enc(coords)
+    torch.cuda.synchronize()
+    assert (rf.retrieve_fused.launches, rf.retrieve_fused_i8.launches) == (n0[0], n0[1] + 1)
+    assert enc.model.bank.values.dtype == torch.int8
+    ref = retrieval.retrieve(out[:, 1024:], lonlat_deg_to_xyz(coords), enc.model.bank)
+    torch.testing.assert_close(out[:, :1024], ref, rtol=1e-1, atol=5e-2)

@@ -8,6 +8,8 @@ profile with bn = 128 and gsz_geo = 16 over a small informative bank with
 tower runs at full width with the JAX weights carried across.
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -128,7 +130,8 @@ def test_hier_plan_copies_the_jax_heuristic(B, plan):
 
 
 @pytest.mark.parametrize("kw,error", [
-    (dict(profile="flagship", mode_range=True), NotImplementedError),
+    # RANGE mode without the low-rank sem tail: kernel 15's plain variant
+    (dict(profile="flagship", mode_range=True, lr_rank=0), NotImplementedError),
     (dict(profile="flagship", sel_lr=64), NotImplementedError),
     (dict(profile="flagship", tail_super=64), NotImplementedError),
     (dict(profile="flagship", dedup=2), NotImplementedError),
@@ -156,5 +159,7 @@ def test_retrieve_hier_rejects_unported_banks_and_modes():
     x = lonlat_deg_to_xyz(torch.zeros(8, 2))
     with pytest.raises(NotImplementedError, match="flagship"):
         th.retrieve_hier(q, x, hb)  # no res_rank / lr_geo
+    assert th.retrieve_hier(q, None, hb, mode="range", bm=128).shape == (8, 128)
     with pytest.raises(NotImplementedError, match="kernel 15"):
-        th.retrieve_hier(q, None, hb, mode="range")
+        th.retrieve_hier(q, None, dataclasses.replace(hb, lr_rank=0, g_sem_vw_lr=None),
+                         mode="range")

@@ -454,8 +454,11 @@ def test_unported_branches_raise(thb, regional):
     low_rank = dataclasses.replace(thb, topk_lr=16, g_topk_lr=thb.g_topk_cat)
     with pytest.raises(NotImplementedError, match="ROADMAP.*what remains"):
         th.hier_topk(q, x, low_rank)
+    # RANGE mode serves low-rank banks; without lr_rank it needs the plain
+    # variant of kernel 15
+    no_lr = dataclasses.replace(thb, lr_rank=0, g_sem_vw_lr=None)
     with pytest.raises(NotImplementedError, match="kernel 15.*ROADMAP"):
-        th.retrieve_hier(q, None, thb, mode="range")
+        th.retrieve_hier(q, None, no_lr, mode="range")
     with pytest.raises(ValueError, match="k=9"):
         th.hier_topk(q, x, thb, k=9)
 
