@@ -1,11 +1,11 @@
 """Smoke run of range_tpu_torch on one CUDA card.
 
-Builds the port's ten CUDA kernels from the eight sources of
+Builds the port's eleven CUDA kernels from the nine sources of
 `range_tpu_torch/csrc/` (one nvcc per source, all started together), holds
 each against its plain PyTorch version at the main paths' shapes, then
 drives the serving paths at full width (SatCLIP SH-L40 -> SIREN
 1600->256->256->256 tower, 100,000-row bank with 256-d keys and bf16
-1024-d values, 1,280-d output):
+1024-d values, 1,280-d output) and the training path:
 
   * the dense path, RANGE+ and RANGE over a `synthetic_device` bank, and
     RANGE+ with ``value_quant="int8"`` (the int8 kernel);
@@ -17,12 +17,18 @@ drives the serving paths at full width (SatCLIP SH-L40 -> SIREN
   * the top-k endpoint `hier_topk` (k = 1 and 8), the `hier_nn` harness
     and `retrieve_hier(sort="hybrid")` over that HierBank, with the
     tower's query embeddings;
+  * SatCLIP contrastive training of the full-width SatCLIP-ResNet18-L40
+    dual tower (ResNet-18 on 13 x 256 x 256 images, the SH-L40 SIREN
+    location tower, embed 256): three AdamW steps of 16 accumulated
+    micro-batches of 512, the SH-times kernel once per micro-batch;
 
 and checks the answers against the exact f32 retrieval (the RANGE+
 flagship's against its fidelity bars: relerr mean <= 0.04, p99 <= 0.165;
 RANGE's mean <= 0.10; int8 against bf16 mean < 0.01; hier_topk's recall@1
-against the f32 `exact_nn` >= 0.999 at B = 10,000 and 1,000).  Every
-phase that fails raises.
+against the f32 `exact_nn` >= 0.999 at B = 10,000 and 1,000; training's
+losses finite and falling, one micro-step by the kernel route within 1e-5
+of the plain route's loss, both autograd Functions' gradients on the plain
+compose).  Every phase that fails raises.
 
     python3 chip_smoke.py
 
@@ -37,6 +43,7 @@ Exits non-zero, without that line, when there is no CUDA device.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -54,7 +61,7 @@ L, WIDTH = 40, 256
 # kernel sources (one library each), and the kernels of the JSON line:
 # (name, source, the TPU kernel it replaces)
 SOURCES = ("siren_tower", "fused_retrieval", "hier_scan", "hier_parts_family",
-           "combine_cat", "hier_scan_stats", "hier_argmax", "hier_parts")
+           "combine_cat", "hier_scan_stats", "hier_argmax", "hier_parts", "sh_times")
 KERNELS = (("siren_tower", "siren_tower", "range_tpu/ops/sh.py:726"),
            ("fused_retrieval", "fused_retrieval", "range_tpu/ops/retrieval_pallas.py:123"),
            ("fused_retrieval_i8", "fused_retrieval", "range_tpu/ops/retrieval_pallas.py:181"),
@@ -64,8 +71,13 @@ KERNELS = (("siren_tower", "siren_tower", "range_tpu/ops/sh.py:726"),
            ("hier_scan_stats", "hier_scan_stats", "range_tpu/ops/retrieval_hier.py:1582"),
            ("hier_argmax", "hier_argmax", "range_tpu/ops/retrieval_hier.py:1645"),
            ("hier_topk", "hier_argmax", "range_tpu/ops/retrieval_hier.py:1682"),
-           ("hier_parts", "hier_parts", "range_tpu/ops/retrieval_hier.py:2515"))
+           ("hier_parts", "hier_parts", "range_tpu/ops/retrieval_hier.py:2515"),
+           ("sh_times", "sh_times", "range_tpu/ops/sh.py:539"))
 TOPK_K = 48  # the endpoint's tile budget, bench.py:150
+# SatCLIP pretraining (configs/default.yaml:16-32, main_old.py:129): micro-batch
+# 512, 16 accumulated, 13-band 256 x 256 patches (range_tpu/data/s2geo.py:4-6)
+TRAIN_MICRO, TRAIN_ACCUM, TRAIN_STEPS = 512, 16, 3
+IMAGE = (13, 256, 256)
 RECALL_BAR = 0.999  # bench.py:190
 
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): the bounds below
@@ -180,6 +192,44 @@ def _compare_terms(name: str, got: torch.Tensor, ref: torch.Tensor,
     if ratio > 1.0:
         raise AssertionError(f"{name}: error {ratio:.3f}x its tolerance")
     return err.max().item(), ratio
+
+
+def _sh_times_plans(coords: torch.Tensor, L: int, w0: torch.Tensor, ref: torch.Tensor):
+    """Kernel 4's launch alone (no fold, no wrapper, not counted) under other
+    plans beside the one `sh_times_plan` picks: NC column slices x KS runs of
+    the recurrence rows.  (1, 1) at B=512 and (8, 1) at B=10,000 are the
+    kernel's first design (one pass over the rows, columns sliced to fill
+    the card).  Each plan's sums are held to the f32 rule of phase 14."""
+    import ctypes
+
+    from range_tpu_torch.kernels._build import load_kernel_library
+    from range_tpu_torch.ops import sh
+
+    lib = load_kernel_library("sh_times")
+    B, D = ref.shape
+    dev = coords.device
+    wc, ws = sh._fold_first_layer(w0, L, "analytic", torch.float32)
+    ftabT = sh._fourier_table(L, torch.float32, dev, transposed=True)
+    chosen = (ctypes.c_int * 2)()
+    if lib.sh_times_plan(B, L, D, ctypes.addressof(chosen)) != 0:
+        raise RuntimeError("sh_times_plan failed")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for nc, ks in dict.fromkeys([tuple(chosen), (1, 1), (8, 1), (8, 5), (8, 10), (8, 20)]):
+        out = torch.empty(B, D, device=dev)
+        work = torch.empty(ks, B, D, device=dev)
+
+        def run():
+            rc = lib.sh_times_launch(coords.data_ptr(), ftabT.data_ptr(), wc.data_ptr(),
+                                     ws.data_ptr(), out.data_ptr(), work.data_ptr(), B, L, D,
+                                     nc, ks, 0, stream)
+            if rc != 0:
+                raise RuntimeError(f"sh_times launch (NC={nc}, KS={ks}): CUDA error {rc}")
+
+        ms = _cuda_ms(run, 20)
+        _compare(f"sh_times plan NC={nc} KS={ks} B={B}", out, ref, 1e-4 / 30, 0.0,
+                          "the f32 rule above")
+        tag = " (sh_times_plan's)" if (nc, ks) == tuple(chosen) else ""
+        print(f"sh_times launch alone, B={B}, NC={nc}, KS={ks}{tag}: {ms:.4f} ms")
 
 
 def _random_coords(n: int, gen: torch.Generator, dev) -> torch.Tensor:
@@ -410,7 +460,7 @@ def _counters() -> dict:
             "hier_scan": rh._hier_scan_call, "hier_parts_family": rh._hier_parts_family_call,
             "combine_cat": rh._combine_cat_call, "hier_scan_stats": rh._hier_scan_stats_call,
             "hier_argmax": rh._hier_argmax_call, "hier_topk": rh._hier_topk_call,
-            "hier_parts": rh._hier_parts_call}
+            "hier_parts": rh._hier_parts_call, "sh_times": sh.spherical_harmonics_times_fused}
 
 
 def hier_phases(dev, gen, report):
@@ -970,8 +1020,14 @@ def range_phases(dev, gen, report, hb, enc_plus, bank) -> float:
             raise AssertionError("the geo-less scan returned geo outputs")
         ms = _cuda_ms(lambda: rh._hier_scan_call(*sargs, **skw), 10)
         plain_ms = _cuda_ms(lambda: rh._hier_scan_plain(*sargs, **skw), 3)
+        # the sem-only work: group logits over sem_d columns, tails over the
+        # lr coefficients and the count, two stats, over the real tiles
+        Gs, ws_, Ws_ = hb.t_real * gpt_s, hb.g_sem_cat.shape[1], hb.g_sem_vw_lr.shape[1]
+        b_ms, b_by = _bound(BATCH * ws_ * 2 + Gs * (ws_ + Ws_) * 2 + 2 * BATCH * hb.t_pad * 4
+                            + BATCH * Ws_ * 4, 2 * BATCH * Gs * (hb.sem_d + hb.lr_rank + 1),
+                            BF16_FLOPS)
         print(f"hier_scan[has_geo=False] B={BATCH}: kernel {ms:.3f} ms, plain "
-              f"{plain_ms:.3f} ms")
+              f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
 
         Dv, Ws = hb.value_dim, hb.g_sem_vw_lr.shape[1]
         segs = {"acc_s": slice(0, Dv), "d_s": slice(2 * Dv, 2 * Dv + 1),
@@ -1069,11 +1125,207 @@ def range_phases(dev, gen, report, hb, enc_plus, bank) -> float:
     return e2e[BATCH]
 
 
-def _trace(fn, calls: int, tag: str) -> None:
+def _kind(name: str) -> str:
+    """A device kernel's share of a training step: convolutions (cuDNN's
+    implicit GEMMs, and its FFT convolutions: the transforms and their
+    complex products), the SH-times kernel, the optimizer (the foreach clip
+    and AdamW), matrix products, or the rest (batch norm, ReLU, pools, the
+    loss)."""
+    n = name.lower()
+    if "sh_times" in n:
+        return "sh_times (#4)"
+    if any(k in n for k in ("conv", "xmma", "implicit", "wgrad", "dgrad", "fprop",
+                            "winograd", "cudnn", "fft", "complex")):
+        return "convolutions"
+    if any(k in n for k in ("multi_tensor", "foreach", "adam")):
+        return "optimizer"
+    if any(k in n for k in ("gemm", "cutlass", "gemv")):
+        return "matmuls"
+    return "elementwise, norms, pools, loss"
+
+
+def train_phases(dev, report) -> float:
+    """The SatCLIP training slice: the SH-times kernel (#4) against its plain
+    version at B=10,000 and B=512, the gradients of the two autograd
+    Functions against the plain compose, three optimizer steps of the
+    full-width SatCLIP-ResNet18-L40 dual tower (512 x 16 samples each,
+    dropout on) with their launches counted, one micro-step by the kernel
+    route against the plain route, and a profiler trace of one micro-step
+    with its optimizer update.  Returns the steady optimizer-step seconds."""
+    from range_tpu_torch.models.resnet_std import StdResNetConfig
+    from range_tpu_torch.models.satclip import SatClipLocationConfig
+    from range_tpu_torch.ops import sh
+    from range_tpu_torch.ops.nets import SirenNet
+    from range_tpu_torch.train import satclip as tr
+
+    # read through both of PyTorch's TF32 APIs: after the earlier phases set
+    # the switches through both, `torch.get_float32_matmul_precision()`
+    # raises (ROADMAP Queue 3, "TF32 switches"), the per-backend reads do not
+    print(f"TF32 settings of this run: torch.backends.cudnn.allow_tf32="
+          f"{torch.backends.cudnn.allow_tf32}, torch.backends.cuda.matmul.allow_tf32="
+          f"{torch.backends.cuda.matmul.allow_tf32}; fp32_precision: cuda matmul "
+          f"{torch.backends.cuda.matmul.fp32_precision!r}, cudnn conv "
+          f"{torch.backends.cudnn.conv.fp32_precision!r}")
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    # ---- 14. kernel #4 against its plain version, the paths' shapes
+    net = SirenNet(L * L, WIDTH, WIDTH, 2, device=dev, generator=gen)
+    w0 = net.layers[0].weight.detach().T  # [1600, 256], the SIREN init's scale
+    errs = []
+    for b in (BATCH, TRAIN_MICRO):
+        coords = _random_coords(b, gen, dev)
+        for md in (None, torch.bfloat16):
+            tag = f"sh_times[{'f32' if md is None else 'bf16'}] B={b}"
+
+            def kernel():
+                return sh.spherical_harmonics_times_fused(coords, L, w0, matmul_dtype=md)
+
+            def plain():
+                return sh._sh_times_plain(coords, L, w0, matmul_dtype=md)
+
+            if md is None:
+                errs.append(_compare(tag, kernel(), plain(), 1e-4 / 30, 0.0,
+                                     "the tower rule (atol 1e-4 on sin(30 h)) carried back "
+                                     "to h: the same f32 math in another summation order"))
+            else:
+                mag = sh._sh_times_plain(coords, L, w0, matmul_dtype=md, magnitude=True)
+                errs.append(_compare_terms(tag, kernel(), plain(), mag,
+                                           "the same bf16 operand rounding points; an f32 "
+                                           "sum near a bf16 tie rounds the other way: one "
+                                           "ulp of one term"))
+            ms = _cuda_ms(kernel, 20)
+            plain_ms = _cuda_ms(plain, 20)
+            # the work the function needs, as the tower's bound counts it:
+            # the basis (~5 operations an entry) and basis @ W0, not the
+            # kernel's Fourier synthesis; coordinates, W0 and the output
+            flops = 2 * b * L * L * WIDTH + 5 * b * L * L
+            b_ms, b_by = _bound(b * 2 * 4 + L * L * WIDTH * 4 + b * WIDTH * 4, flops,
+                                F32_FLOPS)
+            print(f"{tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+                  f"({b_by})")
+            if b == TRAIN_MICRO and md is None:  # the training path's launch
+                report["sh_times"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                          bound_by=b_by)
+            if md is None:
+                _sh_times_plans(coords, L, w0, plain())
+    report["sh_times"].update(max_abs_err=max(e for e, _ in errs),
+                              err_over_tol=max(r for _, r in errs))
+
+    # ---- 15. both Functions' gradients against the plain compose
+    coords = _random_coords(TRAIN_MICRO, gen, dev)
+    g = torch.randn(TRAIN_MICRO, WIDTH, generator=gen, device=dev)
+    w = w0.clone().requires_grad_(True)
+    checks = [("sh_times d/dW0", torch.autograd.grad(
+                   sh.spherical_harmonics_times_fused(coords, L, w), w, g),
+               torch.autograd.grad(sh.spherical_harmonics_times(coords, L, w), w, g))]
+    leaves = dict(net.named_parameters())
+    checks.append(("siren_tower", torch.autograd.grad(
+        sh.siren_tower(coords, L, net.tower_params()), list(leaves.values()), g),
+        torch.autograd.grad(sh._siren_tower_ref(coords, L, net.tower_params()),
+                            list(leaves.values()), g)))
+    for tag, got, ref in checks:
+        names = ["W0"] if len(got) == 1 else list(leaves)
+        for name, a, b in zip(names, got, ref):
+            err = (a - b).abs().max().item()
+            scale = b.abs().max().item()
+            print(f"{tag} gradient {name}: max_abs_err {err:.3e}, max |ref| {scale:.3e} "
+                  f"(tolerance 1e-4 x max |ref|: the backward is that compose)")
+            if not torch.isfinite(a).all() or err > 1e-4 * scale:
+                raise AssertionError(f"{tag} gradient {name} off the plain compose")
+
+    # ---- 16. three optimizer steps of the full-width dual tower
+    cfg = tr.SatClipConfig(
+        vision=StdResNetConfig(layers=(2, 2, 2, 2), block="basic", width=64,
+                               in_channels=IMAGE[0], output_dim=256),
+        location=SatClipLocationConfig(embed_dim=256, legendre_polys=L, capacity=WIDTH,
+                                       num_hidden_layers=2, pe_type="siren"))
+    model = tr.SatClipModel(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    n = TRAIN_MICRO * TRAIN_ACCUM
+    dgen = torch.Generator(device=dev).manual_seed(1)
+    batch = {"image": torch.randn((n, *IMAGE), generator=dgen, device=dev),
+             "point": torch.stack([torch.rand(n, generator=dgen, device=dev) * 360.0 - 180.0,
+                                   torch.rand(n, generator=dgen, device=dev) * 180.0 - 90.0], 1)}
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"SatCLIP-ResNet18-L40: {n_params} parameters; batch {TRAIN_ACCUM} x {TRAIN_MICRO} "
+          f"samples of {IMAGE} f32 ({batch['image'].numel() * 4 / 1e9:.3f} GB on the card)")
+    step = tr.make_train_step(model, tr.make_optimizer(1e-4, 0.01, 1.0),
+                              accum_steps=TRAIN_ACCUM)
+    drop = torch.Generator(device=dev).manual_seed(2)  # the dropout masks
+    losses, seconds, per_step = [], [], []
+
+    def train():
+        for i in range(TRAIN_STEPS):
+            before = sh.spherical_harmonics_times_fused.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = step(batch, drop)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            losses.append(loss.item())
+            per_step.append(sh.spherical_harmonics_times_fused.launches - before)
+            print(f"train step {i}: loss {losses[-1]:.6f}, {seconds[-1]:.3f} s, "
+                  f"{n / seconds[-1]:.1f} samples/s, sh_times launches {per_step[-1]}")
+
+    torch.cuda.reset_peak_memory_stats()
+    _drive(f"SatCLIP training, {TRAIN_STEPS} optimizer steps of {TRAIN_ACCUM} x {TRAIN_MICRO}",
+           train, {"sh_times": TRAIN_STEPS * TRAIN_ACCUM})
+    report["sh_times"]["launches"] = sum(per_step)
+    print(f"training peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    if not all(map(math.isfinite, losses)) or losses[-1] >= losses[0] \
+            or per_step != [TRAIN_ACCUM] * TRAIN_STEPS:
+        raise AssertionError(f"training: losses {losses} not finite or not falling, or "
+                             f"sh_times launches per step {per_step} != {TRAIN_ACCUM}")
+    steady = statistics.mean(seconds[1:])
+    print(f"training step (steps 1-{TRAIN_STEPS - 1}): {steady:.3f} s, "
+          f"{n / steady:.1f} samples/s")
+
+    # ---- 17. one micro-step by the kernel route against the plain route
+    images, points = batch["image"][:TRAIN_MICRO], batch["point"][:TRAIN_MICRO]
+    enc = model.location
+    w0p = enc.nnet.layers[0].weight
+
+    def micro(route):
+        model.zero_grad(set_to_none=True)
+        drop = torch.Generator(device=dev).manual_seed(3)
+        if route == "kernel":
+            loc = model.encode_location(points, training=True, generator=drop)
+        else:
+            pre = sh._sh_times_plain(points, L, w0p.T, enc.posenc.convention)
+            loc = enc.nnet(None, training=True, generator=drop,
+                           first_preact=pre + enc.nnet.layers[0].bias)
+        loss = tr.clip_loss(*tr._logits(model.encode_image(images), loc, model.logit_scale))
+        loss.backward()
+        return loss.item(), w0p.grad.clone()
+
+    (lk, gk), (lp, gp) = micro("kernel"), micro("plain")
+    rel = abs(lk - lp) / abs(lp)
+    gerr, gscale = (gk - gp).abs().max().item(), gp.abs().max().item()
+    print(f"route check, one micro-step: loss kernel {lk:.7f} plain {lp:.7f} (rel {rel:.3e}, "
+          f"bar 1e-5); W0 gradient max_abs_err {gerr:.3e}, max |ref| {gscale:.3e} (bar 1e-3 "
+          f"x max |ref|)")
+    if rel > 1e-5 or gerr > 1e-3 * gscale:
+        raise AssertionError("the kernel route's micro-step is off the plain route's")
+
+    # ---- 18. where a micro-step's device time goes (with its optimizer update)
+    one = tr.make_train_step(model, tr.make_optimizer(1e-4, 0.01, 1.0), accum_steps=1)
+    by_name = _trace(lambda: one({"image": images, "point": points}, drop), 1,
+                     f"one training micro-step B={TRAIN_MICRO} with its update")
+    kinds = {}
+    for name, ms in by_name.items():
+        kinds[_kind(name)] = kinds.get(_kind(name), 0.0) + ms
+    busy = sum(kinds.values()) or 1.0
+    print("micro-step device time by kind: " + ", ".join(
+        f"{k} {ms:.3f} ms ({100 * ms / busy:.2f}%)"
+        for k, ms in sorted(kinds.items(), key=lambda kv: -kv[1])))
+    return steady
+
+
+def _trace(fn, calls: int, tag: str) -> dict:
     """torch.profiler over `calls` calls after a warm-up: the device's busy
     time (the sum of its kernels' and copies' spans; one stream, so they do
     not overlap), the host span of the window, the idle share 1 - busy /
-    span, and the kernels with the most device time."""
+    span, and the kernels with the most device time.  Returns the device
+    ms of each kernel name over the window."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1093,11 +1345,12 @@ def _trace(fn, calls: int, tag: str) -> None:
     busy = sum(by_name.values())
     if not busy:
         print(f"trace {tag}: the profiler recorded no device time (not measured)")
-        return
+        return by_name
     print(f"trace {tag}: {calls} calls, host span {span:.3f} ms, device busy "
           f"{busy:.3f} ms, idle share {1 - busy / span:.4f}")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         print(f"  {ms / calls:9.3f} ms/call  {100 * ms / busy:6.2f}%  {name[:90]}")
+    return by_name
 
 
 def main() -> int:
@@ -1125,8 +1378,11 @@ def main() -> int:
     hier_ms, hb, enc, bank = hier_phases(dev, gen, report)
     topk_ms = topk_phases(dev, gen, report, hb, enc)
     range_ms = range_phases(dev, gen, report, hb, enc, bank)
+    del hb, enc, bank
+    step_s = train_phases(dev, report)
     print(f"end to end B={BATCH}: flagship {hier_ms:.3f} ms, dense {dense_ms:.3f} ms, "
-          f"hier_topk {topk_ms:.3f} ms, RANGE flagship {range_ms:.3f} ms")
+          f"hier_topk {topk_ms:.3f} ms, RANGE flagship {range_ms:.3f} ms; SatCLIP training "
+          f"step ({TRAIN_ACCUM} x {TRAIN_MICRO}) {step_s:.3f} s")
 
     kernels = [dict(name=k, route="cuda", source=f"range_tpu_torch/csrc/{src}.cu",
                     replaces=replaces, launches=report[k]["launches"],

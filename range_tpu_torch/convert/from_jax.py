@@ -35,6 +35,41 @@ def siren_params_from_jax(tree) -> dict:
     return sd
 
 
+def std_resnet_params_from_jax(tree) -> dict:
+    """JAX standard-ResNet params (`range_tpu/models/resnet_std.py`) -> the
+    port's `StdResNet.state_dict()`: the same names (``conv1.w``,
+    ``stages.0.0.bn1.mean``, ...), conv weights as they are (both OIHW),
+    the ``fc`` weight [in, out] transposed for `nn.Linear`."""
+    sd = {}
+
+    def put(prefix, node):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                put(f"{prefix}{k}.", v)
+            else:
+                sd[prefix + k] = _tensor(v)
+
+    put("", {k: v for k, v in tree.items() if k not in ("stages", "fc")})
+    for i, stage in enumerate(tree["stages"]):
+        for j, block in enumerate(stage):
+            put(f"stages.{i}.{j}.", block)
+    sd["fc.weight"] = _tensor(np.asarray(tree["fc"]["w"]).T)
+    sd["fc.bias"] = _tensor(tree["fc"]["b"])
+    return sd
+
+
+def satclip_params_from_jax(tree) -> dict:
+    """JAX SatCLIP params (``{"visual", "location", "logit_scale"}``, a
+    standard-ResNet vision tower) -> the port's `SatClipModel.state_dict()`,
+    so that both packages train from the same start."""
+    sd = {f"visual.{k}": v for k, v in std_resnet_params_from_jax(
+        tree["visual"]).items()}
+    sd.update({f"location.nnet.{k}": v for k, v in siren_params_from_jax(
+        tree["location"]).items()})
+    sd["logit_scale"] = _tensor(tree["logit_scale"])
+    return sd
+
+
 def geobank_from_arrays(locs_lonlat, xyz, keys_sem, values, n_valid,
                         valid_mask=None, value_scale=None, *,
                         device="cpu") -> GeoBank:

@@ -16,70 +16,20 @@
 // bf16 (round to nearest even) and still accumulates in f32, as the TPU
 // kernel's preferred_element_type=f32 does.
 //
-// Design: the TPU kernel holds P [L^2, bm] and both folded weights (1.6 MB
-// each at L=40) in VMEM; none of that fits in 227 KB of shared memory.  So
-// a block of BM=64 queries walks the recurrence row k = 0..L-1, one
-// L-row slab of P at a time: P_k = ftabT[kL:(k+1)L] @ fth, times
-// cos/sin(m phi) (the same m = r for every slab), then
-// h += (P_k cos)^T wc[kL:(k+1)L] + (P_k sin)^T ws[kL:(k+1)L], with the
-// weight rows staged through shared memory WROWS at a time.  h [64, H]
-// lives in registers (8 queries x H/32 columns per thread).  The hidden and
-// output layers then stream their [H, H] weights through the same staging
-// buffer, with the activations kept transposed in shared memory.  Shared
-// memory is ~106 KB at L=40, H=256, so two blocks share an SM.
+// Design: the first layer is `sh_synth::first_layer` (sh_synthesis.cuh,
+// shared with the SH-times kernel): one L-row slab of P at a time, h [64, H]
+// in registers (8 queries x H/32 columns per thread).  The hidden and output
+// layers then stream their [H, H] weights through the same staging buffer,
+// with the activations kept transposed in shared memory.  Shared memory is
+// ~106 KB at L=40, H=256, so two blocks share an SM.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "sh_synthesis.cuh"
 
 namespace {
 
-constexpr int BM = 64;          // queries per block
-constexpr int THREADS = 256;    // warp w owns queries 8w..8w+7; lane owns columns lane + 32j
-constexpr int WROWS = 32;       // weight rows staged in shared memory per step
+using namespace sh_synth;
+
 constexpr int LDX = BM + 4;     // row stride of the transposed activations (bank spread)
-
-__device__ __forceinline__ float op_round(float x, bool bf16) {
-  return bf16 ? __bfloat162float(__float2bfloat16(x)) : x;
-}
-
-// acc[i][j] += sum_k at[k][8*ty + i] * bs[k][tx + 32*j]   (at: [K][lda], bs: [K][32*NC])
-template <int NC>
-__device__ __forceinline__ void fma_tile(float (&acc)[8][NC], const float* at, int lda,
-                                         const float* bs, int K, int ty, int tx) {
-  constexpr int N = 32 * NC;
-  for (int k = 0; k < K; ++k) {
-    const float4 a0 = *reinterpret_cast<const float4*>(at + k * lda + ty * 8);
-    const float4 a1 = *reinterpret_cast<const float4*>(at + k * lda + ty * 8 + 4);
-    const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-    float b[NC];
-#pragma unroll
-    for (int j = 0; j < NC; ++j) b[j] = bs[k * N + tx + 32 * j];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-#pragma unroll
-      for (int j = 0; j < NC; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-  }
-}
-
-// acc += at[0:nrows]^T-contracted with the global weight rows wg[0:nrows, :],
-// staged WROWS rows at a time through wsm.  Starts and ends with a barrier
-// so the caller may rewrite what `at` points to afterwards.
-template <int NC>
-__device__ __forceinline__ void stage_and_fma(float (&acc)[8][NC], const float* __restrict__ wg,
-                                              int nrows, const float* at, int lda, float* wsm,
-                                              bool bf16, int tid, int ty, int tx) {
-  constexpr int N = 32 * NC;
-  for (int r0 = 0; r0 < nrows; r0 += WROWS) {
-    const int rows = min(WROWS, nrows - r0);
-    __syncthreads();
-    for (int idx = tid; idx < rows * N; idx += THREADS)
-      wsm[idx] = op_round(wg[(size_t)r0 * N + idx], bf16);
-    __syncthreads();
-    fma_tile<NC>(acc, at + r0 * lda, lda, wsm, rows, ty, tx);
-  }
-  __syncthreads();
-}
 
 template <int NC>
 __global__ void __launch_bounds__(THREADS, 2)
@@ -93,57 +43,11 @@ siren_tower_kernel(const float* __restrict__ lonlat, const float* __restrict__ f
   float* smem = reinterpret_cast<float*>(smem4);
   const int tid = threadIdx.x, ty = tid >> 5, tx = tid & 31;
   const int q0 = blockIdx.x * BM;
-  const int L2 = 2 * L;
   const bool rb = bf16_ops != 0;
 
-  // phase 1 layout (the region is reused for the activations in phase 2)
-  float* fth = smem;               // [2L][BM]  cos(j th) | sin(j th): synthesis operand
-  float* trig = fth + L2 * BM;     // [2L][BM]  cos(m phi) | sin(m phi)
-  float* amat = trig + L2 * BM;    // [2L][BM]  P_k cos | P_k sin: folded-matmul operand
-  float* fslab = amat + L2 * BM;   // [L][2L]   rows kL..kL+L-1 of ftabT
-  const int region = max(3 * L2 * BM + L * L2, H * LDX);
-  float* wsm = smem + region;      // [WROWS][H] staged weight rows
-
-  const float deg = 0.017453292519943295f;  // pi / 180
-  for (int idx = tid; idx < L * BM; idx += THREADS) {
-    const int j = idx / BM, b = idx % BM, q = q0 + b;
-    float lon = 0.f, lat = 0.f;
-    if (q < B) {
-      lon = lonlat[2 * q];
-      lat = lonlat[2 * q + 1];
-    }
-    const float phi = (lon + 180.0f) * deg;
-    const float theta = (lat + 90.0f) * deg;
-    const float at = theta * (float)j, ap = phi * (float)j;
-    fth[j * BM + b] = op_round(cosf(at), rb);
-    fth[(L + j) * BM + b] = op_round(sinf(at), rb);
-    trig[j * BM + b] = cosf(ap);
-    trig[(L + j) * BM + b] = sinf(ap);
-  }
-
+  float* wsm = smem + max(first_layer_floats(L), H * LDX);  // [WROWS][H] staged weight rows
   float acc[8][NC];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < NC; ++j) acc[i][j] = 0.f;
-
-  for (int k = 0; k < L; ++k) {
-    __syncthreads();  // prologue writes done; previous slab's readers done
-    for (int idx = tid; idx < L * L2; idx += THREADS)
-      fslab[idx] = op_round(ftabT[(size_t)k * L * L2 + idx], rb);
-    __syncthreads();
-    // P_k[r][b] = sum_j ftabT[kL + r][j] * fth[j][b]; column p = kL + r has m = r
-    for (int idx = tid; idx < L * BM; idx += THREADS) {
-      const int r = idx / BM, b = idx % BM;
-      float p = 0.f;
-      for (int j = 0; j < L2; ++j) p = fmaf(fslab[r * L2 + j], fth[j * BM + b], p);
-      amat[r * BM + b] = op_round(p * trig[r * BM + b], rb);
-      amat[(L + r) * BM + b] = op_round(p * trig[(L + r) * BM + b], rb);
-    }
-    stage_and_fma<NC>(acc, wc + (size_t)k * L * H, L, amat, BM, wsm, rb, tid, ty, tx);
-    stage_and_fma<NC>(acc, ws + (size_t)k * L * H, L, amat + L * BM, BM, wsm, rb, tid, ty,
-                      tx);
-  }
+  first_layer<NC>(acc, lonlat, ftabT, wc, ws, H, B, L, 0, L, q0, rb, smem, wsm, tid, ty, tx);
 
   // phase 2: activations x^T [H][LDX] in shared memory (phase-1 region is dead)
   float* xt = smem;
@@ -161,7 +65,7 @@ siren_tower_kernel(const float* __restrict__ lonlat, const float* __restrict__ f
     for (int i = 0; i < 8; ++i)
 #pragma unroll
       for (int j = 0; j < NC; ++j) acc[i][j] = 0.f;
-    stage_and_fma<NC>(acc, W, H, xt, LDX, wsm, rb, tid, ty, tx);
+    stage_and_fma<NC>(acc, W, H, H, xt, LDX, wsm, rb, tid, ty, tx);
     const float* bias = bpack + (size_t)(l + 1) * H;
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
@@ -184,8 +88,7 @@ int launch(const float* lonlat, const float* ftabT, const float* wc, const float
            const float* bpack, const float* deep_w, const float* last_w, float* out, int B,
            int L, int n_deep, float w0_initial, float w0, int bf16_ops, cudaStream_t stream) {
   constexpr int H = 32 * NC;
-  const int region = max(3 * 2 * L * BM + L * 2 * L, H * LDX);
-  const size_t smem = (size_t)(region + WROWS * H) * sizeof(float);
+  const size_t smem = (size_t)(max(first_layer_floats(L), H * LDX) + WROWS * H) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       siren_tower_kernel<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

@@ -31,6 +31,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "siren_tower": {"siren_tower_launch":
                     [_P] * 8 + [_I] * 4 + [_F, _F, _I, _P]},
+    "sh_times": {"sh_times_plan": [_I] * 3 + [_P],
+                 "sh_times_launch": [_P] * 6 + [_I] * 6 + [_P]},
     "fused_retrieval": {"fused_retrieval_launch":
                         [_P] * 5 + [_I] * 6 + [_F, _I, _P],
                         "fused_retrieval_i8_launch":

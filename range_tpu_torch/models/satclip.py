@@ -1,12 +1,15 @@
 """SatCLIP location tower: SH positional encoding -> SIREN, as an nn.Module.
 
-Counterpart of `range_tpu/models/satclip.py:29-115` (reference
-`location_encoder.py:267-275`).  Float32 coordinates go through the fused
-tower (`ops.sh.siren_tower`: the CUDA kernel on the card, its plain version
-on the CPU), as `satclip.py:83-99` routes them through the Pallas kernel;
-float64 coordinates on the CPU take the unfused basis -> net compose, as in
-the JAX package.  On the card the kernel is f32-only, so other dtypes raise
-there instead of leaving the kernel for the compose.
+Counterpart of `range_tpu/models/satclip.py:29-156` (reference
+`location_encoder.py:267-275`).  In eval, float32 coordinates go through the
+fused tower (`ops.sh.siren_tower`: the CUDA kernel on the card, its plain
+version on the CPU), as `satclip.py:83-99` routes them through the Pallas
+kernel.  In training, float32 coordinates take the fused first layer
+(`ops.sh.spherical_harmonics_times_fused`, the SH-times kernel on the card)
+plus b0, then the SIREN layers with dropout (`satclip.py:100-156`).
+Float64 coordinates on the CPU take the unfused basis -> net compose, as in
+the JAX package.  On the card the kernels are f32-only, so other dtypes
+raise there instead of leaving the kernels for the compose.
 """
 
 from __future__ import annotations
@@ -17,9 +20,9 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..ops.nets import get_neural_network
+from ..ops.nets import SirenNet, get_neural_network
 from ..ops.posenc import get_positional_encoding
-from ..ops.sh import siren_tower
+from ..ops.sh import siren_tower, spherical_harmonics_times_fused
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,18 +66,38 @@ class SatClipLocationEncoder(nn.Module):
             generator=generator)
         self.embedding_dim = config.embed_dim
 
-    def forward(self, lonlat_deg: torch.Tensor) -> torch.Tensor:
-        if lonlat_deg.dtype == torch.float32:
+    def _matmul_dtype(self):
+        return torch.bfloat16 if self.config.fused_matmul_dtype == "bf16" else None
+
+    def forward(self, lonlat_deg: torch.Tensor, training: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if lonlat_deg.is_cuda and lonlat_deg.dtype != torch.float32:
+            raise TypeError(
+                f"the tower kernels take float32 coordinates, got "
+                f"{lonlat_deg.dtype} on {lonlat_deg.device}; the unfused "
+                "compose serves other dtypes on the CPU only")
+        if lonlat_deg.dtype != torch.float32:
+            return self.nnet(self.posenc(lonlat_deg), training=training,
+                             generator=generator)
+        if not training:
             return siren_tower(
                 lonlat_deg, int(self.posenc.legendre_polys),
                 self.nnet.tower_params(), self.posenc.convention,
-                matmul_dtype=(torch.bfloat16
-                              if self.config.fused_matmul_dtype == "bf16"
-                              else None),
+                matmul_dtype=self._matmul_dtype(),
                 w0_initial=self.nnet.w0_initial, w0=self.nnet.w0)
-        if lonlat_deg.is_cuda:
-            raise TypeError(
-                f"the tower kernel takes float32 coordinates, got "
-                f"{lonlat_deg.dtype} on {lonlat_deg.device}; the unfused "
-                "compose serves other dtypes on the CPU only")
-        return self.nnet(self.posenc(lonlat_deg))
+        return self.nnet(None, training=True, generator=generator,
+                         first_preact=self._fused_first_preact(lonlat_deg))
+
+    def _fused_first_preact(self, lonlat_deg: torch.Tensor) -> torch.Tensor:
+        """basis @ W0 + b0 through the SH-times kernel, without the
+        [B, L*L] basis (`range_tpu/models/satclip.py:116-156`)."""
+        if not isinstance(self.nnet, SirenNet):
+            raise NotImplementedError(
+                f"the fused first layer of a {type(self.nnet).__name__} head "
+                "is not ported yet (ROADMAP.md, Queue 1: rest of the encoder "
+                "zoo, the MLP head)")
+        layer0 = self.nnet.layers[0]
+        pre = spherical_harmonics_times_fused(
+            lonlat_deg, int(self.posenc.legendre_polys), layer0.weight.T,
+            self.posenc.convention, matmul_dtype=self._matmul_dtype())
+        return pre if layer0.bias is None else pre + layer0.bias

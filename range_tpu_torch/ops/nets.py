@@ -1,8 +1,9 @@
-"""SIREN head as an `nn.Module` (inference only).
+"""SIREN head as an `nn.Module`.
 
 Counterpart of `range_tpu/ops/nets.py:52-124` (reference
 `location_encoder.py:73-151`): ``num_layers`` sine layers (w0=30 on the
-first, w0=1 after) and a final linear layer (identity activation).  The
+first, w0=1 after), each with p=0.5 dropout on its pre-activation in
+training, and a final linear layer (identity activation).  The
 initialisation draws the same uniform bounds as the JAX `SirenNet.init`
 (`ops/nets.py:76-95`) from a `torch.Generator`, so the numbers differ from
 the JAX package's; `convert/from_jax.py` carries JAX weights across.
@@ -36,12 +37,13 @@ class SirenNet(nn.Module):
 
     def __init__(self, dim_in: int, dim_hidden: int, dim_out: int,
                  num_layers: int, *, w0: float = 1.0, w0_initial: float = 30.0,
-                 use_bias: bool = True, c: float = 6.0, device="cuda",
-                 dtype: torch.dtype = torch.float32,
+                 use_bias: bool = True, c: float = 6.0,
+                 device="cuda", dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.w0 = w0
         self.w0_initial = w0_initial
+        self.dropout = True  # pre-activation dropout in training
         self.layers = nn.ModuleList()
         for ind in range(num_layers):
             is_first = ind == 0
@@ -54,16 +56,31 @@ class SirenNet(nn.Module):
         self.last = _uniform_linear(dim_hidden, dim_out,
                                     math.sqrt(c / dim_hidden) / w0, use_bias,
                                     device, dtype, generator)
-        self.requires_grad_(False)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: Optional[torch.Tensor], training: bool = False,
+                generator: Optional[torch.Generator] = None,
+                first_preact: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``first_preact``: the precomputed layer-0 pre-activation
+        (x @ W0 + b0), so that a caller can fuse the positional encoding
+        into the first product (`ops.sh.spherical_harmonics_times_fused`);
+        ``x`` is then not read.  In training each hidden pre-activation h
+        keeps an element with probability 0.5, drawn from ``generator``,
+        and scales it by 2 (`range_tpu/ops/nets.py:106-114`)."""
+        if training and self.dropout and generator is None:
+            raise ValueError("training=True with dropout requires a generator")
+
         def linear(lin, x):
             b = None if lin.bias is None else lin.bias.to(x.dtype)
             return F.linear(x, lin.weight.to(x.dtype), b)
 
         for ind, lin in enumerate(self.layers):
-            x = torch.sin((self.w0_initial if ind == 0 else self.w0)
-                          * linear(lin, x))
+            h = first_preact if (ind == 0 and first_preact is not None) \
+                else linear(lin, x)
+            if training and self.dropout:
+                keep = torch.rand(h.shape, generator=generator,
+                                  device=h.device) < 0.5
+                h = torch.where(keep, h / 0.5, 0.0)
+            x = torch.sin((self.w0_initial if ind == 0 else self.w0) * h)
         return linear(self.last, x)
 
     def tower_params(self) -> dict:

@@ -7,10 +7,15 @@ cannot import them from there.  Conventions are the JAX module's:
 ``phi = deg2rad(lon + 180)``, ``theta = deg2rad(lat + 90)``, basis columns
 stacked in (l, m) order, l = 0..L-1, m = -l..l.
 
-`siren_tower` is the kernel wrapper for the whole SatCLIP tower
-(SH Fourier synthesis -> folded basis@W0 -> every SIREN layer).  On a CUDA
-tensor it launches `csrc/siren_tower.cu`; on a CPU tensor it runs
-`_siren_tower_plain`, the same function in plain PyTorch.
+Two kernel wrappers, each an `autograd.Function` whose backward is the
+plain compose, as the JAX package's `custom_vjp`s are:
+
+- `spherical_harmonics_times_fused`: basis @ W0 (SH Fourier synthesis ->
+  two folded products), the training path's first layer.  CUDA tensor:
+  `csrc/sh_times.cu`; CPU tensor: `_sh_times_plain`.
+- `siren_tower`: the whole SatCLIP tower (the same first layer -> every
+  SIREN layer), the serving path.  CUDA tensor: `csrc/siren_tower.cu`; CPU
+  tensor: `_siren_tower_plain`.
 """
 
 from __future__ import annotations
@@ -264,6 +269,162 @@ def spherical_harmonics_times(lonlat_deg: torch.Tensor, L: int,
     return out.to(dtype)
 
 
+
+
+# ---------------------------------------------------------------------------
+# autograd: a kernel's forward, the plain compose's backward
+
+
+def _check_matmul_dtype(matmul_dtype) -> None:
+    if matmul_dtype not in (None, torch.bfloat16):
+        raise ValueError(
+            f"matmul_dtype must be None or torch.bfloat16, got {matmul_dtype}")
+
+
+def _vjp(fn, inputs, needs, g):
+    """The gradients of ``fn(*inputs)`` for the upstream gradient ``g``,
+    through autograd; None for each input whose ``needs`` is False."""
+    with torch.enable_grad():
+        xs = [x.detach().requires_grad_(n) for x, n in zip(inputs, needs)]
+        wanted = [x for x in xs if x.requires_grad]
+        grads = iter(torch.autograd.grad(fn(*xs), wanted, g) if wanted else ())
+    return tuple(next(grads) if n else None for n in needs)
+
+
+def _kernel_device(t: torch.Tensor, what: str) -> None:
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {t.device}")
+
+
+# ---------------------------------------------------------------------------
+# basis @ W0: the SH-times kernel wrapper + plain version
+
+
+def _sh_times_plain(lonlat_deg: torch.Tensor, L: int, w: torch.Tensor,
+                    convention: str = "analytic", matmul_dtype=None,
+                    magnitude: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of the SH-times kernel, laid out as the TPU
+    kernel computes it (`range_tpu/ops/sh.py:539-562`): the Fourier
+    synthesis P = fth @ ftab, the cos/sin(m phi) tiles, two folded
+    products.  With ``matmul_dtype=bfloat16`` every matmul operand is
+    rounded to bf16, the synthesis inputs ftab and fth included
+    (`sh.py:537,547`; `spherical_harmonics_times` leaves those in f32), and
+    every product accumulates in the input's float type.
+    ``magnitude=True`` gives the same sums over the operands' magnitudes
+    (each output's sum of |terms|), for the kernel checks' error bound."""
+    _check_convention(convention)
+    dtype = lonlat_deg.dtype
+
+    def op(t):  # a matmul operand, rounded as the kernel rounds it
+        t = t.to(dtype)
+        return t if matmul_dtype is None else t.to(matmul_dtype).to(dtype)
+
+    fth, cosm, sinm = _fourier_synthesis_inputs(lonlat_deg, L)
+    P = op(fth) @ op(_fourier_table(L, dtype, lonlat_deg.device))  # [B, L*L]
+    terms = [(op(P * trig.repeat(1, L)), op(wf)) for trig, wf in zip(
+        (cosm, sinm), _fold_first_layer(w, L, convention, dtype))]
+    if magnitude:
+        terms = [(a.abs(), b.abs()) for a, b in terms]
+    return terms[0][0] @ terms[0][1] + terms[1][0] @ terms[1][1]
+
+
+def _sh_times_call(lonlat_deg: torch.Tensor, L: int, w: torch.Tensor,
+                   convention: str, matmul_dtype) -> torch.Tensor:
+    """Launch `csrc/sh_times.cu` on CUDA tensors: [B, 2] f32 -> [B, D] f32."""
+    if lonlat_deg.dtype != torch.float32 or lonlat_deg.ndim != 2 \
+            or lonlat_deg.shape[1] != 2:
+        raise ValueError("spherical_harmonics_times_fused: expected float32 "
+                         f"[B, 2] coordinates, got {lonlat_deg.dtype} "
+                         f"{tuple(lonlat_deg.shape)}")
+    dev = lonlat_deg.device
+    D = w.shape[1]
+    if w.device != dev or w.ndim != 2 or w.shape[0] != L * L:
+        raise ValueError(f"spherical_harmonics_times_fused: w must be [L*L, D]"
+                         f" = [{L * L}, D] on {dev}, got {tuple(w.shape)} on "
+                         f"{w.device}")
+    if D % 32 or not 0 < D <= 512:
+        raise ValueError("spherical_harmonics_times_fused kernel: needs D a "
+                         f"multiple of 32 up to 512, got D={D}")
+    f32 = torch.float32
+    ftabT = _fourier_table(L, f32, dev, transposed=True)
+    wc, ws = _fold_first_layer(w, L, convention, f32)
+    coords = lonlat_deg.contiguous()
+    B = coords.shape[0]
+    out = torch.empty((B, D), dtype=f32, device=dev)
+    if B == 0:
+        return out
+    from ..kernels._build import load_kernel_library
+
+    lib = load_kernel_library("sh_times")
+    plan = (ctypes.c_int * 2)()  # column slice NC, row splits KS
+    rc = lib.sh_times_plan(B, L, D, ctypes.addressof(plan))
+    if rc != 0:
+        raise RuntimeError(f"sh_times kernel plan failed: CUDA error {rc}")
+    nc, ks = plan
+    # the row splits' partial sums, added in a fixed order by the kernel's
+    # second pass
+    work = torch.empty((ks, B, D), dtype=f32, device=dev) if ks > 1 else None
+    rc = lib.sh_times_launch(
+        coords.data_ptr(), ftabT.data_ptr(), wc.data_ptr(), ws.data_ptr(),
+        out.data_ptr(), None if work is None else work.data_ptr(), B, L, D,
+        nc, ks, int(matmul_dtype is not None),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"sh_times kernel launch failed: CUDA error {rc}")
+    spherical_harmonics_times_fused.launches += 1
+    return out
+
+
+class _ShTimes(torch.autograd.Function):
+    """Forward: the SH-times kernel (CUDA) or its plain version (CPU).
+    Backward: autograd through `spherical_harmonics_times` in the same
+    ``matmul_dtype``, as `_sh_times_pallas_bwd` (`range_tpu/ops/sh.py:454`)."""
+
+    @staticmethod
+    def forward(ctx, lonlat_deg, w, L, convention, matmul_dtype):
+        ctx.save_for_backward(lonlat_deg, w)
+        ctx.plan = (L, convention, matmul_dtype)
+        if lonlat_deg.device.type == "cpu":
+            return _sh_times_plain(lonlat_deg, L, w, convention, matmul_dtype)
+        return _sh_times_call(lonlat_deg, L, w, convention, matmul_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        L, convention, md = ctx.plan
+        grads = _vjp(lambda ll, ww: spherical_harmonics_times(
+            ll, L, ww, convention, matmul_dtype=md), ctx.saved_tensors,
+            ctx.needs_input_grad[:2], g)
+        return (*grads, None, None, None)
+
+
+def spherical_harmonics_times_fused(lonlat_deg: torch.Tensor, L: int,
+                                    w: torch.Tensor,
+                                    convention: str = "analytic",
+                                    matmul_dtype=None) -> torch.Tensor:
+    """``spherical_harmonics_basis(lonlat_deg, L) @ w`` through the SH-times
+    kernel: [B, 2] (lon, lat) degrees, w [L*L, D] -> [B, D].  Counterpart of
+    `spherical_harmonics_times_pallas` (`range_tpu/ops/sh.py:426-463`).
+
+    CPU tensor: `_sh_times_plain`.  CUDA tensor: the hand-written kernel
+    (`csrc/sh_times.cu`, float32 coordinates, D a multiple of 32 up to 512),
+    which replaces the TPU kernel `kern` inside `_sh_times_pallas_impl`
+    (`sh.py:539`); a launch failure raises.  Differentiable in
+    ``lonlat_deg`` and ``w``: the backward is autograd through the plain
+    compose `spherical_harmonics_times`.  L outside 2..64 takes that
+    compose for the forward too, as the JAX envelope does (`sh.py:498-503`).
+    ``spherical_harmonics_times_fused.launches`` counts kernel launches."""
+    _check_convention(convention)
+    _check_matmul_dtype(matmul_dtype)
+    _kernel_device(lonlat_deg, "spherical_harmonics_times_fused")
+    if not 2 <= L <= 64:  # the JAX envelope (`sh.py:498-503`)
+        return spherical_harmonics_times(lonlat_deg, L, w, convention,
+                                         matmul_dtype=matmul_dtype)
+    return _ShTimes.apply(lonlat_deg, w, L, convention, matmul_dtype)
+
+
+spherical_harmonics_times_fused.launches = 0
+
+
 # ---------------------------------------------------------------------------
 # the SatCLIP tower: kernel wrapper + plain version
 
@@ -281,13 +442,12 @@ def _siren_tower_plain(lonlat_deg: torch.Tensor, L: int, params,
                        convention: str = "analytic", matmul_dtype=None,
                        w0_initial: float = 30.0,
                        w0: float = 1.0) -> torch.Tensor:
-    """Plain PyTorch version of the tower kernel; counterpart of
-    `_siren_tower_ref` (`range_tpu/ops/sh.py:630-646`), laid out as the TPU
-    kernel computes it (`sh.py:726-751`): Fourier synthesis, cos/sin(m phi)
-    tiles, two folded matmuls, sin(w0_initial * (h + b0)), the hidden
-    layers, the output layer.  With ``matmul_dtype=bfloat16`` every matmul
-    operand is rounded to bf16, as the TPU kernel rounds them, and every
-    product still accumulates in the input's float type."""
+    """Plain PyTorch version of the tower kernel, laid out as the TPU kernel
+    computes it (`range_tpu/ops/sh.py:726-751`): the SH-times first layer
+    (`_sh_times_plain`), sin(w0_initial * (h + b0)), the hidden layers, the
+    output layer.  With ``matmul_dtype=bfloat16`` every matmul operand is
+    rounded to bf16, as the TPU kernel rounds them, and every product still
+    accumulates in the input's float type."""
     _check_convention(convention)
     dtype = lonlat_deg.dtype
     layers, last = params["layers"], params["last"]
@@ -297,10 +457,7 @@ def _siren_tower_plain(lonlat_deg: torch.Tensor, L: int, params,
         t = t.to(dtype)
         return t if matmul_dtype is None else t.to(matmul_dtype).to(dtype)
 
-    fth, cosm, sinm = _fourier_synthesis_inputs(lonlat_deg, L)
-    P = op(fth) @ op(_fourier_table(L, dtype, lonlat_deg.device))  # [B, L*L]
-    wc, ws = _fold_first_layer(layers[0]["w"], L, convention, dtype)
-    h = op(P * cosm.repeat(1, L)) @ op(wc) + op(P * sinm.repeat(1, L)) @ op(ws)
+    h = _sh_times_plain(lonlat_deg, L, layers[0]["w"], convention, matmul_dtype)
     biases = _tower_biases(params, H, D, dtype, lonlat_deg.device)
     x = torch.sin(w0_initial * (h + biases[0]))
     for layer, b in zip(layers[1:], biases[1:-1]):
@@ -308,37 +465,31 @@ def _siren_tower_plain(lonlat_deg: torch.Tensor, L: int, params,
     return op(x) @ op(last["w"]) + biases[-1]
 
 
-def siren_tower(lonlat_deg: torch.Tensor, L: int, params,
-                convention: str = "analytic", matmul_dtype=None,
-                w0_initial: float = 30.0, w0: float = 1.0) -> torch.Tensor:
-    """The whole SatCLIP tower for [B, 2] (lon, lat) degrees -> [B, D] f32.
-
-    ``params`` is the SirenNet layout of the JAX package
-    (``{"layers": [{"w": [in, out], "b": [out]}, ...], "last": {...}}``).
-    ``matmul_dtype`` is None (true f32 operands) or ``torch.bfloat16``
-    (operands rounded to bf16, f32 accumulation).
-
-    CPU tensor: `_siren_tower_plain`.  CUDA tensor: the hand-written kernel
-    (`csrc/siren_tower.cu`), which replaces the TPU kernel `kern` inside
-    `_siren_tower_impl` (`range_tpu/ops/sh.py:661-782`); a launch failure
-    raises.  Forward only: a CUDA input that requires grad raises.
-    ``siren_tower.launches`` counts kernel launches."""
-    _check_convention(convention)
-    if matmul_dtype not in (None, torch.bfloat16):
-        raise ValueError(
-            f"matmul_dtype must be None or torch.bfloat16, got {matmul_dtype}")
-    if lonlat_deg.device.type == "cpu":
-        return _siren_tower_plain(lonlat_deg, L, params, convention,
-                                  matmul_dtype, w0_initial, w0)
-    if lonlat_deg.device.type != "cuda":
-        raise ValueError(f"siren_tower: unsupported device {lonlat_deg.device}")
+def _siren_tower_ref(lonlat_deg: torch.Tensor, L: int, params,
+                     convention: str = "analytic", matmul_dtype=None,
+                     w0_initial: float = 30.0, w0: float = 1.0) -> torch.Tensor:
+    """The compose the tower's backward differentiates, as `_siren_tower_ref`
+    (`range_tpu/ops/sh.py:630-646`): `spherical_harmonics_times` in
+    ``matmul_dtype``, then the SIREN layers in the input's float type (only
+    the first layer's operands round to bf16, unlike `_siren_tower_plain`)."""
     layers, last = params["layers"], params["last"]
-    tensors = [lonlat_deg] + [t for layer in layers + [last]
-                              for t in layer.values()]
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(
-            "siren_tower: the CUDA kernel is forward-only; run under "
-            "torch.no_grad() (the autograd.Function is ROADMAP work)")
+    x = spherical_harmonics_times(lonlat_deg, L, layers[0]["w"], convention,
+                                  matmul_dtype=matmul_dtype)
+    if "b" in layers[0]:
+        x = x + layers[0]["b"]
+    x = torch.sin(w0_initial * x)
+    for layer in layers[1:]:
+        h = x @ layer["w"]
+        x = torch.sin(w0 * (h + layer["b"] if "b" in layer else h))
+    out = x @ last["w"]
+    return out + last["b"] if "b" in last else out
+
+
+def _siren_tower_call(lonlat_deg: torch.Tensor, L: int, params,
+                      convention: str, matmul_dtype, w0_initial: float,
+                      w0: float) -> torch.Tensor:
+    """Launch `csrc/siren_tower.cu` on CUDA tensors: [B, 2] f32 -> [B, D]."""
+    layers, last = params["layers"], params["last"]
     if lonlat_deg.dtype != torch.float32 or lonlat_deg.ndim != 2 \
             or lonlat_deg.shape[1] != 2:
         raise ValueError("siren_tower: expected float32 [B, 2] coordinates, "
@@ -378,6 +529,72 @@ def siren_tower(lonlat_deg: torch.Tensor, L: int, params,
         raise RuntimeError(f"siren_tower kernel launch failed: CUDA error {rc}")
     siren_tower.launches += 1
     return out
+
+
+def _flatten_tower(params):
+    """(layout, tensors): the SirenNet params as a flat tuple, and the key
+    names of each layer (the last layer last) to rebuild them."""
+    entries = list(params["layers"]) + [params["last"]]
+    layout = tuple(tuple(sorted(e)) for e in entries)
+    return layout, tuple(e[k] for e, keys in zip(entries, layout) for k in keys)
+
+
+def _unflatten_tower(layout, tensors):
+    it = iter(tensors)
+    entries = [{k: next(it) for k in keys} for keys in layout]
+    return {"layers": entries[:-1], "last": entries[-1]}
+
+
+class _SirenTower(torch.autograd.Function):
+    """Forward: the tower kernel (CUDA) or its plain version (CPU).
+    Backward: autograd through `_siren_tower_ref`, as `_siren_tower_bwd`
+    (`range_tpu/ops/sh.py:649-658`)."""
+
+    @staticmethod
+    def forward(ctx, lonlat_deg, plan, *tensors):
+        ctx.save_for_backward(lonlat_deg, *tensors)
+        ctx.plan = plan
+        L, convention, md, w0_initial, w0, layout = plan
+        params = _unflatten_tower(layout, tensors)
+        if lonlat_deg.device.type == "cpu":
+            return _siren_tower_plain(lonlat_deg, L, params, convention, md,
+                                      w0_initial, w0)
+        return _siren_tower_call(lonlat_deg, L, params, convention, md,
+                                 w0_initial, w0)
+
+    @staticmethod
+    def backward(ctx, g):
+        L, convention, md, w0_initial, w0, layout = ctx.plan
+        needs = (ctx.needs_input_grad[0],) + ctx.needs_input_grad[2:]
+        grads = _vjp(lambda ll, *t: _siren_tower_ref(
+            ll, L, _unflatten_tower(layout, t), convention, md, w0_initial, w0),
+            ctx.saved_tensors, needs, g)
+        return (grads[0], None, *grads[1:])
+
+
+def siren_tower(lonlat_deg: torch.Tensor, L: int, params,
+                convention: str = "analytic", matmul_dtype=None,
+                w0_initial: float = 30.0, w0: float = 1.0) -> torch.Tensor:
+    """The whole SatCLIP tower for [B, 2] (lon, lat) degrees -> [B, D] f32.
+
+    ``params`` is the SirenNet layout of the JAX package
+    (``{"layers": [{"w": [in, out], "b": [out]}, ...], "last": {...}}``).
+    ``matmul_dtype`` is None (true f32 operands) or ``torch.bfloat16``
+    (operands rounded to bf16, f32 accumulation).
+
+    CPU tensor: `_siren_tower_plain`.  CUDA tensor: the hand-written kernel
+    (`csrc/siren_tower.cu`), which replaces the TPU kernel `kern` inside
+    `_siren_tower_impl` (`range_tpu/ops/sh.py:661-782`); a launch failure
+    raises.  Differentiable in the coordinates and every parameter: the
+    backward is autograd through the plain compose `_siren_tower_ref`, as
+    in the JAX package.  ``siren_tower.launches`` counts kernel launches."""
+    _check_convention(convention)
+    _check_matmul_dtype(matmul_dtype)
+    _kernel_device(lonlat_deg, "siren_tower")
+    layout, tensors = _flatten_tower(params)
+    return _SirenTower.apply(
+        lonlat_deg, (L, convention, matmul_dtype, w0_initial, w0, layout),
+        *tensors)
 
 
 siren_tower.launches = 0

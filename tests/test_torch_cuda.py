@@ -58,10 +58,129 @@ def test_tower_kernel_matches_plain(cuda, H, bf16, atol):
 
 
 def test_tower_kernel_is_forward_only(cuda):
-    net = SirenNet(64, 128, 128, 2, device=cuda)
-    ll = _coords(8, seed=1, device=cuda).requires_grad_(True)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        sh.siren_tower(ll, 8, net.tower_params())
+    """The kernel computes the forward alone: inputs that require grad still
+    launch it once, and the backward is autograd through the plain compose
+    `_siren_tower_ref` (the JAX custom_vjp's), for the coordinates and every
+    layer's w and b; it launches nothing."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    net = SirenNet(64, 128, 128, 2, device=cuda, generator=gen)
+    ll = _coords(100, seed=1, device=cuda).requires_grad_(True)
+    g = torch.randn(100, 128, generator=gen, device=cuda)
+    inputs = [ll] + list(net.parameters())
+    before = sh.siren_tower.launches
+    got = torch.autograd.grad(sh.siren_tower(ll, 8, net.tower_params()), inputs, g)
+    torch.cuda.synchronize()
+    assert sh.siren_tower.launches == before + 1
+    ref = torch.autograd.grad(sh._siren_tower_ref(ll, 8, net.tower_params()), inputs, g)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * b.abs().max().item())
+
+
+# f32: true f32 FMAs against cuBLAS f32 products, another summation order:
+# within 1e-5 of each element's sum of |terms| (1,600 terms at L=40).
+# bf16: the same operand rounding points; an f32 sum that lands near a bf16
+# tie rounds the other way, one bf16 ulp of that term (`_within_terms`).
+@pytest.mark.parametrize("B,L,D", [(777, 40, 256), (512, 40, 256), (300, 6, 96),
+                                   (70, 64, 512), (33, 2, 32)])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_sh_times_kernel_matches_plain(cuda, B, L, D, bf16):
+    gen = torch.Generator(device=cuda).manual_seed(L + D)
+    w = torch.randn(L * L, D, generator=gen, device=cuda) * 0.05
+    ll = _coords(B, seed=L, device=cuda)
+    md = torch.bfloat16 if bf16 else None
+    before = sh.spherical_harmonics_times_fused.launches
+    got = sh.spherical_harmonics_times_fused(ll, L, w, matmul_dtype=md)
+    torch.cuda.synchronize()
+    assert sh.spherical_harmonics_times_fused.launches == before + 1
+    ref = sh._sh_times_plain(ll, L, w, matmul_dtype=md)
+    mag = sh._sh_times_plain(ll, L, w, matmul_dtype=md, magnitude=True)
+    assert got.shape == (B, D) and got.dtype == torch.float32
+    if bf16:
+        _within_terms(got, ref, mag)
+    else:
+        assert ((got - ref).abs() <= 1e-5 * mag + 1e-7).all()
+
+
+@pytest.mark.parametrize("nc,ks", [(1, 1), (8, 1), (8, 20), (2, 40), (4, 7)])
+def test_sh_times_kernel_plans_agree(cuda, nc, ks):
+    """Every plan the launch accepts (NC column slices x KS runs of the
+    recurrence rows, the runs' partial sums added in a second pass) gives
+    the plain version's sums, at the f32 tolerance above."""
+    import ctypes
+
+    from range_tpu_torch.kernels._build import load_kernel_library
+
+    B, L, D = 300, 40, 256
+    gen = torch.Generator(device=cuda).manual_seed(nc + ks)
+    w = torch.randn(L * L, D, generator=gen, device=cuda) * 0.05
+    ll = _coords(B, seed=ks, device=cuda)
+    wc, ws = sh._fold_first_layer(w, L, "analytic", torch.float32)
+    ftabT = sh._fourier_table(L, torch.float32, cuda, transposed=True)
+    out = torch.full((B, D), float("nan"), device=cuda)
+    work = torch.full((ks, B, D), float("nan"), device=cuda)
+    rc = load_kernel_library("sh_times").sh_times_launch(
+        ll.data_ptr(), ftabT.data_ptr(), wc.data_ptr(), ws.data_ptr(), out.data_ptr(),
+        work.data_ptr(), B, L, D, nc, ks, 0, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 0
+    ref = sh._sh_times_plain(ll, L, w)
+    mag = sh._sh_times_plain(ll, L, w, magnitude=True)
+    assert ((out - ref).abs() <= 1e-5 * mag + 1e-7).all()
+    plan = (ctypes.c_int * 2)()
+    assert load_kernel_library("sh_times").sh_times_plan(B, L, D, ctypes.addressof(plan)) == 0
+    assert plan[0] == 8 and 1 <= plan[1] <= L  # the widest slice; runs fill the card
+
+
+def test_sh_times_gradients_are_the_plain_compose(cuda):
+    """`spherical_harmonics_times_fused`'s gradients for w and the
+    coordinates equal those of `spherical_harmonics_times` for the same
+    upstream gradient (its backward is that compose)."""
+    L, D = 40, 256
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    w = (torch.randn(L * L, D, generator=gen, device=cuda) * 0.05).requires_grad_(True)
+    ll = _coords(512, seed=5, device=cuda).requires_grad_(True)
+    g = torch.randn(512, D, generator=gen, device=cuda)
+    for md in (None, torch.bfloat16):
+        got = torch.autograd.grad(sh.spherical_harmonics_times_fused(ll, L, w, matmul_dtype=md),
+                                  (ll, w), g)
+        ref = torch.autograd.grad(sh.spherical_harmonics_times(ll, L, w, matmul_dtype=md),
+                                  (ll, w), g)
+        for a, b in zip(got, ref):
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * b.abs().max().item())
+
+
+def test_sh_times_kernel_rejects_bad_input(cuda):
+    w = torch.zeros(64, 48, device=cuda)  # D not a multiple of 32
+    with pytest.raises(ValueError, match="multiple of 32"):
+        sh.spherical_harmonics_times_fused(torch.zeros(4, 2, device=cuda), 8, w)
+    with pytest.raises(ValueError, match="float32"):
+        sh.spherical_harmonics_times_fused(torch.zeros(4, 2, device=cuda, dtype=torch.float64),
+                                           8, torch.zeros(64, 32, device=cuda))
+
+
+def test_training_step_launches_sh_times_per_microbatch(cuda):
+    """A SatCLIP train step on the card (a tiny ResNet, L=8 location tower)
+    launches the SH-times kernel once per microbatch and the tower kernel
+    never; its loss is finite."""
+    from range_tpu_torch.models.resnet_std import StdResNetConfig
+    from range_tpu_torch.models.satclip import SatClipLocationConfig
+    from range_tpu_torch.train import satclip as tr
+
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    model = tr.SatClipModel(tr.SatClipConfig(
+        vision=StdResNetConfig(layers=(1, 1, 1, 1), width=8, in_channels=4, output_dim=32),
+        location=SatClipLocationConfig(embed_dim=32, legendre_polys=8, capacity=64)),
+        device=cuda, generator=gen)
+    step = tr.make_train_step(model, tr.make_optimizer(1e-3), accum_steps=3)
+    batch = {"image": torch.randn(24, 4, 32, 32, generator=gen, device=cuda),
+             "point": _coords(24, seed=6, device=cuda)}
+    sh.spherical_harmonics_times_fused.launches = 0
+    sh.siren_tower.launches = 0
+    loss = step(batch, gen)
+    torch.cuda.synchronize()
+    assert sh.spherical_harmonics_times_fused.launches == 3
+    assert sh.siren_tower.launches == 0
+    assert torch.isfinite(loss)
 
 
 # Same logits up to summation order; a p that sits within that difference

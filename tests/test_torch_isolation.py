@@ -1,4 +1,5 @@
-"""range_tpu_torch never imports jax, not even indirectly."""
+"""range_tpu_torch never imports jax, not even indirectly: serving and a
+training step."""
 
 import os
 import subprocess
@@ -11,9 +12,21 @@ def test_port_never_imports_jax():
     code = ("import sys, range_tpu_torch\n"
             "import range_tpu_torch.api, range_tpu_torch.convert.from_jax\n"
             "import range_tpu_torch.kernels._build\n"
+            "import torch, range_tpu_torch.train.fit\n"
+            "from range_tpu_torch.train import satclip as tr\n"
+            "from range_tpu_torch.models.resnet_std import StdResNetConfig\n"
+            "from range_tpu_torch.models.satclip import SatClipLocationConfig\n"
             "enc = range_tpu_torch.load_model('RANGE+', db_path='synthetic:300', "
             "device='cpu', chunk=256)\n"
             "assert enc([[0.0, 0.0]]).shape == (1, 1280)\n"
+            "m = tr.SatClipModel(tr.SatClipConfig(vision=StdResNetConfig("
+            "layers=(1, 1, 1, 1), width=8, in_channels=4, output_dim=16), "
+            "location=SatClipLocationConfig(embed_dim=16, legendre_polys=4, "
+            "capacity=32)), device='cpu')\n"
+            "step = tr.make_train_step(m, tr.make_optimizer(1e-3), accum_steps=2)\n"
+            "loss = step({'image': torch.randn(4, 4, 32, 32), "
+            "'point': torch.zeros(4, 2)}, torch.Generator().manual_seed(0))\n"
+            "assert torch.isfinite(loss)\n"
             "print('jax' in sys.modules)")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,

@@ -115,13 +115,14 @@ def test_siren_net_carries_jax_params():
     net.load_state_dict(siren_params_from_jax(p))
     ll = _coords(100, seed=4)
     j = np.asarray(jnet.apply(p, JaxSH(legendre_polys=L)(jnp.asarray(ll))))
-    t = net(SphericalHarmonics(legendre_polys=L)(torch.from_numpy(ll))).numpy()
+    with torch.no_grad():  # the weights are trainable parameters
+        t = net(SphericalHarmonics(legendre_polys=L)(torch.from_numpy(ll))).numpy()
     np.testing.assert_allclose(t, j, rtol=0, atol=1e-10)
 
 
 def test_siren_net_init_bounds_and_seed():
     """The JAX init's uniform bounds (`range_tpu/ops/nets.py:76-95`), drawn
-    from a torch.Generator: reproducible from the seed, inference-only."""
+    from a torch.Generator: reproducible from the seed, trainable."""
     def make(seed):
         return SirenNet(100, 64, 32, 2, device="cpu",
                         generator=torch.Generator().manual_seed(seed))
@@ -131,7 +132,7 @@ def test_siren_net_init_bounds_and_seed():
     for lin, bound in zip(list(a.layers) + [a.last], bounds):
         for t in (lin.weight, lin.bias):
             assert t.abs().max() <= bound and t.abs().max() > 0.9 * bound
-            assert not t.requires_grad
+            assert t.requires_grad
     for x, y, z in zip(a.state_dict().values(), b.state_dict().values(),
                        c.state_dict().values()):
         assert torch.equal(x, y) and not torch.equal(x, z)
