@@ -1,8 +1,9 @@
 """Smoke run of range_tpu_torch on one CUDA card.
 
-Builds the port's eleven CUDA kernels from the nine sources of
-`range_tpu_torch/csrc/` (one nvcc per source, all started together), holds
-each against its plain PyTorch version at the main paths' shapes, then
+Builds the port's thirteen CUDA kernels (and the scan's segment-sum
+variant) from the eleven sources of `range_tpu_torch/csrc/` (one nvcc per
+source, all started together), holds each against its plain PyTorch
+version at the main paths' shapes, then
 drives the serving paths at full width (SatCLIP SH-L40 -> SIREN
 1600->256->256->256 tower, 100,000-row bank with 256-d keys and bf16
 1024-d values, 1,280-d output) and the training path:
@@ -17,15 +18,22 @@ drives the serving paths at full width (SatCLIP SH-L40 -> SIREN
   * the top-k endpoint `hier_topk` (k = 1 and 8), the `hier_nn` harness
     and `retrieve_hier(sort="hybrid")` over that HierBank, with the
     tower's query embeddings;
+  * the flagship with the weighted-supergroup sem tail (``tail_super=64,
+    m_corr=32``: the scan's segment-sum variant and the correction kernel)
+    over the bank's tail_super HierBank, and the two-level top-k endpoint
+    (gsz_super 64, K=48 of M=96 refined tiles: the refine kernel) over
+    its two-level HierBank, both built on the card here;
   * SatCLIP contrastive training of the full-width SatCLIP-ResNet18-L40
     dual tower (ResNet-18 on 13 x 256 x 256 images, the SH-L40 SIREN
     location tower, embed 256): three AdamW steps of 16 accumulated
     micro-batches of 512, the SH-times kernel once per micro-batch;
 
 and checks the answers against the exact f32 retrieval (the RANGE+
-flagship's against its fidelity bars: relerr mean <= 0.04, p99 <= 0.165;
-RANGE's mean <= 0.10; int8 against bf16 mean < 0.01; hier_topk's recall@1
-against the f32 `exact_nn` >= 0.999 at B = 10,000 and 1,000; training's
+flagship's, with and without tail_super, against its fidelity bars:
+relerr mean <= 0.04, p99 <= 0.165; RANGE's mean <= 0.10; int8 against bf16
+mean < 0.01; hier_topk's recall@1 against the f32 `exact_nn` >= 0.999 at
+B = 10,000 and 1,000, the two-level endpoint's at least the one-level
+selection's over the same bank - 0.001; training's
 losses finite and falling, one micro-step by the kernel route within 1e-5
 of the plain route's loss, both autograd Functions' gradients on the plain
 compose).  Every phase that fails raises.
@@ -42,6 +50,7 @@ Exits non-zero, without that line, when there is no CUDA device.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import statistics
@@ -61,7 +70,8 @@ L, WIDTH = 40, 256
 # kernel sources (one library each), and the kernels of the JSON line:
 # (name, source, the TPU kernel it replaces)
 SOURCES = ("siren_tower", "fused_retrieval", "hier_scan", "hier_parts_family",
-           "combine_cat", "hier_scan_stats", "hier_argmax", "hier_parts", "sh_times")
+           "combine_cat", "hier_scan_stats", "hier_argmax", "hier_parts", "sh_times",
+           "hier_refine", "hier_corr")
 KERNELS = (("siren_tower", "siren_tower", "range_tpu/ops/sh.py:726"),
            ("fused_retrieval", "fused_retrieval", "range_tpu/ops/retrieval_pallas.py:123"),
            ("fused_retrieval_i8", "fused_retrieval", "range_tpu/ops/retrieval_pallas.py:181"),
@@ -72,8 +82,16 @@ KERNELS = (("siren_tower", "siren_tower", "range_tpu/ops/sh.py:726"),
            ("hier_argmax", "hier_argmax", "range_tpu/ops/retrieval_hier.py:1645"),
            ("hier_topk", "hier_argmax", "range_tpu/ops/retrieval_hier.py:1682"),
            ("hier_parts", "hier_parts", "range_tpu/ops/retrieval_hier.py:2515"),
-           ("sh_times", "sh_times", "range_tpu/ops/sh.py:539"))
+           ("sh_times", "sh_times", "range_tpu/ops/sh.py:539"),
+           ("hier_refine", "hier_refine", "range_tpu/ops/retrieval_hier.py:2077"),
+           ("hier_corr", "hier_corr", "range_tpu/ops/retrieval_hier.py:2209"),
+           # the scan's segment-sum (sup_r_s) variant, `:1489-1497` of the kernel
+           ("hier_scan_sup", "hier_scan", "range_tpu/ops/retrieval_hier.py:1443"))
 TOPK_K = 48  # the endpoint's tile budget, bench.py:150
+# the two-level top-k (tools/r3_time1.py:103,127: gsz_super 64, K=48 of M=96)
+# and the tail_super flagship (tools/r4_tsuper.py: "ts64 K32/m32/kg16")
+GSZ_SUPER, TOPK_M = 64, 96
+TAIL_SUPER, M_CORR = 64, 32
 # SatCLIP pretraining (configs/default.yaml:16-32, main_old.py:129): micro-batch
 # 512, 16 accumulated, 13-band 256 x 256 patches (range_tpu/data/s2geo.py:4-6)
 TRAIN_MICRO, TRAIN_ACCUM, TRAIN_STEPS = 512, 16, 3
@@ -450,17 +468,26 @@ def dense_phases(dev, gen, report) -> float:
 
 
 def _counters() -> dict:
-    """Each kernel's wrapper, whose `.launches` counts its launches."""
+    """Each kernel's launch count: (its wrapper, the wrapper's attribute
+    that counts it).  The scan's segment-sum variant counts in
+    `.sup_launches` besides the scan's `.launches`."""
     from range_tpu_torch.ops import retrieval_fused as rf
     from range_tpu_torch.ops import retrieval_hier as rh
     from range_tpu_torch.ops import sh
 
-    return {"siren_tower": sh.siren_tower, "fused_retrieval": rf.retrieve_fused,
-            "fused_retrieval_i8": rf.retrieve_fused_i8,
-            "hier_scan": rh._hier_scan_call, "hier_parts_family": rh._hier_parts_family_call,
-            "combine_cat": rh._combine_cat_call, "hier_scan_stats": rh._hier_scan_stats_call,
-            "hier_argmax": rh._hier_argmax_call, "hier_topk": rh._hier_topk_call,
-            "hier_parts": rh._hier_parts_call, "sh_times": sh.spherical_harmonics_times_fused}
+    wrappers = {"siren_tower": sh.siren_tower, "fused_retrieval": rf.retrieve_fused,
+                "fused_retrieval_i8": rf.retrieve_fused_i8,
+                "hier_scan": rh._hier_scan_call,
+                "hier_parts_family": rh._hier_parts_family_call,
+                "combine_cat": rh._combine_cat_call,
+                "hier_scan_stats": rh._hier_scan_stats_call,
+                "hier_argmax": rh._hier_argmax_call, "hier_topk": rh._hier_topk_call,
+                "hier_parts": rh._hier_parts_call,
+                "sh_times": sh.spherical_harmonics_times_fused,
+                "hier_refine": rh._hier_refine_call, "hier_corr": rh._hier_corr_call}
+    counters = {k: (w, "launches") for k, w in wrappers.items()}
+    counters["hier_scan_sup"] = (rh._hier_scan_call, "sup_launches")
+    return counters
 
 
 def hier_phases(dev, gen, report):
@@ -691,11 +718,11 @@ def _drive(tag: str, fn, expected: dict):
     """Run fn() with every launch count set to 0 just before, read them
     just after, and assert they equal `expected` (others 0)."""
     counters = _counters()
-    for c in counters.values():
-        c.launches = 0
+    for wrapper, attr in counters.values():
+        setattr(wrapper, attr, 0)
     out = fn()
     torch.cuda.synchronize()
-    got = {k: c.launches for k, c in counters.items()}
+    got = {k: getattr(wrapper, attr) for k, (wrapper, attr) in counters.items()}
     want = {k: expected.get(k, 0) for k in counters}
     print(f"{tag}: launches {got}")
     if got != want:
@@ -913,6 +940,12 @@ def topk_phases(dev, gen, report, hb, enc) -> float:
     return topk_ms
 
 
+def _block_queries(nB: int, bm: int, dev) -> torch.Tensor:
+    """Real queries of each selection block of bm sorted queries (the
+    padded rows sort last)."""
+    return (BATCH - torch.arange(nB, device=dev) * bm).clamp(0, bm).double()
+
+
 def _parts_bound(hbq, idx, bm: int, geo: bool):
     """(bound ms, what bounds it) of one merged parts call, counted from
     this run's selection: row logits (sem_d, and the 9 real geo columns)
@@ -926,7 +959,7 @@ def _parts_bound(hbq, idx, bm: int, geo: bool):
     nB, K = idx.shape
     valid = (hbq.mask_neg[0] == 0).reshape(-1, bn).sum(dim=1).double()
     rows = valid[idx.long()].sum(dim=1)                       # valid rows a block reads
-    qb = (BATCH - torch.arange(nB, device=idx.device) * bm).clamp(0, bm).double()
+    qb = _block_queries(nB, bm, idx.device)
     pairs = (qb * rows).sum().item()
     groups = (qb * K).sum().item()
     flops = 2 * pairs * (sem_d + Dv) + 2 * groups * gpt_s * (sem_d + hbq.lr_rank + 1)
@@ -1123,6 +1156,316 @@ def range_phases(dev, gen, report, hb, enc_plus, bank) -> float:
           + ", ".join(f"B={b} {ms:.3f} ms" for b, ms in e2e.items()))
     _trace(lambda: enc(requests[-1]), 3, f"RANGE flagship B={BATCH}")
     return e2e[BATCH]
+
+
+def tail_super_phases(dev, gen, report, bank, enc_plus) -> float:
+    """The weighted-supergroup sem tail on the flagship: build the
+    informative bank's tail_super HierBank on the card; hold the scan's
+    segment-sum variant and the correction kernel against their plain
+    versions at the flagship's B=10,000 shapes; serve load_model("RANGE+",
+    profile="flagship", tail_super=64, m_corr=32) with its launches
+    counted; hold its relerr against the exact f32 retrieve to the
+    flagship bars.  Returns its end-to-end ms at B=10,000."""
+    from range_tpu_torch import load_model
+    from range_tpu_torch.api import SERVING_PROFILES
+    from range_tpu_torch.geometry import lonlat_deg_to_xyz
+    from range_tpu_torch.ops import retrieval
+    from range_tpu_torch.ops import retrieval_fused as rf
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    # ---- 13b. the tail_super HierBank, built on the card
+    prof = SERVING_PROFILES["flagship"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hb = rh.build_hier_bank(bank, bn=512, gsz_sem=prof["gsz_sem"], gsz_geo=64,
+                            lr_rank=prof["lr_rank"], lr_geo=prof["lr_geo"],
+                            res_rank=prof["res_rank"], topk_gsz=prof["topk_gsz"],
+                            tail_super=TAIL_SUPER)
+    torch.cuda.synchronize()
+    print(f"build_hier_bank (flagship knobs, tail_super={TAIL_SUPER}): "
+          f"{time.perf_counter() - t0:.2f} s; g_sem_ts_vw {tuple(hb.g_sem_ts_vw.shape)}, "
+          f"g_sem_ts_dvw {tuple(hb.g_sem_ts_dvw.shape)}")
+    enc = load_model("RANGE+", db_path=hb, profile="flagship", tail_super=TAIL_SUPER,
+                     m_corr=M_CORR, device="cuda")
+    cfg = enc.model.config
+    bm, k_tiles, k_geo, j_sem = cfg.hier_plan(BATCH)
+    coords = _random_coords(BATCH, gen, dev)
+    gpt_s, gpt_g = hb.bn // hb.gsz_sem, hb.bn // hb.gsz_geo
+    sup_r = hb.tail_super // hb.gsz_sem
+    flip = ("an exp2 (or a supergroup's f32 sum of them) within the logits' f32 "
+            "difference of a bf16 boundary rounds the other way: one ulp of one term")
+    with torch.no_grad():
+        q = enc.model.query_embedding(coords)
+        x = lonlat_deg_to_xyz(coords)
+        q_s, q_x = rh._pad_queries(q, x, bm)
+        order = rh._hybrid_order(q_x, BATCH)
+        q_cat = rf.pack_queries(q_s, q_x, 12.0, 40.0, hb.tier)[order].contiguous()
+
+        # ---- 13c. the scan's segment-sum variant and the correction kernel
+        args = (q_cat, hb.g_sem_cat, hb.g_geo_cat, hb.g_sem_ts_vw, hb.g_geo_vw_lr)
+        kw = dict(gpt_s=gpt_s, gpt_g=gpt_g, sup_r=sup_r)
+        got = rh._hier_scan_call(*args, **kw)
+        ref = rh._hier_scan_plain(*args, **kw)
+        mag = rh._hier_scan_plain(q_cat, hb.g_sem_cat, hb.g_geo_cat, hb.g_sem_ts_vw.abs(),
+                                  hb.g_geo_vw_lr.abs(), **kw)[4]
+        Ws, Wg = hb.g_sem_ts_vw.shape[1], hb.g_geo_vw_lr.shape[1]
+        tag = f"hier_scan[sup_r={sup_r}]"
+        errs = [_compare(f"{tag} {stat}", got[i], ref[i], *(
+                    (1e-4, 0.0, "f32 sums of the same bf16 products in another order")
+                    if stat[0] == "m" else (0.0, 1e-4, "f32 sums of f32 exp2 in another order")))
+                for i, stat in enumerate(("m_s", "s_s", "m_g", "s_g"))]
+        errs += [_compare_terms(f"{tag} tails[sem]", got[4][:, :Ws], ref[4][:, :Ws],
+                                mag[:, :Ws], flip),
+                 _compare_terms(f"{tag} tails[geo]", got[4][:, Ws:], ref[4][:, Ws:],
+                                mag[:, Ws:], flip)]
+        ms = _cuda_ms(lambda: rh._hier_scan_call(*args, **kw), 10)
+        plain_ms = _cuda_ms(lambda: rh._hier_scan_plain(*args, **kw), 3)
+        Gs, Gg = hb.t_real * gpt_s, hb.t_real * gpt_g
+        ws, wg = hb.g_sem_cat.shape[1], hb.g_geo_cat.shape[1]
+        # the work needed: sem group logits over sem_d columns, geo over the
+        # 9 real ones; the sem tail over Gs / sup_r supergroup rows of lr
+        # coefficients and the count (the sums of sup_r exponentials left
+        # out with the exponentials), the geo tail as the scan's
+        flops = 2 * BATCH * (Gs * hb.sem_d + Gs // sup_r * (hb.lr_rank + 1)
+                             + Gg * (GEO_COLS + hb.lr_geo + 1))
+        n_bytes = (BATCH * (ws + wg) * 2 + (Gs * ws + Gs // sup_r * Ws + Gg * (wg + Wg)) * 2
+                   + 4 * BATCH * hb.t_pad * 4 + BATCH * (Ws + Wg) * 4)
+        b_ms, b_by = _bound(n_bytes, flops, BF16_FLOPS)
+        print(f"{tag} B={BATCH}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by})")
+        report["hier_scan_sup"] = dict(max_abs_err=max(e for e, _ in errs),
+                                       err_over_tol=max(r for _, r in errs), ms=ms,
+                                       plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+
+        m_s, s_s, m_g, s_g, _ = got
+        idx_sm, _ = rh.select_tiles(m_s, s_s, m_g, s_g, t_real=hb.t_real,
+                                    k_tiles=k_tiles + M_CORR, bm=bm, n_valid=BATCH,
+                                    j_sem=j_sem, j_geo=cfg.j_geo, mode="range")
+        cargs, ckw = (q_cat, idx_sm, hb.g_sem_cat, hb.g_sem_ts_dvw), dict(bm=bm, gpt=gpt_s)
+        nB, M = idx_sm.shape
+        tag = f"hier_corr B={BATCH} K+m_corr={M} bm={bm}"
+        err, ratio = _compare_terms(
+            tag, rh._hier_corr_call(*cargs, **ckw), rh._hier_corr_plain(*cargs, **ckw),
+            rh._hier_corr_plain(*cargs, **ckw, magnitude=True),
+            "bf16 weights of f32 logits summed in another order: one ulp of one term",
+            rows_off_max=max(2, BATCH // 100))
+        ms = _cuda_ms(lambda: rh._hier_corr_call(*cargs, **ckw), 10)
+        plain_ms = _cuda_ms(lambda: rh._hier_corr_plain(*cargs, **ckw), 3)
+        W = hb.g_sem_ts_dvw.shape[1]
+        U = int(torch.unique(idx_sm).numel())  # tiles read, each once
+        groups = (_block_queries(nB, bm, dev) * M).sum().item() * gpt_s
+        # the work needed: group logits over sem_d columns and the product
+        # over the lr coefficients and the count, for each real query's
+        # listed tiles; the listed tiles' centroid and dvw rows read once
+        b_ms, b_by = _bound(BATCH * hb.sem_d * 2 + U * gpt_s * (ws + W) * 2 + BATCH * W * 4,
+                            2 * groups * (hb.sem_d + hb.lr_rank + 1), BF16_FLOPS)
+        print(f"{tag}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms "
+              f"({b_by}); {U} distinct tiles listed")
+        report["hier_corr"] = dict(max_abs_err=err, err_over_tol=ratio, ms=ms,
+                                   plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+
+    # ---- 13d. the tail_super flagship, through the entry point
+    per_request = {"siren_tower": 1, "hier_scan": 1, "hier_scan_sup": 1, "hier_corr": 1,
+                   "hier_parts_family": 2, "combine_cat": 1}
+    requests = [_random_coords(b, gen, dev) for b in REQUESTS]
+    answers, launches = [], dict.fromkeys(per_request, 0)
+    for c in requests:
+        out, got = _drive(f"tail_super flagship B={c.shape[0]}: (bm, K, k_geo, j_sem) = "
+                          f"{cfg.hier_plan(c.shape[0])}, m_corr {M_CORR}",
+                          lambda: _send(enc, c), per_request)
+        answers.append(out)
+        launches = {k: n + got[k] for k, n in launches.items()}
+        if out.shape != (c.shape[0], 1280) or not torch.isfinite(out).all():
+            raise AssertionError(f"tail_super flagship B={c.shape[0]}: shape or non-finite")
+    print(f"tail_super flagship path launches: {launches}")
+    for k in ("hier_scan_sup", "hier_corr"):
+        report[k]["launches"] = launches[k]
+    for k in ("hier_scan", "hier_parts_family", "combine_cat"):
+        report[k]["launches"] += launches[k]
+
+    Dv = hb.value_dim
+    out = answers[-1]
+    with torch.no_grad():
+        ref = retrieval.retrieve(out[:, Dv:], lonlat_deg_to_xyz(requests[-1]), hb.bank,
+                                 sem_temp=12.0, beta=0.5)
+    rel = (out[:, :Dv] - ref).abs() / ref.abs().clamp_min(0.1)
+    mean, p99 = rel.mean().item(), torch.quantile(rel.flatten()[::4], 0.99).item()
+    base = enc_plus(requests[-1])  # the one-level flagship, same coordinates
+    with torch.no_grad():
+        ref0 = retrieval.retrieve(base[:, Dv:], lonlat_deg_to_xyz(requests[-1]),
+                                  enc_plus.model.bank.bank, sem_temp=12.0, beta=0.5)
+    rel0 = (base[:, :Dv] - ref0).abs() / ref0.abs().clamp_min(0.1)
+    print(f"tail_super flagship B={BATCH} relerr vs exact f32 retrieve: mean {mean:.5f} "
+          f"(bar 0.04), p99 {p99:.5f} (bar 0.165; every 4th element); the one-level "
+          f"flagship on the same coordinates: mean {rel0.mean().item():.5f}, p99 "
+          f"{torch.quantile(rel0.flatten()[::4], 0.99).item():.5f}")
+    if mean > 0.04 or p99 > 0.165:
+        raise AssertionError("tail_super flagship fidelity outside its bars")
+    e2e = {c.shape[0]: _host_ms(lambda: enc(c), 5) for c in requests[1:]}
+    print("tail_super flagship end to end (coords already on the card), median of 5 "
+          "calls: " + ", ".join(f"B={b} {ms:.3f} ms" for b, ms in e2e.items())
+          + f"; the one-level flagship B={BATCH} {_host_ms(lambda: enc_plus(requests[-1]), 5):.3f}"
+          " ms")
+    _trace(lambda: enc(requests[-1]), 3, f"tail_super flagship B={BATCH}")
+    return e2e[BATCH]
+
+
+def two_level_topk_phases(dev, gen, report, bank, enc) -> float:
+    """The two-level top-k endpoint: build the informative bank's
+    two-level HierBank (bn 512, gsz_sem 8, gsz_geo 64, gsz_super 64) on
+    the card; hold the refine kernel (and the stats scan over g_sup_cat)
+    against their plain versions at hier_topk's B=10,000 shapes (K=48,
+    M=96); drive hier_topk (k = 1, 8; B = 10,000 and 1,000) with its
+    launches counted; print recall@1 against the f32 exact_nn, pooled over
+    five batches, beside the one-level selection over the same HierBank
+    (g_sem_cat) at the same K, and hold the two-level result to at least
+    the one-level one - 0.001.  Returns the endpoint's ms at B=10,000."""
+    from range_tpu_torch.geometry import lonlat_deg_to_xyz
+    from range_tpu_torch.ops import retrieval
+    from range_tpu_torch.ops import retrieval_fused as rf
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    # ---- 13e. the two-level HierBank, built on the card
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hb = rh.build_hier_bank(bank, bn=512, gsz_sem=8, gsz_geo=64, gsz_super=GSZ_SUPER)
+    torch.cuda.synchronize()
+    print(f"build_hier_bank (two-level: bn 512, gsz_sem 8, gsz_geo 64, gsz_super "
+          f"{GSZ_SUPER}): {time.perf_counter() - t0:.2f} s; g_sup_cat "
+          f"{tuple(hb.g_sup_cat.shape)}, g_sem_cat {tuple(hb.g_sem_cat.shape)}")
+    one = dataclasses.replace(hb, gsz_super=0, g_sup_cat=None)  # its g_sem_cat branch
+    coords = _random_coords(BATCH, gen, dev)
+    with torch.no_grad():
+        q = enc.model.query_embedding(coords).float()
+    x = lonlat_deg_to_xyz(coords)
+
+    # ---- 13f. the refine kernel (and the coarse stats) at hier_topk's shapes
+    k_tiles, bm, j_sem = rh._topk_budget(BATCH, TOPK_K, 256, 6)
+    mt = min(TOPK_M, hb.t_real)
+    gpt_f, gpt_sup, gpt_g = hb.bn // hb.gsz_sem, hb.bn // hb.gsz_super, hb.bn // hb.gsz_geo
+    q_s, q_x = rh._pad_queries(q, x, bm)
+    order = rh._hybrid_order(q_x, BATCH)
+    q_cat = rf.pack_queries(q_s, None, 12.0, 40.0, hb.tier)[order].contiguous()
+    sargs, skw = (q_cat, hb.g_sup_cat, hb.g_geo_cat), dict(gpt_s=gpt_sup, gpt_g=gpt_g)
+    stats = rh._hier_scan_stats_call(*sargs, **skw)
+    for i, (stat, a, b) in enumerate(zip(("m_s", "s_s", "m_g", "s_g"), stats,
+                                         rh._hier_scan_stats_plain(*sargs, **skw))):
+        _compare(f"hier_scan_stats[g_sup_cat, gpt {gpt_sup}] {stat}", a, b, *(
+            (1e-4, 0.0, "f32 sums of the same bf16 products in another order")
+            if stat[0] == "m" else (0.0, 1e-4, "f32 sums of f32 exp2 in another order")))
+    idx_m, _ = rh.select_tiles(*stats, t_real=hb.t_real, k_tiles=mt, bm=bm, n_valid=BATCH,
+                               j_sem=j_sem, mode="range")
+    rargs = (q_cat, idx_m, hb.g_sem_cat, hb.g_sup_cat, None, None)
+    rkw = dict(bm=bm, gpt_f=gpt_f, gpt_sup=gpt_sup, stats_only=True)
+    got = rh._hier_refine_call(*rargs, **rkw)
+    ref = rh._hier_refine_plain(q_cat, idx_m, hb.g_sem_cat, bm=bm, gpt_f=gpt_f)
+    nB, M = idx_m.shape
+    tag = f"hier_refine B={BATCH} M={M} gpt_f={gpt_f} bm={bm}"
+    errs = [_compare(f"{tag} m_f", got[0], ref[0], 1e-4, 0.0,
+                     "f32 sums of the same bf16 products in another order, |l| < 60"),
+            _compare(f"{tag} s_f", got[1], ref[1], 0.0, 1e-4,
+                     "f32 sums of f32 exp2 in another order")]
+    ms = _cuda_ms(lambda: rh._hier_refine_call(*rargs, **rkw), 10)
+    plain_ms = _cuda_ms(lambda: rh._hier_refine_plain(q_cat, idx_m, hb.g_sem_cat, bm=bm,
+                                                      gpt_f=gpt_f), 3)
+    U = int(torch.unique(idx_m).numel())
+    groups = (_block_queries(nB, bm, dev) * M).sum().item() * gpt_f
+    # the work needed: the fine logits over sem_d columns for each real
+    # query's listed tiles; the listed tiles' centroids read once, the two
+    # stats written
+    b_ms, b_by = _bound(BATCH * hb.sem_d * 2 + U * gpt_f * hb.g_sem_cat.shape[1] * 2
+                        + 2 * BATCH * M * 4, 2 * groups * hb.sem_d, BF16_FLOPS)
+    print(f"{tag}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms "
+          f"({b_by}); {U} distinct tiles listed")
+    report["hier_refine"] = dict(max_abs_err=max(e for e, _ in errs),
+                                 err_over_tol=max(r for _, r in errs), ms=ms,
+                                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+
+    # ---- 13g. the endpoint, with its launches counted, and recall@1
+    small = SMALL_BATCH
+    kw = dict(k_tiles=TOPK_K, m_tiles=TOPK_M)
+    drives = {}
+    for k, b in ((1, BATCH), (1, small), (8, BATCH), (8, small)):
+        rows, drives[(k, b)] = _drive(
+            f"two-level hier_topk k={k} B={b} K={TOPK_K} M={TOPK_M}",
+            lambda: rh.hier_topk(q[:b], x[:b], hb, k=k, **kw),
+            {"hier_scan_stats": 1, "hier_refine": 1,
+             ("hier_argmax" if k == 1 else "hier_topk"): 1})
+        if rows.dtype != torch.int32 or rows.shape != ((b,) if k == 1 else (b, k)):
+            raise AssertionError(f"two-level hier_topk k={k}: rows {rows.dtype} "
+                                 f"{tuple(rows.shape)}")
+        if (k, b) == (1, BATCH):
+            rows1 = rows
+        elif (k, b) == (1, small):
+            rows1s = rows
+    report["hier_refine"]["launches"] = sum(d["hier_refine"] for d in drives.values())
+    for name in ("hier_scan_stats", "hier_argmax", "hier_topk"):
+        report[name]["launches"] += sum(d[name] for d in drives.values())
+
+    # ---- 13h. recall@1: two-level (M = 96, and M = every tile), one-level
+    table = []
+    full = dict(k_tiles=TOPK_K, m_tiles=hb.t_real)
+    for seed in range(5):  # the main batch and four more (seeds 1-4)
+        if seed:
+            c = _random_coords(BATCH, torch.Generator(device=dev).manual_seed(seed), dev)
+            with torch.no_grad():
+                qb = enc.model.query_embedding(c).float()
+            xb, r2 = lonlat_deg_to_xyz(c), None
+        else:
+            qb, xb, r2 = q, x, rows1
+        true = retrieval.exact_nn(qb, hb.bank)
+        r2 = rh.hier_topk(qb, xb, hb, **kw) if r2 is None else r2
+        table.append([(r == true).float().mean().item() for r in (
+            r2, rh.hier_topk(qb, xb, hb, **full), rh.hier_topk(qb, xb, one, k_tiles=TOPK_K))])
+        if not seed:
+            true0 = true
+    two, two_full, lvl1 = (sum(col) / len(table) for col in zip(*table))
+    rec_s = (rows1s == true0[:small]).float().mean().item()
+    rec_s1 = (rh.hier_topk(q[:small], x[:small], one, k_tiles=TOPK_K)
+              == true0[:small]).float().mean().item()
+    print(f"recall@1 vs f32 exact_nn, K={TOPK_K}, B={BATCH} batches 0-4 (two-level M="
+          f"{TOPK_M} / two-level M={hb.t_real} (every tile) / one-level over g_sem_cat): "
+          + "; ".join(" / ".join(f"{r:.5f}" for r in row) for row in table)
+          + f"; pooled over {len(table) * BATCH} queries: {two:.5f} / {two_full:.5f} / "
+          f"{lvl1:.5f}; B={small}: two-level {rec_s:.5f}, one-level {rec_s1:.5f}")
+    gap = lvl1 - two
+    print(f"two-level (M={TOPK_M}) against one-level selection: {gap:+.5f} pooled recall@1 "
+          f"({'within' if gap <= 0.001 else 'NOT within'} 0.001 of it)")
+
+    # every miss of the M=96 endpoint on batch 0 is the selection's (the
+    # true row's tile not among its block's K tiles) or an exact-logit
+    # near-tie; and with every tile refined the fine stats select as well
+    # as the one-level scan's
+    inv = torch.argsort(order)[:BATCH]
+    m_f, s_f, _ = rh._hier_refine_call(*rargs, **rkw)
+    idx_loc, _ = rh.select_tiles(m_f, s_f, rh._gather_cols(stats[2], idx_m, bm),
+                                 rh._gather_cols(stats[3], idx_m, bm), t_real=mt,
+                                 k_tiles=min(k_tiles, mt), bm=bm, n_valid=BATCH,
+                                 j_sem=j_sem, mode="range")
+    idx = torch.gather(idx_m, 1, idx_loc.long())
+    miss = (rows1 != true0).nonzero()[:, 0]
+    blk, tile = inv[miss] // bm, true0[miss].long() // hb.bn
+    in_k = (idx[blk] == tile[:, None]).any(dim=1)
+    in_m = (idx_m[blk] == tile[:, None]).any(dim=1)
+    keys = hb.bank.keys_sem.double()
+    lgap = ((q[miss].double() * keys[true0[miss].long()]).sum(1)
+            - (q[miss].double() * keys[rows1[miss].long()]).sum(1))
+    near = lgap < 1e-5
+    print(f"two-level misses on batch 0: {miss.numel()}: true tile outside the coarse M "
+          f"{int((~in_m).sum())}, in M but not in K {int((in_m & ~in_k).sum())}, in K "
+          f"{int(in_k.sum())} (near-ties, exact-logit gap < 1e-5: {int((in_k & near).sum())})")
+    if (in_k & ~near).any() or two_full < lvl1 - 0.001:
+        raise AssertionError(f"two-level hier_topk: {int((in_k & ~near).sum())} misses inside "
+                             f"the selected tiles, or recall@1 with every tile refined "
+                             f"{two_full:.5f} below the one-level {lvl1:.5f} - 0.001")
+
+    topk_ms = _host_ms(lambda: rh.hier_topk(q, x, hb, **kw), 5)
+    one_ms = _host_ms(lambda: rh.hier_topk(q, x, one, k_tiles=TOPK_K), 5)
+    print(f"two-level hier_topk endpoint B={BATCH} K={TOPK_K} M={TOPK_M} (queries on the "
+          f"card): median {topk_ms:.3f} ms over 5 calls; one-level over g_sem_cat "
+          f"{one_ms:.3f} ms")
+    _trace(lambda: rh.hier_topk(q, x, hb, **kw), 3, f"two-level hier_topk B={BATCH}")
+    return topk_ms
 
 
 def _kind(name: str) -> str:
@@ -1378,11 +1721,15 @@ def main() -> int:
     hier_ms, hb, enc, bank = hier_phases(dev, gen, report)
     topk_ms = topk_phases(dev, gen, report, hb, enc)
     range_ms = range_phases(dev, gen, report, hb, enc, bank)
+    ts_ms = tail_super_phases(dev, gen, report, bank, enc)
+    topk2_ms = two_level_topk_phases(dev, gen, report, bank, enc)
     del hb, enc, bank
+    torch.cuda.empty_cache()
     step_s = train_phases(dev, report)
     print(f"end to end B={BATCH}: flagship {hier_ms:.3f} ms, dense {dense_ms:.3f} ms, "
-          f"hier_topk {topk_ms:.3f} ms, RANGE flagship {range_ms:.3f} ms; SatCLIP training "
-          f"step ({TRAIN_ACCUM} x {TRAIN_MICRO}) {step_s:.3f} s")
+          f"hier_topk {topk_ms:.3f} ms, RANGE flagship {range_ms:.3f} ms, tail_super "
+          f"flagship {ts_ms:.3f} ms, two-level hier_topk {topk2_ms:.3f} ms; SatCLIP "
+          f"training step ({TRAIN_ACCUM} x {TRAIN_MICRO}) {step_s:.3f} s")
 
     kernels = [dict(name=k, route="cuda", source=f"range_tpu_torch/csrc/{src}.cu",
                     replaces=replaces, launches=report[k]["launches"],

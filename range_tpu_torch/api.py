@@ -104,8 +104,8 @@ def _hier_bank(bank, cache: Optional[str], build: Dict[str, Any]) -> HierBank:
     if not isinstance(bank, HierBank):
         return prepare_hier_bank(bank, cache_path=cache, **build)
     Dv = bank.value_dim
-    want = {k: build[k] for k in ("bn", "gsz_sem", "gsz_geo", "topk_gsz",
-                                  "tier")}
+    want = {k: build[k] for k in ("bn", "gsz_sem", "gsz_geo", "gsz_super",
+                                  "topk_gsz", "tail_super", "tier")}
     for k in ("lr_rank", "lr_geo", "res_rank"):
         want[k] = min(build[k], Dv) if build[k] else 0
     got = {k: getattr(bank, k) for k in want}
@@ -167,12 +167,22 @@ def _build_range(name: str, mode: str, pretrained_path, db_path, beta, *,
                               "kernel 15's plain variant and the wide-tail "
                               "scan)", "Queue 1, 'Hier serving: what remains'")
         for knob, val in (("adaptive_frac", adaptive_frac),
-                          ("m_corr", m_corr), ("dedup", dedup),
-                          ("gsz_super", gsz_super), ("tail_super", tail_super),
-                          ("topk_lr", topk_lr), ("sel_lr", sel_lr)):
+                          ("dedup", dedup), ("topk_lr", topk_lr),
+                          ("sel_lr", sel_lr)):
             if val:
                 raise _not_ported(f"{knob}={val!r}", "Queue 1, 'Hier serving:"
                                   " what remains'")
+        if tail_super and mode == "range":
+            raise ValueError("tail_super banks serve RANGE+ only (the family-"
+                             "split path; the merged parts kernel has no "
+                             "supergroup-tail correction)")
+        if gsz_super and topk_gsz:
+            raise ValueError("gsz_super and topk_gsz are mutually exclusive: "
+                             "both feed hier_topk's selection")
+        if gsz_super and not lr_rank:
+            raise _not_ported("the two-level feature path (gsz_super without "
+                              "lr_rank)", "Queue 1, 'Hier serving: what "
+                              "remains'")
     tower = _satclip_tower(pretrained_path, dtype, seed, tower_matmul, device)
     bank = _as_bank(db_path, chunk, device)
     if value_quant == "int8":
@@ -186,17 +196,18 @@ def _build_range(name: str, mode: str, pretrained_path, db_path, beta, *,
             bank = quantize_values(bank)
     if retrieval == "hier":
         bank = _hier_bank(bank, hier_cache, dict(
-            bn=hier_bn, gsz_sem=gsz_sem, gsz_geo=gsz_geo, group_by=group_by,
-            group_value_weight=group_value_weight, lr_rank=lr_rank,
-            lr_geo=lr_geo, res_rank=res_rank, topk_gsz=topk_gsz, tier=tier,
-            seed=seed))
+            bn=hier_bn, gsz_sem=gsz_sem, gsz_geo=gsz_geo, gsz_super=gsz_super,
+            group_by=group_by, group_value_weight=group_value_weight,
+            lr_rank=lr_rank, lr_geo=lr_geo, res_rank=res_rank,
+            topk_gsz=topk_gsz, tail_super=tail_super, tier=tier, seed=seed))
     elif isinstance(bank, HierBank):
         bank = bank.bank
     cfg = RangeConfig(mode=mode, beta=beta, chunk=chunk,
                       compute_dtype=compute_dtype, tier=tier,
                       use_pallas=use_pallas, retrieval=retrieval,
                       k_tiles=k_tiles, k_geo=k_geo, j_sem=j_sem, j_geo=j_geo,
-                      hier_bm=hier_bm, hier_min_batch=hier_min_batch)
+                      hier_bm=hier_bm, hier_min_batch=hier_min_batch,
+                      m_corr=m_corr)
     enc = RangeEncoder(tower, bank, cfg)
     return GeoEncoder(name, enc, enc.embedding_dim, device, dtype)
 

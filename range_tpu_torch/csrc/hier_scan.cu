@@ -31,6 +31,15 @@
 // computes.  Stats are written straight in [query, tile] order, so the
 // TPU's transposed [tile, query] layout and its transpose disappear.
 //
+// sup_r > 0 (tail_super banks, `_hier_scan_call(..., sup_r=)`, the TPU
+// kernel's sup_r_s variant): the sem tail operand holds one row per sup_r
+// consecutive groups (g_sem_ts_vw).  Each thread adds the f32 exp2 of its
+// groups in runs of sup_r (runs of 16 or 32 finish with warp shuffles
+// across the query's threads) and rounds each supergroup sum to bf16 once;
+// a 32-group step then streams R = 32 / sup_r <= 16 tail rows, and the p
+// tile's columns R .. 15 and the value rows R .. 15 stay zero, so one k16
+// step of the same mma code takes the product.
+//
 // has_geo = 0 (RANGE mode, `_hier_scan_call(..., has_geo=False)`): the grid
 // holds the sem blocks only.  The TPU kernel still computes the geo stats
 // and zero-fills the geo tail there, but RANGE mode reads neither; here the
@@ -60,6 +69,7 @@ struct Family {
   int q0;                   // first packed query column of the family
   int G, W, gpt;            // groups, tail width, groups per tile
   int tail0;                // first column of the family in the tails
+  int sup_r;                // > 0: vw rows sum sup_r groups each (sem only)
 };
 
 struct Layout {
@@ -98,6 +108,9 @@ hier_scan_kernel(const __nv_bfloat16* __restrict__ q_cat, int Bp, int cat_d, int
   const int n_steps = f.G / BN;
   const int ntw = f.W / 64;          // tail n8 tiles of this warp
   const int col_w = warp * ntw * 8;  // first tail column of this warp
+  // tail rows a step streams, and the k16 steps of its product
+  const int rows_v = f.sup_r ? BN / f.sup_r : BN;
+  const int ksteps = (rows_v + 15) / 16;
 
   auto prefetch = [&](int buf, int it) {
     const int n0 = it * BN;
@@ -109,12 +122,23 @@ hier_scan_kernel(const __nv_bfloat16* __restrict__ q_cat, int Bp, int cat_d, int
     }
     __nv_bfloat16* vs = vs0 + buf * BN * ldv;
     const int cpv = f.W / 8;
-    for (int idx = tid; idx < BN * cpv; idx += THREADS) {
+    const int v0 = it * rows_v;
+    for (int idx = tid; idx < rows_v * cpv; idx += THREADS) {
       const int r = idx / cpv, c = (idx % cpv) * 8;
-      cp_async16(vs + r * ldv + c, f.vw + (size_t)(n0 + r) * f.W + c, true);
+      cp_async16(vs + r * ldv + c, f.vw + (size_t)(v0 + r) * f.W + c, true);
     }
     cp_async_commit();
   };
+
+  if (rows_v % 16) {  // the padding of the last k16 step: zeros, once
+    const int pad = 16 - rows_v % 16;
+    for (int idx = tid; idx < BM * pad; idx += THREADS)
+      pb[(idx / pad) * LDP + rows_v + idx % pad] = __float2bfloat16_rn(0.f);
+    for (int idx = tid; idx < 2 * pad * ldv; idx += THREADS) {
+      const int buf = idx / (pad * ldv), r = idx % (pad * ldv);
+      vs0[buf * BN * ldv + rows_v * ldv + r] = __float2bfloat16_rn(0.f);
+    }
+  }
 
   {  // the query block, once (rows past Bp are zeros)
     const int cpr = f.wk / 8;
@@ -138,6 +162,7 @@ hier_scan_kernel(const __nv_bfloat16* __restrict__ q_cat, int Bp, int cat_d, int
   // stats: thread owns query row sr and groups sc*8 .. sc*8+7 of a step
   const int sr = tid >> 2, sc = tid & 3;
   const int seg = f.gpt < BN ? f.gpt : BN;  // groups reduced together
+  const int run_len = f.sup_r < 8 ? f.sup_r : 8;  // a thread's supergroup run
   const float NEG_INF = __int_as_float(0xff800000);
   float run_m = NEG_INF, run_s = 0.f;
 
@@ -176,14 +201,27 @@ hier_scan_kernel(const __nv_bfloat16* __restrict__ q_cat, int Bp, int cat_d, int
     __syncthreads();
 
     {  // p = exp2(min(l, 86)) -> bf16 tile; per-tile max logit and exp-mass
-      float lmax = NEG_INF, lsum = 0.f;
+      float lmax = NEG_INF, lsum = 0.f, run = 0.f;
 #pragma unroll
       for (int k = 0; k < 8; ++k) {
         const float l = lg[sr * LDL + sc * 8 + k];
         const float p = exp2f(fminf(l, CLAMP2));
         lmax = fmaxf(lmax, l);
         lsum += p;
-        pb[sr * LDP + sc * 8 + k] = __float2bfloat16_rn(p);
+        if (!f.sup_r) {
+          pb[sr * LDP + sc * 8 + k] = __float2bfloat16_rn(p);
+        } else {  // supergroup sums in f32, rounded to bf16 once
+          run += p;
+          if ((k + 1) % run_len == 0) {  // uniform across the warp
+            float sum = run;
+            run = 0.f;
+            if (f.sup_r >= 16) sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+            if (f.sup_r >= 32) sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+            const int grp = sc * 8 + k + 1 - run_len;  // the run's first group
+            if (grp % f.sup_r == 0)
+              pb[sr * LDP + grp / f.sup_r] = __float2bfloat16_rn(sum);
+          }
+        }
       }
       if (seg >= 16) {
         lmax = fmaxf(lmax, __shfl_xor_sync(0xffffffffu, lmax, 1));
@@ -217,23 +255,23 @@ hier_scan_kernel(const __nv_bfloat16* __restrict__ q_cat, int Bp, int cat_d, int
     }
     __syncthreads();  // p tile complete
 
-    // tail: acc[64 x this warp's columns] += P[64 x 32] @ V[32 x ...]
+    // tail: acc[64 x this warp's columns] += P[64 x rows_v] @ V[rows_v x ...]
 #pragma unroll
     for (int h = 0; h < MAX_NT / 2; ++h) {
       if (2 * h < ntw) {
         uint32_t b[2][4];
         load_b_pair(b[0], vs, ldv, 0, col_w + h * 16, lane);
-        load_b_pair(b[1], vs, ldv, 16, col_w + h * 16, lane);
+        if (ksteps > 1) load_b_pair(b[1], vs, ldv, 16, col_w + h * 16, lane);
 #pragma unroll
         for (int mt = 0; mt < 4; ++mt) {
           uint32_t a0[4], a1[4];
           load_a(a0, pb, LDP, mt * 16, 0, g, t);
-          load_a(a1, pb, LDP, mt * 16, 16, g, t);
+          if (ksteps > 1) load_a(a1, pb, LDP, mt * 16, 16, g, t);
 #pragma unroll
           for (int j = 0; j < 2; ++j) {
             float c[4] = {0.f, 0.f, 0.f, 0.f};
             mma_bf16(c, a0, b[0][2 * j], b[0][2 * j + 1]);
-            mma_bf16(c, a1, b[1][2 * j], b[1][2 * j + 1]);
+            if (ksteps > 1) mma_bf16(c, a1, b[1][2 * j], b[1][2 * j + 1]);
 #pragma unroll
             for (int e = 0; e < 4; ++e) acc[mt][2 * h + j][e] += c[e];
           }
@@ -268,25 +306,29 @@ bool gpt_ok(int gpt) { return gpt % 8 == 0 && (gpt <= BN ? BN % gpt == 0 : gpt %
 // vw_sem [Gs, Ws], vw_geo [Gg, Wg] bf16.  Out: m_s, s_s, m_g, s_g
 // [Bp, t_pad] f32 and tails [Bp, Ws + Wg] f32 ([sem | geo]).  has_geo = 0:
 // only m_s, s_s and tails [Bp, Ws] are written, the geo pointers are not
-// read.  All contiguous and 16-byte aligned.
+// read.  sup_r > 0: vw_sem is [Gs / sup_r, Ws], one row per sup_r
+// consecutive sem groups (32 % sup_r == gpt_s % sup_r == 0).  All
+// contiguous and 16-byte aligned.
 extern "C" int hier_scan_launch(const void* q_cat, const void* g_sem, const void* g_geo,
                                 const void* vw_sem, const void* vw_geo, void* m_s, void* s_s,
                                 void* m_g, void* s_g, void* tails, int Bp, int cat_d, int ws,
                                 int wg, int Gs, int Gg, int Ws, int Wg, int gpt_s, int gpt_g,
-                                int t_pad, int has_geo, void* stream) {
+                                int t_pad, int has_geo, int sup_r, void* stream) {
   if (Bp <= 0) return 0;
   if (ws % 16 || ws > cat_d || cat_d % 8 || Ws % 128 || Ws > 64 * MAX_NT || Gs % BN ||
-      !gpt_ok(gpt_s) || Gs != t_pad * gpt_s)
+      !gpt_ok(gpt_s) || Gs != t_pad * gpt_s || sup_r < 0 || sup_r == 1 ||
+      (sup_r && (BN % sup_r || gpt_s % sup_r)))
     return (int)cudaErrorInvalidValue;
   if (has_geo && (wg % 16 || wg > cat_d || Wg % 128 || Wg > 64 * MAX_NT || Gg % BN ||
                   !gpt_ok(gpt_g) || Gg != t_pad * gpt_g))
     return (int)cudaErrorInvalidValue;
   using bf = __nv_bfloat16;
   const Family f0{static_cast<const bf*>(g_sem), static_cast<const bf*>(vw_sem),
-                  static_cast<float*>(m_s), static_cast<float*>(s_s), ws, 0, Gs, Ws, gpt_s, 0};
+                  static_cast<float*>(m_s), static_cast<float*>(s_s), ws, 0, Gs, Ws, gpt_s, 0,
+                  sup_r};
   const Family f1{static_cast<const bf*>(g_geo), static_cast<const bf*>(vw_geo),
                   static_cast<float*>(m_g), static_cast<float*>(s_g), wg, cat_d - wg, Gg, Wg,
-                  gpt_g, Ws};
+                  gpt_g, Ws, 0};
   const Layout lay = has_geo ? layout(ws > wg ? ws : wg, Ws > Wg ? Ws : Wg) : layout(ws, Ws);
   if (lay.total > MAX_SMEM) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(

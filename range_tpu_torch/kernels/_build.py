@@ -37,7 +37,9 @@ _SIGNATURES = {
                         [_P] * 5 + [_I] * 6 + [_F, _I, _P],
                         "fused_retrieval_i8_launch":
                         [_P] * 6 + [_I] * 6 + [_F, _I, _P]},
-    "hier_scan": {"hier_scan_launch": [_P] * 10 + [_I] * 12 + [_P]},
+    "hier_scan": {"hier_scan_launch": [_P] * 10 + [_I] * 13 + [_P]},
+    "hier_refine": {"hier_refine_launch": [_P] * 5 + [_I] * 6 + [_P]},
+    "hier_corr": {"hier_corr_launch": [_P] * 5 + [_I] * 7 + [_P]},
     "hier_scan_stats": {"hier_scan_stats_launch": [_P] * 7 + [_I] * 9 + [_P]},
     "hier_parts": {"hier_parts_launch": [_P] * 11 + [_I] * 14 + [_P]},
     "hier_parts_family": {"hier_parts_family_launch":

@@ -57,6 +57,9 @@ class RangeConfig:
     j_sem: int = 2         # hier: per-query top sem tiles kept
     j_geo: int = 2         # hier: per-query top geo tiles kept
     hier_bm: int = 256     # hier: largest query block of the selection
+    # hier, tail_super banks: sem tiles past k_tiles that get the fine-tail
+    # correction (passed as given at every batch size, as the JAX package)
+    m_corr: int = 0
     # hier: batches below this take the dense exact kernel over hb.bank
     hier_min_batch: int = 0
 
@@ -125,7 +128,7 @@ class RangeEncoder(nn.Module):
                 q_sem, q_xyz, bank, sem_temp=cfg.resolved_sem_temp(),
                 geo_temp=cfg.geo_temp, beta=cfg.beta, mode=cfg.mode,
                 k_tiles=k_tiles, k_geo=k_geo, bm=bm, j_sem=j_sem,
-                j_geo=cfg.j_geo, concat_query=q_sem)
+                j_geo=cfg.j_geo, concat_query=q_sem, m_corr=cfg.m_corr)
         use_pallas = cfg.use_pallas
         if use_pallas is None:
             use_pallas = lonlat_deg.device.type == "cuda"

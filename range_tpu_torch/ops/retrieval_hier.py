@@ -6,9 +6,12 @@ and RANGE paths (`api.SERVING_PROFILES['flagship']` and `['turbo']`).
 Build (`build_hier_bank`, offline, on the bank's device): geographic
 k-means reorder with dense packing (`bank/clustered.py`), a key+value
 k-means within each bn-row tile so that every gsz-row window is a coherent
-group, then the packed serving operands: keys, per-group centroids and
-value sums per family, the low-rank tails (`lr_rank`, `lr_geo`) and the
-residual-rank row coefficients (`res_rank`).
+group (with ``gsz_super``, a second k-means nests the groups into
+gsz_super-row supergroups), then the packed serving operands: keys,
+per-group centroids and value sums per family, the low-rank tails
+(`lr_rank`, `lr_geo`), the residual-rank row coefficients (`res_rank`),
+the supergroup centroids (``gsz_super``) and the supergroup sem tail
+operands (``tail_super``).
 
 Serving features (`retrieve_hier`, the family-split lr + rr shape):
   1. pad and pack the queries, sort them (`_hybrid_order`: geographically,
@@ -23,12 +26,19 @@ Serving features (`retrieve_hier`, the family-split lr + rr shape):
      selected tiles (`_hier_parts_family_call`);
   5. the COMBINE kernel: unprojection, normalization, beta blend and the
      query concat (`_combine_cat_call`); the un-sort is a torch gather.
+On ``tail_super`` banks the scan's sem tail runs over supergroup means
+(its segment-sum variant), one selection keeps K + ``m_corr`` sem tiles,
+and the CORRECTION kernel (`_hier_corr_call`) adds the fine-group tail
+back over all of them before the combine.
 
 Serving top-k rows (`hier_topk`, the recall endpoint, k = 1..8): the
 STATS-ONLY scan over the fine `g_topk_cat` operand (`_hier_scan_stats_call`),
 `select_tiles` with a big K, then the exact hi/lo semantic ARGMAX (k = 1,
 `_hier_argmax_call`) or the K-CARRY top-k (`_hier_topk_call`) over each
-block's selected tiles.  `hier_nn` is the harness that measures which
+block's selected tiles.  On ``gsz_super`` banks the selection is two-level:
+the stats scan over the supergroup centroids keeps M tiles, the REFINE
+kernel (`_hier_refine_call`) computes their fine stats, and K of the M
+go to the argmax.  `hier_nn` is the harness that measures which
 argmax the feature path can reach (masked logits, chunked, no kernel of
 its own beyond the stats scan).
 
@@ -104,8 +114,13 @@ class HierBank:
       z_sem/z_geo: [N, rrp] residual-rank coefficients; w_sem/w_geo
                    [rrp, Dv] f32 bases
       g_topk_cat:  [G_t, sem_d] stats-only sem centroids at topk_gsz
-    The other operands of the JAX HierBank (two-level, tail_super, topk_lr
-    and sel_lr) are carried by save/load but not built or served here.
+      g_sup_cat / g_sup_vw: the sem centroids and value sums at gsz_super
+                   (the two-level top-k's coarse selection stats)
+      g_sem_ts_vw: [G_s / ratio, W] supergroup means of the sem tail
+                   operand, ratio = tail_super / gsz_sem; g_sem_ts_dvw
+                   [G_s, W] each group's row minus its supergroup's mean
+    The topk_lr and sel_lr operands of the JAX HierBank are carried by
+    save/load but not built or served here.
     """
 
     bank: GeoBank
@@ -189,24 +204,35 @@ def _order_rows_within_tiles(keys: torch.Tensor, valid: torch.Tensor,
     similar features are consecutive (`retrieval_hier.py:256-322`):
     per-tile k-means (6 Lloyd iterations seeded with strided rows, so no
     random numbers), rows sorted by cluster label, invalid rows last.  Tile
-    membership is untouched."""
-    if n_super:
-        raise _not_ported("the hierarchical within-tile order (gsz_super)",
-                          _ROADMAP_BUILD)
+    membership is untouched.  ``n_super > 0`` makes the order hierarchical:
+    a second k-means per tile (6 iterations, seeded with every
+    n_groups // n_super-th fine centroid) clusters the n_groups fine
+    centroids into n_super supergroups, and rows sort by (supergroup, fine
+    cluster), so each gsz_super-row window nests whole fine groups."""
     N = keys.shape[0]
     T = N // bn
     vs = valid.reshape(T, bn)
     stride = bn // n_groups
-    assign = []
+    cents, assign = [], []
     for lo in range(0, T, 256):  # tiles are independent: bound the memory
         feats = keys[lo * bn:(lo + 256) * bn].to(torch.float32).reshape(
             -1, bn, keys.shape[1])
-        _, a = kmeans(feats, n_groups, iters=6, valid=vs[lo:lo + 256],
+        c, a = kmeans(feats, n_groups, iters=6, valid=vs[lo:lo + 256],
                       init_points=feats[:, ::stride])
+        cents.append(c)
         assign.append(a.cpu().numpy())
     label = np.concatenate(assign, axis=0)
+    n_labels = n_groups
+    if n_super:
+        cent = torch.cat(cents)  # [T, n_groups, D]
+        _, sup_of_fine = kmeans(cent, n_super, iters=6,
+                                init_points=cent[:, ::n_groups // n_super])
+        sup = np.take_along_axis(sup_of_fine.cpu().numpy(), label, axis=1)
+        label = sup * n_groups + label
+        n_labels = n_super * n_groups
+    del cents
     vn = vs.cpu().numpy()
-    sort_key = label + (1.0 - vn) * (n_groups + 1)  # invalid rows last
+    sort_key = label + (1.0 - vn) * (n_labels + 1)  # invalid rows last
     order = np.argsort(sort_key, axis=1, kind="stable")
     return (order + (np.arange(T) * bn)[:, None]).reshape(-1)
 
@@ -247,8 +273,8 @@ def build_hier_bank(bank: GeoBank, *, bn: int = 512, gsz_sem: int = 8,
     if topk_gsz and (bn % topk_gsz or bn // topk_gsz < 8 or gsz_sem % topk_gsz):
         raise ValueError(f"topk_gsz={topk_gsz} must nest inside gsz_sem="
                          f"{gsz_sem} windows of bn={bn}")
-    for name, val in (("gsz_super", gsz_super), ("tail_super", tail_super),
-                      ("topk_lr", topk_lr), ("sel_lr", sel_lr)):
+    _check_super_knobs(bn, gsz_sem, gsz_super, tail_super, topk_gsz, sel_lr)
+    for name, val in (("topk_lr", topk_lr), ("sel_lr", sel_lr)):
         if val:
             raise _not_ported(f"build_hier_bank({name}=...)", _ROADMAP_BUILD)
     if shards > 1:
@@ -271,7 +297,8 @@ def build_hier_bank(bank: GeoBank, *, bn: int = 512, gsz_sem: int = 8,
     else:
         gfeat = cbank.keys_sem
     perm = torch.as_tensor(
-        _order_rows_within_tiles(gfeat, cbank.row_mask(), bn, bn // gsz_sem),
+        _order_rows_within_tiles(gfeat, cbank.row_mask(), bn, bn // gsz_sem,
+                                 n_super=bn // gsz_super if gsz_super else 0),
         dtype=torch.long, device=bank.device)
     del gfeat
     cbank = dataclasses.replace(
@@ -281,19 +308,49 @@ def build_hier_bank(bank: GeoBank, *, bn: int = 512, gsz_sem: int = 8,
         value_scale=(None if cbank.value_scale is None
                      else cbank.value_scale[:, perm]))
     return pack_hier_bank(cbank, bn=bn, gsz_sem=gsz_sem, gsz_geo=gsz_geo,
-                          tier=tier, lr_rank=lr_rank, lr_geo=lr_geo,
-                          res_rank=res_rank, topk_gsz=topk_gsz)
+                          gsz_super=gsz_super, tier=tier, lr_rank=lr_rank,
+                          lr_geo=lr_geo, res_rank=res_rank, topk_gsz=topk_gsz,
+                          tail_super=tail_super)
+
+
+def _check_super_knobs(bn: int, gsz_sem: int, gsz_super: int, tail_super: int,
+                       topk_gsz: int, sel_lr: int) -> None:
+    """The two-level knobs' nesting rules (`retrieval_hier.py:366-401`)."""
+    if gsz_super and (bn % gsz_super or gsz_super % gsz_sem
+                      or bn // gsz_super < 8):
+        raise ValueError(f"gsz_super={gsz_super} must hold whole gsz_sem="
+                         f"{gsz_sem} groups and >= 8 supergroups of bn={bn}")
+    if gsz_super and topk_gsz:
+        raise ValueError("gsz_super and topk_gsz are mutually exclusive: both "
+                         "feed hier_topk's selection and gsz_super would win, "
+                         "leaving the topk_gsz operand unused")
+    if tail_super and (bn % tail_super or tail_super % gsz_sem
+                       or tail_super <= gsz_sem):
+        raise ValueError(f"tail_super={tail_super} must hold several whole "
+                         f"gsz_sem={gsz_sem} groups and divide bn={bn}")
+    if tail_super and sel_lr:
+        raise ValueError("sel_lr and tail_super are mutually exclusive: the "
+                         "supergroup correction kernel needs full-width group "
+                         "logits")
 
 
 def pack_hier_bank(cbank: GeoBank, *, bn: int, gsz_sem: int, gsz_geo: int,
-                   tier: str = "fast", lr_rank: Optional[int] = None,
+                   gsz_super: int = 0, tier: str = "fast",
+                   lr_rank: Optional[int] = None,
                    lr_geo: Optional[int] = None,
                    res_rank: Optional[int] = None,
-                   topk_gsz: int = 0) -> HierBank:
+                   topk_gsz: int = 0, tail_super: int = 0) -> HierBank:
     """The serving operands of a bank whose rows are already in their
     final order (`retrieval_hier.py:494-804`, the ``prep`` stage):
     `build_hier_bank`'s second half.  Tests feed it the JAX build's row
-    order to hold the operands against JAX's without k-means ties."""
+    order to hold the operands against JAX's without k-means ties.
+
+    ``gsz_super`` adds the supergroup operands g_sup_cat / g_sup_vw (the
+    two-level selection's coarse stats); ``tail_super`` the weighted-
+    supergroup sem tail: g_sem_ts_vw, the mean of each tail_super // gsz_sem
+    consecutive rows of the sem tail operand (the lr coefficients when
+    ``lr_rank`` is set), and g_sem_ts_dvw, each row minus its supergroup's
+    mean (`retrieval_hier.py:672-685`)."""
     Dv = cbank.value_dim
     lr_rank = min(lr_rank, Dv) if lr_rank else 0
     lr_geo = min(lr_geo, Dv) if lr_geo else 0
@@ -382,6 +439,15 @@ def pack_hier_bank(cbank: GeoBank, *, bn: int, gsz_sem: int, gsz_geo: int,
         z_geo, w_geo = fam_res(gsz_geo, lr_g)
     g_topk_cat = (group_ops(cbank.keys_sem, topk_gsz, geo=False,
                             stats_only=True)[0] if topk_gsz else None)
+    g_sup_cat, g_sup_vw = (group_ops(cbank.keys_sem, gsz_super, geo=False)
+                           if gsz_super else (None, None))
+    g_sem_ts_vw = g_sem_ts_dvw = None
+    if tail_super:
+        src = (g_sem_vw_lr if lr_rank else g_sem_vw).to(f32)
+        ratio = tail_super // gsz_sem
+        ts_vw = src.reshape(-1, ratio, src.shape[1]).mean(dim=1)
+        g_sem_ts_dvw = (src - ts_vw.repeat_interleave(ratio, dim=0)).to(vw_dtype)
+        g_sem_ts_vw = ts_vw.to(vw_dtype)
     kh, kl = _split_hilo(cbank.keys_sem.to(f32))
     if cbank.value_scale is not None:  # int8 codes, served with their scales
         values, scale = cbank.values, cbank.value_scale.to(f32)
@@ -397,9 +463,12 @@ def pack_hier_bank(cbank: GeoBank, *, bn: int, gsz_sem: int, gsz_geo: int,
         g_geo_vw=g_geo_vw, khl_sem=torch.cat([kh, kl], 1),
         g_sem_vw_lr=g_sem_vw_lr, u_sem=u_sem, g_geo_vw_lr=g_geo_vw_lr,
         u_geo=u_geo, z_sem=z_sem, w_sem=w_sem, z_geo=z_geo, w_geo=w_geo,
-        g_topk_cat=g_topk_cat, tier=tier, bn=bn, gsz_sem=gsz_sem,
-        gsz_geo=gsz_geo, lr_rank=lr_rank, lr_geo=lr_geo, res_rank=res_rank,
-        topk_gsz=topk_gsz, sem_d=sem_d, cat_d=cat_d, t_real=T, t_pad=t_pad)
+        g_topk_cat=g_topk_cat, g_sup_cat=g_sup_cat, g_sup_vw=g_sup_vw,
+        g_sem_ts_vw=g_sem_ts_vw, g_sem_ts_dvw=g_sem_ts_dvw, tier=tier, bn=bn,
+        gsz_sem=gsz_sem, gsz_geo=gsz_geo, gsz_super=gsz_super,
+        lr_rank=lr_rank, lr_geo=lr_geo, res_rank=res_rank, topk_gsz=topk_gsz,
+        tail_super=tail_super, sem_d=sem_d, cat_d=cat_d, t_real=T,
+        t_pad=t_pad)
 
 
 # ---------------------------------------------------------------------------
@@ -641,6 +710,13 @@ def select_tiles(m_s, s_s, m_g, s_g, *, t_real: int, k_tiles: int, bm: int,
     return idx.to(torch.int32), onehot
 
 
+def _gather_cols(stats: torch.Tensor, idx: torch.Tensor, bm: int
+                 ) -> torch.Tensor:
+    """stats [Bp, t_pad], idx [Bp / bm, M] -> [Bp, M]: each query's stats at
+    its query block's listed tiles (`retrieval_hier.py:3030-3036`)."""
+    return torch.gather(stats, 1, idx.long().repeat_interleave(bm, dim=0))
+
+
 def _topk_budget(B: int, k_tiles: int, bm: int, j_sem: int):
     """Small-batch widening of the top-k endpoint's budget
     (`retrieval_hier.py:1832-1847`): selection tiles are shared by bm
@@ -682,30 +758,36 @@ def _launch(name: str, fn: str, *args) -> None:
 
 def _hier_scan_plain(q_cat, g_sem_cat, g_geo_cat, g_sem_vw, g_geo_vw, *,
                      gpt_s: int, gpt_g: int, has_geo: bool = True,
-                     chunk: int = 2048):
+                     sup_r: int = 0, chunk: int = 2048):
     """Plain version of the scan kernel (`_hier_scan_kernel`,
     `retrieval_hier.py:1443-1515`): per family, group logits of the
     family's query columns (sem: the first ws, geo: the last wg) against
     the slim centroids; per tile the max logit and the sum of
     exp2(min(l, 86)); the tail  bf16(exp2(...)) @ vw  in f32.
     ``has_geo=False`` (RANGE mode) computes the sem family only and returns
-    (m_s, s_s, None, None, tails [Bp, Ws]): what that mode reads."""
+    (m_s, s_s, None, None, tails [Bp, Ws]): what that mode reads.
+    ``sup_r > 0`` (tail_super banks): ``g_sem_vw`` is the supergroup operand
+    g_sem_ts_vw with G_s / sup_r rows, and the sem tail is
+    bf16(sum of sup_r consecutive f32 exp2) @ g_sem_vw: the f32 sums are
+    rounded once, not each term (`retrieval_hier.py:1489-1497`)."""
     f32 = torch.float32
     cat_d = q_cat.shape[1]
     ws, wg = g_sem_cat.shape[1], g_geo_cat.shape[1]
-    fams = [(g_sem_cat.to(f32), g_sem_vw, slice(0, ws), gpt_s)]
+    fams = [(g_sem_cat.to(f32), g_sem_vw, slice(0, ws), gpt_s, sup_r)]
     if has_geo:
         fams.append((g_geo_cat.to(f32), g_geo_vw, slice(cat_d - wg, cat_d),
-                     gpt_g))
+                     gpt_g, 0))
     stats = [[], [], [], []]
     tails = []
     for lo in range(0, q_cat.shape[0], chunk):
         q = q_cat[lo:lo + chunk].to(f32)
         tail = []
-        for f, (g, vw, cols, gpt) in enumerate(fams):
+        for f, (g, vw, cols, gpt, r) in enumerate(fams):
             m, s, e = _family_stats(q[:, cols], g, gpt)
             stats[2 * f].append(m)
             stats[2 * f + 1].append(s)
+            if r:
+                e = e.reshape(e.shape[0], -1, r).sum(dim=2)
             tail.append(e.to(vw.dtype).to(f32) @ vw.to(f32))
         tails.append(torch.cat(tail, 1))
     return tuple(torch.cat(s) if s else None for s in stats) + (
@@ -787,10 +869,13 @@ _hier_scan_stats_call.launches = 0
 
 
 def _hier_scan_call(q_cat, g_sem_cat, g_geo_cat, g_sem_vw, g_geo_vw, *,
-                    gpt_s: int, gpt_g: int, has_geo: bool = True):
+                    gpt_s: int, gpt_g: int, has_geo: bool = True,
+                    sup_r: int = 0):
     """The fused group scan: (m_s, s_s, m_g, s_g [Bp, t_pad] f32, tails
     [Bp, Ws + Wg] f32).  ``has_geo=False`` (RANGE mode): (m_s, s_s, None,
-    None, tails [Bp, Ws]), the geo operands untouched.
+    None, tails [Bp, Ws]), the geo operands untouched.  ``sup_r > 0``: the
+    segment-sum variant of tail_super banks (`_hier_scan_plain`), which
+    also counts in ``.sup_launches``.
 
     CPU tensors: `_hier_scan_plain`.  CUDA tensors: `csrc/hier_scan.cu`,
     which replaces `_hier_scan_kernel` (`range_tpu/ops/retrieval_hier.py:
@@ -799,7 +884,7 @@ def _hier_scan_call(q_cat, g_sem_cat, g_geo_cat, g_sem_vw, g_geo_vw, *,
     if q_cat.device.type == "cpu":
         return _hier_scan_plain(q_cat, g_sem_cat, g_geo_cat, g_sem_vw,
                                 g_geo_vw, gpt_s=gpt_s, gpt_g=gpt_g,
-                                has_geo=has_geo)
+                                has_geo=has_geo, sup_r=sup_r)
     bf = torch.bfloat16
     ops = dict(q_cat=q_cat, g_sem_cat=g_sem_cat, g_sem_vw=g_sem_vw)
     if has_geo:
@@ -809,14 +894,17 @@ def _hier_scan_call(q_cat, g_sem_cat, g_geo_cat, g_sem_vw, g_geo_vw, *,
     Gs, ws = g_sem_cat.shape
     Ws = g_sem_vw.shape[1]
     t_pad = Gs // gpt_s
-    fams = [(gpt_s, Gs, ws, Ws, g_sem_vw)]
+    if sup_r and (sup_r < 2 or 32 % sup_r or gpt_s % sup_r):
+        raise ValueError(f"hier_scan kernel: sup_r={sup_r} must divide the "
+                         f"32-group step and gpt_s={gpt_s}")
+    fams = [(gpt_s, Gs, ws, Ws, g_sem_vw, sup_r or 1)]
     if has_geo:
-        fams.append((gpt_g, *g_geo_cat.shape, g_geo_vw.shape[1], g_geo_vw))
-    for gpt, G, w, W, vw in fams:
+        fams.append((gpt_g, *g_geo_cat.shape, g_geo_vw.shape[1], g_geo_vw, 1))
+    for gpt, G, w, W, vw, r in fams:
         if not _gpt_ok(gpt):
             raise ValueError(f"hier_scan kernel: groups per tile {gpt} must "
                              "be 8, 16, 32 or a multiple of 32")
-        if (G != t_pad * gpt or G % 32 or vw.shape[0] != G or w > 256
+        if (G != t_pad * gpt or G % 32 or vw.shape[0] * r != G or w > 256
                 or w % 16 or w > cat_d or cat_d % 8 or W % 128 or W > 512):
             raise ValueError(
                 f"hier_scan kernel: unsupported shapes q {tuple(q_cat.shape)}"
@@ -837,14 +925,158 @@ def _hier_scan_call(q_cat, g_sem_cat, g_geo_cat, g_sem_vw, g_geo_vw, *,
             tails)]
         _launch("hier_scan", "hier_scan_launch", *ptr, Bp, cat_d, ws,
                 g_geo_cat.shape[1], Gs, g_geo_cat.shape[0], Ws, Wg, gpt_s,
-                gpt_g, t_pad, int(has_geo), _stream(q_cat))
+                gpt_g, t_pad, int(has_geo), sup_r, _stream(q_cat))
         _hier_scan_call.launches += 1
+        if sup_r:
+            _hier_scan_call.sup_launches += 1
     if not has_geo:
         stats += [None, None]
     return tuple(stats) + (tails,)
 
 
 _hier_scan_call.launches = 0
+_hier_scan_call.sup_launches = 0
+
+
+def _block_groups(tiles: torch.Tensor, gpt: int) -> torch.Tensor:
+    """The group rows [M * gpt] of a block's tile list [M], in list order."""
+    return (tiles.long()[:, None] * gpt
+            + torch.arange(gpt, device=tiles.device)).reshape(-1)
+
+
+def _hier_refine_plain(q_cat, idx, g_sem_cat, *, bm: int, gpt_f: int):
+    """Plain version of the refine kernel's stats-only form
+    (`_hier_refine_kernel`, `retrieval_hier.py:2077-2133`): per query block
+    and each of its M listed tiles, the fine group logits q[:, :wf] . g^T
+    (wf = g_sem_cat's width) over the tile's gpt_f groups, their max and
+    the sum of exp2(min(l, 86)).  Returns (m_f, s_f) [Bp, M] f32, column j
+    the block's j-th listed tile: `_hier_scan_stats_plain`'s sem stats at
+    those tiles."""
+    f32 = torch.float32
+    nB, M = idx.shape
+    wf = g_sem_cat.shape[1]
+    m_f, s_f = [], []
+    for i in range(nB):
+        g = g_sem_cat[_block_groups(idx[i], gpt_f)].to(f32)
+        m, s, _ = _family_stats(q_cat[i * bm:(i + 1) * bm, :wf].to(f32), g,
+                                gpt_f)
+        m_f.append(m)
+        s_f.append(s)
+    return torch.cat(m_f), torch.cat(s_f)
+
+
+def _hier_refine_call(q_cat, idx, g_sem_cat, g_sup_cat, g_sem_vw, g_sup_vw,
+                      *, bm: int, gpt_f: int, gpt_sup: int,
+                      stats_only: bool = False):
+    """Fine stats over each query block's M listed tiles: (m_f, s_f [Bp, M]
+    f32, None).  q_cat [Bp, cat_d], idx [Bp / bm, M] int32 (real tiles, as
+    `select_tiles` gives them), g_sem_cat [G, wf].  The stats-only form
+    reads neither the supergroup centroids nor any value operand.
+    ``stats_only=False`` (the fine-minus-supergroup tail partial of the
+    two-level feature path) is not ported.
+
+    CPU tensors: `_hier_refine_plain`.  CUDA tensors: `csrc/hier_refine.cu`,
+    which replaces `_hier_refine_kernel` (`range_tpu/ops/retrieval_hier.py:
+    2077`); bf16 operands only, a launch failure raises.  The stats come
+    out in [query, column] order: the TPU's one-hot scratch and its 2 Mp
+    packing have no counterpart."""
+    if not stats_only:
+        raise _not_ported(
+            "the refine kernel's fine-minus-supergroup tail (has_parts, the "
+            "two-level feature path: item 2.2 with the wide-tail scan)",
+            _ROADMAP_SERVE)
+    if q_cat.device.type == "cpu":
+        return _hier_refine_plain(q_cat, idx, g_sem_cat, bm=bm,
+                                  gpt_f=gpt_f) + (None,)
+    ops = dict(q_cat=q_cat, idx=idx, g_sem_cat=g_sem_cat)
+    _check_cuda("hier_refine", ops, dict(q_cat=torch.bfloat16,
+                                         idx=torch.int32,
+                                         g_sem_cat=torch.bfloat16))
+    Bp, cat_d = q_cat.shape
+    nB, M = idx.shape
+    G, wf = g_sem_cat.shape
+    if (Bp != nB * bm or bm % 64 or not _gpt_ok(gpt_f) or G % gpt_f
+            or wf % 16 or wf > 256 or wf > cat_d or cat_d % 8):
+        raise ValueError(
+            f"hier_refine kernel: unsupported shapes q {tuple(q_cat.shape)}, "
+            f"idx {tuple(idx.shape)}, g {tuple(g_sem_cat.shape)}, bm={bm}, "
+            f"gpt_f={gpt_f}")
+    ops = [t.contiguous() for t in ops.values()]
+    m_f, s_f = (torch.empty((Bp, M), dtype=torch.float32, device=q_cat.device)
+                for _ in range(2))
+    if Bp and M:
+        _launch("hier_refine", "hier_refine_launch",
+                *[t.data_ptr() for t in ops + [m_f, s_f]], Bp, cat_d, wf, bm,
+                M, gpt_f, _stream(q_cat))
+        _hier_refine_call.launches += 1
+    return m_f, s_f, None
+
+
+_hier_refine_call.launches = 0
+
+
+def _hier_corr_plain(q_cat, idx, g_cat, dvw, *, bm: int, gpt: int,
+                     magnitude: bool = False):
+    """Plain version of the tail_super correction kernel
+    (`_hier_corr_kernel`, `retrieval_hier.py:2209-2279`): per query block,
+    over its listed tiles, e = bf16(exp2(min(q[:, :gw] . g^T, 86))) over each
+    tile's gpt groups and out += e @ dvw in f32.  Out [Bp, W].
+
+    ``magnitude=True`` sums the terms' magnitudes instead, e @ |dvw|: the
+    per-element scale that a bf16 rounding point landing the other way is
+    measured against."""
+    f32 = torch.float32
+    nB, M = idx.shape
+    gw = g_cat.shape[1]
+    out = []
+    for i in range(nB):
+        grps = _block_groups(idx[i], gpt)
+        logit = q_cat[i * bm:(i + 1) * bm, :gw].to(f32) @ g_cat[grps].to(f32).T
+        e = torch.exp2(torch.clamp_max(logit, CLAMP2)).to(dvw.dtype).to(f32)
+        w = dvw[grps].to(f32)
+        out.append(e @ (w.abs() if magnitude else w))
+    return torch.cat(out)
+
+
+def _hier_corr_call(q_cat, idx, g_cat, dvw, *, bm: int, gpt: int):
+    """The fine-minus-supergroup sem tail correction over each query
+    block's listed tiles: [Bp, W] f32 to add to the supergroup scan's sem
+    tail.  q_cat [Bp, cat_d], idx [Bp / bm, M] int32, g_cat [G, gw]
+    (g_sem_cat), dvw [G, W] (g_sem_ts_dvw).
+
+    CPU tensors: `_hier_corr_plain`.  CUDA tensors: `csrc/hier_corr.cu`,
+    which replaces `_hier_corr_kernel` (`range_tpu/ops/retrieval_hier.py:
+    2209`); bf16 operands only, a launch failure raises."""
+    if q_cat.device.type == "cpu":
+        return _hier_corr_plain(q_cat, idx, g_cat, dvw, bm=bm, gpt=gpt)
+    bf = torch.bfloat16
+    ops = dict(q_cat=q_cat, idx=idx, g_cat=g_cat, dvw=dvw)
+    _check_cuda("hier_corr", ops, dict(q_cat=bf, idx=torch.int32, g_cat=bf,
+                                       dvw=bf))
+    Bp, cat_d = q_cat.shape
+    nB, M = idx.shape
+    G, gw = g_cat.shape
+    W = dvw.shape[1]
+    if (Bp != nB * bm or bm % 64 or gpt < 1 or G % gpt or dvw.shape[0] != G
+            or gw % 16 or gw > 256 or gw > cat_d or cat_d % 8 or W % 128
+            or W > 512):
+        raise ValueError(
+            f"hier_corr kernel: unsupported shapes q {tuple(q_cat.shape)}, "
+            f"idx {tuple(idx.shape)}, g {tuple(g_cat.shape)}, dvw "
+            f"{tuple(dvw.shape)}, bm={bm}, gpt={gpt}")
+    ops = [t.contiguous() for t in ops.values()]
+    out = torch.empty((Bp, W), dtype=torch.float32, device=q_cat.device)
+    if Bp and M:
+        _launch("hier_corr", "hier_corr_launch",
+                *[t.data_ptr() for t in ops + [out]], Bp, cat_d, gw, W, bm, M,
+                gpt, _stream(q_cat))
+        _hier_corr_call.launches += 1
+    elif Bp:
+        out.zero_()
+    return out
+
+
+_hier_corr_call.launches = 0
 
 
 def _family_cols(geo: bool, sem_d: int, cat_d: int, gw: int):
@@ -1313,10 +1545,18 @@ _hier_topk_call.launches = 0
 def _check_servable(hb: HierBank, mode: str) -> None:
     """The port serves RANGE mode on low-rank banks (lr_rank, the merged
     parts kernel's lr variant) and RANGE+ on the flagship shape: lr + rr +
-    geo-lr banks (the family-split kernels)."""
-    for name in ("gsz_super", "tail_super", "sel_lr"):
-        if getattr(hb, name):
-            raise _not_ported(f"serving {name} banks", _ROADMAP_SERVE)
+    geo-lr banks (the family-split kernels), with or without tail_super.
+    gsz_super banks with lr_rank serve one-level, as in the JAX package;
+    without it they take the two-level feature path, which is not
+    ported."""
+    if hb.sel_lr:
+        raise _not_ported("serving sel_lr banks", _ROADMAP_SERVE)
+    if (hb.gsz_super and hb.g_sup_cat is not None
+            and not (hb.lr_rank and hb.g_sem_vw_lr is not None)):
+        raise _not_ported(
+            "the two-level feature path (gsz_super banks without lr_rank: "
+            "the refine kernel's has_parts form, kernel 15's plain variant "
+            "and the wide-tail scan, item 2.2)", _ROADMAP_SERVE)
     if mode == "range":
         if not (hb.lr_rank and hb.g_sem_vw_lr is not None):
             raise _not_ported(
@@ -1334,18 +1574,32 @@ def _check_servable(hb: HierBank, mode: str) -> None:
 
 def _hier_partials(q_cat: torch.Tensor, hb: HierBank, *, k_tiles: int,
                    bm: int, j_sem: int, j_geo: int, n_valid: int,
-                   k_geo: int):
+                   k_geo: int, m_corr: int = 0):
     """Scan, per-family selection and the two parts kernels on sorted,
     packed queries: the family-split ``raw=True`` branch of
-    `_hier_partials` (`retrieval_hier.py:2832-2960`).  Returns the
-    pre-combine pieces (parts_s, parts_g, tails)."""
+    `_hier_partials` (`retrieval_hier.py:2783-2960`).  Returns the
+    pre-combine pieces (parts_s, parts_g, tails).
+
+    tail_super banks: the scan contracts the supergroup operand
+    g_sem_ts_vw (`_hier_scan_call(sup_r=)`), ONE selection keeps k_tiles +
+    ``m_corr`` sem tiles, the first k_tiles of them take the exact parts,
+    and the correction kernel adds exp2(q . g_fine) @ (vw - ts_vw) over
+    all of them to the sem tail, so that the selected tiles' tail is the
+    fine-group one the parts kernel subtracts."""
     gpt_s, gpt_g = hb.bn // hb.gsz_sem, hb.bn // hb.gsz_geo
+    use_ts = bool(hb.tail_super) and hb.g_sem_ts_vw is not None
     m_s, s_s, m_g, s_g, tails = _hier_scan_call(
-        q_cat, hb.g_sem_cat, hb.g_geo_cat, hb.g_sem_vw_lr, hb.g_geo_vw_lr,
-        gpt_s=gpt_s, gpt_g=gpt_g)
-    idx_s, _ = select_tiles(m_s, s_s, m_g, s_g, t_real=hb.t_real,
-                            k_tiles=k_tiles, bm=bm, n_valid=n_valid,
-                            j_sem=j_sem, j_geo=j_geo, mode="range")
+        q_cat, hb.g_sem_cat, hb.g_geo_cat,
+        hb.g_sem_ts_vw if use_ts else hb.g_sem_vw_lr, hb.g_geo_vw_lr,
+        gpt_s=gpt_s, gpt_g=gpt_g,
+        sup_r=hb.tail_super // hb.gsz_sem if use_ts else 0)
+    idx_sm, _ = select_tiles(m_s, s_s, m_g, s_g, t_real=hb.t_real,
+                             k_tiles=k_tiles + (m_corr if use_ts else 0),
+                             bm=bm, n_valid=n_valid, j_sem=j_sem, j_geo=j_geo,
+                             mode="range")
+    # top_k's columns come score-descending: the first k_tiles are the
+    # exact tiles, and every listed tile is corrected
+    idx_s = idx_sm[:, :min(k_tiles, idx_sm.shape[1])] if use_ts else idx_sm
     idx_g, _ = select_tiles(m_g, s_g, m_s, s_s, t_real=hb.t_real,
                             k_tiles=k_geo, bm=bm, n_valid=n_valid,
                             j_sem=j_geo, j_geo=j_sem, mode="range")
@@ -1357,6 +1611,9 @@ def _hier_partials(q_cat: torch.Tensor, hb: HierBank, *, k_tiles: int,
         q_cat, hb.k_cat, hb.mask_neg, idx_g, hb.g_geo_cat, hb.g_geo_vw_lr,
         hb.z_geo, sem_d=hb.sem_d, bm=bm, bn=hb.bn, gpt=gpt_g, geo=True,
         lrr=hb.lr_geo)
+    if use_ts:
+        tails[:, :hb.g_sem_ts_dvw.shape[1]] += _hier_corr_call(
+            q_cat, idx_sm, hb.g_sem_cat, hb.g_sem_ts_dvw, bm=bm, gpt=gpt_s)
     return parts_s, parts_g, tails
 
 
@@ -1417,21 +1674,28 @@ def retrieve_hier(q_sem: torch.Tensor, q_xyz: Optional[torch.Tensor],
     scan knobs (tc, scan_bm) set speed only and have no counterpart.
 
     ``mode='range+'`` serves the flagship shape through the family-split
-    kernels and the fused combine + concat.  ``mode='range'`` (beta 1, no
-    locations) serves low-rank banks through the geo-less scan, the
-    merged parts kernel and the low-rank combine in torch
-    (`_hier_partials_merged`); k_geo and j_geo do not apply there."""
+    kernels and the fused combine + concat; on tail_super banks ``m_corr``
+    more sem tiles beyond k_tiles get the fine-tail correction
+    (`_hier_partials`).  ``mode='range'`` (beta 1, no locations) serves
+    low-rank banks through the geo-less scan, the merged parts kernel and
+    the low-rank combine in torch (`_hier_partials_merged`); k_geo, j_geo
+    and tail_super banks do not apply there."""
     if mode not in ("range", "range+"):
         raise ValueError(f"mode must be 'range' or 'range+', got {mode!r}")
     if mode == "range":
         beta, q_xyz = 1.0, None
-    for name, val in (("adaptive_frac", adaptive_frac), ("m_corr", m_corr),
-                      ("dedup", dedup)):
+    for name, val in (("adaptive_frac", adaptive_frac), ("dedup", dedup)):
         if val:
             raise _not_ported(f"retrieve_hier({name}=...)", _ROADMAP_SERVE)
     if mode == "range+" and q_xyz is None:
         raise ValueError("mode='range+' requires q_xyz")
     _check_sort(sort)
+    if hb.tail_super and hb.g_sem_ts_vw is not None and (
+            mode == "range" or not (k_geo or hb.res_rank)):
+        raise ValueError(
+            "tail_super banks serve via the family-split path only: pass "
+            "k_geo > 0 with mode='range+' (the merged parts kernel has no "
+            "supergroup-tail correction)")
     _check_servable(hb, mode)
     if not k_geo:
         k_geo = max(8, k_tiles // 2)  # rr banks serve family-split
@@ -1460,7 +1724,7 @@ def retrieve_hier(q_sem: torch.Tensor, q_xyz: Optional[torch.Tensor],
         return out
     ps, pg, tails = _hier_partials(q_cat, hb, k_tiles=k_tiles, bm=bm,
                                    j_sem=j_sem, j_geo=j_geo, n_valid=B,
-                                   k_geo=k_geo)
+                                   k_geo=k_geo, m_corr=m_corr)
     if concat_query is None:
         q_srt = torch.zeros((Bp, 0), dtype=torch.float32, device=q_cat.device)
     else:
@@ -1479,7 +1743,8 @@ def retrieve_hier(q_sem: torch.Tensor, q_xyz: Optional[torch.Tensor],
 
 
 def hier_topk(q_sem: torch.Tensor, q_xyz: Optional[torch.Tensor],
-              hb: HierBank, *, k: int = 1, k_tiles: int = 56, bm: int = 256,
+              hb: HierBank, *, k: int = 1, k_tiles: int = 56,
+              m_tiles: Optional[int] = None, bm: int = 256,
               j_sem: int = 6, j_geo: int = 2, mode: str = "range",
               auto_widen: bool = True) -> torch.Tensor:
     """Serving top-k retrieval (`retrieval_hier.py:1850-1963`): [B] int32
@@ -1494,17 +1759,21 @@ def hier_topk(q_sem: torch.Tensor, q_xyz: Optional[torch.Tensor],
     q_xyz, when given, drives the geographic query sort, and without it
     the queries group by home tile.  `auto_widen` applies `_topk_budget`'s
     small-batch budget.  Held to recall@1 >= 0.999 against `exact_nn` at
-    B = 10,000, K = 48 on the 100k flagship bank (chip_smoke.py).  The
-    JAX function's tc and interpret (TPU knobs), m_tiles (the two-level
-    branch, not ported) and sort (which no branch of it reads: locations
-    always sort geographically, and without them the home tile alone is
-    the key) have no counterpart."""
+    B = 10,000, K = 48 on the 100k flagship bank (chip_smoke.py).
+
+    Two-level banks (gsz_super, `retrieval_hier.py:1892-1951`): the stats
+    scan runs over the supergroup centroids `g_sup_cat`, `select_tiles`
+    keeps M = min(m_tiles or 2 k_tiles, t_real) tiles, the refine kernel
+    (`_hier_refine_call`) computes their fine stats over `g_sem_cat`, and
+    a second selection over those and the coarse geo stats at the M
+    columns keeps K of the M.  The JAX function's tc and interpret (TPU
+    knobs) and sort (which no branch of it reads: locations always sort
+    geographically, and without them the home tile alone is the key) have
+    no counterpart."""
     if not 1 <= k <= 8:
         raise ValueError(f"hier_topk serves 1 <= k <= 8, got k={k}")
-    if hb.gsz_super and hb.g_sup_cat is not None:
-        raise _not_ported("hier_topk on two-level banks (gsz_super, TPU "
-                          "kernel 12)", _ROADMAP_SERVE)
-    if hb.topk_lr and hb.g_topk_lr is not None:
+    use2 = bool(hb.gsz_super) and hb.g_sup_cat is not None
+    if not use2 and hb.topk_lr and hb.g_topk_lr is not None:
         raise _not_ported("hier_topk on banks with the low-rank topk_lr "
                           "selection signal", _ROADMAP_SERVE)
     B = q_sem.shape[0]
@@ -1520,7 +1789,10 @@ def hier_topk(q_sem: torch.Tensor, q_xyz: Optional[torch.Tensor],
         order = _hybrid_order(q_x, B)
         q_cat, q2, ql = q_cat[order], q2[order], ql[order]
     gpt_g = hb.bn // hb.gsz_geo
-    if hb.g_topk_cat is not None and hb.topk_gsz:
+    if use2:  # coarse stats: the supergroup centroids
+        stats = _hier_scan_stats_call(q_cat, hb.g_sup_cat, hb.g_geo_cat,
+                                      gpt_s=hb.bn // hb.gsz_super, gpt_g=gpt_g)
+    elif hb.g_topk_cat is not None and hb.topk_gsz:
         # fine stats-only centroids: the selection signal of gsz 8 groups
         stats = _hier_scan_stats_call(q_cat, hb.g_topk_cat, hb.g_geo_cat,
                                       gpt_s=hb.bn // hb.topk_gsz, gpt_g=gpt_g)
@@ -1529,10 +1801,24 @@ def hier_topk(q_sem: torch.Tensor, q_xyz: Optional[torch.Tensor],
                                       gpt_s=hb.bn // hb.gsz_sem, gpt_g=gpt_g)
     if q_x is None:
         order = _hybrid_order(None, B, _home_tile(stats[0], hb.t_real))
-        q2, ql = q2[order], ql[order]
+        q_cat, q2, ql = q_cat[order], q2[order], ql[order]
         stats = [s[order] for s in stats]
-    idx, _ = select_tiles(*stats, t_real=hb.t_real, k_tiles=k_tiles, bm=bm,
-                          n_valid=B, j_sem=j_sem, j_geo=j_geo, mode=mode)
+    sel = dict(bm=bm, n_valid=B, j_sem=j_sem, j_geo=j_geo, mode=mode)
+    if use2:
+        # M coarse tiles, their fine stats, then K of the M: the selection
+        # signal of the one-level fine scan over M tiles only
+        mt = min(m_tiles or 2 * k_tiles, hb.t_real)
+        idx_m, _ = select_tiles(*stats, t_real=hb.t_real, k_tiles=mt, **sel)
+        m_f, s_f, _ = _hier_refine_call(
+            q_cat, idx_m, hb.g_sem_cat, hb.g_sup_cat, None, None, bm=bm,
+            gpt_f=hb.bn // hb.gsz_sem, gpt_sup=hb.bn // hb.gsz_super,
+            stats_only=True)
+        idx_loc, _ = select_tiles(m_f, s_f, _gather_cols(stats[2], idx_m, bm),
+                                  _gather_cols(stats[3], idx_m, bm), t_real=mt,
+                                  k_tiles=min(k_tiles, mt), **sel)
+        idx = torch.gather(idx_m, 1, idx_loc.long())
+    else:
+        idx, _ = select_tiles(*stats, t_real=hb.t_real, k_tiles=k_tiles, **sel)
     Dk = hb.bank.key_dim
     if k == 1:
         _, rows = _hier_argmax_call(q2, ql, hb.khl_sem, hb.mask_neg, idx,

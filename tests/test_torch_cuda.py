@@ -267,14 +267,21 @@ def hier_bank(cuda):
                               lr_geo=384, res_rank=128, topk_gsz=8)
 
 
-def _within_terms(got, ref, mag, frac=4e-3):
+def _within_terms(got, ref, mag, frac=4e-3, rows_off_max=0):
     """|got - ref| <= min(frac * the row's max |ref|, 2^-7 * mag) + 1e-6, with
     mag the sum of each element's terms' magnitudes (the plain version over
     |operands|): one bf16 ulp (<= 2^-7) of every term bounds each element by
-    its own terms, small low-rank columns included."""
+    its own terms, small low-rank columns included.  Up to ``rows_off_max``
+    rows may exceed the row cap, each element within 2^-7 * mag: a weight at
+    a bf16 rounding boundary that rounds the other way moves its element by
+    one ulp of that term, over the cap where that one term dominates the
+    row (ROADMAP Queue 3, "bf16 flips of a dominant term")."""
     err = (got - ref).abs()
-    tol = torch.minimum(frac * ref.abs().amax(dim=1, keepdim=True), 2.0 ** -7 * mag)
-    assert (err <= tol + 1e-6).all()
+    flip = 2.0 ** -7 * mag + 1e-6
+    tol = torch.minimum(frac * ref.abs().amax(dim=1, keepdim=True), flip - 1e-6) + 1e-6
+    over = (err > tol).any(dim=1)
+    assert int(over.sum()) <= rows_off_max
+    assert (err <= torch.where(over[:, None], flip, tol)).all()
 
 
 # Tolerances: the logits are f32 sums of the same bf16 products in another
@@ -719,3 +726,210 @@ def test_int8_dense_main_path(cuda):
     assert enc.model.bank.values.dtype == torch.int8
     ref = retrieval.retrieve(out[:, 1024:], lonlat_deg_to_xyz(coords), enc.model.bank)
     torch.testing.assert_close(out[:, :1024], ref, rtol=1e-1, atol=5e-2)
+
+
+# ---- the two-level top-k (the refine kernel) and tail_super (the corr
+# kernel and the scan's segment-sum variant)
+
+
+def _tail_super_bank(cuda, tail_super):
+    """The hier_bank fixture's bank and knobs with tail_super, built on the
+    card (bn=128, gsz_sem=16: sup_r = tail_super / 16)."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    bank = GeoBank.synthetic_informative(3, 9000, pad_to=512, value_dtype=torch.bfloat16,
+                                         device=cuda)
+    return rh.build_hier_bank(bank, bn=128, gsz_sem=16, gsz_geo=16, lr_rank=256, lr_geo=384,
+                              res_rank=128, topk_gsz=8, tail_super=tail_super)
+
+
+@pytest.fixture
+def two_level_bank(cuda):
+    """The informative bank with two-level knobs (bn=128, gsz_sem=8,
+    gsz_super=16: 8 supergroups of 2 fine groups a tile), built on the card."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    bank = GeoBank.synthetic_informative(3, 9000, pad_to=512, value_dtype=torch.bfloat16,
+                                         device=cuda)
+    return rh.build_hier_bank(bank, bn=128, gsz_sem=8, gsz_geo=16, gsz_super=16)
+
+
+def _bf16_rand(shape, scale, seed, device):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return (scale * torch.randn(shape, generator=g, device=device)).bfloat16()
+
+
+# Tolerances: the stats as the stats scan's (f32 sums of the same bf16
+# products in another order); the supergroup sums are f32 sums of f32
+# exp2 rounded once to bf16, so one may land the other way: one ulp of one
+# term (`_within_terms`).
+@pytest.mark.parametrize("sup_r", [2, 4, 8, 16, 32])
+def test_scan_sup_variant_matches_plain(cuda, sup_r):
+    """Random operands at the flagship's 32 sem groups per tile (bn=512,
+    gsz_sem=16), every supergroup ratio a 32-group step allows, a ragged
+    batch (700 of 768 rows): the stats equal the plain scan's and the one-
+    level launch's; the tails hold the segment-sum rule."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    q = _bf16_rand((768, 384), 1.0, 1, cuda)
+    q[700:] = 0
+    gs, gg = _bf16_rand((8 * 32, 256), 0.1, 2, cuda), _bf16_rand((8 * 8, 128), 0.5, 3, cuda)
+    vs, vg = _bf16_rand((8 * 32 // sup_r, 384), 1.0, 4, cuda), _bf16_rand((64, 512), 1.0, 5, cuda)
+    kw = dict(gpt_s=32, gpt_g=8, sup_r=sup_r)
+    n0 = (rh._hier_scan_call.launches, rh._hier_scan_call.sup_launches)
+    got = rh._hier_scan_call(q, gs, gg, vs, vg, **kw)
+    torch.cuda.synchronize()
+    assert (rh._hier_scan_call.launches, rh._hier_scan_call.sup_launches) == (n0[0] + 1, n0[1] + 1)
+    ref = rh._hier_scan_plain(q, gs, gg, vs, vg, **kw)
+    mag = rh._hier_scan_plain(q, gs, gg, vs.abs(), vg.abs(), **kw)[4]
+    one = rh._hier_scan_call(q, gs, gg, _bf16_rand((8 * 32, 384), 1.0, 6, cuda), vg,
+                             gpt_s=32, gpt_g=8)
+    for i in (0, 2):
+        torch.testing.assert_close(got[i], ref[i], rtol=0, atol=1e-4)
+    for i in (1, 3):
+        torch.testing.assert_close(got[i], ref[i], rtol=1e-4, atol=0)
+    for i in range(4):
+        assert torch.equal(got[i], one[i])
+    for cols in (slice(0, 384), slice(384, None)):
+        _within_terms(got[4][:, cols], ref[4][:, cols], mag[:, cols])
+    assert torch.equal(got[4][:, 384:], one[4][:, 384:])
+
+
+def test_scan_sup_variant_on_the_bank(cuda):
+    """The tail_super bank's own operands (sup_r = 64 / 16 = 4, 8 groups a
+    tile): the sem tail against the plain version."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    hb = _tail_super_bank(cuda, 64)
+    q_cat, _ = _merged_operands(hb, cuda)
+    args = (q_cat, hb.g_sem_cat, hb.g_geo_cat, hb.g_sem_ts_vw, hb.g_geo_vw_lr)
+    got = rh._hier_scan_call(*args, gpt_s=8, gpt_g=8, sup_r=4)
+    ref = rh._hier_scan_plain(*args, gpt_s=8, gpt_g=8, sup_r=4)
+    mag = rh._hier_scan_plain(q_cat, hb.g_sem_cat, hb.g_geo_cat, hb.g_sem_ts_vw.abs(),
+                              hb.g_geo_vw_lr.abs(), gpt_s=8, gpt_g=8, sup_r=4)[4]
+    assert hb.g_sem_ts_vw.shape == (hb.g_sem_cat.shape[0] // 4, 384)
+    for cols in (slice(0, 384), slice(384, None)):
+        _within_terms(got[4][:, cols], ref[4][:, cols], mag[:, cols])
+
+
+# Tolerances: max logits as the stats scan's; exp-masses f32 sums of f32
+# exp2 in another order.
+@pytest.mark.parametrize("gpt,M", [(64, 96), (32, 24), (16, 13), (8, 5)])
+def test_refine_kernel_matches_plain(cuda, gpt, M):
+    """Random fine centroids at 64 (the two-level top-k's bn=512, gsz_sem=8),
+    32, 16 and 8 groups a tile; lists of M tiles, ragged where M * gpt is
+    no multiple of 32; a ragged batch."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    T, bm = 120, 256
+    q = _bf16_rand((768, 384), 1.0, 7, cuda)
+    q[700:] = 0
+    g_cat = _bf16_rand((T * gpt, 256), 0.1, 8, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    idx = torch.stack([torch.randperm(T, generator=gen, device=cuda)[:M]
+                       for _ in range(3)]).to(torch.int32)
+    n0 = rh._hier_refine_call.launches
+    m_f, s_f, none = rh._hier_refine_call(q, idx, g_cat, None, None, None, bm=bm, gpt_f=gpt,
+                                          gpt_sup=1, stats_only=True)
+    torch.cuda.synchronize()
+    assert rh._hier_refine_call.launches == n0 + 1 and none is None
+    rm, rs = rh._hier_refine_plain(q, idx, g_cat, bm=bm, gpt_f=gpt)
+    assert m_f.shape == (768, M)
+    torch.testing.assert_close(m_f, rm, rtol=0, atol=1e-4)
+    torch.testing.assert_close(s_f, rs, rtol=1e-4, atol=0)
+
+
+# Tolerances: the weights are bf16(exp2) of f32 logits summed in another
+# order; one that this moves across a bf16 boundary rounds the other way:
+# one ulp of one term, in at most max(2, B / 100) rows (`_within_terms`).
+@pytest.mark.parametrize("gpt,M,bm", [(32, 64, 128), (8, 13, 128), (64, 7, 256)])
+def test_corr_kernel_matches_plain(cuda, gpt, M, bm):
+    """Random centroids and dvw rows (count column zero, as full groups
+    build it), lists
+    of M tiles (ragged ends for gpt < 32), a ragged batch."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    T, W = 60, 384
+    q = _bf16_rand((768, 384), 1.0, 10, cuda)
+    q[700:] = 0
+    g_cat = _bf16_rand((T * gpt, 256), 0.1, 11, cuda)
+    dvw = _bf16_rand((T * gpt, W), 0.3, 12, cuda)
+    dvw[:, 256] = 0
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    idx = torch.stack([torch.randperm(T, generator=gen, device=cuda)[:M]
+                       for _ in range(768 // bm)]).to(torch.int32)
+    n0 = rh._hier_corr_call.launches
+    got = rh._hier_corr_call(q, idx, g_cat, dvw, bm=bm, gpt=gpt)
+    torch.cuda.synchronize()
+    assert rh._hier_corr_call.launches == n0 + 1
+    ref = rh._hier_corr_plain(q, idx, g_cat, dvw, bm=bm, gpt=gpt)
+    mag = rh._hier_corr_plain(q, idx, g_cat, dvw, bm=bm, gpt=gpt, magnitude=True)
+    assert got.shape == (768, W) and not got[:, 256].any()
+    _within_terms(got, ref, mag, rows_off_max=max(2, 768 // 100))
+
+
+def test_two_level_kernels_reject_f32_operands(cuda):
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    q = torch.zeros(256, 384, device=cuda)
+    g = torch.zeros(64 * 8, 256, device=cuda)
+    idx = torch.zeros(1, 4, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="bfloat16"):
+        rh._hier_refine_call(q, idx, g, None, None, None, bm=256, gpt_f=8, gpt_sup=1,
+                             stats_only=True)
+    with pytest.raises(ValueError, match="bfloat16"):
+        rh._hier_corr_call(q, idx, g, torch.zeros(64 * 8, 384, device=cuda), bm=256, gpt=8)
+    with pytest.raises(ValueError, match="bfloat16"):
+        rh._hier_scan_call(q, g, g[:, :128], torch.zeros(128, 384, device=cuda),
+                           torch.zeros(512, 512, device=cuda), gpt_s=8, gpt_g=8, sup_r=4)
+    with pytest.raises(NotImplementedError, match="has_parts"):
+        rh._hier_refine_call(q.bfloat16(), idx, g.bfloat16(), None, None, None, bm=256,
+                             gpt_f=8, gpt_sup=1)
+
+
+def test_tail_super_flagship_launches(cuda):
+    """load_model(profile="flagship", tail_super=32, m_corr=8) on the card:
+    per request one scan (its segment-sum variant), one corr, two family
+    parts and one combine launch, no refine; within the order of the
+    fidelity bars of the exact f32 retrieve (a small bank and a global
+    batch, as the flagship test)."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    hb = _tail_super_bank(cuda, 32)
+    enc = load_model("RANGE+", db_path=hb, profile="flagship", hier_bn=128, gsz_geo=16,
+                     tail_super=32, m_corr=8)
+    coords = _coords(3000, seed=14, device=cuda)
+    counters = (rh._hier_scan_call, rh._hier_corr_call, rh._hier_parts_family_call,
+                rh._combine_cat_call, rh._hier_refine_call, sh.siren_tower)
+    n0 = [c.launches for c in counters] + [rh._hier_scan_call.sup_launches]
+    out = enc(coords)
+    torch.cuda.synchronize()
+    assert [c.launches - n for c, n in zip(counters, n0)] == [1, 1, 2, 1, 0, 1]
+    assert rh._hier_scan_call.sup_launches == n0[-1] + 1
+    assert out.shape == (3000, 1280) and torch.isfinite(out).all()
+    ref = retrieval.retrieve(out[:, 1024:], lonlat_deg_to_xyz(coords), hb.bank)
+    rel = (out[:, :1024] - ref).abs() / ref.abs().clamp_min(0.1)
+    assert rel.mean() < 0.1
+
+
+@pytest.mark.parametrize("k", [1, 8])
+def test_two_level_hier_topk_launches(cuda, two_level_bank, k):
+    """hier_topk on a two-level bank: one stats scan (over g_sup_cat), one
+    refine, then one argmax (k = 1) or one top-k (k = 8) launch, no corr;
+    with every tile in M and K the rows are exact_nn's up to near-ties."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+    from range_tpu_torch.ops.retrieval import exact_nn
+
+    hb = two_level_bank
+    g = torch.Generator(device=cuda).manual_seed(15)
+    q = torch.nn.functional.normalize(torch.randn(3000, 256, generator=g, device=cuda), dim=1)
+    x = lonlat_deg_to_xyz(_coords(3000, seed=15, device=cuda))
+    counters = (rh._hier_scan_stats_call, rh._hier_refine_call, rh._hier_argmax_call,
+                rh._hier_topk_call, rh._hier_corr_call)
+    n0 = [c.launches for c in counters]
+    rows = rh.hier_topk(q, x, hb, k=k, k_tiles=hb.t_real, m_tiles=hb.t_real)
+    torch.cuda.synchronize()
+    want = [1, 1, 1, 0, 0] if k == 1 else [1, 1, 0, 1, 0]
+    assert [c.launches - n for c, n in zip(counters, n0)] == want
+    top = rows if k == 1 else rows[:, 0]
+    assert (top == exact_nn(q, hb.bank)).float().mean() >= 0.999

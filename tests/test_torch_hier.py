@@ -227,9 +227,20 @@ def test_eigen_operands_match_jax_sign_invariantly(jhb, injected, coef, basis,
 
 
 def test_build_rejects_unported_knobs(tbank):
-    for knob in ("gsz_super", "tail_super", "topk_lr", "sel_lr"):
+    """topk_lr and sel_lr are not ported; the two-level knobs' nesting rules
+    raise ValueError before any clustering (`retrieval_hier.py:366-401`:
+    gsz_super beside topk_gsz, windows that do not nest, sel_lr beside
+    tail_super)."""
+    for knob in ("topk_lr", "sel_lr"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             th.build_hier_bank(tbank, **{**KW, knob: 32})
+    for bad, match in ((dict(gsz_super=16), "mutually exclusive"),
+                       (dict(topk_gsz=0, gsz_super=24), "gsz_super"),
+                       (dict(tail_super=16), "tail_super"),
+                       (dict(tail_super=24), "tail_super"),
+                       (dict(tail_super=32, sel_lr=32), "mutually exclusive")):
+        with pytest.raises(ValueError, match=match):
+            th.build_hier_bank(tbank, **{**KW, **bad})
     with pytest.raises(NotImplementedError, match="Multi-GPU"):
         th.build_hier_bank(tbank, shards=2, **KW)
 

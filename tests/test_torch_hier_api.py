@@ -133,10 +133,12 @@ def test_hier_plan_copies_the_jax_heuristic(B, plan):
     # RANGE mode without the low-rank sem tail: kernel 15's plain variant
     (dict(profile="flagship", mode_range=True, lr_rank=0), NotImplementedError),
     (dict(profile="flagship", sel_lr=64), NotImplementedError),
-    (dict(profile="flagship", tail_super=64), NotImplementedError),
+    # tail_super serves RANGE+ only (the family-split path)
+    (dict(profile="flagship", mode_range=True, tail_super=64), ValueError),
     (dict(profile="flagship", dedup=2), NotImplementedError),
     (dict(profile="flagship", adaptive_frac=0.1), NotImplementedError),
-    (dict(profile="flagship", gsz_super=64), NotImplementedError),
+    # gsz_super and the flagship's topk_gsz both feed hier_topk's selection
+    (dict(profile="flagship", gsz_super=64), ValueError),
     (dict(profile="flagship", mesh=object()), NotImplementedError),
     (dict(profile="flagship", k_tile=32), TypeError),
     (dict(profile="flagship", m_tiles=32), TypeError),
@@ -145,7 +147,8 @@ def test_hier_plan_copies_the_jax_heuristic(B, plan):
         "gsz_super", "mesh", "unknown_kwarg", "two_level_knob",
         "tpu_speed_knob"])
 def test_hier_error_contract(kw, error):
-    """Every knob off the ported path raises before any bank is built."""
+    """Every knob off the ported path, and every knob combination the JAX
+    package refuses, raises before any bank is built."""
     name = "RANGE" if kw.pop("mode_range", False) else "RANGE+"
     with pytest.raises(error):
         load_model(name, db_path="synthetic:100", device="cpu", **kw)

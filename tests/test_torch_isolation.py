@@ -1,5 +1,5 @@
-"""range_tpu_torch never imports jax, not even indirectly: serving and a
-training step."""
+"""range_tpu_torch never imports jax, not even indirectly: serving (dense,
+the two-level top-k and the tail_super flagship) and a training step."""
 
 import os
 import subprocess
@@ -19,6 +19,15 @@ def test_port_never_imports_jax():
             "enc = range_tpu_torch.load_model('RANGE+', db_path='synthetic:300', "
             "device='cpu', chunk=256)\n"
             "assert enc([[0.0, 0.0]]).shape == (1, 1280)\n"
+            "from range_tpu_torch.ops import retrieval_hier as rh\n"
+            "b = range_tpu_torch.GeoBank.synthetic_informative(0, 1500, value_dim=128, "
+            "pad_to=512, device='cpu')\n"
+            "hb = rh.build_hier_bank(b, bn=128, gsz_sem=8, gsz_geo=16, gsz_super=16)\n"
+            "q = torch.nn.functional.normalize(torch.randn(4, 256), dim=1)\n"
+            "assert rh.hier_topk(q, None, hb, k=2, k_tiles=2, bm=128).shape == (4, 2)\n"
+            "ts = range_tpu_torch.load_model('RANGE+', db_path=b, device='cpu', "
+            "profile='flagship', hier_bn=128, gsz_geo=16, tail_super=32, m_corr=2)\n"
+            "assert ts([[0.0, 0.0]]).shape == (1, 384)\n"
             "m = tr.SatClipModel(tr.SatClipConfig(vision=StdResNetConfig("
             "layers=(1, 1, 1, 1), width=8, in_channels=4, output_dim=16), "
             "location=SatClipLocationConfig(embed_dim=16, legendre_polys=4, "

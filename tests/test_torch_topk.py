@@ -448,9 +448,12 @@ def test_retrieve_hier_unsorted_matches_jax(jhb, thb, regional):
 
 def test_unported_branches_raise(thb, regional):
     q, x = _t(regional[0][:8]), _t(regional[1][:8])
-    two_level = dataclasses.replace(thb, gsz_super=32, g_sup_cat=thb.g_sem_cat)
+    # hier_topk serves two-level banks; the feature path over a two-level
+    # bank without lr_rank (`_hier_partials2`) is not ported
+    two_level = dataclasses.replace(thb, gsz_super=32, g_sup_cat=thb.g_sem_cat,
+                                    lr_rank=0, g_sem_vw_lr=None)
     with pytest.raises(NotImplementedError, match="ROADMAP.*what remains"):
-        th.hier_topk(q, x, two_level)
+        th.retrieve_hier(q, x, two_level)
     low_rank = dataclasses.replace(thb, topk_lr=16, g_topk_lr=thb.g_topk_cat)
     with pytest.raises(NotImplementedError, match="ROADMAP.*what remains"):
         th.hier_topk(q, x, low_rank)
