@@ -1,9 +1,11 @@
 """Smoke run of range_tpu_torch on one CUDA card.
 
-Builds the port's thirteen CUDA kernels (and the scan's segment-sum
-variant) from the eleven sources of `range_tpu_torch/csrc/` (one nvcc per
-source, all started together), holds each against its plain PyTorch
-version at the main paths' shapes, then
+Builds the port's thirteen CUDA kernels (and their variants: the scan's
+segment-sum and wide-tail forms, the merged parts kernel without lr, the
+family parts kernel's plain / lr / rr shapes, the combine without lr_geo)
+from the eleven sources of `range_tpu_torch/csrc/` (one nvcc per source,
+all started together), holds each against its plain PyTorch version at
+the main paths' shapes, then
 drives the serving paths at full width (SatCLIP SH-L40 -> SIREN
 1600->256->256->256 tower, 100,000-row bank with 256-d keys and bf16
 1024-d values, 1,280-d output) and the training path:
@@ -23,6 +25,13 @@ drives the serving paths at full width (SatCLIP SH-L40 -> SIREN
     over the bank's tail_super HierBank, and the two-level top-k endpoint
     (gsz_super 64, K=48 of M=96 refined tiles: the refine kernel) over
     its two-level HierBank, both built on the card here;
+  * the general one-level path (`load_model(retrieval="hier")` at the JAX
+    defaults, bn 512, gsz_sem 8, gsz_geo 64 and no lr_rank / res_rank /
+    lr_geo: the wide-tail scan and the merged parts kernel's plain
+    variant), RANGE+ and RANGE, bf16 and int8, and one request for each of
+    the lr, rr, lr + rr, k_geo-without-rr and lr + lr_geo banks (kernel
+    14's plain / lr / rr shapes, the combine without lr_geo), all built on
+    the card here;
   * SatCLIP contrastive training of the full-width SatCLIP-ResNet18-L40
     dual tower (ResNet-18 on 13 x 256 x 256 images, the SH-L40 SIREN
     location tower, embed 256): three AdamW steps of 16 accumulated
@@ -31,9 +40,11 @@ drives the serving paths at full width (SatCLIP SH-L40 -> SIREN
 and checks the answers against the exact f32 retrieval (the RANGE+
 flagship's, with and without tail_super, against its fidelity bars:
 relerr mean <= 0.04, p99 <= 0.165; RANGE's mean <= 0.10; int8 against bf16
-mean < 0.01; hier_topk's recall@1 against the f32 `exact_nn` >= 0.999 at
-B = 10,000 and 1,000, the two-level endpoint's at least the one-level
-selection's over the same bank - 0.001; training's
+mean < 0.01; RANGE+ at the JAX defaults and each knob subset mean <= 0.12
+(`tests/test_hier.py:167`), RANGE there mean <= 0.10; hier_topk's
+recall@1 against the f32 `exact_nn` >= 0.999 at B = 10,000 and 1,000, the
+two-level endpoint's at least the one-level selection's over the same
+bank - 0.001; training's
 losses finite and falling, one micro-step by the kernel route within 1e-5
 of the plain route's loss, both autograd Functions' gradients on the plain
 compose).  Every phase that fails raises.
@@ -86,12 +97,25 @@ KERNELS = (("siren_tower", "siren_tower", "range_tpu/ops/sh.py:726"),
            ("hier_refine", "hier_refine", "range_tpu/ops/retrieval_hier.py:2077"),
            ("hier_corr", "hier_corr", "range_tpu/ops/retrieval_hier.py:2209"),
            # the scan's segment-sum (sup_r_s) variant, `:1489-1497` of the kernel
-           ("hier_scan_sup", "hier_scan", "range_tpu/ops/retrieval_hier.py:1443"))
+           ("hier_scan_sup", "hier_scan", "range_tpu/ops/retrieval_hier.py:1443"),
+           # the general one-level path's variants: the scan over full-width
+           # group sums, kernel 15 without lr, kernel 14's value shapes (plain,
+           # lr) and its rr shape, kernel 16 without lr_geo
+           ("hier_scan_wide", "hier_scan", "range_tpu/ops/retrieval_hier.py:1443"),
+           ("hier_parts_plain", "hier_parts", "range_tpu/ops/retrieval_hier.py:2515"),
+           ("hier_parts_family_plain", "hier_parts", "range_tpu/ops/retrieval_hier.py:2282"),
+           ("hier_parts_family_lr", "hier_parts", "range_tpu/ops/retrieval_hier.py:2282"),
+           ("hier_parts_family_rr", "hier_parts_family",
+            "range_tpu/ops/retrieval_hier.py:2282"),
+           ("combine_cat_rg0", "combine_cat", "range_tpu/ops/retrieval_hier.py:3102"),
+           # kernel 13 over a full-width dvw (tail_super banks without lr_rank)
+           ("hier_corr_wide", "hier_corr", "range_tpu/ops/retrieval_hier.py:2209"))
 TOPK_K = 48  # the endpoint's tile budget, bench.py:150
 # the two-level top-k (tools/r3_time1.py:103,127: gsz_super 64, K=48 of M=96)
 # and the tail_super flagship (tools/r4_tsuper.py: "ts64 K32/m32/kg16")
 GSZ_SUPER, TOPK_M = 64, 96
 TAIL_SUPER, M_CORR = 64, 32
+TS_M_CORR = 16  # a tail_super bank without lr_rank at the JAX defaults' k_tiles 16
 # SatCLIP pretraining (configs/default.yaml:16-32, main_old.py:129): micro-batch
 # 512, 16 accumulated, 13-band 256 x 256 patches (range_tpu/data/s2geo.py:4-6)
 TRAIN_MICRO, TRAIN_ACCUM, TRAIN_STEPS = 512, 16, 3
@@ -469,8 +493,13 @@ def dense_phases(dev, gen, report) -> float:
 
 def _counters() -> dict:
     """Each kernel's launch count: (its wrapper, the wrapper's attribute
-    that counts it).  The scan's segment-sum variant counts in
-    `.sup_launches` besides the scan's `.launches`."""
+    that counts it).  The scan's segment-sum and wide-tail variants count
+    in `.sup_launches` / `.wide_launches` besides the scan's `.launches`,
+    kernel 15's plain variant in `.plain_launches` besides `.launches`,
+    kernel 16's rg = 0 variant in `.rg0_launches` besides `.launches`,
+    kernel 13's wide form in `.wide_launches` besides `.launches`;
+    each of kernel 14's four shapes counts in its own attribute (two live
+    in another source), `hier_parts_family` the flagship's rr + lr one."""
     from range_tpu_torch.ops import retrieval_fused as rf
     from range_tpu_torch.ops import retrieval_hier as rh
     from range_tpu_torch.ops import sh
@@ -487,6 +516,14 @@ def _counters() -> dict:
                 "hier_refine": rh._hier_refine_call, "hier_corr": rh._hier_corr_call}
     counters = {k: (w, "launches") for k, w in wrappers.items()}
     counters["hier_scan_sup"] = (rh._hier_scan_call, "sup_launches")
+    counters["hier_scan_wide"] = (rh._hier_scan_call, "wide_launches")
+    counters["hier_parts_plain"] = (rh._hier_parts_call, "plain_launches")
+    counters["combine_cat_rg0"] = (rh._combine_cat_call, "rg0_launches")
+    counters["hier_corr_wide"] = (rh._hier_corr_call, "wide_launches")
+    fam = rh._hier_parts_family_call
+    counters["hier_parts_family"] = (fam, "rrlr_launches")
+    for shape in ("plain", "lr", "rr"):
+        counters[f"hier_parts_family_{shape}"] = (fam, f"{shape}_launches")
     return counters
 
 
@@ -946,15 +983,17 @@ def _block_queries(nB: int, bm: int, dev) -> torch.Tensor:
     return (BATCH - torch.arange(nB, device=dev) * bm).clamp(0, bm).double()
 
 
-def _parts_bound(hbq, idx, bm: int, geo: bool):
+def _parts_bound(hbq, idx, bm: int, geo: bool, lr: bool = True):
     """(bound ms, what bounds it) of one merged parts call, counted from
     this run's selection: row logits (sem_d, and the 9 real geo columns)
     and value products over the valid rows of each block's selected tiles
-    for its real queries, the sem group logits and lr coefficients (and
-    the geo group approximation over Dv + the count), each input read once
-    (the union of the selected tiles), the columns the function produces
+    for its real queries, the sem group logits and lr coefficients (without
+    ``lr`` the sem group approximation over Dv + the count), and the geo
+    group approximation over Dv + the count, each input read once (the
+    union of the selected tiles), the columns the function produces
     written once."""
-    Dv, bn, sem_d, Ws = hbq.value_dim, hbq.bn, hbq.sem_d, hbq.g_sem_vw_lr.shape[1]
+    Dv, bn, sem_d = hbq.value_dim, hbq.bn, hbq.sem_d
+    Ws = (hbq.g_sem_vw_lr if lr else hbq.g_sem_vw).shape[1]
     gpt_s, gpt_g = bn // hbq.gsz_sem, bn // hbq.gsz_geo
     nB, K = idx.shape
     valid = (hbq.mask_neg[0] == 0).reshape(-1, bn).sum(dim=1).double()
@@ -962,11 +1001,12 @@ def _parts_bound(hbq, idx, bm: int, geo: bool):
     qb = _block_queries(nB, bm, idx.device)
     pairs = (qb * rows).sum().item()
     groups = (qb * K).sum().item()
-    flops = 2 * pairs * (sem_d + Dv) + 2 * groups * gpt_s * (sem_d + hbq.lr_rank + 1)
+    flops = (2 * pairs * (sem_d + Dv)
+             + 2 * groups * gpt_s * (sem_d + (hbq.lr_rank if lr else Dv) + 1))
     U = int(torch.unique(idx).numel())
     vbytes = hbq.values.element_size() + (4 / Dv if hbq.value_scale is not None else 0)
     n_bytes = (BATCH * sem_d * 2 + U * bn * (sem_d * 2 + Dv * vbytes + 4)
-               + U * gpt_s * (sem_d + Ws) * 2 + BATCH * (Dv + 1 + Ws) * 4)
+               + U * gpt_s * (sem_d + Ws) * 2 + BATCH * (Dv + 1 + (Ws if lr else 0)) * 4)
     if geo:
         Wg, gw = hbq.g_geo_vw.shape[1], hbq.g_geo_cat.shape[1]
         flops += 2 * pairs * (GEO_COLS + Dv) + 2 * groups * gpt_g * (GEO_COLS + Dv + 1)
@@ -1468,6 +1508,417 @@ def two_level_topk_phases(dev, gen, report, bank, enc) -> float:
     return topk_ms
 
 
+def _family_bound(hbq, idx, bm: int, geo: bool, shape: str):
+    """(bound ms, what bounds it) of one family parts call of ``shape``
+    (plain, lr, rr), counted from this run's selection: the row logits
+    over the family's real columns (sem_d, or the 9 geo ones) and, per
+    valid row, the value product over Dv (plain, lr) or the rr
+    coefficients (rr); per group the group logits and the product over the
+    lr coefficients and the count (lr) or Dv + the count (plain, rr); each
+    input read once (the union of the selected tiles), the output written
+    once."""
+    Dv, bn, sem_d = hbq.value_dim, hbq.bn, hbq.sem_d
+    gpt = bn // (hbq.gsz_geo if geo else hbq.gsz_sem)
+    real = GEO_COLS if geo else sem_d
+    kf = hbq.cat_d - sem_d if geo else sem_d
+    nB, K = idx.shape
+    valid = (hbq.mask_neg[0] == 0).reshape(-1, bn).sum(dim=1).double()
+    qb = _block_queries(nB, bm, idx.device)
+    pairs = (qb * valid[idx.long()].sum(dim=1)).sum().item()
+    groups = (qb * K).sum().item() * gpt
+    lrr = hbq.lr_geo if geo else hbq.lr_rank
+    vw = (hbq.g_geo_vw_lr if geo else hbq.g_sem_vw_lr) if shape == "lr" else (
+        hbq.g_geo_vw if geo else hbq.g_sem_vw)
+    g_cat = hbq.g_geo_cat if geo else hbq.g_sem_cat
+    rrp = hbq.z_sem.shape[1] if shape == "rr" else 0
+    row_cols = rrp if shape == "rr" else Dv
+    flops = (2 * pairs * (real + row_cols)
+             + 2 * groups * (real + (lrr if shape == "lr" else Dv) + 1))
+    U = int(torch.unique(idx).numel())
+    vbytes = (2 * rrp / Dv if shape == "rr" else hbq.values.element_size()
+              + (4 / Dv if hbq.value_scale is not None else 0))
+    out_w = Dv + 128 + (vw.shape[1] if shape == "lr" else rrp)
+    n_bytes = (BATCH * kf * 2 + U * bn * (kf * 2 + Dv * vbytes + 4)
+               + U * gpt * (g_cat.shape[1] + vw.shape[1]) * 2 + BATCH * out_w * 4)
+    return _bound(n_bytes, flops, BF16_FLOPS)
+
+
+def general_phases(dev, gen, report, bank):
+    """The general one-level hierarchical path (banks with any subset of
+    lr_rank / res_rank / lr_geo): build the informative bank's HierBank at
+    the JAX defaults (bn 512, gsz_sem 8, gsz_geo 64, no knobs), its int8
+    HierBank, one with every knob (lr_rank 256, res_rank 128, lr_geo 384,
+    gsz_sem 8; the operands of the variant checks) and one per knob subset
+    served (lr; rr; lr + rr without lr_geo; lr + lr_geo; tail_super=64
+    without lr_rank), all on the card;
+    hold the wide-tail scan, kernel 15's plain variant, kernel 14's plain /
+    lr / rr shapes and kernel 16 without lr_geo against their plain
+    versions at B=10,000; serve load_model("RANGE+" | "RANGE",
+    retrieval="hier") at the defaults (B = 1, 37, 1,000, 10,000), with int8
+    values, and one request per knob subset (lr; rr; lr + rr without
+    lr_geo; k_geo=8 without rr; lr + lr_geo at k_geo=8, the request that
+    takes kernel 14's lr shape; tail_super=64 without lr_rank, the full-
+    width forms of the segment-sum scan and of kernel 13), each with its
+    launches counted; hold the relerr bars.
+    Returns the default-knob RANGE+ end-to-end ms at B=10,000."""
+    from range_tpu_torch import load_model
+    from range_tpu_torch.bank import quantize_values
+    from range_tpu_torch.geometry import lonlat_deg_to_xyz
+    from range_tpu_torch.ops import retrieval
+    from range_tpu_torch.ops import retrieval_fused as rf
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    # ---- 16. the HierBanks, built on the card
+    knobs = {"defaults": {}, "lr": dict(lr_rank=256), "rr": dict(res_rank=128),
+             "lr_rr": dict(lr_rank=256, res_rank=128),
+             "lr_lrg": dict(lr_rank=256, lr_geo=384),
+             "all": dict(lr_rank=256, res_rank=128, lr_geo=384),
+             "ts": dict(tail_super=TAIL_SUPER)}
+    banks = {}
+    for name, kw in knobs.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        banks[name] = rh.build_hier_bank(bank, bn=512, gsz_sem=8, gsz_geo=64, **kw)
+        torch.cuda.synchronize()
+        print(f"build_hier_bank (bn 512, gsz_sem 8, gsz_geo 64, {kw or 'no knobs'}): "
+              f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    banks["int8"] = rh.build_hier_bank(quantize_values(bank), bn=512, gsz_sem=8, gsz_geo=64)
+    torch.cuda.synchronize()
+    hb, hv = banks["defaults"], banks["all"]
+    print(f"int8 HierBank at the defaults: {time.perf_counter() - t0:.2f} s; t_real "
+          f"{hb.t_real}, t_pad {hb.t_pad}; g_sem_cat {tuple(hb.g_sem_cat.shape)}, g_sem_vw "
+          f"{tuple(hb.g_sem_vw.shape)}, g_geo_cat {tuple(hb.g_geo_cat.shape)}, g_geo_vw "
+          f"{tuple(hb.g_geo_vw.shape)}")
+
+    enc = load_model("RANGE+", db_path=hb, retrieval="hier", device="cuda")
+    cfg = enc.model.config
+    bm, k_tiles, _, j_sem = cfg.hier_plan(BATCH)
+    k_geo = max(8, k_tiles // 2)  # the k_geo a res_rank bank gets
+    gpt_s, gpt_g = hb.bn // hb.gsz_sem, hb.bn // hb.gsz_geo
+    Dv, sem_d = hb.value_dim, hb.sem_d
+    coords = _random_coords(BATCH, gen, dev)
+    flip = ("bf16 weights (p times the row's scale, e, e - ps/cnt) can round the other way "
+            "where the logits' f32 summation order moves them across a bf16 boundary: one "
+            "ulp of one term")
+    rows_off = max(2, BATCH // 100)
+    with torch.no_grad():
+        q = enc.model.query_embedding(coords)
+        x = lonlat_deg_to_xyz(coords)
+        q_s, q_x = rh._pad_queries(q, x, bm)
+        q_cat = rf.pack_queries(q_s, q_x, 12.0, 40.0, hb.tier)[
+            rh._hybrid_order(q_x, BATCH)].contiguous()
+
+        # ---- 17. the wide-tail scan: two families, the mixed launch, geo-less
+        Gs, Gg = hb.t_real * gpt_s, hb.t_real * gpt_g
+        ws, wg = hb.g_sem_cat.shape[1], hb.g_geo_cat.shape[1]
+        scans = {}
+        for case, sem_vw, has_geo in (("two-family", hb.g_sem_vw, True),
+                                      ("mixed", hv.g_sem_vw_lr, True),
+                                      ("geo-less", hb.g_sem_vw, False)):
+            args = (q_cat, hb.g_sem_cat, hb.g_geo_cat, sem_vw, hb.g_geo_vw)
+            kw = dict(gpt_s=gpt_s, gpt_g=gpt_g, has_geo=has_geo)
+            got = rh._hier_scan_call(*args, **kw)
+            ref = rh._hier_scan_plain(*args, **kw)
+            mag = rh._hier_scan_plain(q_cat, hb.g_sem_cat, hb.g_geo_cat, sem_vw.abs(),
+                                      hb.g_geo_vw.abs(), **kw)[4]
+            Ws, Wg = sem_vw.shape[1], hb.g_geo_vw.shape[1] if has_geo else 0
+            tag = f"hier_scan[wide, {case}]"
+            errs = [_compare(f"{tag} m_s", got[0], ref[0], 1e-4, 0.0,
+                             "f32 sums of the same bf16 products in another order"),
+                    _compare(f"{tag} s_s", got[1], ref[1], 0.0, 1e-4,
+                             "f32 sums of f32 exp2 in another order"),
+                    _compare_terms(f"{tag} tails[sem]", got[4][:, :Ws], ref[4][:, :Ws],
+                                   mag[:, :Ws], flip)]
+            if has_geo:
+                errs += [_compare(f"{tag} m_g", got[2], ref[2], 1e-4, 0.0,
+                                  "f32 sums of the same bf16 products in another order"),
+                         _compare(f"{tag} s_g", got[3], ref[3], 0.0, 1e-4,
+                                  "f32 sums of f32 exp2 in another order"),
+                         _compare_terms(f"{tag} tails[geo]", got[4][:, Ws:], ref[4][:, Ws:],
+                                        mag[:, Ws:], flip)]
+            ms = _cuda_ms(lambda: rh._hier_scan_call(*args, **kw), 10)
+            plain_ms = _cuda_ms(lambda: rh._hier_scan_plain(*args, **kw), 2)
+            # the work needed: group logits over sem_d (and the 9 geo) columns,
+            # the tails over Dv + the count (or the lr coefficients + the count)
+            r_s = hv.lr_rank if case == "mixed" else Dv
+            flops = 2 * BATCH * (Gs * (sem_d + r_s + 1)
+                                 + (Gg * (GEO_COLS + Dv + 1) if has_geo else 0))
+            n_bytes = (BATCH * (ws + (wg if has_geo else 0)) * 2 + Gs * (ws + Ws) * 2
+                       + (Gg * (wg + Wg) * 2 if has_geo else 0)
+                       + (4 if has_geo else 2) * BATCH * hb.t_pad * 4 + BATCH * (Ws + Wg) * 4)
+            b_ms, b_by = _bound(n_bytes, flops, BF16_FLOPS)
+            print(f"{tag} B={BATCH}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+                  f"{b_ms:.4f} ms ({b_by})")
+            scans[case] = got
+            if case == "two-family":
+                report["hier_scan_wide"] = dict(
+                    max_abs_err=max(e for e, _ in errs), err_over_tol=max(r for _, r in errs),
+                    ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+            else:
+                report["hier_scan_wide"]["max_abs_err"] = max(
+                    report["hier_scan_wide"]["max_abs_err"], *(e for e, _ in errs))
+                report["hier_scan_wide"]["err_over_tol"] = max(
+                    report["hier_scan_wide"]["err_over_tol"], *(r for _, r in errs))
+
+        # ---- 18. kernel 15's plain variant (GEO true / false, bf16 / int8)
+        m_s, s_s, m_g, s_g, tails = scans["two-family"]
+        idx, _ = rh.select_tiles(m_s, s_s, m_g, s_g, t_real=hb.t_real, k_tiles=k_tiles,
+                                 bm=bm, n_valid=BATCH, j_sem=j_sem, j_geo=cfg.j_geo)
+        segs = {"acc_s": slice(0, Dv), "d_s": slice(2 * Dv, 2 * Dv + 1)}
+        geo_segs = {"acc_g": slice(Dv, 2 * Dv), "d_g": slice(2 * Dv + 1, 2 * Dv + 2)}
+        for quant, hbq in (("bf16", hb), ("int8", banks["int8"])):
+            for geo in (True, False):
+                args = (q_cat, hbq.k_cat, hbq.values, hbq.value_scale, hbq.mask_neg, idx,
+                        hbq.g_sem_cat, hbq.g_geo_cat, hbq.g_sem_vw, hbq.g_geo_vw)
+                kw = dict(sem_d=sem_d, bm=bm, bn=hbq.bn, gpt_s=gpt_s, gpt_g=gpt_g, geo=geo,
+                          lr=False)
+                tag = f"hier_parts[plain, {quant}, GEO={str(geo).lower()}]"
+                got = rh._hier_parts_call(*args, **kw)
+                ref = rh._hier_parts_plain(*args, **kw)
+                mag = rh._hier_parts_plain(*args, **kw, magnitude=True)
+                errs = [_compare_terms(f"{tag} {name}", got[:, cols], ref[:, cols],
+                                       mag[:, cols], flip, rows_off_max=rows_off)
+                        for name, cols in {**segs, **(geo_segs if geo else {})}.items()]
+                zero = [got[:, 2 * Dv + 2:]] + (
+                    [] if geo else [got[:, Dv:2 * Dv], got[:, 2 * Dv + 1:2 * Dv + 2]])
+                if any(z.abs().max().item() != 0.0 for z in zero):
+                    raise AssertionError(f"{tag}: the pad (or skipped geo) columns not zero")
+                k_ms = _cuda_ms(lambda: rh._hier_parts_call(*args, **kw), 10)
+                p_ms = _cuda_ms(lambda: rh._hier_parts_plain(*args, **kw), 2)
+                b_ms, b_by = _parts_bound(hbq, idx, bm, geo, lr=False)
+                print(f"{tag} B={BATCH} K={idx.shape[1]} bm={bm}: kernel {k_ms:.3f} ms, "
+                      f"plain {p_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
+                if quant == "bf16" and geo:  # the default RANGE+ request's launch
+                    report["hier_parts_plain"] = dict(
+                        max_abs_err=max(e for e, _ in errs),
+                        err_over_tol=max(r for _, r in errs), ms=k_ms, plain_ms=p_ms,
+                        bound_ms=b_ms, bound_by=b_by)
+                else:
+                    report["hier_parts_plain"]["max_abs_err"] = max(
+                        report["hier_parts_plain"]["max_abs_err"], *(e for e, _ in errs))
+                    report["hier_parts_plain"]["err_over_tol"] = max(
+                        report["hier_parts_plain"]["err_over_tol"], *(r for _, r in errs))
+
+        # ---- 19. kernel 14's plain, lr and rr shapes, sem and geo; kernel 16 rg=0
+        idx_f = {False: rh.select_tiles(m_s, s_s, m_g, s_g, t_real=hb.t_real,
+                                        k_tiles=k_tiles, bm=bm, n_valid=BATCH, j_sem=j_sem,
+                                        j_geo=cfg.j_geo, mode="range")[0],
+                 True: rh.select_tiles(m_g, s_g, m_s, s_s, t_real=hb.t_real, k_tiles=k_geo,
+                                       bm=bm, n_valid=BATCH, j_sem=cfg.j_geo, j_geo=j_sem,
+                                       mode="range")[0]}
+        rg0_parts = {}
+        for shape in ("plain", "lr", "rr"):
+            key = f"hier_parts_family_{shape}"
+            tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, errs=[])
+            for geo in (False, True):
+                fam = "geo" if geo else "sem"
+                hbq = hb if shape == "plain" else hv
+                lr = shape == "lr"
+                vw = ((hbq.g_geo_vw_lr if geo else hbq.g_sem_vw_lr) if lr
+                      else (hbq.g_geo_vw if geo else hbq.g_sem_vw))
+                z = (hbq.z_geo if geo else hbq.z_sem) if shape == "rr" else None
+                lrr = (hbq.lr_geo if geo else hbq.lr_rank) if lr else Dv
+                idx = idx_f[geo]
+                args = (q_cat, hbq.k_cat, hbq.mask_neg, idx,
+                        hbq.g_geo_cat if geo else hbq.g_sem_cat, vw, z)
+                kw = dict(sem_d=sem_d, bm=bm, bn=hbq.bn, gpt=gpt_g if geo else gpt_s, geo=geo,
+                          lrr=lrr, lr=lr, values=hbq.values, scale=hbq.value_scale)
+                tag = f"hier_parts_family[{shape}, {fam}]"
+                got = rh._hier_parts_family_call(*args, **kw)
+                ref = rh._hier_parts_family_plain(*args, **kw)
+                mag = rh._hier_parts_family_plain(*args, **kw, magnitude=True)
+                cols = {"acc": slice(0, Dv), "d": slice(Dv, Dv + 1)}
+                if shape != "plain":
+                    cols["alr" if lr else "az"] = slice(Dv + 128, None)
+                tot["errs"] += [_compare_terms(f"{tag} {n}", got[:, c], ref[:, c], mag[:, c],
+                                               flip, rows_off_max=rows_off)
+                                for n, c in cols.items()]
+                if got[:, Dv + 1:Dv + 128].abs().max().item() != 0.0:
+                    raise AssertionError(f"{tag}: the pad columns not zero")
+                if shape == "rr" and geo:
+                    rg0_parts["pg"] = got
+                f_ms = _cuda_ms(lambda: rh._hier_parts_family_call(*args, **kw), 10)
+                f_plain = _cuda_ms(lambda: rh._hier_parts_family_plain(*args, **kw), 2)
+                b_ms, b_by = _family_bound(hbq, idx, bm, geo, shape)
+                print(f"{tag} B={BATCH} K={idx.shape[1]}: kernel {f_ms:.3f} ms, plain "
+                      f"{f_plain:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+                tot["ms"] += f_ms
+                tot["plain_ms"] += f_plain
+                tot["bound_ms"] += b_ms
+            report[key] = dict(max_abs_err=max(e for e, _ in tot["errs"]),
+                               err_over_tol=max(r for _, r in tot["errs"]), ms=tot["ms"],
+                               plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
+                               bound_by=b_by)
+
+        # kernel 16 without lr_geo: the sem family's rr + lr parts, the geo
+        # family's rr shape, the mixed scan's tails (the lr + rr bank's path)
+        ps = rh._hier_parts_family_call(
+            q_cat, hv.k_cat, hv.mask_neg, idx_f[False], hv.g_sem_cat, hv.g_sem_vw_lr,
+            hv.z_sem, sem_d=sem_d, bm=bm, bn=hv.bn, gpt=gpt_s, geo=False, lrr=hv.lr_rank)
+        q_srt = torch.nn.functional.pad(q, (0, 0, 0, q_cat.shape[0] - BATCH)).contiguous()
+        rrp, Ws = hv.z_sem.shape[1], hv.g_sem_vw_lr.shape[1]
+        ck = dict(Ws=Ws, r=hv.lr_rank, rrp=rrp, Dv=Dv, beta=0.5, rg=0, Wg=hb.g_geo_vw.shape[1])
+        c_args = (ps, rg0_parts["pg"], scans["mixed"][4], q_srt, hv.w_sem, hv.u_sem,
+                  hv.w_geo, None)
+        err, ratio = _compare("combine_cat[rg=0]", rh._combine_cat_call(*c_args, **ck),
+                              rh._combine_cat_plain(*c_args, **ck), 1e-5, 1e-5,
+                              "f32 products in another summation order")
+        ms = _cuda_ms(lambda: rh._combine_cat_call(*c_args, **ck), 10)
+        plain_ms = _cuda_ms(lambda: rh._combine_cat_plain(*c_args, **ck), 10)
+        Dq = q_srt.shape[1]
+        flops = 2 * BATCH * Dv * (2 * rrp + hv.lr_rank) + 2 * BATCH * Dv
+        n_bytes = (BATCH * ((rrp + 128 + Ws) + (Dv + 128 + rrp) + Ws + ck["Wg"] + Dq) * 4
+                   + (2 * rrp + hv.lr_rank) * Dv * 4 + BATCH * (Dv + Dq) * 4)
+        b_ms, b_by = _bound(n_bytes, flops, F32_FLOPS)
+        print(f"combine_cat[rg=0] B={BATCH}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by})")
+        report["combine_cat_rg0"] = dict(max_abs_err=err, err_over_tol=ratio, ms=ms,
+                                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+
+        # kernel 13 and the segment-sum scan over a tail_super bank without
+        # lr_rank: the full-width supergroup operand and dvw (W = 1,152)
+        ht = banks["ts"]
+        sup_r = ht.tail_super // ht.gsz_sem
+        args = (q_cat, ht.g_sem_cat, ht.g_geo_cat, ht.g_sem_ts_vw, ht.g_geo_vw)
+        kw = dict(gpt_s=gpt_s, gpt_g=gpt_g, sup_r=sup_r)
+        got = rh._hier_scan_call(*args, **kw)
+        ref = rh._hier_scan_plain(*args, **kw)
+        mag = rh._hier_scan_plain(q_cat, ht.g_sem_cat, ht.g_geo_cat, ht.g_sem_ts_vw.abs(),
+                                  ht.g_geo_vw.abs(), **kw)[4]
+        Ws = ht.g_sem_ts_vw.shape[1]
+        tag = f"hier_scan[sup_r={sup_r}, wide]"
+        errs = [_compare(f"{tag} m_s", got[0], ref[0], 1e-4, 0.0,
+                         "f32 sums of the same bf16 products in another order"),
+                _compare(f"{tag} s_s", got[1], ref[1], 0.0, 1e-4,
+                         "f32 sums of f32 exp2 in another order"),
+                _compare_terms(f"{tag} tails[sem]", got[4][:, :Ws], ref[4][:, :Ws],
+                               mag[:, :Ws], flip),
+                _compare_terms(f"{tag} tails[geo]", got[4][:, Ws:], ref[4][:, Ws:],
+                               mag[:, Ws:], flip)]
+        for key in ("hier_scan_sup", "hier_scan_wide"):
+            report[key]["max_abs_err"] = max(report[key]["max_abs_err"], *(e for e, _ in errs))
+            report[key]["err_over_tol"] = max(report[key]["err_over_tol"],
+                                              *(r for _, r in errs))
+        print(f"{tag} B={BATCH}: kernel {_cuda_ms(lambda: rh._hier_scan_call(*args, **kw), 10):.3f}"
+              f" ms, plain {_cuda_ms(lambda: rh._hier_scan_plain(*args, **kw), 2):.3f} ms")
+        m_s, s_s, m_g, s_g, _ = got
+        idx_sm, _ = rh.select_tiles(m_s, s_s, m_g, s_g, t_real=ht.t_real,
+                                    k_tiles=k_tiles + TS_M_CORR, bm=bm, n_valid=BATCH,
+                                    j_sem=j_sem, j_geo=cfg.j_geo, mode="range")
+        cargs, ckw = (q_cat, idx_sm, ht.g_sem_cat, ht.g_sem_ts_dvw), dict(bm=bm, gpt=gpt_s)
+        nB, M = idx_sm.shape
+        tag = f"hier_corr[wide] B={BATCH} K+m_corr={M} bm={bm}"
+        err, ratio = _compare_terms(
+            tag, rh._hier_corr_call(*cargs, **ckw), rh._hier_corr_plain(*cargs, **ckw),
+            rh._hier_corr_plain(*cargs, **ckw, magnitude=True),
+            "bf16 weights of f32 logits summed in another order: one ulp of one term",
+            rows_off_max=rows_off)
+        ms = _cuda_ms(lambda: rh._hier_corr_call(*cargs, **ckw), 10)
+        plain_ms = _cuda_ms(lambda: rh._hier_corr_plain(*cargs, **ckw), 2)
+        W = ht.g_sem_ts_dvw.shape[1]
+        U = int(torch.unique(idx_sm).numel())
+        groups = (_block_queries(nB, bm, dev) * M).sum().item() * gpt_s
+        # group logits over sem_d columns and the product over Dv + the count
+        b_ms, b_by = _bound(BATCH * sem_d * 2 + U * gpt_s * (ws + W) * 2 + BATCH * W * 4,
+                            2 * groups * (sem_d + Dv + 1), BF16_FLOPS)
+        print(f"{tag}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms "
+              f"({b_by})")
+        report["hier_corr_wide"] = dict(max_abs_err=err, err_over_tol=ratio, ms=ms,
+                                        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+
+    # ---- 20. serving through load_model at the defaults, int8, each subset
+    wide = {"siren_tower": 1, "hier_scan": 1, "hier_scan_wide": 1}
+    plus = {**wide, "hier_parts": 1, "hier_parts_plain": 1}
+    encs = {"RANGE+": (enc, plus),
+            "RANGE": (load_model("RANGE", db_path=hb, retrieval="hier", device="cuda"),
+                      {**plus, "hier_scan_stats": 1})}
+    requests = [_random_coords(b, gen, dev) for b in REQUESTS]
+    launches = {}
+    answers = {}
+    for name, (e, want) in encs.items():
+        for c in requests:
+            out, got = _drive(f"{name} defaults B={c.shape[0]}: (bm, K, k_geo, j_sem) = "
+                              f"{e.model.config.hier_plan(c.shape[0])}",
+                              lambda: _send(e, c), want)
+            if out.shape != (c.shape[0], Dv + 256) or not torch.isfinite(out).all():
+                raise AssertionError(f"{name} defaults B={c.shape[0]}: shape or non-finite")
+            launches = {k: launches.get(k, 0) + n for k, n in got.items()}
+            answers[name] = out
+    subsets = (
+        ("lr", banks["lr"], {}, {**wide, "hier_parts": 1}),
+        ("rr", banks["rr"], {}, {**wide, "hier_parts_family_rr": 2}),
+        ("lr+rr without lr_geo", banks["lr_rr"], {},
+         {**wide, "hier_parts_family": 1, "hier_parts_family_rr": 1, "combine_cat": 1,
+          "combine_cat_rg0": 1}),
+        ("k_geo=8 without rr", hb, dict(k_geo=8), {**wide, "hier_parts_family_plain": 2}),
+        # kernel 14's lr shape, both families (the tails 384 and 512 wide)
+        ("lr+lr_geo, k_geo=8", banks["lr_lrg"], dict(k_geo=8),
+         {"siren_tower": 1, "hier_scan": 1, "hier_parts_family_lr": 2}),
+        (f"tail_super={TAIL_SUPER} without lr_rank, k_geo=8, m_corr={TS_M_CORR}",
+         banks["ts"], dict(k_geo=8, tail_super=TAIL_SUPER, m_corr=TS_M_CORR),
+         {**wide, "hier_scan_sup": 1, "hier_corr": 1, "hier_corr_wide": 1,
+          "hier_parts_family_plain": 2}))
+    c = requests[-1]
+    for name, hbq, kw, want in subsets:
+        e = load_model("RANGE+", db_path=hbq, retrieval="hier", device="cuda",
+                       lr_rank=hbq.lr_rank or None, res_rank=hbq.res_rank or None,
+                       lr_geo=hbq.lr_geo or None, **kw)
+        out, got = _drive(f"RANGE+ {name} B={BATCH}", lambda: e(c), want)
+        launches = {k: launches.get(k, 0) + n for k, n in got.items()}
+        answers[name] = out
+    for name in ("RANGE+", "RANGE"):
+        e = load_model(name, db_path=banks["int8"], retrieval="hier", value_quant="int8",
+                       device="cuda")
+        out, got = _drive(f"{name} defaults int8 B={BATCH}", lambda: e(c), encs[name][1])
+        launches = {k: launches.get(k, 0) + n for k, n in got.items()}
+        ref16 = answers[name][:, :Dv]
+        rel = (out[:, :Dv] - ref16).abs() / ref16.abs().clamp_min(0.1)
+        print(f"{name} defaults int8 vs bf16 HierBank B={BATCH}: relerr mean "
+              f"{rel.mean().item():.5f} (bar < 0.01, tests/test_hier.py:139-149), p99 "
+              f"{torch.quantile(rel.flatten()[::4], 0.99).item():.5f}")
+        if not torch.isfinite(out).all() or rel.mean().item() >= 0.01:
+            raise AssertionError(f"{name} defaults int8 against bf16 outside its bar")
+    print(f"general one-level path launches: {launches}")
+    for k in ("hier_scan_wide", "hier_parts_plain", "hier_parts_family_plain",
+              "hier_parts_family_lr", "hier_parts_family_rr", "combine_cat_rg0",
+              "hier_corr_wide"):
+        report[k]["launches"] = launches[k]
+    for k in ("hier_scan", "hier_parts", "hier_scan_stats", "hier_parts_family",
+              "combine_cat", "hier_scan_sup", "hier_corr"):
+        report[k]["launches"] += launches[k]
+
+    # ---- 21. fidelity at B=10,000 against the exact f32 retrieve
+    with torch.no_grad():
+        unit = answers["RANGE+"][:, Dv:]
+        refs = {"range+": retrieval.retrieve(unit, lonlat_deg_to_xyz(c), hb.bank,
+                                             sem_temp=12.0, beta=0.5),
+                "range": retrieval.retrieve(answers["RANGE"][:, Dv:], None, hb.bank,
+                                            sem_temp=15.0, mode="range")}
+    for name, bar in (("RANGE+", 0.12), ("RANGE", 0.10), ("lr", 0.12), ("rr", 0.12),
+                      ("lr+rr without lr_geo", 0.12), ("k_geo=8 without rr", 0.12),
+                      ("lr+lr_geo, k_geo=8", 0.12),
+                      (f"tail_super={TAIL_SUPER} without lr_rank, k_geo=8, m_corr={TS_M_CORR}",
+                       0.12)):
+        ref = refs["range" if name == "RANGE" else "range+"]
+        rel = (answers[name][:, :Dv] - ref).abs() / ref.abs().clamp_min(0.1)
+        mean, p99 = rel.mean().item(), torch.quantile(rel.flatten()[::4], 0.99).item()
+        src = "tests/test_hier.py:136" if name == "RANGE" else "tests/test_hier.py:167"
+        print(f"{name if name in ('RANGE', 'RANGE+') else 'RANGE+ ' + name} B={BATCH} relerr "
+              f"vs exact f32 retrieve: mean {mean:.5f} (bar {bar}, {src}), p99 {p99:.5f} "
+              "(every 4th element)")
+        if mean > bar:
+            raise AssertionError(f"{name}: relerr mean {mean:.5f} over its bar {bar}")
+
+    e2e = {b.shape[0]: _host_ms(lambda: enc(b), 5) for b in requests[1:]}
+    print("RANGE+ defaults end to end (coords already on the card), median of 5 calls: "
+          + ", ".join(f"B={b} {ms:.3f} ms" for b, ms in e2e.items()))
+    print(f"RANGE defaults end to end B={BATCH}: "
+          f"{_host_ms(lambda: encs['RANGE'][0](c), 5):.3f} ms")
+    _trace(lambda: enc(c), 3, f"RANGE+ defaults B={BATCH}")
+    return e2e[BATCH]
+
+
 def _kind(name: str) -> str:
     """A device kernel's share of a training step: convolutions (cuDNN's
     implicit GEMMs, and its FFT convolutions: the transforms and their
@@ -1723,12 +2174,14 @@ def main() -> int:
     range_ms = range_phases(dev, gen, report, hb, enc, bank)
     ts_ms = tail_super_phases(dev, gen, report, bank, enc)
     topk2_ms = two_level_topk_phases(dev, gen, report, bank, enc)
+    general_ms = general_phases(dev, gen, report, bank)
     del hb, enc, bank
     torch.cuda.empty_cache()
     step_s = train_phases(dev, report)
     print(f"end to end B={BATCH}: flagship {hier_ms:.3f} ms, dense {dense_ms:.3f} ms, "
           f"hier_topk {topk_ms:.3f} ms, RANGE flagship {range_ms:.3f} ms, tail_super "
-          f"flagship {ts_ms:.3f} ms, two-level hier_topk {topk2_ms:.3f} ms; SatCLIP "
+          f"flagship {ts_ms:.3f} ms, two-level hier_topk {topk2_ms:.3f} ms, RANGE+ at the "
+          f"JAX defaults {general_ms:.3f} ms; SatCLIP "
           f"training step ({TRAIN_ACCUM} x {TRAIN_MICRO}) {step_s:.3f} s")
 
     kernels = [dict(name=k, route="cuda", source=f"range_tpu_torch/csrc/{src}.cu",

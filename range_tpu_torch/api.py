@@ -2,9 +2,11 @@
 
 Counterpart of `range_tpu/api.py:31-79,121-266,433-491` (reference
 `range/load_model.py:16-51`) for the models this port serves: RANGE and
-RANGE+ (dense retrieval, the "exact" serving profile; hierarchical, the
-"flagship" and "turbo" profiles; ``value_quant="int8"`` stores the bank's
-values as per-row int8 codes for either) and the SatCLIP tower.
+RANGE+ (dense retrieval, the "exact" serving profile; hierarchical,
+``retrieval="hier"`` at any subset of the lr_rank / res_rank / lr_geo
+knobs, the "flagship" and "turbo" profiles among them;
+``value_quant="int8"`` stores the bank's values as per-row int8 codes for
+either) and the SatCLIP tower.
 Each registered constructor returns a `GeoEncoder`: an `nn.Module` plus
 its static ``embedding_dim`` and device.  Coordinates go in as [B, 2] (lon, lat)
 degrees and a [B, D] tensor on the model's device comes out.
@@ -162,10 +164,6 @@ def _build_range(name: str, mode: str, pretrained_path, db_path, beta, *,
         raise ValueError(f"retrieval must be 'dense' or 'hier', got {retrieval!r}")
     if retrieval == "hier":
         # every knob that raises is checked before the (slow) bank build
-        if mode == "range" and not lr_rank:
-            raise _not_ported("hierarchical RANGE without lr_rank (TPU "
-                              "kernel 15's plain variant and the wide-tail "
-                              "scan)", "Queue 1, 'Hier serving: what remains'")
         for knob, val in (("adaptive_frac", adaptive_frac),
                           ("dedup", dedup), ("topk_lr", topk_lr),
                           ("sel_lr", sel_lr)):

@@ -1,12 +1,17 @@
 // Hierarchical retrieval, stage 3: the combine + concat epilogue.
 //
-// Replaces: range_tpu/ops/retrieval_hier.py, `_combine_cat_kernel` with
-// the low-rank geo tail (reached via _combine_cat_call <- retrieve_hier).
-// Per query row, for each family f (sem: parts ps, tail columns [0, Ws);
-// geo: parts pg, tail columns [Ws, Ws + Wg)):
+// Replaces: range_tpu/ops/retrieval_hier.py, `_combine_cat_kernel`
+// (reached via _combine_cat_call <- retrieve_hier), with the low-rank geo
+// tail (rg > 0) and without it (rg = 0).  Per query row, for each family f
+// (sem: parts ps, tail columns [0, Ws); geo: parts pg, tail columns
+// [Ws, Ws + Wg)), with a low-rank tail (r_f > 0, parts az | d | pad | alr):
 //   corr_f = tails_f - parts_f[:, rrp + 128 :]        (all tiles - approx)
 //   acc_f  = [parts_f[:, :rrp] | corr_f[:, :r_f]] @ [w_f; u_f]
 //   d_f    = parts_f[:, rrp] + corr_f[:, r_f]
+// and with the full-width tail (r_f = 0, the geo family of rg = 0: parts
+// acc | d | pad | az, the group approximation already subtracted):
+//   acc_f  = parts_f[:, :Dv] + tails_f[:, :Dv] + parts_f[:, Dv + 128 :] @ w_f
+//   d_f    = parts_f[:, Dv] + tails_f[:, Dv]
 // then out[:, :Dv] = beta acc_s / max(d_s, 1e-30) + (1 - beta) acc_g /
 // max(d_g, 1e-30) and out[:, Dv:] = the (sorted) queries.
 //
@@ -38,9 +43,10 @@ constexpr int THREADS = 256;  // 16 x 16 threads, 4 rows x 8 columns each
 struct Family {
   const float* parts;  // [Bp, pw]
   const float* w;      // [rrp + r, Dv] stacked [w; u]
-  int pw;              // row width of parts: rrp + 128 + W
+  int pw;              // row width of parts: rrp + 128 + W, or Dv + 128 + rrp (r = 0)
   int toff;            // first tails column of the family
-  int r;               // low-rank width
+  int r;               // low-rank width; 0: the full-width tail
+  int aoff;            // first parts column of the rr coefficients: 0, or Dv + 128
 };
 
 __global__ void __launch_bounds__(THREADS)
@@ -70,7 +76,7 @@ combine_cat_kernel(Family fs, Family fg, const float* __restrict__ tails, int tw
         float v = 0.f;
         if (k < Kf && q < Bp) {
           const float* p = fam.parts + (size_t)q * fam.pw;
-          v = k < rrp ? p[k]
+          v = k < rrp ? p[fam.aoff + k]
                       : tails[(size_t)q * tw + fam.toff + (k - rrp)] - p[rrp + 128 + (k - rrp)];
         }
         As[kk][row] = v;
@@ -108,7 +114,17 @@ combine_cat_kernel(Family fs, Family fg, const float* __restrict__ tails, int tw
     const float* pg = fg.parts + (size_t)q * fg.pw;
     const float* tq = tails + (size_t)q * tw;
     const float ds = fmaxf(ps[rrp] + (tq[fs.toff + fs.r] - ps[rrp + 128 + fs.r]), 1e-30f);
-    const float dg = fmaxf(pg[rrp] + (tq[fg.toff + fg.r] - pg[rrp + 128 + fg.r]), 1e-30f);
+    float dg;
+    if (fg.r) {
+      dg = fmaxf(pg[rrp] + (tq[fg.toff + fg.r] - pg[rrp + 128 + fg.r]), 1e-30f);
+    } else {  // the full-width tail: the parts' and the tail's own columns
+      dg = fmaxf(pg[Dv] + tq[fg.toff + Dv], 1e-30f);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = col0 + tx * 8 + j;
+        acc[1][i][j] = (pg[c] + tq[fg.toff + c]) + acc[1][i][j];
+      }
+    }
     float o[8];
 #pragma unroll
     for (int j = 0; j < 8; ++j)
@@ -127,20 +143,22 @@ combine_cat_kernel(Family fs, Family fg, const float* __restrict__ tails, int tw
 
 }  // namespace
 
-// ps [Bp, rrp + 128 + Ws], pg [Bp, rrp + 128 + Wg], tails [Bp, Ws + Wg],
-// q [Bp, Dq], wsem [rrp + r, Dv], wgeo [rrp + rg, Dv], out [Bp, Dv + Dq];
-// all f32, contiguous, 16-byte aligned.
+// ps [Bp, rrp + 128 + Ws], pg [Bp, rrp + 128 + Wg] (rg = 0: [Bp, Dv + 128 +
+// rrp], Wg >= Dv + 1 the full-width geo tail), tails [Bp, Ws + Wg], q
+// [Bp, Dq], wsem [rrp + r, Dv], wgeo [rrp + rg, Dv], out [Bp, Dv + Dq]; all
+// f32, contiguous, 16-byte aligned.
 extern "C" int combine_cat_launch(const void* ps, const void* pg, const void* tails,
                                   const void* q, const void* wsem, const void* wgeo, void* out,
                                   int Bp, int Dq, int Ws, int r, int rrp, int Dv, int rg, int Wg,
                                   float beta, void* stream) {
   if (Bp <= 0) return 0;
-  if (Dv % BN || Dq < 0 || Dq % 4 || r <= 0 || r >= Ws || rg <= 0 || rg >= Wg || rrp <= 0)
+  if (Dv % BN || Dq < 0 || Dq % 4 || r <= 0 || r >= Ws || rg < 0 || rrp <= 0 ||
+      (rg ? rg >= Wg : Wg < Dv + 1))
     return (int)cudaErrorInvalidValue;
   const Family fs{static_cast<const float*>(ps), static_cast<const float*>(wsem),
-                  rrp + 128 + Ws, 0, r};
+                  rrp + 128 + Ws, 0, r, 0};
   const Family fg{static_cast<const float*>(pg), static_cast<const float*>(wgeo),
-                  rrp + 128 + Wg, Ws, rg};
+                  rg ? rrp + 128 + Wg : Dv + 128 + rrp, Ws, rg, rg ? 0 : Dv + 128};
   const dim3 grid((Bp + BM - 1) / BM, Dv / BN);
   combine_cat_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       fs, fg, static_cast<const float*>(tails), Ws + Wg, static_cast<const float*>(q),

@@ -30,7 +30,10 @@
 // (a long chain through one tensor-core accumulator drifts).  A ragged
 // end reads zero centroid and dvw rows, which add nothing.  Nothing
 // carries between blocks: the TPU's per-block scratch accumulator becomes
-// the registers of the one block that owns the queries.
+// the registers of the one block that owns the queries.  A dvw wider than
+// 512 columns (banks without lr_rank: the full-width sums, Dv + 128) is cut
+// into ceil(W / 512) column slices over grid.y, as the scan's wide tail
+// (hier_scan.cu): each slice recomputes the logits and weights.
 
 #include "mma_common.cuh"
 
@@ -41,7 +44,7 @@ namespace {
 constexpr int BM = 64;        // queries per block
 constexpr int BN = 32;        // list positions (groups) per step
 constexpr int THREADS = 256;  // 8 warps
-constexpr int MAX_NT = 8;     // output n8 tiles per warp: W <= 8 warps x 64
+constexpr int MAX_NT = 8;     // output n8 tiles per warp: a slice <= 8 warps x 64
 constexpr int LDL = BN + 1;   // f32 row stride of the logit tile
 constexpr int LDP = BN + 8;   // bf16 row stride of the weight tile
 
@@ -49,12 +52,13 @@ struct Layout {
   size_t q, g, v, lg, p, total;
 };
 
-__host__ __device__ inline Layout layout(int wk, int W) {
+// sw: the columns of one slice
+__host__ __device__ inline Layout layout(int wk, int sw) {
   Layout l;
   l.q = 0;
   l.g = l.q + (size_t)BM * (wk + 8) * 2;
   l.v = l.g + (size_t)2 * BN * (wk + 8) * 2;
-  l.lg = l.v + (size_t)2 * BN * (W + 8) * 2;
+  l.lg = l.v + (size_t)2 * BN * (sw + 8) * 2;
   l.p = l.lg + (size_t)BM * LDL * 4;
   l.total = l.p + (size_t)BM * LDP * 2;
   return l;
@@ -63,8 +67,8 @@ __host__ __device__ inline Layout layout(int wk, int W) {
 __global__ void __launch_bounds__(THREADS, 1)
 hier_corr_kernel(const __nv_bfloat16* __restrict__ q_cat, const int* __restrict__ idx,
                  const __nv_bfloat16* __restrict__ g_cat, const __nv_bfloat16* __restrict__ dvw,
-                 float* __restrict__ out, int Bp, int cat_d, int wk, int W, int bm, int M,
-                 int gpt, Layout lay) {
+                 float* __restrict__ out, int Bp, int cat_d, int wk, int W, int sw, int bm,
+                 int M, int gpt, Layout lay) {
   extern __shared__ float4 smem4[];
   char* base = reinterpret_cast<char*>(smem4);
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(base + lay.q);
@@ -79,9 +83,11 @@ hier_corr_kernel(const __nv_bfloat16* __restrict__ q_cat, const int* __restrict_
   const int* tiles = idx + (size_t)(q0 / bm) * M;  // this block's list
   const int p_end = M * gpt;
   const int n_steps = (p_end + BN - 1) / BN;
-  const int ldk = wk + 8, ldv = W + 8;
-  const int cpr = wk / 8, cpv = W / 8;
-  const int ntw = W / 64;            // output n8 tiles of this warp
+  const int col_lo = blockIdx.y * sw;  // this block's columns [col_lo, + cols)
+  const int cols = W - col_lo < sw ? W - col_lo : sw;
+  const int ldk = wk + 8, ldv = sw + 8;
+  const int cpr = wk / 8, cpv = cols / 8;
+  const int ntw = cols / 64;         // output n8 tiles of this warp
   const int col_w = warp * ntw * 8;  // first output column of this warp
 
   auto prefetch = [&](int buf, int it) {
@@ -100,7 +106,7 @@ hier_corr_kernel(const __nv_bfloat16* __restrict__ q_cat, const int* __restrict_
       const int p = p0 + r;
       const bool ok = p < p_end;
       const size_t row = ok ? (size_t)tiles[p / gpt] * gpt + p % gpt : 0;
-      cp_async16(vs + r * ldv + c, dvw + row * W + c, ok);
+      cp_async16(vs + r * ldv + c, dvw + row * W + col_lo + c, ok);
     }
     cp_async_commit();
   };
@@ -199,7 +205,7 @@ hier_corr_kernel(const __nv_bfloat16* __restrict__ q_cat, const int* __restrict_
       for (int half = 0; half < 2; ++half) {
         const int q = q0 + mt * 16 + g + 8 * half;
         if (q >= Bp) continue;
-        const int col = col_w + nt * 8 + 2 * t;
+        const int col = col_lo + col_w + nt * 8 + 2 * t;
         *reinterpret_cast<float2*>(out + (size_t)q * W + col) =
             make_float2(acc[mt][nt][2 * half], acc[mt][nt][2 * half + 1]);
       }
@@ -210,23 +216,28 @@ hier_corr_kernel(const __nv_bfloat16* __restrict__ q_cat, const int* __restrict_
 
 // q_cat [Bp, cat_d] bf16 packed queries (the logits contract columns
 // [0, gw)), idx [Bp / bm, M] int32 tiles, g_cat [G, gw] bf16 fine
-// centroids, dvw [G, W] bf16, gpt groups per tile.  Out: [Bp, W] f32.
+// centroids, dvw [G, W] bf16 (W a multiple of 128; above 512 in column
+// slices), gpt groups per tile.  Out: [Bp, W] f32.
 // All contiguous and 16-byte aligned.
 extern "C" int hier_corr_launch(const void* q_cat, const void* idx, const void* g_cat,
                                 const void* dvw, void* out, int Bp, int cat_d, int gw, int W,
                                 int bm, int M, int gpt, void* stream) {
   if (Bp <= 0) return 0;
-  if (gw % 16 || gw > 256 || gw > cat_d || cat_d % 8 || W % 128 || W > 64 * MAX_NT ||
-      bm % BM || Bp % bm || M <= 0 || gpt <= 0)
+  if (gw % 16 || gw > 256 || gw > cat_d || cat_d % 8 || W <= 0 || W % 128 || bm % BM ||
+      Bp % bm || M <= 0 || gpt <= 0)
     return (int)cudaErrorInvalidValue;
-  const Layout lay = layout(gw, W);
+  // ceil(W / 512) column slices of equal width, a multiple of 64
+  const int n_sl = (W + 64 * MAX_NT - 1) / (64 * MAX_NT);
+  const int sw = ((W + n_sl - 1) / n_sl + 63) / 64 * 64;
+  const Layout lay = layout(gw, sw);
   if (lay.total > MAX_SMEM) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       hier_corr_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay.total);
   if (err != cudaSuccess) return (int)err;
-  hier_corr_kernel<<<Bp / BM, THREADS, lay.total, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid(Bp / BM, n_sl);
+  hier_corr_kernel<<<grid, THREADS, lay.total, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q_cat), static_cast<const int*>(idx),
       static_cast<const __nv_bfloat16*>(g_cat), static_cast<const __nv_bfloat16*>(dvw),
-      static_cast<float*>(out), Bp, cat_d, gw, W, bm, M, gpt, lay);
+      static_cast<float*>(out), Bp, cat_d, gw, W, sw, bm, M, gpt, lay);
   return (int)cudaGetLastError();
 }

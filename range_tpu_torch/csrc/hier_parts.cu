@@ -1,57 +1,68 @@
-// Hierarchical retrieval, stage 2 of the merged path: exact minus group
-// approximation of BOTH families over each query block's selected tiles.
+// Hierarchical retrieval, stage 2 over the bank's values: exact minus group
+// approximation over each query block's selected tiles, for the merged
+// path (both families) and for the family-split path's value variants
+// (one family).
 //
-// Replaces: range_tpu/ops/retrieval_hier.py, `_hier_parts_kernel` with lr
-// on (reached via _hier_parts_call <- _hier_partials <- retrieve_hier, the
-// merged branch that RANGE mode takes), with and without int8 values.  For
-// each query and each of the K tiles selected for its block of bm queries
-// (idx[block, j]):
-//   p_s = exp2(min(q_sem . k_sem + mask, 86))   over the tile's bn rows
-//   p_g = exp2(min(q_geo . k_geo + mask, 86))
-//   d_s += sum p_s,  d_g += sum p_g
-//   acc_s += bf16(p_s * s) @ v,  acc_g += bf16(p_g * s) @ v
-//            (s = the row's int8 scale; without one, s = 1)
-//   alr += bf16(exp2(min(q_sem . g_sem, 86))) @ vw_lr     (the tile's sem
-//          groups; the low-rank sem approximation, subtracted outside)
-//   [acc_g | d_g] -= bf16(exp2(min(q_geo . g_geo, 86))) @ vw_geo
-//          (the tile's geo groups; the full-width geo approximation)
-// Out [Bp, 2 Dv + 128 + Ws] f32: acc_s | acc_g | d_s | d_g | 0 (126) | alr.
-// The sem approximation goes into alr only: neither acc_s nor d_s is
-// decremented (the caller's corr = tails - alr telescopes it).
+// Replaces: range_tpu/ops/retrieval_hier.py,
+//   * `_hier_parts_kernel` (reached via _hier_parts_call <- _hier_partials
+//     <- retrieve_hier, the merged branch: RANGE mode, and RANGE+ with
+//     k_geo = 0 on banks without res_rank), with lr on or off, with and
+//     without int8 values;
+//   * `_hier_parts_family_kernel` without rr, with lr on or off (reached
+//     via _hier_parts_family_call <- _hier_partials, the family-split
+//     branch on banks without res_rank), sem or geo, with and without int8
+//     values.  Its rr variants, which stream no values, are
+//     `hier_parts_family.cu`.
+// For each query and each of the K tiles selected for its block of bm
+// queries (idx[block, j]), for each family f of the launch (sem: the row
+// logits over the packed columns [0, sem_d), its group logits over the
+// query's first gw_s columns; geo: both over [sem_d, sem_d + 16), the fast
+// tier's 9 real hi/lo columns and zero padding):
+//   p_f   = exp2(min(q_f . k_f + mask, 86))   over the tile's bn rows
+//   d_f  += sum p_f
+//   acc_f += bf16(p_f * s) @ v        (s = the row's int8 scale, else 1)
+//   e_f   = bf16(exp2(min(q_f . g_f, 86)))    over the tile's gpt_f groups
+// and the group approximation e_f @ vw_f either
+//   [acc_f | d_f] -= e_f @ vw_f   (full-width group value sums, the count
+//                                  in column Dv: the "plain" families), or
+//   alr += e_f @ vw_f             (low-rank coefficients of the first
+//                                  family, lr: subtracted outside).
+// Out [Bp, nfo Dv + 128 (+ W_alr)] f32:
+//   merged (nfo = 2): acc_s | acc_g | d_s | d_g | 0 (126) [| alr]
+//   family (nfo = 1): acc | d | 0 (127) [| alr]
+// A merged launch without its geo family (RANGE mode reads neither acc_g
+// nor d_g) writes those columns as zeros; the TPU kernel computes them.
 //
-// GEO = false skips the geo family (RANGE mode reads neither acc_g nor
-// d_g): those columns are written as zeros.  GEO = true is what the TPU
-// kernel computes.  The geo logits contract one k16 step of columns
-// [sem_d, sem_d + 16): the fast tier's 9 real hi/lo columns and zero
-// padding, as the dense kernel.
+// What bounds it on an H100: per (query, selected row) the row logits and
+// the value products, 2 x (sem_d + Dv) flops a family: at the RANGE
+// flagship shape (B = 10,240 padded queries, K = 32 tiles of 512 rows,
+// sem_d = 256, Dv = 1,024) ~430 GFLOP on the tensor cores, ~0.43 ms at the
+// bf16 peak; the exponentials (one per query x row x family) come next.
+// The plain families add 2 x gpt x (gk + Dv) flops per (query, tile) for
+// their group approximation (~6% at gpt 64, gk 256, bn 512).  The bytes are
+// the selected key and value rows, re-read by every query block that
+// selects the tile (from L2 when neighbouring blocks share tiles).
 //
-// What bounds it on an H100: per (query, selected row) the sem logits and
-// the value products, 2 x (sem_d + 2 Dv) flops with GEO = false (2 x
-// (sem_d + 16 + 4 Dv) with it): at the RANGE flagship shape (B = 10,240
-// padded queries, K = 32 tiles of 512 rows, sem_d = 256, Dv = 1,024) ~430
-// GFLOP on the tensor cores, ~0.43 ms at the bf16 peak; the exponentials
-// (one or two per query x row) come next.  The bytes are the selected key
-// and value rows, re-read by every query block that selects the tile
-// (from L2 when neighbouring blocks share tiles).
-//
-// Design: the TPU kernel carries a [bm, 2 Dv] f32 accumulator across its
+// Design: the TPU kernel carries a [bm, nfo Dv] f32 accumulator across its
 // sequential tile axis; no block can hold that.  As the dense kernel
 // (fused_retrieval.cu), a block owns 64 queries and one 256-column slice
 // of Dv (grid.y), walks its query block's K tiles (it reads its own idx
 // row: Hopper has no scalar prefetch) 32 rows at a time with the next rows
 // streaming in by cp.async, and recomputes the row logits per slice; the
-// [64 x 256] accumulators of both families stay in registers.  int8 value
+// [64 x 256] accumulators of its families stay in registers.  int8 value
 // tiles stream in raw (half the bytes) and are converted to bf16 in shared
-// memory.  At each tile's end the geo group approximation of the slice's
-// columns is subtracted.  Slice 0 alone writes d_s, d_g, the pad and alr,
-// each exactly once per query: the row sums come free with its logits, and
-// after its value loop it walks the K tiles once more over their sem
-// groups only (gpt_s of bn rows, ~5% of the slice's work) for alr, whose
-// [64 x Ws] accumulator (up to 128 registers a thread) cannot sit beside
-// the value accumulators.  A slice of its own would recompute every row
-// logit once more for two sums.  Each 32-row step and each tile's group
-// product is summed in a fresh tensor-core fragment and joins its
-// accumulator with an IEEE f32 add.
+// memory.  At each tile's end a plain family's group approximation of the
+// slice's columns is subtracted (its group logits recomputed per slice,
+// 64 x gpt x gk, small beside the tile's 64 x bn x (gk + 256)), and the
+// count column's product goes into d.  Slice 0 alone writes the d columns,
+// the pad and alr, each exactly once per query: the row sums come free
+// with its logits, and after its value loop it walks the K tiles once more
+// over the lr family's groups only (gpt of bn rows, ~5% of the slice's
+// work) for alr, whose [64 x W_alr] accumulator (up to 128 registers a
+// thread) cannot sit beside the value accumulators.  A slice of its own
+// would recompute every row logit once more for two sums.  Each 32-row
+// step and each tile's group product is summed in a fresh tensor-core
+// fragment and joins its accumulator with an IEEE f32 add.
 
 #include <type_traits>
 
@@ -69,76 +80,93 @@ constexpr int GEO_D = 16;       // geo columns read: one k16 step
 constexpr int LDV = DVS + 8;    // bf16 row stride of a value tile
 constexpr int LDV8 = DVS + 16;  // byte row stride of a raw int8 value tile
 constexpr int LDP = BN + 8;     // bf16 row stride of the p tiles
-constexpr int LDG = GEO_D + 8;  // bf16 row stride of the geo group tile
-constexpr int MAX_NT = 8;       // alr n8 tiles per warp: Ws <= 512
-constexpr int MAX_GK = 4;       // k16 steps of one tile's sem groups: gpt_s <= 64
-constexpr int MAX_GKG = 2;      // ... of its geo groups: gpt_g <= 32
+constexpr int MAX_NT = 8;       // alr n8 tiles per warp: W_alr <= 512
+constexpr int MAX_GK = 4;       // k16 steps of one tile's groups: gpt <= 64
+
+struct Fam {
+  const __nv_bfloat16* g;   // [G, gw] group centroids
+  const __nv_bfloat16* vw;  // [G, W] group value sums (count in column Dv), or lr coefficients
+  int kc, kf;               // row-logit columns [kc, kc + kf) of the query / key block
+  int qg, gk;               // group logits: query-block columns [qg, qg + gk), g's first gk
+  int gw, W, gpt;           // centroid row width, vw row width, groups per tile
+};
 
 struct Params {
-  const __nv_bfloat16* q;     // [Bp, cat_d]
-  const __nv_bfloat16* k;     // [N, cat_d]
-  const void* v;              // [N, Dv] bf16, or int8 codes
-  const float* scale;         // [N] int8 scales
-  const float* mask;          // [N]
-  const int* idx;             // [nB, K]
-  const __nv_bfloat16* gs;    // [Gs, sem_d] sem group centroids
-  const __nv_bfloat16* gg;    // [Gg, gw_g] geo group centroids
-  const __nv_bfloat16* vs;    // [Gs, Ws] low-rank sem group coefficients
-  const __nv_bfloat16* vg;    // [Gg, Wg] geo group value sums, count in column Dv
-  float* out;                 // [Bp, 2 Dv + 128 + Ws]
-  int cat_d, sem_d, Dv, bm, bn, gpt_s, gpt_g, K, Ws, Wg, gw_g;
+  const __nv_bfloat16* q;  // [Bp, cat_d]
+  const __nv_bfloat16* k;  // [N, cat_d]
+  const void* v;           // [N, Dv] bf16, or int8 codes
+  const float* scale;      // [N] int8 scales
+  const float* mask;       // [N]
+  const int* idx;          // [nB, K]
+  Fam f[2];
+  float* out;              // [Bp, out_w]
+  int cat_d, c0, U;        // the query / key blocks hold packed columns [c0, c0 + U)
+  int Dv, bm, bn, K, nfo, out_w;
 };
 
 __host__ __device__ inline size_t up16(size_t n) { return (n + 15) / 16 * 16; }
 
+__host__ __device__ inline int gp16(int gpt) { return (gpt + 15) / 16 * 16; }
+
 struct Layout {
-  size_t qs;                                                   // both phases
-  size_t ks, vs, vc, pt, mask, scale, dpart, ggt, vgt, cnt, eg, dgc;  // phase A
-  size_t gst, vst, es;                                         // phase B (overlays A)
+  size_t qs;                                                // both phases
+  size_t ks, vs, vc, pt, mask, scale, dpart, gt, vgt, cnt, eg, dgc;  // phase A
+  size_t gst, vst, es;                                      // phase B (overlays A)
   size_t total;
-  int ldq, gp16s, gp16g;
+  int ldq, ldgt, gpm;  // query/key row stride, group tile row stride, the
+                       // plain families' largest gpt rounded to a k16 step
 };
 
-// Shared memory: the idx row, the query block [64 x sem_d + 16]; phase A two
+// Shared memory: the idx row, the query block [64 x U]; phase A two
 // key/value steps, the int8 conversion tile, the p tiles, mask and scale,
-// the row sums and one tile's geo groups; phase B one tile's sem groups and
-// their exponentials.
-__host__ __device__ inline Layout layout(int K, int sem_d, int gpt_s, int gpt_g, int Ws,
-                                         bool i8) {
+// the row sums, and one tile's groups of a plain family (centroids, value
+// slice, counts, exponentials); phase B one tile's lr groups and their
+// exponentials.
+__host__ __device__ inline Layout layout(const Params& P, int nf, bool alr, bool i8) {
   Layout l;
-  l.ldq = sem_d + GEO_D + 8;
-  l.gp16s = (gpt_s + 15) / 16 * 16;
-  l.gp16g = (gpt_g + 15) / 16 * 16;
-  l.qs = up16((size_t)K * 4);
+  l.ldq = P.U + 8;
+  int gkm = 0;
+  l.gpm = 0;
+  for (int f = alr ? 1 : 0; f < nf; ++f) {
+    gkm = P.f[f].gk > gkm ? P.f[f].gk : gkm;
+    l.gpm = gp16(P.f[f].gpt) > l.gpm ? gp16(P.f[f].gpt) : l.gpm;
+  }
+  l.ldgt = gkm + 8;
+  l.qs = up16((size_t)P.K * 4);
   l.ks = l.qs + (size_t)BM * l.ldq * 2;
   l.vs = l.ks + (size_t)2 * BN * l.ldq * 2;
   l.vc = l.vs + (size_t)2 * BN * (i8 ? LDV8 : LDV * 2);
   l.pt = l.vc + (i8 ? (size_t)BN * LDV * 2 : 0);
-  l.mask = l.pt + (size_t)2 * BM * LDP * 2;
+  l.mask = l.pt + (size_t)nf * BM * LDP * 2;
   l.scale = l.mask + 2 * BN * 4;
   l.dpart = l.scale + 2 * BN * 4;
-  l.ggt = l.dpart + 4 * BM * 4;
-  l.vgt = l.ggt + (size_t)l.gp16g * LDG * 2;
-  l.cnt = l.vgt + (size_t)l.gp16g * LDV * 2;
-  l.eg = l.cnt + up16((size_t)l.gp16g * 4);
-  l.dgc = l.eg + (size_t)BM * (l.gp16g + 8) * 2;
-  const size_t end_a = l.dgc + BM * 4;
-  l.gst = l.ks;
-  l.vst = l.gst + (size_t)l.gp16s * (sem_d + 8) * 2;
-  l.es = l.vst + (size_t)l.gp16s * (Ws + 8) * 2;
-  const size_t end_b = l.es + (size_t)BM * (l.gp16s + 8) * 2;
+  l.gt = l.dpart + 4 * BM * 4;
+  l.vgt = l.gt + (size_t)l.gpm * l.ldgt * 2;
+  l.cnt = l.vgt + (size_t)l.gpm * LDV * 2;
+  l.eg = l.cnt + up16((size_t)l.gpm * 4);
+  l.dgc = l.eg + (size_t)BM * (l.gpm + 8) * 2;
+  const size_t end_a = l.dgc + 2 * BM * 4;
+  size_t end_b = 0;
+  if (alr) {
+    const int ga = gp16(P.f[0].gpt);
+    l.gst = l.ks;
+    l.vst = l.gst + (size_t)ga * (P.f[0].gk + 8) * 2;
+    l.es = l.vst + (size_t)ga * (P.f[0].W + 8) * 2;
+    end_b = l.es + (size_t)BM * (ga + 8) * 2;
+  }
   l.total = end_a > end_b ? end_a : end_b;
   return l;
 }
 
-template <bool GEO, bool I8>
+// NF families with a value accumulator; ALR: family 0's approximation goes
+// to alr (phase B), every other family's is subtracted at its tiles' ends.
+template <int NF, bool I8, bool ALR>
 __global__ void __launch_bounds__(THREADS, 1)
 hier_parts_kernel(const Params P, const Layout lay) {
   using bf = __nv_bfloat16;
   using V = typename std::conditional<I8, int8_t, bf>::type;
-  constexpr int EV = 16 / sizeof(V);          // value elements per 16-byte copy
-  constexpr int LDVR = I8 ? LDV8 : LDV;       // row stride of a streamed value tile
-  constexpr int NF = GEO ? 2 : 1;             // families with a value accumulator
+  constexpr int EV = 16 / sizeof(V);     // value elements per 16-byte copy
+  constexpr int LDVR = I8 ? LDV8 : LDV;  // row stride of a streamed value tile
 
   extern __shared__ float4 smem4[];
   char* base = reinterpret_cast<char*>(smem4);
@@ -149,18 +177,17 @@ hier_parts_kernel(const Params P, const Layout lay) {
   const int q0 = blockIdx.x * BM;
   const int blk = q0 / P.bm;
   const int col0 = blockIdx.y * DVS;
-  const bool lead = blockIdx.y == 0;  // writes d_s, d_g, the pad and alr
-  const int ldq = lay.ldq, U = P.sem_d + GEO_D;
-  const int out_w = 2 * P.Dv + 128 + P.Ws;
+  const bool lead = blockIdx.y == 0;  // writes the d columns, the pad and alr
+  const int ldq = lay.ldq;
   const int spt = P.bn / BN, n_steps = P.K * spt;
   const V* vals = static_cast<const V*>(P.v);
 
   for (int j = tid; j < P.K; j += THREADS) idx_s[j] = P.idx[(size_t)blk * P.K + j];
   {  // the query block, once (Bp is a multiple of 64)
-    const int cpr = U / 8;
+    const int cpr = P.U / 8;
     for (int i = tid; i < BM * cpr; i += THREADS) {
       const int r = i / cpr, c = (i % cpr) * 8;
-      cp_async16(qs + r * ldq + c, P.q + (size_t)(q0 + r) * P.cat_d + c, true);
+      cp_async16(qs + r * ldq + c, P.q + (size_t)(q0 + r) * P.cat_d + P.c0 + c, true);
     }
     cp_async_commit();
   }
@@ -171,25 +198,24 @@ hier_parts_kernel(const Params P, const Layout lay) {
     bf* ks0 = reinterpret_cast<bf*>(base + lay.ks);
     V* vs0 = reinterpret_cast<V*>(base + lay.vs);
     bf* vconv = reinterpret_cast<bf*>(base + lay.vc);  // I8 only
-    bf* ps = reinterpret_cast<bf*>(base + lay.pt);
-    bf* pg = ps + BM * LDP;
+    bf* pt = reinterpret_cast<bf*>(base + lay.pt);     // [family][BM x LDP]
     float* mask0 = reinterpret_cast<float*>(base + lay.mask);
     float* scale0 = reinterpret_cast<float*>(base + lay.scale);  // I8 only
     float* dpart = reinterpret_cast<float*>(base + lay.dpart);   // [family][part][BM]
-    bf* ggt = reinterpret_cast<bf*>(base + lay.ggt);
+    bf* gt = reinterpret_cast<bf*>(base + lay.gt);
     bf* vgt = reinterpret_cast<bf*>(base + lay.vgt);
     float* cnt = reinterpret_cast<float*>(base + lay.cnt);
     bf* egb = reinterpret_cast<bf*>(base + lay.eg);
-    float* dgc = reinterpret_cast<float*>(base + lay.dgc);
-    const int gp16g = lay.gp16g, ldeg = gp16g + 8;
+    float* dgc = reinterpret_cast<float*>(base + lay.dgc);  // [family][BM]
+    const int ldgt = lay.ldgt;
 
     auto prefetch = [&](int buf, int it) {
       const int row0 = idx_s[it / spt] * P.bn + (it % spt) * BN;
       bf* ks = ks0 + buf * BN * ldq;
-      const int cpr = U / 8;
+      const int cpr = P.U / 8;
       for (int i = tid; i < BN * cpr; i += THREADS) {
         const int r = i / cpr, c = (i % cpr) * 8;
-        cp_async16(ks + r * ldq + c, P.k + (size_t)(row0 + r) * P.cat_d + c, true);
+        cp_async16(ks + r * ldq + c, P.k + (size_t)(row0 + r) * P.cat_d + P.c0 + c, true);
       }
       V* vs = vs0 + buf * BN * LDVR;
       const int cpv = DVS / EV;
@@ -217,8 +243,12 @@ hier_parts_kernel(const Params P, const Layout lay) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[f][mt][nt][e] = 0.f;
     // this thread's share of rows mt*16 + g (+ 8) ([half]) exp sums
-    float dsum_s[2] = {0.f, 0.f}, dsum_g[2] = {0.f, 0.f};
-    float dg_corr = 0.f;  // lead, GEO: row tid's geo count approximation
+    float dsum[NF][2];
+#pragma unroll
+    for (int f = 0; f < NF; ++f) dsum[f][0] = dsum[f][1] = 0.f;
+    float dcorr[NF];  // lead, plain families: row tid's count approximation
+#pragma unroll
+    for (int f = 0; f < NF; ++f) dcorr[f] = 0.f;
 
     for (int it = 0; it < n_steps; ++it) {
       __syncthreads();  // the previous step is fully consumed
@@ -258,47 +288,33 @@ hier_parts_kernel(const Params P, const Layout lay) {
 
       {  // row logits -> p (unscaled into the sums, scaled into the bf16 tiles)
         const int mt = warp >> 1, nt0 = (warp & 1) * 2;
-        float cs[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-        float cg[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-        for (int kk = 0; kk < P.sem_d; kk += 16) {
-          uint32_t a[4];
-          load_a(a, qs, ldq, mt * 16, kk, g, t);
 #pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            uint32_t b0, b1;
-            load_bt(b0, b1, ks, ldq, (nt0 + i) * 8, kk, g, t);
-            mma_bf16(cs[i], a, b0, b1);
+        for (int f = 0; f < NF; ++f) {
+          float c[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+          for (int kk = P.f[f].kc; kk < P.f[f].kc + P.f[f].kf; kk += 16) {
+            uint32_t a[4];
+            load_a(a, qs, ldq, mt * 16, kk, g, t);
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              uint32_t b0, b1;
+              load_bt(b0, b1, ks, ldq, (nt0 + i) * 8, kk, g, t);
+              mma_bf16(c[i], a, b0, b1);
+            }
           }
-        }
-        if constexpr (GEO) {
-          uint32_t a[4];
-          load_a(a, qs, ldq, mt * 16, P.sem_d, g, t);
+          bf* pf = pt + f * BM * LDP;
 #pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            uint32_t b0, b1;
-            load_bt(b0, b1, ks, ldq, (nt0 + i) * 8, P.sem_d, g, t);
-            mma_bf16(cg[i], a, b0, b1);
-          }
-        }
+          for (int h = 0; h < 2; ++h) {
+            const int r = mt * 16 + g + 8 * h;
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = mt * 16 + g + 8 * h;
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            const int c = (nt0 + i) * 8 + 2 * t;
-            const float m0 = mask_s[c], m1 = mask_s[c + 1];
-            const float c0 = I8 ? scale_s[c] : 1.f, c1 = I8 ? scale_s[c + 1] : 1.f;
-            const float s0 = exp2f(fminf(cs[i][2 * h] + m0, CLAMP2));
-            const float s1 = exp2f(fminf(cs[i][2 * h + 1] + m1, CLAMP2));
-            dsum_s[h] += s0 + s1;
-            *reinterpret_cast<__nv_bfloat162*>(ps + r * LDP + c) =
-                I8 ? __floats2bfloat162_rn(s0 * c0, s1 * c1) : __floats2bfloat162_rn(s0, s1);
-            if constexpr (GEO) {
-              const float g0 = exp2f(fminf(cg[i][2 * h] + m0, CLAMP2));
-              const float g1 = exp2f(fminf(cg[i][2 * h + 1] + m1, CLAMP2));
-              dsum_g[h] += g0 + g1;
-              *reinterpret_cast<__nv_bfloat162*>(pg + r * LDP + c) =
-                  I8 ? __floats2bfloat162_rn(g0 * c0, g1 * c1) : __floats2bfloat162_rn(g0, g1);
+            for (int i = 0; i < 2; ++i) {
+              const int cc = (nt0 + i) * 8 + 2 * t;
+              const float m0 = mask_s[cc], m1 = mask_s[cc + 1];
+              const float c0 = I8 ? scale_s[cc] : 1.f, c1 = I8 ? scale_s[cc + 1] : 1.f;
+              const float p0 = exp2f(fminf(c[i][2 * h] + m0, CLAMP2));
+              const float p1 = exp2f(fminf(c[i][2 * h + 1] + m1, CLAMP2));
+              dsum[f][h] += p0 + p1;
+              *reinterpret_cast<__nv_bfloat162*>(pf + r * LDP + cc) =
+                  I8 ? __floats2bfloat162_rn(p0 * c0, p1 * c1) : __floats2bfloat162_rn(p0, p1);
             }
           }
         }
@@ -315,7 +331,7 @@ hier_parts_kernel(const Params P, const Layout lay) {
             load_b_pair(b[ks16][h], vs, LDV, ks16 * 16, warp * 32 + h * 16, lane);
 #pragma unroll
         for (int f = 0; f < NF; ++f) {
-          const bf* Pt = f ? pg : ps;
+          const bf* Pt = pt + f * BM * LDP;
 #pragma unroll
           for (int mt = 0; mt < 4; ++mt) {
             uint32_t a0[4], a1[4];
@@ -334,56 +350,58 @@ hier_parts_kernel(const Params P, const Layout lay) {
         }
       }
 
-      if constexpr (GEO) {
-        if (s == spt - 1) {  // the tile's geo group approximation, this slice's columns
-          const size_t grow0 = (size_t)idx_s[j] * P.gpt_g;
-          for (int i = tid; i < gp16g * (GEO_D / 8); i += THREADS) {
-            const int r = i / (GEO_D / 8), c = (i % (GEO_D / 8)) * 8;
-            int4 v = make_int4(0, 0, 0, 0);
-            if (r < P.gpt_g) v = *reinterpret_cast<const int4*>(P.gg + (grow0 + r) * P.gw_g + c);
-            *reinterpret_cast<int4*>(ggt + r * LDG + c) = v;
+      if (s == spt - 1) {  // the tile's group approximation of the plain families
+#pragma unroll
+        for (int f = ALR ? 1 : 0; f < NF; ++f) {
+          const Fam& F = P.f[f];
+          const int gpp = gp16(F.gpt), ldeg = gpp + 8;
+          const size_t grow0 = (size_t)idx_s[j] * F.gpt;
+          __syncthreads();  // the previous family's group tiles are consumed
+          {
+            const int cpr = F.gk / 8;
+            for (int i = tid; i < gpp * cpr; i += THREADS) {
+              const int r = i / cpr, c = (i % cpr) * 8;
+              int4 v = make_int4(0, 0, 0, 0);
+              if (r < F.gpt) v = *reinterpret_cast<const int4*>(F.g + (grow0 + r) * F.gw + c);
+              *reinterpret_cast<int4*>(gt + r * ldgt + c) = v;
+            }
           }
-          for (int i = tid; i < gp16g * (DVS / 8); i += THREADS) {
+          for (int i = tid; i < gpp * (DVS / 8); i += THREADS) {
             const int r = i / (DVS / 8), c = (i % (DVS / 8)) * 8;
             int4 v = make_int4(0, 0, 0, 0);
-            if (r < P.gpt_g && col0 + c < P.Dv)
-              v = *reinterpret_cast<const int4*>(P.vg + (grow0 + r) * P.Wg + col0 + c);
+            if (r < F.gpt && col0 + c < P.Dv)
+              v = *reinterpret_cast<const int4*>(F.vw + (grow0 + r) * F.W + col0 + c);
             *reinterpret_cast<int4*>(vgt + r * LDV + c) = v;
           }
-          if (lead && tid < gp16g)
-            cnt[tid] = tid < P.gpt_g ? __bfloat162float(P.vg[(grow0 + tid) * P.Wg + P.Dv]) : 0.f;
+          if (lead && tid < gpp)
+            cnt[tid] = tid < F.gpt ? __bfloat162float(F.vw[(grow0 + tid) * F.W + P.Dv]) : 0.f;
           __syncthreads();
-          // eg = bf16(exp2(min(q_geo . g_geo, 86))) [64 x gp16g], zero past gpt_g
-          for (int tt = warp; tt < 4 * (gp16g / 8); tt += THREADS / 32) {
+          // e = bf16(exp2(min(q_f . g_f, 86))) [64 x gpp], zero past gpt
+          for (int tt = warp; tt < 4 * (gpp / 8); tt += THREADS / 32) {
             const int mt = tt & 3, nt = tt >> 2;
             float c[4] = {0.f, 0.f, 0.f, 0.f};
-            uint32_t a[4], b0, b1;
-            load_a(a, qs, ldq, mt * 16, P.sem_d, g, t);
-            load_bt(b0, b1, ggt, LDG, nt * 8, 0, g, t);
-            mma_bf16(c, a, b0, b1);
+            for (int kk = 0; kk < F.gk; kk += 16) {
+              uint32_t a[4], b0, b1;
+              load_a(a, qs, ldq, mt * 16, F.qg + kk, g, t);
+              load_bt(b0, b1, gt, ldgt, nt * 8, kk, g, t);
+              mma_bf16(c, a, b0, b1);
+            }
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
               const int r = mt * 16 + g + 8 * (e >> 1), col = nt * 8 + 2 * t + (e & 1);
-              egb[r * ldeg + col] = __float2bfloat16_rn(
-                  col < P.gpt_g ? exp2f(fminf(c[e], CLAMP2)) : 0.f);
+              egb[r * ldeg + col] =
+                  __float2bfloat16_rn(col < F.gpt ? exp2f(fminf(c[e], CLAMP2)) : 0.f);
             }
           }
           __syncthreads();
-          if (lead && tid < BM) {  // the count column: d_g's approximation
+          if (lead && tid < BM) {  // the count column: d_f's approximation
             float sacc = 0.f;
-            for (int c = 0; c < P.gpt_g; ++c)
-              sacc += __bfloat162float(egb[tid * ldeg + c]) * cnt[c];
-            dg_corr += sacc;
+            for (int c = 0; c < F.gpt; ++c) sacc += __bfloat162float(egb[tid * ldeg + c]) * cnt[c];
+            dcorr[f] += sacc;
           }
-          // acc_g[64 x this warp's 32 columns] -= EG[64 x gp16g] @ VG[gp16g x ...]
-          const int nks = gp16g / 16;
-          uint32_t b[MAX_GKG][2][4];
-#pragma unroll
-          for (int k = 0; k < MAX_GKG; ++k)
-            if (k < nks)
-#pragma unroll
-              for (int h = 0; h < 2; ++h)
-                load_b_pair(b[k][h], vgt, LDV, k * 16, warp * 32 + h * 16, lane);
+          // acc_f[64 x this warp's 32 columns] -= E[64 x gpp] @ VG[gpp x ...]
+          // (the B fragments reloaded per m16 tile: registers go to acc)
+          const int nks = gpp / 16;
 #pragma unroll
           for (int mt = 0; mt < 4; ++mt) {
             float c[4][4];
@@ -391,217 +409,264 @@ hier_parts_kernel(const Params P, const Layout lay) {
             for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
               for (int e = 0; e < 4; ++e) c[nt][e] = 0.f;
+            for (int k = 0; k < nks; ++k) {
+              uint32_t a[4], b[2][4];
+              load_a(a, egb, ldeg, mt * 16, k * 16, g, t);
 #pragma unroll
-            for (int k = 0; k < MAX_GKG; ++k) {
-              if (k < nks) {
-                uint32_t a[4];
-                load_a(a, egb, ldeg, mt * 16, k * 16, g, t);
+              for (int h = 0; h < 2; ++h)
+                load_b_pair(b[h], vgt, LDV, k * 16, warp * 32 + h * 16, lane);
 #pragma unroll
-                for (int nt = 0; nt < 4; ++nt)
-                  mma_bf16(c[nt], a, b[k][nt >> 1][(nt & 1) * 2], b[k][nt >> 1][(nt & 1) * 2 + 1]);
-              }
+              for (int nt = 0; nt < 4; ++nt)
+                mma_bf16(c[nt], a, b[nt >> 1][(nt & 1) * 2], b[nt >> 1][(nt & 1) * 2 + 1]);
             }
 #pragma unroll
             for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
-              for (int e = 0; e < 4; ++e) acc[NF - 1][mt][nt][e] -= c[nt][e];
+              for (int e = 0; e < 4; ++e) acc[f][mt][nt][e] -= c[nt][e];
           }
         }
       }
     }
     cp_async_wait<0>();  // nothing in flight
 
-    // this slice's columns of acc_s and acc_g (zeros without GEO)
-#pragma unroll
-    for (int f = 0; f < 2; ++f)
+    // this slice's columns of every output family (zeros past NF)
+    for (int f = 0; f < P.nfo; ++f)
 #pragma unroll
       for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
-          const size_t row = (size_t)(q0 + mt * 16 + g + 8 * half) * out_w + f * P.Dv;
+          const size_t row = (size_t)(q0 + mt * 16 + g + 8 * half) * P.out_w + f * P.Dv;
 #pragma unroll
           for (int nt = 0; nt < 4; ++nt) {
             const int c = col0 + warp * 32 + nt * 8 + 2 * t;
             if (c >= P.Dv) continue;
-            const int fi = f < NF ? f : 0;
-            const float2 v = f < NF ? make_float2(acc[fi][mt][nt][2 * half],
-                                                  acc[fi][mt][nt][2 * half + 1])
-                                    : make_float2(0.f, 0.f);
+            float2 v = make_float2(0.f, 0.f);
+#pragma unroll
+            for (int fi = 0; fi < NF; ++fi)
+              if (fi == f) v = make_float2(acc[fi][mt][nt][2 * half], acc[fi][mt][nt][2 * half + 1]);
             *reinterpret_cast<float2*>(P.out + row + c) = v;
           }
         }
 
     if (!lead) return;
-    // d_s and d_g: the 4 lanes of a row share g; the two warps of an m16
-    // tile split its columns
+    // d: the 4 lanes of a row share g; the two warps of an m16 tile split
+    // its columns
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
+    for (int f = 0; f < NF; ++f)
 #pragma unroll
-      for (int off = 1; off < 4; off <<= 1) {
-        dsum_s[h] += __shfl_xor_sync(0xffffffffu, dsum_s[h], off);
-        dsum_g[h] += __shfl_xor_sync(0xffffffffu, dsum_g[h], off);
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1)
+          dsum[f][h] += __shfl_xor_sync(0xffffffffu, dsum[f][h], off);
+        if (t == 0) dpart[(2 * f + (warp & 1)) * BM + (warp >> 1) * 16 + g + 8 * h] = dsum[f][h];
       }
-      if (t == 0) {
-        const int r = (warp >> 1) * 16 + g + 8 * h, part = warp & 1;
-        dpart[part * BM + r] = dsum_s[h];
-        dpart[(2 + part) * BM + r] = dsum_g[h];
-      }
-    }
-    if (tid < BM) dgc[tid] = dg_corr;
+    if (tid < BM)
+#pragma unroll
+      for (int f = 0; f < NF; ++f) dgc[f * BM + tid] = dcorr[f];
     __syncthreads();
+    const int od = P.nfo * P.Dv;
     for (int i = tid; i < BM * 128; i += THREADS) {
       const int r = i / 128, c = i % 128;
       float v = 0.f;
-      if (c == 0) v = dpart[r] + dpart[BM + r];
-      if (GEO && c == 1) v = dpart[2 * BM + r] + dpart[3 * BM + r] - dgc[r];
-      P.out[(size_t)(q0 + r) * out_w + 2 * P.Dv + c] = v;
+      if (c < NF) v = dpart[2 * c * BM + r] + dpart[(2 * c + 1) * BM + r] - dgc[c * BM + r];
+      P.out[(size_t)(q0 + r) * P.out_w + od + c] = v;
     }
   }
-  __syncthreads();  // phase B reuses phase A's shared memory
+  if constexpr (ALR) {
+    __syncthreads();  // phase B reuses phase A's shared memory
 
-  // ------------------------------------------------------------ phase B
-  // (the lead slice only) alr += bf16(exp2(min(q_sem . g_sem, 86))) @ vw_lr
-  bf* gst = reinterpret_cast<bf*>(base + lay.gst);
-  bf* vst = reinterpret_cast<bf*>(base + lay.vst);
-  bf* esb = reinterpret_cast<bf*>(base + lay.es);
-  const int lds = P.sem_d + 8, ldw = P.Ws + 8, gp16 = lay.gp16s, lde = gp16 + 8;
-  const int nks = gp16 / 16, ntw = P.Ws / 64, col_a = warp * ntw * 8;
+    // ---------------------------------------------------------- phase B
+    // (the lead slice only) alr += bf16(exp2(min(q_0 . g_0, 86))) @ vw_0
+    const Fam& F = P.f[0];
+    bf* gst = reinterpret_cast<bf*>(base + lay.gst);
+    bf* vst = reinterpret_cast<bf*>(base + lay.vst);
+    bf* esb = reinterpret_cast<bf*>(base + lay.es);
+    const int lds = F.gk + 8, ldw = F.W + 8, gpp = gp16(F.gpt), lde = gpp + 8;
+    const int nks = gpp / 16, ntw = F.W / 64, col_a = warp * ntw * 8;
 
-  float acc[4][MAX_NT][4];
+    float acc[4][MAX_NT][4];
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
+    for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
-    for (int nt = 0; nt < MAX_NT; ++nt)
+      for (int nt = 0; nt < MAX_NT; ++nt)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+        for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
 
-  for (int j = 0; j < P.K; ++j) {
-    __syncthreads();  // the previous tile is fully consumed
-    const size_t grow0 = (size_t)idx_s[j] * P.gpt_s;
-    {  // the tile's sem groups; rows past gpt_s are zeros (a k16 step)
-      const int cpr = P.sem_d / 8;
-      for (int i = tid; i < gp16 * cpr; i += THREADS) {
-        const int r = i / cpr, c = (i % cpr) * 8;
-        const bool ok = r < P.gpt_s;
-        cp_async16(gst + r * lds + c, P.gs + (ok ? (grow0 + r) * P.sem_d + c : 0), ok);
+    for (int j = 0; j < P.K; ++j) {
+      __syncthreads();  // the previous tile is fully consumed
+      const size_t grow0 = (size_t)idx_s[j] * F.gpt;
+      {  // the tile's groups; rows past gpt are zeros (a k16 step)
+        const int cpr = F.gk / 8;
+        for (int i = tid; i < gpp * cpr; i += THREADS) {
+          const int r = i / cpr, c = (i % cpr) * 8;
+          const bool ok = r < F.gpt;
+          cp_async16(gst + r * lds + c, F.g + (ok ? (grow0 + r) * F.gw + c : 0), ok);
+        }
+        const int cpv = F.W / 8;
+        for (int i = tid; i < gpp * cpv; i += THREADS) {
+          const int r = i / cpv, c = (i % cpv) * 8;
+          const bool ok = r < F.gpt;
+          cp_async16(vst + r * ldw + c, F.vw + (ok ? (grow0 + r) * F.W + c : 0), ok);
+        }
+        cp_async_commit();
+        cp_async_wait<0>();
       }
-      const int cpv = P.Ws / 8;
-      for (int i = tid; i < gp16 * cpv; i += THREADS) {
-        const int r = i / cpv, c = (i % cpv) * 8;
-        const bool ok = r < P.gpt_s;
-        cp_async16(vst + r * ldw + c, P.vs + (ok ? (grow0 + r) * P.Ws + c : 0), ok);
-      }
-      cp_async_commit();
-      cp_async_wait<0>();
-    }
-    __syncthreads();
+      __syncthreads();
 
-    for (int tt = warp; tt < 4 * (gp16 / 8); tt += THREADS / 32) {
-      const int mt = tt & 3, nt = tt >> 2;
-      float c[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int kk = 0; kk < P.sem_d; kk += 16) {
-        uint32_t a[4], b0, b1;
-        load_a(a, qs, ldq, mt * 16, kk, g, t);
-        load_bt(b0, b1, gst, lds, nt * 8, kk, g, t);
-        mma_bf16(c, a, b0, b1);
-      }
+      for (int tt = warp; tt < 4 * (gpp / 8); tt += THREADS / 32) {
+        const int mt = tt & 3, nt = tt >> 2;
+        float c[4] = {0.f, 0.f, 0.f, 0.f};
+        for (int kk = 0; kk < F.gk; kk += 16) {
+          uint32_t a[4], b0, b1;
+          load_a(a, qs, ldq, mt * 16, F.qg + kk, g, t);
+          load_bt(b0, b1, gst, lds, nt * 8, kk, g, t);
+          mma_bf16(c, a, b0, b1);
+        }
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = mt * 16 + g + 8 * (e >> 1), col = nt * 8 + 2 * t + (e & 1);
-        esb[r * lde + col] =
-            __float2bfloat16_rn(col < P.gpt_s ? exp2f(fminf(c[e], CLAMP2)) : 0.f);
+        for (int e = 0; e < 4; ++e) {
+          const int r = mt * 16 + g + 8 * (e >> 1), col = nt * 8 + 2 * t + (e & 1);
+          esb[r * lde + col] = __float2bfloat16_rn(col < F.gpt ? exp2f(fminf(c[e], CLAMP2)) : 0.f);
+        }
       }
-    }
-    __syncthreads();
+      __syncthreads();
 
-    // alr[64 x this warp's columns] += ES[64 x gp16] @ VW[gp16 x ...]
+      // alr[64 x this warp's columns] += ES[64 x gpp] @ VW[gpp x ...]
 #pragma unroll
-    for (int h = 0; h < MAX_NT / 2; ++h) {
-      if (2 * h < ntw) {
-        uint32_t b[MAX_GK][4];
+      for (int h = 0; h < MAX_NT / 2; ++h) {
+        if (2 * h < ntw) {
+          uint32_t b[MAX_GK][4];
 #pragma unroll
-        for (int k = 0; k < MAX_GK; ++k)
-          if (k < nks) load_b_pair(b[k], vst, ldw, k * 16, col_a + h * 16, lane);
+          for (int k = 0; k < MAX_GK; ++k)
+            if (k < nks) load_b_pair(b[k], vst, ldw, k * 16, col_a + h * 16, lane);
 #pragma unroll
-        for (int mt = 0; mt < 4; ++mt) {
-          float c[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+          for (int mt = 0; mt < 4; ++mt) {
+            float c[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
 #pragma unroll
-          for (int k = 0; k < MAX_GK; ++k) {
-            if (k < nks) {
-              uint32_t a[4];
-              load_a(a, esb, lde, mt * 16, k * 16, g, t);
-              mma_bf16(c[0], a, b[k][0], b[k][1]);
-              mma_bf16(c[1], a, b[k][2], b[k][3]);
+            for (int k = 0; k < MAX_GK; ++k) {
+              if (k < nks) {
+                uint32_t a[4];
+                load_a(a, esb, lde, mt * 16, k * 16, g, t);
+                mma_bf16(c[0], a, b[k][0], b[k][1]);
+                mma_bf16(c[1], a, b[k][2], b[k][3]);
+              }
             }
-          }
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            acc[mt][2 * h][e] += c[0][e];
-            acc[mt][2 * h + 1][e] += c[1][e];
+            for (int e = 0; e < 4; ++e) {
+              acc[mt][2 * h][e] += c[0][e];
+              acc[mt][2 * h + 1][e] += c[1][e];
+            }
           }
         }
       }
     }
-  }
 
+    const int oa = P.nfo * P.Dv + 128;
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
+    for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
-    for (int nt = 0; nt < MAX_NT; ++nt) {
-      if (nt >= ntw) continue;
+      for (int nt = 0; nt < MAX_NT; ++nt) {
+        if (nt >= ntw) continue;
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int q = q0 + mt * 16 + g + 8 * half;
-        *reinterpret_cast<float2*>(P.out + (size_t)q * out_w + 2 * P.Dv + 128 + col_a + nt * 8 +
-                                   2 * t) =
-            make_float2(acc[mt][nt][2 * half], acc[mt][nt][2 * half + 1]);
+        for (int half = 0; half < 2; ++half) {
+          const int q = q0 + mt * 16 + g + 8 * half;
+          *reinterpret_cast<float2*>(P.out + (size_t)q * P.out_w + oa + col_a + nt * 8 + 2 * t) =
+              make_float2(acc[mt][nt][2 * half], acc[mt][nt][2 * half + 1]);
+        }
       }
-    }
+  }
 }
 
-template <bool GEO, bool I8>
+template <int NF, bool I8, bool ALR>
 int launch(const Params& P, int Bp, cudaStream_t stream) {
-  const Layout lay = layout(P.K, P.sem_d, P.gpt_s, P.gpt_g, P.Ws, I8);
+  const Layout lay = layout(P, NF, ALR, I8);
   if (lay.total > MAX_SMEM) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      hier_parts_kernel<GEO, I8>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay.total);
+  cudaError_t err = cudaFuncSetAttribute(hier_parts_kernel<NF, I8, ALR>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)lay.total);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(Bp / BM, (P.Dv + DVS - 1) / DVS);
-  hier_parts_kernel<GEO, I8><<<grid, THREADS, lay.total, stream>>>(P, lay);
+  hier_parts_kernel<NF, I8, ALR><<<grid, THREADS, lay.total, stream>>>(P, lay);
   return (int)cudaGetLastError();
+}
+
+template <int NF>
+int dispatch(const Params& P, int Bp, bool i8, bool alr, cudaStream_t s) {
+  if (i8) return alr ? launch<NF, true, true>(P, Bp, s) : launch<NF, true, false>(P, Bp, s);
+  return alr ? launch<NF, false, true>(P, Bp, s) : launch<NF, false, false>(P, Bp, s);
+}
+
+// A family's shapes: an lr family's W is a multiple of 128 up to 512, a
+// plain family's holds the count in column Dv; at most 64 groups a tile.
+bool fam_ok(const Fam& F, int Dv, int bn, bool lr) {
+  return F.gpt >= 1 && F.gpt <= 16 * MAX_GK && bn % F.gpt == 0 && F.gk % 16 == 0 &&
+         F.gk >= 16 && F.gk <= F.gw && F.gw % 8 == 0 && F.kf % 16 == 0 &&
+         (lr ? (F.W % 128 == 0 && F.W <= 64 * MAX_NT) : (F.W >= Dv + 1 && F.W % 8 == 0));
 }
 
 }  // namespace
 
-// q_cat [Bp, cat_d], k_cat [N, cat_d] bf16 packed (the row logits contract
-// columns [0, sem_d) and [sem_d, sem_d + 16)); values [N, Dv] bf16, or
-// int8 codes with scale [N] f32 (i8); mask_neg [N] f32; idx [Bp / bm, K]
-// int32 (tiles < N / bn); g_sem [Gs, sem_d] and g_geo [Gg, gw_g] bf16 slim
-// group centroids (the geo ones contract the query columns [cat_d - gw_g,
-// + 16), which must be sem_d); vw_lr [Gs, Ws] bf16 low-rank sem group
-// coefficients; vw_geo [Gg, Wg] bf16 geo group value sums with the count in
-// column Dv; out [Bp, 2 Dv + 128 + Ws] f32.  geo = 0 skips the geo family
-// (its columns are written as zeros).  All contiguous and 16-byte aligned.
+// The merged launch.  q_cat [Bp, cat_d], k_cat [N, cat_d] bf16 packed (the
+// row logits contract columns [0, sem_d) and [sem_d, sem_d + 16)); values
+// [N, Dv] bf16, or int8 codes with scale [N] f32 (i8); mask_neg [N] f32;
+// idx [Bp / bm, K] int32 (tiles < N / bn); g_sem [Gs, sem_d] and g_geo
+// [Gg, gw_g] bf16 slim group centroids (the geo ones contract the query
+// columns [cat_d - gw_g, + 16), which must be sem_d); vw_sem [Gs, Ws] bf16:
+// lr = 1 the low-rank sem group coefficients (Ws a multiple of 128, <= 512),
+// lr = 0 the sem group value sums with the count in column Dv; vw_geo
+// [Gg, Wg] bf16 geo group value sums with the count in column Dv; out
+// [Bp, 2 Dv + 128 (+ Ws with lr)] f32.  geo = 0 skips the geo family (its
+// columns are written as zeros).  All contiguous and 16-byte aligned.
 extern "C" int hier_parts_launch(const void* q_cat, const void* k_cat, const void* values,
                                  const void* scale, const void* mask_neg, const void* idx,
-                                 const void* g_sem, const void* g_geo, const void* vw_lr,
+                                 const void* g_sem, const void* g_geo, const void* vw_sem,
                                  const void* vw_geo, void* out, int Bp, int cat_d, int sem_d,
                                  int Dv, int bm, int bn, int gpt_s, int gpt_g, int K, int Ws,
-                                 int Wg, int gw_g, int geo, int i8, void* stream) {
+                                 int Wg, int gw_g, int geo, int lr, int i8, void* stream) {
   if (Bp <= 0 || K <= 0) return 0;
-  if (bm % BM || Bp % bm || bn % BN || sem_d % 16 || sem_d + GEO_D > cat_d || cat_d % 8 ||
-      Dv % 16 || Ws % 128 || Ws > 64 * MAX_NT || gpt_s < 1 || gpt_s > 16 * MAX_GK ||
-      (geo && (gpt_g < 1 || gpt_g > 16 * MAX_GKG || Wg < Dv + 1 || Wg % 8 || gw_g < GEO_D ||
-               gw_g % 8 || cat_d - gw_g != sem_d)))
-    return (int)cudaErrorInvalidValue;
   using bf = __nv_bfloat16;
+  Params P{static_cast<const bf*>(q_cat), static_cast<const bf*>(k_cat), values,
+           static_cast<const float*>(scale), static_cast<const float*>(mask_neg),
+           static_cast<const int*>(idx),
+           {Fam{static_cast<const bf*>(g_sem), static_cast<const bf*>(vw_sem), 0, sem_d, 0, sem_d,
+                sem_d, Ws, gpt_s},
+            Fam{static_cast<const bf*>(g_geo), static_cast<const bf*>(vw_geo), sem_d, GEO_D,
+                cat_d - gw_g, GEO_D, gw_g, Wg, gpt_g}},
+           static_cast<float*>(out), cat_d, 0, sem_d + (geo ? GEO_D : 0), Dv, bm, bn, K, 2,
+           2 * Dv + 128 + (lr ? Ws : 0)};
+  if (bm % BM || Bp % bm || bn % BN || sem_d % 16 || sem_d + GEO_D > cat_d || cat_d % 8 ||
+      Dv % 16 || !fam_ok(P.f[0], Dv, bn, lr) ||
+      (geo && (!fam_ok(P.f[1], Dv, bn, false) || cat_d - gw_g != sem_d)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return geo ? dispatch<2>(P, Bp, i8, lr, s) : dispatch<1>(P, Bp, i8, lr, s);
+}
+
+// The family-split value variants (no rr): one family, geo = 0 the sem
+// family (row logits over [0, sem_d), group logits the query's first gw
+// columns against g_cat [G, gw], gw == sem_d), geo = 1 the geo family
+// (both over [sem_d, sem_d + 16); cat_d - gw == sem_d).  Operands as
+// hier_parts_launch; g_vw [G, W] bf16: lr = 1 the family's low-rank
+// coefficients (W a multiple of 128, <= 512), lr = 0 its group value sums
+// with the count in column Dv.  out [Bp, Dv + 128 (+ W with lr)] f32:
+// acc | d | 0 (127) [| alr].
+extern "C" int hier_parts_family_values_launch(
+    const void* q_cat, const void* k_cat, const void* values, const void* scale,
+    const void* mask_neg, const void* idx, const void* g_cat, const void* g_vw, void* out, int Bp,
+    int cat_d, int sem_d, int Dv, int bm, int bn, int gpt, int K, int W, int gw, int geo, int lr,
+    int i8, void* stream) {
+  if (Bp <= 0 || K <= 0) return 0;
+  using bf = __nv_bfloat16;
+  const Fam F = geo ? Fam{static_cast<const bf*>(g_cat), static_cast<const bf*>(g_vw), 0, GEO_D,
+                          cat_d - gw - sem_d, GEO_D, gw, W, gpt}
+                    : Fam{static_cast<const bf*>(g_cat), static_cast<const bf*>(g_vw), 0, sem_d,
+                          0, sem_d, gw, W, gpt};
   const Params P{static_cast<const bf*>(q_cat), static_cast<const bf*>(k_cat), values,
                  static_cast<const float*>(scale), static_cast<const float*>(mask_neg),
-                 static_cast<const int*>(idx), static_cast<const bf*>(g_sem),
-                 static_cast<const bf*>(g_geo), static_cast<const bf*>(vw_lr),
-                 static_cast<const bf*>(vw_geo), static_cast<float*>(out), cat_d, sem_d, Dv,
-                 bm, bn, gpt_s, gpt_g, K, Ws, Wg, gw_g};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (geo) return i8 ? launch<true, true>(P, Bp, s) : launch<true, false>(P, Bp, s);
-  return i8 ? launch<false, true>(P, Bp, s) : launch<false, false>(P, Bp, s);
+                 static_cast<const int*>(idx), {F, F}, static_cast<float*>(out), cat_d,
+                 geo ? sem_d : 0, geo ? GEO_D : sem_d, Dv, bm, bn, K, 1,
+                 Dv + 128 + (lr ? W : 0)};
+  if (bm % BM || Bp % bm || bn % BN || sem_d % 16 || sem_d + GEO_D > cat_d || cat_d % 8 ||
+      Dv % 16 || !fam_ok(F, Dv, bn, lr) || (geo ? cat_d - gw != sem_d : gw != sem_d))
+    return (int)cudaErrorInvalidValue;
+  return dispatch<1>(P, Bp, i8, lr, static_cast<cudaStream_t>(stream));
 }

@@ -1,17 +1,23 @@
 // Hierarchical retrieval, stage 2: exact minus group approximation of ONE
-// family over each query block's selected bank tiles (the residual-rank +
-// low-rank shape the flagship serves).
+// family over each query block's selected bank tiles, the residual-rank
+// shapes (rr, with or without lr), which stream no values.
 //
 // Replaces: range_tpu/ops/retrieval_hier.py, `_hier_parts_family_kernel`
-// with rr and lr on (reached via _hier_parts_family_call <- _hier_partials
-// <- retrieve_hier).  For each query and each of the K tiles selected for
-// its block of bm queries (idx[block, j]):
+// with rr on (reached via _hier_parts_family_call <- _hier_partials
+// <- retrieve_hier); its value variants (no rr) are `hier_parts.cu`.  For
+// each query and each of the K tiles selected for its block of bm queries
+// (idx[block, j]):
 //   p   = exp2(min(q . k + mask, 86))       over the tile's bn rows
 //   e   = exp2(min(q . g, 86))              over the tile's gpt groups
 //   ps  = per-group sums of bf16(p), in f32
-//   alr += bf16(e - ps / max(cnt, 1)) @ vw  (cnt = column lrr of vw)
+//   D   = bf16(e - ps / max(cnt, 1))        (cnt = column lrr of vw)
 //   az  += bf16(p) @ z
-// Out [Bp, rrp + 128 + W] f32: az | d (0: the count rides alr) | 0 pad | alr.
+// rr + lr (vw the low-rank coefficients): alr += D @ vw.
+//   Out [Bp, rrp + 128 + W] f32: az | d (0: the count rides alr) | 0 pad | alr.
+// rr only (vw the full-width group value sums, count in column Dv = lrr):
+//   [acc | d] -= D @ vw, which is the TPU kernel's (ps/cnt - e) @ vw:
+//   bf16 rounds to nearest symmetrically, so bf16(ps/cnt - e) = -D exactly.
+//   Out [Bp, Dv + 128 + rrp] f32: acc | d | 0 pad (127) | az.
 //
 // What bounds it on an H100: the row logits and the az product, 2 x bn x
 // (kf + rrp) flops per (query, tile): at the flagship shape (B = 10,112,
@@ -30,8 +36,12 @@
 // reduced with warp shuffles, az in registers.  The group sums of each
 // tile go to a global scratch [Bp, K, gpt] the block alone uses.  Phase B
 // walks the tiles again over their groups only: the group logits, the
-// bf16 difference e - ps/cnt, and alr in registers (up to 128 per thread,
-// which is why it is not carried through phase A beside az).
+// bf16 difference D, and D @ vw in registers (up to 128 per thread, which
+// is why it is not carried through phase A beside az).  A vw wider than
+// 512 columns (rr only: Dv + 128 = 1,152 at Dv = 1,024) takes phase B in
+// passes of at most 512 columns (three of 384), each walking the tiles
+// again and recomputing D: a tile's group work, 64 x gpt x (gw + 384), is
+// small beside its phase A work, 64 x bn x (kf + rrp).
 
 #include "mma_common.cuh"
 
@@ -42,7 +52,7 @@ namespace {
 constexpr int BM = 64;        // queries per block
 constexpr int BN = 32;        // bank rows per step
 constexpr int THREADS = 256;  // 8 warps
-constexpr int MAX_NT = 8;     // alr n8 tiles per warp: W <= 512
+constexpr int MAX_NT = 8;     // phase B n8 tiles per warp: a pass <= 512 columns
 constexpr int MAX_NZ = 4;     // az n8 tiles per warp: rrp <= 256
 constexpr int LDP = BN + 8;   // bf16 row stride of the p tile
 
@@ -55,19 +65,25 @@ struct Params {
   const __nv_bfloat16* vw;    // [G, W]
   const __nv_bfloat16* z;     // [N, rrp]
   float* ps;                  // [Bp, K, gpt] scratch
-  float* out;                 // [Bp, rrp + 128 + W]
+  float* out;                 // [Bp, out_w]
   int Bp, cat_d, kc0, kf, qg0, gw, bm, bn, gpt, K, W, lrr, rrp;
+  int out_w, zoff;            // row width of out, its az columns [zoff, + rrp)
+  int zlo, zn;                // the zero columns [zlo, zlo + zn) (d and pad, or pad)
+  int boff, bcols;            // phase B: vw column c -> out column boff + c, c < bcols
+  float bsign;                // +1 (alr) or -1 ([acc | d] -= D @ vw)
+  int n_pass, pw;             // phase B passes, columns a pass
 };
 
 __host__ __device__ inline size_t up16(size_t n) { return (n + 15) / 16 * 16; }
 
 struct Layout {
   size_t qa, ks, zs, ms, pb, pss;  // phase A
-  size_t qg, gt, vt, eb;           // phase B (overlays phase A)
+  size_t qg, gt, vt, eb, cs;       // phase B (overlays phase A)
   size_t total;
   int gp16;                        // gpt rounded up to one k16 step
 };
 
+// W: the columns of one phase B pass
 __host__ __device__ inline Layout layout(int K, int kf, int rrp, int gpt, int gw, int W) {
   Layout l;
   l.gp16 = (gpt + 15) / 16 * 16;
@@ -83,7 +99,8 @@ __host__ __device__ inline Layout layout(int K, int kf, int rrp, int gpt, int gw
   l.gt = l.qg + (size_t)BM * (gw + 8) * 2;
   l.vt = l.gt + (size_t)l.gp16 * (gw + 8) * 2;
   l.eb = l.vt + (size_t)l.gp16 * (W + 8) * 2;
-  const size_t end_b = l.eb + (size_t)BM * (l.gp16 + 8) * 2;
+  l.cs = l.eb + up16((size_t)BM * (l.gp16 + 8) * 2);
+  const size_t end_b = l.cs + (size_t)l.gp16 * 4;
   l.total = end_a > end_b ? end_a : end_b;
   return l;
 }
@@ -97,7 +114,7 @@ hier_parts_family_kernel(const Params P, const Layout lay) {
   const int g = lane >> 2, t = lane & 3;
   const int q0 = blockIdx.x * BM;
   const int blk = q0 / P.bm;
-  const int out_w = P.rrp + 128 + P.W;
+  const int out_w = P.out_w;
   const int gsz = P.bn / P.gpt;
 
   for (int j = tid; j < P.K; j += THREADS) idx_s[j] = P.idx[(size_t)blk * P.K + j];
@@ -253,13 +270,14 @@ hier_parts_family_kernel(const Params P, const Layout lay) {
         for (int half = 0; half < 2; ++half) {
           const int q = q0 + mt * 16 + g + 8 * half;
           if (q >= P.Bp) continue;
-          *reinterpret_cast<float2*>(P.out + (size_t)q * out_w + col_z + nt * 8 + 2 * t) =
+          *reinterpret_cast<float2*>(P.out + (size_t)q * out_w + P.zoff + col_z + nt * 8 +
+                                     2 * t) =
               make_float2(acc[mt][nt][2 * half], acc[mt][nt][2 * half + 1]);
         }
       }
-    for (int i = tid; i < BM * 128; i += THREADS) {  // d (0) and the pad
-      const int r = i / 128, q = q0 + r;
-      if (q < P.Bp) P.out[(size_t)q * out_w + P.rrp + i % 128] = 0.f;
+    for (int i = tid; i < BM * P.zn; i += THREADS) {  // d (0) and the pad, or the pad
+      const int r = i / P.zn, q = q0 + r;
+      if (q < P.Bp) P.out[(size_t)q * out_w + P.zlo + i % P.zn] = 0.f;
     }
   }
   __syncthreads();  // phase B reuses phase A's shared memory
@@ -269,10 +287,9 @@ hier_parts_family_kernel(const Params P, const Layout lay) {
   __nv_bfloat16* gt = reinterpret_cast<__nv_bfloat16*>(base + lay.gt);
   __nv_bfloat16* vt = reinterpret_cast<__nv_bfloat16*>(base + lay.vt);
   __nv_bfloat16* eb = reinterpret_cast<__nv_bfloat16*>(base + lay.eb);
-  const int ldg = P.gw + 8, ldv = P.W + 8, gp16 = lay.gp16, lde = gp16 + 8;
+  float* cnt_s = reinterpret_cast<float*>(base + lay.cs);  // the tile's group counts
+  const int ldg = P.gw + 8, ldv = P.pw + 8, gp16 = lay.gp16, lde = gp16 + 8;
   const int nks = gp16 / 16;
-  const int ntw = P.W / 64;
-  const int col_a = warp * ntw * 8;
   {
     const int cpr = P.gw / 8;
     for (int i = tid; i < BM * cpr; i += THREADS) {
@@ -284,101 +301,114 @@ hier_parts_family_kernel(const Params P, const Layout lay) {
   }
   for (int i = tid; i < BM * lde; i += THREADS) eb[i] = __float2bfloat16_rn(0.f);
 
-  float acc[4][MAX_NT][4];
+  for (int pass = 0; pass < P.n_pass; ++pass) {
+    const int c_lo = pass * P.pw;  // this pass's vw columns [c_lo, c_lo + cols)
+    const int cols = P.W - c_lo < P.pw ? P.W - c_lo : P.pw;
+    const int ntw = cols / 64;
+    const int col_a = warp * ntw * 8;
+    float acc[4][MAX_NT][4];
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
+    for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
-    for (int nt = 0; nt < MAX_NT; ++nt)
+      for (int nt = 0; nt < MAX_NT; ++nt)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+        for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
 
-  for (int j = 0; j < P.K; ++j) {
-    __syncthreads();  // the previous tile is fully consumed
-    const size_t grow0 = (size_t)idx_s[j] * P.gpt;
-    {
-      const int cpr = P.gw / 8;
-      for (int i = tid; i < P.gpt * cpr; i += THREADS) {
-        const int r = i / cpr, c = (i % cpr) * 8;
-        cp_async16(gt + r * ldg + c, P.gcat + (grow0 + r) * P.gw + c, true);
+    for (int j = 0; j < P.K; ++j) {
+      __syncthreads();  // the previous tile is fully consumed
+      const size_t grow0 = (size_t)idx_s[j] * P.gpt;
+      {
+        const int cpr = P.gw / 8;
+        for (int i = tid; i < P.gpt * cpr; i += THREADS) {
+          const int r = i / cpr, c = (i % cpr) * 8;
+          cp_async16(gt + r * ldg + c, P.gcat + (grow0 + r) * P.gw + c, true);
+        }
+        const int cpv = cols / 8;
+        for (int i = tid; i < gp16 * cpv; i += THREADS) {
+          const int r = i / cpv, c = (i % cpv) * 8;
+          const bool ok = r < P.gpt;  // rows past gpt: zeros (a k16 step)
+          cp_async16(vt + r * ldv + c, P.vw + (ok ? (grow0 + r) * P.W + c_lo + c : 0), ok);
+        }
+        if (tid < gp16)
+          cnt_s[tid] = tid < P.gpt ? __bfloat162float(P.vw[(grow0 + tid) * P.W + P.lrr]) : 1.f;
+        cp_async_commit();
+        cp_async_wait<0>();
       }
-      const int cpv = P.W / 8;
-      for (int i = tid; i < gp16 * cpv; i += THREADS) {
-        const int r = i / cpv, c = (i % cpv) * 8;
-        const bool ok = r < P.gpt;  // rows past gpt: zeros (a k16 step)
-        cp_async16(vt + r * ldv + c, P.vw + (ok ? (grow0 + r) * P.W + c : 0), ok);
-      }
-      cp_async_commit();
-      cp_async_wait<0>();
-    }
-    __syncthreads();
+      __syncthreads();
 
-    // group logits e [64 x gpt] -> bf16(e - ps / max(cnt, 1))
-    const int n_nt = P.gpt / 8;
-    for (int tt = warp; tt < 4 * n_nt; tt += THREADS / 32) {
-      const int mt = tt & 3, nt = tt >> 2;
-      float c[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int kk = 0; kk < P.gw; kk += 16) {
-        uint32_t a[4], b0, b1;
-        load_a(a, qg, ldg, mt * 16, kk, g, t);
-        load_bt(b0, b1, gt, ldg, nt * 8, kk, g, t);
-        mma_bf16(c, a, b0, b1);
-      }
+      // group logits e [64 x gpt] -> bf16(e - ps / max(cnt, 1))
+      const int n_nt = P.gpt / 8;
+      for (int tt = warp; tt < 4 * n_nt; tt += THREADS / 32) {
+        const int mt = tt & 3, nt = tt >> 2;
+        float c[4] = {0.f, 0.f, 0.f, 0.f};
+        for (int kk = 0; kk < P.gw; kk += 16) {
+          uint32_t a[4], b0, b1;
+          load_a(a, qg, ldg, mt * 16, kk, g, t);
+          load_bt(b0, b1, gt, ldg, nt * 8, kk, g, t);
+          mma_bf16(c, a, b0, b1);
+        }
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = mt * 16 + g + 8 * (e >> 1), col = nt * 8 + 2 * t + (e & 1);
-        const int q = q0 + r;
-        const float ps = q < P.Bp ? P.ps[((size_t)q * P.K + j) * P.gpt + col] : 0.f;
-        const float cnt = __bfloat162float(vt[col * ldv + P.lrr]);
-        const float ev = exp2f(fminf(c[e], CLAMP2));
-        eb[r * lde + col] = __float2bfloat16_rn(ev - ps / fmaxf(cnt, 1.f));
+        for (int e = 0; e < 4; ++e) {
+          const int r = mt * 16 + g + 8 * (e >> 1), col = nt * 8 + 2 * t + (e & 1);
+          const int q = q0 + r;
+          const float ps = q < P.Bp ? P.ps[((size_t)q * P.K + j) * P.gpt + col] : 0.f;
+          const float cnt = cnt_s[col];
+          const float ev = exp2f(fminf(c[e], CLAMP2));
+          eb[r * lde + col] = __float2bfloat16_rn(ev - ps / fmaxf(cnt, 1.f));
+        }
       }
-    }
-    __syncthreads();
+      __syncthreads();
 
-    // alr[64 x this warp's columns] += D[64 x gp16] @ VW[gp16 x ...]
+      // alr[64 x this warp's columns] += D[64 x gp16] @ VW[gp16 x ...]
 #pragma unroll
-    for (int h = 0; h < MAX_NT / 2; ++h) {
-      if (2 * h < ntw) {
-        uint32_t b[4][4];
+      for (int h = 0; h < MAX_NT / 2; ++h) {
+        if (2 * h < ntw) {
+          uint32_t b[4][4];
 #pragma unroll
-        for (int k = 0; k < 4; ++k)
-          if (k < nks) load_b_pair(b[k], vt, ldv, k * 16, col_a + h * 16, lane);
+          for (int k = 0; k < 4; ++k)
+            if (k < nks) load_b_pair(b[k], vt, ldv, k * 16, col_a + h * 16, lane);
 #pragma unroll
-        for (int mt = 0; mt < 4; ++mt) {
-          float c[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+          for (int mt = 0; mt < 4; ++mt) {
+            float c[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
 #pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            if (k < nks) {
-              uint32_t a[4];
-              load_a(a, eb, lde, mt * 16, k * 16, g, t);
-              mma_bf16(c[0], a, b[k][0], b[k][1]);
-              mma_bf16(c[1], a, b[k][2], b[k][3]);
+            for (int k = 0; k < 4; ++k) {
+              if (k < nks) {
+                uint32_t a[4];
+                load_a(a, eb, lde, mt * 16, k * 16, g, t);
+                mma_bf16(c[0], a, b[k][0], b[k][1]);
+                mma_bf16(c[1], a, b[k][2], b[k][3]);
+              }
             }
-          }
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            acc[mt][2 * h][e] += c[0][e];
-            acc[mt][2 * h + 1][e] += c[1][e];
+            for (int e = 0; e < 4; ++e) {
+              acc[mt][2 * h][e] += c[0][e];
+              acc[mt][2 * h + 1][e] += c[1][e];
+            }
           }
         }
       }
     }
-  }
 
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
+    for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
-    for (int nt = 0; nt < MAX_NT; ++nt) {
-      if (nt >= ntw) continue;
+      for (int nt = 0; nt < MAX_NT; ++nt) {
+        if (nt >= ntw) continue;
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int q = q0 + mt * 16 + g + 8 * half;
-        if (q >= P.Bp) continue;
-        *reinterpret_cast<float2*>(P.out + (size_t)q * out_w + P.rrp + 128 + col_a + nt * 8 +
-                                   2 * t) =
-            make_float2(acc[mt][nt][2 * half], acc[mt][nt][2 * half + 1]);
+        for (int half = 0; half < 2; ++half) {
+          const int q = q0 + mt * 16 + g + 8 * half;
+          const int c = c_lo + col_a + nt * 8 + 2 * t;  // vw columns c, c + 1
+          if (q >= P.Bp) continue;
+          float* dst = P.out + (size_t)q * out_w + P.boff + c;
+          if (c + 1 < P.bcols) {
+            *reinterpret_cast<float2*>(dst) = make_float2(P.bsign * acc[mt][nt][2 * half],
+                                                          P.bsign * acc[mt][nt][2 * half + 1]);
+          } else if (c < P.bcols) {
+            *dst = P.bsign * acc[mt][nt][2 * half];
+          }
+        }
       }
-    }
+  }
 }
 
 }  // namespace
@@ -387,29 +417,41 @@ hier_parts_family_kernel(const Params P, const Layout lay) {
 // columns [kc0, kc0 + kf), the group logits the query columns [qg0, qg0 +
 // gw) against g_cat [G, gw].  mask_neg [N] f32, idx [Bp / bm, K] int32
 // (tiles < N / bn), g_vw [G, W] bf16 with the count in column lrr, z
-// [N, rrp] bf16, scratch [Bp, K, gpt] f32, out [Bp, rrp + 128 + W] f32.
-// All contiguous and 16-byte aligned.
+// [N, rrp] bf16, scratch [Bp, K, gpt] f32.  lr = 1: g_vw holds low-rank
+// coefficients (W <= 512), out [Bp, rrp + 128 + W] f32.  lr = 0: g_vw holds
+// the group value sums (W a multiple of 128, any width), lrr = Dv, out
+// [Bp, Dv + 128 + rrp] f32.  All contiguous and 16-byte aligned.
 extern "C" int hier_parts_family_launch(const void* q_cat, const void* k_cat,
                                         const void* mask_neg, const void* idx,
                                         const void* g_cat, const void* g_vw, const void* z,
                                         void* scratch, void* out, int Bp, int cat_d, int kc0,
                                         int kf, int qg0, int gw, int bm, int bn, int gpt, int K,
-                                        int W, int lrr, int rrp, int N, void* stream) {
+                                        int W, int lrr, int rrp, int N, int lr,
+                                        void* stream) {
   if (Bp <= 0 || K <= 0) return 0;
   const int gsz = gpt > 0 ? bn / gpt : 0;
   if (bm % BM || Bp % bm || bn % BN || gsz * gpt != bn || gsz % 8 ||
       (gsz <= BN ? BN % gsz : gsz % BN) || gpt % 8 || kf % 16 || gw % 16 || kc0 % 8 ||
-      qg0 % 8 || kc0 + kf > cat_d || qg0 + gw > cat_d || cat_d % 8 || W % 128 ||
-      W > 64 * MAX_NT || rrp % 128 || rrp > 64 * MAX_NZ || lrr < 0 || lrr >= W || N % bn)
+      qg0 % 8 || kc0 + kf > cat_d || qg0 + gw > cat_d || cat_d % 8 || W <= 0 || W % 128 ||
+      (lr && W > 64 * MAX_NT) || rrp % 128 || rrp > 64 * MAX_NZ || lrr < 0 || lrr >= W ||
+      (!lr && lrr % 2) || N % bn)
     return (int)cudaErrorInvalidValue;
   using bf = __nv_bfloat16;
-  const Params P{static_cast<const bf*>(q_cat), static_cast<const bf*>(k_cat),
+  Params P{static_cast<const bf*>(q_cat), static_cast<const bf*>(k_cat),
                  static_cast<const float*>(mask_neg), static_cast<const int*>(idx),
                  static_cast<const bf*>(g_cat), static_cast<const bf*>(g_vw),
                  static_cast<const bf*>(z), static_cast<float*>(scratch),
                  static_cast<float*>(out), Bp, cat_d, kc0, kf, qg0, gw, bm, bn, gpt, K, W, lrr,
-                 rrp};
-  const Layout lay = layout(K, kf, rrp, gpt, gw, W);
+                 rrp,
+                 // lr: az | d, pad | alr;  rr only: acc, d | pad | az
+                 lr ? rrp + 128 + W : lrr + 128 + rrp, lr ? 0 : lrr + 128, lr ? rrp : lrr + 1,
+                 lr ? 128 : 127, lr ? rrp + 128 : 0, lr ? W : lrr + 1, lr ? 1.f : -1.f, 0, 0};
+  {  // ceil(W / 512) phase B passes of equal width, a multiple of 64
+    const int cap = 64 * MAX_NT;
+    P.n_pass = (W + cap - 1) / cap;
+    P.pw = ((W + P.n_pass - 1) / P.n_pass + 63) / 64 * 64;
+  }
+  const Layout lay = layout(K, kf, rrp, gpt, gw, P.pw);
   if (lay.total > MAX_SMEM || lay.gp16 > 64) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       hier_parts_family_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay.total);

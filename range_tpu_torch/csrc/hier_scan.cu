@@ -24,8 +24,8 @@
 // the tail product, and the per-tile max / sum reduced with warp shuffles
 // across the 4 threads of a query (tiles of 8, 16 or 32 groups end inside
 // a step; longer tiles carry a running max / sum across steps).  The tail
-// accumulator [64 x W <= 512] f32 stays in registers (warp w owns W/8
-// columns) and each 32-group step is summed in a fresh fragment before it
+// accumulator [64 x W <= 512] f32 (one column slice of a wider tail, below)
+// stays in registers (warp w owns W/8 columns) and each 32-group step is summed in a fresh fragment before it
 // joins the accumulator (IEEE f32 adds, no long tensor-core chain).  The
 // next group and value tiles stream in with cp.async while this one
 // computes.  Stats are written straight in [query, tile] order, so the
@@ -43,9 +43,28 @@
 // has_geo = 0 (RANGE mode, `_hier_scan_call(..., has_geo=False)`): the grid
 // holds the sem blocks only.  The TPU kernel still computes the geo stats
 // and zero-fills the geo tail there, but RANGE mode reads neither; here the
-// geo operands are not touched (the full-width geo operand that mode
-// passes is wider than this kernel's register tail) and the tails hold the
-// sem columns only.
+// geo operands are not touched and the tails hold the sem columns only.
+//
+// The wide tail (banks without lr_rank / lr_geo: the full-width group value
+// sums, W = Dv + 128 = 1,152 columns at Dv = 1,024): a [64 x 1,152] f32
+// accumulator is 288 registers a thread at 256 threads and cannot stay in
+// registers, nor in shared memory (295 KB).  The tail columns are split
+// across blocks instead: grid.y enumerates (family, column slice), each
+// family's W cut into ceil(W / 512) slices of at most 512 columns (1,152 ->
+// three of 384; a mixed launch, a 384-wide low-rank sem tail beside a
+// 1,152-wide geo tail, has 1 + 3 slices).  Every slice recomputes the
+// group logits and exponentials of its family and streams only its slice
+// of the value rows; slice 0 alone writes the family's two stats.  At the
+// default bank's sem family (sem_d 256 against 384-wide slices) the
+// recomputation costs 2 x 256 / (256 + 1,152) ~ 36% more tensor-core work
+// than one pass.  The alternative, fewer queries per block with the tail
+// in shared memory, needs 32 x 1,152 x 4 = 147 KB beside the operand
+// tiles for 32 queries, halves the tensor-core tile height the logits and
+// the tail run at, and doubles the number of times every block streams
+// the group operands; the slices keep the 64-query block, stream each
+// value column once per query block, and let the query blocks of one slice
+// (launched together, blockIdx.x fastest) share that slice's value rows in
+// L2 (11 MB of the 33 MB sem operand at the default bank).
 
 #include "mma_common.cuh"
 
@@ -56,7 +75,7 @@ namespace {
 constexpr int BM = 64;        // queries per block
 constexpr int BN = 32;        // groups per step
 constexpr int THREADS = 256;  // 8 warps
-constexpr int MAX_NT = 8;     // tail n8 tiles per warp: W <= 8 warps x 64
+constexpr int MAX_NT = 8;     // tail n8 tiles per warp: a slice <= 8 warps x 64
 constexpr int LDL = BN + 1;   // f32 row stride of the logit tile
 constexpr int LDP = BN + 8;   // bf16 row stride of the p tile
 
@@ -70,20 +89,24 @@ struct Family {
   int G, W, gpt;            // groups, tail width, groups per tile
   int tail0;                // first column of the family in the tails
   int sup_r;                // > 0: vw rows sum sup_r groups each (sem only)
+  int n_sl, sw;             // column slices of the tail, columns a slice
 };
 
 struct Layout {
   size_t q, g, v, lg, p, total;
+  int ldv;  // bf16 row stride of a value tile
 };
 
-// Shared memory: the query block, two group tiles, two value tiles, the
-// f32 logit tile and the bf16 p tile.  Sized for the wider family.
-__host__ __device__ inline Layout layout(int wk, int W) {
+// Shared memory: the query block, two group tiles, two value tiles (of one
+// column slice), the f32 logit tile and the bf16 p tile.  Sized for the
+// wider family and the wider slice.
+__host__ __device__ inline Layout layout(int wk, int sw) {
   Layout l;
+  l.ldv = sw + 8;
   l.q = 0;
   l.g = l.q + (size_t)BM * (wk + 8) * 2;
   l.v = l.g + (size_t)2 * BN * (wk + 8) * 2;
-  l.lg = l.v + (size_t)2 * BN * (W + 8) * 2;
+  l.lg = l.v + (size_t)2 * BN * l.ldv * 2;
   l.p = l.lg + (size_t)BM * LDL * 4;
   l.total = l.p + (size_t)BM * LDP * 2;
   return l;
@@ -92,7 +115,12 @@ __host__ __device__ inline Layout layout(int wk, int W) {
 __global__ void __launch_bounds__(THREADS, 1)
 hier_scan_kernel(const __nv_bfloat16* __restrict__ q_cat, int Bp, int cat_d, int t_pad,
                  float* __restrict__ tails, int tails_w, Family f0, Family f1, Layout lay) {
-  const Family f = blockIdx.y ? f1 : f0;
+  const bool fam1 = (int)blockIdx.y >= f0.n_sl;
+  const Family f = fam1 ? f1 : f0;
+  const int slice = fam1 ? blockIdx.y - f0.n_sl : blockIdx.y;
+  const int col_lo = slice * f.sw;  // this block's tail columns [col_lo, + cols)
+  const int cols = f.W - col_lo < f.sw ? f.W - col_lo : f.sw;
+  const bool stats = slice == 0;    // slice 0 writes the family's stats
   extern __shared__ float4 smem4[];
   char* base = reinterpret_cast<char*>(smem4);
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(base + lay.q);
@@ -104,9 +132,9 @@ hier_scan_kernel(const __nv_bfloat16* __restrict__ q_cat, int Bp, int cat_d, int
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int q0 = blockIdx.x * BM;
-  const int ldk = f.wk + 8, ldv = f.W + 8;
+  const int ldk = f.wk + 8, ldv = lay.ldv;
   const int n_steps = f.G / BN;
-  const int ntw = f.W / 64;          // tail n8 tiles of this warp
+  const int ntw = cols / 64;         // tail n8 tiles of this warp
   const int col_w = warp * ntw * 8;  // first tail column of this warp
   // tail rows a step streams, and the k16 steps of its product
   const int rows_v = f.sup_r ? BN / f.sup_r : BN;
@@ -121,11 +149,11 @@ hier_scan_kernel(const __nv_bfloat16* __restrict__ q_cat, int Bp, int cat_d, int
       cp_async16(gs + r * ldk + c, f.g + (size_t)(n0 + r) * f.wk + c, true);
     }
     __nv_bfloat16* vs = vs0 + buf * BN * ldv;
-    const int cpv = f.W / 8;
+    const int cpv = cols / 8;
     const int v0 = it * rows_v;
     for (int idx = tid; idx < rows_v * cpv; idx += THREADS) {
       const int r = idx / cpv, c = (idx % cpv) * 8;
-      cp_async16(vs + r * ldv + c, f.vw + (size_t)(v0 + r) * f.W + c, true);
+      cp_async16(vs + r * ldv + c, f.vw + (size_t)(v0 + r) * f.W + col_lo + c, true);
     }
     cp_async_commit();
   };
@@ -233,7 +261,8 @@ hier_scan_kernel(const __nv_bfloat16* __restrict__ q_cat, int Bp, int cat_d, int
       }
       const int q = q0 + sr;
       const bool lead = sc % (seg / 8) == 0;
-      if (f.gpt <= BN) {
+      if (!stats) {
+      } else if (f.gpt <= BN) {
         if (lead && q < Bp) {
           const size_t o = (size_t)q * t_pad + (it * BN + sc * 8) / f.gpt;
           f.m[o] = lmax;
@@ -290,7 +319,7 @@ hier_scan_kernel(const __nv_bfloat16* __restrict__ q_cat, int Bp, int cat_d, int
       for (int half = 0; half < 2; ++half) {
         const int q = q0 + mt * 16 + g + 8 * half;
         if (q >= Bp) continue;
-        const int col = f.tail0 + col_w + nt * 8 + 2 * t;
+        const int col = f.tail0 + col_lo + col_w + nt * 8 + 2 * t;
         *reinterpret_cast<float2*>(tails + (size_t)q * tails_w + col) =
             make_float2(acc[mt][nt][2 * half], acc[mt][nt][2 * half + 1]);
       }
@@ -299,11 +328,19 @@ hier_scan_kernel(const __nv_bfloat16* __restrict__ q_cat, int Bp, int cat_d, int
 
 bool gpt_ok(int gpt) { return gpt % 8 == 0 && (gpt <= BN ? BN % gpt == 0 : gpt % BN == 0); }
 
+// ceil(W / 512) column slices of equal width, a multiple of 64 (W % 128 == 0)
+void slices(Family& f) {
+  const int cap = 64 * MAX_NT;
+  f.n_sl = (f.W + cap - 1) / cap;
+  f.sw = ((f.W + f.n_sl - 1) / f.n_sl + 63) / 64 * 64;
+}
+
 }  // namespace
 
 // q_cat [Bp, cat_d] bf16 packed queries: the sem family contracts columns
 // [0, ws), the geo family the last wg.  g_sem [Gs, ws], g_geo [Gg, wg],
-// vw_sem [Gs, Ws], vw_geo [Gg, Wg] bf16.  Out: m_s, s_s, m_g, s_g
+// vw_sem [Gs, Ws], vw_geo [Gg, Wg] bf16, Ws and Wg multiples of 128 (any
+// width: above 512 the tail runs in column slices).  Out: m_s, s_s, m_g, s_g
 // [Bp, t_pad] f32 and tails [Bp, Ws + Wg] f32 ([sem | geo]).  has_geo = 0:
 // only m_s, s_s and tails [Bp, Ws] are written, the geo pointers are not
 // read.  sup_r > 0: vw_sem is [Gs / sup_r, Ws], one row per sup_r
@@ -315,26 +352,29 @@ extern "C" int hier_scan_launch(const void* q_cat, const void* g_sem, const void
                                 int wg, int Gs, int Gg, int Ws, int Wg, int gpt_s, int gpt_g,
                                 int t_pad, int has_geo, int sup_r, void* stream) {
   if (Bp <= 0) return 0;
-  if (ws % 16 || ws > cat_d || cat_d % 8 || Ws % 128 || Ws > 64 * MAX_NT || Gs % BN ||
+  if (ws % 16 || ws > cat_d || cat_d % 8 || Ws <= 0 || Ws % 128 || Gs % BN ||
       !gpt_ok(gpt_s) || Gs != t_pad * gpt_s || sup_r < 0 || sup_r == 1 ||
       (sup_r && (BN % sup_r || gpt_s % sup_r)))
     return (int)cudaErrorInvalidValue;
-  if (has_geo && (wg % 16 || wg > cat_d || Wg % 128 || Wg > 64 * MAX_NT || Gg % BN ||
+  if (has_geo && (wg % 16 || wg > cat_d || Wg <= 0 || Wg % 128 || Gg % BN ||
                   !gpt_ok(gpt_g) || Gg != t_pad * gpt_g))
     return (int)cudaErrorInvalidValue;
   using bf = __nv_bfloat16;
-  const Family f0{static_cast<const bf*>(g_sem), static_cast<const bf*>(vw_sem),
-                  static_cast<float*>(m_s), static_cast<float*>(s_s), ws, 0, Gs, Ws, gpt_s, 0,
-                  sup_r};
-  const Family f1{static_cast<const bf*>(g_geo), static_cast<const bf*>(vw_geo),
-                  static_cast<float*>(m_g), static_cast<float*>(s_g), wg, cat_d - wg, Gg, Wg,
-                  gpt_g, Ws, 0};
-  const Layout lay = has_geo ? layout(ws > wg ? ws : wg, Ws > Wg ? Ws : Wg) : layout(ws, Ws);
+  Family f0{static_cast<const bf*>(g_sem), static_cast<const bf*>(vw_sem),
+            static_cast<float*>(m_s), static_cast<float*>(s_s), ws, 0, Gs, Ws, gpt_s, 0,
+            sup_r, 0, 0};
+  Family f1{static_cast<const bf*>(g_geo), static_cast<const bf*>(vw_geo),
+            static_cast<float*>(m_g), static_cast<float*>(s_g), wg, cat_d - wg, Gg, Wg,
+            gpt_g, Ws, 0, 0, 0};
+  slices(f0);
+  if (has_geo) slices(f1);
+  const Layout lay = has_geo ? layout(ws > wg ? ws : wg, f0.sw > f1.sw ? f0.sw : f1.sw)
+                             : layout(ws, f0.sw);
   if (lay.total > MAX_SMEM) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       hier_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay.total);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Bp + BM - 1) / BM, has_geo ? 2 : 1);
+  const dim3 grid((Bp + BM - 1) / BM, f0.n_sl + (has_geo ? f1.n_sl : 0));
   hier_scan_kernel<<<grid, THREADS, lay.total, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf*>(q_cat), Bp, cat_d, t_pad, static_cast<float*>(tails),
       has_geo ? Ws + Wg : Ws, f0, f1, lay);

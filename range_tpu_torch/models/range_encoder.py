@@ -10,8 +10,8 @@ Counterpart of `range_tpu/models/range_encoder.py:44-274` (reference
   4. output = concat([retrieved_Dv, query_256])
 
 With a `HierBank` and ``retrieval='hier'`` the retrieval is the
-hierarchical path (`ops/retrieval_hier.retrieve_hier`: RANGE+ through the
-family-split kernels, RANGE through the merged parts kernel), with the
+hierarchical path (`ops/retrieval_hier.retrieve_hier`, routed as the JAX
+package routes: the family-split or the merged parts kernels), with the
 JAX package's batch-size heuristics (`range_encoder.py:147-223`).  Banks
 with int8 values take the int8 kernels on either path.
 Multi-device meshes are not ported.
@@ -122,8 +122,8 @@ class RangeEncoder(nn.Module):
             bank = bank.bank  # the dense exact path over the same rows
         if isinstance(bank, HierBank):
             bm, k_tiles, k_geo, j_sem = cfg.hier_plan(B)
-            # concat_query: the [retrieved | query] concat happens inside
-            # the combine kernel's epilogue
+            # concat_query: the [retrieved | query] concat, inside the
+            # combine kernel's epilogue where the fused combine runs
             return retrieve_hier(
                 q_sem, q_xyz, bank, sem_temp=cfg.resolved_sem_temp(),
                 geo_temp=cfg.geo_temp, beta=cfg.beta, mode=cfg.mode,

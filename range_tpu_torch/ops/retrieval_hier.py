@@ -1,7 +1,9 @@
 """Hierarchical (two-stage) approximate retrieval: bank build and serving.
 
-Counterpart of `range_tpu/ops/retrieval_hier.py` for the flagship RANGE+
-and RANGE paths (`api.SERVING_PROFILES['flagship']` and `['turbo']`).
+Counterpart of `range_tpu/ops/retrieval_hier.py` for its one-level serving
+paths: every bank `build_hier_bank` makes without topk_lr, sel_lr or
+gsz_super (any subset of lr_rank, res_rank and lr_geo), in RANGE and
+RANGE+ mode, with bf16 or int8 values.
 
 Build (`build_hier_bank`, offline, on the bank's device): geographic
 k-means reorder with dense packing (`bank/clustered.py`), a key+value
@@ -13,23 +15,33 @@ per-group centroids and value sums per family, the low-rank tails
 the supergroup centroids (``gsz_super``) and the supergroup sem tail
 operands (``tail_super``).
 
-Serving features (`retrieve_hier`, the family-split lr + rr shape):
+Serving features (`retrieve_hier`, routed as the JAX function routes):
   1. pad and pack the queries, sort them (`_hybrid_order`: geographically,
      or with ``sort="hybrid"`` by coarse cell then home tile from a
      stats-only pre-scan, `_hier_scan_stats_call`);
   2. the SCAN kernel: per (query, tile) max group logit and exp-mass for
      both families, and the all-tiles group tail  e @ [V_g | n_g]
-     (`_hier_scan_call`);
-  3. `select_tiles` per family (K sem tiles, k_geo geo tiles per block of
-     bm queries);
-  4. the PARTS kernel per family: exact minus group approximation over the
-     selected tiles (`_hier_parts_family_call`);
-  5. the COMBINE kernel: unprojection, normalization, beta blend and the
-     query concat (`_combine_cat_call`); the un-sort is a torch gather.
-On ``tail_super`` banks the scan's sem tail runs over supergroup means
-(its segment-sum variant), one selection keeps K + ``m_corr`` sem tiles,
-and the CORRECTION kernel (`_hier_corr_call`) adds the fine-group tail
-back over all of them before the combine.
+     (`_hier_scan_call`; tails wider than 512 columns, the full-width
+     group sums of banks without lr_rank / lr_geo, in column slices);
+  3. RANGE+ with k_geo > 0 (the family split; banks with res_rank always):
+     `select_tiles` per family (K sem tiles, k_geo geo tiles per block of
+     bm queries), the PARTS kernel per family, exact minus group
+     approximation over the selected tiles (`_hier_parts_family_call`, in
+     its rr + lr, rr, lr and plain shapes), then the COMBINE kernel
+     (`_combine_cat_call`: unprojection, normalization, beta blend and the
+     query concat, with or without the low-rank geo tail) where the JAX
+     package fuses it, else the combine in torch;
+  4. RANGE mode (no locations, beta 1: the home-tile sort and the scan
+     without its geo family) and RANGE+ with k_geo = 0: one selection,
+     the MERGED parts kernel (`_hier_parts_call`: both families' exact
+     minus approximation in one pass, lr or plain; the geo family skipped
+     where RANGE discards it) and the combine in torch.
+The un-sort is a torch gather.  Banks with int8 values
+(`quantize_values`) keep their codes and scales; the kernels that stream
+values fold the scales in.  On ``tail_super`` banks the scan's sem tail
+runs over supergroup means (its segment-sum variant), one selection keeps
+K + ``m_corr`` sem tiles, and the CORRECTION kernel (`_hier_corr_call`)
+adds the fine-group tail back over all of them before the combine.
 
 Serving top-k rows (`hier_topk`, the recall endpoint, k = 1..8): the
 STATS-ONLY scan over the fine `g_topk_cat` operand (`_hier_scan_stats_call`),
@@ -41,14 +53,6 @@ kernel (`_hier_refine_call`) computes their fine stats, and K of the M
 go to the argmax.  `hier_nn` is the harness that measures which
 argmax the feature path can reach (masked logits, chunked, no kernel of
 its own beyond the stats scan).
-
-RANGE mode (`retrieve_hier(mode="range")`, no locations, beta 1) takes
-the JAX package's merged branch over low-rank banks: the home-tile query
-sort, the scan without its geo family, one selection, the MERGED parts
-kernel (`_hier_parts_call`: both families' exact minus approximation in
-one pass, the geo family skipped where RANGE discards it) and the
-low-rank combine in torch.  Banks with int8 values (`quantize_values`)
-keep their codes and scales; the merged kernel folds the scales in.
 
 Each kernel wrapper runs its plain PyTorch version on CPU tensors and the
 CUDA kernel (`csrc/`) on CUDA tensors, and counts launches in
@@ -875,7 +879,9 @@ def _hier_scan_call(q_cat, g_sem_cat, g_geo_cat, g_sem_vw, g_geo_vw, *,
     [Bp, Ws + Wg] f32).  ``has_geo=False`` (RANGE mode): (m_s, s_s, None,
     None, tails [Bp, Ws]), the geo operands untouched.  ``sup_r > 0``: the
     segment-sum variant of tail_super banks (`_hier_scan_plain`), which
-    also counts in ``.sup_launches``.
+    also counts in ``.sup_launches``.  Tails wider than 512 columns (the
+    full-width group value sums, Dv + 128) run the wide-tail variant, in
+    column slices: it also counts in ``.wide_launches``.
 
     CPU tensors: `_hier_scan_plain`.  CUDA tensors: `csrc/hier_scan.cu`,
     which replaces `_hier_scan_kernel` (`range_tpu/ops/retrieval_hier.py:
@@ -905,7 +911,7 @@ def _hier_scan_call(q_cat, g_sem_cat, g_geo_cat, g_sem_vw, g_geo_vw, *,
             raise ValueError(f"hier_scan kernel: groups per tile {gpt} must "
                              "be 8, 16, 32 or a multiple of 32")
         if (G != t_pad * gpt or G % 32 or vw.shape[0] * r != G or w > 256
-                or w % 16 or w > cat_d or cat_d % 8 or W % 128 or W > 512):
+                or w % 16 or w > cat_d or cat_d % 8 or W % 128):
             raise ValueError(
                 f"hier_scan kernel: unsupported shapes q {tuple(q_cat.shape)}"
                 f", g_sem {tuple(g_sem_cat.shape)}, g_geo "
@@ -929,6 +935,8 @@ def _hier_scan_call(q_cat, g_sem_cat, g_geo_cat, g_sem_vw, g_geo_vw, *,
         _hier_scan_call.launches += 1
         if sup_r:
             _hier_scan_call.sup_launches += 1
+        if max(Ws, Wg) > 512:
+            _hier_scan_call.wide_launches += 1
     if not has_geo:
         stats += [None, None]
     return tuple(stats) + (tails,)
@@ -936,6 +944,7 @@ def _hier_scan_call(q_cat, g_sem_cat, g_geo_cat, g_sem_vw, g_geo_vw, *,
 
 _hier_scan_call.launches = 0
 _hier_scan_call.sup_launches = 0
+_hier_scan_call.wide_launches = 0
 
 
 def _block_groups(tiles: torch.Tensor, gpt: int) -> torch.Tensor:
@@ -983,7 +992,7 @@ def _hier_refine_call(q_cat, idx, g_sem_cat, g_sup_cat, g_sem_vw, g_sup_vw,
     if not stats_only:
         raise _not_ported(
             "the refine kernel's fine-minus-supergroup tail (has_parts, the "
-            "two-level feature path: item 2.2 with the wide-tail scan)",
+            "two-level feature path: item 2.2)",
             _ROADMAP_SERVE)
     if q_cat.device.type == "cpu":
         return _hier_refine_plain(q_cat, idx, g_sem_cat, bm=bm,
@@ -1046,7 +1055,9 @@ def _hier_corr_call(q_cat, idx, g_cat, dvw, *, bm: int, gpt: int):
 
     CPU tensors: `_hier_corr_plain`.  CUDA tensors: `csrc/hier_corr.cu`,
     which replaces `_hier_corr_kernel` (`range_tpu/ops/retrieval_hier.py:
-    2209`); bf16 operands only, a launch failure raises."""
+    2209`); bf16 operands only, a launch failure raises.  A dvw wider than
+    512 columns (a bank without lr_rank) runs in column slices, counted
+    also in ``.wide_launches``."""
     if q_cat.device.type == "cpu":
         return _hier_corr_plain(q_cat, idx, g_cat, dvw, bm=bm, gpt=gpt)
     bf = torch.bfloat16
@@ -1058,8 +1069,7 @@ def _hier_corr_call(q_cat, idx, g_cat, dvw, *, bm: int, gpt: int):
     G, gw = g_cat.shape
     W = dvw.shape[1]
     if (Bp != nB * bm or bm % 64 or gpt < 1 or G % gpt or dvw.shape[0] != G
-            or gw % 16 or gw > 256 or gw > cat_d or cat_d % 8 or W % 128
-            or W > 512):
+            or gw % 16 or gw > 256 or gw > cat_d or cat_d % 8 or W % 128):
         raise ValueError(
             f"hier_corr kernel: unsupported shapes q {tuple(q_cat.shape)}, "
             f"idx {tuple(idx.shape)}, g {tuple(g_cat.shape)}, dvw "
@@ -1071,12 +1081,15 @@ def _hier_corr_call(q_cat, idx, g_cat, dvw, *, bm: int, gpt: int):
                 *[t.data_ptr() for t in ops + [out]], Bp, cat_d, gw, W, bm, M,
                 gpt, _stream(q_cat))
         _hier_corr_call.launches += 1
+        if W > 512:
+            _hier_corr_call.wide_launches += 1
     elif Bp:
         out.zero_()
     return out
 
 
 _hier_corr_call.launches = 0
+_hier_corr_call.wide_launches = 0
 
 
 def _family_cols(geo: bool, sem_d: int, cat_d: int, gw: int):
@@ -1088,61 +1101,131 @@ def _family_cols(geo: bool, sem_d: int, cat_d: int, gw: int):
 
 def _hier_parts_family_plain(q_cat, k_cat, mask_neg, idx, g_cat, g_vw, z, *,
                              sem_d: int, bm: int, bn: int, gpt: int,
-                             geo: bool, lrr: int, magnitude: bool = False):
-    """Plain version of the rr+lr parts kernel (`_hier_parts_family_kernel`,
-    `retrieval_hier.py:2282-2418`).  Per query block and selected tile:
-    p = exp2(min(q.k + mask, 86)) over the family's columns; the group
-    logits e = exp2(min(q.g, 86)); ps = segment sums of bf16(p) in f32;
-    alr += bf16(e - ps / max(cnt, 1)) @ vw, with cnt column ``lrr`` of vw;
-    az += bf16(p) @ z.  Out [Bp, rrp + 128 + W]: az | d (0) | pad | alr.
+                             geo: bool, lrr: int, lr: bool = True,
+                             values=None, scale=None, magnitude: bool = False):
+    """Plain version of the family parts kernel (`_hier_parts_family_kernel`,
+    `retrieval_hier.py:2282-2418`), its four shapes.  Per query block and
+    selected tile: p = exp2(min(q.k + mask, 86)) over the family's columns;
+    the group logits e = exp2(min(q.g, 86)).
 
-    ``magnitude=True`` sums the terms' magnitudes instead, (e + ps/cnt) @
-    |vw| and bf16(p) @ |z|: the per-element scale that a bf16 rounding
-    point landing the other way is measured against."""
+    ``z`` given (rr): ps = segment sums of bf16(p) in f32, az += bf16(p) @ z,
+    and with ``lr`` alr += bf16(e - ps / max(cnt, 1)) @ vw (cnt column
+    ``lrr`` of vw): out [Bp, rrp + 128 + W] = az | d (0) | pad | alr;
+    without it [acc | d] += bf16(ps / cnt - e) @ vw (full-width vw, count
+    in column lrr = Dv): out [Bp, Dv + 128 + rrp] = acc | d | pad | az.
+    ``z`` None (the value variants, ``values`` [N, Dv] bf16 or int8 codes
+    with ``scale`` [1, N]): d += sum p, acc += bf16(p * s) @ v, and the
+    group approximation bf16(e) @ vw goes to alr with ``lr`` (out [Bp, Dv +
+    128 + W] = acc | d | pad | alr), else is subtracted from [acc | d]
+    (out [Bp, Dv + 128]).
+
+    ``magnitude=True`` sums the terms' magnitudes instead (|v|, |vw|, |z|,
+    e + ps/cnt, the approximations added): the per-element scale that a
+    bf16 rounding point landing the other way is measured against."""
     f32 = torch.float32
     Bp, cat_d = q_cat.shape
     nB, K = idx.shape
-    W, rrp, gw = g_vw.shape[1], z.shape[1], g_cat.shape[1]
+    W, gw = g_vw.shape[1], g_cat.shape[1]
     gsz = bn // gpt
     cols, qcols = _family_cols(geo, sem_d, cat_d, gw)
-    out = torch.zeros((Bp, rrp + 128 + W), dtype=f32, device=q_cat.device)
-    ar_rows = torch.arange(bn, device=q_cat.device)
-    ar_grp = torch.arange(gpt, device=q_cat.device)
+    dev = q_cat.device
+    if z is not None:
+        rrp = z.shape[1]
+        Dv = lrr
+        width = rrp + 128 + W if lr else Dv + 128 + rrp
+    else:
+        Dv = values.shape[1]
+        width = Dv + 128 + (W if lr else 0)
+    out = torch.zeros((Bp, width), dtype=f32, device=dev)
+    ar_rows = torch.arange(bn, device=dev)
+    ar_grp = torch.arange(gpt, device=dev)
     for i in range(nB):
         tiles = idx[i].long()
         rows = (tiles[:, None] * bn + ar_rows).reshape(-1)
         grps = (tiles[:, None] * gpt + ar_grp).reshape(-1)
         q = q_cat[i * bm:(i + 1) * bm].to(f32)
+        o = out[i * bm:(i + 1) * bm]
         logit = q[:, cols] @ k_cat[rows][:, cols].to(f32).T + mask_neg[0, rows]
-        p = torch.exp2(torch.clamp_max(logit, CLAMP2)).to(z.dtype).to(f32)
-        ps = p.reshape(bm, K, gpt, gsz).sum(dim=3).reshape(bm, K * gpt)
+        p = torch.exp2(torch.clamp_max(logit, CLAMP2))
         vw = g_vw[grps].to(f32)
         e = torch.exp2(torch.clamp_max(q[:, qcols] @ g_cat[grps].to(f32).T,
                                        CLAMP2))
-        psn = ps / torch.clamp_min(vw[:, lrr], 1.0)
-        zr = z[rows].to(f32)
-        if magnitude:
-            d, vw, zr = e + psn, vw.abs(), zr.abs()
+        if z is not None:
+            p = p.to(z.dtype).to(f32)
+            ps = p.reshape(bm, K, gpt, gsz).sum(dim=3).reshape(bm, K * gpt)
+            psn = ps / torch.clamp_min(vw[:, lrr], 1.0)
+            zr = z[rows].to(f32)
+            if magnitude:
+                d, vw, zr = e + psn, vw.abs(), zr.abs()
+            elif lr:
+                d = (e - psn).to(g_vw.dtype).to(f32)
+            else:
+                d = (psn - e).to(g_vw.dtype).to(f32)
+            if lr:
+                o[:, rrp + 128:] = d @ vw
+                o[:, :rrp] = p @ zr
+            else:
+                dvv = d @ vw
+                o[:, :Dv + 1] = dvv[:, :Dv + 1]
+                o[:, Dv + 128:] = p @ zr
+            continue
+        v = values[rows].to(f32)
+        w = p * scale[0, rows].to(f32) if scale is not None else p
+        wdt = torch.bfloat16 if scale is not None else values.dtype
+        o[:, :Dv] = w.to(wdt).to(f32) @ (v.abs() if magnitude else v)
+        o[:, Dv] = p.sum(dim=1)
+        appr = e.to(g_vw.dtype).to(f32) @ (vw.abs() if magnitude else vw)
+        if lr:
+            o[:, Dv + 128:] = appr
         else:
-            d = (e - psn).to(g_vw.dtype).to(f32)
-        out[i * bm:(i + 1) * bm, rrp + 128:] = d @ vw
-        out[i * bm:(i + 1) * bm, :rrp] = p @ zr
+            sign = 1.0 if magnitude else -1.0
+            o[:, :Dv] += sign * appr[:, :Dv]
+            o[:, Dv] += sign * appr[:, Dv]
     return out
 
 
 def _hier_parts_family_call(q_cat, k_cat, mask_neg, idx, g_cat, g_vw, z, *,
                             sem_d: int, bm: int, bn: int, gpt: int,
-                            geo: bool, lrr: int):
+                            geo: bool, lrr: int, lr: bool = True,
+                            values=None, scale=None):
     """Exact minus group approximation of one family over each query
-    block's selected tiles, the residual-rank + low-rank shape.
+    block's selected tiles, in the four shapes of `_hier_parts_family_plain`
+    (``z`` given: rr + lr, or rr alone with full-width ``g_vw`` and lrr =
+    Dv; ``z`` None: the value variants, with ``values`` and ``scale``).
 
-    CPU tensors: `_hier_parts_family_plain`.  CUDA tensors:
-    `csrc/hier_parts_family.cu`, which replaces `_hier_parts_family_kernel`
-    (`range_tpu/ops/retrieval_hier.py:2282`); a launch failure raises."""
+    CPU tensors: `_hier_parts_family_plain`.  CUDA tensors: the rr shapes
+    `csrc/hier_parts_family.cu`, the value shapes `csrc/hier_parts.cu`
+    (its family entry point); both replace `_hier_parts_family_kernel`
+    (`range_tpu/ops/retrieval_hier.py:2282`), a launch failure raises.
+    Each launch counts in ``.launches`` and in its shape's own counter:
+    ``.rrlr_launches``, ``.rr_launches``, ``.lr_launches`` or
+    ``.plain_launches``."""
     if q_cat.device.type == "cpu":
         return _hier_parts_family_plain(
             q_cat, k_cat, mask_neg, idx, g_cat, g_vw, z, sem_d=sem_d, bm=bm,
-            bn=bn, gpt=gpt, geo=geo, lrr=lrr)
+            bn=bn, gpt=gpt, geo=geo, lrr=lrr, lr=lr, values=values,
+            scale=scale)
+    if z is None:
+        out = _parts_family_values(q_cat, k_cat, values, scale, mask_neg, idx,
+                                   g_cat, g_vw, sem_d=sem_d, bm=bm, bn=bn,
+                                   gpt=gpt, geo=geo, lr=lr)
+        counter = "lr_launches" if lr else "plain_launches"
+    else:
+        out = _parts_family_rr(q_cat, k_cat, mask_neg, idx, g_cat, g_vw, z,
+                               sem_d=sem_d, bm=bm, bn=bn, gpt=gpt, geo=geo,
+                               lrr=lrr, lr=lr)
+        counter = "rrlr_launches" if lr else "rr_launches"
+    if q_cat.shape[0] and idx.shape[1]:
+        _hier_parts_family_call.launches += 1
+        setattr(_hier_parts_family_call, counter,
+                getattr(_hier_parts_family_call, counter) + 1)
+    return out
+
+
+def _parts_family_rr(q_cat, k_cat, mask_neg, idx, g_cat, g_vw, z, *,
+                     sem_d: int, bm: int, bn: int, gpt: int, geo: bool,
+                     lrr: int, lr: bool):
+    """Launch `csrc/hier_parts_family.cu` (the rr shapes)."""
     bf = torch.bfloat16
     ops = dict(q_cat=q_cat, k_cat=k_cat, mask_neg=mask_neg, idx=idx,
                g_cat=g_cat, g_vw=g_vw, z=z)
@@ -1160,49 +1243,103 @@ def _hier_parts_family_call(q_cat, k_cat, mask_neg, idx, g_cat, g_vw, z, *,
     if (kw != cat_d or Bp != nB * bm or bm % 64 or bn % 32 or gpt * gsz != bn
             or gsz % 8 or (32 % gsz if gsz <= 32 else gsz % 32)
             or gpt % 8 or gpt > 64 or kf % 16 or kf > 256 or gw % 16
-            or gw > 256 or cat_d % 8 or W % 128 or W > 512 or rrp % 128
-            or rrp > 256 or not 0 <= lrr < W or z.shape[0] != N
+            or gw > 256 or cat_d % 8 or W % 128 or (lr and W > 512)
+            or rrp % 128 or rrp > 256 or not 0 <= lrr < W
+            or (not lr and lrr % 2) or z.shape[0] != N
             or g_vw.shape[0] != G or mask_neg.shape != (1, N) or N % bn):
         raise ValueError(
             f"hier_parts_family kernel: unsupported shapes q "
             f"{tuple(q_cat.shape)}, k {tuple(k_cat.shape)}, idx "
             f"{tuple(idx.shape)}, g {tuple(g_cat.shape)}, vw "
             f"{tuple(g_vw.shape)}, z {tuple(z.shape)}, bm={bm}, bn={bn}, "
-            f"gpt={gpt}")
+            f"gpt={gpt}, lr={lr}")
     ops = [t.contiguous() for t in ops.values()]
     dev = q_cat.device
     scratch = torch.empty((Bp, K, gpt), dtype=torch.float32, device=dev)
-    out = torch.empty((Bp, rrp + 128 + W), dtype=torch.float32, device=dev)
+    out = torch.empty((Bp, rrp + 128 + W if lr else lrr + 128 + rrp),
+                      dtype=torch.float32, device=dev)
     if Bp and K:
         _launch("hier_parts_family", "hier_parts_family_launch",
                 *[t.data_ptr() for t in ops + [scratch, out]],
                 Bp, cat_d, cols.start, kf, qcols.start, gw, bm, bn, gpt, K,
-                W, lrr, rrp, N, _stream(q_cat))
-        _hier_parts_family_call.launches += 1
+                W, lrr, rrp, N, int(lr), _stream(q_cat))
+    elif Bp:
+        out.zero_()
+    return out
+
+
+def _parts_family_values(q_cat, k_cat, values, scale, mask_neg, idx, g_cat,
+                         g_vw, *, sem_d: int, bm: int, bn: int, gpt: int,
+                         geo: bool, lr: bool):
+    """Launch `csrc/hier_parts.cu`'s family entry point (the value shapes:
+    the geo family's row and group logits over one k16 step of its
+    columns, the fast tier's 9 real ones and zero padding, as the merged
+    kernel's)."""
+    bf, f32 = torch.bfloat16, torch.float32
+    ops = dict(q_cat=q_cat, k_cat=k_cat, values=values, mask_neg=mask_neg,
+               idx=idx, g_cat=g_cat, g_vw=g_vw)
+    dtypes = dict(q_cat=bf, k_cat=bf, values=bf, mask_neg=f32,
+                  idx=torch.int32, g_cat=bf, g_vw=bf)
+    if scale is not None:
+        ops["scale"], dtypes["scale"], dtypes["values"] = scale, f32, torch.int8
+    _check_cuda("hier_parts_family", ops, dtypes)
+    Bp, cat_d = q_cat.shape
+    N, Dv = values.shape
+    nB, K = idx.shape
+    G, gw = g_cat.shape
+    W = g_vw.shape[1]
+    if (k_cat.shape != (N, cat_d) or mask_neg.shape != (1, N)
+            or (scale is not None and scale.shape != (1, N))
+            or Bp != nB * bm or bm % 64 or bn % 32 or N % bn or sem_d % 16
+            or sem_d + 16 > cat_d or cat_d % 8 or Dv % 16
+            or g_vw.shape[0] != G or not 1 <= gpt <= 64 or bn % gpt
+            or (cat_d - gw != sem_d if geo else gw != sem_d)
+            or (W % 128 or W > 512 if lr else W < Dv + 1 or W % 8)):
+        raise ValueError(
+            f"hier_parts_family kernel: unsupported shapes q "
+            f"{tuple(q_cat.shape)}, k {tuple(k_cat.shape)}, values "
+            f"{tuple(values.shape)}, idx {tuple(idx.shape)}, g "
+            f"{tuple(g_cat.shape)}, vw {tuple(g_vw.shape)}, bm={bm}, bn={bn}, "
+            f"gpt={gpt}, geo={geo}, lr={lr}")
+    out = torch.empty((Bp, Dv + 128 + (W if lr else 0)), dtype=f32,
+                      device=q_cat.device)
+    if Bp and K:
+        held = [None if t is None else t.contiguous() for t in (
+            q_cat, k_cat, values, scale, mask_neg, idx, g_cat, g_vw)]
+        ptr = [None if t is None else t.data_ptr() for t in held]
+        _launch("hier_parts", "hier_parts_family_values_launch", *ptr,
+                out.data_ptr(), Bp, cat_d, sem_d, Dv, bm, bn, gpt, K, W, gw,
+                int(geo), int(lr), int(scale is not None), _stream(q_cat))
     elif Bp:
         out.zero_()
     return out
 
 
 _hier_parts_family_call.launches = 0
+_hier_parts_family_call.rrlr_launches = 0
+_hier_parts_family_call.rr_launches = 0
+_hier_parts_family_call.lr_launches = 0
+_hier_parts_family_call.plain_launches = 0
 
 
 def _hier_parts_plain(q_cat, k_cat, values, scale, mask_neg, idx, g_sem_cat,
                       g_geo_cat, g_sem_vw, g_geo_vw, *, sem_d: int, bm: int,
                       bn: int, gpt_s: int, gpt_g: int, geo: bool = True,
-                      magnitude: bool = False):
-    """Plain version of the merged parts kernel, low-rank variant
-    (`_hier_parts_kernel` with lr, `retrieval_hier.py:2515-2613`).  Per
-    query block and selected tile: p_s, p_g = exp2(min(q . k + mask, 86))
-    over each family's columns; d_s, d_g their sums; acc += bf16(p * s) @ v
-    per family (s the int8 row scale; without ``scale`` p is cast to the
-    value dtype); alr += bf16(exp2(min(q_sem . g_sem, 86))) @ g_sem_vw (the
-    sem approximation, kept apart); [acc_g | d_g] -= bf16(exp2(min(q_geo .
-    g_geo, 86))) @ g_geo_vw (the geo approximation, count in column Dv).
-    Out [Bp, 2 Dv + 128 + Ws]: acc_s | acc_g | d_s | d_g | 0 | alr.
-    ``geo=False`` leaves the geo columns zero (what RANGE mode discards).
-    The group logits take q[:, :gs_w] for sem and the last gg_w columns of
-    q for geo.
+                      lr: bool = True, magnitude: bool = False):
+    """Plain version of the merged parts kernel (`_hier_parts_kernel`,
+    `retrieval_hier.py:2515-2613`).  Per query block and selected tile:
+    p_s, p_g = exp2(min(q . k + mask, 86)) over each family's columns; d_s,
+    d_g their sums; acc += bf16(p * s) @ v per family (s the int8 row
+    scale; without ``scale`` p is cast to the value dtype); [acc_g | d_g]
+    -= bf16(exp2(min(q_geo . g_geo, 86))) @ g_geo_vw (the geo
+    approximation, count in column Dv).  The sem approximation bf16(exp2(
+    min(q_sem . g_sem, 86))) @ g_sem_vw: with ``lr`` (low-rank
+    coefficients) kept apart in alr, out [Bp, 2 Dv + 128 + Ws] = acc_s |
+    acc_g | d_s | d_g | 0 | alr; without it (full-width sums, count in
+    column Dv) subtracted from [acc_s | d_s] as the geo one, out [Bp, 2 Dv
+    + 128].  ``geo=False`` leaves the geo columns zero (what RANGE mode
+    discards).  The group logits take q[:, :gs_w] for sem and the last
+    gg_w columns of q for geo.
 
     ``magnitude=True`` sums the terms' magnitudes instead (|v|, |vw|, the
     approximations added): the per-element scale that a bf16 rounding
@@ -1214,7 +1351,8 @@ def _hier_parts_plain(q_cat, k_cat, values, scale, mask_neg, idx, g_sem_cat,
     gs_w, gg_w = g_sem_cat.shape[1], g_geo_cat.shape[1]
     wdt = torch.bfloat16 if scale is not None else values.dtype
     dev = q_cat.device
-    out = torch.zeros((Bp, 2 * Dv + 128 + Ws), dtype=f32, device=dev)
+    out = torch.zeros((Bp, 2 * Dv + 128 + (Ws if lr else 0)), dtype=f32,
+                      device=dev)
     ar_rows = torch.arange(bn, device=dev)
     for i in range(nB):
         tiles = idx[i].long()
@@ -1240,14 +1378,19 @@ def _hier_parts_plain(q_cat, k_cat, values, scale, mask_neg, idx, g_sem_cat,
             w = vw[grps].to(f32)
             return e.to(vw.dtype).to(f32) @ (w.abs() if magnitude else w)
 
-        o[:, 2 * Dv], o[:, :Dv] = family(slice(0, sem_d))
-        o[:, 2 * Dv + 128:] = approx(slice(0, gs_w), g_sem_cat, g_sem_vw,
-                                     gpt_s)
+        sign = 1.0 if magnitude else -1.0
+        d_s, acc_s = family(slice(0, sem_d))
+        appr = approx(slice(0, gs_w), g_sem_cat, g_sem_vw, gpt_s)
+        if lr:
+            o[:, 2 * Dv], o[:, :Dv] = d_s, acc_s
+            o[:, 2 * Dv + 128:] = appr
+        else:
+            o[:, :Dv] = acc_s + sign * appr[:, :Dv]
+            o[:, 2 * Dv] = d_s + sign * appr[:, Dv]
         if geo:
             d_g, acc_g = family(slice(sem_d, cat_d))
             appr = approx(slice(cat_d - gg_w, cat_d), g_geo_cat, g_geo_vw,
                           gpt_g)
-            sign = 1.0 if magnitude else -1.0
             o[:, Dv:2 * Dv] = acc_g + sign * appr[:, :Dv]
             o[:, 2 * Dv + 1] = d_g + sign * appr[:, Dv]
     return out
@@ -1258,25 +1401,22 @@ def _hier_parts_call(q_cat, k_cat, values, scale, mask_neg, idx, g_sem_cat,
                      bn: int, gpt_s: int, gpt_g: int, lr: bool = True,
                      geo: bool = True):
     """Exact minus group approximation of both families over each query
-    block's selected tiles, the merged shape RANGE mode serves: [Bp, 2 Dv +
-    128 + Ws] f32, the layout of `_hier_parts_plain`.  ``scale`` [1, N]
-    f32 with int8 ``values``, else None; ``geo=False`` skips the geo
-    family (its columns come back zero).  ``lr=False`` (full-width sem
-    group sums) is not ported.
+    block's selected tiles, the merged shape: [Bp, 2 Dv + 128 (+ Ws with
+    ``lr``)] f32, the layout of `_hier_parts_plain`.  ``scale`` [1, N] f32
+    with int8 ``values``, else None; ``geo=False`` skips the geo family
+    (its columns come back zero); ``lr=False`` takes the full-width sem
+    group sums ``g_sem_vw`` (count in column Dv) and subtracts the sem
+    approximation in the kernel, as the geo one.
 
     CPU tensors: `_hier_parts_plain`.  CUDA tensors: `csrc/hier_parts.cu`,
     which replaces `_hier_parts_kernel` (`range_tpu/ops/retrieval_hier.py:
-    2515`); a launch failure raises."""
-    if not lr:
-        raise _not_ported(
-            "the merged parts kernel over full-width sem group sums (lr=False,"
-            " TPU kernel 15's plain variant; it needs the wide-tail scan)",
-            _ROADMAP_SERVE)
+    2515`); a launch failure raises.  The ``lr=False`` launches also count
+    in ``.plain_launches``."""
     if q_cat.device.type == "cpu":
         return _hier_parts_plain(q_cat, k_cat, values, scale, mask_neg, idx,
                                  g_sem_cat, g_geo_cat, g_sem_vw, g_geo_vw,
                                  sem_d=sem_d, bm=bm, bn=bn, gpt_s=gpt_s,
-                                 gpt_g=gpt_g, geo=geo)
+                                 gpt_g=gpt_g, geo=geo, lr=lr)
     bf, f32 = torch.bfloat16, torch.float32
     ops = dict(q_cat=q_cat, k_cat=k_cat, values=values, mask_neg=mask_neg,
                idx=idx, g_sem_cat=g_sem_cat, g_geo_cat=g_geo_cat,
@@ -1296,11 +1436,12 @@ def _hier_parts_call(q_cat, k_cat, values, scale, mask_neg, idx, g_sem_cat,
             or (scale is not None and scale.shape != (1, N))
             or Bp != nB * bm or bm % 64 or bn % 32 or N % bn or sem_d % 16
             or sem_d + 16 > cat_d or cat_d % 8 or Dv % 16 or gs_w != sem_d
-            or g_sem_vw.shape[0] != Gs or Ws % 128 or Ws > 512
+            or g_sem_vw.shape[0] != Gs
+            or (Ws % 128 or Ws > 512 if lr else Ws < Dv + 1 or Ws % 8)
             or not 1 <= gpt_s <= 64 or bn % gpt_s
             or (geo and (cat_d - gg_w != sem_d or gg_w % 8 or Wg < Dv + 1
                          or Wg % 8 or g_geo_vw.shape[0] != Gg
-                         or not 1 <= gpt_g <= 32 or bn % gpt_g))):
+                         or not 1 <= gpt_g <= 64 or bn % gpt_g))):
         raise ValueError(
             f"hier_parts kernel: unsupported shapes q {tuple(q_cat.shape)}, "
             f"k {tuple(k_cat.shape)}, values {tuple(values.shape)}, idx "
@@ -1308,7 +1449,8 @@ def _hier_parts_call(q_cat, k_cat, values, scale, mask_neg, idx, g_sem_cat,
             f"{tuple(g_geo_cat.shape)}, vw {tuple(g_sem_vw.shape)} / "
             f"{tuple(g_geo_vw.shape)}, bm={bm}, bn={bn}, gpt {gpt_s} / "
             f"{gpt_g}")
-    out = torch.empty((Bp, 2 * Dv + 128 + Ws), dtype=f32, device=q_cat.device)
+    out = torch.empty((Bp, 2 * Dv + 128 + (Ws if lr else 0)), dtype=f32,
+                      device=q_cat.device)
     if Bp and K:
         held = [None if t is None else t.contiguous() for t in (
             q_cat, k_cat, values, scale, mask_neg, idx, g_sem_cat, g_geo_cat,
@@ -1316,36 +1458,48 @@ def _hier_parts_call(q_cat, k_cat, values, scale, mask_neg, idx, g_sem_cat,
         ptr = [None if t is None else t.data_ptr() for t in held]
         _launch("hier_parts", "hier_parts_launch", *ptr, out.data_ptr(), Bp,
                 cat_d, sem_d, Dv, bm, bn, gpt_s, gpt_g, K, Ws, Wg, gg_w,
-                int(geo), int(scale is not None), _stream(q_cat))
+                int(geo), int(lr), int(scale is not None), _stream(q_cat))
         _hier_parts_call.launches += 1
+        if not lr:
+            _hier_parts_call.plain_launches += 1
     elif Bp:
         out.zero_()
     return out
 
 
 _hier_parts_call.launches = 0
+_hier_parts_call.plain_launches = 0
 
 
 def _stacked_bases(w_sem, u_sem, w_geo, u_geo):
-    """[w; u] per family, f32 (`_combine_cat_call`, `:3150-3151`)."""
+    """[w; u] per family, f32 (`_combine_cat_call`, `:3150-3151`); the geo
+    family without a low-rank tail (``u_geo`` None) takes w_geo alone."""
+    geo = w_geo if u_geo is None else torch.cat([w_geo, u_geo], 0)
     return (torch.cat([w_sem, u_sem], 0).to(torch.float32).contiguous(),
-            torch.cat([w_geo, u_geo], 0).to(torch.float32).contiguous())
+            geo.to(torch.float32).contiguous())
 
 
 def _combine_cat_plain(ps, pg, tails, q_srt, w_sem, u_sem, w_geo, u_geo, *,
                        Ws: int, r: int, rrp: int, Dv: int, beta: float,
                        rg: int, Wg: int):
     """Plain version of the combine kernel (`_combine_cat_kernel`,
-    `retrieval_hier.py:3102-3139`, geo-lr shape): corr = tails - approx;
-    [rr coefficients | corr] @ [w; u] per family; d = d_parts + corr[:, r];
-    each family over max(d, 1e-30), beta blend, then the queries."""
+    `retrieval_hier.py:3102-3139`): corr = tails - approx; [rr
+    coefficients | corr] @ [w; u] per family; d = d_parts + corr[:, r];
+    each family over max(d, 1e-30), beta blend, then the queries.  ``rg =
+    0`` (no lr_geo; ``pg`` = acc | d | pad | az, the full-width geo tail):
+    acc_g = pg[:, :Dv] + tails_g[:, :Dv] + az @ w_geo, d_g = pg[:, Dv] +
+    tails_g[:, Dv]."""
     wsem, wgeo = _stacked_bases(w_sem, u_sem, w_geo, u_geo)
     corr = tails[:, :Ws] - ps[:, rrp + 128:]
     acc_s = torch.cat([ps[:, :rrp], corr[:, :r]], 1) @ wsem
     d_s = ps[:, rrp:rrp + 1] + corr[:, r:r + 1]
-    corr_g = tails[:, Ws:Ws + Wg] - pg[:, rrp + 128:]
-    acc_g = torch.cat([pg[:, :rrp], corr_g[:, :rg]], 1) @ wgeo
-    d_g = pg[:, rrp:rrp + 1] + corr_g[:, rg:rg + 1]
+    if rg:
+        corr_g = tails[:, Ws:Ws + Wg] - pg[:, rrp + 128:]
+        acc_g = torch.cat([pg[:, :rrp], corr_g[:, :rg]], 1) @ wgeo
+        d_g = pg[:, rrp:rrp + 1] + corr_g[:, rg:rg + 1]
+    else:
+        acc_g = pg[:, :Dv] + tails[:, Ws:Ws + Dv] + pg[:, Dv + 128:] @ wgeo
+        d_g = pg[:, Dv:Dv + 1] + tails[:, Ws + Dv:Ws + Dv + 1]
     sem = acc_s / torch.clamp_min(d_s, 1e-30)
     geo = acc_g / torch.clamp_min(d_g, 1e-30)
     return torch.cat([beta * sem + (1.0 - beta) * geo,
@@ -1356,14 +1510,13 @@ def _combine_cat_call(ps, pg, tails, q_srt, w_sem, u_sem, w_geo, u_geo, *,
                       Ws: int, r: int, rrp: int, Dv: int, beta: float,
                       rg: int, Wg: int):
     """Combine + concat epilogue: [Bp, Dv + Dq] f32 (``q_srt`` may have 0
-    columns).
+    columns).  ``rg = 0``: the geo family without a low-rank tail
+    (``u_geo`` None, ``Wg`` the full-width tail's columns).
 
     CPU tensors: `_combine_cat_plain`.  CUDA tensors: `csrc/combine_cat.cu`,
     which replaces `_combine_cat_kernel` (`range_tpu/ops/retrieval_hier.py:
-    3102`); the two unprojection products run inside the kernel in f32."""
-    if not rg:
-        raise _not_ported("the combine without a low-rank geo tail (lr_geo=0)",
-                          _ROADMAP_SERVE)
+    3102`); the two unprojection products run inside the kernel in f32.
+    The rg = 0 launches also count in ``.rg0_launches``."""
     if ps.device.type == "cpu":
         return _combine_cat_plain(ps, pg, tails, q_srt, w_sem, u_sem, w_geo,
                                   u_geo, Ws=Ws, r=r, rrp=rrp, Dv=Dv,
@@ -1371,12 +1524,13 @@ def _combine_cat_call(ps, pg, tails, q_srt, w_sem, u_sem, w_geo, u_geo, *,
     f32 = torch.float32
     ops = dict(ps=ps, pg=pg, tails=tails, q_srt=q_srt)
     _check_cuda("combine_cat", ops, dict.fromkeys(ops, f32))
-    wsem, wgeo = _stacked_bases(w_sem, u_sem, w_geo, u_geo)
+    wsem, wgeo = _stacked_bases(w_sem, u_sem, w_geo, u_geo if rg else None)
     Bp, Dq = q_srt.shape
-    if (ps.shape != (Bp, rrp + 128 + Ws) or pg.shape != (Bp, rrp + 128 + Wg)
+    pg_w = rrp + 128 + Wg if rg else Dv + 128 + rrp
+    if (ps.shape != (Bp, rrp + 128 + Ws) or pg.shape != (Bp, pg_w)
             or tails.shape != (Bp, Ws + Wg) or wsem.shape != (rrp + r, Dv)
             or wgeo.shape != (rrp + rg, Dv) or Dv % 128 or Dq % 4
-            or r >= Ws or rg >= Wg):
+            or r >= Ws or (rg >= Wg if rg else Wg < Dv + 1)):
         raise ValueError(
             f"combine_cat kernel: unsupported shapes ps {tuple(ps.shape)}, "
             f"pg {tuple(pg.shape)}, tails {tuple(tails.shape)}, q "
@@ -1389,10 +1543,13 @@ def _combine_cat_call(ps, pg, tails, q_srt, w_sem, u_sem, w_geo, u_geo, *,
                 Bp, Dq, Ws, r, rrp, Dv, rg, Wg, ctypes.c_float(beta),
                 _stream(ps))
         _combine_cat_call.launches += 1
+        if not rg:
+            _combine_cat_call.rg0_launches += 1
     return out
 
 
 _combine_cat_call.launches = 0
+_combine_cat_call.rg0_launches = 0
 
 
 def _hier_klist_plain(q2, ql, khl, mask_neg, idx, *, Dk: int, k: int,
@@ -1542,43 +1699,42 @@ _hier_topk_call.launches = 0
 # the serving pipeline
 
 
-def _check_servable(hb: HierBank, mode: str) -> None:
-    """The port serves RANGE mode on low-rank banks (lr_rank, the merged
-    parts kernel's lr variant) and RANGE+ on the flagship shape: lr + rr +
-    geo-lr banks (the family-split kernels), with or without tail_super.
-    gsz_super banks with lr_rank serve one-level, as in the JAX package;
-    without it they take the two-level feature path, which is not
-    ported."""
+def _check_servable(hb: HierBank) -> None:
+    """The port serves every one-level bank: any subset of lr_rank,
+    res_rank and lr_geo, with or without tail_super, in RANGE and RANGE+
+    mode.  gsz_super banks with lr_rank serve one-level, as in the JAX
+    package; without it they take the two-level feature path, which is not
+    ported, and neither is serving sel_lr banks."""
     if hb.sel_lr:
         raise _not_ported("serving sel_lr banks", _ROADMAP_SERVE)
     if (hb.gsz_super and hb.g_sup_cat is not None
             and not (hb.lr_rank and hb.g_sem_vw_lr is not None)):
         raise _not_ported(
             "the two-level feature path (gsz_super banks without lr_rank: "
-            "the refine kernel's has_parts form, kernel 15's plain variant "
-            "and the wide-tail scan, item 2.2)", _ROADMAP_SERVE)
-    if mode == "range":
-        if not (hb.lr_rank and hb.g_sem_vw_lr is not None):
-            raise _not_ported(
-                "RANGE mode on banks without lr_rank (TPU kernel 15's plain "
-                "variant over full-width sem group sums, and the wide-tail "
-                "scan it needs)", _ROADMAP_SERVE)
-        return
-    if not (hb.lr_rank and hb.g_sem_vw_lr is not None and hb.res_rank
-            and hb.z_sem is not None and hb.lr_geo
-            and hb.g_geo_vw_lr is not None):
-        raise _not_ported(
-            "serving banks without lr_rank, lr_geo and res_rank (only the "
-            "flagship family-split shape is ported)", _ROADMAP_SERVE)
+            "the refine kernel's has_parts form, item 2.2)", _ROADMAP_SERVE)
+
+
+def _bank_uses(hb: HierBank):
+    """(use_lr, use_rr, use_lrg): which of the bank's low-rank sem tail,
+    residual-rank parts and low-rank geo tail serving can use
+    (`retrieval_hier.py:2775-2781,3287-3288`)."""
+    return (hb.g_sem_vw_lr is not None and hb.lr_rank > 0,
+            bool(hb.res_rank) and hb.z_sem is not None,
+            hb.g_geo_vw_lr is not None and hb.lr_geo > 0)
 
 
 def _hier_partials(q_cat: torch.Tensor, hb: HierBank, *, k_tiles: int,
                    bm: int, j_sem: int, j_geo: int, n_valid: int,
-                   k_geo: int, m_corr: int = 0):
-    """Scan, per-family selection and the two parts kernels on sorted,
-    packed queries: the family-split ``raw=True`` branch of
-    `_hier_partials` (`retrieval_hier.py:2783-2960`).  Returns the
-    pre-combine pieces (parts_s, parts_g, tails).
+                   k_geo: int, m_corr: int = 0, raw: bool = False):
+    """Scan, per-family selection and the two family parts kernels on
+    sorted, packed queries: the family-split (k_geo > 0) branch of
+    `_hier_partials` (`retrieval_hier.py:2832-3003`), RANGE+ only.
+    ``raw=True`` (the fused combine's shape, lr + rr) returns the
+    pre-combine pieces (parts_s, parts_g, tails); otherwise the
+    unnormalized (acc_s, acc_g, d_s, d_g) f32 of JAX's combine branches
+    for lr + rr, lr, rr or neither on the sem family and lr_geo (with or
+    without rr) or the full-width tail on the geo family, as plain torch
+    ops (XLA glue in JAX).
 
     tail_super banks: the scan contracts the supergroup operand
     g_sem_ts_vw (`_hier_scan_call(sup_r=)`), ONE selection keeps k_tiles +
@@ -1586,11 +1742,15 @@ def _hier_partials(q_cat: torch.Tensor, hb: HierBank, *, k_tiles: int,
     and the correction kernel adds exp2(q . g_fine) @ (vw - ts_vw) over
     all of them to the sem tail, so that the selected tiles' tail is the
     fine-group one the parts kernel subtracts."""
+    f32 = torch.float32
     gpt_s, gpt_g = hb.bn // hb.gsz_sem, hb.bn // hb.gsz_geo
+    use_lr, use_rr, use_lrg = _bank_uses(hb)
+    sem_vw = hb.g_sem_vw_lr if use_lr else hb.g_sem_vw
+    geo_vw = hb.g_geo_vw_lr if use_lrg else hb.g_geo_vw
     use_ts = bool(hb.tail_super) and hb.g_sem_ts_vw is not None
     m_s, s_s, m_g, s_g, tails = _hier_scan_call(
         q_cat, hb.g_sem_cat, hb.g_geo_cat,
-        hb.g_sem_ts_vw if use_ts else hb.g_sem_vw_lr, hb.g_geo_vw_lr,
+        hb.g_sem_ts_vw if use_ts else sem_vw, geo_vw,
         gpt_s=gpt_s, gpt_g=gpt_g,
         sup_r=hb.tail_super // hb.gsz_sem if use_ts else 0)
     idx_sm, _ = select_tiles(m_s, s_s, m_g, s_g, t_real=hb.t_real,
@@ -1603,50 +1763,98 @@ def _hier_partials(q_cat: torch.Tensor, hb: HierBank, *, k_tiles: int,
     idx_g, _ = select_tiles(m_g, s_g, m_s, s_s, t_real=hb.t_real,
                             k_tiles=k_geo, bm=bm, n_valid=n_valid,
                             j_sem=j_geo, j_geo=j_sem, mode="range")
+    common = dict(sem_d=hb.sem_d, bm=bm, bn=hb.bn, values=hb.values,
+                  scale=hb.value_scale)
     parts_s = _hier_parts_family_call(
-        q_cat, hb.k_cat, hb.mask_neg, idx_s, hb.g_sem_cat, hb.g_sem_vw_lr,
-        hb.z_sem, sem_d=hb.sem_d, bm=bm, bn=hb.bn, gpt=gpt_s, geo=False,
-        lrr=hb.lr_rank)
+        q_cat, hb.k_cat, hb.mask_neg, idx_s, hb.g_sem_cat, sem_vw,
+        hb.z_sem if use_rr else None, gpt=gpt_s, geo=False,
+        lrr=hb.lr_rank if use_lr else hb.value_dim, lr=use_lr, **common)
     parts_g = _hier_parts_family_call(
-        q_cat, hb.k_cat, hb.mask_neg, idx_g, hb.g_geo_cat, hb.g_geo_vw_lr,
-        hb.z_geo, sem_d=hb.sem_d, bm=bm, bn=hb.bn, gpt=gpt_g, geo=True,
-        lrr=hb.lr_geo)
+        q_cat, hb.k_cat, hb.mask_neg, idx_g, hb.g_geo_cat, geo_vw,
+        hb.z_geo if use_rr else None, gpt=gpt_g, geo=True,
+        lrr=hb.lr_geo if use_lrg else hb.value_dim, lr=use_lrg, **common)
+    Ws = sem_vw.shape[1]
     if use_ts:
-        tails[:, :hb.g_sem_ts_dvw.shape[1]] += _hier_corr_call(
+        tails[:, :Ws] += _hier_corr_call(
             q_cat, idx_sm, hb.g_sem_cat, hb.g_sem_ts_dvw, bm=bm, gpt=gpt_s)
-    return parts_s, parts_g, tails
+    if raw:
+        return parts_s, parts_g, tails
+    Dv = hb.value_dim
+    if use_lr:
+        r = hb.lr_rank
+        a0 = hb.z_sem.shape[1] if use_rr else Dv  # the d column
+        corr = tails[:, :Ws] - parts_s[:, a0 + 128:]
+        lr_part = corr[:, :r] @ hb.u_sem.to(f32)
+        acc_s = (parts_s[:, :a0] @ hb.w_sem.to(f32) + lr_part if use_rr
+                 else parts_s[:, :Dv] + lr_part)
+        d_s = parts_s[:, a0:a0 + 1] + corr[:, r:r + 1]
+    else:
+        acc_s = parts_s[:, :Dv] + tails[:, :Dv]
+        if use_rr:
+            acc_s = acc_s + parts_s[:, Dv + 128:] @ hb.w_sem.to(f32)
+        d_s = parts_s[:, Dv:Dv + 1] + tails[:, Dv:Dv + 1]
+    Wg = geo_vw.shape[1]
+    if use_lrg:
+        rg = hb.lr_geo
+        a0 = hb.z_geo.shape[1] if use_rr else Dv
+        corr_g = tails[:, Ws:Ws + Wg] - parts_g[:, a0 + 128:]
+        lr_part = corr_g[:, :rg] @ hb.u_geo.to(f32)
+        acc_g = (parts_g[:, :a0] @ hb.w_geo.to(f32) + lr_part if use_rr
+                 else parts_g[:, :Dv] + lr_part)
+        d_g = parts_g[:, a0:a0 + 1] + corr_g[:, rg:rg + 1]
+    else:
+        acc_g = parts_g[:, :Dv] + tails[:, Ws:Ws + Dv]
+        if use_rr:
+            acc_g = acc_g + parts_g[:, Dv + 128:] @ hb.w_geo.to(f32)
+        d_g = parts_g[:, Dv:Dv + 1] + tails[:, Ws + Dv:Ws + Dv + 1]
+    return acc_s, acc_g, d_s, d_g
 
 
 def _hier_partials_merged(q_cat: torch.Tensor, hb: HierBank, *,
                           k_tiles: int, bm: int, j_sem: int, j_geo: int,
-                          n_valid: int):
-    """RANGE mode's pipeline body on sorted, packed queries: the scan
-    without the geo family, one selection, the merged parts kernel (lr
-    variant, geo skipped) and the low-rank sem combine (`_hier_partials`,
-    `retrieval_hier.py:2832-2835,3004-3018`).  Returns the unnormalized
-    (acc_s [Bp, Dv], d_s [Bp, 1]) f32.
+                          n_valid: int, mode: str):
+    """The merged (k_geo = 0) branch of `_hier_partials` (`retrieval_hier.py:
+    2832-2835,3004-3027`) on sorted, packed queries: the scan (RANGE: its
+    sem family only; RANGE+ both, the geo tail over the full-width group
+    sums), one selection, the merged parts kernel (lr variant on lr_rank
+    banks, else the plain one; RANGE skips the geo family it discards) and
+    the combine in torch.  Returns the unnormalized (acc_s, acc_g, d_s,
+    d_g) f32 (acc_g and d_g None in RANGE mode).
 
-    corr = tails - alr replaces the selected tiles' group approximation
-    with their exact sums: acc_s = parts_s + corr[:, :r] @ u_sem, d_s =
-    parts_d + corr[:, r] (the count column).  The unprojection is a plain
-    f32 matmul, as the JAX package leaves it to XLA."""
+    With lr, corr = tails - alr replaces the selected tiles' group
+    approximation with their exact sums: acc_s = parts_s + corr[:, :r] @
+    u_sem, d_s = parts_d + corr[:, r] (the count column); without it the
+    kernel subtracted the approximation and the tail adds in full.  The
+    unprojection is a plain f32 matmul, as the JAX package leaves it to
+    XLA."""
     gpt_s, gpt_g = hb.bn // hb.gsz_sem, hb.bn // hb.gsz_geo
-    m_s, s_s, _, _, tails = _hier_scan_call(
-        q_cat, hb.g_sem_cat, hb.g_geo_cat, hb.g_sem_vw_lr, hb.g_geo_vw,
-        gpt_s=gpt_s, gpt_g=gpt_g, has_geo=False)
-    idx, _ = select_tiles(m_s, s_s, None, None, t_real=hb.t_real,
+    use_lr = _bank_uses(hb)[0]
+    sem_vw = hb.g_sem_vw_lr if use_lr else hb.g_sem_vw
+    geo = mode == "range+"
+    m_s, s_s, m_g, s_g, tails = _hier_scan_call(
+        q_cat, hb.g_sem_cat, hb.g_geo_cat, sem_vw, hb.g_geo_vw,
+        gpt_s=gpt_s, gpt_g=gpt_g, has_geo=geo)
+    idx, _ = select_tiles(m_s, s_s, m_g, s_g, t_real=hb.t_real,
                           k_tiles=k_tiles, bm=bm, n_valid=n_valid,
-                          j_sem=j_sem, j_geo=j_geo, mode="range")
+                          j_sem=j_sem, j_geo=j_geo, mode=mode)
     parts = _hier_parts_call(
         q_cat, hb.k_cat, hb.values, hb.value_scale, hb.mask_neg, idx,
-        hb.g_sem_cat, hb.g_geo_cat, hb.g_sem_vw_lr, hb.g_geo_vw,
-        sem_d=hb.sem_d, bm=bm, bn=hb.bn, gpt_s=gpt_s, gpt_g=gpt_g, lr=True,
-        geo=False)
-    Dv, r, Ws = hb.value_dim, hb.lr_rank, hb.g_sem_vw_lr.shape[1]
-    corr = tails[:, :Ws] - parts[:, 2 * Dv + 128:]
-    acc_s = parts[:, :Dv] + corr[:, :r] @ hb.u_sem.to(torch.float32)
-    d_s = parts[:, 2 * Dv:2 * Dv + 1] + corr[:, r:r + 1]
-    return acc_s, d_s
+        hb.g_sem_cat, hb.g_geo_cat, sem_vw, hb.g_geo_vw, sem_d=hb.sem_d,
+        bm=bm, bn=hb.bn, gpt_s=gpt_s, gpt_g=gpt_g, lr=use_lr, geo=geo)
+    Dv, Ws = hb.value_dim, sem_vw.shape[1]
+    if use_lr:
+        r = hb.lr_rank
+        corr = tails[:, :Ws] - parts[:, 2 * Dv + 128:]
+        acc_s = parts[:, :Dv] + corr[:, :r] @ hb.u_sem.to(torch.float32)
+        d_s = parts[:, 2 * Dv:2 * Dv + 1] + corr[:, r:r + 1]
+    else:
+        acc_s = parts[:, :Dv] + tails[:, :Dv]
+        d_s = parts[:, 2 * Dv:2 * Dv + 1] + tails[:, Dv:Dv + 1]
+    if not geo:
+        return acc_s, None, d_s, None
+    acc_g = parts[:, Dv:2 * Dv] + tails[:, Ws:Ws + Dv]
+    d_g = parts[:, 2 * Dv + 1:2 * Dv + 2] + tails[:, Ws + Dv:Ws + Dv + 1]
+    return acc_s, acc_g, d_s, d_g
 
 
 def _check_sort(sort: str) -> None:
@@ -1673,13 +1881,15 @@ def retrieve_hier(q_sem: torch.Tensor, q_xyz: Optional[torch.Tensor],
     alone; ``sort_queries=False`` keeps the caller's order.  The TPU's
     scan knobs (tc, scan_bm) set speed only and have no counterpart.
 
-    ``mode='range+'`` serves the flagship shape through the family-split
-    kernels and the fused combine + concat; on tail_super banks ``m_corr``
-    more sem tiles beyond k_tiles get the fine-tail correction
-    (`_hier_partials`).  ``mode='range'`` (beta 1, no locations) serves
-    low-rank banks through the geo-less scan, the merged parts kernel and
-    the low-rank combine in torch (`_hier_partials_merged`); k_geo, j_geo
-    and tail_super banks do not apply there."""
+    Routes as the JAX function does.  Banks with res_rank get k_geo =
+    max(8, k_tiles // 2) when the caller passes none.  RANGE+ with k_geo >
+    0 takes the family-split kernels (`_hier_partials`): with
+    ``concat_query``, lr + rr and 128-aligned Dv / lr_rank / lr_geo / Dq,
+    the fused combine + concat kernel; otherwise the combine in torch.  On
+    tail_super banks ``m_corr`` more sem tiles beyond k_tiles get the
+    fine-tail correction there.  RANGE mode (beta 1, no locations) and
+    RANGE+ with k_geo = 0 take the merged branch (`_hier_partials_merged`:
+    the merged parts kernel, lr or plain)."""
     if mode not in ("range", "range+"):
         raise ValueError(f"mode must be 'range' or 'range+', got {mode!r}")
     if mode == "range":
@@ -1690,15 +1900,18 @@ def retrieve_hier(q_sem: torch.Tensor, q_xyz: Optional[torch.Tensor],
     if mode == "range+" and q_xyz is None:
         raise ValueError("mode='range+' requires q_xyz")
     _check_sort(sort)
-    if hb.tail_super and hb.g_sem_ts_vw is not None and (
-            mode == "range" or not (k_geo or hb.res_rank)):
+    _check_servable(hb)
+    use_lr, use_rr, use_lrg = _bank_uses(hb)
+    if use_rr and not k_geo:
+        # residual-rank parts live in the family-split kernels only: the
+        # geo family gets its own exact budget (`retrieval_hier.py:3262`)
+        k_geo = max(8, k_tiles // 2)
+    split = bool(k_geo) and mode == "range+"
+    if hb.tail_super and hb.g_sem_ts_vw is not None and not split:
         raise ValueError(
             "tail_super banks serve via the family-split path only: pass "
             "k_geo > 0 with mode='range+' (the merged parts kernel has no "
             "supergroup-tail correction)")
-    _check_servable(hb, mode)
-    if not k_geo:
-        k_geo = max(8, k_tiles // 2)  # rr banks serve family-split
     B = q_sem.shape[0]
     q_s, q_x = _pad_queries(q_sem, q_xyz, bm)
     q_cat = pack_queries(q_s, q_x, sem_temp, geo_temp, tier=hb.tier)
@@ -1714,28 +1927,41 @@ def retrieve_hier(q_sem: torch.Tensor, q_xyz: Optional[torch.Tensor],
         # sort BEFORE the scan, so its stats come out sorted
         order = _hybrid_order(q_x, B, home, hb.t_pad, sort=sort)
         q_cat = q_cat[order]
-    if mode == "range":
-        acc_s, d_s = _hier_partials_merged(q_cat, hb, k_tiles=k_tiles, bm=bm,
-                                           j_sem=j_sem, j_geo=j_geo, n_valid=B)
-        out = acc_s / torch.clamp_min(d_s, 1e-30)
-        out = out[torch.argsort(order)[:B]] if order is not None else out[:B]
-        if concat_query is not None:
-            out = torch.cat([out, concat_query.to(torch.float32)], 1)
-        return out
-    ps, pg, tails = _hier_partials(q_cat, hb, k_tiles=k_tiles, bm=bm,
-                                   j_sem=j_sem, j_geo=j_geo, n_valid=B,
-                                   k_geo=k_geo, m_corr=m_corr)
-    if concat_query is None:
-        q_srt = torch.zeros((Bp, 0), dtype=torch.float32, device=q_cat.device)
-    else:
+    # the fused combine + concat (`retrieval_hier.py:3291-3295`)
+    Dv = hb.value_dim
+    fused = (concat_query is not None and split and use_lr and use_rr
+             and Dv % 128 == 0 and hb.lr_rank % 128 == 0
+             and (not use_lrg or hb.lr_geo % 128 == 0)
+             and concat_query.shape[1] % 128 == 0)
+    unsort = (lambda x: x[torch.argsort(order)[:B]]) if order is not None \
+        else (lambda x: x[:B])
+    kw = dict(k_tiles=k_tiles, bm=bm, j_sem=j_sem, j_geo=j_geo, n_valid=B)
+    if fused:
+        ps, pg, tails = _hier_partials(q_cat, hb, k_geo=k_geo, m_corr=m_corr,
+                                       raw=True, **kw)
         q_srt = torch.nn.functional.pad(concat_query.to(torch.float32),
                                         (0, 0, 0, Bp - B))
         q_srt = q_srt[order] if order is not None else q_srt
-    out = _combine_cat_call(
-        ps, pg, tails, q_srt, hb.w_sem, hb.u_sem, hb.w_geo, hb.u_geo,
-        Ws=hb.g_sem_vw_lr.shape[1], r=hb.lr_rank, rrp=hb.z_sem.shape[1],
-        Dv=hb.value_dim, beta=beta, rg=hb.lr_geo, Wg=hb.g_geo_vw_lr.shape[1])
-    return out[torch.argsort(order)[:B]] if order is not None else out[:B]
+        out = _combine_cat_call(
+            ps, pg, tails, q_srt, hb.w_sem, hb.u_sem, hb.w_geo,
+            hb.u_geo if use_lrg else None, Ws=hb.g_sem_vw_lr.shape[1],
+            r=hb.lr_rank, rrp=hb.z_sem.shape[1], Dv=Dv, beta=beta,
+            rg=hb.lr_geo if use_lrg else 0,
+            Wg=(hb.g_geo_vw_lr if use_lrg else hb.g_geo_vw).shape[1])
+        return unsort(out)
+    if split:
+        acc_s, acc_g, d_s, d_g = _hier_partials(q_cat, hb, k_geo=k_geo,
+                                                m_corr=m_corr, **kw)
+    else:
+        acc_s, acc_g, d_s, d_g = _hier_partials_merged(q_cat, hb, mode=mode,
+                                                       **kw)
+    out = acc_s / torch.clamp_min(d_s, 1e-30)
+    if mode == "range+":
+        out = beta * out + (1.0 - beta) * (acc_g / torch.clamp_min(d_g, 1e-30))
+    out = unsort(out)
+    if concat_query is not None:
+        out = torch.cat([out, concat_query.to(torch.float32)], 1)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1841,10 +2067,10 @@ def hier_nn(q_sem: torch.Tensor, q_xyz: Optional[torch.Tensor],
     serving path.
 
     The JAX harness takes its stats from the fused scan over the
-    full-width `g_sem_vw`; it reads only the four stats, and the port's
-    fused scan kernel refuses tails wider than 512.  The port computes
-    them with the stats-only scan over the same `g_sem_cat` / `g_geo_cat`:
-    by construction the fused scan's stats (held equal in the tests)."""
+    full-width `g_sem_vw`; it reads only the four stats.  The port computes
+    them with the stats-only scan over the same `g_sem_cat` / `g_geo_cat`,
+    which streams no tail: by construction the fused scan's stats (held
+    equal in the tests)."""
     B = q_sem.shape[0]
     _check_sort(sort)
     if mode == "range":

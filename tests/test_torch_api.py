@@ -106,8 +106,10 @@ def test_fused_path_on_cpu_within_fast_tier_tolerance():
                         chunk=512)(_coords(16, seed=7)), None),
     (lambda: load_model("RANGE+", db_path="synthetic:100", device="cpu",
                         profile="nope"), ValueError),
+    # hierarchical RANGE at the JAX defaults (no lr_rank: the merged parts
+    # kernel's plain variant) serves too
     (lambda: load_model("RANGE", db_path="synthetic:100", device="cpu",
-                        retrieval="hier"), NotImplementedError),
+                        retrieval="hier")(_coords(4, seed=9)), None),
     # a knob of the JAX package's two-level hier path, which is not ported
     (lambda: load_model("RANGE+", db_path="synthetic:100", device="cpu",
                         m_tiles=8), TypeError),

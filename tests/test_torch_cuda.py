@@ -933,3 +933,257 @@ def test_two_level_hier_topk_launches(cuda, two_level_bank, k):
     assert [c.launches - n for c, n in zip(counters, n0)] == want
     top = rows if k == 1 else rows[:, 0]
     assert (top == exact_nn(q, hb.bank)).float().mean() >= 0.999
+
+
+# ---- the general one-level path: the wide-tail scan, kernel 15's plain
+# variant, kernel 14's plain / lr / rr shapes and the combine without lr_geo,
+# at Dv = 1,024 (full-width group sums W = 1,152)
+
+
+@pytest.mark.parametrize("case", ["full", "mixed", "no_geo"])
+def test_scan_wide_tail_matches_plain(cuda, hier_bank, case):
+    """The scan over the full-width group value sums (1,152 columns a
+    family, in column slices): both families full width, the mixed launch
+    (the 384-wide low-rank sem tail beside the full-width geo tail) and the
+    geo-less launch; stats and tails against the plain version."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    hb = hier_bank
+    q_cat, _ = _merged_operands(hb, cuda)
+    sem = hb.g_sem_vw_lr if case == "mixed" else hb.g_sem_vw
+    kw = dict(gpt_s=8, gpt_g=8, has_geo=case != "no_geo")
+    args = (q_cat, hb.g_sem_cat, hb.g_geo_cat, sem, hb.g_geo_vw)
+    n0 = (rh._hier_scan_call.launches, rh._hier_scan_call.wide_launches)
+    got = rh._hier_scan_call(*args, **kw)
+    ref = rh._hier_scan_plain(*args, **kw)
+    mag = rh._hier_scan_plain(q_cat, hb.g_sem_cat, hb.g_geo_cat, sem.abs(),
+                              hb.g_geo_vw.abs(), **kw)[4]
+    torch.cuda.synchronize()
+    assert (rh._hier_scan_call.launches, rh._hier_scan_call.wide_launches) == (
+        n0[0] + 1, n0[1] + 1)
+    Ws = sem.shape[1]
+    assert got[4].shape == (768, Ws + (1152 if kw["has_geo"] else 0))
+    for i in (0, 2) if kw["has_geo"] else (0,):
+        torch.testing.assert_close(got[i], ref[i], rtol=0, atol=1e-4)
+    for i in (1, 3) if kw["has_geo"] else (1,):
+        torch.testing.assert_close(got[i], ref[i], rtol=1e-4, atol=0)
+    for cols in (slice(0, Ws), slice(Ws, None)) if kw["has_geo"] else (slice(0, Ws),):
+        _within_terms(got[4][:, cols], ref[4][:, cols], mag[:, cols])
+
+
+@pytest.mark.parametrize("geo", [True, False], ids=["geo", "no_geo"])
+@pytest.mark.parametrize("quant", ["bf16", "int8"])
+def test_merged_parts_plain_variant_matches_plain(cuda, hier_bank, geo, quant):
+    """Kernel 15 without lr (the sem approximation over the full-width sums
+    subtracted in the kernel, from acc_s and d_s): every column against
+    the plain version; the bf16-flip allowance of the merged kernel."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    hb = hier_bank if quant == "bf16" else _quantized(cuda, hier_bank)
+    q_cat, idx = _merged_operands(hb, cuda)
+    args = (q_cat, hb.k_cat, hb.values, hb.value_scale, hb.mask_neg, idx, hb.g_sem_cat,
+            hb.g_geo_cat, hb.g_sem_vw, hb.g_geo_vw)
+    kw = dict(sem_d=256, bm=128, bn=128, gpt_s=8, gpt_g=8, geo=geo, lr=False)
+    n0 = (rh._hier_parts_call.launches, rh._hier_parts_call.plain_launches)
+    got = rh._hier_parts_call(*args, **kw)
+    ref = rh._hier_parts_plain(*args, **kw)
+    mag = rh._hier_parts_plain(*args, **kw, magnitude=True)
+    torch.cuda.synchronize()
+    assert (rh._hier_parts_call.launches, rh._hier_parts_call.plain_launches) == (
+        n0[0] + 1, n0[1] + 1)
+    assert got.shape == (768, 2 * 1024 + 128)
+    segs = [slice(0, 1024), slice(2048, 2049)]
+    if geo:
+        segs += [slice(1024, 2048), slice(2049, 2050)]
+    else:
+        assert not got[:, 1024:2048].any() and not got[:, 2049].any()
+    assert not got[:, 2050:].any()
+    for cols in segs:
+        _within_terms(got[:, cols], ref[:, cols], mag[:, cols], rows_off_max=7)
+
+
+FAMILY_SHAPES = [(v, f, q) for v in ("plain", "lr") for f in ("sem", "geo")
+                 for q in ("bf16", "int8")] + [("rr", f, "bf16") for f in ("sem", "geo")]
+
+
+@pytest.mark.parametrize("variant,fam,quant", FAMILY_SHAPES,
+                         ids=["-".join(c) for c in FAMILY_SHAPES])
+def test_family_parts_variants_match_plain(cuda, hier_bank, variant, fam, quant):
+    """Kernel 14's plain ([acc | d | pad]) and lr ([acc | d | pad | alr])
+    shapes, which stream the values (bf16, or int8 with the scale folded
+    into p), and its rr shape ([acc | d | pad | az], the full-width sums in
+    three 384-column passes), each against the plain version and counted
+    in its own counter."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    hb = hier_bank if quant == "bf16" else _quantized(cuda, hier_bank)
+    geo = fam == "geo"
+    q_cat, _ = _merged_operands(hb, cuda)
+    stats = rh._hier_scan_stats_plain(q_cat, hb.g_sem_cat, hb.g_geo_cat, gpt_s=8, gpt_g=8)
+    if geo:
+        stats = (stats[2], stats[3], stats[0], stats[1])
+    idx, _ = rh.select_tiles(*stats, t_real=hb.t_real, k_tiles=12 if geo else 24, bm=128,
+                             n_valid=700, mode="range")
+    lr = variant == "lr"
+    vw = (hb.g_geo_vw_lr if geo else hb.g_sem_vw_lr) if lr else (
+        hb.g_geo_vw if geo else hb.g_sem_vw)
+    z = (hb.z_geo if geo else hb.z_sem) if variant == "rr" else None
+    lrr = (384 if geo else 256) if lr else 1024
+    args = (q_cat, hb.k_cat, hb.mask_neg, idx, hb.g_geo_cat if geo else hb.g_sem_cat, vw, z)
+    kw = dict(sem_d=256, bm=128, bn=128, gpt=8, geo=geo, lrr=lrr, lr=lr, values=hb.values,
+              scale=hb.value_scale)
+    counter = f"{variant}_launches"
+    n0 = (rh._hier_parts_family_call.launches, getattr(rh._hier_parts_family_call, counter))
+    got = rh._hier_parts_family_call(*args, **kw)
+    ref = rh._hier_parts_family_plain(*args, **kw)
+    mag = rh._hier_parts_family_plain(*args, **kw, magnitude=True)
+    torch.cuda.synchronize()
+    assert (rh._hier_parts_family_call.launches,
+            getattr(rh._hier_parts_family_call, counter)) == (n0[0] + 1, n0[1] + 1)
+    width = {"plain": 1152, "lr": 1152 + vw.shape[1], "rr": 1152 + 128}[variant]
+    assert got.shape == (768, width)
+    assert not got[:, 1025:1152].any()
+    segs = [slice(0, 1024), slice(1024, 1025)] + ([slice(1152, None)]
+                                                  if variant != "plain" else [])
+    for cols in segs:
+        _within_terms(got[:, cols], ref[:, cols], mag[:, cols], rows_off_max=7)
+
+
+def test_combine_without_geo_lr_matches_plain(cuda, hier_bank):
+    """Kernel 16 with rg = 0: the geo family's rr-shape parts and its
+    full-width tail (acc_g = pg[:, :Dv] + tails_g[:, :Dv] + az @ w_geo); f32
+    products in another summation order."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    hb = hier_bank
+    q_cat, _ = _merged_operands(hb, cuda)
+    m_s, s_s, m_g, s_g, tails = rh._hier_scan_plain(
+        q_cat, hb.g_sem_cat, hb.g_geo_cat, hb.g_sem_vw_lr, hb.g_geo_vw, gpt_s=8, gpt_g=8)
+    parts = []
+    for geo, stats, k in ((False, (m_s, s_s, m_g, s_g), 24), (True, (m_g, s_g, m_s, s_s), 12)):
+        idx, _ = rh.select_tiles(*stats, t_real=hb.t_real, k_tiles=k, bm=128, n_valid=700,
+                                 mode="range")
+        parts.append(rh._hier_parts_family_plain(
+            q_cat, hb.k_cat, hb.mask_neg, idx, hb.g_geo_cat if geo else hb.g_sem_cat,
+            hb.g_geo_vw if geo else hb.g_sem_vw_lr, hb.z_geo if geo else hb.z_sem,
+            sem_d=256, bm=128, bn=128, gpt=8, geo=geo, lrr=1024 if geo else 256, lr=not geo))
+    q_srt = torch.randn(768, 256, generator=torch.Generator(device=cuda).manual_seed(3),
+                        device=cuda)
+    ck = dict(Ws=384, r=256, rrp=128, Dv=1024, beta=0.5, rg=0, Wg=1152)
+    c_args = (*parts, tails, q_srt, hb.w_sem, hb.u_sem, hb.w_geo, None)
+    n0 = (rh._combine_cat_call.launches, rh._combine_cat_call.rg0_launches)
+    got = rh._combine_cat_call(*c_args, **ck)
+    torch.cuda.synchronize()
+    assert (rh._combine_cat_call.launches, rh._combine_cat_call.rg0_launches) == (
+        n0[0] + 1, n0[1] + 1)
+    torch.testing.assert_close(got, rh._combine_cat_plain(*c_args, **ck), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["RANGE+", "RANGE"])
+def test_default_knob_path_launches(cuda, name):
+    """load_model(name, retrieval="hier") at the JAX defaults (no lr_rank /
+    res_rank / lr_geo; bn cut to 128) on the card: one wide scan and one
+    plain merged parts launch a request (RANGE also its home-tile stats
+    scan), no family parts and no combine; finite [B, 1280] answers."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    bank = GeoBank.synthetic_informative(3, 9000, pad_to=512, value_dtype=torch.bfloat16,
+                                         device=cuda)
+    enc = load_model(name, db_path=bank, retrieval="hier", hier_bn=128, gsz_geo=16,
+                     chunk=512)
+    coords = _coords(3000, seed=16, device=cuda)
+    counters = (rh._hier_scan_stats_call, rh._hier_scan_call, rh._hier_parts_call,
+                rh._hier_parts_family_call, rh._combine_cat_call, sh.siren_tower)
+    n0 = [c.launches for c in counters] + [rh._hier_scan_call.wide_launches,
+                                           rh._hier_parts_call.plain_launches]
+    out = enc(coords)
+    torch.cuda.synchronize()
+    got = [c.launches for c in counters] + [rh._hier_scan_call.wide_launches,
+                                            rh._hier_parts_call.plain_launches]
+    stats = 1 if name == "RANGE" else 0
+    assert [a - b for a, b in zip(got, n0)] == [stats, 1, 1, 0, 0, 1, 1, 1]
+    assert out.shape == (3000, 1280) and torch.isfinite(out).all()
+
+
+def test_corr_kernel_wide_matches_plain(cuda):
+    """The correction kernel over a full-width dvw (1,152 columns, count
+    column 1,024 zero: a tail_super bank without lr_rank), in column
+    slices; tolerance as `test_corr_kernel_matches_plain`."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    T, W, gpt, M, bm = 60, 1152, 8, 13, 128
+    q = _bf16_rand((768, 384), 1.0, 10, cuda)
+    q[700:] = 0
+    g_cat = _bf16_rand((T * gpt, 256), 0.1, 11, cuda)
+    dvw = _bf16_rand((T * gpt, W), 0.3, 12, cuda)
+    dvw[:, 1024] = 0
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    idx = torch.stack([torch.randperm(T, generator=gen, device=cuda)[:M]
+                       for _ in range(768 // bm)]).to(torch.int32)
+    n0 = rh._hier_corr_call.launches
+    got = rh._hier_corr_call(q, idx, g_cat, dvw, bm=bm, gpt=gpt)
+    torch.cuda.synchronize()
+    assert rh._hier_corr_call.launches == n0 + 1
+    ref = rh._hier_corr_plain(q, idx, g_cat, dvw, bm=bm, gpt=gpt)
+    mag = rh._hier_corr_plain(q, idx, g_cat, dvw, bm=bm, gpt=gpt, magnitude=True)
+    assert got.shape == (768, W) and not got[:, 1024].any()
+    _within_terms(got, ref, mag, rows_off_max=max(2, 768 // 100))
+
+
+def test_scan_sup_variant_wide_matches_plain(cuda):
+    """The segment-sum scan over a full-width supergroup operand (1,152
+    columns, sup_r = 4) beside a full-width geo tail: both in column
+    slices; the stats equal the one-level launch's."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    q = _bf16_rand((768, 384), 1.0, 1, cuda)
+    q[700:] = 0
+    gs, gg = _bf16_rand((8 * 32, 256), 0.1, 2, cuda), _bf16_rand((8 * 8, 128), 0.5, 3, cuda)
+    vs, vg = _bf16_rand((8 * 32 // 4, 1152), 1.0, 4, cuda), _bf16_rand((64, 1152), 1.0, 5, cuda)
+    kw = dict(gpt_s=32, gpt_g=8, sup_r=4)
+    n0 = (rh._hier_scan_call.sup_launches, rh._hier_scan_call.wide_launches)
+    got = rh._hier_scan_call(q, gs, gg, vs, vg, **kw)
+    torch.cuda.synchronize()
+    assert (rh._hier_scan_call.sup_launches, rh._hier_scan_call.wide_launches) == (
+        n0[0] + 1, n0[1] + 1)
+    ref = rh._hier_scan_plain(q, gs, gg, vs, vg, **kw)
+    mag = rh._hier_scan_plain(q, gs, gg, vs.abs(), vg.abs(), **kw)[4]
+    one = rh._hier_scan_call(q, gs, gg, _bf16_rand((8 * 32, 384), 1.0, 6, cuda), vg,
+                             gpt_s=32, gpt_g=8)
+    for i in range(4):
+        assert torch.equal(got[i], one[i])
+    for cols in (slice(0, 1152), slice(1152, None)):
+        _within_terms(got[4][:, cols], ref[4][:, cols], mag[:, cols])
+
+
+def test_tail_super_without_lr_launches(cuda):
+    """A tail_super bank without lr_rank (bn=128, gsz_sem=16, tail_super=64)
+    served RANGE+ at k_geo=4, m_corr=4: one scan (its segment-sum and
+    wide-tail forms at once), one correction over the full-width dvw, two
+    family parts launches of the plain shape, no combine kernel; relerr
+    against the exact f32 retrieve within the flagship's test bar."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    bank = GeoBank.synthetic_informative(3, 9000, pad_to=512, value_dtype=torch.bfloat16,
+                                         device=cuda)
+    hb = rh.build_hier_bank(bank, bn=128, gsz_sem=16, gsz_geo=16, tail_super=64)
+    assert hb.g_sem_ts_dvw.shape[1] == 1152
+    enc = load_model("RANGE+", db_path=hb, retrieval="hier", hier_bn=128, gsz_sem=16,
+                     gsz_geo=16, tail_super=64, k_geo=4, m_corr=4, chunk=512)
+    coords = _coords(3000, seed=17, device=cuda)
+    counters = (rh._hier_scan_call, rh._hier_corr_call, rh._hier_parts_family_call,
+                rh._hier_parts_call, rh._combine_cat_call)
+    n0 = [c.launches for c in counters] + [
+        rh._hier_scan_call.sup_launches, rh._hier_scan_call.wide_launches,
+        rh._hier_parts_family_call.plain_launches]
+    out = enc(coords)
+    torch.cuda.synchronize()
+    got = [c.launches for c in counters] + [
+        rh._hier_scan_call.sup_launches, rh._hier_scan_call.wide_launches,
+        rh._hier_parts_family_call.plain_launches]
+    assert [a - b for a, b in zip(got, n0)] == [1, 1, 2, 0, 0, 1, 1, 2]
+    assert out.shape == (3000, 1280) and torch.isfinite(out).all()
+    ref = retrieval.retrieve(out[:, 1024:], lonlat_deg_to_xyz(coords), hb.bank)
+    rel = (out[:, :1024] - ref).abs() / ref.abs().clamp_min(0.1)
+    assert rel.mean() < 0.1

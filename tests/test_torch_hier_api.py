@@ -130,8 +130,9 @@ def test_hier_plan_copies_the_jax_heuristic(B, plan):
 
 
 @pytest.mark.parametrize("kw,error", [
-    # RANGE mode without the low-rank sem tail: kernel 15's plain variant
-    (dict(profile="flagship", mode_range=True, lr_rank=0), NotImplementedError),
+    # RANGE mode without the low-rank sem tail (kernel 15's plain variant)
+    # serves: None = no error
+    (dict(profile="flagship", mode_range=True, lr_rank=0), None),
     (dict(profile="flagship", sel_lr=64), NotImplementedError),
     # tail_super serves RANGE+ only (the family-split path)
     (dict(profile="flagship", mode_range=True, tail_super=64), ValueError),
@@ -148,21 +149,36 @@ def test_hier_plan_copies_the_jax_heuristic(B, plan):
         "tpu_speed_knob"])
 def test_hier_error_contract(kw, error):
     """Every knob off the ported path, and every knob combination the JAX
-    package refuses, raises before any bank is built."""
+    package refuses, raises before any bank is built; a knob set on the
+    ported path (error None) serves finite [B, 1280] answers."""
     name = "RANGE" if kw.pop("mode_range", False) else "RANGE+"
+    if error is None:
+        enc = load_model(name, db_path="synthetic:100", device="cpu", **kw)
+        rng = np.random.default_rng(0)
+        coords = np.stack([rng.uniform(-180, 180, 8), rng.uniform(-80, 80, 8)], 1)
+        out = enc(coords.astype(np.float32))
+        assert out.shape == (8, 1280) and torch.isfinite(out).all()
+        return
     with pytest.raises(error):
         load_model(name, db_path="synthetic:100", device="cpu", **kw)
 
 
 def test_retrieve_hier_rejects_unported_banks_and_modes():
+    """Banks without res_rank / lr_geo, and RANGE mode without lr_rank,
+    serve (the family-split value shapes and the merged kernel's plain
+    variant); sel_lr banks and unknown modes still raise."""
     bank = GeoBank.synthetic_informative(2, 1000, value_dim=128, pad_to=512,
                                          device="cpu")
     hb = th.build_hier_bank(bank, bn=128, gsz_sem=16, gsz_geo=16, lr_rank=128)
     q = torch.nn.functional.normalize(torch.randn(8, 256), dim=1)
     x = lonlat_deg_to_xyz(torch.zeros(8, 2))
-    with pytest.raises(NotImplementedError, match="flagship"):
-        th.retrieve_hier(q, x, hb)  # no res_rank / lr_geo
+    assert th.retrieve_hier(q, x, hb, bm=128).shape == (8, 128)
+    assert th.retrieve_hier(q, x, hb, k_geo=4, bm=128).shape == (8, 128)
     assert th.retrieve_hier(q, None, hb, mode="range", bm=128).shape == (8, 128)
-    with pytest.raises(NotImplementedError, match="kernel 15"):
-        th.retrieve_hier(q, None, dataclasses.replace(hb, lr_rank=0, g_sem_vw_lr=None),
-                         mode="range")
+    no_lr = dataclasses.replace(hb, lr_rank=0, g_sem_vw_lr=None)
+    out = th.retrieve_hier(q, None, no_lr, mode="range", bm=128)
+    assert out.shape == (8, 128) and torch.isfinite(out).all()
+    with pytest.raises(NotImplementedError, match="sel_lr"):
+        th.retrieve_hier(q, x, dataclasses.replace(hb, sel_lr=32), bm=128)
+    with pytest.raises(ValueError, match="mode"):
+        th.retrieve_hier(q, x, hb, mode="dense")

@@ -298,13 +298,28 @@ def test_parts_telescoping(packed, thbs):
 
 
 def test_parts_lr_false_raises(packed, thbs):
+    """lr=False (the full-width sem group sums) is served now: [B, 2 Dv +
+    128], no alr columns, and acc_s / d_s hold the exact sums minus the
+    sem group approximation, as acc_g / d_g hold the geo one (the name is
+    kept from when the variant raised)."""
     thb = thbs["bf16"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        th._hier_parts_call(_t(packed["q_cat"]), thb.k_cat, thb.values, None,
-                            thb.mask_neg, _t(packed["idx"]).to(torch.int32),
-                            thb.g_sem_cat, thb.g_geo_cat, thb.g_sem_vw,
-                            thb.g_geo_vw, sem_d=256, bm=128, bn=128, gpt_s=GPT,
-                            gpt_g=GPT, lr=False)
+    args = (_t(packed["q_cat"]), thb.k_cat, thb.values, None, thb.mask_neg,
+            _t(packed["idx"]).to(torch.int32), thb.g_sem_cat, thb.g_geo_cat)
+    kw = dict(sem_d=256, bm=128, bn=128, gpt_s=GPT, gpt_g=GPT)
+    plain = th._hier_parts_call(*args, thb.g_sem_vw, thb.g_geo_vw, lr=False,
+                                **kw)
+    lr = th._hier_parts_call(*args, thb.g_sem_vw_lr, thb.g_geo_vw, **kw)
+    assert plain.shape == (B, 2 * 128 + 128)
+    torch.testing.assert_close(plain[:, ACC_G], lr[:, ACC_G])
+    torch.testing.assert_close(plain[:, D_G], lr[:, D_G])
+    idx = _t(packed["idx"]).to(torch.int32)
+    grps = (idx[0].long()[:, None] * GPT + torch.arange(GPT)).reshape(-1)
+    q = _t(packed["q_cat"])[:128].float()
+    e = torch.exp2(torch.clamp_max(q[:, :256] @ thb.g_sem_cat[grps].float().T,
+                                   86.0))
+    appr = e.bfloat16().float() @ thb.g_sem_vw[grps].float()
+    torch.testing.assert_close(plain[:128, ACC_S], lr[:128, ACC_S] - appr[:, :128])
+    torch.testing.assert_close(plain[:128, D_S], lr[:128, D_S] - appr[:, 128:129])
 
 
 # ---------------------------------------------------------------- serving
@@ -428,18 +443,18 @@ def test_int8_flagship_close_to_bf16(thbs, name):
 
 
 def test_range_servability_contract(thbs):
-    """RANGE mode needs the low-rank sem tail only; without it the merged
-    kernel's plain variant would be needed, which is not ported.  RANGE+
-    keeps the flagship requirement."""
+    """RANGE mode serves banks with or without the low-rank sem tail (the
+    merged kernel's lr and plain variants), and RANGE+ serves banks
+    without the flagship's res_rank / lr_geo; an unknown mode raises."""
     thb = thbs["bf16"]
     q = torch.from_numpy(_range_queries(seed=5, n=8))
     no_lr = dataclasses.replace(thb, lr_rank=0, g_sem_vw_lr=None)
-    with pytest.raises(NotImplementedError, match="lr_rank"):
-        th.retrieve_hier(q, None, no_lr, mode="range")
+    out = th.retrieve_hier(q, None, no_lr, mode="range", bm=128)
+    assert out.shape == (8, 128) and torch.isfinite(out).all()
     slim = dataclasses.replace(thb, res_rank=0, z_sem=None, lr_geo=0,
                                g_geo_vw_lr=None)
     assert th.retrieve_hier(q, None, slim, mode="range", bm=128).shape == (8, 128)
-    with pytest.raises(NotImplementedError, match="flagship"):
-        th.retrieve_hier(q, lonlat_deg_to_xyz(torch.zeros(8, 2)), slim)
+    out = th.retrieve_hier(q, lonlat_deg_to_xyz(torch.zeros(8, 2)), slim, bm=128)
+    assert out.shape == (8, 128) and torch.isfinite(out).all()
     with pytest.raises(ValueError, match="mode"):
         th.retrieve_hier(q, None, thb, mode="dense")

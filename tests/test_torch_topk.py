@@ -457,11 +457,11 @@ def test_unported_branches_raise(thb, regional):
     low_rank = dataclasses.replace(thb, topk_lr=16, g_topk_lr=thb.g_topk_cat)
     with pytest.raises(NotImplementedError, match="ROADMAP.*what remains"):
         th.hier_topk(q, x, low_rank)
-    # RANGE mode serves low-rank banks; without lr_rank it needs the plain
-    # variant of kernel 15
+    # RANGE mode serves banks without lr_rank too (kernel 15's plain
+    # variant): no longer an unported branch
     no_lr = dataclasses.replace(thb, lr_rank=0, g_sem_vw_lr=None)
-    with pytest.raises(NotImplementedError, match="kernel 15.*ROADMAP"):
-        th.retrieve_hier(q, None, no_lr, mode="range")
+    out = th.retrieve_hier(q, None, no_lr, mode="range", bm=128)
+    assert out.shape == (8, 128) and torch.isfinite(out).all()
     with pytest.raises(ValueError, match="k=9"):
         th.hier_topk(q, x, thb, k=9)
 
