@@ -1,11 +1,12 @@
 """Smoke run of range_tpu_torch on one CUDA card.
 
-Builds the port's thirteen CUDA kernels (and their variants: the scan's
+Builds the port's sixteen CUDA kernels (and their variants: the scan's
 segment-sum and wide-tail forms, the merged parts kernel without lr, the
-family parts kernel's plain / lr / rr shapes, the combine without lr_geo)
-from the eleven sources of `range_tpu_torch/csrc/` (one nvcc per source,
-all started together), holds each against its plain PyTorch version at
-the main paths' shapes, then
+family parts kernel's plain / lr / rr shapes, the combine without lr_geo,
+the int8 forms of the parts and pruned kernels) from the eleven sources
+of `range_tpu_torch/csrc/` (one nvcc per source, all started together),
+holds each against its plain PyTorch version at the main paths' shapes,
+then
 drives the serving paths at full width (SatCLIP SH-L40 -> SIREN
 1600->256->256->256 tower, 100,000-row bank with 256-d keys and bf16
 1024-d values, 1,280-d output) and the training path:
@@ -32,6 +33,14 @@ drives the serving paths at full width (SatCLIP SH-L40 -> SIREN
     the lr, rr, lr + rr, k_geo-without-rr and lr + lr_geo banks (kernel
     14's plain / lr / rr shapes, the combine without lr_geo), all built on
     the card here;
+  * the dense path on a device mesh: a world-size-1 NCCL process group (a
+    FileStore in a temporary directory), `load_model(..., mesh=
+    make_mesh((1, 1)))` RANGE+ (bf16, int8) and RANGE through the parts
+    kernel, and the parts kernel's sum over 4 row slabs against the dense
+    kernel (the cross-shard combine);
+  * pruned and hybrid dense retrieval over the informative bank clustered
+    at bn 1,024 (padded packing): `retrieve_pruned` (RANGE+, RANGE, and a
+    small int8 request) and `retrieve_hybrid` at bm 256;
   * SatCLIP contrastive training of the full-width SatCLIP-ResNet18-L40
     dual tower (ResNet-18 on 13 x 256 x 256 images, the SH-L40 SIREN
     location tower, embed 256): three AdamW steps of 16 accumulated
@@ -44,7 +53,9 @@ mean < 0.01; RANGE+ at the JAX defaults and each knob subset mean <= 0.12
 (`tests/test_hier.py:167`), RANGE there mean <= 0.10; hier_topk's
 recall@1 against the f32 `exact_nn` >= 0.999 at B = 10,000 and 1,000, the
 two-level endpoint's at least the one-level selection's over the same
-bank - 0.001; training's
+bank - 0.001; the mesh's answers within 1e-3 x row max of one card's; the
+pruned and hybrid paths within |d| / max(|ref|, 0.1) < 5e-3 of the dense
+kernel over the same rows; training's
 losses finite and falling, one micro-step by the kernel route within 1e-5
 of the plain route's loss, both autograd Functions' gradients on the plain
 compose).  Every phase that fails raises.
@@ -109,7 +120,14 @@ KERNELS = (("siren_tower", "siren_tower", "range_tpu/ops/sh.py:726"),
             "range_tpu/ops/retrieval_hier.py:2282"),
            ("combine_cat_rg0", "combine_cat", "range_tpu/ops/retrieval_hier.py:3102"),
            # kernel 13 over a full-width dvw (tail_super banks without lr_rank)
-           ("hier_corr_wide", "hier_corr", "range_tpu/ops/retrieval_hier.py:2209"))
+           ("hier_corr_wide", "hier_corr", "range_tpu/ops/retrieval_hier.py:2209"),
+           # the multi-device partials (bf16, int8), the pruned one-family
+           # softmax (bf16, int8) and the hybrid kernel
+           ("fused_parts", "fused_retrieval", "range_tpu/ops/retrieval_pallas.py:314"),
+           ("fused_parts_i8", "fused_retrieval", "range_tpu/ops/retrieval_pallas.py:314"),
+           ("family_pruned", "fused_retrieval", "range_tpu/ops/retrieval_pallas.py:441"),
+           ("family_pruned_i8", "fused_retrieval", "range_tpu/ops/retrieval_pallas.py:441"),
+           ("fused_hybrid", "fused_retrieval", "range_tpu/ops/retrieval_pallas.py:660"))
 TOPK_K = 48  # the endpoint's tile budget, bench.py:150
 # the two-level top-k (tools/r3_time1.py:103,127: gsz_super 64, K=48 of M=96)
 # and the tail_super flagship (tools/r4_tsuper.py: "ts64 K32/m32/kg16")
@@ -292,7 +310,8 @@ def _build_all():
     for name, (path, seconds, log) in zip(SOURCES, built):
         print(f"build {name}: {seconds:.1f} s -> {path.name}")
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            # each kernel's (mangled) name, then its registers and spills
+            if "Compiling entry" in line or "registers" in line or "spill" in line:
                 print(f"  ptxas: {line.strip()}")
 
 
@@ -520,6 +539,11 @@ def _counters() -> dict:
     counters["hier_parts_plain"] = (rh._hier_parts_call, "plain_launches")
     counters["combine_cat_rg0"] = (rh._combine_cat_call, "rg0_launches")
     counters["hier_corr_wide"] = (rh._hier_corr_call, "wide_launches")
+    counters["fused_parts"] = (rf.retrieve_fused_parts, "launches")
+    counters["fused_parts_i8"] = (rf.retrieve_fused_parts, "i8_launches")
+    counters["family_pruned"] = (rf._family_pruned_call, "launches")
+    counters["family_pruned_i8"] = (rf._family_pruned_call, "i8_launches")
+    counters["fused_hybrid"] = (rf.retrieve_fused_hybrid, "launches")
     fam = rh._hier_parts_family_call
     counters["hier_parts_family"] = (fam, "rrlr_launches")
     for shape in ("plain", "lr", "rr"):
@@ -1919,6 +1943,337 @@ def general_phases(dev, gen, report, bank):
     return e2e[BATCH]
 
 
+def _parts_check(tag, q_cat, k_cat, values, mask, scale, sem_d, rows_off_max):
+    """Kernel 5 against its plain version: each family's accumulators by the
+    terms rule, the sums d within 1e-5 relative, the pad exactly zero.
+    Returns (max abs error, error over tolerance, kernel ms, plain ms)."""
+    from range_tpu_torch.ops import retrieval_fused as rf
+
+    def kernel():
+        return rf.retrieve_fused_parts(q_cat, k_cat, values, mask, scale, sem_d=sem_d)
+
+    def plain():
+        return rf._retrieve_fused_parts_plain(q_cat, k_cat, values, mask, scale,
+                                              sem_d=sem_d)
+
+    got, ref = kernel(), plain()
+    mag = rf._retrieve_fused_parts_plain(q_cat, k_cat, values.abs(), mask, scale,
+                                         sem_d=sem_d)
+    Dv = values.shape[1]
+    flip = ("the dense kernel's rule: an exp2 within the logits' f32 difference of a "
+            "bf16 boundary rounds the other way, one ulp of one term")
+    errs = [_compare_terms(f"{tag} acc_s", got[:, :Dv], ref[:, :Dv], mag[:, :Dv], flip,
+                           rows_off_max=rows_off_max),
+            _compare_terms(f"{tag} acc_g", got[:, Dv:2 * Dv], ref[:, Dv:2 * Dv],
+                           mag[:, Dv:2 * Dv], flip, rows_off_max=rows_off_max),
+            _compare(f"{tag} d_s, d_g", got[:, 2 * Dv:2 * Dv + 2], ref[:, 2 * Dv:2 * Dv + 2],
+                     0.0, 1e-5, "f32 sums of the same exponentials in another order")]
+    if (got[:, 2 * Dv + 2:] != 0).any():
+        raise AssertionError(f"{tag}: nonzero pad columns")
+    ms = _cuda_ms(kernel, 5)
+    plain_ms = _cuda_ms(plain, 3)
+    print(f"{tag}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    return max(e[0] for e in errs), max(e[1] for e in errs), ms, plain_ms
+
+
+def mesh_phases(dev, gen, report) -> float:
+    """The multi-device dense path on one card: a world-size-1 NCCL process
+    group (a FileStore in a temporary directory, no network), a (1, 1)
+    mesh, `load_model("RANGE+" | "RANGE", db_path="synthetic:100000",
+    mesh=...)` (bf16 values, and RANGE+ with value_quant="int8") at
+    B=10,000 through kernel 5, each request held within 1e-3 x row max of
+    the single-device model at the same seed (kernels 2, 3); kernel 5 (bf16
+    and int8) against its plain version over the 102,400 rows, and the sum
+    of its partials over 4 row slabs of 25,600, normalized, against kernel
+    2 over the whole bank (the cross-shard combine).  Returns the RANGE+
+    mesh end-to-end ms."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from range_tpu_torch import load_model
+    from range_tpu_torch.bank import dequantize_values
+    from range_tpu_torch.geometry import lonlat_deg_to_xyz
+    from range_tpu_torch.ops import retrieval_fused as rf
+    from range_tpu_torch.parallel.mesh import make_mesh
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(f"{tmp}/store", 1), rank=0,
+                                world_size=1)
+        try:
+            mesh = make_mesh((1, 1))
+            coords = _random_coords(BATCH, gen, dev)
+            e2e = {}
+            for name, quant in (("RANGE+", None), ("RANGE+", "int8"), ("RANGE", None)):
+                kw = dict(db_path=f"synthetic:{BANK_ROWS}", value_quant=quant)
+                enc = load_model(name, mesh=mesh, **kw)
+                one = load_model(name, **kw)
+                tag = f"mesh (1, 1) {name}{' int8' if quant else ''} B={BATCH}"
+                kernel = "fused_parts_i8" if quant else "fused_parts"
+                out, got = _drive(tag, lambda: enc(coords), {"siren_tower": 1, kernel: 1})
+                report.setdefault(kernel, {})["launches"] = (
+                    report.get(kernel, {}).get("launches", 0) + got[kernel])
+                with torch.no_grad():
+                    ref = one(coords)
+                err = (out - ref).abs()
+                ratio = (err / (1e-3 * ref.abs().amax(dim=1, keepdim=True))).max().item()
+                print(f"{tag} vs the single-device model: max_abs_err "
+                      f"{err.max().item():.3e}, err/tol {ratio:.3e} (tolerance 1e-3 x row "
+                      "max: the same tiles and weights, the division and blend in torch)")
+                if ratio > 1.0 or out.shape != (BATCH, 1280):
+                    raise AssertionError(f"{tag}: {ratio:.3f}x its tolerance")
+                e2e[tag] = _host_ms(lambda: enc(coords), 5)
+                print(f"{tag} end to end: {e2e[tag]:.3f} ms (single device "
+                      f"{_host_ms(lambda: one(coords), 5):.3f} ms)")
+                if quant:
+                    bank8 = enc.model.bank
+                else:
+                    bank = enc.model.bank
+                del enc, one
+        finally:
+            dist.destroy_process_group()
+
+    # ---- kernel 5 against its plain version, B=10,000 over the 102,400 rows
+    with torch.no_grad():
+        q = torch.nn.functional.normalize(
+            torch.randn(BATCH, bank.key_dim, generator=gen, device=dev), dim=1)
+        x = lonlat_deg_to_xyz(coords)
+        q_cat = rf.pack_queries(q, x, 12.0, 40.0, "fast")
+        k_cat = rf.pack_bank(bank.keys_sem, bank.xyz, "fast")
+        sem_d = bank.key_dim
+        mask = (rf.NEG * (1.0 - bank.row_mask()))[None, :]
+        vb = rf._serving_values(bank.values)
+        n, Dv, cat_d = bank.n_valid, bank.value_dim, k_cat.shape[1]
+        flops = 2 * BATCH * n * (sem_d + GEO_COLS) + 2 * 2 * BATCH * n * Dv
+        out_bytes = BATCH * (2 * Dv + rf.PARTS_PAD) * 4
+        for kernel, values, scale, row_bytes in (
+                ("fused_parts", vb, None, Dv * 2 + 4),
+                ("fused_parts_i8", bank8.values, bank8.value_scale, Dv + 4 + 4)):
+            err, ratio, ms, plain_ms = _parts_check(
+                f"{kernel} B={BATCH} N={bank.num_rows}", q_cat, k_cat, values, mask, scale,
+                sem_d, max(2, BATCH // 100))
+            b_ms, b_by = _bound(BATCH * cat_d * 2 + n * (cat_d * 2 + row_bytes) + out_bytes,
+                                flops, BF16_FLOPS)
+            report[kernel].update(max_abs_err=err, err_over_tol=ratio, ms=ms,
+                                  plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+
+        # ---- the cross-shard combine: 4 slabs of partials against kernel 2
+        N = bank.num_rows
+        for tag, values, scale in (("bf16", vb, None),
+                                   ("int8", bank8.values, bank8.value_scale)):
+            parts = sum(rf.retrieve_fused_parts(
+                q_cat, k_cat[r].contiguous(), values[r].contiguous(),
+                mask[:, r].contiguous(), None if scale is None else scale[:, r].contiguous(),
+                sem_d=sem_d) for r in (slice(i * N // 4, (i + 1) * N // 4) for i in range(4)))
+            got = 0.5 * (parts[:, :Dv] / parts[:, 2 * Dv:2 * Dv + 1].clamp_min(1e-30)
+                         + parts[:, Dv:2 * Dv] / parts[:, 2 * Dv + 1:2 * Dv + 2].clamp_min(1e-30))
+            ref = rf.retrieve_fused(q_cat, k_cat, values, mask, 0.5, scale, sem_d=sem_d)
+            vmax = (dequantize_values(bank8) if scale is not None else vb).abs().max().item()
+            _compare(f"4 x {N // 4}-row slabs of {tag} partials, added and normalized, vs "
+                     f"kernel {'3' if scale is not None else '2'} over {N} rows", got, ref,
+                     1e-5 * vmax, 1e-5, "the same tiles and weights; the tile sums "
+                     "re-associated across slabs (f32)")
+    return e2e[f"mesh (1, 1) RANGE+ B={BATCH}"]
+
+
+def _plan_bound(cnt_rows, q_rows, C, Dv, kept_rows, B, row_bytes):
+    """Kernel 6's least time over the kept tiles: sum over query tiles of
+    their real queries x the valid rows of their kept tiles x (2C + 2Dv)
+    operations; the queries, the union of kept rows and the output moved
+    once."""
+    flops = 2 * (C + Dv) * float((cnt_rows * q_rows).sum())
+    return _bound(B * C * 2 + kept_rows * (C * 2 + row_bytes) + B * Dv * 4, flops,
+                  BF16_FLOPS)
+
+
+def pruned_phases(dev, gen, report, bank) -> dict:
+    """Pruned and hybrid dense retrieval over the clustered informative bank
+    (`tools/tpu_batch9.py`: cluster_bank(bn=1024, pack="pad") of the 100k
+    bank, B=10,000 tower queries, bm=256): the keep fractions, kernels 6
+    (both families) and 7 against their plain versions, retrieve_pruned
+    (RANGE+, RANGE) and retrieve_hybrid through their launches, each held
+    to |d| / max(|ref|, 0.1) < 5e-3 of the dense kernel over the same rows;
+    one int8 request at bm=64, bn=512 (`tools/tpu_batch1.py:52-55`) for
+    kernel 6's int8 form; traces.  Returns each path's ms."""
+    from range_tpu_torch import GeoBank, load_model
+    from range_tpu_torch.bank import quantize_values
+    from range_tpu_torch.bank.clustered import (cluster_bank, compute_keep_mask,
+                                                compute_tile_plan)
+    from range_tpu_torch.geometry import geo_sort_order, lonlat_deg_to_xyz
+    from range_tpu_torch.ops import retrieval_fused as rf
+
+    BM_P, BN_P = 256, 1024
+    t0 = time.perf_counter()
+    cb, st = cluster_bank(bank, bn=BN_P)
+    torch.cuda.synchronize()
+    T = cb.num_rows // BN_P
+    print(f"cluster_bank(informative:{BANK_ROWS}, bn={BN_P}, pack='pad') on the card: "
+          f"{time.perf_counter() - t0:.2f} s, {cb.num_rows} rows ({T} tiles, "
+          f"{cb.n_valid} valid)")
+    enc = load_model("RANGE+", db_path=cb)  # the seed-0 tower; dense yardstick
+    coords = _random_coords(BATCH, gen, dev)
+    with torch.no_grad():
+        q = enc.model.query_embedding(coords).float()
+        x = lonlat_deg_to_xyz(coords)
+    valid_t = cb.row_mask().reshape(T, BN_P).sum(dim=1)  # valid rows a tile
+    out = {}
+    with torch.no_grad():
+        # ---- the plans, on the geo-sorted batch as retrieve_pruned makes them
+        order = geo_sort_order(x)
+        qs, xs = q[order], x[order]
+        plans = {fam: compute_tile_plan(fq, c, r, temp=temp, bm=BM_P) for fam, fq, c, r, temp in (
+            ("sem", qs, st.sem_centroid, st.sem_radius, 12.0),
+            ("geo", xs, st.geo_centroid, st.geo_radius, 40.0))}
+        for fam, (idx, cnt) in plans.items():
+            print(f"tile-plan keep fraction (bm={BM_P}): {fam} "
+                  f"{cnt.float().mean().item() / T:.4f} of {T} tiles")
+        flags = compute_keep_mask(xs, st.geo_centroid, st.geo_radius, temp=40.0,
+                                  bm=BM_P).to(torch.int32)
+        print(f"hybrid geo flags: {flags.float().mean().item():.4f} of the "
+              f"(query tile, bank tile) pairs")
+
+        # ---- kernel 6 (both families of a RANGE+ request) and 7 against plain
+        q_cat = rf.pack_queries(qs, xs, 12.0, 40.0, "fast")
+        k_cat = rf.pack_bank(cb.keys_sem, cb.xyz, "fast")
+        mask = (rf.NEG * (1.0 - cb.row_mask()))[None, :]
+        vb, Dv = cb.values, cb.value_dim
+        q_rows = torch.clamp(BATCH - torch.arange(0, BATCH, BM_P, device=dev), max=BM_P)
+        why = ("the dense kernel's rule: an exp2 within the logits' f32 difference of a "
+               "bf16 boundary rounds the other way, one ulp of one term")
+        errs, ms, plain_ms, flops_ms = [], 0.0, 0.0, []
+        for fam, cols, C in (("sem", slice(0, 256), 256), ("geo", slice(256, 272), GEO_COLS)):
+            idx, cnt = plans[fam]
+            args = (q_cat[:, cols], k_cat[:, cols], vb, mask, idx, cnt)
+
+            def kernel():
+                return rf._family_pruned_call(*args, bm=BM_P, bn=BN_P)
+
+            def plain():
+                return rf._family_pruned_plain(*args, bm=BM_P, bn=BN_P)
+
+            mag = rf._family_pruned_plain(q_cat[:, cols], k_cat[:, cols], vb.abs(), mask,
+                                          idx, cnt, bm=BM_P, bn=BN_P)
+            errs.append(_compare_terms(f"family_pruned[{fam}] B={BATCH} T={T}", kernel(),
+                                       plain(), mag, why, rows_off_max=BATCH // 100))
+            k_ms, p_ms = _cuda_ms(kernel, 5), _cuda_ms(plain, 3)
+            print(f"family_pruned[{fam}] B={BATCH}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms")
+            ms, plain_ms = ms + k_ms, plain_ms + p_ms
+            g = torch.arange(T, device=dev)[None, :] < cnt[:, None]
+            kept = torch.zeros(T, dtype=torch.bool, device=dev)
+            kept[idx[g].long()] = True
+            rows_i = (valid_t[idx.long()] * g).sum(dim=1)  # valid rows a query tile visits
+            flops_ms.append(_plan_bound(rows_i, q_rows, C, Dv, valid_t[kept].sum().item(),
+                                        BATCH, Dv * 2 + 4))
+        report["family_pruned"] = dict(
+            max_abs_err=max(e[0] for e in errs), err_over_tol=max(e[1] for e in errs),
+            ms=ms, plain_ms=plain_ms, bound_ms=sum(b for b, _ in flops_ms),
+            bound_by=flops_ms[0][1])
+
+        def kernel7():
+            return rf.retrieve_fused_hybrid(q_cat, k_cat, vb, mask, 0.5, flags, sem_d=256,
+                                            bm=BM_P, bn=BN_P)
+
+        def plain7():
+            return rf._retrieve_fused_hybrid_plain(q_cat, k_cat, vb, mask, 0.5, flags,
+                                                   sem_d=256, bm=BM_P, bn=BN_P)
+
+        mag = rf._retrieve_fused_hybrid_plain(q_cat, k_cat, vb.abs(), mask, 0.5, flags,
+                                              sem_d=256, bm=BM_P, bn=BN_P)
+        err, ratio = _compare_terms(f"fused_hybrid B={BATCH} T={T}", kernel7(), plain7(), mag,
+                                    why, rows_off_max=BATCH // 100)
+        k_ms, p_ms = _cuda_ms(kernel7, 5), _cuda_ms(plain7, 3)
+        print(f"fused_hybrid B={BATCH}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms")
+        n = cb.n_valid
+        geo_pairs = float((flags.float() * q_rows[:, None] * valid_t[None, :]).sum())
+        flops = 2 * BATCH * n * (256 + Dv) + 2 * geo_pairs * (GEO_COLS + Dv)
+        b_ms, b_by = _bound(BATCH * q_cat.shape[1] * 2 + n * (k_cat.shape[1] * 2 + Dv * 2 + 4)
+                            + BATCH * Dv * 4, flops, BF16_FLOPS)
+        report["fused_hybrid"] = dict(max_abs_err=err, err_over_tol=ratio, ms=k_ms,
+                                      plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
+
+    # ---- the paths, each request's launches counted, against the dense kernel
+    launches = {"family_pruned": 0, "fused_hybrid": 0}
+    for tag, fn, mode, want in (
+            ("retrieve_pruned RANGE+", lambda: rf.retrieve_pruned(
+                q, x, cb, st, bm=BM_P, bn=BN_P), "range+", {"family_pruned": 2}),
+            ("retrieve_pruned RANGE", lambda: rf.retrieve_pruned(
+                q, None, cb, st, sem_temp=15.0, mode="range", bm=BM_P, bn=BN_P), "range",
+             {"family_pruned": 1}),
+            ("retrieve_hybrid RANGE+", lambda: rf.retrieve_hybrid(
+                q, x, cb, st, bm=BM_P, bn=BN_P), "range+", {"fused_hybrid": 1})):
+        got, n_l = _drive(f"{tag} B={BATCH}", fn, want)
+        for k in launches:
+            launches[k] += n_l[k]
+        with torch.no_grad():
+            ref = rf.retrieve_pallas(q, x, cb, sem_temp=12.0 if mode == "range+" else 15.0,
+                                     mode=mode)
+        rel = ((got - ref).abs() / ref.abs().clamp_min(0.1)).max().item()
+        print(f"{tag} B={BATCH} vs the dense kernel over the same rows: max |d| / "
+              f"max(|ref|, 0.1) = {rel:.3e} (bar 5e-3, tests/test_pruned.py:87)")
+        if rel >= 5e-3 or not torch.isfinite(got).all():
+            raise AssertionError(f"{tag}: relerr {rel:.3e} over 5e-3")
+        out[tag] = _host_ms(fn, 5)
+        print(f"{tag} B={BATCH} end to end (plans included): {out[tag]:.3f} ms")
+    out["dense kernel over the clustered bank"] = _host_ms(
+        lambda: rf.retrieve_pallas(q, x, cb), 5)
+    print(f"retrieve_pallas RANGE+ over the clustered bank ({cb.num_rows} rows): "
+          f"{out['dense kernel over the clustered bank']:.3f} ms")
+    report["family_pruned"]["launches"] = launches["family_pruned"]
+    report["fused_hybrid"]["launches"] = launches["fused_hybrid"]
+
+    # ---- kernel 6's int8 form: one small request (tools/tpu_batch1.py:52-55)
+    small = GeoBank.synthetic(3, 3000, key_dim=256, value_dim=128, pad_to=2048, device=dev)
+    cb8, st8 = cluster_bank(quantize_values(small), n_clusters=8, bn=512)
+    fb, _ = cluster_bank(small, n_clusters=8, bn=512)
+    q64 = torch.nn.functional.normalize(torch.randn(64, 256, generator=gen, device=dev), dim=1)
+    x64 = torch.nn.functional.normalize(torch.randn(64, 3, generator=gen, device=dev), dim=1)
+    got, n_l = _drive("retrieve_pruned int8 B=64 (bm=64, bn=512)", lambda: rf.retrieve_pruned(
+        q64, x64, cb8, st8, bm=64, bn=512), {"family_pruned_i8": 2})
+    ref = rf.retrieve_pruned(q64, x64, fb, st8, bm=64, bn=512)
+    rel = ((got - ref).abs() / ref.abs().clamp_min(0.1)).max().item()
+    print(f"retrieve_pruned int8 vs bf16 values: max relerr {rel:.3e} (bar 0.05, "
+          "tools/tpu_batch1.py:60)")
+    if rel >= 0.05:
+        raise AssertionError(f"pruned int8: relerr {rel:.3e}")
+    with torch.no_grad():
+        q_cat8 = rf.pack_queries(q64, x64, 12.0, 40.0, "fast")
+        k_cat8 = rf.pack_bank(cb8.keys_sem, cb8.xyz, "fast")
+        mask8 = (rf.NEG * (1.0 - cb8.row_mask()))[None, :]
+        idx8, cnt8 = compute_tile_plan(q64, st8.sem_centroid, st8.sem_radius, temp=12.0, bm=64)
+        args = (q_cat8[:, :256], k_cat8[:, :256], cb8.values, mask8, idx8, cnt8,
+                cb8.value_scale)
+
+        def kernel8():
+            return rf._family_pruned_call(*args, bm=64, bn=512)
+
+        def plain8():
+            return rf._family_pruned_plain(*args, bm=64, bn=512)
+
+        mag = rf._family_pruned_plain(q_cat8[:, :256], k_cat8[:, :256], cb8.values.abs(),
+                                      mask8, idx8, cnt8, cb8.value_scale, bm=64, bn=512)
+        err, ratio = _compare_terms("family_pruned_i8[sem] B=64", kernel8(), plain8(), mag,
+                                    "the dense kernel's rule (the weight p x its row's scale)",
+                                    rows_off_max=2)
+        k_ms, p_ms = _cuda_ms(kernel8, 20), _cuda_ms(plain8, 5)
+        print(f"family_pruned_i8[sem] B=64: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+        T8 = cb8.num_rows // 512
+        valid8 = cb8.row_mask().reshape(T8, 512).sum(dim=1)
+        g8 = torch.arange(T8, device=dev)[None, :] < cnt8[:, None]
+        kept8 = torch.zeros(T8, dtype=torch.bool, device=dev)
+        kept8[idx8[g8].long()] = True
+        b_ms, b_by = _plan_bound((valid8[idx8.long()] * g8).sum(dim=1),
+                                 torch.full((1,), 64.0, device=dev), 256, 128,
+                                 valid8[kept8].sum().item(), 64, 128 + 4 + 4)
+        report["family_pruned_i8"] = dict(max_abs_err=err, err_over_tol=ratio, ms=k_ms,
+                                          plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                                          launches=n_l["family_pruned_i8"])
+    _trace(lambda: rf.retrieve_pruned(q, x, cb, st, bm=BM_P, bn=BN_P), 3,
+           f"retrieve_pruned RANGE+ B={BATCH}")
+    _trace(lambda: rf.retrieve_hybrid(q, x, cb, st, bm=BM_P, bn=BN_P), 3,
+           f"retrieve_hybrid B={BATCH}")
+    return out
+
+
 def _kind(name: str) -> str:
     """A device kernel's share of a training step: convolutions (cuDNN's
     implicit GEMMs, and its FFT convolutions: the transforms and their
@@ -2169,20 +2524,23 @@ def main() -> int:
     _build_all()  # ---- 2.
     report = {}
     dense_ms = dense_phases(dev, gen, report)
+    mesh_ms = mesh_phases(dev, gen, report)
     hier_ms, hb, enc, bank = hier_phases(dev, gen, report)
     topk_ms = topk_phases(dev, gen, report, hb, enc)
     range_ms = range_phases(dev, gen, report, hb, enc, bank)
     ts_ms = tail_super_phases(dev, gen, report, bank, enc)
     topk2_ms = two_level_topk_phases(dev, gen, report, bank, enc)
     general_ms = general_phases(dev, gen, report, bank)
+    pruned_ms = pruned_phases(dev, gen, report, bank)
     del hb, enc, bank
     torch.cuda.empty_cache()
     step_s = train_phases(dev, report)
     print(f"end to end B={BATCH}: flagship {hier_ms:.3f} ms, dense {dense_ms:.3f} ms, "
           f"hier_topk {topk_ms:.3f} ms, RANGE flagship {range_ms:.3f} ms, tail_super "
           f"flagship {ts_ms:.3f} ms, two-level hier_topk {topk2_ms:.3f} ms, RANGE+ at the "
-          f"JAX defaults {general_ms:.3f} ms; SatCLIP "
-          f"training step ({TRAIN_ACCUM} x {TRAIN_MICRO}) {step_s:.3f} s")
+          f"JAX defaults {general_ms:.3f} ms, RANGE+ on a (1, 1) mesh {mesh_ms:.3f} ms, "
+          + ", ".join(f"{k} {ms:.3f} ms" for k, ms in pruned_ms.items())
+          + f"; SatCLIP training step ({TRAIN_ACCUM} x {TRAIN_MICRO}) {step_s:.3f} s")
 
     kernels = [dict(name=k, route="cuda", source=f"range_tpu_torch/csrc/{src}.cu",
                     replaces=replaces, launches=report[k]["launches"],

@@ -6,7 +6,8 @@ RANGE+ (dense retrieval, the "exact" serving profile; hierarchical,
 ``retrieval="hier"`` at any subset of the lr_rank / res_rank / lr_geo
 knobs, the "flagship" and "turbo" profiles among them;
 ``value_quant="int8"`` stores the bank's values as per-row int8 codes for
-either) and the SatCLIP tower.
+either; ``mesh=`` serves the dense path bank-sharded over a
+`parallel.mesh.make_mesh` mesh) and the SatCLIP tower.
 Each registered constructor returns a `GeoEncoder`: an `nn.Module` plus
 its static ``embedding_dim`` and device.  Coordinates go in as [B, 2] (lon, lat)
 degrees and a [B, D] tensor on the model's device comes out.
@@ -29,6 +30,8 @@ from .bank.bank import GeoBank, quantize_values
 from .models.range_encoder import RangeConfig, RangeEncoder
 from .ops.retrieval_hier import HierBank, prepare_hier_bank
 from .models.satclip import SatClipLocationConfig, SatClipLocationEncoder
+from .parallel.mesh import axis_size
+from .parallel.sharded import shard_bank
 
 
 class GeoEncoder:
@@ -148,16 +151,24 @@ def _build_range(name: str, mode: str, pretrained_path, db_path, beta, *,
                  m_corr: int = 0, dedup: int = 0,
                  hier_cache: Optional[str] = None,
                  tower_matmul: Optional[str] = None, mesh=None,
-                 **kw) -> GeoEncoder:
-    if mesh is not None:
-        raise _not_ported("multi-device serving (mesh=)",
-                          "Queue 1, 'Multi-GPU'")
+                 bank_axis: Optional[str] = None,
+                 data_axis: Optional[str] = None, shard_bm: int = 512,
+                 shard_bn: int = 1024, **kw) -> GeoEncoder:
     if kw:
         raise TypeError(
             f"load_model({name!r}): unknown keyword argument(s) "
-            f"{sorted(kw)}; valid knobs: {_RANGE_KWARGS} (the JAX package's "
-            "multi-device knobs and the hierarchical knobs of its unported "
-            "paths are not ported yet: ROADMAP.md, Queue 1)")
+            f"{sorted(kw)}; valid knobs: {_RANGE_KWARGS} (the hierarchical "
+            "knobs of the JAX package's unported paths are not ported yet: "
+            "ROADMAP.md, Queue 1)")
+    if mesh is not None:
+        from torch.distributed.device_mesh import DeviceMesh
+
+        if retrieval == "hier":  # never served on one device instead
+            raise _not_ported("the hierarchical path on a mesh (mesh= with "
+                              "retrieval='hier')", "Queue 1, 'Multi-GPU'")
+        if not isinstance(mesh, DeviceMesh):
+            raise TypeError("mesh must be a torch DeviceMesh "
+                            f"(parallel.mesh.make_mesh), got {type(mesh).__name__}")
     if value_quant not in (None, "int8"):
         raise ValueError(f"value_quant must be None or 'int8', got {value_quant!r}")
     if retrieval not in ("dense", "hier"):
@@ -200,12 +211,25 @@ def _build_range(name: str, mode: str, pretrained_path, db_path, beta, *,
             topk_gsz=topk_gsz, tail_super=tail_super, tier=tier, seed=seed))
     elif isinstance(bank, HierBank):
         bank = bank.bank
+    if mesh is not None:
+        # rows spread over the mesh's bank axis; this rank keeps its slab
+        # (`range_tpu/api.py:197-208`)
+        bank_axis = bank_axis or mesh.mesh_dim_names[-1]
+        n_shards = axis_size(mesh, bank_axis)
+        if n_shards > 1 and bank.num_rows % (n_shards * shard_bn):
+            raise ValueError(
+                f"bank rows {bank.num_rows} must divide evenly into "
+                f"{n_shards} shards of {shard_bn}-row tiles; re-pad with "
+                f"chunk/pad_to accordingly")
+        bank = shard_bank(bank, mesh, axis=bank_axis)
     cfg = RangeConfig(mode=mode, beta=beta, chunk=chunk,
                       compute_dtype=compute_dtype, tier=tier,
                       use_pallas=use_pallas, retrieval=retrieval,
                       k_tiles=k_tiles, k_geo=k_geo, j_sem=j_sem, j_geo=j_geo,
                       hier_bm=hier_bm, hier_min_batch=hier_min_batch,
-                      m_corr=m_corr)
+                      m_corr=m_corr, mesh=mesh, bank_axis=bank_axis or "bank",
+                      data_axis=data_axis, shard_bm=shard_bm,
+                      shard_bn=shard_bn)
     enc = RangeEncoder(tower, bank, cfg)
     return GeoEncoder(name, enc, enc.embedding_dim, device, dtype)
 
@@ -214,7 +238,7 @@ def _build_range(name: str, mode: str, pretrained_path, db_path, beta, *,
 # the entries handled around it
 _RANGE_KWARGS = sorted(
     [p.name for p in inspect.signature(_build_range).parameters.values()
-     if p.kind == p.KEYWORD_ONLY and p.name not in ("device", "mesh")]
+     if p.kind == p.KEYWORD_ONLY and p.name != "device"]
     + ["db_path", "beta"])
 
 

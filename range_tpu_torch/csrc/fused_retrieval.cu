@@ -1,9 +1,12 @@
-// Fused dense dual-softmax retrieval in one pass over the bank.
+// Fused dense dual-softmax retrieval in one pass over the bank, and the
+// three variants of it that serve sharded, pruned and hybrid retrieval.
 //
 // Replaces: range_tpu/ops/retrieval_pallas.py, `_fused_kernel` (reached via
 // retrieve_fused <- retrieve_pallas) and, through its int8 entry point,
 // `_fused_kernel_i8` (retrieve_fused_i8 <- retrieve_pallas on a bank with
-// int8 values, bank.quantize_values).  Per bank tile: semantic and geo
+// int8 values, bank.quantize_values); `_fused_parts_kernel` (:314,
+// fused_parts_launch), `_family_pruned_kernel` (:441,
+// family_pruned_launch) and `_hybrid_kernel` (:660, fused_hybrid_launch).  Per bank tile: semantic and geo
 // logits against the packed keys plus the row mask, p = exp2(min(l, 86))
 // (log2(e) and the temperatures are folded into the packed queries), the
 // unnormalized sums d_s, d_g, and acc_s += p_s V, acc_g += p_g V with p cast
@@ -49,6 +52,30 @@
 // the tensor cores' accumulator (a chain of N/16 steps) drifted by ~2e-4
 // relative at N=102,400, where this order stays within ~1e-5.
 
+// The variants are template parameters of the one kernel body:
+//   * the epilogue (PARTS): each family divided by its sum and blended, or
+//     the raw partials [acc_s | acc_g | d_s | d_g | 0 ...] of one bank
+//     shard, [B, 2 Dv + 128], that add up across shards (kernel 5; only
+//     the block of value slice 0 writes the sums and the pad);
+//   * the families (TWO): both logit groups, or one group of C columns
+//     (kernel 6: the semantic block, or the geo block, of the packed
+//     operands, whose row strides are passed apart);
+//   * the tile walk (WALK): every BN-row sub-tile (kernels 2, 3, 5, 7), or
+//     a plan's active-first tile lists (kernel 6).  The plan has its own
+//     granularity (query tiles of bm rows, bank tiles of bn rows; bm % 16
+//     == 0, bn % 32 == 0), so each m16 row group of a 64-query block
+//     belongs to one plan tile: the block walks the merged lists of its
+//     (at most 4) plan tiles, each bank tile once, as bn / 32 sub-tiles,
+//     and a row group whose list lacks the tile gets p = 0 there.  The
+//     lists are read from device memory (the TPU's scalar prefetch) and
+//     no host sync happens.  Kernel 7 walks every sub-tile and reads its
+//     geo flags [nB, T] the same way: the geo logits, exponentials and
+//     value product of a sub-tile run only for the flagged row groups,
+//     and not at all where no group of the block is flagged.
+// Bounds: kernel 5 does kernel 2's work; kernel 6 scales with the kept
+// tiles (and streams the values once per family); kernel 7 is the
+// semantic half of kernel 2 plus its flagged geo tiles.
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -64,8 +91,11 @@ constexpr int THREADS = 256;    // 8 warps
 constexpr int LDV = DVS + 8;    // bf16 row stride of the value tile
 constexpr int LDV8 = DVS + 16;  // byte row stride of the raw int8 value tile
 constexpr int LDP = BN + 8;     // bf16 row stride of the probability tiles
+constexpr int PAD = 128;        // the partials' columns past 2 Dv
 constexpr float CLAMP2 = 86.0f;
 constexpr size_t MAX_SMEM = 232448;  // per block, sm_90
+
+enum Walk { ALL = 0, LIST = 1, FLAGS = 2 };
 
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
@@ -117,6 +147,22 @@ __device__ __forceinline__ float prob(float logit, float mask, bool valid) {
   return valid ? exp2f(fminf(logit + mask, CLAMP2)) : 0.f;
 }
 
+struct Params {
+  const void* q;         // [B, ldq] packed queries (bf16, or f32 for the exact tier)
+  const void* k;         // [N, ldk] packed keys, the same type
+  const void* v;         // [N, Dv] bf16 values, or int8 codes (I8)
+  const float* scale;    // [N] int8 dequantization scales (I8)
+  const float* mask;     // [N] additive logit mask (0 valid / -1e30 pad)
+  const int* idx;        // LIST: [nB, T] active-first bank tiles per plan query tile
+  const int* cnt;        // LIST: [nB] active tiles per plan query tile
+  const int* flags;      // FLAGS: [nB, T] geo flags
+  float* out;            // [B, Dv], or [B, 2 Dv + PAD] partials
+  int B, N, ldq, ldk, sem_d, geo_d, Dv;
+  float beta;
+  int bm, bn;            // the plan's query and bank tiles (LIST, FLAGS)
+  int stages;
+};
+
 struct Layout {
   size_t q, k, v, vc, p, mask, scale, dpart, total;
   int stages;
@@ -127,12 +173,12 @@ struct Layout {
 // one bf16 tile they are converted into), the bf16 probability tiles of
 // both families, the mask (and int8 scale) tiles and the per-row sums.
 __host__ __device__ inline Layout layout(int U, bool f32, bool i8, int stages) {
-  const size_t es = f32 ? 4 : 2, ldq = U + (f32 ? 4 : 8);
+  const size_t es = f32 ? 4 : 2, lds = U + (f32 ? 4 : 8);
   Layout l;
   l.stages = stages;
   l.q = 0;
-  l.k = l.q + BM * ldq * es;
-  l.v = l.k + stages * BN * ldq * es;
+  l.k = l.q + BM * lds * es;
+  l.v = l.k + stages * BN * lds * es;
   l.vc = l.v + stages * BN * (i8 ? LDV8 : LDV * 2);
   l.p = l.vc + (i8 ? BN * LDV * 2 : 0);
   l.mask = l.p + 2 * BM * LDP * 2;
@@ -142,27 +188,85 @@ __host__ __device__ inline Layout layout(int U, bool f32, bool i8, int stages) {
   return l;
 }
 
-// Packed operands are bf16 (fast/high tiers, tensor cores) or f32 (exact
-// tier, CUDA-core FMAs).  Values are bf16, or int8 codes with f32 per-row
-// scales (I8).
-template <bool F32, bool I8>
-__global__ void __launch_bounds__(THREADS, 1)
-fused_retrieval_kernel(const void* __restrict__ q_cat_, const void* __restrict__ k_cat_,
-                       const void* __restrict__ values_, const float* __restrict__ scale,
-                       const float* __restrict__ mask_neg, float* __restrict__ out, int B,
-                       int N, int cat_d, int sem_d, int geo_d, int Dv, float beta,
-                       int stages) {
+// The BN-row sub-tiles a block visits, in order.  ALL: every one.  LIST:
+// the merged active lists of the block's four m16 row groups' plan tiles
+// (the smallest next entry of any list, taken by every list that holds
+// it), each plan tile as bn / BN sub-tiles; `act` marks the groups whose
+// list holds the current tile.  Entries outside [0, T) end the walk.
+template <bool IS_LIST>
+struct TileWalk {
+  int n0 = -1;        // first bank row of the current sub-tile; -1 when done
+  unsigned act = 0xF;
+  int sub = 0, subs = 1, n_tiles = 0;
+  int pt[4], cnt[4], ptr[4];
+
+  __device__ void start(const Params& p, int q0) {
+    if (!IS_LIST) {
+      n0 = p.N > 0 ? 0 : -1;
+      return;
+    }
+    n_tiles = p.N / p.bn;
+    subs = p.bn / BN;
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      const int r = q0 + 16 * g;
+      pt[g] = r / p.bm;
+      cnt[g] = r < p.B ? min(max(p.cnt[pt[g]], 0), n_tiles) : 0;
+      ptr[g] = 0;
+    }
+    pick(p);
+  }
+
+  __device__ void pick(const Params& p) {
+    int best = 0x7fffffff;
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+      if (ptr[g] < cnt[g]) best = min(best, p.idx[(size_t)pt[g] * n_tiles + ptr[g]]);
+    if (best < 0 || best >= n_tiles) {
+      n0 = -1;
+      return;
+    }
+    act = 0;
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+      if (ptr[g] < cnt[g] && p.idx[(size_t)pt[g] * n_tiles + ptr[g]] == best) {
+        act |= 1u << g;
+        ++ptr[g];
+      }
+    sub = 0;
+    n0 = best * p.bn;
+  }
+
+  __device__ void next(const Params& p) {
+    if (!IS_LIST) {
+      n0 = n0 + BN < p.N ? n0 + BN : -1;
+    } else if (++sub < subs) {
+      n0 += BN;
+    } else {
+      pick(p);
+    }
+  }
+};
+
+// F32: packed operands f32 (exact tier, CUDA-core FMAs) or bf16 (fast/high
+// tiers, tensor cores).  I8: int8 value codes with f32 per-row scales.
+// PARTS: write the unnormalized partials instead of the blend.  TWO: both
+// logit families (else one, of sem_d columns).  WALK: ALL, LIST or FLAGS.
+template <bool F32, bool I8, bool PARTS, bool TWO, int WALK>
+__global__ void __launch_bounds__(THREADS, 1) fused_retrieval_kernel(const Params p) {
   using T = typename std::conditional<F32, float, __nv_bfloat16>::type;
   using V = typename std::conditional<I8, int8_t, __nv_bfloat16>::type;
   constexpr int E = 16 / sizeof(T);             // elements per 16-byte copy
   constexpr int EV = 16 / sizeof(V);            // value elements per 16-byte copy
-  const T* q_cat = static_cast<const T*>(q_cat_);
-  const T* k_cat = static_cast<const T*>(k_cat_);
-  const V* values = static_cast<const V*>(values_);
-  const int U = sem_d + geo_d;                  // packed columns read
-  const int ldq = U + (F32 ? 4 : 8);            // 16-byte rows, spread banks
+  constexpr int NF = TWO ? 2 : 1;               // logit families
+  const T* q_cat = static_cast<const T*>(p.q);
+  const T* k_cat = static_cast<const T*>(p.k);
+  const V* values = static_cast<const V*>(p.v);
+  const int B = p.B, N = p.N, Dv = p.Dv, sem_d = p.sem_d;
+  const int U = sem_d + (TWO ? p.geo_d : 0);    // packed columns read
+  const int lds = U + (F32 ? 4 : 8);            // 16-byte rows, spread banks
   const int ldv = I8 ? LDV8 : LDV;              // row stride of the streamed value tile
-  const Layout lay = layout(U, F32, I8, stages);
+  const Layout lay = layout(U, F32, I8, p.stages);
 
   extern __shared__ float4 smem4[];
   char* base = reinterpret_cast<char*>(smem4);
@@ -180,16 +284,19 @@ fused_retrieval_kernel(const void* __restrict__ q_cat_, const void* __restrict__
   const int g = lane >> 2, t = lane & 3;
   const int q0 = blockIdx.x * BM;
   const int col0 = blockIdx.y * DVS;
-  const int n_tiles = (N + BN - 1) / BN;
+  // the m16 row group of this warp's logits (both tiers: rows 8w..8w+7 or
+  // tile w >> 1), whose plan decides the warp's p for the current tile
+  const int my_group = warp >> 1;
 
-  // copies of bank tile `it` into buffer `buf` (rows past N become zeros)
-  auto issue = [&](int buf, int it) {
-    const int n0 = it * BN, cpr = U / E;
-    T* ks = ks0 + buf * BN * ldq;
+  // copies of the sub-tile at bank row n0 into buffer `buf` (rows past N
+  // become zeros)
+  auto issue = [&](int buf, int n0) {
+    const int cpr = U / E;
+    T* ks = ks0 + buf * BN * lds;
     for (int idx = tid; idx < BN * cpr; idx += THREADS) {
       const int r = idx / cpr, c = (idx % cpr) * E;
       const bool ok = n0 + r < N;
-      cp_async16(ks + r * ldq + c, k_cat + (ok ? (size_t)(n0 + r) * cat_d + c : 0), ok);
+      cp_async16(ks + r * lds + c, k_cat + (ok ? (size_t)(n0 + r) * p.ldk + c : 0), ok);
     }
     V* vs = vs0 + buf * BN * ldv;
     for (int idx = tid; idx < BN * (DVS / EV); idx += THREADS) {
@@ -199,11 +306,11 @@ fused_retrieval_kernel(const void* __restrict__ q_cat_, const void* __restrict__
     }
     if (tid < BN) {
       const bool ok = n0 + tid < N;
-      cp_async4(mask0 + buf * BN + tid, mask_neg + (ok ? n0 + tid : 0), ok);
+      cp_async4(mask0 + buf * BN + tid, p.mask + (ok ? n0 + tid : 0), ok);
     } else if (I8 && tid < 2 * BN) {
       const int r = tid - BN;
       const bool ok = n0 + r < N;
-      cp_async4(scale0 + buf * BN + r, scale + (ok ? n0 + r : 0), ok);
+      cp_async4(scale0 + buf * BN + r, p.scale + (ok ? n0 + r : 0), ok);
     }
     cp_async_commit();
   };
@@ -212,14 +319,16 @@ fused_retrieval_kernel(const void* __restrict__ q_cat_, const void* __restrict__
   for (int idx = tid; idx < BM * (U / E); idx += THREADS) {
     const int r = idx / (U / E), c = (idx % (U / E)) * E;
     const bool ok = q0 + r < B;
-    cp_async16(qs + r * ldq + c, q_cat + (ok ? (size_t)(q0 + r) * cat_d + c : 0), ok);
+    cp_async16(qs + r * lds + c, q_cat + (ok ? (size_t)(q0 + r) * p.ldq + c : 0), ok);
   }
   cp_async_commit();
-  if (stages == 2 && n_tiles > 0) issue(0, 0);
+  TileWalk<WALK == LIST> walk;
+  walk.start(p, q0);
+  if (p.stages == 2 && walk.n0 >= 0) issue(0, walk.n0);
 
-  float acc[2][4][4][4];  // [family][m16 tile][n8 tile][fragment]
+  float acc[NF][4][4][4];  // [family][m16 tile][n8 tile][fragment]
 #pragma unroll
-  for (int f = 0; f < 2; ++f)
+  for (int f = 0; f < NF; ++f)
 #pragma unroll
     for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
@@ -232,24 +341,38 @@ fused_retrieval_kernel(const void* __restrict__ q_cat_, const void* __restrict__
 #pragma unroll
   for (int i = 0; i < 8; ++i) dsum_s[i] = dsum_g[i] = 0.f;
 
-  for (int it = 0; it < n_tiles; ++it) {
-    const int n0 = it * BN;
+  for (int it = 0; walk.n0 >= 0; ++it) {
+    const int n0 = walk.n0;
+    const unsigned s_act = walk.act;  // groups whose (first) family takes this tile
+    walk.next(p);                     // look ahead: the sub-tile to stream next
+    unsigned g_act = 0xF;             // groups whose geo family takes it
+    if constexpr (WALK == FLAGS) {
+      const int n_tiles = N / p.bn, j = n0 / p.bn;
+      g_act = 0;
+#pragma unroll
+      for (int gr = 0; gr < 4; ++gr) {
+        const int r = q0 + 16 * gr;
+        if (r < B && p.flags[(size_t)(r / p.bm) * n_tiles + j] > 0) g_act |= 1u << gr;
+      }
+    }
+    const bool s_on = (s_act >> my_group) & 1u;
+    const bool g_on = TWO && ((g_act >> my_group) & 1u);
     __syncthreads();  // the previous tile is fully consumed
     int buf = 0;
-    if (stages == 2) {
+    if (p.stages == 2) {
       buf = it & 1;
-      if (it + 1 < n_tiles) {
-        issue(buf ^ 1, it + 1);
+      if (walk.n0 >= 0) {
+        issue(buf ^ 1, walk.n0);
         cp_async_wait<1>();
       } else {
         cp_async_wait<0>();
       }
     } else {
-      issue(0, it);
+      issue(0, n0);
       cp_async_wait<0>();
     }
     __syncthreads();  // tile `it` (and the queries) visible to all threads
-    const T* ks = ks0 + buf * BN * ldq;
+    const T* ks = ks0 + buf * BN * lds;
     const __nv_bfloat16* vs = reinterpret_cast<const __nv_bfloat16*>(vs0 + buf * BN * ldv);
     const float* mask_s = mask0 + buf * BN;
     const float* scale_s = scale0 + buf * BN;
@@ -273,57 +396,65 @@ fused_retrieval_kernel(const void* __restrict__ q_cat_, const void* __restrict__
       vs = vconv;
     }
 
-    // ---- logits and p = exp2(min(logit + mask, 86)) -> ps, pg (bf16)
+    // ---- logits and p = exp2(min(logit + mask, 86)) -> ps, pg (bf16);
+    // p = 0 for the row groups this tile is not active for
     if constexpr (F32) {
       // thread: bank row n = lane, queries 8w..8w+7
       const int n = lane, r0 = warp * 8;
       float sl[8], gl[8];
 #pragma unroll
       for (int i = 0; i < 8; ++i) sl[i] = gl[i] = 0.f;
-      const float* krow = ks + n * ldq;
+      const float* krow = ks + n * lds;
       auto dot4 = [&](float (&a)[8], int kk) {
         const float4 kv = *reinterpret_cast<const float4*>(krow + kk);
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
-          const float4 qv = *reinterpret_cast<const float4*>(qs + (r0 + i) * ldq + kk);
+          const float4 qv = *reinterpret_cast<const float4*>(qs + (r0 + i) * lds + kk);
           a[i] = fmaf(qv.x, kv.x, a[i]);
           a[i] = fmaf(qv.y, kv.y, a[i]);
           a[i] = fmaf(qv.z, kv.z, a[i]);
           a[i] = fmaf(qv.w, kv.w, a[i]);
         }
       };
-      for (int kk = 0; kk < sem_d; kk += 4) dot4(sl, kk);
-      for (int kk = sem_d; kk < U; kk += 4) dot4(gl, kk);
+      if (s_on)
+        for (int kk = 0; kk < sem_d; kk += 4) dot4(sl, kk);
+      if (g_on)
+        for (int kk = sem_d; kk < U; kk += 4) dot4(gl, kk);
       const bool valid = n0 + n < N;
       const float m = mask_s[n];
+      const float sc = I8 ? scale_s[n] : 1.f;  // I8: the row's scale joins p
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
-        const float p_s = prob(sl[i], m, valid), p_g = prob(gl[i], m, valid);
+        const float p_s = prob(sl[i], m, valid && s_on);
         dsum_s[i] += p_s;
-        dsum_g[i] += p_g;
-        const float sc = I8 ? scale_s[n] : 1.f;  // I8: the row's scale joins p
         ps[(r0 + i) * LDP + n] = __float2bfloat16_rn(I8 ? p_s * sc : p_s);
-        pg[(r0 + i) * LDP + n] = __float2bfloat16_rn(I8 ? p_g * sc : p_g);
+        if constexpr (TWO) {
+          const float p_g = prob(gl[i], m, valid && g_on);
+          dsum_g[i] += p_g;
+          pg[(r0 + i) * LDP + n] = __float2bfloat16_rn(I8 ? p_g * sc : p_g);
+        }
       }
     } else {
       // warp w: m16 tile (w >> 1), n8 tiles 2*(w & 1) and 2*(w & 1) + 1
       const int mt = warp >> 1, nt0 = (warp & 1) * 2;
       float cs[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
       float cg[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-      const __nv_bfloat16* qr0 = qs + (mt * 16 + g) * ldq + 2 * t;
-      const __nv_bfloat16* qr1 = qr0 + 8 * ldq;
+      const __nv_bfloat16* qr0 = qs + (mt * 16 + g) * lds + 2 * t;
+      const __nv_bfloat16* qr1 = qr0 + 8 * lds;
       const __nv_bfloat16* kb = ks + 2 * t;
       auto step = [&](float (&c)[2][4], int kk) {
         const uint32_t a[4] = {ld32(qr0 + kk), ld32(qr1 + kk), ld32(qr0 + kk + 8),
                                ld32(qr1 + kk + 8)};
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
-          const __nv_bfloat16* kr = kb + ((nt0 + i) * 8 + g) * ldq + kk;
+          const __nv_bfloat16* kr = kb + ((nt0 + i) * 8 + g) * lds + kk;
           mma_bf16(c[i], a, ld32(kr), ld32(kr + 8));
         }
       };
-      for (int kk = 0; kk < sem_d; kk += 16) step(cs, kk);
-      for (int kk = sem_d; kk < U; kk += 16) step(cg, kk);
+      if (s_on)
+        for (int kk = 0; kk < sem_d; kk += 16) step(cs, kk);
+      if (g_on)
+        for (int kk = sem_d; kk < U; kk += 16) step(cg, kk);
       // fragment e of n8 tile i: row mt*16 + g + 8*(e >> 1), column
       // (nt0 + i)*8 + 2t + (e & 1)
 #pragma unroll
@@ -334,21 +465,19 @@ fused_retrieval_kernel(const void* __restrict__ q_cat_, const void* __restrict__
         for (int i = 0; i < 2; ++i) {
           const int c = (nt0 + i) * 8 + 2 * t;
           const bool v0 = n0 + c < N, v1 = n0 + c + 1 < N;
-          const float s0 = prob(cs[i][2 * h], mask_s[c], v0);
-          const float s1 = prob(cs[i][2 * h + 1], mask_s[c + 1], v1);
-          const float g0 = prob(cg[i][2 * h], mask_s[c], v0);
-          const float g1 = prob(cg[i][2 * h + 1], mask_s[c + 1], v1);
+          const float c0 = I8 ? scale_s[c] : 1.f, c1 = I8 ? scale_s[c + 1] : 1.f;
+          const float s0 = prob(cs[i][2 * h], mask_s[c], v0 && s_on);
+          const float s1 = prob(cs[i][2 * h + 1], mask_s[c + 1], v1 && s_on);
           t_s += s0 + s1;
-          t_g += g0 + g1;
-          if constexpr (I8) {  // the rows' scales join p before its bf16 cast
-            const float c0 = scale_s[c], c1 = scale_s[c + 1];
-            *reinterpret_cast<__nv_bfloat162*>(ps + r * LDP + c) =
-                __floats2bfloat162_rn(s0 * c0, s1 * c1);
+          // I8: the rows' scales join p before its bf16 cast
+          *reinterpret_cast<__nv_bfloat162*>(ps + r * LDP + c) =
+              I8 ? __floats2bfloat162_rn(s0 * c0, s1 * c1) : __floats2bfloat162_rn(s0, s1);
+          if constexpr (TWO) {
+            const float g0 = prob(cg[i][2 * h], mask_s[c], v0 && g_on);
+            const float g1 = prob(cg[i][2 * h + 1], mask_s[c + 1], v1 && g_on);
+            t_g += g0 + g1;
             *reinterpret_cast<__nv_bfloat162*>(pg + r * LDP + c) =
-                __floats2bfloat162_rn(g0 * c0, g1 * c1);
-          } else {
-            *reinterpret_cast<__nv_bfloat162*>(ps + r * LDP + c) = __floats2bfloat162_rn(s0, s1);
-            *reinterpret_cast<__nv_bfloat162*>(pg + r * LDP + c) = __floats2bfloat162_rn(g0, g1);
+                I8 ? __floats2bfloat162_rn(g0 * c0, g1 * c1) : __floats2bfloat162_rn(g0, g1);
           }
         }
         dsum_s[h] += t_s;
@@ -358,6 +487,7 @@ fused_retrieval_kernel(const void* __restrict__ q_cat_, const void* __restrict__
     __syncthreads();  // ps, pg complete
 
     // ---- acc_f[64 x 32 cols of warp] += P_f[64 x BN] @ V[BN x 32 cols of warp]
+    // (a family with no active row group in this tile is skipped)
     {
       static_assert(BN == 32, "two k16 steps per tile");
       uint32_t b[2][4][2];  // [k16 step][n8 tile][fragment]
@@ -366,13 +496,14 @@ fused_retrieval_kernel(const void* __restrict__ q_cat_, const void* __restrict__
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int mat = lane >> 3, rr = lane & 7;
-          const __nv_bfloat16* p = vs + (kstep * 16 + rr + (mat & 1) * 8) * LDV + warp * 32 +
-                                   h * 16 + (mat >> 1) * 8;
+          const __nv_bfloat16* pv = vs + (kstep * 16 + rr + (mat & 1) * 8) * LDV + warp * 32 +
+                                    h * 16 + (mat >> 1) * 8;
           ldmatrix_x4_trans(b[kstep][2 * h][0], b[kstep][2 * h][1], b[kstep][2 * h + 1][0],
-                            b[kstep][2 * h + 1][1], p);
+                            b[kstep][2 * h + 1][1], pv);
         }
 #pragma unroll
-      for (int f = 0; f < 2; ++f) {
+      for (int f = 0; f < NF; ++f) {
+        if ((f ? g_act : s_act) == 0) continue;
         const __nv_bfloat16* P = f ? pg : ps;
 #pragma unroll
         for (int mt = 0; mt < 4; ++mt) {
@@ -393,7 +524,7 @@ fused_retrieval_kernel(const void* __restrict__ q_cat_, const void* __restrict__
       }
     }
   }
-  cp_async_wait<0>();  // nothing in flight at exit (the query copy when N == 0)
+  cp_async_wait<0>();  // nothing in flight at exit (the query copy when no tile is walked)
 
   // ---- per-row exp sums into dpart[family][part][row]
   if constexpr (F32) {
@@ -433,7 +564,20 @@ fused_retrieval_kernel(const void* __restrict__ q_cat_, const void* __restrict__
   }
   __syncthreads();
 
-  // ---- normalize each family, blend, store
+  // ---- epilogue: the partials, or each family over its sum (blended)
+  const size_t ldo = PARTS ? 2 * (size_t)Dv + PAD : Dv;
+  if constexpr (PARTS) {
+    // the sums and the zero pad: [d_s | d_g | 0 x 126], by value slice 0
+    if (blockIdx.y == 0) {
+      for (int idx = tid; idx < BM * PAD; idx += THREADS) {
+        const int r = idx / PAD, c = idx % PAD, q = q0 + r;
+        if (q >= B) continue;
+        const float d = c == 0 ? dpart[r] + dpart[BM + r]
+                      : c == 1 ? dpart[2 * BM + r] + dpart[3 * BM + r] : 0.f;
+        p.out[q * ldo + 2 * Dv + c] = d;
+      }
+    }
+  }
 #pragma unroll
   for (int mt = 0; mt < 4; ++mt) {
 #pragma unroll
@@ -442,38 +586,85 @@ fused_retrieval_kernel(const void* __restrict__ q_cat_, const void* __restrict__
       if (q >= B) continue;
       const float ds = fmaxf(dpart[r] + dpart[BM + r], 1e-30f);
       const float dg = fmaxf(dpart[2 * BM + r] + dpart[3 * BM + r], 1e-30f);
+      float* orow = p.out + (size_t)q * ldo;
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt) {
         const int c = col0 + warp * 32 + nt * 8 + 2 * t;
         if (c >= Dv) continue;
         const int e = 2 * half;
-        const float o0 =
-            beta * (acc[0][mt][nt][e] / ds) + (1.0f - beta) * (acc[1][mt][nt][e] / dg);
-        const float o1 =
-            beta * (acc[0][mt][nt][e + 1] / ds) + (1.0f - beta) * (acc[1][mt][nt][e + 1] / dg);
-        *reinterpret_cast<float2*>(out + (size_t)q * Dv + c) = make_float2(o0, o1);
+        if constexpr (PARTS) {
+          *reinterpret_cast<float2*>(orow + c) =
+              make_float2(acc[0][mt][nt][e], acc[0][mt][nt][e + 1]);
+          *reinterpret_cast<float2*>(orow + Dv + c) =
+              make_float2(acc[NF - 1][mt][nt][e], acc[NF - 1][mt][nt][e + 1]);
+        } else if constexpr (TWO) {
+          const float o0 = p.beta * (acc[0][mt][nt][e] / ds) +
+                           (1.0f - p.beta) * (acc[NF - 1][mt][nt][e] / dg);
+          const float o1 = p.beta * (acc[0][mt][nt][e + 1] / ds) +
+                           (1.0f - p.beta) * (acc[NF - 1][mt][nt][e + 1] / dg);
+          *reinterpret_cast<float2*>(orow + c) = make_float2(o0, o1);
+        } else {
+          *reinterpret_cast<float2*>(orow + c) =
+              make_float2(acc[0][mt][nt][e] / ds, acc[0][mt][nt][e + 1] / ds);
+        }
       }
     }
   }
 }
 
-template <bool F32, bool I8>
-int launch(const void* q_cat, const void* k_cat, const void* values, const float* scale,
-           const float* mask_neg, float* out, int B, int N, int cat_d, int sem_d, int geo_d,
-           int Dv, float beta, cudaStream_t stream) {
-  const int U = sem_d + geo_d;
+template <bool F32, bool I8, bool PARTS, bool TWO, int WALK>
+int launch(Params p, cudaStream_t stream) {
+  if (p.B <= 0 || p.Dv <= 0) return 0;
+  const int U = p.sem_d + (TWO ? p.geo_d : 0);
   Layout lay = layout(U, F32, I8, 2);
   if (lay.total > MAX_SMEM) lay = layout(U, F32, I8, 1);  // e.g. the 'high' tier's wide rows
   if (lay.total > MAX_SMEM) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_retrieval_kernel<F32, I8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)lay.total);
+  p.stages = lay.stages;
+  auto kernel = fused_retrieval_kernel<F32, I8, PARTS, TWO, WALK>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay.total);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((B + BM - 1) / BM, (Dv + DVS - 1) / DVS);
-  fused_retrieval_kernel<F32, I8><<<grid, THREADS, lay.total, stream>>>(
-      q_cat, k_cat, values, scale, mask_neg, out, B, N, cat_d, sem_d, geo_d, Dv, beta,
-      lay.stages);
+  const dim3 grid((p.B + BM - 1) / BM, (p.Dv + DVS - 1) / DVS);
+  kernel<<<grid, THREADS, lay.total, stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+// the f32 / int8 forms of one variant, chosen at run time
+template <bool PARTS, bool TWO, int WALK>
+int launch_any(const Params& p, bool f32, bool i8, cudaStream_t s) {
+  if (f32)
+    return i8 ? launch<true, true, PARTS, TWO, WALK>(p, s)
+              : launch<true, false, PARTS, TWO, WALK>(p, s);
+  return i8 ? launch<false, true, PARTS, TWO, WALK>(p, s)
+            : launch<false, false, PARTS, TWO, WALK>(p, s);
+}
+
+// Shape rules of every variant: the logit groups whole MMA steps, rows of
+// whole 16-byte copies.
+bool bad_shape(const Params& p, bool f32, bool i8, int C) {
+  const int es = f32 ? 4 : 2;
+  return p.sem_d % 16 || p.geo_d % 16 || C > p.ldq || C > p.ldk || (p.ldq * es) % 16 ||
+         (p.ldk * es) % 16 || p.Dv % (i8 ? 16 : 8) || p.N < 0;
+}
+
+Params dense_params(const void* q_cat, const void* k_cat, const void* values,
+                    const void* scale, const void* mask_neg, void* out, int B, int N, int cat_d,
+                    int sem_d, int geo_d, int Dv, float beta) {
+  Params p{};
+  p.q = q_cat;
+  p.k = k_cat;
+  p.v = values;
+  p.scale = static_cast<const float*>(scale);
+  p.mask = static_cast<const float*>(mask_neg);
+  p.out = static_cast<float*>(out);
+  p.B = B;
+  p.N = N;
+  p.ldq = p.ldk = cat_d;
+  p.sem_d = sem_d;
+  p.geo_d = geo_d;
+  p.Dv = Dv;
+  p.beta = beta;
+  return p;
 }
 
 }  // namespace
@@ -486,17 +677,10 @@ extern "C" int fused_retrieval_launch(const void* q_cat, const void* k_cat, cons
                                       const void* mask_neg, void* out, int B, int N,
                                       int cat_d, int sem_d, int geo_d, int Dv, float beta,
                                       int f32_logits, void* stream) {
-  if (B <= 0 || Dv <= 0) return 0;
-  if (sem_d % 16 || geo_d % 16 || sem_d + geo_d > cat_d || cat_d % 8 || Dv % 8 || N < 0)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* m = static_cast<const float*>(mask_neg);
-  float* o = static_cast<float*>(out);
-  if (f32_logits)
-    return launch<true, false>(q_cat, k_cat, values, nullptr, m, o, B, N, cat_d, sem_d, geo_d,
-                               Dv, beta, s);
-  return launch<false, false>(q_cat, k_cat, values, nullptr, m, o, B, N, cat_d, sem_d, geo_d,
-                              Dv, beta, s);
+  const Params p = dense_params(q_cat, k_cat, values, nullptr, mask_neg, out, B, N, cat_d,
+                                sem_d, geo_d, Dv, beta);
+  if (bad_shape(p, f32_logits, false, sem_d + geo_d)) return (int)cudaErrorInvalidValue;
+  return launch_any<false, true, ALL>(p, f32_logits, false, static_cast<cudaStream_t>(stream));
 }
 
 // The int8-value entry point: values [N, Dv] int8 codes (Dv % 16 == 0) and
@@ -507,16 +691,68 @@ extern "C" int fused_retrieval_i8_launch(const void* q_cat, const void* k_cat,
                                          const void* mask_neg, void* out, int B, int N,
                                          int cat_d, int sem_d, int geo_d, int Dv, float beta,
                                          int f32_logits, void* stream) {
-  if (B <= 0 || Dv <= 0) return 0;
-  if (sem_d % 16 || geo_d % 16 || sem_d + geo_d > cat_d || cat_d % 8 || Dv % 16 || N < 0)
+  const Params p = dense_params(q_cat, k_cat, values, scale, mask_neg, out, B, N, cat_d,
+                                sem_d, geo_d, Dv, beta);
+  if (bad_shape(p, f32_logits, true, sem_d + geo_d)) return (int)cudaErrorInvalidValue;
+  return launch_any<false, true, ALL>(p, f32_logits, true, static_cast<cudaStream_t>(stream));
+}
+
+// Kernel 5: the unnormalized partials of one bank shard, out [B, 2 Dv + 128]
+// f32 = [acc_s | acc_g | d_s | d_g | 0 x 126].  Operands as
+// fused_retrieval_launch; scale [N] f32 selects int8 values (NULL: bf16).
+extern "C" int fused_parts_launch(const void* q_cat, const void* k_cat, const void* values,
+                                  const void* scale, const void* mask_neg, void* out, int B,
+                                  int N, int cat_d, int sem_d, int geo_d, int Dv,
+                                  int f32_logits, void* stream) {
+  const Params p = dense_params(q_cat, k_cat, values, scale, mask_neg, out, B, N, cat_d, sem_d,
+                                geo_d, Dv, 1.0f);
+  const bool i8 = scale != nullptr;
+  if (bad_shape(p, f32_logits, i8, sem_d + geo_d)) return (int)cudaErrorInvalidValue;
+  return launch_any<true, true, ALL>(p, f32_logits, i8, static_cast<cudaStream_t>(stream));
+}
+
+// Kernel 6: one family's softmax-weighted values, out [B, Dv] f32, over the
+// plan's active tiles.  q_fam [B, C] (row stride ldq) and k_fam [N, C] (row
+// stride ldk), C % 16 == 0; idx [nB, T] int32 with T = N / bn, its entries in
+// [0, T); counts [nB] int32; query tile i = rows [i bm, (i + 1) bm) walks
+// bank tiles idx[i, 0:counts[i]] of bn rows each.  bm % 16 == 0, bn % 32 ==
+// 0, N % bn == 0.  scale [N] f32 selects int8 values (NULL: bf16).
+extern "C" int family_pruned_launch(const void* q_fam, const void* k_fam, const void* values,
+                                    const void* scale, const void* mask_neg,
+                                    const void* tile_idx, const void* tile_counts, void* out,
+                                    int B, int N, int ldq, int ldk, int C, int Dv, int bm,
+                                    int bn, int f32_logits, void* stream) {
+  Params p = dense_params(q_fam, k_fam, values, scale, mask_neg, out, B, N, ldq, C, 0, Dv,
+                          1.0f);
+  p.ldk = ldk;
+  p.idx = static_cast<const int*>(tile_idx);
+  p.cnt = static_cast<const int*>(tile_counts);
+  p.bm = bm;
+  p.bn = bn;
+  const bool i8 = scale != nullptr;
+  if (bad_shape(p, f32_logits, i8, C) || C <= 0 || bm <= 0 || bm % 16 || bn <= 0 ||
+      bn % BN || N % bn)
+    return (int)cudaErrorInvalidValue;
+  return launch_any<false, false, LIST>(p, f32_logits, i8, static_cast<cudaStream_t>(stream));
+}
+
+// Kernel 7: fused_retrieval_launch (bf16 values) with the geo family of
+// bank tile j (bn rows) taken for query tile i (bm rows) only where
+// geo_flags[i, j] > 0; geo_flags [nB, N / bn] int32.  bm % 16 == 0,
+// bn % 32 == 0, N % bn == 0.
+extern "C" int fused_hybrid_launch(const void* q_cat, const void* k_cat, const void* values,
+                                   const void* mask_neg, const void* geo_flags, void* out,
+                                   int B, int N, int cat_d, int sem_d, int geo_d, int Dv,
+                                   float beta, int bm, int bn, int f32_logits, void* stream) {
+  Params p = dense_params(q_cat, k_cat, values, nullptr, mask_neg, out, B, N, cat_d, sem_d,
+                          geo_d, Dv, beta);
+  p.flags = static_cast<const int*>(geo_flags);
+  p.bm = bm;
+  p.bn = bn;
+  if (bad_shape(p, f32_logits, false, sem_d + geo_d) || bm <= 0 || bm % 16 || bn <= 0 ||
+      bn % BN || N % bn)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* sc = static_cast<const float*>(scale);
-  const float* m = static_cast<const float*>(mask_neg);
-  float* o = static_cast<float*>(out);
-  if (f32_logits)
-    return launch<true, true>(q_cat, k_cat, values, sc, m, o, B, N, cat_d, sem_d, geo_d, Dv,
-                              beta, s);
-  return launch<false, true>(q_cat, k_cat, values, sc, m, o, B, N, cat_d, sem_d, geo_d, Dv,
-                             beta, s);
+  return f32_logits ? launch<true, false, false, true, FLAGS>(p, s)
+                    : launch<false, false, false, true, FLAGS>(p, s);
 }

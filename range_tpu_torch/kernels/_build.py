@@ -36,7 +36,11 @@ _SIGNATURES = {
     "fused_retrieval": {"fused_retrieval_launch":
                         [_P] * 5 + [_I] * 6 + [_F, _I, _P],
                         "fused_retrieval_i8_launch":
-                        [_P] * 6 + [_I] * 6 + [_F, _I, _P]},
+                        [_P] * 6 + [_I] * 6 + [_F, _I, _P],
+                        "fused_parts_launch": [_P] * 6 + [_I] * 7 + [_P],
+                        "family_pruned_launch": [_P] * 8 + [_I] * 9 + [_P],
+                        "fused_hybrid_launch":
+                        [_P] * 6 + [_I] * 6 + [_F] + [_I] * 3 + [_P]},
     "hier_scan": {"hier_scan_launch": [_P] * 10 + [_I] * 13 + [_P]},
     "hier_refine": {"hier_refine_launch": [_P] * 5 + [_I] * 6 + [_P]},
     "hier_corr": {"hier_corr_launch": [_P] * 5 + [_I] * 7 + [_P]},

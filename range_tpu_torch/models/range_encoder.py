@@ -13,8 +13,11 @@ With a `HierBank` and ``retrieval='hier'`` the retrieval is the
 hierarchical path (`ops/retrieval_hier.retrieve_hier`, routed as the JAX
 package routes: the family-split or the merged parts kernels), with the
 JAX package's batch-size heuristics (`range_encoder.py:147-223`).  Banks
-with int8 values take the int8 kernels on either path.
-Multi-device meshes are not ported.
+with int8 values take the int8 kernels on either path.  With a ``mesh``
+(`parallel/mesh.make_mesh`) the dense path runs bank-sharded over its
+bank axis (`parallel/sharded.py`, `range_encoder.py:225-245`); the
+hierarchical path on a mesh is not ported yet (ROADMAP.md, Queue 1
+"Multi-GPU").
 """
 
 from __future__ import annotations
@@ -62,11 +65,26 @@ class RangeConfig:
     m_corr: int = 0
     # hier: batches below this take the dense exact kernel over hb.bank
     hier_min_batch: int = 0
+    # multi-device serving: a DeviceMesh (`parallel/mesh.make_mesh`) whose
+    # `bank_axis` shards the bank rows (the API keeps this rank's slab,
+    # `parallel/sharded.shard_bank`); `data_axis` optionally splits the
+    # batch.  shard_bn: the bank tile every shard's rows must hold whole
+    # (the JAX divisibility rule); shard_bm: the TPU kernel's query tile,
+    # kept for the JAX signature (the CUDA parts kernel tiles itself)
+    mesh: Any = None
+    bank_axis: str = "bank"
+    data_axis: Optional[str] = None
+    shard_bm: int = 512
+    shard_bn: int = 1024
 
     def __post_init__(self):
         if self.retrieval not in ("dense", "hier"):
             raise ValueError(
                 f"retrieval must be 'dense' or 'hier', got {self.retrieval!r}")
+        if self.mesh is not None and self.retrieval == "hier":
+            raise NotImplementedError(
+                "the hierarchical path on a mesh is not ported yet (ROADMAP.md: "
+                "Queue 1, 'Multi-GPU')")
 
     def hier_plan(self, batch: int):
         """(bm, k_tiles, k_geo, j_sem) for a batch of ``batch`` queries
@@ -132,6 +150,26 @@ class RangeEncoder(nn.Module):
         use_pallas = cfg.use_pallas
         if use_pallas is None:
             use_pallas = lonlat_deg.device.type == "cuda"
+        if cfg.mesh is not None:
+            from ..parallel.sharded import (sharded_retrieve,
+                                            sharded_retrieve_pallas)
+
+            # JAX's route with "tpu" read as "cuda": the card always takes
+            # the parts kernel
+            if use_pallas or lonlat_deg.device.type == "cuda":
+                retrieved = sharded_retrieve_pallas(
+                    q_sem, q_xyz, bank, cfg.mesh,
+                    sem_temp=cfg.resolved_sem_temp(), geo_temp=cfg.geo_temp,
+                    beta=cfg.beta, mode=cfg.mode, tier=cfg.tier,
+                    bank_axis=cfg.bank_axis, data_axis=cfg.data_axis)
+            else:
+                retrieved = sharded_retrieve(
+                    q_sem, q_xyz, bank, cfg.mesh,
+                    sem_temp=cfg.resolved_sem_temp(), geo_temp=cfg.geo_temp,
+                    beta=cfg.beta, mode=cfg.mode, chunk=cfg.chunk,
+                    bank_axis=cfg.bank_axis, data_axis=cfg.data_axis,
+                    compute_dtype=cfg.compute_dtype)
+            return torch.cat([retrieved, q_sem], dim=-1)
         if use_pallas:
             retrieved = retrieve_pallas(
                 q_sem, q_xyz, bank, sem_temp=cfg.resolved_sem_temp(),

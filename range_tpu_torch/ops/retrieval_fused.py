@@ -1,7 +1,8 @@
-"""Fused dense dual-softmax retrieval: packing, kernel wrapper, plain version.
+"""Fused dense dual-softmax retrieval: packing, kernel wrappers, plain
+versions, and the pruned and hybrid paths over clustered banks.
 
 Counterpart of `range_tpu/ops/retrieval_pallas.py` (the module name differs
-because the kernel here is CUDA, not Pallas).  Computes
+because the kernels here are CUDA, not Pallas).  Computes
 
   out = beta * softmax(ts * q_sem K_semT) V + (1-beta) * softmax(tg * q_xyz K_xyzT) V
 
@@ -12,6 +13,13 @@ temperatures are folded into the packed queries), the unnormalized sums
 by its own sum (clamped at 1e-30) and the two are blended with beta.  The
 logits are bounded by the temperatures for unit queries and keys, so no
 running max is needed.
+
+The same kernel body (`csrc/fused_retrieval.cu`) also serves
+`retrieve_fused_parts` (the unnormalized partials of one bank shard, summed
+across shards by `parallel/sharded.py`), `_family_pruned_call` (one
+family's softmax over a tile plan's active bank tiles: `retrieve_pruned`)
+and `retrieve_fused_hybrid` (the geo family only in flagged tiles:
+`retrieve_hybrid`); the plans come from `bank/clustered.py`.
 
 Precision tiers of the logit matmuls (`retrieval_pallas.py:19-25`):
   'exact' — f32 operands, true f32 products.
@@ -109,16 +117,17 @@ def _serving_values(values: torch.Tensor) -> torch.Tensor:
     return values.to(torch.bfloat16)
 
 
-def _retrieve_fused_plain(q_cat, k_cat, values, mask_neg, beta: float,
-                          scale=None, *, sem_d: int,
-                          chunk: int = 8192) -> torch.Tensor:
-    """Plain PyTorch version of the fused kernels: the same unnormalized
-    exp2 sums over bank chunks of ``chunk`` rows.  bf16 operands are upcast
-    to f32 before every matmul (the f32 accumulation of the kernel).  With
-    ``scale`` [1, N] (int8 values, `_fused_kernel_i8`,
+def _fused_sums(q_cat, k_cat, values, mask_neg, scale=None, *, sem_d: int,
+                chunk: int = 8192, geo_gate=None):
+    """The fused kernels' unnormalized sums in plain PyTorch: (acc_s [B, Dv],
+    acc_g, d_s [B, 1], d_g) over bank chunks of ``chunk`` rows.  bf16
+    operands are upcast to f32 before every matmul (the f32 accumulation
+    of the kernel).  With ``scale`` [1, N] (int8 values,
     `retrieval_pallas.py:181-227`) each weight is multiplied by its row's
     scale before the bf16 cast of the value products; the sums d take the
-    unscaled weights."""
+    unscaled weights.  ``geo_gate`` = (flags [B, T] f32 {0, 1}, bn) zeroes
+    the geo weights of bank tile j for the rows whose flag j is 0 (kernel
+    7's skipped tiles)."""
     f32 = torch.float32
     q = q_cat.to(f32)
     B, N, Dv = q.shape[0], k_cat.shape[0], values.shape[1]
@@ -135,6 +144,10 @@ def _retrieve_fused_plain(q_cat, k_cat, values, mask_neg, beta: float,
                                          CLAMP2))
         p_g = torch.exp2(torch.clamp_max(q[:, sem_d:] @ k[:, sem_d:].T + m,
                                          CLAMP2))
+        if geo_gate is not None:
+            flags, bn = geo_gate
+            tiles = torch.arange(lo, lo + k.shape[0], device=q.device) // bn
+            p_g = p_g * flags[:, tiles]
         d_s += p_s.sum(dim=-1, keepdim=True)
         d_g += p_g.sum(dim=-1, keepdim=True)
         if scale is not None:
@@ -143,9 +156,85 @@ def _retrieve_fused_plain(q_cat, k_cat, values, mask_neg, beta: float,
         wdt = torch.bfloat16 if scale is not None else v.dtype
         acc_s += p_s.to(wdt).to(f32) @ v.to(f32)
         acc_g += p_g.to(wdt).to(f32) @ v.to(f32)
+    return acc_s, acc_g, d_s, d_g
+
+
+def _normalize_blend(acc_s, acc_g, d_s, d_g, beta: float) -> torch.Tensor:
     sem = acc_s / torch.clamp_min(d_s, 1e-30)
     geo = acc_g / torch.clamp_min(d_g, 1e-30)
     return beta * sem + (1.0 - beta) * geo
+
+
+def _retrieve_fused_plain(q_cat, k_cat, values, mask_neg, beta: float,
+                          scale=None, *, sem_d: int,
+                          chunk: int = 8192) -> torch.Tensor:
+    """Plain PyTorch version of the fused kernels (2, and 3 with
+    ``scale``): `_fused_sums`, each family divided by its own sum, blended
+    with beta."""
+    return _normalize_blend(*_fused_sums(q_cat, k_cat, values, mask_neg,
+                                         scale, sem_d=sem_d, chunk=chunk),
+                            beta)
+
+
+# the partials' pad columns: [sem_acc | geo_acc | d_s | d_g | 0 ...], 2 Dv +
+# 128 wide, as the TPU kernel's lane-aligned block (`retrieval_pallas.py:420`)
+PARTS_PAD = 128
+
+
+def _retrieve_fused_parts_plain(q_cat, k_cat, values, mask_neg, scale=None,
+                                *, sem_d: int,
+                                chunk: int = 8192) -> torch.Tensor:
+    """Plain PyTorch version of the parts kernel (5): `_fused_sums` laid
+    out as [acc_s | acc_g | d_s | d_g | zeros], [B, 2 Dv + 128] f32."""
+    acc_s, acc_g, d_s, d_g = _fused_sums(q_cat, k_cat, values, mask_neg,
+                                         scale, sem_d=sem_d, chunk=chunk)
+    pad = torch.zeros((acc_s.shape[0], PARTS_PAD - 2), dtype=torch.float32,
+                      device=acc_s.device)
+    return torch.cat([acc_s, acc_g, d_s, d_g, pad], dim=1)
+
+
+def _retrieve_fused_hybrid_plain(q_cat, k_cat, values, mask_neg, beta: float,
+                                 geo_flags, *, sem_d: int, bm: int, bn: int,
+                                 chunk: int = 8192) -> torch.Tensor:
+    """Plain PyTorch version of the hybrid kernel (7): the dense semantic
+    family, the geo family only in the (query tile of ``bm`` rows, bank
+    tile of ``bn`` rows) pairs that ``geo_flags`` [nB, T] marks; a query
+    tile with no flagged tile ends with geo = 0."""
+    B = q_cat.shape[0]
+    rows = torch.arange(B, device=q_cat.device) // bm
+    flags = (geo_flags[rows] > 0).to(torch.float32)  # [B, T]
+    return _normalize_blend(*_fused_sums(
+        q_cat, k_cat, values, mask_neg, sem_d=sem_d, chunk=chunk,
+        geo_gate=(flags, bn)), beta)
+
+
+def _family_pruned_plain(q_fam, k_fam, values, mask_neg, tile_idx,
+                         tile_counts, scale=None, *, bm: int,
+                         bn: int) -> torch.Tensor:
+    """Plain PyTorch version of the pruned kernel (6): per query tile i of
+    ``bm`` rows, the softmax of ``q_fam k_fam^T`` over the rows of bank
+    tiles ``tile_idx[i, :tile_counts[i]]`` (``bn`` rows each), weighting
+    the values; [B, Dv] f32.  int8 values with ``scale`` as
+    `_fused_sums`."""
+    f32 = torch.float32
+    B, Dv = q_fam.shape[0], values.shape[1]
+    q = q_fam.to(f32)
+    out = torch.zeros((B, Dv), dtype=f32, device=q.device)
+    idx, counts = tile_idx.tolist(), tile_counts.tolist()
+    offs = torch.arange(bn, device=q.device)
+    for i, (tiles, c) in enumerate(zip(idx, counts)):
+        qr = slice(i * bm, min((i + 1) * bm, B))
+        rows = (torch.as_tensor(tiles[:c], device=q.device)[:, None] * bn
+                + offs).reshape(-1)
+        p = torch.exp2(torch.clamp_max(
+            q[qr] @ k_fam[rows].to(f32).T + mask_neg[:, rows], CLAMP2))
+        d = p.sum(dim=-1, keepdim=True)
+        v = values[rows]
+        if scale is not None:
+            p = p * scale[:, rows].to(f32)
+        wdt = torch.bfloat16 if scale is not None else v.dtype
+        out[qr] = (p.to(wdt).to(f32) @ v.to(f32)) / torch.clamp_min(d, 1e-30)
+    return out
 
 
 # geo columns the kernel reads: 9 (3 for 'exact') real ones, rounded up to
@@ -177,6 +266,57 @@ def _check_fused(name: str, q_cat, k_cat, values, mask_neg, sem_d: int):
             f"cat_d={cat_d}, Dv={Dv}")
 
 
+def _check_values(name: str, values, scale) -> None:
+    """Raise unless the values are what the kernel streams: bf16, or int8
+    codes with [1, N] f32 scales."""
+    if scale is None:
+        if values.dtype != torch.bfloat16:
+            raise ValueError(f"{name} kernel: needs bf16 values, got "
+                             f"{values.dtype}")
+    elif values.dtype != torch.int8 or scale.dtype != torch.float32 \
+            or scale.shape != (1, values.shape[0]):
+        raise ValueError(
+            f"{name} kernel: needs int8 values and [1, N] f32 scales, got "
+            f"{values.dtype} {tuple(values.shape)}, {scale.dtype} "
+            f"{tuple(scale.shape)}")
+
+
+def _check_cuda(name: str, x: torch.Tensor) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+
+
+def _check_plan(name: str, B: int, N: int, bm: int, bn: int, plan,
+                on_card: bool) -> None:
+    """Raise unless ``plan`` ([nB, T] int32 per query tile and bank tile)
+    matches B queries in tiles of bm and N rows in tiles of bn; the kernels
+    also need bm % 16 == 0 (whole m16 row groups) and bn % 32 == 0 (whole
+    32-row sub-tiles)."""
+    nB = -(-B // bm)
+    if N % bn or tuple(plan.shape) != (nB, N // bn):
+        raise ValueError(f"{name}: a plan {tuple(plan.shape)} for {B} queries "
+                         f"in tiles of {bm} and {N} rows in tiles of {bn} "
+                         f"(needs N % bn == 0 and [{nB}, {N // max(bn, 1)}])")
+    if on_card and (bm % 16 or bn % 32 or bm <= 0 or bn <= 0):
+        raise ValueError(f"{name} kernel: needs bm % 16 == 0 and bn % 32 == "
+                         f"0, got bm={bm}, bn={bn}")
+
+
+def _lib():
+    from ..kernels._build import load_kernel_library
+
+    return load_kernel_library("fused_retrieval")
+
+
+def _stream(x: torch.Tensor):
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _raise_on(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+
+
 def retrieve_fused(q_cat: torch.Tensor, k_cat: torch.Tensor,
                    values: torch.Tensor, mask_neg: torch.Tensor, beta: float,
                    scale: Optional[torch.Tensor] = None, *,
@@ -206,11 +346,8 @@ def retrieve_fused(q_cat: torch.Tensor, k_cat: torch.Tensor,
     if q_cat.device.type == "cpu":
         return _retrieve_fused_plain(q_cat, k_cat, values, mask_neg, beta,
                                      sem_d=sem_d)
-    if q_cat.device.type != "cuda":
-        raise ValueError(f"retrieve_fused: unsupported device {q_cat.device}")
-    if values.dtype != torch.bfloat16:
-        raise ValueError("retrieve_fused kernel: needs bf16 values, got "
-                         f"{values.dtype}")
+    _check_cuda("retrieve_fused", q_cat)
+    _check_values("retrieve_fused", values, None)
     _check_fused("retrieve_fused", q_cat, k_cat, values, mask_neg, sem_d)
     out = _launch_fused("fused_retrieval_launch", q_cat, k_cat, values, None,
                         mask_neg, beta, sem_d)
@@ -238,14 +375,8 @@ def retrieve_fused_i8(q_cat: torch.Tensor, k_cat: torch.Tensor,
     if q_cat.device.type == "cpu":
         return _retrieve_fused_plain(q_cat, k_cat, values, mask_neg, beta,
                                      scale, sem_d=sem_d)
-    if q_cat.device.type != "cuda":
-        raise ValueError(f"retrieve_fused_i8: unsupported device {q_cat.device}")
-    if values.dtype != torch.int8 or scale.dtype != torch.float32 \
-            or scale.shape != (1, values.shape[0]):
-        raise ValueError(
-            "retrieve_fused_i8 kernel: needs int8 values and [1, N] f32 "
-            f"scales, got {values.dtype} {tuple(values.shape)}, {scale.dtype} "
-            f"{tuple(scale.shape)}")
+    _check_cuda("retrieve_fused_i8", q_cat)
+    _check_values("retrieve_fused_i8", values, scale)
     _check_fused("retrieve_fused_i8", q_cat, k_cat, values, mask_neg, sem_d)
     out = _launch_fused("fused_retrieval_i8_launch", q_cat, k_cat, values,
                         scale, mask_neg, beta, sem_d)
@@ -268,17 +399,296 @@ def _launch_fused(entry: str, q_cat, k_cat, values, scale, mask_neg,
     out = torch.empty((B, Dv), dtype=torch.float32, device=q_cat.device)
     if B == 0:
         return out
-    from ..kernels._build import load_kernel_library
-
-    lib = load_kernel_library("fused_retrieval")
-    rc = getattr(lib, entry)(
+    rc = getattr(_lib(), entry)(
         *[t.data_ptr() for t in ops], out.data_ptr(), B, N, cat_d, sem_d,
         _GEO_D, Dv, ctypes.c_float(beta), int(q_cat.dtype == torch.float32),
-        torch.cuda.current_stream(q_cat.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"fused_retrieval kernel launch failed: CUDA error {rc}")
+        _stream(q_cat))
+    _raise_on(rc, "fused_retrieval")
     return out
+
+
+def retrieve_fused_parts(q_cat: torch.Tensor, k_cat: torch.Tensor,
+                         values: torch.Tensor, mask_neg: torch.Tensor,
+                         scale: Optional[torch.Tensor] = None, *,
+                         sem_d: int) -> torch.Tensor:
+    """Unnormalized partials of the fused retrieval over one bank shard:
+    [B, 2 Dv + 128] f32 laid out [sem_acc | geo_acc | d_s | d_g | 0 ...].
+    They add up across bank shards (the logits are bounded by the
+    temperatures, so no running max is needed): the multi-device building
+    block (`parallel/sharded.sharded_retrieve_pallas`).  Operands as
+    `retrieve_fused`; int8 ``values`` with ``scale`` [1, N] stream as they
+    are, the scale folded into the weights.
+
+    CPU tensors: `_retrieve_fused_parts_plain`.  CUDA tensors:
+    `csrc/fused_retrieval.cu` (fused_parts_launch), which replaces
+    `_fused_parts_kernel` of `range_tpu/ops/retrieval_pallas.py:314`; a
+    launch failure raises.  ``retrieve_fused_parts.launches`` counts its
+    bf16 launches, ``.i8_launches`` its int8 ones."""
+    if q_cat.device.type == "cpu":
+        return _retrieve_fused_parts_plain(q_cat, k_cat, values, mask_neg,
+                                           scale, sem_d=sem_d)
+    _check_cuda("retrieve_fused_parts", q_cat)
+    _check_values("retrieve_fused_parts", values, scale)
+    _check_fused("retrieve_fused_parts", q_cat, k_cat, values, mask_neg, sem_d)
+    B, cat_d = q_cat.shape
+    N, Dv = values.shape
+    ops = [t.contiguous() for t in (q_cat, k_cat, values, mask_neg)]
+    out = torch.empty((B, 2 * Dv + PARTS_PAD), dtype=torch.float32,
+                      device=q_cat.device)
+    if B == 0:
+        return out
+    scale = None if scale is None else scale.contiguous()
+    rc = _lib().fused_parts_launch(
+        ops[0].data_ptr(), ops[1].data_ptr(), ops[2].data_ptr(),
+        None if scale is None else scale.data_ptr(), ops[3].data_ptr(),
+        out.data_ptr(), B, N, cat_d, sem_d, _GEO_D, Dv,
+        int(q_cat.dtype == torch.float32), _stream(q_cat))
+    _raise_on(rc, "fused_parts")
+    if scale is None:
+        retrieve_fused_parts.launches += 1
+    else:
+        retrieve_fused_parts.i8_launches += 1
+    return out
+
+
+retrieve_fused_parts.launches = 0
+retrieve_fused_parts.i8_launches = 0
+
+
+def _rows16(x: torch.Tensor) -> torch.Tensor:
+    """``x`` itself when its rows are unit-stride and 16-byte aligned (a
+    column slice of the packed operands), else a contiguous copy."""
+    es = x.element_size()
+    if x.stride(1) == 1 and (x.stride(0) * es) % 16 == 0 \
+            and x.data_ptr() % 16 == 0:
+        return x
+    return x.contiguous()
+
+
+def _family_pruned_call(q_fam: torch.Tensor, k_fam: torch.Tensor,
+                        values: torch.Tensor, mask_neg: torch.Tensor,
+                        tile_idx: torch.Tensor, tile_counts: torch.Tensor,
+                        scale: Optional[torch.Tensor] = None, *, bm: int,
+                        bn: int) -> torch.Tensor:
+    """One logit family's softmax-weighted values [B, Dv] f32, query tile
+    i of ``bm`` rows visiting only bank tiles ``tile_idx[i, :tile_counts[i]]``
+    of ``bn`` rows (`bank/clustered.compute_tile_plan`).  ``q_fam`` [B, C]
+    and ``k_fam`` [N, C] are one family's packed columns (a column slice
+    of `pack_queries` / `pack_bank` is taken as it is); int8 ``values``
+    with ``scale`` [1, N] stream as they are.
+
+    CPU tensors: `_family_pruned_plain`.  CUDA tensors:
+    `csrc/fused_retrieval.cu` (family_pruned_launch), which replaces
+    `_family_pruned_kernel` of `range_tpu/ops/retrieval_pallas.py:441`: the
+    plan is read from device memory, no host sync.  A launch failure
+    raises.  ``_family_pruned_call.launches`` counts its bf16 launches,
+    ``.i8_launches`` its int8 ones."""
+    B, C = q_fam.shape
+    N, Dv = values.shape
+    on_card = q_fam.device.type != "cpu"
+    _check_plan("_family_pruned_call", B, N, bm, bn, tile_idx, on_card)
+    if tuple(tile_counts.shape) != (tile_idx.shape[0],):
+        raise ValueError(f"_family_pruned_call: counts {tuple(tile_counts.shape)} "
+                         f"for {tile_idx.shape[0]} query tiles")
+    if not on_card:
+        return _family_pruned_plain(q_fam, k_fam, values, mask_neg, tile_idx,
+                                    tile_counts, scale, bm=bm, bn=bn)
+    _check_cuda("_family_pruned_call", q_fam)
+    _check_values("_family_pruned_call", values, scale)
+    if q_fam.dtype not in (torch.bfloat16, torch.float32) \
+            or k_fam.dtype != q_fam.dtype or k_fam.shape != (N, C) \
+            or mask_neg.dtype != torch.float32 or mask_neg.shape != (1, N) \
+            or tile_idx.dtype != torch.int32 \
+            or tile_counts.dtype != torch.int32:
+        raise ValueError(
+            f"_family_pruned_call kernel: q {q_fam.dtype} {tuple(q_fam.shape)}, "
+            f"k {k_fam.dtype} {tuple(k_fam.shape)}, mask {mask_neg.dtype} "
+            f"{tuple(mask_neg.shape)}, plan {tile_idx.dtype} / "
+            f"{tile_counts.dtype}: needs bf16 or f32 q and k alike, [1, N] "
+            "f32 mask, int32 plan")
+    if C % 16 or C <= 0 or Dv % (16 if scale is not None else 8):
+        raise ValueError(f"_family_pruned_call kernel: needs C % 16 == 0 and "
+                         f"Dv % 8 (int8: 16) == 0, got C={C}, Dv={Dv}")
+    q, k = _rows16(q_fam), _rows16(k_fam)
+    values, mask_neg = values.contiguous(), mask_neg.contiguous()
+    idx, cnt = tile_idx.contiguous(), tile_counts.contiguous()
+    out = torch.empty((B, Dv), dtype=torch.float32, device=q_fam.device)
+    if B == 0:
+        return out
+    scale = None if scale is None else scale.contiguous()
+    rc = _lib().family_pruned_launch(
+        q.data_ptr(), k.data_ptr(), values.data_ptr(),
+        None if scale is None else scale.data_ptr(), mask_neg.data_ptr(),
+        idx.data_ptr(), cnt.data_ptr(), out.data_ptr(), B, N, q.stride(0),
+        k.stride(0), C, Dv, bm, bn, int(q.dtype == torch.float32),
+        _stream(q))
+    _raise_on(rc, "family_pruned")
+    if scale is None:
+        _family_pruned_call.launches += 1
+    else:
+        _family_pruned_call.i8_launches += 1
+    return out
+
+
+_family_pruned_call.launches = 0
+_family_pruned_call.i8_launches = 0
+
+
+def retrieve_fused_hybrid(q_cat: torch.Tensor, k_cat: torch.Tensor,
+                          values: torch.Tensor, mask_neg: torch.Tensor,
+                          beta: float, geo_flags: torch.Tensor, *,
+                          sem_d: int, bm: int, bn: int) -> torch.Tensor:
+    """`retrieve_fused` with the geo family computed only where
+    ``geo_flags`` [nB, T] (int32, `bank/clustered.compute_keep_mask`) marks
+    the pair (query tile of ``bm`` rows, bank tile of ``bn`` rows); the
+    semantic family stays dense.  A query tile with no flagged tile gets
+    geo = 0.  [B, Dv] f32.
+
+    CPU tensors: `_retrieve_fused_hybrid_plain`.  CUDA tensors (bf16
+    values): `csrc/fused_retrieval.cu` (fused_hybrid_launch), which
+    replaces `_hybrid_kernel` of `range_tpu/ops/retrieval_pallas.py:660`;
+    a launch failure raises.  ``retrieve_fused_hybrid.launches`` counts
+    its launches."""
+    B = q_cat.shape[0]
+    N = values.shape[0]
+    on_card = q_cat.device.type != "cpu"
+    _check_plan("retrieve_fused_hybrid", B, N, bm, bn, geo_flags, on_card)
+    if not on_card:
+        return _retrieve_fused_hybrid_plain(q_cat, k_cat, values, mask_neg,
+                                            beta, geo_flags, sem_d=sem_d,
+                                            bm=bm, bn=bn)
+    _check_cuda("retrieve_fused_hybrid", q_cat)
+    _check_values("retrieve_fused_hybrid", values, None)
+    _check_fused("retrieve_fused_hybrid", q_cat, k_cat, values, mask_neg, sem_d)
+    if geo_flags.dtype != torch.int32:
+        raise ValueError(f"retrieve_fused_hybrid kernel: needs int32 geo_flags, "
+                         f"got {geo_flags.dtype}")
+    ops = [t.contiguous() for t in (q_cat, k_cat, values, mask_neg, geo_flags)]
+    out = torch.empty((B, values.shape[1]), dtype=torch.float32,
+                      device=q_cat.device)
+    if B == 0:
+        return out
+    rc = _lib().fused_hybrid_launch(
+        *[t.data_ptr() for t in ops], out.data_ptr(), B, N, q_cat.shape[1],
+        sem_d, _GEO_D, values.shape[1], ctypes.c_float(beta), bm, bn,
+        int(q_cat.dtype == torch.float32), _stream(q_cat))
+    _raise_on(rc, "fused_hybrid")
+    retrieve_fused_hybrid.launches += 1
+    return out
+
+
+retrieve_fused_hybrid.launches = 0
+
+
+def _bank_serving_values(bank) -> torch.Tensor:
+    """`_serving_values` over a GeoBank; int8 codes are dequantized to bf16
+    here, for the hybrid kernel, which has no scale input
+    (`retrieval_pallas.py:619-626`)."""
+    if bank.value_scale is not None:
+        return (bank.values.to(torch.float32)
+                * bank.value_scale.T).to(torch.bfloat16)
+    return _serving_values(bank.values)
+
+
+def _packed(q_sem, q_xyz, bank, sem_temp: float, geo_temp: float, tier: str):
+    """(q_cat, k_cat, sem_d, mask_neg) of a request over ``bank``."""
+    q_cat = pack_queries(q_sem, q_xyz, sem_temp, geo_temp, tier=tier)
+    k_cat = pack_bank(bank.keys_sem, bank.xyz, tier=tier)
+    sem_d, _ = packed_dims(bank.key_dim, tier)
+    mask_neg = (NEG * (1.0 - bank.row_mask()))[None, :].to(torch.float32)
+    return q_cat, k_cat, sem_d, mask_neg
+
+
+def _geo_sorted(q_sem, q_xyz):
+    """(q_sem, q_xyz, inverse permutation) with the batch in geographic
+    order: the keep decision is per query tile, so spatially coherent
+    tiles are what let the per-query pruning survive the OR."""
+    from ..geometry import geo_sort_order
+
+    order = geo_sort_order(q_xyz)
+    return q_sem[order], q_xyz[order], torch.argsort(order)
+
+
+def _check_stats(radius, bank, bn: int) -> None:
+    if radius.shape[0] != bank.num_rows // bn or bank.num_rows % bn:
+        raise ValueError(
+            f"tile stats built for {radius.shape[0]} tiles but bn={bn} gives "
+            f"{bank.num_rows / bn:g}; rebuild via cluster_bank with matching bn")
+
+
+def retrieve_pruned(q_sem: torch.Tensor, q_xyz, bank, stats, *,
+                    sem_temp: float = 12.0, geo_temp: float = 40.0,
+                    beta: float = 0.5, mode: str = "range+",
+                    tier: str = "fast", bm: int = 256, bn: int = 1024,
+                    margin: float = 20.0,
+                    sort_queries: bool = True) -> torch.Tensor:
+    """Pruned retrieval over a clustered bank (`bank.clustered.cluster_bank`
+    with ``pack='pad'`` and its `TileStats` at ``bn``;
+    `retrieval_pallas.py:548-616`): each logit family runs its own pruned
+    pass (kernel 6) over its own tile plan, dropping tiles whose softmax
+    mass is provably under N e^-margin of the family's.  ``bm`` and ``bn``
+    set the plan's granularity and so change results.  ``sort_queries``
+    orders the batch geographically first and restores the order after.
+    int8 banks stream their codes with the scales."""
+    from ..bank.clustered import compute_tile_plan
+
+    if mode == "range":
+        q_xyz = None
+        beta = 1.0
+    inv = None
+    if sort_queries and q_xyz is not None:
+        q_sem, q_xyz, inv = _geo_sorted(q_sem, q_xyz)
+    q_cat, k_cat, sem_d, mask_neg = _packed(q_sem, q_xyz, bank, sem_temp,
+                                            geo_temp, tier)
+    _check_stats(stats.sem_radius, bank, bn)
+    if bank.value_scale is not None:
+        values, scale = bank.values, bank.value_scale
+    else:
+        values, scale = _serving_values(bank.values), None
+    idx_s, cnt_s = compute_tile_plan(q_sem, stats.sem_centroid,
+                                     stats.sem_radius, temp=sem_temp, bm=bm,
+                                     margin=margin)
+    sem = _family_pruned_call(q_cat[:, :sem_d], k_cat[:, :sem_d], values,
+                              mask_neg, idx_s, cnt_s, scale, bm=bm, bn=bn)
+    if mode == "range":
+        return sem
+    idx_g, cnt_g = compute_tile_plan(q_xyz, stats.geo_centroid,
+                                     stats.geo_radius, temp=geo_temp, bm=bm,
+                                     margin=margin)
+    # the geo block's real columns (9, 'exact' 3) lie in its first 16; the
+    # rest are zeros in both operands and add nothing to the logits
+    geo = slice(sem_d, sem_d + _GEO_D)
+    geo_out = _family_pruned_call(q_cat[:, geo], k_cat[:, geo], values,
+                                  mask_neg, idx_g, cnt_g, scale, bm=bm, bn=bn)
+    out = beta * sem + (1.0 - beta) * geo_out
+    return out if inv is None else out[inv]
+
+
+def retrieve_hybrid(q_sem: torch.Tensor, q_xyz: torch.Tensor, bank, stats, *,
+                    sem_temp: float = 12.0, geo_temp: float = 40.0,
+                    beta: float = 0.5, tier: str = "fast", bm: int = 256,
+                    bn: int = 1024, margin: float = 20.0,
+                    sort_queries: bool = True) -> torch.Tensor:
+    """Dense semantic family plus the geo family pruned per (query tile,
+    bank tile) over a clustered bank (`retrieval_pallas.py:765-805`):
+    unlike `retrieve_pruned` the key and value stream is shared by both
+    families (kernel 7).  RANGE+ only; int8 banks are dequantized to bf16
+    values (`_bank_serving_values`)."""
+    from ..bank.clustered import compute_keep_mask
+
+    inv = None
+    if sort_queries:
+        q_sem, q_xyz, inv = _geo_sorted(q_sem, q_xyz)
+    q_cat, k_cat, sem_d, mask_neg = _packed(q_sem, q_xyz, bank, sem_temp,
+                                            geo_temp, tier)
+    _check_stats(stats.geo_radius, bank, bn)
+    flags = compute_keep_mask(q_xyz, stats.geo_centroid, stats.geo_radius,
+                              temp=geo_temp, bm=bm, margin=margin
+                              ).to(torch.int32)
+    out = retrieve_fused_hybrid(q_cat, k_cat, _bank_serving_values(bank),
+                                mask_neg, float(beta), flags, sem_d=sem_d,
+                                bm=bm, bn=bn)
+    return out if inv is None else out[inv]
 
 
 def retrieve_pallas(q_sem: torch.Tensor, q_xyz, bank, *,
@@ -294,10 +704,8 @@ def retrieve_pallas(q_sem: torch.Tensor, q_xyz, bank, *,
     if mode == "range":
         beta = 1.0
         q_xyz = None
-    q_cat = pack_queries(q_sem, q_xyz, sem_temp, geo_temp, tier=tier)
-    k_cat = pack_bank(bank.keys_sem, bank.xyz, tier=tier)
-    sem_d, _ = packed_dims(bank.key_dim, tier)
-    mask_neg = (NEG * (1.0 - bank.row_mask()))[None, :].to(torch.float32)
+    q_cat, k_cat, sem_d, mask_neg = _packed(q_sem, q_xyz, bank, sem_temp,
+                                            geo_temp, tier)
     values = (bank.values if bank.value_scale is not None  # int8 codes as they are
               else _serving_values(bank.values))
     return retrieve_fused(q_cat, k_cat, values, mask_neg, float(beta),

@@ -289,7 +289,8 @@ def build_hier_bank(bank: GeoBank, *, bn: int = 512, gsz_sem: int = 8,
                           _ROADMAP_BUILD)
     if group_by not in ("key", "key_value"):
         raise ValueError(f"group_by must be 'key' or 'key_value', got {group_by!r}")
-    cbank = cluster_bank(bank, bn=bn, n_clusters=n_clusters, iters=iters)
+    cbank, _ = cluster_bank(bank, bn=bn, n_clusters=n_clusters, iters=iters,
+                            pack="dense")
     if group_by == "key_value":
         # groups cluster on [key | lam * v/|v|] so group value sums stay
         # value-pure (`retrieval_hier.py:443-471`)

@@ -113,8 +113,10 @@ def test_fused_path_on_cpu_within_fast_tier_tolerance():
     # a knob of the JAX package's two-level hier path, which is not ported
     (lambda: load_model("RANGE+", db_path="synthetic:100", device="cpu",
                         m_tiles=8), TypeError),
+    # dense serving on a mesh is ported: a mesh that is no DeviceMesh is
+    # refused (tests/test_torch_sharded.py serves real ones)
     (lambda: load_model("RANGE+", db_path="synthetic:100", device="cpu",
-                        mesh=object()), NotImplementedError),
+                        mesh=object()), TypeError),
     (lambda: load_model("RANGE+", db_path="synthetic:100", device="cpu",
                         value_quant="int8")(_coords(4, seed=8)), None),
     (lambda: load_model("RANGE", db_path="synthetic:100", device="cpu",

@@ -1187,3 +1187,230 @@ def test_tail_super_without_lr_launches(cuda):
     ref = retrieval.retrieve(out[:, 1024:], lonlat_deg_to_xyz(coords), hb.bank)
     rel = (out[:, :1024] - ref).abs() / ref.abs().clamp_min(0.1)
     assert rel.mean() < 0.1
+
+
+# ------------------------------------------- kernels 5, 6, 7: parts, pruned, hybrid
+# Tolerances: the dense kernels' rule (`_within_terms`): the logits are f32
+# sums of the same products in another order, and an exp2 that this moves
+# across a bf16 boundary rounds the other way before a value product, one
+# bf16 ulp of that one term, in at most max(2, B/100) rows.  The sums d are
+# f32 sums of the same f32 exponentials in another order (1e-5 relative:
+# the exponent's rounding, up to ~57 log2 units at geo temp 40, times ln 2).
+
+def _dense_operands(cuda, tier, quant, n=3001, B=77, pad_to=7):
+    """A masked bank (rows no multiple of the 32-row tile), a ragged batch,
+    and their packed operands."""
+    from range_tpu_torch.bank import quantize_values
+
+    bank = GeoBank.synthetic(0, n, key_dim=256, value_dim=1024, pad_to=pad_to,
+                             value_dtype=torch.float32 if quant else torch.bfloat16,
+                             device=cuda)
+    if quant:
+        bank = quantize_values(bank)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q = torch.nn.functional.normalize(torch.randn(B, 256, generator=g, device=cuda), dim=1)
+    x = lonlat_deg_to_xyz(_coords(B, seed=2, device=cuda))
+    q_cat = rf.pack_queries(q, x, 12.0, 40.0, tier)
+    k_cat = rf.pack_bank(bank.keys_sem, bank.xyz, tier)
+    mask = (rf.NEG * (1 - bank.row_mask()))[None]
+    return bank, q_cat, k_cat, mask, rf.packed_dims(256, tier)[0]
+
+
+@pytest.mark.parametrize("tier", ["exact", "fast"])
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_fused_parts_kernel_matches_plain(cuda, tier, quant):
+    bank, q_cat, k_cat, mask, sem_d = _dense_operands(cuda, tier, quant)
+    B, Dv = q_cat.shape[0], bank.value_dim
+    v, s = bank.values, bank.value_scale
+    n0 = (rf.retrieve_fused_parts.launches, rf.retrieve_fused_parts.i8_launches)
+    got = rf.retrieve_fused_parts(q_cat, k_cat, v, mask, s, sem_d=sem_d)
+    torch.cuda.synchronize()
+    assert (rf.retrieve_fused_parts.launches, rf.retrieve_fused_parts.i8_launches) == (
+        n0[0] + (not quant), n0[1] + quant)
+    ref = rf._retrieve_fused_parts_plain(q_cat, k_cat, v, mask, s, sem_d=sem_d)
+    mag = rf._retrieve_fused_parts_plain(q_cat, k_cat, v.abs(), mask, s, sem_d=sem_d)
+    assert got.shape == (B, 2 * Dv + 128)
+    for cols in (slice(0, Dv), slice(Dv, 2 * Dv)):
+        _within_terms(got[:, cols], ref[:, cols], mag[:, cols], rows_off_max=2)
+    d = slice(2 * Dv, 2 * Dv + 2)
+    torch.testing.assert_close(got[:, d], ref[:, d], rtol=1e-5, atol=0)
+    assert (got[:, 2 * Dv + 2:] == 0).all()
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_fused_parts_slabs_add_up_to_the_dense_kernel(cuda, quant):
+    """The partials of 4 row slabs, added and normalized, give the dense
+    kernel over the whole bank: the same tiles and weights, the tile sums
+    re-associated across slabs (f32, ~1e-6 relative)."""
+    bank, q_cat, k_cat, mask, sem_d = _dense_operands(cuda, "fast", quant, n=4000,
+                                                      B=300, pad_to=1024)
+    N, Dv = bank.num_rows, bank.value_dim
+    parts = sum(rf.retrieve_fused_parts(
+        q_cat, k_cat[r].contiguous(), bank.values[r].contiguous(), mask[:, r].contiguous(),
+        None if bank.value_scale is None else bank.value_scale[:, r].contiguous(),
+        sem_d=sem_d) for r in (slice(i * N // 4, (i + 1) * N // 4) for i in range(4)))
+    got = (0.3 * parts[:, :Dv] / parts[:, 2 * Dv:2 * Dv + 1].clamp_min(1e-30)
+           + 0.7 * parts[:, Dv:2 * Dv] / parts[:, 2 * Dv + 1:2 * Dv + 2].clamp_min(1e-30))
+    ref = rf.retrieve_fused(q_cat, k_cat, bank.values, mask, 0.3, bank.value_scale,
+                            sem_d=sem_d)
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5 * ref.abs().max().item())
+
+
+@pytest.fixture
+def clustered(cuda):
+    """An informative bank clustered on the card at bn=128 (padded
+    packing), with queries near its rows (keys + noise), geo sorted, and
+    the source bank."""
+    from range_tpu_torch.bank.clustered import cluster_bank
+    from range_tpu_torch.geometry import geo_sort_order
+
+    bank = GeoBank.synthetic_informative(2, 6000, value_dim=512, pad_to=1024,
+                                         value_dtype=torch.bfloat16, device=cuda)
+    cb, st = cluster_bank(bank, bn=128)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    rows = torch.nonzero(cb.row_mask() > 0)[:, 0]
+    pick = rows[torch.randint(0, len(rows), (500,), generator=g, device=cuda)]
+    q = torch.nn.functional.normalize(
+        cb.keys_sem[pick].float() + 0.05 * torch.randn(500, 256, generator=g, device=cuda),
+        dim=1)
+    x = torch.nn.functional.normalize(
+        cb.xyz[pick].float() + 0.02 * torch.randn(500, 3, generator=g, device=cuda), dim=1)
+    order = geo_sort_order(x)
+    return cb, st, q[order], x[order], bank
+
+
+def _plan_operands(cb, st, q, x, family, bm, bn, tier="fast"):
+    from range_tpu_torch.bank.clustered import compute_tile_plan
+
+    q_cat = rf.pack_queries(q, x, 12.0, 40.0, tier)
+    k_cat = rf.pack_bank(cb.keys_sem, cb.xyz, tier)
+    sem_d = rf.packed_dims(256, tier)[0]
+    cols = slice(0, sem_d) if family == "sem" else slice(sem_d, sem_d + 16)
+    c, r, fq, temp = ((st.sem_centroid, st.sem_radius, q, 12.0) if family == "sem"
+                      else (st.geo_centroid, st.geo_radius, x, 40.0))
+    idx, cnt = compute_tile_plan(fq, c, r, temp=temp, bm=bm)
+    return q_cat[:, cols], k_cat[:, cols], (rf.NEG * (1 - cb.row_mask()))[None], idx, cnt
+
+
+@pytest.mark.parametrize("family", ["sem", "geo"])
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("bm,bn", [(16, 128), (80, 128), (256, 128)])
+def test_family_pruned_kernel_matches_plain(cuda, clustered, family, quant, bm, bn):
+    """Plan tiles narrower than, across and wider than the kernel's 64-query
+    block (bm 16, 80, 256); column slices of the packed operands as they
+    are; int8 values with their scales."""
+    from range_tpu_torch.bank import quantize_values
+
+    cb, st, q, x, _ = clustered
+    if quant:
+        cb = quantize_values(cb)
+    qf, kf, mask, idx, cnt = _plan_operands(cb, st, q, x, family, bm, bn)
+    # geo prunes where the plan's query tiles are regional
+    assert family == "sem" or bm > 80 or cnt.float().mean() < idx.shape[1]
+    v, s = cb.values, cb.value_scale
+    n0 = (rf._family_pruned_call.launches, rf._family_pruned_call.i8_launches)
+    got = rf._family_pruned_call(qf, kf, v, mask, idx, cnt, s, bm=bm, bn=bn)
+    torch.cuda.synchronize()
+    assert (rf._family_pruned_call.launches, rf._family_pruned_call.i8_launches) == (
+        n0[0] + (not quant), n0[1] + quant)
+    ref = rf._family_pruned_plain(qf, kf, v, mask, idx, cnt, s, bm=bm, bn=bn)
+    mag = rf._family_pruned_plain(qf, kf, v.abs(), mask, idx, cnt, s, bm=bm, bn=bn)
+    _within_terms(got, ref, mag, rows_off_max=max(2, 500 // 100))
+
+
+@pytest.mark.parametrize("bm,bn", [(16, 128), (80, 256), (256, 128)])
+def test_hybrid_kernel_matches_plain(cuda, clustered, bm, bn):
+    from range_tpu_torch.bank.clustered import cluster_bank, compute_keep_mask
+
+    cb, st, q, x, bank = clustered
+    if bn != 128:
+        cb, st = cluster_bank(bank, bn=bn)
+    q_cat = rf.pack_queries(q, x, 12.0, 40.0, "fast")
+    k_cat = rf.pack_bank(cb.keys_sem, cb.xyz, "fast")
+    mask = (rf.NEG * (1 - cb.row_mask()))[None]
+    flags = compute_keep_mask(x, st.geo_centroid, st.geo_radius, temp=40.0,
+                              bm=bm).to(torch.int32)
+    # some tiles unflagged where the plan's query tiles are regional
+    assert 0 < int(flags.sum()) and (bm > 80 or int(flags.sum()) < flags.numel())
+    n0 = rf.retrieve_fused_hybrid.launches
+    got = rf.retrieve_fused_hybrid(q_cat, k_cat, cb.values, mask, 0.5, flags, sem_d=256,
+                                   bm=bm, bn=bn)
+    torch.cuda.synchronize()
+    assert rf.retrieve_fused_hybrid.launches == n0 + 1
+    ref = rf._retrieve_fused_hybrid_plain(q_cat, k_cat, cb.values, mask, 0.5, flags,
+                                          sem_d=256, bm=bm, bn=bn)
+    mag = rf._retrieve_fused_hybrid_plain(q_cat, k_cat, cb.values.abs(), mask, 0.5,
+                                          flags, sem_d=256, bm=bm, bn=bn)
+    _within_terms(got, ref, mag, rows_off_max=max(2, 500 // 100))
+
+
+def test_pruned_and_hybrid_track_the_dense_kernel(cuda, clustered):
+    """retrieve_pruned (RANGE+: one launch a family; RANGE: one) and
+    retrieve_hybrid (one launch) over the clustered bank stay within
+    `tests/test_pruned.py:87`'s bar of the dense kernel over the same rows:
+    |d| / max(|ref|, 0.1) < 5e-3."""
+    cb, st, q, x, _ = clustered
+    fam, hyb = rf._family_pruned_call, rf.retrieve_fused_hybrid
+    for mode, want in (("range+", 2), ("range", 1)):
+        temp = 12.0 if mode == "range+" else 15.0
+        n0 = fam.launches
+        got = rf.retrieve_pruned(q, x, cb, st, sem_temp=temp, mode=mode, bm=64, bn=128)
+        torch.cuda.synchronize()
+        assert fam.launches == n0 + want
+        ref = rf.retrieve_pallas(q, x, cb, sem_temp=temp, mode=mode)
+        assert ((got - ref).abs() / ref.abs().clamp_min(0.1)).max() < 5e-3
+    n0 = hyb.launches
+    got = rf.retrieve_hybrid(q, x, cb, st, bm=64, bn=128)
+    torch.cuda.synchronize()
+    assert hyb.launches == n0 + 1
+    ref = rf.retrieve_pallas(q, x, cb)
+    assert ((got - ref).abs() / ref.abs().clamp_min(0.1)).max() < 5e-3
+
+
+def test_plan_kernels_reject_bad_input(cuda, clustered):
+    cb, st, q, x, _ = clustered
+    qf, kf, mask, idx, cnt = _plan_operands(cb, st, q, x, "sem", 8, 128)
+    with pytest.raises(ValueError, match="bm % 16"):
+        rf._family_pruned_call(qf, kf, cb.values, mask, idx, cnt, bm=8, bn=128)
+    qf, kf, mask, idx, cnt = _plan_operands(cb, st, q, x, "sem", 16, 128)
+    with pytest.raises(ValueError, match="int32 plan"):
+        rf._family_pruned_call(qf, kf, cb.values, mask, idx.long(), cnt, bm=16, bn=128)
+    from range_tpu_torch.bank import quantize_values
+
+    q8 = quantize_values(cb)
+    with pytest.raises(ValueError, match="bf16 values"):
+        rf.retrieve_fused_hybrid(rf.pack_queries(q, x, 12.0, 40.0, "fast"),
+                                 rf.pack_bank(cb.keys_sem, cb.xyz, "fast"), q8.values,
+                                 mask, 0.5, torch.ones(8, cb.num_rows // 128,
+                                                       dtype=torch.int32, device=cuda),
+                                 sem_d=256, bm=64, bn=128)
+
+
+def test_mesh_on_the_card(cuda, tmp_path):
+    """A world-size-1 NCCL group (FileStore, no network): load_model(mesh=)
+    serves through the parts kernel (one launch) and answers what the
+    single-device model does (kernel 2): the same tiles and sums, the
+    division and blend in torch instead of the kernel (1e-6 relative)."""
+    import torch.distributed as dist
+
+    from range_tpu_torch.parallel.mesh import make_mesh
+
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        for quant in (None, "int8"):
+            enc = load_model("RANGE+", db_path="synthetic:5000", chunk=1024,
+                             value_quant=quant, mesh=make_mesh((1, 1)))
+            one = load_model("RANGE+", db_path="synthetic:5000", chunk=1024,
+                             value_quant=quant)
+            coords = _coords(300, seed=3, device=cuda)
+            n0 = (rf.retrieve_fused_parts.launches, rf.retrieve_fused_parts.i8_launches)
+            got = enc(coords)
+            torch.cuda.synchronize()
+            assert (rf.retrieve_fused_parts.launches,
+                    rf.retrieve_fused_parts.i8_launches) == (n0[0] + (quant is None),
+                                                             n0[1] + (quant is not None))
+            ref = one(coords)
+            torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-6)
+    finally:
+        dist.destroy_process_group()

@@ -1,5 +1,6 @@
 """range_tpu_torch never imports jax, not even indirectly: serving (dense,
-the two-level top-k and the tail_super flagship) and a training step."""
+the two-level top-k and the tail_super flagship), the sharded module, pruned
+and hybrid retrieval over a clustered bank, and a training step."""
 
 import os
 import subprocess
@@ -28,6 +29,14 @@ def test_port_never_imports_jax():
             "ts = range_tpu_torch.load_model('RANGE+', db_path=b, device='cpu', "
             "profile='flagship', hier_bn=128, gsz_geo=16, tail_super=32, m_corr=2)\n"
             "assert ts([[0.0, 0.0]]).shape == (1, 384)\n"
+            "import range_tpu_torch.parallel.sharded\n"
+            "from range_tpu_torch.bank.clustered import cluster_bank\n"
+            "from range_tpu_torch.ops.retrieval_fused import retrieve_hybrid, "
+            "retrieve_pruned\n"
+            "cb, st = cluster_bank(b, bn=128)\n"
+            "x = torch.nn.functional.normalize(torch.randn(4, 3), dim=1)\n"
+            "assert retrieve_pruned(q, x, cb, st, bm=16, bn=128).shape == (4, 128)\n"
+            "assert retrieve_hybrid(q, x, cb, st, bm=16, bn=128).shape == (4, 128)\n"
             "m = tr.SatClipModel(tr.SatClipConfig(vision=StdResNetConfig("
             "layers=(1, 1, 1, 1), width=8, in_channels=4, output_dim=16), "
             "location=SatClipLocationConfig(embed_dim=16, legendre_polys=4, "
