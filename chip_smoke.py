@@ -2,7 +2,8 @@
 
 Builds the port's sixteen CUDA kernels (and their variants: the scan's
 segment-sum and wide-tail forms, the merged parts kernel without lr, the
-family parts kernel's plain / lr / rr shapes, the combine without lr_geo,
+family parts kernel's plain / lr / rr shapes and their sel and dedup_pad
+forms, the refine kernel's has_parts form, the combine without lr_geo,
 the int8 forms of the parts and pruned kernels) from the eleven sources
 of `range_tpu_torch/csrc/` (one nvcc per source, all started together),
 holds each against its plain PyTorch version at the main paths' shapes,
@@ -38,6 +39,14 @@ drives the serving paths at full width (SatCLIP SH-L40 -> SIREN
     make_mesh((1, 1)))` RANGE+ (bf16, int8) and RANGE through the parts
     kernel, and the parts kernel's sum over 4 row slabs against the dense
     kernel (the cross-shard combine);
+  * the rest of hierarchical serving over the informative bank: the
+    flagship with ``sel_lr=64`` (and ``topk_lr=64``: hier_topk over the
+    rank-64 selection sketch), with ``dedup=2``, and with the adaptive
+    rescue (``adaptive_frac=0.05, adaptive_mult=3``, also on the
+    tail_super flagship); the sel and dedup_pad forms also in kernel 14's
+    lr shape (the bank without res_rank); and the two-level feature path,
+    `load_model("RANGE+" | "RANGE", retrieval="hier", gsz_super=64)` over
+    the JAX-defaults bank's two-level HierBank (M = 48);
   * pruned and hybrid dense retrieval over the informative bank clustered
     at bn 1,024 (padded packing): `retrieve_pruned` (RANGE+, RANGE, and a
     small int8 request) and `retrieve_hybrid` at bm 256;
@@ -53,7 +62,14 @@ mean < 0.01; RANGE+ at the JAX defaults and each knob subset mean <= 0.12
 (`tests/test_hier.py:167`), RANGE there mean <= 0.10; hier_topk's
 recall@1 against the f32 `exact_nn` >= 0.999 at B = 10,000 and 1,000, the
 two-level endpoint's at least the one-level selection's over the same
-bank - 0.001; the mesh's answers within 1e-3 x row max of one card's; the
+bank - 0.001; sel_lr's relerr mean within the flagship's + 0.02 and
+dedup's within 1.02 x the flagship's on the same coordinates, topk_lr's
+pooled recall@1 within 0.02 of the full selection operand's, the rescue's
+untouched rows bit-identical to the rescue-off answer and its per-query
+error max no higher (its p99 and the rescued rows' mean are printed),
+the two-level feature path's relerr mean
+<= 0.12 (RANGE+) and 0.10 (RANGE); the mesh's answers within 1e-3 x row
+max of one card's; the
 pruned and hybrid paths within |d| / max(|ref|, 0.1) < 5e-3 of the dense
 kernel over the same rows; training's
 losses finite and falling, one micro-step by the kernel route within 1e-5
@@ -127,7 +143,16 @@ KERNELS = (("siren_tower", "siren_tower", "range_tpu/ops/sh.py:726"),
            ("fused_parts_i8", "fused_retrieval", "range_tpu/ops/retrieval_pallas.py:314"),
            ("family_pruned", "fused_retrieval", "range_tpu/ops/retrieval_pallas.py:441"),
            ("family_pruned_i8", "fused_retrieval", "range_tpu/ops/retrieval_pallas.py:441"),
-           ("fused_hybrid", "fused_retrieval", "range_tpu/ops/retrieval_pallas.py:660"))
+           ("fused_hybrid", "fused_retrieval", "range_tpu/ops/retrieval_pallas.py:660"),
+           # the refine kernel's has_parts form (the two-level feature path),
+           # kernel 14's sel and dedup_pad forms in their two sources
+           ("hier_refine_parts", "hier_refine", "range_tpu/ops/retrieval_hier.py:2077"),
+           ("hier_parts_family_sel_rr", "hier_parts_family",
+            "range_tpu/ops/retrieval_hier.py:2282"),
+           ("hier_parts_family_sel", "hier_parts", "range_tpu/ops/retrieval_hier.py:2282"),
+           ("hier_parts_family_dedup_rr", "hier_parts_family",
+            "range_tpu/ops/retrieval_hier.py:2282"),
+           ("hier_parts_family_dedup", "hier_parts", "range_tpu/ops/retrieval_hier.py:2282"))
 TOPK_K = 48  # the endpoint's tile budget, bench.py:150
 # the two-level top-k (tools/r3_time1.py:103,127: gsz_super 64, K=48 of M=96)
 # and the tail_super flagship (tools/r4_tsuper.py: "ts64 K32/m32/kg16")
@@ -518,7 +543,11 @@ def _counters() -> dict:
     kernel 16's rg = 0 variant in `.rg0_launches` besides `.launches`,
     kernel 13's wide form in `.wide_launches` besides `.launches`;
     each of kernel 14's four shapes counts in its own attribute (two live
-    in another source), `hier_parts_family` the flagship's rr + lr one."""
+    in another source), `hier_parts_family` the flagship's rr + lr one;
+    its sel and dedup_pad forms in `.sel_launches` / `.dedup_launches`
+    (every shape) and `.sel_rr_launches` / `.dedup_rr_launches` (the rr
+    shapes': the rows of hier_parts.cu's forms report the difference);
+    kernel 12's has_parts form in `.parts_launches` besides `.launches`."""
     from range_tpu_torch.ops import retrieval_fused as rf
     from range_tpu_torch.ops import retrieval_hier as rh
     from range_tpu_torch.ops import sh
@@ -548,6 +577,10 @@ def _counters() -> dict:
     counters["hier_parts_family"] = (fam, "rrlr_launches")
     for shape in ("plain", "lr", "rr"):
         counters[f"hier_parts_family_{shape}"] = (fam, f"{shape}_launches")
+    for form in ("sel", "dedup"):
+        counters[f"hier_parts_family_{form}"] = (fam, f"{form}_launches")
+        counters[f"hier_parts_family_{form}_rr"] = (fam, f"{form}_rr_launches")
+    counters["hier_refine_parts"] = (rh._hier_refine_call, "parts_launches")
     return counters
 
 
@@ -1229,7 +1262,8 @@ def tail_super_phases(dev, gen, report, bank, enc_plus) -> float:
     versions at the flagship's B=10,000 shapes; serve load_model("RANGE+",
     profile="flagship", tail_super=64, m_corr=32) with its launches
     counted; hold its relerr against the exact f32 retrieve to the
-    flagship bars.  Returns its end-to-end ms at B=10,000."""
+    flagship bars.  Returns (its end-to-end ms at B=10,000, its
+    HierBank)."""
     from range_tpu_torch import load_model
     from range_tpu_torch.api import SERVING_PROFILES
     from range_tpu_torch.geometry import lonlat_deg_to_xyz
@@ -1371,7 +1405,7 @@ def tail_super_phases(dev, gen, report, bank, enc_plus) -> float:
           + f"; the one-level flagship B={BATCH} {_host_ms(lambda: enc_plus(requests[-1]), 5):.3f}"
           " ms")
     _trace(lambda: enc(requests[-1]), 3, f"tail_super flagship B={BATCH}")
-    return e2e[BATCH]
+    return e2e[BATCH], hb
 
 
 def two_level_topk_phases(dev, gen, report, bank, enc) -> float:
@@ -1383,7 +1417,8 @@ def two_level_topk_phases(dev, gen, report, bank, enc) -> float:
     launches counted; print recall@1 against the f32 exact_nn, pooled over
     five batches, beside the one-level selection over the same HierBank
     (g_sem_cat) at the same K, and hold the two-level result to at least
-    the one-level one - 0.001.  Returns the endpoint's ms at B=10,000."""
+    the one-level one - 0.001.  Returns (the endpoint's ms at B=10,000,
+    the two-level HierBank)."""
     from range_tpu_torch.geometry import lonlat_deg_to_xyz
     from range_tpu_torch.ops import retrieval
     from range_tpu_torch.ops import retrieval_fused as rf
@@ -1529,7 +1564,7 @@ def two_level_topk_phases(dev, gen, report, bank, enc) -> float:
           f"card): median {topk_ms:.3f} ms over 5 calls; one-level over g_sem_cat "
           f"{one_ms:.3f} ms")
     _trace(lambda: rh.hier_topk(q, x, hb, **kw), 3, f"two-level hier_topk B={BATCH}")
-    return topk_ms
+    return topk_ms, hb
 
 
 def _family_bound(hbq, idx, bm: int, geo: bool, shape: str):
@@ -1941,6 +1976,451 @@ def general_phases(dev, gen, report, bank):
           f"{_host_ms(lambda: encs['RANGE'][0](c), 5):.3f} ms")
     _trace(lambda: enc(c), 3, f"RANGE+ defaults B={BATCH}")
     return e2e[BATCH]
+
+
+def _rel(out, ref, Dv):
+    """Per-element relerr |out - ref| / max(|ref|, 0.1) of the retrieved part."""
+    return (out[:, :Dv] - ref).abs() / ref.abs().clamp_min(0.1)
+
+
+def _pads(idx) -> int:
+    """List entries equal to the one before them: `_dedup_union`'s padding."""
+    return int((idx[:, 1:] == idx[:, :-1]).sum())
+
+
+def _family_check(tag, args, kw, segs, why, rows_off_max):
+    """One family parts call against its plain version, segment by segment
+    (`_compare_terms`), and both timed.  Returns (max abs error, error over
+    tolerance, kernel ms, plain ms)."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    got = rh._hier_parts_family_call(*args, **kw)
+    ref = rh._hier_parts_family_plain(*args, **kw)
+    mag = rh._hier_parts_family_plain(*args, **kw, magnitude=True)
+    errs = [_compare_terms(f"{tag} {name}", got[:, cols], ref[:, cols], mag[:, cols], why,
+                           rows_off_max=rows_off_max) for name, cols in segs]
+    ms = _cuda_ms(lambda: rh._hier_parts_family_call(*args, **kw), 10)
+    plain_ms = _cuda_ms(lambda: rh._hier_parts_family_plain(*args, **kw), 2)
+    print(f"{tag}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    return max(e for e, _ in errs), max(r for _, r in errs), ms, plain_ms
+
+
+def _serve(tag, enc, requests, want):
+    """Drive enc on each request with its launches counted (`_drive`);
+    returns (the answers, the launches summed over the requests)."""
+    answers, launches = [], {}
+    for c in requests:
+        out, got = _drive(f"{tag} B={c.shape[0]}: (bm, K, k_geo, j_sem) = "
+                          f"{enc.model.config.hier_plan(c.shape[0])}", lambda: _send(enc, c),
+                          want)
+        if out.shape != (c.shape[0], 1280) or not torch.isfinite(out).all():
+            raise AssertionError(f"{tag} B={c.shape[0]}: shape or non-finite")
+        answers.append(out)
+        launches = {k: launches.get(k, 0) + n for k, n in got.items()}
+    return answers, launches
+
+
+def knob_phases(dev, gen, report, bank, hb, enc, hb_ts, hb2) -> dict:
+    """The rest of hierarchical serving, at full width over the informative
+    100,000-row bank with the tower's queries:
+
+      * sel_lr: load_model("RANGE+", profile="flagship", sel_lr=64,
+        topk_lr=64) builds its HierBank on the card (`tools/r5_sellr.py`);
+        kernel 14's sel form against its plain version in the rr + lr
+        shape (hier_parts_family.cu) and, over the bank without res_rank,
+        the lr shape (hier_parts.cu); requests at B = 1, 37, 1,000,
+        10,000, and one of the lr shape at 10,000;
+      * topk_lr: hier_topk(k_tiles=48), k = 1, 8, over that bank's rank-64
+        sketch of the topk_gsz operand (`tools/r5_topklr.py`), recall@1
+        pooled over five batches against the same bank without it;
+      * dedup: the flagship with dedup=2 (k_union automatic: 48) at
+        B = 10,000 (`tools/r5_dedup.py`), and the lr shape's; the
+        dedup_pad form in both sources against its plain version on
+        merged lists with pad repeats;
+      * the rescue: adaptive_frac=0.05, adaptive_mult=3 (`tools/
+        r4_rescue.py`) on the flagship and the tail_super flagship;
+      * the two-level feature path: load_model("RANGE+" | "RANGE",
+        retrieval="hier", gsz_super=64) over the JAX-defaults bank's
+        two-level HierBank (M = 48), B = 1, 37, 1,000, 10,000; the refine
+        kernel's has_parts form against its plain version.
+
+    Returns each path's end-to-end ms at B=10,000."""
+    from range_tpu_torch import load_model
+    from range_tpu_torch.geometry import lonlat_deg_to_xyz
+    from range_tpu_torch.ops import retrieval
+    from range_tpu_torch.ops import retrieval_fused as rf
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    Dv, sem_d = hb.value_dim, hb.sem_d
+    rows_off = max(2, BATCH // 100)
+    tallied = {}
+
+    def tally(got):
+        for k, n in got.items():
+            tallied[k] = tallied.get(k, 0) + n
+
+    why = ("bf16(p) and bf16(e - ps/cnt) (or bf16(e)) can round the other way where the "
+           "logits' f32 summation order moves them across a bf16 boundary: one ulp of one "
+           "term")
+    requests = [_random_coords(b, gen, dev) for b in REQUESTS]
+    c = requests[-1]
+    x = lonlat_deg_to_xyz(c)
+    with torch.no_grad():
+        q = enc.model.query_embedding(c).float()
+        ref = retrieval.retrieve(q, x, hb.bank, sem_temp=12.0, beta=0.5)
+    base = enc(c)  # the flagship, rescue off, on the same coordinates
+    rel_f = _rel(base, ref, Dv)
+    flag_mean = rel_f.mean().item()
+    print(f"flagship B={BATCH} (this phase's coordinates) relerr mean {flag_mean:.5f}, p99 "
+          f"{torch.quantile(rel_f.flatten()[::4], 0.99).item():.5f}")
+    e2e = {"flagship": _host_ms(lambda: enc(c), 5)}
+    flagship = {"siren_tower": 1, "hier_scan": 1, "hier_parts_family": 2, "combine_cat": 1}
+    no_rr = dict(res_rank=0, z_sem=None, z_geo=None, w_sem=None, w_geo=None)
+
+    # ---- 22. sel_lr (and topk_lr): the HierBank built by load_model on the card
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    enc_s = load_model("RANGE+", db_path=bank, profile="flagship", sel_lr=64, topk_lr=64,
+                       device=dev)
+    torch.cuda.synchronize()
+    hbs = enc_s.model.bank
+    print(f"load_model(profile='flagship', sel_lr=64, topk_lr=64) with its HierBank build: "
+          f"{time.perf_counter() - t0:.2f} s; g_sem_sel {tuple(hbs.g_sem_sel.shape)}, "
+          f"g_topk_lr {tuple(hbs.g_topk_lr.shape)}")
+    cfg = enc_s.model.config
+    bm, k_tiles, k_geo, j_sem = cfg.hier_plan(BATCH)
+    gpt_s, gpt_g = hbs.bn // hbs.gsz_sem, hbs.bn // hbs.gsz_geo
+    with torch.no_grad():
+        q_s, q_x = rh._pad_queries(q, x, bm)
+        order = rh._hybrid_order(q_x, BATCH)
+        q_cat = rf.pack_queries(q_s, q_x, 12.0, 40.0, hbs.tier)[order].contiguous()
+        q_sel = (q_cat[:, :sem_d].float() @ hbs.p_sel.T).to(q_cat.dtype)
+        q_wide = torch.cat([q_cat, q_sel], 1).contiguous()
+        stats = rh._hier_scan_stats_call(torch.cat([q_sel, q_cat[:, sem_d:]], 1),
+                                         hbs.g_sem_sel, hbs.g_geo_cat, gpt_s=gpt_s,
+                                         gpt_g=gpt_g)
+        for stat, a, b in zip(("m_s", "s_s"), stats, rh._hier_scan_stats_plain(
+                torch.cat([q_sel, q_cat[:, sem_d:]], 1), hbs.g_sem_sel, hbs.g_geo_cat,
+                gpt_s=gpt_s, gpt_g=gpt_g)):
+            _compare(f"hier_scan_stats[g_sem_sel, 64 columns] {stat}", a, b, *(
+                (1e-4, 0.0, "f32 sums of the same bf16 products in another order")
+                if stat[0] == "m" else (0.0, 1e-4, "f32 sums of f32 exp2 in another order")))
+        idx_s, _ = rh.select_tiles(*stats, t_real=hbs.t_real, k_tiles=k_tiles, bm=bm,
+                                   n_valid=BATCH, j_sem=j_sem, j_geo=cfg.j_geo, mode="range")
+        K, rrp, W = idx_s.shape[1], hbs.z_sem.shape[1], hbs.g_sem_vw_lr.shape[1]
+        U = int(torch.unique(idx_s).numel())
+        gw = hbs.g_sem_sel.shape[1]
+        # the rr + lr sel form (the sem family): row logits over sem_d and az
+        # over the rr columns per row, group logits over the 64 sketch
+        # columns and alr over the lr coefficients and the count per group
+        args = (q_wide, hbs.k_cat, hbs.mask_neg, idx_s, hbs.g_sem_sel, hbs.g_sem_vw_lr,
+                hbs.z_sem)
+        kw = dict(sem_d=sem_d, bm=bm, bn=hbs.bn, gpt=gpt_s, geo=False, lrr=hbs.lr_rank,
+                  sel=True)
+        err, ratio, ms, plain_ms = _family_check(
+            f"hier_parts_family[sel, rr + lr] B={BATCH} K={K}", args, kw,
+            (("az", slice(0, rrp)), ("alr", slice(rrp + 128, None))), why, rows_off)
+        b_ms, b_by = _bound(BATCH * (sem_d + gw) * 2 + U * hbs.bn * ((sem_d + rrp) * 2 + 4)
+                            + U * gpt_s * (gw + W) * 2 + BATCH * (rrp + 128 + W) * 4,
+                            2 * BATCH * K * (hbs.bn * (sem_d + rrp)
+                                             + gpt_s * (gw + hbs.lr_rank + 1)), BF16_FLOPS)
+        report["hier_parts_family_sel_rr"] = dict(max_abs_err=err, err_over_tol=ratio, ms=ms,
+                                                  plain_ms=plain_ms, bound_ms=b_ms,
+                                                  bound_by=b_by)
+        # the lr shape's sel form (hier_parts.cu): the values instead of z
+        args = (q_wide, hbs.k_cat, hbs.mask_neg, idx_s, hbs.g_sem_sel, hbs.g_sem_vw_lr, None)
+        kw = dict(kw, values=hbs.values, scale=None)
+        err, ratio, ms, plain_ms = _family_check(
+            f"hier_parts_family[sel, lr] B={BATCH} K={K}", args, kw,
+            (("acc", slice(0, Dv)), ("d", slice(Dv, Dv + 1)), ("alr", slice(Dv + 128, None))),
+            why, rows_off)
+        b_ms, b_by = _bound(BATCH * (sem_d + gw) * 2 + U * hbs.bn * ((sem_d + Dv) * 2 + 4)
+                            + U * gpt_s * (gw + W) * 2 + BATCH * (Dv + 128 + W) * 4,
+                            2 * BATCH * K * (hbs.bn * (sem_d + Dv)
+                                             + gpt_s * (gw + hbs.lr_rank + 1)), BF16_FLOPS)
+        report["hier_parts_family_sel"] = dict(max_abs_err=err, err_over_tol=ratio, ms=ms,
+                                               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+
+    sel_req = [*requests[:-1], c]
+    answers, launches = _serve("sel_lr flagship", enc_s, sel_req,
+                               {**flagship, "hier_parts_family_sel": 1,
+                                "hier_parts_family_sel_rr": 1})
+    rel = _rel(answers[-1], ref, Dv)
+    mean, p99 = rel.mean().item(), torch.quantile(rel.flatten()[::4], 0.99).item()
+    print(f"sel_lr=64 flagship B={BATCH} relerr vs exact f32 retrieve: mean {mean:.5f} (bar: "
+          f"the flagship's {flag_mean:.5f} + 0.02, tests/test_hier.py:1090), p99 {p99:.5f}")
+    if mean > flag_mean + 0.02:
+        raise AssertionError("sel_lr flagship fidelity outside its bar")
+    e2e["sel_lr"] = _host_ms(lambda: enc_s(c), 5)
+    _trace(lambda: enc_s(c), 3, f"sel_lr flagship B={BATCH}")
+    hbs_v = dataclasses.replace(hbs, **no_rr)
+    enc_sv = load_model("RANGE+", db_path=hbs_v, profile="flagship", res_rank=0, sel_lr=64,
+                        topk_lr=64, device=dev)
+    out, got = _drive(f"sel_lr flagship without res_rank B={BATCH}", lambda: enc_sv(c),
+                      {"siren_tower": 1, "hier_scan": 1, "hier_parts_family_lr": 2,
+                       "hier_parts_family_sel": 1})
+    rel_v = _rel(out, ref, Dv).mean().item()
+    print(f"sel_lr=64 flagship without res_rank (kernel 14's lr shape) B={BATCH}: relerr mean "
+          f"{rel_v:.5f}")
+    if not torch.isfinite(out).all() or rel_v > 0.12:
+        raise AssertionError("sel_lr without res_rank outside the knob subsets' bar 0.12")
+    tally(launches)
+    tally(got)
+
+    # ---- 23. topk_lr: hier_topk over the rank-64 sketch, recall@1
+    full = dataclasses.replace(hbs, topk_lr=0, g_topk_lr=None, p_topk=None)
+    for k in (1, 8):
+        rows, got = _drive(f"topk_lr=64 hier_topk k={k} B={BATCH} K={TOPK_K}",
+                           lambda: rh.hier_topk(q, x, hbs, k=k, k_tiles=TOPK_K),
+                           {"hier_scan_stats": 1, ("hier_argmax" if k == 1 else "hier_topk"): 1})
+        if rows.dtype != torch.int32 or rows.shape != ((BATCH,) if k == 1 else (BATCH, k)):
+            raise AssertionError(f"topk_lr hier_topk k={k}: rows {tuple(rows.shape)}")
+        tally(got)
+    table = []
+    for seed in range(5):  # this phase's batch and four more (seeds 11-14)
+        if seed:
+            cb = _random_coords(BATCH, torch.Generator(device=dev).manual_seed(10 + seed), dev)
+            with torch.no_grad():
+                qb = enc.model.query_embedding(cb).float()
+            xb = lonlat_deg_to_xyz(cb)
+        else:
+            qb, xb = q, x
+        true = retrieval.exact_nn(qb, hbs.bank)
+        table.append([(rh.hier_topk(qb, xb, b, k_tiles=TOPK_K) == true).float().mean().item()
+                      for b in (hbs, full)])
+    lr_rec, full_rec = (sum(col) / len(table) for col in zip(*table))
+    print(f"recall@1 vs f32 exact_nn, K={TOPK_K}, B={BATCH} batches 0-4 (topk_lr=64 / the "
+          "full topk_gsz operand, same bank): "
+          + "; ".join(" / ".join(f"{r:.5f}" for r in row) for row in table)
+          + f"; pooled: {lr_rec:.5f} / {full_rec:.5f} (bar: the full operand's - 0.02, "
+          "tests/test_hier.py:1050)")
+    if lr_rec < full_rec - 0.02:
+        raise AssertionError("topk_lr recall@1 below its bar")
+    e2e["topk_lr hier_topk"] = _host_ms(lambda: rh.hier_topk(q, x, hbs, k_tiles=TOPK_K), 5)
+    e2e["hier_topk, full operand"] = _host_ms(lambda: rh.hier_topk(q, x, full,
+                                                                   k_tiles=TOPK_K), 5)
+    del enc_s, enc_sv, hbs, hbs_v, full
+
+    # ---- 24. dedup: merged tile lists with pad repeats, the dedup_pad form
+    bm, k_tiles, k_geo, j_sem = enc.model.config.hier_plan(BATCH)
+    ku = k_tiles + k_tiles // 2  # the automatic k_union at dedup=2
+    ku_g = ku * k_geo // k_tiles
+    with torch.no_grad():
+        q_s, q_x = rh._pad_queries(q, x, 2 * bm)
+        order = rh._hybrid_order(q_x, BATCH)
+        q_cat = rf.pack_queries(q_s, q_x, 12.0, 40.0, hb.tier)[order].contiguous()
+        m_s, s_s, m_g, s_g = rh._hier_scan_stats_call(q_cat, hb.g_sem_cat, hb.g_geo_cat,
+                                                      gpt_s=gpt_s, gpt_g=gpt_g)
+        idx_s, _ = rh.select_tiles(m_s, s_s, m_g, s_g, t_real=hb.t_real, k_tiles=k_tiles,
+                                   bm=bm, n_valid=BATCH, j_sem=j_sem, mode="range")
+        idx_g, _ = rh.select_tiles(m_g, s_g, m_s, s_s, t_real=hb.t_real, k_tiles=k_geo,
+                                   bm=bm, n_valid=BATCH, j_sem=2, j_geo=j_sem, mode="range")
+        u_s, u_g = rh._dedup_union(idx_s, 2, ku), rh._dedup_union(idx_g, 2, ku_g)
+        print(f"dedup=2 B={BATCH} (bm {bm} -> {2 * bm}): sem lists {tuple(idx_s.shape)} -> "
+              f"{tuple(u_s.shape)} with {_pads(u_s)} pad slots, geo {tuple(idx_g.shape)} -> "
+              f"{tuple(u_g.shape)} with {_pads(u_g)} pad slots")
+        if not _pads(u_s) or not _pads(u_g):
+            raise AssertionError("dedup: no pad slot in the merged lists, the dedup_pad skip "
+                                 "is not exercised")
+        hb_v = dataclasses.replace(hb, **no_rr)
+        nS = u_s.shape[0]
+        qs2 = _block_queries(nS, 2 * bm, dev)
+        for shape, hbq in (("rr", hb), ("v", hb_v)):
+            tot = [0.0, 0.0, 0.0, 0.0]
+            flops = n_bytes = 0.0
+            for fam, u, g_cat, vw, z, gpt, lrr in (
+                    ("sem", u_s, hbq.g_sem_cat, hbq.g_sem_vw_lr, hbq.z_sem, gpt_s,
+                     hbq.lr_rank),
+                    ("geo", u_g, hbq.g_geo_cat, hbq.g_geo_vw_lr, hbq.z_geo, gpt_g,
+                     hbq.lr_geo)):
+                geo = fam == "geo"
+                args = (q_cat, hbq.k_cat, hbq.mask_neg, u, g_cat, vw, z)
+                kw = dict(sem_d=sem_d, bm=2 * bm, bn=hbq.bn, gpt=gpt, geo=geo, lrr=lrr,
+                          dedup_pad=True, values=hbq.values, scale=None)
+                W = vw.shape[1]
+                if z is not None:
+                    a0 = z.shape[1]
+                    segs = (("az", slice(0, a0)), ("alr", slice(a0 + 128, None)))
+                else:
+                    a0 = Dv
+                    segs = (("acc", slice(0, Dv)), ("d", slice(Dv, Dv + 1)),
+                            ("alr", slice(Dv + 128, None)))
+                res = _family_check(f"hier_parts_family[dedup, {'rr + lr' if z is not None else 'lr'}, "
+                                    f"{fam}] B={BATCH} k_union={u.shape[1]}", args, kw, segs,
+                                    why, rows_off)
+                tot = [max(tot[0], res[0]), max(tot[1], res[1]), tot[2] + res[2],
+                       tot[3] + res[3]]
+                # the work needed: each merged block's distinct tiles once
+                # for its real queries: row logits over the family's real
+                # columns, az or the value product per valid row, group
+                # logits and alr per group
+                real, kf = (GEO_COLS, hbq.cat_d - sem_d) if geo else (sem_d, sem_d)
+                distinct = (u.shape[1] - (u[:, 1:] == u[:, :-1]).sum(dim=1)).double()
+                pairs = (qs2 * distinct).sum().item()
+                U = int(torch.unique(u).numel())
+                flops += 2 * pairs * (hbq.bn * (real + a0 if z is not None else real + Dv)
+                                      + gpt * (real + lrr + 1))
+                row_b = (kf + (a0 if z is not None else Dv)) * 2 + 4
+                n_bytes += (BATCH * kf * 2 + U * hbq.bn * row_b + U * gpt * (g_cat.shape[1] + W) * 2
+                            + BATCH * (a0 + 128 + W) * 4)
+            b_ms, b_by = _bound(n_bytes, flops, BF16_FLOPS)
+            report["hier_parts_family_dedup" + ("_rr" if shape == "rr" else "")] = dict(
+                max_abs_err=tot[0], err_over_tol=tot[1], ms=tot[2], plain_ms=tot[3],
+                bound_ms=b_ms, bound_by=b_by)
+    enc_d = load_model("RANGE+", db_path=hb, profile="flagship", dedup=2, device=dev)
+    (out_d,), launches = _serve("dedup=2 flagship", enc_d, [c],
+                                {**flagship, "hier_parts_family_dedup": 2,
+                                 "hier_parts_family_dedup_rr": 2})
+    enc_dv = load_model("RANGE+", db_path=hb_v, profile="flagship", res_rank=0, dedup=2,
+                        device=dev)
+    out_dv, got = _drive(f"dedup=2 flagship without res_rank B={BATCH}", lambda: enc_dv(c),
+                         {"siren_tower": 1, "hier_scan": 1, "hier_parts_family_lr": 2,
+                          "hier_parts_family_dedup": 2})
+    tally(launches)
+    tally(got)
+    mean = _rel(out_d, ref, Dv).mean().item()
+    base_v = load_model("RANGE+", db_path=hb_v, profile="flagship", res_rank=0,
+                        device=dev)(c)
+    mean_v, base_vm = (_rel(o, ref, Dv).mean().item() for o in (out_dv, base_v))
+    print(f"dedup=2 flagship B={BATCH} relerr mean {mean:.5f} (bar: the flagship's "
+          f"{flag_mean:.5f} x 1.02 + 1e-6, tests/test_hier.py:904); without res_rank "
+          f"{mean_v:.5f} (dedup off {base_vm:.5f})")
+    if mean > flag_mean * 1.02 + 1e-6 or mean_v > base_vm * 1.02 + 1e-6:
+        raise AssertionError("dedup fidelity outside its bar")
+    e2e["dedup"] = _host_ms(lambda: enc_d(c), 5)
+    _trace(lambda: enc_d(c), 3, f"dedup=2 flagship B={BATCH}")
+    del enc_d, enc_dv, hb_v
+
+    # ---- 25. the rescue on the flagship and on the tail_super flagship
+    ts_kw = dict(tail_super=TAIL_SUPER, m_corr=M_CORR)
+    for name, hbq, kw, want in (
+            ("flagship", hb, {}, {**flagship, "hier_parts_family": 4}),
+            (f"tail_super={TAIL_SUPER} flagship", hb_ts, ts_kw,
+             {**flagship, "hier_parts_family": 4, "hier_scan_sup": 1, "hier_corr": 2})):
+        e0 = load_model("RANGE+", db_path=hbq, profile="flagship", device=dev, **kw)
+        e1 = load_model("RANGE+", db_path=hbq, profile="flagship", device=dev,
+                        adaptive_frac=0.05, adaptive_mult=3, **kw)
+        out0 = e0(c)
+        out1, got = _drive(f"rescue (0.05, x3) {name} B={BATCH}", lambda: e1(c), want)
+        tally(got)
+        Bp = -(-BATCH // bm) * bm
+        R = int(0.05 * Bp) // 128 * 128
+        changed = (out1 != out0).any(dim=1)
+        e_b, e_r = (_rel(o, ref, Dv).amax(dim=1) for o in (out0, out1))
+        p99_b, p99_r = (torch.quantile(e, 0.99).item() for e in (e_b, e_r))
+        print(f"rescue {name} B={BATCH}: R = {R} of {Bp} padded queries, {int(changed.sum())} "
+              f"rows changed, the others bit-identical to the rescue-off output; per-query "
+              f"max relerr p99 {p99_r:.5f} (off {p99_b:.5f}), max {e_r.max().item():.5f} (off "
+              f"{e_b.max().item():.5f}), the rescued rows' mean {e_r[changed].mean().item():.5f} "
+              f"(off {e_b[changed].mean().item():.5f})")
+        # held: the substitution is surgical and the rescue caps the
+        # per-query max (what the TPU history measured it for, PERF.md);
+        # reported: the p99 and the rescued rows' mean, which the res_rank
+        # truncation and the 128-query rescue blocks of scattered queries
+        # can move either way on this bank (`tests/test_hier.py:750-761`
+        # holds them on a 8,000-row bank)
+        print(f"rescue {name}: p99 {'met' if p99_r <= p99_b * 1.001 else 'MISSED'} (<= off x "
+              f"1.001), rescued rows' mean "
+              f"{'met' if e_r[changed].mean() < e_b[changed].mean() else 'MISSED'} (lower)")
+        if not 0 < int(changed.sum()) <= R or e_r.max() > e_b.max() * 1.001:
+            raise AssertionError(f"rescue {name}: rows outside the rescue changed, or the "
+                                 "per-query max error grew")
+        e2e[f"rescue {name}"] = _host_ms(lambda: e1(c), 5)
+        e2e[f"{name} (rescue off)"] = _host_ms(lambda: e0(c), 5)
+    _trace(lambda: e1(c), 3, f"rescue tail_super flagship B={BATCH}")
+    del e0, e1
+
+    # ---- 26. the two-level feature path over the JAX-defaults bank + gsz_super
+    one = dataclasses.replace(hb2, gsz_super=0, g_sup_cat=None, g_sup_vw=None)
+    encs = {name: (load_model(name, db_path=hb2, retrieval="hier", gsz_super=hb2.gsz_super,
+                              device=dev),
+                   load_model(name, db_path=one, retrieval="hier", device=dev))
+            for name in ("RANGE+", "RANGE")}
+    cfg = encs["RANGE+"][0].model.config
+    bm, k_tiles, _, j_sem = cfg.hier_plan(BATCH)
+    M = min(max(32, 3 * k_tiles), hb2.t_real)
+    gpt_f, gpt_sup, gpt_g = hb2.bn // hb2.gsz_sem, hb2.bn // hb2.gsz_super, hb2.bn // hb2.gsz_geo
+    with torch.no_grad():
+        q_s, q_x = rh._pad_queries(q, x, bm)
+        order = rh._hybrid_order(q_x, BATCH)
+        q_cat = rf.pack_queries(q_s, q_x, 12.0, 40.0, hb2.tier)[order].contiguous()
+        stats = rh._hier_scan_stats_call(q_cat, hb2.g_sup_cat, hb2.g_geo_cat, gpt_s=gpt_sup,
+                                         gpt_g=gpt_g)
+        idx_m, _ = rh.select_tiles(*stats, t_real=hb2.t_real, k_tiles=M, bm=bm,
+                                   n_valid=BATCH, j_sem=j_sem, j_geo=cfg.j_geo)
+        rargs = (q_cat, idx_m, hb2.g_sem_cat, hb2.g_sup_cat, hb2.g_sem_vw, hb2.g_sup_vw)
+        rkw = dict(bm=bm, gpt_f=gpt_f, gpt_sup=gpt_sup)
+        pkw = dict(bm=bm, gpt_f=gpt_f, g_sup_cat=hb2.g_sup_cat, g_sem_vw=hb2.g_sem_vw,
+                   g_sup_vw=hb2.g_sup_vw, gpt_sup=gpt_sup)
+        got = rh._hier_refine_call(*rargs, **rkw)
+        ref_p = rh._hier_refine_plain(q_cat, idx_m, hb2.g_sem_cat, **pkw)
+        mag = rh._hier_refine_plain(q_cat, idx_m, hb2.g_sem_cat, **pkw, magnitude=True)[2]
+        tag = f"hier_refine[has_parts] B={BATCH} M={M} gpt {gpt_f} / {gpt_sup} bm={bm}"
+        errs = [_compare(f"{tag} m_f", got[0], ref_p[0], 1e-4, 0.0,
+                         "f32 sums of the same bf16 products in another order, |l| < 60"),
+                _compare(f"{tag} s_f", got[1], ref_p[1], 0.0, 1e-4,
+                         "f32 sums of f32 exp2 in another order"),
+                _compare_terms(f"{tag} parts", got[2], ref_p[2], mag,
+                               "bf16 weights of f32 logits summed in another order: one "
+                               "ulp of one term", rows_off_max=rows_off)]
+        ms = _cuda_ms(lambda: rh._hier_refine_call(*rargs, **rkw), 10)
+        plain_ms = _cuda_ms(lambda: rh._hier_refine_plain(q_cat, idx_m, hb2.g_sem_cat,
+                                                          **pkw), 2)
+        nB = idx_m.shape[0]
+        W, U = hb2.g_sem_vw.shape[1], int(torch.unique(idx_m).numel())
+        tiles = (_block_queries(nB, bm, dev) * M).sum().item()
+        # the work needed: the fine and the supergroup logits over sem_d
+        # columns and both products over Dv + the count, for each real
+        # query's listed tiles; the listed tiles' centroid and value-sum
+        # rows read once, the stats and the partials written once
+        b_ms, b_by = _bound(BATCH * sem_d * 2 + U * (gpt_f + gpt_sup) * (sem_d + W) * 2
+                            + 2 * BATCH * M * 4 + BATCH * W * 4,
+                            2 * tiles * (gpt_f + gpt_sup) * (sem_d + Dv + 1), BF16_FLOPS)
+        print(f"{tag}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms "
+              f"({b_by}); {U} distinct tiles listed")
+        report["hier_refine_parts"] = dict(max_abs_err=max(e for e, _ in errs),
+                                           err_over_tol=max(r for _, r in errs), ms=ms,
+                                           plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    two = {"siren_tower": 1, "hier_scan": 1, "hier_scan_wide": 1, "hier_refine": 1,
+           "hier_refine_parts": 1, "hier_parts": 1, "hier_parts_plain": 1}
+    with torch.no_grad():
+        refs = {"RANGE+": ref, "RANGE": retrieval.retrieve(q, None, hb2.bank, sem_temp=15.0,
+                                                           mode="range")}
+    for name, bar in (("RANGE+", 0.12), ("RANGE", 0.10)):
+        e2, e1 = encs[name]
+        want = {**two, "hier_scan_stats": 1} if name == "RANGE" else two
+        answers, got = _serve(f"two-level {name}", e2, requests, want)
+        tally(got)
+        rel2, rel1 = (_rel(o, refs[name], Dv) for o in (answers[-1], e1(c)))
+        mean = rel2.mean().item()
+        ms2, ms1 = _host_ms(lambda: e2(c), 5), _host_ms(lambda: e1(c), 5)
+        e2e[f"two-level {name}"] = ms2
+        print(f"two-level {name} B={BATCH} (M={M}, K={k_tiles}) relerr vs exact f32 retrieve: "
+              f"mean {mean:.5f} (bar {bar}, tests/test_hier.py:{136 if bar == 0.10 else 167}), "
+              f"p99 {torch.quantile(rel2.flatten()[::4], 0.99).item():.5f}; the one-level path "
+              f"over the same rows: mean {rel1.mean().item():.5f}, p99 "
+              f"{torch.quantile(rel1.flatten()[::4], 0.99).item():.5f}; end to end {ms2:.3f} ms "
+              f"(one-level {ms1:.3f} ms)")
+        if mean > bar:
+            raise AssertionError(f"two-level {name}: relerr mean {mean:.5f} over its bar {bar}")
+    # every request's launches: the new forms' rows take them (the rows of
+    # hier_parts.cu's forms the difference of the counters, _counters),
+    # the other rows add them
+    for form in ("sel", "dedup"):
+        rr = f"hier_parts_family_{form}_rr"
+        report[rr]["launches"] = tallied[rr]
+        report[f"hier_parts_family_{form}"]["launches"] = (
+            tallied[f"hier_parts_family_{form}"] - tallied[rr])
+    report["hier_refine_parts"]["launches"] = tallied["hier_refine_parts"]
+    for k, n in tallied.items():
+        if n and k not in ("hier_refine_parts", "hier_parts_family_sel",
+                           "hier_parts_family_sel_rr", "hier_parts_family_dedup",
+                           "hier_parts_family_dedup_rr"):
+            report[k]["launches"] += n
+    _trace(lambda: encs["RANGE+"][0](c), 3, f"two-level RANGE+ B={BATCH}")
+    print("knob paths end to end B=10,000 (coords on the card), median of 5 calls: "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in e2e.items()))
+    return e2e
 
 
 def _parts_check(tag, q_cat, k_cat, values, mask, scale, sem_d, rows_off_max):
@@ -2528,9 +3008,11 @@ def main() -> int:
     hier_ms, hb, enc, bank = hier_phases(dev, gen, report)
     topk_ms = topk_phases(dev, gen, report, hb, enc)
     range_ms = range_phases(dev, gen, report, hb, enc, bank)
-    ts_ms = tail_super_phases(dev, gen, report, bank, enc)
-    topk2_ms = two_level_topk_phases(dev, gen, report, bank, enc)
+    ts_ms, hb_ts = tail_super_phases(dev, gen, report, bank, enc)
+    topk2_ms, hb2 = two_level_topk_phases(dev, gen, report, bank, enc)
     general_ms = general_phases(dev, gen, report, bank)
+    knob_ms = knob_phases(dev, gen, report, bank, hb, enc, hb_ts, hb2)
+    del hb_ts, hb2
     pruned_ms = pruned_phases(dev, gen, report, bank)
     del hb, enc, bank
     torch.cuda.empty_cache()
@@ -2539,6 +3021,7 @@ def main() -> int:
           f"hier_topk {topk_ms:.3f} ms, RANGE flagship {range_ms:.3f} ms, tail_super "
           f"flagship {ts_ms:.3f} ms, two-level hier_topk {topk2_ms:.3f} ms, RANGE+ at the "
           f"JAX defaults {general_ms:.3f} ms, RANGE+ on a (1, 1) mesh {mesh_ms:.3f} ms, "
+          + ", ".join(f"{k} {ms:.3f} ms" for k, ms in knob_ms.items()) + ", "
           + ", ".join(f"{k} {ms:.3f} ms" for k, ms in pruned_ms.items())
           + f"; SatCLIP training step ({TRAIN_ACCUM} x {TRAIN_MICRO}) {step_s:.3f} s")
 

@@ -3,8 +3,10 @@
 Counterpart of `range_tpu/api.py:31-79,121-266,433-491` (reference
 `range/load_model.py:16-51`) for the models this port serves: RANGE and
 RANGE+ (dense retrieval, the "exact" serving profile; hierarchical,
-``retrieval="hier"`` at any subset of the lr_rank / res_rank / lr_geo
-knobs, the "flagship" and "turbo" profiles among them;
+``retrieval="hier"`` at every single-device knob of the JAX package:
+lr_rank / res_rank / lr_geo, topk_gsz / topk_lr, sel_lr, tail_super,
+gsz_super (the two-level feature path without lr_rank), dedup and the
+adaptive rescue, the "flagship" and "turbo" profiles among them;
 ``value_quant="int8"`` stores the bank's values as per-row int8 codes for
 either; ``mesh=`` serves the dense path bank-sharded over a
 `parallel.mesh.make_mesh` mesh) and the SatCLIP tower.
@@ -113,6 +115,8 @@ def _hier_bank(bank, cache: Optional[str], build: Dict[str, Any]) -> HierBank:
                                   "topk_gsz", "tail_super", "tier")}
     for k in ("lr_rank", "lr_geo", "res_rank"):
         want[k] = min(build[k], Dv) if build[k] else 0
+    want["topk_lr"] = min(build["topk_lr"], bank.bank.key_dim)
+    want["sel_lr"] = min(build["sel_lr"], bank.sem_d)
     got = {k: getattr(bank, k) for k in want}
     if got != want:
         raise ValueError(f"the HierBank was built with {got}, the request "
@@ -139,9 +143,10 @@ def _build_range(name: str, mode: str, pretrained_path, db_path, beta, *,
                  chunk: int = 4096, compute_dtype=torch.float32,
                  tier: str = "fast", use_pallas: Optional[bool] = None,
                  value_quant: Optional[str] = None, retrieval: str = "dense",
-                 k_tiles: int = 16, k_geo: int = 0, hier_min_batch: int = 0,
+                 k_tiles: int = 16, m_tiles: Optional[int] = None,
+                 k_geo: int = 0, hier_min_batch: int = 0,
                  j_sem: int = 2, j_geo: int = 2, hier_bm: int = 256,
-                 adaptive_frac: float = 0.0,
+                 adaptive_frac: float = 0.0, adaptive_mult: int = 3,
                  hier_bn: int = 512, gsz_sem: int = 8, gsz_geo: int = 64,
                  gsz_super: int = 0, group_by: str = "key_value",
                  group_value_weight: float = 1.0,
@@ -149,6 +154,7 @@ def _build_range(name: str, mode: str, pretrained_path, db_path, beta, *,
                  res_rank: Optional[int] = None, topk_gsz: int = 0,
                  topk_lr: int = 0, tail_super: int = 0, sel_lr: int = 0,
                  m_corr: int = 0, dedup: int = 0,
+                 k_union: Optional[int] = None,
                  hier_cache: Optional[str] = None,
                  tower_matmul: Optional[str] = None, mesh=None,
                  bank_axis: Optional[str] = None,
@@ -157,9 +163,8 @@ def _build_range(name: str, mode: str, pretrained_path, db_path, beta, *,
     if kw:
         raise TypeError(
             f"load_model({name!r}): unknown keyword argument(s) "
-            f"{sorted(kw)}; valid knobs: {_RANGE_KWARGS} (the hierarchical "
-            "knobs of the JAX package's unported paths are not ported yet: "
-            "ROADMAP.md, Queue 1)")
+            f"{sorted(kw)}; valid knobs: {_RANGE_KWARGS} (the TPU kernels' "
+            "speed knobs, hier_scan_bm among them, have no counterpart)")
     if mesh is not None:
         from torch.distributed.device_mesh import DeviceMesh
 
@@ -175,23 +180,18 @@ def _build_range(name: str, mode: str, pretrained_path, db_path, beta, *,
         raise ValueError(f"retrieval must be 'dense' or 'hier', got {retrieval!r}")
     if retrieval == "hier":
         # every knob that raises is checked before the (slow) bank build
-        for knob, val in (("adaptive_frac", adaptive_frac),
-                          ("dedup", dedup), ("topk_lr", topk_lr),
-                          ("sel_lr", sel_lr)):
-            if val:
-                raise _not_ported(f"{knob}={val!r}", "Queue 1, 'Hier serving:"
-                                  " what remains'")
-        if tail_super and mode == "range":
-            raise ValueError("tail_super banks serve RANGE+ only (the family-"
-                             "split path; the merged parts kernel has no "
-                             "supergroup-tail correction)")
+        for knob, val in (("tail_super", tail_super), ("sel_lr", sel_lr)):
+            if val and mode == "range":
+                raise ValueError(f"{knob} banks serve RANGE+ only (the family-"
+                                 "split path; the merged parts kernel has no "
+                                 "supergroup-tail correction or sketched-"
+                                 "group slice)")
         if gsz_super and topk_gsz:
             raise ValueError("gsz_super and topk_gsz are mutually exclusive: "
                              "both feed hier_topk's selection")
-        if gsz_super and not lr_rank:
-            raise _not_ported("the two-level feature path (gsz_super without "
-                              "lr_rank)", "Queue 1, 'Hier serving: what "
-                              "remains'")
+        if topk_lr and not topk_gsz:
+            raise ValueError("topk_lr factors the topk_gsz stats operand: "
+                             "build with topk_gsz set")
     tower = _satclip_tower(pretrained_path, dtype, seed, tower_matmul, device)
     bank = _as_bank(db_path, chunk, device)
     if value_quant == "int8":
@@ -208,7 +208,8 @@ def _build_range(name: str, mode: str, pretrained_path, db_path, beta, *,
             bn=hier_bn, gsz_sem=gsz_sem, gsz_geo=gsz_geo, gsz_super=gsz_super,
             group_by=group_by, group_value_weight=group_value_weight,
             lr_rank=lr_rank, lr_geo=lr_geo, res_rank=res_rank,
-            topk_gsz=topk_gsz, tail_super=tail_super, tier=tier, seed=seed))
+            topk_gsz=topk_gsz, topk_lr=topk_lr, tail_super=tail_super,
+            sel_lr=sel_lr, tier=tier, seed=seed))
     elif isinstance(bank, HierBank):
         bank = bank.bank
     if mesh is not None:
@@ -227,7 +228,10 @@ def _build_range(name: str, mode: str, pretrained_path, db_path, beta, *,
                       use_pallas=use_pallas, retrieval=retrieval,
                       k_tiles=k_tiles, k_geo=k_geo, j_sem=j_sem, j_geo=j_geo,
                       hier_bm=hier_bm, hier_min_batch=hier_min_batch,
-                      m_corr=m_corr, mesh=mesh, bank_axis=bank_axis or "bank",
+                      m_corr=m_corr, m_tiles=m_tiles,
+                      adaptive_frac=adaptive_frac,
+                      adaptive_mult=adaptive_mult, dedup=dedup,
+                      k_union=k_union, mesh=mesh, bank_axis=bank_axis or "bank",
                       data_axis=data_axis, shard_bm=shard_bm,
                       shard_bn=shard_bn)
     enc = RangeEncoder(tower, bank, cfg)

@@ -78,9 +78,11 @@ class GeoBank:
                     satclip_embeddings: np.ndarray,
                     image_embeddings: np.ndarray, *, pad_to: int = 1024,
                     key_dtype=torch.float32, value_dtype=torch.float32,
-                    normalized: bool = False, device="cpu") -> "GeoBank":
+                    normalized: bool = False, device="cuda") -> "GeoBank":
         """Pad, normalize keys (numpy f32, as the JAX package) and compute
-        xyz (`range_tpu/bank/bank.py:75-107`)."""
+        xyz (`range_tpu/bank/bank.py:75-107`), then place the bank on
+        ``device`` (the card unless the caller asks for the CPU, as the
+        JAX constructors land on the default accelerator)."""
         n = locs_lonlat.shape[0]
         np_rows = _round_up(n, pad_to)
         locs = np.zeros((np_rows, 2), np.float32)

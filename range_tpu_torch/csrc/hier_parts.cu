@@ -32,6 +32,13 @@
 //   family (nfo = 1): acc | d | 0 (127) [| alr]
 // A merged launch without its geo family (RANGE mode reads neither acc_g
 // nor d_g) writes those columns as zeros; the TPU kernel computes them.
+// The family launches have two more forms: sel (sel_lr banks, the sem
+// family) takes its group logits from the query operand's last gw columns,
+// the rank-k sketch appended past cat_d (`:2341-2346`; the query block
+// carries them past its sem_d row-logit columns), and dedup_pad (lists
+// merged by _dedup_union) drops a list entry equal to the one before it,
+// the union's repeat padding (`:2319-2324, 2402-2406`), before walking
+// the list: running it twice would double its (exact - approx) term.
 //
 // What bounds it on an H100: per (query, selected row) the row logits and
 // the value products, 2 x (sem_d + Dv) flops a family: at the RANGE
@@ -92,7 +99,7 @@ struct Fam {
 };
 
 struct Params {
-  const __nv_bfloat16* q;  // [Bp, cat_d]
+  const __nv_bfloat16* q;  // [Bp, qw]
   const __nv_bfloat16* k;  // [N, cat_d]
   const void* v;           // [N, Dv] bf16, or int8 codes
   const float* scale;      // [N] int8 scales
@@ -102,6 +109,9 @@ struct Params {
   float* out;              // [Bp, out_w]
   int cat_d, c0, U;        // the query / key blocks hold packed columns [c0, c0 + U)
   int Dv, bm, bn, K, nfo, out_w;
+  int qw, qx0, UX;         // query row stride; the query block's columns [U, U + UX)
+                           // hold the query's [qx0, qx0 + UX) (sel: the sketch)
+  int dedup;               // skip an idx entry equal to the one before it
 };
 
 __host__ __device__ inline size_t up16(size_t n) { return (n + 15) / 16 * 16; }
@@ -113,8 +123,9 @@ struct Layout {
   size_t ks, vs, vc, pt, mask, scale, dpart, gt, vgt, cnt, eg, dgc;  // phase A
   size_t gst, vst, es;                                      // phase B (overlays A)
   size_t total;
-  int ldq, ldgt, gpm;  // query/key row stride, group tile row stride, the
-                       // plain families' largest gpt rounded to a k16 step
+  int ldq, ldqs, ldgt, gpm;  // key and query block row strides, group tile
+                             // row stride, the plain families' largest gpt
+                             // rounded to a k16 step
 };
 
 // Shared memory: the idx row, the query block [64 x U]; phase A two
@@ -125,6 +136,7 @@ struct Layout {
 __host__ __device__ inline Layout layout(const Params& P, int nf, bool alr, bool i8) {
   Layout l;
   l.ldq = P.U + 8;
+  l.ldqs = P.U + P.UX + 8;
   int gkm = 0;
   l.gpm = 0;
   for (int f = alr ? 1 : 0; f < nf; ++f) {
@@ -133,7 +145,7 @@ __host__ __device__ inline Layout layout(const Params& P, int nf, bool alr, bool
   }
   l.ldgt = gkm + 8;
   l.qs = up16((size_t)P.K * 4);
-  l.ks = l.qs + (size_t)BM * l.ldq * 2;
+  l.ks = l.qs + (size_t)BM * l.ldqs * 2;
   l.vs = l.ks + (size_t)2 * BN * l.ldq * 2;
   l.vc = l.vs + (size_t)2 * BN * (i8 ? LDV8 : LDV * 2);
   l.pt = l.vc + (i8 ? (size_t)BN * LDV * 2 : 0);
@@ -178,20 +190,37 @@ hier_parts_kernel(const Params P, const Layout lay) {
   const int blk = q0 / P.bm;
   const int col0 = blockIdx.y * DVS;
   const bool lead = blockIdx.y == 0;  // writes the d columns, the pad and alr
-  const int ldq = lay.ldq;
-  const int spt = P.bn / BN, n_steps = P.K * spt;
+  const int ldq = lay.ldq, ldqs = lay.ldqs;
   const V* vals = static_cast<const V*>(P.v);
 
   for (int j = tid; j < P.K; j += THREADS) idx_s[j] = P.idx[(size_t)blk * P.K + j];
   {  // the query block, once (Bp is a multiple of 64)
-    const int cpr = P.U / 8;
+    const int cpr = (P.U + P.UX) / 8;
     for (int i = tid; i < BM * cpr; i += THREADS) {
       const int r = i / cpr, c = (i % cpr) * 8;
-      cp_async16(qs + r * ldq + c, P.q + (size_t)(q0 + r) * P.cat_d + P.c0 + c, true);
+      const int src = c < P.U ? P.c0 + c : P.qx0 + c - P.U;
+      cp_async16(qs + r * ldqs + c, P.q + (size_t)(q0 + r) * P.qw + src, true);
     }
     cp_async_commit();
   }
-  __syncthreads();  // idx_s visible
+  __shared__ int k_run;  // the list's length after the dedup_pad skip
+  __syncthreads();       // idx_s visible
+  if (tid == 0) {
+    int n = P.K;
+    if (P.dedup) {
+      int prev = idx_s[0];
+      n = 1;
+      for (int j = 1; j < P.K; ++j) {
+        const int v = idx_s[j];
+        if (v != prev) idx_s[n++] = v;
+        prev = v;
+      }
+    }
+    k_run = n;
+  }
+  __syncthreads();
+  const int K = k_run;
+  const int spt = P.bn / BN, n_steps = K * spt;
 
   // ------------------------------------------------------------ phase A
   {
@@ -293,7 +322,7 @@ hier_parts_kernel(const Params P, const Layout lay) {
           float c[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
           for (int kk = P.f[f].kc; kk < P.f[f].kc + P.f[f].kf; kk += 16) {
             uint32_t a[4];
-            load_a(a, qs, ldq, mt * 16, kk, g, t);
+            load_a(a, qs, ldqs, mt * 16, kk, g, t);
 #pragma unroll
             for (int i = 0; i < 2; ++i) {
               uint32_t b0, b1;
@@ -382,7 +411,7 @@ hier_parts_kernel(const Params P, const Layout lay) {
             float c[4] = {0.f, 0.f, 0.f, 0.f};
             for (int kk = 0; kk < F.gk; kk += 16) {
               uint32_t a[4], b0, b1;
-              load_a(a, qs, ldq, mt * 16, F.qg + kk, g, t);
+              load_a(a, qs, ldqs, mt * 16, F.qg + kk, g, t);
               load_bt(b0, b1, gt, ldgt, nt * 8, kk, g, t);
               mma_bf16(c, a, b0, b1);
             }
@@ -492,7 +521,7 @@ hier_parts_kernel(const Params P, const Layout lay) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
 
-    for (int j = 0; j < P.K; ++j) {
+    for (int j = 0; j < K; ++j) {
       __syncthreads();  // the previous tile is fully consumed
       const size_t grow0 = (size_t)idx_s[j] * F.gpt;
       {  // the tile's groups; rows past gpt are zeros (a k16 step)
@@ -518,7 +547,7 @@ hier_parts_kernel(const Params P, const Layout lay) {
         float c[4] = {0.f, 0.f, 0.f, 0.f};
         for (int kk = 0; kk < F.gk; kk += 16) {
           uint32_t a[4], b0, b1;
-          load_a(a, qs, ldq, mt * 16, F.qg + kk, g, t);
+          load_a(a, qs, ldqs, mt * 16, F.qg + kk, g, t);
           load_bt(b0, b1, gst, lds, nt * 8, kk, g, t);
           mma_bf16(c, a, b0, b1);
         }
@@ -632,7 +661,7 @@ extern "C" int hier_parts_launch(const void* q_cat, const void* k_cat, const voi
             Fam{static_cast<const bf*>(g_geo), static_cast<const bf*>(vw_geo), sem_d, GEO_D,
                 cat_d - gw_g, GEO_D, gw_g, Wg, gpt_g}},
            static_cast<float*>(out), cat_d, 0, sem_d + (geo ? GEO_D : 0), Dv, bm, bn, K, 2,
-           2 * Dv + 128 + (lr ? Ws : 0)};
+           2 * Dv + 128 + (lr ? Ws : 0), cat_d, 0, 0, 0};
   if (bm % BM || Bp % bm || bn % BN || sem_d % 16 || sem_d + GEO_D > cat_d || cat_d % 8 ||
       Dv % 16 || !fam_ok(P.f[0], Dv, bn, lr) ||
       (geo && (!fam_ok(P.f[1], Dv, bn, false) || cat_d - gw_g != sem_d)))
@@ -645,28 +674,33 @@ extern "C" int hier_parts_launch(const void* q_cat, const void* k_cat, const voi
 // family (row logits over [0, sem_d), group logits the query's first gw
 // columns against g_cat [G, gw], gw == sem_d), geo = 1 the geo family
 // (both over [sem_d, sem_d + 16); cat_d - gw == sem_d).  Operands as
-// hier_parts_launch; g_vw [G, W] bf16: lr = 1 the family's low-rank
-// coefficients (W a multiple of 128, <= 512), lr = 0 its group value sums
-// with the count in column Dv.  out [Bp, Dv + 128 (+ W with lr)] f32:
-// acc | d | 0 (127) [| alr].
+// hier_parts_launch, q_cat [Bp, qw]: qw = cat_d, or in the sel form (sem
+// family) qw = cat_d + gw, the group logits then reading the query's last
+// gw columns against the sketched centroids g_cat [G, gw].  g_vw [G, W]
+// bf16: lr = 1 the family's low-rank coefficients (W a multiple of 128,
+// <= 512), lr = 0 its group value sums with the count in column Dv.
+// dedup = 1 skips an idx entry equal to the one before it in its row.
+// out [Bp, Dv + 128 (+ W with lr)] f32: acc | d | 0 (127) [| alr].
 extern "C" int hier_parts_family_values_launch(
     const void* q_cat, const void* k_cat, const void* values, const void* scale,
     const void* mask_neg, const void* idx, const void* g_cat, const void* g_vw, void* out, int Bp,
-    int cat_d, int sem_d, int Dv, int bm, int bn, int gpt, int K, int W, int gw, int geo, int lr,
-    int i8, void* stream) {
+    int qw, int cat_d, int sem_d, int Dv, int bm, int bn, int gpt, int K, int W, int gw, int geo,
+    int lr, int i8, int sel, int dedup, void* stream) {
   if (Bp <= 0 || K <= 0) return 0;
   using bf = __nv_bfloat16;
   const Fam F = geo ? Fam{static_cast<const bf*>(g_cat), static_cast<const bf*>(g_vw), 0, GEO_D,
                           cat_d - gw - sem_d, GEO_D, gw, W, gpt}
                     : Fam{static_cast<const bf*>(g_cat), static_cast<const bf*>(g_vw), 0, sem_d,
-                          0, sem_d, gw, W, gpt};
+                          sel ? sem_d : 0, sel ? gw : sem_d, gw, W, gpt};
   const Params P{static_cast<const bf*>(q_cat), static_cast<const bf*>(k_cat), values,
                  static_cast<const float*>(scale), static_cast<const float*>(mask_neg),
                  static_cast<const int*>(idx), {F, F}, static_cast<float*>(out), cat_d,
                  geo ? sem_d : 0, geo ? GEO_D : sem_d, Dv, bm, bn, K, 1,
-                 Dv + 128 + (lr ? W : 0)};
+                 Dv + 128 + (lr ? W : 0), qw, cat_d, sel ? gw : 0, dedup};
   if (bm % BM || Bp % bm || bn % BN || sem_d % 16 || sem_d + GEO_D > cat_d || cat_d % 8 ||
-      Dv % 16 || !fam_ok(F, Dv, bn, lr) || (geo ? cat_d - gw != sem_d : gw != sem_d))
+      Dv % 16 || !fam_ok(F, Dv, bn, lr) ||
+      (sel ? geo || qw != cat_d + gw || gw % 16 : qw != cat_d) ||
+      (geo ? cat_d - gw != sem_d : !sel && gw != sem_d))
     return (int)cudaErrorInvalidValue;
   return dispatch<1>(P, Bp, i8, lr, static_cast<cudaStream_t>(stream));
 }

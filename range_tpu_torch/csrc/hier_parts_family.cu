@@ -18,6 +18,13 @@
 //   [acc | d] -= D @ vw, which is the TPU kernel's (ps/cnt - e) @ vw:
 //   bf16 rounds to nearest symmetrically, so bf16(ps/cnt - e) = -D exactly.
 //   Out [Bp, Dv + 128 + rrp] f32: acc | d | 0 pad (127) | az.
+// Two forms of either shape: sel (sel_lr banks, the sem family) reads its
+// group logits from the query operand's last gw columns, the rank-k sketch
+// appended past cat_d (`:2341-2346`): the query operand is wider than the
+// keys and has its own row stride.  dedup_pad (lists merged by
+// _dedup_union) skips a list entry equal to the one before it, the
+// union's repeat padding (`:2319-2324, 2402-2406`): running it twice would
+// double its (exact - approx) term.
 //
 // What bounds it on an H100: the row logits and the az product, 2 x bn x
 // (kf + rrp) flops per (query, tile): at the flagship shape (B = 10,112,
@@ -30,7 +37,9 @@
 // Design: one block owns 64 queries (a quarter or half of a selection
 // block, which it finds as q0 / bm) and reads its own tile list from idx
 // (Hopper has no scalar prefetch); the TPU's sequential tile axis becomes
-// a loop.  Phase A walks the tiles 32 rows at a time with the next rows
+// a loop.  In the dedup_pad form the block drops the repeats from its
+// copy of the list first (one thread, K <= a few hundred), so a skipped
+// entry costs neither its logits nor its fetch.  Phase A walks the tiles 32 rows at a time with the next rows
 // streaming in by cp.async: logits on mma.sync bf16 tensor cores, p from
 // the fragments into a bf16 tile, the per-group sums of that bf16 tile
 // reduced with warp shuffles, az in registers.  The group sums of each
@@ -57,7 +66,7 @@ constexpr int MAX_NZ = 4;     // az n8 tiles per warp: rrp <= 256
 constexpr int LDP = BN + 8;   // bf16 row stride of the p tile
 
 struct Params {
-  const __nv_bfloat16* q;     // [Bp, cat_d]
+  const __nv_bfloat16* q;     // [Bp, qw]
   const __nv_bfloat16* k;     // [N, cat_d]
   const float* mask;          // [N]
   const int* idx;             // [nB, K]
@@ -66,12 +75,13 @@ struct Params {
   const __nv_bfloat16* z;     // [N, rrp]
   float* ps;                  // [Bp, K, gpt] scratch
   float* out;                 // [Bp, out_w]
-  int Bp, cat_d, kc0, kf, qg0, gw, bm, bn, gpt, K, W, lrr, rrp;
+  int Bp, qw, cat_d, kc0, kf, qg0, gw, bm, bn, gpt, K, W, lrr, rrp;
   int out_w, zoff;            // row width of out, its az columns [zoff, + rrp)
   int zlo, zn;                // the zero columns [zlo, zlo + zn) (d and pad, or pad)
   int boff, bcols;            // phase B: vw column c -> out column boff + c, c < bcols
   float bsign;                // +1 (alr) or -1 ([acc | d] -= D @ vw)
   int n_pass, pw;             // phase B passes, columns a pass
+  int dedup;                  // skip an entry equal to the one before it
 };
 
 __host__ __device__ inline size_t up16(size_t n) { return (n + 15) / 16 * 16; }
@@ -117,8 +127,24 @@ hier_parts_family_kernel(const Params P, const Layout lay) {
   const int out_w = P.out_w;
   const int gsz = P.bn / P.gpt;
 
+  __shared__ int k_run;  // the list's length after the dedup_pad skip
   for (int j = tid; j < P.K; j += THREADS) idx_s[j] = P.idx[(size_t)blk * P.K + j];
   __syncthreads();
+  if (tid == 0) {
+    int n = P.K;
+    if (P.dedup) {
+      int prev = idx_s[0];
+      n = 1;
+      for (int j = 1; j < P.K; ++j) {
+        const int v = idx_s[j];
+        if (v != prev) idx_s[n++] = v;
+        prev = v;
+      }
+    }
+    k_run = n;
+  }
+  __syncthreads();
+  const int K = k_run;
 
   // ------------------------------------------------------------ phase A
   {
@@ -130,7 +156,7 @@ hier_parts_family_kernel(const Params P, const Layout lay) {
     float* pss = reinterpret_cast<float*>(base + lay.pss);
     const int ldk = P.kf + 8, ldz = P.rrp + 8;
     const int spt = P.bn / BN;  // steps per tile
-    const int n_steps = P.K * spt;
+    const int n_steps = K * spt;
     const int ntz = P.rrp / 64;
     const int col_z = warp * ntz * 8;
 
@@ -157,8 +183,7 @@ hier_parts_family_kernel(const Params P, const Layout lay) {
       for (int i = tid; i < BM * cpr; i += THREADS) {
         const int r = i / cpr, c = (i % cpr) * 8;
         const bool ok = q0 + r < P.Bp;
-        cp_async16(qa + r * ldk + c, P.q + (ok ? (size_t)(q0 + r) * P.cat_d + P.kc0 + c : 0),
-                   ok);
+        cp_async16(qa + r * ldk + c, P.q + (ok ? (size_t)(q0 + r) * P.qw + P.kc0 + c : 0), ok);
       }
       cp_async_commit();
     }
@@ -295,7 +320,7 @@ hier_parts_family_kernel(const Params P, const Layout lay) {
     for (int i = tid; i < BM * cpr; i += THREADS) {
       const int r = i / cpr, c = (i % cpr) * 8;
       const bool ok = q0 + r < P.Bp;
-      cp_async16(qg + r * ldg + c, P.q + (ok ? (size_t)(q0 + r) * P.cat_d + P.qg0 + c : 0), ok);
+      cp_async16(qg + r * ldg + c, P.q + (ok ? (size_t)(q0 + r) * P.qw + P.qg0 + c : 0), ok);
     }
     cp_async_commit();
   }
@@ -314,7 +339,7 @@ hier_parts_family_kernel(const Params P, const Layout lay) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
 
-    for (int j = 0; j < P.K; ++j) {
+    for (int j = 0; j < K; ++j) {
       __syncthreads();  // the previous tile is fully consumed
       const size_t grow0 = (size_t)idx_s[j] * P.gpt;
       {
@@ -413,26 +438,28 @@ hier_parts_family_kernel(const Params P, const Layout lay) {
 
 }  // namespace
 
-// q_cat [Bp, cat_d], k_cat [N, cat_d] bf16: the row logits contract
-// columns [kc0, kc0 + kf), the group logits the query columns [qg0, qg0 +
-// gw) against g_cat [G, gw].  mask_neg [N] f32, idx [Bp / bm, K] int32
+// q_cat [Bp, qw] (qw = cat_d, or cat_d + gw in the sel form), k_cat [N,
+// cat_d] bf16: the row logits contract columns [kc0, kc0 + kf), the group
+// logits the query columns [qg0, qg0 + gw) against g_cat [G, gw].  mask_neg [N] f32, idx [Bp / bm, K] int32
 // (tiles < N / bn), g_vw [G, W] bf16 with the count in column lrr, z
 // [N, rrp] bf16, scratch [Bp, K, gpt] f32.  lr = 1: g_vw holds low-rank
 // coefficients (W <= 512), out [Bp, rrp + 128 + W] f32.  lr = 0: g_vw holds
 // the group value sums (W a multiple of 128, any width), lrr = Dv, out
-// [Bp, Dv + 128 + rrp] f32.  All contiguous and 16-byte aligned.
+// [Bp, Dv + 128 + rrp] f32.  dedup = 1 skips an idx entry equal to the one
+// before it in its row.  All contiguous and 16-byte aligned.
 extern "C" int hier_parts_family_launch(const void* q_cat, const void* k_cat,
                                         const void* mask_neg, const void* idx,
                                         const void* g_cat, const void* g_vw, const void* z,
-                                        void* scratch, void* out, int Bp, int cat_d, int kc0,
-                                        int kf, int qg0, int gw, int bm, int bn, int gpt, int K,
-                                        int W, int lrr, int rrp, int N, int lr,
+                                        void* scratch, void* out, int Bp, int qw, int cat_d,
+                                        int kc0, int kf, int qg0, int gw, int bm, int bn, int gpt,
+                                        int K, int W, int lrr, int rrp, int N, int lr, int dedup,
                                         void* stream) {
   if (Bp <= 0 || K <= 0) return 0;
   const int gsz = gpt > 0 ? bn / gpt : 0;
   if (bm % BM || Bp % bm || bn % BN || gsz * gpt != bn || gsz % 8 ||
       (gsz <= BN ? BN % gsz : gsz % BN) || gpt % 8 || kf % 16 || gw % 16 || kc0 % 8 ||
-      qg0 % 8 || kc0 + kf > cat_d || qg0 + gw > cat_d || cat_d % 8 || W <= 0 || W % 128 ||
+      qg0 % 8 || kc0 + kf > cat_d || qg0 + gw > qw || qw < cat_d || qw % 8 || cat_d % 8 ||
+      W <= 0 || W % 128 ||
       (lr && W > 64 * MAX_NT) || rrp % 128 || rrp > 64 * MAX_NZ || lrr < 0 || lrr >= W ||
       (!lr && lrr % 2) || N % bn)
     return (int)cudaErrorInvalidValue;
@@ -441,11 +468,12 @@ extern "C" int hier_parts_family_launch(const void* q_cat, const void* k_cat,
                  static_cast<const float*>(mask_neg), static_cast<const int*>(idx),
                  static_cast<const bf*>(g_cat), static_cast<const bf*>(g_vw),
                  static_cast<const bf*>(z), static_cast<float*>(scratch),
-                 static_cast<float*>(out), Bp, cat_d, kc0, kf, qg0, gw, bm, bn, gpt, K, W, lrr,
-                 rrp,
+                 static_cast<float*>(out), Bp, qw, cat_d, kc0, kf, qg0, gw, bm, bn, gpt, K, W,
+                 lrr, rrp,
                  // lr: az | d, pad | alr;  rr only: acc, d | pad | az
                  lr ? rrp + 128 + W : lrr + 128 + rrp, lr ? 0 : lrr + 128, lr ? rrp : lrr + 1,
-                 lr ? 128 : 127, lr ? rrp + 128 : 0, lr ? W : lrr + 1, lr ? 1.f : -1.f, 0, 0};
+                 lr ? 128 : 127, lr ? rrp + 128 : 0, lr ? W : lrr + 1, lr ? 1.f : -1.f, 0, 0,
+                 dedup};
   {  // ceil(W / 512) phase B passes of equal width, a multiple of 64
     const int cap = 64 * MAX_NT;
     P.n_pass = (W + cap - 1) / cap;

@@ -42,14 +42,15 @@ _SIGNATURES = {
                         "fused_hybrid_launch":
                         [_P] * 6 + [_I] * 6 + [_F] + [_I] * 3 + [_P]},
     "hier_scan": {"hier_scan_launch": [_P] * 10 + [_I] * 13 + [_P]},
-    "hier_refine": {"hier_refine_launch": [_P] * 5 + [_I] * 6 + [_P]},
+    "hier_refine": {"hier_refine_launch": [_P] * 5 + [_I] * 6 + [_P],
+                    "hier_refine_parts_launch": [_P] * 9 + [_I] * 9 + [_P]},
     "hier_corr": {"hier_corr_launch": [_P] * 5 + [_I] * 7 + [_P]},
     "hier_scan_stats": {"hier_scan_stats_launch": [_P] * 7 + [_I] * 9 + [_P]},
     "hier_parts": {"hier_parts_launch": [_P] * 11 + [_I] * 15 + [_P],
                    "hier_parts_family_values_launch":
-                   [_P] * 9 + [_I] * 13 + [_P]},
+                   [_P] * 9 + [_I] * 16 + [_P]},
     "hier_parts_family": {"hier_parts_family_launch":
-                          [_P] * 9 + [_I] * 15 + [_P]},
+                          [_P] * 9 + [_I] * 17 + [_P]},
     "combine_cat": {"combine_cat_launch": [_P] * 7 + [_I] * 8 + [_F, _P]},
     "hier_argmax": {"hier_argmax_launch": [_P] * 7 + [_I] * 5 + [_P],
                     "hier_topk_launch": [_P] * 7 + [_I] * 6 + [_P]},

@@ -63,6 +63,18 @@ class RangeConfig:
     # hier, tail_super banks: sem tiles past k_tiles that get the fine-tail
     # correction (passed as given at every batch size, as the JAX package)
     m_corr: int = 0
+    # hier, two-level banks (gsz_super without lr_rank): coarse tiles the
+    # refine stage keeps (None: max(32, 3 k_tiles))
+    m_tiles: Optional[int] = None
+    # hier: the share of queries whose selected tiles cover the least
+    # exp-mass that re-run the parts kernels at adaptive_mult x the budget
+    adaptive_frac: float = 0.0
+    adaptive_mult: int = 3
+    # hier: merge the tile lists of this many adjacent query blocks into
+    # one parts dispatch of k_union tiles (None: the JAX default), at
+    # batches of 8,192 and more
+    dedup: int = 0
+    k_union: Optional[int] = None
     # hier: batches below this take the dense exact kernel over hb.bank
     hier_min_batch: int = 0
     # multi-device serving: a DeviceMesh (`parallel/mesh.make_mesh`) whose
@@ -145,8 +157,13 @@ class RangeEncoder(nn.Module):
             return retrieve_hier(
                 q_sem, q_xyz, bank, sem_temp=cfg.resolved_sem_temp(),
                 geo_temp=cfg.geo_temp, beta=cfg.beta, mode=cfg.mode,
-                k_tiles=k_tiles, k_geo=k_geo, bm=bm, j_sem=j_sem,
-                j_geo=cfg.j_geo, concat_query=q_sem, m_corr=cfg.m_corr)
+                k_tiles=k_tiles, m_tiles=cfg.m_tiles, k_geo=k_geo, bm=bm,
+                j_sem=j_sem, j_geo=cfg.j_geo, concat_query=q_sem,
+                adaptive_frac=cfg.adaptive_frac,
+                adaptive_mult=cfg.adaptive_mult, m_corr=cfg.m_corr,
+                # small widened batches dispatch few blocks already; dedup
+                # would merge across unrelated regions there
+                dedup=cfg.dedup if B >= 8192 else 0, k_union=cfg.k_union)
         use_pallas = cfg.use_pallas
         if use_pallas is None:
             use_pallas = lonlat_deg.device.type == "cuda"

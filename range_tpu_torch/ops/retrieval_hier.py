@@ -1,9 +1,9 @@
 """Hierarchical (two-stage) approximate retrieval: bank build and serving.
 
-Counterpart of `range_tpu/ops/retrieval_hier.py` for its one-level serving
-paths: every bank `build_hier_bank` makes without topk_lr, sel_lr or
-gsz_super (any subset of lr_rank, res_rank and lr_geo), in RANGE and
-RANGE+ mode, with bf16 or int8 values.
+Counterpart of `range_tpu/ops/retrieval_hier.py` on one device: every
+bank `build_hier_bank` makes there (any subset of lr_rank, res_rank,
+lr_geo, topk_gsz / topk_lr, gsz_super, tail_super and sel_lr), in RANGE
+and RANGE+ mode, with bf16 or int8 values.
 
 Build (`build_hier_bank`, offline, on the bank's device): geographic
 k-means reorder with dense packing (`bank/clustered.py`), a key+value
@@ -13,7 +13,8 @@ gsz_super-row supergroups), then the packed serving operands: keys,
 per-group centroids and value sums per family, the low-rank tails
 (`lr_rank`, `lr_geo`), the residual-rank row coefficients (`res_rank`),
 the supergroup centroids (``gsz_super``) and the supergroup sem tail
-operands (``tail_super``).
+operands (``tail_super``), and the rank-k PCA sketches of the fine
+stats-only centroids (``topk_lr``) and of the sem centroids (``sel_lr``).
 
 Serving features (`retrieve_hier`, routed as the JAX function routes):
   1. pad and pack the queries, sort them (`_hybrid_order`: geographically,
@@ -41,13 +42,26 @@ The un-sort is a torch gather.  Banks with int8 values
 values fold the scales in.  On ``tail_super`` banks the scan's sem tail
 runs over supergroup means (its segment-sum variant), one selection keeps
 K + ``m_corr`` sem tiles, and the CORRECTION kernel (`_hier_corr_call`)
-adds the fine-group tail back over all of them before the combine.
+adds the fine-group tail back over all of them before the combine.  On
+``sel_lr`` banks the scan's sem group logits and the sem parts kernel's
+group approximation both contract the rank-k query sketch (the parts
+kernel's sel form).  ``dedup`` merges adjacent blocks' tile lists
+(`_dedup_union`) into one parts dispatch (the dedup_pad form skips the
+lists' repeat padding); ``adaptive_frac`` re-runs the parts kernels with
+wider budgets for the queries whose selected tiles cover the least
+exp-mass.  Banks with supergroup operands and no lr_rank take the
+TWO-LEVEL feature path (`_hier_partials2`): the scan over supergroups, M
+coarse tiles, the REFINE kernel's has_parts form (fine stats and the
+fine-minus-supergroup tail over the M), K of the M to the merged parts
+kernel.
 
 Serving top-k rows (`hier_topk`, the recall endpoint, k = 1..8): the
 STATS-ONLY scan over the fine `g_topk_cat` operand (`_hier_scan_stats_call`),
 `select_tiles` with a big K, then the exact hi/lo semantic ARGMAX (k = 1,
 `_hier_argmax_call`) or the K-CARRY top-k (`_hier_topk_call`) over each
-block's selected tiles.  On ``gsz_super`` banks the selection is two-level:
+block's selected tiles (on ``topk_lr`` banks the stats scan reads the
+queries' rank-k sketch against `g_topk_lr`).  On ``gsz_super`` banks the
+selection is two-level:
 the stats scan over the supergroup centroids keeps M tiles, the REFINE
 kernel (`_hier_refine_call`) computes their fine stats, and K of the M
 go to the argmax.  `hier_nn` is the harness that measures which
@@ -58,8 +72,8 @@ Each kernel wrapper runs its plain PyTorch version on CPU tensors and the
 CUDA kernel (`csrc/`) on CUDA tensors, and counts launches in
 ``.launches``.  The numbers are f32 sums of bf16 products in both; the
 rounding points (bf16 p before every value product) are the JAX
-package's.  Knobs off this path raise `NotImplementedError` naming their
-ROADMAP item.
+package's.  The sharded and host-staged builds raise `NotImplementedError`
+naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -89,7 +103,6 @@ from .topk import topk_stable
 TC = 32
 
 _ROADMAP_BUILD = "ROADMAP.md, Queue 1 'Bank build: knobs left unported'"
-_ROADMAP_SERVE = "ROADMAP.md, Queue 1 'Hier serving: what remains'"
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -123,8 +136,10 @@ class HierBank:
       g_sem_ts_vw: [G_s / ratio, W] supergroup means of the sem tail
                    operand, ratio = tail_super / gsz_sem; g_sem_ts_dvw
                    [G_s, W] each group's row minus its supergroup's mean
-    The topk_lr and sel_lr operands of the JAX HierBank are carried by
-    save/load but not built or served here.
+      g_topk_lr:   [G_t, topk_lr] rank-topk_lr sketch of g_topk_cat, with
+                   p_topk [topk_lr, sem_d] f32 its basis
+      g_sem_sel:   [G_s, sel_lr] rank-sel_lr sketch of g_sem_cat, with
+                   p_sel [sel_lr, sem_d] f32 its basis
     """
 
     bank: GeoBank
@@ -254,6 +269,19 @@ def _eig_top(gram: torch.Tensor, k: int) -> torch.Tensor:
     return vecs[:, -k:].T
 
 
+def _lowrank_centroid_factor(g_cat: torch.Tensor, k: int):
+    """Rank-k PCA factorization of a packed centroid operand
+    (`retrieval_hier.py:325-335`): (coefficients [G, k] in the operand's
+    dtype, basis [k, d] f32) with coefficients @ basis ~= g_cat; zero pad
+    rows get zero coefficients.  The topk_lr and sel_lr sketches.  The
+    factors are unique only up to column signs (and rotations inside
+    degenerate eigenspaces): what serving reads, the sketched logits and
+    the reconstruction, is not."""
+    C = g_cat.to(torch.float32)
+    p = _eig_top(C.T @ C, k)
+    return (C @ p.T).to(g_cat.dtype), p.to(torch.float32)
+
+
 def build_hier_bank(bank: GeoBank, *, bn: int = 512, gsz_sem: int = 8,
                     gsz_geo: int = 64, gsz_super: int = 0,
                     tier: str = "fast", group_by: str = "key_value",
@@ -278,9 +306,9 @@ def build_hier_bank(bank: GeoBank, *, bn: int = 512, gsz_sem: int = 8,
         raise ValueError(f"topk_gsz={topk_gsz} must nest inside gsz_sem="
                          f"{gsz_sem} windows of bn={bn}")
     _check_super_knobs(bn, gsz_sem, gsz_super, tail_super, topk_gsz, sel_lr)
-    for name, val in (("topk_lr", topk_lr), ("sel_lr", sel_lr)):
-        if val:
-            raise _not_ported(f"build_hier_bank({name}=...)", _ROADMAP_BUILD)
+    if topk_lr and not topk_gsz:
+        raise ValueError("topk_lr factors the topk_gsz stats operand: build "
+                         "with topk_gsz set")
     if shards > 1:
         raise _not_ported("build_hier_bank(shards>1)", "ROADMAP.md, Queue 1 "
                           "'Multi-GPU'")
@@ -315,7 +343,7 @@ def build_hier_bank(bank: GeoBank, *, bn: int = 512, gsz_sem: int = 8,
     return pack_hier_bank(cbank, bn=bn, gsz_sem=gsz_sem, gsz_geo=gsz_geo,
                           gsz_super=gsz_super, tier=tier, lr_rank=lr_rank,
                           lr_geo=lr_geo, res_rank=res_rank, topk_gsz=topk_gsz,
-                          tail_super=tail_super)
+                          topk_lr=topk_lr, tail_super=tail_super, sel_lr=sel_lr)
 
 
 def _check_super_knobs(bn: int, gsz_sem: int, gsz_super: int, tail_super: int,
@@ -344,11 +372,19 @@ def pack_hier_bank(cbank: GeoBank, *, bn: int, gsz_sem: int, gsz_geo: int,
                    lr_rank: Optional[int] = None,
                    lr_geo: Optional[int] = None,
                    res_rank: Optional[int] = None,
-                   topk_gsz: int = 0, tail_super: int = 0) -> HierBank:
+                   topk_gsz: int = 0, topk_lr: int = 0, tail_super: int = 0,
+                   sel_lr: int = 0) -> HierBank:
     """The serving operands of a bank whose rows are already in their
     final order (`retrieval_hier.py:494-804`, the ``prep`` stage):
     `build_hier_bank`'s second half.  Tests feed it the JAX build's row
     order to hold the operands against JAX's without k-means ties.
+
+    ``topk_lr`` adds g_topk_lr / p_topk, the rank-topk_lr sketch of the
+    fine stats-only centroids g_topk_cat (hier_topk's low-rank selection
+    signal); ``sel_lr`` adds g_sem_sel / p_sel, the rank-sel_lr sketch of
+    g_sem_cat (the feature path's sketched selection and tail,
+    `retrieval_hier.py:756-775`).  Both are clamped to the key width, and
+    sel_lr to sem_d.
 
     ``gsz_super`` adds the supergroup operands g_sup_cat / g_sup_vw (the
     two-level selection's coarse stats); ``tail_super`` the weighted-
@@ -357,6 +393,8 @@ def pack_hier_bank(cbank: GeoBank, *, bn: int, gsz_sem: int, gsz_geo: int,
     ``lr_rank`` is set), and g_sem_ts_dvw, each row minus its supergroup's
     mean (`retrieval_hier.py:672-685`)."""
     Dv = cbank.value_dim
+    topk_lr = min(topk_lr, cbank.key_dim) if topk_lr else 0
+    sel_lr = min(sel_lr, cbank.key_dim) if sel_lr else 0
     lr_rank = min(lr_rank, Dv) if lr_rank else 0
     lr_geo = min(lr_geo, Dv) if lr_geo else 0
     res_rank = min(res_rank, Dv) if res_rank else 0
@@ -444,6 +482,12 @@ def pack_hier_bank(cbank: GeoBank, *, bn: int, gsz_sem: int, gsz_geo: int,
         z_geo, w_geo = fam_res(gsz_geo, lr_g)
     g_topk_cat = (group_ops(cbank.keys_sem, topk_gsz, geo=False,
                             stats_only=True)[0] if topk_gsz else None)
+    g_topk_lr = p_topk = g_sem_sel = p_sel = None
+    if topk_lr and g_topk_cat is not None:
+        g_topk_lr, p_topk = _lowrank_centroid_factor(g_topk_cat, topk_lr)
+    if sel_lr:
+        sel_lr = min(sel_lr, sem_d)
+        g_sem_sel, p_sel = _lowrank_centroid_factor(g_sem_cat, sel_lr)
     g_sup_cat, g_sup_vw = (group_ops(cbank.keys_sem, gsz_super, geo=False)
                            if gsz_super else (None, None))
     g_sem_ts_vw = g_sem_ts_dvw = None
@@ -469,11 +513,13 @@ def pack_hier_bank(cbank: GeoBank, *, bn: int, gsz_sem: int, gsz_geo: int,
         g_sem_vw_lr=g_sem_vw_lr, u_sem=u_sem, g_geo_vw_lr=g_geo_vw_lr,
         u_geo=u_geo, z_sem=z_sem, w_sem=w_sem, z_geo=z_geo, w_geo=w_geo,
         g_topk_cat=g_topk_cat, g_sup_cat=g_sup_cat, g_sup_vw=g_sup_vw,
-        g_sem_ts_vw=g_sem_ts_vw, g_sem_ts_dvw=g_sem_ts_dvw, tier=tier, bn=bn,
-        gsz_sem=gsz_sem, gsz_geo=gsz_geo, gsz_super=gsz_super,
-        lr_rank=lr_rank, lr_geo=lr_geo, res_rank=res_rank, topk_gsz=topk_gsz,
-        tail_super=tail_super, sem_d=sem_d, cat_d=cat_d, t_real=T,
-        t_pad=t_pad)
+        g_sem_ts_vw=g_sem_ts_vw, g_sem_ts_dvw=g_sem_ts_dvw,
+        g_topk_lr=g_topk_lr, p_topk=p_topk, g_sem_sel=g_sem_sel, p_sel=p_sel,
+        tier=tier, bn=bn, gsz_sem=gsz_sem, gsz_geo=gsz_geo,
+        gsz_super=gsz_super, lr_rank=lr_rank, lr_geo=lr_geo,
+        res_rank=res_rank, topk_gsz=topk_gsz, topk_lr=topk_lr,
+        tail_super=tail_super, sel_lr=sel_lr, sem_d=sem_d, cat_d=cat_d,
+        t_real=T, t_pad=t_pad)
 
 
 # ---------------------------------------------------------------------------
@@ -954,75 +1000,120 @@ def _block_groups(tiles: torch.Tensor, gpt: int) -> torch.Tensor:
             + torch.arange(gpt, device=tiles.device)).reshape(-1)
 
 
-def _hier_refine_plain(q_cat, idx, g_sem_cat, *, bm: int, gpt_f: int):
-    """Plain version of the refine kernel's stats-only form
-    (`_hier_refine_kernel`, `retrieval_hier.py:2077-2133`): per query block
-    and each of its M listed tiles, the fine group logits q[:, :wf] . g^T
-    (wf = g_sem_cat's width) over the tile's gpt_f groups, their max and
-    the sum of exp2(min(l, 86)).  Returns (m_f, s_f) [Bp, M] f32, column j
-    the block's j-th listed tile: `_hier_scan_stats_plain`'s sem stats at
-    those tiles."""
+def _hier_refine_plain(q_cat, idx, g_sem_cat, *, bm: int, gpt_f: int,
+                       g_sup_cat=None, g_sem_vw=None, g_sup_vw=None,
+                       gpt_sup: int = 0, magnitude: bool = False):
+    """Plain version of the refine kernel (`_hier_refine_kernel`,
+    `retrieval_hier.py:2077-2133`): per query block and each of its M
+    listed tiles, the fine group logits q[:, :wf] . g^T (wf = g_sem_cat's
+    width) over the tile's gpt_f groups, their max and the sum of
+    exp2(min(l, 86)).  Returns (m_f, s_f) [Bp, M] f32, column j the
+    block's j-th listed tile: `_hier_scan_stats_plain`'s sem stats at those
+    tiles.
+
+    With ``g_sem_vw`` (the has_parts form) also the fine-minus-supergroup
+    tail partial over the listed tiles, [Bp, Dvp] f32 (count column at Dv):
+    bf16(exp2(min(l_f, 86))) @ g_sem_vw[tile groups] - bf16(exp2(min(q .
+    g_sup, 86))) @ g_sup_vw[tile's gpt_sup supergroups], returned third.
+    ``magnitude=True`` sums the terms' magnitudes instead (|vw| and the
+    two products added): the per-element scale that a bf16 rounding point
+    landing the other way is measured against."""
     f32 = torch.float32
     nB, M = idx.shape
     wf = g_sem_cat.shape[1]
-    m_f, s_f = [], []
+    m_f, s_f, parts = [], [], []
     for i in range(nB):
-        g = g_sem_cat[_block_groups(idx[i], gpt_f)].to(f32)
-        m, s, _ = _family_stats(q_cat[i * bm:(i + 1) * bm, :wf].to(f32), g,
-                                gpt_f)
+        grps = _block_groups(idx[i], gpt_f)
+        q = q_cat[i * bm:(i + 1) * bm].to(f32)
+        m, s, e = _family_stats(q[:, :wf], g_sem_cat[grps].to(f32), gpt_f)
         m_f.append(m)
         s_f.append(s)
-    return torch.cat(m_f), torch.cat(s_f)
+        if g_sem_vw is None:
+            continue
+        sup = _block_groups(idx[i], gpt_sup)
+        ls = q[:, :g_sup_cat.shape[1]] @ g_sup_cat[sup].to(f32).T
+        es = torch.exp2(torch.clamp_max(ls, CLAMP2)).to(g_sup_vw.dtype).to(f32)
+        ef = e.to(g_sem_vw.dtype).to(f32)
+        vf, vs = g_sem_vw[grps].to(f32), g_sup_vw[sup].to(f32)
+        parts.append(ef @ vf.abs() + es @ vs.abs() if magnitude
+                     else ef @ vf - es @ vs)
+    return (torch.cat(m_f), torch.cat(s_f)) + (
+        (torch.cat(parts),) if g_sem_vw is not None else ())
 
 
 def _hier_refine_call(q_cat, idx, g_sem_cat, g_sup_cat, g_sem_vw, g_sup_vw,
                       *, bm: int, gpt_f: int, gpt_sup: int,
                       stats_only: bool = False):
     """Fine stats over each query block's M listed tiles: (m_f, s_f [Bp, M]
-    f32, None).  q_cat [Bp, cat_d], idx [Bp / bm, M] int32 (real tiles, as
+    f32, parts).  q_cat [Bp, cat_d], idx [Bp / bm, M] int32 (real tiles, as
     `select_tiles` gives them), g_sem_cat [G, wf].  The stats-only form
-    reads neither the supergroup centroids nor any value operand.
-    ``stats_only=False`` (the fine-minus-supergroup tail partial of the
-    two-level feature path) is not ported.
+    reads neither the supergroup centroids nor any value operand and
+    returns parts None.  ``stats_only=False`` (the has_parts form, the
+    two-level feature path) also returns the fine-minus-supergroup tail
+    partial [Bp, Dvp] f32 over the listed tiles (g_sup_cat [G / (gpt_f /
+    gpt_sup), ws], g_sem_vw [G, Dvp], g_sup_vw [G_sup, Dvp]).
 
     CPU tensors: `_hier_refine_plain`.  CUDA tensors: `csrc/hier_refine.cu`,
     which replaces `_hier_refine_kernel` (`range_tpu/ops/retrieval_hier.py:
     2077`); bf16 operands only, a launch failure raises.  The stats come
     out in [query, column] order: the TPU's one-hot scratch and its 2 Mp
-    packing have no counterpart."""
-    if not stats_only:
-        raise _not_ported(
-            "the refine kernel's fine-minus-supergroup tail (has_parts, the "
-            "two-level feature path: item 2.2)",
-            _ROADMAP_SERVE)
+    packing have no counterpart.  has_parts launches also count in
+    ``.parts_launches``."""
     if q_cat.device.type == "cpu":
-        return _hier_refine_plain(q_cat, idx, g_sem_cat, bm=bm,
-                                  gpt_f=gpt_f) + (None,)
+        if stats_only:
+            return _hier_refine_plain(q_cat, idx, g_sem_cat, bm=bm,
+                                      gpt_f=gpt_f) + (None,)
+        return _hier_refine_plain(q_cat, idx, g_sem_cat, bm=bm, gpt_f=gpt_f,
+                                  g_sup_cat=g_sup_cat, g_sem_vw=g_sem_vw,
+                                  g_sup_vw=g_sup_vw, gpt_sup=gpt_sup)
+    bf = torch.bfloat16
     ops = dict(q_cat=q_cat, idx=idx, g_sem_cat=g_sem_cat)
-    _check_cuda("hier_refine", ops, dict(q_cat=torch.bfloat16,
-                                         idx=torch.int32,
-                                         g_sem_cat=torch.bfloat16))
+    if not stats_only:
+        ops.update(g_sup_cat=g_sup_cat, g_sem_vw=g_sem_vw, g_sup_vw=g_sup_vw)
+    _check_cuda("hier_refine", ops, {k: torch.int32 if k == "idx" else bf
+                                     for k in ops})
     Bp, cat_d = q_cat.shape
     nB, M = idx.shape
     G, wf = g_sem_cat.shape
-    if (Bp != nB * bm or bm % 64 or not _gpt_ok(gpt_f) or G % gpt_f
-            or wf % 16 or wf > 256 or wf > cat_d or cat_d % 8):
+    bad = (Bp != nB * bm or bm % 64 or not _gpt_ok(gpt_f) or G % gpt_f
+           or wf % 16 or wf > 256 or wf > cat_d or cat_d % 8)
+    if not stats_only:
+        Gs, ws = g_sup_cat.shape
+        W = g_sem_vw.shape[1]
+        bad = bad or (gpt_sup < 1 or Gs * gpt_f != G * gpt_sup or ws % 16
+                      or ws > 256 or ws > cat_d or W % 128
+                      or g_sem_vw.shape[0] != G or g_sup_vw.shape != (Gs, W))
+    if bad:
         raise ValueError(
             f"hier_refine kernel: unsupported shapes q {tuple(q_cat.shape)}, "
             f"idx {tuple(idx.shape)}, g {tuple(g_sem_cat.shape)}, bm={bm}, "
-            f"gpt_f={gpt_f}")
+            f"gpt_f={gpt_f}, gpt_sup={gpt_sup}, stats_only={stats_only}")
     ops = [t.contiguous() for t in ops.values()]
-    m_f, s_f = (torch.empty((Bp, M), dtype=torch.float32, device=q_cat.device)
+    dev = q_cat.device
+    m_f, s_f = (torch.empty((Bp, M), dtype=torch.float32, device=dev)
                 for _ in range(2))
+    parts = None
+    if stats_only:
+        if Bp and M:
+            _launch("hier_refine", "hier_refine_launch",
+                    *[t.data_ptr() for t in ops + [m_f, s_f]], Bp, cat_d, wf,
+                    bm, M, gpt_f, _stream(q_cat))
+            _hier_refine_call.launches += 1
+        return m_f, s_f, None
+    parts = torch.empty((Bp, W), dtype=torch.float32, device=dev)
     if Bp and M:
-        _launch("hier_refine", "hier_refine_launch",
-                *[t.data_ptr() for t in ops + [m_f, s_f]], Bp, cat_d, wf, bm,
-                M, gpt_f, _stream(q_cat))
+        _launch("hier_refine", "hier_refine_parts_launch",
+                *[t.data_ptr() for t in ops + [m_f, s_f, parts]], Bp, cat_d,
+                wf, ws, W, bm, M, gpt_f, gpt_sup, _stream(q_cat))
         _hier_refine_call.launches += 1
-    return m_f, s_f, None
+        _hier_refine_call.parts_launches += 1
+    elif Bp:
+        parts.zero_()
+    return m_f, s_f, parts
 
 
 _hier_refine_call.launches = 0
+_hier_refine_call.parts_launches = 0
 
 
 def _hier_corr_plain(q_cat, idx, g_cat, dvw, *, bm: int, gpt: int,
@@ -1093,17 +1184,32 @@ _hier_corr_call.launches = 0
 _hier_corr_call.wide_launches = 0
 
 
-def _family_cols(geo: bool, sem_d: int, cat_d: int, gw: int):
-    """(row-logit columns, group-logit query columns) of one family."""
+def _family_cols(geo: bool, sem_d: int, cat_d: int, gw: int, qw: int,
+                 sel: bool = False):
+    """(row-logit columns, group-logit query columns) of one family, for a
+    query operand qw columns wide over cat_d-column keys.  The geo family's
+    group logits, and the sem family's on sel_lr banks (``sel``: the
+    rank-k query sketch appended past cat_d, `retrieval_hier.py:
+    2341-2346`), read the query's last gw columns."""
     if geo:
-        return slice(sem_d, cat_d), slice(cat_d - gw, cat_d)
-    return slice(0, sem_d), slice(0, gw)
+        return slice(sem_d, cat_d), slice(qw - gw, qw)
+    return slice(0, sem_d), (slice(qw - gw, qw) if sel else slice(0, gw))
+
+
+def _distinct_runs(tiles: torch.Tensor) -> torch.Tensor:
+    """A tile list without its entries equal to the entry before them: the
+    repeat padding of `_dedup_union`, which a parts kernel skips (running
+    a tile twice would double its exact minus approx term)."""
+    keep = torch.ones_like(tiles, dtype=torch.bool)
+    keep[1:] = tiles[1:] != tiles[:-1]
+    return tiles[keep]
 
 
 def _hier_parts_family_plain(q_cat, k_cat, mask_neg, idx, g_cat, g_vw, z, *,
                              sem_d: int, bm: int, bn: int, gpt: int,
                              geo: bool, lrr: int, lr: bool = True,
-                             values=None, scale=None, magnitude: bool = False):
+                             values=None, scale=None, sel: bool = False,
+                             dedup_pad: bool = False, magnitude: bool = False):
     """Plain version of the family parts kernel (`_hier_parts_family_kernel`,
     `retrieval_hier.py:2282-2418`), its four shapes.  Per query block and
     selected tile: p = exp2(min(q.k + mask, 86)) over the family's columns;
@@ -1120,15 +1226,22 @@ def _hier_parts_family_plain(q_cat, k_cat, mask_neg, idx, g_cat, g_vw, z, *,
     128 + W] = acc | d | pad | alr), else is subtracted from [acc | d]
     (out [Bp, Dv + 128]).
 
+    ``sel`` (sel_lr banks, the sem family): q_cat is [q_cat | q_sel], the
+    rank-k sketch appended, and g_cat the sketched centroids g_sem_sel: the
+    row logits read the first sem_d columns, the group logits the last gw.
+    ``dedup_pad`` (lists merged by `_dedup_union`): an entry equal to the
+    one before it in its row is skipped.
+
     ``magnitude=True`` sums the terms' magnitudes instead (|v|, |vw|, |z|,
     e + ps/cnt, the approximations added): the per-element scale that a
     bf16 rounding point landing the other way is measured against."""
     f32 = torch.float32
-    Bp, cat_d = q_cat.shape
-    nB, K = idx.shape
+    Bp, qw = q_cat.shape
+    cat_d = k_cat.shape[1]
+    nB = idx.shape[0]
     W, gw = g_vw.shape[1], g_cat.shape[1]
     gsz = bn // gpt
-    cols, qcols = _family_cols(geo, sem_d, cat_d, gw)
+    cols, qcols = _family_cols(geo, sem_d, cat_d, gw, qw, sel)
     dev = q_cat.device
     if z is not None:
         rrp = z.shape[1]
@@ -1142,6 +1255,9 @@ def _hier_parts_family_plain(q_cat, k_cat, mask_neg, idx, g_cat, g_vw, z, *,
     ar_grp = torch.arange(gpt, device=dev)
     for i in range(nB):
         tiles = idx[i].long()
+        if dedup_pad:
+            tiles = _distinct_runs(tiles)
+        K = tiles.shape[0]
         rows = (tiles[:, None] * bn + ar_rows).reshape(-1)
         grps = (tiles[:, None] * gpt + ar_grp).reshape(-1)
         q = q_cat[i * bm:(i + 1) * bm].to(f32)
@@ -1188,11 +1304,15 @@ def _hier_parts_family_plain(q_cat, k_cat, mask_neg, idx, g_cat, g_vw, z, *,
 def _hier_parts_family_call(q_cat, k_cat, mask_neg, idx, g_cat, g_vw, z, *,
                             sem_d: int, bm: int, bn: int, gpt: int,
                             geo: bool, lrr: int, lr: bool = True,
-                            values=None, scale=None):
+                            values=None, scale=None, sel: bool = False,
+                            dedup_pad: bool = False):
     """Exact minus group approximation of one family over each query
     block's selected tiles, in the four shapes of `_hier_parts_family_plain`
     (``z`` given: rr + lr, or rr alone with full-width ``g_vw`` and lrr =
-    Dv; ``z`` None: the value variants, with ``values`` and ``scale``).
+    Dv; ``z`` None: the value variants, with ``values`` and ``scale``),
+    each with the ``sel`` form (a query operand wider than the keys, the
+    sketch's group logits from its last columns) and the ``dedup_pad`` form
+    (repeats of the entry before skipped).
 
     CPU tensors: `_hier_parts_family_plain`.  CUDA tensors: the rr shapes
     `csrc/hier_parts_family.cu`, the value shapes `csrc/hier_parts.cu`
@@ -1200,32 +1320,43 @@ def _hier_parts_family_call(q_cat, k_cat, mask_neg, idx, g_cat, g_vw, z, *,
     (`range_tpu/ops/retrieval_hier.py:2282`), a launch failure raises.
     Each launch counts in ``.launches`` and in its shape's own counter:
     ``.rrlr_launches``, ``.rr_launches``, ``.lr_launches`` or
-    ``.plain_launches``."""
+    ``.plain_launches``; and the sel form in ``.sel_launches``, the
+    dedup_pad form in ``.dedup_launches`` (those of the rr shapes, in
+    `csrc/hier_parts_family.cu`, also in ``.sel_rr_launches`` /
+    ``.dedup_rr_launches``)."""
     if q_cat.device.type == "cpu":
         return _hier_parts_family_plain(
             q_cat, k_cat, mask_neg, idx, g_cat, g_vw, z, sem_d=sem_d, bm=bm,
             bn=bn, gpt=gpt, geo=geo, lrr=lrr, lr=lr, values=values,
-            scale=scale)
+            scale=scale, sel=sel, dedup_pad=dedup_pad)
     if z is None:
         out = _parts_family_values(q_cat, k_cat, values, scale, mask_neg, idx,
                                    g_cat, g_vw, sem_d=sem_d, bm=bm, bn=bn,
-                                   gpt=gpt, geo=geo, lr=lr)
-        counter = "lr_launches" if lr else "plain_launches"
+                                   gpt=gpt, geo=geo, lr=lr, sel=sel,
+                                   dedup_pad=dedup_pad)
+        shape = "lr" if lr else "plain"
     else:
         out = _parts_family_rr(q_cat, k_cat, mask_neg, idx, g_cat, g_vw, z,
                                sem_d=sem_d, bm=bm, bn=bn, gpt=gpt, geo=geo,
-                               lrr=lrr, lr=lr)
-        counter = "rrlr_launches" if lr else "rr_launches"
+                               lrr=lrr, lr=lr, sel=sel, dedup_pad=dedup_pad)
+        shape = "rrlr" if lr else "rr"
     if q_cat.shape[0] and idx.shape[1]:
-        _hier_parts_family_call.launches += 1
-        setattr(_hier_parts_family_call, counter,
-                getattr(_hier_parts_family_call, counter) + 1)
+        fam = _hier_parts_family_call
+        counters = [f"{shape}_launches"]
+        for form, on in (("sel", sel), ("dedup", dedup_pad)):
+            if on:
+                counters.append(f"{form}_launches")
+                if z is not None:
+                    counters.append(f"{form}_rr_launches")
+        fam.launches += 1
+        for c in counters:
+            setattr(fam, c, getattr(fam, c) + 1)
     return out
 
 
 def _parts_family_rr(q_cat, k_cat, mask_neg, idx, g_cat, g_vw, z, *,
                      sem_d: int, bm: int, bn: int, gpt: int, geo: bool,
-                     lrr: int, lr: bool):
+                     lrr: int, lr: bool, sel: bool, dedup_pad: bool):
     """Launch `csrc/hier_parts_family.cu` (the rr shapes)."""
     bf = torch.bfloat16
     ops = dict(q_cat=q_cat, k_cat=k_cat, mask_neg=mask_neg, idx=idx,
@@ -1233,15 +1364,16 @@ def _parts_family_rr(q_cat, k_cat, mask_neg, idx, g_cat, g_vw, z, *,
     _check_cuda("hier_parts_family", ops, dict(
         q_cat=bf, k_cat=bf, mask_neg=torch.float32, idx=torch.int32,
         g_cat=bf, g_vw=bf, z=bf))
-    Bp, cat_d = q_cat.shape
-    N, kw = k_cat.shape
+    Bp, qw = q_cat.shape
+    N, cat_d = k_cat.shape
     nB, K = idx.shape
     G, gw = g_cat.shape
     W, rrp = g_vw.shape[1], z.shape[1]
-    cols, qcols = _family_cols(geo, sem_d, cat_d, gw)
+    cols, qcols = _family_cols(geo, sem_d, cat_d, gw, qw, sel)
     kf = cols.stop - cols.start
     gsz = bn // gpt
-    if (kw != cat_d or Bp != nB * bm or bm % 64 or bn % 32 or gpt * gsz != bn
+    if (qw != (cat_d + gw if sel else cat_d) or (sel and geo)
+            or Bp != nB * bm or bm % 64 or bn % 32 or gpt * gsz != bn
             or gsz % 8 or (32 % gsz if gsz <= 32 else gsz % 32)
             or gpt % 8 or gpt > 64 or kf % 16 or kf > 256 or gw % 16
             or gw > 256 or cat_d % 8 or W % 128 or (lr and W > 512)
@@ -1262,8 +1394,8 @@ def _parts_family_rr(q_cat, k_cat, mask_neg, idx, g_cat, g_vw, z, *,
     if Bp and K:
         _launch("hier_parts_family", "hier_parts_family_launch",
                 *[t.data_ptr() for t in ops + [scratch, out]],
-                Bp, cat_d, cols.start, kf, qcols.start, gw, bm, bn, gpt, K,
-                W, lrr, rrp, N, int(lr), _stream(q_cat))
+                Bp, qw, cat_d, cols.start, kf, qcols.start, gw, bm, bn, gpt,
+                K, W, lrr, rrp, N, int(lr), int(dedup_pad), _stream(q_cat))
     elif Bp:
         out.zero_()
     return out
@@ -1271,7 +1403,7 @@ def _parts_family_rr(q_cat, k_cat, mask_neg, idx, g_cat, g_vw, z, *,
 
 def _parts_family_values(q_cat, k_cat, values, scale, mask_neg, idx, g_cat,
                          g_vw, *, sem_d: int, bm: int, bn: int, gpt: int,
-                         geo: bool, lr: bool):
+                         geo: bool, lr: bool, sel: bool, dedup_pad: bool):
     """Launch `csrc/hier_parts.cu`'s family entry point (the value shapes:
     the geo family's row and group logits over one k16 step of its
     columns, the fast tier's 9 real ones and zero padding, as the merged
@@ -1284,8 +1416,9 @@ def _parts_family_values(q_cat, k_cat, values, scale, mask_neg, idx, g_cat,
     if scale is not None:
         ops["scale"], dtypes["scale"], dtypes["values"] = scale, f32, torch.int8
     _check_cuda("hier_parts_family", ops, dtypes)
-    Bp, cat_d = q_cat.shape
+    Bp, qw = q_cat.shape
     N, Dv = values.shape
+    cat_d = k_cat.shape[1]
     nB, K = idx.shape
     G, gw = g_cat.shape
     W = g_vw.shape[1]
@@ -1294,7 +1427,9 @@ def _parts_family_values(q_cat, k_cat, values, scale, mask_neg, idx, g_cat,
             or Bp != nB * bm or bm % 64 or bn % 32 or N % bn or sem_d % 16
             or sem_d + 16 > cat_d or cat_d % 8 or Dv % 16
             or g_vw.shape[0] != G or not 1 <= gpt <= 64 or bn % gpt
-            or (cat_d - gw != sem_d if geo else gw != sem_d)
+            or (qw != cat_d + gw or gw % 16 or gw > 256 if sel
+                else qw != cat_d)
+            or (cat_d - gw != sem_d if geo else not sel and gw != sem_d)
             or (W % 128 or W > 512 if lr else W < Dv + 1 or W % 8)):
         raise ValueError(
             f"hier_parts_family kernel: unsupported shapes q "
@@ -1309,8 +1444,9 @@ def _parts_family_values(q_cat, k_cat, values, scale, mask_neg, idx, g_cat,
             q_cat, k_cat, values, scale, mask_neg, idx, g_cat, g_vw)]
         ptr = [None if t is None else t.data_ptr() for t in held]
         _launch("hier_parts", "hier_parts_family_values_launch", *ptr,
-                out.data_ptr(), Bp, cat_d, sem_d, Dv, bm, bn, gpt, K, W, gw,
-                int(geo), int(lr), int(scale is not None), _stream(q_cat))
+                out.data_ptr(), Bp, qw, cat_d, sem_d, Dv, bm, bn, gpt, K, W,
+                gw, int(geo), int(lr), int(scale is not None), int(sel),
+                int(dedup_pad), _stream(q_cat))
     elif Bp:
         out.zero_()
     return out
@@ -1321,6 +1457,10 @@ _hier_parts_family_call.rrlr_launches = 0
 _hier_parts_family_call.rr_launches = 0
 _hier_parts_family_call.lr_launches = 0
 _hier_parts_family_call.plain_launches = 0
+_hier_parts_family_call.sel_launches = 0
+_hier_parts_family_call.dedup_launches = 0
+_hier_parts_family_call.sel_rr_launches = 0
+_hier_parts_family_call.dedup_rr_launches = 0
 
 
 def _hier_parts_plain(q_cat, k_cat, values, scale, mask_neg, idx, g_sem_cat,
@@ -1700,21 +1840,6 @@ _hier_topk_call.launches = 0
 # the serving pipeline
 
 
-def _check_servable(hb: HierBank) -> None:
-    """The port serves every one-level bank: any subset of lr_rank,
-    res_rank and lr_geo, with or without tail_super, in RANGE and RANGE+
-    mode.  gsz_super banks with lr_rank serve one-level, as in the JAX
-    package; without it they take the two-level feature path, which is not
-    ported, and neither is serving sel_lr banks."""
-    if hb.sel_lr:
-        raise _not_ported("serving sel_lr banks", _ROADMAP_SERVE)
-    if (hb.gsz_super and hb.g_sup_cat is not None
-            and not (hb.lr_rank and hb.g_sem_vw_lr is not None)):
-        raise _not_ported(
-            "the two-level feature path (gsz_super banks without lr_rank: "
-            "the refine kernel's has_parts form, item 2.2)", _ROADMAP_SERVE)
-
-
 def _bank_uses(hb: HierBank):
     """(use_lr, use_rr, use_lrg): which of the bank's low-rank sem tail,
     residual-rank parts and low-rank geo tail serving can use
@@ -1724,12 +1849,65 @@ def _bank_uses(hb: HierBank):
             hb.g_geo_vw_lr is not None and hb.lr_geo > 0)
 
 
+def _dedup_union(idx: torch.Tensor, f: int, k_union: int) -> torch.Tensor:
+    """Merge each f adjacent query blocks' tile lists into one list
+    [nB / f, k_union] without repeats (`retrieval_hier.py:2025-2068`).
+
+    The columns interleave rank-major (rank 0 of blocks 0..f-1, then rank
+    1, ...), so a truncation to k_union drops the lowest ranks first; a
+    stable sort by tile marks every copy after the first as a duplicate;
+    the distinct entries keep their column order and the slots past them
+    repeat the last distinct tile (the parts kernels' ``dedup_pad`` skips
+    such repeats)."""
+    nB, K = idx.shape
+    nS = nB // f
+    if nS * f != nB:
+        raise ValueError(f"_dedup_union: {nB} blocks do not merge in {f}s")
+    k_union = min(k_union, f * K)
+    m = idx.reshape(nS, f, K).transpose(1, 2).reshape(nS, f * K)
+    pos = torch.argsort(m, dim=1, stable=True)
+    srt = torch.gather(m, 1, pos)
+    dup_srt = torch.cat([torch.zeros((nS, 1), dtype=torch.bool, device=m.device),
+                         srt[:, 1:] == srt[:, :-1]], 1)
+    dup = torch.zeros_like(dup_srt).scatter_(1, pos, dup_srt)
+    cols = torch.arange(f * K, device=m.device)[None, :]
+    prio = torch.where(dup, f * K + cols, cols)
+    order = torch.argsort(prio, dim=1, stable=True)[:, :k_union]
+    out = torch.gather(m, 1, order)
+    n_distinct = (~dup).sum(dim=1, keepdim=True)
+    last = torch.gather(out, 1, torch.clamp_max(n_distinct - 1, k_union - 1))
+    return torch.where(cols[:, :k_union] < n_distinct, out, last).to(torch.int32)
+
+
+def _rescue_queries(s_s, sel_s, s_g, sel_g, *, bm: int, n_valid: int,
+                    R: int) -> torch.Tensor:
+    """The adaptive rescue's R queries (`retrieval_hier.py:2902-2916`): each
+    query's coverage, the share of its exp-mass (the scan stats) that its
+    block's selected tiles hold, the smaller of the two families'; padded
+    queries never count.  The R lowest (ties: the lower index, as
+    `lax.top_k`), in ascending query order so the rescue blocks stay
+    geographically coherent.  Returns [R] int64 sorted positions."""
+    Bp = s_s.shape[0]
+
+    def cov(s, selm):
+        tot = torch.clamp_min(s.sum(dim=1), 1e-30)
+        selq = torch.bmm(s.reshape(Bp // bm, bm, -1), selm[:, :, None])
+        return selq.reshape(Bp) / tot
+
+    c = torch.minimum(cov(s_s, sel_s), cov(s_g, sel_g))
+    c = torch.where(torch.arange(Bp, device=c.device) < n_valid, c,
+                    float("inf"))
+    return torch.sort(topk_stable(-c[None, :], R)[1][0]).values
+
+
 def _hier_partials(q_cat: torch.Tensor, hb: HierBank, *, k_tiles: int,
                    bm: int, j_sem: int, j_geo: int, n_valid: int,
-                   k_geo: int, m_corr: int = 0, raw: bool = False):
+                   k_geo: int, m_corr: int = 0, raw: bool = False,
+                   adaptive_frac: float = 0.0, adaptive_mult: int = 3,
+                   dedup: int = 0, k_union: Optional[int] = None):
     """Scan, per-family selection and the two family parts kernels on
     sorted, packed queries: the family-split (k_geo > 0) branch of
-    `_hier_partials` (`retrieval_hier.py:2832-3003`), RANGE+ only.
+    `_hier_partials` (`retrieval_hier.py:2753-3003`), RANGE+ only.
     ``raw=True`` (the fused combine's shape, lr + rr) returns the
     pre-combine pieces (parts_s, parts_g, tails); otherwise the
     unnormalized (acc_s, acc_g, d_s, d_g) f32 of JAX's combine branches
@@ -1742,42 +1920,110 @@ def _hier_partials(q_cat: torch.Tensor, hb: HierBank, *, k_tiles: int,
     ``m_corr`` sem tiles, the first k_tiles of them take the exact parts,
     and the correction kernel adds exp2(q . g_fine) @ (vw - ts_vw) over
     all of them to the sem tail, so that the selected tiles' tail is the
-    fine-group one the parts kernel subtracts."""
+    fine-group one the parts kernel subtracts.
+
+    sel_lr banks (`:2795-2824`): the queries project once onto p_sel (f32,
+    rounded to the packed dtype); the scan reads [q_sel | geo columns]
+    against g_sem_sel and the sem parts kernel [q_cat | q_sel] (its sel
+    form), so both sides of the telescope see the same sketched logits.
+
+    ``dedup`` > 1 (`:2863-2886`): f = dedup adjacent blocks' lists merge by
+    `_dedup_union` into one list of k_union (default k_tiles + (f - 1)
+    k_tiles // 2) sem tiles and a proportional geo count, served as one
+    block of f bm queries by the parts kernels' dedup_pad form; skipped on
+    tail_super banks and when the padded batch is no multiple of f bm.
+
+    ``adaptive_frac`` > 0, the rescue (`:2891-2950`): the R = frac Bp
+    (down to a multiple of 128) queries whose selected tiles cover the
+    least exp-mass (`_rescue_queries`) re-select adaptive_mult times the
+    budgets (j + 4) in blocks of 128 and re-run both parts kernels (and,
+    on tail_super banks, the correction); their rows replace theirs in the
+    partials before the combine."""
     f32 = torch.float32
     gpt_s, gpt_g = hb.bn // hb.gsz_sem, hb.bn // hb.gsz_geo
     use_lr, use_rr, use_lrg = _bank_uses(hb)
     sem_vw = hb.g_sem_vw_lr if use_lr else hb.g_sem_vw
     geo_vw = hb.g_geo_vw_lr if use_lrg else hb.g_geo_vw
     use_ts = bool(hb.tail_super) and hb.g_sem_ts_vw is not None
+    use_sel = bool(hb.sel_lr) and hb.g_sem_sel is not None
+    if use_sel:
+        q_sel = (q_cat[:, :hb.sem_d].to(f32) @ hb.p_sel.T).to(q_cat.dtype)
+        q_scan = torch.cat([q_sel, q_cat[:, hb.sem_d:]], 1)
+        q_sem_parts = torch.cat([q_cat, q_sel], 1)
+        sem_gcat = hb.g_sem_sel
+    else:
+        q_scan = q_sem_parts = q_cat
+        sem_gcat = hb.g_sem_cat
     m_s, s_s, m_g, s_g, tails = _hier_scan_call(
-        q_cat, hb.g_sem_cat, hb.g_geo_cat,
+        q_scan, sem_gcat, hb.g_geo_cat,
         hb.g_sem_ts_vw if use_ts else sem_vw, geo_vw,
         gpt_s=gpt_s, gpt_g=gpt_g,
         sup_r=hb.tail_super // hb.gsz_sem if use_ts else 0)
-    idx_sm, _ = select_tiles(m_s, s_s, m_g, s_g, t_real=hb.t_real,
-                             k_tiles=k_tiles + (m_corr if use_ts else 0),
-                             bm=bm, n_valid=n_valid, j_sem=j_sem, j_geo=j_geo,
-                             mode="range")
+    idx_sm, sel_s = select_tiles(m_s, s_s, m_g, s_g, t_real=hb.t_real,
+                                 k_tiles=k_tiles + (m_corr if use_ts else 0),
+                                 bm=bm, n_valid=n_valid, j_sem=j_sem,
+                                 j_geo=j_geo, mode="range")
     # top_k's columns come score-descending: the first k_tiles are the
     # exact tiles, and every listed tile is corrected
     idx_s = idx_sm[:, :min(k_tiles, idx_sm.shape[1])] if use_ts else idx_sm
-    idx_g, _ = select_tiles(m_g, s_g, m_s, s_s, t_real=hb.t_real,
-                            k_tiles=k_geo, bm=bm, n_valid=n_valid,
-                            j_sem=j_geo, j_geo=j_sem, mode="range")
-    common = dict(sem_d=hb.sem_d, bm=bm, bn=hb.bn, values=hb.values,
+    idx_g, sel_g = select_tiles(m_g, s_g, m_s, s_s, t_real=hb.t_real,
+                                k_tiles=k_geo, bm=bm, n_valid=n_valid,
+                                j_sem=j_geo, j_geo=j_sem, mode="range")
+    Bp = q_cat.shape[0]
+    idx_ps, idx_pg, bm_p = idx_s, idx_g, bm
+    if dedup > 1 and not use_ts and Bp % (dedup * bm) == 0:
+        ku_s = min(k_union or (k_tiles + (dedup - 1) * k_tiles // 2),
+                   dedup * idx_s.shape[1])
+        ku_g = min(max(1, ku_s * max(k_geo, 1) // max(k_tiles, 1)),
+                   dedup * max(idx_g.shape[1], 1))
+        idx_ps = _dedup_union(idx_s, dedup, ku_s)
+        idx_pg = _dedup_union(idx_g, dedup, ku_g)
+        bm_p = bm * dedup
+    common = dict(sem_d=hb.sem_d, bn=hb.bn, values=hb.values,
                   scale=hb.value_scale)
-    parts_s = _hier_parts_family_call(
-        q_cat, hb.k_cat, hb.mask_neg, idx_s, hb.g_sem_cat, sem_vw,
-        hb.z_sem if use_rr else None, gpt=gpt_s, geo=False,
-        lrr=hb.lr_rank if use_lr else hb.value_dim, lr=use_lr, **common)
-    parts_g = _hier_parts_family_call(
-        q_cat, hb.k_cat, hb.mask_neg, idx_g, hb.g_geo_cat, geo_vw,
-        hb.z_geo if use_rr else None, gpt=gpt_g, geo=True,
-        lrr=hb.lr_geo if use_lrg else hb.value_dim, lr=use_lrg, **common)
+
+    def parts(q_sem_ops, q_geo_ops, i_s, i_g, bm_x, pad):
+        ps = _hier_parts_family_call(
+            q_sem_ops, hb.k_cat, hb.mask_neg, i_s, sem_gcat, sem_vw,
+            hb.z_sem if use_rr else None, bm=bm_x, gpt=gpt_s, geo=False,
+            lrr=hb.lr_rank if use_lr else hb.value_dim, lr=use_lr,
+            sel=use_sel, dedup_pad=pad, **common)
+        pg = _hier_parts_family_call(
+            q_geo_ops, hb.k_cat, hb.mask_neg, i_g, hb.g_geo_cat, geo_vw,
+            hb.z_geo if use_rr else None, bm=bm_x, gpt=gpt_g, geo=True,
+            lrr=hb.lr_geo if use_lrg else hb.value_dim, lr=use_lrg,
+            dedup_pad=pad, **common)
+        return ps, pg
+
+    parts_s, parts_g = parts(q_sem_parts, q_cat, idx_ps, idx_pg, bm_p,
+                             bm_p != bm)
+    corr_ts = (_hier_corr_call(q_cat, idx_sm, hb.g_sem_cat, hb.g_sem_ts_dvw,
+                               bm=bm, gpt=gpt_s) if use_ts else None)
+    bm_r = 128  # rescue blocks are small: the gathered queries span sphere
+    R = int(adaptive_frac * Bp) // bm_r * bm_r
+    if R and R < Bp:
+        w = _rescue_queries(s_s, sel_s, s_g, sel_g, bm=bm, n_valid=n_valid,
+                            R=R)
+        st_s, st_g = (m_s[w], s_s[w]), (m_g[w], s_g[w])
+        k2 = min(adaptive_mult * k_tiles, hb.t_real)
+        kg2 = min(adaptive_mult * k_geo, hb.t_real)
+        idx_s2, _ = select_tiles(
+            *st_s, *st_g, t_real=hb.t_real,
+            k_tiles=k2 + (adaptive_mult * m_corr if use_ts else 0), bm=bm_r,
+            n_valid=R, j_sem=j_sem + 4, j_geo=j_geo, mode="range")
+        if use_ts:
+            # the wider exact list needs its own fine-tail correction cover
+            corr_ts[w] = _hier_corr_call(q_cat[w], idx_s2, hb.g_sem_cat,
+                                         hb.g_sem_ts_dvw, bm=bm_r, gpt=gpt_s)
+            idx_s2 = idx_s2[:, :min(k2, idx_s2.shape[1])]
+        idx_g2, _ = select_tiles(*st_g, *st_s, t_real=hb.t_real, k_tiles=kg2,
+                                 bm=bm_r, n_valid=R, j_sem=j_geo + 4,
+                                 j_geo=j_sem, mode="range")
+        parts_s[w], parts_g[w] = parts(q_sem_parts[w], q_cat[w], idx_s2,
+                                       idx_g2, bm_r, False)
     Ws = sem_vw.shape[1]
     if use_ts:
-        tails[:, :Ws] += _hier_corr_call(
-            q_cat, idx_sm, hb.g_sem_cat, hb.g_sem_ts_dvw, bm=bm, gpt=gpt_s)
+        tails[:, :Ws] += corr_ts
     if raw:
         return parts_s, parts_g, tails
     Dv = hb.value_dim
@@ -1858,6 +2104,53 @@ def _hier_partials_merged(q_cat: torch.Tensor, hb: HierBank, *,
     return acc_s, acc_g, d_s, d_g
 
 
+def _hier_partials2(q_cat: torch.Tensor, hb: HierBank, *, k_tiles: int,
+                    m_tiles: int, bm: int, j_sem: int, j_geo: int,
+                    mode: str, n_valid: int):
+    """The two-level feature path (`retrieval_hier.py:3039-3094`) on
+    sorted, packed queries, for banks with supergroup operands and no
+    lr_rank: the scan over the supergroup centroids and value sums
+    (g_sup_cat / g_sup_vw, its geo family in RANGE+), M coarse tiles per
+    block, the refine kernel's has_parts form over them (the fine stats
+    and sum over the M tiles of fine minus supergroup tail), the second
+    selection of K tiles among the M on the fine stats (and the coarse geo
+    stats at the M columns), the merged parts kernel's plain variant over
+    the K, and the telescope coarse tail + (fine - super) over M + (exact -
+    fine) over K.  Returns the unnormalized (acc_s, acc_g, d_s, d_g) f32
+    (acc_g and d_g None in RANGE mode, which skips the geo family)."""
+    gpt_sup, gpt_f = hb.bn // hb.gsz_super, hb.bn // hb.gsz_sem
+    gpt_g = hb.bn // hb.gsz_geo
+    m_tiles = min(m_tiles, hb.t_real)
+    k_tiles = min(k_tiles, m_tiles)
+    geo = mode == "range+"
+    m_s, s_s, m_g, s_g, tails = _hier_scan_call(
+        q_cat, hb.g_sup_cat, hb.g_geo_cat, hb.g_sup_vw, hb.g_geo_vw,
+        gpt_s=gpt_sup, gpt_g=gpt_g, has_geo=geo)
+    sel = dict(bm=bm, n_valid=n_valid, j_sem=j_sem, j_geo=j_geo, mode=mode)
+    idx_m, _ = select_tiles(m_s, s_s, m_g, s_g, t_real=hb.t_real,
+                            k_tiles=m_tiles, **sel)
+    m_f, s_f, rparts = _hier_refine_call(
+        q_cat, idx_m, hb.g_sem_cat, hb.g_sup_cat, hb.g_sem_vw, hb.g_sup_vw,
+        bm=bm, gpt_f=gpt_f, gpt_sup=gpt_sup)
+    at = [None if s is None else _gather_cols(s, idx_m, bm) for s in (m_g, s_g)]
+    idx_loc, _ = select_tiles(m_f, s_f, *at, t_real=m_tiles, k_tiles=k_tiles,
+                              **sel)
+    idx_k = torch.gather(idx_m, 1, idx_loc.long()).to(torch.int32)
+    parts = _hier_parts_call(
+        q_cat, hb.k_cat, hb.values, hb.value_scale, hb.mask_neg, idx_k,
+        hb.g_sem_cat, hb.g_geo_cat, hb.g_sem_vw, hb.g_geo_vw, sem_d=hb.sem_d,
+        bm=bm, bn=hb.bn, gpt_s=gpt_f, gpt_g=gpt_g, lr=False, geo=geo)
+    Dv, Dvp = hb.value_dim, hb.g_sem_vw.shape[1]
+    acc_s = parts[:, :Dv] + rparts[:, :Dv] + tails[:, :Dv]
+    d_s = (parts[:, 2 * Dv:2 * Dv + 1] + rparts[:, Dv:Dv + 1]
+           + tails[:, Dv:Dv + 1])
+    if not geo:
+        return acc_s, None, d_s, None
+    acc_g = parts[:, Dv:2 * Dv] + tails[:, Dvp:Dvp + Dv]
+    d_g = parts[:, 2 * Dv + 1:2 * Dv + 2] + tails[:, Dvp + Dv:Dvp + Dv + 1]
+    return acc_s, acc_g, d_s, d_g
+
+
 def _check_sort(sort: str) -> None:
     if sort not in ("geo", "hybrid"):
         raise ValueError(f"sort must be 'geo' or 'hybrid', got {sort!r}")
@@ -1866,80 +2159,91 @@ def _check_sort(sort: str) -> None:
 def retrieve_hier(q_sem: torch.Tensor, q_xyz: Optional[torch.Tensor],
                   hb: HierBank, *, sem_temp: float = 12.0,
                   geo_temp: float = 40.0, beta: float = 0.5,
-                  mode: str = "range+", k_tiles: int = 16, k_geo: int = 0,
+                  mode: str = "range+", k_tiles: int = 16,
+                  m_tiles: Optional[int] = None, k_geo: int = 0,
                   bm: int = 256, j_sem: int = 2, j_geo: int = 2,
                   sort_queries: bool = True, sort: str = "geo",
                   concat_query: Optional[torch.Tensor] = None,
-                  adaptive_frac: float = 0.0, m_corr: int = 0,
-                  dedup: int = 0) -> torch.Tensor:
+                  adaptive_frac: float = 0.0, adaptive_mult: int = 3,
+                  m_corr: int = 0, dedup: int = 0,
+                  k_union: Optional[int] = None) -> torch.Tensor:
     """Two-stage retrieval over a HierBank (`retrieval_hier.py:3181-3341`):
     [B, Dv] f32, or [B, Dv + Dq] with ``concat_query`` [B, Dq] appended.
     ``k_tiles``/``j_sem`` and ``k_geo``/``j_geo`` are each family's exact
     budget, ``bm`` the selection block of sorted queries.  ``sort='geo'``
     orders the queries by location before the scan; ``sort='hybrid'`` by
     coarse cell, then home tile from a stats-only pre-scan
-    (`_hier_scan_stats_call`); without locations (RANGE mode) by home tile
-    alone; ``sort_queries=False`` keeps the caller's order.  The TPU's
-    scan knobs (tc, scan_bm) set speed only and have no counterpart.
+    (`_hier_scan_stats_call`; over the supergroup centroids on two-level
+    banks); without locations (RANGE mode) by home tile alone;
+    ``sort_queries=False`` keeps the caller's order.  The TPU's scan knobs
+    (tc, scan_bm) set speed only and have no counterpart.
 
-    Routes as the JAX function does.  Banks with res_rank get k_geo =
-    max(8, k_tiles // 2) when the caller passes none.  RANGE+ with k_geo >
-    0 takes the family-split kernels (`_hier_partials`): with
-    ``concat_query``, lr + rr and 128-aligned Dv / lr_rank / lr_geo / Dq,
-    the fused combine + concat kernel; otherwise the combine in torch.  On
-    tail_super banks ``m_corr`` more sem tiles beyond k_tiles get the
-    fine-tail correction there.  RANGE mode (beta 1, no locations) and
+    Routes as the JAX function does.  Banks with supergroup operands and
+    no lr_rank take the two-level feature path (`_hier_partials2`, M =
+    ``m_tiles`` or max(32, 3 k_tiles) coarse tiles), in RANGE and RANGE+
+    alike, ignoring k_geo and the family-split knobs.  Otherwise banks with
+    res_rank get k_geo = max(8, k_tiles // 2) when the caller passes none.
+    RANGE+ with k_geo > 0 takes the family-split kernels (`_hier_partials`:
+    sel_lr sketches, ``dedup`` tile unions, the ``adaptive_frac`` rescue,
+    tail_super corrections): with ``concat_query``, lr + rr and 128-aligned
+    Dv / lr_rank / lr_geo / Dq, the fused combine + concat kernel;
+    otherwise the combine in torch.  RANGE mode (beta 1, no locations) and
     RANGE+ with k_geo = 0 take the merged branch (`_hier_partials_merged`:
-    the merged parts kernel, lr or plain)."""
+    the merged parts kernel, lr or plain); tail_super and sel_lr banks
+    raise there, as in JAX.  The batch pads to a multiple of bm * dedup."""
     if mode not in ("range", "range+"):
         raise ValueError(f"mode must be 'range' or 'range+', got {mode!r}")
     if mode == "range":
         beta, q_xyz = 1.0, None
-    for name, val in (("adaptive_frac", adaptive_frac), ("dedup", dedup)):
-        if val:
-            raise _not_ported(f"retrieve_hier({name}=...)", _ROADMAP_SERVE)
     if mode == "range+" and q_xyz is None:
         raise ValueError("mode='range+' requires q_xyz")
     _check_sort(sort)
-    _check_servable(hb)
     use_lr, use_rr, use_lrg = _bank_uses(hb)
+    use2 = bool(hb.gsz_super) and hb.g_sup_cat is not None and not use_lr
     if use_rr and not k_geo:
         # residual-rank parts live in the family-split kernels only: the
         # geo family gets its own exact budget (`retrieval_hier.py:3262`)
         k_geo = max(8, k_tiles // 2)
     split = bool(k_geo) and mode == "range+"
-    if hb.tail_super and hb.g_sem_ts_vw is not None and not split:
-        raise ValueError(
-            "tail_super banks serve via the family-split path only: pass "
-            "k_geo > 0 with mode='range+' (the merged parts kernel has no "
-            "supergroup-tail correction)")
+    if not use2 and not split:
+        for knob, op in (("tail_super", hb.g_sem_ts_vw),
+                         ("sel_lr", hb.g_sem_sel)):
+            if getattr(hb, knob) and op is not None:
+                raise ValueError(
+                    f"{knob} banks serve via the family-split path only: pass "
+                    "k_geo > 0 with mode='range+' (the merged parts kernel "
+                    "has no supergroup-tail correction or sketched-group "
+                    "slice)")
     B = q_sem.shape[0]
-    q_s, q_x = _pad_queries(q_sem, q_xyz, bm)
+    q_s, q_x = _pad_queries(q_sem, q_xyz, bm * max(dedup, 1))
     q_cat = pack_queries(q_s, q_x, sem_temp, geo_temp, tier=hb.tier)
     Bp = q_cat.shape[0]
     order = None
     if sort_queries:
         home = None
         if sort == "hybrid" or q_x is None:  # the home tiles: a stats scan
-            m_s0 = _hier_scan_stats_call(
-                q_cat, hb.g_sem_cat, hb.g_geo_cat, gpt_s=hb.bn // hb.gsz_sem,
-                gpt_g=hb.bn // hb.gsz_geo)[0]
+            g_s, gsz = ((hb.g_sup_cat, hb.gsz_super) if use2
+                        else (hb.g_sem_cat, hb.gsz_sem))
+            m_s0 = _hier_scan_stats_call(q_cat, g_s, hb.g_geo_cat,
+                                         gpt_s=hb.bn // gsz,
+                                         gpt_g=hb.bn // hb.gsz_geo)[0]
             home = _home_tile(m_s0, hb.t_real)
         # sort BEFORE the scan, so its stats come out sorted
         order = _hybrid_order(q_x, B, home, hb.t_pad, sort=sort)
         q_cat = q_cat[order]
     # the fused combine + concat (`retrieval_hier.py:3291-3295`)
     Dv = hb.value_dim
-    fused = (concat_query is not None and split and use_lr and use_rr
-             and Dv % 128 == 0 and hb.lr_rank % 128 == 0
+    fused = (concat_query is not None and not use2 and split and use_lr
+             and use_rr and Dv % 128 == 0 and hb.lr_rank % 128 == 0
              and (not use_lrg or hb.lr_geo % 128 == 0)
              and concat_query.shape[1] % 128 == 0)
     unsort = (lambda x: x[torch.argsort(order)[:B]]) if order is not None \
         else (lambda x: x[:B])
     kw = dict(k_tiles=k_tiles, bm=bm, j_sem=j_sem, j_geo=j_geo, n_valid=B)
+    split_kw = dict(k_geo=k_geo, m_corr=m_corr, adaptive_frac=adaptive_frac,
+                    adaptive_mult=adaptive_mult, dedup=dedup, k_union=k_union)
     if fused:
-        ps, pg, tails = _hier_partials(q_cat, hb, k_geo=k_geo, m_corr=m_corr,
-                                       raw=True, **kw)
+        ps, pg, tails = _hier_partials(q_cat, hb, raw=True, **kw, **split_kw)
         q_srt = torch.nn.functional.pad(concat_query.to(torch.float32),
                                         (0, 0, 0, Bp - B))
         q_srt = q_srt[order] if order is not None else q_srt
@@ -1950,9 +2254,12 @@ def retrieve_hier(q_sem: torch.Tensor, q_xyz: Optional[torch.Tensor],
             rg=hb.lr_geo if use_lrg else 0,
             Wg=(hb.g_geo_vw_lr if use_lrg else hb.g_geo_vw).shape[1])
         return unsort(out)
-    if split:
-        acc_s, acc_g, d_s, d_g = _hier_partials(q_cat, hb, k_geo=k_geo,
-                                                m_corr=m_corr, **kw)
+    if use2:
+        acc_s, acc_g, d_s, d_g = _hier_partials2(
+            q_cat, hb, m_tiles=m_tiles or max(32, 3 * k_tiles), mode=mode,
+            **kw)
+    elif split:
+        acc_s, acc_g, d_s, d_g = _hier_partials(q_cat, hb, **kw, **split_kw)
     else:
         acc_s, acc_g, d_s, d_g = _hier_partials_merged(q_cat, hb, mode=mode,
                                                        **kw)
@@ -1978,8 +2285,10 @@ def hier_topk(q_sem: torch.Tensor, q_xyz: Optional[torch.Tensor],
     bank rows for k = 1, [B, k] rows by descending serving-tier logit for
     2 <= k <= 8.  Rows outside the selected tiles can never appear.
 
-    The stats-only scan (the fine `g_topk_cat` operand when the bank has
-    one, else `g_sem_cat`), big-K `select_tiles`, then the exact hi/lo
+    The stats-only scan (over the rank-topk_lr sketch `g_topk_lr` of the
+    projected queries on topk_lr banks, else the fine `g_topk_cat` operand
+    when the bank has one, else `g_sem_cat`), big-K `select_tiles`, then
+    the exact hi/lo
     semantic argmax (`_hier_argmax_call`) or k-carry top-k
     (`_hier_topk_call`) over the selected tiles at ~f32 logit accuracy
     (`khl_sem`).  `mode='range'` spends every tile on the semantic family;
@@ -2000,9 +2309,6 @@ def hier_topk(q_sem: torch.Tensor, q_xyz: Optional[torch.Tensor],
     if not 1 <= k <= 8:
         raise ValueError(f"hier_topk serves 1 <= k <= 8, got k={k}")
     use2 = bool(hb.gsz_super) and hb.g_sup_cat is not None
-    if not use2 and hb.topk_lr and hb.g_topk_lr is not None:
-        raise _not_ported("hier_topk on banks with the low-rank topk_lr "
-                          "selection signal", _ROADMAP_SERVE)
     B = q_sem.shape[0]
     if auto_widen:
         k_tiles, bm, j_sem = _topk_budget(B, k_tiles, bm, j_sem)
@@ -2019,6 +2325,15 @@ def hier_topk(q_sem: torch.Tensor, q_xyz: Optional[torch.Tensor],
     if use2:  # coarse stats: the supergroup centroids
         stats = _hier_scan_stats_call(q_cat, hb.g_sup_cat, hb.g_geo_cat,
                                       gpt_s=hb.bn // hb.gsz_super, gpt_g=gpt_g)
+    elif hb.g_topk_lr is not None and hb.topk_lr:
+        # the low-rank selection signal: the packed queries project once
+        # onto the fine centroids' PCA basis (f32, rounded to the packed
+        # dtype) and the stats contract topk_lr columns instead of sem_d
+        q_sel = (q_cat[:, :hb.sem_d].to(torch.float32) @ hb.p_topk.T).to(
+            q_cat.dtype)
+        stats = _hier_scan_stats_call(
+            torch.cat([q_sel, q_cat[:, hb.sem_d:]], 1), hb.g_topk_lr,
+            hb.g_geo_cat, gpt_s=hb.bn // hb.topk_gsz, gpt_g=gpt_g)
     elif hb.g_topk_cat is not None and hb.topk_gsz:
         # fine stats-only centroids: the selection signal of gsz 8 groups
         stats = _hier_scan_stats_call(q_cat, hb.g_topk_cat, hb.g_geo_cat,

@@ -110,9 +110,10 @@ def test_fused_path_on_cpu_within_fast_tier_tolerance():
     # kernel's plain variant) serves too
     (lambda: load_model("RANGE", db_path="synthetic:100", device="cpu",
                         retrieval="hier")(_coords(4, seed=9)), None),
-    # a knob of the JAX package's two-level hier path, which is not ported
+    # a knob of the two-level hier path, accepted as the JAX package does
+    # (the dense path does not read it)
     (lambda: load_model("RANGE+", db_path="synthetic:100", device="cpu",
-                        m_tiles=8), TypeError),
+                        m_tiles=8)(_coords(4, seed=10)), None),
     # dense serving on a mesh is ported: a mesh that is no DeviceMesh is
     # refused (tests/test_torch_sharded.py serves real ones)
     (lambda: load_model("RANGE+", db_path="synthetic:100", device="cpu",

@@ -8,6 +8,8 @@ This file imports no JAX, so it also runs where only the port is installed:
 Without a CUDA device every test skips.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -882,9 +884,19 @@ def test_two_level_kernels_reject_f32_operands(cuda):
     with pytest.raises(ValueError, match="bfloat16"):
         rh._hier_scan_call(q, g, g[:, :128], torch.zeros(128, 384, device=cuda),
                            torch.zeros(512, 512, device=cuda), gpt_s=8, gpt_g=8, sup_r=4)
-    with pytest.raises(NotImplementedError, match="has_parts"):
-        rh._hier_refine_call(q.bfloat16(), idx, g.bfloat16(), None, None, None, bm=256,
-                             gpt_f=8, gpt_sup=1)
+    # the has_parts form (the two-level feature path) serves: its value
+    # operands must be bf16 too, and bf16 ones launch it
+    vw = torch.zeros(64 * 8, 384, device=cuda)
+    with pytest.raises(ValueError, match="bfloat16"):
+        rh._hier_refine_call(q.bfloat16(), idx, g.bfloat16(), g[::8].bfloat16(), vw, vw[::8],
+                             bm=256, gpt_f=8, gpt_sup=1)
+    n0 = rh._hier_refine_call.parts_launches
+    m_f, s_f, parts = rh._hier_refine_call(q.bfloat16(), idx, g.bfloat16(), g[::8].bfloat16(),
+                                           vw.bfloat16(), vw[::8].bfloat16(), bm=256, gpt_f=8,
+                                           gpt_sup=1)
+    torch.cuda.synchronize()
+    assert rh._hier_refine_call.parts_launches == n0 + 1
+    assert parts.shape == (256, 384) and not parts.any() and m_f.shape == (256, 4)
 
 
 def test_tail_super_flagship_launches(cuda):
@@ -1414,3 +1426,219 @@ def test_mesh_on_the_card(cuda, tmp_path):
             torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-6)
     finally:
         dist.destroy_process_group()
+
+
+# ---- the rest of hierarchical serving: the refine kernel's has_parts form
+# (the two-level feature path), kernel 14's sel and dedup_pad forms in its
+# four shapes, and the paths that run them
+
+
+# Tolerances: the stats as the stats-only form's; the partials' weights
+# are bf16(exp2) of f32 logits summed in another order, so one that this
+# moves across a bf16 boundary rounds the other way: one ulp of one term,
+# in at most max(2, B / 100) rows (`_within_terms`).
+@pytest.mark.parametrize("gpt,gpt_sup,M,W", [(64, 8, 48, 1152), (16, 8, 13, 384),
+                                             (8, 2, 5, 128), (32, 3, 9, 640)])
+def test_refine_parts_kernel_matches_plain(cuda, gpt, gpt_sup, M, W):
+    """The has_parts form: fine stats plus sum over the M listed tiles of
+    bf16(exp2(l_f)) @ vw - bf16(exp2(l_sup)) @ vw_sup, at the two-level
+    feature path's shape (bn=512, gsz_sem=8, gsz_super=64: 64 fine and 8
+    supergroups a tile, Dv + 128 = 1,152 columns in three slices) and
+    smaller ones (ragged lists, a supergroup count that divides no step, a
+    ragged batch)."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    T, bm = 120, 256
+    q = _bf16_rand((768, 384), 1.0, 17, cuda)
+    q[700:] = 0
+    g_cat = _bf16_rand((T * gpt, 256), 0.1, 18, cuda)
+    g_sup = _bf16_rand((T * gpt_sup, 256), 0.1, 19, cuda)
+    vw = _bf16_rand((T * gpt, W), 0.3, 20, cuda)
+    vw_sup = _bf16_rand((T * gpt_sup, W), 0.3, 21, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(22)
+    idx = torch.stack([torch.randperm(T, generator=gen, device=cuda)[:M]
+                       for _ in range(3)]).to(torch.int32)
+    args = (q, idx, g_cat, g_sup, vw, vw_sup)
+    n0 = (rh._hier_refine_call.launches, rh._hier_refine_call.parts_launches)
+    m_f, s_f, parts = rh._hier_refine_call(*args, bm=bm, gpt_f=gpt, gpt_sup=gpt_sup)
+    torch.cuda.synchronize()
+    assert (rh._hier_refine_call.launches, rh._hier_refine_call.parts_launches) == (
+        n0[0] + 1, n0[1] + 1)
+    kw = dict(bm=bm, gpt_f=gpt, g_sup_cat=g_sup, g_sem_vw=vw, g_sup_vw=vw_sup,
+              gpt_sup=gpt_sup)
+    rm, rs, rp = rh._hier_refine_plain(q, idx, g_cat, **kw)
+    mag = rh._hier_refine_plain(q, idx, g_cat, **kw, magnitude=True)[2]
+    torch.testing.assert_close(m_f, rm, rtol=0, atol=1e-4)
+    torch.testing.assert_close(s_f, rs, rtol=1e-4, atol=0)
+    assert parts.shape == (768, W)
+    _within_terms(parts, rp, mag, rows_off_max=max(2, 768 // 100))
+
+
+@pytest.fixture
+def knob_bank(cuda):
+    """The hier_bank fixture's bank and knobs plus the sel_lr (64) and
+    topk_lr (64) sketches, built on the card."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    bank = GeoBank.synthetic_informative(3, 9000, pad_to=512, value_dtype=torch.bfloat16,
+                                         device=cuda)
+    return rh.build_hier_bank(bank, bn=128, gsz_sem=16, gsz_geo=16, lr_rank=256, lr_geo=384,
+                              res_rank=128, topk_gsz=8, topk_lr=64, sel_lr=64)
+
+
+def _family_operands(hb, shape, geo, sel):
+    """Kernel 14's operands in ``shape`` (plain, lr, rr, rrlr) for one
+    family; with ``sel`` the sem family's sketched centroids."""
+    vw = {False: (hb.g_sem_vw, hb.g_sem_vw_lr), True: (hb.g_geo_vw, hb.g_geo_vw_lr)}[geo]
+    lr = shape in ("lr", "rrlr")
+    z = (hb.z_geo if geo else hb.z_sem) if shape in ("rr", "rrlr") else None
+    lrr = (384 if geo else 256) if lr else 1024
+    g = hb.g_geo_cat if geo else (hb.g_sem_sel if sel else hb.g_sem_cat)
+    return g, vw[1] if lr else vw[0], z, lr, lrr
+
+
+SHAPES = ("plain", "lr", "rr", "rrlr")
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_family_parts_sel_form_matches_plain(cuda, knob_bank, shape):
+    """The sel form: the sem family over [q_cat | q_sel] (the query 64
+    columns wider than the keys), its group logits from the last 64
+    against g_sem_sel, at each shape; counted in .sel_launches (and
+    .sel_rr_launches for the rr shapes).  Tolerances as the other
+    shapes'."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    hb = knob_bank
+    q_cat, _ = _merged_operands(hb, cuda)
+    q_sel = (q_cat[:, :256].float() @ hb.p_sel.T).bfloat16()
+    q_wide = torch.cat([q_cat, q_sel], 1).contiguous()
+    stats = rh._hier_scan_stats_plain(torch.cat([q_sel, q_cat[:, 256:]], 1), hb.g_sem_sel,
+                                      hb.g_geo_cat, gpt_s=8, gpt_g=8)
+    idx, _ = rh.select_tiles(*stats, t_real=hb.t_real, k_tiles=24, bm=128, n_valid=700,
+                             mode="range")
+    g, vw, z, lr, lrr = _family_operands(hb, shape, False, True)
+    args = (q_wide, hb.k_cat, hb.mask_neg, idx, g, vw, z)
+    kw = dict(sem_d=256, bm=128, bn=128, gpt=8, geo=False, lrr=lrr, lr=lr, values=hb.values,
+              scale=hb.value_scale, sel=True)
+    fam = rh._hier_parts_family_call
+    n0 = (fam.sel_launches, fam.sel_rr_launches)
+    got = fam(*args, **kw)
+    ref = rh._hier_parts_family_plain(*args, **kw)
+    mag = rh._hier_parts_family_plain(*args, **kw, magnitude=True)
+    torch.cuda.synchronize()
+    rr = z is not None
+    assert (fam.sel_launches, fam.sel_rr_launches) == (n0[0] + 1, n0[1] + int(rr))
+    assert got.shape == ref.shape
+    _within_terms(got, ref, mag, rows_off_max=7)
+    with pytest.raises(ValueError, match="unsupported shapes"):
+        fam(q_cat, *args[1:], **kw)  # the sel form needs the sketch columns
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("geo", [False, True], ids=["sem", "geo"])
+def test_family_parts_dedup_form(cuda, knob_bank, shape, geo):
+    """The dedup_pad form on `_dedup_union` lists (2 blocks of 128 merged,
+    k_union past the distinct count: repeat padding in every row) against
+    the plain version; and a list with repeats appended equals, bit for
+    bit, the kernel over the same list without them."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    hb = knob_bank
+    q_cat, idx = _merged_operands(hb, cuda, k_tiles=12)
+    union = rh._dedup_union(idx, 2, 24)
+    assert (union[:, 1:] == union[:, :-1]).any(dim=1).all()  # pad repeats in every row
+    g, vw, z, lr, lrr = _family_operands(hb, shape, geo, False)
+    kw = dict(sem_d=256, bn=128, gpt=8, geo=geo, lrr=lrr, lr=lr, values=hb.values,
+              scale=hb.value_scale)
+    fam = rh._hier_parts_family_call
+    args = (q_cat, hb.k_cat, hb.mask_neg, union, g, vw, z)
+    n0 = (fam.dedup_launches, fam.dedup_rr_launches)
+    got = fam(*args, bm=256, dedup_pad=True, **kw)
+    ref = rh._hier_parts_family_plain(*args, bm=256, dedup_pad=True, **kw)
+    mag = rh._hier_parts_family_plain(*args, bm=256, dedup_pad=True, magnitude=True, **kw)
+    torch.cuda.synchronize()
+    assert (fam.dedup_launches, fam.dedup_rr_launches) == (n0[0] + 1, n0[1] + int(z is not None))
+    _within_terms(got, ref, mag, rows_off_max=7)
+    padded = torch.cat([idx, idx[:, -1:].repeat(1, 5)], 1)
+    a = fam(q_cat, *args[1:3], padded, *args[4:], bm=128, dedup_pad=True, **kw)
+    b = fam(q_cat, *args[1:3], idx, *args[4:], bm=128, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def test_knob_paths_launch_their_forms(cuda, knob_bank):
+    """load_model's sel_lr, dedup and rescue knobs on the card: a sel_lr
+    flagship request launches both family parts kernels once, the sem one
+    in its sel form; dedup=2 at B = 8,192 both in the dedup_pad form; the
+    rescue four family launches (two at bm 128); topk_lr's hier_topk one
+    stats scan over g_topk_lr.  Answers finite, the rescue's un-rescued
+    rows bit-identical to the rescue-off output."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    hb = knob_bank
+    fam = rh._hier_parts_family_call
+    coords = _coords(8192, seed=23, device=cuda)
+    kw = dict(profile="flagship", hier_bn=128, gsz_geo=16, topk_lr=64)
+    plain_hb = dataclasses.replace(hb, sel_lr=0, g_sem_sel=None)
+    cases = [("sel", dict(sel_lr=64), hb, (2, 1, 0)),
+             ("dedup", dict(dedup=2), plain_hb, (2, 0, 2)),
+             ("rescue", dict(adaptive_frac=0.1), plain_hb, (4, 0, 0))]
+    outs = {}
+    for name, knobs, bank, want in cases:
+        enc = load_model("RANGE+", db_path=bank, **kw, **knobs)
+        n0 = (fam.launches, fam.sel_launches, fam.dedup_launches)
+        outs[name] = enc(coords)
+        torch.cuda.synchronize()
+        assert (fam.launches - n0[0], fam.sel_launches - n0[1],
+                fam.dedup_launches - n0[2]) == want, name
+        assert outs[name].shape == (8192, 1280) and torch.isfinite(outs[name]).all()
+    base = load_model("RANGE+", db_path=plain_hb, **kw)(coords)
+    same = (outs["rescue"] == base).all(dim=1)
+    assert 0 < int((~same).sum()) <= int(0.1 * 8192)
+    q = torch.nn.functional.normalize(torch.randn(512, 256, device=cuda), dim=1)
+    n0 = rh._hier_scan_stats_call.launches
+    rows = rh.hier_topk(q, None, hb, k_tiles=8)
+    torch.cuda.synchronize()
+    assert rh._hier_scan_stats_call.launches == n0 + 1 and rows.shape == (512,)
+
+
+@pytest.mark.parametrize("name", ["RANGE+", "RANGE"])
+def test_two_level_feature_path_launches(cuda, two_level_bank, name):
+    """load_model(name, retrieval="hier", gsz_super=16) over the two-level
+    bank (no lr_rank): per request one scan over the supergroups, one
+    refine in its has_parts form, one merged parts launch (its plain
+    variant), no family parts and no combine; finite answers.  With every
+    tile in M and K the telescope leaves the exact softmax up to the bf16
+    weights of the exact parts, which at Dv = 1,024 over bf16 values is
+    ~7e-3 of max(|ref|, 0.1) on the CPU in both the one- and the two-level
+    path: the two-level answer is held within 1e-3 of the one-level merged
+    path's over the same rows (3.6e-6 on the CPU; a weight rounding the
+    other way moves one term by 2^-8) and both within 1e-2 of the exact
+    f32 retrieve."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    hb = two_level_bank
+    enc = load_model(name, db_path=hb, retrieval="hier", hier_bn=128, gsz_sem=8,
+                     gsz_geo=16, gsz_super=16, chunk=512)
+    coords = _coords(3000, seed=24, device=cuda)
+    counters = (rh._hier_scan_call, rh._hier_refine_call, rh._hier_parts_call,
+                rh._hier_parts_family_call, rh._combine_cat_call)
+    n0 = [c.launches for c in counters] + [rh._hier_refine_call.parts_launches,
+                                           rh._hier_parts_call.plain_launches]
+    out = enc(coords)
+    torch.cuda.synchronize()
+    got = [c.launches for c in counters] + [rh._hier_refine_call.parts_launches,
+                                            rh._hier_parts_call.plain_launches]
+    assert [a - b for a, b in zip(got, n0)] == [1, 1, 1, 0, 0, 1, 1]
+    assert out.shape == (3000, 1280) and torch.isfinite(out).all()
+    if name == "RANGE+":
+        q = out[:, 1024:]
+        x = lonlat_deg_to_xyz(coords)
+        full = rh.retrieve_hier(q, x, hb, k_tiles=hb.t_real, m_tiles=hb.t_real, bm=128)
+        one = dataclasses.replace(hb, gsz_super=0, g_sup_cat=None, g_sup_vw=None)
+        base = rh.retrieve_hier(q, x, one, k_tiles=hb.t_real, bm=128)
+        ref = retrieval.retrieve(q, x, hb.bank, sem_temp=12.0, beta=0.5)
+        assert ((full - base).abs() / base.abs().clamp_min(0.1)).max() < 1e-3
+        for out in (full, base):
+            assert ((out - ref).abs() / ref.abs().clamp_min(0.1)).max() < 1e-2

@@ -227,13 +227,16 @@ def test_eigen_operands_match_jax_sign_invariantly(jhb, injected, coef, basis,
 
 
 def test_build_rejects_unported_knobs(tbank):
-    """topk_lr and sel_lr are not ported; the two-level knobs' nesting rules
-    raise ValueError before any clustering (`retrieval_hier.py:366-401`:
-    gsz_super beside topk_gsz, windows that do not nest, sel_lr beside
-    tail_super)."""
-    for knob in ("topk_lr", "sel_lr"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            th.build_hier_bank(tbank, **{**KW, knob: 32})
+    """topk_lr and sel_lr build their rank-32 sketches (of the topk_gsz and
+    the sem centroids: `tests/test_torch_hier_knobs.py` holds them against
+    JAX's); the two-level knobs' nesting rules raise ValueError before any
+    clustering (`retrieval_hier.py:366-401`: gsz_super beside topk_gsz,
+    windows that do not nest, sel_lr beside tail_super)."""
+    hb = th.build_hier_bank(tbank, **{**KW, "topk_lr": 32, "sel_lr": 32})
+    assert hb.topk_lr == hb.sel_lr == 32
+    assert hb.p_topk.shape == hb.p_sel.shape == (32, 256)
+    assert hb.g_topk_lr.shape == (hb.g_topk_cat.shape[0], 32)
+    assert hb.g_sem_sel.shape == (hb.g_sem_cat.shape[0], 32)
     for bad, match in ((dict(gsz_super=16), "mutually exclusive"),
                        (dict(topk_gsz=0, gsz_super=24), "gsz_super"),
                        (dict(tail_super=16), "tail_super"),

@@ -26,6 +26,7 @@ from range_tpu_torch.ops import retrieval
 from range_tpu_torch.ops import retrieval_hier as th
 
 SMALL = dict(hier_bn=128, gsz_geo=16, chunk=512, seed=0)
+CHEAP = dict(SMALL, lr_rank=0, lr_geo=0, res_rank=0)
 
 
 def _regional_coords(locs, B, seed):
@@ -133,16 +134,20 @@ def test_hier_plan_copies_the_jax_heuristic(B, plan):
     # RANGE mode without the low-rank sem tail (kernel 15's plain variant)
     # serves: None = no error
     (dict(profile="flagship", mode_range=True, lr_rank=0), None),
-    (dict(profile="flagship", sel_lr=64), NotImplementedError),
+    # the sel_lr sketch, tile-list dedup and the rescue serve (the
+    # flagship's budgets over a 512-row bank without its Dv-wide eigen
+    # bases: the knob's path, not the build's cost, is under test)
+    (dict(profile="flagship", sel_lr=64, **CHEAP), None),
     # tail_super serves RANGE+ only (the family-split path)
     (dict(profile="flagship", mode_range=True, tail_super=64), ValueError),
-    (dict(profile="flagship", dedup=2), NotImplementedError),
-    (dict(profile="flagship", adaptive_frac=0.1), NotImplementedError),
+    (dict(profile="flagship", dedup=2, **CHEAP), None),
+    (dict(profile="flagship", adaptive_frac=0.1, **CHEAP), None),
     # gsz_super and the flagship's topk_gsz both feed hier_topk's selection
     (dict(profile="flagship", gsz_super=64), ValueError),
     (dict(profile="flagship", mesh=object()), NotImplementedError),
     (dict(profile="flagship", k_tile=32), TypeError),
-    (dict(profile="flagship", m_tiles=32), TypeError),
+    # the two-level feature path's M is a knob (unused on one-level banks)
+    (dict(profile="flagship", m_tiles=32, **CHEAP), None),
     (dict(profile="flagship", hier_scan_bm=512), TypeError),
 ], ids=["range_mode", "sel_lr", "tail_super", "dedup", "adaptive_frac",
         "gsz_super", "mesh", "unknown_kwarg", "two_level_knob",
@@ -166,7 +171,8 @@ def test_hier_error_contract(kw, error):
 def test_retrieve_hier_rejects_unported_banks_and_modes():
     """Banks without res_rank / lr_geo, and RANGE mode without lr_rank,
     serve (the family-split value shapes and the merged kernel's plain
-    variant); sel_lr banks and unknown modes still raise."""
+    variant); a bank whose sel_lr is set without its sketch serves as the
+    plain bank (JAX's use_sel); unknown modes raise."""
     bank = GeoBank.synthetic_informative(2, 1000, value_dim=128, pad_to=512,
                                          device="cpu")
     hb = th.build_hier_bank(bank, bn=128, gsz_sem=16, gsz_geo=16, lr_rank=128)
@@ -178,7 +184,7 @@ def test_retrieve_hier_rejects_unported_banks_and_modes():
     no_lr = dataclasses.replace(hb, lr_rank=0, g_sem_vw_lr=None)
     out = th.retrieve_hier(q, None, no_lr, mode="range", bm=128)
     assert out.shape == (8, 128) and torch.isfinite(out).all()
-    with pytest.raises(NotImplementedError, match="sel_lr"):
-        th.retrieve_hier(q, x, dataclasses.replace(hb, sel_lr=32), bm=128)
+    assert torch.equal(th.retrieve_hier(q, x, dataclasses.replace(hb, sel_lr=32), bm=128),
+                       th.retrieve_hier(q, x, hb, bm=128))
     with pytest.raises(ValueError, match="mode"):
         th.retrieve_hier(q, x, hb, mode="dense")

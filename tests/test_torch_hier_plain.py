@@ -439,15 +439,20 @@ def test_tail_super_without_lr_matches_jax(jbanks, tmp_path):
 
 
 def test_unservable_banks_still_raise(thbs):
-    """Only the two-level feature path (gsz_super without lr_rank) and
-    sel_lr banks stay unported; every knob subset serves."""
+    """Every bank serves now: the two-level feature path (supergroup
+    operands without lr_rank; here supergroups equal to the fine groups, so
+    the refine's fine-minus-supergroup term is zero), a bank whose sel_lr is
+    set without its sketch (served as the plain bank, JAX's use_sel) and
+    every knob subset."""
     thb = thbs["bf16"]
     q = torch.nn.functional.normalize(torch.randn(8, 256), dim=1)
     x = torch.nn.functional.normalize(torch.randn(8, 3), dim=1)
-    two_level = dataclasses.replace(_subset(thb, "none"), gsz_super=32,
-                                    g_sup_cat=thb.g_sem_cat)
-    for bank in (two_level, dataclasses.replace(thb, sel_lr=32)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*what remains"):
-            th.retrieve_hier(q, x, bank, bm=128)
+    plain = _subset(thb, "none")
+    two_level = dataclasses.replace(plain, gsz_super=plain.gsz_sem,
+                                    g_sup_cat=plain.g_sem_cat, g_sup_vw=plain.g_sem_vw)
+    out = th.retrieve_hier(q, x, two_level, bm=128)
+    assert out.shape == (8, Dv) and torch.isfinite(out).all()
+    assert torch.equal(th.retrieve_hier(q, x, dataclasses.replace(thb, sel_lr=32), bm=128),
+                       th.retrieve_hier(q, x, thb, bm=128))
     for name in SUBSETS:
         assert th.retrieve_hier(q, x, _subset(thb, name), bm=128).shape == (8, Dv)

@@ -150,7 +150,7 @@ def test_load_model_value_quant_matches_bf16_and_jax():
 
 def test_geobank_moves_its_scale():
     tb = quantize_values(GeoBank.synthetic(1, 100, key_dim=8, value_dim=16,
-                                           pad_to=64))
+                                           pad_to=64, device="cpu"))
     moved = tb.to("cpu")
     assert moved.value_scale is not None and torch.equal(moved.value_scale,
                                                          tb.value_scale)

@@ -1,6 +1,8 @@
 """range_tpu_torch never imports jax, not even indirectly: serving (dense,
-the two-level top-k and the tail_super flagship), the sharded module, pruned
-and hybrid retrieval over a clustered bank, and a training step."""
+the two-level top-k and feature path, the tail_super flagship, a sel_lr and
+topk_lr bank's build and serving, dedup and the rescue), the sharded
+module, pruned and hybrid retrieval over a clustered bank, and a training
+step."""
 
 import os
 import subprocess
@@ -37,6 +39,13 @@ def test_port_never_imports_jax():
             "x = torch.nn.functional.normalize(torch.randn(4, 3), dim=1)\n"
             "assert retrieve_pruned(q, x, cb, st, bm=16, bn=128).shape == (4, 128)\n"
             "assert retrieve_hybrid(q, x, cb, st, bm=16, bn=128).shape == (4, 128)\n"
+            "assert rh.retrieve_hier(q, x, hb, k_tiles=2, bm=128).shape == (4, 128)\n"
+            "sl = rh.build_hier_bank(b, bn=128, gsz_sem=16, gsz_geo=16, lr_rank=128, "
+            "res_rank=128, topk_gsz=8, topk_lr=32, sel_lr=32)\n"
+            "assert rh.hier_topk(q, None, sl, k_tiles=2, bm=128).shape == (4,)\n"
+            "assert rh.retrieve_hier(q, x, sl, k_tiles=2, k_geo=2, bm=128).shape == (4, 128)\n"
+            "assert rh.retrieve_hier(q, x, sl, k_tiles=2, k_geo=2, bm=128, dedup=2, "
+            "adaptive_frac=0.5).shape == (4, 128)\n"
             "m = tr.SatClipModel(tr.SatClipConfig(vision=StdResNetConfig("
             "layers=(1, 1, 1, 1), width=8, in_channels=4, output_dim=16), "
             "location=SatClipLocationConfig(embed_dim=16, legendre_polys=4, "

@@ -120,7 +120,8 @@ def test_geobank_matches_jax():
     """`GeoBank.synthetic` draws what the JAX package draws from the same
     seed; xyz comes from torch's trig (last-ulp differences only)."""
     jb = JaxGeoBank.synthetic(7, 300, key_dim=16, value_dim=32, pad_to=128)
-    tb = GeoBank.synthetic(7, 300, key_dim=16, value_dim=32, pad_to=128)
+    tb = GeoBank.synthetic(7, 300, key_dim=16, value_dim=32, pad_to=128,
+                           device="cpu")
     assert (tb.num_rows, tb.key_dim, tb.value_dim, tb.n_valid) == (384, 16, 32, 300)
     for name in ("locs_lonlat", "keys_sem", "values"):
         np.testing.assert_array_equal(getattr(tb, name).numpy(),

@@ -448,15 +448,17 @@ def test_retrieve_hier_unsorted_matches_jax(jhb, thb, regional):
 
 def test_unported_branches_raise(thb, regional):
     q, x = _t(regional[0][:8]), _t(regional[1][:8])
-    # hier_topk serves two-level banks; the feature path over a two-level
-    # bank without lr_rank (`_hier_partials2`) is not ported
-    two_level = dataclasses.replace(thb, gsz_super=32, g_sup_cat=thb.g_sem_cat,
-                                    lr_rank=0, g_sem_vw_lr=None)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*what remains"):
-        th.retrieve_hier(q, x, two_level)
-    low_rank = dataclasses.replace(thb, topk_lr=16, g_topk_lr=thb.g_topk_cat)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*what remains"):
-        th.hier_topk(q, x, low_rank)
+    # the feature path over a two-level bank without lr_rank
+    # (`_hier_partials2`) serves: supergroups equal to the fine groups here
+    two_level = dataclasses.replace(thb, gsz_super=thb.gsz_sem, g_sup_cat=thb.g_sem_cat,
+                                    g_sup_vw=thb.g_sem_vw, lr_rank=0, g_sem_vw_lr=None)
+    out = th.retrieve_hier(q, x, two_level, bm=128)
+    assert out.shape == (8, 128) and torch.isfinite(out).all()
+    # hier_topk on a topk_lr bank serves: a complete-rank sketch (the
+    # identity basis) selects as the full stats operand
+    low_rank = dataclasses.replace(thb, topk_lr=256, g_topk_lr=thb.g_topk_cat,
+                                   p_topk=torch.eye(256))
+    assert torch.equal(th.hier_topk(q, x, low_rank, bm=128), th.hier_topk(q, x, thb, bm=128))
     # RANGE mode serves banks without lr_rank too (kernel 15's plain
     # variant): no longer an unported branch
     no_lr = dataclasses.replace(thb, lr_rank=0, g_sem_vw_lr=None)

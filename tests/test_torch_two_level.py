@@ -246,10 +246,12 @@ def test_refine_plain_matches_jax(jhb2, thb2, q_cat):
     assert none is none_t is None and m_t.shape == (B, 8)
     np.testing.assert_allclose(m_t.numpy(), _np(m_j), rtol=0, atol=1e-4)
     np.testing.assert_allclose(s_t.numpy(), _np(s_j), rtol=1e-4, atol=0)
-    with pytest.raises(NotImplementedError, match="has_parts"):
-        th._hier_refine_call(_bf(q_cat), _t(idx).to(torch.int32), thb2.g_sem_cat,
-                             thb2.g_sup_cat, thb2.g_sem_vw, thb2.g_sup_vw, bm=128,
-                             gpt_f=16, gpt_sup=8)
+    # the has_parts form (`tests/test_torch_two_level_features.py` holds its
+    # partial against JAX's) gives the same stats
+    m_p, s_p, parts = th._hier_refine_call(_bf(q_cat), _t(idx).to(torch.int32),
+                                           thb2.g_sem_cat, thb2.g_sup_cat, thb2.g_sem_vw,
+                                           thb2.g_sup_vw, bm=128, gpt_f=16, gpt_sup=8)
+    assert torch.equal(m_p, m_t) and torch.equal(s_p, s_t) and parts.shape == (B, 256)
 
 
 def test_gather_cols_equals_jax(jhb2, q_cat):
@@ -337,15 +339,16 @@ def test_tail_super_telescope(tts, regional):
 
 def test_tail_super_serving_contract(tts, regional):
     """RANGE mode on a tail_super bank raises ValueError (the merged parts
-    kernel has no supergroup correction); the rescue and dedup still
-    raise NotImplementedError; m_corr on a bank without tail_super is
-    ignored, as in JAX."""
+    kernel has no supergroup correction); the rescue and dedup serve it as
+    JAX does: dedup is skipped on tail_super banks and a rescue share of 2
+    (R >= the padded batch) rescues nothing, so both answers are the plain
+    one; m_corr on a bank without tail_super is ignored, as in JAX."""
     q, x = _t(regional[0][:8]), _t(regional[1][:8])
     with pytest.raises(ValueError, match="family-split"):
         th.retrieve_hier(q, None, tts, mode="range", bm=128)
+    base = th.retrieve_hier(q, x, tts, bm=128)
     for knob in ("adaptive_frac", "dedup"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            th.retrieve_hier(q, x, tts, bm=128, **{knob: 2})
+        assert torch.equal(th.retrieve_hier(q, x, tts, bm=128, **{knob: 2}), base)
     fine = dataclasses.replace(tts, tail_super=0, g_sem_ts_vw=None, g_sem_ts_dvw=None)
     assert torch.equal(th.retrieve_hier(q, x, fine, bm=128, m_corr=8),
                        th.retrieve_hier(q, x, fine, bm=128))
