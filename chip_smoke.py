@@ -4,10 +4,13 @@ Builds the port's sixteen CUDA kernels (and their variants: the scan's
 segment-sum and wide-tail forms, the merged parts kernel without lr, the
 family parts kernel's plain / lr / rr shapes and their sel and dedup_pad
 forms, the refine kernel's has_parts form, the combine without lr_geo,
-the int8 forms of the parts and pruned kernels) from the eleven sources
-of `range_tpu_torch/csrc/` (one nvcc per source, all started together),
-holds each against its plain PyTorch version at the main paths' shapes,
-then
+the int8 forms of the parts and pruned kernels, and kernel 2's two bodies:
+the Hopper kernel of its bf16 tiers and the mma.sync body of its f32 tier)
+from the twelve sources of `range_tpu_torch/csrc/` (one nvcc per source,
+all started together), holds each against its plain PyTorch version at the
+main paths' shapes, prints the Hopper kernel's drift for each length of
+its accumulation chain and its time beside the mma.sync body's at B = 1,
+37, 1,000 and 10,000, then
 drives the serving paths at full width (SatCLIP SH-L40 -> SIREN
 1600->256->256->256 tower, 100,000-row bank with 256-d keys and bf16
 1024-d values, 1,280-d output) and the training path:
@@ -107,11 +110,13 @@ REQUESTS = (1, 37, 1_000, BATCH)
 L, WIDTH = 40, 256
 # kernel sources (one library each), and the kernels of the JSON line:
 # (name, source, the TPU kernel it replaces)
-SOURCES = ("siren_tower", "fused_retrieval", "hier_scan", "hier_parts_family",
-           "combine_cat", "hier_scan_stats", "hier_argmax", "hier_parts", "sh_times",
+SOURCES = ("siren_tower", "fused_retrieval_sm90", "fused_retrieval", "hier_scan",
+           "hier_parts_family", "combine_cat", "hier_scan_stats", "hier_argmax", "hier_parts", "sh_times",
            "hier_refine", "hier_corr")
 KERNELS = (("siren_tower", "siren_tower", "range_tpu/ops/sh.py:726"),
-           ("fused_retrieval", "fused_retrieval", "range_tpu/ops/retrieval_pallas.py:123"),
+           ("fused_retrieval", "fused_retrieval_sm90", "range_tpu/ops/retrieval_pallas.py:123"),
+           # kernel 2's 'exact' tier (f32 logits) on the mma.sync body
+           ("fused_retrieval_exact", "fused_retrieval", "range_tpu/ops/retrieval_pallas.py:123"),
            ("fused_retrieval_i8", "fused_retrieval", "range_tpu/ops/retrieval_pallas.py:181"),
            ("hier_scan", "hier_scan", "range_tpu/ops/retrieval_hier.py:1443"),
            ("hier_parts_family", "hier_parts_family", "range_tpu/ops/retrieval_hier.py:2282"),
@@ -340,6 +345,124 @@ def _build_all():
                 print(f"  ptxas: {line.strip()}")
 
 
+def _sm90_drift(bank, q, q_xyz, mask, flip_atol) -> None:
+    """Kernel 2's Hopper kernel at B=10,000 over the bank's 102,400 rows,
+    fast tier, RANGE+, with segments of every length from one chain over
+    the whole bank down to 3,200 rows (each block sums its segment through
+    wgmma's accumulator).  For each: the largest error and the rows off by
+    > 1e-4 against the plain version (the bar: max(2, B / 100) rows); the
+    largest error over the mesh phase's cross-shard tolerance (1e-5 x max
+    |v| + 1e-5 |kernel 2|) against kernel 5 on the mma.sync body over 4 row
+    slabs, added; and the largest error over 1e-3 x row max (the mesh
+    phase's bar against one card) against the mma.sync body's kernel 2.
+    SEG_ROWS_MAX is the longest run that keeps all three."""
+    from range_tpu_torch.ops import retrieval_fused as rf
+
+    q_cat = rf.pack_queries(q, q_xyz, 12.0, 40.0, "fast")
+    k_cat = rf.pack_bank(bank.keys_sem, bank.xyz, "fast")
+    sem_d, N, Dv = bank.key_dim, bank.num_rows, bank.value_dim
+    ref = rf._retrieve_fused_plain(q_cat, k_cat, bank.values, mask, 0.5, sem_d=sem_d)
+    parts = sum(rf.retrieve_fused_parts(
+        q_cat, k_cat[r].contiguous(), bank.values[r].contiguous(), mask[:, r].contiguous(),
+        sem_d=sem_d) for r in (slice(i * N // 4, (i + 1) * N // 4) for i in range(4)))
+    slabs = 0.5 * (parts[:, :Dv] / parts[:, 2 * Dv:2 * Dv + 1].clamp_min(1e-30)
+                   + parts[:, Dv:2 * Dv] / parts[:, 2 * Dv + 1:2 * Dv + 2].clamp_min(1e-30))
+    mma = rf._launch_fused("fused_retrieval_launch", q_cat, k_cat, bank.values, None, mask,
+                           0.5, sem_d)
+    vmax = bank.values.abs().max().item()
+    print(f"kernel 2 drift of the Hopper kernel's accumulation chain, B={BATCH}, N={N}, "
+          f"fast, RANGE+ (SEG_ROWS_MAX = {rf.SEG_ROWS_MAX}):")
+    for seg in (N, 51_200, 25_600, 12_800, 6_400, 3_200):
+        plan = rf._segment_plan(BATCH, N, Dv, sem_d, seg_rows_max=seg)
+        got = rf._launch_sm90(q_cat, k_cat, bank.values, mask, 0.5, sem_d, plan)
+        err = (got - ref).abs()
+        slab = ((slabs - got).abs() / (1e-5 * vmax + 1e-5 * got.abs())).max().item()
+        one = ((got - mma).abs() / (1e-3 * mma.abs().amax(dim=1, keepdim=True))).max().item()
+        ms = _cuda_ms(lambda: rf._launch_sm90(q_cat, k_cat, bank.values, mask, 0.5, sem_d,
+                                              plan), 5)
+        print(f"  {plan.n_seg} segments of {plan.seg_rows} rows ({plan.seg_rows // 16} k16 "
+              f"steps): max_abs_err {err.max().item():.3e} (err/tol "
+              f"{err.max().item() / flip_atol:.3e}), rows off by > 1e-4: "
+              f"{(err > 1e-4).any(dim=1).sum().item()} (at most {max(2, BATCH // 100)}); "
+              f"vs 4 slabs of kernel 5 err/tol {slab:.3e}; vs the mma.sync body err / "
+              f"(1e-3 x row max) {one:.3e}; {ms:.3f} ms")
+
+
+def _sm90_times(bank, q, q_xyz, mask, flip_atol, retr_why) -> None:
+    """Kernel 2's bodies side by side, taken in turns (body, kernel, other
+    form, other form, kernel, body): at B = 1, 37, 1,000 and 10,000, fast
+    tier, RANGE+ and RANGE, the Hopper kernel (its flat form, the one the
+    plan takes there), its cluster form and the mma.sync body on bf16
+    operands (the body before the Hopper kernel); at B = 1,000 and 10,000,
+    high tier, RANGE+, the Hopper kernel (its cluster form, the plan's
+    choice there), its flat form and the mma.sync body.  Both forms are held against the
+    plain version by the bars above.  At B=10,000, fast, the flat form's
+    time per tile beside what one 64-row tile needs of the tensor cores
+    and of shared memory."""
+    from range_tpu_torch.ops import retrieval_fused as rf
+
+    sem_d0, N, Dv = bank.key_dim, bank.num_rows, bank.value_dim
+    for tier, mode, batches in (("fast", "range+", REQUESTS), ("fast", "range", REQUESTS),
+                                ("high", "range+", (SMALL_BATCH, BATCH))):
+        beta, temp = (0.5, 12.0) if mode == "range+" else (1.0, 15.0)
+        k_cat = rf.pack_bank(bank.keys_sem, bank.xyz, tier)
+        sem_d = rf.packed_dims(sem_d0, tier)[0]
+        for b in batches:
+            q_cat = rf.pack_queries(q[:b], q_xyz[:b] if mode == "range+" else None, temp,
+                                    40.0, tier)
+            plan = rf._segment_plan(b, N, Dv, sem_d)
+            other = rf._segment_plan(b, N, Dv, sem_d, form="cluster" if plan.cs == 0 else "flat")
+
+            def run(pl):
+                return lambda: rf._launch_sm90(q_cat, k_cat, bank.values, mask, beta, sem_d, pl)
+
+            def old():
+                return rf._launch_fused("fused_retrieval_launch", q_cat, k_cat, bank.values,
+                                        None, mask, beta, sem_d)
+
+            tag = f"kernel 2 [{tier},{mode}] B={b}"
+            ref = rf._retrieve_fused_plain(q_cat, k_cat, bank.values, mask, beta, sem_d=sem_d)
+            for pl in (plan, other):
+                _compare(f"{tag} {pl} vs plain", run(pl)(), ref, flip_atol, 0.0, retr_why,
+                         rows_off_max=max(2, b // 100))
+            reps = 20 if b <= 37 else 5
+            t = [_cuda_ms(fn, reps) for fn in (old, run(plan), run(other), run(other),
+                                                run(plan), old)]
+            print(f"{tag}: Hopper kernel {t[1]:.4f} / {t[4]:.4f} ms ({plan}), its "
+                  f"{'cluster' if plan.cs == 0 else 'flat'} form {t[2]:.4f} / {t[3]:.4f} ms "
+                  f"({other}), mma.sync body {t[0]:.4f} / {t[5]:.4f} ms")
+            if (tier, mode, b) == ("fast", "range+", BATCH):
+                _sm90_tile_budget(plan, sem_d, b, Dv, min(t[1], t[4]))
+
+
+def _sm90_tile_budget(plan, sem_d: int, b: int, Dv: int, ms: float) -> None:
+    """The flat form's measured time per 64-row tile on one SM (the run's
+    ms over its waves of blocks and the tiles of a segment) beside what a
+    tile needs: its tensor-core operations at the card's peak per SM, and
+    its shared-memory traffic (the ring's TMA writes, and wgmma's operand
+    reads: queries and keys of the semantic logits, the geo box, the value
+    tile once per family) at 128 bytes a cycle per SM and the card's
+    maximum SM clock."""
+    clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                            "--format=csv,noheader,nounits"], capture_output=True,
+                           text=True).stdout.split()
+    mhz = float(clock[0]) if clock else float("nan")
+    kb, bn, dvs = sem_d // 64, plan.bn, plan.dvs
+    blocks = -(-b // 64) * -(-Dv // dvs) * plan.n_seg
+    waves = -(-blocks // 132)
+    per_tile = ms / waves / (plan.seg_rows // bn) * 1e3  # microseconds
+    flops = 2 * 64 * bn * (sem_d + 16) + 2 * 2 * 64 * bn * dvs
+    tma = kb * bn * 128 + bn * 32 + (dvs // 64) * bn * 128 + bn * 4
+    reads = 64 * sem_d * 2 + bn * sem_d * 2 + (64 + bn) * 32 + 2 * bn * dvs * 2
+    tensor_us = flops / (BF16_FLOPS / 132) * 1e6
+    smem_us = (tma + reads) / (128 * mhz * 1e6) * 1e6
+    print(f"kernel 2 flat form, B={b}: {blocks} blocks in {waves} waves of 132, "
+          f"{plan.seg_rows // bn} tiles a block: {per_tile:.3f} us a tile; a tile needs "
+          f"{flops} tensor operations ({tensor_us:.3f} us at 989 TFLOP/s / 132 SMs) and "
+          f"{tma + reads} bytes of shared-memory traffic ({tma} written by TMA, {reads} read "
+          f"by wgmma: {smem_us:.3f} us at 128 B a cycle and {mhz:.0f} MHz)")
+
+
 def _send(enc, c):
     # the B=37 request arrives as a numpy float64 array, as numpy callers
     # send coordinates; the entry point casts it to f32
@@ -404,9 +527,13 @@ def dense_phases(dev, gen, report) -> float:
         retr_why = ("the same logits up to summation order; a p within that "
                     "difference of a bf16 rounding boundary rounds the other way "
                     "(one ulp <= 2^-7 of one weight, times max |v|) in rare rows")
+        # kernel 2: the Hopper kernel (bf16 tiers) at the dense path's shape,
+        # the high tier and RANGE at B=1,000, the small requests; the exact
+        # tier on the mma.sync body
         for tier, mode, b in (("fast", "range+", BATCH), ("exact", "range+", SMALL_BATCH),
                               ("high", "range+", SMALL_BATCH),
-                              ("fast", "range", SMALL_BATCH)):
+                              ("fast", "range", SMALL_BATCH), ("fast", "range+", 1),
+                              ("fast", "range+", 37)):
             qx = q_xyz[:b] if mode == "range+" else None
             beta = 0.5 if mode == "range+" else 1.0
             temp = 12.0 if mode == "range+" else 15.0
@@ -421,12 +548,26 @@ def dense_phases(dev, gen, report) -> float:
                 return rf._retrieve_fused_plain(q_cat, k_cat, bank.values, mask, beta,
                                                 sem_d=sem_d)
 
-            tag = f"fused_retrieval[{tier},{mode}] B={b} N={bank.num_rows}"
+            name = "fused_retrieval_exact" if tier == "exact" else "fused_retrieval"
+            tag = f"{name}[{tier},{mode}] B={b} N={bank.num_rows}"
+            if tier != "exact":
+                plan = rf._segment_plan(b, bank.num_rows, bank.value_dim, sem_d)
+                print(f"{tag}: {plan}, {rf._sm90_smem(sem_d, *plan[:4])} bytes of shared "
+                      "memory a block")
             err, ratio = _compare(tag, kernel(), plain(), flip_atol, 0.0, retr_why,
                                   rows_off_max=max(2, b // 100))
-            ms = _cuda_ms(kernel, 5)
+            ms = _cuda_ms(kernel, 5 if b > 37 else 20)
             plain_ms = _cuda_ms(plain, 3)
             print(f"{tag}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+            if tier == "exact":  # f32 logits on the CUDA cores, bf16 value products
+                n, Dv = bank.n_valid, bank.value_dim
+                n_bytes = (b * q_cat.shape[1] * 4 + n * (k_cat.shape[1] * 4 + Dv * 2 + 4)
+                           + b * Dv * 4)
+                f32_ops = 2 * b * n * (sem_d + 3)
+                b_ms, b_by = _bound(n_bytes, f32_ops + 2 * 2 * b * n * Dv * F32_FLOPS
+                                    / BF16_FLOPS, F32_FLOPS)
+                report[name] = dict(max_abs_err=err, err_over_tol=ratio, ms=ms,
+                                    plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
             if b == BATCH:  # the dense path's tier and shape
                 n, Dv = bank.n_valid, bank.value_dim
                 # bf16 sem logits (sem_d) and hi/lo geo logits (9 columns),
@@ -438,6 +579,9 @@ def dense_phases(dev, gen, report) -> float:
                 report["fused_retrieval"] = dict(max_abs_err=err, err_over_tol=ratio, ms=ms,
                                                  plain_ms=plain_ms, bound_ms=b_ms,
                                                  bound_by=b_by)
+
+        _sm90_drift(bank, q, q_xyz, mask, flip_atol)
+        _sm90_times(bank, q, q_xyz, mask, flip_atol, retr_why)
 
         # the int8 kernel over the same bank's int8 codes (dense RANGE+, fast)
         bank8 = quantize_values(bank)
@@ -509,6 +653,19 @@ def dense_phases(dev, gen, report) -> float:
     print(f"dense RANGE+ end to end B={BATCH} (coords already on the card): "
           f"median {e2e:.3f} ms over 5 calls")
 
+    # ---- 4a. the exact tier through the entry point: kernel 2's mma.sync body
+    exact = load_model("RANGE+", db_path=bank, tier="exact", device="cuda")
+    out, got = _drive(f"dense RANGE+ tier='exact' B={SMALL_BATCH}",
+                      lambda: exact(requests[2]), {"siren_tower": 1, "fused_retrieval_exact": 1})
+    report["fused_retrieval_exact"]["launches"] = got["fused_retrieval_exact"]
+    with torch.no_grad():
+        ref = retrieval.retrieve(out[:, bank.value_dim:], lonlat_deg_to_xyz(requests[2]), bank,
+                                 sem_temp=12.0, beta=0.5)
+    _compare(f"RANGE+ tier='exact' B={SMALL_BATCH} vs exact f32 retrieve",
+             out[:, :bank.value_dim], ref, 5e-2, 1e-1, "the fast tier's tolerance (the exact "
+             "tier rounds only the weights to bf16)")
+    del exact
+
     # ---- 4b. RANGE+ with value_quant="int8", through the entry point
     enc8 = load_model("RANGE+", db_path=bank, value_quant="int8", device="cuda")
     b8 = enc8.model.bank
@@ -568,6 +725,7 @@ def _counters() -> dict:
     counters["hier_parts_plain"] = (rh._hier_parts_call, "plain_launches")
     counters["combine_cat_rg0"] = (rh._combine_cat_call, "rg0_launches")
     counters["hier_corr_wide"] = (rh._hier_corr_call, "wide_launches")
+    counters["fused_retrieval_exact"] = (rf.retrieve_fused, "exact_launches")
     counters["fused_parts"] = (rf.retrieve_fused_parts, "launches")
     counters["fused_parts_i8"] = (rf.retrieve_fused_parts, "i8_launches")
     counters["family_pruned"] = (rf._family_pruned_call, "launches")

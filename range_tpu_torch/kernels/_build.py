@@ -41,6 +41,8 @@ _SIGNATURES = {
                         "family_pruned_launch": [_P] * 8 + [_I] * 9 + [_P],
                         "fused_hybrid_launch":
                         [_P] * 6 + [_I] * 6 + [_F] + [_I] * 3 + [_P]},
+    "fused_retrieval_sm90": {"fused_sm90_launch":
+                             [_P] * 6 + [_I] * 5 + [_F] + [_I] * 6 + [_P]},
     "hier_scan": {"hier_scan_launch": [_P] * 10 + [_I] * 13 + [_P]},
     "hier_refine": {"hier_refine_launch": [_P] * 5 + [_I] * 6 + [_P],
                     "hier_refine_parts_launch": [_P] * 9 + [_I] * 9 + [_P]},

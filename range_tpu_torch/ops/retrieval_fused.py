@@ -14,7 +14,11 @@ by its own sum (clamped at 1e-30) and the two are blended with beta.  The
 logits are bounded by the temperatures for unit queries and keys, so no
 running max is needed.
 
-The same kernel body (`csrc/fused_retrieval.cu`) also serves
+On the card, bf16 operands (the 'fast' and 'high' tiers) go to the Hopper
+kernel `csrc/fused_retrieval_sm90.cu` (wgmma, a TMA ring, the bank rows cut
+into segments whose partials a second kernel adds in a fixed order:
+`_segment_plan`), f32 operands (the 'exact' tier) to the mma.sync kernel
+body `csrc/fused_retrieval.cu`.  That body also serves
 `retrieve_fused_parts` (the unnormalized partials of one bank shard, summed
 across shards by `parallel/sharded.py`), `_family_pruned_call` (one
 family's softmax over a tile plan's active bank tiles: `retrieve_pruned`)
@@ -30,7 +34,7 @@ Precision tiers of the logit matmuls (`retrieval_pallas.py:19-25`):
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -176,6 +180,22 @@ def _retrieve_fused_plain(q_cat, k_cat, values, mask_neg, beta: float,
                             beta)
 
 
+def _fused_segments_plain(q_cat, k_cat, values, mask_neg, beta: float, *,
+                          sem_d: int, seg_rows: int) -> torch.Tensor:
+    """Plain version of the Hopper kernel's segmented form: `_fused_sums`
+    over each segment of ``seg_rows`` bank rows (the last one ragged), the
+    segments' partials added in segment order as `segment_reduce_kernel`
+    adds them, then each family divided by its own sum and blended."""
+    total = None
+    for lo in range(0, max(k_cat.shape[0], 1), seg_rows):
+        rows = slice(lo, lo + seg_rows)
+        part = _fused_sums(q_cat, k_cat[rows], values[rows], mask_neg[:, rows],
+                           sem_d=sem_d)
+        total = part if total is None else tuple(
+            a + b for a, b in zip(total, part))
+    return _normalize_blend(*total, beta)
+
+
 # the partials' pad columns: [sem_acc | geo_acc | d_s | d_g | 0 ...], 2 Dv +
 # 128 wide, as the TPU kernel's lane-aligned block (`retrieval_pallas.py:420`)
 PARTS_PAD = 128
@@ -240,6 +260,126 @@ def _family_pruned_plain(q_fam, k_fam, values, mask_neg, tile_idx,
 # geo columns the kernel reads: 9 (3 for 'exact') real ones, rounded up to
 # one 16-deep MMA step; the rest of the block is zero padding.
 _GEO_D = 16
+
+# ---- the plan of the Hopper kernel (csrc/fused_retrieval_sm90.cu)
+
+# the H100's SMs: a request is cut into at least this many blocks
+SM90_SMS = 132
+# the longest run of bank rows that one block sums through the tensor
+# cores' accumulator, which truncates at every k16 step, so its drift grows
+# with the run (chip_smoke.py prints the drift of each run length)
+SEG_ROWS_MAX = 12_800
+_SM90_MAX_SMEM = 232_448
+# the flat form's instances (`fused_sm90_launch`): (bank rows a tile, value
+# columns a block, key stages, 64-column key boxes): 'fast' and 'high'
+_SM90_FLAT = ((64, 256, 3, 4), (32, 128, 2, 12))
+
+
+class SegmentPlan(NamedTuple):
+    """How the Hopper kernel cuts a request: ``bn`` bank rows a tile,
+    ``dvs`` value columns a block, clusters of ``cs`` blocks sharing each
+    tile's logits (0: the flat form), ``stages`` tiles in the ring, and
+    ``n_seg`` segments of ``seg_rows`` bank rows (the last one ragged),
+    one block (or cluster) each."""
+    bn: int
+    dvs: int
+    cs: int
+    stages: int
+    n_seg: int
+    seg_rows: int
+
+
+def _sm90_smem(sem_d: int, bn: int, dvs: int, cs: int = 0, stages: int = 2) -> int:
+    """One block's shared memory (`layout` / `clayout` in the kernel's
+    source): the query block, the rings' stages (flat: ``stages`` key
+    tiles with their geo keys and mask, two value tiles; cluster:
+    ``stages`` of keys, values, geo keys, mask and the bf16 p of both
+    families), the barriers."""
+    kb, r = sem_d // 64, _round_up
+    query = r(kb * 64 * 128 + 64 * 32, 1024)
+    if cs == 0:  # `stages` key tiles, two value tiles
+        keys = r(kb * bn * 128 + bn * 32 + bn * 4, 1024)
+        return (query + stages * keys + 2 * (dvs // 64) * bn * 128
+                + 8 * (1 + 2 * stages + 4) + 1024)
+    qr = bn // cs
+    stage = ((dvs // 64) * bn * 128 + kb * qr * 128 + 2 * (bn // 16) * 2048
+             + qr * 32 + r(qr * 4, 16))
+    return query + stages * r(stage, 1024) + 8 * 17 + cs * 2 * 64 * 4 + 1024
+
+
+def _segment_plan(B: int, N: int, Dv: int, sem_d: int,
+                  seg_rows_max: int = SEG_ROWS_MAX,
+                  form: Optional[str] = None) -> SegmentPlan:
+    """The kernel's form and tiles, then its segments.
+
+    Forms: "flat" (every block computes all of each tile's logits for its
+    value slice and keeps p in registers; 64-row tiles, 256-column slices
+    and 3 key stages at sem_d 256, 32, 128 and 2 at sem_d 768) and
+    "cluster" (the blocks of one query block's slices, 4 where they divide
+    by 4, else 2 or 1, share each tile's logits through distributed shared
+    memory; 64-row tiles, 256- or 128-column slices, up to 3 ring stages).
+    By default the flat form where it has 64 x 256 tiles (the 'fast'
+    tier), else the cluster form (the 'high' tier, three times the key
+    columns): the faster one of each on the H100 (PERF.md).
+    ``form`` forces one, to time the other (chip_smoke.py).
+
+    Segments: at least enough that no block sums more than
+    ``seg_rows_max`` rows, and that the request gives the card's SM90_SMS
+    SMs a block each where the bank has the tiles; each segment whole
+    tiles.  A function of (B, N, Dv, sem_d) alone, so a request always
+    gets the same answer."""
+    if sem_d <= 0 or sem_d % 64:
+        raise ValueError(f"fused_sm90 kernel: needs sem_d % 64 == 0, got {sem_d}")
+    # the flat form's tiles, built for the key boxes of one tier each
+    flat = [(bn, dvs, 0, st) for bn, dvs, st, kb in _SM90_FLAT if kb == sem_d // 64]
+    cluster = [(64, dvs, next(c for c in (4, 2, 1) if -(-Dv // dvs) % c == 0), st)
+               for dvs in (256, 128) for st in (3, 2)]
+    options = {None: [o for o in flat if o[1] == 256] + cluster, "flat": flat,
+               "cluster": cluster}[form]
+    fits = [o for o in options if _sm90_smem(sem_d, *o) <= _SM90_MAX_SMEM]
+    if not fits:
+        raise ValueError(f"fused_sm90 kernel: no {form or 'default'} form for "
+                         f"sem_d={sem_d} fits in a block's shared memory")
+    bn, dvs, cs, stages = fits[0]
+    tiles = max(1, -(-N // bn))
+    blocks = -(-B // 64) * -(-Dv // dvs)
+    n_seg = min(tiles, max(-(-N // seg_rows_max), -(-SM90_SMS // max(blocks, 1)),
+                           1))
+    seg_rows = tiles // n_seg * bn  # rounding down keeps both needs met
+    return SegmentPlan(bn, dvs, cs, stages, max(1, -(-N // seg_rows)), seg_rows)
+
+
+def _aligned16(x: torch.Tensor) -> torch.Tensor:
+    """``x`` contiguous, its data on 16 bytes (TMA's rule)."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def _launch_sm90(q_cat, k_cat, values, mask_neg, beta: float, sem_d: int,
+                 plan: Optional[SegmentPlan] = None) -> torch.Tensor:
+    """Launch `csrc/fused_retrieval_sm90.cu` (and its segment reduction)
+    on bf16 operands: [B, Dv] f32.  ``plan`` defaults to `_segment_plan`."""
+    B, cat_d = q_cat.shape
+    N, Dv = values.shape
+    if q_cat.dtype != torch.bfloat16 or Dv % 8:
+        raise ValueError(f"fused_sm90 kernel: needs bf16 operands and Dv % 8 "
+                         f"== 0, got {q_cat.dtype}, Dv={Dv}")
+    plan = plan or _segment_plan(B, N, Dv, sem_d)
+    ops = [_aligned16(t) for t in (q_cat, k_cat, values, mask_neg)]
+    out = torch.empty((B, Dv), dtype=torch.float32, device=q_cat.device)
+    if B == 0:
+        return out
+    work = (torch.empty((plan.n_seg, B, 2 * Dv + 2), dtype=torch.float32,
+                        device=q_cat.device) if plan.n_seg > 1 else None)
+    from ..kernels._build import load_kernel_library
+
+    rc = load_kernel_library("fused_retrieval_sm90").fused_sm90_launch(
+        *[t.data_ptr() for t in ops], out.data_ptr(),
+        None if work is None else work.data_ptr(), B, N, cat_d, sem_d, Dv,
+        ctypes.c_float(beta), plan.bn, plan.dvs, plan.cs, plan.stages,
+        plan.seg_rows, plan.n_seg, _stream(q_cat))
+    _raise_on(rc, "fused_sm90")
+    return out
 
 
 def _check_fused(name: str, q_cat, k_cat, values, mask_neg, sem_d: int):
@@ -337,9 +477,13 @@ def retrieve_fused(q_cat: torch.Tensor, k_cat: torch.Tensor,
     Returns: [B, Dv] f32.
 
     CPU tensors: `_retrieve_fused_plain`.  CUDA tensors: the hand-written
-    kernel (`csrc/fused_retrieval.cu`), which replaces `_fused_kernel` of
-    `range_tpu/ops/retrieval_pallas.py:123`; a launch failure raises.
-    ``retrieve_fused.launches`` counts its launches."""
+    kernels that replace `_fused_kernel` of
+    `range_tpu/ops/retrieval_pallas.py:123`: bf16 operands ('fast',
+    'high') the Hopper kernel `csrc/fused_retrieval_sm90.cu` over
+    `_segment_plan`'s segments (sem_d % 64 == 0), f32 operands ('exact')
+    `csrc/fused_retrieval.cu`.  A shape either kernel does not take or a
+    failed launch raises.  ``retrieve_fused.launches`` counts the Hopper
+    kernel's launches, ``.exact_launches`` the f32 kernel's."""
     if scale is not None:
         return retrieve_fused_i8(q_cat, k_cat, values, scale, mask_neg, beta,
                                  sem_d=sem_d)
@@ -349,14 +493,20 @@ def retrieve_fused(q_cat: torch.Tensor, k_cat: torch.Tensor,
     _check_cuda("retrieve_fused", q_cat)
     _check_values("retrieve_fused", values, None)
     _check_fused("retrieve_fused", q_cat, k_cat, values, mask_neg, sem_d)
-    out = _launch_fused("fused_retrieval_launch", q_cat, k_cat, values, None,
-                        mask_neg, beta, sem_d)
+    if q_cat.dtype == torch.float32:
+        out = _launch_fused("fused_retrieval_launch", q_cat, k_cat, values,
+                            None, mask_neg, beta, sem_d)
+        if q_cat.shape[0]:
+            retrieve_fused.exact_launches += 1
+        return out
+    out = _launch_sm90(q_cat, k_cat, values, mask_neg, beta, sem_d)
     if q_cat.shape[0]:
         retrieve_fused.launches += 1
     return out
 
 
 retrieve_fused.launches = 0
+retrieve_fused.exact_launches = 0
 
 
 def retrieve_fused_i8(q_cat: torch.Tensor, k_cat: torch.Tensor,

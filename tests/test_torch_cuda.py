@@ -201,7 +201,7 @@ def test_fused_kernel_matches_plain(cuda, tier, mode):
     q = q / torch.linalg.norm(q, dim=1, keepdim=True)
     x = lonlat_deg_to_xyz(_coords(77, seed=2, device=cuda))
     temp, beta = (12.0, 0.5) if mode == "range+" else (15.0, 1.0)
-    before = rf.retrieve_fused.launches
+    before, before_exact = rf.retrieve_fused.launches, rf.retrieve_fused.exact_launches
     got = rf.retrieve_pallas(q, x, bank, sem_temp=temp, mode=mode, tier=tier)
     q_cat = rf.pack_queries(q, x if mode == "range+" else None, temp, 40.0, tier)
     ref = rf._retrieve_fused_plain(
@@ -209,10 +209,69 @@ def test_fused_kernel_matches_plain(cuda, tier, mode):
         (rf.NEG * (1 - bank.row_mask()))[None], beta,
         sem_d=rf.packed_dims(256, tier)[0])
     torch.cuda.synchronize()
-    assert rf.retrieve_fused.launches == before + 1
+    # bf16 tiers: the Hopper kernel; 'exact' (f32 operands): the mma.sync body
+    assert rf.retrieve_fused.launches == before + (tier != "exact")
+    assert rf.retrieve_fused.exact_launches == before_exact + (tier == "exact")
     err = (got - ref).abs()
     assert err.max() <= bank.values.abs().max().float() / 128
     assert (err > 1e-4).any(dim=1).sum() <= 2
+
+
+# The bars of test_fused_kernel_matches_plain: the segments' partials are
+# the one-pass sums re-associated in f32, well inside them.
+@pytest.mark.parametrize("B", [1, 77, 1000])
+def test_fused_sm90_kernel_over_segments(cuda, B):
+    """A 30,001-row bank: several segments of the Hopper kernel's plan (the
+    last one ragged), at a request too small to fill the card alone (B = 1,
+    77) and at B = 1,000; fast tier, RANGE+."""
+    bank = GeoBank.synthetic(5, 30_001, key_dim=256, value_dim=1024, pad_to=1,
+                             value_dtype=torch.bfloat16, device=cuda)
+    plan = rf._segment_plan(B, bank.num_rows, 1024, 256)
+    assert plan.n_seg > 1 and bank.num_rows % plan.seg_rows
+    g = torch.Generator(device=cuda).manual_seed(B)
+    q = torch.nn.functional.normalize(torch.randn(B, 256, generator=g, device=cuda), dim=1)
+    x = lonlat_deg_to_xyz(_coords(max(B, 2), seed=B, device=cuda)[:B])
+    q_cat = rf.pack_queries(q, x, 12.0, 40.0, "fast")
+    k_cat = rf.pack_bank(bank.keys_sem, bank.xyz, "fast")
+    mask = (rf.NEG * (1 - bank.row_mask()))[None]
+    before = rf.retrieve_fused.launches
+    got = rf.retrieve_fused(q_cat, k_cat, bank.values, mask, 0.5, sem_d=256)
+    torch.cuda.synchronize()
+    assert rf.retrieve_fused.launches == before + 1
+    ref = rf._retrieve_fused_plain(q_cat, k_cat, bank.values, mask, 0.5, sem_d=256)
+    # the plan's form (flat at this tier) and the cluster form over its segments
+    cluster = rf._segment_plan(B, bank.num_rows, 1024, 256, form="cluster")
+    assert plan.cs == 0 and cluster.cs == 4 and cluster.n_seg > 1
+    for out in (got, rf._launch_sm90(q_cat, k_cat, bank.values, mask, 0.5, 256, cluster)):
+        err = (out - ref).abs()
+        assert err.max() <= bank.values.abs().max().float() / 128
+        assert (err > 1e-4).any(dim=1).sum() <= max(2, B // 100)
+
+
+def test_fused_f32_operands_launch_the_exact_body(cuda):
+    """f32 packed operands (the 'exact' tier) go to the mma.sync body, whose
+    counter moves; the Hopper kernel's does not."""
+    bank = GeoBank.synthetic(0, 500, key_dim=256, value_dim=128, pad_to=1,
+                             value_dtype=torch.bfloat16, device=cuda)
+    q = torch.nn.functional.normalize(torch.randn(9, 256, device=cuda), dim=1)
+    before = (rf.retrieve_fused.launches, rf.retrieve_fused.exact_launches)
+    out = rf.retrieve_pallas(q, None, bank, mode="range", tier="exact")
+    torch.cuda.synchronize()
+    assert out.shape == (9, 128) and torch.isfinite(out).all()
+    assert (rf.retrieve_fused.launches, rf.retrieve_fused.exact_launches) == (
+        before[0], before[1] + 1)
+
+
+def test_fused_sm90_rejects_a_shape_it_does_not_take(cuda):
+    """bf16 operands whose semantic group is no whole number of 64-column
+    boxes raise, with no launch and no fallback to the plain version."""
+    q = torch.zeros(4, 128, dtype=torch.bfloat16, device=cuda)
+    k = torch.zeros(6, 128, dtype=torch.bfloat16, device=cuda)
+    values = torch.zeros(6, 64, dtype=torch.bfloat16, device=cuda)
+    before = (rf.retrieve_fused.launches, rf.retrieve_fused.exact_launches)
+    with pytest.raises(ValueError, match="sem_d % 64"):
+        rf.retrieve_fused(q, k, values, torch.zeros(1, 6, device=cuda), 0.5, sem_d=96)
+    assert (rf.retrieve_fused.launches, rf.retrieve_fused.exact_launches) == before
 
 
 def test_fused_kernel_rejects_f32_values(cuda):
