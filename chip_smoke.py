@@ -6,11 +6,16 @@ family parts kernel's plain / lr / rr shapes and their sel and dedup_pad
 forms, the refine kernel's has_parts form, the combine without lr_geo,
 the int8 forms of the parts and pruned kernels, and kernel 2's two bodies:
 the Hopper kernel of its bf16 tiers and the mma.sync body of its f32 tier)
-from the twelve sources of `range_tpu_torch/csrc/` (one nvcc per source,
+from the thirteen sources of `range_tpu_torch/csrc/` (one nvcc per source,
 all started together), holds each against its plain PyTorch version at the
-main paths' shapes, prints the Hopper kernel's drift for each length of
-its accumulation chain and its time beside the mma.sync body's at B = 1,
-37, 1,000 and 10,000, then
+main paths' shapes, prints kernel 2's Hopper kernel's drift for each length
+of its accumulation chain and its time beside the mma.sync body's at B = 1,
+37, 1,000 and 10,000, and kernel 8's Hopper kernel (the scan) beside its
+mma.sync body (`csrc/hier_scan.cu`, built and launched here alone as the
+same-run yardstick) at each scan shape of the paths, with its bound, its
+share of it and the floor of its exponentials (the flagship also at B = 1
+and 37), its drift for each chain length and its wide tail in two slices
+against three, then
 drives the serving paths at full width (SatCLIP SH-L40 -> SIREN
 1600->256->256->256 tower, 100,000-row bank with 256-d keys and bf16
 1024-d values, 1,280-d output) and the training path:
@@ -110,7 +115,7 @@ REQUESTS = (1, 37, 1_000, BATCH)
 L, WIDTH = 40, 256
 # kernel sources (one library each), and the kernels of the JSON line:
 # (name, source, the TPU kernel it replaces)
-SOURCES = ("siren_tower", "fused_retrieval_sm90", "fused_retrieval", "hier_scan",
+SOURCES = ("siren_tower", "fused_retrieval_sm90", "fused_retrieval", "hier_scan_sm90", "hier_scan",
            "hier_parts_family", "combine_cat", "hier_scan_stats", "hier_argmax", "hier_parts", "sh_times",
            "hier_refine", "hier_corr")
 KERNELS = (("siren_tower", "siren_tower", "range_tpu/ops/sh.py:726"),
@@ -118,7 +123,7 @@ KERNELS = (("siren_tower", "siren_tower", "range_tpu/ops/sh.py:726"),
            # kernel 2's 'exact' tier (f32 logits) on the mma.sync body
            ("fused_retrieval_exact", "fused_retrieval", "range_tpu/ops/retrieval_pallas.py:123"),
            ("fused_retrieval_i8", "fused_retrieval", "range_tpu/ops/retrieval_pallas.py:181"),
-           ("hier_scan", "hier_scan", "range_tpu/ops/retrieval_hier.py:1443"),
+           ("hier_scan", "hier_scan_sm90", "range_tpu/ops/retrieval_hier.py:1443"),
            ("hier_parts_family", "hier_parts_family", "range_tpu/ops/retrieval_hier.py:2282"),
            ("combine_cat", "combine_cat", "range_tpu/ops/retrieval_hier.py:3102"),
            ("hier_scan_stats", "hier_scan_stats", "range_tpu/ops/retrieval_hier.py:1582"),
@@ -129,11 +134,11 @@ KERNELS = (("siren_tower", "siren_tower", "range_tpu/ops/sh.py:726"),
            ("hier_refine", "hier_refine", "range_tpu/ops/retrieval_hier.py:2077"),
            ("hier_corr", "hier_corr", "range_tpu/ops/retrieval_hier.py:2209"),
            # the scan's segment-sum (sup_r_s) variant, `:1489-1497` of the kernel
-           ("hier_scan_sup", "hier_scan", "range_tpu/ops/retrieval_hier.py:1443"),
+           ("hier_scan_sup", "hier_scan_sm90", "range_tpu/ops/retrieval_hier.py:1443"),
            # the general one-level path's variants: the scan over full-width
            # group sums, kernel 15 without lr, kernel 14's value shapes (plain,
            # lr) and its rr shape, kernel 16 without lr_geo
-           ("hier_scan_wide", "hier_scan", "range_tpu/ops/retrieval_hier.py:1443"),
+           ("hier_scan_wide", "hier_scan_sm90", "range_tpu/ops/retrieval_hier.py:1443"),
            ("hier_parts_plain", "hier_parts", "range_tpu/ops/retrieval_hier.py:2515"),
            ("hier_parts_family_plain", "hier_parts", "range_tpu/ops/retrieval_hier.py:2282"),
            ("hier_parts_family_lr", "hier_parts", "range_tpu/ops/retrieval_hier.py:2282"),
@@ -443,10 +448,7 @@ def _sm90_tile_budget(plan, sem_d: int, b: int, Dv: int, ms: float) -> None:
     reads: queries and keys of the semantic logits, the geo box, the value
     tile once per family) at 128 bytes a cycle per SM and the card's
     maximum SM clock."""
-    clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
-                            "--format=csv,noheader,nounits"], capture_output=True,
-                           text=True).stdout.split()
-    mhz = float(clock[0]) if clock else float("nan")
+    mhz = _sm_clock_mhz()[1]
     kb, bn, dvs = sem_d // 64, plan.bn, plan.dvs
     blocks = -(-b // 64) * -(-Dv // dvs) * plan.n_seg
     waves = -(-blocks // 132)
@@ -461,6 +463,121 @@ def _sm90_tile_budget(plan, sem_d: int, b: int, Dv: int, ms: float) -> None:
           f"{flops} tensor operations ({tensor_us:.3f} us at 989 TFLOP/s / 132 SMs) and "
           f"{tma + reads} bytes of shared-memory traffic ({tma} written by TMA, {reads} read "
           f"by wgmma: {smem_us:.3f} us at 128 B a cycle and {mhz:.0f} MHz)")
+
+
+def _scan_mma_sync(q_cat, g_sem_cat, g_geo_cat, g_sem_vw, g_geo_vw, *, gpt_s: int,
+                   gpt_g: int, has_geo: bool = True, sup_r: int = 0):
+    """Kernel 8's mma.sync body (`csrc/hier_scan.cu`, the scan before its
+    Hopper kernel), launched here alone as the same-run yardstick of
+    `_scan_times`: no path of the port reaches it, and it counts nowhere.
+    Returns its (stats, tails)."""
+    from range_tpu_torch.kernels._build import load_kernel_library
+
+    Bp, cat_d = q_cat.shape
+    (Gs, ws), (Gg, wg) = g_sem_cat.shape, g_geo_cat.shape
+    t_pad = Gs // gpt_s
+    Ws, Wg = g_sem_vw.shape[1], g_geo_vw.shape[1] if has_geo else 0
+    stats = [torch.empty((Bp, t_pad), device=q_cat.device) for _ in range(4 if has_geo else 2)]
+    tails = torch.empty((Bp, Ws + Wg), device=q_cat.device)
+    geo = (g_geo_cat, g_geo_vw) if has_geo else (None, None)
+    ptr = [None if t is None else t.data_ptr() for t in (
+        q_cat, g_sem_cat, geo[0], g_sem_vw, geo[1], *stats[:2],
+        *(stats[2:] or [None, None]), tails)]
+    rc = load_kernel_library("hier_scan").hier_scan_launch(
+        *ptr, Bp, cat_d, ws, wg, Gs, Gg, Ws, Wg, gpt_s, gpt_g, t_pad, int(has_geo), sup_r,
+        torch.cuda.current_stream(q_cat.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"hier_scan (mma.sync) launch failed: CUDA error {rc}")
+    return stats, tails
+
+
+def _sm_clock_mhz() -> tuple:
+    """(current, maximum) SM clock in MHz, as nvidia-smi reports them."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True,
+                         text=True).stdout.split(",")
+    return tuple(float(v) for v in out) if len(out) == 2 else (float("nan"),) * 2
+
+
+def _kernel_ms(fn, calls: int) -> float:
+    """Device milliseconds a call of the kernels fn() launches: the sum of
+    their spans in a torch.profiler trace of `calls` calls after a warm-up.
+    The host's work between launches is left out, so a call that takes the
+    card less time than its Python and launch overhead is still timed by
+    its kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    if not spans:
+        raise RuntimeError("the profiler recorded no device time")
+    return sum(spans) / 1e3 / calls
+
+
+def _scan_times(tag: str, args, kw, bound_ms: float, bound_by: str, n_exp: int,
+                calls: int = 10) -> float:
+    """Kernel 8's Hopper kernel beside its mma.sync body at one scan shape,
+    in turns (body, kernel, kernel, body; neither counted): each one's
+    device ms a call (`_kernel_ms`: the Hopper kernel's launch and its
+    segment reduction, the body's one launch), the kernel's share of the
+    bound, and beside the bound the floor of the exponentials it needs
+    (n_exp exp2 at 16 a clock on each of the card's 132 SMs, at the maximum
+    SM clock nvidia-smi reports; the clock after the turns is printed
+    beside it).  Returns the kernel's ms (the faster of its turns)."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    def new():
+        return rh._launch_scan_sm90(*args, **kw)
+
+    def old():
+        return _scan_mma_sync(*args, **kw)
+
+    t = [_kernel_ms(fn, calls) for fn in (old, new, new, old)]
+    cur, top = _sm_clock_mhz()
+    ms, old_ms = min(t[1], t[2]), min(t[0], t[3])
+    exp_ms = n_exp / (132 * 16 * top * 1e6) * 1e3
+    print(f"{tag}: Hopper kernel {t[1]:.4f} / {t[2]:.4f} ms, mma.sync body {t[0]:.4f} / "
+          f"{t[3]:.4f} ms (device time; {old_ms / ms:.2f}x); bound {bound_ms:.4f} ms "
+          f"({bound_by}), share {bound_ms / ms:.4f}; exp2 floor {exp_ms:.4f} ms ({n_exp} exp2, "
+          f"16 a clock x 132 SMs at {top:.0f} MHz; SM clock after the turns {cur:.0f} MHz)")
+    return ms
+
+
+def _scan_drift(tag: str, args, kw, ref, mag, rows=(None, 12_800, 6_400, 3_200)):
+    """Kernel 8's Hopper kernel with the sem family cut into segments of at
+    most each of ``rows`` tail rows (None: one chain over the family; each
+    block sums its segment through wgmma's accumulator), the rest of the
+    plan `_scan_plan`'s: the sem tail's largest error over the tails'
+    tolerance (min(4e-3 x row max, 2^-7 x sum |terms|) + 1e-6,
+    `_compare_terms`) and the rows over it, and the time, beside the
+    SCAN_ROWS_MAX the plan keeps (PR 10's bound)."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    fams = rh._scan_shapes(*args, **kw)
+    Bp, Ws = args[0].shape[0], args[3].shape[1]
+    base = rh._scan_plan(Bp, fams)
+    G, _, _, gpt, sup = fams[0]
+    T = G // gpt
+    print(f"{tag}: drift of the accumulation chain (SCAN_ROWS_MAX = {rh.SCAN_ROWS_MAX}):")
+    for r in rows:
+        tps = T if r is None else min(T, max(1, r * sup // gpt))
+        plan = base._replace(fams=(base.fams[0]._replace(n_seg=-(-T // tps), seg_tiles=tps),)
+                             + base.fams[1:])
+        got = rh._launch_scan_sm90(*args, **kw, plan=plan)[1][:, :Ws]
+        err = (got - ref[:, :Ws]).abs()
+        tol = torch.minimum(4e-3 * ref[:, :Ws].abs().amax(dim=1, keepdim=True),
+                            2.0 ** -7 * mag[:, :Ws]) + 1e-6
+        ms = _kernel_ms(lambda: rh._launch_scan_sm90(*args, **kw, plan=plan), 5)
+        print(f"  sem segments {-(-T // tps)} of {tps} tiles ({tps * gpt // sup // 16} k16 steps "
+              f"a chain): sem tail err/tol {(err / tol).max().item():.3e}, rows over it "
+              f"{(err > tol).any(dim=1).sum().item()} of {Bp}; {ms:.3f} ms")
 
 
 def _send(enc, c):
@@ -813,22 +930,46 @@ def hier_phases(dev, gen, report):
         idx_g, _ = rh.select_tiles(m_g, s_g, m_s, s_s, t_real=hb.t_real, k_tiles=k_geo,
                                    bm=bm, n_valid=BATCH, j_sem=cfg.j_geo, j_geo=j_sem,
                                    mode="range")
-        ms = _cuda_ms(lambda: rh._hier_scan_call(*scan_args, **scan_kw), 10)
         plain_ms = _cuda_ms(lambda: rh._hier_scan_plain(*scan_args, **scan_kw), 3)
-        print(f"hier_scan B={BATCH}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+        print(f"hier_scan B={BATCH}: plain {plain_ms:.3f} ms")
         Gs, Gg = hb.t_real * gpt_s, hb.t_real * gpt_g
         ws, wg = hb.g_sem_cat.shape[1], hb.g_geo_cat.shape[1]
-        # the work needed: sem group logits over sem_d columns, geo over the 9
-        # real ones; tails over the lr coefficients and the count column (the
-        # operands pad geo to 128 and W to a multiple of 128)
-        flops = 2 * BATCH * (Gs * (hb.sem_d + hb.lr_rank + 1)
-                             + Gg * (GEO_COLS + hb.lr_geo + 1))
-        n_bytes = (BATCH * (ws + wg) * 2 + (Gs * (ws + Ws) + Gg * (wg + Wg)) * 2
-                   + 4 * BATCH * hb.t_pad * 4 + BATCH * (Ws + Wg) * 4)
-        b_ms, b_by = _bound(n_bytes, flops, BF16_FLOPS)
+
+        def scan_bound(b):
+            """The work b queries need: sem group logits over sem_d columns,
+            geo over the 9 real ones; tails over the lr coefficients and the
+            count column (the operands pad geo to 128 and W to a multiple of
+            128)."""
+            flops = 2 * b * (Gs * (hb.sem_d + hb.lr_rank + 1) + Gg * (GEO_COLS + hb.lr_geo + 1))
+            n_bytes = (b * (ws + wg) * 2 + (Gs * (ws + Ws) + Gg * (wg + Wg)) * 2
+                       + 4 * b * hb.t_pad * 4 + b * (Ws + Wg) * 4)
+            return _bound(n_bytes, flops, BF16_FLOPS)
+
+        b_ms, b_by = scan_bound(BATCH)
+        ms = _scan_times(f"hier_scan B={BATCH}", scan_args, scan_kw, b_ms, b_by,
+                         BATCH * (Gs + Gg))
         report["hier_scan"] = dict(max_abs_err=max(e for e, _ in errs),
                                    err_over_tol=max(r for _, r in errs), ms=ms,
                                    plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        # the requests too small to fill the card alone: B = 1 and 37
+        for b in (1, 37):
+            q_sb, q_xb = rh._pad_queries(q[:b], x[:b], cfg.hier_plan(b)[0])
+            qc = rf.pack_queries(q_sb, q_xb, 12.0, 40.0, hb.tier)[
+                rh._hybrid_order(q_xb, b)].contiguous()
+            args_b = (qc,) + scan_args[1:]
+            got_b = rh._hier_scan_call(*args_b, **scan_kw)
+            ref_b = rh._hier_scan_plain(*args_b, **scan_kw)
+            mag_b = rh._hier_scan_plain(qc, hb.g_sem_cat, hb.g_geo_cat, hb.g_sem_vw_lr.abs(),
+                                        hb.g_geo_vw_lr.abs(), **scan_kw)[4]
+            for i, stat in enumerate(("m_s", "s_s", "m_g", "s_g")):
+                _compare(f"hier_scan B={b} {stat}", got_b[i], ref_b[i], *(
+                    (1e-4, 0.0, "f32 sums of the same bf16 products in another order")
+                    if stat[0] == "m" else (0.0, 1e-4, "f32 sums of f32 exp2 in another order")))
+            _compare_terms(f"hier_scan B={b} tails", got_b[4], ref_b[4], mag_b, flip)
+            plan_b = rh._scan_plan(qc.shape[0], rh._scan_shapes(*args_b, **scan_kw,
+                                                                has_geo=True, sup_r=0))
+            _scan_times(f"hier_scan B={b} (Bp {qc.shape[0]}, {plan_b})", args_b, scan_kw,
+                        *scan_bound(b), b * (Gs + Gg), calls=20)
 
         parts = {}
         p_ms = p_plain = p_bytes = p_flops = 0.0
@@ -1306,7 +1447,6 @@ def range_phases(dev, gen, report, hb, enc_plus, bank) -> float:
         _compare_terms("hier_scan[has_geo=False] tails[sem]", got[4], ref[4], mag, flip)
         if got[2] is not None or got[4].shape[1] != hb.g_sem_vw_lr.shape[1]:
             raise AssertionError("the geo-less scan returned geo outputs")
-        ms = _cuda_ms(lambda: rh._hier_scan_call(*sargs, **skw), 10)
         plain_ms = _cuda_ms(lambda: rh._hier_scan_plain(*sargs, **skw), 3)
         # the sem-only work: group logits over sem_d columns, tails over the
         # lr coefficients and the count, two stats, over the real tiles
@@ -1314,8 +1454,8 @@ def range_phases(dev, gen, report, hb, enc_plus, bank) -> float:
         b_ms, b_by = _bound(BATCH * ws_ * 2 + Gs * (ws_ + Ws_) * 2 + 2 * BATCH * hb.t_pad * 4
                             + BATCH * Ws_ * 4, 2 * BATCH * Gs * (hb.sem_d + hb.lr_rank + 1),
                             BF16_FLOPS)
-        print(f"hier_scan[has_geo=False] B={BATCH}: kernel {ms:.3f} ms, plain "
-              f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+        _scan_times(f"hier_scan[has_geo=False] B={BATCH}", sargs, skw, b_ms, b_by, BATCH * Gs)
+        print(f"hier_scan[has_geo=False] B={BATCH}: plain {plain_ms:.3f} ms")
 
         Dv, Ws = hb.value_dim, hb.g_sem_vw_lr.shape[1]
         segs = {"acc_s": slice(0, Dv), "d_s": slice(2 * Dv, 2 * Dv + 1),
@@ -1474,7 +1614,6 @@ def tail_super_phases(dev, gen, report, bank, enc_plus) -> float:
                                 mag[:, :Ws], flip),
                  _compare_terms(f"{tag} tails[geo]", got[4][:, Ws:], ref[4][:, Ws:],
                                 mag[:, Ws:], flip)]
-        ms = _cuda_ms(lambda: rh._hier_scan_call(*args, **kw), 10)
         plain_ms = _cuda_ms(lambda: rh._hier_scan_plain(*args, **kw), 3)
         Gs, Gg = hb.t_real * gpt_s, hb.t_real * gpt_g
         ws, wg = hb.g_sem_cat.shape[1], hb.g_geo_cat.shape[1]
@@ -1487,8 +1626,8 @@ def tail_super_phases(dev, gen, report, bank, enc_plus) -> float:
         n_bytes = (BATCH * (ws + wg) * 2 + (Gs * ws + Gs // sup_r * Ws + Gg * (wg + Wg)) * 2
                    + 4 * BATCH * hb.t_pad * 4 + BATCH * (Ws + Wg) * 4)
         b_ms, b_by = _bound(n_bytes, flops, BF16_FLOPS)
-        print(f"{tag} B={BATCH}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-              f"{b_ms:.4f} ms ({b_by})")
+        ms = _scan_times(f"{tag} B={BATCH}", args, kw, b_ms, b_by, BATCH * (Gs + Gg))
+        print(f"{tag} B={BATCH}: plain {plain_ms:.3f} ms")
         report["hier_scan_sup"] = dict(max_abs_err=max(e for e, _ in errs),
                                        err_over_tol=max(r for _, r in errs), ms=ms,
                                        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
@@ -1854,7 +1993,6 @@ def general_phases(dev, gen, report, bank):
                                   "f32 sums of f32 exp2 in another order"),
                          _compare_terms(f"{tag} tails[geo]", got[4][:, Ws:], ref[4][:, Ws:],
                                         mag[:, Ws:], flip)]
-            ms = _cuda_ms(lambda: rh._hier_scan_call(*args, **kw), 10)
             plain_ms = _cuda_ms(lambda: rh._hier_scan_plain(*args, **kw), 2)
             # the work needed: group logits over sem_d (and the 9 geo) columns,
             # the tails over Dv + the count (or the lr coefficients + the count)
@@ -1865,8 +2003,26 @@ def general_phases(dev, gen, report, bank):
                        + (Gg * (wg + Wg) * 2 if has_geo else 0)
                        + (4 if has_geo else 2) * BATCH * hb.t_pad * 4 + BATCH * (Ws + Wg) * 4)
             b_ms, b_by = _bound(n_bytes, flops, BF16_FLOPS)
-            print(f"{tag} B={BATCH}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-                  f"{b_ms:.4f} ms ({b_by})")
+            ms = _scan_times(f"{tag} B={BATCH}", args, kw, b_ms, b_by,
+                             BATCH * (Gs + (Gg if has_geo else 0)))
+            print(f"{tag} B={BATCH}: plain {plain_ms:.3f} ms")
+            if case == "two-family":
+                # the wide tail's other cut: three 384-column slices, each
+                # recomputing the logits (the mma.sync body's cut)
+                fams = rh._scan_shapes(*args, **kw)
+                plan = rh._scan_plan(q_cat.shape[0], fams)
+                three = rh._scan_plan(q_cat.shape[0], tuple(f[:2] + (384,) + f[3:]
+                                                            for f in fams))
+                three = three._replace(fams=tuple(f._replace(n_sl=3) for f in three.fams))
+                _compare_terms(f"{tag} in three 384-column slices, tails[sem]",
+                               rh._launch_scan_sm90(*args, **kw, plan=three)[1][:, :Ws],
+                               ref[4][:, :Ws], mag[:, :Ws], flip)
+                t = [_kernel_ms(lambda p=p: rh._launch_scan_sm90(*args, **kw, plan=p), 10)
+                     for p in (plan, three, three, plan)]
+                print(f"{tag} B={BATCH}: two 576-column slices ({plan}) {t[0]:.4f} / "
+                      f"{t[3]:.4f} ms, three 384-column slices ({three}) {t[1]:.4f} / "
+                      f"{t[2]:.4f} ms")
+                _scan_drift(f"{tag} B={BATCH}", args, kw, ref[4], mag)
             scans[case] = got
             if case == "two-family":
                 report["hier_scan_wide"] = dict(
@@ -2017,8 +2173,18 @@ def general_phases(dev, gen, report, bank):
             report[key]["max_abs_err"] = max(report[key]["max_abs_err"], *(e for e, _ in errs))
             report[key]["err_over_tol"] = max(report[key]["err_over_tol"],
                                               *(r for _, r in errs))
-        print(f"{tag} B={BATCH}: kernel {_cuda_ms(lambda: rh._hier_scan_call(*args, **kw), 10):.3f}"
-              f" ms, plain {_cuda_ms(lambda: rh._hier_scan_plain(*args, **kw), 2):.3f} ms")
+        Gs, Gg = ht.t_real * gpt_s, ht.t_real * gpt_g
+        ws, wg, Wg = ht.g_sem_cat.shape[1], ht.g_geo_cat.shape[1], ht.g_geo_vw.shape[1]
+        # the work needed: group logits over sem_d (and the 9 geo) columns,
+        # the sem tail over Gs / sup_r supergroup rows of Dv + the count, the
+        # geo tail over Dv + the count
+        flops = 2 * BATCH * (Gs * sem_d + Gs // sup_r * (Dv + 1) + Gg * (GEO_COLS + Dv + 1))
+        n_bytes = (BATCH * (ws + wg) * 2 + (Gs * ws + Gs // sup_r * Ws + Gg * (wg + Wg)) * 2
+                   + 4 * BATCH * ht.t_pad * 4 + BATCH * (Ws + Wg) * 4)
+        _scan_times(f"{tag} B={BATCH}", args, kw, *_bound(n_bytes, flops, BF16_FLOPS),
+                    BATCH * (Gs + Gg))
+        print(f"{tag} B={BATCH}: plain {_cuda_ms(lambda: rh._hier_scan_plain(*args, **kw), 2):.3f}"
+              " ms")
         m_s, s_s, m_g, s_g, _ = got
         idx_sm, _ = rh.select_tiles(m_s, s_s, m_g, s_g, t_real=ht.t_real,
                                     k_tiles=k_tiles + TS_M_CORR, bm=bm, n_valid=BATCH,

@@ -44,6 +44,7 @@ _SIGNATURES = {
     "fused_retrieval_sm90": {"fused_sm90_launch":
                              [_P] * 6 + [_I] * 5 + [_F] + [_I] * 6 + [_P]},
     "hier_scan": {"hier_scan_launch": [_P] * 10 + [_I] * 13 + [_P]},
+    "hier_scan_sm90": {"hier_scan_sm90_launch": [_P] * 11 + [_I] * 24 + [_P]},
     "hier_refine": {"hier_refine_launch": [_P] * 5 + [_I] * 6 + [_P],
                     "hier_refine_parts_launch": [_P] * 9 + [_I] * 9 + [_P]},
     "hier_corr": {"hier_corr_launch": [_P] * 5 + [_I] * 7 + [_P]},

@@ -56,14 +56,22 @@ def _round_up(n: int, m: int) -> int:
     return ((n + m - 1) // m) * m
 
 
-def packed_dims(key_dim: int, tier: str) -> Tuple[int, int]:
-    """(sem_cols, total_cols) for a tier; total is 128-aligned."""
+def packed_dims(key_dim: int, tier: str, card: bool = False) -> Tuple[int, int]:
+    """(sem_cols, total_cols) for a tier; total is 128-aligned.
+
+    ``card=True``: the card's packing, whose semantic columns are
+    zero-padded to what the card's kernels read whole: a multiple of 64 at
+    the bf16 tiers (the Hopper kernel's 64-column boxes), of 16 at 'exact'
+    (a k16 step).  A zero column adds exactly 0 to every logit, so the
+    answers are those of JAX's packing (``card=False``)."""
     if tier in ("exact", "fast"):
         sem = key_dim
     elif tier == "high":
         sem = 3 * key_dim
     else:
         raise ValueError(f"unknown precision tier {tier}")
+    if card:
+        sem = _round_up(sem, 16 if tier == "exact" else 64)
     # geo block: 9 hi/lo cross columns (3 for 'exact'), padded
     return sem, _round_up(sem + 9, 128)
 
@@ -73,16 +81,18 @@ def _pad_cols(x: torch.Tensor, cols: int) -> torch.Tensor:
 
 
 def pack_queries(q_sem: torch.Tensor, q_xyz, sem_temp: float,
-                 geo_temp: float, tier: str = "exact") -> torch.Tensor:
-    """Packed query matrix [B, cat_d]; column semantics match `pack_bank`."""
+                 geo_temp: float, tier: str = "exact",
+                 card: bool = False) -> torch.Tensor:
+    """Packed query matrix [B, cat_d]; column semantics match `pack_bank`
+    (``card``: `packed_dims`'s padded semantic columns)."""
     B = q_sem.shape[0]
     f32 = torch.float32
     qs = (sem_temp * LOG2E * q_sem).to(f32)
     g = ((geo_temp * LOG2E * q_xyz).to(f32) if q_xyz is not None
          else torch.zeros((B, 3), dtype=f32, device=q_sem.device))
-    _, cat_d = packed_dims(q_sem.shape[1], tier)
+    sem_d, cat_d = packed_dims(q_sem.shape[1], tier, card)
     if tier == "exact":
-        return _pad_cols(torch.cat([qs, g], dim=1), cat_d)
+        return _pad_cols(torch.cat([_pad_cols(qs, sem_d), g], dim=1), cat_d)
     gh, gl = _split_hilo(g)
     geo_cols = torch.cat([gh, gh, gl], dim=1)  # pairs with [xh, xl, xh]
     if tier == "high":
@@ -90,17 +100,18 @@ def pack_queries(q_sem: torch.Tensor, q_xyz, sem_temp: float,
         sem_cols = torch.cat([qh, qh, ql], dim=1)
     else:  # fast
         sem_cols = qs.to(torch.bfloat16)
-    return _pad_cols(torch.cat([sem_cols, geo_cols], dim=1), cat_d)
+    return _pad_cols(torch.cat([_pad_cols(sem_cols, sem_d), geo_cols], dim=1), cat_d)
 
 
 def pack_bank(keys_sem: torch.Tensor, xyz: torch.Tensor,
-              tier: str = "exact") -> torch.Tensor:
-    """Packed key matrix [N, cat_d]."""
+              tier: str = "exact", card: bool = False) -> torch.Tensor:
+    """Packed key matrix [N, cat_d] (``card``: `packed_dims`'s padded
+    semantic columns)."""
     k = keys_sem.to(torch.float32)
     x = xyz.to(torch.float32)
-    _, cat_d = packed_dims(keys_sem.shape[1], tier)
+    sem_d, cat_d = packed_dims(keys_sem.shape[1], tier, card)
     if tier == "exact":
-        return _pad_cols(torch.cat([k, x], dim=1), cat_d)
+        return _pad_cols(torch.cat([_pad_cols(k, sem_d), x], dim=1), cat_d)
     xh, xl = _split_hilo(x)
     geo_cols = torch.cat([xh, xl, xh], dim=1)
     if tier == "high":
@@ -108,7 +119,7 @@ def pack_bank(keys_sem: torch.Tensor, xyz: torch.Tensor,
         sem_cols = torch.cat([kh, kl, kh], dim=1)
     else:  # fast
         sem_cols = k.to(torch.bfloat16)
-    return _pad_cols(torch.cat([sem_cols, geo_cols], dim=1), cat_d)
+    return _pad_cols(torch.cat([_pad_cols(sem_cols, sem_d), geo_cols], dim=1), cat_d)
 
 
 def _serving_values(values: torch.Tensor) -> torch.Tensor:
@@ -480,9 +491,10 @@ def retrieve_fused(q_cat: torch.Tensor, k_cat: torch.Tensor,
     kernels that replace `_fused_kernel` of
     `range_tpu/ops/retrieval_pallas.py:123`: bf16 operands ('fast',
     'high') the Hopper kernel `csrc/fused_retrieval_sm90.cu` over
-    `_segment_plan`'s segments (sem_d % 64 == 0), f32 operands ('exact')
-    `csrc/fused_retrieval.cu`.  A shape either kernel does not take or a
-    failed launch raises.  ``retrieve_fused.launches`` counts the Hopper
+    `_segment_plan`'s segments (sem_d % 64 == 0: `_packed` pads the
+    semantic columns on the card), f32 operands ('exact')
+    `csrc/fused_retrieval.cu` (sem_d % 16 == 0).  A shape either kernel
+    does not take or a failed launch raises.  ``retrieve_fused.launches`` counts the Hopper
     kernel's launches, ``.exact_launches`` the f32 kernel's."""
     if scale is not None:
         return retrieve_fused_i8(q_cat, k_cat, values, scale, mask_neg, beta,
@@ -741,10 +753,13 @@ def _bank_serving_values(bank) -> torch.Tensor:
 
 
 def _packed(q_sem, q_xyz, bank, sem_temp: float, geo_temp: float, tier: str):
-    """(q_cat, k_cat, sem_d, mask_neg) of a request over ``bank``."""
-    q_cat = pack_queries(q_sem, q_xyz, sem_temp, geo_temp, tier=tier)
-    k_cat = pack_bank(bank.keys_sem, bank.xyz, tier=tier)
-    sem_d, _ = packed_dims(bank.key_dim, tier)
+    """(q_cat, k_cat, sem_d, mask_neg) of a request over ``bank``: on the
+    card the padded packing its kernels read (`packed_dims`), on the CPU
+    JAX's."""
+    card = bank.keys_sem.device.type != "cpu"
+    q_cat = pack_queries(q_sem, q_xyz, sem_temp, geo_temp, tier=tier, card=card)
+    k_cat = pack_bank(bank.keys_sem, bank.xyz, tier=tier, card=card)
+    sem_d, _ = packed_dims(bank.key_dim, tier, card)
     mask_neg = (NEG * (1.0 - bank.row_mask()))[None, :].to(torch.float32)
     return q_cat, k_cat, sem_d, mask_neg
 

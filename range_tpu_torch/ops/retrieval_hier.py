@@ -22,8 +22,9 @@ Serving features (`retrieve_hier`, routed as the JAX function routes):
      stats-only pre-scan, `_hier_scan_stats_call`);
   2. the SCAN kernel: per (query, tile) max group logit and exp-mass for
      both families, and the all-tiles group tail  e @ [V_g | n_g]
-     (`_hier_scan_call`; tails wider than 512 columns, the full-width
-     group sums of banks without lr_rank / lr_geo, in column slices);
+     (`_hier_scan_call`, over `_scan_plan`'s segments; tails wider than
+     576 columns, the full-width group sums of banks without lr_rank /
+     lr_geo, in column slices);
   3. RANGE+ with k_geo > 0 (the family split; banks with res_rank always):
      `select_tiles` per family (K sem tiles, k_geo geo tiles per block of
      bm queries), the PARTS kernel per family, exact minus group
@@ -80,12 +81,15 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import hashlib
+import heapq
+import itertools
 import json
 import logging
 import math
 import os
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -94,8 +98,8 @@ from ..bank.bank import GeoBank, dequantize_values
 from ..bank.clustered import cluster_bank, tile_stats
 from .kmeans import kmeans
 from .retrieval import first_argmax
-from .retrieval_fused import (CLAMP2, NEG, _round_up, _split_hilo, pack_bank,
-                              pack_queries, packed_dims)
+from .retrieval_fused import (_SM90_MAX_SMEM, CLAMP2, NEG, SM90_SMS, _round_up,
+                              _split_hilo, pack_bank, pack_queries, packed_dims)
 from .topk import topk_stable
 
 # group operands are padded to a multiple of TC tiles (the JAX scan's tile
@@ -881,6 +885,126 @@ def _gpt_ok(gpt: int) -> bool:
     return gpt % 8 == 0 and (32 % gpt == 0 if gpt <= 32 else gpt % 32 == 0)
 
 
+# The Hopper scan's plan (`csrc/hier_scan_sm90.cu`)
+SCAN_ROWS_MAX = 12_800   # tail rows one accumulation chain sums (PR 10's bound)
+_SCAN_SLICE_BOXES = 9    # 64-column boxes of a block's tail slice: 3 tail warpgroups x 3
+
+
+class ScanFamily(NamedTuple):
+    """One family's share of the scan: ``n_sl`` column slices of
+    ``sl_boxes`` 64-column boxes (the last one ragged), ``n_seg`` segments
+    of ``seg_tiles`` tiles (the last one ragged), one block each per
+    64-query block."""
+    n_sl: int
+    sl_boxes: int
+    n_seg: int
+    seg_tiles: int
+
+
+class ScanPlan(NamedTuple):
+    """``bn`` groups a step, ``gs`` / ``vs`` stages of the centroid and
+    value rings, and each family's `ScanFamily` (sem first)."""
+    bn: int
+    gs: int
+    vs: int
+    fams: Tuple[ScanFamily, ...]
+
+
+def _scan_rows(bn: int, sup: int) -> int:
+    """Tail rows a step puts in shared memory: bn / sup, at least one k16
+    step (the p columns past bn / sup stay zero)."""
+    return max(16, bn // sup)
+
+
+def _scan_smem(bn: int, gs: int, vs: int, kb: int, sl_boxes: int, rv: int) -> int:
+    """One block's shared memory (`layout` in the kernel's source): the
+    query block, gs centroid tiles, vs value tiles of the slice, two p
+    tiles, the barriers."""
+    return (kb * 64 * 128 + gs * kb * bn * 128 + vs * sl_boxes * rv * 128
+            + 2 * (rv // 16) * 2048 + 8 * (1 + 2 * gs + 2 * vs + 4) + 1024)
+
+
+def _scan_segments(T: int, gpt: int, sup: int, bn: int, want: int,
+                   rows_max: int, up: bool = False) -> Tuple[int, int]:
+    """(segments, tiles a segment) cutting T tiles into about ``want``
+    segments of whole steps (whole tiles where a tile is a step or longer:
+    T / want rounded down to them, or ``up``), none over ``rows_max`` tail
+    rows, the tiles spread evenly (the last segment ragged)."""
+    a = math.lcm(gpt, bn) // gpt                     # tiles of whole steps
+    cap = max(a, rows_max // (gpt // sup) // a * a)  # the chain bound
+    tps = T / max(1, want) / a
+    tps = min(cap, a * max(1, math.ceil(tps) if up else math.floor(tps)))
+    n = -(-T // tps)
+    tps = -(-(-(-T // n)) // a) * a
+    return -(-T // tps), tps
+
+
+def _makespan(blocks, sms: int) -> float:
+    """The last finish when ``blocks`` (their costs, in launch order) go
+    one at a time to the first free SM: how the card schedules a grid of
+    blocks that each fill an SM."""
+    free = [0.0] * sms
+    for c in blocks:
+        heapq.heappush(free, heapq.heappop(free) + c)
+    return max(free)
+
+
+@functools.lru_cache(maxsize=256)
+def _scan_plan(Bp: int, fams: tuple, rows_max: int = SCAN_ROWS_MAX) -> ScanPlan:
+    """The Hopper scan's tiles, rings, slices and segments: a function of
+    the shape alone, ``fams`` one (G, wk, W, gpt, sup) a family, sem first
+    (groups, logit depth, tail width, groups a tile, groups a tail row).
+
+    Slices: a tail of up to 9 boxes of 64 columns (576) is one slice, a
+    wider one (the full-width 1,152) the fewest slices of equal width.
+    Steps of 32 groups (the kernel's BN) with the deepest centroid and
+    value rings that fit in a block's shared memory (4 + 4 stages, else
+    3 + 4 or 3 + 3: the centroid ring runs gs - 2 steps ahead of the
+    logits, so at least 3).
+    Segments: whole tiles (whole steps where a tile is shorter than a
+    step), none over ``rows_max`` tail rows (one wgmma accumulation chain).
+    Their number: for k = 1, 2, 3, 4, 6, 8 waves of blocks of U / (132 k)
+    work each (U the request's: groups times logit and tail columns), the
+    segments rounded down or up to whole steps, the cut whose blocks, in
+    launch order on the card's 132 SMs, finish first, each block counted
+    two steps of fixed cost (its prologue, its tail's write-out); a cut
+    that gives every SM a block comes before one that does not.
+    lru-cached: serving asks for the same few shapes."""
+    n_qb = -(-Bp // 64)
+    shapes = []
+    for G, wk, W, gpt, sup in fams:
+        boxes = W // 64
+        n_sl = -(-boxes // _SCAN_SLICE_BOXES)
+        shapes.append((G // gpt, -(-wk // 64), gpt, sup, n_sl, -(-boxes // n_sl)))
+    for bn, gs, vs in ((32, 4, 4), (32, 3, 4), (32, 3, 3)):
+        if all(_scan_smem(bn, gs, vs, kb, slb, _scan_rows(bn, sup)) <= _SM90_MAX_SMEM
+               for _, kb, _, sup, _, slb in shapes):
+            break
+    else:
+        raise ValueError(f"hier_scan kernel: no tiles for {fams} fit in a "
+                         "block's shared memory")
+    # a tile's work in one slice: its logits and its share of the slice's tail
+    tile_work = [gpt * 64 * (kb + slb // sup) for _, kb, gpt, sup, _, slb in shapes]
+    U = n_qb * sum(T * n_sl * w for (T, _, _, _, n_sl, _), w in zip(shapes, tile_work))
+    best = None
+    for k, up in itertools.product((1, 2, 3, 4, 6, 8), (False, True)):
+        segs = [_scan_segments(T, gpt, sup, bn, math.ceil(T * w * SM90_SMS * k / U),
+                               rows_max, up)
+                for (T, _, gpt, sup, _, _), w in zip(shapes, tile_work)]
+        costs = []
+        for (T, _, gpt, _, n_sl, _), w, (n, tps) in zip(shapes, tile_work, segs):
+            fixed = 2 * w * bn / gpt  # two steps
+            for seg in range(n):
+                costs += [min(tps, T - seg * tps) * w + fixed] * (n_qb * n_sl)
+        # fill the card where the tiles allow it, then finish first
+        key = (len(costs) < SM90_SMS, _makespan(costs, SM90_SMS), len(costs))
+        if best is None or key < best[0]:
+            best = (key, segs)
+    out = tuple(ScanFamily(n_sl, slb, n, tps)
+                for (_, _, _, _, n_sl, slb), (n, tps) in zip(shapes, best[1]))
+    return ScanPlan(bn, gs, vs, out)
+
+
 def _hier_scan_stats_call(q_cat, g_sem_cat, g_geo_cat, *, gpt_s: int,
                           gpt_g: int):
     """The stats-only group scan: (m_s, s_s, m_g, s_g) [Bp, t_pad] f32.
@@ -919,38 +1043,17 @@ def _hier_scan_stats_call(q_cat, g_sem_cat, g_geo_cat, *, gpt_s: int,
 _hier_scan_stats_call.launches = 0
 
 
-def _hier_scan_call(q_cat, g_sem_cat, g_geo_cat, g_sem_vw, g_geo_vw, *,
-                    gpt_s: int, gpt_g: int, has_geo: bool = True,
-                    sup_r: int = 0):
-    """The fused group scan: (m_s, s_s, m_g, s_g [Bp, t_pad] f32, tails
-    [Bp, Ws + Wg] f32).  ``has_geo=False`` (RANGE mode): (m_s, s_s, None,
-    None, tails [Bp, Ws]), the geo operands untouched.  ``sup_r > 0``: the
-    segment-sum variant of tail_super banks (`_hier_scan_plain`), which
-    also counts in ``.sup_launches``.  Tails wider than 512 columns (the
-    full-width group value sums, Dv + 128) run the wide-tail variant, in
-    column slices: it also counts in ``.wide_launches``.
-
-    CPU tensors: `_hier_scan_plain`.  CUDA tensors: `csrc/hier_scan.cu`,
-    which replaces `_hier_scan_kernel` (`range_tpu/ops/retrieval_hier.py:
-    1443`); bf16 operands only, a launch failure raises.  The TPU tiling
-    knobs (bm, tc) have no counterpart: they only set speed."""
-    if q_cat.device.type == "cpu":
-        return _hier_scan_plain(q_cat, g_sem_cat, g_geo_cat, g_sem_vw,
-                                g_geo_vw, gpt_s=gpt_s, gpt_g=gpt_g,
-                                has_geo=has_geo, sup_r=sup_r)
-    bf = torch.bfloat16
-    ops = dict(q_cat=q_cat, g_sem_cat=g_sem_cat, g_sem_vw=g_sem_vw)
-    if has_geo:
-        ops.update(g_geo_cat=g_geo_cat, g_geo_vw=g_geo_vw)
-    _check_cuda("hier_scan", ops, dict.fromkeys(ops, bf))
-    Bp, cat_d = q_cat.shape
+def _scan_shapes(q_cat, g_sem_cat, g_geo_cat, g_sem_vw, g_geo_vw, *, gpt_s: int,
+                 gpt_g: int, has_geo: bool = True, sup_r: int = 0) -> tuple:
+    """The scan plan's families, (G, wk, W, gpt, sup) each, sem first;
+    raises on a shape the kernel does not take."""
+    cat_d = q_cat.shape[1]
     Gs, ws = g_sem_cat.shape
-    Ws = g_sem_vw.shape[1]
     t_pad = Gs // gpt_s
     if sup_r and (sup_r < 2 or 32 % sup_r or gpt_s % sup_r):
         raise ValueError(f"hier_scan kernel: sup_r={sup_r} must divide the "
                          f"32-group step and gpt_s={gpt_s}")
-    fams = [(gpt_s, Gs, ws, Ws, g_sem_vw, sup_r or 1)]
+    fams = [(gpt_s, Gs, ws, g_sem_vw.shape[1], g_sem_vw, sup_r or 1)]
     if has_geo:
         fams.append((gpt_g, *g_geo_cat.shape, g_geo_vw.shape[1], g_geo_vw, 1))
     for gpt, G, w, W, vw, r in fams:
@@ -964,25 +1067,79 @@ def _hier_scan_call(q_cat, g_sem_cat, g_geo_cat, g_sem_vw, g_geo_vw, *,
                 f", g_sem {tuple(g_sem_cat.shape)}, g_geo "
                 f"{tuple(g_geo_cat.shape)}, vw {tuple(g_sem_vw.shape)} / "
                 f"{tuple(g_geo_vw.shape)}")
+    return tuple((G, w, W, gpt, r) for gpt, G, w, W, _, r in fams)
+
+
+def _launch_scan_sm90(q_cat, g_sem_cat, g_geo_cat, g_sem_vw, g_geo_vw, *,
+                      gpt_s: int, gpt_g: int, has_geo: bool = True,
+                      sup_r: int = 0, plan: Optional[ScanPlan] = None):
+    """Launch `csrc/hier_scan_sm90.cu` (and its segment reduction) on bf16
+    CUDA operands: `_hier_scan_call`'s outputs, counted nowhere.  ``plan``
+    defaults to `_scan_plan`'s."""
+    bf = torch.bfloat16
+    ops = dict(q_cat=q_cat, g_sem_cat=g_sem_cat, g_sem_vw=g_sem_vw)
+    if has_geo:
+        ops.update(g_geo_cat=g_geo_cat, g_geo_vw=g_geo_vw)
+    _check_cuda("hier_scan", ops, dict.fromkeys(ops, bf))
+    fams = _scan_shapes(q_cat, g_sem_cat, g_geo_cat, g_sem_vw, g_geo_vw,
+                        gpt_s=gpt_s, gpt_g=gpt_g, has_geo=has_geo, sup_r=sup_r)
+    Bp, cat_d = q_cat.shape
+    t_pad = g_sem_cat.shape[0] // gpt_s
     dev = q_cat.device
     stats = [torch.empty((Bp, t_pad), dtype=torch.float32, device=dev)
              for _ in range(4 if has_geo else 2)]
-    Wg = g_geo_vw.shape[1] if has_geo else 0
-    tails = torch.empty((Bp, Ws + Wg), dtype=torch.float32, device=dev)
-    if Bp:
-        q, gs, vs = (t.contiguous() for t in (q_cat, g_sem_cat, g_sem_vw))
-        gg, vg = ((g_geo_cat.contiguous(), g_geo_vw.contiguous()) if has_geo
-                  else (None, None))
-        ptr = [None if t is None else t.data_ptr() for t in (
-            q, gs, gg, vs, vg, *stats[:2], *(stats[2:] or [None, None]),
-            tails)]
-        _launch("hier_scan", "hier_scan_launch", *ptr, Bp, cat_d, ws,
-                g_geo_cat.shape[1], Gs, g_geo_cat.shape[0], Ws, Wg, gpt_s,
-                gpt_g, t_pad, int(has_geo), sup_r, _stream(q_cat))
+    tails = torch.empty((Bp, sum(f[2] for f in fams)), dtype=torch.float32,
+                        device=dev)
+    if not Bp:
+        return stats, tails
+    plan = plan or _scan_plan(Bp, fams)
+    work = sum(f.n_seg * Bp * W for f, (_, _, W, _, _) in zip(plan.fams, fams)
+               if f.n_seg > 1)
+    work = torch.empty(work, dtype=torch.float32, device=dev) if work else None
+    q, gs, vs = (t.contiguous() for t in (q_cat, g_sem_cat, g_sem_vw))
+    gg, vg = ((g_geo_cat.contiguous(), g_geo_vw.contiguous()) if has_geo
+              else (None, None))
+    ptr = [None if t is None else t.data_ptr() for t in (
+        q, gs, gg, vs, vg, *stats[:2], *(stats[2:] or [None, None]), tails,
+        work)]
+    fam_plan = [v for f in plan.fams for v in f] + [0] * 4 * (2 - len(plan.fams))
+    _launch("hier_scan_sm90", "hier_scan_sm90_launch", *ptr, Bp, cat_d,
+            g_sem_cat.shape[1], g_geo_cat.shape[1], g_sem_cat.shape[0],
+            g_geo_cat.shape[0], fams[0][2], fams[1][2] if has_geo else 0,
+            gpt_s, gpt_g, t_pad, int(has_geo), sup_r, plan.bn, plan.gs,
+            plan.vs, *fam_plan, _stream(q_cat))
+    return stats, tails
+
+
+def _hier_scan_call(q_cat, g_sem_cat, g_geo_cat, g_sem_vw, g_geo_vw, *,
+                    gpt_s: int, gpt_g: int, has_geo: bool = True,
+                    sup_r: int = 0):
+    """The fused group scan: (m_s, s_s, m_g, s_g [Bp, t_pad] f32, tails
+    [Bp, Ws + Wg] f32).  ``has_geo=False`` (RANGE mode): (m_s, s_s, None,
+    None, tails [Bp, Ws]), the geo operands untouched.  ``sup_r > 0``: the
+    segment-sum variant of tail_super banks (`_hier_scan_plain`), which
+    also counts in ``.sup_launches``.  Tails wider than 512 columns (the
+    full-width group value sums, Dv + 128) also count in
+    ``.wide_launches``.
+
+    CPU tensors: `_hier_scan_plain`.  CUDA tensors: the Hopper kernel
+    `csrc/hier_scan_sm90.cu` over `_scan_plan`'s segments, which replaces
+    `_hier_scan_kernel` (`range_tpu/ops/retrieval_hier.py:1443`); bf16
+    operands only, a shape it does not take or a failed launch raises.
+    The TPU tiling knobs (bm, tc) have no counterpart: they only set
+    speed."""
+    if q_cat.device.type == "cpu":
+        return _hier_scan_plain(q_cat, g_sem_cat, g_geo_cat, g_sem_vw,
+                                g_geo_vw, gpt_s=gpt_s, gpt_g=gpt_g,
+                                has_geo=has_geo, sup_r=sup_r)
+    stats, tails = _launch_scan_sm90(q_cat, g_sem_cat, g_geo_cat, g_sem_vw,
+                                     g_geo_vw, gpt_s=gpt_s, gpt_g=gpt_g,
+                                     has_geo=has_geo, sup_r=sup_r)
+    if q_cat.shape[0]:
         _hier_scan_call.launches += 1
         if sup_r:
             _hier_scan_call.sup_launches += 1
-        if max(Ws, Wg) > 512:
+        if max(g_sem_vw.shape[1], g_geo_vw.shape[1] if has_geo else 0) > 512:
             _hier_scan_call.wide_launches += 1
     if not has_geo:
         stats += [None, None]

@@ -262,16 +262,52 @@ def test_fused_f32_operands_launch_the_exact_body(cuda):
         before[0], before[1] + 1)
 
 
-def test_fused_sm90_rejects_a_shape_it_does_not_take(cuda):
-    """bf16 operands whose semantic group is no whole number of 64-column
-    boxes raise, with no launch and no fallback to the plain version."""
-    q = torch.zeros(4, 128, dtype=torch.bfloat16, device=cuda)
-    k = torch.zeros(6, 128, dtype=torch.bfloat16, device=cuda)
-    values = torch.zeros(6, 64, dtype=torch.bfloat16, device=cuda)
+@pytest.mark.parametrize("case", ["sem_d", "Dv"])
+def test_fused_sm90_rejects_a_shape_it_does_not_take(cuda, case):
+    """Operands that no padding of the packer cures raise, with no launch
+    and no fallback to the plain version: bf16 operands packed by hand
+    whose semantic group is no whole number of 64-column boxes (the
+    packer pads it on the card, `retrieve_fused` takes the operands as
+    they are), and values of no whole 16-byte copy (Dv = 100)."""
+    sem_d, Dv = (96, 64) if case == "sem_d" else (256, 100)
+    q = torch.zeros(4, 384, dtype=torch.bfloat16, device=cuda)
+    k = torch.zeros(6, 384, dtype=torch.bfloat16, device=cuda)
+    values = torch.zeros(6, Dv, dtype=torch.bfloat16, device=cuda)
     before = (rf.retrieve_fused.launches, rf.retrieve_fused.exact_launches)
-    with pytest.raises(ValueError, match="sem_d % 64"):
-        rf.retrieve_fused(q, k, values, torch.zeros(1, 6, device=cuda), 0.5, sem_d=96)
+    with pytest.raises(ValueError, match="sem_d % 64" if case == "sem_d" else "Dv % 8"):
+        rf.retrieve_fused(q, k, values, torch.zeros(1, 6, device=cuda), 0.5, sem_d=sem_d)
     assert (rf.retrieve_fused.launches, rf.retrieve_fused.exact_launches) == before
+
+
+# The bars of test_fused_kernel_matches_plain.  The plain version runs on
+# JAX's packing (no padded columns); a zero column adds exactly 0 to every
+# logit, so the padded kernel's answer is the same sum.
+@pytest.mark.parametrize("key_dim,tier", [(16, "fast"), (32, "fast"), (40, "fast"),
+                                          (96, "fast"), (16, "high"), (32, "high"),
+                                          (40, "high"), (96, "high"), (40, "exact")])
+def test_fused_serves_key_widths_of_no_whole_box(cuda, key_dim, tier):
+    """Dense banks whose key width is no multiple of 64 (of 16 at 40-d,
+    'exact'), served through `retrieve_pallas` on the card: the packer pads
+    the semantic columns (`packed_dims(card=True)`) and the tier's kernel
+    launches once; the answer matches the plain version over JAX's
+    packing."""
+    bank = GeoBank.synthetic(0, 3001, key_dim=key_dim, value_dim=256, pad_to=7,
+                             value_dtype=torch.bfloat16, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(key_dim)
+    q = torch.nn.functional.normalize(torch.randn(77, key_dim, generator=g, device=cuda), dim=1)
+    x = lonlat_deg_to_xyz(_coords(77, seed=3, device=cuda))
+    before = (rf.retrieve_fused.launches, rf.retrieve_fused.exact_launches)
+    got = rf.retrieve_pallas(q, x, bank, tier=tier)
+    torch.cuda.synchronize()
+    assert (rf.retrieve_fused.launches, rf.retrieve_fused.exact_launches) == (
+        before[0] + (tier != "exact"), before[1] + (tier == "exact"))
+    ref = rf._retrieve_fused_plain(
+        rf.pack_queries(q, x, 12.0, 40.0, tier), rf.pack_bank(bank.keys_sem, bank.xyz, tier),
+        bank.values, (rf.NEG * (1 - bank.row_mask()))[None], 0.5,
+        sem_d=rf.packed_dims(key_dim, tier)[0])
+    err = (got - ref).abs()
+    assert err.max() <= bank.values.abs().max().float() / 128
+    assert (err > 1e-4).any(dim=1).sum() <= 2
 
 
 def test_fused_kernel_rejects_f32_values(cuda):
@@ -1701,3 +1737,145 @@ def test_two_level_feature_path_launches(cuda, two_level_bank, name):
         assert ((full - base).abs() / base.abs().clamp_min(0.1)).max() < 1e-3
         for out in (full, base):
             assert ((out - ref).abs() / ref.abs().clamp_min(0.1)).max() < 1e-2
+
+
+# ---- kernel 8's Hopper kernel (csrc/hier_scan_sm90.cu) in each form
+# Tolerances: the stats as the scan tests' above (f32 sums of the same bf16
+# products, and of the same f32 exponentials, in another order); the tails
+# one bf16 ulp of one term where an exponential (or a supergroup's f32 sum
+# of them) lands the other way (`_within_terms`).
+
+SCAN_FORMS = ["two", "geo_less", "sup4", "wide", "mixed", "sup_wide"]
+
+
+def _scan_operands(cuda, form, gpt, Bp, seed, t_pad=12):
+    """Random operands of one scan form: 256 + 128 packed query columns,
+    sem centroids at ``gpt`` groups a tile, geo at 8, tails of 384 / 512
+    columns or the full width 1,152 (wide: both; mixed: geo; sup_wide: a
+    1,152-column supergroup operand of 8 groups a row), rows past 700 of
+    the batch zero."""
+    sup_r = {"sup4": 4, "sup_wide": 8}.get(form, 0)
+    Ws = 1152 if form in ("wide", "sup_wide") else 384
+    Wg = 1152 if form in ("wide", "mixed", "sup_wide") else 512
+    q = _bf16_rand((Bp, 384), 1.0, seed, cuda)
+    q[700:] = 0
+    gs = _bf16_rand((t_pad * gpt, 256), 0.1, seed + 1, cuda)
+    gg = _bf16_rand((t_pad * 8, 128), 0.5, seed + 2, cuda)
+    vs = _bf16_rand((t_pad * gpt // max(sup_r, 1), Ws), 1.0, seed + 3, cuda)
+    vg = _bf16_rand((t_pad * 8, Wg), 1.0, seed + 4, cuda)
+    return (q, gs, gg, vs, vg), dict(gpt_s=gpt, gpt_g=8, has_geo=form != "geo_less",
+                                     sup_r=sup_r)
+
+
+def _hold_scan(got, args, kw):
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    ref = rh._hier_scan_plain(*args, **kw)
+    q, gs, gg, vs, vg = args
+    mag = rh._hier_scan_plain(q, gs, gg, vs.abs(), vg.abs(), **kw)[4]
+    for i in (0, 2) if kw["has_geo"] else (0,):
+        torch.testing.assert_close(got[i], ref[i], rtol=0, atol=1e-4)
+    for i in (1, 3) if kw["has_geo"] else (1,):
+        torch.testing.assert_close(got[i], ref[i], rtol=1e-4, atol=0)
+    Ws = vs.shape[1]
+    assert got[4].shape == (q.shape[0], Ws + (vg.shape[1] if kw["has_geo"] else 0))
+    for cols in (slice(0, Ws), slice(Ws, None)) if kw["has_geo"] else (slice(0, Ws),):
+        _within_terms(got[4][:, cols], ref[4][:, cols], mag[:, cols])
+
+
+@pytest.mark.parametrize("gpt", [8, 16, 32, 64])
+@pytest.mark.parametrize("form", SCAN_FORMS)
+def test_scan_sm90_matches_plain(cuda, form, gpt):
+    """Every form at every groups-per-tile the scan takes, a ragged batch
+    (700 real of 768 rows): stats and tails against the plain version, and
+    the launch counters (the scan's, and its sup / wide forms')."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    args, kw = _scan_operands(cuda, form, gpt, 768, seed=gpt)
+    c = rh._hier_scan_call
+    n0 = (c.launches, c.sup_launches, c.wide_launches)
+    got = c(*args, **kw)
+    torch.cuda.synchronize()
+    wide = max(args[3].shape[1], args[4].shape[1] if kw["has_geo"] else 0) > 512
+    assert (c.launches, c.sup_launches, c.wide_launches) == (
+        n0[0] + 1, n0[1] + bool(kw["sup_r"]), n0[2] + wide)
+    if not kw["has_geo"]:
+        assert got[2] is None and got[3] is None
+    _hold_scan(got, args, kw)
+
+
+@pytest.mark.parametrize("Bp", [1, 64, 77])
+@pytest.mark.parametrize("form", ["two", "wide"])
+def test_scan_sm90_small_and_ragged_batches(cuda, form, Bp):
+    """A single query, one 64-query block, and a batch no multiple of it:
+    the plan cuts many segments to fill the card; the answer holds."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    args, kw = _scan_operands(cuda, form, 32, Bp, seed=Bp, t_pad=40)
+    fams = rh._scan_shapes(*args, **kw)
+    assert rh._scan_plan(Bp, fams).fams[0].n_seg > 1
+    _hold_scan(rh._hier_scan_call(*args, **kw), args, kw)
+
+
+@pytest.mark.parametrize("ws,wg", [(80, 96), (32, 16), (192, 64)])
+def test_scan_sm90_logit_widths_of_no_whole_box(cuda, ws, wg):
+    """Centroid widths that are no whole number of 64-column boxes (the
+    geo family of a 32-d bank has 96): the tiles are copied box by box,
+    the columns past the width zero-filled, the query columns past it (the
+    other family's) multiplied by those zeros."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    q = _bf16_rand((200, 272), 1.0, ws, cuda)
+    gs, gg = _bf16_rand((12 * 16, ws), 0.2, 1, cuda), _bf16_rand((12 * 8, wg), 0.3, 2, cuda)
+    vs, vg = _bf16_rand((12 * 16, 256), 1.0, 3, cuda), _bf16_rand((12 * 8, 384), 1.0, 4, cuda)
+    kw = dict(gpt_s=16, gpt_g=8, has_geo=True, sup_r=0)
+    _hold_scan(rh._hier_scan_call(q, gs, gg, vs, vg, **kw), (q, gs, gg, vs, vg), kw)
+
+
+@pytest.mark.parametrize("form", ["two", "sup4", "wide"])
+def test_scan_sm90_plans_agree(cuda, form):
+    """The kernel under other plans (one chain a family, and segments of
+    one step): the stats bit-equal (each tile's logits are the same
+    products in the same order, in whichever block owns the tile), the
+    tails the plain version's."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    args, kw = _scan_operands(cuda, form, 32, 256, seed=7, t_pad=40)
+    fams = rh._scan_shapes(*args, **kw)
+    base = rh._scan_plan(256, fams)
+    tiles = [G // gpt for G, _, _, gpt, _ in fams]
+    step = [max(1, base.bn // gpt) for _, _, _, gpt, _ in fams]  # the tiles of one step
+    plans = [base._replace(fams=tuple(f._replace(n_seg=-(-T // n), seg_tiles=n)
+                                      for f, T, n in zip(base.fams, tiles, per)))
+             for per in (tiles, step)]
+    outs = []
+    for plan in plans:
+        stats, tails = rh._launch_scan_sm90(*args, **kw, plan=plan)
+        outs.append(stats + [tails])
+    torch.cuda.synchronize()
+    assert plans[0].fams[0].n_seg == 1 and plans[1].fams[0].n_seg == 40 // step[0]
+    for a, b in zip(outs[0][:4], outs[1][:4]):
+        assert torch.equal(a, b)
+    for out in outs:
+        _hold_scan(out, args, kw)
+
+
+def test_scan_wrapper_never_launches_the_mma_sync_scan(cuda, monkeypatch):
+    """`csrc/hier_scan.cu` stays only as chip_smoke.py's yardstick: the
+    wrapper, in every form, loads the Hopper kernel's library alone."""
+    from range_tpu_torch.kernels import _build
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    loaded = []
+    real = _build.load_kernel_library
+
+    def spy(name):
+        loaded.append(name)
+        return real(name)
+
+    monkeypatch.setattr(_build, "load_kernel_library", spy)
+    for form in SCAN_FORMS:
+        args, kw = _scan_operands(cuda, form, 32, 128, seed=3)
+        rh._hier_scan_call(*args, **kw)
+    torch.cuda.synchronize()
+    assert set(loaded) == {"hier_scan_sm90"}

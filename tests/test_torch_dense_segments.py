@@ -201,3 +201,60 @@ def test_cpu_tensors_take_the_plain_version():
         ref = trf._retrieve_fused_plain(q_cat, k_cat, tb.values, mask, 0.5, sem_d=sem_d)
         assert torch.equal(got, ref)
     assert (trf.retrieve_fused.launches, trf.retrieve_fused.exact_launches) == before
+
+
+# ---- the card's packing: semantic columns padded with zeros
+
+
+@pytest.mark.parametrize("key_dim", [16, 32, 40, 96, 256])
+@pytest.mark.parametrize("tier", TIERS)
+def test_card_packing_pads_the_semantic_columns_with_zeros(key_dim, tier):
+    """`packed_dims(card=True)` rounds the semantic columns up to whole
+    64-column boxes at the bf16 tiers and whole k16 steps at 'exact';
+    `pack_queries` / `pack_bank` then hold JAX's semantic columns, zeros up
+    to the padded width, and JAX's geo columns after them.  A zero column
+    adds exactly 0 to every logit.  Without ``card`` (the CPU path) the
+    packing is JAX's, bit for bit."""
+    jb, tb = _bank(key_dim=key_dim)
+    q, x = _queries(9, key_dim=key_dim)
+    sem0, cat0 = trf.packed_dims(key_dim, tier)
+    assert (sem0, cat0) == jrp.packed_dims(key_dim, tier)
+    plain = (trf.pack_queries(torch.from_numpy(q), torch.from_numpy(x), 12.0, 40.0, tier),
+             trf.pack_bank(tb.keys_sem, tb.xyz, tier))
+    jax = (jrp.pack_queries(jnp.asarray(q), jnp.asarray(x), 12.0, 40.0, tier=tier),
+           jrp.pack_bank(jb.keys_sem, jb.xyz, tier=tier))
+    for t, j in zip(plain, jax):
+        np.testing.assert_array_equal(t.float().numpy(), np.asarray(j, np.float32))
+    sem, cat = trf.packed_dims(key_dim, tier, card=True)
+    step = 16 if tier == "exact" else 64
+    assert sem % step == 0 and 0 <= sem - sem0 < step and cat % 128 == 0
+    card = (trf.pack_queries(torch.from_numpy(q), torch.from_numpy(x), 12.0, 40.0, tier,
+                             card=True),
+            trf.pack_bank(tb.keys_sem, tb.xyz, tier, card=True))
+    for t, ref in zip(card, plain):
+        assert t.shape == (ref.shape[0], cat) and t.dtype == ref.dtype
+        assert torch.equal(t[:, :sem0], ref[:, :sem0])
+        assert not t[:, sem0:sem].any() and not t[:, sem + 9:].any()
+        assert torch.equal(t[:, sem:sem + 9], ref[:, sem0:sem0 + 9])
+
+
+@pytest.mark.parametrize("tier", TIERS)
+def test_padded_packing_gives_the_same_answer(tier):
+    """The plain version over the card's padded packing equals it over
+    JAX's packing (the zero columns add exact zeros), at a 40-d bank, to
+    1e-6 (the CPU matmul may block the longer rows in another f32 order);
+    and `_packed` keeps JAX's packing for a bank on the CPU."""
+    _, tb = _bank(key_dim=40)
+    q, x = _queries(24, key_dim=40)
+    mask = (trf.NEG * (1.0 - tb.row_mask()))[None, :]
+    outs = []
+    for card in (False, True):
+        q_cat = trf.pack_queries(torch.from_numpy(q), torch.from_numpy(x), 12.0, 40.0, tier,
+                                 card=card)
+        k_cat = trf.pack_bank(tb.keys_sem, tb.xyz, tier, card=card)
+        outs.append(trf._retrieve_fused_plain(q_cat, k_cat, tb.values, mask, 0.5,
+                                              sem_d=trf.packed_dims(40, tier, card)[0]))
+    torch.testing.assert_close(outs[1], outs[0], rtol=0, atol=1e-6)
+    q_cat, k_cat, sem_d, _ = trf._packed(torch.from_numpy(q), torch.from_numpy(x), tb, 12.0,
+                                         40.0, tier)
+    assert sem_d == trf.packed_dims(40, tier)[0] and q_cat.shape[1] == k_cat.shape[1]
