@@ -69,7 +69,11 @@
 // thread) cannot sit beside the value accumulators.  A slice of its own
 // would recompute every row logit once more for two sums.  Each 32-row
 // step and each tile's group product is summed in a fresh tensor-core
-// fragment and joins its accumulator with an IEEE f32 add.
+// fragment and joins its accumulator with an IEEE f32 add.  Past 64
+// groups a tile (128 for gsz_sem 4 at bn 512) both group parts walk a
+// tile's groups in chunks of 64 (the CHUNKED instances), so shared memory
+// holds one chunk's centroids, value rows and exponentials; up to 64 they
+// take the tile in one pass.
 
 #include <type_traits>
 
@@ -88,7 +92,8 @@ constexpr int LDV = DVS + 8;    // bf16 row stride of a value tile
 constexpr int LDV8 = DVS + 16;  // byte row stride of a raw int8 value tile
 constexpr int LDP = BN + 8;     // bf16 row stride of the p tiles
 constexpr int MAX_NT = 8;       // alr n8 tiles per warp: W_alr <= 512
-constexpr int MAX_GK = 4;       // k16 steps of one tile's groups: gpt <= 64
+constexpr int MAX_GK = 4;       // k16 steps of a chunk of a tile's groups
+constexpr int GC = 16 * MAX_GK; // groups a chunk: a tile's groups are walked 64 at a time
 
 struct Fam {
   const __nv_bfloat16* g;   // [G, gw] group centroids
@@ -118,6 +123,9 @@ __host__ __device__ inline size_t up16(size_t n) { return (n + 15) / 16 * 16; }
 
 __host__ __device__ inline int gp16(int gpt) { return (gpt + 15) / 16 * 16; }
 
+// The groups of a tile's largest chunk, rounded to a k16 step
+__host__ __device__ inline int gc16(int gpt) { return gp16(gpt < GC ? gpt : GC); }
+
 struct Layout {
   size_t qs;                                                // both phases
   size_t ks, vs, vc, pt, mask, scale, dpart, gt, vgt, cnt, eg, dgc;  // phase A
@@ -141,7 +149,7 @@ __host__ __device__ inline Layout layout(const Params& P, int nf, bool alr, bool
   l.gpm = 0;
   for (int f = alr ? 1 : 0; f < nf; ++f) {
     gkm = P.f[f].gk > gkm ? P.f[f].gk : gkm;
-    l.gpm = gp16(P.f[f].gpt) > l.gpm ? gp16(P.f[f].gpt) : l.gpm;
+    l.gpm = gc16(P.f[f].gpt) > l.gpm ? gc16(P.f[f].gpt) : l.gpm;
   }
   l.ldgt = gkm + 8;
   l.qs = up16((size_t)P.K * 4);
@@ -160,7 +168,7 @@ __host__ __device__ inline Layout layout(const Params& P, int nf, bool alr, bool
   const size_t end_a = l.dgc + 2 * BM * 4;
   size_t end_b = 0;
   if (alr) {
-    const int ga = gp16(P.f[0].gpt);
+    const int ga = gc16(P.f[0].gpt);
     l.gst = l.ks;
     l.vst = l.gst + (size_t)ga * (P.f[0].gk + 8) * 2;
     l.es = l.vst + (size_t)ga * (P.f[0].W + 8) * 2;
@@ -172,7 +180,8 @@ __host__ __device__ inline Layout layout(const Params& P, int nf, bool alr, bool
 
 // NF families with a value accumulator; ALR: family 0's approximation goes
 // to alr (phase B), every other family's is subtracted at its tiles' ends.
-template <int NF, bool I8, bool ALR>
+// CHUNKED: a tile's groups in chunks of GC (a family has more than GC).
+template <int NF, bool I8, bool ALR, bool CHUNKED>
 __global__ void __launch_bounds__(THREADS, 1)
 hier_parts_kernel(const Params P, const Layout lay) {
   using bf = __nv_bfloat16;
@@ -381,29 +390,31 @@ hier_parts_kernel(const Params P, const Layout lay) {
 
       if (s == spt - 1) {  // the tile's group approximation of the plain families
 #pragma unroll
-        for (int f = ALR ? 1 : 0; f < NF; ++f) {
+        for (int f = ALR ? 1 : 0; f < NF; ++f)
+        for (int c0 = 0; c0 < (CHUNKED ? P.f[f].gpt : 1); c0 += GC) {  // chunks of GC groups
           const Fam& F = P.f[f];
-          const int gpp = gp16(F.gpt), ldeg = gpp + 8;
-          const size_t grow0 = (size_t)idx_s[j] * F.gpt;
-          __syncthreads();  // the previous family's group tiles are consumed
+          const int gc = !CHUNKED ? F.gpt : F.gpt - c0 < GC ? F.gpt - c0 : GC;
+          const int gpp = gp16(gc), ldeg = gpp + 8;
+          const size_t grow0 = (size_t)idx_s[j] * F.gpt + c0;
+          __syncthreads();  // the previous chunk's group tiles are consumed
           {
             const int cpr = F.gk / 8;
             for (int i = tid; i < gpp * cpr; i += THREADS) {
               const int r = i / cpr, c = (i % cpr) * 8;
               int4 v = make_int4(0, 0, 0, 0);
-              if (r < F.gpt) v = *reinterpret_cast<const int4*>(F.g + (grow0 + r) * F.gw + c);
+              if (r < gc) v = *reinterpret_cast<const int4*>(F.g + (grow0 + r) * F.gw + c);
               *reinterpret_cast<int4*>(gt + r * ldgt + c) = v;
             }
           }
           for (int i = tid; i < gpp * (DVS / 8); i += THREADS) {
             const int r = i / (DVS / 8), c = (i % (DVS / 8)) * 8;
             int4 v = make_int4(0, 0, 0, 0);
-            if (r < F.gpt && col0 + c < P.Dv)
+            if (r < gc && col0 + c < P.Dv)
               v = *reinterpret_cast<const int4*>(F.vw + (grow0 + r) * F.W + col0 + c);
             *reinterpret_cast<int4*>(vgt + r * LDV + c) = v;
           }
           if (lead && tid < gpp)
-            cnt[tid] = tid < F.gpt ? __bfloat162float(F.vw[(grow0 + tid) * F.W + P.Dv]) : 0.f;
+            cnt[tid] = tid < gc ? __bfloat162float(F.vw[(grow0 + tid) * F.W + P.Dv]) : 0.f;
           __syncthreads();
           // e = bf16(exp2(min(q_f . g_f, 86))) [64 x gpp], zero past gpt
           for (int tt = warp; tt < 4 * (gpp / 8); tt += THREADS / 32) {
@@ -419,13 +430,13 @@ hier_parts_kernel(const Params P, const Layout lay) {
             for (int e = 0; e < 4; ++e) {
               const int r = mt * 16 + g + 8 * (e >> 1), col = nt * 8 + 2 * t + (e & 1);
               egb[r * ldeg + col] =
-                  __float2bfloat16_rn(col < F.gpt ? exp2f(fminf(c[e], CLAMP2)) : 0.f);
+                  __float2bfloat16_rn(col < gc ? exp2f(fminf(c[e], CLAMP2)) : 0.f);
             }
           }
           __syncthreads();
           if (lead && tid < BM) {  // the count column: d_f's approximation
             float sacc = 0.f;
-            for (int c = 0; c < F.gpt; ++c) sacc += __bfloat162float(egb[tid * ldeg + c]) * cnt[c];
+            for (int c = 0; c < gc; ++c) sacc += __bfloat162float(egb[tid * ldeg + c]) * cnt[c];
             dcorr[f] += sacc;
           }
           // acc_f[64 x this warp's 32 columns] -= E[64 x gpp] @ VG[gpp x ...]
@@ -510,8 +521,8 @@ hier_parts_kernel(const Params P, const Layout lay) {
     bf* gst = reinterpret_cast<bf*>(base + lay.gst);
     bf* vst = reinterpret_cast<bf*>(base + lay.vst);
     bf* esb = reinterpret_cast<bf*>(base + lay.es);
-    const int lds = F.gk + 8, ldw = F.W + 8, gpp = gp16(F.gpt), lde = gpp + 8;
-    const int nks = gpp / 16, ntw = F.W / 64, col_a = warp * ntw * 8;
+    const int lds = F.gk + 8, ldw = F.W + 8;
+    const int ntw = F.W / 64, col_a = warp * ntw * 8;
 
     float acc[4][MAX_NT][4];
 #pragma unroll
@@ -521,20 +532,24 @@ hier_parts_kernel(const Params P, const Layout lay) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
 
-    for (int j = 0; j < K; ++j) {
-      __syncthreads();  // the previous tile is fully consumed
-      const size_t grow0 = (size_t)idx_s[j] * F.gpt;
-      {  // the tile's groups; rows past gpt are zeros (a k16 step)
+    for (int j = 0; j < K; ++j)
+    for (int c0 = 0; c0 < (CHUNKED ? F.gpt : 1); c0 += GC) {  // chunks of GC groups
+      const int gc = !CHUNKED ? F.gpt : F.gpt - c0 < GC ? F.gpt - c0 : GC;
+      const int gpp = gp16(gc), lde = gpp + 8;
+      const int nks = gpp / 16;
+      __syncthreads();  // the previous chunk is fully consumed
+      const size_t grow0 = (size_t)idx_s[j] * F.gpt + c0;
+      {  // the chunk's groups; rows past them are zeros (a k16 step)
         const int cpr = F.gk / 8;
         for (int i = tid; i < gpp * cpr; i += THREADS) {
           const int r = i / cpr, c = (i % cpr) * 8;
-          const bool ok = r < F.gpt;
+          const bool ok = r < gc;
           cp_async16(gst + r * lds + c, F.g + (ok ? (grow0 + r) * F.gw + c : 0), ok);
         }
         const int cpv = F.W / 8;
         for (int i = tid; i < gpp * cpv; i += THREADS) {
           const int r = i / cpv, c = (i % cpv) * 8;
-          const bool ok = r < F.gpt;
+          const bool ok = r < gc;
           cp_async16(vst + r * ldw + c, F.vw + (ok ? (grow0 + r) * F.W + c : 0), ok);
         }
         cp_async_commit();
@@ -554,7 +569,7 @@ hier_parts_kernel(const Params P, const Layout lay) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int r = mt * 16 + g + 8 * (e >> 1), col = nt * 8 + 2 * t + (e & 1);
-          esb[r * lde + col] = __float2bfloat16_rn(col < F.gpt ? exp2f(fminf(c[e], CLAMP2)) : 0.f);
+          esb[r * lde + col] = __float2bfloat16_rn(col < gc ? exp2f(fminf(c[e], CLAMP2)) : 0.f);
         }
       }
       __syncthreads();
@@ -605,29 +620,42 @@ hier_parts_kernel(const Params P, const Layout lay) {
   }
 }
 
-template <int NF, bool I8, bool ALR>
+template <int NF, bool I8, bool ALR, bool CHUNKED>
 int launch(const Params& P, int Bp, cudaStream_t stream) {
   const Layout lay = layout(P, NF, ALR, I8);
   if (lay.total > MAX_SMEM) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(hier_parts_kernel<NF, I8, ALR>,
+  cudaError_t err = cudaFuncSetAttribute(hier_parts_kernel<NF, I8, ALR, CHUNKED>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)lay.total);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(Bp / BM, (P.Dv + DVS - 1) / DVS);
-  hier_parts_kernel<NF, I8, ALR><<<grid, THREADS, lay.total, stream>>>(P, lay);
+  hier_parts_kernel<NF, I8, ALR, CHUNKED><<<grid, THREADS, lay.total, stream>>>(P, lay);
   return (int)cudaGetLastError();
 }
 
+template <int NF, bool CHUNKED>
+int dispatch_as(const Params& P, int Bp, bool i8, bool alr, cudaStream_t s) {
+  if (i8)
+    return alr ? launch<NF, true, true, CHUNKED>(P, Bp, s)
+               : launch<NF, true, false, CHUNKED>(P, Bp, s);
+  return alr ? launch<NF, false, true, CHUNKED>(P, Bp, s)
+             : launch<NF, false, false, CHUNKED>(P, Bp, s);
+}
+
+// More than GC groups a tile in any family: the chunked instances
 template <int NF>
 int dispatch(const Params& P, int Bp, bool i8, bool alr, cudaStream_t s) {
-  if (i8) return alr ? launch<NF, true, true>(P, Bp, s) : launch<NF, true, false>(P, Bp, s);
-  return alr ? launch<NF, false, true>(P, Bp, s) : launch<NF, false, false>(P, Bp, s);
+  bool chunked = false;
+  for (int f = 0; f < NF; ++f) chunked = chunked || P.f[f].gpt > GC;
+  return chunked ? dispatch_as<NF, true>(P, Bp, i8, alr, s)
+                 : dispatch_as<NF, false>(P, Bp, i8, alr, s);
 }
 
 // A family's shapes: an lr family's W is a multiple of 128 up to 512, a
-// plain family's holds the count in column Dv; at most 64 groups a tile.
+// plain family's holds the count in column Dv; any groups a tile (walked
+// 64 at a time).
 bool fam_ok(const Fam& F, int Dv, int bn, bool lr) {
-  return F.gpt >= 1 && F.gpt <= 16 * MAX_GK && bn % F.gpt == 0 && F.gk % 16 == 0 &&
+  return F.gpt >= 1 && bn % F.gpt == 0 && F.gk % 16 == 0 &&
          F.gk >= 16 && F.gk <= F.gw && F.gw % 8 == 0 && F.kf % 16 == 0 &&
          (lr ? (F.W % 128 == 0 && F.W <= 64 * MAX_NT) : (F.W >= Dv + 1 && F.W % 8 == 0));
 }

@@ -1,0 +1,888 @@
+// Hierarchical retrieval, stage 2: exact minus group approximation of ONE
+// family over each query block's selected bank tiles, the residual-rank
+// shapes (rr, with or without lr), for Hopper (sm_90a): wgmma on every
+// product, a TMA ring under mbarriers, tile lists split across blocks.
+//
+// Replaces: range_tpu/ops/retrieval_hier.py:2282, `_hier_parts_family_kernel`
+// with rr on (reached via _hier_parts_family_call <- _hier_partials <-
+// retrieve_hier), in every form that shape takes: rr + lr, rr alone (the
+// full-width group value sums), sel (the sem family's group logits from
+// the query operand's last gw columns, the rank-k sketch appended past
+// cat_d) and dedup_pad (an entry equal to the one before it in its row is
+// skipped).  For each query and each tile of its block's list:
+//   p   = exp2(min(q . k + mask, 86))       over the tile's bn rows
+//   ps  = per-group sums of bf16(p), in f32
+//   e   = exp2(min(q_g . g, 86))            over the tile's gpt groups
+//   D   = bf16(e - ps / max(cnt, 1))        (cnt = column lrr of vw)
+//   az += bf16(p) @ z,  alr += D @ vw
+// rr + lr: out [Bp, rrp + 128 + W] = az | d (0: the count rides alr) | 0 | alr.
+// rr alone: out [Bp, lrr + 128 + rrp] = -alr[:, :lrr + 1] | 0 (127) | az,
+// the TPU kernel's bf16(ps/cnt - e) @ vw: bf16 rounds to nearest
+// symmetrically, so bf16(ps/cnt - e) = -D exactly.  These are the TPU
+// kernel's rounding points.
+//
+// What bounds it on an H100: the row logits and the az product, 2 x bn x
+// (kf + rrp) flops per (query, tile), on the tensor cores (the flagship's
+// sem family, 10,112 padded queries x 32 tiles of 512 rows x (256 + 128),
+// is ~127 GFLOP), then the exponentials, one per query and row: 16 times
+// the scan's at the flagship's 16 rows a group.  The bytes are the selected
+// key and z rows, re-read by every 64-query block that selects the tile
+// (from L2 where neighbouring blocks share tiles).
+//
+// Layout.  A block owns BM = 64 queries (one wgmma M) and one segment of
+// its query block's tile list, and walks the segment's rows in steps of
+// BN = 64.  Four warpgroups (512 threads, one block an SM):
+//   * warpgroup 0, the logits: wgmma m64n64k16 with the query block and the
+//     key rows K-major in shared memory (the row logits over the family's
+//     kf columns: 1 k16 step for the geo family's 16, 4 a 64-column box),
+//     p = exp2(min(l + mask, 86)) in registers, bf16(p) into a 2-stage
+//     ring of p tiles (32-byte swizzled [64][16] blocks, wgmma's K-major A
+//     layout);
+//   * warpgroups 1 and 3, az: wgmma m64nNk16 with A = the p tile and B = the
+//     z rows (MN-major, transposed by the instruction), half of rrp each
+//     (N = rrp / 2); a lane of warpgroup 3 issues the ring's TMA copies
+//     (each step's key boxes, z boxes and mask), into the stage a step
+//     frees, so the logits warpgroup issues no copy;
+//   * warpgroup 2, the groups: for each chunk of EG groups of a tile (the
+//     whole tile up to 32 groups, else 32, or 64 for groups of one row, so
+//     a chunk ends on a step), e on wgmma m64nEGk16 from the chunk's
+//     centroids (one TMA copy, issued by its first thread one chunk ahead)
+//     into f32 shared memory; then, step by step, the step's sums of
+//     bf16(p) over units of u = gcd(gsz, 64) rows on wgmma, ps = P [64 x 64
+//     rows] @ S [64 rows x NG], S the 0/1 segment matrix built once in
+//     shared memory (JAX's segment product: f32 sums of the bf16 values);
+//     at each group's end D into the segment's D block in shared memory
+//     (the A layout of the p tiles).  A group of one unit (gsz divides 64)
+//     ends inside the step; a group of whole steps (gsz a multiple of 64)
+//     carries its sum in the accumulator across its steps; any other group
+//     (96 rows: 3 units of 32, ending inside a step) has its units' sums
+//     added in order through shared memory, a thread a query row.  (Summing
+//     the rows element by element on the CUDA cores took ~3.5 us a step and
+//     paced the kernel: PERF.md.)
+//   The group part runs in the same walk: no second pass over the tiles and
+//   no group sums in device memory.
+//   * Then all four warpgroups run alr = D [64 x segment's groups] @ vw of
+//     the segment's groups, the vw rows streamed by TMA 16 a step (one k16
+//     step of D) into the ring's freed memory, the columns in passes of up
+//     to 8 boxes of 64 (2 a warpgroup: 64 accumulator registers a thread),
+//     so the rr shape's 1,025 columns take 3 passes and no logit is
+//     computed twice.  A tile of 8 groups takes 16 rows of vw: the 8 past
+//     it meet D's zero columns.
+// Every wgmma issue sits between its fence and a wait for all groups, with
+// no divergent code between: ptxas keeps them asynchronous (no C7514 or
+// C7520).  No block-wide barrier in the walk; ring positions, tile, chunk
+// and group ends advance by counters (no division on the logits' chain).
+//
+// Segments.  The plan (ops/retrieval_hier._parts_plan, a function of the
+// shape alone) cuts each list into n_seg segments of whole tiles, enough
+// blocks to fill the card's 132 SMs, none over 12,800 rows (one wgmma
+// accumulation chain: the dense kernel's SEG_ROWS_MAX) and none with more
+// groups than the D block holds.  A block drops its row's dedup_pad
+// repeats first (a repeat across a segment boundary too), then takes its
+// share of the distinct entries: segment s the entries [s n / n_seg,
+// (s + 1) n / n_seg).  With
+// more than one segment each block writes its partial rows to a plane of a
+// workspace [n_seg, Bp, out_w] and parts_reduce_kernel adds the planes in
+// segment order (no atomics: the same request gets the same bits).  The
+// tiles are independent (ps, cnt and D belong to one tile), so a segment
+// changes only the order of the f32 additions.
+//
+// Ragged edges: TMA zero-fills columns past the family's kf / gw (a zero
+// column adds 0 to every logit) and rows past the operands.  A wait on a
+// barrier that never completes traps after ~10 s instead of hanging the
+// card.
+
+#include "sm90_common.cuh"
+
+namespace {
+
+using namespace sm90;
+
+constexpr int BM = 64;          // queries a block: one wgmma M
+constexpr int BN = 64;          // bank rows a step: one wgmma N of the row logits
+constexpr int THREADS = 512;    // four warpgroups
+constexpr int BOXB = BM * 128;  // one 64-column box of 64 rows: 8 KB
+constexpr int PST = BN / 16 * 2048;  // one p tile: [4 k16 blocks][64 rows][32 B]
+constexpr int PASS_BOXES = 8;   // alr boxes of 64 columns a pass: 2 a warpgroup
+constexpr float CLAMP2 = 86.0f;
+
+// The launch's shapes and plan, and the shared-memory layout, which the
+// caller gives (`_parts_layout` in ops/retrieval_hier.py; offsets from the
+// 1024-byte aligned base): the query block [kb boxes], the group query
+// block [kbg boxes] (unless it is the query block's), S stages of [kb key
+// boxes | nz z boxes | mask], two p tiles, the chunk's centroids [kbg boxes
+// of EG rows], its exponentials [64][EG + 1] f32 and counts [EG], the unit
+// sums [64][NG + 1] f32 (groups of several units ending inside a step
+// only), the segment matrix [NG][64] bf16, the D block [seg_cap x gp16 / 16
+// blocks of 2048 B], the tile list, barriers.
+// Phase 2 overlays the S stages with S2 stages of [pb boxes of 16 vw rows].
+struct Prm {
+  const __nv_bfloat16* vw;  // [G, W]: the counts (column lrr)
+  const int* idx;           // [nB, K]
+  float* out;               // [Bp, out_w], or the planes [n_seg, Bp, out_w]
+  size_t plane;             // floats between two planes (0: one segment)
+  int n_qb, n_seg, K, bm, bn, gpt, gsz, dedup;
+  int kb, kbg, share, nz;   // boxes: logits, group logits (share: the query block's), z
+  int ks, ksg;              // k16 steps of the row logits and of the group logits
+  int EG, NG, chunks, chunk_steps, gp16;
+  int lu, nu, upg;          // units of 2^lu rows: nu a step, upg a group
+  int W, lrr, out_w, zoff, aoff, acols, zlo, zn;
+  float asign;              // +1: alr; -1: [acc | d] -= D @ vw
+  int abox, pb, n_pass, S, S2;
+  uint32_t q, qg, ring, stage, kz, msk, p, g, e, cnt, us, sm, d, lst, bars, total;
+};
+
+// One block's share: its query block and segment, its list entries, and
+// the barriers' addresses.
+struct Blk {
+  int qb, lo, n;
+  uint32_t base, bq, full, empty, pfull, pempty, gbar, vfull;
+};
+
+// A step's place in a ring of n stages: its stage and the parity of that
+// stage's phase, advanced step by step (no division in the loops).
+struct Ring {
+  int stage = 0, phase = 0;
+  __device__ __forceinline__ void next(int n) {
+    if (++stage == n) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+};
+
+// This warp is done with a stage: one arrive on its empty barrier.
+__device__ __forceinline__ void release(uint32_t bar) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) mbar_arrive(bar);
+}
+
+__device__ __forceinline__ void wg_sync(int id) {  // one warpgroup's threads
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+
+// Byte offset of element (row m, column k) in [64][16] bf16 blocks,
+// 32-byte swizzled: m * 32 + 16 ((k / 8) ^ ((m / 4) & 1)) + 2 (k % 8).
+__device__ __forceinline__ uint32_t sw32(int m, int k) {
+  return (k >> 4) * 2048 + m * 32 + (((((k & 15) >> 3) ^ (m >> 2)) & 1) << 4) + (k & 7) * 2;
+}
+
+// d[4] (+)= A[64 x 16] B[16 x 8], A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n8(float (&d)[4], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {%0, %1, %2, %3}, %4, %5, p, 1, 1, "
+      "0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <int N>  // K-major A and B, N columns
+__device__ __forceinline__ void wgmma_k(float (&d)[N / 2], uint64_t a, uint64_t b, int scale_d) {
+  if constexpr (N == 8) {
+    wgmma_ss_n8(d, a, b, scale_d);
+  } else if constexpr (N == 16) {
+    wgmma_ss_n16(d, a, b, scale_d);
+  } else if constexpr (N == 32) {
+    wgmma_ss_n32(d, a, b, scale_d);
+  } else {
+    wgmma_ss_n64(d, a, b, scale_d);
+  }
+}
+
+template <int N>  // K-major A, MN-major B, N columns
+__device__ __forceinline__ void wgmma_t(float (&d)[N / 2], uint64_t a, uint64_t b) {
+  if constexpr (N == 64) {
+    wgmma_ss_n64_t(d, a, b, 1);
+  } else {
+    wgmma_ss_n128_t(d, a, b, 1);
+  }
+}
+
+// The k16 steps of a logits' depth of `width` columns: 1 where it is one
+// k16 step (the geo family's 16 columns), else 4 a 64-column box (the
+// columns past the width zero-filled).
+__host__ __device__ constexpr int k16_steps(int width) { return width <= 16 ? 1 : 4 * ((width + 63) / 64); }
+
+// ---- the ring's producer: step `row`'s key boxes, z boxes and mask into
+// stage s (a lane of warpgroup 3)
+__device__ __forceinline__ void load_step(const Prm& P, const Blk& b, const CUtensorMap* tk,
+                                          const CUtensorMap* tz, const CUtensorMap* tm, int row,
+                                          int s) {
+  const uint32_t st = b.base + P.ring + s * P.stage, full = b.full + 8 * s;
+  mbar_expect_tx(full, (P.kb + P.nz) * BOXB + BN * 4);
+  for (int i = 0; i < P.kb; ++i) tma_2d(st + i * BOXB, tk, BOX * i, row, full);
+  tma_3d(st + P.kz, tz, 0, row, 0, full);
+  tma_1d(st + P.msk, tm, row, full);
+}
+
+// The centroids of chunk c of list tile `tile` (warpgroup 2's first thread)
+__device__ __forceinline__ void load_g(const Prm& P, const Blk& b, const CUtensorMap* tg, int tile,
+                                       int c) {
+  const int row = tile * P.gpt + c * P.EG;
+  mbar_expect_tx(b.gbar, P.kbg * P.EG * 128);
+  for (int i = 0; i < P.kbg; ++i)
+    tma_2d(b.base + P.g + i * P.EG * 128, tg, BOX * i, row, b.gbar);
+}
+
+// ---- warpgroup 0, the logits
+template <int KS>
+__device__ __forceinline__ void logits(const Prm& P, const Blk& b, int steps) {
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * warp + g;  // this thread's rows r0 and r0 + 8 of the block
+  float sc[BN / 2];
+  Ring ring;
+  mbar_wait(b.bq, 0);
+  for (int it = 0; it < steps; ++it) {
+    const int s = ring.stage;
+    mbar_wait(b.full + 8 * s, ring.phase);
+    const uint32_t kst = b.base + P.ring + s * P.stage;
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      const uint32_t off = (ks & 3) * 32;  // k16 step within the 128-byte row
+      wgmma_ss_n64(sc, desc_k128(b.base + P.q + (ks >> 2) * BOXB + off),
+                   desc_k128(kst + (ks >> 2) * BOXB + off), ks > 0 ? 1 : 0);
+    }
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(sc);
+    // accumulator element 4j + e is row r0 + 8 (e >> 1), column 8j + 2t + (e & 1):
+    // the mask of columns 8j + 2t, + 1
+    float2 m[BN / 8];
+    {
+      const float2* ms = reinterpret_cast<const float2*>(__cvta_shared_to_generic(kst + P.msk));
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) m[j] = ms[4 * j + t];
+    }
+    release(b.empty + 8 * s);
+    ring.next(P.S);
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        sc[4 * j + 2 * e] = exp2f(fminf(sc[4 * j + 2 * e] + m[j].x, CLAMP2));
+        sc[4 * j + 2 * e + 1] = exp2f(fminf(sc[4 * j + 2 * e + 1] + m[j].y, CLAMP2));
+      }
+    const int ps = it & 1;
+    mbar_wait(b.pempty + 8 * ps, ((it >> 1) & 1) ^ 1);
+    const uint32_t pst = b.base + P.p + ps * PST;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const uint32_t v = pack_bf16(sc[4 * j + 2 * e], sc[4 * j + 2 * e + 1]);
+        asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(pst + sw32(r0 + 8 * e, 8 * j + 2 * t)),
+                     "r"(v)
+                     : "memory");
+      }
+    // visible to the tensor cores' (async proxy) reads, then released
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    mbar_arrive(b.pfull + 8 * ps);
+  }
+}
+
+// ---- warpgroups 1 and 3, az: NZB boxes of z from box zb0; `producer`, a
+// lane of warpgroup 3, issues the ring's copies
+template <int NZB>
+__device__ __forceinline__ void az(const Prm& P, const Blk& b, const CUtensorMap* tq,
+                                   const CUtensorMap* tqg, const CUtensorMap* tk,
+                                   const CUtensorMap* tz, const CUtensorMap* tm, int zb0,
+                                   bool producer, int steps, float* out) {
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int spt = P.bn / BN;
+  const int* lst = reinterpret_cast<const int*>(__cvta_shared_to_generic(b.base + P.lst));
+  float acc[NZB * 32];
+#pragma unroll
+  for (int i = 0; i < NZB * 32; ++i) acc[i] = 0.f;
+  int lj = 0, lsub = 0;  // the next step to load: list slot, step within the tile
+  auto next_row = [&]() {
+    const int row = lst[b.lo + lj] * P.bn + lsub * BN;
+    if (++lsub == spt) {
+      lsub = 0;
+      ++lj;
+    }
+    return row;
+  };
+  if (producer) {  // the query block (and the group query block), the first stages
+    mbar_expect_tx(b.bq, (P.kb + (P.share ? 0 : P.kbg)) * BOXB);
+    for (int i = 0; i < P.kb; ++i) tma_2d(b.base + P.q + i * BOXB, tq, BOX * i, b.qb * BM, b.bq);
+    if (!P.share)
+      for (int i = 0; i < P.kbg; ++i)
+        tma_2d(b.base + P.qg + i * BOXB, tqg, BOX * i, b.qb * BM, b.bq);
+    for (int s = 0; s < P.S && s < steps; ++s) load_step(P, b, tk, tz, tm, next_row(), s);
+  }
+  __syncwarp();
+  Ring ring;
+  for (int it = 0; it < steps; ++it) {
+    const int s = ring.stage, ps = it & 1;
+    mbar_wait(b.full + 8 * s, ring.phase);
+    mbar_wait(b.pfull + 8 * ps, (it >> 1) & 1);
+    const uint32_t zst = b.base + P.ring + s * P.stage + P.kz + zb0 * BOXB;
+    const uint32_t pst = b.base + P.p + ps * PST;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk)
+      wgmma_t<64 * NZB>(acc, desc_k32(pst + kk * 2048), desc_v(zst + kk * 2048, BN));
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(acc);
+    release(b.empty + 8 * s);
+    release(b.pempty + 8 * ps);
+    // the next load into the stage this step read, once every reader is done
+    if (producer && it + P.S < steps) {
+      mbar_wait(b.empty + 8 * s, ring.phase);
+      load_step(P, b, tk, tz, tm, next_row(), s);
+    }
+    ring.next(P.S);
+    __syncwarp();
+  }
+  // rows r0 and r0 + 8 of each n8 chunk j: az columns zb0 * 64 + 8j + 2t, + 1
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float* row = out + (size_t)(b.qb * BM + 16 * warp + g + 8 * h) * P.out_w + P.zoff +
+                 zb0 * BOX + 2 * t;
+#pragma unroll
+    for (int j = 0; j < NZB * 8; ++j)
+      *reinterpret_cast<float2*>(row + 8 * j) = make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+  }
+}
+
+// ---- warpgroup 2, the groups
+// A chunk's exponentials e = exp2(min(q_g . g, 86)) [64 x EG] into e_s (f32),
+// on wgmma over KSG k16 steps of the group logits' depth.
+template <int EG, int KSG>
+__device__ __forceinline__ void chunk_e(const Prm& P, const Blk& b, float* e_s) {
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const uint32_t qg = b.base + (P.share ? P.q : P.qg), gb = b.base + P.g;
+  float acc[EG / 2];
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < KSG; ++ks) {
+    const uint32_t off = (ks & 3) * 32;
+    wgmma_k<EG>(acc, desc_k128(qg + (ks >> 2) * BOXB + off),
+                desc_k128(gb + (ks >> 2) * (EG * 128) + off), ks > 0 ? 1 : 0);
+  }
+  wgmma_commit();
+  wgmma_wait0();
+  fence_regs(acc);
+#pragma unroll
+  for (int jj = 0; jj < EG / 8; ++jj)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      e_s[(16 * warp + g + 8 * (e >> 1)) * (EG + 1) + 8 * jj + 2 * t + (e & 1)] =
+          exp2f(fminf(acc[4 * jj + e], CLAMP2));
+}
+
+template <int EG>
+__device__ __forceinline__ void chunk_e_any(const Prm& P, const Blk& b, float* e_s) {
+  switch (P.ksg) {
+    case 1: chunk_e<EG, 1>(P, b, e_s); break;
+    case 4: chunk_e<EG, 4>(P, b, e_s); break;
+    case 8: chunk_e<EG, 8>(P, b, e_s); break;
+    case 12: chunk_e<EG, 12>(P, b, e_s); break;
+    default: chunk_e<EG, 16>(P, b, e_s); break;
+  }
+}
+
+// EG groups a chunk; NG columns of a step's unit sums: ps = bf16(p) @ S on
+// wgmma, S [NG units x 64 rows] the 0/1 segment matrix (JAX's segment
+// product), unit c of the step holding rows [c u, (c + 1) u).  A group of
+// one unit ends at its column; a group of whole steps (nu = 1) carries its
+// sum in the accumulator across its steps; a group of several units ending
+// inside a step adds its units' sums through shared memory (UNITS: only
+// the kernel built for such groups holds that path).
+template <int EG, int NG, bool UNITS>
+__device__ __forceinline__ void groups(const Prm& P, const Blk& b, const CUtensorMap* tg,
+                                       int steps) {
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int* lst = reinterpret_cast<const int*>(__cvta_shared_to_generic(b.base + P.lst));
+  float* e_s = reinterpret_cast<float*>(__cvta_shared_to_generic(b.base + P.e));
+  float* cnt_s = reinterpret_cast<float*>(__cvta_shared_to_generic(b.base + P.cnt));
+  float* us_s = reinterpret_cast<float*>(__cvta_shared_to_generic(b.base + P.us));
+  const int lde = EG + 1, ldu = NG + 1;
+  if (tid == 0) load_g(P, b, tg, lst[b.lo], 0);
+  {  // the segment matrix, K-major and 128-byte swizzled: (unit c, row r) at
+     // c * 128 + 16 ((r / 8) ^ (c % 8)) + 2 (r % 8)
+    uint8_t* sm = reinterpret_cast<uint8_t*>(__cvta_shared_to_generic(b.base + P.sm));
+    for (int i = tid; i < NG * BN; i += 128) {
+      const int c = i / BN, r = i % BN;
+      *reinterpret_cast<__nv_bfloat16*>(sm + c * 128 + ((((r >> 3) ^ (c & 7))) << 4) +
+                                        (r & 7) * 2) =
+          __float2bfloat16_rn((r >> P.lu) == c ? 1.f : 0.f);
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  mbar_wait(b.bq, 0);  // the group query block
+  const bool units = UNITS && P.nu > 1 && P.upg > 1;  // groups of several units in a step
+  const int ng = units ? 0 : P.nu;            // groups that end at a full step's end
+  const int gsteps = P.nu == 1 ? P.upg : 1;   // steps a group spans
+  float ps[NG / 2];
+#pragma unroll
+  for (int i = 0; i < NG / 2; ++i) ps[i] = 0.f;
+  int gs = 0;    // steps of the open group done (nu = 1)
+  int ci = 0;    // the chunk's groups done
+  int dcol = 0;  // the chunk's first column in the D block
+  float run = 0.f;  // units: row tid's open group's sum so far, and its units
+  int uc = 0;
+  int j = 0, c = 0, cs = 0, gpar = 0;  // list slot, chunk of the tile, step of the chunk
+  for (int it = 0; it < steps; ++it) {
+    if (cs == 0) {  // a chunk begins: its exponentials and counts
+      wg_sync(1);   // every thread is done with the previous chunk's
+      mbar_wait(b.gbar, gpar);
+      gpar ^= 1;
+      chunk_e_any<EG>(P, b, e_s);
+      const int tile = lst[b.lo + j];
+      if (tid < EG)
+        cnt_s[tid] = fmaxf(
+            __bfloat162float(P.vw[(size_t)(tile * P.gpt + c * EG + tid) * P.W + P.lrr]), 1.f);
+      wg_sync(1);  // e and the counts visible; the centroid tile is free
+      if (tid == 0) {
+        if (c + 1 < P.chunks) {
+          load_g(P, b, tg, tile, c + 1);
+        } else if (j + 1 < b.n) {
+          load_g(P, b, tg, lst[b.lo + j + 1], 0);
+        }
+      }
+      ci = 0;
+      dcol = j * P.gp16 + c * EG;
+    }
+    const int pi = it & 1;
+    mbar_wait(b.pfull + 8 * pi, (it >> 1) & 1);
+    const uint32_t pst = b.base + P.p + pi * PST, sm = b.base + P.sm;
+    const int cont = gs > 0;  // the open group's sum carries into this step
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk)
+      wgmma_k<NG>(ps, desc_k32(pst + kk * 2048), desc_k128(sm + kk * 32),
+                  (kk > 0 || cont) ? 1 : 0);
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(ps);
+    release(b.pempty + 8 * pi);
+    const uint32_t dst = b.base + P.d;
+    if (units) {  // the step's unit sums, then a thread a row adds its groups' units in order
+#pragma unroll
+      for (int jj = 0; jj < NG / 8; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * jj + 2 * t + (e & 1);
+          if (col < P.nu) us_s[(16 * warp + g + 8 * (e >> 1)) * ldu + col] = ps[4 * jj + e];
+        }
+      wg_sync(1);
+      if (tid < BM) {
+        for (int u = 0; u < P.nu; ++u) {
+          run += us_s[tid * ldu + u];
+          if (++uc == P.upg) {  // D = bf16(e - ps / max(cnt, 1))
+            const float dv = e_s[tid * lde + ci] - run / cnt_s[ci];
+            asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(dst + sw32(tid, dcol + ci)),
+                         "h"(__bfloat16_as_ushort(__float2bfloat16_rn(dv)))
+                         : "memory");
+            run = 0.f;
+            uc = 0;
+            ++ci;
+          }
+        }
+      }
+      wg_sync(1);  // the unit sums are read
+    } else if (++gs == gsteps) {  // ng groups end here: D = bf16(e - ps / max(cnt, 1))
+      gs = 0;
+#pragma unroll
+      for (int jj = 0; jj < NG / 8; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * jj + 2 * t + (e & 1), r = 16 * warp + g + 8 * (e >> 1);
+          if (col < ng) {
+            const int gi = ci + col;
+            const float dv = e_s[r * lde + gi] - ps[4 * jj + e] / cnt_s[gi];
+            asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(dst + sw32(r, dcol + gi)),
+                         "h"(__bfloat16_as_ushort(__float2bfloat16_rn(dv)))
+                         : "memory");
+          }
+        }
+      ci += ng;
+    }
+    if (++cs == P.chunk_steps) {
+      cs = 0;
+      if (++c == P.chunks) {
+        c = 0;
+        ++j;
+      }
+    }
+  }
+  // the D block: visible to phase 2's tensor-core (async proxy) reads
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---- phase 2, every warpgroup: alr over NB boxes (box0 of the pass on)
+template <int NB>
+__device__ __forceinline__ void alr(const Prm& P, const Blk& b, const CUtensorMap* tv,
+                                    Ring& ring, int box_lo, int box0, float* out) {
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const bool loads = threadIdx.x == 0;
+  const int* lst = reinterpret_cast<const int*>(__cvta_shared_to_generic(b.base + P.lst));
+  const int kd = P.gp16 / 16, steps = b.n * kd;
+  const uint32_t vbytes = P.pb * 16 * 128;
+  float acc[NB > 0 ? NB * 32 : 1];
+#pragma unroll
+  for (int i = 0; i < (NB > 0 ? NB * 32 : 1); ++i) acc[i] = 0.f;
+  int lj = 0, lr = 0;  // the next step to load: list slot, k16 block within the tile
+  Ring lring = ring;
+  auto load = [&]() {
+    const int s = lring.stage;
+    const int row = lst[b.lo + lj] * P.gpt + 16 * lr;
+    if (++lr == kd) {
+      lr = 0;
+      ++lj;
+    }
+    const uint32_t full = b.vfull + 8 * s;
+    mbar_expect_tx(full, vbytes);
+    tma_3d(b.base + P.ring + s * vbytes, tv, 0, row, box_lo, full);
+    lring.next(P.S2);
+  };
+  if (loads)
+    for (int s = 0; s < P.S2 && s < steps; ++s) load();
+  __syncwarp();
+  for (int st = 0; st < steps; ++st) {
+    const int s = ring.stage;
+    mbar_wait(b.vfull + 8 * s, ring.phase);
+    if constexpr (NB > 0) {
+      const uint32_t vst = b.base + P.ring + s * vbytes + box0 * 2048;
+      wgmma_fence();
+      wgmma_t<64 * NB>(acc, desc_k32(b.base + P.d + st * 2048), desc_v(vst, 16));
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(acc);
+    }
+    ring.next(P.S2);
+    __syncthreads();  // every warpgroup is done with stage s
+    if (loads && st + P.S2 < steps) load();
+  }
+  if constexpr (NB > 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float* row = out + (size_t)(b.qb * BM + 16 * warp + g + 8 * h) * P.out_w + P.aoff;
+#pragma unroll
+      for (int jj = 0; jj < NB * 8; ++jj) {
+        const int c = (box_lo + box0) * BOX + 8 * jj + 2 * t;
+        const float a0 = P.asign * acc[4 * jj + 2 * h], a1 = P.asign * acc[4 * jj + 2 * h + 1];
+        if (c + 1 < P.acols) {
+          *reinterpret_cast<float2*>(row + c) = make_float2(a0, a1);
+        } else if (c < P.acols) {
+          row[c] = a0;
+        }
+      }
+    }
+  }
+}
+
+// The (EG, NG) pairs the launch takes: every pair `_parts_groups` gives
+// for a tile of a multiple of 64 rows; (16, 16) only in the UNITS kernel.
+// (The unit-sum path and that pair, inlined beside the common groupings,
+// made ptxas spill at 128 registers: the rare groupings get a kernel of
+// their own.)
+template <bool UNITS>
+__device__ __forceinline__ void groups_any(const Prm& P, const Blk& b, const CUtensorMap* tg,
+                                           int steps) {
+  if (P.EG == 64) {
+    groups<64, 64, UNITS>(P, b, tg, steps);
+  } else if (P.EG == 8) {
+    groups<8, 8, UNITS>(P, b, tg, steps);
+  } else if (P.EG == 16) {
+    if (!UNITS || P.NG == 8) {
+      groups<16, 8, UNITS>(P, b, tg, steps);
+    } else {
+      groups<16, 16, UNITS>(P, b, tg, steps);
+    }
+  } else if (P.NG == 8) {
+    groups<32, 8, UNITS>(P, b, tg, steps);
+  } else if (P.NG == 16) {
+    groups<32, 16, UNITS>(P, b, tg, steps);
+  } else {
+    groups<32, 32, UNITS>(P, b, tg, steps);
+  }
+}
+
+// UNITS: the kernel for groups of several units ending inside a step and
+// for the (16, 16) pair
+template <bool UNITS>
+__global__ void __launch_bounds__(THREADS, 1)
+    hier_parts_family_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                                  const __grid_constant__ CUtensorMap tqg,
+                                  const __grid_constant__ CUtensorMap tk,
+                                  const __grid_constant__ CUtensorMap tz,
+                                  const __grid_constant__ CUtensorMap tm,
+                                  const __grid_constant__ CUtensorMap tg,
+                                  const __grid_constant__ CUtensorMap tv,
+                                  const __grid_constant__ Prm P0) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  // a copy in registers: a reference into the parameter space would be
+  // reloaded after every asm statement that clobbers memory
+  const Prm P = P0;
+  Blk b;
+  b.base = smem_u32(smem);
+  b.qb = blockIdx.x % P.n_qb;  // query block fastest: neighbours share tiles in L2
+  const int seg = blockIdx.x / P.n_qb;
+  b.bq = b.base + P.bars;
+  b.full = b.bq + 8;
+  b.empty = b.full + 8 * P.S;
+  b.pfull = b.empty + 8 * P.S;
+  b.pempty = b.pfull + 16;
+  b.gbar = b.pempty + 16;
+  b.vfull = b.gbar + 8;
+  int* lst = reinterpret_cast<int*>(smem + P.lst);
+  int* info = reinterpret_cast<int*>(smem + P.bars + 8 * (6 + 2 * P.S + P.S2));  // lo, n
+  const int lb = b.qb * BM / P.bm;  // the query block's list
+  for (int i = threadIdx.x; i < P.K; i += THREADS) lst[i] = P.idx[(size_t)lb * P.K + i];
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int n = P.K;
+    if (P.dedup) {  // drop each entry equal to the one before it in the row
+      int prev = lst[0];
+      n = 1;
+      for (int i = 1; i < P.K; ++i) {
+        const int v = lst[i];
+        if (v != prev) lst[n++] = v;
+        prev = v;
+      }
+    }
+    info[0] = (int)((long long)seg * n / P.n_seg);
+    info[1] = (int)((long long)(seg + 1) * n / P.n_seg) - info[0];
+    mbar_init(b.bq, 1);
+    for (int s = 0; s < P.S; ++s) {
+      mbar_init(b.full + 8 * s, 1);
+      mbar_init(b.empty + 8 * s, 12);  // the logits and az warps
+    }
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(b.pfull + 8 * s, 128);  // every logits thread
+      mbar_init(b.pempty + 8 * s, 12);  // the az and group warps
+    }
+    mbar_init(b.gbar, 1);
+    for (int s = 0; s < P.S2; ++s) mbar_init(b.vfull + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // the D block starts at zero: the columns past a tile's gpt stay so
+  for (uint32_t i = threadIdx.x * 16; i < P.lst - P.d; i += THREADS * 16)
+    *reinterpret_cast<uint4*>(smem + P.d + i) = make_uint4(0, 0, 0, 0);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  b.lo = info[0];
+  b.n = info[1];
+  float* out = P.out + seg * P.plane;
+  if (b.n > 0) {
+    const int steps = b.n * (P.bn / BN);
+    const int wg = threadIdx.x / 128;
+    if (wg == 0) {
+      switch (P.ks) {
+        case 1: logits<1>(P, b, steps); break;
+        case 4: logits<4>(P, b, steps); break;
+        case 8: logits<8>(P, b, steps); break;
+        case 12: logits<12>(P, b, steps); break;
+        default: logits<16>(P, b, steps); break;
+      }
+    } else if (wg == 2) {
+      groups_any<UNITS>(P, b, &tg, steps);
+    } else {  // warpgroup 1 the first half of z's boxes, 3 the second and the copies
+      const int zb0 = wg == 3 ? P.nz / 2 : 0;
+      const bool producer = threadIdx.x == 3 * 128;
+      if (P.nz == 2) {
+        az<1>(P, b, &tq, &tqg, &tk, &tz, &tm, zb0, producer, steps, out);
+      } else {
+        az<2>(P, b, &tq, &tqg, &tk, &tz, &tm, zb0, producer, steps, out);
+      }
+    }
+  }
+  __syncthreads();  // the walk is done: phase 2 reuses the ring
+
+  // the zero columns (d and the pad, or the pad); an empty segment's rows
+  const int zlo = b.n > 0 ? P.zlo : 0, zn = b.n > 0 ? P.zn : P.out_w;
+  for (int i = threadIdx.x; i < BM * zn; i += THREADS) {
+    const int r = i / zn;
+    out[(size_t)(b.qb * BM + r) * P.out_w + zlo + i - r * zn] = 0.f;
+  }
+  if (b.n == 0) return;
+  Ring ring;
+  const int wg = threadIdx.x / 128;
+  for (int pass = 0; pass < P.n_pass; ++pass) {
+    const int box_lo = pass * P.pb, nbox = min(P.pb, P.abox - box_lo);
+    // the warpgroups' boxes: as even as may be, the first ones one more
+    const int nb = nbox / 4 + (wg < nbox % 4);
+    const int box0 = wg * (nbox / 4) + min(wg, nbox % 4);
+    if (nb == 0) {
+      alr<0>(P, b, &tv, ring, box_lo, box0, out);
+    } else if (nb == 1) {
+      alr<1>(P, b, &tv, ring, box_lo, box0, out);
+    } else {
+      alr<2>(P, b, &tv, ring, box_lo, box0, out);
+    }
+  }
+}
+
+// out[q, c] (row stride ld) = sum over s of part[s, q, c] in order s = 0,
+// 1, ..., n_seg - 1; part is [n_seg, Bp, W] f32, W % 4 == 0.
+__global__ void parts_reduce_kernel(const float* __restrict__ part, float* __restrict__ out,
+                                    int Bp, int W, int n_seg) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int w4 = W / 4;
+  if (i >= (size_t)Bp * w4) return;
+  const size_t plane = (size_t)Bp * W;
+  const float* src = part + i * 4;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int s = 0; s < n_seg; ++s, src += plane) {
+    const float4 v = *reinterpret_cast<const float4*>(src);
+    acc.x += v.x;
+    acc.y += v.y;
+    acc.z += v.z;
+    acc.w += v.w;
+  }
+  *reinterpret_cast<float4*>(out + i * 4) = acc;
+}
+
+}  // namespace
+
+// q_cat [Bp, qw] bf16 packed queries: the row logits contract its columns
+// [kc0, kc0 + kf) with k_cat's [N, cat_d], the group logits its columns
+// [qg0, qg0 + gwe) with the first gwe of g_cat [G, gw] (kf and gwe the
+// columns holding the family's real ones, multiples of 16 up to 256: the
+// rest add 0).  mask_neg [N] f32, idx [Bp / bm, K] int32 (tiles < N / bn),
+// g_vw [G, W] bf16 (W a multiple of 128) with the count in column lrr, z
+// [N, rrp] bf16 (rrp 128 or 256).  lr = 1: out [Bp, rrp + 128 + W] = az | 0
+// | alr; lr = 0 (g_vw the full-width group value sums, lrr = Dv): out [Bp,
+// lrr + 128 + rrp] = -alr[:, :lrr + 1] | 0 | az.  dedup = 1 skips an idx
+// entry equal to the one before it in its row.  The plan (`_parts_plan`):
+// n_seg segments of each list, of at most seg_cap tiles, S ring stages;
+// work holds [n_seg, Bp, out_w] f32 when n_seg > 1.  lay [20] the layout
+// (`_parts_layout`): EG, NG, pb, S2, a stage's bytes and its z and mask
+// offsets, the offsets q, qg, ring, p, g, e, cnt, us, sm, d, lst, bars and
+// the total bytes.  All contiguous and 16-byte aligned.  Returns a CUDA error code
+// (cudaErrorInvalidValue for what it does not take, with nothing launched).
+extern "C" int hier_parts_family_sm90_launch(
+    const void* q_cat, const void* k_cat, const void* mask_neg, const void* idx,
+    const void* g_cat, const void* g_vw, const void* z, void* out, void* work, const void* lay,
+    int Bp, int qw, int cat_d, int kc0, int kf, int qg0, int gw, int gwe, int bm, int bn,
+    int gpt, int K, int W, int lrr, int rrp, int N, int G, int lr, int dedup, int n_seg,
+    int seg_cap, int S, void* stream) {
+  if (lay == nullptr || Bp <= 0 || K <= 0 || bm <= 0 || bm % BM || Bp % bm || bn <= 0 ||
+      bn % BN || N % bn || gpt < 8 || bn % gpt || kf < 16 || kf > 256 || kf % 16 || kc0 % 8 ||
+      kc0 + kf > cat_d || cat_d % 8 || qw < cat_d || qw % 8 || gwe < 16 || gwe > 256 ||
+      gwe % 16 || gwe > gw || gw % 8 || qg0 % 8 || qg0 + gwe > qw || (rrp != 128 && rrp != 256) ||
+      W <= 0 || W % 128 || lrr < 0 || lrr >= W || (!lr && lrr % 4) || G % gpt || n_seg < 1 ||
+      seg_cap < (K + n_seg - 1) / n_seg || S < 2 || S > 4)
+    return (int)cudaErrorInvalidValue;
+  const int* L = static_cast<const int*>(lay);
+  Prm P{};
+  P.gpt = gpt;
+  P.gsz = bn / gpt;
+  // units of u = gcd(gsz, 64) rows: nu a step, upg a group
+  P.lu = __builtin_ctz(P.gsz | BN);
+  P.nu = BN >> P.lu;
+  P.upg = P.gsz >> P.lu;
+  // a chunk of EG groups ends on a step; NG columns hold a step's units
+  P.EG = L[0];
+  P.NG = L[1];
+  if (P.EG <= 0 || gpt % P.EG || (P.EG * P.gsz) % BN || P.NG < P.nu ||
+      !((P.EG == 8 && P.NG == 8) || (P.EG == 16 && (P.NG == 8 || P.NG == 16)) ||
+        (P.EG == 32 && (P.NG == 8 || P.NG == 16 || P.NG == 32)) ||
+        (P.EG == 64 && P.NG == 64)))
+    return (int)cudaErrorInvalidValue;  // the (EG, NG) pairs groups_any takes
+  P.chunks = gpt / P.EG;
+  P.chunk_steps = P.EG * P.gsz / BN;
+  P.gp16 = (gpt + 15) / 16 * 16;
+  P.vw = static_cast<const __nv_bfloat16*>(g_vw);
+  P.idx = static_cast<const int*>(idx);
+  P.n_qb = Bp / BM;
+  P.n_seg = n_seg;
+  P.K = K;
+  P.bm = bm;
+  P.bn = bn;
+  P.dedup = dedup;
+  P.kb = (kf + BOX - 1) / BOX;
+  P.ks = k16_steps(kf);
+  P.kbg = (gwe + BOX - 1) / BOX;
+  P.ksg = k16_steps(gwe);
+  P.share = qg0 == kc0 && gwe <= kf;
+  P.nz = rrp / BOX;
+  P.W = W;
+  P.lrr = lrr;
+  if (lr) {  // az | 0 (128) | alr
+    P.out_w = rrp + 128 + W;
+    P.zoff = 0;
+    P.aoff = rrp + 128;
+    P.acols = W;
+    P.asign = 1.f;
+    P.zlo = rrp;
+    P.zn = 128;
+  } else {  // -alr[:, :lrr + 1] | 0 (127) | az
+    P.out_w = lrr + 128 + rrp;
+    P.zoff = lrr + 128;
+    P.aoff = 0;
+    P.acols = lrr + 1;
+    P.asign = -1.f;
+    P.zlo = lrr + 1;
+    P.zn = 127;
+  }
+  P.abox = (P.acols + BOX - 1) / BOX;
+  P.pb = L[2];
+  P.n_pass = P.pb > 0 ? (P.abox + P.pb - 1) / P.pb : 0;
+  P.S = S;
+  P.S2 = L[3];
+  // a stage's size and its z and mask offsets, then the regions' offsets
+  uint32_t* off[] = {&P.stage, &P.kz, &P.msk, &P.q,  &P.qg, &P.ring, &P.p,    &P.g,
+                     &P.e,     &P.cnt, &P.us, &P.sm, &P.d,  &P.lst,  &P.bars, &P.total};
+  for (int i = 0; i < 16; ++i) {
+    if (L[4 + i] < 0) return (int)cudaErrorInvalidValue;
+    *off[i] = (uint32_t)L[4 + i];
+  }
+  // the layout's order, the alignment of what TMA and wgmma read, its size
+  // (the sizes of its parts are the caller's)
+  bool in_order = P.pb >= 1 && P.pb <= PASS_BOXES && P.S2 >= 2 && P.S2 <= 4 &&
+                  P.kz < P.msk && P.msk < P.stage;
+  for (int i = 4; i < 16; ++i) in_order = in_order && *off[i] >= *off[i - 1];
+  if (!in_order || (P.ring | P.stage | P.kz | P.p | P.g | P.sm | P.d) % 1024 ||
+      (P.e | P.cnt | P.us | P.lst | P.bars) % 16 || P.total > MAX_SMEM)
+    return (int)cudaErrorInvalidValue;
+  const void* ptrs[] = {q_cat, k_cat, mask_neg, idx, g_cat, g_vw, z, out};
+  for (const void* ptr : ptrs)
+    if (ptr == nullptr || !aligned16(ptr)) return (int)cudaErrorInvalidValue;
+  if (n_seg > 1 && (work == nullptr || !aligned16(work))) return (int)cudaErrorInvalidValue;
+  P.out = static_cast<float*>(n_seg > 1 ? work : out);
+  P.plane = n_seg > 1 ? (size_t)Bp * P.out_w : 0;
+  if (encoder() == nullptr) return (int)cudaErrorSymbolNotFound;
+
+  using bf = __nv_bfloat16;
+  const bf* q = static_cast<const bf*>(q_cat);
+  const auto sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  CUtensorMap tq, tqg, tk, tz, tm, tg, tv;
+  bool ok = map_2d(&tq, q + kc0, kf, Bp, qw, BOX, BM, sw) &&
+            map_2d(&tk, static_cast<const bf*>(k_cat) + kc0, kf, N, cat_d, BOX, BN, sw) &&
+            map_3d_boxes(&tz, z, rrp, N, rrp, BN, P.nz) && map_1d(&tm, mask_neg, N, BN) &&
+            map_2d(&tg, g_cat, gwe, G, gw, BOX, P.EG, sw) &&
+            map_3d_boxes(&tv, g_vw, W, G, W, 16, P.pb);
+  if (P.share) {
+    tqg = tq;  // never read
+  } else {
+    ok = ok && map_2d(&tqg, q + qg0, gwe, Bp, qw, BOX, BM, sw);
+  }
+  if (!ok) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool units = (P.nu > 1 && P.upg > 1) || (P.EG == 16 && P.NG == 16);
+  const auto kernel =
+      units ? hier_parts_family_sm90_kernel<true> : hier_parts_family_sm90_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)P.total);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<P.n_qb * n_seg, THREADS, P.total, s>>>(tq, tqg, tk, tz, tm, tg, tv, P);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || n_seg == 1) return (int)err;
+  const size_t n = (size_t)Bp * P.out_w / 4;
+  parts_reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(
+      static_cast<const float*>(work), static_cast<float*>(out), Bp, P.out_w, n_seg);
+  return (int)cudaGetLastError();
+}
+

@@ -25,6 +25,9 @@ BUILD_DIR = _PKG / "_build"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# sources of several heavy kernel instances (hier_parts: 16), whose
+# kernels nvcc compiles in parallel threads
+SPLIT_FLAGS = {name: ["-split-compile=0"] for name in ("hier_parts", "hier_parts_family_sm90")}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points and their argument types, per kernel library
@@ -43,7 +46,6 @@ _SIGNATURES = {
                         [_P] * 6 + [_I] * 6 + [_F] + [_I] * 3 + [_P]},
     "fused_retrieval_sm90": {"fused_sm90_launch":
                              [_P] * 6 + [_I] * 5 + [_F] + [_I] * 6 + [_P]},
-    "hier_scan": {"hier_scan_launch": [_P] * 10 + [_I] * 13 + [_P]},
     "hier_scan_sm90": {"hier_scan_sm90_launch": [_P] * 11 + [_I] * 24 + [_P]},
     "hier_refine": {"hier_refine_launch": [_P] * 5 + [_I] * 6 + [_P],
                     "hier_refine_parts_launch": [_P] * 9 + [_I] * 9 + [_P]},
@@ -54,6 +56,8 @@ _SIGNATURES = {
                    [_P] * 9 + [_I] * 16 + [_P]},
     "hier_parts_family": {"hier_parts_family_launch":
                           [_P] * 9 + [_I] * 17 + [_P]},
+    "hier_parts_family_sm90": {"hier_parts_family_sm90_launch":
+                               [_P] * 10 + [_I] * 22 + [_P]},
     "combine_cat": {"combine_cat_launch": [_P] * 7 + [_I] * 8 + [_F, _P]},
     "hier_argmax": {"hier_argmax_launch": [_P] * 7 + [_I] * 5 + [_P],
                     "hier_topk_launch": [_P] * 7 + [_I] * 6 + [_P]},
@@ -75,7 +79,8 @@ def build_kernel(name: str):
     Returns (library path, build seconds, compiler output); seconds is 0.0
     and the output empty when the library was already built."""
     src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    flags = NVCC_FLAGS + SPLIT_FLAGS.get(name, [])
+    h = hashlib.sha256(src.read_bytes() + " ".join(flags).encode())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
     digest = h.hexdigest()[:16]
@@ -85,7 +90,7 @@ def build_kernel(name: str):
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+    proc = subprocess.run([_nvcc(), *flags, "-o", str(tmp), str(src)],
                           capture_output=True, text=True)
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:

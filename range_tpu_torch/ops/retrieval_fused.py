@@ -76,6 +76,12 @@ def packed_dims(key_dim: int, tier: str, card: bool = False) -> Tuple[int, int]:
     return sem, _round_up(sem + 9, 128)
 
 
+def geo_real_cols(tier: str) -> int:
+    """The geo block's real columns (the rest of its 128 are zeros): the
+    9 hi/lo cross terms of `pack_bank`, 3 plain coordinates at 'exact'."""
+    return 3 if tier == "exact" else 9
+
+
 def _pad_cols(x: torch.Tensor, cols: int) -> torch.Tensor:
     return torch.nn.functional.pad(x, (0, cols - x.shape[1]))
 

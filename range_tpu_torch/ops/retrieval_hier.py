@@ -99,7 +99,8 @@ from ..bank.clustered import cluster_bank, tile_stats
 from .kmeans import kmeans
 from .retrieval import first_argmax
 from .retrieval_fused import (_SM90_MAX_SMEM, CLAMP2, NEG, SM90_SMS, _round_up,
-                              _split_hilo, pack_bank, pack_queries, packed_dims)
+                              _split_hilo, geo_real_cols, pack_bank, pack_queries,
+                              packed_dims)
 from .topk import topk_stable
 
 # group operands are padded to a multiple of TC tiles (the JAX scan's tile
@@ -1366,7 +1367,8 @@ def _hier_parts_family_plain(q_cat, k_cat, mask_neg, idx, g_cat, g_vw, z, *,
                              sem_d: int, bm: int, bn: int, gpt: int,
                              geo: bool, lrr: int, lr: bool = True,
                              values=None, scale=None, sel: bool = False,
-                             dedup_pad: bool = False, magnitude: bool = False):
+                             dedup_pad: bool = False, magnitude: bool = False,
+                             geo_cols: Optional[int] = None):
     """Plain version of the family parts kernel (`_hier_parts_family_kernel`,
     `retrieval_hier.py:2282-2418`), its four shapes.  Per query block and
     selected tile: p = exp2(min(q.k + mask, 86)) over the family's columns;
@@ -1391,7 +1393,12 @@ def _hier_parts_family_plain(q_cat, k_cat, mask_neg, idx, g_cat, g_vw, z, *,
 
     ``magnitude=True`` sums the terms' magnitudes instead (|v|, |vw|, |z|,
     e + ps/cnt, the approximations added): the per-element scale that a
-    bf16 rounding point landing the other way is measured against."""
+    bf16 rounding point landing the other way is measured against.
+
+    ``geo_cols`` (the geo family): its row and group logits over the first
+    k16 steps of its columns that hold its ``geo_cols`` real ones, as the
+    card's rr kernel reads them; the columns past them are zeros and add
+    0.  None reads them all, as JAX."""
     f32 = torch.float32
     Bp, qw = q_cat.shape
     cat_d = k_cat.shape[1]
@@ -1399,6 +1406,11 @@ def _hier_parts_family_plain(q_cat, k_cat, mask_neg, idx, g_cat, g_vw, z, *,
     W, gw = g_vw.shape[1], g_cat.shape[1]
     gsz = bn // gpt
     cols, qcols = _family_cols(geo, sem_d, cat_d, gw, qw, sel)
+    if geo and geo_cols:
+        cut = _round_up(geo_cols, 16)
+        cols = slice(cols.start, min(cols.stop, cols.start + cut))
+        qcols = slice(qcols.start, min(qcols.stop, qcols.start + cut))
+        g_cat = g_cat[:, :qcols.stop - qcols.start]
     dev = q_cat.device
     if z is not None:
         rrp = z.shape[1]
@@ -1462,7 +1474,8 @@ def _hier_parts_family_call(q_cat, k_cat, mask_neg, idx, g_cat, g_vw, z, *,
                             sem_d: int, bm: int, bn: int, gpt: int,
                             geo: bool, lrr: int, lr: bool = True,
                             values=None, scale=None, sel: bool = False,
-                            dedup_pad: bool = False):
+                            dedup_pad: bool = False,
+                            geo_cols: Optional[int] = None):
     """Exact minus group approximation of one family over each query
     block's selected tiles, in the four shapes of `_hier_parts_family_plain`
     (``z`` given: rr + lr, or rr alone with full-width ``g_vw`` and lrr =
@@ -1471,16 +1484,19 @@ def _hier_parts_family_call(q_cat, k_cat, mask_neg, idx, g_cat, g_vw, z, *,
     sketch's group logits from its last columns) and the ``dedup_pad`` form
     (repeats of the entry before skipped).
 
-    CPU tensors: `_hier_parts_family_plain`.  CUDA tensors: the rr shapes
-    `csrc/hier_parts_family.cu`, the value shapes `csrc/hier_parts.cu`
-    (its family entry point); both replace `_hier_parts_family_kernel`
-    (`range_tpu/ops/retrieval_hier.py:2282`), a launch failure raises.
-    Each launch counts in ``.launches`` and in its shape's own counter:
+    CPU tensors: `_hier_parts_family_plain` over all the family's columns,
+    as JAX.  CUDA tensors: the rr shapes the Hopper kernel
+    `csrc/hier_parts_family_sm90.cu` over `_parts_plan`'s segments (the
+    geo family's logits over the k16 steps holding its ``geo_cols`` real
+    columns, the packing's: `retrieval_fused.geo_real_cols`), the value shapes
+    `csrc/hier_parts.cu` (its family entry point); both replace
+    `_hier_parts_family_kernel` (`range_tpu/ops/retrieval_hier.py:2282`),
+    a shape they do not take or a failed launch raises.  Each launch
+    counts in ``.launches`` and in its shape's own counter:
     ``.rrlr_launches``, ``.rr_launches``, ``.lr_launches`` or
     ``.plain_launches``; and the sel form in ``.sel_launches``, the
-    dedup_pad form in ``.dedup_launches`` (those of the rr shapes, in
-    `csrc/hier_parts_family.cu`, also in ``.sel_rr_launches`` /
-    ``.dedup_rr_launches``)."""
+    dedup_pad form in ``.dedup_launches`` (those of the rr shapes also in
+    ``.sel_rr_launches`` / ``.dedup_rr_launches``)."""
     if q_cat.device.type == "cpu":
         return _hier_parts_family_plain(
             q_cat, k_cat, mask_neg, idx, g_cat, g_vw, z, sem_d=sem_d, bm=bm,
@@ -1495,7 +1511,8 @@ def _hier_parts_family_call(q_cat, k_cat, mask_neg, idx, g_cat, g_vw, z, *,
     else:
         out = _parts_family_rr(q_cat, k_cat, mask_neg, idx, g_cat, g_vw, z,
                                sem_d=sem_d, bm=bm, bn=bn, gpt=gpt, geo=geo,
-                               lrr=lrr, lr=lr, sel=sel, dedup_pad=dedup_pad)
+                               lrr=lrr, lr=lr, sel=sel, dedup_pad=dedup_pad,
+                               geo_cols=geo_cols)
         shape = "rrlr" if lr else "rr"
     if q_cat.shape[0] and idx.shape[1]:
         fam = _hier_parts_family_call
@@ -1511,50 +1528,233 @@ def _hier_parts_family_call(q_cat, k_cat, mask_neg, idx, g_cat, g_vw, z, *,
     return out
 
 
-def _parts_family_rr(q_cat, k_cat, mask_neg, idx, g_cat, g_vw, z, *,
-                     sem_d: int, bm: int, bn: int, gpt: int, geo: bool,
-                     lrr: int, lr: bool, sel: bool, dedup_pad: bool):
-    """Launch `csrc/hier_parts_family.cu` (the rr shapes)."""
-    bf = torch.bfloat16
-    ops = dict(q_cat=q_cat, k_cat=k_cat, mask_neg=mask_neg, idx=idx,
-               g_cat=g_cat, g_vw=g_vw, z=z)
-    _check_cuda("hier_parts_family", ops, dict(
-        q_cat=bf, k_cat=bf, mask_neg=torch.float32, idx=torch.int32,
-        g_cat=bf, g_vw=bf, z=bf))
+# The Hopper family parts kernel's plan (`csrc/hier_parts_family_sm90.cu`)
+PARTS_ROWS_MAX = SCAN_ROWS_MAX  # rows one az accumulation chain sums
+_PARTS_STEP = 64                # bank rows a step (the kernel's BN)
+_SM_FLOP_PER_US = 989e12 / SM90_SMS / 1e6  # bf16 tensor rate of one SM
+
+
+class PartsPlan(NamedTuple):
+    """``n_seg`` segments of each query block's tile list (a block each,
+    segment s the distinct entries [s n / n_seg, (s + 1) n / n_seg)), of at
+    most ``seg_cap`` tiles, and ``S`` stages of the key / z ring."""
+    n_seg: int
+    seg_cap: int
+    S: int
+
+
+def _parts_groups(gpt: int, gsz: int) -> Tuple[int, int]:
+    """(EG, NG): the groups of a tile whose exponentials the kernel holds
+    at once (the whole tile up to 32, else 32, or 64 for groups of an odd
+    size, so a chunk ends on a 64-row step), and the columns of a step's
+    sums over units of gcd(gsz, 64) rows (its 64 / unit units, at least
+    one n8 tile)."""
+    return (gpt if gpt <= 32 else (32 if gsz % 2 == 0 else 64),
+            max(8, 64 // math.gcd(gsz, 64)))
+
+
+class PartsLayout(NamedTuple):
+    """One block's shared memory in the Hopper family parts kernel, in
+    bytes from its 1024-aligned base (the launch takes it as given): EG,
+    NG (`_parts_groups`), pb alr boxes a pass and S2 vw stages of the
+    second phase, a ring stage's size and its z boxes' and mask's offsets
+    within it, then the query block(s), the ring, two p tiles, a chunk's
+    centroids, exponentials and counts, the unit sums (groups of several
+    units ending inside a step), the segment matrix, the D block of
+    seg_cap tiles, the tile list, the barriers, and the total."""
+    EG: int
+    NG: int
+    pb: int
+    S2: int
+    stage: int
+    kz: int
+    msk: int
+    q: int
+    qg: int
+    ring: int
+    p: int
+    g: int
+    e: int
+    cnt: int
+    us: int
+    sm: int
+    d: int
+    lst: int
+    bars: int
+    total: int
+
+
+def _parts_layout(K: int, bn: int, gpt: int, kf: int, gwe: int, share: bool, rrp: int,
+                  acols: int, seg_cap: int, S: int) -> PartsLayout:
+    """The Hopper family parts kernel's shared-memory layout (a box is 64
+    rows of a 64-column bf16 block, 8 KB)."""
+    box = 8192
+    kb, kbg = -(-kf // 64), -(-gwe // 64)
+    gsz = bn // gpt
+    eg, ng = _parts_groups(gpt, gsz)
+    units = gsz % 64 and 64 % gsz  # groups of several units ending inside a step
+    kz = kb * box
+    msk = kz + rrp // 64 * box
+    stage = msk + 1024  # the mask's 256 bytes, the next stage 1024-aligned
+    qg = kb * box
+    ring = qg + (0 if share else kbg * box)
+    p = ring + S * stage
+    g = p + 2 * box
+    e = g + kbg * eg * 128
+    cnt = e + _round_up(64 * (eg + 1) * 4, 16)
+    us = _round_up(cnt + eg * 4, 16)
+    sm = _round_up(us + (64 * (ng + 1) * 4 if units else 0), 1024)
+    d = sm + ng * 128
+    lst = d + seg_cap * _round_up(gpt, 16) * 128
+    bars = lst + _round_up(K * 4, 16)
+    abox = -(-acols // 64)
+    pb = -(-abox // -(-abox // 8))  # up to 8 boxes a pass, the passes even
+    S2 = min(4, S * stage // (pb * 2048))
+    # the barriers, a segment's first entry and length, slack to align the base
+    total = bars + 8 * (6 + 2 * S + S2) + 16 + 1024
+    return PartsLayout(eg, ng, pb, S2, stage, kz, msk, 0, qg, ring, p, g, e, cnt, us, sm, d,
+                       lst, bars, total)
+
+
+def _parts_fits(lay: PartsLayout) -> bool:
+    """The layout fits a block's shared memory with two vw stages."""
+    return lay.total <= _SM90_MAX_SMEM and lay.S2 >= 2
+
+
+@functools.lru_cache(maxsize=256)
+def _parts_plan(Bp: int, K: int, bn: int, gpt: int, kf: int, gwe: int,
+                share: bool, rrp: int, acols: int, out_w: int,
+                rows_max: int = PARTS_ROWS_MAX) -> PartsPlan:
+    """The Hopper family parts kernel's segments and ring: a function of
+    the shape alone (Bp padded queries, lists of K tiles of bn rows and gpt
+    groups, logits over kf / gwe columns, rrp z columns, acols alr columns,
+    out_w output columns).
+
+    Segments are whole tiles, none over ``rows_max`` rows (one wgmma
+    accumulation chain) or past what the block's D block holds; each is
+    planned over K, a dedup_pad list's distinct entries split at run time.
+    Their number: of the cuts (up to 8 waves of blocks past the first that
+    fits) that give the card's 132 SMs a block each where the lists allow
+    it, the one that finishes first (`_makespan`),
+    counting each block's 64-row steps at ~0.9 us plus the row logits'
+    tensor time, its alr steps (16 rows of vw a pass) at ~0.4 us, ~6 us a
+    block (the paces measured on the H100, PERF.md) and, past one
+    segment, the planes' writes and the reduction's pass over them at ~3
+    TB/s.  The ring: the deepest of 4, 3, 2 stages that fits.
+    lru-cached: serving asks for the same few shapes."""
+    n_qb = Bp // 64
+    spt = bn // _PARTS_STEP
+    ks = 1 if kf <= 16 else 4 * -(-kf // 64)
+    step_us = 2 * 64 * 64 * 16 * ks / _SM_FLOP_PER_US + 0.9
+    alr_us = 0.4 * _round_up(gpt, 16) / 16 * -(-acols // 512)  # a tile's alr steps
+    row_us = out_w * 4 / 3.0e6  # one query row of a plane, written or read
+    cap = max(1, rows_max // bn)
+    want = min(SM90_SMS, n_qb * K)
+    best = None
+    limit = None  # up to 8 waves of blocks past the first cut that fits
+    for n_seg in range(-(-K // cap), K + 1):
+        seg_cap = -(-K // n_seg)
+        if limit is not None and n_qb * n_seg > limit:
+            break
+        S = next((S for S in (4, 3, 2) if _parts_fits(_parts_layout(
+            K, bn, gpt, kf, gwe, share, rrp, acols, seg_cap, S))), None)
+        if S is None:
+            continue
+        if limit is None:
+            limit = max(n_qb * n_seg, 8 * SM90_SMS)
+        costs = []
+        for seg in range(n_seg):
+            t = (seg + 1) * K // n_seg - seg * K // n_seg
+            costs += [t * (spt * step_us + alr_us) + 6.0] * n_qb
+        planes = Bp * row_us * (1 if n_seg == 1 else 2 * n_seg + 1)
+        key = (n_qb * n_seg < want, _makespan(costs, SM90_SMS) + planes)
+        if best is None or key < best[0]:
+            best = (key, PartsPlan(n_seg, seg_cap, S))
+    if best is None:
+        raise ValueError(
+            f"hier_parts_family kernel: no segment of a {K}-tile list of {gpt} "
+            f"groups fits a block's shared memory (kf={kf}, gw={gwe}, "
+            f"rrp={rrp})")
+    return best[1]
+
+
+def _parts_shapes(q_cat, k_cat, mask_neg, idx, g_cat, g_vw, z, *, sem_d: int,
+                  bm: int, bn: int, gpt: int, geo: bool, lrr: int, lr: bool,
+                  sel: bool, geo_cols: Optional[int] = None) -> dict:
+    """The rr launch's column ranges and widths: the row logits' [kc0, kc0
+    + kf) and the group logits' [qg0, qg0 + gwe) query columns (the geo
+    family's cut to the k16 steps holding its ``geo_cols`` real ones, when
+    given: the rest are zeros and add 0); raises on a shape the kernel
+    does not take."""
     Bp, qw = q_cat.shape
     N, cat_d = k_cat.shape
     nB, K = idx.shape
     G, gw = g_cat.shape
     W, rrp = g_vw.shape[1], z.shape[1]
     cols, qcols = _family_cols(geo, sem_d, cat_d, gw, qw, sel)
-    kf = cols.stop - cols.start
-    gsz = bn // gpt
+    kf, gwe = cols.stop - cols.start, gw
+    if geo and geo_cols:
+        kf, gwe = min(kf, _round_up(geo_cols, 16)), min(gw, _round_up(geo_cols, 16))
+    gsz = bn // max(gpt, 1)
     if (qw != (cat_d + gw if sel else cat_d) or (sel and geo)
-            or Bp != nB * bm or bm % 64 or bn % 32 or gpt * gsz != bn
-            or gsz % 8 or (32 % gsz if gsz <= 32 else gsz % 32)
-            or gpt % 8 or gpt > 64 or kf % 16 or kf > 256 or gw % 16
-            or gw > 256 or cat_d % 8 or W % 128 or (lr and W > 512)
-            or rrp % 128 or rrp > 256 or not 0 <= lrr < W
-            or (not lr and lrr % 2) or z.shape[0] != N
-            or g_vw.shape[0] != G or mask_neg.shape != (1, N) or N % bn):
+            or Bp != nB * bm or bm % 64 or bn % 64 or gpt < 8 or gpt * gsz != bn
+            or not _gpt_ok(gpt) or kf % 16
+            or kf > 256 or gwe % 16 or gwe > 256 or cols.start % 8
+            or qcols.start % 8 or gw % 8 or cat_d % 8 or W % 128
+            or rrp not in (128, 256) or not 0 <= lrr < W
+            or (not lr and lrr % 4) or z.shape[0] != N or g_vw.shape[0] != G
+            or G % gpt or mask_neg.shape != (1, N) or N % bn):
         raise ValueError(
             f"hier_parts_family kernel: unsupported shapes q "
             f"{tuple(q_cat.shape)}, k {tuple(k_cat.shape)}, idx "
             f"{tuple(idx.shape)}, g {tuple(g_cat.shape)}, vw "
             f"{tuple(g_vw.shape)}, z {tuple(z.shape)}, bm={bm}, bn={bn}, "
             f"gpt={gpt}, lr={lr}")
-    ops = [t.contiguous() for t in ops.values()]
+    return dict(kc0=cols.start, kf=kf, qg0=qcols.start, gwe=gwe,
+                acols=W if lr else lrr + 1,
+                out_w=rrp + 128 + W if lr else lrr + 128 + rrp,
+                share=qcols.start == cols.start and gwe <= kf)
+
+
+def _parts_family_rr(q_cat, k_cat, mask_neg, idx, g_cat, g_vw, z, *,
+                     sem_d: int, bm: int, bn: int, gpt: int, geo: bool,
+                     lrr: int, lr: bool, sel: bool, dedup_pad: bool,
+                     geo_cols: Optional[int] = None,
+                     plan: Optional[PartsPlan] = None):
+    """Launch `csrc/hier_parts_family_sm90.cu` (the rr shapes) over
+    `_parts_plan`'s segments (``plan`` overrides it: chip_smoke's chain
+    turns); counted nowhere."""
+    bf = torch.bfloat16
+    ops = dict(q_cat=q_cat, k_cat=k_cat, mask_neg=mask_neg, idx=idx,
+               g_cat=g_cat, g_vw=g_vw, z=z)
+    _check_cuda("hier_parts_family", ops, dict(
+        q_cat=bf, k_cat=bf, mask_neg=torch.float32, idx=torch.int32,
+        g_cat=bf, g_vw=bf, z=bf))
+    sh = _parts_shapes(q_cat, k_cat, mask_neg, idx, g_cat, g_vw, z, sem_d=sem_d,
+                       bm=bm, bn=bn, gpt=gpt, geo=geo, lrr=lrr, lr=lr, sel=sel,
+                       geo_cols=geo_cols)
+    Bp, qw = q_cat.shape
+    N, cat_d = k_cat.shape
+    K, rrp, W = idx.shape[1], z.shape[1], g_vw.shape[1]
     dev = q_cat.device
-    scratch = torch.empty((Bp, K, gpt), dtype=torch.float32, device=dev)
-    out = torch.empty((Bp, rrp + 128 + W if lr else lrr + 128 + rrp),
-                      dtype=torch.float32, device=dev)
-    if Bp and K:
-        _launch("hier_parts_family", "hier_parts_family_launch",
-                *[t.data_ptr() for t in ops + [scratch, out]],
-                Bp, qw, cat_d, cols.start, kf, qcols.start, gw, bm, bn, gpt,
-                K, W, lrr, rrp, N, int(lr), int(dedup_pad), _stream(q_cat))
-    elif Bp:
-        out.zero_()
+    out = torch.empty((Bp, sh["out_w"]), dtype=torch.float32, device=dev)
+    if not (Bp and K):
+        return out.zero_()
+    plan = plan or _parts_plan(Bp, K, bn, gpt, sh["kf"], sh["gwe"], sh["share"],
+                               rrp, sh["acols"], sh["out_w"])
+    work = (torch.empty(plan.n_seg * Bp * sh["out_w"], dtype=torch.float32,
+                        device=dev) if plan.n_seg > 1 else None)
+    lay = _parts_layout(K, bn, gpt, sh["kf"], sh["gwe"], sh["share"], rrp, sh["acols"],
+                        plan.seg_cap, plan.S)
+    lay = (ctypes.c_int * len(lay))(*lay)
+    held = [t.contiguous() for t in ops.values()]  # referenced until queued
+    ptr = [t.data_ptr() for t in held] + [out.data_ptr(),
+                                          None if work is None else work.data_ptr(),
+                                          ctypes.addressof(lay)]
+    _launch("hier_parts_family_sm90", "hier_parts_family_sm90_launch", *ptr,
+            Bp, qw, cat_d, sh["kc0"], sh["kf"], sh["qg0"], g_cat.shape[1],
+            sh["gwe"], bm, bn, gpt, K, W, lrr, rrp, N, g_cat.shape[0], int(lr),
+            int(dedup_pad), plan.n_seg, plan.seg_cap, plan.S, _stream(q_cat))
     return out
 
 
@@ -1583,7 +1783,7 @@ def _parts_family_values(q_cat, k_cat, values, scale, mask_neg, idx, g_cat,
             or (scale is not None and scale.shape != (1, N))
             or Bp != nB * bm or bm % 64 or bn % 32 or N % bn or sem_d % 16
             or sem_d + 16 > cat_d or cat_d % 8 or Dv % 16
-            or g_vw.shape[0] != G or not 1 <= gpt <= 64 or bn % gpt
+            or g_vw.shape[0] != G or gpt < 1 or bn % gpt
             or (qw != cat_d + gw or gw % 16 or gw > 256 if sel
                 else qw != cat_d)
             or (cat_d - gw != sem_d if geo else not sel and gw != sem_d)
@@ -1736,10 +1936,10 @@ def _hier_parts_call(q_cat, k_cat, values, scale, mask_neg, idx, g_sem_cat,
             or sem_d + 16 > cat_d or cat_d % 8 or Dv % 16 or gs_w != sem_d
             or g_sem_vw.shape[0] != Gs
             or (Ws % 128 or Ws > 512 if lr else Ws < Dv + 1 or Ws % 8)
-            or not 1 <= gpt_s <= 64 or bn % gpt_s
+            or gpt_s < 1 or bn % gpt_s
             or (geo and (cat_d - gg_w != sem_d or gg_w % 8 or Wg < Dv + 1
                          or Wg % 8 or g_geo_vw.shape[0] != Gg
-                         or not 1 <= gpt_g <= 64 or bn % gpt_g))):
+                         or gpt_g < 1 or bn % gpt_g))):
         raise ValueError(
             f"hier_parts kernel: unsupported shapes q {tuple(q_cat.shape)}, "
             f"k {tuple(k_cat.shape)}, values {tuple(values.shape)}, idx "
@@ -2149,7 +2349,7 @@ def _hier_partials(q_cat: torch.Tensor, hb: HierBank, *, k_tiles: int,
             q_geo_ops, hb.k_cat, hb.mask_neg, i_g, hb.g_geo_cat, geo_vw,
             hb.z_geo if use_rr else None, bm=bm_x, gpt=gpt_g, geo=True,
             lrr=hb.lr_geo if use_lrg else hb.value_dim, lr=use_lrg,
-            dedup_pad=pad, **common)
+            dedup_pad=pad, geo_cols=geo_real_cols(hb.tier), **common)
         return ps, pg
 
     parts_s, parts_g = parts(q_sem_parts, q_cat, idx_ps, idx_pg, bm_p,

@@ -1860,9 +1860,164 @@ def test_scan_sm90_plans_agree(cuda, form):
         _hold_scan(out, args, kw)
 
 
-def test_scan_wrapper_never_launches_the_mma_sync_scan(cuda, monkeypatch):
-    """`csrc/hier_scan.cu` stays only as chip_smoke.py's yardstick: the
-    wrapper, in every form, loads the Hopper kernel's library alone."""
+# ---- kernel 14's rr shapes on the Hopper body (csrc/hier_parts_family_sm90.cu)
+
+# Tolerances as kernel 14's other checks (`_within_terms`): the logits are
+# f32 sums of the same bf16 products in another order, so bf16(p) or D can
+# land one ulp the other way: one bf16 ulp of that term, allowed in up to
+# max(2, B / 100) rows over the row cap (ROADMAP Queue 3, "bf16 flips of a
+# dominant term"); the segments only re-associate the f32 sums.
+
+
+def _rr_operands(cuda, *, Bp, bm, bn, gpt, K, T, rrp=128, W=384, lr=True, sel=0, seed=0,
+                 Dv=1024, geo=False):
+    """Random operands of kernel 14's rr shapes: 256 sem + 128 geo packed
+    columns (9 real geo ones), T tiles of bn rows and gpt groups, each
+    query block's list K distinct tiles, z [N, rrp], vw [G, W] with the
+    group's row count in column lrr (lr: W - 128 coefficients; rr: the
+    full-width sums, lrr = Dv), the last 7 rows of the bank masked; with
+    ``sel`` the query operand carries sel sketch columns past the keys';
+    ``geo``: the centroids the geo family's [G, 128], 9 real columns."""
+    rng = np.random.default_rng(seed)
+
+    def bf(shape, scale):
+        return torch.from_numpy((scale * rng.standard_normal(shape)).astype(np.float32)).to(
+            cuda).bfloat16()
+
+    N, G = T * bn, T * gpt
+    q = bf((Bp, 384 + sel), 0.35)
+    k = bf((N, 384), 0.35)
+    q[:, 265:384] = 0
+    k[:, 265:384] = 0
+    mask = torch.zeros(1, N, device=cuda)
+    mask[0, -7:] = -1e30
+    idx = torch.from_numpy(np.stack([rng.permutation(T)[:K] for _ in range(Bp // bm)]).astype(
+        np.int32)).to(cuda)
+    lrr = W - 128 if lr else Dv
+    vw = bf((G, W), 1.0)
+    vw[:, lrr] = float(bn // gpt)
+    vw[:, lrr + 1:] = 0
+    z = bf((N, rrp), 1.0)
+    g = bf((G, 128 if geo else sel or 256), 0.35)
+    if geo:
+        g[:, 9:] = 0
+    return (q, k, mask, idx, g, vw, z), lrr
+
+
+def _hold_rr(got, args, kw, rows_off_max=7):
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    ref = rh._hier_parts_family_plain(*args, **kw)
+    mag = rh._hier_parts_family_plain(*args, **kw, magnitude=True)
+    assert got.shape == ref.shape and torch.isfinite(got).all()
+    _within_terms(got, ref, mag, rows_off_max=max(rows_off_max, got.shape[0] // 100))
+
+
+@pytest.mark.parametrize("form", ["rrlr", "rr", "sel", "dedup", "geo"])
+@pytest.mark.parametrize("gpt", [8, 16, 32, 64, 128, 256])
+def test_parts_sm90_matches_plain(cuda, form, gpt):
+    """The Hopper body at every groups-a-tile the scan takes at bn 512
+    (groups of 64 rows, one 64-row step, down to 2: the flagship's 16 and
+    sizes no multiple of 8), each rr form: rr + lr, rr alone (1,152
+    columns, three passes), sel (group logits over 64 sketch columns past
+    the keys), dedup_pad (repeats in every row) and the geo family (its
+    logits over the one k16 step of its 9 real columns)."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    lr = form != "rr"
+    args, lrr = _rr_operands(cuda, Bp=256, bm=128, bn=512, gpt=gpt, K=12, T=20,
+                             W=384 if lr else 1152, lr=lr, sel=64 if form == "sel" else 0,
+                             seed=gpt, geo=form == "geo")
+    kw = dict(sem_d=256, bm=128, bn=512, gpt=gpt, geo=form == "geo", lrr=lrr, lr=lr,
+              sel=form == "sel")
+    if form == "dedup":
+        idx = args[3]
+        args = args[:3] + (torch.cat([idx[:, :3], idx[:, 2:3], idx[:, 3:9], idx[:, 8:9].repeat(
+            1, 3)], 1).contiguous(),) + args[4:]
+        kw.update(dedup_pad=True)
+    fam = rh._hier_parts_family_call
+    n0 = (fam.launches, fam.rrlr_launches, fam.rr_launches)
+    got = fam(*args, **kw, geo_cols=9 if form == "geo" else None)
+    torch.cuda.synchronize()
+    assert (fam.launches, fam.rrlr_launches, fam.rr_launches) == (
+        n0[0] + 1, n0[1] + int(lr), n0[2] + int(not lr))
+    _hold_rr(got, args, kw)
+
+
+@pytest.mark.parametrize("lr", [True, False], ids=["rrlr", "rr"])
+@pytest.mark.parametrize("bn", [1024, 2048])
+def test_parts_sm90_groups_longer_than_a_step(cuda, bn, lr):
+    """8 groups a tile of 1,024 or 2,048 rows: each group's sum of bf16(p)
+    carries in the accumulator across its 2 or 4 64-row steps; the lists'
+    24,576-row chains at bn 2,048 cut into segments."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    args, lrr = _rr_operands(cuda, Bp=256, bm=128, bn=bn, gpt=8, K=12, T=20,
+                             W=384 if lr else 1152, lr=lr, seed=bn)
+    kw = dict(sem_d=256, bm=128, bn=bn, gpt=8, geo=False, lrr=lrr, lr=lr, sel=False)
+    _hold_rr(rh._hier_parts_family_call(*args, **kw), args, kw)
+
+
+@pytest.mark.parametrize("lr", [True, False], ids=["rrlr", "rr"])
+@pytest.mark.parametrize("bn,gpt", [(768, 8), (384, 8), (320, 16), (384, 32), (384, 64),
+                                    (64, 16), (1536, 8)])
+def test_parts_sm90_every_group_size(cuda, bn, gpt, lr):
+    """Groups of no power of two: 96 rows (bn 768, 8 groups a tile: a bank
+    the mma.sync body took), 48, 20, 12 and 6 (units of 32 to 2 rows whose
+    sums are added through shared memory, a group ending inside a step), 192
+    (three whole steps, carried in the accumulator); and groups of 4 rows
+    at bn 64 (16 groups a tile of 16 units a step)."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    args, lrr = _rr_operands(cuda, Bp=256, bm=128, bn=bn, gpt=gpt, K=12, T=20,
+                             W=384 if lr else 1152, lr=lr, seed=bn + gpt)
+    kw = dict(sem_d=256, bm=128, bn=bn, gpt=gpt, geo=False, lrr=lrr, lr=lr, sel=False)
+    _hold_rr(rh._hier_parts_family_call(*args, **kw), args, kw)
+
+
+@pytest.mark.parametrize("Bp,K", [(128, 96), (384, 96), (1024, 32)])
+def test_parts_sm90_plans_agree(cuda, Bp, K):
+    """The plan's cut (B = 1's two blocks over 96 tiles, the rescue's 6 x
+    96, and a wide batch), the longest segments a block's shared memory
+    holds, and a segment a tile: each the plain version's answer, a
+    request's bits the same on every call."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    args, lrr = _rr_operands(cuda, Bp=Bp, bm=128, bn=512, gpt=32, K=K, T=100, seed=K)
+    kw = dict(sem_d=256, bm=128, bn=512, gpt=32, geo=False, lrr=lrr, lr=True, sel=False,
+              dedup_pad=False)
+    sh = rh._parts_shapes(*args, **{k: v for k, v in kw.items() if k != "dedup_pad"})
+    base = rh._parts_plan(Bp, K, 512, 32, sh["kf"], sh["gwe"], sh["share"], 128, sh["acols"],
+                          sh["out_w"])
+    assert Bp // 64 * base.n_seg >= min(132, Bp // 64 * K)
+    longest = max(c for c in range(1, 26) if rh._parts_fits(rh._parts_layout(
+        K, 512, 32, sh["kf"], sh["gwe"], sh["share"], 128, sh["acols"], c, 2)))
+    for plan in (base, rh.PartsPlan(-(-K // longest), longest, 2), rh.PartsPlan(K, 1, 2)):
+        got = rh._parts_family_rr(*args, **kw, plan=plan)
+        again = rh._parts_family_rr(*args, **kw, plan=plan)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        _hold_rr(got, args, kw)
+
+
+def test_parts_sm90_rejects_what_it_does_not_take(cuda):
+    """A group of one row (512 groups a tile: no segment's D block fits)
+    and f32 operands raise; nothing falls back."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    args, lrr = _rr_operands(cuda, Bp=128, bm=128, bn=512, gpt=512, K=4, T=8)
+    kw = dict(sem_d=256, bm=128, bn=512, gpt=512, geo=False, lrr=lrr)
+    with pytest.raises(ValueError, match="shared memory"):
+        rh._hier_parts_family_call(*args, **kw)
+    args, lrr = _rr_operands(cuda, Bp=128, bm=128, bn=512, gpt=32, K=4, T=8)
+    with pytest.raises(ValueError, match="bfloat16"):
+        rh._hier_parts_family_call(args[0].float(), *args[1:], sem_d=256, bm=128, bn=512,
+                                   gpt=32, geo=False, lrr=lrr)
+
+
+def test_parts_wrapper_never_launches_the_mma_sync_body(cuda, monkeypatch):
+    """`csrc/hier_parts_family.cu` stays only as chip_smoke.py's yardstick:
+    the rr shapes, in every form, load the Hopper kernel's library alone."""
     from range_tpu_torch.kernels import _build
     from range_tpu_torch.ops import retrieval_hier as rh
 
@@ -1874,8 +2029,62 @@ def test_scan_wrapper_never_launches_the_mma_sync_scan(cuda, monkeypatch):
         return real(name)
 
     monkeypatch.setattr(_build, "load_kernel_library", spy)
-    for form in SCAN_FORMS:
-        args, kw = _scan_operands(cuda, form, 32, 128, seed=3)
-        rh._hier_scan_call(*args, **kw)
+    for lr, sel, dedup in ((True, 0, False), (False, 0, False), (True, 64, False),
+                           (True, 0, True)):
+        args, lrr = _rr_operands(cuda, Bp=128, bm=128, bn=128, gpt=8, K=6, T=10,
+                                 W=384 if lr else 1152, lr=lr, sel=sel)
+        rh._hier_parts_family_call(*args, sem_d=256, bm=128, bn=128, gpt=8, geo=False,
+                                   lrr=lrr, lr=lr, sel=bool(sel), dedup_pad=dedup)
     torch.cuda.synchronize()
-    assert set(loaded) == {"hier_scan_sm90"}
+    assert set(loaded) == {"hier_parts_family_sm90"}
+
+
+@pytest.mark.parametrize("name,bar", [("RANGE+", 0.12), ("RANGE", 0.10)])
+def test_gsz_sem_4_bank_serves(cuda, name, bar):
+    """A bank of groups of 4 rows at bn 512 (128 groups a tile, which the
+    card's parts kernels took at most 64 of): load_model(retrieval="hier",
+    gsz_sem=4) serves within the defaults bank's relerr bar, through
+    kernel 15 (the merged parts kernel) at 128 groups a tile; kernel 14's
+    value and rr shapes at 128 groups a tile against their plain
+    versions."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    bank = GeoBank.synthetic_informative(3, 20_000, pad_to=512, value_dtype=torch.bfloat16,
+                                         device=cuda)
+    enc = load_model(name, db_path=bank, retrieval="hier", gsz_sem=4)
+    hb = enc.model.bank
+    assert hb.bn // hb.gsz_sem == 128
+    coords = _coords(2000, seed=41, device=cuda)
+    n0 = rh._hier_parts_call.launches
+    out = enc(coords)
+    torch.cuda.synchronize()
+    assert rh._hier_parts_call.launches == n0 + 1
+    temp = enc.model.config.resolved_sem_temp()
+    ref = (retrieval.retrieve(out[:, 1024:], lonlat_deg_to_xyz(coords), bank, sem_temp=temp,
+                              beta=0.5) if name == "RANGE+" else
+           retrieval.retrieve(out[:, 1024:], None, bank, sem_temp=temp, mode="range"))
+    rel = (out[:, :1024] - ref).abs() / ref.abs().clamp_min(0.1)
+    assert rel.mean().item() <= bar
+    if name == "RANGE":
+        return
+    from range_tpu_torch.ops import retrieval_fused as rf
+
+    hb_rr = rh.build_hier_bank(bank, bn=512, gsz_sem=4, gsz_geo=64, lr_rank=256,
+                               res_rank=128)
+    g = torch.Generator(device=cuda).manual_seed(11)
+    q = torch.nn.functional.normalize(torch.randn(700, 256, generator=g, device=cuda), dim=1)
+    q_s, q_x = rh._pad_queries(q, lonlat_deg_to_xyz(_coords(700, seed=11, device=cuda)), 128)
+    q = rf.pack_queries(q_s, q_x, 12.0, 40.0, "fast")[rh._hybrid_order(q_x, 700)].contiguous()
+    stats = rh._hier_scan_stats_plain(q, hb_rr.g_sem_cat, hb_rr.g_geo_cat, gpt_s=128, gpt_g=8)
+    idx, _ = rh.select_tiles(*stats, t_real=hb_rr.t_real, k_tiles=8, bm=128, n_valid=700,
+                             mode="range")
+    for z, vw, lr, lrr in ((hb_rr.z_sem, hb_rr.g_sem_vw_lr, True, 256),
+                           (None, hb_rr.g_sem_vw_lr, True, 256),
+                           (None, hb_rr.g_sem_vw, False, 1024)):
+        args = (q, hb_rr.k_cat, hb_rr.mask_neg, idx, hb_rr.g_sem_cat, vw, z)
+        kw = dict(sem_d=256, bm=128, bn=512, gpt=128, geo=False, lrr=lrr, lr=lr,
+                  values=hb_rr.values, scale=None)
+        got = rh._hier_parts_family_call(*args, **kw)
+        ref = rh._hier_parts_family_plain(*args, **kw)
+        mag = rh._hier_parts_family_plain(*args, **kw, magnitude=True)
+        _within_terms(got, ref, mag, rows_off_max=7)
