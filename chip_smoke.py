@@ -10,7 +10,11 @@ from the thirteen sources of `range_tpu_torch/csrc/` (one nvcc per source,
 all started together), holds each against its plain PyTorch version at the
 main paths' shapes, prints kernel 2's Hopper kernel's drift for each length
 of its accumulation chain and its time beside the mma.sync body's at B = 1,
-37, 1,000 and 10,000, kernel 8's Hopper kernel (the scan) at each scan
+37, 1,000 and 10,000, kernels 3 (int8 codes) and 5 (the partials, bf16 and
+int8) on the same Hopper kernel beside their mma.sync body's entry points
+(launched here alone as the same-run yardstick) at the same batches with
+their bound and share and the drift of each segment length, kernel 8's
+Hopper kernel (the scan) at each scan
 shape of the paths with its bound, its share of it and the floor of its
 exponentials (the flagship also at B = 1 and 37), its drift for each chain
 length and its wide tail in two slices against three, and kernel 14's rr
@@ -55,6 +59,10 @@ drives the serving paths at full width (SatCLIP SH-L40 -> SIREN
   * banks of groups of 4 rows (128 groups a tile): `load_model("RANGE+" |
     "RANGE", retrieval="hier", gsz_sem=4)` at the JAX defaults otherwise,
     and RANGE+ over one with the flagship's lr_rank / res_rank / lr_geo;
+  * banks that kernel 14's rr shapes refused before (20,000 rows, the
+    flagship's knobs): 96-row tiles of 12-row groups (a masked last step)
+    and 3-row sem groups at bn 384 (128 a tile: the DIRECT walk), RANGE+
+    and RANGE at B = 1,000 and 10,000, and kernel 14 at each;
   * the rest of hierarchical serving over the informative bank: the
     flagship with ``sel_lr=64`` (and ``topk_lr=64``: hier_topk over the
     rank-64 selection sketch), with ``dedup=2``, and with the adaptive
@@ -76,7 +84,7 @@ flagship's, with and without tail_super, against its fidelity bars:
 relerr mean <= 0.04, p99 <= 0.165; RANGE's mean <= 0.10; int8 against bf16
 mean < 0.01; RANGE+ at the JAX defaults and each knob subset mean <= 0.12
 (`tests/test_hier.py:167`), RANGE there mean <= 0.10, the same bars on the
-gsz_sem=4 banks; hier_topk's
+gsz_sem=4 banks and the banks of the refused shapes; hier_topk's
 recall@1 against the f32 `exact_nn` >= 0.999 at B = 10,000 and 1,000, the
 two-level endpoint's at least the one-level selection's over the same
 bank - 0.001; sel_lr's relerr mean within the flagship's + 0.02 and
@@ -132,7 +140,7 @@ KERNELS = (("siren_tower", "siren_tower", "range_tpu/ops/sh.py:726"),
            ("fused_retrieval", "fused_retrieval_sm90", "range_tpu/ops/retrieval_pallas.py:123"),
            # kernel 2's 'exact' tier (f32 logits) on the mma.sync body
            ("fused_retrieval_exact", "fused_retrieval", "range_tpu/ops/retrieval_pallas.py:123"),
-           ("fused_retrieval_i8", "fused_retrieval", "range_tpu/ops/retrieval_pallas.py:181"),
+           ("fused_retrieval_i8", "fused_retrieval_sm90", "range_tpu/ops/retrieval_pallas.py:181"),
            ("hier_scan", "hier_scan_sm90", "range_tpu/ops/retrieval_hier.py:1443"),
            ("hier_parts_family", "hier_parts_family_sm90", "range_tpu/ops/retrieval_hier.py:2282"),
            ("combine_cat", "combine_cat", "range_tpu/ops/retrieval_hier.py:3102"),
@@ -159,8 +167,8 @@ KERNELS = (("siren_tower", "siren_tower", "range_tpu/ops/sh.py:726"),
            ("hier_corr_wide", "hier_corr", "range_tpu/ops/retrieval_hier.py:2209"),
            # the multi-device partials (bf16, int8), the pruned one-family
            # softmax (bf16, int8) and the hybrid kernel
-           ("fused_parts", "fused_retrieval", "range_tpu/ops/retrieval_pallas.py:314"),
-           ("fused_parts_i8", "fused_retrieval", "range_tpu/ops/retrieval_pallas.py:314"),
+           ("fused_parts", "fused_retrieval_sm90", "range_tpu/ops/retrieval_pallas.py:314"),
+           ("fused_parts_i8", "fused_retrieval_sm90", "range_tpu/ops/retrieval_pallas.py:314"),
            ("family_pruned", "fused_retrieval", "range_tpu/ops/retrieval_pallas.py:441"),
            ("family_pruned_i8", "fused_retrieval", "range_tpu/ops/retrieval_pallas.py:441"),
            ("fused_hybrid", "fused_retrieval", "range_tpu/ops/retrieval_pallas.py:660"),
@@ -382,8 +390,7 @@ def _sm90_drift(bank, q, q_xyz, mask, flip_atol) -> None:
     wgmma's accumulator).  For each: the largest error and the rows off by
     > 1e-4 against the plain version (the bar: max(2, B / 100) rows); the
     largest error over the mesh phase's cross-shard tolerance (1e-5 x max
-    |v| + 1e-5 |kernel 2|) against kernel 5 on the mma.sync body over 4 row
-    slabs, added; and the largest error over 1e-3 x row max (the mesh
+    |v| + 1e-5 |kernel 2|) against kernel 5 over 4 row slabs, added; and the largest error over 1e-3 x row max (the mesh
     phase's bar against one card) against the mma.sync body's kernel 2.
     SEG_ROWS_MAX is the longest run that keeps all three."""
     from range_tpu_torch.ops import retrieval_fused as rf
@@ -409,7 +416,7 @@ def _sm90_drift(bank, q, q_xyz, mask, flip_atol) -> None:
         slab = ((slabs - got).abs() / (1e-5 * vmax + 1e-5 * got.abs())).max().item()
         one = ((got - mma).abs() / (1e-3 * mma.abs().amax(dim=1, keepdim=True))).max().item()
         ms = _cuda_ms(lambda: rf._launch_sm90(q_cat, k_cat, bank.values, mask, 0.5, sem_d,
-                                              plan), 5)
+                                              plan), 2)
         print(f"  {plan.n_seg} segments of {plan.seg_rows} rows ({plan.seg_rows // 16} k16 "
               f"steps): max_abs_err {err.max().item():.3e} (err/tol "
               f"{err.max().item() / flip_atol:.3e}), rows off by > 1e-4: "
@@ -455,7 +462,7 @@ def _sm90_times(bank, q, q_xyz, mask, flip_atol, retr_why) -> None:
             for pl in (plan, other):
                 _compare(f"{tag} {pl} vs plain", run(pl)(), ref, flip_atol, 0.0, retr_why,
                          rows_off_max=max(2, b // 100))
-            reps = 20 if b <= 37 else 5
+            reps = 10 if b <= 37 else 3
             t = [_cuda_ms(fn, reps) for fn in (old, run(plan), run(other), run(other),
                                                 run(plan), old)]
             print(f"{tag}: Hopper kernel {t[1]:.4f} / {t[4]:.4f} ms ({plan}), its "
@@ -463,6 +470,95 @@ def _sm90_times(bank, q, q_xyz, mask, flip_atol, retr_why) -> None:
                   f"({other}), mma.sync body {t[0]:.4f} / {t[5]:.4f} ms")
             if (tier, mode, b) == ("fast", "range+", BATCH):
                 _sm90_tile_budget(plan, sem_d, b, Dv, min(t[1], t[4]))
+
+
+def _body_form(q_cat, k_cat, values, scale, mask, sem_d: int, parts: bool):
+    """Kernel 3 or 5 on the mma.sync body (`fused_retrieval_i8_launch`,
+    `fused_parts_launch` of `csrc/fused_retrieval.cu`, the body before the
+    Hopper kernel), launched here alone as the same-run yardstick of
+    `_form_times` on bf16 operands: no path of the port reaches it there,
+    and it counts nowhere."""
+    from range_tpu_torch.ops import retrieval_fused as rf
+
+    if not parts:
+        return rf._launch_fused("fused_retrieval_i8_launch", q_cat, k_cat, values, scale, mask,
+                                0.5, sem_d)
+    B, cat_d = q_cat.shape
+    N, Dv = values.shape
+    out = torch.empty((B, 2 * Dv + rf.PARTS_PAD), device=q_cat.device)
+    rc = rf._lib().fused_parts_launch(
+        q_cat.data_ptr(), k_cat.data_ptr(), values.data_ptr(),
+        None if scale is None else scale.data_ptr(), mask.data_ptr(), out.data_ptr(), B, N,
+        cat_d, sem_d, rf._GEO_D, Dv, 0, rf._stream(q_cat))
+    if rc != 0:
+        raise RuntimeError(f"fused_parts (mma.sync) launch failed: CUDA error {rc}")
+    return out
+
+
+def _form_times(name: str, bank, q, q_xyz, values, scale, mask, parts: bool, flip_atol,
+                why: str) -> None:
+    """Kernel 3 (``parts`` False: int8 codes, the blend) or kernel 5
+    (``parts``: the partials, bf16 values or int8 codes) on the Hopper
+    kernel beside its mma.sync body (`_body_form`), fast tier, RANGE+, at B
+    = 1, 37, 1,000 and 10,000: each held against its plain version (kernel
+    3 by the dense bars, kernel 5 by `_parts_hold`), then in turns body,
+    kernel, kernel, body on CUDA events (`_turns_ms`; neither counted),
+    with its bound and share of it; at B = 10,000 the drift of each
+    segment length (one chain over the bank down to 3,200 rows) against
+    the plain version."""
+    from range_tpu_torch.ops import retrieval_fused as rf
+
+    k_cat = rf.pack_bank(bank.keys_sem, bank.xyz, "fast")
+    sem_d, N, Dv, n = bank.key_dim, bank.num_rows, bank.value_dim, bank.n_valid
+    row_bytes = Dv + 4 + 4 if scale is not None else Dv * 2 + 4
+
+    def hold(tag, got, b, plain):
+        if parts:
+            return _parts_hold(tag, got, plain, rf._retrieve_fused_parts_plain(
+                q_cat, k_cat, values.abs(), mask, scale, sem_d=sem_d), Dv, max(2, b // 100))
+        return _compare(tag, got, plain, flip_atol, 0.0, why, rows_off_max=max(2, b // 100))
+
+    for b in REQUESTS:
+        q_cat = rf.pack_queries(q[:b], q_xyz[:b], 12.0, 40.0, "fast")
+
+        def new(plan=None):
+            return rf._launch_sm90(q_cat, k_cat, values, mask, 0.5, sem_d, plan, scale=scale,
+                                   parts=parts)
+
+        def old():
+            return _body_form(q_cat, k_cat, values, scale, mask, sem_d, parts)
+
+        plain = (rf._retrieve_fused_parts_plain(q_cat, k_cat, values, mask, scale, sem_d=sem_d)
+                 if parts else
+                 rf._retrieve_fused_plain(q_cat, k_cat, values, mask, 0.5, scale, sem_d=sem_d))
+        plan = rf._segment_plan(b, N, Dv, sem_d, i8=scale is not None)
+        tag = f"{name} B={b} {plan}"
+        hold(f"{tag} vs plain", new(), b, plain)
+        t = _turns_ms((("body", old), ("kernel", new), ("kernel", new), ("body", old)), 3)
+        flops = 2 * b * n * (sem_d + GEO_COLS) + 2 * 2 * b * n * Dv
+        n_bytes = (b * q_cat.shape[1] * 2 + n * (k_cat.shape[1] * 2 + row_bytes)
+                   + b * (2 * Dv + rf.PARTS_PAD if parts else Dv) * 4)
+        b_ms, b_by = _bound(n_bytes, flops, BF16_FLOPS)
+        print(f"{tag}: Hopper kernel {t['kernel']:.4f} ms, mma.sync body {t['body']:.4f} ms "
+              f"(CUDA events, turns body, kernel, kernel, body; {t['body'] / t['kernel']:.2f}x); "
+              f"bound {b_ms:.4f} ms ({b_by}), share {b_ms / t['kernel']:.4f}")
+        if b != BATCH:
+            continue
+        print(f"{name} drift of the accumulation chain, B={b}, N={N} (SEG_ROWS_MAX = "
+              f"{rf.SEG_ROWS_MAX}):")
+        for seg in (N, 51_200, 25_600, 12_800, 6_400, 3_200):
+            pl = rf._segment_plan(b, N, Dv, sem_d, seg_rows_max=seg, i8=scale is not None)
+            got, ref = new(pl), plain
+            if parts:  # each family over its own sum: the scale of the blend's output
+                d = plain[:, 2 * Dv:2 * Dv + 2].clamp_min(1e-30)
+                got, ref = (torch.cat([a[:, :Dv] / d[:, :1], a[:, Dv:2 * Dv] / d[:, 1:]], 1)
+                            for a in (got, ref))
+            err = (got - ref).abs()
+            print(f"  {pl.n_seg} segments of {pl.seg_rows} rows ({pl.seg_rows // 16} k16 "
+                  f"steps): max err {err.max().item():.3e} (err/tol "
+                  f"{err.max().item() / flip_atol:.3e}), rows off by > 1e-4: "
+                  f"{(err > 1e-4).any(dim=1).sum().item()} (at most {max(2, b // 100)}); "
+                  f"{_cuda_ms(lambda: new(pl), 1):.3f} ms")
 
 
 def _sm90_tile_budget(plan, sem_d: int, b: int, Dv: int, ms: float) -> None:
@@ -837,6 +933,15 @@ def dense_phases(dev, gen, report) -> float:
         b_ms, b_by = _bound(n_bytes, flops, BF16_FLOPS)
         report["fused_retrieval_i8"] = dict(max_abs_err=err, err_over_tol=ratio, ms=ms,
                                             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        # kernels 3 and 5 on the Hopper kernel beside the mma.sync body
+        flip8 = dequantize_values(bank8).abs().max().item() / 128
+        why8 = retr_why + " (the weight being p times its row's scale)"
+        _form_times("kernel 3 [int8]", bank, q, q_xyz, bank8.values, bank8.value_scale, mask,
+                    False, flip8, why8)
+        _form_times("kernel 5 [bf16]", bank, q, q_xyz, bank.values, None, mask, True,
+                    flip_atol, retr_why)
+        _form_times("kernel 5 [int8]", bank, q, q_xyz, bank8.values, bank8.value_scale, mask,
+                    True, flip8, why8)
 
     # ---- 4. the dense path, through the entry point
     models = {name: load_model(name, db_path=bank, device="cuda")
@@ -2617,6 +2722,107 @@ def gsz4_phases(dev, gen, report, bank) -> dict:
     return e2e
 
 
+def step_banks_phases(dev, gen, report) -> dict:
+    """Banks whose rr shapes the card refused before this slice, built on
+    the card from a 20,000-row informative bank with the flagship's
+    lr_rank / res_rank / lr_geo: 96-row tiles of 12-row groups in both
+    families (a masked last 64-row step), and 384-row tiles of 3-row sem
+    groups (128 a tile: the DIRECT walk) with 48-row geo groups.  Each
+    through `load_model("RANGE+" | "RANGE", retrieval="hier")` at B = 1,000
+    and 10,000 (RANGE+: kernel 14's rr + lr shape for both families), with
+    k_tiles scaled so that the selected tiles hold as many rows as the
+    defaults' 16 tiles of 512 (85 of 96, 21 of 384: the relerr bars assume
+    that coverage), relerr mean <= 0.12 / 0.10 against the exact f32
+    retrieve (the defaults bank's bars), each request's launches counted;
+    and kernel 14's rr + lr
+    shape at each bank's selection held against its plain version and
+    timed (the mma.sync body took neither).  Returns the requests'
+    end-to-end ms."""
+    from range_tpu_torch import GeoBank, load_model
+    from range_tpu_torch.geometry import lonlat_deg_to_xyz
+    from range_tpu_torch.ops import retrieval
+    from range_tpu_torch.ops import retrieval_fused as rf
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    bank = GeoBank.synthetic_informative(7, 20_000, pad_to=384, value_dtype=torch.bfloat16,
+                                         device=dev)
+    knobs = dict(lr_rank=256, res_rank=128, lr_geo=384)
+    why = ("bf16 weights (p, e, e - ps/cnt) can round the other way where the logits' f32 "
+           "summation order moves them across a bf16 boundary: one ulp of one term")
+    e2e, launches = {}, {}
+    for bn, gsz, gsz_geo in ((96, 12, 12), (384, 3, 48)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hb = rh.build_hier_bank(bank, bn=bn, gsz_sem=gsz, gsz_geo=gsz_geo, **knobs)
+        torch.cuda.synchronize()
+        gpt_s, gpt_g = bn // gsz, bn // gsz_geo
+        name = f"bn {bn} gsz_sem {gsz}"
+        print(f"{name} HierBank ({gpt_s} sem, {gpt_g} geo groups a tile, t_real {hb.t_real}): "
+              f"build_hier_bank with {knobs} {time.perf_counter() - t0:.2f} s")
+        kw = dict(retrieval="hier", hier_bn=bn, gsz_sem=gsz, gsz_geo=gsz_geo, device=dev,
+                  k_tiles=16 * 512 // bn, **knobs)
+        encs = {"RANGE+": (load_model("RANGE+", db_path=hb, **kw),
+                           {"siren_tower": 1, "hier_scan": 1, "hier_parts_family": 2,
+                            "combine_cat": 1}, 0.12),
+                "RANGE": (load_model("RANGE", db_path=hb, **kw),
+                          {"siren_tower": 1, "hier_scan_stats": 1, "hier_scan": 1,
+                           "hier_parts": 1}, 0.10)}
+        for mode, (enc, want, bar) in encs.items():
+            for b in (SMALL_BATCH, BATCH):
+                c = _random_coords(b, gen, dev)
+                out, got = _drive(f"{name} {mode} B={b}", lambda: enc(c), want)
+                launches = {k: launches.get(k, 0) + n for k, n in got.items()}
+                Dv = hb.value_dim
+                with torch.no_grad():
+                    ref = (retrieval.retrieve(out[:, Dv:], None, hb.bank, sem_temp=15.0,
+                                              mode="range") if mode == "RANGE" else
+                           retrieval.retrieve(out[:, Dv:], lonlat_deg_to_xyz(c), hb.bank,
+                                              sem_temp=12.0, beta=0.5))
+                mean = _rel(out, ref, Dv).mean().item()
+                tag = f"{name} {mode} B={b}"
+                e2e[tag] = _host_ms(lambda: enc(c), 5)
+                print(f"{tag} relerr vs exact f32 retrieve: mean {mean:.5f} (bar {bar}); end "
+                      f"to end {e2e[tag]:.3f} ms")
+                if not torch.isfinite(out).all() or mean > bar:
+                    raise AssertionError(f"{tag}: relerr mean {mean:.5f} over its bar {bar}")
+        # ---- kernel 14's rr + lr shape at this bank's selection, B = 10,000
+        enc = encs["RANGE+"][0]
+        cfg = enc.model.config
+        bm, k_tiles, _, j_sem = cfg.hier_plan(BATCH)
+        k_geo = max(8, k_tiles // 2)
+        c = _random_coords(BATCH, gen, dev)
+        x = lonlat_deg_to_xyz(c)
+        with torch.no_grad():
+            q_s, q_x = rh._pad_queries(enc.model.query_embedding(c), x, bm)
+            q_cat = rf.pack_queries(q_s, q_x, 12.0, 40.0, hb.tier)[
+                rh._hybrid_order(q_x, BATCH)].contiguous()
+            st = rh._hier_scan_stats_call(q_cat, hb.g_sem_cat, hb.g_geo_cat, gpt_s=gpt_s,
+                                          gpt_g=gpt_g)
+            idx_s, _ = rh.select_tiles(*st, t_real=hb.t_real, k_tiles=k_tiles, bm=bm,
+                                       n_valid=BATCH, j_sem=j_sem, j_geo=cfg.j_geo,
+                                       mode="range")
+            idx_g, _ = rh.select_tiles(st[2], st[3], st[0], st[1], t_real=hb.t_real,
+                                       k_tiles=k_geo, bm=bm, n_valid=BATCH, j_sem=cfg.j_geo,
+                                       j_geo=j_sem, mode="range")
+            for fam, gpt, idx, g_cat, vw, z, lrr in (
+                    ("sem", gpt_s, idx_s, hb.g_sem_cat, hb.g_sem_vw_lr, hb.z_sem, hb.lr_rank),
+                    ("geo", gpt_g, idx_g, hb.g_geo_cat, hb.g_geo_vw_lr, hb.z_geo, hb.lr_geo)):
+                sh = rh._parts_shapes(q_cat, hb.k_cat, hb.mask_neg, idx, g_cat, vw, z,
+                                      sem_d=hb.sem_d, bm=bm, bn=bn, gpt=gpt, geo=fam == "geo",
+                                      lrr=lrr, lr=True, sel=False,
+                                      geo_cols=GEO_COLS if fam == "geo" else None)
+                print(f"{name} {fam} family's plan: " + str(rh._parts_plan(
+                    q_cat.shape[0], idx.shape[1], bn, gpt, sh["kf"], sh["gwe"], sh["share"],
+                    z.shape[1], sh["acols"], sh["out_w"])))
+            _rr_families(f"{name} B={BATCH}", hb, q_cat, idx_s, idx_g, bm, BATCH, why,
+                         body=False)
+    print(f"step banks' launches: {launches}")
+    for k, n in launches.items():
+        if n:
+            report[k]["launches"] += n
+    return e2e
+
+
 def _rel(out, ref, Dv):
     """Per-element relerr |out - ref| / max(|ref|, 0.1) of the retrieved part."""
     return (out[:, :Dv] - ref).abs() / ref.abs().clamp_min(0.1)
@@ -3108,7 +3314,17 @@ def _parts_check(tag, q_cat, k_cat, values, mask, scale, sem_d, rows_off_max):
     got, ref = kernel(), plain()
     mag = rf._retrieve_fused_parts_plain(q_cat, k_cat, values.abs(), mask, scale,
                                          sem_d=sem_d)
-    Dv = values.shape[1]
+    err, ratio = _parts_hold(tag, got, ref, mag, values.shape[1], rows_off_max)
+    ms = _cuda_ms(kernel, 5)
+    plain_ms = _cuda_ms(plain, 3)
+    print(f"{tag}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    return err, ratio, ms, plain_ms
+
+
+def _parts_hold(tag, got, ref, mag, Dv, rows_off_max):
+    """Kernel 5's partials against its plain version's: each family's
+    accumulators by the terms rule, the sums d within 1e-5 relative, the
+    pad exactly zero.  Returns (max abs error, error over tolerance)."""
     flip = ("the dense kernel's rule: an exp2 within the logits' f32 difference of a "
             "bf16 boundary rounds the other way, one ulp of one term")
     errs = [_compare_terms(f"{tag} acc_s", got[:, :Dv], ref[:, :Dv], mag[:, :Dv], flip,
@@ -3119,10 +3335,7 @@ def _parts_check(tag, q_cat, k_cat, values, mask, scale, sem_d, rows_off_max):
                      0.0, 1e-5, "f32 sums of the same exponentials in another order")]
     if (got[:, 2 * Dv + 2:] != 0).any():
         raise AssertionError(f"{tag}: nonzero pad columns")
-    ms = _cuda_ms(kernel, 5)
-    plain_ms = _cuda_ms(plain, 3)
-    print(f"{tag}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-    return max(e[0] for e in errs), max(e[1] for e in errs), ms, plain_ms
+    return max(e[0] for e in errs), max(e[1] for e in errs)
 
 
 def mesh_phases(dev, gen, report) -> float:
@@ -3691,6 +3904,7 @@ def main() -> int:
     topk2_ms, hb2 = timed("two_level", two_level_topk_phases, dev, gen, report, bank, enc)
     general_ms = timed("general", general_phases, dev, gen, report, bank)
     gsz4_ms = timed("gsz4", gsz4_phases, dev, gen, report, bank)
+    step_ms = timed("step_banks", step_banks_phases, dev, gen, report)
     knob_ms = timed("knobs", knob_phases, dev, gen, report, bank, hb, enc, hb_ts, hb2)
     del hb_ts, hb2
     pruned_ms = timed("pruned", pruned_phases, dev, gen, report, bank)
@@ -3702,7 +3916,8 @@ def main() -> int:
           f"hier_topk {topk_ms:.3f} ms, RANGE flagship {range_ms:.3f} ms, tail_super "
           f"flagship {ts_ms:.3f} ms, two-level hier_topk {topk2_ms:.3f} ms, RANGE+ at the "
           f"JAX defaults {general_ms:.3f} ms, RANGE+ on a (1, 1) mesh {mesh_ms:.3f} ms, "
-          + ", ".join(f"{k} {ms:.3f} ms" for k, ms in {**knob_ms, **gsz4_ms}.items()) + ", "
+          + ", ".join(f"{k} {ms:.3f} ms" for k, ms in {**knob_ms, **gsz4_ms,
+                                                        **step_ms}.items()) + ", "
           + ", ".join(f"{k} {ms:.3f} ms" for k, ms in pruned_ms.items())
           + f"; SatCLIP training step ({TRAIN_ACCUM} x {TRAIN_MICRO}) {step_s:.3f} s")
 

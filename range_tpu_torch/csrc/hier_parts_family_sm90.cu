@@ -31,7 +31,11 @@
 //
 // Layout.  A block owns BM = 64 queries (one wgmma M) and one segment of
 // its query block's tile list, and walks the segment's rows in steps of
-// BN = 64.  Four warpgroups (512 threads, one block an SM):
+// BN = 64 (a tile of no whole number of steps, 96 or 160 rows, ends in a
+// masked step: its TMA box still loads 64 rows, those past the tile, of
+// the next tile or zero fill past N, get p = 0, and the groups' walk counts
+// only the step's units inside the tile).  Four warpgroups (512 threads,
+// one block an SM):
 //   * warpgroup 0, the logits: wgmma m64n64k16 with the query block and the
 //     key rows K-major in shared memory (the row logits over the family's
 //     kf columns: 1 k16 step for the geo family's 16, 4 a 64-column box),
@@ -60,7 +64,16 @@
 //     the rows element by element on the CUDA cores took ~3.5 us a step and
 //     paced the kernel: PERF.md.)
 //   The group part runs in the same walk: no second pass over the tiles and
-//   no group sums in device memory.
+//   no group sums in device memory.  Groups whose unit is one row (odd gsz,
+//   gsz 1) and whose layout does not fit beside the ring otherwise (64 or
+//   more groups a tile) read their unit sums straight from the p tile
+//   (the DIRECT walk: the bf16 p of one row is its unit's f32 sum, so no
+//   segment matrix and no unit-sum buffer); a tile's D block that does not
+//   fit in shared memory at all (groups of 1 row from 192 a tile, of 2 from
+//   416, of 4 from 448) goes to a device-memory workspace that the caller
+//   allocates, a block's own, in the same 2,048-byte k16 blocks, and phase
+//   2 streams each k16 block into the ring beside its vw rows (dglob).  Both
+//   live only in the kernel of the rare groupings.
 //   * Then all four warpgroups run alr = D [64 x segment's groups] @ vw of
 //     the segment's groups, the vw rows streamed by TMA 16 a step (one k16
 //     step of D) into the ring's freed memory, the columns in passes of up
@@ -88,7 +101,8 @@
 // changes only the order of the f32 additions.
 //
 // Ragged edges: TMA zero-fills columns past the family's kf / gw (a zero
-// column adds 0 to every logit) and rows past the operands.  A wait on a
+// column adds 0 to every logit) and rows past the operands; the masked last
+// step of a tile of no whole number of steps sets p = 0 past the tile.  A wait on a
 // barrier that never completes traps after ~10 s instead of hanging the
 // card.
 
@@ -105,6 +119,7 @@ constexpr int BOXB = BM * 128;  // one 64-column box of 64 rows: 8 KB
 constexpr int PST = BN / 16 * 2048;  // one p tile: [4 k16 blocks][64 rows][32 B]
 constexpr int PASS_BOXES = 8;   // alr boxes of 64 columns a pass: 2 a warpgroup
 constexpr float CLAMP2 = 86.0f;
+enum { K_COMMON, K_RARE, K_DIRECT };  // the kernel's instances (`groups_any`)
 
 // The launch's shapes and plan, and the shared-memory layout, which the
 // caller gives (`_parts_layout` in ops/retrieval_hier.py; offsets from the
@@ -126,6 +141,10 @@ struct Prm {
   int ks, ksg;              // k16 steps of the row logits and of the group logits
   int EG, NG, chunks, chunk_steps, gp16;
   int lu, nu, upg;          // units of 2^lu rows: nu a step, upg a group
+  int spt, last_rows, nu_last;  // steps a tile; rows and units of its last step
+  int direct, dglob;        // unit sums read from the p tile; the D block in device memory
+  uint8_t* dgw;             // dglob: the D blocks [blocks][dblock bytes]
+  size_t dblock;
   int W, lrr, out_w, zoff, aoff, acols, zlo, zn;
   float asign;              // +1: alr; -1: [acc | d] -= D @ vw
   int abox, pb, n_pass, S, S2;
@@ -233,6 +252,7 @@ __device__ __forceinline__ void logits(const Prm& P, const Blk& b, int steps) {
   const int r0 = 16 * warp + g;  // this thread's rows r0 and r0 + 8 of the block
   float sc[BN / 2];
   Ring ring;
+  int sub = 0;  // the step within its tile
   mbar_wait(b.bq, 0);
   for (int it = 0; it < steps; ++it) {
     const int s = ring.stage;
@@ -255,6 +275,17 @@ __device__ __forceinline__ void logits(const Prm& P, const Blk& b, int steps) {
       const float2* ms = reinterpret_cast<const float2*>(__cvta_shared_to_generic(kst + P.msk));
 #pragma unroll
       for (int j = 0; j < BN / 8; ++j) m[j] = ms[4 * j + t];
+    }
+    if (++sub == P.spt) {
+      sub = 0;
+      if (P.last_rows < BN) {  // the tile's masked last step: p = 0 past the tile
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          const int c = 8 * j + 2 * t;
+          if (c >= P.last_rows) m[j].x = -1e30f;
+          if (c + 1 >= P.last_rows) m[j].y = -1e30f;
+        }
+      }
     }
     release(b.empty + 8 * s);
     ring.next(P.S);
@@ -292,7 +323,7 @@ __device__ __forceinline__ void az(const Prm& P, const Blk& b, const CUtensorMap
                                    bool producer, int steps, float* out) {
   const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int spt = P.bn / BN;
+  const int spt = P.spt;
   const int* lst = reinterpret_cast<const int*>(__cvta_shared_to_generic(b.base + P.lst));
   float acc[NZB * 32];
 #pragma unroll
@@ -394,8 +425,10 @@ __device__ __forceinline__ void chunk_e_any(const Prm& P, const Blk& b, float* e
 // one unit ends at its column; a group of whole steps (nu = 1) carries its
 // sum in the accumulator across its steps; a group of several units ending
 // inside a step adds its units' sums through shared memory (UNITS: only
-// the kernel built for such groups holds that path).
-template <int EG, int NG, bool UNITS>
+// the kernel built for such groups holds that path).  DIRECT (units of one
+// row, in that kernel alone): no product, the unit sums are the p tile's
+// bf16 values.  A tile's masked last step counts its nu_last units only.
+template <int EG, int NG, bool UNITS, bool DIRECT>
 __device__ __forceinline__ void groups(const Prm& P, const Blk& b, const CUtensorMap* tg,
                                        int steps) {
   const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
@@ -406,8 +439,8 @@ __device__ __forceinline__ void groups(const Prm& P, const Blk& b, const CUtenso
   float* us_s = reinterpret_cast<float*>(__cvta_shared_to_generic(b.base + P.us));
   const int lde = EG + 1, ldu = NG + 1;
   if (tid == 0) load_g(P, b, tg, lst[b.lo], 0);
-  {  // the segment matrix, K-major and 128-byte swizzled: (unit c, row r) at
-     // c * 128 + 16 ((r / 8) ^ (c % 8)) + 2 (r % 8)
+  if constexpr (!DIRECT) {  // the segment matrix, K-major and 128-byte swizzled: (unit
+                            // c, row r) at c * 128 + 16 ((r / 8) ^ (c % 8)) + 2 (r % 8)
     uint8_t* sm = reinterpret_cast<uint8_t*>(__cvta_shared_to_generic(b.base + P.sm));
     for (int i = tid; i < NG * BN; i += 128) {
       const int c = i / BN, r = i % BN;
@@ -421,6 +454,27 @@ __device__ __forceinline__ void groups(const Prm& P, const Blk& b, const CUtenso
   const bool units = UNITS && P.nu > 1 && P.upg > 1;  // groups of several units in a step
   const int ng = units ? 0 : P.nu;            // groups that end at a full step's end
   const int gsteps = P.nu == 1 ? P.upg : 1;   // steps a group spans
+  // D = bf16(e - ps / max(cnt, 1)) of (query row r, D column col): into the
+  // D block in shared memory, or (dglob) this block's in device memory
+  const uint32_t dst = b.base + P.d;
+  uint8_t* dgb = nullptr;
+  if constexpr (UNITS) dgb = P.dglob ? P.dgw + blockIdx.x * P.dblock : nullptr;
+  auto put_d = [&](int r, int col, float dv) {
+    const unsigned short h = __bfloat16_as_ushort(__float2bfloat16_rn(dv));
+    if constexpr (UNITS) {
+      if (dgb != nullptr) {
+        *reinterpret_cast<unsigned short*>(dgb + sw32(r, col)) = h;
+        return;
+      }
+    }
+    asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(dst + sw32(r, col)), "h"(h) : "memory");
+  };
+  // DIRECT: the bf16 p of (row r, column k) of the p tile at pst
+  auto p_at = [&](uint32_t pst, int r, int k) {
+    unsigned short h;
+    asm volatile("ld.shared.u16 %0, [%1];\n" : "=h"(h) : "r"(pst + sw32(r, k)) : "memory");
+    return __bfloat162float(__ushort_as_bfloat16(h));
+  };
   float ps[NG / 2];
 #pragma unroll
   for (int i = 0; i < NG / 2; ++i) ps[i] = 0.f;
@@ -451,37 +505,40 @@ __device__ __forceinline__ void groups(const Prm& P, const Blk& b, const CUtenso
       ci = 0;
       dcol = j * P.gp16 + c * EG;
     }
+    // the tile's last step (a chunk of a tile of no whole steps is the tile)
+    const bool last = cs + 1 == P.chunk_steps && c + 1 == P.chunks;
+    const int nu_step = last ? P.nu_last : P.nu;
     const int pi = it & 1;
     mbar_wait(b.pfull + 8 * pi, (it >> 1) & 1);
     const uint32_t pst = b.base + P.p + pi * PST, sm = b.base + P.sm;
-    const int cont = gs > 0;  // the open group's sum carries into this step
-    wgmma_fence();
+    if constexpr (!DIRECT) {
+      const int cont = gs > 0;  // the open group's sum carries into this step
+      wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk)
-      wgmma_k<NG>(ps, desc_k32(pst + kk * 2048), desc_k128(sm + kk * 32),
-                  (kk > 0 || cont) ? 1 : 0);
-    wgmma_commit();
-    wgmma_wait0();
-    fence_regs(ps);
-    release(b.pempty + 8 * pi);
-    const uint32_t dst = b.base + P.d;
+      for (int kk = 0; kk < BN / 16; ++kk)
+        wgmma_k<NG>(ps, desc_k32(pst + kk * 2048), desc_k128(sm + kk * 32),
+                    (kk > 0 || cont) ? 1 : 0);
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(ps);
+      release(b.pempty + 8 * pi);
+    }
     if (units) {  // the step's unit sums, then a thread a row adds its groups' units in order
+      if constexpr (!DIRECT) {
 #pragma unroll
-      for (int jj = 0; jj < NG / 8; ++jj)
+        for (int jj = 0; jj < NG / 8; ++jj)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = 8 * jj + 2 * t + (e & 1);
-          if (col < P.nu) us_s[(16 * warp + g + 8 * (e >> 1)) * ldu + col] = ps[4 * jj + e];
-        }
-      wg_sync(1);
+          for (int e = 0; e < 4; ++e) {
+            const int col = 8 * jj + 2 * t + (e & 1);
+            if (col < P.nu) us_s[(16 * warp + g + 8 * (e >> 1)) * ldu + col] = ps[4 * jj + e];
+          }
+        wg_sync(1);
+      }
       if (tid < BM) {
-        for (int u = 0; u < P.nu; ++u) {
-          run += us_s[tid * ldu + u];
+        for (int u = 0; u < nu_step; ++u) {
+          run += DIRECT ? p_at(pst, tid, u) : us_s[tid * ldu + u];
           if (++uc == P.upg) {  // D = bf16(e - ps / max(cnt, 1))
-            const float dv = e_s[tid * lde + ci] - run / cnt_s[ci];
-            asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(dst + sw32(tid, dcol + ci)),
-                         "h"(__bfloat16_as_ushort(__float2bfloat16_rn(dv)))
-                         : "memory");
+            put_d(tid, dcol + ci, e_s[tid * lde + ci] - run / cnt_s[ci]);
             run = 0.f;
             uc = 0;
             ++ci;
@@ -489,23 +546,23 @@ __device__ __forceinline__ void groups(const Prm& P, const Blk& b, const CUtenso
         }
       }
       wg_sync(1);  // the unit sums are read
-    } else if (++gs == gsteps) {  // ng groups end here: D = bf16(e - ps / max(cnt, 1))
+    } else if (++gs == gsteps) {  // the step's groups end here: D = bf16(e - ps / max(cnt, 1))
       gs = 0;
+      const int ng_step = last ? P.nu_last : ng;
 #pragma unroll
       for (int jj = 0; jj < NG / 8; ++jj)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int col = 8 * jj + 2 * t + (e & 1), r = 16 * warp + g + 8 * (e >> 1);
-          if (col < ng) {
+          if (col < ng_step) {
             const int gi = ci + col;
-            const float dv = e_s[r * lde + gi] - ps[4 * jj + e] / cnt_s[gi];
-            asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(dst + sw32(r, dcol + gi)),
-                         "h"(__bfloat16_as_ushort(__float2bfloat16_rn(dv)))
-                         : "memory");
+            const float sum = DIRECT ? p_at(pst, r, col) : ps[4 * jj + e];
+            put_d(r, dcol + gi, e_s[r * lde + gi] - sum / cnt_s[gi]);
           }
         }
-      ci += ng;
+      ci += ng_step;
     }
+    if constexpr (DIRECT) release(b.pempty + 8 * pi);  // the p tile is read
     if (++cs == P.chunk_steps) {
       cs = 0;
       if (++c == P.chunks) {
@@ -514,12 +571,19 @@ __device__ __forceinline__ void groups(const Prm& P, const Blk& b, const CUtenso
       }
     }
   }
-  // the D block: visible to phase 2's tensor-core (async proxy) reads
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  // the D block: visible to phase 2's tensor-core (async proxy) reads, or
+  // (dglob) to its bulk copies from device memory
+  if (UNITS && P.dglob) {
+    asm volatile("fence.proxy.async;\n" ::: "memory");
+  } else {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
 }
 
-// ---- phase 2, every warpgroup: alr over NB boxes (box0 of the pass on)
-template <int NB>
+// ---- phase 2, every warpgroup: alr over NB boxes (box0 of the pass on);
+// dglob (UNITS only): each step's k16 block of D comes from device memory
+// into the ring stage beside its vw rows
+template <int NB, bool UNITS>
 __device__ __forceinline__ void alr(const Prm& P, const Blk& b, const CUtensorMap* tv,
                                     Ring& ring, int box_lo, int box0, float* out) {
   const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
@@ -527,11 +591,12 @@ __device__ __forceinline__ void alr(const Prm& P, const Blk& b, const CUtensorMa
   const bool loads = threadIdx.x == 0;
   const int* lst = reinterpret_cast<const int*>(__cvta_shared_to_generic(b.base + P.lst));
   const int kd = P.gp16 / 16, steps = b.n * kd;
-  const uint32_t vbytes = P.pb * 16 * 128;
+  const bool dg = UNITS && P.dglob;
+  const uint32_t vbytes = P.pb * 16 * 128, sbytes = vbytes + (dg ? 2048 : 0);
   float acc[NB > 0 ? NB * 32 : 1];
 #pragma unroll
   for (int i = 0; i < (NB > 0 ? NB * 32 : 1); ++i) acc[i] = 0.f;
-  int lj = 0, lr = 0;  // the next step to load: list slot, k16 block within the tile
+  int lj = 0, lr = 0, ls = 0;  // the next step to load: list slot, k16 block of the tile, step
   Ring lring = ring;
   auto load = [&]() {
     const int s = lring.stage;
@@ -540,9 +605,11 @@ __device__ __forceinline__ void alr(const Prm& P, const Blk& b, const CUtensorMa
       lr = 0;
       ++lj;
     }
-    const uint32_t full = b.vfull + 8 * s;
-    mbar_expect_tx(full, vbytes);
-    tma_3d(b.base + P.ring + s * vbytes, tv, 0, row, box_lo, full);
+    const uint32_t full = b.vfull + 8 * s, st = b.base + P.ring + s * sbytes;
+    mbar_expect_tx(full, sbytes);
+    tma_3d(st, tv, 0, row, box_lo, full);
+    if (dg) bulk_g2s(st + vbytes, P.dgw + blockIdx.x * P.dblock + ls * 2048, 2048, full);
+    ++ls;
     lring.next(P.S2);
   };
   if (loads)
@@ -552,9 +619,10 @@ __device__ __forceinline__ void alr(const Prm& P, const Blk& b, const CUtensorMa
     const int s = ring.stage;
     mbar_wait(b.vfull + 8 * s, ring.phase);
     if constexpr (NB > 0) {
-      const uint32_t vst = b.base + P.ring + s * vbytes + box0 * 2048;
+      const uint32_t stage = b.base + P.ring + s * sbytes, vst = stage + box0 * 2048;
+      const uint32_t dsrc = dg ? stage + vbytes : b.base + P.d + st * 2048;
       wgmma_fence();
-      wgmma_t<64 * NB>(acc, desc_k32(b.base + P.d + st * 2048), desc_v(vst, 16));
+      wgmma_t<64 * NB>(acc, desc_k32(dsrc), desc_v(vst, 16));
       wgmma_commit();
       wgmma_wait0();
       fence_regs(acc);
@@ -582,35 +650,58 @@ __device__ __forceinline__ void alr(const Prm& P, const Blk& b, const CUtensorMa
 }
 
 // The (EG, NG) pairs the launch takes: every pair `_parts_groups` gives
-// for a tile of a multiple of 64 rows; (16, 16) only in the UNITS kernel.
-// (The unit-sum path and that pair, inlined beside the common groupings,
-// made ptxas spill at 128 registers: the rare groupings get a kernel of
-// their own.)
-template <bool UNITS>
+// for a tile of a multiple of 64 rows; (16, 16), and (8, 16), (8, 32),
+// (16, 32) of the tiles of no whole steps, only in the K_RARE kernel; the
+// DIRECT walk (units of one row: NG = 64, any EG) in the K_DIRECT one.
+// (The unit-sum path and the (16, 16) pair, inlined beside the common
+// groupings, made ptxas spill at 128 registers: the rare groupings get
+// kernels of their own.)
+template <int MODE>
 __device__ __forceinline__ void groups_any(const Prm& P, const Blk& b, const CUtensorMap* tg,
                                            int steps) {
-  if (P.EG == 64) {
-    groups<64, 64, UNITS>(P, b, tg, steps);
+  constexpr bool UNITS = MODE == K_RARE;
+  if constexpr (MODE == K_DIRECT) {
+    if (P.EG == 64) {
+      groups<64, 64, true, true>(P, b, tg, steps);
+    } else if (P.EG == 32) {
+      groups<32, 64, true, true>(P, b, tg, steps);
+    } else if (P.EG == 16) {
+      groups<16, 64, true, true>(P, b, tg, steps);
+    } else {
+      groups<8, 64, true, true>(P, b, tg, steps);
+    }
+  } else if (P.EG == 64) {
+    groups<64, 64, UNITS, false>(P, b, tg, steps);
   } else if (P.EG == 8) {
-    groups<8, 8, UNITS>(P, b, tg, steps);
+    if (!UNITS || P.NG == 8) {
+      groups<8, 8, UNITS, false>(P, b, tg, steps);
+    } else if (P.NG == 16) {
+      groups<8, 16, UNITS, false>(P, b, tg, steps);
+    } else {
+      groups<8, 32, UNITS, false>(P, b, tg, steps);
+    }
   } else if (P.EG == 16) {
     if (!UNITS || P.NG == 8) {
-      groups<16, 8, UNITS>(P, b, tg, steps);
+      groups<16, 8, UNITS, false>(P, b, tg, steps);
+    } else if (P.NG == 16) {
+      groups<16, 16, UNITS, false>(P, b, tg, steps);
     } else {
-      groups<16, 16, UNITS>(P, b, tg, steps);
+      groups<16, 32, UNITS, false>(P, b, tg, steps);
     }
   } else if (P.NG == 8) {
-    groups<32, 8, UNITS>(P, b, tg, steps);
+    groups<32, 8, UNITS, false>(P, b, tg, steps);
   } else if (P.NG == 16) {
-    groups<32, 16, UNITS>(P, b, tg, steps);
+    groups<32, 16, UNITS, false>(P, b, tg, steps);
   } else {
-    groups<32, 32, UNITS>(P, b, tg, steps);
+    groups<32, 32, UNITS, false>(P, b, tg, steps);
   }
 }
 
-// UNITS: the kernel for groups of several units ending inside a step and
-// for the (16, 16) pair
-template <bool UNITS>
+// MODE: K_COMMON, the common groupings; K_RARE, groups of several units
+// ending inside a step and the (16, 16), (8, 16), (8, 32), (16, 32) pairs;
+// K_DIRECT, the DIRECT walk; the last two also the D block in device
+// memory.  Three kernels, which nvcc compiles in parallel.
+template <int MODE>
 __global__ void __launch_bounds__(THREADS, 1)
     hier_parts_family_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                                   const __grid_constant__ CUtensorMap tqg,
@@ -676,7 +767,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   b.n = info[1];
   float* out = P.out + seg * P.plane;
   if (b.n > 0) {
-    const int steps = b.n * (P.bn / BN);
+    const int steps = b.n * P.spt;
     const int wg = threadIdx.x / 128;
     if (wg == 0) {
       switch (P.ks) {
@@ -687,7 +778,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         default: logits<16>(P, b, steps); break;
       }
     } else if (wg == 2) {
-      groups_any<UNITS>(P, b, &tg, steps);
+      groups_any<MODE>(P, b, &tg, steps);
     } else {  // warpgroup 1 the first half of z's boxes, 3 the second and the copies
       const int zb0 = wg == 3 ? P.nz / 2 : 0;
       const bool producer = threadIdx.x == 3 * 128;
@@ -715,11 +806,11 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int nb = nbox / 4 + (wg < nbox % 4);
     const int box0 = wg * (nbox / 4) + min(wg, nbox % 4);
     if (nb == 0) {
-      alr<0>(P, b, &tv, ring, box_lo, box0, out);
+      alr<0, MODE != K_COMMON>(P, b, &tv, ring, box_lo, box0, out);
     } else if (nb == 1) {
-      alr<1>(P, b, &tv, ring, box_lo, box0, out);
+      alr<1, MODE != K_COMMON>(P, b, &tv, ring, box_lo, box0, out);
     } else {
-      alr<2>(P, b, &tv, ring, box_lo, box0, out);
+      alr<2, MODE != K_COMMON>(P, b, &tv, ring, box_lo, box0, out);
     }
   }
 }
@@ -757,19 +848,24 @@ __global__ void parts_reduce_kernel(const float* __restrict__ part, float* __res
 // lrr + 128 + rrp] = -alr[:, :lrr + 1] | 0 | az.  dedup = 1 skips an idx
 // entry equal to the one before it in its row.  The plan (`_parts_plan`):
 // n_seg segments of each list, of at most seg_cap tiles, S ring stages;
-// work holds [n_seg, Bp, out_w] f32 when n_seg > 1.  lay [20] the layout
+// work holds [n_seg, Bp, out_w] f32 when n_seg > 1.  lay [22] the layout
 // (`_parts_layout`): EG, NG, pb, S2, a stage's bytes and its z and mask
 // offsets, the offsets q, qg, ring, p, g, e, cnt, us, sm, d, lst, bars and
-// the total bytes.  All contiguous and 16-byte aligned.  Returns a CUDA error code
-// (cudaErrorInvalidValue for what it does not take, with nothing launched).
+// the total bytes, then the DIRECT walk (units of one row, EG = NG = 64)
+// and dglob (dwork holds each block's D blocks: Bp / 64 x n_seg x seg_cap x
+// gpt x 128 bytes, gpt % 16 == 0).  bn need not be a multiple of 64 (a
+// masked last step).  All contiguous and 16-byte aligned.  Returns a CUDA
+// error code (cudaErrorInvalidValue for what it does not take, with
+// nothing launched).
 extern "C" int hier_parts_family_sm90_launch(
     const void* q_cat, const void* k_cat, const void* mask_neg, const void* idx,
-    const void* g_cat, const void* g_vw, const void* z, void* out, void* work, const void* lay,
+    const void* g_cat, const void* g_vw, const void* z, void* out, void* work, void* dwork,
+    const void* lay,
     int Bp, int qw, int cat_d, int kc0, int kf, int qg0, int gw, int gwe, int bm, int bn,
     int gpt, int K, int W, int lrr, int rrp, int N, int G, int lr, int dedup, int n_seg,
     int seg_cap, int S, void* stream) {
   if (lay == nullptr || Bp <= 0 || K <= 0 || bm <= 0 || bm % BM || Bp % bm || bn <= 0 ||
-      bn % BN || N % bn || gpt < 8 || bn % gpt || kf < 16 || kf > 256 || kf % 16 || kc0 % 8 ||
+      N % bn || gpt < 8 || bn % gpt || kf < 16 || kf > 256 || kf % 16 || kc0 % 8 ||
       kc0 + kf > cat_d || cat_d % 8 || qw < cat_d || qw % 8 || gwe < 16 || gwe > 256 ||
       gwe % 16 || gwe > gw || gw % 8 || qg0 % 8 || qg0 + gwe > qw || (rrp != 128 && rrp != 256) ||
       W <= 0 || W % 128 || lrr < 0 || lrr >= W || (!lr && lrr % 4) || G % gpt || n_seg < 1 ||
@@ -783,16 +879,27 @@ extern "C" int hier_parts_family_sm90_launch(
   P.lu = __builtin_ctz(P.gsz | BN);
   P.nu = BN >> P.lu;
   P.upg = P.gsz >> P.lu;
-  // a chunk of EG groups ends on a step; NG columns hold a step's units
+  // steps a tile, the last one masked past the tile's rows
+  P.spt = (bn + BN - 1) / BN;
+  P.last_rows = bn - (P.spt - 1) * BN;
+  P.nu_last = P.last_rows >> P.lu;
+  // a chunk of EG groups ends on a step, or is the tile; NG columns hold a
+  // step's units
   P.EG = L[0];
   P.NG = L[1];
-  if (P.EG <= 0 || gpt % P.EG || (P.EG * P.gsz) % BN || P.NG < P.nu ||
-      !((P.EG == 8 && P.NG == 8) || (P.EG == 16 && (P.NG == 8 || P.NG == 16)) ||
+  P.direct = L[20];
+  P.dglob = L[21];
+  const bool rare_pair = (P.EG == 16 && (P.NG == 16 || P.NG == 32)) ||
+                         (P.EG == 8 && (P.NG == 16 || P.NG == 32));
+  if (P.EG <= 0 || gpt % P.EG || ((P.EG * P.gsz) % BN && P.EG != gpt) || P.NG < P.nu ||
+      !((P.EG == 8 && P.NG == 8) || (P.EG == 16 && P.NG == 8) ||
         (P.EG == 32 && (P.NG == 8 || P.NG == 16 || P.NG == 32)) ||
-        (P.EG == 64 && P.NG == 64)))
+        (P.EG == 64 && P.NG == 64) || rare_pair || P.direct) ||
+      (P.direct && (P.NG != 64 || P.lu != 0)) ||
+      (P.dglob && (gpt % 16 || dwork == nullptr || !aligned16(dwork))))
     return (int)cudaErrorInvalidValue;  // the (EG, NG) pairs groups_any takes
   P.chunks = gpt / P.EG;
-  P.chunk_steps = P.EG * P.gsz / BN;
+  P.chunk_steps = (P.EG * P.gsz + BN - 1) / BN;
   P.gp16 = (gpt + 15) / 16 * 16;
   P.vw = static_cast<const __nv_bfloat16*>(g_vw);
   P.idx = static_cast<const int*>(idx);
@@ -853,6 +960,8 @@ extern "C" int hier_parts_family_sm90_launch(
   if (n_seg > 1 && (work == nullptr || !aligned16(work))) return (int)cudaErrorInvalidValue;
   P.out = static_cast<float*>(n_seg > 1 ? work : out);
   P.plane = n_seg > 1 ? (size_t)Bp * P.out_w : 0;
+  P.dgw = static_cast<uint8_t*>(dwork);
+  P.dblock = (size_t)seg_cap * P.gp16 * 128;
   if (encoder() == nullptr) return (int)cudaErrorSymbolNotFound;
 
   using bf = __nv_bfloat16;
@@ -871,9 +980,10 @@ extern "C" int hier_parts_family_sm90_launch(
   }
   if (!ok) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool units = (P.nu > 1 && P.upg > 1) || (P.EG == 16 && P.NG == 16);
-  const auto kernel =
-      units ? hier_parts_family_sm90_kernel<true> : hier_parts_family_sm90_kernel<false>;
+  const bool rare = (P.nu > 1 && P.upg > 1) || rare_pair || P.dglob;
+  const auto kernel = P.direct ? hier_parts_family_sm90_kernel<K_DIRECT>
+                               : rare ? hier_parts_family_sm90_kernel<K_RARE>
+                                      : hier_parts_family_sm90_kernel<K_COMMON>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)P.total);
   if (err != cudaSuccess) return (int)err;

@@ -25,9 +25,10 @@ BUILD_DIR = _PKG / "_build"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# sources of several heavy kernel instances (hier_parts: 16), whose
-# kernels nvcc compiles in parallel threads
-SPLIT_FLAGS = {name: ["-split-compile=0"] for name in ("hier_parts", "hier_parts_family_sm90")}
+# sources of several heavy kernel instances (hier_parts: 16,
+# fused_retrieval_sm90: 15), whose kernels nvcc compiles in parallel threads
+SPLIT_FLAGS = {name: ["-split-compile=0"]
+               for name in ("hier_parts", "hier_parts_family_sm90", "fused_retrieval_sm90")}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points and their argument types, per kernel library
@@ -45,7 +46,7 @@ _SIGNATURES = {
                         "fused_hybrid_launch":
                         [_P] * 6 + [_I] * 6 + [_F] + [_I] * 3 + [_P]},
     "fused_retrieval_sm90": {"fused_sm90_launch":
-                             [_P] * 6 + [_I] * 5 + [_F] + [_I] * 6 + [_P]},
+                             [_P] * 7 + [_I] * 5 + [_F] + [_I] * 7 + [_P]},
     "hier_scan_sm90": {"hier_scan_sm90_launch": [_P] * 11 + [_I] * 24 + [_P]},
     "hier_refine": {"hier_refine_launch": [_P] * 5 + [_I] * 6 + [_P],
                     "hier_refine_parts_launch": [_P] * 9 + [_I] * 9 + [_P]},
@@ -57,7 +58,7 @@ _SIGNATURES = {
     "hier_parts_family": {"hier_parts_family_launch":
                           [_P] * 9 + [_I] * 17 + [_P]},
     "hier_parts_family_sm90": {"hier_parts_family_sm90_launch":
-                               [_P] * 10 + [_I] * 22 + [_P]},
+                               [_P] * 11 + [_I] * 22 + [_P]},
     "combine_cat": {"combine_cat_launch": [_P] * 7 + [_I] * 8 + [_F, _P]},
     "hier_argmax": {"hier_argmax_launch": [_P] * 7 + [_I] * 5 + [_P],
                     "hier_topk_launch": [_P] * 7 + [_I] * 6 + [_P]},

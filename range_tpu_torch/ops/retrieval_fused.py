@@ -17,12 +17,14 @@ running max is needed.
 On the card, bf16 operands (the 'fast' and 'high' tiers) go to the Hopper
 kernel `csrc/fused_retrieval_sm90.cu` (wgmma, a TMA ring, the bank rows cut
 into segments whose partials a second kernel adds in a fixed order:
-`_segment_plan`), f32 operands (the 'exact' tier) to the mma.sync kernel
-body `csrc/fused_retrieval.cu`.  That body also serves
-`retrieve_fused_parts` (the unnormalized partials of one bank shard, summed
-across shards by `parallel/sharded.py`), `_family_pruned_call` (one
-family's softmax over a tile plan's active bank tiles: `retrieve_pruned`)
-and `retrieve_fused_hybrid` (the geo family only in flagged tiles:
+`_segment_plan`), with bf16 values (`retrieve_fused`), int8 value codes
+and their row scales (`retrieve_fused_i8`), and in the form that leaves
+one bank shard's unnormalized partials for the caller to sum across
+shards (`retrieve_fused_parts`, `parallel/sharded.py`); f32 operands (the
+'exact' tier) go to the mma.sync kernel body `csrc/fused_retrieval.cu`.
+That body also serves `_family_pruned_call` (one family's softmax over a
+tile plan's active bank tiles: `retrieve_pruned`) and
+`retrieve_fused_hybrid` (the geo family only in flagged tiles:
 `retrieve_hybrid`); the plans come from `bank/clustered.py`.
 
 Precision tiers of the logit matmuls (`retrieval_pallas.py:19-25`):
@@ -197,25 +199,37 @@ def _retrieve_fused_plain(q_cat, k_cat, values, mask_neg, beta: float,
                             beta)
 
 
-def _fused_segments_plain(q_cat, k_cat, values, mask_neg, beta: float, *,
-                          sem_d: int, seg_rows: int) -> torch.Tensor:
-    """Plain version of the Hopper kernel's segmented form: `_fused_sums`
-    over each segment of ``seg_rows`` bank rows (the last one ragged), the
-    segments' partials added in segment order as `segment_reduce_kernel`
-    adds them, then each family divided by its own sum and blended."""
+# the partials' pad columns: [sem_acc | geo_acc | d_s | d_g | 0 ...], 2 Dv +
+# 128 wide, as the TPU kernel's lane-aligned block (`retrieval_pallas.py:420`)
+PARTS_PAD = 128
+
+
+def _parts_cat(acc_s, acc_g, d_s, d_g) -> torch.Tensor:
+    """The sums laid out as the parts kernel's output: [acc_s | acc_g | d_s
+    | d_g | zeros], [B, 2 Dv + 128] f32."""
+    pad = torch.zeros((acc_s.shape[0], PARTS_PAD - 2), dtype=torch.float32,
+                      device=acc_s.device)
+    return torch.cat([acc_s, acc_g, d_s, d_g, pad], dim=1)
+
+
+def _fused_segments_plain(q_cat, k_cat, values, mask_neg, beta: float,
+                          scale=None, *, sem_d: int, seg_rows: int,
+                          parts: bool = False) -> torch.Tensor:
+    """Plain version of the Hopper kernel's segmented forms: `_fused_sums`
+    (int8 values with ``scale``) over each segment of ``seg_rows`` bank rows
+    (the last one ragged), the segments' partials added in segment order as
+    `segment_reduce_kernel` / `parts_reduce_kernel` add them, then each
+    family divided by its own sum and blended, or (``parts``: kernel 5)
+    laid out as `_parts_cat`."""
     total = None
     for lo in range(0, max(k_cat.shape[0], 1), seg_rows):
         rows = slice(lo, lo + seg_rows)
         part = _fused_sums(q_cat, k_cat[rows], values[rows], mask_neg[:, rows],
+                           None if scale is None else scale[:, rows],
                            sem_d=sem_d)
         total = part if total is None else tuple(
             a + b for a, b in zip(total, part))
-    return _normalize_blend(*total, beta)
-
-
-# the partials' pad columns: [sem_acc | geo_acc | d_s | d_g | 0 ...], 2 Dv +
-# 128 wide, as the TPU kernel's lane-aligned block (`retrieval_pallas.py:420`)
-PARTS_PAD = 128
+    return _parts_cat(*total) if parts else _normalize_blend(*total, beta)
 
 
 def _retrieve_fused_parts_plain(q_cat, k_cat, values, mask_neg, scale=None,
@@ -223,11 +237,8 @@ def _retrieve_fused_parts_plain(q_cat, k_cat, values, mask_neg, scale=None,
                                 chunk: int = 8192) -> torch.Tensor:
     """Plain PyTorch version of the parts kernel (5): `_fused_sums` laid
     out as [acc_s | acc_g | d_s | d_g | zeros], [B, 2 Dv + 128] f32."""
-    acc_s, acc_g, d_s, d_g = _fused_sums(q_cat, k_cat, values, mask_neg,
-                                         scale, sem_d=sem_d, chunk=chunk)
-    pad = torch.zeros((acc_s.shape[0], PARTS_PAD - 2), dtype=torch.float32,
-                      device=acc_s.device)
-    return torch.cat([acc_s, acc_g, d_s, d_g, pad], dim=1)
+    return _parts_cat(*_fused_sums(q_cat, k_cat, values, mask_neg, scale,
+                                   sem_d=sem_d, chunk=chunk))
 
 
 def _retrieve_fused_hybrid_plain(q_cat, k_cat, values, mask_neg, beta: float,
@@ -288,8 +299,11 @@ SM90_SMS = 132
 SEG_ROWS_MAX = 12_800
 _SM90_MAX_SMEM = 232_448
 # the flat form's instances (`fused_sm90_launch`): (bank rows a tile, value
-# columns a block, key stages, 64-column key boxes): 'fast' and 'high'
-_SM90_FLAT = ((64, 256, 3, 4), (32, 128, 2, 12))
+# columns a block, key stages, 64-column key boxes, built for int8 codes
+# too): 'fast' and 'high'
+_SM90_FLAT = ((64, 256, 3, 4, True), (32, 128, 2, 12, False))
+# int8 codes: half tiles in the kernel's ring (`S8`)
+_CODE_STAGES = 2
 
 
 class SegmentPlan(NamedTuple):
@@ -306,27 +320,31 @@ class SegmentPlan(NamedTuple):
     seg_rows: int
 
 
-def _sm90_smem(sem_d: int, bn: int, dvs: int, cs: int = 0, stages: int = 2) -> int:
+def _sm90_smem(sem_d: int, bn: int, dvs: int, cs: int = 0, stages: int = 2,
+               i8: bool = False) -> int:
     """One block's shared memory (`layout` / `clayout` in the kernel's
     source): the query block, the rings' stages (flat: ``stages`` key
     tiles with their geo keys and mask, two value tiles; cluster:
     ``stages`` of keys, values, geo keys, mask and the bf16 p of both
-    families), the barriers."""
+    families), with int8 codes (``i8``) the row scales beside the mask and
+    a ring of half tiles of codes, the barriers."""
     kb, r = sem_d // 64, _round_up
     query = r(kb * 64 * 128 + 64 * 32, 1024)
+    s8 = _CODE_STAGES if i8 else 0
     if cs == 0:  # `stages` key tiles, two value tiles
-        keys = r(kb * bn * 128 + bn * 32 + bn * 4, 1024)
-        return (query + stages * keys + 2 * (dvs // 64) * bn * 128
-                + 8 * (1 + 2 * stages + 4) + 1024)
+        keys = r(kb * bn * 128 + bn * 32 + bn * 4 * (2 if i8 else 1), 1024)
+        return (query + stages * keys + 2 * (dvs // 64) * bn * 128 + s8 * bn // 2 * dvs
+                + 8 * (1 + 2 * stages + 4 + 2 * s8) + 1024)
     qr = bn // cs
     stage = ((dvs // 64) * bn * 128 + kb * qr * 128 + 2 * (bn // 16) * 2048
-             + qr * 32 + r(qr * 4, 16))
-    return query + stages * r(stage, 1024) + 8 * 17 + cs * 2 * 64 * 4 + 1024
+             + qr * 32 + (r(qr * 4, 128) + r(qr * 4, 16) if i8 else r(qr * 4, 16)))
+    return (query + stages * r(stage, 1024) + s8 * bn // 2 * dvs
+            + 8 * (17 + (4 + 2 * s8 if i8 else 0)) + cs * 2 * 64 * 4 + 1024)
 
 
 def _segment_plan(B: int, N: int, Dv: int, sem_d: int,
                   seg_rows_max: int = SEG_ROWS_MAX,
-                  form: Optional[str] = None) -> SegmentPlan:
+                  form: Optional[str] = None, i8: bool = False) -> SegmentPlan:
     """The kernel's form and tiles, then its segments.
 
     Forms: "flat" (every block computes all of each tile's logits for its
@@ -338,22 +356,26 @@ def _segment_plan(B: int, N: int, Dv: int, sem_d: int,
     By default the flat form where it has 64 x 256 tiles (the 'fast'
     tier), else the cluster form (the 'high' tier, three times the key
     columns): the faster one of each on the H100 (PERF.md).
-    ``form`` forces one, to time the other (chip_smoke.py).
+    ``form`` forces one, to time the other (chip_smoke.py).  ``i8``: the
+    forms built for int8 value codes (no flat 'high' instance), sized with
+    their half tiles of codes; at sem_d 256 they are bf16's.
 
     Segments: at least enough that no block sums more than
     ``seg_rows_max`` rows, and that the request gives the card's SM90_SMS
     SMs a block each where the bank has the tiles; each segment whole
-    tiles.  A function of (B, N, Dv, sem_d) alone, so a request always
-    gets the same answer."""
+    tiles.  A function of (B, N, Dv, sem_d, i8) alone, so a request always
+    gets the same answer, and a bank shard of a (1, 1) mesh is cut as one
+    card cuts the bank."""
     if sem_d <= 0 or sem_d % 64:
         raise ValueError(f"fused_sm90 kernel: needs sem_d % 64 == 0, got {sem_d}")
     # the flat form's tiles, built for the key boxes of one tier each
-    flat = [(bn, dvs, 0, st) for bn, dvs, st, kb in _SM90_FLAT if kb == sem_d // 64]
+    flat = [(bn, dvs, 0, st) for bn, dvs, st, kb, codes in _SM90_FLAT
+            if kb == sem_d // 64 and (codes or not i8)]
     cluster = [(64, dvs, next(c for c in (4, 2, 1) if -(-Dv // dvs) % c == 0), st)
                for dvs in (256, 128) for st in (3, 2)]
     options = {None: [o for o in flat if o[1] == 256] + cluster, "flat": flat,
                "cluster": cluster}[form]
-    fits = [o for o in options if _sm90_smem(sem_d, *o) <= _SM90_MAX_SMEM]
+    fits = [o for o in options if _sm90_smem(sem_d, *o, i8=i8) <= _SM90_MAX_SMEM]
     if not fits:
         raise ValueError(f"fused_sm90 kernel: no {form or 'default'} form for "
                          f"sem_d={sem_d} fits in a block's shared memory")
@@ -373,17 +395,23 @@ def _aligned16(x: torch.Tensor) -> torch.Tensor:
 
 
 def _launch_sm90(q_cat, k_cat, values, mask_neg, beta: float, sem_d: int,
-                 plan: Optional[SegmentPlan] = None) -> torch.Tensor:
+                 plan: Optional[SegmentPlan] = None, scale=None,
+                 parts: bool = False) -> torch.Tensor:
     """Launch `csrc/fused_retrieval_sm90.cu` (and its segment reduction)
-    on bf16 operands: [B, Dv] f32.  ``plan`` defaults to `_segment_plan`."""
+    on bf16 operands: [B, Dv] f32, or with ``parts`` kernel 5's partials
+    [B, 2 Dv + 128]; int8 ``values`` with ``scale`` [1, N].  ``plan``
+    defaults to `_segment_plan`."""
     B, cat_d = q_cat.shape
     N, Dv = values.shape
-    if q_cat.dtype != torch.bfloat16 or Dv % 8:
+    i8 = scale is not None
+    if q_cat.dtype != torch.bfloat16 or Dv % (16 if i8 else 8):
         raise ValueError(f"fused_sm90 kernel: needs bf16 operands and Dv % 8 "
-                         f"== 0, got {q_cat.dtype}, Dv={Dv}")
-    plan = plan or _segment_plan(B, N, Dv, sem_d)
-    ops = [_aligned16(t) for t in (q_cat, k_cat, values, mask_neg)]
-    out = torch.empty((B, Dv), dtype=torch.float32, device=q_cat.device)
+                         f"== 0 (int8: % 16), got {q_cat.dtype}, Dv={Dv}")
+    plan = plan or _segment_plan(B, N, Dv, sem_d, i8=i8)
+    ops = [_aligned16(t) for t in (q_cat, k_cat, values)]
+    ops += [None if scale is None else _aligned16(scale), _aligned16(mask_neg)]
+    out = torch.empty((B, 2 * Dv + PARTS_PAD if parts else Dv), dtype=torch.float32,
+                      device=q_cat.device)
     if B == 0:
         return out
     work = (torch.empty((plan.n_seg, B, 2 * Dv + 2), dtype=torch.float32,
@@ -391,10 +419,10 @@ def _launch_sm90(q_cat, k_cat, values, mask_neg, beta: float, sem_d: int,
     from ..kernels._build import load_kernel_library
 
     rc = load_kernel_library("fused_retrieval_sm90").fused_sm90_launch(
-        *[t.data_ptr() for t in ops], out.data_ptr(),
+        *[None if t is None else t.data_ptr() for t in ops], out.data_ptr(),
         None if work is None else work.data_ptr(), B, N, cat_d, sem_d, Dv,
         ctypes.c_float(beta), plan.bn, plan.dvs, plan.cs, plan.stages,
-        plan.seg_rows, plan.n_seg, _stream(q_cat))
+        plan.seg_rows, plan.n_seg, int(parts), _stream(q_cat))
     _raise_on(rc, "fused_sm90")
     return out
 
@@ -536,24 +564,34 @@ def retrieve_fused_i8(q_cat: torch.Tensor, k_cat: torch.Tensor,
     products, the sums take the unscaled weights.
 
     CPU tensors: `_retrieve_fused_plain` with the scale.  CUDA tensors:
-    `csrc/fused_retrieval.cu` (fused_retrieval_i8_launch), which replaces
-    `_fused_kernel_i8` of `range_tpu/ops/retrieval_pallas.py:181`; a
-    launch failure raises.  ``retrieve_fused_i8.launches`` counts its
-    launches."""
+    the kernels that replace `_fused_kernel_i8` of
+    `range_tpu/ops/retrieval_pallas.py:181`: bf16 operands the Hopper
+    kernel `csrc/fused_retrieval_sm90.cu` over `_segment_plan`'s segments
+    (the codes streamed and converted in shared memory), f32 operands
+    ('exact') `csrc/fused_retrieval.cu` (fused_retrieval_i8_launch).  A
+    shape either does not take or a failed launch raises.
+    ``retrieve_fused_i8.launches`` counts the Hopper kernel's launches,
+    ``.exact_launches`` the f32 kernel's."""
     if q_cat.device.type == "cpu":
         return _retrieve_fused_plain(q_cat, k_cat, values, mask_neg, beta,
                                      scale, sem_d=sem_d)
     _check_cuda("retrieve_fused_i8", q_cat)
     _check_values("retrieve_fused_i8", values, scale)
     _check_fused("retrieve_fused_i8", q_cat, k_cat, values, mask_neg, sem_d)
-    out = _launch_fused("fused_retrieval_i8_launch", q_cat, k_cat, values,
-                        scale, mask_neg, beta, sem_d)
+    if q_cat.dtype == torch.float32:
+        out = _launch_fused("fused_retrieval_i8_launch", q_cat, k_cat, values,
+                            scale, mask_neg, beta, sem_d)
+        if q_cat.shape[0]:
+            retrieve_fused_i8.exact_launches += 1
+        return out
+    out = _launch_sm90(q_cat, k_cat, values, mask_neg, beta, sem_d, scale=scale)
     if q_cat.shape[0]:
         retrieve_fused_i8.launches += 1
     return out
 
 
 retrieve_fused_i8.launches = 0
+retrieve_fused_i8.exact_launches = 0
 
 
 def _launch_fused(entry: str, q_cat, k_cat, values, scale, mask_neg,
@@ -587,11 +625,16 @@ def retrieve_fused_parts(q_cat: torch.Tensor, k_cat: torch.Tensor,
     `retrieve_fused`; int8 ``values`` with ``scale`` [1, N] stream as they
     are, the scale folded into the weights.
 
-    CPU tensors: `_retrieve_fused_parts_plain`.  CUDA tensors:
-    `csrc/fused_retrieval.cu` (fused_parts_launch), which replaces
-    `_fused_parts_kernel` of `range_tpu/ops/retrieval_pallas.py:314`; a
-    launch failure raises.  ``retrieve_fused_parts.launches`` counts its
-    bf16 launches, ``.i8_launches`` its int8 ones."""
+    CPU tensors: `_retrieve_fused_parts_plain`.  CUDA tensors: the kernels
+    that replace `_fused_parts_kernel` of
+    `range_tpu/ops/retrieval_pallas.py:314`: bf16 operands the Hopper
+    kernel `csrc/fused_retrieval_sm90.cu` in its partials form, over
+    `_segment_plan`'s segments (the shard's shape alone decides them, so a
+    (1, 1) mesh adds what one card adds), f32 operands ('exact')
+    `csrc/fused_retrieval.cu` (fused_parts_launch).  A shape either does
+    not take or a failed launch raises.  ``retrieve_fused_parts.launches``
+    counts the Hopper kernel's bf16-value launches, ``.i8_launches`` its
+    int8 ones, ``.exact_launches`` the f32 kernel's (either values)."""
     if q_cat.device.type == "cpu":
         return _retrieve_fused_parts_plain(q_cat, k_cat, values, mask_neg,
                                            scale, sem_d=sem_d)
@@ -600,6 +643,15 @@ def retrieve_fused_parts(q_cat: torch.Tensor, k_cat: torch.Tensor,
     _check_fused("retrieve_fused_parts", q_cat, k_cat, values, mask_neg, sem_d)
     B, cat_d = q_cat.shape
     N, Dv = values.shape
+    if q_cat.dtype == torch.bfloat16:
+        out = _launch_sm90(q_cat, k_cat, values, mask_neg, 0.0, sem_d, scale=scale,
+                           parts=True)
+        if B:
+            if scale is None:
+                retrieve_fused_parts.launches += 1
+            else:
+                retrieve_fused_parts.i8_launches += 1
+        return out
     ops = [t.contiguous() for t in (q_cat, k_cat, values, mask_neg)]
     out = torch.empty((B, 2 * Dv + PARTS_PAD), dtype=torch.float32,
                       device=q_cat.device)
@@ -609,18 +661,15 @@ def retrieve_fused_parts(q_cat: torch.Tensor, k_cat: torch.Tensor,
     rc = _lib().fused_parts_launch(
         ops[0].data_ptr(), ops[1].data_ptr(), ops[2].data_ptr(),
         None if scale is None else scale.data_ptr(), ops[3].data_ptr(),
-        out.data_ptr(), B, N, cat_d, sem_d, _GEO_D, Dv,
-        int(q_cat.dtype == torch.float32), _stream(q_cat))
+        out.data_ptr(), B, N, cat_d, sem_d, _GEO_D, Dv, 1, _stream(q_cat))
     _raise_on(rc, "fused_parts")
-    if scale is None:
-        retrieve_fused_parts.launches += 1
-    else:
-        retrieve_fused_parts.i8_launches += 1
+    retrieve_fused_parts.exact_launches += 1
     return out
 
 
 retrieve_fused_parts.launches = 0
 retrieve_fused_parts.i8_launches = 0
+retrieve_fused_parts.exact_launches = 0
 
 
 def _rows16(x: torch.Tensor) -> torch.Tensor:

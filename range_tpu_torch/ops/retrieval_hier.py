@@ -1537,18 +1537,29 @@ _SM_FLOP_PER_US = 989e12 / SM90_SMS / 1e6  # bf16 tensor rate of one SM
 class PartsPlan(NamedTuple):
     """``n_seg`` segments of each query block's tile list (a block each,
     segment s the distinct entries [s n / n_seg, (s + 1) n / n_seg)), of at
-    most ``seg_cap`` tiles, and ``S`` stages of the key / z ring."""
+    most ``seg_cap`` tiles, and ``S`` stages of the key / z ring; where the
+    common layout fits no block (`_parts_layout`), ``direct`` (the unit
+    sums read from the p tile) and ``dglob`` (the D block in device
+    memory)."""
     n_seg: int
     seg_cap: int
     S: int
+    direct: bool = False
+    dglob: bool = False
+
+
+# the (EG, NG) pairs the kernel's segment-matrix walk is built for
+# (`groups_any`; the DIRECT walk takes any EG with NG = 64)
+_PARTS_PAIRS = {(8, 8), (16, 8), (32, 8), (32, 16), (32, 32), (64, 64), (16, 16), (8, 16),
+                (8, 32), (16, 32)}
 
 
 def _parts_groups(gpt: int, gsz: int) -> Tuple[int, int]:
     """(EG, NG): the groups of a tile whose exponentials the kernel holds
     at once (the whole tile up to 32, else 32, or 64 for groups of an odd
-    size, so a chunk ends on a 64-row step), and the columns of a step's
-    sums over units of gcd(gsz, 64) rows (its 64 / unit units, at least
-    one n8 tile)."""
+    size, so a chunk ends on a 64-row step or is the tile), and the columns
+    of a step's sums over units of gcd(gsz, 64) rows (its 64 / unit units,
+    at least one n8 tile)."""
     return (gpt if gpt <= 32 else (32 if gsz % 2 == 0 else 64),
             max(8, 64 // math.gcd(gsz, 64)))
 
@@ -1561,7 +1572,8 @@ class PartsLayout(NamedTuple):
     within it, then the query block(s), the ring, two p tiles, a chunk's
     centroids, exponentials and counts, the unit sums (groups of several
     units ending inside a step), the segment matrix, the D block of
-    seg_cap tiles, the tile list, the barriers, and the total."""
+    seg_cap tiles, the tile list, the barriers, and the total; then the
+    DIRECT walk and dglob (`PartsPlan`)."""
     EG: int
     NG: int
     pb: int
@@ -1582,17 +1594,23 @@ class PartsLayout(NamedTuple):
     lst: int
     bars: int
     total: int
+    direct: int = 0
+    dglob: int = 0
 
 
 def _parts_layout(K: int, bn: int, gpt: int, kf: int, gwe: int, share: bool, rrp: int,
-                  acols: int, seg_cap: int, S: int) -> PartsLayout:
+                  acols: int, seg_cap: int, S: int, direct: bool = False,
+                  dglob: bool = False) -> PartsLayout:
     """The Hopper family parts kernel's shared-memory layout (a box is 64
-    rows of a 64-column bf16 block, 8 KB)."""
+    rows of a 64-column bf16 block, 8 KB).  ``direct``: no segment matrix
+    and no unit sums (read from the p tile); ``dglob``: no D block (in
+    device memory; phase 2's vw stages carry each k16 block of it)."""
     box = 8192
     kb, kbg = -(-kf // 64), -(-gwe // 64)
     gsz = bn // gpt
     eg, ng = _parts_groups(gpt, gsz)
-    units = gsz % 64 and 64 % gsz  # groups of several units ending inside a step
+    # groups of several units ending inside a step
+    units = gsz % 64 and 64 % gsz and not direct
     kz = kb * box
     msk = kz + rrp // 64 * box
     stage = msk + 1024  # the mask's 256 bytes, the next stage 1024-aligned
@@ -1604,16 +1622,31 @@ def _parts_layout(K: int, bn: int, gpt: int, kf: int, gwe: int, share: bool, rrp
     cnt = e + _round_up(64 * (eg + 1) * 4, 16)
     us = _round_up(cnt + eg * 4, 16)
     sm = _round_up(us + (64 * (ng + 1) * 4 if units else 0), 1024)
-    d = sm + ng * 128
-    lst = d + seg_cap * _round_up(gpt, 16) * 128
+    d = sm + (0 if direct else ng * 128)
+    lst = d + (0 if dglob else seg_cap * _round_up(gpt, 16) * 128)
     bars = lst + _round_up(K * 4, 16)
     abox = -(-acols // 64)
     pb = -(-abox // -(-abox // 8))  # up to 8 boxes a pass, the passes even
-    S2 = min(4, S * stage // (pb * 2048))
+    S2 = min(4, S * stage // ((pb + (1 if dglob else 0)) * 2048))
     # the barriers, a segment's first entry and length, slack to align the base
     total = bars + 8 * (6 + 2 * S + S2) + 16 + 1024
     return PartsLayout(eg, ng, pb, S2, stage, kz, msk, 0, qg, ring, p, g, e, cnt, us, sm, d,
-                       lst, bars, total)
+                       lst, bars, total, int(direct), int(dglob))
+
+
+def _parts_modes(bn: int, gpt: int):
+    """The layouts the plan tries, in order, as (direct, dglob): the common
+    one where the kernel has its (EG, NG) pair; for units of one row (odd
+    gsz) the DIRECT walk (the only one at up to 32 groups a tile, whose
+    pairs (EG, 64) have no segment-matrix instance); then the D block in
+    device memory (a whole number of 16-group k16 blocks a tile)."""
+    gsz = bn // gpt
+    direct = math.gcd(gsz, 64) == 1
+    built = _parts_groups(gpt, gsz) in _PARTS_PAIRS
+    modes = ([(False, False)] if built else []) + ([(True, False)] if direct else [])
+    if gpt % 16 == 0:
+        modes.append((direct, True))
+    return modes
 
 
 def _parts_fits(lay: PartsLayout) -> bool:
@@ -1640,10 +1673,12 @@ def _parts_plan(Bp: int, K: int, bn: int, gpt: int, kf: int, gwe: int,
     tensor time, its alr steps (16 rows of vw a pass) at ~0.4 us, ~6 us a
     block (the paces measured on the H100, PERF.md) and, past one
     segment, the planes' writes and the reduction's pass over them at ~3
-    TB/s.  The ring: the deepest of 4, 3, 2 stages that fits.
+    TB/s.  The ring: the deepest of 4, 3, 2 stages that fits.  The layout:
+    the first of `_parts_modes` in which a cut fits (the common groupings
+    never leave the first).
     lru-cached: serving asks for the same few shapes."""
     n_qb = Bp // 64
-    spt = bn // _PARTS_STEP
+    spt = -(-bn // _PARTS_STEP)
     ks = 1 if kf <= 16 else 4 * -(-kf // 64)
     step_us = 2 * 64 * 64 * 16 * ks / _SM_FLOP_PER_US + 0.9
     alr_us = 0.4 * _round_up(gpt, 16) / 16 * -(-acols // 512)  # a tile's alr steps
@@ -1651,25 +1686,28 @@ def _parts_plan(Bp: int, K: int, bn: int, gpt: int, kf: int, gwe: int,
     cap = max(1, rows_max // bn)
     want = min(SM90_SMS, n_qb * K)
     best = None
-    limit = None  # up to 8 waves of blocks past the first cut that fits
-    for n_seg in range(-(-K // cap), K + 1):
-        seg_cap = -(-K // n_seg)
-        if limit is not None and n_qb * n_seg > limit:
+    for direct, dglob in _parts_modes(bn, gpt):
+        limit = None  # up to 8 waves of blocks past the first cut that fits
+        for n_seg in range(-(-K // cap), K + 1):
+            seg_cap = -(-K // n_seg)
+            if limit is not None and n_qb * n_seg > limit:
+                break
+            S = next((S for S in (4, 3, 2) if _parts_fits(_parts_layout(
+                K, bn, gpt, kf, gwe, share, rrp, acols, seg_cap, S, direct, dglob))), None)
+            if S is None:
+                continue
+            if limit is None:
+                limit = max(n_qb * n_seg, 8 * SM90_SMS)
+            costs = []
+            for seg in range(n_seg):
+                t = (seg + 1) * K // n_seg - seg * K // n_seg
+                costs += [t * (spt * step_us + alr_us) + 6.0] * n_qb
+            planes = Bp * row_us * (1 if n_seg == 1 else 2 * n_seg + 1)
+            key = (n_qb * n_seg < want, _makespan(costs, SM90_SMS) + planes)
+            if best is None or key < best[0]:
+                best = (key, PartsPlan(n_seg, seg_cap, S, direct, dglob))
+        if best is not None:
             break
-        S = next((S for S in (4, 3, 2) if _parts_fits(_parts_layout(
-            K, bn, gpt, kf, gwe, share, rrp, acols, seg_cap, S))), None)
-        if S is None:
-            continue
-        if limit is None:
-            limit = max(n_qb * n_seg, 8 * SM90_SMS)
-        costs = []
-        for seg in range(n_seg):
-            t = (seg + 1) * K // n_seg - seg * K // n_seg
-            costs += [t * (spt * step_us + alr_us) + 6.0] * n_qb
-        planes = Bp * row_us * (1 if n_seg == 1 else 2 * n_seg + 1)
-        key = (n_qb * n_seg < want, _makespan(costs, SM90_SMS) + planes)
-        if best is None or key < best[0]:
-            best = (key, PartsPlan(n_seg, seg_cap, S))
     if best is None:
         raise ValueError(
             f"hier_parts_family kernel: no segment of a {K}-tile list of {gpt} "
@@ -1696,9 +1734,12 @@ def _parts_shapes(q_cat, k_cat, mask_neg, idx, g_cat, g_vw, z, *, sem_d: int,
     if geo and geo_cols:
         kf, gwe = min(kf, _round_up(geo_cols, 16)), min(gw, _round_up(geo_cols, 16))
     gsz = bn // max(gpt, 1)
+    eg, ng = _parts_groups(max(gpt, 1), max(gsz, 1))
     if (qw != (cat_d + gw if sel else cat_d) or (sel and geo)
-            or Bp != nB * bm or bm % 64 or bn % 64 or gpt < 8 or gpt * gsz != bn
-            or not _gpt_ok(gpt) or kf % 16
+            or Bp != nB * bm or bm % 64 or gpt < 8 or gpt * gsz != bn
+            or not _gpt_ok(gpt)
+            or ((eg, ng) not in _PARTS_PAIRS and math.gcd(gsz, 64) > 1)
+            or (eg * gsz % _PARTS_STEP and eg != gpt) or kf % 16
             or kf > 256 or gwe % 16 or gwe > 256 or cols.start % 8
             or qcols.start % 8 or gw % 8 or cat_d % 8 or W % 128
             or rrp not in (128, 256) or not 0 <= lrr < W
@@ -1744,12 +1785,16 @@ def _parts_family_rr(q_cat, k_cat, mask_neg, idx, g_cat, g_vw, z, *,
                                rrp, sh["acols"], sh["out_w"])
     work = (torch.empty(plan.n_seg * Bp * sh["out_w"], dtype=torch.float32,
                         device=dev) if plan.n_seg > 1 else None)
+    # dglob: each block's D blocks, seg_cap tiles of gpt columns x 64 rows bf16
+    dwork = (torch.empty(Bp // 64 * plan.n_seg * plan.seg_cap * gpt * 128,
+                         dtype=torch.uint8, device=dev) if plan.dglob else None)
     lay = _parts_layout(K, bn, gpt, sh["kf"], sh["gwe"], sh["share"], rrp, sh["acols"],
-                        plan.seg_cap, plan.S)
+                        plan.seg_cap, plan.S, plan.direct, plan.dglob)
     lay = (ctypes.c_int * len(lay))(*lay)
     held = [t.contiguous() for t in ops.values()]  # referenced until queued
     ptr = [t.data_ptr() for t in held] + [out.data_ptr(),
                                           None if work is None else work.data_ptr(),
+                                          None if dwork is None else dwork.data_ptr(),
                                           ctypes.addressof(lay)]
     _launch("hier_parts_family_sm90", "hier_parts_family_sm90_launch", *ptr,
             Bp, qw, cat_d, sh["kc0"], sh["kf"], sh["qg0"], g_cat.shape[1],

@@ -697,7 +697,8 @@ def test_int8_fused_kernel_matches_plain(cuda, tier, mode):
     q = torch.nn.functional.normalize(torch.randn(77, 256, generator=g, device=cuda), dim=1)
     x = lonlat_deg_to_xyz(_coords(77, seed=2, device=cuda))
     temp, beta = (12.0, 0.5) if mode == "range+" else (15.0, 1.0)
-    n0 = (rf.retrieve_fused.launches, rf.retrieve_fused_i8.launches)
+    i8 = rf.retrieve_fused_i8
+    n0 = (rf.retrieve_fused.launches, i8.launches, i8.exact_launches)
     got = rf.retrieve_pallas(q, x, bank, sem_temp=temp, mode=mode, tier=tier)
     q_cat = rf.pack_queries(q, x if mode == "range+" else None, temp, 40.0, tier)
     ref = rf._retrieve_fused_plain(
@@ -705,7 +706,9 @@ def test_int8_fused_kernel_matches_plain(cuda, tier, mode):
         (rf.NEG * (1 - bank.row_mask()))[None], beta, bank.value_scale,
         sem_d=rf.packed_dims(256, tier)[0])
     torch.cuda.synchronize()
-    assert (rf.retrieve_fused.launches, rf.retrieve_fused_i8.launches) == (n0[0], n0[1] + 1)
+    # bf16 operands: the Hopper kernel; 'exact' (f32 operands): the mma.sync body
+    assert (rf.retrieve_fused.launches, i8.launches, i8.exact_launches) == (
+        n0[0], n0[1] + (tier != "exact"), n0[2] + (tier == "exact"))
     err = (got - ref).abs()
     assert err.max() <= dequantize_values(bank).abs().max() / 128
     assert (err > 1e-4).any(dim=1).sum() <= 2
@@ -816,10 +819,12 @@ def test_int8_dense_main_path(cuda):
     over the dequantized bank (tests/test_retrieval_pallas.py:47)."""
     enc = load_model("RANGE+", db_path="synthetic:5000", chunk=1024, value_quant="int8")
     coords = _coords(300, seed=13, device=cuda)
-    n0 = (rf.retrieve_fused.launches, rf.retrieve_fused_i8.launches)
+    i8 = rf.retrieve_fused_i8
+    n0 = (rf.retrieve_fused.launches, i8.launches, i8.exact_launches)
     out = enc(coords)
     torch.cuda.synchronize()
-    assert (rf.retrieve_fused.launches, rf.retrieve_fused_i8.launches) == (n0[0], n0[1] + 1)
+    assert (rf.retrieve_fused.launches, i8.launches, i8.exact_launches) == (
+        n0[0], n0[1] + 1, n0[2])
     assert enc.model.bank.values.dtype == torch.int8
     ref = retrieval.retrieve(out[:, 1024:], lonlat_deg_to_xyz(coords), enc.model.bank)
     torch.testing.assert_close(out[:, :1024], ref, rtol=1e-1, atol=5e-2)
@@ -1329,11 +1334,14 @@ def test_fused_parts_kernel_matches_plain(cuda, tier, quant):
     bank, q_cat, k_cat, mask, sem_d = _dense_operands(cuda, tier, quant)
     B, Dv = q_cat.shape[0], bank.value_dim
     v, s = bank.values, bank.value_scale
-    n0 = (rf.retrieve_fused_parts.launches, rf.retrieve_fused_parts.i8_launches)
+    fp = rf.retrieve_fused_parts
+    n0 = (fp.launches, fp.i8_launches, fp.exact_launches)
     got = rf.retrieve_fused_parts(q_cat, k_cat, v, mask, s, sem_d=sem_d)
     torch.cuda.synchronize()
-    assert (rf.retrieve_fused_parts.launches, rf.retrieve_fused_parts.i8_launches) == (
-        n0[0] + (not quant), n0[1] + quant)
+    # bf16 operands: the Hopper kernel's partials form; f32: the mma.sync body
+    hopper = tier != "exact"
+    assert (fp.launches, fp.i8_launches, fp.exact_launches) == (
+        n0[0] + (hopper and not quant), n0[1] + (hopper and quant), n0[2] + (not hopper))
     ref = rf._retrieve_fused_parts_plain(q_cat, k_cat, v, mask, s, sem_d=sem_d)
     mag = rf._retrieve_fused_parts_plain(q_cat, k_cat, v.abs(), mask, s, sem_d=sem_d)
     assert got.shape == (B, 2 * Dv + 128)
@@ -2001,13 +2009,15 @@ def test_parts_sm90_plans_agree(cuda, Bp, K):
 
 
 def test_parts_sm90_rejects_what_it_does_not_take(cuda):
-    """A group of one row (512 groups a tile: no segment's D block fits)
-    and f32 operands raise; nothing falls back."""
+    """Fewer than 8 groups a tile (which the scan does not take) and f32
+    operands raise; nothing falls back.  (Groups of one row at 512 a tile,
+    which raised here before the D block in device memory, serve:
+    test_parts_sm90_step_shapes.)"""
     from range_tpu_torch.ops import retrieval_hier as rh
 
     args, lrr = _rr_operands(cuda, Bp=128, bm=128, bn=512, gpt=512, K=4, T=8)
-    kw = dict(sem_d=256, bm=128, bn=512, gpt=512, geo=False, lrr=lrr)
-    with pytest.raises(ValueError, match="shared memory"):
+    kw = dict(sem_d=256, bm=128, bn=512, gpt=4, geo=False, lrr=lrr)
+    with pytest.raises(ValueError, match="unsupported shapes"):
         rh._hier_parts_family_call(*args, **kw)
     args, lrr = _rr_operands(cuda, Bp=128, bm=128, bn=512, gpt=32, K=4, T=8)
     with pytest.raises(ValueError, match="bfloat16"):
@@ -2088,3 +2098,204 @@ def test_gsz_sem_4_bank_serves(cuda, name, bar):
         ref = rh._hier_parts_family_plain(*args, **kw)
         mag = rh._hier_parts_family_plain(*args, **kw, magnitude=True)
         _within_terms(got, ref, mag, rows_off_max=7)
+
+
+# ---- kernels 3 and 5 on the Hopper body (csrc/fused_retrieval_sm90.cu)
+
+# Tolerances as kernel 2's (test_fused_kernel_matches_plain) and kernel 5's
+# (test_fused_parts_kernel_matches_plain): the segments re-associate the f32
+# sums; a weight bf16(p s) that the logits' summation order moves across a
+# rounding boundary rounds the other way, one ulp of that term, in at most
+# max(2, B / 100) rows.
+
+
+def _forms_operands(cuda, B, tier="fast", n=30_001):
+    """A masked bank of 30,001 rows (several segments, the last ragged)
+    with bf16 values and their int8 codes, and B packed queries."""
+    from range_tpu_torch.bank import quantize_values
+
+    bank = GeoBank.synthetic(5, n, key_dim=256, value_dim=1024, pad_to=7, device=cuda)
+    bank8 = quantize_values(bank)
+    g = torch.Generator(device=cuda).manual_seed(B)
+    q = torch.nn.functional.normalize(torch.randn(B, 256, generator=g, device=cuda), dim=1)
+    x = lonlat_deg_to_xyz(_coords(max(B, 2), seed=B, device=cuda)[:B])
+    q_cat = rf.pack_queries(q, x, 12.0, 40.0, tier)
+    k_cat = rf.pack_bank(bank.keys_sem, bank.xyz, tier)
+    mask = (rf.NEG * (1 - bank.row_mask()))[None]
+    return (bank.values.to(torch.bfloat16), None), (bank8.values, bank8.value_scale), q_cat, \
+        k_cat, mask, rf.packed_dims(256, tier)[0]
+
+
+def _hold_parts(got, q_cat, k_cat, v, mask, s, sem_d):
+    B, Dv = q_cat.shape[0], v.shape[1]
+    ref = rf._retrieve_fused_parts_plain(q_cat, k_cat, v, mask, s, sem_d=sem_d)
+    mag = rf._retrieve_fused_parts_plain(q_cat, k_cat, v.abs(), mask, s, sem_d=sem_d)
+    assert got.shape == (B, 2 * Dv + 128)
+    for cols in (slice(0, Dv), slice(Dv, 2 * Dv)):
+        _within_terms(got[:, cols], ref[:, cols], mag[:, cols], rows_off_max=max(2, B // 100))
+    d = slice(2 * Dv, 2 * Dv + 2)
+    torch.testing.assert_close(got[:, d], ref[:, d], rtol=1e-5, atol=0)
+    assert (got[:, 2 * Dv + 2:] == 0).all()
+
+
+@pytest.mark.parametrize("form", ["i8", "parts", "parts_i8"])
+@pytest.mark.parametrize("B", [1, 37, 1000])
+def test_fused_sm90_int8_and_parts_match_plain(cuda, form, B):
+    """Kernel 3 (int8 codes, the blend) and kernel 5 (the partials, bf16
+    values and int8 codes) on the Hopper body, through their wrappers (the
+    plan's segments: several, the last ragged) and over one segment, at B
+    = 1, 37 and 1,000, against their plain versions; each launch counted
+    in its own counter."""
+    bf16, int8, q_cat, k_cat, mask, sem_d = _forms_operands(cuda, B)
+    v, s = int8 if form != "parts" else bf16
+    N = k_cat.shape[0]
+    plan = rf._segment_plan(B, N, 1024, sem_d, i8=s is not None)
+    one = plan._replace(n_seg=1, seg_rows=-(-N // plan.bn) * plan.bn)
+    assert plan.n_seg > 1 and N % plan.seg_rows
+    fp, i8 = rf.retrieve_fused_parts, rf.retrieve_fused_i8
+    n0 = (i8.launches, fp.launches, fp.i8_launches)
+    if form == "i8":
+        got = rf.retrieve_fused_i8(q_cat, k_cat, v, s, mask, 0.5, sem_d=sem_d)
+    else:
+        got = rf.retrieve_fused_parts(q_cat, k_cat, v, mask, s, sem_d=sem_d)
+    torch.cuda.synchronize()
+    assert (i8.launches, fp.launches, fp.i8_launches) == (
+        n0[0] + (form == "i8"), n0[1] + (form == "parts"), n0[2] + (form == "parts_i8"))
+    single = rf._launch_sm90(q_cat, k_cat, v, mask, 0.5, sem_d, one, scale=s,
+                             parts=form != "i8")
+    for out in (got, single):
+        if form == "i8":
+            ref = rf._retrieve_fused_plain(q_cat, k_cat, v, mask, 0.5, s, sem_d=sem_d)
+            err = (out - ref).abs()
+            vmax = (v.float() * s.T).abs().max()
+            assert err.max() <= vmax / 128
+            assert (err > 1e-4).any(dim=1).sum() <= max(2, B // 100)
+        else:
+            _hold_parts(out, q_cat, k_cat, v, mask, s, sem_d)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_fused_sm90_high_tier_parts_and_int8(cuda, quant):
+    """The 'high' tier (the cluster form, 128-column slices in clusters of
+    4) with int8 codes (kernel 3) and the partials (kernel 5), against
+    their plain versions."""
+    bf16, int8, q_cat, k_cat, mask, sem_d = _forms_operands(cuda, 77, tier="high", n=3001)
+    v, s = int8 if quant else bf16
+    plan = rf._segment_plan(77, k_cat.shape[0], 1024, sem_d, i8=quant)
+    assert plan.cs == 4 and plan.dvs == 128
+    _hold_parts(rf.retrieve_fused_parts(q_cat, k_cat, v, mask, s, sem_d=sem_d), q_cat, k_cat,
+                v, mask, s, sem_d)
+    if quant:
+        got = rf.retrieve_fused_i8(q_cat, k_cat, v, s, mask, 0.5, sem_d=sem_d)
+        ref = rf._retrieve_fused_plain(q_cat, k_cat, v, mask, 0.5, s, sem_d=sem_d)
+        err = (got - ref).abs()
+        assert err.max() <= (v.float() * s.T).abs().max() / 128
+        assert (err > 1e-4).any(dim=1).sum() <= 2
+
+
+def test_fused_wrappers_never_launch_the_mma_sync_body(cuda, monkeypatch):
+    """On bf16 operands kernel 3 and kernel 5 (bf16 and int8 values) load
+    the Hopper body's library alone: `fused_retrieval_i8_launch` and
+    `fused_parts_launch` of `csrc/fused_retrieval.cu` stay for f32
+    operands and as chip_smoke.py's same-run yardstick."""
+    from range_tpu_torch.kernels import _build
+
+    loaded = []
+    real = _build.load_kernel_library
+
+    def spy(name):
+        loaded.append(name)
+        return real(name)
+
+    monkeypatch.setattr(_build, "load_kernel_library", spy)
+    bf16, int8, q_cat, k_cat, mask, sem_d = _forms_operands(cuda, 37, n=3001)
+    rf.retrieve_fused_i8(q_cat, k_cat, *int8, mask, 0.5, sem_d=sem_d)
+    for v, s in (bf16, int8):
+        rf.retrieve_fused_parts(q_cat, k_cat, v, mask, s, sem_d=sem_d)
+    torch.cuda.synchronize()
+    assert set(loaded) == {"fused_retrieval_sm90"}
+
+
+@pytest.mark.parametrize("name,quant", [("RANGE+", None), ("RANGE+", "int8"), ("RANGE", None)])
+def test_mesh_matches_one_card(cuda, tmp_path, name, quant):
+    """A (1, 1) mesh (kernel 5 and one all_reduce, the division and blend
+    in torch) answers what one card does (kernels 2 and 3): the same plan
+    cuts the bank alike, so the partials are the same sums, and only the
+    last division and blend may round apart: within 1e-5 x row max, at a
+    batch of several segments (B = 1,000)."""
+    import torch.distributed as dist
+
+    from range_tpu_torch.parallel.mesh import make_mesh
+
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        kw = dict(db_path="synthetic:30000", chunk=1024, value_quant=quant)
+        enc = load_model(name, mesh=make_mesh((1, 1)), **kw)
+        one = load_model(name, **kw)
+        coords = _coords(1000, seed=21, device=cuda)
+        got, ref = enc(coords), one(coords)
+        torch.cuda.synchronize()
+        err = (got - ref).abs()
+        assert (err <= 1e-5 * ref.abs().amax(dim=1, keepdim=True)).all(), err.max()
+    finally:
+        dist.destroy_process_group()
+
+
+# ---- kernel 14's rr shapes on tiles of no whole 64-row step and on
+# groupings whose common layout fits no block
+
+
+@pytest.mark.parametrize("lr", [True, False], ids=["rrlr", "rr"])
+@pytest.mark.parametrize("bn,gpt", [(96, 8), (160, 8), (192, 64), (384, 128), (192, 192),
+                                    (512, 512), (832, 416), (1792, 448), (24, 8), (48, 16),
+                                    (96, 32), (96, 16), (32, 32)])
+def test_parts_sm90_step_shapes(cuda, bn, gpt, lr):
+    """96- and 160-row tiles (8 groups of 12 and 20 rows: a masked last
+    step), groups of 3 rows at 64 and 128 a tile (the DIRECT walk), of 1
+    row at 192 and 512 a tile (DIRECT; at 512 with the D block in device
+    memory), of 2 at 416 and of 4 at 448 (the D block in device memory),
+    and tiles of less than one step (24, 48, 96 and 32 rows of 3-, 6- and
+    1-row groups; the odd ones by the DIRECT walk): each against the plain
+    version, a request's bits the same on every call."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    args, lrr = _rr_operands(cuda, Bp=256, bm=128, bn=bn, gpt=gpt, K=6, T=10,
+                             W=384 if lr else 1152, lr=lr, seed=bn + gpt)
+    kw = dict(sem_d=256, bm=128, bn=bn, gpt=gpt, geo=False, lrr=lrr, lr=lr, sel=False)
+    got = rh._hier_parts_family_call(*args, **kw)
+    again = rh._hier_parts_family_call(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _hold_rr(got, args, kw)
+
+
+@pytest.mark.parametrize("bn,gsz", [(96, 12), (384, 3)])
+@pytest.mark.parametrize("name,bar", [("RANGE+", 0.12), ("RANGE", 0.10)])
+def test_step_banks_serve(cuda, bn, gsz, name, bar):
+    """Banks that the card's rr shapes refused before: 96-row tiles of
+    12-row groups (both families), and 3-row sem groups at bn 384, with
+    lr / rr / lr_geo (kernel 14's rr + lr shape), through
+    load_model(retrieval="hier") within the defaults bank's relerr bar, at
+    the defaults' coverage: k_tiles selects as many rows as 16 tiles of
+    512 (85 tiles of 96, 21 of 384)."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    bank = GeoBank.synthetic_informative(3, 20_000, pad_to=bn, value_dtype=torch.bfloat16,
+                                         device=cuda)
+    enc = load_model(name, db_path=bank, retrieval="hier", hier_bn=bn, gsz_sem=gsz,
+                     gsz_geo=12 if bn == 96 else 48, lr_rank=256, lr_geo=384, res_rank=128,
+                     k_tiles=16 * 512 // bn)
+    coords = _coords(2000, seed=43, device=cuda)
+    fam = rh._hier_parts_family_call
+    n0 = fam.rrlr_launches
+    out = enc(coords)
+    torch.cuda.synchronize()
+    if name == "RANGE+":
+        assert fam.rrlr_launches >= n0 + 1
+    temp = enc.model.config.resolved_sem_temp()
+    ref = (retrieval.retrieve(out[:, 1024:], lonlat_deg_to_xyz(coords), bank, sem_temp=temp,
+                              beta=0.5) if name == "RANGE+" else
+           retrieval.retrieve(out[:, 1024:], None, bank, sem_temp=temp, mode="range"))
+    rel = (out[:, :1024] - ref).abs() / ref.abs().clamp_min(0.1)
+    assert torch.isfinite(out).all() and rel.mean().item() <= bar

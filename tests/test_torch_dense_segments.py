@@ -1,9 +1,11 @@
 """The Python around the dense kernel's Hopper body
 (`csrc/fused_retrieval_sm90.cu`): its segment plan, and a plain version of
 its segmented sums (each segment's partials added in the kernel's fixed
-order, then normalized and blended), held against the one-pass plain
-version and against the JAX fused kernel in interpret mode on the banks of
-tests/test_torch_retrieval.py."""
+order, then normalized and blended, or laid out as the partials of kernel
+5), held against the one-pass plain version and against the JAX fused
+kernels in interpret mode on the banks of tests/test_torch_retrieval.py:
+bf16 values (kernel 2), int8 codes with their row scales (kernel 3) and
+the partials (kernel 5, both value kinds)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -11,6 +13,7 @@ import pytest
 import torch
 
 from range_tpu.bank.bank import GeoBank as JaxGeoBank
+from range_tpu.bank.bank import quantize_values as jax_quantize
 from range_tpu.ops import retrieval_pallas as jrp
 from range_tpu_torch.convert.from_jax import geobank_from_arrays
 from range_tpu_torch.ops import retrieval_fused as trf
@@ -106,6 +109,36 @@ def test_segment_plan_is_a_function_of_the_shape():
     assert straight.n_seg == 1 and straight.seg_rows == 102_400
 
 
+@pytest.mark.parametrize("sem_d", [256, 768])
+@pytest.mark.parametrize("B", [1, 37, 1000, 10_000])
+def test_segment_plan_int8_fits_and_cuts_as_bf16(B, sem_d):
+    """int8 codes (kernel 3, kernel 5's int8 form): the plan's form fits a
+    block's shared memory with its two half tiles of codes and the scales;
+    at sem_d 256 it is bf16's plan (the flat form has room for the codes),
+    so the int8 path cuts a bank as the bf16 path does; at sem_d 768 the
+    cluster form of 128-column slices (no flat 'high' instance takes codes)."""
+    plan = trf._segment_plan(B, 102_400, 1024, sem_d, i8=True)
+    assert trf._sm90_smem(sem_d, *plan[:4], i8=True) <= 232_448
+    if sem_d == 256:
+        assert plan == trf._segment_plan(B, 102_400, 1024, sem_d)
+        assert plan[:4] == (64, 256, 0, 3)
+    else:
+        assert plan[:4] == (64, 128, 4, 2)
+        with pytest.raises(ValueError, match="shared memory"):
+            trf._segment_plan(B, 102_400, 1024, sem_d, form="flat", i8=True)
+
+
+def test_int8_layout_is_the_kernels():
+    """The shared memory `layout` / `clayout` give in the kernel's source:
+    the flat 'fast' form with three key stages is 208,984 bytes, 225,400
+    with the int8 halves (16,384 bytes), the scales and four barriers; the
+    cluster form's int8 stage holds the scales on 128 bytes past the mask."""
+    assert trf._sm90_smem(256, 64, 256, 0, 3) == 208_984
+    assert trf._sm90_smem(256, 64, 256, 0, 3, i8=True) == 225_400
+    assert trf._sm90_smem(768, 64, 128, 4, 2, i8=True) == 228_552
+    assert trf._sm90_smem(768, 64, 128, 4, 2) == 220_296
+
+
 @pytest.mark.parametrize("sem_d", [0, 96, 16 * 67])
 def test_segment_plan_rejects_what_the_kernel_does_not_take(sem_d):
     """sem_d must be whole 64-column boxes, and the tiles must fit in a
@@ -180,6 +213,110 @@ def test_segments_plain_bf16_values_and_masked_rows():
                                     seg_rows=320)
     assert got.shape == (19, 96) and torch.isfinite(got).all()
     np.testing.assert_allclose(got.numpy(), np.asarray(j), rtol=0, atol=5e-6)
+
+
+def _int8(jb, tb):
+    """The bank's int8 codes and row scales, quantized by JAX, on both sides."""
+    jq = jax_quantize(jb)
+    return (jq.values, jq.value_scale, torch.from_numpy(np.array(jq.values)),
+            torch.from_numpy(np.array(jq.value_scale, np.float32)))
+
+
+def _within_terms(got, ref, mag, frac=4e-3):
+    """The kernels' rule: min(frac x the row's max |ref|, 2^-7 x the sum of
+    the terms' magnitudes) + 1e-6 elementwise: a weight the logits' summation
+    order moves across a bf16 boundary rounds the other way, one ulp of
+    that term."""
+    got, ref, mag = (np.asarray(a, np.float64) for a in (got, ref, mag))
+    row = np.abs(ref).max(axis=1, keepdims=True)
+    tol = np.minimum(frac * row, 2.0 ** -7 * mag) + 1e-6
+    assert np.all(np.abs(got - ref) <= tol), float((np.abs(got - ref) / tol).max())
+
+
+# The segments re-associate the f32 sums; the weights bf16(p s) are those
+# of JAX's kernel up to the logits' summation order (`_within_terms`).
+@pytest.mark.parametrize("tier", TIERS)
+@pytest.mark.parametrize("seg_rows", [64, 320, 768])
+def test_segments_plain_int8_matches_jax(tier, seg_rows):
+    """The plain version of kernel 3's segmented form (int8 codes, each
+    weight times its row's scale before the bf16 cast of the value
+    products, the sums of the unscaled weights) against `_fused_kernel_i8`
+    (`retrieval_pallas.py:181`) in interpret mode: segments of one tile, a
+    ragged last one (768 rows in segments of 320) and the whole bank, over
+    a bank of 700 real rows of 768."""
+    jb, tb = _bank(pad_to=256)
+    jv, js, tv, ts = _int8(jb, tb)
+    q, x = _queries(24)
+    jq = jrp.pack_queries(jnp.asarray(q), jnp.asarray(x), 12.0, 40.0, tier=tier)
+    jk = jrp.pack_bank(jb.keys_sem, jb.xyz, tier=tier)
+    sem_d = jrp.packed_dims(64, tier)[0]
+    mask = (jrp.NEG * (1.0 - jb.row_mask()))[None, :].astype(jnp.float32)
+    j = np.asarray(jrp.retrieve_fused(jq, jk, jv, mask, 0.5, js, sem_d=sem_d, bm=8, bn=256,
+                                      interpret=True))
+    q_cat, k_cat, tmask, _ = _packed(tb, q, x, tier, "range+")
+    got = trf._fused_segments_plain(q_cat, k_cat, tv, tmask, 0.5, ts, sem_d=sem_d,
+                                    seg_rows=seg_rows)
+    acc = [trf._fused_segments_plain(q_cat, k_cat, v, tmask, 0.5, ts, sem_d=sem_d,
+                                     seg_rows=seg_rows, parts=True) for v in (tv, tv.abs())]
+    Dv = tb.value_dim
+    mag = 0.5 * (acc[1][:, :Dv] / acc[0][:, 2 * Dv:2 * Dv + 1]
+                 + acc[1][:, Dv:2 * Dv] / acc[0][:, 2 * Dv + 1:2 * Dv + 2])
+    assert got.shape == j.shape == (24, Dv)
+    _within_terms(got.numpy(), j, mag.numpy())
+
+
+@pytest.mark.parametrize("quant", ["bf16", "int8"])
+@pytest.mark.parametrize("seg_rows", [64, 320, 768])
+def test_segments_plain_parts_match_jax(quant, seg_rows):
+    """The plain version of kernel 5's segmented form ([acc_s | acc_g | d_s
+    | d_g | 0 ...], the segments' partials added in order) against
+    `_fused_parts_kernel` (`retrieval_pallas.py:314`) in interpret mode,
+    bf16 values and int8 codes: each family's accumulators by the kernels'
+    rule, the sums d within 2e-6 relative (f32 sums of the same weights in
+    another order), the pad zero."""
+    jb, tb = _bank(pad_to=256, seed=4)
+    q, x = _queries(24, seed=5)
+    if quant == "int8":
+        jv, js, tv, ts = _int8(jb, tb)
+    else:
+        jv, js = jb.values.astype(jnp.bfloat16), None
+        tv, ts = tb.values.to(torch.bfloat16), None
+    jq = jrp.pack_queries(jnp.asarray(q), jnp.asarray(x), 12.0, 40.0, tier="fast")
+    jk = jrp.pack_bank(jb.keys_sem, jb.xyz, tier="fast")
+    mask = (jrp.NEG * (1.0 - jb.row_mask()))[None, :].astype(jnp.float32)
+    j = np.asarray(jrp.retrieve_fused_parts(jq, jk, jv, mask, js, sem_d=64, bm=8, bn=256,
+                                            interpret=True))
+    q_cat, k_cat, tmask, _ = _packed(tb, q, x, "fast", "range+")
+    got = trf._fused_segments_plain(q_cat, k_cat, tv, tmask, 0.5, ts, sem_d=64,
+                                    seg_rows=seg_rows, parts=True).numpy()
+    mag = trf._fused_segments_plain(q_cat, k_cat, tv.abs(), tmask, 0.5, ts, sem_d=64,
+                                    seg_rows=seg_rows, parts=True).numpy()
+    Dv = tb.value_dim
+    assert got.shape == j.shape == (24, 2 * Dv + 128)
+    for cols in (slice(0, Dv), slice(Dv, 2 * Dv)):
+        _within_terms(got[:, cols], j[:, cols], mag[:, cols])
+    d = slice(2 * Dv, 2 * Dv + 2)
+    np.testing.assert_allclose(got[:, d], j[:, d], rtol=2e-6, atol=0)
+    assert not got[:, 2 * Dv + 2:].any() and not j[:, 2 * Dv + 2:].any()
+
+
+@pytest.mark.parametrize("quant", ["bf16", "int8"])
+def test_segments_plain_parts_normalize_to_the_blend(quant):
+    """Kernel 5's segmented partials, each family divided by its own sum
+    and blended as `sharded_retrieve_pallas` does, give the blend form over
+    the same segments (kernels 2 and 3) to f32 rounding: the (1, 1) mesh's
+    answer is one card's."""
+    jb, tb = _bank(pad_to=7, seed=6)
+    q, x = _queries(9, seed=7)
+    q_cat, k_cat, tmask, sem_d = _packed(tb, q, x, "fast", "range+")
+    tv, ts = ((_int8(jb, tb)[2:]) if quant == "int8" else (tb.values.to(torch.bfloat16), None))
+    Dv = tb.value_dim
+    parts = trf._fused_segments_plain(q_cat, k_cat, tv, tmask, 0.3, ts, sem_d=sem_d,
+                                      seg_rows=128, parts=True)
+    got = 0.3 * (parts[:, :Dv] / parts[:, 2 * Dv:2 * Dv + 1].clamp_min(1e-30)) + 0.7 * (
+        parts[:, Dv:2 * Dv] / parts[:, 2 * Dv + 1:2 * Dv + 2].clamp_min(1e-30))
+    ref = trf._fused_segments_plain(q_cat, k_cat, tv, tmask, 0.3, ts, sem_d=sem_d, seg_rows=128)
+    torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-6)
 
 
 def test_segments_plain_of_an_empty_bank_is_zero():

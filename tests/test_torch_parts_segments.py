@@ -7,10 +7,14 @@ held against the one-pass plain version and against JAX's
 `_hier_parts_family_call` in interpret mode on the banks of
 tests/test_torch_hier.py, in each rr form (rr + lr, rr alone, sel,
 dedup_pad); the kernel's walk of a tile's groups replayed for group sizes
-of every kind (its shape checks and plan too); the geo family's logits
-over the one k16 step of its real columns; and a bank of groups of 4 rows
-(128 groups a tile) through the plain versions and `retrieve_hier`
-against JAX.  Inputs are made from numpy seeds.
+of every kind (its shape checks and plan too), tiles of no whole number of
+64-row steps (a masked last step) and the groupings whose layout needs the
+DIRECT walk or the D block in device memory among them; the geo family's
+logits over the one k16 step of its real columns; a bank of groups of 4
+rows (128 groups a tile) through the plain versions and `retrieve_hier`
+against JAX; and a bank of 96-row tiles of 12-row groups through
+`load_model(retrieval="hier")` against JAX.  Inputs are made from numpy
+seeds.
 """
 
 import math
@@ -121,9 +125,17 @@ def test_parts_plan_is_a_function_of_the_shape():
 @pytest.mark.parametrize("gpt,match", [(512, "shared memory")])
 def test_parts_plan_raises_what_no_block_holds(gpt, match):
     """Groups of one row at bn 512: a tile's D block (512 columns) does
-    not fit beside the ring; the shape raises, nothing falls back."""
-    with pytest.raises(ValueError, match=match):
-        th._parts_plan(10_112, 32, 512, gpt, 256, 256, True, 128, 384, 640)
+    not fit beside the ring, so the plan takes the DIRECT walk (its unit
+    sums from the p tile) with the D block in device memory, which fits;
+    the common layout alone still finds no block that holds it (the
+    message the plan raised before the device-memory D block)."""
+    plan = th._parts_plan(10_112, 32, 512, gpt, 256, 256, True, 128, 384, 640)
+    assert plan.direct and plan.dglob
+    lay = th._parts_layout(32, 512, gpt, 256, 256, True, 128, 384, plan.seg_cap, plan.S,
+                           plan.direct, plan.dglob)
+    assert th._parts_fits(lay) and lay.lst == lay.d and lay.d == lay.sm
+    assert not any(th._parts_fits(th._parts_layout(32, 512, gpt, 256, 256, True, 128, 384,
+                                                   1, S)) for S in (2, 3, 4)), match
 
 
 def _rr_operands(rng, *, Bp, T, bn, gpt, W=384, lr=True):
@@ -140,46 +152,72 @@ def _rr_operands(rng, *, Bp, T, bn, gpt, W=384, lr=True):
 
 @pytest.mark.parametrize("bn,gpt", [(96, 8), (64, 4)])
 def test_parts_shapes_reject_what_the_kernel_does_not_take(bn, gpt):
-    """A tile of no whole number of 64-row steps (96 rows) and fewer than 8
-    groups a tile (which the scan does not take) raise before any launch."""
+    """Fewer than 8 groups a tile (which the scan does not take) raises
+    before any launch; a tile of no whole number of 64-row steps (96 rows,
+    refused before the masked last step) is taken."""
     args, lrr = _rr_operands(np.random.default_rng(0), Bp=128, T=4, bn=bn, gpt=gpt)
-    with pytest.raises(ValueError, match="unsupported shapes"):
-        th._parts_shapes(*args, sem_d=256, bm=128, bn=bn, gpt=gpt, geo=False, lrr=lrr,
-                         lr=True, sel=False)
+    kw = dict(sem_d=256, bm=128, bn=bn, gpt=gpt, geo=False, lrr=lrr, lr=True, sel=False)
+    if gpt < 8:
+        with pytest.raises(ValueError, match="unsupported shapes"):
+            th._parts_shapes(*args, **kw)
+        return
+    sh = th._parts_shapes(*args, **kw)
+    assert sh["kf"] == 256 and sh["out_w"] == 640
 
 
 # (bn, gpt) of groups of every kind: one unit a group (gsz dividing 64),
 # whole steps (64, 128, 192 rows), and several units ending inside a step
 # (96 = 3 x 32, 48 = 3 x 16, 24, 20, 12, 6, 3); the parent kernel's limits
-# were gsz a multiple of 8 and 64 groups a tile
+# were gsz a multiple of 8 and 64 groups a tile.  Then tiles of no whole
+# number of steps (96 and 160 rows: 12- and 20-row groups; 24, 48, 96 and
+# 32 rows of 3-, 6- and 1-row groups), and the groupings whose common
+# layout fits no block (3 rows at 64 and 128 groups a tile, 1 row at 192
+# and 512, 2 at 416, 4 at 448)
 GROUPINGS = [(512, 8), (512, 32), (512, 64), (512, 128), (512, 256), (1024, 8), (64, 8),
              (64, 16), (768, 8), (384, 8), (192, 8), (320, 16), (384, 32), (384, 64),
-             (384, 128), (1536, 8)]
-# the (EG, NG) pairs the kernel is built for (`groups_any`)
-KERNEL_GROUPS = {(8, 8), (16, 8), (16, 16), (32, 8), (32, 16), (32, 32), (64, 64)}
+             (384, 128), (1536, 8), (96, 8), (160, 8), (192, 64), (192, 192), (512, 512),
+             (832, 416), (1792, 448), (24, 8), (48, 16), (96, 32), (96, 16), (32, 32)]
+# the (EG, NG) pairs the kernel is built for (`groups_any`): with the
+# segment matrix, and (EG, 64) of the DIRECT walk (units of one row)
+KERNEL_GROUPS = {(8, 8), (8, 16), (8, 32), (16, 8), (16, 16), (16, 32), (32, 8), (32, 16),
+                 (32, 32), (64, 64), (8, 64), (16, 64), (32, 64)}
+# the groupings whose plan takes the DIRECT walk / the D block in device
+# memory at the flagship's widths
+DIRECT = {(192, 64), (384, 128), (192, 192), (512, 512), (24, 8), (48, 16), (96, 32),
+          (32, 32)}
+DGLOB = {(512, 512), (832, 416), (1792, 448)}
 
 
 def _kernel_group_rows(bn: int, gpt: int) -> dict:
     """Replays the kernel's walk of one tile's groups (warpgroup 2 of
-    `csrc/hier_parts_family_sm90.cu`): 64-row steps in chunks of EG groups,
-    each step's sums over units of gcd(gsz, 64) rows, and the counters that
-    close a group (at its unit, across steps, or through the unit sums);
-    returns the rows each group's D was summed over."""
+    `csrc/hier_parts_family_sm90.cu`): 64-row steps in chunks of EG groups
+    (a chunk ends on a step or is the tile), the tile's last step masked
+    past its rows (ceil(bn / 64) steps, the last counting its nu_last units
+    only), each step's sums over units of gcd(gsz, 64) rows, and the
+    counters that close a group (at its unit, across steps, or through the
+    unit sums); returns the rows each group's D was summed over (rows past
+    the tile have p = 0 and belong to no group)."""
     gsz = bn // gpt
     EG, NG = th._parts_groups(gpt, gsz)
     u = math.gcd(gsz, 64)
     nu, upg = 64 // u, gsz // u
-    assert (EG, NG) in KERNEL_GROUPS and gpt % EG == 0 and EG * gsz % 64 == 0 and NG >= nu
+    assert (EG, NG) in KERNEL_GROUPS and gpt % EG == 0 and NG >= nu
+    assert EG * gsz % 64 == 0 or EG == gpt
+    chunk_steps = -(-EG * gsz // 64)
+    spt = -(-bn // 64)
+    nu_last = (bn - (spt - 1) * 64) // u
     units = nu > 1 and upg > 1
     ng, gsteps = (0 if units else nu), (upg if nu == 1 else 1)
     rows, run, uc, gs, acc = {}, [], 0, 0, None
     for c in range(gpt // EG):
         ci = 0
-        for cs in range(EG * gsz // 64):
-            r0 = (c * EG * gsz // 64 + cs) * 64
+        for cs in range(chunk_steps):
+            last = cs + 1 == chunk_steps and c + 1 == gpt // EG
+            nu_step = nu_last if last else nu
+            r0 = (c * chunk_steps + cs) * 64
             step = [list(range(r0 + k * u, r0 + (k + 1) * u)) for k in range(nu)]
             if units:
-                for k in range(nu):
+                for k in range(nu_step):
                     run, uc = run + step[k], uc + 1
                     if uc == upg:
                         rows[c * EG + ci], run, uc, ci = run, [], 0, ci + 1
@@ -187,18 +225,21 @@ def _kernel_group_rows(bn: int, gpt: int) -> dict:
             acc = step if gs == 0 else [a + b for a, b in zip(acc, step)]
             gs += 1
             if gs == gsteps:
-                for col in range(ng):
+                ng_step = nu_last if last else ng
+                for col in range(ng_step):
                     rows[c * EG + ci + col] = acc[col]
-                gs, ci = 0, ci + ng
+                gs, ci = 0, ci + ng_step
+    assert run == [] and uc == 0  # no open group past the tile
     return rows
 
 
 @pytest.mark.parametrize("bn,gpt", GROUPINGS)
 def test_parts_kernel_sums_each_group_over_its_rows(bn, gpt):
-    """Every group size of a tile of whole 64-row steps and a number of
-    groups the scan takes: the kernel's counters sum group g over exactly
-    rows [g gsz, (g + 1) gsz), with a chunk of EG groups ending on a step
-    and an (EG, NG) pair the kernel is built for."""
+    """Every group size and a number of groups the scan takes, on tiles of
+    whole 64-row steps and of a masked last step (96 and 160 rows): the
+    kernel's counters sum group g over exactly rows [g gsz, (g + 1) gsz),
+    with a chunk of EG groups ending on a step (or being the tile) and an
+    (EG, NG) pair the kernel is built for."""
     gsz = bn // gpt
     assert th._gpt_ok(gpt)
     rows = _kernel_group_rows(bn, gpt)
@@ -210,19 +251,20 @@ def test_parts_kernel_sums_each_group_over_its_rows(bn, gpt):
 @pytest.mark.parametrize("bn,gpt", GROUPINGS)
 def test_parts_shapes_take_every_group_size(bn, gpt):
     """Each grouping passes the launch's shape checks, and its plan fits a
-    block's shared memory at the flagship's widths, save groups of 3 rows
-    at bn 384 (128 groups a tile, 64 units a step: their unit sums leave
-    no room for a ring; ROADMAP Queue 3), which raise."""
+    block's shared memory at the flagship's widths: groups of 3 rows at bn
+    384 (128 groups a tile, 64 units a step, whose unit sums left no room
+    for a ring) by the DIRECT walk, and the groupings of DIRECT / DGLOB
+    by theirs (odd group sizes at up to 32 groups a tile by the DIRECT
+    walk alone: the kernel has no segment-matrix instance of their (EG,
+    64) pairs); every other grouping keeps the common layout."""
     args, lrr = _rr_operands(np.random.default_rng(gpt), Bp=128, T=4, bn=bn, gpt=gpt)
     sh = th._parts_shapes(*args, sem_d=256, bm=128, bn=bn, gpt=gpt, geo=False, lrr=lrr,
                           lr=True, sel=False)
     shape = (32, bn, gpt, sh["kf"], sh["gwe"], sh["share"], 128, sh["acols"], sh["out_w"])
-    if (bn, gpt) == (384, 128):
-        with pytest.raises(ValueError, match="shared memory"):
-            th._parts_plan(10_112, *shape)
-        return
     plan = th._parts_plan(10_112, *shape)
-    assert th._parts_fits(th._parts_layout(*shape[:-1], plan.seg_cap, plan.S))
+    assert (plan.direct, plan.dglob) == ((bn, gpt) in DIRECT, (bn, gpt) in DGLOB)
+    assert th._parts_fits(th._parts_layout(*shape[:-1], plan.seg_cap, plan.S, plan.direct,
+                                           plan.dglob))
 
 
 # ---- the segmented arithmetic in plain PyTorch
@@ -484,3 +526,50 @@ def test_gsz4_parts_plain_match_jax(jbank, gsz4):  # noqa: F811
     mag = th._hier_parts_family_plain(*targs, bm=128, magnitude=True, **tkw).numpy()
     for n_seg in (1, 2, 4):
         _within_terms(_segmented_plain(*targs, n_seg=n_seg, bm=128, **tkw).numpy(), want, mag)
+
+
+# ---- a bank of tiles of no whole number of 64-row steps, through load_model
+
+
+@pytest.mark.parametrize("name", ["RANGE+", "RANGE"])
+def test_bn96_gsz12_bank_serves_through_load_model_as_jax(tmp_path, name):
+    """96-row tiles of 12-row groups in both families (8 a tile: a masked
+    last step on the card) with lr / rr / lr_geo, so RANGE+ takes kernel
+    14's rr + lr shape for both families: JAX builds the bank and saves its
+    hier cache, the port's `load_model(retrieval="hier", device="cpu")`
+    loads that archive (the build signatures are equal) and answers as
+    JAX's `load_model` does, the tower's weights carried across.
+    Tolerance: the kernels' row cap, 4e-3 x row max, on every element (a
+    bf16-rounded weight that the f32 summation order moves across a
+    rounding boundary moves its row by one ulp of that term: RANGE's
+    sharper softmax shows a few such rows at ~1.4e-3 x row max), and a
+    mean error of f32 summation order (< 1e-5 on outputs ~0.3)."""
+    import range_tpu
+    from range_tpu.bank.bank import GeoBank as JaxGeoBank
+    from range_tpu_torch import load_model
+    from range_tpu_torch.convert.from_jax import geobank_from_arrays, siren_params_from_jax
+
+    jb = JaxGeoBank.synthetic_informative(5, 3000, key_dim=256, value_dim=128, pad_to=96,
+                                          value_dtype=jnp.bfloat16)
+    kw = dict(retrieval="hier", hier_bn=96, gsz_sem=12, gsz_geo=12, lr_rank=128, lr_geo=128,
+              res_rank=128, k_tiles=8, k_geo=4, hier_cache=str(tmp_path / "hb.npz"),
+              chunk=512, seed=0)
+    jenc = range_tpu.load_model(name, db_path=jb, **kw)
+    enc = load_model(name, db_path=geobank_from_arrays(jb.locs_lonlat, jb.xyz, jb.keys_sem,
+                                                       jb.values, jb.n_valid),
+                     device="cpu", **kw)
+    enc.model.query_encoder.nnet.load_state_dict(siren_params_from_jax(jenc.params))
+    hb = enc.model.bank
+    assert (hb.bn, hb.bn // hb.gsz_sem, hb.bn // hb.gsz_geo) == (96, 8, 8)
+    rng = np.random.default_rng(7)
+    rows = np.repeat(rng.integers(0, 3000, 8), 32)
+    c = np.asarray(jb.locs_lonlat)[rows] + rng.normal(0, 3.0, (256, 2))
+    c[:, 0] = (c[:, 0] + 180) % 360 - 180
+    c[:, 1] = np.clip(c[:, 1], -89.9, 89.9)
+    c = c.astype(np.float32)
+    want = np.asarray(jenc(jnp.asarray(c)))
+    got = enc(c).numpy()
+    assert got.shape == want.shape == (256, 384) and np.isfinite(got).all()
+    err = np.abs(got - want)
+    assert np.all(err <= 4e-3 * np.abs(want).max(axis=1, keepdims=True)), err.max()
+    assert err.mean() < 1e-5
