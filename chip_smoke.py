@@ -6,7 +6,7 @@ family parts kernel's plain / lr / rr shapes and their sel and dedup_pad
 forms, the refine kernel's has_parts form, the combine without lr_geo,
 the int8 forms of the parts and pruned kernels, and kernel 2's two bodies:
 the Hopper kernel of its bf16 tiers and the mma.sync body of its f32 tier)
-from the thirteen sources of `range_tpu_torch/csrc/` (one nvcc per source,
+from the fourteen sources of `range_tpu_torch/csrc/` (one nvcc per source,
 all started together), holds each against its plain PyTorch version at the
 main paths' shapes, prints kernel 2's Hopper kernel's drift for each length
 of its accumulation chain and its time beside the mma.sync body's at B = 1,
@@ -24,7 +24,14 @@ same-run yardstick) at each rr shape of the paths (the flagship's two
 families at B = 1, 37, 1,000 and 10,000, the tail_super flagship, the
 rr-only knob bank, sel_lr=64, dedup=2, the rescue's re-run, gsz_sem=4)
 with the same bound, share and floor, and its drift for each segment
-length (same-run times on CUDA events), then
+length, and kernel 15 (the merged parts kernel) and kernel 14's value
+shapes on their Hopper body (`csrc/hier_parts_sm90.cu`) beside their
+mma.sync body (`csrc/hier_parts.cu`, launched here alone as the same-run
+yardstick) at B = 1, 37, 1,000 and 10,000: kernel 15 lr at the RANGE
+flagship and plain at the JAX defaults, bf16 and int8 values, kernel 14's
+plain and lr shapes (both families), sel and dedup_pad forms, each with
+its bound and share and (kernel 15) the drift of each segment length
+(same-run times on CUDA events), then
 drives the serving paths at full width (SatCLIP SH-L40 -> SIREN
 1600->256->256->256 tower, 100,000-row bank with 256-d keys and bf16
 1024-d values, 1,280-d output) and the training path:
@@ -62,7 +69,11 @@ drives the serving paths at full width (SatCLIP SH-L40 -> SIREN
   * banks that kernel 14's rr shapes refused before (20,000 rows, the
     flagship's knobs): 96-row tiles of 12-row groups (a masked last step)
     and 3-row sem groups at bn 384 (128 a tile: the DIRECT walk), RANGE+
-    and RANGE at B = 1,000 and 10,000, and kernel 14 at each;
+    and RANGE at B = 1,000 and 10,000, and kernel 14 at each; and the
+    banks the rr shapes refused until this slice, odd group sizes at an odd
+    multiple of 32 groups a tile (288-row tiles of 3-row groups, 96-row
+    tiles of 1-row groups, 480-row tiles of 3-row groups; 8 geo groups a
+    tile), the same way;
   * the rest of hierarchical serving over the informative bank: the
     flagship with ``sel_lr=64`` (and ``topk_lr=64``: hier_topk over the
     rank-64 selection sketch), with ``dedup=2``, and with the adaptive
@@ -84,7 +95,7 @@ flagship's, with and without tail_super, against its fidelity bars:
 relerr mean <= 0.04, p99 <= 0.165; RANGE's mean <= 0.10; int8 against bf16
 mean < 0.01; RANGE+ at the JAX defaults and each knob subset mean <= 0.12
 (`tests/test_hier.py:167`), RANGE there mean <= 0.10, the same bars on the
-gsz_sem=4 banks and the banks of the refused shapes; hier_topk's
+gsz_sem=4 banks and the banks of the refused shapes (both kinds); hier_topk's
 recall@1 against the f32 `exact_nn` >= 0.999 at B = 10,000 and 1,000, the
 two-level endpoint's at least the one-level selection's over the same
 bank - 0.001; sel_lr's relerr mean within the flagship's + 0.02 and
@@ -135,7 +146,8 @@ L, WIDTH = 40, 256
 # (name, source, the TPU kernel it replaces)
 SOURCES = ("siren_tower", "fused_retrieval_sm90", "fused_retrieval", "hier_scan_sm90",
            "hier_parts_family_sm90", "hier_parts_family", "combine_cat", "hier_scan_stats",
-           "hier_argmax", "hier_parts", "sh_times", "hier_refine", "hier_corr")
+           "hier_argmax", "hier_parts_sm90", "hier_parts", "sh_times", "hier_refine",
+           "hier_corr")
 KERNELS = (("siren_tower", "siren_tower", "range_tpu/ops/sh.py:726"),
            ("fused_retrieval", "fused_retrieval_sm90", "range_tpu/ops/retrieval_pallas.py:123"),
            # kernel 2's 'exact' tier (f32 logits) on the mma.sync body
@@ -147,7 +159,7 @@ KERNELS = (("siren_tower", "siren_tower", "range_tpu/ops/sh.py:726"),
            ("hier_scan_stats", "hier_scan_stats", "range_tpu/ops/retrieval_hier.py:1582"),
            ("hier_argmax", "hier_argmax", "range_tpu/ops/retrieval_hier.py:1645"),
            ("hier_topk", "hier_argmax", "range_tpu/ops/retrieval_hier.py:1682"),
-           ("hier_parts", "hier_parts", "range_tpu/ops/retrieval_hier.py:2515"),
+           ("hier_parts", "hier_parts_sm90", "range_tpu/ops/retrieval_hier.py:2515"),
            ("sh_times", "sh_times", "range_tpu/ops/sh.py:539"),
            ("hier_refine", "hier_refine", "range_tpu/ops/retrieval_hier.py:2077"),
            ("hier_corr", "hier_corr", "range_tpu/ops/retrieval_hier.py:2209"),
@@ -155,11 +167,12 @@ KERNELS = (("siren_tower", "siren_tower", "range_tpu/ops/sh.py:726"),
            ("hier_scan_sup", "hier_scan_sm90", "range_tpu/ops/retrieval_hier.py:1443"),
            # the general one-level path's variants: the scan over full-width
            # group sums, kernel 15 without lr, kernel 14's value shapes (plain,
-           # lr) and its rr shape, kernel 16 without lr_geo
+           # lr: on kernel 15's Hopper body) and its rr shape, kernel 16
+           # without lr_geo
            ("hier_scan_wide", "hier_scan_sm90", "range_tpu/ops/retrieval_hier.py:1443"),
-           ("hier_parts_plain", "hier_parts", "range_tpu/ops/retrieval_hier.py:2515"),
-           ("hier_parts_family_plain", "hier_parts", "range_tpu/ops/retrieval_hier.py:2282"),
-           ("hier_parts_family_lr", "hier_parts", "range_tpu/ops/retrieval_hier.py:2282"),
+           ("hier_parts_plain", "hier_parts_sm90", "range_tpu/ops/retrieval_hier.py:2515"),
+           ("hier_parts_family_plain", "hier_parts_sm90", "range_tpu/ops/retrieval_hier.py:2282"),
+           ("hier_parts_family_lr", "hier_parts_sm90", "range_tpu/ops/retrieval_hier.py:2282"),
            ("hier_parts_family_rr", "hier_parts_family_sm90",
             "range_tpu/ops/retrieval_hier.py:2282"),
            ("combine_cat_rg0", "combine_cat", "range_tpu/ops/retrieval_hier.py:3102"),
@@ -177,10 +190,10 @@ KERNELS = (("siren_tower", "siren_tower", "range_tpu/ops/sh.py:726"),
            ("hier_refine_parts", "hier_refine", "range_tpu/ops/retrieval_hier.py:2077"),
            ("hier_parts_family_sel_rr", "hier_parts_family_sm90",
             "range_tpu/ops/retrieval_hier.py:2282"),
-           ("hier_parts_family_sel", "hier_parts", "range_tpu/ops/retrieval_hier.py:2282"),
+           ("hier_parts_family_sel", "hier_parts_sm90", "range_tpu/ops/retrieval_hier.py:2282"),
            ("hier_parts_family_dedup_rr", "hier_parts_family_sm90",
             "range_tpu/ops/retrieval_hier.py:2282"),
-           ("hier_parts_family_dedup", "hier_parts", "range_tpu/ops/retrieval_hier.py:2282"))
+           ("hier_parts_family_dedup", "hier_parts_sm90", "range_tpu/ops/retrieval_hier.py:2282"))
 TOPK_K = 48  # the endpoint's tile budget, bench.py:150
 # the two-level top-k (tools/r3_time1.py:103,127: gsz_super 64, K=48 of M=96)
 # and the tail_super flagship (tools/r4_tsuper.py: "ts64 K32/m32/kg16")
@@ -295,10 +308,11 @@ def _compare_terms(name: str, got: torch.Tensor, ref: torch.Tensor,
     ratio = (err / tol).max().item()
     col = (ref / row.clamp_min(1e-30)).pow(2).mean(dim=0).sqrt()
     col = col[col > 0]
+    cols = (f"min {col.min().item():.3e}, median {col.median().item():.3e} over "
+            f"{col.numel()} nonzero columns" if col.numel() else "no nonzero column")
     print(f"{name}: max_abs_err {err.max().item():.3e}  err/tol {ratio:.3e}  "
           f"max err / row scale {(err / row.clamp_min(1e-30)).max().item():.3e}  "
-          f"column scale / row max: min {col.min().item():.3e}, median "
-          f"{col.median().item():.3e} over {col.numel()} nonzero columns  "
+          f"column scale / row max: {cols}  "
           f"rows over the row cap: {n_over} (at most {rows_off_max}, each within 2^-7 x "
           f"sum |terms|)  (tolerance min({frac:g} x max_row |ref|, 2^-7 x sum |terms|): "
           f"{why})")
@@ -751,6 +765,182 @@ def _parts_drift(tag: str, args, kw, ref, mag, why: str):
         print(f"  segments of {cap} tiles ({cap * kw['bn']} rows a chain, {plan.n_seg} a list): "
               f"err/tol {(err / tol).max().item():.3e}, rows over it "
               f"{(err > tol).any(dim=1).sum().item()} of {Bp}; {ms:.4f} ms (CUDA events)")
+
+
+def _values_launch(args, kw, merged: bool, plan=None, n_seg=None):
+    """The Hopper values kernel's launch (`csrc/hier_parts_sm90.cu`) of a
+    `_hier_parts_call` (``merged``) or a value-shape `_hier_parts_family_call`
+    with these arguments, ``plan`` / ``n_seg`` overriding its plan's;
+    counted nowhere."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    if merged:
+        q_cat, k_cat, values, scale, mask, idx, g_s, g_g, vw_s, vw_g = args
+        return rh._values_sm90("hier_parts", q_cat, k_cat, values, scale, mask, idx,
+                               (g_s, vw_s, kw["gpt_s"]),
+                               (g_g, vw_g, kw["gpt_g"]) if kw.get("geo", True) else None,
+                               sem_d=kw["sem_d"], bm=kw["bm"], bn=kw["bn"], merged=True,
+                               lr=kw.get("lr", True), plan=plan, n_seg=n_seg)
+    q_cat, k_cat, mask, idx, g_cat, g_vw, _ = args
+    return rh._values_sm90("hier_parts_family", q_cat, k_cat, kw["values"], kw["scale"], mask,
+                           idx, (g_cat, g_vw, kw["gpt"]), None, sem_d=kw["sem_d"], bm=kw["bm"],
+                           bn=kw["bn"], merged=False, geo0=kw["geo"], lr=kw.get("lr", True),
+                           sel=kw.get("sel", False), dedup=kw.get("dedup_pad", False),
+                           plan=plan, n_seg=n_seg)
+
+
+def _values_mma_sync(args, kw, merged: bool):
+    """Kernel 15 or kernel 14's value shapes on their mma.sync body
+    (`csrc/hier_parts.cu`, the body before the Hopper values kernel),
+    launched here alone as the same-run yardstick of `_values_turns`: no
+    path of the port reaches it, and it counts nowhere."""
+    from range_tpu_torch.kernels._build import load_kernel_library
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    lib = load_kernel_library("hier_parts")
+    lr = kw.get("lr", True)
+
+    def p(t):
+        return None if t is None else t.data_ptr()
+
+    if merged:
+        q_cat, k_cat, values, scale, mask, idx, g_s, g_g, vw_s, vw_g = args
+        (Bp, cat_d), (N, Dv), K = q_cat.shape, values.shape, idx.shape[1]
+        Ws, Wg = vw_s.shape[1], vw_g.shape[1]
+        out = torch.empty((Bp, 2 * Dv + 128 + (Ws if lr else 0)), device=q_cat.device)
+        rc = lib.hier_parts_launch(
+            p(q_cat), p(k_cat), p(values), p(scale), p(mask), p(idx), p(g_s), p(g_g), p(vw_s),
+            p(vw_g), p(out), Bp, cat_d, kw["sem_d"], Dv, kw["bm"], kw["bn"], kw["gpt_s"],
+            kw["gpt_g"], K, Ws, Wg, g_g.shape[1], int(kw.get("geo", True)), int(lr),
+            int(scale is not None), rh._stream(q_cat))
+    else:
+        q_cat, k_cat, mask, idx, g_cat, g_vw, _ = args
+        values, scale = kw["values"], kw["scale"]
+        (Bp, qw), (N, Dv), K, W = q_cat.shape, values.shape, idx.shape[1], g_vw.shape[1]
+        out = torch.empty((Bp, Dv + 128 + (W if lr else 0)), device=q_cat.device)
+        rc = lib.hier_parts_family_values_launch(
+            p(q_cat), p(k_cat), p(values), p(scale), p(mask), p(idx), p(g_cat), p(g_vw), p(out),
+            Bp, qw, k_cat.shape[1], kw["sem_d"], Dv, kw["bm"], kw["bn"], kw["gpt"], K, W,
+            g_cat.shape[1], int(kw["geo"]), int(lr), int(scale is not None),
+            int(kw.get("sel", False)), int(kw.get("dedup_pad", False)), rh._stream(q_cat))
+    if rc != 0:
+        raise RuntimeError(f"hier_parts (mma.sync) launch failed: CUDA error {rc}")
+    return out
+
+
+def _values_bound(args, kw, merged: bool, b: int):
+    """(bound ms, what bounds it) of one values launch, counted from its
+    inputs: per real query and valid selected row, each family's row
+    logits over its real columns (sem_d, or the 9 geo ones) and the value
+    product over Dv; per group the group logits and the product over the
+    lr coefficients or Dv + the count; each input read once (the union of
+    the selected tiles), the output written once."""
+    if merged:
+        q_cat, k_cat, values, scale, mask, idx, g_s, g_g, vw_s, vw_g = args
+        fams = [(kw["sem_d"], kw["gpt_s"], g_s, vw_s, kw.get("lr", True))]
+        if kw.get("geo", True):
+            fams.append((GEO_COLS, kw["gpt_g"], g_g, vw_g, False))
+    else:
+        q_cat, k_cat, mask, idx, g_cat, g_vw, _ = args
+        values, scale = kw["values"], kw["scale"]
+        real = GEO_COLS if kw["geo"] else kw["sem_d"]
+        fams = [(real, kw["gpt"], g_cat, g_vw, kw.get("lr", True))]
+    Dv, bn, bm = values.shape[1], kw["bn"], kw["bm"]
+    nB, K = idx.shape
+    valid = (mask[0] == 0).reshape(-1, bn).sum(dim=1).double()
+    qb = _block_queries(nB, bm, idx.device, n=b)
+    if kw.get("dedup_pad"):
+        keep = torch.ones_like(idx, dtype=torch.bool)
+        keep[:, 1:] = idx[:, 1:] != idx[:, :-1]
+        rows = (valid[idx.long()] * keep).sum(dim=1)
+        tiles = keep.sum(dim=1).double()
+    else:
+        rows, tiles = valid[idx.long()].sum(dim=1), torch.full((nB,), float(K), device=idx.device)
+    pairs, qt = (qb * rows).sum().item(), (qb * tiles).sum().item()
+    U = int(torch.unique(idx).numel())
+    flops = n_bytes = 0.0
+    for real, gpt, g, vw, lr in fams:
+        flops += 2 * pairs * (real + Dv) + 2 * qt * gpt * (real + (vw.shape[1] if lr else Dv + 1))
+        n_bytes += U * gpt * (g.shape[1] + vw.shape[1]) * 2
+        # the columns it produces: acc and d, and alr
+        n_bytes += b * (Dv + 1 + (vw.shape[1] if lr else 0)) * 4
+    kf = sum(real for real, *_ in fams)  # the query and key columns the logits need
+    n_bytes += b * kf * 2 + U * bn * (kf * 2 + Dv * values.element_size() + 4
+                                      + (4 if scale is not None else 0))
+    return _bound(n_bytes, flops, BF16_FLOPS)
+
+
+def _values_turns(tag: str, args, kw, merged: bool, b: int, calls: int = 3) -> tuple:
+    """The Hopper values kernel beside its mma.sync body (`_values_mma_sync`)
+    at one shape, in turns body, kernel, kernel, body on CUDA events
+    (`_turns_ms`; neither counted), with its bound and share (`_values_bound`,
+    b real queries).  A kernel slower than the body is printed as such.
+    Returns (the kernel's ms, the body's ms, bound ms, what bounds it)."""
+    t = _turns_ms((("body", lambda: _values_mma_sync(args, kw, merged)),
+                   ("kernel", lambda: _values_launch(args, kw, merged)),
+                   ("kernel", lambda: _values_launch(args, kw, merged)),
+                   ("body", lambda: _values_mma_sync(args, kw, merged))), calls)
+    b_ms, b_by = _values_bound(args, kw, merged, b)
+    slower = "" if t["kernel"] < t["body"] else "; SLOWER than the mma.sync body"
+    print(f"{tag}: Hopper values kernel {t['kernel']:.4f} ms, mma.sync body {t['body']:.4f} ms "
+          f"(CUDA events, turns body, kernel, kernel, body; {t['body'] / t['kernel']:.2f}x); "
+          f"bound {b_ms:.4f} ms ({b_by}), share {b_ms / t['kernel']:.4f}{slower}")
+    return t["kernel"], t["body"], b_ms, b_by
+
+
+def _values_batches(tag: str, request, merged: bool, ref_fn, segs, why: str):
+    """The values launch of a request at each batch of REQUESTS:
+    ``request(b)`` gives the (args, kw) of a B = b request's launch (its
+    own queries, its plan's bm and lists, the padded rows sorted last);
+    its b real queries' rows are held against its plain version segment by
+    segment (`_compare_terms` over each (name, columns) of ``segs``, rows
+    over the row cap in at most max(2, b / 100)), and the padded rows,
+    which the path drops, each to the flip bound (their q is 0, so p = e
+    = 1 and a plain shape's acc, the sum of the tile's rows less its
+    groups' sums, is rounding residue); each is timed in turns beside the
+    mma.sync body (`_values_turns`, b real queries).  Returns the B =
+    10,000 turn's (ms, body ms, bound ms, what bounds it) and (max error,
+    the largest error over its tolerance)."""
+    out = None
+    pad_why = (f"{why}; padded rows (q = 0: p = e = 1), which the path drops: each within the "
+               "flip bound")
+    for b in REQUESTS:
+        args, kw = request(b)
+        got = _values_launch(args, kw, merged)
+        ref, mag = ref_fn(args, kw, False), ref_fn(args, kw, True)
+        n_pad, errs = got.shape[0] - b, []
+        for name, c in segs:
+            errs.append(_compare_terms(f"{tag} B={b} {name} vs plain", got[:b, c], ref[:b, c],
+                                       mag[:b, c], why, rows_off_max=max(2, b // 100)))
+            if n_pad:
+                _compare_terms(f"{tag} B={b} {name}, its {n_pad} padded rows", got[b:, c],
+                               ref[b:, c], mag[b:, c], pad_why, rows_off_max=n_pad)
+        K = args[5 if merged else 3].shape[1]
+        res = _values_turns(f"{tag} B={b} K={K} bm={kw['bm']}", args, kw, merged, b)
+        if b == BATCH:
+            out = res + ((max(e for e, _ in errs), max(r for _, r in errs)),)
+    return out
+
+
+def _values_drift(tag: str, args, kw, merged: bool, ref, mag, why: str):
+    """The values kernel with each list cut into n_seg segments of whole
+    tiles (one chain over the list, the plan's, down to a tile each; each
+    block sums its segment's rows through wgmma's accumulator): for each
+    the largest error over the terms rule and the rows over it, against
+    the plain version, and the time (CUDA events), beside PARTS_ROWS_MAX."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    K, bn = args[5 if merged else 3].shape[1], kw["bn"]
+    print(f"{tag}: drift of the accumulation chain (PARTS_ROWS_MAX = {rh.PARTS_ROWS_MAX} rows; "
+          f"tolerance: {why}):")
+    for n_seg in sorted({1, 2, 4, 8, K} - {n for n in (2, 4, 8) if n > K}):
+        got = _values_launch(args, kw, merged, n_seg=n_seg)
+        err = (got - ref).abs()
+        tol = torch.minimum(4e-3 * ref.abs().amax(dim=1, keepdim=True), 2.0 ** -7 * mag) + 1e-6
+        ms = _cuda_ms(lambda: _values_launch(args, kw, merged, n_seg=n_seg), 3)
+        print(f"  {n_seg} segments a list ({-(-K // n_seg) * bn} rows a chain at most): err/tol "
+              f"{(err / tol).max().item():.3e}, rows over it {(err > tol).any(dim=1).sum().item()}"
+              f" of {args[0].shape[0]}; {ms:.4f} ms (CUDA events)")
 
 
 def _scan_drift(tag: str, args, kw, ref, mag, rows=(None, 12_800, 6_400, 3_200)):
@@ -1574,15 +1764,28 @@ def _rr_work(hbq, idx, bm: int, geo: bool, n: int, lr: bool = True, gw: int = 0)
 
 
 def _rr_turn(tag: str, hbq, args, kw, n: int, why: str, lr: bool = True, gw: int = 0,
-             body: bool = True, plain_time: bool = False):
+             body: bool = True, plain_time: bool = False, residue: bool = False):
     """One call of kernel 14's rr shapes (``kw`` with the geo family's
     geo_cols) held against its plain version over all the family's
     columns, segment by segment (`_compare_terms`, rows over the row cap
     in at most max(2, n / 100)), its zero columns exactly zero, and timed
     beside the mma.sync body (`_parts_times`) with its bound and
     exponentials from `_rr_work`; ``plain_time``: the plain version timed
-    too (the kernels line's rows).  Returns (the output, the errors, kernel
-    ms, body ms, plain ms or 0, bytes, flops, exponentials)."""
+    too (the kernels line's rows).
+
+    ``residue`` (the lr shape at groups of one row): e and bf16(p) are the
+    same row's exponential, computed twice, so alr = sum bf16(e - ps) vw
+    is rounding residue (its row max ~1e-4 of the sum of |terms|) that a
+    rounding of either side moves past the row cap in most rows.  There
+    alr is held to its flip bound, 2^-7 x sum |terms| (one ulp of e and
+    of bf16(p) times |vw|), in every row: a bound that its residue meets,
+    and not a check of its arithmetic.  That check is the same launch with
+    each group's centroid taken from the group before it (g_cat rolled one
+    row), where e is another row's exponential and alr no residue: there
+    alr is held to the terms rule with rows over the row cap in at most
+    max(2, n / 100).  az keeps the terms rule in either case.
+    Returns (the output, the errors, kernel ms, body ms, plain ms or 0,
+    bytes, flops, exponentials)."""
     from range_tpu_torch.ops import retrieval_hier as rh
 
     pkw = {k: v for k, v in kw.items() if k != "geo_cols"}
@@ -1596,8 +1799,19 @@ def _rr_turn(tag: str, hbq, args, kw, n: int, why: str, lr: bool = True, gw: int
         segs = (("acc", slice(0, lrr)), ("d", slice(lrr, lrr + 1)),
                 ("az", slice(lrr + 128, None)))
         zero = (lrr + 1, lrr + 128)
-    errs = [_compare_terms(f"{tag} {name}", got[:, c], ref[:, c], mag[:, c], why,
-                           rows_off_max=max(2, n // 100)) for name, c in segs]
+    rule, flip = max(2, n // 100), residue and lr
+    errs = [_compare_terms(f"{tag} {name}", got[:, c], ref[:, c], mag[:, c],
+                           why + ("; one-row groups: alr is rounding residue, every row held "
+                                  "to the flip bound" if flip and name == "alr" else ""),
+                           rows_off_max=got.shape[0] if flip and name == "alr" else rule)
+            for name, c in segs]
+    if flip:
+        a, c = (*args[:4], args[4].roll(1, 0).contiguous(), *args[5:]), segs[-1][1]
+        errs.append(_compare_terms(
+            f"{tag} alr, each group's centroid the group before it's",
+            rh._hier_parts_family_call(*a, **kw)[:, c],
+            rh._hier_parts_family_plain(*a, **pkw)[:, c],
+            rh._hier_parts_family_plain(*a, **pkw, magnitude=True)[:, c], why, rows_off_max=rule))
     if got[:, zero[0]:zero[1]].abs().max().item() != 0.0:
         raise AssertionError(f"{tag}: the d / pad columns not zero")
     plain_ms = (_cuda_ms(lambda: rh._hier_parts_family_plain(*args, **pkw), 2) if plain_time
@@ -1609,7 +1823,8 @@ def _rr_turn(tag: str, hbq, args, kw, n: int, why: str, lr: bool = True, gw: int
 
 
 def _rr_families(tag: str, hbq, qc, idx_s, idx_g, bm: int, n: int, why: str,
-                 body: bool = True, plain_time: bool = False, **extra):
+                 body: bool = True, plain_time: bool = False, residue: bool = False,
+                 **extra):
     """Both families' rr + lr parts of one request shape through `_rr_turn`,
     and their sums printed beside the body's.  Returns ({family: output},
     the errors, [kernel ms, body ms, plain ms, bytes, flops, exponentials]
@@ -1624,7 +1839,8 @@ def _rr_families(tag: str, hbq, qc, idx_s, idx_g, bm: int, n: int, why: str,
         kw = dict(sem_d=hbq.sem_d, bm=bm, bn=hbq.bn, gpt=gpt, geo=geo, lrr=lrr,
                   geo_cols=GEO_COLS if geo else None, **extra)
         res = _rr_turn(f"hier_parts_family[{fam}] {tag} K={idx.shape[1]} bm={bm}", hbq, args,
-                       kw, n, why, body=body, plain_time=plain_time)
+                       kw, n, why, body=body, plain_time=plain_time,
+                       residue=residue and not geo)
         out[fam] = (res[0], args, kw)
         errs += res[1]
         tot = [a + b for a, b in zip(tot, res[2:])]
@@ -1635,37 +1851,6 @@ def _rr_families(tag: str, hbq, qc, idx_s, idx_g, bm: int, n: int, why: str,
           f"{_exp_ms(int(tot[5])):.4f} ms; SM clock after the turns "
           f"{_sm_clock_mhz()[0]:.0f} MHz")
     return out, errs, tot
-
-
-def _parts_bound(hbq, idx, bm: int, geo: bool, lr: bool = True):
-    """(bound ms, what bounds it) of one merged parts call, counted from
-    this run's selection: row logits (sem_d, and the 9 real geo columns)
-    and value products over the valid rows of each block's selected tiles
-    for its real queries, the sem group logits and lr coefficients (without
-    ``lr`` the sem group approximation over Dv + the count), and the geo
-    group approximation over Dv + the count, each input read once (the
-    union of the selected tiles), the columns the function produces
-    written once."""
-    Dv, bn, sem_d = hbq.value_dim, hbq.bn, hbq.sem_d
-    Ws = (hbq.g_sem_vw_lr if lr else hbq.g_sem_vw).shape[1]
-    gpt_s, gpt_g = bn // hbq.gsz_sem, bn // hbq.gsz_geo
-    nB, K = idx.shape
-    valid = (hbq.mask_neg[0] == 0).reshape(-1, bn).sum(dim=1).double()
-    rows = valid[idx.long()].sum(dim=1)                       # valid rows a block reads
-    qb = _block_queries(nB, bm, idx.device)
-    pairs = (qb * rows).sum().item()
-    groups = (qb * K).sum().item()
-    flops = (2 * pairs * (sem_d + Dv)
-             + 2 * groups * gpt_s * (sem_d + (hbq.lr_rank if lr else Dv) + 1))
-    U = int(torch.unique(idx).numel())
-    vbytes = hbq.values.element_size() + (4 / Dv if hbq.value_scale is not None else 0)
-    n_bytes = (BATCH * sem_d * 2 + U * bn * (sem_d * 2 + Dv * vbytes + 4)
-               + U * gpt_s * (sem_d + Ws) * 2 + BATCH * (Dv + 1 + (Ws if lr else 0)) * 4)
-    if geo:
-        Wg, gw = hbq.g_geo_vw.shape[1], hbq.g_geo_cat.shape[1]
-        flops += 2 * pairs * (GEO_COLS + Dv) + 2 * groups * gpt_g * (GEO_COLS + Dv + 1)
-        n_bytes += BATCH * GEO_COLS * 2 + U * gpt_g * (gw + Wg) * 2 + BATCH * (Dv + 1) * 4
-    return _bound(n_bytes, flops, BF16_FLOPS)
 
 
 def range_phases(dev, gen, report, hb, enc_plus, bank) -> float:
@@ -1706,23 +1891,24 @@ def range_phases(dev, gen, report, hb, enc_plus, bank) -> float:
     coords = _random_coords(BATCH, gen, dev)
     gpt_s, gpt_g = hb.bn // hb.gsz_sem, hb.bn // hb.gsz_geo
 
-    def operands(hbq):
-        """RANGE's packed queries in its home-tile order, the same queries
-        with their locations packed (the geo family live, for GEO=true),
-        the scan's outputs and the selection."""
-        q_s, q_x = rh._pad_queries(q, x, bm)
+    def operands(hbq, b=BATCH):
+        """RANGE's packed queries (the first b) in its home-tile order, the
+        same queries with their locations packed (the geo family live, for
+        GEO=true), the scan's outputs, the selection at b's plan, its bm."""
+        bm_b, k_b, _, j_b = cfg.hier_plan(b)
+        q_s, q_x = rh._pad_queries(q[:b], x[:b], bm_b)
         q0 = rf.pack_queries(q_s, None, 15.0, 40.0, hbq.tier)
         home = rh._home_tile(rh._hier_scan_stats_call(
             q0, hbq.g_sem_cat, hbq.g_geo_cat, gpt_s=gpt_s, gpt_g=gpt_g)[0], hbq.t_real)
-        order = rh._hybrid_order(None, BATCH, home, hbq.t_pad)
+        order = rh._hybrid_order(None, b, home, hbq.t_pad)
         qc = q0[order].contiguous()
         qx = rf.pack_queries(q_s, q_x, 15.0, 40.0, hbq.tier)[order].contiguous()
         scan = rh._hier_scan_call(qc, hbq.g_sem_cat, hbq.g_geo_cat, hbq.g_sem_vw_lr,
                                   hbq.g_geo_vw, gpt_s=gpt_s, gpt_g=gpt_g, has_geo=False)
         idx, _ = rh.select_tiles(scan[0], scan[1], None, None, t_real=hbq.t_real,
-                                 k_tiles=k_tiles, bm=bm, n_valid=BATCH, j_sem=j_sem,
+                                 k_tiles=k_b, bm=bm_b, n_valid=b, j_sem=j_b,
                                  j_geo=cfg.j_geo, mode="range")
-        return qc, qx, idx
+        return qc, qx, idx, bm_b
 
     flip = ("bf16 weights (p times the row's scale, e - ps) can round the other way "
             "where the logits' f32 summation order moves them across a bf16 boundary: "
@@ -1731,7 +1917,7 @@ def range_phases(dev, gen, report, hb, enc_plus, bank) -> float:
         q = enc.model.query_embedding(coords)
         x = lonlat_deg_to_xyz(coords)
         # ---- 11. the geo-less scan (a variant of kernel 8) and kernel 15
-        qc, _, _ = operands(hb)
+        qc, _, _, _ = operands(hb)
         sargs = (qc, hb.g_sem_cat, hb.g_geo_cat, hb.g_sem_vw_lr, hb.g_geo_vw)
         skw = dict(gpt_s=gpt_s, gpt_g=gpt_g, has_geo=False)
         got = rh._hier_scan_call(*sargs, **skw)
@@ -1760,7 +1946,7 @@ def range_phases(dev, gen, report, hb, enc_plus, bank) -> float:
                 "alr": slice(2 * Dv + 128, 2 * Dv + 128 + Ws)}
         geo_segs = {"acc_g": slice(Dv, 2 * Dv), "d_g": slice(2 * Dv + 1, 2 * Dv + 2)}
         for quant, hbq in (("bf16", hb), ("int8", hb8)):
-            qc, qx, idx = operands(hbq)
+            qc, qx, idx, _ = operands(hbq)
             for geo in (False, True):
                 args = ((qx if geo else qc), hbq.k_cat, hbq.values, hbq.value_scale,
                         hbq.mask_neg, idx, hbq.g_sem_cat, hbq.g_geo_cat, hbq.g_sem_vw_lr,
@@ -1778,11 +1964,23 @@ def range_phases(dev, gen, report, hb, enc_plus, bank) -> float:
                     [] if geo else [got[:, Dv:2 * Dv], got[:, 2 * Dv + 1:2 * Dv + 2]])
                 if any(z.abs().max().item() != 0.0 for z in zero):
                     raise AssertionError(f"{tag}: the pad (or skipped geo) columns not zero")
-                k_ms = _cuda_ms(lambda: rh._hier_parts_call(*args, **kw), 10)
+                k_ms, _, b_ms, b_by = _values_turns(f"{tag} B={BATCH} K={idx.shape[1]} bm={bm}",
+                                                    args, kw, True, BATCH)
                 p_ms = _cuda_ms(lambda: rh._hier_parts_plain(*args, **kw), 2)
-                b_ms, b_by = _parts_bound(hbq, idx, bm, geo)
-                print(f"{tag} B={BATCH} K={idx.shape[1]} bm={bm}: kernel {k_ms:.3f} ms, "
-                      f"plain {p_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
+                print(f"{tag} B={BATCH} K={idx.shape[1]} bm={bm}: plain {p_ms:.3f} ms")
+                if not geo:  # the RANGE flagship's launch at B = 1, 37, 1,000
+                    for b in REQUESTS[:-1]:
+                        qc_b, _, idx_b, bm_b = operands(hbq, b)
+                        a_b = (qc_b,) + args[1:5] + (idx_b,) + args[6:]
+                        kw_b = dict(kw, bm=bm_b)
+                        _compare_terms(f"{tag} B={b} vs plain", rh._hier_parts_call(*a_b, **kw_b),
+                                       rh._hier_parts_plain(*a_b, **kw_b),
+                                       rh._hier_parts_plain(*a_b, **kw_b, magnitude=True), flip,
+                                       rows_off_max=max(2, b // 100))
+                        _values_turns(f"{tag} B={b} K={idx_b.shape[1]} bm={bm_b}", a_b, kw_b,
+                                      True, b)
+                    if quant == "bf16":
+                        _values_drift(f"{tag} B={BATCH}", args, kw, True, ref, mag, flip)
                 if quant == "bf16" and not geo:  # the RANGE flagship's launch
                     report["hier_parts"] = dict(
                         max_abs_err=max(e for e, _ in errs),
@@ -2169,41 +2367,6 @@ def two_level_topk_phases(dev, gen, report, bank, enc) -> float:
     return topk_ms, hb
 
 
-def _family_bound(hbq, idx, bm: int, geo: bool, shape: str):
-    """(bound ms, what bounds it) of one family parts call of ``shape``
-    (plain, lr, rr), counted from this run's selection: the row logits
-    over the family's real columns (sem_d, or the 9 geo ones) and, per
-    valid row, the value product over Dv (plain, lr) or the rr
-    coefficients (rr); per group the group logits and the product over the
-    lr coefficients and the count (lr) or Dv + the count (plain, rr); each
-    input read once (the union of the selected tiles), the output written
-    once."""
-    Dv, bn, sem_d = hbq.value_dim, hbq.bn, hbq.sem_d
-    gpt = bn // (hbq.gsz_geo if geo else hbq.gsz_sem)
-    real = GEO_COLS if geo else sem_d
-    kf = hbq.cat_d - sem_d if geo else sem_d
-    nB, K = idx.shape
-    valid = (hbq.mask_neg[0] == 0).reshape(-1, bn).sum(dim=1).double()
-    qb = _block_queries(nB, bm, idx.device)
-    pairs = (qb * valid[idx.long()].sum(dim=1)).sum().item()
-    groups = (qb * K).sum().item() * gpt
-    lrr = hbq.lr_geo if geo else hbq.lr_rank
-    vw = (hbq.g_geo_vw_lr if geo else hbq.g_sem_vw_lr) if shape == "lr" else (
-        hbq.g_geo_vw if geo else hbq.g_sem_vw)
-    g_cat = hbq.g_geo_cat if geo else hbq.g_sem_cat
-    rrp = hbq.z_sem.shape[1] if shape == "rr" else 0
-    row_cols = rrp if shape == "rr" else Dv
-    flops = (2 * pairs * (real + row_cols)
-             + 2 * groups * (real + (lrr if shape == "lr" else Dv) + 1))
-    U = int(torch.unique(idx).numel())
-    vbytes = (2 * rrp / Dv if shape == "rr" else hbq.values.element_size()
-              + (4 / Dv if hbq.value_scale is not None else 0))
-    out_w = Dv + 128 + (vw.shape[1] if shape == "lr" else rrp)
-    n_bytes = (BATCH * kf * 2 + U * bn * (kf * 2 + Dv * vbytes + 4)
-               + U * gpt * (g_cat.shape[1] + vw.shape[1]) * 2 + BATCH * out_w * 4)
-    return _bound(n_bytes, flops, BF16_FLOPS)
-
-
 def general_phases(dev, gen, report, bank):
     """The general one-level hierarchical path (banks with any subset of
     lr_rank / res_rank / lr_geo): build the informative bank's HierBank at
@@ -2341,6 +2504,30 @@ def general_phases(dev, gen, report, bank):
 
         # ---- 18. kernel 15's plain variant (GEO true / false, bf16 / int8)
         m_s, s_s, m_g, s_g, tails = scans["two-family"]
+        chosen = {}
+
+        def selection(b):
+            """A B = b request's packed queries (the first b of this
+            phase's) in their order and its selection at b's own plan:
+            (q_cat, bm, the merged launch's list, {geo: the family's list,
+            k_geo = max(8, K // 2)})."""
+            if b not in chosen:
+                bm_b, k_b, _, j_b = cfg.hier_plan(b)
+                q_sb, q_xb = rh._pad_queries(q[:b], x[:b], bm_b)
+                qc = rf.pack_queries(q_sb, q_xb, 12.0, 40.0, hb.tier)[
+                    rh._hybrid_order(q_xb, b)].contiguous()
+                st = rh._hier_scan_stats_call(qc, hb.g_sem_cat, hb.g_geo_cat, gpt_s=gpt_s,
+                                              gpt_g=gpt_g)
+                at = dict(t_real=hb.t_real, bm=bm_b, n_valid=b)
+                chosen[b] = (qc, bm_b, rh.select_tiles(*st, k_tiles=k_b, j_sem=j_b,
+                                                         j_geo=cfg.j_geo, **at)[0],
+                               {False: rh.select_tiles(*st, k_tiles=k_b, j_sem=j_b,
+                                                       j_geo=cfg.j_geo, mode="range", **at)[0],
+                                True: rh.select_tiles(st[2], st[3], st[0], st[1],
+                                                      k_tiles=max(8, k_b // 2), j_sem=cfg.j_geo,
+                                                      j_geo=j_b, mode="range", **at)[0]})
+            return chosen[b]
+
         idx, _ = rh.select_tiles(m_s, s_s, m_g, s_g, t_real=hb.t_real, k_tiles=k_tiles,
                                  bm=bm, n_valid=BATCH, j_sem=j_sem, j_geo=cfg.j_geo)
         segs = {"acc_s": slice(0, Dv), "d_s": slice(2 * Dv, 2 * Dv + 1)}
@@ -2362,11 +2549,22 @@ def general_phases(dev, gen, report, bank):
                     [] if geo else [got[:, Dv:2 * Dv], got[:, 2 * Dv + 1:2 * Dv + 2]])
                 if any(z.abs().max().item() != 0.0 for z in zero):
                     raise AssertionError(f"{tag}: the pad (or skipped geo) columns not zero")
-                k_ms = _cuda_ms(lambda: rh._hier_parts_call(*args, **kw), 10)
+                if geo:  # the default RANGE+ request's launch: B = 1, 37, 1,000, 10,000
+                    def request(b, args=args, kw=kw):
+                        qc, bm_b, i_m, _ = selection(b)
+                        return (qc,) + args[1:5] + (i_m,) + args[6:], dict(kw, bm=bm_b)
+
+                    k_ms, _, b_ms, b_by, _ = _values_batches(
+                        tag, request, True,
+                        lambda a, k, m: rh._hier_parts_plain(*a, **k, magnitude=m),
+                        list({**segs, **geo_segs}.items()), flip)
+                    if quant == "bf16":
+                        _values_drift(f"{tag} B={BATCH}", args, kw, True, ref, mag, flip)
+                else:
+                    k_ms, _, b_ms, b_by = _values_turns(
+                        f"{tag} B={BATCH} K={idx.shape[1]} bm={bm}", args, kw, True, BATCH)
                 p_ms = _cuda_ms(lambda: rh._hier_parts_plain(*args, **kw), 2)
-                b_ms, b_by = _parts_bound(hbq, idx, bm, geo, lr=False)
-                print(f"{tag} B={BATCH} K={idx.shape[1]} bm={bm}: kernel {k_ms:.3f} ms, "
-                      f"plain {p_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
+                print(f"{tag} B={BATCH} K={idx.shape[1]} bm={bm}: plain {p_ms:.3f} ms")
                 if quant == "bf16" and geo:  # the default RANGE+ request's launch
                     report["hier_parts_plain"] = dict(
                         max_abs_err=max(e for e, _ in errs),
@@ -2425,9 +2623,15 @@ def general_phases(dev, gen, report, bank):
                     b_ms, b_by = _bound(n_bytes, flops, BF16_FLOPS)
                     f_ms, _ = _parts_times(f"{tag} B={BATCH} K={idx.shape[1]}", args, ckw, b_ms,
                                            b_by, n_exp)
-                else:
-                    f_ms = _cuda_ms(lambda: rh._hier_parts_family_call(*args, **kw), 10)
-                    b_ms, b_by = _family_bound(hbq, idx, bm, geo, shape)
+                else:  # on the Hopper values kernel, beside the mma.sync body
+                    def request(b, args=args, kw=kw, geo=geo):
+                        qc, bm_b, _, fam_b = selection(b)
+                        return (qc,) + args[1:3] + (fam_b[geo],) + args[4:], dict(kw, bm=bm_b)
+
+                    f_ms, _, b_ms, b_by, _ = _values_batches(
+                        tag, request, False,
+                        lambda a, k, m: rh._hier_parts_family_plain(*a, **k, magnitude=m),
+                        list(cols.items()), flip)
                 print(f"{tag} B={BATCH} K={idx.shape[1]}: kernel {f_ms:.3f} ms, plain "
                       f"{f_plain:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
                 tot["ms"] += f_ms
@@ -2722,12 +2926,9 @@ def gsz4_phases(dev, gen, report, bank) -> dict:
     return e2e
 
 
-def step_banks_phases(dev, gen, report) -> dict:
-    """Banks whose rr shapes the card refused before this slice, built on
-    the card from a 20,000-row informative bank with the flagship's
-    lr_rank / res_rank / lr_geo: 96-row tiles of 12-row groups in both
-    families (a masked last 64-row step), and 384-row tiles of 3-row sem
-    groups (128 a tile: the DIRECT walk) with 48-row geo groups.  Each
+def _banks_phase(dev, gen, report, bank, specs, title: str) -> dict:
+    """Banks of ``specs`` (bn, gsz_sem, gsz_geo), built on the card from
+    ``bank`` with the flagship's lr_rank / res_rank / lr_geo, each
     through `load_model("RANGE+" | "RANGE", retrieval="hier")` at B = 1,000
     and 10,000 (RANGE+: kernel 14's rr + lr shape for both families), with
     k_tiles scaled so that the selected tiles hold as many rows as the
@@ -2738,19 +2939,17 @@ def step_banks_phases(dev, gen, report) -> dict:
     shape at each bank's selection held against its plain version and
     timed (the mma.sync body took neither).  Returns the requests'
     end-to-end ms."""
-    from range_tpu_torch import GeoBank, load_model
+    from range_tpu_torch import load_model
     from range_tpu_torch.geometry import lonlat_deg_to_xyz
     from range_tpu_torch.ops import retrieval
     from range_tpu_torch.ops import retrieval_fused as rf
     from range_tpu_torch.ops import retrieval_hier as rh
 
-    bank = GeoBank.synthetic_informative(7, 20_000, pad_to=384, value_dtype=torch.bfloat16,
-                                         device=dev)
     knobs = dict(lr_rank=256, res_rank=128, lr_geo=384)
     why = ("bf16 weights (p, e, e - ps/cnt) can round the other way where the logits' f32 "
            "summation order moves them across a bf16 boundary: one ulp of one term")
     e2e, launches = {}, {}
-    for bn, gsz, gsz_geo in ((96, 12, 12), (384, 3, 48)):
+    for bn, gsz, gsz_geo in specs:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         hb = rh.build_hier_bank(bank, bn=bn, gsz_sem=gsz, gsz_geo=gsz_geo, **knobs)
@@ -2814,13 +3013,43 @@ def step_banks_phases(dev, gen, report) -> dict:
                 print(f"{name} {fam} family's plan: " + str(rh._parts_plan(
                     q_cat.shape[0], idx.shape[1], bn, gpt, sh["kf"], sh["gwe"], sh["share"],
                     z.shape[1], sh["acols"], sh["out_w"])))
+            # groups of one row: the sem family's alr is rounding residue
+            # (`_rr_turn`'s ``residue``)
             _rr_families(f"{name} B={BATCH}", hb, q_cat, idx_s, idx_g, bm, BATCH, why,
-                         body=False)
-    print(f"step banks' launches: {launches}")
+                         body=False, residue=gsz == 1)
+    print(f"{title}' launches: {launches}")
     for k, n in launches.items():
         if n:
             report[k]["launches"] += n
     return e2e
+
+
+def step_banks_phases(dev, gen, report) -> dict:
+    """Banks of a masked last step or one-row units (`_banks_phase`, a
+    20,000-row informative bank): 96-row tiles of 12-row groups in both
+    families (a masked last 64-row step), and 384-row tiles of 3-row sem
+    groups (128 a tile: the DIRECT walk) with 48-row geo groups."""
+    from range_tpu_torch import GeoBank
+
+    bank = GeoBank.synthetic_informative(7, 20_000, pad_to=384, value_dtype=torch.bfloat16,
+                                         device=dev)
+    return _banks_phase(dev, gen, report, bank, ((96, 12, 12), (384, 3, 48)), "step banks")
+
+
+def odd_banks_phases(dev, gen, report) -> dict:
+    """Banks of a short last chunk (`_banks_phase`, a 20,000-row
+    informative bank padded to whole tiles of each): odd group sizes at an
+    odd multiple of 32 sem groups a tile,
+    288-row tiles of 3-row groups (96 a tile), 96-row tiles of 1-row
+    groups (96 a tile) and 480-row tiles of 3-row groups (160 a tile), each
+    with 8 geo groups a tile: a tile's last chunk of 32 groups ends in its
+    masked last step."""
+    from range_tpu_torch import GeoBank
+
+    bank = GeoBank.synthetic_informative(7, 20_000, pad_to=1440, value_dtype=torch.bfloat16,
+                                         device=dev)
+    return _banks_phase(dev, gen, report, bank, ((288, 3, 36), (96, 1, 12), (480, 3, 60)),
+                        "odd-group banks")
 
 
 def _rel(out, ref, Dv):
@@ -2972,14 +3201,28 @@ def knob_phases(dev, gen, report, bank, hb, enc, hb_ts, hb2) -> dict:
         # the lr shape's sel form (hier_parts.cu): the values instead of z
         args = (q_wide, hbs.k_cat, hbs.mask_neg, idx_s, hbs.g_sem_sel, hbs.g_sem_vw_lr, None)
         kw = dict(kw, values=hbs.values, scale=None)
-        err, ratio, ms, plain_ms = _family_check(
-            f"hier_parts_family[sel, lr] B={BATCH} K={K}", args, kw,
+
+        def sel_request(b, kw=kw):
+            """A B = b sel_lr request's launch of the lr shape: the first b
+            of this phase's queries, b's own plan and selection."""
+            bm_b, k_b, _, j_b = cfg.hier_plan(b)
+            q_sb, q_xb = rh._pad_queries(q[:b], x[:b], bm_b)
+            qc = rf.pack_queries(q_sb, q_xb, 12.0, 40.0, hbs.tier)[
+                rh._hybrid_order(q_xb, b)].contiguous()
+            qs_b = (qc[:, :sem_d].float() @ hbs.p_sel.T).to(qc.dtype)
+            st = rh._hier_scan_stats_call(torch.cat([qs_b, qc[:, sem_d:]], 1), hbs.g_sem_sel,
+                                          hbs.g_geo_cat, gpt_s=gpt_s, gpt_g=gpt_g)
+            i_s = rh.select_tiles(*st, t_real=hbs.t_real, k_tiles=k_b, bm=bm_b, n_valid=b,
+                                  j_sem=j_b, j_geo=cfg.j_geo, mode="range")[0]
+            return ((torch.cat([qc, qs_b], 1).contiguous(), hbs.k_cat, hbs.mask_neg, i_s,
+                     hbs.g_sem_sel, hbs.g_sem_vw_lr, None), dict(kw, bm=bm_b))
+
+        ms, _, b_ms, b_by, (err, ratio) = _values_batches(
+            "hier_parts_family[sel, lr]", sel_request, False,
+            lambda a, k, m: rh._hier_parts_family_plain(*a, **k, magnitude=m),
             (("acc", slice(0, Dv)), ("d", slice(Dv, Dv + 1)), ("alr", slice(Dv + 128, None))),
-            why, rows_off)
-        b_ms, b_by = _bound(BATCH * (sem_d + gw) * 2 + U * hbs.bn * ((sem_d + Dv) * 2 + 4)
-                            + U * gpt_s * (gw + W) * 2 + BATCH * (Dv + 128 + W) * 4,
-                            2 * BATCH * K * (hbs.bn * (sem_d + Dv)
-                                             + gpt_s * (gw + hbs.lr_rank + 1)), BF16_FLOPS)
+            why)
+        plain_ms = _cuda_ms(lambda: rh._hier_parts_family_plain(*args, **kw), 2)
         report["hier_parts_family_sel"] = dict(max_abs_err=err, err_over_tol=ratio, ms=ms,
                                                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
 
@@ -3066,6 +3309,30 @@ def knob_phases(dev, gen, report, bank, hb, enc, hb_ts, hb2) -> dict:
                                  "is not exercised")
         hb_v = dataclasses.replace(hb, **no_rr)
         nS = u_s.shape[0]
+        merged_lists = {}
+
+        def dedup_lists(b):
+            """A B = b dedup=2 request's packed queries and merged lists:
+            the first b of this phase's queries, b's own plan, k_union and
+            the geo count as `_hier_partials` takes them: (q_cat, 2 bm,
+            {geo: the family's list})."""
+            if b not in merged_lists:
+                bm_b, k_b, kg_b, j_b = enc.model.config.hier_plan(b)
+                q_sb, q_xb = rh._pad_queries(q[:b], x[:b], 2 * bm_b)
+                qc = rf.pack_queries(q_sb, q_xb, 12.0, 40.0, hb.tier)[
+                    rh._hybrid_order(q_xb, b)].contiguous()
+                st = rh._hier_scan_stats_call(qc, hb.g_sem_cat, hb.g_geo_cat, gpt_s=gpt_s,
+                                              gpt_g=gpt_g)
+                at = dict(t_real=hb.t_real, bm=bm_b, n_valid=b, mode="range")
+                i_s = rh.select_tiles(*st, k_tiles=k_b, j_sem=j_b, **at)[0]
+                i_g = rh.select_tiles(st[2], st[3], st[0], st[1], k_tiles=kg_b, j_sem=2,
+                                      j_geo=j_b, **at)[0]
+                ku_b = min(k_b + k_b // 2, 2 * i_s.shape[1])
+                ku_gb = min(max(1, ku_b * max(kg_b, 1) // max(k_b, 1)), 2 * i_g.shape[1])
+                merged_lists[b] = (qc, 2 * bm_b, {False: rh._dedup_union(i_s, 2, ku_b),
+                                                  True: rh._dedup_union(i_g, 2, ku_gb)})
+            return merged_lists[b]
+
         qs2 = _block_queries(nS, 2 * bm, dev)
         for shape, hbq in (("rr", hb), ("v", hb_v)):
             tot = [0.0, 0.0, 0.0, 0.0]
@@ -3080,23 +3347,27 @@ def knob_phases(dev, gen, report, bank, hb, enc, hb_ts, hb2) -> dict:
                 kw = dict(sem_d=sem_d, bm=2 * bm, bn=hbq.bn, gpt=gpt, geo=geo, lrr=lrr,
                           dedup_pad=True, values=hbq.values, scale=None)
                 W = vw.shape[1]
-                if z is not None:
-                    a0 = z.shape[1]
-                    segs = (("az", slice(0, a0)), ("alr", slice(a0 + 128, None)))
-                else:
-                    a0 = Dv
-                    segs = (("acc", slice(0, Dv)), ("d", slice(Dv, Dv + 1)),
-                            ("alr", slice(Dv + 128, None)))
-                tag = (f"hier_parts_family[dedup, {'rr + lr' if z is not None else 'lr'}, "
-                       f"{fam}] B={BATCH} k_union={u.shape[1]}")
+                a0 = z.shape[1] if z is not None else Dv
+                tag = f"hier_parts_family[dedup, {'rr + lr' if z is not None else 'lr'}, {fam}]"
                 if z is not None:  # on the Hopper kernel, beside the mma.sync body
                     kw = {k: v for k, v in kw.items() if k not in ("values", "scale")}
                     kw["geo_cols"] = GEO_COLS if geo else None
-                    _, errs, ms, _, plain_ms, *_ = _rr_turn(tag, hbq, args, kw, BATCH, why,
-                                                            plain_time=True)
+                    _, errs, ms, _, plain_ms, *_ = _rr_turn(
+                        f"{tag} B={BATCH} k_union={u.shape[1]}", hbq, args, kw, BATCH, why,
+                        plain_time=True)
                     res = (max(e for e, _ in errs), max(r for _, r in errs), ms, plain_ms)
-                else:
-                    res = _family_check(tag, args, kw, segs, why, rows_off)
+                else:  # on the Hopper values kernel, beside the mma.sync body
+                    def request(b, args=args, kw=kw, geo=geo):
+                        qc, bm2, lists = dedup_lists(b)
+                        return (qc,) + args[1:3] + (lists[geo],) + args[4:], dict(kw, bm=bm2)
+
+                    ms, _, _, _, (e, r) = _values_batches(
+                        tag, request, False,
+                        lambda a, k, m: rh._hier_parts_family_plain(*a, **k, magnitude=m),
+                        (("acc", slice(0, Dv)), ("d", slice(Dv, Dv + 1)),
+                         ("alr", slice(Dv + 128, None))), why)
+                    res = (e, r, ms,
+                           _cuda_ms(lambda: rh._hier_parts_family_plain(*args, **kw), 2))
                 tot = [max(tot[0], res[0]), max(tot[1], res[1]), tot[2] + res[2],
                        tot[3] + res[3]]
                 # the work needed: each merged block's distinct tiles once
@@ -3905,6 +4176,7 @@ def main() -> int:
     general_ms = timed("general", general_phases, dev, gen, report, bank)
     gsz4_ms = timed("gsz4", gsz4_phases, dev, gen, report, bank)
     step_ms = timed("step_banks", step_banks_phases, dev, gen, report)
+    odd_ms = timed("odd_banks", odd_banks_phases, dev, gen, report)
     knob_ms = timed("knobs", knob_phases, dev, gen, report, bank, hb, enc, hb_ts, hb2)
     del hb_ts, hb2
     pruned_ms = timed("pruned", pruned_phases, dev, gen, report, bank)
@@ -3916,8 +4188,8 @@ def main() -> int:
           f"hier_topk {topk_ms:.3f} ms, RANGE flagship {range_ms:.3f} ms, tail_super "
           f"flagship {ts_ms:.3f} ms, two-level hier_topk {topk2_ms:.3f} ms, RANGE+ at the "
           f"JAX defaults {general_ms:.3f} ms, RANGE+ on a (1, 1) mesh {mesh_ms:.3f} ms, "
-          + ", ".join(f"{k} {ms:.3f} ms" for k, ms in {**knob_ms, **gsz4_ms,
-                                                        **step_ms}.items()) + ", "
+          + ", ".join(f"{k} {ms:.3f} ms" for k, ms in {**knob_ms, **gsz4_ms, **step_ms,
+                                                        **odd_ms}.items()) + ", "
           + ", ".join(f"{k} {ms:.3f} ms" for k, ms in pruned_ms.items())
           + f"; SatCLIP training step ({TRAIN_ACCUM} x {TRAIN_MICRO}) {step_s:.3f} s")
 

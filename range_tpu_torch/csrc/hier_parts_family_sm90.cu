@@ -48,8 +48,11 @@
 //     (each step's key boxes, z boxes and mask), into the stage a step
 //     frees, so the logits warpgroup issues no copy;
 //   * warpgroup 2, the groups: for each chunk of EG groups of a tile (the
-//     whole tile up to 32 groups, else 32, or 64 for groups of one row, so
-//     a chunk ends on a step), e on wgmma m64nEGk16 from the chunk's
+//     whole tile up to 32 groups, else 32, or 64 for groups of an odd
+//     size, so a chunk ends on a step; where EG does not divide the tile's
+//     groups, as 64 does not 96, 160, 224 ..., the last chunk holds the
+//     rest and ends where the tile ends: on a step or in its masked last
+//     step), e on wgmma m64nEGk16 from the chunk's
 //     centroids (one TMA copy, issued by its first thread one chunk ahead)
 //     into f32 shared memory; then, step by step, the step's sums of
 //     bf16(p) over units of u = gcd(gsz, 64) rows on wgmma, ps = P [64 x 64
@@ -140,6 +143,7 @@ struct Prm {
   int kb, kbg, share, nz;   // boxes: logits, group logits (share: the query block's), z
   int ks, ksg;              // k16 steps of the row logits and of the group logits
   int EG, NG, chunks, chunk_steps, gp16;
+  int eg_last, cs_last;      // groups and steps of a tile's last chunk
   int lu, nu, upg;          // units of 2^lu rows: nu a step, upg a group
   int spt, last_rows, nu_last;  // steps a tile; rows and units of its last step
   int direct, dglob;        // unit sums read from the p tile; the D block in device memory
@@ -491,9 +495,12 @@ __device__ __forceinline__ void groups(const Prm& P, const Blk& b, const CUtenso
       gpar ^= 1;
       chunk_e_any<EG>(P, b, e_s);
       const int tile = lst[b.lo + j];
-      if (tid < EG)
-        cnt_s[tid] = fmaxf(
-            __bfloat162float(P.vw[(size_t)(tile * P.gpt + c * EG + tid) * P.W + P.lrr]), 1.f);
+      if (tid < EG)  // (a last chunk of fewer groups: the rest are never read)
+        cnt_s[tid] = c * EG + tid < P.gpt
+                         ? fmaxf(__bfloat162float(
+                                     P.vw[(size_t)(tile * P.gpt + c * EG + tid) * P.W + P.lrr]),
+                                 1.f)
+                         : 1.f;
       wg_sync(1);  // e and the counts visible; the centroid tile is free
       if (tid == 0) {
         if (c + 1 < P.chunks) {
@@ -505,8 +512,10 @@ __device__ __forceinline__ void groups(const Prm& P, const Blk& b, const CUtenso
       ci = 0;
       dcol = j * P.gp16 + c * EG;
     }
-    // the tile's last step (a chunk of a tile of no whole steps is the tile)
-    const bool last = cs + 1 == P.chunk_steps && c + 1 == P.chunks;
+    // the tile's last step (a chunk of a tile of no whole steps is the tile;
+    // its last chunk, of what is left, ends where the tile ends)
+    const int csteps = c + 1 == P.chunks ? P.cs_last : P.chunk_steps;
+    const bool last = cs + 1 == csteps && c + 1 == P.chunks;
     const int nu_step = last ? P.nu_last : P.nu;
     const int pi = it & 1;
     mbar_wait(b.pfull + 8 * pi, (it >> 1) & 1);
@@ -563,7 +572,7 @@ __device__ __forceinline__ void groups(const Prm& P, const Blk& b, const CUtenso
       ci += ng_step;
     }
     if constexpr (DIRECT) release(b.pempty + 8 * pi);  // the p tile is read
-    if (++cs == P.chunk_steps) {
+    if (++cs == csteps) {
       cs = 0;
       if (++c == P.chunks) {
         c = 0;
@@ -865,7 +874,8 @@ extern "C" int hier_parts_family_sm90_launch(
     int gpt, int K, int W, int lrr, int rrp, int N, int G, int lr, int dedup, int n_seg,
     int seg_cap, int S, void* stream) {
   if (lay == nullptr || Bp <= 0 || K <= 0 || bm <= 0 || bm % BM || Bp % bm || bn <= 0 ||
-      N % bn || gpt < 8 || bn % gpt || kf < 16 || kf > 256 || kf % 16 || kc0 % 8 ||
+      N % bn || gpt < 8 || bn % gpt || (gpt <= 32 ? 32 % gpt : gpt % 32) || kf < 16 ||
+      kf > 256 || kf % 16 || kc0 % 8 ||
       kc0 + kf > cat_d || cat_d % 8 || qw < cat_d || qw % 8 || gwe < 16 || gwe > 256 ||
       gwe % 16 || gwe > gw || gw % 8 || qg0 % 8 || qg0 + gwe > qw || (rrp != 128 && rrp != 256) ||
       W <= 0 || W % 128 || lrr < 0 || lrr >= W || (!lr && lrr % 4) || G % gpt || n_seg < 1 ||
@@ -891,15 +901,19 @@ extern "C" int hier_parts_family_sm90_launch(
   P.dglob = L[21];
   const bool rare_pair = (P.EG == 16 && (P.NG == 16 || P.NG == 32)) ||
                          (P.EG == 8 && (P.NG == 16 || P.NG == 32));
-  if (P.EG <= 0 || gpt % P.EG || ((P.EG * P.gsz) % BN && P.EG != gpt) || P.NG < P.nu ||
+  if (P.EG <= 0 || P.EG > gpt || ((P.EG * P.gsz) % BN && P.EG != gpt) || P.NG < P.nu ||
       !((P.EG == 8 && P.NG == 8) || (P.EG == 16 && P.NG == 8) ||
         (P.EG == 32 && (P.NG == 8 || P.NG == 16 || P.NG == 32)) ||
         (P.EG == 64 && P.NG == 64) || rare_pair || P.direct) ||
       (P.direct && (P.NG != 64 || P.lu != 0)) ||
       (P.dglob && (gpt % 16 || dwork == nullptr || !aligned16(dwork))))
     return (int)cudaErrorInvalidValue;  // the (EG, NG) pairs groups_any takes
-  P.chunks = gpt / P.EG;
+  // chunks of EG groups, each ending on a step (or the tile); the last holds
+  // the gpt mod EG left over (if any), from its step to the tile's end
+  P.chunks = (gpt + P.EG - 1) / P.EG;
   P.chunk_steps = (P.EG * P.gsz + BN - 1) / BN;
+  P.eg_last = gpt - (P.chunks - 1) * P.EG;
+  P.cs_last = P.spt - (P.chunks - 1) * P.chunk_steps;
   P.gp16 = (gpt + 15) / 16 * 16;
   P.vw = static_cast<const __nv_bfloat16*>(g_vw);
   P.idx = static_cast<const int*>(idx);

@@ -26,9 +26,11 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # sources of several heavy kernel instances (hier_parts: 16,
-# fused_retrieval_sm90: 15), whose kernels nvcc compiles in parallel threads
+# fused_retrieval_sm90: 15, hier_parts_sm90: 2 of many inlined variants),
+# whose kernels nvcc compiles in parallel threads
 SPLIT_FLAGS = {name: ["-split-compile=0"]
-               for name in ("hier_parts", "hier_parts_family_sm90", "fused_retrieval_sm90")}
+               for name in ("hier_parts", "hier_parts_family_sm90", "fused_retrieval_sm90",
+                            "hier_parts_sm90")}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points and their argument types, per kernel library
@@ -55,6 +57,7 @@ _SIGNATURES = {
     "hier_parts": {"hier_parts_launch": [_P] * 11 + [_I] * 15 + [_P],
                    "hier_parts_family_values_launch":
                    [_P] * 9 + [_I] * 16 + [_P]},
+    "hier_parts_sm90": {"hier_parts_sm90_launch": [_P] * 13 + [_I] * 24 + [_P]},
     "hier_parts_family": {"hier_parts_family_launch":
                           [_P] * 9 + [_I] * 17 + [_P]},
     "hier_parts_family_sm90": {"hier_parts_family_sm90_launch":

@@ -1489,7 +1489,8 @@ def _hier_parts_family_call(q_cat, k_cat, mask_neg, idx, g_cat, g_vw, z, *,
     `csrc/hier_parts_family_sm90.cu` over `_parts_plan`'s segments (the
     geo family's logits over the k16 steps holding its ``geo_cols`` real
     columns, the packing's: `retrieval_fused.geo_real_cols`), the value shapes
-    `csrc/hier_parts.cu` (its family entry point); both replace
+    the Hopper values kernel `csrc/hier_parts_sm90.cu` over
+    `_values_plan`'s segments; both replace
     `_hier_parts_family_kernel` (`range_tpu/ops/retrieval_hier.py:2282`),
     a shape they do not take or a failed launch raises.  Each launch
     counts in ``.launches`` and in its shape's own counter:
@@ -1502,11 +1503,10 @@ def _hier_parts_family_call(q_cat, k_cat, mask_neg, idx, g_cat, g_vw, z, *,
             q_cat, k_cat, mask_neg, idx, g_cat, g_vw, z, sem_d=sem_d, bm=bm,
             bn=bn, gpt=gpt, geo=geo, lrr=lrr, lr=lr, values=values,
             scale=scale, sel=sel, dedup_pad=dedup_pad)
-    if z is None:
-        out = _parts_family_values(q_cat, k_cat, values, scale, mask_neg, idx,
-                                   g_cat, g_vw, sem_d=sem_d, bm=bm, bn=bn,
-                                   gpt=gpt, geo=geo, lr=lr, sel=sel,
-                                   dedup_pad=dedup_pad)
+    if z is None:  # the geo family's logits over one k16 step, as the merged launch's
+        out = _values_sm90("hier_parts_family", q_cat, k_cat, values, scale, mask_neg, idx,
+                           (g_cat, g_vw, gpt), None, sem_d=sem_d, bm=bm, bn=bn,
+                           merged=False, geo0=geo, lr=lr, sel=sel, dedup=dedup_pad)
         shape = "lr" if lr else "plain"
     else:
         out = _parts_family_rr(q_cat, k_cat, mask_neg, idx, g_cat, g_vw, z,
@@ -1803,54 +1803,186 @@ def _parts_family_rr(q_cat, k_cat, mask_neg, idx, g_cat, g_vw, z, *,
     return out
 
 
-def _parts_family_values(q_cat, k_cat, values, scale, mask_neg, idx, g_cat,
-                         g_vw, *, sem_d: int, bm: int, bn: int, gpt: int,
-                         geo: bool, lr: bool, sel: bool, dedup_pad: bool):
-    """Launch `csrc/hier_parts.cu`'s family entry point (the value shapes:
-    the geo family's row and group logits over one k16 step of its
-    columns, the fast tier's 9 real ones and zero padding, as the merged
-    kernel's)."""
+# The Hopper values kernel (`csrc/hier_parts_sm90.cu`): kernel 15 and
+# kernel 14's value shapes on one body
+_VALUES_DVS = 256  # value (or alr) columns a block
+
+
+def _values_eg(gpt: int) -> int:
+    """A chunk's centroid box rows (the group logits' wgmma N): the first
+    of 16, 32, 64 that holds min(gpt, 64) groups."""
+    return 16 if gpt <= 16 else 32 if gpt <= 32 else 64
+
+
+class ValuesLayout(NamedTuple):
+    """One block's shared memory in the Hopper values kernel, in bytes from
+    its 1024-aligned base (the launch takes it as given): the queries a
+    block (64 or 128) and the ring's stages, then a query half's size and
+    its geo and sel boxes' offsets, the ring, a stage's size and its geo
+    box's, aux's (mask and scales, or a chunk's counts) and value boxes'
+    offsets (a step's int8 codes land in the second half of its value
+    boxes' memory), the warpgroups' e tiles and the size of one, the tile
+    list, the barriers, the total."""
+    bmb: int
+    S: int
+    qhalf: int
+    qgeo: int
+    qsel: int
+    ring: int
+    stage: int
+    kg: int
+    aux: int
+    va: int
+    e: int
+    etile: int
+    lst: int
+    bars: int
+    total: int
+
+
+def _values_layout(K: int, bmb: int, kb: int, kbs: int, kbg: int, has_kg: bool,
+                   egmax: int, S: int) -> ValuesLayout:
+    """The values kernel's layout: kb sem boxes (64 rows of 64 bf16
+    columns, 8 KB) a query half and a step, kbs sel boxes a half, kbg
+    centroid boxes a chunk, the geo box (2 KB) where a family is geo, e
+    tiles of egmax columns."""
+    box = 8192
+    qgeo = kb * box
+    qsel = qgeo + (2048 if has_kg else 0)
+    qhalf = _round_up(qsel + kbs * box, 1024)
+    ring = bmb // 64 * qhalf
+    kg = max(kb, kbg) * box
+    aux = kg + (2048 if has_kg else 0)
+    va = aux + 1024
+    stage = va + 4 * box
+    e = ring + S * stage
+    etile = egmax // 16 * 2048
+    lst = e + 2 * etile
+    bars = lst + _round_up(4 * K, 16)
+    total = bars + 8 * (1 + 2 * S) + 16 + 1024
+    return ValuesLayout(bmb, S, qhalf, qgeo, qsel, ring, stage, kg, aux, va, e, etile, lst,
+                        bars, total)
+
+
+class ValuesPlan(NamedTuple):
+    """128 or 64 queries a block (``bmb``), ``n_seg`` segments of each
+    list (segment s a block's distinct entries [s n / n_seg, (s + 1) n /
+    n_seg)), ``S`` ring stages."""
+    bmb: int
+    n_seg: int
+    S: int
+
+
+@functools.lru_cache(maxsize=256)
+def _values_plan(Bp: int, K: int, bn: int, bm: int, Dv: int, Wa: int, two: bool,
+                 kb: int, kbs: int, kbg: int, has_kg: bool, egmax: int,
+                 rows_max: int = PARTS_ROWS_MAX) -> ValuesPlan:
+    """The values kernel's plan, a function of the shape alone: 128 queries
+    a block (the two halves of a selection block, one list) where the
+    launch has one family, bm allows it and the layout fits, else 64; the
+    deepest ring of 4, 3, 2 stages that fits; segments of whole tiles, none
+    over ``rows_max`` rows (one wgmma accumulation chain), and as many more
+    as the card's 132 SMs need a block each where the lists allow it (the
+    value slices ceil(Dv / 256) and the alr slices ceil(Wa / 256) of every
+    query block and segment are a block each).  lru-cached: serving asks
+    for the same few shapes."""
+    slices = -(-Dv // _VALUES_DVS) + -(-Wa // _VALUES_DVS)
+    for bmb in ((128, 64) if not two and bm % 128 == 0 else (64,)):
+        S = next((S for S in (4, 3, 2) if _values_layout(
+            K, bmb, kb, kbs, kbg, has_kg, egmax, S).total <= _SM90_MAX_SMEM), None)
+        if S is None:
+            continue
+        blocks = Bp // bmb * slices
+        n_seg = max(-(-K // max(1, rows_max // bn)), min(K, -(-SM90_SMS // blocks)))
+        return ValuesPlan(bmb, n_seg, S)
+    raise ValueError(f"hier_parts kernel: unsupported shapes: no block of the values kernel "
+                     f"holds sem boxes {kb}, sel boxes {kbs} and {egmax}-group chunks")
+
+
+def _values_sm90(name: str, q_cat, k_cat, values, scale, mask_neg, idx, fam0, fam1, *,
+                 sem_d: int, bm: int, bn: int, merged: bool, geo0: bool = False,
+                 lr: bool = False, sel: bool = False, dedup: bool = False,
+                 plan: Optional[ValuesPlan] = None, n_seg: Optional[int] = None):
+    """Launch `csrc/hier_parts_sm90.cu`: the merged launch (``merged``:
+    ``fam0`` = (g_sem_cat, g_sem_vw, gpt_s), ``fam1`` the geo family's or
+    None without it) or a family launch (``fam0`` the family's, ``geo0``
+    the geo one, ``sel``, ``dedup``) over `_values_plan`'s segments
+    (``plan`` overrides it, ``n_seg`` only its segments: chip_smoke's
+    chain turns); ``lr``: fam0's vw
+    are low-rank coefficients (alr), else full-width sums with the count in
+    column Dv.  A shape the kernel does not take raises ValueError before
+    any launch; counted nowhere."""
     bf, f32 = torch.bfloat16, torch.float32
-    ops = dict(q_cat=q_cat, k_cat=k_cat, values=values, mask_neg=mask_neg,
-               idx=idx, g_cat=g_cat, g_vw=g_vw)
-    dtypes = dict(q_cat=bf, k_cat=bf, values=bf, mask_neg=f32,
-                  idx=torch.int32, g_cat=bf, g_vw=bf)
+    g0, vw0, gpt0 = fam0
+    ops = dict(q_cat=q_cat, k_cat=k_cat, values=values, mask_neg=mask_neg, idx=idx, g0=g0,
+               vw0=vw0)
+    dtypes = dict(q_cat=bf, k_cat=bf, values=bf, mask_neg=f32, idx=torch.int32, g0=bf, vw0=bf)
+    if fam1 is not None:
+        ops["g1"], ops["vw1"] = fam1[:2]
+        dtypes["g1"] = dtypes["vw1"] = bf
     if scale is not None:
         ops["scale"], dtypes["scale"], dtypes["values"] = scale, f32, torch.int8
-    _check_cuda("hier_parts_family", ops, dtypes)
+    _check_cuda(name, ops, dtypes)
     Bp, qw = q_cat.shape
     N, Dv = values.shape
     cat_d = k_cat.shape[1]
     nB, K = idx.shape
-    G, gw = g_cat.shape
-    W = g_vw.shape[1]
+    G0, gw0 = g0.shape
+    W0 = vw0.shape[1]
+    two = fam1 is not None
+    g1, vw1, gpt1 = fam1 if two else (g0, vw0, gpt0)
+    G1, gw1 = g1.shape
+    W1 = vw1.shape[1]
+
+    def fam_ok(geo, flr, gpt, G, gw, W, vw):
+        return (gpt >= 1 and bn % gpt == 0 and G >= 1 and gw % 8 == 0
+                and vw.shape[0] == G
+                and (not geo or (gw >= 16 and cat_d - gw == sem_d))
+                and (W % 128 == 0 and W <= 512 if flr else W >= Dv + 1 and W % 8 == 0))
+
+    if merged:
+        fams = gw0 == sem_d and qw == cat_d and not (geo0 or sel or dedup) and (
+            not two or fam_ok(True, False, gpt1, G1, gw1, W1, vw1))
+    else:
+        fams = not two and (16 <= gw0 <= 256 and gw0 % 16 == 0 and qw == cat_d + gw0
+                            and not geo0 if sel
+                            else qw == cat_d and (geo0 or gw0 == sem_d))
     if (k_cat.shape != (N, cat_d) or mask_neg.shape != (1, N)
             or (scale is not None and scale.shape != (1, N))
-            or Bp != nB * bm or bm % 64 or bn % 32 or N % bn or sem_d % 16
-            or sem_d + 16 > cat_d or cat_d % 8 or Dv % 16
-            or g_vw.shape[0] != G or gpt < 1 or bn % gpt
-            or (qw != cat_d + gw or gw % 16 or gw > 256 if sel
-                else qw != cat_d)
-            or (cat_d - gw != sem_d if geo else not sel and gw != sem_d)
-            or (W % 128 or W > 512 if lr else W < Dv + 1 or W % 8)):
+            or Bp != nB * bm or bm % 64 or bn < 32 or bn % 32 or N % bn or N == 0
+            or not 16 <= sem_d <= 256 or sem_d % 16 or sem_d + 16 > cat_d or cat_d % 8
+            or Dv % 16 or Dv == 0 or not fams
+            or not fam_ok(geo0, lr, gpt0, G0, gw0, W0, vw0)):
         raise ValueError(
-            f"hier_parts_family kernel: unsupported shapes q "
-            f"{tuple(q_cat.shape)}, k {tuple(k_cat.shape)}, values "
-            f"{tuple(values.shape)}, idx {tuple(idx.shape)}, g "
-            f"{tuple(g_cat.shape)}, vw {tuple(g_vw.shape)}, bm={bm}, bn={bn}, "
-            f"gpt={gpt}, geo={geo}, lr={lr}")
-    out = torch.empty((Bp, Dv + 128 + (W if lr else 0)), dtype=f32,
-                      device=q_cat.device)
-    if Bp and K:
-        held = [None if t is None else t.contiguous() for t in (
-            q_cat, k_cat, values, scale, mask_neg, idx, g_cat, g_vw)]
-        ptr = [None if t is None else t.data_ptr() for t in held]
-        _launch("hier_parts", "hier_parts_family_values_launch", *ptr,
-                out.data_ptr(), Bp, qw, cat_d, sem_d, Dv, bm, bn, gpt, K, W,
-                gw, int(geo), int(lr), int(scale is not None), int(sel),
-                int(dedup_pad), _stream(q_cat))
-    elif Bp:
-        out.zero_()
+            f"{name} kernel: unsupported shapes q {tuple(q_cat.shape)}, k "
+            f"{tuple(k_cat.shape)}, values {tuple(values.shape)}, idx {tuple(idx.shape)}, "
+            f"g {tuple(g0.shape)} / {tuple(g1.shape)}, vw {tuple(vw0.shape)} / "
+            f"{tuple(vw1.shape)}, bm={bm}, bn={bn}, gpt {gpt0} / {gpt1}, geo={geo0}, "
+            f"lr={lr}, sel={sel}")
+    Wa = W0 if lr else 0
+    out_w = (2 * Dv if merged else Dv) + 128 + Wa
+    out = torch.empty((Bp, out_w), dtype=f32, device=q_cat.device)
+    if not (Bp and K):
+        return out.zero_()
+    kb = 0 if geo0 else -(-sem_d // 64)
+    kbs = -(-gw0 // 64) if sel else 0
+    kbg = 0 if geo0 else kbs if sel else kb
+    has_kg = two or geo0
+    egmax = max(_values_eg(gpt0), _values_eg(gpt1) if two else 0)
+    plan = plan or _values_plan(Bp, K, bn, bm, Dv, Wa, two, kb, kbs, kbg, has_kg, egmax)
+    if n_seg:
+        plan = plan._replace(n_seg=n_seg)
+    lay = _values_layout(K, plan.bmb, kb, kbs, kbg, has_kg, egmax, plan.S)
+    lay = (ctypes.c_int * len(lay))(*lay)
+    work = (torch.empty(plan.n_seg * Bp * out_w, dtype=f32, device=q_cat.device)
+            if plan.n_seg > 1 else None)
+    held = [None if t is None else t.contiguous() for t in (
+        q_cat, k_cat, values, scale, mask_neg, idx, g0, vw0, g1, vw1)]  # referenced until queued
+    ptr = [None if t is None else t.data_ptr() for t in held]
+    _launch("hier_parts_sm90", "hier_parts_sm90_launch", *ptr, out.data_ptr(),
+            None if work is None else work.data_ptr(), ctypes.addressof(lay), Bp, qw, cat_d,
+            sem_d, Dv, bm, bn, K, N, int(merged), int(two), int(geo0), int(lr), int(sel),
+            int(dedup), gpt0, G0, gw0, W0, gpt1, G1, gw1, W1, plan.n_seg, _stream(q_cat))
     return out
 
 
@@ -1951,62 +2083,25 @@ def _hier_parts_call(q_cat, k_cat, values, scale, mask_neg, idx, g_sem_cat,
     group sums ``g_sem_vw`` (count in column Dv) and subtracts the sem
     approximation in the kernel, as the geo one.
 
-    CPU tensors: `_hier_parts_plain`.  CUDA tensors: `csrc/hier_parts.cu`,
-    which replaces `_hier_parts_kernel` (`range_tpu/ops/retrieval_hier.py:
-    2515`); a launch failure raises.  The ``lr=False`` launches also count
-    in ``.plain_launches``."""
+    CPU tensors: `_hier_parts_plain`.  CUDA tensors: the Hopper values
+    kernel `csrc/hier_parts_sm90.cu` over `_values_plan`'s segments, which
+    replaces `_hier_parts_kernel` (`range_tpu/ops/retrieval_hier.py:
+    2515`); a shape it does not take raises ValueError before any launch,
+    a launch failure raises.  The ``lr=False`` launches also count in
+    ``.plain_launches``."""
     if q_cat.device.type == "cpu":
         return _hier_parts_plain(q_cat, k_cat, values, scale, mask_neg, idx,
                                  g_sem_cat, g_geo_cat, g_sem_vw, g_geo_vw,
                                  sem_d=sem_d, bm=bm, bn=bn, gpt_s=gpt_s,
                                  gpt_g=gpt_g, geo=geo, lr=lr)
-    bf, f32 = torch.bfloat16, torch.float32
-    ops = dict(q_cat=q_cat, k_cat=k_cat, values=values, mask_neg=mask_neg,
-               idx=idx, g_sem_cat=g_sem_cat, g_geo_cat=g_geo_cat,
-               g_sem_vw=g_sem_vw, g_geo_vw=g_geo_vw)
-    dtypes = dict(q_cat=bf, k_cat=bf, values=bf, mask_neg=f32,
-                  idx=torch.int32, g_sem_cat=bf, g_geo_cat=bf, g_sem_vw=bf,
-                  g_geo_vw=bf)
-    if scale is not None:
-        ops["scale"], dtypes["scale"], dtypes["values"] = scale, f32, torch.int8
-    _check_cuda("hier_parts", ops, dtypes)
-    Bp, cat_d = q_cat.shape
-    N, Dv = values.shape
-    nB, K = idx.shape
-    (Gs, gs_w), (Gg, gg_w) = g_sem_cat.shape, g_geo_cat.shape
-    Ws, Wg = g_sem_vw.shape[1], g_geo_vw.shape[1]
-    if (k_cat.shape != (N, cat_d) or mask_neg.shape != (1, N)
-            or (scale is not None and scale.shape != (1, N))
-            or Bp != nB * bm or bm % 64 or bn % 32 or N % bn or sem_d % 16
-            or sem_d + 16 > cat_d or cat_d % 8 or Dv % 16 or gs_w != sem_d
-            or g_sem_vw.shape[0] != Gs
-            or (Ws % 128 or Ws > 512 if lr else Ws < Dv + 1 or Ws % 8)
-            or gpt_s < 1 or bn % gpt_s
-            or (geo and (cat_d - gg_w != sem_d or gg_w % 8 or Wg < Dv + 1
-                         or Wg % 8 or g_geo_vw.shape[0] != Gg
-                         or gpt_g < 1 or bn % gpt_g))):
-        raise ValueError(
-            f"hier_parts kernel: unsupported shapes q {tuple(q_cat.shape)}, "
-            f"k {tuple(k_cat.shape)}, values {tuple(values.shape)}, idx "
-            f"{tuple(idx.shape)}, g_sem {tuple(g_sem_cat.shape)}, g_geo "
-            f"{tuple(g_geo_cat.shape)}, vw {tuple(g_sem_vw.shape)} / "
-            f"{tuple(g_geo_vw.shape)}, bm={bm}, bn={bn}, gpt {gpt_s} / "
-            f"{gpt_g}")
-    out = torch.empty((Bp, 2 * Dv + 128 + (Ws if lr else 0)), dtype=f32,
-                      device=q_cat.device)
-    if Bp and K:
-        held = [None if t is None else t.contiguous() for t in (
-            q_cat, k_cat, values, scale, mask_neg, idx, g_sem_cat, g_geo_cat,
-            g_sem_vw, g_geo_vw)]  # referenced until the launch is queued
-        ptr = [None if t is None else t.data_ptr() for t in held]
-        _launch("hier_parts", "hier_parts_launch", *ptr, out.data_ptr(), Bp,
-                cat_d, sem_d, Dv, bm, bn, gpt_s, gpt_g, K, Ws, Wg, gg_w,
-                int(geo), int(lr), int(scale is not None), _stream(q_cat))
+    out = _values_sm90("hier_parts", q_cat, k_cat, values, scale, mask_neg, idx,
+                       (g_sem_cat, g_sem_vw, gpt_s),
+                       (g_geo_cat, g_geo_vw, gpt_g) if geo else None, sem_d=sem_d,
+                       bm=bm, bn=bn, merged=True, lr=lr)
+    if q_cat.shape[0] and idx.shape[1]:
         _hier_parts_call.launches += 1
         if not lr:
             _hier_parts_call.plain_launches += 1
-    elif Bp:
-        out.zero_()
     return out
 
 

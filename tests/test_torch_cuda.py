@@ -2299,3 +2299,281 @@ def test_step_banks_serve(cuda, bn, gsz, name, bar):
            retrieval.retrieve(out[:, 1024:], None, bank, sem_temp=temp, mode="range"))
     rel = (out[:, :1024] - ref).abs() / ref.abs().clamp_min(0.1)
     assert torch.isfinite(out).all() and rel.mean().item() <= bar
+
+
+# ---- the odd-group-size banks the rr shapes refused before (a tile's
+# last chunk of the groups left over past the 64-group chunks)
+
+
+@pytest.mark.parametrize("lr", [True, False], ids=["rrlr", "rr"])
+@pytest.mark.parametrize("bn,gpt", [(288, 96), (96, 96), (480, 160), (160, 160), (224, 224)])
+def test_parts_sm90_short_last_chunk(cuda, bn, gpt, lr):
+    """Odd group sizes at an odd multiple of 32 groups a tile (3 rows at 96
+    and 160 a tile, 1 row at 96, 160 and 224): 64-group chunks end on a
+    step and the last chunk, of 32 groups, ends in the tile's masked last
+    step; each against the plain version, a request's bits the same on
+    every call."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    args, lrr = _rr_operands(cuda, Bp=256, bm=128, bn=bn, gpt=gpt, K=6, T=10,
+                             W=384 if lr else 1152, lr=lr, seed=bn + gpt)
+    kw = dict(sem_d=256, bm=128, bn=bn, gpt=gpt, geo=False, lrr=lrr, lr=lr, sel=False)
+    got = rh._hier_parts_family_call(*args, **kw)
+    again = rh._hier_parts_family_call(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _hold_rr(got, args, kw)
+
+
+@pytest.mark.parametrize("bn,gsz_sem,gsz_geo", [(288, 3, 36), (96, 1, 12), (480, 3, 60)])
+@pytest.mark.parametrize("name,bar", [("RANGE+", 0.12), ("RANGE", 0.10)])
+def test_odd_group_banks_serve(cuda, bn, gsz_sem, gsz_geo, name, bar):
+    """Banks of 96 or 160 sem groups a tile of 3 or 1 rows (8 geo groups a
+    tile) with lr / rr / lr_geo, through load_model(retrieval="hier")
+    within the defaults bank's relerr bar, at the defaults' coverage (k
+    tiles of 16 x 512 rows), kernel 14's rr shapes launched."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    bank = GeoBank.synthetic_informative(3, 20_000, pad_to=bn, value_dtype=torch.bfloat16,
+                                         device=cuda)
+    enc = load_model(name, db_path=bank, retrieval="hier", hier_bn=bn, gsz_sem=gsz_sem,
+                     gsz_geo=gsz_geo, lr_rank=256, lr_geo=384, res_rank=128,
+                     k_tiles=16 * 512 // bn)
+    coords = _coords(2000, seed=47, device=cuda)
+    fam = rh._hier_parts_family_call
+    n0 = fam.rrlr_launches
+    out = enc(coords)
+    torch.cuda.synchronize()
+    if name == "RANGE+":
+        assert fam.rrlr_launches >= n0 + 1
+    temp = enc.model.config.resolved_sem_temp()
+    ref = (retrieval.retrieve(out[:, 1024:], lonlat_deg_to_xyz(coords), bank, sem_temp=temp,
+                              beta=0.5) if name == "RANGE+" else
+           retrieval.retrieve(out[:, 1024:], None, bank, sem_temp=temp, mode="range"))
+    rel = (out[:, :1024] - ref).abs() / ref.abs().clamp_min(0.1)
+    assert torch.isfinite(out).all() and rel.mean().item() <= bar
+
+
+# ---- the Hopper values kernel (`csrc/hier_parts_sm90.cu`): kernel 15 and
+# kernel 14's value shapes.  Tolerances as the kernel checks' terms rule
+# (`_within_terms` over each segment of the output, the bf16-flip allowance
+# in max(2, B / 100) rows); the segments only re-associate the f32 sums.
+
+
+def _values_operands(cuda, *, Bp, bm, bn, K, T, gpt_s, gpt_g=8, Dv=1024, W=256, sel=0, seed=0,
+                     i8=False):
+    """Random operands of the values kernel: 256 sem + 128 geo packed
+    columns (9 real geo ones), T tiles of bn rows, gpt_s sem and gpt_g geo
+    groups a tile, each query block's list K distinct tiles, values [N,
+    Dv] (int8 codes and a row scale with ``i8``), the last 7 bank rows
+    masked; the sem centroids [Gs, 256] (``sel``: [Gs, sel], the query
+    operand carrying sel sketch columns past the keys'), the geo ones [Gg,
+    128] with 9 real columns; vw: lr coefficients [Gs, W], and the
+    full-width sums of both families [G, Dv + 128] with the group's row
+    count in column Dv."""
+    rng = np.random.default_rng(seed)
+
+    def bf(shape, scale):
+        return torch.from_numpy((scale * rng.standard_normal(shape)).astype(np.float32)).to(
+            cuda).bfloat16()
+
+    N, Gs, Gg = T * bn, T * gpt_s, T * gpt_g
+    q = bf((Bp, 384 + sel), 0.35)
+    k = bf((N, 384), 0.35)
+    q[:, 265:384] = 0
+    k[:, 265:384] = 0
+    mask = torch.zeros(1, N, device=cuda)
+    mask[0, -7:] = -1e30
+    if i8:
+        values = torch.from_numpy(rng.integers(-127, 128, (N, Dv)).astype(np.int8)).to(cuda)
+        scale = torch.from_numpy(rng.uniform(0.002, 0.01, (1, N)).astype(np.float32)).to(cuda)
+    else:
+        values, scale = bf((N, Dv), 1.0), None
+    idx = torch.from_numpy(np.stack([rng.permutation(T)[:K] for _ in range(Bp // bm)]).astype(
+        np.int32)).to(cuda)
+
+    def sums(G, gpt):
+        vw = bf((G, Dv + 128), 1.0)
+        vw[:, Dv] = float(bn // gpt)
+        vw[:, Dv + 1:] = 0
+        return vw
+
+    g_sem = bf((Gs, sel or 256), 0.35)
+    g_geo = bf((Gg, 128), 0.35)
+    g_geo[:, 9:] = 0
+    return dict(q=q, k=k, values=values, scale=scale, mask=mask, idx=idx, g_sem=g_sem,
+                g_geo=g_geo, vw_lr=bf((Gs, W), 1.0), vw_sem=sums(Gs, gpt_s),
+                vw_geo=sums(Gg, gpt_g), vw_geo_lr=bf((Gg, W), 1.0))
+
+
+def _merged_call(o, *, bm, bn, gpt_s, gpt_g, lr, geo):
+    args = (o["q"], o["k"], o["values"], o["scale"], o["mask"], o["idx"], o["g_sem"],
+            o["g_geo"], o["vw_lr"] if lr else o["vw_sem"], o["vw_geo"])
+    return args, dict(sem_d=256, bm=bm, bn=bn, gpt_s=gpt_s, gpt_g=gpt_g, lr=lr, geo=geo)
+
+
+def _family_call(o, *, bm, bn, gpt, lr, geo, sel=False, dedup=False):
+    g = o["g_geo"] if geo else o["g_sem"]
+    vw = (o["vw_geo_lr"] if geo else o["vw_lr"]) if lr else (o["vw_geo"] if geo else o["vw_sem"])
+    args = (o["q"], o["k"], o["mask"], o["idx"], g, vw, None)
+    return args, dict(sem_d=256, bm=bm, bn=bn, gpt=gpt, geo=geo, lrr=0, lr=lr,
+                      values=o["values"], scale=o["scale"], sel=sel, dedup_pad=dedup)
+
+
+def _hold_values(got, ref, mag, args, kw):
+    """Each segment of a values launch's output against the plain version
+    (`_within_terms`, bf16 flips in at most max(2, B / 100) rows): acc (each
+    family's), d, the pad columns and alr, each against its own row
+    maximum."""
+    assert got.shape == ref.shape and torch.isfinite(got).all()
+    merged = "gpt_s" in kw
+    Dv = (args[2] if merged else kw["values"]).shape[1]
+    a = 2 * Dv if merged else Dv  # acc | (acc_g) | d | pad | alr
+    segs = [slice(0, Dv), slice(a, a + (2 if merged else 1)), slice(a + (2 if merged else 1),
+                                                                    a + 128)]
+    segs += [slice(Dv, 2 * Dv)] if merged else []
+    segs += [slice(a + 128, None)] if got.shape[1] > a + 128 else []
+    for c in segs:
+        _within_terms(got[:, c], ref[:, c], mag[:, c], rows_off_max=max(2, got.shape[0] // 100))
+
+
+VALUE_FORMS = ["merged_lr", "merged_lr_geo", "merged_plain", "merged_plain_geo",
+               "family_lr_sem", "family_lr_geo", "family_plain_sem", "family_plain_geo",
+               "family_sel_lr", "family_sel_plain", "family_dedup_lr", "family_dedup_plain"]
+
+
+def _values_form(cuda, form, *, Bp, bm, bn, K, T, gpt, i8, seed, Dv=1024, W=256):
+    """Operands, keywords, the wrapper and the plain version of one form."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    geo = form.endswith("geo")
+    gpt_g = gpt if geo and form.startswith("family") else 8
+    o = _values_operands(cuda, Bp=Bp, bm=bm, bn=bn, K=K, T=T, gpt_s=gpt, gpt_g=gpt_g, Dv=Dv,
+                         W=W, sel=64 if "sel" in form else 0, seed=seed, i8=i8)
+    lr = "lr" in form
+    if form.startswith("merged"):
+        args, kw = _merged_call(o, bm=bm, bn=bn, gpt_s=gpt, gpt_g=8, lr=lr, geo=geo)
+        return args, kw, rh._hier_parts_call, rh._hier_parts_plain
+    dedup = "dedup" in form
+    if dedup:  # repeats of the entry before it in every row
+        idx = o["idx"]
+        o["idx"] = torch.cat([idx[:, :2], idx[:, 1:2], idx[:, 2:-2], idx[:, -3:-2]],
+                             1).contiguous()
+    args, kw = _family_call(o, bm=bm, bn=bn, gpt=gpt_g if geo else gpt, lr=lr, geo=geo,
+                            sel="sel" in form, dedup=dedup)
+    return args, kw, rh._hier_parts_family_call, rh._hier_parts_family_plain
+
+
+@pytest.mark.parametrize("quant", ["bf16", "int8"])
+@pytest.mark.parametrize("form", VALUE_FORMS)
+def test_values_sm90_matches_plain(cuda, form, quant):
+    """Every form of kernel 15 (lr / plain sem groups, with and without the
+    geo family) and of kernel 14's value shapes (plain / lr, sem / geo, sel
+    over 64 sketch columns, dedup_pad with repeats in every row), bf16 and
+    int8, at the flagship's widths (Dv 1,024, lr 256 columns) and the
+    flagship's 32 groups a tile of 512 rows, against the plain version."""
+    args, kw, call, plain = _values_form(cuda, form, Bp=384, bm=128, bn=512, K=12, T=24,
+                                         gpt=32, i8=quant == "int8", seed=len(form))
+    got = call(*args, **kw)
+    again = call(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _hold_values(got, plain(*args, **kw), plain(*args, **kw, magnitude=True), args, kw)
+
+
+# (bn, gpt) of the groupings csrc/hier_parts.cu took: 8 to 512 groups a
+# tile of 512 rows (64-group chunks past 64, groups of one row at 512),
+# 128- and 64-row tiles, 96- and 160-row tiles (a masked last step), and
+# odd group sizes at an odd multiple of 32 a tile (a short last chunk)
+VALUE_GROUPINGS = [(512, 8), (512, 16), (512, 64), (512, 128), (512, 256), (512, 512),
+                   (128, 8), (64, 16), (96, 8), (160, 8), (288, 96), (160, 160), (96, 32)]
+
+
+@pytest.mark.parametrize("form", ["merged_plain_geo", "merged_lr", "family_plain_sem",
+                                  "family_lr_geo"])
+@pytest.mark.parametrize("bn,gpt", VALUE_GROUPINGS)
+def test_values_sm90_every_grouping(cuda, bn, gpt, form):
+    """Each grouping through the merged plain (both families: the sem and
+    the geo chunks), merged lr (the alr blocks), family plain and the geo
+    family's lr launch, against the plain version."""
+    args, kw, call, plain = _values_form(cuda, form, Bp=256, bm=128, bn=bn, K=8, T=12,
+                                         gpt=gpt, i8=False, seed=bn + gpt)
+    _hold_values(call(*args, **kw), plain(*args, **kw), plain(*args, **kw, magnitude=True),
+                 args, kw)
+
+
+@pytest.mark.parametrize("Dv,W", [(128, 128), (640, 512), (1024, 384)])
+@pytest.mark.parametrize("form", ["merged_lr_geo", "family_lr_sem", "family_plain_geo"])
+def test_values_sm90_widths(cuda, form, Dv, W):
+    """Value widths of one slice and of a ragged last slice (640: two and a
+    half), alr widths of one and two blocks: the columns past each slice
+    are never written, every column of the output is."""
+    args, kw, call, plain = _values_form(cuda, form, Bp=256, bm=128, bn=256, K=6, T=10, gpt=16,
+                                         i8=False, seed=Dv + W, Dv=Dv, W=W)
+    _hold_values(call(*args, **kw), plain(*args, **kw), plain(*args, **kw, magnitude=True),
+                 args, kw)
+
+
+@pytest.mark.parametrize("bm", [64, 128, 256])
+@pytest.mark.parametrize("form", ["merged_lr", "family_plain_sem", "family_dedup_lr"])
+def test_values_sm90_plans_agree(cuda, form, bm, monkeypatch):
+    """The plan's cut, one segment a list, a segment a tile, and 64 queries
+    a block beside 128: each the plain version's answer, a request's bits
+    the same on every call of one plan."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    args, kw, call, plain = _values_form(cuda, form, Bp=512, bm=bm, bn=512, K=10, T=24, gpt=32,
+                                         i8=False, seed=bm)
+    ref, mag = plain(*args, **kw), plain(*args, **kw, magnitude=True)
+    real = rh._values_sm90
+    plans = [None, rh.ValuesPlan(64, 1, 2), rh.ValuesPlan(64, 10, 2)]
+    if bm % 128 == 0:
+        plans.append(rh.ValuesPlan(128, 3, 2))
+    for plan in plans:
+        # the wrappers look the launcher up in the module: fix its plan
+        monkeypatch.setattr(rh, "_values_sm90", lambda *a, _p=plan, **k: real(*a, **k, plan=_p))
+        got = call(*args, **kw)
+        again = call(*args, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        _hold_values(got, ref, mag, args, kw)
+
+
+def test_values_sm90_rejects_what_it_does_not_take(cuda):
+    """Key widths past four 64-column boxes, f32 operands, and an lr width
+    past 512 raise before any launch; nothing falls back."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    args, kw, call, _ = _values_form(cuda, "merged_lr_geo", Bp=128, bm=128, bn=128, K=4, T=6,
+                                     gpt=8, i8=False, seed=1)
+    with pytest.raises(ValueError, match="unsupported shapes"):
+        call(*args, **{**kw, "sem_d": 320})
+    with pytest.raises(ValueError, match="bfloat16"):
+        call(args[0].float(), *args[1:], **kw)
+    args, kw, call, _ = _values_form(cuda, "family_lr_sem", Bp=128, bm=128, bn=128, K=4, T=6,
+                                     gpt=8, i8=False, seed=1, W=640)
+    with pytest.raises(ValueError, match="unsupported shapes"):
+        call(*args, **kw)
+
+
+def test_values_wrappers_never_launch_hier_parts_cu(cuda, monkeypatch):
+    """`csrc/hier_parts.cu` stays only as chip_smoke.py's yardstick: every
+    merged launch and every value shape of the family call, bf16 and int8,
+    load the Hopper values kernel's library alone."""
+    from range_tpu_torch.kernels import _build
+
+    loaded = []
+    real = _build.load_kernel_library
+
+    def spy(name):
+        loaded.append(name)
+        return real(name)
+
+    monkeypatch.setattr(_build, "load_kernel_library", spy)
+    for form in VALUE_FORMS:
+        for i8 in (False, True):
+            args, kw, call, _ = _values_form(cuda, form, Bp=128, bm=128, bn=128, K=4, T=6,
+                                             gpt=8, i8=i8, seed=3)
+            call(*args, **kw)
+    torch.cuda.synchronize()
+    assert set(loaded) == {"hier_parts_sm90"}

@@ -191,7 +191,9 @@ DGLOB = {(512, 512), (832, 416), (1792, 448)}
 def _kernel_group_rows(bn: int, gpt: int) -> dict:
     """Replays the kernel's walk of one tile's groups (warpgroup 2 of
     `csrc/hier_parts_family_sm90.cu`): 64-row steps in chunks of EG groups
-    (a chunk ends on a step or is the tile), the tile's last step masked
+    (a chunk ends on a step or is the tile; where EG does not divide gpt
+    the last chunk holds the groups left over and ends where the tile
+    ends), the tile's last step masked
     past its rows (ceil(bn / 64) steps, the last counting its nu_last units
     only), each step's sums over units of gcd(gsz, 64) rows, and the
     counters that close a group (at its unit, across steps, or through the
@@ -201,18 +203,21 @@ def _kernel_group_rows(bn: int, gpt: int) -> dict:
     EG, NG = th._parts_groups(gpt, gsz)
     u = math.gcd(gsz, 64)
     nu, upg = 64 // u, gsz // u
-    assert (EG, NG) in KERNEL_GROUPS and gpt % EG == 0 and NG >= nu
+    assert (EG, NG) in KERNEL_GROUPS and NG >= nu
     assert EG * gsz % 64 == 0 or EG == gpt
+    chunks = -(-gpt // EG)  # the last one what is left past the others
     chunk_steps = -(-EG * gsz // 64)
     spt = -(-bn // 64)
+    cs_last = spt - (chunks - 1) * chunk_steps  # it ends where the tile ends
     nu_last = (bn - (spt - 1) * 64) // u
     units = nu > 1 and upg > 1
     ng, gsteps = (0 if units else nu), (upg if nu == 1 else 1)
     rows, run, uc, gs, acc = {}, [], 0, 0, None
-    for c in range(gpt // EG):
+    for c in range(chunks):
         ci = 0
-        for cs in range(chunk_steps):
-            last = cs + 1 == chunk_steps and c + 1 == gpt // EG
+        csteps = cs_last if c + 1 == chunks else chunk_steps
+        for cs in range(csteps):
+            last = cs + 1 == csteps and c + 1 == chunks
             nu_step = nu_last if last else nu
             r0 = (c * chunk_steps + cs) * 64
             step = [list(range(r0 + k * u, r0 + (k + 1) * u)) for k in range(nu)]
@@ -265,6 +270,72 @@ def test_parts_shapes_take_every_group_size(bn, gpt):
     assert (plan.direct, plan.dglob) == ((bn, gpt) in DIRECT, (bn, gpt) in DGLOB)
     assert th._parts_fits(th._parts_layout(*shape[:-1], plan.seg_cap, plan.S, plan.direct,
                                            plan.dglob))
+
+
+# odd group sizes at an odd multiple of 32 groups a tile (3 rows at 96 and
+# 160 a tile, 1 row at 96 and 160): 64-group chunks, then a last chunk of
+# 32 ending in the tile's masked last step
+SHORT_LAST_CHUNK = [(288, 96), (96, 96), (480, 160), (160, 160)]
+
+
+@pytest.mark.parametrize("bn,gpt", SHORT_LAST_CHUNK)
+def test_parts_walk_over_a_short_last_chunk(bn, gpt):
+    """The walk at groupings whose tile 64-group chunks do not divide (96
+    or 160 groups): every group summed over exactly its rows, the last
+    chunk of 32 groups closing at the tile's end; the launch's checks take
+    them and the plan fits a block at the flagship's widths."""
+    gsz = bn // gpt
+    EG, _ = th._parts_groups(gpt, gsz)
+    assert EG == 64 and gpt % EG == 32 and bn % 64 == 32
+    rows = _kernel_group_rows(bn, gpt)
+    assert sorted(rows) == list(range(gpt))
+    for g, r in rows.items():
+        assert r == list(range(g * gsz, (g + 1) * gsz)), g
+    args, lrr = _rr_operands(np.random.default_rng(gpt), Bp=128, T=4, bn=bn, gpt=gpt)
+    sh = th._parts_shapes(*args, sem_d=256, bm=128, bn=bn, gpt=gpt, geo=False, lrr=lrr,
+                          lr=True, sel=False)
+    shape = (32, bn, gpt, sh["kf"], sh["gwe"], sh["share"], 128, sh["acols"], sh["out_w"])
+    plan = th._parts_plan(10_112, *shape)
+    assert th._parts_fits(th._parts_layout(*shape[:-1], plan.seg_cap, plan.S, plan.direct,
+                                           plan.dglob))
+    assert _launch_takes(bn, gpt, plan.direct, plan.dglob)
+
+
+def _launch_takes(bn: int, gpt: int, direct: bool, dglob: bool) -> bool:
+    """The group checks of `hier_parts_family_sm90_launch` (the (EG, NG)
+    pair the layout gives, `_parts_groups`), transcribed."""
+    if gpt < 8 or bn % gpt or (32 % gpt if gpt <= 32 else gpt % 32):
+        return False
+    gsz = bn // gpt
+    EG, NG = th._parts_groups(gpt, gsz)
+    lu = ((gsz | 64) & -(gsz | 64)).bit_length() - 1
+    nu = 64 >> lu
+    rare = (EG == 16 and NG in (16, 32)) or (EG == 8 and NG in (16, 32))
+    common = {(8, 8), (16, 8), (32, 8), (32, 16), (32, 32), (64, 64)}
+    return not (EG <= 0 or EG > gpt or ((EG * gsz) % 64 and EG != gpt) or NG < nu
+                or not ((EG, NG) in common or rare or direct)
+                or (direct and (NG != 64 or lu != 0)) or (dglob and gpt % 16))
+
+
+@pytest.mark.parametrize("bn", [64, 96, 128, 160, 192, 224, 288, 320, 384, 480, 512, 768])
+def test_parts_shapes_refuse_what_the_launch_refuses(bn):
+    """Every group count of every tile height: `_parts_shapes` raises its
+    shape error exactly where no layout gets the launch's group checks to
+    pass (`_launch_takes`), and where it does not raise, the plan's
+    layout passes them: no shape reaches the launch and fails there."""
+    for gpt in [d for d in range(1, bn + 1) if bn % d == 0]:
+        args, lrr = _rr_operands(np.random.default_rng(gpt), Bp=128, T=4, bn=bn, gpt=gpt)
+        kw = dict(sem_d=256, bm=128, bn=bn, gpt=gpt, geo=False, lrr=lrr, lr=True, sel=False)
+        try:
+            sh = th._parts_shapes(*args, **kw)
+        except ValueError as e:
+            assert "unsupported shapes" in str(e)
+            assert not any(_launch_takes(bn, gpt, d, g) for d in (False, True)
+                           for g in (False, True)), (bn, gpt)
+            continue
+        plan = th._parts_plan(1024, 8, bn, gpt, sh["kf"], sh["gwe"], sh["share"], 128,
+                              sh["acols"], sh["out_w"])
+        assert _launch_takes(bn, gpt, plan.direct, plan.dglob), (bn, gpt)
 
 
 # ---- the segmented arithmetic in plain PyTorch
@@ -562,6 +633,45 @@ def test_bn96_gsz12_bank_serves_through_load_model_as_jax(tmp_path, name):
     hb = enc.model.bank
     assert (hb.bn, hb.bn // hb.gsz_sem, hb.bn // hb.gsz_geo) == (96, 8, 8)
     rng = np.random.default_rng(7)
+    rows = np.repeat(rng.integers(0, 3000, 8), 32)
+    c = np.asarray(jb.locs_lonlat)[rows] + rng.normal(0, 3.0, (256, 2))
+    c[:, 0] = (c[:, 0] + 180) % 360 - 180
+    c[:, 1] = np.clip(c[:, 1], -89.9, 89.9)
+    c = c.astype(np.float32)
+    want = np.asarray(jenc(jnp.asarray(c)))
+    got = enc(c).numpy()
+    assert got.shape == want.shape == (256, 384) and np.isfinite(got).all()
+    err = np.abs(got - want)
+    assert np.all(err <= 4e-3 * np.abs(want).max(axis=1, keepdims=True)), err.max()
+    assert err.mean() < 1e-5
+
+
+@pytest.mark.parametrize("name", ["RANGE+", "RANGE"])
+def test_bn288_gsz3_bank_serves_through_load_model_as_jax(tmp_path, name):
+    """288-row tiles of 3-row sem groups (96 a tile: two chunks, the last
+    of 32 groups ending in a masked last step on the card) and 36-row geo
+    groups (8 a tile), with lr / rr / lr_geo: JAX builds the bank and saves
+    its hier cache, the port's `load_model(retrieval="hier", device="cpu")`
+    loads that archive and answers as JAX's `load_model` does, the tower's
+    weights carried across.  Tolerance as the bn 96 bank's above."""
+    import range_tpu
+    from range_tpu.bank.bank import GeoBank as JaxGeoBank
+    from range_tpu_torch import load_model
+    from range_tpu_torch.convert.from_jax import geobank_from_arrays, siren_params_from_jax
+
+    jb = JaxGeoBank.synthetic_informative(5, 3000, key_dim=256, value_dim=128, pad_to=288,
+                                          value_dtype=jnp.bfloat16)
+    kw = dict(retrieval="hier", hier_bn=288, gsz_sem=3, gsz_geo=36, lr_rank=128, lr_geo=128,
+              res_rank=128, k_tiles=6, k_geo=3, hier_cache=str(tmp_path / "hb.npz"),
+              chunk=512, seed=0)
+    jenc = range_tpu.load_model(name, db_path=jb, **kw)
+    enc = load_model(name, db_path=geobank_from_arrays(jb.locs_lonlat, jb.xyz, jb.keys_sem,
+                                                       jb.values, jb.n_valid),
+                     device="cpu", **kw)
+    enc.model.query_encoder.nnet.load_state_dict(siren_params_from_jax(jenc.params))
+    hb = enc.model.bank
+    assert (hb.bn, hb.bn // hb.gsz_sem, hb.bn // hb.gsz_geo) == (288, 96, 8)
+    rng = np.random.default_rng(11)
     rows = np.repeat(rng.integers(0, 3000, 8), 32)
     c = np.asarray(jb.locs_lonlat)[rows] + rng.normal(0, 3.0, (256, 2))
     c[:, 0] = (c[:, 0] + 180) % 360 - 180
