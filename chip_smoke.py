@@ -6,7 +6,7 @@ family parts kernel's plain / lr / rr shapes and their sel and dedup_pad
 forms, the refine kernel's has_parts form, the combine without lr_geo,
 the int8 forms of the parts and pruned kernels, and kernel 2's two bodies:
 the Hopper kernel of its bf16 tiers and the mma.sync body of its f32 tier)
-from the fourteen sources of `range_tpu_torch/csrc/` (one nvcc per source,
+from the fifteen sources of `range_tpu_torch/csrc/` (one nvcc per source,
 all started together), holds each against its plain PyTorch version at the
 main paths' shapes, prints kernel 2's Hopper kernel's drift for each length
 of its accumulation chain and its time beside the mma.sync body's at B = 1,
@@ -30,7 +30,13 @@ mma.sync body (`csrc/hier_parts.cu`, launched here alone as the same-run
 yardstick) at B = 1, 37, 1,000 and 10,000: kernel 15 lr at the RANGE
 flagship and plain at the JAX defaults, bf16 and int8 values, kernel 14's
 plain and lr shapes (both families), sel and dedup_pad forms, each with
-its bound and share and (kernel 15) the drift of each segment length
+its bound and share and (kernel 15) the drift of each segment length,
+and kernels 10 and 11 (the top-k endpoint's argmax and k-carry) on their
+Hopper body (`csrc/hier_argmax_sm90.cu`, its ptxas log held to no spill
+and no serialized wgmma) beside their mma.sync body (`csrc/hier_argmax.cu`,
+launched here alone as the same-run yardstick) at B = 1, 37, 1,000 and
+10,000, each batch its own `hier_topk` request at k = 1 and 8, with its
+bound, share and (B = 1,000, 10,000) the time of each segment count
 (same-run times on CUDA events), then
 drives the serving paths at full width (SatCLIP SH-L40 -> SIREN
 1600->256->256->256 tower, 100,000-row bank with 256-d keys and bf16
@@ -128,6 +134,7 @@ import dataclasses
 import functools
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -146,8 +153,13 @@ L, WIDTH = 40, 256
 # (name, source, the TPU kernel it replaces)
 SOURCES = ("siren_tower", "fused_retrieval_sm90", "fused_retrieval", "hier_scan_sm90",
            "hier_parts_family_sm90", "hier_parts_family", "combine_cat", "hier_scan_stats",
-           "hier_argmax", "hier_parts_sm90", "hier_parts", "sh_times", "hier_refine",
-           "hier_corr")
+           "hier_argmax_sm90", "hier_argmax", "hier_parts_sm90", "hier_parts", "sh_times",
+           "hier_refine", "hier_corr")
+# sources whose ptxas log must show no spill and no serialized wgmma
+# (C7512: too few registers; C7514: issued in a loop or under a condition;
+# C7520: divergent code between issue and wait)
+PTXAS_CLEAN = ("hier_argmax_sm90",)
+WGMMA_WARNINGS = ("C7512", "C7514", "C7520")
 KERNELS = (("siren_tower", "siren_tower", "range_tpu/ops/sh.py:726"),
            ("fused_retrieval", "fused_retrieval_sm90", "range_tpu/ops/retrieval_pallas.py:123"),
            # kernel 2's 'exact' tier (f32 logits) on the mma.sync body
@@ -157,8 +169,8 @@ KERNELS = (("siren_tower", "siren_tower", "range_tpu/ops/sh.py:726"),
            ("hier_parts_family", "hier_parts_family_sm90", "range_tpu/ops/retrieval_hier.py:2282"),
            ("combine_cat", "combine_cat", "range_tpu/ops/retrieval_hier.py:3102"),
            ("hier_scan_stats", "hier_scan_stats", "range_tpu/ops/retrieval_hier.py:1582"),
-           ("hier_argmax", "hier_argmax", "range_tpu/ops/retrieval_hier.py:1645"),
-           ("hier_topk", "hier_argmax", "range_tpu/ops/retrieval_hier.py:1682"),
+           ("hier_argmax", "hier_argmax_sm90", "range_tpu/ops/retrieval_hier.py:1645"),
+           ("hier_topk", "hier_argmax_sm90", "range_tpu/ops/retrieval_hier.py:1682"),
            ("hier_parts", "hier_parts_sm90", "range_tpu/ops/retrieval_hier.py:2515"),
            ("sh_times", "sh_times", "range_tpu/ops/sh.py:539"),
            ("hier_refine", "hier_refine", "range_tpu/ops/retrieval_hier.py:2077"),
@@ -395,6 +407,13 @@ def _build_all(pool, jobs, t0):
             if ("Compiling entry" in line or "registers" in line or "spill" in line
                     or "warning" in line):
                 print(f"  ptxas: {line.strip()}")
+        if name in PTXAS_CLEAN:
+            spill = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+            bad = [line.strip() for line in log.splitlines()
+                   if any(code in line for code in WGMMA_WARNINGS)
+                   or any(int(n) for m in spill.finditer(line) for n in m.groups())]
+            if bad:
+                raise AssertionError(f"ptxas on {name}: spills or serialized wgmma: {bad}")
 
 
 def _sm90_drift(bank, q, q_xyz, mask, flip_atol) -> None:
@@ -1497,6 +1516,128 @@ def _compare_klist(name, got, ref, q2, ql, hb, tol, why):
     return err, err / tol
 
 
+def _klist_launch(args, kw, k: int, plan=None):
+    """The Hopper top-k kernel and its fold (`_klist_kernel`, the unsorted
+    list) with these arguments, ``plan`` overriding `_klist_plan`'s;
+    counted nowhere."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    entry = "hier_argmax_sm90_launch" if k == 1 else "hier_topk_sm90_launch"
+    return rh._klist_kernel(entry, *args, k=k, plan=plan, **kw)
+
+
+def _klist_mma_sync(args, kw, k: int):
+    """Kernels 10 and 11 on their mma.sync body (`csrc/hier_argmax.cu`, the
+    body before the Hopper kernel), launched here alone as the same-run
+    yardstick of `_klist_turns`: no path of the port reaches it, and it
+    counts nowhere.  Returns the unsorted list (scores, rows) [Bp, k]."""
+    from range_tpu_torch.kernels._build import load_kernel_library
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    q2, ql, khl, mask, idx = args
+    Bp, K = q2.shape[0], idx.shape[1]
+    scores = torch.empty((Bp, k), dtype=torch.float32, device=q2.device)
+    rows = torch.empty((Bp, k), dtype=torch.int32, device=q2.device)
+    lib = load_kernel_library("hier_argmax")
+    ptrs = [t.data_ptr() for t in (q2, ql, khl, mask, idx, scores, rows)]
+    shape = (Bp, kw["Dk"], kw["bm"], kw["bn"], K)
+    rc = (lib.hier_argmax_launch(*ptrs, *shape, rh._stream(q2)) if k == 1
+          else lib.hier_topk_launch(*ptrs, *shape, k, rh._stream(q2)))
+    if rc != 0:
+        raise RuntimeError(f"hier_argmax (mma.sync) launch failed: CUDA error {rc}")
+    return scores, rows
+
+
+def _klist_bound(args, kw, b: int, k: int):
+    """(bound ms, what bounds it) of one argmax / top-k launch over b real
+    queries: the hi/lo logits (3 Dk deep) over the selected tiles; the
+    queries, the union of the selected tiles' keys and mask read once, the
+    list written once."""
+    q2, ql, khl, mask, idx = args
+    Dk, bn, K = kw["Dk"], kw["bn"], idx.shape[1]
+    U = int(torch.unique(idx).numel())
+    flops = 2 * b * K * bn * 3 * Dk
+    n_bytes = b * 3 * Dk * 2 + U * bn * (2 * Dk * 2 + 4) + b * k * 8
+    return _bound(n_bytes, flops, BF16_FLOPS)
+
+
+def _klist_request(q, x, hb, b: int):
+    """The argmax / top-k operands of a `hier_topk` request of the first b
+    queries at its own budget (`_topk_budget`: bm and K), as the endpoint
+    makes them: queries padded, sorted, split hi/lo; the tiles its stats
+    (over g_topk_cat, mode 'range') select.  Returns (args, kw)."""
+    from range_tpu_torch.ops import retrieval_fused as rf
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    k_tiles, bm, j_sem = rh._topk_budget(b, TOPK_K, 256, 6)
+    q_s, q_x = rh._pad_queries(q[:b], x[:b], bm)
+    order = rh._hybrid_order(q_x, b)
+    q_cat = rf.pack_queries(q_s, None, 12.0, 40.0, hb.tier)[order].contiguous()
+    qh, ql = rf._split_hilo(q_s)
+    stats = rh._hier_scan_stats_call(q_cat, hb.g_topk_cat, hb.g_geo_cat,
+                                     gpt_s=hb.bn // hb.topk_gsz, gpt_g=hb.bn // hb.gsz_geo)
+    idx, _ = rh.select_tiles(*stats, t_real=hb.t_real, k_tiles=k_tiles, bm=bm, n_valid=b,
+                             j_sem=j_sem, mode="range")
+    args = (torch.cat([qh, qh], 1)[order].contiguous(), ql[order].contiguous(), hb.khl_sem,
+            hb.mask_neg, idx)
+    return args, dict(Dk=hb.bank.key_dim, bm=bm, bn=hb.bn)
+
+
+def _klist_turns(tag: str, args, kw, k: int, b: int, calls: int = 5) -> tuple:
+    """The Hopper top-k kernel (with its fold) beside its mma.sync body
+    (`_klist_mma_sync`) at one request, in turns body, kernel, kernel, body
+    on CUDA events (`_turns_ms`; neither counted), with its bound and share
+    (`_klist_bound`, b real queries).  A kernel slower than the body is
+    printed as such.  Returns (the kernel's ms, the body's ms, bound ms,
+    what bounds it)."""
+    t = _turns_ms((("body", lambda: _klist_mma_sync(args, kw, k)),
+                   ("kernel", lambda: _klist_launch(args, kw, k)),
+                   ("kernel", lambda: _klist_launch(args, kw, k)),
+                   ("body", lambda: _klist_mma_sync(args, kw, k))), calls)
+    b_ms, b_by = _klist_bound(args, kw, b, k)
+    slower = "" if t["kernel"] < t["body"] else "; SLOWER than the mma.sync body"
+    print(f"{tag}: Hopper kernel {t['kernel']:.4f} ms, mma.sync body {t['body']:.4f} ms "
+          f"(CUDA events, turns body, kernel, kernel, body; {t['body'] / t['kernel']:.2f}x); "
+          f"bound {b_ms:.4f} ms ({b_by}), share {b_ms / t['kernel']:.4f}{slower}")
+    return t["kernel"], t["body"], b_ms, b_by
+
+
+def _klist_batches(q, x, hb, why: str) -> dict:
+    """Kernels 10 and 11 on each batch of REQUESTS, each its own
+    `hier_topk` request (`_klist_request`: its plan's bm and K), at k = 1
+    and 8: held against the plain version (sorted as the wrappers sort,
+    `_compare_klist`, 1e-5, rows off only at near-ties) and timed in turns
+    beside the mma.sync body (`_klist_turns`); at B = 10,000 and 1,000 the
+    kernel's time for each segment count is printed too.  Returns {k: the
+    B = 10,000 turn's (ms, body ms, bound ms, what bounds it, max error,
+    error over tolerance)}."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    out = {}
+    for b in REQUESTS:
+        args, kw = _klist_request(q, x, hb, b)
+        K = args[4].shape[1]
+        plan = rh._klist_plan(args[0].shape[0], kw["bm"], K, kw["bn"], kw["Dk"], 8)
+        for k in (1, 8):
+            tag = f"hier_{'argmax' if k == 1 else 'topk'} k={k} B={b} K={K} bm={kw['bm']}"
+            err, ratio = _compare_klist(
+                f"{tag} (plan {tuple(plan)}) vs plain",
+                rh._sort_klist(*_klist_launch(args, kw, k)),
+                rh._sort_klist(*rh._hier_klist_plain(*args, k=k, **kw)),
+                args[0], args[1], hb, 1e-5, why)
+            res = _klist_turns(tag, args, kw, k, b)
+            if b == BATCH:
+                out[k] = res + (err, ratio)
+            if b in (SMALL_BATCH, BATCH):
+                segs = sorted({n for n in (1, 2, 3, 4, 6, 8, 12, 16, 24, 36, 48, 72, 144)
+                               if n <= K} | {plan.n_seg})
+                times = [f"{n}: {_cuda_ms(lambda: _klist_launch(args, kw, k, plan._replace(n_seg=n)), 5):.4f}"
+                         for n in segs]
+                print(f"{tag}: ms by segments a list (CUDA events; the plan's {plan.n_seg}): "
+                      + ", ".join(times))
+    return out
+
+
 def _drive(tag: str, fn, expected: dict):
     """Run fn() with every launch count set to 0 just before, read them
     just after, and assert they equal `expected` (others 0)."""
@@ -1616,13 +1757,14 @@ def topk_phases(dev, gen, report, hb, enc) -> float:
 
     idx, _ = rh.select_tiles(*stats, t_real=hb.t_real, k_tiles=k_tiles, bm=bm,
                              n_valid=BATCH, j_sem=j_sem, mode="range")
-    Dk, K = hb.bank.key_dim, idx.shape[1]
-    U = int(torch.unique(idx).numel())  # tiles read, each once
+    K = idx.shape[1]
     why = ("f32 sums of 768 bf16 products, |l| <= ~1, in tensor-core and cuBLAS order; "
            "rows may differ only at near-ties")
+    # the Hopper kernel beside its mma.sync body at B = 1, 37, 1,000, 10,000
+    turns = _klist_batches(q, x, hb, why)
     for name, k in (("hier_argmax", 1), ("hier_topk", 8)):
         args = (q2, ql, hb.khl_sem, hb.mask_neg, idx)
-        kw = dict(Dk=Dk, bm=bm, bn=hb.bn)
+        kw = dict(Dk=hb.bank.key_dim, bm=bm, bn=hb.bn)
         if k == 1:
             call, plain = rh._hier_argmax_call, rh._hier_argmax_plain
         else:
@@ -1630,16 +1772,12 @@ def topk_phases(dev, gen, report, hb, enc) -> float:
             kw["k"] = k
         err, ratio = _compare_klist(f"{name} k={k} B={BATCH} K={K}", call(*args, **kw),
                                     plain(*args, **kw), q2, ql, hb, 1e-5, why)
-        ms = _cuda_ms(lambda: call(*args, **kw), 10)
         plain_ms = _cuda_ms(lambda: plain(*args, **kw), 3)
-        print(f"{name} k={k} B={BATCH} K={K}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-        # the work needed: the hi/lo logits (3 Dk deep) over the selected
-        # tiles; the union of the selected tiles' keys and mask read once
-        flops = 2 * BATCH * K * hb.bn * 3 * Dk
-        n_bytes = (BATCH * 3 * Dk * 2 + U * hb.bn * (2 * Dk * 2 + 4) + BATCH * k * 8)
-        b_ms, b_by = _bound(n_bytes, flops, BF16_FLOPS)
-        report[name] = dict(max_abs_err=err, err_over_tol=ratio, ms=ms, plain_ms=plain_ms,
-                            bound_ms=b_ms, bound_by=b_by)
+        ms, _, b_ms, b_by, t_err, t_ratio = turns[k]
+        print(f"{name} k={k} B={BATCH} K={K}: kernel {ms:.4f} ms (and its fold; CUDA events "
+              f"in turns), plain {plain_ms:.3f} ms")
+        report[name] = dict(max_abs_err=max(err, t_err), err_over_tol=max(ratio, t_ratio),
+                            ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
 
     # ---- 10. the paths, each with its launches counted, and recall@1
     true = retrieval.exact_nn(q, hb.bank)

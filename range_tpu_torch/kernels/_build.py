@@ -26,11 +26,11 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # sources of several heavy kernel instances (hier_parts: 16,
-# fused_retrieval_sm90: 15, hier_parts_sm90: 2 of many inlined variants),
-# whose kernels nvcc compiles in parallel threads
+# fused_retrieval_sm90: 15, hier_parts_sm90: 2 of many inlined variants,
+# hier_argmax_sm90: 32), whose kernels nvcc compiles in parallel threads
 SPLIT_FLAGS = {name: ["-split-compile=0"]
                for name in ("hier_parts", "hier_parts_family_sm90", "fused_retrieval_sm90",
-                            "hier_parts_sm90")}
+                            "hier_parts_sm90", "hier_argmax_sm90")}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points and their argument types, per kernel library
@@ -65,6 +65,8 @@ _SIGNATURES = {
     "combine_cat": {"combine_cat_launch": [_P] * 7 + [_I] * 8 + [_F, _P]},
     "hier_argmax": {"hier_argmax_launch": [_P] * 7 + [_I] * 5 + [_P],
                     "hier_topk_launch": [_P] * 7 + [_I] * 6 + [_P]},
+    "hier_argmax_sm90": {"hier_argmax_sm90_launch": [_P] * 8 + [_I] * 9 + [_P],
+                         "hier_topk_sm90_launch": [_P] * 8 + [_I] * 10 + [_P]},
 }
 
 

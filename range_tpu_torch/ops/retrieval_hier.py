@@ -2257,10 +2257,57 @@ def _hier_topk_plain(q2, ql, khl, mask_neg, idx, *, Dk: int, k: int,
                                           k=k, bm=bm, bn=bn))
 
 
+KLIST_BN = 64  # bank rows a step of the top-k kernel: one wgmma N
+# the top-k kernel's cost of a block's start-up (its queries, the ring's
+# first stages, its share of the fold), in steps of KLIST_BN rows
+KLIST_STARTUP_STEPS = 8
+
+
+class KlistPlan(NamedTuple):
+    """The top-k kernel's plan: ``bmb`` queries a block (128: both halves
+    of a selection block on one ring; 64), ``n_seg`` segments of each list
+    (segment s a block's entries [s K / n_seg, (s + 1) K / n_seg)), ``S``
+    ring stages."""
+    bmb: int
+    n_seg: int
+    S: int
+
+
+def _klist_smem(bmb: int, Dk: int, S: int) -> int:
+    """Shared memory of a top-k block (`layout` in csrc/hier_argmax_sm90.cu):
+    each query half's ql boxes, S stages of kh and kl boxes (64 rows of 64
+    columns, 8 KB each), their masks, each consumer warp's 2 KB scratch,
+    the barriers, the alignment slack."""
+    box = KLIST_BN * 128
+    kb = -(-Dk // 64)
+    return (bmb // 64 * (kb * box + 4 * 2048) + S * (2 * kb * box + KLIST_BN * 4)
+            + 8 * (1 + 2 * S) + 1024)
+
+
+@functools.lru_cache(maxsize=256)
+def _klist_plan(Bp: int, bm: int, K: int, bn: int, Dk: int, k: int) -> KlistPlan:
+    """The top-k kernel's plan, a function of the shape alone: 128 queries
+    a block where bm allows it; the deepest ring of 4, 3, 2 stages that
+    fits; the segment count of least modelled time, ties to the fewest:
+    waves of blocks on the card's 132 SMs (one block an SM) times a
+    block's steps plus its start-up (KLIST_STARTUP_STEPS).  k does not
+    change it.  lru-cached: serving asks for the same few shapes."""
+    bmb = 128 if bm % 128 == 0 else 64
+    S = next(S for S in (4, 3, 2) if _klist_smem(bmb, Dk, S) <= _SM90_MAX_SMEM)
+    n_qb, spt = Bp // bmb, -(-bn // KLIST_BN)
+
+    def cost(n):
+        return -(-n_qb * n // SM90_SMS) * (-(-K // n) * spt + KLIST_STARTUP_STEPS)
+
+    return KlistPlan(bmb, min(range(1, K + 1), key=lambda n: (cost(n), n)), S)
+
+
 def _klist_kernel(entry: str, q2, ql, khl, mask_neg, idx, *, Dk: int, k: int,
-                  bm: int, bn: int):
-    """Launch `csrc/hier_argmax.cu`'s entry point ``entry``: the unsorted
-    running list (scores [Bp, k] f32, rows [Bp, k] int32)."""
+                  bm: int, bn: int, plan: Optional[KlistPlan] = None):
+    """Launch `csrc/hier_argmax_sm90.cu`'s entry point ``entry`` over
+    `_klist_plan`'s segments (``plan`` overrides it) and its fold: the
+    unsorted running list (scores [Bp, k] f32, rows [Bp, k] int32).  A
+    shape the kernel does not take raises ValueError before any launch."""
     bf = torch.bfloat16
     ops = dict(q2=q2, ql=ql, khl=khl, mask_neg=mask_neg, idx=idx)
     _check_cuda("hier_argmax", ops, dict(q2=bf, ql=bf, khl=bf,
@@ -2270,8 +2317,8 @@ def _klist_kernel(entry: str, q2, ql, khl, mask_neg, idx, *, Dk: int, k: int,
     nB, K = idx.shape
     if (q2.shape != (Bp, 2 * Dk) or ql.shape != (Bp, Dk)
             or khl.shape != (N, 2 * Dk) or mask_neg.shape != (1, N)
-            or Bp != nB * bm or bm % 64 or bn % 32 or N % bn or Dk % 16
-            or Dk > 256 or K < 1 or not 1 <= k <= 8):
+            or Bp != nB * bm or bm % 64 or bn < 32 or bn % 32 or N % bn or N == 0
+            or Dk % 8 or not 8 <= Dk <= 256 or K < 1 or not 1 <= k <= 8):
         raise ValueError(
             f"hier_argmax kernel: unsupported shapes q2 {tuple(q2.shape)}, "
             f"ql {tuple(ql.shape)}, khl {tuple(khl.shape)}, idx "
@@ -2280,10 +2327,13 @@ def _klist_kernel(entry: str, q2, ql, khl, mask_neg, idx, *, Dk: int, k: int,
     scores = torch.empty((Bp, k), dtype=torch.float32, device=q2.device)
     rows = torch.empty((Bp, k), dtype=torch.int32, device=q2.device)
     if Bp:
-        ks = [k] if entry == "hier_topk_launch" else []
-        _launch("hier_argmax", entry,
-                *[t.data_ptr() for t in ops + [scores, rows]], Bp, Dk, bm, bn,
-                K, *ks, _stream(q2))
+        plan = plan or _klist_plan(Bp, bm, K, bn, Dk, k)
+        # each (query, tile)'s k best: (score, the row's int32 bits)
+        work = torch.empty((Bp, K, k, 2), dtype=torch.float32, device=q2.device)
+        ks = [k] if entry == "hier_topk_sm90_launch" else []
+        _launch("hier_argmax_sm90", entry,
+                *[t.data_ptr() for t in ops + [scores, rows, work]], Bp, N, Dk, bm,
+                bn, K, *ks, *plan, _stream(q2))
     return scores, rows
 
 
@@ -2294,14 +2344,15 @@ def _hier_argmax_call(q2, ql, khl, mask_neg, idx, *, Dk: int, bm: int,
     khl = [kh | kl] [N, 2 Dk], mask_neg [1, N], idx [Bp / bm, K] (tiles
     < N / bn, as `select_tiles` gives them).
 
-    CPU tensors: `_hier_argmax_plain`.  CUDA tensors: `csrc/hier_argmax.cu`
-    (hier_argmax_launch), which replaces `_hier_argmax_kernel`
+    CPU tensors: `_hier_argmax_plain`.  CUDA tensors: the Hopper kernel
+    `csrc/hier_argmax_sm90.cu` (hier_argmax_sm90_launch and its fold, one
+    count), which replaces `_hier_argmax_kernel`
     (`range_tpu/ops/retrieval_hier.py:1645`); bf16 operands, a launch
     failure raises.  Rows travel as int32, not as the TPU's f32 lanes."""
     if q2.device.type == "cpu":
         return _hier_argmax_plain(q2, ql, khl, mask_neg, idx, Dk=Dk, bm=bm,
                                   bn=bn)
-    s, r = _klist_kernel("hier_argmax_launch", q2, ql, khl, mask_neg, idx,
+    s, r = _klist_kernel("hier_argmax_sm90_launch", q2, ql, khl, mask_neg, idx,
                          Dk=Dk, k=1, bm=bm, bn=bn)
     if q2.shape[0]:
         _hier_argmax_call.launches += 1
@@ -2317,13 +2368,14 @@ def _hier_topk_call(q2, ql, khl, mask_neg, idx, *, Dk: int, k: int, bm: int,
     operands as `_hier_argmax_call`: (scores [Bp, k] f32, rows [Bp, k]
     int32) sorted descending, ties keeping the running list's order.
 
-    CPU tensors: `_hier_topk_plain`.  CUDA tensors: `csrc/hier_argmax.cu`
-    (hier_topk_launch), which replaces `_hier_topk_kernel`
+    CPU tensors: `_hier_topk_plain`.  CUDA tensors: the Hopper kernel
+    `csrc/hier_argmax_sm90.cu` (hier_topk_sm90_launch and its fold, one
+    count), which replaces `_hier_topk_kernel`
     (`range_tpu/ops/retrieval_hier.py:1682`), then the same sort."""
     if q2.device.type == "cpu":
         return _hier_topk_plain(q2, ql, khl, mask_neg, idx, Dk=Dk, k=k,
                                 bm=bm, bn=bn)
-    lists = _klist_kernel("hier_topk_launch", q2, ql, khl, mask_neg, idx,
+    lists = _klist_kernel("hier_topk_sm90_launch", q2, ql, khl, mask_neg, idx,
                           Dk=Dk, k=k, bm=bm, bn=bn)
     if q2.shape[0]:
         _hier_topk_call.launches += 1

@@ -579,23 +579,96 @@ def test_klist_kernels_match_plain(cuda, hier_bank, k):
     assert not (off & ((rival - rs.double()).abs() > KLIST_TOL)).any()
 
 
+def _klist_call(args, kw, k, plan=None, sort=True):
+    """The new body's list through `_klist_kernel` (``plan`` overrides the
+    segments) and the plain version's, both [Bp, k]; ``sort``: each sorted
+    as the wrappers sort it (a near-tie between two minima of a running
+    list moves the next entry to the other one's slot, so only the sorted
+    lists compare on random data)."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    entry = "hier_argmax_sm90_launch" if k == 1 else "hier_topk_sm90_launch"
+    got = rh._klist_kernel(entry, *args, k=k, plan=plan, **kw)
+    ref = rh._hier_klist_plain(*args, k=k, **kw)
+    return (rh._sort_klist(*got), rh._sort_klist(*ref)) if sort else (got, ref)
+
+
+def _klist_random(cuda, *, nB, bm, bn, Dk, K, T, seed):
+    """Hi/lo operands of random unit queries and keys (a tenth of the rows
+    masked), nB blocks of bm queries, T tiles of bn rows, each block's K
+    distinct tiles in random order."""
+    from range_tpu_torch.ops import retrieval_fused as rf
+
+    g = torch.Generator(device=cuda).manual_seed(seed)
+
+    def unit(n):
+        return torch.nn.functional.normalize(torch.randn(n, Dk, generator=g, device=cuda), dim=1)
+
+    qh, ql = rf._split_hilo(unit(nB * bm))
+    kh, kl = rf._split_hilo(unit(T * bn))
+    mask = torch.where(torch.rand(1, T * bn, generator=g, device=cuda) < 0.1, -1e30, 0.0)
+    idx = torch.stack([torch.randperm(T, generator=g, device=cuda)[:K] for _ in range(nB)])
+    return (torch.cat([qh, qh], 1).contiguous(), ql.contiguous(),
+            torch.cat([kh, kl], 1).contiguous(), mask, idx.to(torch.int32))
+
+
+# (bm, bn, Dk, K, T): every bm, bn, Dk and K of the issue's grid at least
+# once: the selection block sizes, tiles of one masked step (32), one and a
+# half steps (96) and eight (512), key widths of a short box (48), of no
+# whole box or k16 step (200) and the endpoint's (256)
+KLIST_SHAPES = [(64, 32, 48, 1, 3), (128, 96, 200, 24, 30), (256, 512, 256, 144, 150),
+                (64, 512, 200, 24, 24), (128, 32, 256, 144, 160), (256, 96, 48, 24, 40),
+                (128, 512, 48, 1, 2), (64, 96, 256, 144, 144)]
+
+
+@pytest.mark.parametrize("k", range(1, 9))
+@pytest.mark.parametrize("shape", KLIST_SHAPES, ids=lambda s: "bm{}-bn{}-Dk{}-K{}-T{}".format(*s))
+def test_klist_sm90_matches_plain(cuda, shape, k):
+    """The Hopper body at each shape of the grid, over its plan's segments
+    and over one segment a tile: scores within KLIST_TOL of the plain
+    version's, rows equal outside near-ties."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    bm, bn, Dk, K, T = shape
+    args = _klist_random(cuda, nB=3, bm=bm, bn=bn, Dk=Dk, K=K, T=T, seed=100 * k + Dk)
+    kw = dict(Dk=Dk, bm=bm, bn=bn)
+    plan = rh._klist_plan(3 * bm, bm, K, bn, Dk, k)
+    for p in (plan, plan._replace(n_seg=K)):
+        (gs, gr), (rs, rr) = _klist_call(args, kw, k, p)
+        torch.cuda.synchronize()
+        assert gr.dtype == torch.int32 and gr.shape == rr.shape == (3 * bm, k)
+        torch.testing.assert_close(gs, rs, rtol=0, atol=KLIST_TOL)
+        rival = _row_logits(args[0], args[1], args[2], args[3], gr)
+        assert not ((gr != rr) & ((rival - rs.double()).abs() > KLIST_TOL)).any()
+
+
 @pytest.mark.parametrize("k", [1, 2, 4, 8])
-def test_klist_kernels_tie_rules(cuda, k):
+@pytest.mark.parametrize("form", ["base", "bn96", "segments"])
+def test_klist_kernels_tie_rules(cuda, k, form):
     """Duplicated key rows within and across the selected tiles and masked
     rows, on dyadic operands whose logits are exact in any order: rows and
     scores equal the plain version's exactly (lowest in-tile index, strict >
-    across tiles, the list's first minimum, the stable final sort)."""
+    across tiles, the list's first minimum, the stable final sort).  Forms:
+    64-row tiles; 96-row tiles under a 128-query block (a masked last step,
+    both warpgroups); and one segment a tile, so the fold alone carries the
+    list from tile to tile, with every row of one tile masked."""
     from range_tpu_torch.ops import retrieval_hier as rh
 
     rng = np.random.default_rng(30 + k)
-    Dk, bn, bm, nB, nT = 64, 64, 64, 3, 6
+    Dk, bn, bm, nB, nT, K = 64, 64, 64, 3, 6, 4
+    if form == "bn96":
+        Dk, bn, bm, nB, nT, K = 48, 96, 128, 2, 9, 7
     pick = rng.integers(0, 4, nT * bn)
     khl = np.concatenate([rng.choice([-0.5, 0.0, 0.5], (4, Dk))[pick],
                           rng.choice([-2.0 ** -8, 0.0, 2.0 ** -8], (4, Dk))[pick]], 1)
     mask = np.where(rng.uniform(size=(1, nT * bn)) < 0.1, -1e30, 0.0)
+    if form == "segments":
+        mask[0, 2 * bn:3 * bn] = -1e30  # tile 2: every row masked
     qh = rng.choice([-1.0, -0.5, 0.0, 0.5, 1.0], (nB * bm, Dk))
     ql = rng.choice([-2.0 ** -9, 0.0, 2.0 ** -9], (nB * bm, Dk))
-    idx = np.stack([rng.permutation(nT)[:4] for _ in range(nB)])
+    idx = np.stack([rng.permutation(nT)[:K] for _ in range(nB)])
+    if form == "segments":
+        idx[:, 1] = 2
 
     def dev(a, dtype):
         return torch.from_numpy(np.asarray(a, np.float64)).to(cuda, dtype)
@@ -604,12 +677,65 @@ def test_klist_kernels_tie_rules(cuda, k):
             dev(khl, torch.bfloat16), dev(mask, torch.float32),
             torch.from_numpy(idx.astype(np.int32)).to(cuda))
     kw = dict(Dk=Dk, bm=bm, bn=bn)
-    if k == 1:
+    if form == "segments":
+        plan = rh._klist_plan(nB * bm, bm, K, bn, Dk, k)._replace(n_seg=K)
+        got, ref = _klist_call(args, kw, k, plan, sort=False)
+    elif k == 1:
         got, ref = rh._hier_argmax_call(*args, **kw), rh._hier_argmax_plain(*args, **kw)
     else:
         got, ref = rh._hier_topk_call(*args, k=k, **kw), rh._hier_topk_plain(*args, k=k, **kw)
     for a, b in zip(got, ref):
         assert torch.equal(a, b)
+
+
+def test_klist_sm90_rejects_shapes_before_a_launch(cuda):
+    """Shapes the Hopper body does not take raise ValueError before any
+    launch: key widths of no multiple of 8 or over 256, a query block of no
+    multiple of 64, tiles of no multiple of 32 rows, k outside 1..8, an
+    empty list; no launch count moves."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    counts = (rh._hier_argmax_call.launches, rh._hier_topk_call.launches)
+    cases = [dict(Dk=260), dict(Dk=12), dict(bm=96), dict(bn=48), dict(k=9), dict(k=0),
+             dict(K=0)]
+    for case in cases:
+        c = dict(dict(bm=64, bn=64, Dk=64, K=2, k=2), **case)
+        Dk, bm, bn = c["Dk"], c["bm"], c["bn"]
+        q2 = torch.zeros(2 * bm, 2 * Dk, dtype=torch.bfloat16, device=cuda)
+        ql = torch.zeros(2 * bm, Dk, dtype=torch.bfloat16, device=cuda)
+        khl = torch.zeros(4 * bn, 2 * Dk, dtype=torch.bfloat16, device=cuda)
+        mask = torch.zeros(1, 4 * bn, device=cuda)
+        idx = torch.zeros(2 * bm // max(bm, 1), c["K"], dtype=torch.int32, device=cuda)
+        with pytest.raises(ValueError, match="unsupported shapes"):
+            if c["k"] == 1:
+                rh._hier_argmax_call(q2, ql, khl, mask, idx, Dk=Dk, bm=bm, bn=bn)
+            else:
+                rh._hier_topk_call(q2, ql, khl, mask, idx, Dk=Dk, k=c["k"], bm=bm, bn=bn)
+    assert (rh._hier_argmax_call.launches, rh._hier_topk_call.launches) == counts
+
+
+def test_klist_wrappers_never_launch_the_mma_sync_body(cuda, monkeypatch):
+    """`csrc/hier_argmax.cu` stays only as chip_smoke.py's yardstick: the
+    argmax and every k of the top-k, at every bm, load the Hopper body's
+    library alone."""
+    from range_tpu_torch.kernels import _build
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    loaded = []
+    real = _build.load_kernel_library
+
+    def spy(name):
+        loaded.append(name)
+        return real(name)
+
+    monkeypatch.setattr(_build, "load_kernel_library", spy)
+    for bm in (64, 128, 256):
+        args = _klist_random(cuda, nB=2, bm=bm, bn=128, Dk=256, K=5, T=8, seed=bm)
+        rh._hier_argmax_call(*args, Dk=256, bm=bm, bn=128)
+        for k in range(2, 9):
+            rh._hier_topk_call(*args, Dk=256, k=k, bm=bm, bn=128)
+    torch.cuda.synchronize()
+    assert set(loaded) == {"hier_argmax_sm90"}
 
 
 def test_klist_and_stats_kernels_reject_f32_operands(cuda, hier_bank):
