@@ -91,6 +91,17 @@ drives the serving paths at full width (SatCLIP SH-L40 -> SIREN
   * pruned and hybrid dense retrieval over the informative bank clustered
     at bn 1,024 (padded packing): `retrieve_pruned` (RANGE+, RANGE, and a
     small int8 request) and `retrieve_hybrid` at bm 256;
+  * hierarchical banks at the `exact` and `high` tiers (f32 operands;
+    768 semantic columns), served by the CUDA-core body
+    `csrc/hier_cores.cu` (`tiers_phases`): for each tier the informative
+    bank's flagship, tail_super and two-level HierBanks built on the card,
+    each of its forms of kernels 8, 9 and 12-15 against its plain version
+    and timed beside it, RANGE+ and RANGE with ``profile="flagship"``,
+    hier_topk (recall pooled over five batches), RANGE+ at the JAX
+    defaults, the tail_super flagship and the two-level feature path and
+    top-k, each request's launches counted; and JAX's exactness check at
+    its test bank's shape (the exact tier with f32 values, every tile
+    selected, against the exact dense answer);
   * SatCLIP contrastive training of the full-width SatCLIP-ResNet18-L40
     dual tower (ResNet-18 on 13 x 256 x 256 images, the SH-L40 SIREN
     location tower, embed 256): two AdamW steps of 16 accumulated
@@ -104,7 +115,10 @@ mean < 0.01; RANGE+ at the JAX defaults and each knob subset mean <= 0.12
 gsz_sem=4 banks and the banks of the refused shapes (both kinds); hier_topk's
 recall@1 against the f32 `exact_nn` >= 0.999 at B = 10,000 and 1,000, the
 two-level endpoint's at least the one-level selection's over the same
-bank - 0.001; sel_lr's relerr mean within the flagship's + 0.02 and
+bank - 0.001; at each of the `exact` and `high` tiers the same flagship,
+RANGE, hier_topk, defaults and tail_super bars, the two-level feature
+path's mean <= 0.12 and its top-k's recall@1 >= 0.99, and the exact tier's
+all-tiles answer within 1e-4 max relerr of the exact dense one; sel_lr's relerr mean within the flagship's + 0.02 and
 dedup's within 1.02 x the flagship's on the same coordinates, topk_lr's
 pooled recall@1 within 0.02 of the full selection operand's, the rescue's
 untouched rows bit-identical to the rescue-off answer and its per-query
@@ -154,7 +168,7 @@ L, WIDTH = 40, 256
 SOURCES = ("siren_tower", "fused_retrieval_sm90", "fused_retrieval", "hier_scan_sm90",
            "hier_parts_family_sm90", "hier_parts_family", "combine_cat", "hier_scan_stats",
            "hier_argmax_sm90", "hier_argmax", "hier_parts_sm90", "hier_parts", "sh_times",
-           "hier_refine", "hier_corr")
+           "hier_refine", "hier_corr", "hier_cores")
 # sources whose ptxas log must show no spill and no serialized wgmma
 # (C7512: too few registers; C7514: issued in a loop or under a condition;
 # C7520: divergent code between issue and wait)
@@ -206,6 +220,20 @@ KERNELS = (("siren_tower", "siren_tower", "range_tpu/ops/sh.py:726"),
            ("hier_parts_family_dedup_rr", "hier_parts_family_sm90",
             "range_tpu/ops/retrieval_hier.py:2282"),
            ("hier_parts_family_dedup", "hier_parts_sm90", "range_tpu/ops/retrieval_hier.py:2282"))
+# the forms of the exact tier (f32 operands) and the high tier (logits deeper
+# than 256 columns: 768) and the TPU kernels served in them, on the
+# CUDA-core body (csrc/hier_cores.cu): each a KERNELS row per form
+CORES_FORMS = (("f32", "exact"), ("deep", "high"))
+CORES_ROWS = (("hier_scan", "range_tpu/ops/retrieval_hier.py:1443"),
+              ("hier_scan_stats", "range_tpu/ops/retrieval_hier.py:1582"),
+              ("hier_refine", "range_tpu/ops/retrieval_hier.py:2077"),
+              ("hier_corr", "range_tpu/ops/retrieval_hier.py:2209"),
+              ("hier_parts_family", "range_tpu/ops/retrieval_hier.py:2282"),
+              ("hier_parts", "range_tpu/ops/retrieval_hier.py:2515"))
+# the stats scan's deep form runs on its own kernel (its query block and
+# group tiles fit shared memory at 768 columns)
+KERNELS += tuple((f"{k}_{form}", "hier_scan_stats" if (k, form) == ("hier_scan_stats", "deep")
+                  else "hier_cores", rep) for k, rep in CORES_ROWS for form, _ in CORES_FORMS)
 TOPK_K = 48  # the endpoint's tile budget, bench.py:150
 # the two-level top-k (tools/r3_time1.py:103,127: gsz_super 64, K=48 of M=96)
 # and the tail_super flagship (tools/r4_tsuper.py: "ts64 K32/m32/kg16")
@@ -1277,6 +1305,9 @@ def _counters() -> dict:
         counters[f"hier_parts_family_{form}"] = (fam, f"{form}_launches")
         counters[f"hier_parts_family_{form}_rr"] = (fam, f"{form}_rr_launches")
     counters["hier_refine_parts"] = (rh._hier_refine_call, "parts_launches")
+    for k, _ in CORES_ROWS:
+        for form, _ in CORES_FORMS:
+            counters[f"{k}_{form}"] = (wrappers[k], f"{form}_launches")
     return counters
 
 
@@ -4273,6 +4304,403 @@ def _trace(fn, calls: int, tag: str) -> dict:
     return by_name
 
 
+def _hold_cores(name: str, got, ref, mag, exact_sum: bool, b: int, why: str):
+    """An f32 form's product (every rounding point f32) within 1e-4 of the
+    sum of its terms' magnitudes, + 1e-6: the f32 logits in another
+    summation order move p by ~1e-5 of itself at |l| <= 86 (an f32-class
+    bound).  A product after a bf16 rounding point by `_compare_terms`, a
+    flip of one dominant term in at most max(2, b / 100) rows.  Returns
+    (max abs error, the largest error over its tolerance)."""
+    if not exact_sum:
+        return _compare_terms(name, got, ref, mag, why, rows_off_max=max(2, b // 100))
+    if got.shape != ref.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} or non-finite")
+    err = (got - ref).abs()
+    ratio = (err / (1e-4 * mag + 1e-6)).max().item()
+    print(f"{name}: max_abs_err {err.max().item():.3e}  err/tol {ratio:.3e}  (tolerance "
+          f"1e-4 x sum |terms| + 1e-6: f32 products, f32 logits in another summation order)")
+    if ratio > 1.0:
+        raise AssertionError(f"{name}: error {ratio:.3f}x its tolerance")
+    return err.max().item(), ratio
+
+
+def _cores_row(report, name, errs, call, plain, flops, n_bytes, f32: bool, reps: int = 3,
+               bf16_flops: int = 0):
+    """Time one CUDA-core form beside its plain version (CUDA events, the
+    median of reps) and write its report row (launches come from the
+    drives): the bound counts ``flops`` at the f32 rate for f32 products,
+    bf16's for bf16, and ``bf16_flops`` (an f32 form's bf16 products: the
+    value products against bf16 values) at bf16's, as row 2e does."""
+    ms, plain_ms = _cuda_ms(call, reps), _cuda_ms(plain, reps)
+    rate = F32_FLOPS if f32 else BF16_FLOPS
+    b_ms, b_by = _bound(n_bytes, flops + bf16_flops * rate / BF16_FLOPS, rate)
+    print(f"{name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms "
+          f"({b_by}), share {b_ms / ms:.4f}")
+    report[name] = dict(max_abs_err=max(e for e, _ in errs),
+                        err_over_tol=max(r for _, r in errs), ms=ms, plain_ms=plain_ms,
+                        bound_ms=b_ms, bound_by=b_by, launches=0)
+
+
+def _tier_kernels(tier, form, hb, hb_ts, hb2, q, x, report, cfg) -> None:
+    """Each CUDA-core form of kernels 8, 9 and 12-15 against its plain
+    version at its path's shapes (B = 10,000): the flagship's scan and
+    kernel 14's rr + lr shape (both families), kernel 15 lr at the RANGE
+    flagship's selection, the stats scan at hier_topk's (the topk_gsz
+    operand), kernel 13 at the tail_super bank's and kernel 12 (stats,
+    parts) at the two-level bank's; times, bounds."""
+    from range_tpu_torch.ops import retrieval_fused as rf
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    f32 = tier == "exact"
+    el = 4 if f32 else 2  # bytes of a packed element (the group operands too)
+    geo_real = rf.geo_real_cols(tier)
+    flip = ("a weight within the logits' f32 difference of a bf16 boundary rounds the "
+            "other way: one ulp of one term")
+    bm, k_tiles, k_geo, j_sem = cfg.hier_plan(BATCH)
+    q_s, q_x = rh._pad_queries(q, x, bm)
+    order = rh._hybrid_order(q_x, BATCH)
+
+    def packed(h):
+        return rf.pack_queries(q_s, q_x, 12.0, 40.0, h.tier)[order].contiguous()
+
+    q_cat = packed(hb)
+    Bp, cat_d, sem_d = q_cat.shape[0], q_cat.shape[1], hb.sem_d
+    gpt_s, gpt_g = hb.bn // hb.gsz_sem, hb.bn // hb.gsz_geo
+    Gs, Gg, Dv = hb.t_real * gpt_s, hb.t_real * gpt_g, hb.value_dim
+
+    # kernel 8: the flagship's scan
+    sa = (q_cat, hb.g_sem_cat, hb.g_geo_cat, hb.g_sem_vw_lr, hb.g_geo_vw_lr)
+    skw = dict(gpt_s=gpt_s, gpt_g=gpt_g)
+    got, ref = rh._hier_scan_call(*sa, **skw), rh._hier_scan_plain(*sa, **skw)
+    mag = rh._hier_scan_plain(q_cat, hb.g_sem_cat, hb.g_geo_cat, hb.g_sem_vw_lr.abs(),
+                              hb.g_geo_vw_lr.abs(), **skw)[4]
+    Ws, Wg = hb.g_sem_vw_lr.shape[1], hb.g_geo_vw_lr.shape[1]
+    errs = [_compare(f"hier_scan_{form} m_s", got[0], ref[0], 1e-4, 0.0, "f32 logits"),
+            _compare(f"hier_scan_{form} s_s", got[1], ref[1], 0.0, 1e-4, "f32 sums"),
+            _compare(f"hier_scan_{form} m_g", got[2], ref[2], 1e-4, 0.0, "f32 logits"),
+            _compare(f"hier_scan_{form} s_g", got[3], ref[3], 0.0, 1e-4, "f32 sums"),
+            _hold_cores(f"hier_scan_{form} tails", got[4], ref[4], mag, f32, BATCH, flip)]
+    m_s, s_s, m_g, s_g, _ = ref
+    flops = 2 * BATCH * (Gs * (sem_d + hb.lr_rank + 1) + Gg * (geo_real + hb.lr_geo + 1))
+    n_bytes = (Bp * cat_d * el + (Gs * (sem_d + Ws) + Gg * (cat_d - sem_d + Wg)) * el
+               + 4 * Bp * hb.t_pad * 4 + Bp * (Ws + Wg) * 4)
+    _cores_row(report, f"hier_scan_{form}", errs, lambda: rh._hier_scan_call(*sa, **skw),
+               lambda: rh._hier_scan_plain(*sa, **skw), flops, n_bytes, f32)
+    # the scan's sem group pass taken apart, at the wrapper's segments: the
+    # logits and stats over one 64-column piece and over every column, and
+    # with the tail product (what the time goes to: PERF.md section 5)
+    st = [torch.empty((Bp, hb.t_pad), dtype=torch.float32, device=q_cat.device)
+          for _ in range(2)]
+    out = torch.empty((Bp, Ws), dtype=torch.float32, device=q_cat.device)
+    n_seg = rh._cores_segments(Bp, -(-Ws // rh.CORES_NC), hb.t_pad)
+    part = dict(gpt=gpt_s, n_tiles=hb.t_pad, stats=st, n_seg=n_seg)
+    one = _cuda_ms(lambda: rh._cores_groups(q_cat, hb.g_sem_cat, wk=64, **part), 3)
+    full = _cuda_ms(lambda: rh._cores_groups(q_cat, hb.g_sem_cat, wk=sem_d, **part), 3)
+    tail = _cuda_ms(lambda: rh._cores_groups(q_cat, hb.g_sem_cat, wk=sem_d, vw=hb.g_sem_vw_lr,
+                                             nvc=Ws, out=out, **part), 3)
+    print(f"hier_scan_{form} sem pass ({n_seg} segments, {hb.g_sem_cat.shape[0] // 32} "
+          f"chunks of 32 groups a 64 queries): logits + stats {full:.3f} ms (over one "
+          f"64-column piece {one:.3f}), + the {Ws}-column tail {tail:.3f} ms")
+
+    # kernel 14, the rr + lr shape of both families (the flagship's)
+    sel = dict(t_real=hb.t_real, bm=bm, n_valid=BATCH, mode="range")
+    idx_s, _ = rh.select_tiles(m_s, s_s, m_g, s_g, k_tiles=k_tiles, j_sem=j_sem,
+                               j_geo=cfg.j_geo, **sel)
+    idx_g, _ = rh.select_tiles(m_g, s_g, m_s, s_s, k_tiles=k_geo, j_sem=cfg.j_geo,
+                               j_geo=j_sem, **sel)
+    fams = []
+    for geo, idx, g_cat, vw, z, lrr in ((False, idx_s, hb.g_sem_cat, hb.g_sem_vw_lr, hb.z_sem,
+                                         hb.lr_rank),
+                                        (True, idx_g, hb.g_geo_cat, hb.g_geo_vw_lr, hb.z_geo,
+                                         hb.lr_geo)):
+        args = (q_cat, hb.k_cat, hb.mask_neg, idx, g_cat, vw, z)
+        kw = dict(sem_d=sem_d, bm=bm, bn=hb.bn, gpt=gpt_g if geo else gpt_s, geo=geo, lrr=lrr)
+        fams.append((args, kw, dict(geo_cols=geo_real)))
+    errs = []
+    for args, kw, cut in fams:
+        got = rh._hier_parts_family_call(*args, **kw, **cut)
+        errs.append(_hold_cores(f"hier_parts_family_{form}[{'geo' if kw['geo'] else 'sem'}]",
+                                got, rh._hier_parts_family_plain(*args, **kw),
+                                rh._hier_parts_family_plain(*args, **kw, magnitude=True), f32,
+                                BATCH, flip))
+    flops = n_bytes = 0
+    for args, kw, _ in fams:
+        idx, K, gpt = args[3], args[3].shape[1], kw["gpt"]
+        kf = geo_real if kw["geo"] else sem_d
+        rows = idx.unique().numel() * hb.bn
+        W = args[5].shape[1]
+        flops += 2 * BATCH * K * (hb.bn * (kf + hb.res_rank) + gpt * (kf + kw["lrr"] + 1))
+        n_bytes += (rows * (cat_d * el + args[6].shape[1] * el + 4)
+                    + rows // hb.bn * gpt * (args[4].shape[1] + W) * el
+                    + Bp * (cat_d * el + (args[6].shape[1] + 128 + W) * 4))
+    _cores_row(report, f"hier_parts_family_{form}", errs,
+               lambda: [rh._hier_parts_family_call(*a, **k, **c) for a, k, c in fams],
+               lambda: [rh._hier_parts_family_plain(*a, **k) for a, k, _ in fams],
+               flops, n_bytes, f32)
+
+    # kernel 15 lr at the RANGE flagship's selection (the sem family; geo skipped)
+    idx_r, _ = rh.select_tiles(m_s, s_s, None, None, k_tiles=k_tiles, j_sem=j_sem,
+                               j_geo=cfg.j_geo, **sel)
+    ma = (q_cat, hb.k_cat, hb.values, hb.value_scale, hb.mask_neg, idx_r, hb.g_sem_cat,
+          hb.g_geo_cat, hb.g_sem_vw_lr, hb.g_geo_vw)
+    mkw = dict(sem_d=sem_d, bm=bm, bn=hb.bn, gpt_s=gpt_s, gpt_g=gpt_g, lr=True, geo=False)
+    got, ref = rh._hier_parts_call(*ma, **mkw), rh._hier_parts_plain(*ma, **mkw)
+    mag = rh._hier_parts_plain(*ma, **mkw, magnitude=True)
+    exact_sum = f32 and hb.values.dtype == torch.float32
+    errs = [_hold_cores(f"hier_parts_{form} acc_s", got[:, :Dv], ref[:, :Dv], mag[:, :Dv],
+                        exact_sum, BATCH, flip),
+            _hold_cores(f"hier_parts_{form} d_s, alr", got[:, 2 * Dv:], ref[:, 2 * Dv:],
+                        mag[:, 2 * Dv:], f32, BATCH, flip)]
+    K = idx_r.shape[1]
+    rows = idx_r.unique().numel() * hb.bn
+    flops = 2 * BATCH * K * (hb.bn * sem_d + gpt_s * (sem_d + hb.lr_rank + 1))
+    pv = 2 * BATCH * K * hb.bn * Dv  # p @ V: bf16 on the tensor cores unless V is f32
+    n_bytes = (rows * (sem_d * el + Dv * hb.values.element_size() + 4)
+               + rows // hb.bn * gpt_s * (sem_d + Ws) * el + Bp * sem_d * el
+               + Bp * (2 * Dv + 128 + Ws) * 4)
+    _cores_row(report, f"hier_parts_{form}", errs, lambda: rh._hier_parts_call(*ma, **mkw),
+               lambda: rh._hier_parts_plain(*ma, **mkw), flops + (pv if exact_sum else 0),
+               n_bytes, f32, bf16_flops=0 if exact_sum else pv)
+
+    # kernel 9 at hier_topk's shape (the fine topk_gsz operand)
+    gpt_t = hb.bn // hb.topk_gsz
+    ta = (q_cat, hb.g_topk_cat, hb.g_geo_cat)
+    tkw = dict(gpt_s=gpt_t, gpt_g=gpt_g)
+    got, ref = rh._hier_scan_stats_call(*ta, **tkw), rh._hier_scan_stats_plain(*ta, **tkw)
+    errs = [_compare(f"hier_scan_stats_{form} {n}", got[i], ref[i], *(
+        (1e-4, 0.0, "f32 logits") if n[0] == "m" else (0.0, 1e-4, "f32 sums")))
+        for i, n in enumerate(("m_s", "s_s", "m_g", "s_g"))]
+    Gt = hb.t_real * gpt_t
+    flops = 2 * BATCH * (Gt * sem_d + Gg * geo_real)
+    n_bytes = Bp * cat_d * el + (Gt * sem_d + Gg * (cat_d - sem_d)) * el + 4 * Bp * hb.t_pad * 4
+    _cores_row(report, f"hier_scan_stats_{form}", errs,
+               lambda: rh._hier_scan_stats_call(*ta, **tkw),
+               lambda: rh._hier_scan_stats_plain(*ta, **tkw), flops, n_bytes, f32)
+
+    # kernel 13 at the tail_super bank's selection (K + m_corr tiles)
+    q_ts = packed(hb_ts)
+    st = rh._hier_scan_stats_plain(q_ts, hb_ts.g_sem_cat, hb_ts.g_geo_cat,
+                                   gpt_s=hb_ts.bn // hb_ts.gsz_sem,
+                                   gpt_g=hb_ts.bn // hb_ts.gsz_geo)
+    idx_c, _ = rh.select_tiles(*st, t_real=hb_ts.t_real, k_tiles=k_tiles + M_CORR, bm=bm,
+                               n_valid=BATCH, j_sem=j_sem, j_geo=cfg.j_geo, mode="range")
+    gpt_c = hb_ts.bn // hb_ts.gsz_sem
+    ca = (q_ts, idx_c, hb_ts.g_sem_cat, hb_ts.g_sem_ts_dvw)
+    got, ref = rh._hier_corr_call(*ca, bm=bm, gpt=gpt_c), rh._hier_corr_plain(*ca, bm=bm,
+                                                                               gpt=gpt_c)
+    errs = [_hold_cores(f"hier_corr_{form}", got, ref,
+                        rh._hier_corr_plain(*ca, bm=bm, gpt=gpt_c, magnitude=True), f32, BATCH,
+                        flip)]
+    M, Wc = idx_c.shape[1], hb_ts.g_sem_ts_dvw.shape[1]
+    groups = idx_c.unique().numel() * gpt_c
+    flops = 2 * BATCH * M * gpt_c * (sem_d + hb_ts.lr_rank + 1)
+    n_bytes = Bp * sem_d * el + groups * (sem_d + Wc) * el + Bp * Wc * 4
+    _cores_row(report, f"hier_corr_{form}", errs, lambda: rh._hier_corr_call(
+        *ca, bm=bm, gpt=gpt_c), lambda: rh._hier_corr_plain(*ca, bm=bm, gpt=gpt_c), flops,
+        n_bytes, f32)
+
+    # kernel 12 at the two-level bank's M coarse tiles (stats, and has_parts)
+    q_2 = packed(hb2)
+    gpt_f, gpt_u = hb2.bn // hb2.gsz_sem, hb2.bn // hb2.gsz_super
+    st = rh._hier_scan_stats_plain(q_2, hb2.g_sup_cat, hb2.g_geo_cat, gpt_s=gpt_u,
+                                   gpt_g=hb2.bn // hb2.gsz_geo)
+    idx_m, _ = rh.select_tiles(*st, t_real=hb2.t_real, k_tiles=TOPK_M, bm=bm, n_valid=BATCH,
+                               j_sem=j_sem, j_geo=cfg.j_geo, mode="range")
+    ra = (q_2, idx_m, hb2.g_sem_cat, hb2.g_sup_cat, hb2.g_sem_vw, hb2.g_sup_vw)
+    rkw = dict(bm=bm, gpt_f=gpt_f)
+    pkw = dict(rkw, g_sup_cat=hb2.g_sup_cat, g_sem_vw=hb2.g_sem_vw, g_sup_vw=hb2.g_sup_vw,
+               gpt_sup=gpt_u)
+    errs = []
+    for stats_only in (True, False):
+        got = rh._hier_refine_call(*ra, bm=bm, gpt_f=gpt_f, gpt_sup=gpt_u,
+                                   stats_only=stats_only)
+        ref = rh._hier_refine_plain(q_2, idx_m, hb2.g_sem_cat, **(rkw if stats_only else pkw))
+        errs += [_compare(f"hier_refine_{form} m_f", got[0], ref[0], 1e-4, 0.0, "f32 logits"),
+                 _compare(f"hier_refine_{form} s_f", got[1], ref[1], 0.0, 1e-4, "f32 sums")]
+        if not stats_only:
+            mag = rh._hier_refine_plain(q_2, idx_m, hb2.g_sem_cat, **pkw, magnitude=True)[2]
+            errs.append(_hold_cores(f"hier_refine_{form} parts", got[2], ref[2], mag, f32,
+                                    BATCH, flip))
+    M, W2 = idx_m.shape[1], hb2.g_sem_vw.shape[1]
+    tiles = idx_m.unique().numel()
+    # the timed call is the has_parts form alone: each level's groups once
+    flops = 2 * BATCH * M * (gpt_f + gpt_u) * (sem_d + Dv + 1)
+    n_bytes = (Bp * sem_d * el + tiles * (gpt_f + gpt_u) * (sem_d + W2) * el
+               + Bp * (2 * M + W2) * 4)
+    _cores_row(report, f"hier_refine_{form}", errs, lambda: rh._hier_refine_call(
+        *ra, bm=bm, gpt_f=gpt_f, gpt_sup=gpt_u),
+        lambda: rh._hier_refine_plain(q_2, idx_m, hb2.g_sem_cat, **pkw), flops, n_bytes, f32)
+
+
+def _tier_fidelity(tag, out, coords, bank, mode, bar_mean, bar_p99=None):
+    """relerr (floor 0.1) of a served batch against the exact f32 retrieve."""
+    from range_tpu_torch.geometry import lonlat_deg_to_xyz
+    from range_tpu_torch.ops import retrieval
+
+    Dv = bank.value_dim
+    if out.shape != (coords.shape[0], Dv + 256) or not torch.isfinite(out).all():
+        raise AssertionError(f"{tag}: shape {tuple(out.shape)} or non-finite")
+    with torch.no_grad():
+        ref = (retrieval.retrieve(out[:, Dv:], lonlat_deg_to_xyz(coords), bank, sem_temp=12.0)
+               if mode == "range+" else
+               retrieval.retrieve(out[:, Dv:], None, bank, sem_temp=15.0, mode="range"))
+    rel = (out[:, :Dv] - ref).abs() / ref.abs().clamp_min(0.1)
+    mean, p99 = rel.mean().item(), torch.quantile(rel.flatten()[::4], 0.99).item()
+    print(f"{tag} relerr vs exact f32 retrieve: mean {mean:.5f} (bar {bar_mean}), p99 "
+          f"{p99:.5f}" + (f" (bar {bar_p99}; every 4th element)" if bar_p99 else ""))
+    if mean > bar_mean or (bar_p99 is not None and p99 > bar_p99):
+        raise AssertionError(f"{tag}: fidelity outside its bars")
+
+
+def tiers_phases(dev, gen, report, bank, enc) -> dict:
+    """Hierarchical banks at the `exact` and `high` tiers, served by the
+    CUDA-core body (`csrc/hier_cores.cu`): for each tier the flagship,
+    tail_super and two-level HierBanks of the informative bank, built on
+    the card; each
+    CUDA-core form against its plain version (`_tier_kernels`); RANGE+ and
+    RANGE with profile="flagship" at B = 10,000 (the flagship bars: relerr
+    mean <= 0.04, p99 <= 0.165; RANGE mean <= 0.10), hier_topk's recall@1
+    pooled over five batches (>= 0.999), RANGE+ at the JAX defaults (the
+    merged kernel's plain form, mean <= 0.12), the tail_super flagship
+    (the bars), the two-level feature path (mean <= 0.12) and top-k
+    (recall@1 >= 0.99: the coarse stage trails by design), each request's
+    launches counted; at `exact`, JAX's exactness
+    check on its test bank's shape (f32 values, every tile selected: max
+    relerr under 1e-4 of the exact dense answer).  Returns each path's
+    end-to-end ms at B = 10,000."""
+    from range_tpu_torch import GeoBank, load_model
+    from range_tpu_torch.api import SERVING_PROFILES
+    from range_tpu_torch.geometry import lonlat_deg_to_xyz
+    from range_tpu_torch.ops import retrieval
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    prof = SERVING_PROFILES["flagship"]
+    knobs = dict(lr_rank=prof["lr_rank"], lr_geo=prof["lr_geo"], res_rank=prof["res_rank"])
+    coords = _random_coords(BATCH, gen, dev)
+    with torch.no_grad():
+        q = enc.model.query_embedding(coords).float()
+    x = lonlat_deg_to_xyz(coords)
+    e2e = {}
+    for form, tier in CORES_FORMS:
+        t0 = time.perf_counter()
+        hb = rh.build_hier_bank(bank, bn=512, gsz_sem=prof["gsz_sem"], gsz_geo=64,
+                                topk_gsz=prof["topk_gsz"], tier=tier, **knobs)
+        hb_ts = rh.build_hier_bank(bank, bn=512, gsz_sem=prof["gsz_sem"], gsz_geo=64,
+                                   topk_gsz=prof["topk_gsz"], tail_super=TAIL_SUPER,
+                                   tier=tier, **knobs)
+        hb2 = rh.build_hier_bank(bank, bn=512, gsz_sem=8, gsz_geo=64, gsz_super=GSZ_SUPER,
+                                 tier=tier)
+        torch.cuda.synchronize()
+        print(f"{tier} tier: build_hier_bank (flagship knobs, tail_super, two-level; "
+              f"{BANK_ROWS} rows): {time.perf_counter() - t0:.2f} s; sem_d {hb.sem_d}, "
+              f"k_cat {hb.k_cat.dtype}, values {hb.values.dtype}")
+        true = retrieval.exact_nn(q, hb.bank)
+        with torch.no_grad():
+            _tier_kernels(tier, form, hb, hb_ts, hb2, q, x, report, enc.model.config)
+
+        c, cf = f"_{form}", {}  # the CUDA-core counters of a request
+        scan = {"hier_scan": 1, "hier_scan" + c: 1}
+        stats = {"hier_scan_stats": 1, "hier_scan_stats" + c: 1}
+        drives = {}
+        plus = load_model("RANGE+", db_path=hb, profile="flagship", tier=tier)
+        rng = load_model("RANGE", db_path=hb, profile="flagship", tier=tier)
+        requests = {
+            "flagship": (plus, {"siren_tower": 1, **scan, "hier_parts_family" + c: 2,
+                                "combine_cat": 1}),
+            "RANGE flagship": (rng, {"siren_tower": 1, **stats, **scan, "hier_parts": 1,
+                                     "hier_parts" + c: 1})}
+        for name, (enc_t, want) in requests.items():
+            out, drives[name] = _drive(f"{tier} {name} B={BATCH}", lambda: enc_t(coords), want)
+            if name == "flagship":
+                _tier_fidelity(f"{tier} flagship B={BATCH}", out, coords, bank, "range+",
+                               0.04, 0.165)
+            else:
+                _tier_fidelity(f"{tier} RANGE flagship B={BATCH}", out, coords, bank, "range",
+                               0.10)
+            e2e[f"{tier} {name}"] = _host_ms(lambda: enc_t(coords), 3)
+        rows, drives["hier_topk"] = _drive(
+            f"{tier} hier_topk B={BATCH}", lambda: rh.hier_topk(q, x, hb, k_tiles=TOPK_K),
+            {**stats, "hier_argmax": 1})
+        recall = [(rows == true).float().mean().item()]
+        for seed in range(1, 5):
+            cs = _random_coords(BATCH, torch.Generator(device=dev).manual_seed(seed), dev)
+            with torch.no_grad():
+                qs = enc.model.query_embedding(cs).float()
+            recall.append((rh.hier_topk(qs, lonlat_deg_to_xyz(cs), hb, k_tiles=TOPK_K)
+                           == retrieval.exact_nn(qs, hb.bank)).float().mean().item())
+        pooled = statistics.mean(recall)
+        print(f"{tier} hier_topk recall@1 K={TOPK_K}: batches "
+              + " ".join(f"{r:.5f}" for r in recall) + f", pooled {pooled:.5f} (bar "
+              f"{RECALL_BAR})")
+        if pooled < RECALL_BAR:
+            raise AssertionError(f"{tier} hier_topk recall@1 {pooled:.5f} < {RECALL_BAR}")
+        e2e[f"{tier} hier_topk"] = _host_ms(lambda: rh.hier_topk(q, x, hb, k_tiles=TOPK_K), 3)
+        del plus, rng
+
+        # the JAX defaults, tail_super, the two-level paths
+        cs = _random_coords(BATCH, gen, dev)
+        dflt = load_model("RANGE+", db_path=bank, retrieval="hier", tier=tier)
+        out, drives["defaults"] = _drive(
+            f"{tier} RANGE+ at the JAX defaults B={BATCH}", lambda: dflt(cs),
+            {"siren_tower": 1, **scan, "hier_parts": 1, "hier_parts" + c: 1})
+        _tier_fidelity(f"{tier} RANGE+ at the JAX defaults", out, cs, bank, "range+", 0.12)
+        e2e[f"{tier} RANGE+ at the JAX defaults"] = _host_ms(lambda: dflt(cs), 3)
+        ts = load_model("RANGE+", db_path=hb_ts, profile="flagship", tail_super=TAIL_SUPER,
+                        m_corr=M_CORR, tier=tier)
+        out, drives["tail_super"] = _drive(
+            f"{tier} tail_super flagship B={BATCH}", lambda: ts(cs),
+            {"siren_tower": 1, **scan, "hier_parts_family" + c: 2, "hier_corr": 1,
+             "hier_corr" + c: 1, "combine_cat": 1})
+        _tier_fidelity(f"{tier} tail_super flagship", out, cs, bank, "range+", 0.04, 0.165)
+        two = load_model("RANGE+", db_path=hb2, retrieval="hier", gsz_super=GSZ_SUPER,
+                         tier=tier)
+        out, drives["two_level"] = _drive(
+            f"{tier} two-level feature path B={BATCH}", lambda: two(cs),
+            {"siren_tower": 1, **scan, "hier_refine": 1, "hier_refine" + c: 1,
+             "hier_parts": 1, "hier_parts" + c: 1})
+        _tier_fidelity(f"{tier} two-level feature path", out, cs, bank, "range+", 0.12)
+        with torch.no_grad():
+            qs = two.model.query_embedding(cs).float()
+        rows, drives["two_level_topk"] = _drive(
+            f"{tier} two-level hier_topk B={BATCH}",
+            lambda: rh.hier_topk(qs, lonlat_deg_to_xyz(cs), hb2, k_tiles=TOPK_K,
+                                 m_tiles=TOPK_M),
+            {**stats, "hier_refine": 1, "hier_refine" + c: 1, "hier_argmax": 1})
+        rec2 = (rows == retrieval.exact_nn(qs, hb2.bank)).float().mean().item()
+        print(f"{tier} two-level hier_topk recall@1 (M={TOPK_M}): {rec2:.5f}")
+        if rec2 < 0.99:
+            raise AssertionError(f"{tier} two-level hier_topk recall@1 {rec2:.5f} < 0.99")
+        del dflt, ts, two
+        for k in CORES_ROWS:
+            report[f"{k[0]}{c}"]["launches"] = sum(d.get(f"{k[0]}{c}", 0)
+                                                   for d in drives.values())
+        del hb, hb_ts, hb2
+        torch.cuda.empty_cache()
+
+    # JAX's exactness check (tests/test_hier.py:73-80) at its bank's shape
+    eb = GeoBank.synthetic_informative(0, 6000, pad_to=512, device=dev)
+    ehb = rh.build_hier_bank(eb, bn=128, gsz_sem=8, gsz_geo=16, tier="exact",
+                             value_dtype=torch.float32)
+    g = torch.Generator(device=dev).manual_seed(3)
+    rows = torch.randint(0, 6000, (8,), generator=g, device=dev).repeat_interleave(64)
+    qe = torch.nn.functional.normalize(eb.keys_sem[rows].float() + 0.3 * torch.randn(
+        512, eb.key_dim, generator=g, device=dev), dim=1)
+    ll = eb.locs_lonlat[rows].float() + 3.0 * torch.randn(512, 2, generator=g, device=dev)
+    ll = torch.stack([(ll[:, 0] + 180) % 360 - 180, ll[:, 1].clamp(-89.9, 89.9)], 1)
+    xe = lonlat_deg_to_xyz(ll)
+    ref = retrieval.retrieve(qe, xe, eb, chunk=512)
+    out, _ = _drive("exact tier, f32 values, every tile selected (6,000 rows, B=512)",
+                    lambda: rh.retrieve_hier(qe, xe, ehb, k_tiles=ehb.t_real, bm=128),
+                    {"hier_scan": 1, "hier_scan_f32": 1, "hier_parts": 1,
+                     "hier_parts_f32": 1})
+    rel = ((out - ref).abs() / ref.abs().clamp_min(0.1)).max().item()
+    print(f"exact tier with f32 values, all {ehb.t_real} tiles: max relerr {rel:.3e} against "
+          "the exact dense answer (bar 1e-4; JAX's own check holds 5e-3)")
+    if not rel < 1e-4:
+        raise AssertionError(f"exact tier all-tiles max relerr {rel:.3e} >= 1e-4")
+    return e2e
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4318,7 +4746,10 @@ def main() -> int:
     knob_ms = timed("knobs", knob_phases, dev, gen, report, bank, hb, enc, hb_ts, hb2)
     del hb_ts, hb2
     pruned_ms = timed("pruned", pruned_phases, dev, gen, report, bank)
-    del hb, enc, bank
+    del hb
+    torch.cuda.empty_cache()
+    tiers_ms = timed("tiers", tiers_phases, dev, gen, report, bank, enc)
+    del enc, bank
     torch.cuda.empty_cache()
     step_s = timed("train", train_phases, dev, report)
     print("seconds by phase: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
@@ -4328,7 +4759,8 @@ def main() -> int:
           f"JAX defaults {general_ms:.3f} ms, RANGE+ on a (1, 1) mesh {mesh_ms:.3f} ms, "
           + ", ".join(f"{k} {ms:.3f} ms" for k, ms in {**knob_ms, **gsz4_ms, **step_ms,
                                                         **odd_ms}.items()) + ", "
-          + ", ".join(f"{k} {ms:.3f} ms" for k, ms in pruned_ms.items())
+          + ", ".join(f"{k} {ms:.3f} ms" for k, ms in pruned_ms.items()) + ", "
+          + ", ".join(f"{k} {ms:.3f} ms" for k, ms in tiers_ms.items())
           + f"; SatCLIP training step ({TRAIN_ACCUM} x {TRAIN_MICRO}) {step_s:.3f} s")
 
     kernels = [dict(name=k, route="cuda", source=f"range_tpu_torch/csrc/{src}.cu",

@@ -25,6 +25,11 @@
 // a running max / sum across steps).  Stats are written in [query, tile]
 // order; the TPU's transposed write was its lane rule's, and is gone.
 //
+// Logit depth: any multiple of 16 columns whose query block and two group
+// tiles fit a block's shared memory (up to 864: the `high` tier's 3 x 256
+// hi/lo cross terms included; the k16 loop runs over the whole depth, one
+// block an SM past ~380 columns).
+//
 // Block size: with no tail in registers (the scan's 128 accumulator
 // registers a thread, which held it to one 8-warp block per SM), a block
 // needs ~76 KB of shared memory and few registers, so two blocks share an
@@ -207,13 +212,14 @@ extern "C" int hier_scan_stats_launch(const void* q_cat, const void* g_sem, cons
                                       int cat_d, int ws, int wg, int Gs, int Gg, int gpt_s,
                                       int gpt_g, int t_pad, void* stream) {
   if (Bp <= 0) return 0;
-  if (ws % 16 || wg % 16 || ws > 256 || wg > 256 || ws > cat_d || wg > cat_d || cat_d % 8 ||
+  if (ws % 16 || wg % 16 || ws > cat_d || wg > cat_d || cat_d % 8 ||
       Gs % BN || Gg % BN || !gpt_ok(gpt_s) || !gpt_ok(gpt_g) || Gs != t_pad * gpt_s ||
       Gg != t_pad * gpt_g)
     return (int)cudaErrorInvalidValue;
   const Family f0 = family(g_sem, m_s, s_s, ws, 0, Gs, gpt_s);
   const Family f1 = family(g_geo, m_g, s_g, wg, cat_d - wg, Gg, gpt_g);
   const Layout lay = layout(ws > wg ? ws : wg);
+  if (lay.total > MAX_SMEM) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       hier_scan_stats_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay.total);
   if (err != cudaSuccess) return (int)err;

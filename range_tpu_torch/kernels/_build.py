@@ -53,6 +53,8 @@ _SIGNATURES = {
     "hier_refine": {"hier_refine_launch": [_P] * 5 + [_I] * 6 + [_P],
                     "hier_refine_parts_launch": [_P] * 9 + [_I] * 9 + [_P]},
     "hier_corr": {"hier_corr_launch": [_P] * 5 + [_I] * 7 + [_P]},
+    "hier_cores": {"hier_groups_launch": [_P, _P, _F, _P],
+                   "hier_rows_launch": [_P, _P, _P]},
     "hier_scan_stats": {"hier_scan_stats_launch": [_P] * 7 + [_I] * 9 + [_P]},
     "hier_parts": {"hier_parts_launch": [_P] * 11 + [_I] * 15 + [_P],
                    "hier_parts_family_values_launch":

@@ -71,7 +71,12 @@ its own beyond the stats scan).
 
 Each kernel wrapper runs its plain PyTorch version on CPU tensors and the
 CUDA kernel (`csrc/`) on CUDA tensors, and counts launches in
-``.launches``.  The numbers are f32 sums of bf16 products in both; the
+``.launches``.  On banks of the `exact` tier (f32 operands) and the `high`
+tier (768 semantic columns) the wrappers of the scan, the stats scan, the
+refine, the correction and both parts kernels launch the CUDA-core body
+`csrc/hier_cores.cu` (`_cores_form`; the stats scan's 768 columns run on
+its own kernel, whose shared memory holds them), counted also in
+``.f32_launches`` / ``.deep_launches``.  The numbers are f32 sums of bf16 products in both; the
 rounding points (bf16 p before every value product) are the JAX
 package's.  The sharded and host-staged builds raise `NotImplementedError`
 naming their ROADMAP item.
@@ -297,13 +302,17 @@ def build_hier_bank(bank: GeoBank, *, bn: int = 512, gsz_sem: int = 8,
                     topk_gsz: int = 0, topk_lr: int = 0,
                     tail_super: int = 0, sel_lr: int = 0,
                     n_clusters: Optional[int] = None, iters: int = 8,
-                    seed: int = 0, shards: int = 1,
+                    seed: int = 0, value_dtype: Optional[torch.dtype] = None,
+                    shards: int = 1,
                     host_stage: Optional[bool] = None) -> HierBank:
     """Offline serving prep on the bank's device (`retrieval_hier.py:337-804`,
     its device path).  ``seed`` names the build in its cache signature;
     the clustering is seeded with explicit points and draws nothing.  A
     `quantize_values` bank keeps its int8 codes and scales (permuted with
-    their rows); every derived operand comes from the dequantized values."""
+    their rows); every derived operand comes from the dequantized values.
+    ``value_dtype`` overrides the serving values' dtype (bf16 by default;
+    JAX's override, `retrieval_hier.py:777-779`: f32 values make the
+    `exact` tier's value products f32); int8 codes take precedence."""
     if bn % gsz_sem or bn % gsz_geo or bn // gsz_sem < 8 or bn // gsz_geo < 8:
         raise ValueError(f"bn={bn} must hold >= 8 groups of gsz_sem={gsz_sem} "
                          f"and gsz_geo={gsz_geo}")
@@ -348,7 +357,8 @@ def build_hier_bank(bank: GeoBank, *, bn: int = 512, gsz_sem: int = 8,
     return pack_hier_bank(cbank, bn=bn, gsz_sem=gsz_sem, gsz_geo=gsz_geo,
                           gsz_super=gsz_super, tier=tier, lr_rank=lr_rank,
                           lr_geo=lr_geo, res_rank=res_rank, topk_gsz=topk_gsz,
-                          topk_lr=topk_lr, tail_super=tail_super, sel_lr=sel_lr)
+                          topk_lr=topk_lr, tail_super=tail_super, sel_lr=sel_lr,
+                          value_dtype=value_dtype)
 
 
 def _check_super_knobs(bn: int, gsz_sem: int, gsz_super: int, tail_super: int,
@@ -378,7 +388,8 @@ def pack_hier_bank(cbank: GeoBank, *, bn: int, gsz_sem: int, gsz_geo: int,
                    lr_geo: Optional[int] = None,
                    res_rank: Optional[int] = None,
                    topk_gsz: int = 0, topk_lr: int = 0, tail_super: int = 0,
-                   sel_lr: int = 0) -> HierBank:
+                   sel_lr: int = 0,
+                   value_dtype: Optional[torch.dtype] = None) -> HierBank:
     """The serving operands of a bank whose rows are already in their
     final order (`retrieval_hier.py:494-804`, the ``prep`` stage):
     `build_hier_bank`'s second half.  Tests feed it the JAX build's row
@@ -396,7 +407,7 @@ def pack_hier_bank(cbank: GeoBank, *, bn: int, gsz_sem: int, gsz_geo: int,
     supergroup sem tail: g_sem_ts_vw, the mean of each tail_super // gsz_sem
     consecutive rows of the sem tail operand (the lr coefficients when
     ``lr_rank`` is set), and g_sem_ts_dvw, each row minus its supergroup's
-    mean (`retrieval_hier.py:672-685`)."""
+    mean (`retrieval_hier.py:672-685`).  ``value_dtype``: `build_hier_bank`'s."""
     Dv = cbank.value_dim
     topk_lr = min(topk_lr, cbank.key_dim) if topk_lr else 0
     sel_lr = min(sel_lr, cbank.key_dim) if sel_lr else 0
@@ -505,8 +516,8 @@ def pack_hier_bank(cbank: GeoBank, *, bn: int, gsz_sem: int, gsz_geo: int,
     kh, kl = _split_hilo(cbank.keys_sem.to(f32))
     if cbank.value_scale is not None:  # int8 codes, served with their scales
         values, scale = cbank.values, cbank.value_scale.to(f32)
-    else:
-        values, scale = cbank.values.to(torch.bfloat16), None  # the kernels' dtype
+    else:  # the serving default: bf16
+        values, scale = cbank.values.to(value_dtype or torch.bfloat16), None
     return HierBank(
         bank=cbank, k_cat=pack_bank(cbank.keys_sem, cbank.xyz, tier),
         values=values, value_scale=scale,
@@ -652,17 +663,20 @@ def prepare_hier_bank(bank: GeoBank, *, cache_path: Optional[str] = None,
         res_rank=build_kw.get("res_rank") or 0, **sig_kw)
     if cache_path and os.path.exists(cache_path):
         got = peek_hier_build(cache_path)
-        # the signature (the JAX package's) does not record int8 values:
-        # an archive whose values are not what the bank's are is stale too
+        # the signature (the JAX package's) does not record the serving
+        # values' dtype (int8 codes, bf16, or a ``value_dtype`` override):
+        # an archive whose values are not the requested ones is stale too
         with np.load(cache_path) as z:
-            got_i8 = "value_scale" in z.files
-        want_i8 = bank.value_scale is not None
-        if got == sig and got_i8 == want_i8:
+            got_v = json.loads(z["meta_json"].tobytes().decode())["dtypes"][
+                "values"]
+        want_v = ("int8" if bank.value_scale is not None else
+                  _to_numpy(torch.empty(0, dtype=build_kw.get("value_dtype")
+                                        or torch.bfloat16))[1])
+        if got == sig and got_v == want_v:
             return load_hier_bank(cache_path, device=bank.device)
         logging.getLogger("range_tpu_torch").warning(
-            "hier cache %s is stale (built %s, int8 values %s; requested %s, "
-            "int8 values %s): rebuilding", cache_path, got, got_i8, sig,
-            want_i8)
+            "hier cache %s is stale (built %s, values %s; requested %s, "
+            "values %s): rebuilding", cache_path, got, got_v, sig, want_v)
     hb = build_hier_bank(bank, **build_kw)
     if cache_path:
         save_hier_bank(hb, cache_path, build=sig)
@@ -810,6 +824,137 @@ def _launch(name: str, fn: str, *args) -> None:
     rc = getattr(load_kernel_library(name), fn)(*args)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+
+
+# The CUDA-core body (`csrc/hier_cores.cu`): every form of kernels 8, 9 and
+# 12-15 whose operands are f32 (the `exact` tier) or whose logits are deeper
+# than the other bodies' 256 columns (the `high` tier), composed from its
+# kernels, the group pass (with its segments' fold) and the row pass
+CORES_DEPTH = 256  # logit columns the Hopper and mma.sync bodies take at most
+CORES_NC = 512  # output columns of a CUDA-core block (a slice)
+_CORES_DT = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}
+
+
+def _cores_smem(depth: int, ltc: bool, vtc: bool, values: bool, K: int) -> int:
+    """Shared memory of a CUDA-core block (`layout` in `csrc/hier_cores.cu`):
+    the 64-query block resident over every logit column (bf16 with ``ltc``,
+    else f32), a ring of 3 operand pieces of 32 rows x 64 columns, the
+    logit and weight tiles, the chunk's 32 value rows of 520 columns (bf16
+    with ``vtc``) where there are ``values``, and the list of K entries."""
+    es = 2 if ltc else 4
+    pad = 8 if ltc else 4
+    dp = -(-depth // 64) * 64
+    return (64 * (dp + pad) * es + 3 * 32 * (64 + pad) * es + 2 * 64 * 36 * 4
+            + (32 * 520 * (2 if vtc else 4) if values else 0) + 4 * 32 + 8 * K)
+
+
+def _cores_fits(name: str, depth: int, ltc: bool, vtc: bool, values: bool, K: int) -> None:
+    """Raise unless the block's shared memory fits the card's (the launch
+    refuses it): f32 logits over about 450 columns, bf16 ones over ~1,290."""
+    if _cores_smem(depth, ltc, vtc, values, K) > _SM90_MAX_SMEM:
+        raise ValueError(f"{name} kernel (CUDA cores): {depth} logit columns "
+                         f"({'bf16' if ltc else 'f32'}) do not fit a block's shared memory")
+
+
+def _cores_form(depth: int, *ops) -> Optional[str]:
+    """The CUDA-core form a launch takes: "f32" when an operand is f32,
+    "deep" when its logits read more than `CORES_DEPTH` columns, else None
+    (the function's own body)."""
+    if any(t is not None and t.dtype == torch.float32 for t in ops):
+        return "f32"
+    return "deep" if depth > CORES_DEPTH else None
+
+
+def _cores_check(name: str, ops: dict) -> None:
+    """Raise unless every operand lies on CUDA in a dtype the body takes:
+    bf16 or f32 (int8 for value codes), int32 lists and f32 masks."""
+    for key, t in ops.items():
+        if t is None:
+            continue
+        if t.device.type != "cuda":
+            raise ValueError(f"{name}: {key} is on {t.device}, not CUDA")
+        ok = ((torch.int32,) if key == "idx" else (torch.float32,)
+              if key in ("mask_neg", "scale") else
+              (torch.bfloat16, torch.float32, torch.int8) if key == "values"
+              else (torch.bfloat16, torch.float32))
+        if t.dtype not in ok:
+            raise ValueError(f"{name} kernel: {key} must be one of {ok}, got {t.dtype}")
+
+
+def _cores_groups(q, g, *, wk: int, gpt: int, out=None, idx=None, bm: int = 64,
+                  n_tiles: int = 0, qc0: int = 0, stats=None, vw=None, sup: int = 1,
+                  nvc: int = 0, oc0: int = 0, cntc: int = -1, dcol: int = -1,
+                  ps=None, mode: int = 0, lrr: int = 0, sign: float = 1.0,
+                  accumulate: bool = False, dedup: bool = False, n_seg: int = 1) -> None:
+    """One launch of the CUDA-core group pass (`groups_kernel`): over each
+    64 queries' list row of ``idx`` [Bp / bm, K] (None: every one of
+    ``n_tiles`` tiles), the group logits q[:, qc0:qc0 + wk] . g[:, :wk]; into
+    ``stats`` (m, s) [Bp, K] each entry's max and sum of p; with ``vw``, E
+    (p; mode 1: p - ps / cnt, 2: ps / cnt - p, cnt = vw[:, lrr]; summed over
+    ``sup`` groups) rounded to vw's dtype, and out[:, oc0:oc0 + nvc] (=, or
+    += with ``accumulate``) sign * E @ vw[:, :nvc], vw column ``cntc`` into
+    out column ``dcol``.  ``n_seg`` > 1 splits each block's entries into
+    that many segments, a block each, whose partial products a work buffer
+    holds until `fold_kernel` adds them in order.  Contiguous operands;
+    nothing counted."""
+    Bp = q.shape[0]
+    K = idx.shape[1] if idx is not None else n_tiles
+    _cores_fits("hier_groups", wk, q.dtype == g.dtype == torch.bfloat16,
+                vw is not None and vw.dtype == torch.bfloat16, vw is not None,
+                K if idx is not None else 0)
+    work = (torch.empty((n_seg, Bp, nvc), dtype=torch.float32, device=q.device)
+            if n_seg > 1 and vw is not None else None)
+    held = [q.contiguous(), g.contiguous(),
+            None if idx is None else idx.contiguous(),
+            *(stats if stats is not None else (None, None)),
+            None if vw is None else vw.contiguous(), ps, out, work]
+    ptrs = (ctypes.c_void_p * 9)(*[None if t is None else t.data_ptr() for t in held])
+    m = stats[0] if stats is not None else None
+    ints = [Bp, _CORES_DT[q.dtype], q.shape[1], qc0, wk, _CORES_DT[g.dtype], g.shape[1], K,
+            bm, int(dedup), gpt, 0 if m is None else m.shape[1],
+            _CORES_DT[vw.dtype] if vw is not None else 0,
+            0 if vw is None else vw.shape[1], sup, nvc, cntc, dcol,
+            0 if ps is None else ps.shape[1], mode, lrr, int(accumulate),
+            0 if out is None else out.shape[1], oc0, n_seg]
+    _launch("hier_cores", "hier_groups_launch", ptrs, (ctypes.c_int * len(ints))(*ints),
+            sign, _stream(q))
+
+
+def _cores_rows(q, k, mask_neg, idx, x, out, *, kf: int, bm: int, bn: int, qc0: int = 0,
+                kc0: int = 0, scale=None, oc0: int = 0, dcol: int = -1, rr: bool = False,
+                ps=None, gsz: int = 1, accumulate: bool = False, dedup: bool = False) -> None:
+    """One launch of the CUDA-core row pass (`rows_kernel`): over each 64
+    queries' list row of ``idx``, the row logits q[:, qc0:qc0 + kf] .
+    k[:, kc0:kc0 + kf] + mask, p; d = sum of p into out column ``dcol``; the
+    weight (p, p * scale with int8 codes; with ``rr`` p itself, whose
+    segment sums over gsz rows go to ``ps`` [Bp, K bn / gsz]) rounded to
+    x's dtype, and out[:, oc0:oc0 + x's width] (=, or += with
+    ``accumulate``) weight @ x.  Nothing counted."""
+    Bp, nx = q.shape[0], x.shape[1]
+    _cores_fits("hier_rows", kf, q.dtype == k.dtype == torch.bfloat16,
+                x.dtype != torch.float32, True, idx.shape[1])
+    held = [q.contiguous(), k.contiguous(), mask_neg.contiguous(), idx.contiguous(),
+            x.contiguous(), None if scale is None else scale.contiguous(), ps, out]
+    ptrs = (ctypes.c_void_p * 8)(*[None if t is None else t.data_ptr() for t in held])
+    ints = [Bp, _CORES_DT[q.dtype], q.shape[1], qc0, kf, _CORES_DT[k.dtype], k.shape[1], kc0,
+            idx.shape[1], bm, bn, int(dedup), _CORES_DT[x.dtype], x.shape[1], nx, int(rr),
+            0 if ps is None else ps.shape[1], gsz, int(accumulate), out.shape[1], oc0, dcol]
+    _launch("hier_cores", "hier_rows_launch", ptrs, (ctypes.c_int * len(ints))(*ints),
+            _stream(q))
+
+
+def _cores_segments(Bp: int, n_slices: int, K: int) -> int:
+    """Segments of a group pass without a list (the scans: every one of K
+    tiles for each 64 queries): enough blocks for about four waves of the
+    CUDA-core body's one block an SM, each segment at least 4 tiles."""
+    blocks = -(-Bp // 64) * n_slices
+    return max(1, min(-(-4 * SM90_SMS // blocks), K // 4))
+
+
+def _count_cores(fn, form: str) -> None:
+    """Count one launch of a wrapper's CUDA-core form."""
+    fn.launches += 1
+    setattr(fn, f"{form}_launches", getattr(fn, f"{form}_launches") + 1)
 
 
 def _hier_scan_plain(q_cat, g_sem_cat, g_geo_cat, g_sem_vw, g_geo_vw, *,
@@ -1012,20 +1157,29 @@ def _hier_scan_stats_call(q_cat, g_sem_cat, g_geo_cat, *, gpt_s: int,
 
     CPU tensors: `_hier_scan_stats_plain`.  CUDA tensors:
     `csrc/hier_scan_stats.cu`, which replaces `_hier_scan_stats_kernel`
-    (`range_tpu/ops/retrieval_hier.py:1582`); bf16 operands only, a launch
-    failure raises."""
+    (`range_tpu/ops/retrieval_hier.py:1582`), on bf16 operands whose query
+    block and group tiles fit its shared memory (`_stats_smem`: up to 864
+    logit columns, the `high` tier's 768 included); f32 operands, and
+    deeper bf16 ones, on the CUDA-core body.  Launches of f32 operands also
+    count in ``.f32_launches``, of logits deeper than 256 columns in
+    ``.deep_launches``.  A shape the kernel does not take or a failed
+    launch raises."""
     if q_cat.device.type == "cpu":
         return _hier_scan_stats_plain(q_cat, g_sem_cat, g_geo_cat,
                                       gpt_s=gpt_s, gpt_g=gpt_g)
     ops = dict(q_cat=q_cat, g_sem_cat=g_sem_cat, g_geo_cat=g_geo_cat)
+    depth = max(g_sem_cat.shape[1], g_geo_cat.shape[1])
+    form = _cores_form(depth, *ops.values())
+    if form == "f32" or _stats_smem(depth) > _SM90_MAX_SMEM:
+        return _scan_cores(form, q_cat, g_sem_cat, g_geo_cat, None, None, gpt_s=gpt_s,
+                           gpt_g=gpt_g)
     _check_cuda("hier_scan_stats", ops, dict.fromkeys(ops, torch.bfloat16))
     Bp, cat_d = q_cat.shape
     (Gs, ws), (Gg, wg) = g_sem_cat.shape, g_geo_cat.shape
     t_pad = Gs // gpt_s
     if (not _gpt_ok(gpt_s) or not _gpt_ok(gpt_g) or Gs != t_pad * gpt_s
-            or Gg != t_pad * gpt_g or Gs % 32 or Gg % 32 or ws > 256
-            or wg > 256 or ws % 16 or wg % 16 or ws > cat_d or wg > cat_d
-            or cat_d % 8):
+            or Gg != t_pad * gpt_g or Gs % 32 or Gg % 32 or ws % 16 or wg % 16
+            or ws > cat_d or wg > cat_d or cat_d % 8):
         raise ValueError(
             f"hier_scan_stats kernel: unsupported shapes q "
             f"{tuple(q_cat.shape)}, g_sem {tuple(g_sem_cat.shape)}, g_geo "
@@ -1038,10 +1192,77 @@ def _hier_scan_stats_call(q_cat, g_sem_cat, g_geo_cat, *, gpt_s: int,
                 *[t.data_ptr() for t in ops + stats], Bp, cat_d, ws, wg, Gs,
                 Gg, gpt_s, gpt_g, t_pad, _stream(q_cat))
         _hier_scan_stats_call.launches += 1
+        if form:  # deep
+            _hier_scan_stats_call.deep_launches += 1
     return tuple(stats)
 
 
+def _stats_smem(wk: int) -> int:
+    """The stats kernel's shared memory at logit depth wk (`layout` in
+    `csrc/hier_scan_stats.cu`): the 64-query block and two 32-group tiles
+    of wk + 8 bf16 columns, and the f32 logit tile."""
+    return 64 * (wk + 8) * 2 + 2 * 32 * (wk + 8) * 2 + 64 * 33 * 4
+
+
 _hier_scan_stats_call.launches = 0
+_hier_scan_stats_call.f32_launches = 0
+_hier_scan_stats_call.deep_launches = 0
+
+
+def _scan_cores_shapes(q_cat, g_sem_cat, g_geo_cat, g_sem_vw, g_geo_vw, *, gpt_s: int,
+                       gpt_g: int, has_geo: bool = True, sup_r: int = 0) -> int:
+    """t_pad of a scan on the CUDA-core body; raises on a shape it does not
+    take (what `hier_groups_launch` refuses)."""
+    cat_d = q_cat.shape[1]
+    t_pad = g_sem_cat.shape[0] // max(gpt_s, 1)
+    fams = [(g_sem_cat, g_sem_vw, gpt_s, sup_r or 1)]
+    if has_geo:
+        fams.append((g_geo_cat, g_geo_vw, gpt_g, 1))
+    bad = sup_r < 0 or sup_r == 1 or t_pad < 1
+    for g, vw, gpt, sup in fams:
+        bad = bad or (gpt < 1 or g.shape[0] != t_pad * gpt or not 0 < g.shape[1] <= cat_d
+                      or 32 % sup or gpt % sup
+                      or (vw is not None and vw.shape[0] * sup != g.shape[0]))
+    if bad:
+        raise ValueError(
+            f"hier_scan kernel (CUDA cores): unsupported shapes q {tuple(q_cat.shape)}, "
+            f"g_sem {tuple(g_sem_cat.shape)}, g_geo {tuple(g_geo_cat.shape)}, gpt "
+            f"{gpt_s} / {gpt_g}, sup_r={sup_r}")
+    return t_pad
+
+
+def _scan_cores(form: str, q_cat, g_sem_cat, g_geo_cat, g_sem_vw, g_geo_vw, *,
+                gpt_s: int, gpt_g: int, has_geo: bool = True, sup_r: int = 0):
+    """The two scans on the CUDA-core body, a group pass a family: (m_s,
+    s_s, m_g, s_g), and without ``g_sem_vw`` (the stats scan) nothing more,
+    else the tails [Bp, Ws (+ Wg)] too; counted in the scan's counters."""
+    ops = dict(q_cat=q_cat, g_sem_cat=g_sem_cat, g_sem_vw=g_sem_vw)
+    if has_geo:
+        ops.update(g_geo_cat=g_geo_cat, g_geo_vw=g_geo_vw)
+    tails = g_sem_vw is not None
+    name = "hier_scan" if tails else "hier_scan_stats"
+    _cores_check(name, ops)
+    t_pad = _scan_cores_shapes(q_cat, g_sem_cat, g_geo_cat, g_sem_vw, g_geo_vw, gpt_s=gpt_s,
+                               gpt_g=gpt_g, has_geo=has_geo, sup_r=sup_r)
+    Bp, cat_d = q_cat.shape
+    dev = q_cat.device
+    stats = [torch.empty((Bp, t_pad), dtype=torch.float32, device=dev)
+             for _ in range(4 if has_geo else 2)]
+    Ws = g_sem_vw.shape[1] if tails else 0
+    Wg = g_geo_vw.shape[1] if tails and has_geo else 0
+    out = torch.empty((Bp, Ws + Wg), dtype=torch.float32, device=dev) if tails else None
+    if not Bp:
+        return tuple(stats) + ((out,) if tails else ())
+    fams = [(g_sem_cat, g_sem_vw, gpt_s, sup_r or 1, 0, 0, Ws)]
+    if has_geo:
+        fams.append((g_geo_cat, g_geo_vw, gpt_g, 1, cat_d - g_geo_cat.shape[1], Ws, Wg))
+    for f, (g, vw, gpt, sup, qc0, oc0, W) in enumerate(fams):
+        _cores_groups(q_cat, g, wk=g.shape[1], gpt=gpt, n_tiles=t_pad, qc0=qc0,
+                      stats=stats[2 * f:2 * f + 2], vw=vw, sup=sup, nvc=W, out=out, oc0=oc0,
+                      n_seg=_cores_segments(Bp, -(-W // CORES_NC) if tails else 1, t_pad))
+    fn = _hier_scan_call if tails else _hier_scan_stats_call
+    _count_cores(fn, form)
+    return tuple(stats) + ((out,) if tails else ())
 
 
 def _scan_shapes(q_cat, g_sem_cat, g_geo_cat, g_sem_vw, g_geo_vw, *, gpt_s: int,
@@ -1125,14 +1346,25 @@ def _hier_scan_call(q_cat, g_sem_cat, g_geo_cat, g_sem_vw, g_geo_vw, *,
 
     CPU tensors: `_hier_scan_plain`.  CUDA tensors: the Hopper kernel
     `csrc/hier_scan_sm90.cu` over `_scan_plan`'s segments, which replaces
-    `_hier_scan_kernel` (`range_tpu/ops/retrieval_hier.py:1443`); bf16
-    operands only, a shape it does not take or a failed launch raises.
+    `_hier_scan_kernel` (`range_tpu/ops/retrieval_hier.py:1443`), on bf16
+    operands of at most 256 logit columns; f32 operands (the `exact` tier)
+    and deeper logits (`high`) on the CUDA-core body `csrc/hier_cores.cu`
+    (`_cores_form`), counted in ``.f32_launches`` / ``.deep_launches`` and
+    not in the Hopper body's ``.sup_launches`` / ``.wide_launches``.  A
+    shape the kernel does not take or a failed launch raises.
     The TPU tiling knobs (bm, tc) have no counterpart: they only set
     speed."""
     if q_cat.device.type == "cpu":
         return _hier_scan_plain(q_cat, g_sem_cat, g_geo_cat, g_sem_vw,
                                 g_geo_vw, gpt_s=gpt_s, gpt_g=gpt_g,
                                 has_geo=has_geo, sup_r=sup_r)
+    geo_ops = (g_geo_cat, g_geo_vw) if has_geo else ()
+    form = _cores_form(max(g_sem_cat.shape[1], g_geo_cat.shape[1] if has_geo else 0),
+                       q_cat, g_sem_cat, g_sem_vw, *geo_ops)
+    if form:
+        out = _scan_cores(form, q_cat, g_sem_cat, g_geo_cat, g_sem_vw, g_geo_vw,
+                          gpt_s=gpt_s, gpt_g=gpt_g, has_geo=has_geo, sup_r=sup_r)
+        return out if has_geo else out[:2] + (None, None, out[2])
     stats, tails = _launch_scan_sm90(q_cat, g_sem_cat, g_geo_cat, g_sem_vw,
                                      g_geo_vw, gpt_s=gpt_s, gpt_g=gpt_g,
                                      has_geo=has_geo, sup_r=sup_r)
@@ -1150,6 +1382,8 @@ def _hier_scan_call(q_cat, g_sem_cat, g_geo_cat, g_sem_vw, g_geo_vw, *,
 _hier_scan_call.launches = 0
 _hier_scan_call.sup_launches = 0
 _hier_scan_call.wide_launches = 0
+_hier_scan_call.f32_launches = 0
+_hier_scan_call.deep_launches = 0
 
 
 def _block_groups(tiles: torch.Tensor, gpt: int) -> torch.Tensor:
@@ -1213,7 +1447,10 @@ def _hier_refine_call(q_cat, idx, g_sem_cat, g_sup_cat, g_sem_vw, g_sup_vw,
 
     CPU tensors: `_hier_refine_plain`.  CUDA tensors: `csrc/hier_refine.cu`,
     which replaces `_hier_refine_kernel` (`range_tpu/ops/retrieval_hier.py:
-    2077`); bf16 operands only, a launch failure raises.  The stats come
+    2077`), on bf16 operands of at most 256 logit columns; f32 operands and
+    deeper logits on the CUDA-core body (`_refine_cores`, counted in
+    ``.f32_launches`` / ``.deep_launches``, not ``.parts_launches``).  A
+    shape the kernel does not take or a failed launch raises.  The stats come
     out in [query, column] order: the TPU's one-hot scratch and its 2 Mp
     packing have no counterpart.  has_parts launches also count in
     ``.parts_launches``."""
@@ -1228,6 +1465,11 @@ def _hier_refine_call(q_cat, idx, g_sem_cat, g_sup_cat, g_sem_vw, g_sup_vw,
     ops = dict(q_cat=q_cat, idx=idx, g_sem_cat=g_sem_cat)
     if not stats_only:
         ops.update(g_sup_cat=g_sup_cat, g_sem_vw=g_sem_vw, g_sup_vw=g_sup_vw)
+    form = _cores_form(max(g_sem_cat.shape[1], 0 if stats_only else g_sup_cat.shape[1]),
+                       *[t for k, t in ops.items() if k != "idx"])
+    if form:
+        return _refine_cores(form, q_cat, idx, g_sem_cat, g_sup_cat, g_sem_vw, g_sup_vw,
+                             bm=bm, gpt_f=gpt_f, gpt_sup=gpt_sup, stats_only=stats_only)
     _check_cuda("hier_refine", ops, {k: torch.int32 if k == "idx" else bf
                                      for k in ops})
     Bp, cat_d = q_cat.shape
@@ -1272,6 +1514,56 @@ def _hier_refine_call(q_cat, idx, g_sem_cat, g_sup_cat, g_sem_vw, g_sup_vw,
 
 _hier_refine_call.launches = 0
 _hier_refine_call.parts_launches = 0
+_hier_refine_call.f32_launches = 0
+_hier_refine_call.deep_launches = 0
+
+
+def _list_shapes(name: str, q_cat, idx, *, bm: int, fams) -> None:
+    """Raise unless a listed launch's shapes are ones the CUDA-core body
+    takes: Bp = blocks x bm, bm a multiple of 64, and per family (g, vw,
+    gpt) whole tiles of gpt groups, at most q's columns, vw one row a
+    group."""
+    Bp, qw = q_cat.shape
+    bad = idx.dim() != 2 or Bp != idx.shape[0] * bm or bm < 64 or bm % 64
+    for g, vw, gpt in fams:
+        bad = bad or (gpt < 1 or g.shape[0] % gpt or not 0 < g.shape[1] <= qw
+                      or (vw is not None and vw.shape[0] != g.shape[0]))
+    if bad:
+        raise ValueError(
+            f"{name} kernel (CUDA cores): unsupported shapes q {tuple(q_cat.shape)}, idx "
+            f"{tuple(idx.shape)}, g {[tuple(f[0].shape) for f in fams]}, bm={bm}, gpt "
+            f"{[f[2] for f in fams]}")
+
+
+def _refine_cores(form: str, q_cat, idx, g_sem_cat, g_sup_cat, g_sem_vw, g_sup_vw, *,
+                  bm: int, gpt_f: int, gpt_sup: int, stats_only: bool):
+    """`_hier_refine_call` on the CUDA-core body: the fine group pass (the
+    stats, and with parts E @ g_sem_vw), then the supergroups' E @ g_sup_vw
+    subtracted."""
+    ops = dict(q_cat=q_cat, idx=idx, g_sem_cat=g_sem_cat)
+    fams = [(g_sem_cat, None if stats_only else g_sem_vw, gpt_f)]
+    if not stats_only:
+        ops.update(g_sup_cat=g_sup_cat, g_sem_vw=g_sem_vw, g_sup_vw=g_sup_vw)
+        fams.append((g_sup_cat, g_sup_vw, gpt_sup))
+    _cores_check("hier_refine", ops)
+    _list_shapes("hier_refine", q_cat, idx, bm=bm, fams=fams)
+    if not stats_only and g_sem_vw.shape[1] != g_sup_vw.shape[1]:
+        raise ValueError("hier_refine kernel (CUDA cores): g_sem_vw and g_sup_vw widths "
+                         f"{g_sem_vw.shape[1]} != {g_sup_vw.shape[1]}")
+    Bp, M = q_cat.shape[0], idx.shape[1]
+    dev = q_cat.device
+    m_f, s_f = (torch.empty((Bp, M), dtype=torch.float32, device=dev) for _ in range(2))
+    W = 0 if stats_only else g_sem_vw.shape[1]
+    parts = None if stats_only else torch.zeros((Bp, W), dtype=torch.float32, device=dev)
+    if not (Bp and M):
+        return m_f, s_f, parts
+    _cores_groups(q_cat, g_sem_cat, wk=g_sem_cat.shape[1], gpt=gpt_f, idx=idx, bm=bm,
+                  stats=(m_f, s_f), vw=fams[0][1], nvc=W, out=parts)
+    if not stats_only:
+        _cores_groups(q_cat, g_sup_cat, wk=g_sup_cat.shape[1], gpt=gpt_sup, idx=idx, bm=bm,
+                      vw=g_sup_vw, nvc=W, out=parts, sign=-1.0, accumulate=True)
+    _count_cores(_hier_refine_call, form)
+    return m_f, s_f, parts
 
 
 def _hier_corr_plain(q_cat, idx, g_cat, dvw, *, bm: int, gpt: int,
@@ -1305,13 +1597,28 @@ def _hier_corr_call(q_cat, idx, g_cat, dvw, *, bm: int, gpt: int):
 
     CPU tensors: `_hier_corr_plain`.  CUDA tensors: `csrc/hier_corr.cu`,
     which replaces `_hier_corr_kernel` (`range_tpu/ops/retrieval_hier.py:
-    2209`); bf16 operands only, a launch failure raises.  A dvw wider than
+    2209`), on bf16 operands of at most 256 logit columns; f32 operands and
+    deeper logits on the CUDA-core body (one group pass, counted in
+    ``.f32_launches`` / ``.deep_launches``, not ``.wide_launches``).  A
+    shape the kernel does not take or a failed launch raises.  A dvw wider than
     512 columns (a bank without lr_rank) runs in column slices, counted
     also in ``.wide_launches``."""
     if q_cat.device.type == "cpu":
         return _hier_corr_plain(q_cat, idx, g_cat, dvw, bm=bm, gpt=gpt)
     bf = torch.bfloat16
     ops = dict(q_cat=q_cat, idx=idx, g_cat=g_cat, dvw=dvw)
+    form = _cores_form(g_cat.shape[1], q_cat, g_cat, dvw)
+    if form:
+        _cores_check("hier_corr", ops)
+        _list_shapes("hier_corr", q_cat, idx, bm=bm, fams=[(g_cat, dvw, gpt)])
+        out = torch.empty((q_cat.shape[0], dvw.shape[1]), dtype=torch.float32,
+                          device=q_cat.device)
+        if not (q_cat.shape[0] and idx.shape[1]):
+            return out.zero_()
+        _cores_groups(q_cat, g_cat, wk=g_cat.shape[1], gpt=gpt, idx=idx, bm=bm, vw=dvw,
+                      nvc=dvw.shape[1], out=out)
+        _count_cores(_hier_corr_call, form)
+        return out
     _check_cuda("hier_corr", ops, dict(q_cat=bf, idx=torch.int32, g_cat=bf,
                                        dvw=bf))
     Bp, cat_d = q_cat.shape
@@ -1340,6 +1647,8 @@ def _hier_corr_call(q_cat, idx, g_cat, dvw, *, bm: int, gpt: int):
 
 _hier_corr_call.launches = 0
 _hier_corr_call.wide_launches = 0
+_hier_corr_call.f32_launches = 0
+_hier_corr_call.deep_launches = 0
 
 
 def _family_cols(geo: bool, sem_d: int, cat_d: int, gw: int, qw: int,
@@ -1492,8 +1801,12 @@ def _hier_parts_family_call(q_cat, k_cat, mask_neg, idx, g_cat, g_vw, z, *,
     the Hopper values kernel `csrc/hier_parts_sm90.cu` over
     `_values_plan`'s segments; both replace
     `_hier_parts_family_kernel` (`range_tpu/ops/retrieval_hier.py:2282`),
-    a shape they do not take or a failed launch raises.  Each launch
-    counts in ``.launches`` and in its shape's own counter:
+    on bf16 operands of at most 256 logit columns; f32 operands and deeper
+    logits go to the CUDA-core body (`_parts_family_cores`, every shape and
+    form, counted in ``.launches`` and ``.f32_launches`` /
+    ``.deep_launches`` only).  A shape they do not take or a failed launch
+    raises.  Each launch of the other bodies counts in ``.launches`` and in
+    its shape's own counter:
     ``.rrlr_launches``, ``.rr_launches``, ``.lr_launches`` or
     ``.plain_launches``; and the sel form in ``.sel_launches``, the
     dedup_pad form in ``.dedup_launches`` (those of the rr shapes also in
@@ -1503,6 +1816,17 @@ def _hier_parts_family_call(q_cat, k_cat, mask_neg, idx, g_cat, g_vw, z, *,
             q_cat, k_cat, mask_neg, idx, g_cat, g_vw, z, sem_d=sem_d, bm=bm,
             bn=bn, gpt=gpt, geo=geo, lrr=lrr, lr=lr, values=values,
             scale=scale, sel=sel, dedup_pad=dedup_pad)
+    # the other bodies lay out sem_d columns of queries and keys whichever
+    # family they serve
+    form = _cores_form(max(sem_d, g_cat.shape[1]), q_cat, k_cat, g_cat, g_vw, z, values)
+    if form:
+        out = _parts_family_cores(q_cat, k_cat, mask_neg, idx, g_cat, g_vw, z, sem_d=sem_d,
+                                  bm=bm, bn=bn, gpt=gpt, geo=geo, lrr=lrr, lr=lr,
+                                  values=values, scale=scale, sel=sel, dedup_pad=dedup_pad,
+                                  geo_cols=geo_cols)
+        if q_cat.shape[0] and idx.shape[1]:
+            _count_cores(_hier_parts_family_call, form)
+        return out
     if z is None:  # the geo family's logits over one k16 step, as the merged launch's
         out = _values_sm90("hier_parts_family", q_cat, k_cat, values, scale, mask_neg, idx,
                            (g_cat, g_vw, gpt), None, sem_d=sem_d, bm=bm, bn=bn,
@@ -1995,6 +2319,91 @@ _hier_parts_family_call.sel_launches = 0
 _hier_parts_family_call.dedup_launches = 0
 _hier_parts_family_call.sel_rr_launches = 0
 _hier_parts_family_call.dedup_rr_launches = 0
+_hier_parts_family_call.f32_launches = 0
+_hier_parts_family_call.deep_launches = 0
+
+
+def _rows_shapes(name: str, k_cat, mask_neg, idx, x, *, bn: int, scale=None) -> None:
+    """Raise unless a row pass's operands are ones the CUDA-core body takes:
+    keys and x one row a bank row, whole tiles of bn rows, the mask [1, N],
+    int8 codes with their [1, N] scales.  The list's tiles are not read
+    (no sync): `select_tiles` gives real ones."""
+    N = k_cat.shape[0]
+    if (bn < 1 or N % bn or N == 0 or mask_neg.shape != (1, N) or x.shape[0] != N
+            or (x.dtype == torch.int8) != (scale is not None)
+            or (scale is not None and scale.shape != (1, N))):
+        raise ValueError(
+            f"{name} kernel (CUDA cores): unsupported shapes k {tuple(k_cat.shape)}, "
+            f"mask {tuple(mask_neg.shape)}, values {tuple(x.shape)} {x.dtype}, idx "
+            f"{tuple(idx.shape)}, bn={bn}")
+
+
+def _parts_family_cores(q_cat, k_cat, mask_neg, idx, g_cat, g_vw, z, *, sem_d: int,
+                        bm: int, bn: int, gpt: int, geo: bool, lrr: int, lr: bool,
+                        values, scale, sel: bool, dedup_pad: bool,
+                        geo_cols: Optional[int] = None):
+    """`_hier_parts_family_call`'s shapes on the CUDA-core body, the layout
+    of `_hier_parts_family_plain`: the row pass (d and the value product,
+    or with ``z`` az and the segment sums of the rounded p), then the group
+    pass (the approximation into alr or subtracted, or with ``z`` the
+    rounded e - ps / cnt into alr, or ps / cnt - e into [acc | d]); the geo
+    family's logits over the columns holding its ``geo_cols`` real ones."""
+    x = values if z is None else z
+    ops = dict(q_cat=q_cat, k_cat=k_cat, mask_neg=mask_neg, idx=idx, g_cat=g_cat,
+               g_vw=g_vw, values=x, scale=scale if z is None else None)
+    _cores_check("hier_parts_family", ops)
+    Bp, qw = q_cat.shape
+    cat_d = k_cat.shape[1]
+    W, gw = g_vw.shape[1], g_cat.shape[1]
+    cols, qcols = _family_cols(geo, sem_d, cat_d, gw, qw, sel)
+    if geo and geo_cols:
+        cut = _round_up(geo_cols, 16)
+        cols = slice(cols.start, min(cols.stop, cols.start + cut))
+        qcols = slice(qcols.start, min(qcols.stop, qcols.start + cut))
+    _list_shapes("hier_parts_family", q_cat, idx, bm=bm, fams=[(g_cat, g_vw, gpt)])
+    _rows_shapes("hier_parts_family", k_cat, mask_neg, idx, x, bn=bn,
+                 scale=None if z is not None else scale)
+    if (qw != (cat_d + gw if sel else cat_d) or (sel and geo) or not 0 < sem_d < cat_d
+            or bn % gpt or not 0 <= lrr < W or (z is not None and x.dtype == torch.int8)
+            or (not lr and (lrr != x.shape[1] if z is None else lrr + 1 > W))):
+        raise ValueError(
+            f"hier_parts_family kernel (CUDA cores): unsupported shapes q "
+            f"{tuple(q_cat.shape)}, k {tuple(k_cat.shape)}, g {tuple(g_cat.shape)}, vw "
+            f"{tuple(g_vw.shape)}, x {tuple(x.shape)}, sem_d={sem_d}, lrr={lrr}, lr={lr}, "
+            f"sel={sel}, geo={geo}")
+    dev = q_cat.device
+    f32 = torch.float32
+    if z is not None:
+        rrp = z.shape[1]
+        Dv = lrr
+        out = torch.zeros((Bp, rrp + 128 + W if lr else Dv + 128 + rrp), dtype=f32,
+                          device=dev)
+    else:
+        Dv = x.shape[1]
+        out = torch.zeros((Bp, Dv + 128 + (W if lr else 0)), dtype=f32, device=dev)
+    if not (Bp and idx.shape[1]):
+        return out
+    rows = dict(kf=cols.stop - cols.start, qc0=cols.start, kc0=cols.start, bm=bm, bn=bn,
+                dedup=dedup_pad)
+    grp = dict(wk=qcols.stop - qcols.start, qc0=qcols.start, gpt=gpt, idx=idx, bm=bm,
+               vw=g_vw, out=out, dedup=dedup_pad)
+    if z is not None:
+        ps = torch.zeros((Bp, idx.shape[1] * gpt), dtype=f32, device=dev)
+        _cores_rows(q_cat, k_cat, mask_neg, idx, z, out, oc0=0 if lr else Dv + 128,
+                    rr=True, ps=ps, gsz=bn // gpt, **rows)
+        if lr:
+            _cores_groups(q_cat, g_cat, nvc=W, oc0=rrp + 128, ps=ps, mode=1, lrr=lrr, **grp)
+        else:
+            _cores_groups(q_cat, g_cat, nvc=Dv, cntc=Dv, dcol=Dv, ps=ps, mode=2, lrr=lrr,
+                          **grp)
+        return out
+    _cores_rows(q_cat, k_cat, mask_neg, idx, x, out, scale=scale, dcol=Dv, **rows)
+    if lr:
+        _cores_groups(q_cat, g_cat, nvc=W, oc0=Dv + 128, **grp)
+    else:
+        _cores_groups(q_cat, g_cat, nvc=Dv, cntc=Dv, dcol=Dv, sign=-1.0, accumulate=True,
+                      **grp)
+    return out
 
 
 def _hier_parts_plain(q_cat, k_cat, values, scale, mask_neg, idx, g_sem_cat,
@@ -2086,14 +2495,26 @@ def _hier_parts_call(q_cat, k_cat, values, scale, mask_neg, idx, g_sem_cat,
     CPU tensors: `_hier_parts_plain`.  CUDA tensors: the Hopper values
     kernel `csrc/hier_parts_sm90.cu` over `_values_plan`'s segments, which
     replaces `_hier_parts_kernel` (`range_tpu/ops/retrieval_hier.py:
-    2515`); a shape it does not take raises ValueError before any launch,
-    a launch failure raises.  The ``lr=False`` launches also count in
+    2515`), on bf16 operands of at most 256 logit columns; f32 operands and
+    deeper logits on the CUDA-core body (`_parts_cores`, counted in
+    ``.f32_launches`` / ``.deep_launches`` besides ``.launches``).  A shape
+    it does not take raises ValueError before any launch, a launch failure
+    raises.  The ``lr=False`` launches of the Hopper body also count in
     ``.plain_launches``."""
     if q_cat.device.type == "cpu":
         return _hier_parts_plain(q_cat, k_cat, values, scale, mask_neg, idx,
                                  g_sem_cat, g_geo_cat, g_sem_vw, g_geo_vw,
                                  sem_d=sem_d, bm=bm, bn=bn, gpt_s=gpt_s,
                                  gpt_g=gpt_g, geo=geo, lr=lr)
+    geo_ops = (g_geo_cat, g_geo_vw) if geo else ()
+    form = _cores_form(sem_d, q_cat, k_cat, values, g_sem_cat, g_sem_vw, *geo_ops)
+    if form:
+        out = _parts_cores(q_cat, k_cat, values, scale, mask_neg, idx, g_sem_cat, g_geo_cat,
+                           g_sem_vw, g_geo_vw, sem_d=sem_d, bm=bm, bn=bn, gpt_s=gpt_s,
+                           gpt_g=gpt_g, lr=lr, geo=geo)
+        if q_cat.shape[0] and idx.shape[1]:
+            _count_cores(_hier_parts_call, form)
+        return out
     out = _values_sm90("hier_parts", q_cat, k_cat, values, scale, mask_neg, idx,
                        (g_sem_cat, g_sem_vw, gpt_s),
                        (g_geo_cat, g_geo_vw, gpt_g) if geo else None, sem_d=sem_d,
@@ -2107,6 +2528,56 @@ def _hier_parts_call(q_cat, k_cat, values, scale, mask_neg, idx, g_sem_cat,
 
 _hier_parts_call.launches = 0
 _hier_parts_call.plain_launches = 0
+_hier_parts_call.f32_launches = 0
+_hier_parts_call.deep_launches = 0
+
+
+def _parts_cores(q_cat, k_cat, values, scale, mask_neg, idx, g_sem_cat, g_geo_cat, g_sem_vw,
+                 g_geo_vw, *, sem_d: int, bm: int, bn: int, gpt_s: int, gpt_g: int,
+                 lr: bool, geo: bool):
+    """`_hier_parts_call` on the CUDA-core body, the layout of
+    `_hier_parts_plain`: per family a row pass (acc, d) and a group pass
+    (the sem approximation into alr with ``lr``, else each approximation
+    subtracted from its family's acc and d)."""
+    ops = dict(q_cat=q_cat, k_cat=k_cat, values=values, scale=scale, mask_neg=mask_neg,
+               idx=idx, g_sem_cat=g_sem_cat, g_sem_vw=g_sem_vw)
+    if geo:
+        ops.update(g_geo_cat=g_geo_cat, g_geo_vw=g_geo_vw)
+    _cores_check("hier_parts", ops)
+    Bp, cat_d = q_cat.shape
+    N, Dv = values.shape
+    Ws = g_sem_vw.shape[1]
+    fams = [(g_sem_cat, g_sem_vw, gpt_s)] + ([(g_geo_cat, g_geo_vw, gpt_g)] if geo else [])
+    _list_shapes("hier_parts", q_cat, idx, bm=bm, fams=fams)
+    _rows_shapes("hier_parts", k_cat, mask_neg, idx, values, bn=bn, scale=scale)
+    if (k_cat.shape[1] != cat_d or not 0 < sem_d < cat_d or g_sem_cat.shape[1] > sem_d
+            or bn % gpt_s or (not lr and Ws < Dv + 1)
+            or (geo and (bn % gpt_g or g_geo_vw.shape[1] < Dv + 1))):
+        raise ValueError(
+            f"hier_parts kernel (CUDA cores): unsupported shapes q {tuple(q_cat.shape)}, k "
+            f"{tuple(k_cat.shape)}, values {tuple(values.shape)}, vw {tuple(g_sem_vw.shape)}"
+            f", sem_d={sem_d}, bn={bn}, gpt {gpt_s} / {gpt_g}, lr={lr}")
+    out = torch.zeros((Bp, 2 * Dv + 128 + (Ws if lr else 0)), dtype=torch.float32,
+                      device=q_cat.device)
+    if not (Bp and idx.shape[1]):
+        return out
+    grp = dict(idx=idx, bm=bm, out=out)
+    _cores_rows(q_cat, k_cat, mask_neg, idx, values, out, kf=sem_d, bm=bm, bn=bn,
+                scale=scale, dcol=2 * Dv)
+    if lr:
+        _cores_groups(q_cat, g_sem_cat, wk=g_sem_cat.shape[1], gpt=gpt_s, vw=g_sem_vw, nvc=Ws,
+                      oc0=2 * Dv + 128, **grp)
+    else:
+        _cores_groups(q_cat, g_sem_cat, wk=g_sem_cat.shape[1], gpt=gpt_s, vw=g_sem_vw, nvc=Dv,
+                      cntc=Dv, dcol=2 * Dv, sign=-1.0, accumulate=True, **grp)
+    if geo:
+        gg = g_geo_cat.shape[1]
+        _cores_rows(q_cat, k_cat, mask_neg, idx, values, out, kf=cat_d - sem_d, qc0=sem_d,
+                    kc0=sem_d, bm=bm, bn=bn, scale=scale, oc0=Dv, dcol=2 * Dv + 1)
+        _cores_groups(q_cat, g_geo_cat, wk=gg, qc0=cat_d - gg, gpt=gpt_g, vw=g_geo_vw,
+                      nvc=Dv, oc0=Dv, cntc=Dv, dcol=2 * Dv + 1, sign=-1.0, accumulate=True,
+                      **grp)
+    return out
 
 
 def _stacked_bases(w_sem, u_sem, w_geo, u_geo):

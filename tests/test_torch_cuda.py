@@ -437,13 +437,25 @@ def test_hier_kernels_match_plain(cuda, hier_bank):
 
 
 def test_hier_kernels_reject_f32_operands(cuda, hier_bank):
+    """The Hopper scan takes bf16 operands only: f16 ones raise before any
+    launch, and f32 ones (the exact tier's) take the CUDA-core body."""
     from range_tpu_torch.ops import retrieval_hier as rh
 
     hb = hier_bank
     q = torch.zeros(128, 384, device=cuda)
+    n0 = rh._hier_scan_call.launches
     with pytest.raises(ValueError, match="bfloat16"):
-        rh._hier_scan_call(q, hb.g_sem_cat, hb.g_geo_cat, hb.g_sem_vw_lr,
+        rh._hier_scan_call(q.half(), hb.g_sem_cat, hb.g_geo_cat, hb.g_sem_vw_lr,
                            hb.g_geo_vw_lr, gpt_s=8, gpt_g=8)
+    with pytest.raises(ValueError, match="bfloat16"):
+        rh._launch_scan_sm90(q, hb.g_sem_cat, hb.g_geo_cat, hb.g_sem_vw_lr, hb.g_geo_vw_lr,
+                             gpt_s=8, gpt_g=8)
+    assert rh._hier_scan_call.launches == n0
+    f0 = rh._hier_scan_call.f32_launches
+    rh._hier_scan_call(q, hb.g_sem_cat, hb.g_geo_cat, hb.g_sem_vw_lr, hb.g_geo_vw_lr,
+                       gpt_s=8, gpt_g=8)
+    torch.cuda.synchronize()
+    assert rh._hier_scan_call.f32_launches == f0 + 1
 
 
 def test_flagship_main_path_launches_the_hier_kernels(cuda, hier_bank):
@@ -743,8 +755,8 @@ def test_klist_and_stats_kernels_reject_f32_operands(cuda, hier_bank):
 
     hb = hier_bank
     q = torch.zeros(128, 384, device=cuda)
-    with pytest.raises(ValueError, match="bfloat16"):
-        rh._hier_scan_stats_call(q, hb.g_topk_cat, hb.g_geo_cat, gpt_s=16, gpt_g=8)
+    with pytest.raises(ValueError, match="bfloat16"):  # f32 takes the CUDA-core body
+        rh._hier_scan_stats_call(q.half(), hb.g_topk_cat, hb.g_geo_cat, gpt_s=16, gpt_g=8)
     q2, ql = torch.zeros(128, 512, device=cuda), torch.zeros(128, 256, device=cuda)
     idx = torch.zeros(1, 4, dtype=torch.int32, device=cuda)
     for call in (rh._hier_argmax_call, rh._hier_topk_call):
@@ -1099,20 +1111,23 @@ def test_corr_kernel_matches_plain(cuda, gpt, M, bm):
 def test_two_level_kernels_reject_f32_operands(cuda):
     from range_tpu_torch.ops import retrieval_hier as rh
 
-    q = torch.zeros(256, 384, device=cuda)
-    g = torch.zeros(64 * 8, 256, device=cuda)
+    # f16 operands raise before any launch (f32 ones take the CUDA-core body)
+    q = torch.zeros(256, 384, device=cuda, dtype=torch.half)
+    g = torch.zeros(64 * 8, 256, device=cuda, dtype=torch.half)
     idx = torch.zeros(1, 4, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="bfloat16"):
         rh._hier_refine_call(q, idx, g, None, None, None, bm=256, gpt_f=8, gpt_sup=1,
                              stats_only=True)
     with pytest.raises(ValueError, match="bfloat16"):
-        rh._hier_corr_call(q, idx, g, torch.zeros(64 * 8, 384, device=cuda), bm=256, gpt=8)
+        rh._hier_corr_call(q, idx, g, torch.zeros(64 * 8, 384, device=cuda).half(), bm=256,
+                           gpt=8)
     with pytest.raises(ValueError, match="bfloat16"):
-        rh._hier_scan_call(q, g, g[:, :128], torch.zeros(128, 384, device=cuda),
-                           torch.zeros(512, 512, device=cuda), gpt_s=8, gpt_g=8, sup_r=4)
+        rh._hier_scan_call(q, g, g[:, :128], torch.zeros(128, 384, device=cuda).half(),
+                           torch.zeros(512, 512, device=cuda).half(), gpt_s=8, gpt_g=8,
+                           sup_r=4)
     # the has_parts form (the two-level feature path) serves: its value
     # operands must be bf16 too, and bf16 ones launch it
-    vw = torch.zeros(64 * 8, 384, device=cuda)
+    vw = torch.zeros(64 * 8, 384, device=cuda, dtype=torch.half)
     with pytest.raises(ValueError, match="bfloat16"):
         rh._hier_refine_call(q.bfloat16(), idx, g.bfloat16(), g[::8].bfloat16(), vw, vw[::8],
                              bm=256, gpt_f=8, gpt_sup=1)
@@ -2146,9 +2161,12 @@ def test_parts_sm90_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="unsupported shapes"):
         rh._hier_parts_family_call(*args, **kw)
     args, lrr = _rr_operands(cuda, Bp=128, bm=128, bn=512, gpt=32, K=4, T=8)
-    with pytest.raises(ValueError, match="bfloat16"):
-        rh._hier_parts_family_call(args[0].float(), *args[1:], sem_d=256, bm=128, bn=512,
+    with pytest.raises(ValueError, match="bfloat16"):  # f32 takes the CUDA-core body
+        rh._hier_parts_family_call(args[0].half(), *args[1:], sem_d=256, bm=128, bn=512,
                                    gpt=32, geo=False, lrr=lrr)
+    with pytest.raises(ValueError, match="bfloat16"):
+        rh._parts_family_rr(args[0].float(), *args[1:], sem_d=256, bm=128, bn=512, gpt=32,
+                            geo=False, lrr=lrr, lr=True, sel=False, dedup_pad=False)
 
 
 def test_parts_wrapper_never_launches_the_mma_sync_body(cuda, monkeypatch):
@@ -2667,15 +2685,22 @@ def test_values_sm90_plans_agree(cuda, form, bm, monkeypatch):
 
 def test_values_sm90_rejects_what_it_does_not_take(cuda):
     """Key widths past four 64-column boxes, f32 operands, and an lr width
-    past 512 raise before any launch; nothing falls back."""
+    past 512 raise before any launch of the Hopper values body; nothing
+    falls back.  (The wrappers send the first two to the CUDA-core body,
+    test_cores_forms_match_plain.)"""
     from range_tpu_torch.ops import retrieval_hier as rh
 
     args, kw, call, _ = _values_form(cuda, "merged_lr_geo", Bp=128, bm=128, bn=128, K=4, T=6,
                                      gpt=8, i8=False, seed=1)
+    q, k, v, sc, mask, idx, gs, gg, vs, vg = args
+    sm90 = dict(sem_d=kw["sem_d"], bm=kw["bm"], bn=kw["bn"], merged=True, lr=kw["lr"])
+    fams = ((gs, vs, kw["gpt_s"]), (gg, vg, kw["gpt_g"]))
     with pytest.raises(ValueError, match="unsupported shapes"):
-        call(*args, **{**kw, "sem_d": 320})
+        rh._values_sm90("hier_parts", q, k, v, sc, mask, idx, *fams, **{**sm90, "sem_d": 320})
     with pytest.raises(ValueError, match="bfloat16"):
-        call(args[0].float(), *args[1:], **kw)
+        rh._values_sm90("hier_parts", q.float(), k, v, sc, mask, idx, *fams, **sm90)
+    with pytest.raises(ValueError, match="bfloat16"):
+        call(args[0].half(), *args[1:], **kw)
     args, kw, call, _ = _values_form(cuda, "family_lr_sem", Bp=128, bm=128, bn=128, K=4, T=6,
                                      gpt=8, i8=False, seed=1, W=640)
     with pytest.raises(ValueError, match="unsupported shapes"):
@@ -2703,3 +2728,356 @@ def test_values_wrappers_never_launch_hier_parts_cu(cuda, monkeypatch):
             call(*args, **kw)
     torch.cuda.synchronize()
     assert set(loaded) == {"hier_parts_sm90"}
+
+
+# ---- the exact and high tiers: the CUDA-core body (csrc/hier_cores.cu)
+
+# (tier, the bank's value dtype): the exact tier with f32 values (JAX's
+# value_dtype override) and with the serving default, and the high tier
+TIERS = [("exact", torch.float32), ("exact", torch.bfloat16), ("high", torch.bfloat16)]
+TIER_IDS = ["exact-f32", "exact-bf16", "high"]
+_TIER_BANKS = {}
+
+
+def _tier_bank(cuda, tier, value_dtype, pad_to=512, **knobs):
+    """The hier_bank fixture's bank and knobs built on the card at ``tier``
+    (cached for the module: the builds take seconds)."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    key = (tier, value_dtype, pad_to, tuple(sorted(knobs.items())))
+    if key not in _TIER_BANKS:
+        bank = GeoBank.synthetic_informative(3, 9000, pad_to=pad_to, device=cuda)
+        kw = dict(bn=128, gsz_sem=16, gsz_geo=16, lr_rank=256, lr_geo=384, res_rank=128,
+                  topk_gsz=8)
+        _TIER_BANKS[key] = rh.build_hier_bank(bank, tier=tier, value_dtype=value_dtype,
+                                              **{**kw, **knobs})
+    return _TIER_BANKS[key]
+
+
+def _hold_tier(name, got, ref, mag, exact_sum: bool, rows_off_max: int = 7):
+    """An f32 product (exact_sum: every rounding point is f32) within 1e-4 of
+    the sum of its terms' magnitudes, + 1e-6: f32 logits in another
+    summation order move p by ~1e-5 of itself at |l| <= 86.  A product
+    after a bf16 rounding point within `_within_terms` (a flip of one term
+    in at most rows_off_max rows)."""
+    assert got.shape == ref.shape and torch.isfinite(got).all(), name
+    if exact_sum:
+        err = (got - ref).abs()
+        ratio = (err / (1e-4 * mag + 1e-6)).max().item()
+        assert ratio <= 1.0, (name, ratio)
+    else:
+        _within_terms(got, ref, mag, rows_off_max=rows_off_max)
+
+
+def _tier_queries(hb, cuda, B=700, bm=128, seed=5):
+    from range_tpu_torch.ops import retrieval_fused as rf
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.nn.functional.normalize(torch.randn(B, 256, generator=g, device=cuda), dim=1)
+    x = lonlat_deg_to_xyz(_coords(B, seed=seed, device=cuda))
+    q_s, q_x = rh._pad_queries(q, x, bm)
+    return rf.pack_queries(q_s, q_x, 12.0, 40.0, hb.tier)[rh._hybrid_order(q_x, B)].contiguous()
+
+
+@pytest.mark.parametrize("tier,value_dtype", TIERS, ids=TIER_IDS)
+def test_cores_forms_match_plain(cuda, tier, value_dtype):
+    """Every wrapper of kernels 8, 9 and 12-15 on a bank of the exact tier
+    (f32 operands) or the high tier (768 logit columns) launches the
+    CUDA-core body, once (`.f32_launches` / `.deep_launches`), and holds its
+    plain version: the scan (both families, the sem one alone), the stats
+    scan, kernel 14's four shapes on both families, kernel 15 lr and plain,
+    the refine (stats, parts) and the correction."""
+    from range_tpu_torch.ops import retrieval_fused as rf
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    hb = _tier_bank(cuda, tier, value_dtype)
+    form = "f32" if tier == "exact" else "deep"
+    f32v = value_dtype == torch.float32
+    assert hb.values.dtype == value_dtype and (hb.sem_d == 768) == (tier == "high")
+    q_cat = _tier_queries(hb, cuda)
+    bm, Dv, sem_d = 128, 1024, hb.sem_d
+
+    def run(fn, *args, **kw):
+        n0 = getattr(fn, f"{form}_launches")
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        assert getattr(fn, f"{form}_launches") == n0 + 1, fn.__name__
+        return out
+
+    scan_args = (q_cat, hb.g_sem_cat, hb.g_geo_cat, hb.g_sem_vw_lr, hb.g_geo_vw_lr)
+    mag_args = (q_cat, hb.g_sem_cat, hb.g_geo_cat, hb.g_sem_vw_lr.abs(), hb.g_geo_vw_lr.abs())
+    exact_vw = tier == "exact"  # f32 group operands
+    for has_geo in (True, False):
+        got = run(rh._hier_scan_call, *scan_args, gpt_s=8, gpt_g=8, has_geo=has_geo)
+        ref = rh._hier_scan_plain(*scan_args, gpt_s=8, gpt_g=8, has_geo=has_geo)
+        mag = rh._hier_scan_plain(*mag_args, gpt_s=8, gpt_g=8, has_geo=has_geo)[4]
+        for i in (0, 2) if has_geo else (0,):
+            torch.testing.assert_close(got[i], ref[i], rtol=0, atol=1e-4)
+            torch.testing.assert_close(got[i + 1], ref[i + 1], rtol=1e-4, atol=0)
+        _hold_tier("scan", got[4], ref[4], mag, exact_vw)
+    stats = run(rh._hier_scan_stats_call, q_cat, hb.g_topk_cat, hb.g_geo_cat, gpt_s=16,
+                gpt_g=8)
+    ref = rh._hier_scan_stats_plain(q_cat, hb.g_topk_cat, hb.g_geo_cat, gpt_s=16, gpt_g=8)
+    for i in range(4):
+        torch.testing.assert_close(stats[i], ref[i], rtol=1e-4, atol=1e-4)
+
+    m_s, s_s, m_g, s_g = rh._hier_scan_stats_plain(q_cat, hb.g_sem_cat, hb.g_geo_cat,
+                                                   gpt_s=8, gpt_g=8)
+    idx_s, _ = rh.select_tiles(m_s, s_s, m_g, s_g, t_real=hb.t_real, k_tiles=24, bm=bm,
+                               n_valid=700, mode="range")
+    idx_g, _ = rh.select_tiles(m_g, s_g, m_s, s_s, t_real=hb.t_real, k_tiles=12, bm=bm,
+                               n_valid=700, mode="range")
+    fam = rh._hier_parts_family_call
+    for shape in SHAPES:
+        for geo in (False, True):
+            g, vw, z, lr, lrr = _family_operands(hb, shape, geo, False)
+            args = (q_cat, hb.k_cat, hb.mask_neg, idx_g if geo else idx_s, g, vw, z)
+            kw = dict(sem_d=sem_d, bm=bm, bn=128, gpt=8, geo=geo, lrr=lrr, lr=lr,
+                      values=hb.values, scale=None)
+            got = run(fam, *args, **kw, geo_cols=rf.geo_real_cols(tier))
+            ref = rh._hier_parts_family_plain(*args, **kw)
+            mag = rh._hier_parts_family_plain(*args, **kw, magnitude=True)
+            # the value shapes' acc follows the values' rounding point
+            exact_sum = exact_vw and (z is not None or f32v)
+            _hold_tier(f"family {shape} geo={geo}", got, ref, mag, exact_sum)
+    for lr, vw_s in ((True, hb.g_sem_vw_lr), (False, hb.g_sem_vw)):
+        args = (q_cat, hb.k_cat, hb.values, None, hb.mask_neg, idx_s, hb.g_sem_cat,
+                hb.g_geo_cat, vw_s, hb.g_geo_vw)
+        kw = dict(sem_d=sem_d, bm=bm, bn=128, gpt_s=8, gpt_g=8, lr=lr)
+        got = run(rh._hier_parts_call, *args, **kw)
+        ref = rh._hier_parts_plain(*args, **kw)
+        mag = rh._hier_parts_plain(*args, **kw, magnitude=True)
+        _hold_tier(f"merged lr={lr}", got, ref, mag, exact_vw and f32v)
+    # the refine over the sem groups as both levels (a supergroup operand of
+    # the same shape, its value sums halved) and the correction
+    for stats_only in (True, False):
+        rargs = (q_cat, idx_s, hb.g_sem_cat, hb.g_sem_cat, hb.g_sem_vw, 0.5 * hb.g_sem_vw)
+        got = run(rh._hier_refine_call, *rargs, bm=bm, gpt_f=8, gpt_sup=8,
+                  stats_only=stats_only)
+        kw = dict(bm=bm, gpt_f=8) if stats_only else dict(
+            bm=bm, gpt_f=8, g_sup_cat=hb.g_sem_cat, g_sem_vw=hb.g_sem_vw,
+            g_sup_vw=0.5 * hb.g_sem_vw, gpt_sup=8)
+        ref = rh._hier_refine_plain(q_cat, idx_s, hb.g_sem_cat, **kw)
+        torch.testing.assert_close(got[0], ref[0], rtol=0, atol=1e-4)
+        torch.testing.assert_close(got[1], ref[1], rtol=1e-4, atol=0)
+        if not stats_only:
+            mag = rh._hier_refine_plain(q_cat, idx_s, hb.g_sem_cat, **kw, magnitude=True)[2]
+            _hold_tier("refine parts", got[2], ref[2], mag, exact_vw)
+    cargs = (q_cat, idx_s, hb.g_sem_cat, hb.g_sem_vw_lr)
+    got = run(rh._hier_corr_call, *cargs, bm=bm, gpt=8)
+    ref = rh._hier_corr_plain(*cargs, bm=bm, gpt=8)
+    mag = rh._hier_corr_plain(*cargs, bm=bm, gpt=8, magnitude=True)
+    _hold_tier("corr", got, ref, mag, exact_vw)
+
+
+@pytest.mark.parametrize("tier", ["exact", "high"])
+def test_tiers_serve_through_load_model(cuda, tier):
+    """`load_model(retrieval="hier", tier=...)` on the card: the flagship
+    RANGE+ (one scan, two parts and one combine launch, the first three on
+    the CUDA-core body), RANGE (the stats scan of its home-tile sort, the
+    scan and the merged parts kernel) and hier_topk (the stats scan on the
+    CUDA-core body, the argmax on its Hopper body), each within the small
+    bank's order of the exact f32 answer."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    hb = _tier_bank(cuda, tier, None)
+    form = "f32" if tier == "exact" else "deep"
+    coords = _coords(3000, seed=6, device=cuda)
+    wrappers = (rh._hier_scan_call, rh._hier_parts_family_call, rh._hier_parts_call,
+                rh._hier_scan_stats_call)
+    counts = lambda: [getattr(w, f"{form}_launches") for w in wrappers]  # noqa: E731
+    for name, want in (("RANGE+", [1, 2, 0, 0]), ("RANGE", [1, 0, 1, 1])):
+        enc = load_model(name, db_path=hb, profile="flagship", hier_bn=128, gsz_geo=16,
+                         tier=tier)
+        n0, c0 = counts(), rh._combine_cat_call.launches
+        out = enc(coords)
+        torch.cuda.synchronize()
+        assert [a - b for a, b in zip(counts(), n0)] == want, name
+        assert rh._combine_cat_call.launches - c0 == int(name == "RANGE+")
+        assert out.shape == (3000, 1280) and torch.isfinite(out).all()
+        ref = (retrieval.retrieve(out[:, 1024:], lonlat_deg_to_xyz(coords), hb.bank)
+               if name == "RANGE+" else
+               retrieval.retrieve(out[:, 1024:], None, hb.bank, sem_temp=15.0, mode="range"))
+        rel = (out[:, :1024] - ref).abs() / ref.abs().clamp_min(0.1)
+        assert rel.mean() < 0.1, (name, rel.mean().item())
+    q = out[:, 1024:].float()
+    n0, a0 = counts(), rh._hier_argmax_call.launches
+    rows = rh.hier_topk(q, lonlat_deg_to_xyz(coords), hb, k_tiles=16)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(counts(), n0)] == [0, 0, 0, 1]
+    assert rh._hier_argmax_call.launches == a0 + 1
+    true = retrieval.exact_nn(q, hb.bank)
+    full = dataclasses.replace(hb, topk_lr=0, g_topk_lr=None, p_topk=None)
+    rec_full = (rh.hier_topk(q, lonlat_deg_to_xyz(coords), full, k_tiles=16) == true)
+    assert (rows == true).float().mean() >= rec_full.float().mean() - 0.02
+
+
+def test_exact_tier_all_tiles_is_the_exact_answer(cuda):
+    """JAX's exactness check (`tests/test_hier.py:73-80`) on the card, at its
+    bank's shape (6,000 rows padded to 512, bn 128, gsz_sem 8, gsz_geo 16,
+    tier exact, f32 values): with every tile selected the hierarchical
+    answer is the exact dense one, max relerr (floor 0.1) under 1e-4."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    bank = GeoBank.synthetic_informative(0, 6000, pad_to=512, device=cuda)
+    hb = rh.build_hier_bank(bank, bn=128, gsz_sem=8, gsz_geo=16, tier="exact",
+                            value_dtype=torch.float32)
+    rng = np.random.default_rng(3)
+    rows = np.repeat(rng.integers(0, 6000, 8), 64)
+    keys = bank.keys_sem[torch.from_numpy(rows).to(cuda)].float()
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q = torch.nn.functional.normalize(keys + 0.3 * torch.randn(keys.shape, generator=g,
+                                                               device=cuda), dim=1)
+    ll = bank.locs_lonlat[torch.from_numpy(rows).to(cuda)].float()
+    ll = ll + torch.randn(ll.shape, generator=g, device=cuda) * 3.0
+    ll[:, 0] = (ll[:, 0] + 180) % 360 - 180
+    ll[:, 1] = ll[:, 1].clamp(-89.9, 89.9)
+    x = lonlat_deg_to_xyz(ll)
+    ref = retrieval.retrieve(q, x, bank, chunk=512)
+    n0 = rh._hier_parts_call.f32_launches
+    out = rh.retrieve_hier(q, x, hb, k_tiles=hb.t_real, bm=128)
+    torch.cuda.synchronize()
+    assert rh._hier_parts_call.f32_launches == n0 + 1
+    rel = (out - ref).abs() / ref.abs().clamp_min(0.1)
+    assert rel.max().item() < 1e-4, rel.max().item()
+
+
+@pytest.mark.parametrize("tier", ["exact", "high"])
+def test_tier_knobs_serve(cuda, tier):
+    """The knobs the fast tier serves, at each tier on the card: sel_lr 64
+    (kernel 14's sel form, from the sketch's columns), sel_lr with dedup=2
+    (B = 8,192: two blocks' lists merged, the dedup_pad form) and with the
+    rescue, each request's parts kernels on the CUDA-core body within the
+    small bank's order of the exact f32 answer; hier_topk over topk_lr 64
+    (the stats scan over the sketch: a 64-column bf16 or f32 operand) on
+    a regional batch (8 places, 3 degree jitter: the coherent batches the
+    endpoint serves), its recall@1 within 0.02 of the full topk_gsz
+    operand's (`tests/test_hier.py:1050`'s bar)."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    hb = _tier_bank(cuda, tier, None, topk_lr=64, sel_lr=64)
+    form = "f32" if tier == "exact" else "deep"
+    coords = _coords(8192, seed=9, device=cuda)
+    fam = rh._hier_parts_family_call
+    for kw in (dict(), dict(dedup=2), dict(adaptive_frac=0.05, adaptive_mult=3)):
+        enc = load_model("RANGE+", db_path=hb, profile="flagship", hier_bn=128, gsz_geo=16,
+                         tier=tier, topk_lr=64, sel_lr=64, **kw)
+        n0 = getattr(fam, f"{form}_launches")
+        out = enc(coords)
+        torch.cuda.synchronize()
+        assert getattr(fam, f"{form}_launches") - n0 == (4 if kw.get("adaptive_frac") else 2)
+        ref = retrieval.retrieve(out[:, 1024:], lonlat_deg_to_xyz(coords), hb.bank)
+        rel = (out[:, :1024] - ref).abs() / ref.abs().clamp_min(0.1)
+        assert torch.isfinite(out).all() and rel.mean() < 0.1, (kw, rel.mean().item())
+    g = torch.Generator(device=cuda).manual_seed(9)
+    centers = hb.bank.locs_lonlat[torch.randint(0, 9000, (8,), generator=g, device=cuda)]
+    ll = centers.float().repeat_interleave(1024, 0) + 3.0 * torch.randn(
+        8192, 2, generator=g, device=cuda)
+    coords = torch.stack([(ll[:, 0] + 180) % 360 - 180, ll[:, 1].clamp(-89.9, 89.9)], 1)
+    q = enc.model.query_embedding(coords).float()
+    st = rh._hier_scan_stats_call
+    n0 = (st.launches, st.f32_launches, st.deep_launches)
+    rows = rh.hier_topk(q, lonlat_deg_to_xyz(coords), hb, k_tiles=16)
+    torch.cuda.synchronize()
+    # the sketch's 64 bf16 columns at high are a shape of the stats kernel's own
+    assert (st.launches, st.f32_launches, st.deep_launches) == (
+        n0[0] + 1, n0[1] + int(tier == "exact"), n0[2])
+    true = retrieval.exact_nn(q, hb.bank)
+    full = dataclasses.replace(hb, topk_lr=0, g_topk_lr=None, p_topk=None)
+    rec_full = (rh.hier_topk(q, lonlat_deg_to_xyz(coords), full, k_tiles=16) == true)
+    assert (rows == true).float().mean() >= rec_full.float().mean() - 0.02
+
+
+@pytest.mark.parametrize("bn,gsz_sem,gsz_geo", [(96, 12, 12), (120, 8, 15)])
+def test_cores_walks_every_grouping(cuda, bn, gsz_sem, gsz_geo):
+    """Groupings whose groups or entries are no whole unit of 8 columns take
+    the CUDA-core body's walk of one thread a query: 12-row groups (kernel
+    14's segment sums) and 15 groups a tile (the stats, the weights); the
+    scan, kernel 14's rr + lr shape on both families and kernel 15 lr at
+    the exact tier (f32 values) hold their plain versions as in
+    test_cores_forms_match_plain."""
+    from range_tpu_torch.ops import retrieval_fused as rf
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    hb = _tier_bank(cuda, "exact", torch.float32, pad_to=bn, bn=bn, gsz_sem=gsz_sem,
+                    gsz_geo=gsz_geo, topk_gsz=0)
+    q_cat = _tier_queries(hb, cuda)
+    gpt_s, gpt_g = bn // gsz_sem, bn // gsz_geo
+    sa = (q_cat, hb.g_sem_cat, hb.g_geo_cat, hb.g_sem_vw_lr, hb.g_geo_vw_lr)
+    n0 = rh._hier_scan_call.f32_launches
+    got = rh._hier_scan_call(*sa, gpt_s=gpt_s, gpt_g=gpt_g)
+    ref = rh._hier_scan_plain(*sa, gpt_s=gpt_s, gpt_g=gpt_g)
+    mag = rh._hier_scan_plain(q_cat, hb.g_sem_cat, hb.g_geo_cat, hb.g_sem_vw_lr.abs(),
+                              hb.g_geo_vw_lr.abs(), gpt_s=gpt_s, gpt_g=gpt_g)[4]
+    torch.cuda.synchronize()
+    assert rh._hier_scan_call.f32_launches == n0 + 1
+    for i in range(4):
+        torch.testing.assert_close(got[i], ref[i], rtol=1e-4, atol=1e-4)
+    _hold_tier("scan", got[4], ref[4], mag, True)
+    m_s, s_s, m_g, s_g = ref[:4]
+    sel = dict(t_real=hb.t_real, bm=128, n_valid=700, mode="range")
+    idx_s, _ = rh.select_tiles(m_s, s_s, m_g, s_g, k_tiles=24, **sel)
+    idx_g, _ = rh.select_tiles(m_g, s_g, m_s, s_s, k_tiles=12, **sel)
+    for geo, idx in ((False, idx_s), (True, idx_g)):
+        g, vw, z, lr, lrr = _family_operands(hb, "rrlr", geo, False)
+        args = (q_cat, hb.k_cat, hb.mask_neg, idx, g, vw, z)
+        kw = dict(sem_d=hb.sem_d, bm=128, bn=bn, gpt=gpt_g if geo else gpt_s, geo=geo,
+                  lrr=lrr, lr=lr)
+        got = rh._hier_parts_family_call(*args, **kw, geo_cols=rf.geo_real_cols("exact"))
+        _hold_tier(f"family rrlr geo={geo}", got, rh._hier_parts_family_plain(*args, **kw),
+                   rh._hier_parts_family_plain(*args, **kw, magnitude=True), True)
+    args = (q_cat, hb.k_cat, hb.values, None, hb.mask_neg, idx_s, hb.g_sem_cat, hb.g_geo_cat,
+            hb.g_sem_vw_lr, hb.g_geo_vw)
+    kw = dict(sem_d=hb.sem_d, bm=128, bn=bn, gpt_s=gpt_s, gpt_g=gpt_g)
+    _hold_tier("merged", rh._hier_parts_call(*args, **kw), rh._hier_parts_plain(*args, **kw),
+               rh._hier_parts_plain(*args, **kw, magnitude=True), True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cores_group_pass_segments(cuda, dtype):
+    """The CUDA-core group pass split into segments (the scans' walk over
+    every tile, a block each, their partial products folded in order) gives
+    the one-segment pass's stats exactly and its product within f32 sums
+    in another order, for = and for += with a sign (the fold's), at a depth
+    of one ragged piece and of several."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    g = torch.Generator(device=cuda).manual_seed(11)
+    T, gpt, W = 37, 16, 700  # 37 tiles; two column slices, the last ragged
+    for depth in (40, 200):
+        q = torch.randn(256, depth, generator=g, device=cuda).to(dtype)
+        c = torch.randn(T * gpt, depth, generator=g, device=cuda).to(dtype)
+        vw = torch.randn(T * gpt, W, generator=g, device=cuda).to(dtype)
+        outs = []
+        for n_seg in (1, 3, 9):
+            st = [torch.empty((256, T), device=cuda) for _ in range(2)]
+            out = torch.ones((256, W + 8), device=cuda)
+            rh._cores_groups(q, c, wk=depth, gpt=gpt, n_tiles=T, stats=st, vw=vw, nvc=W,
+                             out=out, oc0=8, n_seg=n_seg, sign=-1.0, accumulate=True)
+            torch.cuda.synchronize()
+            outs.append((st, out))
+        st1, out1 = outs[0]
+        mag = (out1[:, 8:] - 1.0).abs().amax().item()
+        for st, got in outs[1:]:
+            assert torch.equal(st[0], st1[0]) and torch.equal(st[1], st1[1])
+            assert torch.equal(got[:, :8], torch.ones_like(got[:, :8]))
+            torch.testing.assert_close(got, out1, rtol=1e-5, atol=1e-5 * mag)
+
+
+def test_cores_refuse_what_does_not_fit(cuda):
+    """A pass whose resident query block and ring do not fit a block's shared
+    memory raises before any launch (`_cores_fits`, the launch's own
+    check): f32 logits 768 columns deep; bf16 ones 768 deep fit."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    for dtype, depth, fits in ((torch.float32, 768, False), (torch.bfloat16, 768, True)):
+        q = torch.zeros(64, depth, dtype=dtype, device=cuda)
+        st = [torch.empty((64, 4), device=cuda) for _ in range(2)]
+        call = lambda: rh._cores_groups(q, q, wk=depth, gpt=16, n_tiles=4, stats=st)
+        if fits:
+            call()
+            torch.cuda.synchronize()
+        else:
+            with pytest.raises(ValueError, match="shared memory"):
+                call()

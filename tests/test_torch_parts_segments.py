@@ -442,21 +442,36 @@ def _form(form, packed, jhb, thb):  # noqa: F811
 
 @pytest.mark.parametrize("n_seg", [2, 3, 6])
 @pytest.mark.parametrize("form", FORMS)
-def test_segmented_plain_matches_one_pass(packed, jhb, thb, form, n_seg):  # noqa: F811
+def test_segmented_plain_matches_one_pass(packed, jhb, thb, one_pass, form, n_seg):  # noqa: F811
     """Each rr form over several segments a list (6 a list: a tile each)
     against the one-pass plain version: the tiles are independent, so only
     the f32 additions re-associate: within 1e-5 of each element's sum of
     |terms| (a few roundings of the partial sums, each <= 2^-24 of it)."""
     _, _, targs, tkw, bm, dedup = _form(form, packed, jhb, thb)
     got = _segmented_plain(*targs, n_seg=n_seg, bm=bm, dedup_pad=dedup, **tkw)
-    ref = th._hier_parts_family_plain(*targs, bm=bm, dedup_pad=dedup, **tkw)
-    mag = th._hier_parts_family_plain(*targs, bm=bm, dedup_pad=dedup, magnitude=True, **tkw)
+    ref = one_pass(form, targs, bm, dedup, tkw)
+    mag = one_pass(form, targs, bm, dedup, tkw, magnitude=True)
     assert got.shape == ref.shape
     assert ((got - ref).abs() <= 1e-5 * mag + 1e-30).all()
 
 
+@pytest.fixture(scope="module")
+def one_pass():
+    """The one-pass plain version of an rr form and its terms' magnitudes,
+    once a form: every segment count and the JAX check read the same
+    ones."""
+    cache = {}
+
+    def get(form, targs, bm, dedup, tkw, magnitude=False):
+        if (form, magnitude) not in cache:
+            cache[form, magnitude] = th._hier_parts_family_plain(
+                *targs, bm=bm, dedup_pad=dedup, magnitude=magnitude, **tkw)
+        return cache[form, magnitude]
+    return get
+
+
 @pytest.mark.parametrize("form", FORMS)
-def test_segmented_plain_matches_jax(packed, jhb, thb, form):  # noqa: F811
+def test_segmented_plain_matches_jax(packed, jhb, thb, one_pass, form):  # noqa: F811
     """The segmented arithmetic (the plan's cut of a 256-query batch, and 3
     segments a list) against JAX's kernel in interpret mode on the same
     operands, every output column by the terms rule (`_within_terms`)."""
@@ -466,8 +481,7 @@ def test_segmented_plain_matches_jax(packed, jhb, thb, form):  # noqa: F811
                           geo_cols=9 if tkw["geo"] else None)
     plan = th._parts_plan(B, targs[3].shape[1], 128, GPT, sh["kf"], sh["gwe"], sh["share"],
                           128, sh["acols"], sh["out_w"])
-    mag = th._hier_parts_family_plain(*targs, bm=bm, dedup_pad=dedup, magnitude=True,
-                                      **tkw).numpy()
+    mag = one_pass(form, targs, bm, dedup, tkw, magnitude=True).numpy()
     for n_seg in sorted({plan.n_seg, 3}):
         got = _segmented_plain(*targs, n_seg=n_seg, bm=bm, dedup_pad=dedup, **tkw).numpy()
         assert got.shape == want.shape

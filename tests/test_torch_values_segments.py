@@ -384,17 +384,31 @@ def _form(form, packed, jhb, thb, banks8):  # noqa: F811
 FORMS = [f"merged:{m}" for m in MERGED] + [f"family:{f}" for f in FAMILY]
 
 
+@pytest.fixture(scope="module")
+def one_pass():
+    """The one-pass plain version of a form and its terms' magnitudes, once
+    a form: every segment count and the JAX check read the same ones."""
+    cache = {}
+
+    def get(form, plain, targs, bm, tkw, magnitude=False):
+        if (form, magnitude) not in cache:
+            cache[form, magnitude] = plain(*targs, bm=bm, **tkw, magnitude=magnitude)
+        return cache[form, magnitude]
+    return get
+
+
 @pytest.mark.parametrize("n_seg", [2, 3, 6])
 @pytest.mark.parametrize("form", FORMS)
-def test_segmented_plain_matches_one_pass(packed, jhb, thb, banks8, form, n_seg):  # noqa: F811
+def test_segmented_plain_matches_one_pass(packed, jhb, thb, banks8, one_pass, form,  # noqa: F811
+                                          n_seg):
     """Each form over several segments a list (6 a list: a tile or none
     each) against the one-pass plain version: the tiles are independent,
     so only the f32 additions re-associate: within 1e-5 of each element's
     sum of |terms|."""
     plain, pos, _, _, targs, tkw, bm, dedup, _ = _form(form, packed, jhb, thb, banks8)
     got = _segmented(plain, targs, pos, tkw, n_seg=n_seg, bm=bm, dedup_pad=dedup)
-    ref = plain(*targs, bm=bm, **tkw)
-    mag = plain(*targs, bm=bm, **tkw, magnitude=True)
+    ref = one_pass(form, plain, targs, bm, tkw)
+    mag = one_pass(form, plain, targs, bm, tkw, magnitude=True)
     assert got.shape == ref.shape
     assert ((got - ref).abs() <= 1e-5 * mag + 1e-30).all()
 
@@ -413,14 +427,15 @@ def jax_parts(packed, jhb, banks8):  # noqa: F811
 
 
 @pytest.mark.parametrize("form", FORMS)
-def test_segmented_plain_matches_jax(packed, jhb, thb, banks8, jax_parts, form):  # noqa: F811
+def test_segmented_plain_matches_jax(packed, jhb, thb, banks8, jax_parts, one_pass,  # noqa: F811
+                                     form):
     """The segmented arithmetic (the plan's cut of the 256-query batch,
     and 3 segments a list) against JAX's kernel in interpret mode on the
     same operands, every column the launch writes by the terms rule
     (`_within_terms`); columns past them are zeros."""
     plain, pos, jargs, jkw, targs, tkw, bm, dedup, cols = _form(form, packed, jhb, thb, banks8)
     want = jax_parts(form, jargs, jkw)
-    mag = plain(*targs, bm=bm, **tkw, magnitude=True).numpy()
+    mag = one_pass(form, plain, targs, bm, tkw, magnitude=True).numpy()
     K = targs[pos].shape[1]
     merged = form.startswith("merged")
     geo = tkw["geo"]
