@@ -6,9 +6,16 @@ family parts kernel's plain / lr / rr shapes and their sel and dedup_pad
 forms, the refine kernel's has_parts form, the combine without lr_geo,
 the int8 forms of the parts and pruned kernels, and kernel 2's two bodies:
 the Hopper kernel of its bf16 tiers and the mma.sync body of its f32 tier)
-from the fifteen sources of `range_tpu_torch/csrc/` (one nvcc per source,
+from the eighteen sources of `range_tpu_torch/csrc/` (one nvcc per source,
 all started together), holds each against its plain PyTorch version at the
-main paths' shapes, prints kernel 2's Hopper kernel's drift for each length
+main paths' shapes, prints the tower's bf16 mode on its Hopper body
+(`csrc/siren_tower_sm90.cu`, wgmma; its ptxas log held to no spill and no
+serialized wgmma) beside `csrc/siren_tower.cu`'s bf16 form (launched here
+alone as the same-run yardstick) and kernel 16 (the combine, flagship rg
+> 0 and rg = 0) on its Hopper body (`csrc/combine_cat_sm90.cu`, three TF32
+products) beside its f32 body (`csrc/combine_cat.cu`, the exact tier's
+route) at B = 1, 37, 1,000 and 10,000 in turns, with the bound and share of
+each, prints kernel 2's Hopper kernel's drift for each length
 of its accumulation chain and its time beside the mma.sync body's at B = 1,
 37, 1,000 and 10,000, kernels 3 (int8 codes) and 5 (the partials, bf16 and
 int8) on the same Hopper kernel beside their mma.sync body's entry points
@@ -165,23 +172,27 @@ REQUESTS = (1, 37, 1_000, BATCH)
 L, WIDTH = 40, 256
 # kernel sources (one library each), and the kernels of the JSON line:
 # (name, source, the TPU kernel it replaces)
-SOURCES = ("siren_tower", "fused_retrieval_sm90", "fused_retrieval", "hier_scan_sm90",
-           "hier_parts_family_sm90", "hier_parts_family", "combine_cat", "hier_scan_stats",
-           "hier_argmax_sm90", "hier_argmax", "hier_parts_sm90", "hier_parts", "sh_times",
-           "hier_refine", "hier_corr", "hier_cores")
+SOURCES = ("siren_tower_sm90", "siren_tower", "fused_retrieval_sm90", "fused_retrieval",
+           "hier_scan_sm90", "hier_parts_family_sm90", "hier_parts_family", "combine_cat_sm90",
+           "combine_cat", "hier_scan_stats", "hier_argmax_sm90", "hier_argmax",
+           "hier_parts_sm90", "hier_parts", "sh_times", "hier_refine", "hier_corr", "hier_cores")
 # sources whose ptxas log must show no spill and no serialized wgmma
 # (C7512: too few registers; C7514: issued in a loop or under a condition;
 # C7520: divergent code between issue and wait)
-PTXAS_CLEAN = ("hier_argmax_sm90",)
+PTXAS_CLEAN = ("hier_argmax_sm90", "siren_tower_sm90", "combine_cat_sm90")
 WGMMA_WARNINGS = ("C7512", "C7514", "C7520")
 KERNELS = (("siren_tower", "siren_tower", "range_tpu/ops/sh.py:726"),
+           # the tower's bf16 mode (the flagship's) on its Hopper body
+           ("siren_tower_bf16", "siren_tower_sm90", "range_tpu/ops/sh.py:726"),
            ("fused_retrieval", "fused_retrieval_sm90", "range_tpu/ops/retrieval_pallas.py:123"),
            # kernel 2's 'exact' tier (f32 logits) on the mma.sync body
            ("fused_retrieval_exact", "fused_retrieval", "range_tpu/ops/retrieval_pallas.py:123"),
            ("fused_retrieval_i8", "fused_retrieval_sm90", "range_tpu/ops/retrieval_pallas.py:181"),
            ("hier_scan", "hier_scan_sm90", "range_tpu/ops/retrieval_hier.py:1443"),
            ("hier_parts_family", "hier_parts_family_sm90", "range_tpu/ops/retrieval_hier.py:2282"),
-           ("combine_cat", "combine_cat", "range_tpu/ops/retrieval_hier.py:3102"),
+           ("combine_cat", "combine_cat_sm90", "range_tpu/ops/retrieval_hier.py:3102"),
+           # kernel 16 at the exact tier, on its f32 body
+           ("combine_cat_exact", "combine_cat", "range_tpu/ops/retrieval_hier.py:3102"),
            ("hier_scan_stats", "hier_scan_stats", "range_tpu/ops/retrieval_hier.py:1582"),
            ("hier_argmax", "hier_argmax_sm90", "range_tpu/ops/retrieval_hier.py:1645"),
            ("hier_topk", "hier_argmax_sm90", "range_tpu/ops/retrieval_hier.py:1682"),
@@ -201,7 +212,7 @@ KERNELS = (("siren_tower", "siren_tower", "range_tpu/ops/sh.py:726"),
            ("hier_parts_family_lr", "hier_parts_sm90", "range_tpu/ops/retrieval_hier.py:2282"),
            ("hier_parts_family_rr", "hier_parts_family_sm90",
             "range_tpu/ops/retrieval_hier.py:2282"),
-           ("combine_cat_rg0", "combine_cat", "range_tpu/ops/retrieval_hier.py:3102"),
+           ("combine_cat_rg0", "combine_cat_sm90", "range_tpu/ops/retrieval_hier.py:3102"),
            # kernel 13 over a full-width dvw (tail_super banks without lr_rank)
            ("hier_corr_wide", "hier_corr", "range_tpu/ops/retrieval_hier.py:2209"),
            # the multi-device partials (bf16, int8), the pruned one-family
@@ -234,6 +245,9 @@ CORES_ROWS = (("hier_scan", "range_tpu/ops/retrieval_hier.py:1443"),
 # group tiles fit shared memory at 768 columns)
 KERNELS += tuple((f"{k}_{form}", "hier_scan_stats" if (k, form) == ("hier_scan_stats", "deep")
                   else "hier_cores", rep) for k, rep in CORES_ROWS for form, _ in CORES_FORMS)
+# the second bodies of the tower and the combine, each counted within its
+# wrapper's launches: (its counter, the wrapper's)
+VARIANTS = (("siren_tower_bf16", "siren_tower"), ("combine_cat_exact", "combine_cat"))
 TOPK_K = 48  # the endpoint's tile budget, bench.py:150
 # the two-level top-k (tools/r3_time1.py:103,127: gsz_super 64, K=48 of M=96)
 # and the tail_super flagship (tools/r4_tsuper.py: "ts64 K32/m32/kg16")
@@ -249,6 +263,7 @@ RECALL_BAR = 0.999  # bench.py:190
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): the bounds below
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+TF32_FLOPS = 495e12
 F32_FLOPS = 67e12
 # real columns of the fast tier's geo block (hi/lo cross terms; the packed
 # operands pad them to 128, `retrieval_fused.packed_dims`)
@@ -284,11 +299,12 @@ def _host_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def _bound(n_bytes: float, flops: float, peak: float):
+def _bound(n_bytes: float, flops: float, peak: float, *more):
     """(least ms, what bounds it): the larger of bytes over the memory rate
-    and operations over the peak rate of their type."""
+    and operations over the peak rate of their type; ``more`` adds (flops,
+    peak) pairs of operations of other types."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / peak * 1e3
+    t_ops = sum(f / pk for f, pk in ((flops, peak),) + more) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1020,6 +1036,94 @@ def _scan_drift(tag: str, args, kw, ref, mag, rows=(None, 12_800, 6_400, 3_200))
               f"{(err > tol).any(dim=1).sum().item()} of {Bp}; {ms:.3f} ms")
 
 
+def _tower_bound(b: int, bf16: bool):
+    """(least ms, what bounds it) of the tower at b queries: the work it
+    needs, the basis (the Legendre recurrence ~4 operations an entry, the
+    trig product 1), basis @ W0, the hidden and last layers and two sin
+    layers, not the kernels' Fourier synthesis or folded products; the
+    products at the f32 rate, or in the bf16 mode at the bf16 tensor rate
+    (the elementwise work at the f32 rate either way); the weights in f32
+    or bf16."""
+    mm = 2 * b * (L * L * WIDTH + 2 * WIDTH * WIDTH)
+    ew = b * (5 * L * L + 2 * WIDTH)
+    weights = L * L * WIDTH + 2 * WIDTH * WIDTH
+    n_bytes = b * (2 + WIDTH) * 4 + (2 if bf16 else 4) * weights + 4 * 3 * WIDTH
+    if not bf16:
+        return _bound(n_bytes, mm + ew, F32_FLOPS)
+    return _bound(n_bytes, mm, BF16_FLOPS, (ew, F32_FLOPS))
+
+
+def _tower_f32_body_bf16(coords, params):
+    """`csrc/siren_tower.cu`'s bf16 form (bf16_ops = 1) launched alone, not
+    counted: the yardstick of the bf16 mode's Hopper body.  Its f32
+    operands are prepared here, once.  Returns (launch, its output)."""
+    import ctypes
+
+    from range_tpu_torch.kernels._build import load_kernel_library
+    from range_tpu_torch.ops import sh
+
+    ftabT, wc, ws, deep, wl, bpack = sh._tower_f32(L, params, "analytic")
+    lib = load_kernel_library("siren_tower")
+    B = coords.shape[0]
+    out = torch.empty(B, WIDTH, device=coords.device)
+    n_deep = len(params["layers"]) - 1
+    stream = torch.cuda.current_stream(coords.device).cuda_stream
+
+    def run():
+        rc = lib.siren_tower_launch(coords.data_ptr(), ftabT.data_ptr(), wc.data_ptr(),
+                                    ws.data_ptr(), bpack.data_ptr(), deep.data_ptr(),
+                                    wl.data_ptr(), out.data_ptr(), B, L, WIDTH, n_deep,
+                                    ctypes.c_float(30.0), ctypes.c_float(1.0), 1, stream)
+        if rc != 0:
+            raise RuntimeError(f"siren_tower (bf16 form) launch: CUDA error {rc}")
+
+    return run, out
+
+
+def _combine_bounds(b: int, ck: dict, Dq: int) -> dict:
+    """Kernel 16's work at b queries: 2 b Dv K flops of f32 products (K = 2
+    rrp + r + rg; rg = 0 adds 2 b Dv of additive geo terms), bytes the
+    partials read once, the bases, the output.  Its bound at the f32 rate
+    (the CUDA-core body's, the exact tier's) and at the rate of the form
+    the Hopper body runs, three TF32 products each ("tf32x3")."""
+    Dv, rrp, r, rg, Ws, Wg = (ck[k] for k in ("Dv", "rrp", "r", "rg", "Ws", "Wg"))
+    K = 2 * rrp + r + rg
+    flops = 2 * b * Dv * K
+    pg_w = rrp + 128 + Wg if rg else Dv + 128 + rrp
+    n_bytes = (b * ((rrp + 128 + Ws) + pg_w + Ws + Wg + Dq) * 4 + K * Dv * 4
+               + b * (Dv + Dq) * 4)
+    extra = 0 if rg else 2 * b * Dv
+    return dict(f32=_bound(n_bytes, flops + extra, F32_FLOPS),
+                tf32x3=_bound(n_bytes, 3 * flops, TF32_FLOPS, (extra, F32_FLOPS)))
+
+
+def _combine_turns(tag: str, c_args, ck: dict, b: int, calls: int = 10) -> dict:
+    """Kernel 16 at one request: its Hopper body (the fast and high tiers'
+    route) and its f32 body (the exact tier's route, `tier="exact"`) each
+    held against the plain version (f32 products in another summation
+    order: 1e-5 + 1e-5 |ref|), then timed in turns f32 body, Hopper body,
+    Hopper body, f32 body on CUDA events (`_turns_ms`; launches here count
+    in no drive), with both bounds (`_combine_bounds`) and the shares."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    ref = rh._combine_cat_plain(*c_args, **ck)
+    why = "f32 products in another summation order"
+    e_new, r_new = _compare(f"{tag} Hopper body (TF32 x3)", rh._combine_cat_call(*c_args, **ck),
+                            ref, 1e-5, 1e-5, why)
+    e_old, r_old = _compare(f"{tag} f32 body", rh._combine_cat_call(*c_args, **ck, tier="exact"),
+                            ref, 1e-5, 1e-5, why)
+    new = ("sm90", lambda: rh._combine_cat_call(*c_args, **ck))
+    old = ("f32", lambda: rh._combine_cat_call(*c_args, **ck, tier="exact"))
+    t = _turns_ms((old, new, new, old), calls)
+    bd = _combine_bounds(b, ck, c_args[3].shape[1])
+    (bt, bt_by), (bf, bf_by) = bd["tf32x3"], bd["f32"]
+    print(f"{tag}: Hopper body {t['sm90']:.4f} ms, f32 body {t['f32']:.4f} ms "
+          f"({t['f32'] / t['sm90']:.2f}x; CUDA events, in turns); bound at the TF32 x3 rate "
+          f"{bt:.4f} ms ({bt_by}), share {bt / t['sm90']:.4f}; at the f32 rate {bf:.4f} ms "
+          f"({bf_by}), the f32 body's share {bf / t['f32']:.4f}")
+    return dict(new=(e_new, r_new, t["sm90"], bt, bt_by), old=(e_old, r_old, t["f32"], bf, bf_by))
+
+
 def _send(enc, c):
     # the B=37 request arrives as a numpy float64 array, as numpy callers
     # send coordinates; the entry point casts it to f32
@@ -1056,19 +1160,37 @@ def dense_phases(dev, gen, report) -> float:
             plain_ms = _cuda_ms(
                 lambda: sh._siren_tower_plain(coords, L, params, matmul_dtype=md), 20)
             print(f"siren_tower[{tag}] B={BATCH}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-            if md is None:  # the dense path's mode
-                # what the tower needs: the basis (Legendre recurrence ~4
-                # operations per entry, the trig product 1), basis @ W0, the
-                # hidden and last layers, two sin layers; not the kernel's
-                # Fourier synthesis or its two folded products
-                flops = (2 * BATCH * (L * L * WIDTH + 2 * WIDTH * WIDTH)
-                         + BATCH * (5 * L * L + 2 * WIDTH))
-                n_bytes = (BATCH * (2 + WIDTH) * 4
-                           + 4 * (L * L * WIDTH + 2 * WIDTH * WIDTH + 3 * WIDTH))
-                b_ms, b_by = _bound(n_bytes, flops, F32_FLOPS)
+            b_ms, b_by = _tower_bound(BATCH, md is not None)
+            if md is None:  # the dense path's mode, on csrc/siren_tower.cu
                 report["siren_tower"] = dict(max_abs_err=err, err_over_tol=ratio, ms=ms,
                                              plain_ms=plain_ms, bound_ms=b_ms,
                                              bound_by=b_by)
+                continue
+            # the bf16 mode (the flagship's) on its Hopper body, beside the f32
+            # body's bf16 form, each batch its own request
+            for b in REQUESTS:
+                cb = coords[:b].contiguous()
+                ref_b = sh._siren_tower_plain(cb, L, params, matmul_dtype=md)
+                e_b, r_b = _compare(f"siren_tower_sm90[bf16] B={b}",
+                                    sh.siren_tower(cb, L, params, matmul_dtype=md), ref_b,
+                                    atol, 0.0, why)
+                old_run, old_out = _tower_f32_body_bf16(cb, params)
+                old_run()
+                _compare(f"siren_tower[bf16] B={b}, the f32 body's bf16 form", old_out, ref_b,
+                         atol, 0.0, why)
+                new = ("sm90", lambda: sh.siren_tower(cb, L, params, matmul_dtype=md))
+                t = _turns_ms((("f32 body", old_run), new, new, ("f32 body", old_run)),
+                              10 if b >= SMALL_BATCH else 20)
+                b_ms, b_by = _tower_bound(b, True)
+                print(f"siren_tower[bf16] B={b}: Hopper body {t['sm90']:.4f} ms, the f32 "
+                      f"body's bf16 form {t['f32 body']:.4f} ms ({t['f32 body'] / t['sm90']:.2f}x;"
+                      f" CUDA events, in turns); bound {b_ms:.4f} ms ({b_by}, products at the "
+                      f"bf16 rate), share {b_ms / t['sm90']:.4f}; plan "
+                      f"{sh._tower_plan(b, L, WIDTH)}")
+                if b == BATCH:
+                    report["siren_tower_bf16"] = dict(
+                        max_abs_err=e_b, err_over_tol=r_b, ms=t["sm90"], plain_ms=plain_ms,
+                        bound_ms=b_ms, bound_by=b_by)
 
         bank = GeoBank.synthetic_device(0, BANK_ROWS, pad_to=PAD_TO,
                                         value_dtype=torch.bfloat16, device=dev)
@@ -1263,7 +1385,10 @@ def _counters() -> dict:
     that counts it).  The scan's segment-sum and wide-tail variants count
     in `.sup_launches` / `.wide_launches` besides the scan's `.launches`,
     kernel 15's plain variant in `.plain_launches` besides `.launches`,
-    kernel 16's rg = 0 variant in `.rg0_launches` besides `.launches`,
+    kernel 16's rg = 0 variant on its Hopper body in `.rg0_launches` and
+    its f32 body (the exact tier) in `.exact_launches` besides `.launches`,
+    the tower's bf16 mode (its Hopper body) in `.bf16_launches` besides
+    `.launches`,
     kernel 13's wide form in `.wide_launches` besides `.launches`;
     each of kernel 14's four shapes counts in its own attribute (two live
     in another source), `hier_parts_family` the flagship's rr + lr one;
@@ -1290,6 +1415,8 @@ def _counters() -> dict:
     counters["hier_scan_wide"] = (rh._hier_scan_call, "wide_launches")
     counters["hier_parts_plain"] = (rh._hier_parts_call, "plain_launches")
     counters["combine_cat_rg0"] = (rh._combine_cat_call, "rg0_launches")
+    counters["combine_cat_exact"] = (rh._combine_cat_call, "exact_launches")
+    counters["siren_tower_bf16"] = (sh.siren_tower, "bf16_launches")
     counters["hier_corr_wide"] = (rh._hier_corr_call, "wide_launches")
     counters["fused_retrieval_exact"] = (rf.retrieve_fused, "exact_launches")
     counters["fused_parts"] = (rf.retrieve_fused_parts, "launches")
@@ -1441,41 +1568,44 @@ def hier_phases(dev, gen, report):
                      rh._hier_parts_family_plain(*args_s, **pkw),
                      rh._hier_parts_family_plain(*args_s, **pkw, magnitude=True), why)
         # the flagship at B = 1, 37 and 1,000: its budgets widen (hier_plan)
+        ck = dict(Ws=Ws, r=hb.lr_rank, rrp=hb.z_sem.shape[1], Dv=hb.value_dim, beta=0.5,
+                  rg=hb.lr_geo, Wg=Wg)
+        bases = (hb.w_sem, hb.u_sem, hb.w_geo, hb.u_geo)
+        combine = {}  # kernel 16's operands of each request
         for b in (1, 37, SMALL_BATCH):
             bm_b, k_b, kg_b, j_b = cfg.hier_plan(b)
             q_sb, q_xb = rh._pad_queries(q[:b], x[:b], bm_b)
-            qc = rf.pack_queries(q_sb, q_xb, 12.0, 40.0, hb.tier)[
-                rh._hybrid_order(q_xb, b)].contiguous()
-            st = rh._hier_scan_call(qc, *scan_args[1:], **scan_kw)[:4]
-            i_s, _ = rh.select_tiles(*st, t_real=hb.t_real, k_tiles=k_b, bm=bm_b, n_valid=b,
-                                     j_sem=j_b, j_geo=cfg.j_geo, mode="range")
+            order_b = rh._hybrid_order(q_xb, b)
+            qc = rf.pack_queries(q_sb, q_xb, 12.0, 40.0, hb.tier)[order_b].contiguous()
+            st = rh._hier_scan_call(qc, *scan_args[1:], **scan_kw)
+            i_s, _ = rh.select_tiles(*st[:4], t_real=hb.t_real, k_tiles=k_b, bm=bm_b,
+                                     n_valid=b, j_sem=j_b, j_geo=cfg.j_geo, mode="range")
             i_g, _ = rh.select_tiles(st[2], st[3], st[0], st[1], t_real=hb.t_real,
                                      k_tiles=kg_b, bm=bm_b, n_valid=b, j_sem=cfg.j_geo,
                                      j_geo=j_b, mode="range")
-            _rr_families(f"B={b} (Bp {qc.shape[0]})", hb, qc, i_s, i_g, bm_b, b, why)
+            out_b, _, _ = _rr_families(f"B={b} (Bp {qc.shape[0]})", hb, qc, i_s, i_g, bm_b, b,
+                                       why)
+            q_srt_b = torch.nn.functional.pad(q[:b], (0, 0, 0, qc.shape[0] - b))[order_b]
+            combine[b] = (out_b["sem"][0], out_b["geo"][0], st[4], q_srt_b.contiguous())
 
         q_srt = torch.nn.functional.pad(q, (0, 0, 0, q_cat.shape[0] - BATCH))[order]
-        q_srt = q_srt.contiguous()
-        ck = dict(Ws=Ws, r=hb.lr_rank, rrp=hb.z_sem.shape[1], Dv=hb.value_dim, beta=0.5,
-                  rg=hb.lr_geo, Wg=Wg)
-        c_args = (parts["sem"], parts["geo"], tails, q_srt, hb.w_sem, hb.u_sem, hb.w_geo,
-                  hb.u_geo)
-        err, ratio = _compare("combine_cat", rh._combine_cat_call(*c_args, **ck),
-                              rh._combine_cat_plain(*c_args, **ck), 1e-5, 1e-5,
-                              "f32 products in another summation order")
-        ms = _cuda_ms(lambda: rh._combine_cat_call(*c_args, **ck), 10)
+        combine[BATCH] = (parts["sem"], parts["geo"], tails, q_srt.contiguous())
+        # kernel 16 at each request: the Hopper body beside the f32 body
+        for b in REQUESTS:
+            c_args = combine[b] + bases
+            res = _combine_turns(f"combine_cat B={b} (Bp {c_args[0].shape[0]})", c_args, ck, b)
         plain_ms = _cuda_ms(lambda: rh._combine_cat_plain(*c_args, **ck), 10)
-        print(f"combine_cat B={BATCH}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-        Dv, rrp, Dq = hb.value_dim, ck["rrp"], q_srt.shape[1]
-        flops = 2 * BATCH * Dv * (2 * rrp + ck["r"] + ck["rg"])
-        n_bytes = (BATCH * ((rrp + 128) * 2 + 2 * (Ws + Wg) + Dq) * 4
-                   + (2 * rrp + ck["r"] + ck["rg"]) * Dv * 4 + BATCH * (Dv + Dq) * 4)
-        b_ms, b_by = _bound(n_bytes, flops, F32_FLOPS)
-        report["combine_cat"] = dict(max_abs_err=err, err_over_tol=ratio, ms=ms,
-                                     plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        print(f"combine_cat B={BATCH}: plain {plain_ms:.3f} ms (cuBLAS f32 products, TF32 off)")
+        for key, (err, ratio, ms, b_ms, b_by) in (("combine_cat", res["new"]),
+                                                  ("combine_cat_exact", res["old"])):
+            report[key] = dict(max_abs_err=err, err_over_tol=ratio, ms=ms, plain_ms=plain_ms,
+                               bound_ms=b_ms, bound_by=b_by, launches=0)
+        Dv = hb.value_dim
 
-    # ---- 7. the flagship path, through the entry point
-    per_request = {"siren_tower": 1, "hier_scan": 1, "hier_parts_family": 2, "combine_cat": 1}
+    # ---- 7. the flagship path, through the entry point: the tower and the
+    # combine on their Hopper bodies
+    per_request = {"siren_tower": 1, "siren_tower_bf16": 1, "hier_scan": 1,
+                   "hier_parts_family": 2, "combine_cat": 1}
     requests = [_random_coords(b, gen, dev) for b in REQUESTS]
     answers, launches = [], dict.fromkeys(per_request, 0)
     for c in requests:
@@ -1484,7 +1614,7 @@ def hier_phases(dev, gen, report):
         answers.append(out)
         launches = {k: n + got[k] for k, n in launches.items()}
     print(f"flagship path launches: {launches}")
-    for k in ("hier_scan", "hier_parts_family", "combine_cat"):
+    for k in ("siren_tower_bf16", "hier_scan", "hier_parts_family", "combine_cat"):
         report[k]["launches"] = launches[k]
 
     for c, out in zip(requests, answers):
@@ -1669,6 +1799,17 @@ def _klist_batches(q, x, hb, why: str) -> dict:
     return out
 
 
+def _tally(report: dict, launches: dict) -> None:
+    """Add a phase's launch counts to the kernels line's rows, each second
+    body's launches (`VARIANTS`) to its own row and not to its wrapper's."""
+    own = dict(launches)
+    for variant, parent in VARIANTS:
+        own[parent] = own.get(parent, 0) - own.get(variant, 0)
+    for k, n in own.items():
+        if n:
+            report[k]["launches"] += n
+
+
 def _drive(tag: str, fn, expected: dict):
     """Run fn() with every launch count set to 0 just before, read them
     just after, and assert they equal `expected` (others 0)."""
@@ -1679,6 +1820,12 @@ def _drive(tag: str, fn, expected: dict):
     torch.cuda.synchronize()
     got = {k: getattr(wrapper, attr) for k, (wrapper, attr) in counters.items()}
     want = {k: expected.get(k, 0) for k in counters}
+    # a drive that names no body of the tower or the combine: every launch
+    # on one of its two bodies (the bf16 mode's or the exact tier's, or
+    # neither), as its model's settings route them
+    for variant, parent in VARIANTS:
+        if variant not in expected and got[variant] in (0, want[parent]):
+            want[variant] = got[variant]
     print(f"{tag}: launches {got}")
     if got != want:
         raise AssertionError(f"{tag}: launches {got}, expected {want}")
@@ -2821,18 +2968,15 @@ def general_phases(dev, gen, report, bank):
         ck = dict(Ws=Ws, r=hv.lr_rank, rrp=rrp, Dv=Dv, beta=0.5, rg=0, Wg=hb.g_geo_vw.shape[1])
         c_args = (ps, rg0_parts["pg"], scans["mixed"][4], q_srt, hv.w_sem, hv.u_sem,
                   hv.w_geo, None)
-        err, ratio = _compare("combine_cat[rg=0]", rh._combine_cat_call(*c_args, **ck),
-                              rh._combine_cat_plain(*c_args, **ck), 1e-5, 1e-5,
-                              "f32 products in another summation order")
-        ms = _cuda_ms(lambda: rh._combine_cat_call(*c_args, **ck), 10)
+        # the Hopper body beside the f32 body at B = 10,000 and, on its
+        # first rows (a combine's rows are independent), at 1, 37 and 1,000
+        for b in REQUESTS:
+            rows = -(-b // bm) * bm
+            res = _combine_turns(f"combine_cat[rg=0] B={b} (Bp {rows})",
+                                 tuple(t[:rows] for t in c_args[:4]) + c_args[4:], ck, b)
         plain_ms = _cuda_ms(lambda: rh._combine_cat_plain(*c_args, **ck), 10)
-        Dq = q_srt.shape[1]
-        flops = 2 * BATCH * Dv * (2 * rrp + hv.lr_rank) + 2 * BATCH * Dv
-        n_bytes = (BATCH * ((rrp + 128 + Ws) + (Dv + 128 + rrp) + Ws + ck["Wg"] + Dq) * 4
-                   + (2 * rrp + hv.lr_rank) * Dv * 4 + BATCH * (Dv + Dq) * 4)
-        b_ms, b_by = _bound(n_bytes, flops, F32_FLOPS)
-        print(f"combine_cat[rg=0] B={BATCH}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-              f"bound {b_ms:.4f} ms ({b_by})")
+        print(f"combine_cat[rg=0] B={BATCH}: plain {plain_ms:.3f} ms")
+        err, ratio, ms, b_ms, b_by = res["new"]
         report["combine_cat_rg0"] = dict(max_abs_err=err, err_over_tol=ratio, ms=ms,
                                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
 
@@ -3048,9 +3192,7 @@ def gsz4_phases(dev, gen, report, bank) -> dict:
         if not torch.isfinite(out).all() or mean > bar:
             raise AssertionError(f"gsz_sem=4 {name}: relerr mean {mean:.5f} over its bar {bar}")
     print(f"gsz_sem=4 path launches: {launches}")
-    for k, n in launches.items():
-        if n:
-            report[k]["launches"] += n
+    _tally(report, launches)
 
     # ---- 21c. kernels 15 and 14 at 128 groups a tile against their plain versions
     cfg = encs["RANGE+ lr+rr+lr_geo"][0].model.config
@@ -3187,9 +3329,7 @@ def _banks_phase(dev, gen, report, bank, specs, title: str) -> dict:
             _rr_families(f"{name} B={BATCH}", hb, q_cat, idx_s, idx_g, bm, BATCH, why,
                          body=False, residue=gsz == 1)
     print(f"{title}' launches: {launches}")
-    for k, n in launches.items():
-        if n:
-            report[k]["launches"] += n
+    _tally(report, launches)
     return e2e
 
 
@@ -3727,11 +3867,10 @@ def knob_phases(dev, gen, report, bank, hb, enc, hb_ts, hb2) -> dict:
         report[f"hier_parts_family_{form}"]["launches"] = (
             tallied[f"hier_parts_family_{form}"] - tallied[rr])
     report["hier_refine_parts"]["launches"] = tallied["hier_refine_parts"]
-    for k, n in tallied.items():
-        if n and k not in ("hier_refine_parts", "hier_parts_family_sel",
-                           "hier_parts_family_sel_rr", "hier_parts_family_dedup",
-                           "hier_parts_family_dedup_rr"):
-            report[k]["launches"] += n
+    _tally(report, {k: n for k, n in tallied.items()
+                    if k not in ("hier_refine_parts", "hier_parts_family_sel",
+                                 "hier_parts_family_sel_rr", "hier_parts_family_dedup",
+                                 "hier_parts_family_dedup_rr")})
     _trace(lambda: encs["RANGE+"][0](c), 3, f"two-level RANGE+ B={BATCH}")
     print("knob paths end to end B=10,000 (coords on the card), median of 5 calls: "
           + ", ".join(f"{k} {v:.3f} ms" for k, v in e2e.items()))
@@ -4599,14 +4738,15 @@ def tiers_phases(dev, gen, report, bank, enc) -> dict:
             _tier_kernels(tier, form, hb, hb_ts, hb2, q, x, report, enc.model.config)
 
         c, cf = f"_{form}", {}  # the CUDA-core counters of a request
+        exact_c = {"combine_cat_exact": 1} if tier == "exact" else {}  # the f32 body
         scan = {"hier_scan": 1, "hier_scan" + c: 1}
         stats = {"hier_scan_stats": 1, "hier_scan_stats" + c: 1}
         drives = {}
         plus = load_model("RANGE+", db_path=hb, profile="flagship", tier=tier)
         rng = load_model("RANGE", db_path=hb, profile="flagship", tier=tier)
         requests = {
-            "flagship": (plus, {"siren_tower": 1, **scan, "hier_parts_family" + c: 2,
-                                "combine_cat": 1}),
+            "flagship": (plus, {"siren_tower": 1, "siren_tower_bf16": 1, **scan,
+                                "hier_parts_family" + c: 2, "combine_cat": 1, **exact_c}),
             "RANGE flagship": (rng, {"siren_tower": 1, **stats, **scan, "hier_parts": 1,
                                      "hier_parts" + c: 1})}
         for name, (enc_t, want) in requests.items():
@@ -4650,7 +4790,7 @@ def tiers_phases(dev, gen, report, bank, enc) -> dict:
         out, drives["tail_super"] = _drive(
             f"{tier} tail_super flagship B={BATCH}", lambda: ts(cs),
             {"siren_tower": 1, **scan, "hier_parts_family" + c: 2, "hier_corr": 1,
-             "hier_corr" + c: 1, "combine_cat": 1})
+             "hier_corr" + c: 1, "combine_cat": 1, **exact_c})
         _tier_fidelity(f"{tier} tail_super flagship", out, cs, bank, "range+", 0.04, 0.165)
         two = load_model("RANGE+", db_path=hb2, retrieval="hier", gsz_super=GSZ_SUPER,
                          tier=tier)
@@ -4674,6 +4814,8 @@ def tiers_phases(dev, gen, report, bank, enc) -> dict:
         for k in CORES_ROWS:
             report[f"{k[0]}{c}"]["launches"] = sum(d.get(f"{k[0]}{c}", 0)
                                                    for d in drives.values())
+        report["combine_cat_exact"]["launches"] += sum(d["combine_cat_exact"]
+                                                       for d in drives.values())
         del hb, hb_ts, hb2
         torch.cuda.empty_cache()
 

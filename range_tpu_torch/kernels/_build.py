@@ -37,6 +37,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "siren_tower": {"siren_tower_launch":
                     [_P] * 8 + [_I] * 4 + [_F, _F, _I, _P]},
+    "siren_tower_sm90": {"siren_tower_sm90_launch": [_P] * 6 + [_I] * 4 + [_F, _F, _P],
+                         "siren_tower_sm90_smem": [_I, _I]},
     "sh_times": {"sh_times_plan": [_I] * 3 + [_P],
                  "sh_times_launch": [_P] * 6 + [_I] * 6 + [_P]},
     "fused_retrieval": {"fused_retrieval_launch":
@@ -65,6 +67,8 @@ _SIGNATURES = {
     "hier_parts_family_sm90": {"hier_parts_family_sm90_launch":
                                [_P] * 11 + [_I] * 22 + [_P]},
     "combine_cat": {"combine_cat_launch": [_P] * 7 + [_I] * 8 + [_F, _P]},
+    "combine_cat_sm90": {"combine_cat_sm90_launch": [_P] * 6 + [_I] * 8 + [_F, _P],
+                         "combine_cat_sm90_smem": []},
     "hier_argmax": {"hier_argmax_launch": [_P] * 7 + [_I] * 5 + [_P],
                     "hier_topk_launch": [_P] * 7 + [_I] * 6 + [_P]},
     "hier_argmax_sm90": {"hier_argmax_sm90_launch": [_P] * 8 + [_I] * 9 + [_P],

@@ -101,6 +101,7 @@ import torch
 
 from ..bank.bank import GeoBank, dequantize_values
 from ..bank.clustered import cluster_bank, tile_stats
+from ._prep import prepared, swizzle128
 from .kmeans import kmeans
 from .retrieval import first_argmax
 from .retrieval_fused import (_SM90_MAX_SMEM, CLAMP2, NEG, SM90_SMS, _round_up,
@@ -2588,6 +2589,113 @@ def _stacked_bases(w_sem, u_sem, w_geo, u_geo):
             geo.to(torch.float32).contiguous())
 
 
+def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """f32 x rounded to TF32 (10 stored mantissa bits), to nearest with ties
+    away from zero, as `cvt.rna.tf32.f32`: the low 13 bits of the sign-
+    magnitude pattern, rounded on the magnitude, cleared."""
+    b = x.to(torch.float32).contiguous().view(torch.int32)
+    return ((b + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_split(x: torch.Tensor):
+    """(hi, lo), both TF32 values: hi = rna(x), lo = rna(x - hi)."""
+    hi = _tf32_rna(x)
+    return hi, _tf32_rna(x.to(torch.float32) - hi)
+
+
+@torch.no_grad()
+def _combine_images(w_sem, u_sem, w_geo, u_geo) -> torch.Tensor:
+    """The split bases of `csrc/combine_cat_sm90.cu`, once per bank: B =
+    [w_sem; u_sem; w_geo (; u_geo)] [K, Dv] f32 in TF32 halves, as [Dv / nb]
+    column blocks x [K / 32] chunks x [hi | lo] x [nb rows][32] K-major
+    tiles in the 128-byte swizzle (row n, 32 consecutive K; a block's chunk
+    is one contiguous copy), nb = 128."""
+    B = torch.cat(_stacked_bases(w_sem, u_sem, w_geo, u_geo), 0)
+    K, Dv = B.shape
+    t = torch.stack(_tf32_split(B)).reshape(2, K // 32, 32, Dv // 128, 128)
+    return swizzle128(t.permute(3, 1, 0, 4, 2).contiguous())
+
+
+def _combine_plan(Bp: int, Dv: int, K: int) -> dict:
+    """`csrc/combine_cat_sm90.cu`'s launch: blocks of 128 rows x 128
+    columns, threads, dynamic shared memory (its `Layout::TOTAL`, checked
+    against `combine_cat_sm90_smem` on the card), the stages of its two
+    rings (the split bases', the A sources') and their bytes, 32-deep
+    chunks of K."""
+    ns, stage, src, a_tile = 2, 2 * 128 * 128, 2 * 128 * 128, 64 * 128
+    return dict(grid=((Bp + 127) // 128, Dv // 128), threads=384,
+                smem=ns * (stage + src) + 8 * a_tile + 32 * ns + 1024, stages=ns,
+                stage_bytes=(stage, src), chunks=K // 32)
+
+
+def _combine_coefs(ps, pg, tails, *, Ws, r, rrp, Dv, beta, rg, Wg):
+    """(A, geo0): the combine's coefficient rows scaled by beta / max(d_s,
+    1e-30) and (1 - beta) / max(d_g, 1e-30), [Bp, 2 rrp + r + rg], and at
+    rg = 0 the scaled additive geo terms (1 - beta) (pg[:, :Dv] +
+    tails_g[:, :Dv]) / max(d_g, 1e-30) (else None); f32, rounded as the
+    kernel rounds them."""
+    corr = tails[:, :Ws] - ps[:, rrp + 128:]
+    ss = beta / torch.clamp_min(ps[:, rrp:rrp + 1] + corr[:, r:r + 1], 1e-30)
+    a_s = torch.cat([ps[:, :rrp], corr[:, :r]], 1) * ss
+    geo0 = None
+    if rg:
+        corr_g = tails[:, Ws:Ws + Wg] - pg[:, rrp + 128:]
+        sg = (1.0 - beta) / torch.clamp_min(pg[:, rrp:rrp + 1] + corr_g[:, rg:rg + 1], 1e-30)
+        a_g = torch.cat([pg[:, :rrp], corr_g[:, :rg]], 1) * sg
+    else:
+        sg = (1.0 - beta) / torch.clamp_min(pg[:, Dv:Dv + 1] + tails[:, Ws + Dv:Ws + Dv + 1],
+                                            1e-30)
+        a_g = pg[:, Dv + 128:] * sg
+        geo0 = sg * (pg[:, :Dv] + tails[:, Ws:Ws + Dv])
+    return torch.cat([a_s, a_g], 1), geo0
+
+
+def _rz_add(acc: torch.Tensor, inc: torch.Tensor) -> torch.Tensor:
+    """f32 acc + f64 inc, rounded toward zero."""
+    exact = acc.double() + inc
+    near = exact.to(torch.float32)
+    over = near.double().abs() > exact.abs()
+    return torch.where(over, torch.nextafter(near, torch.zeros_like(near)), near)
+
+
+def _combine_cat_tf32x3(ps, pg, tails, q_srt, img, *, Ws: int, r: int, rrp: int,
+                        Dv: int, beta: float, rg: int, Wg: int, chain: str = "chunks"):
+    """Plain version of `csrc/combine_cat_sm90.cu`'s arithmetic, from its
+    split bases ``img`` (`_combine_images`, unswizzled here): A =
+    `_combine_coefs`, split into TF32 halves like the bases, and the three
+    products lo hi + hi lo + hi hi a k8 step (lo lo dropped).  How the
+    products sum: ``"exact"`` in f64 (the split's error alone); ``"chunks"``
+    as the kernel sums them, each 32-deep chunk's twelve products in a
+    fresh f32 fragment truncated toward zero after each (a pessimistic
+    model of the tensor cores' accumulator), the fragments into the running
+    sum rounded to nearest; ``"rz"`` all of them in one such truncated
+    chain (one accumulator, the design the kernel does not use)."""
+    A, geo0 = _combine_coefs(ps, pg, tails, Ws=Ws, r=r, rrp=rrp, Dv=Dv, beta=beta, rg=rg,
+                             Wg=Wg)
+    K = A.shape[1]
+    t = swizzle128(img).permute(2, 1, 4, 0, 3).reshape(2, K, Dv).double()
+    bh, bl = t[0], t[1]
+    ah, al = (x.double() for x in _tf32_split(A))
+    if chain == "exact":
+        acc = (ah @ bh + ah @ bl + al @ bh).to(torch.float32)
+    else:
+        acc = torch.zeros(A.shape[0], Dv, dtype=torch.float32, device=A.device)
+        frag = acc
+        for k0 in range(0, K, 8):
+            if chain == "chunks" and k0 % 32 == 0:
+                frag = torch.zeros_like(acc)
+            ks = slice(k0, k0 + 8)
+            for a, b in ((al, bh), (ah, bl), (ah, bh)):
+                frag = _rz_add(frag, a[:, ks] @ b[ks])
+            if chain == "chunks" and k0 % 32 == 24:
+                acc = acc + frag
+        if chain == "rz":
+            acc = frag
+    if geo0 is not None:
+        acc = acc + geo0
+    return torch.cat([acc, q_srt.to(torch.float32)], 1)
+
+
 def _combine_cat_plain(ps, pg, tails, q_srt, w_sem, u_sem, w_geo, u_geo, *,
                        Ws: int, r: int, rrp: int, Dv: int, beta: float,
                        rg: int, Wg: int):
@@ -2617,15 +2725,19 @@ def _combine_cat_plain(ps, pg, tails, q_srt, w_sem, u_sem, w_geo, u_geo, *,
 
 def _combine_cat_call(ps, pg, tails, q_srt, w_sem, u_sem, w_geo, u_geo, *,
                       Ws: int, r: int, rrp: int, Dv: int, beta: float,
-                      rg: int, Wg: int):
+                      rg: int, Wg: int, tier: str = "fast"):
     """Combine + concat epilogue: [Bp, Dv + Dq] f32 (``q_srt`` may have 0
     columns).  ``rg = 0``: the geo family without a low-rank tail
     (``u_geo`` None, ``Wg`` the full-width tail's columns).
 
-    CPU tensors: `_combine_cat_plain`.  CUDA tensors: `csrc/combine_cat.cu`,
-    which replaces `_combine_cat_kernel` (`range_tpu/ops/retrieval_hier.py:
-    3102`); the two unprojection products run inside the kernel in f32.
-    The rg = 0 launches also count in ``.rg0_launches``."""
+    CPU tensors: `_combine_cat_plain`.  CUDA tensors, each replacing
+    `_combine_cat_kernel` (`range_tpu/ops/retrieval_hier.py:3102`): at the
+    ``fast`` and ``high`` tiers `csrc/combine_cat_sm90.cu` (the products as
+    three TF32 products on the tensor cores, over the bank's split bases,
+    `_combine_images`, built once per bank); at ``tier="exact"`` (the
+    bank's tier, from `retrieve_hier`) `csrc/combine_cat.cu` (f32 FMAs),
+    counted in ``.exact_launches`` too.  The new body's rg = 0 launches
+    also count in ``.rg0_launches``."""
     if ps.device.type == "cpu":
         return _combine_cat_plain(ps, pg, tails, q_srt, w_sem, u_sem, w_geo,
                                   u_geo, Ws=Ws, r=r, rrp=rrp, Dv=Dv,
@@ -2633,32 +2745,47 @@ def _combine_cat_call(ps, pg, tails, q_srt, w_sem, u_sem, w_geo, u_geo, *,
     f32 = torch.float32
     ops = dict(ps=ps, pg=pg, tails=tails, q_srt=q_srt)
     _check_cuda("combine_cat", ops, dict.fromkeys(ops, f32))
-    wsem, wgeo = _stacked_bases(w_sem, u_sem, w_geo, u_geo if rg else None)
+    u_geo = u_geo if rg else None
+    sources = [w_sem, u_sem, w_geo] + ([u_geo] if rg else [])
     Bp, Dq = q_srt.shape
     pg_w = rrp + 128 + Wg if rg else Dv + 128 + rrp
     if (ps.shape != (Bp, rrp + 128 + Ws) or pg.shape != (Bp, pg_w)
-            or tails.shape != (Bp, Ws + Wg) or wsem.shape != (rrp + r, Dv)
-            or wgeo.shape != (rrp + rg, Dv) or Dv % 128 or Dq % 4
-            or r >= Ws or (rg >= Wg if rg else Wg < Dv + 1)):
+            or tails.shape != (Bp, Ws + Wg) or w_sem.shape[0] + u_sem.shape[0] != rrp + r
+            or w_geo.shape[0] + (u_geo.shape[0] if rg else 0) != rrp + rg
+            or w_sem.shape[1] != Dv or Dv % 128 or Dq % 4
+            or r >= Ws or (rg >= Wg if rg else Wg < Dv + 1)
+            or (tier != "exact" and (rrp % 32 or r % 32 or rg % 32 or Ws % 4 or Wg % 4))):
         raise ValueError(
             f"combine_cat kernel: unsupported shapes ps {tuple(ps.shape)}, "
             f"pg {tuple(pg.shape)}, tails {tuple(tails.shape)}, q "
             f"{tuple(q_srt.shape)}, r={r}, rg={rg}, rrp={rrp}, Dv={Dv}")
-    ops = [t.contiguous() for t in ops.values()] + [wsem, wgeo]
+    ops = [t.contiguous() for t in ops.values()]
     out = torch.empty((Bp, Dv + Dq), dtype=f32, device=ps.device)
-    if Bp:
+    if not Bp:
+        return out
+    if tier == "exact":
+        wsem, wgeo = prepared("combine_cat", sources,
+                              lambda: _stacked_bases(w_sem, u_sem, w_geo, u_geo), (rg > 0,))
         _launch("combine_cat", "combine_cat_launch",
-                *[t.data_ptr() for t in ops + [out]],
+                *[t.data_ptr() for t in ops + [wsem, wgeo, out]],
                 Bp, Dq, Ws, r, rrp, Dv, rg, Wg, ctypes.c_float(beta),
                 _stream(ps))
-        _combine_cat_call.launches += 1
+        _combine_cat_call.exact_launches += 1
+    else:
+        img = prepared("combine_cat_sm90", sources,
+                       lambda: _combine_images(w_sem, u_sem, w_geo, u_geo), (rg > 0,))
+        _launch("combine_cat_sm90", "combine_cat_sm90_launch",
+                *[t.data_ptr() for t in ops + [img, out]],
+                Bp, Dq, Ws, r, rrp, Dv, rg, Wg, ctypes.c_float(beta), _stream(ps))
         if not rg:
             _combine_cat_call.rg0_launches += 1
+    _combine_cat_call.launches += 1
     return out
 
 
 _combine_cat_call.launches = 0
 _combine_cat_call.rg0_launches = 0
+_combine_cat_call.exact_launches = 0
 
 
 def _hier_klist_plain(q2, ql, khl, mask_neg, idx, *, Dk: int, k: int,
@@ -3272,7 +3399,7 @@ def retrieve_hier(q_sem: torch.Tensor, q_xyz: Optional[torch.Tensor],
             hb.u_geo if use_lrg else None, Ws=hb.g_sem_vw_lr.shape[1],
             r=hb.lr_rank, rrp=hb.z_sem.shape[1], Dv=Dv, beta=beta,
             rg=hb.lr_geo if use_lrg else 0,
-            Wg=(hb.g_geo_vw_lr if use_lrg else hb.g_geo_vw).shape[1])
+            Wg=(hb.g_geo_vw_lr if use_lrg else hb.g_geo_vw).shape[1], tier=hb.tier)
         return unsort(out)
     if use2:
         acc_s, acc_g, d_s, d_g = _hier_partials2(

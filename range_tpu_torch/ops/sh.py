@@ -14,8 +14,12 @@ plain compose, as the JAX package's `custom_vjp`s are:
   two folded products), the training path's first layer.  CUDA tensor:
   `csrc/sh_times.cu`; CPU tensor: `_sh_times_plain`.
 - `siren_tower`: the whole SatCLIP tower (the same first layer -> every
-  SIREN layer), the serving path.  CUDA tensor: `csrc/siren_tower.cu`; CPU
-  tensor: `_siren_tower_plain`.
+  SIREN layer), the serving path.  CUDA tensor: `csrc/siren_tower_sm90.cu`
+  in the bf16 mode (wgmma), `csrc/siren_tower.cu` in the f32 mode (f32
+  FMAs); CPU tensor: `_siren_tower_plain`.
+
+The kernels' weight layouts (the fold, the casts, the swizzled bf16 tiles)
+are built once per parameter update (`ops._prep.prepared`), not per call.
 """
 
 from __future__ import annotations
@@ -26,6 +30,8 @@ import math
 
 import numpy as np
 import torch
+
+from ._prep import prepared, swizzle128
 
 # ---------------------------------------------------------------------------
 # numpy plans (verbatim from range_tpu/ops/sh.py:122-305)
@@ -347,7 +353,8 @@ def _sh_times_call(lonlat_deg: torch.Tensor, L: int, w: torch.Tensor,
                          f"multiple of 32 up to 512, got D={D}")
     f32 = torch.float32
     ftabT = _fourier_table(L, f32, dev, transposed=True)
-    wc, ws = _fold_first_layer(w, L, convention, f32)
+    wc, ws = prepared("sh_times", [w], lambda: _fold_first_layer(w, L, convention, f32),
+                      (L, convention))
     coords = lonlat_deg.contiguous()
     B = coords.shape[0]
     out = torch.empty((B, D), dtype=f32, device=dev)
@@ -485,10 +492,136 @@ def _siren_tower_ref(lonlat_deg: torch.Tensor, L: int, params,
     return out + last["b"] if "b" in last else out
 
 
+def _tower_sources(params):
+    """Every parameter tensor of the tower, the last layer last."""
+    return [t for e in list(params["layers"]) + [params["last"]]
+            for _, t in sorted(e.items())]
+
+
+@torch.no_grad()
+def _tower_f32(L: int, params, convention: str):
+    """`csrc/siren_tower.cu`'s f32 operands: ftabT, the folded wc / ws, the
+    stacked hidden weights, the last layer's and the biases."""
+    layers, last = params["layers"], params["last"]
+    H, D = layers[0]["w"].shape[1], last["w"].shape[1]
+    dev, f32 = layers[0]["w"].device, torch.float32
+    wc, ws = _fold_first_layer(layers[0]["w"], L, convention, f32)
+    n_deep = len(layers) - 1
+    deep = (torch.stack([layer["w"].to(f32) for layer in layers[1:]])
+            if n_deep else torch.zeros((1, H, H), dtype=f32, device=dev))
+    return (_fourier_table(L, f32, dev, transposed=True), wc, ws, deep,
+            last["w"].to(f32).contiguous(),
+            torch.stack(_tower_biases(params, H, D, f32, dev)))
+
+
+def _tower_shape(L: int, H: int):
+    """(Lq, KS, KB2, KC) of `csrc/siren_tower_sm90.cu`: P's columns (L
+    rounded up to 16), a recurrence row's first-layer depth (cos | sin),
+    the 64-column boxes of the synthesis depth, the weight rows of a
+    further layer's chunk."""
+    lq = 16 * ((L + 15) // 16)
+    ks = 2 * lq
+    return lq, ks, (ks + 63) // 64, ks if ks % 64 == 0 or ks == 32 else 64
+
+
+def _tower_plan(B: int, L: int, H: int) -> dict:
+    """The bf16 tower kernel's launch at (B, L, H), as its `Shape` lays it
+    out: its consumer warpgroups (two, of 64 queries each, where their
+    shared-memory regions fit beside the rings; else one), blocks, threads
+    (and a producer warpgroup), dynamic shared memory, the stages of each of its
+    two rings (the Fourier slabs', the weights') and their bytes; chunks
+    of a further layer.  Checked against the kernel's
+    `siren_tower_sm90_smem` on the card."""
+    lq, ks, kb2, kc = _tower_shape(L, H)
+    ns, bm, smem_max = 2, 64, 232_448
+    ft_bytes, w1_bytes = kb2 * lq * 128, ks * H * 2
+    trig = kb2 * bm * 128
+    wg_bytes = -(-max(trig + bm * (lq // 2 + 1) * 16, (H // 64) * bm * 128) // 1024) * 1024
+    fixed = ns * (ft_bytes + w1_bytes) + 32 * ns + 1024
+    wgs = 2 if fixed + 2 * wg_bytes <= smem_max else 1
+    rows = bm * wgs
+    return dict(warpgroups=wgs, grid=(B + rows - 1) // rows, threads=128 * wgs + 128,
+                smem=fixed + wgs * wg_bytes, stages=ns, stage_bytes=(ft_bytes, w1_bytes),
+                lq=lq, ks=ks, kc=kc, chunks=H // kc)
+
+
+@torch.no_grad()
+def _tower_images(L: int, params, convention: str):
+    """`csrc/siren_tower_sm90.cu`'s operands, each stage one contiguous
+    image of swizzled bf16 tiles: (ftab [L, KB2, Lq, 64]: row k's Fourier
+    slab, K-major, B[r][j] = ftab[j][kL + r] with cos j in columns j < L and
+    sin j in Lq + j; w1 [L, H / 64, KS, 64]: row k's folded first layer
+    [wc rows kL..kL+L | zeros | ws rows | zeros], MN-major; hid [n_deep + 1,
+    H / KC, H / 64, KC, 64]: each further layer's [in, out] weights in
+    chunks of KC rows, MN-major; bpack [n_deep + 2, H] f32).  Rounded to
+    bf16 from the same f32 operands as `_siren_tower_plain`'s."""
+    layers, last = params["layers"], params["last"]
+    H = layers[0]["w"].shape[1]
+    lq, ks, kb2, kc = _tower_shape(L, H)
+    dev, f32, bf16 = layers[0]["w"].device, torch.float32, torch.bfloat16
+    ftab = _fourier_table(L, f32, dev).reshape(2 * L, L, L)  # [j, k, r]
+    T = torch.zeros(L, lq, kb2 * 64, dtype=f32, device=dev)
+    T[:, :L, :L] = ftab[:L].permute(1, 2, 0)
+    T[:, :L, lq:lq + L] = ftab[L:].permute(1, 2, 0)
+    ft = swizzle128(T.to(bf16).reshape(L, lq, kb2, 64).permute(0, 2, 1, 3).contiguous())
+    wc, ws = _fold_first_layer(layers[0]["w"], L, convention, f32)
+    W1 = torch.zeros(L, ks, H, dtype=f32, device=dev)
+    W1[:, :L] = wc.reshape(L, L, H)
+    W1[:, lq:lq + L] = ws.reshape(L, L, H)
+    w1 = swizzle128(W1.to(bf16).reshape(L, ks, H // 64, 64).permute(0, 2, 1, 3).contiguous())
+    hw = torch.stack([layer["w"].to(f32) for layer in layers[1:]] + [last["w"].to(f32)])
+    nl = hw.shape[0]
+    hid = swizzle128(hw.to(bf16).reshape(nl, H // kc, kc, H // 64, 64)
+                      .permute(0, 1, 3, 2, 4).contiguous())
+    return ft, w1, hid, torch.stack(_tower_biases(params, H, H, f32, dev))
+
+
+def _siren_tower_slabs(lonlat_deg: torch.Tensor, L: int, images,
+                       w0_initial: float = 30.0, w0: float = 1.0) -> torch.Tensor:
+    """Plain version of `csrc/siren_tower_sm90.cu`'s decomposition, read
+    from its images (`_tower_images`, unswizzled here): per recurrence row
+    k, P_k = bf16(fth) @ the row's Fourier slab (Lq columns), amat =
+    bf16([P_k cos m phi | P_k sin m phi]), h += amat @ the row's first-layer
+    slab one k16 step at a time (the accumulator's order); then every
+    further layer one k16 step at a time.  f32 sums of bf16 operands."""
+    ft, w1, hid, bpack = images
+    H, f32, bf16 = bpack.shape[1], torch.float32, torch.bfloat16
+    lq, ks, kb2, _ = _tower_shape(L, H)
+    T = swizzle128(ft).permute(0, 2, 1, 3).reshape(L, lq, kb2 * 64)[:, :, :ks].to(f32)
+    W1 = swizzle128(w1).permute(0, 2, 1, 3).reshape(L, ks, H).to(f32)
+    nl = hid.shape[0]
+    HW = swizzle128(hid).permute(0, 1, 3, 2, 4).reshape(nl, H, H).to(f32)
+    phi, theta = _angles(lonlat_deg.to(f32))
+    m = torch.arange(lq, dtype=f32, device=lonlat_deg.device)
+    keep = (m < L).to(f32)
+    fth = torch.cat([torch.cos(theta[:, None] * m) * keep,
+                     torch.sin(theta[:, None] * m) * keep], 1).to(bf16).to(f32)
+    cosm, sinm = torch.cos(phi[:, None] * m), torch.sin(phi[:, None] * m)
+
+    def steps(x, w):  # x @ w as the accumulator adds it: k16 step by step
+        acc = torch.zeros(x.shape[0], w.shape[1], dtype=f32, device=x.device)
+        for k0 in range(0, w.shape[0], 16):
+            acc = acc + x[:, k0:k0 + 16] @ w[k0:k0 + 16]
+        return acc
+
+    h = torch.zeros(lonlat_deg.shape[0], H, dtype=f32, device=lonlat_deg.device)
+    for k in range(L):
+        P = fth @ T[k].T
+        amat = torch.cat([P * cosm, P * sinm], 1).to(bf16).to(f32)
+        for k0 in range(0, ks, 16):
+            h = h + amat[:, k0:k0 + 16] @ W1[k, k0:k0 + 16]
+    x = torch.sin(w0_initial * (h + bpack[0])).to(bf16).to(f32)
+    for layer in range(nl - 1):
+        x = torch.sin(w0 * (steps(x, HW[layer]) + bpack[layer + 1])).to(bf16).to(f32)
+    return steps(x, HW[-1]) + bpack[-1]
+
+
 def _siren_tower_call(lonlat_deg: torch.Tensor, L: int, params,
                       convention: str, matmul_dtype, w0_initial: float,
                       w0: float) -> torch.Tensor:
-    """Launch `csrc/siren_tower.cu` on CUDA tensors: [B, 2] f32 -> [B, D]."""
+    """Launch the tower kernel on CUDA tensors: [B, 2] f32 -> [B, D].  The
+    bf16 mode runs `csrc/siren_tower_sm90.cu` (counted in
+    ``siren_tower.bf16_launches`` too), the f32 mode `csrc/siren_tower.cu`."""
     layers, last = params["layers"], params["last"]
     if lonlat_deg.dtype != torch.float32 or lonlat_deg.ndim != 2 \
             or lonlat_deg.shape[1] != 2:
@@ -503,30 +636,37 @@ def _siren_tower_call(lonlat_deg: torch.Tensor, L: int, params,
             layer["w"].shape != (H, H) for layer in layers[1:]):
         raise ValueError("siren_tower: layer shapes do not match L and H")
     dev = lonlat_deg.device
-    f32 = torch.float32
-    ftabT = _fourier_table(L, f32, dev, transposed=True)
-    wc, ws = _fold_first_layer(layers[0]["w"], L, convention, f32)
-    n_deep = len(layers) - 1
-    deep = (torch.stack([layer["w"].to(f32) for layer in layers[1:]])
-            if n_deep else torch.zeros((1, H, H), dtype=f32, device=dev))
-    wl = last["w"].to(f32).contiguous()
-    bpack = torch.stack(_tower_biases(params, H, D, f32, dev))
     coords = lonlat_deg.contiguous()
     B = coords.shape[0]
-    out = torch.empty((B, D), dtype=f32, device=dev)
+    out = torch.empty((B, D), dtype=torch.float32, device=dev)
     if B == 0:
         return out
     from ..kernels._build import load_kernel_library
 
-    lib = load_kernel_library("siren_tower")
-    rc = lib.siren_tower_launch(
-        coords.data_ptr(), ftabT.data_ptr(), wc.data_ptr(), ws.data_ptr(),
-        bpack.data_ptr(), deep.data_ptr(), wl.data_ptr(), out.data_ptr(),
-        B, L, H, n_deep, ctypes.c_float(w0_initial), ctypes.c_float(w0),
-        int(matmul_dtype is not None),
-        torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"siren_tower kernel launch failed: CUDA error {rc}")
+    n_deep = len(layers) - 1
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    sources = _tower_sources(params)
+    if matmul_dtype is not None:
+        ft, w1, hid, bpack = prepared(
+            "siren_tower_sm90", sources, lambda: _tower_images(L, params, convention),
+            (L, convention, n_deep))
+        rc = load_kernel_library("siren_tower_sm90").siren_tower_sm90_launch(
+            coords.data_ptr(), ft.data_ptr(), w1.data_ptr(), hid.data_ptr(),
+            bpack.data_ptr(), out.data_ptr(), B, L, H, n_deep,
+            ctypes.c_float(w0_initial), ctypes.c_float(w0), stream)
+        if rc != 0:
+            raise RuntimeError(f"siren_tower_sm90 kernel launch failed: CUDA error {rc}")
+        siren_tower.bf16_launches += 1
+    else:
+        ftabT, wc, ws, deep, wl, bpack = prepared(
+            "siren_tower", sources, lambda: _tower_f32(L, params, convention),
+            (L, convention, n_deep))
+        rc = load_kernel_library("siren_tower").siren_tower_launch(
+            coords.data_ptr(), ftabT.data_ptr(), wc.data_ptr(), ws.data_ptr(),
+            bpack.data_ptr(), deep.data_ptr(), wl.data_ptr(), out.data_ptr(),
+            B, L, H, n_deep, ctypes.c_float(w0_initial), ctypes.c_float(w0), 0, stream)
+        if rc != 0:
+            raise RuntimeError(f"siren_tower kernel launch failed: CUDA error {rc}")
     siren_tower.launches += 1
     return out
 
@@ -582,12 +722,15 @@ def siren_tower(lonlat_deg: torch.Tensor, L: int, params,
     ``matmul_dtype`` is None (true f32 operands) or ``torch.bfloat16``
     (operands rounded to bf16, f32 accumulation).
 
-    CPU tensor: `_siren_tower_plain`.  CUDA tensor: the hand-written kernel
-    (`csrc/siren_tower.cu`), which replaces the TPU kernel `kern` inside
-    `_siren_tower_impl` (`range_tpu/ops/sh.py:661-782`); a launch failure
-    raises.  Differentiable in the coordinates and every parameter: the
-    backward is autograd through the plain compose `_siren_tower_ref`, as
-    in the JAX package.  ``siren_tower.launches`` counts kernel launches."""
+    CPU tensor: `_siren_tower_plain`.  CUDA tensor: a hand-written kernel,
+    `csrc/siren_tower_sm90.cu` in the bf16 mode (wgmma) and
+    `csrc/siren_tower.cu` in the f32 mode, which replace the TPU kernel
+    `kern` inside `_siren_tower_impl` (`range_tpu/ops/sh.py:661-782`); a
+    launch failure raises.  Differentiable in the coordinates and every
+    parameter: the backward is autograd through the plain compose
+    `_siren_tower_ref`, as in the JAX package.  ``siren_tower.launches``
+    counts kernel launches, ``siren_tower.bf16_launches`` those of the bf16
+    mode's kernel."""
     _check_convention(convention)
     _check_matmul_dtype(matmul_dtype)
     _kernel_device(lonlat_deg, "siren_tower")
@@ -598,3 +741,4 @@ def siren_tower(lonlat_deg: torch.Tensor, L: int, params,
 
 
 siren_tower.launches = 0
+siren_tower.bf16_launches = 0

@@ -13,6 +13,7 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's CPU threads under xdist)
 
 from range_tpu_torch import GeoBank, load_model
 from range_tpu_torch.geometry import lonlat_deg_to_xyz
@@ -35,28 +36,121 @@ def cuda():
 def _coords(n, seed, device):
     rng = np.random.default_rng(seed)
     ll = np.stack([rng.uniform(-180, 180, n), rng.uniform(-90, 90, n)], 1)
-    ll[:2, 1] = [90.0, -90.0]
+    ll[:2, 1] = [90.0, -90.0][:n]
     return torch.from_numpy(ll.astype(np.float32)).to(device)
 
 
 # f32: the same f32 math in another summation order, amplified x30 by
 # sin(30 h).  bf16: the same operand rounding points, but an f32 sum that
-# lands near a bf16 tie rounds the other way (2^-8 relative).
+# lands near a bf16 tie rounds the other way (2^-8 relative).  Each mode on
+# each body: f32 on `csrc/siren_tower.cu`; bf16 on the Hopper body
+# `csrc/siren_tower_sm90.cu` (the wrapper's route) and, launched here
+# alone, on the f32 body's bf16 form (chip_smoke.py's yardstick).
 @pytest.mark.parametrize("H", [128, 256])
-@pytest.mark.parametrize("bf16,atol", [(False, 1e-4), (True, 2e-2)])
-def test_tower_kernel_matches_plain(cuda, H, bf16, atol):
+@pytest.mark.parametrize("bf16,atol,body", [(False, 1e-4, "cores"), (True, 2e-2, "sm90"),
+                                            (True, 2e-2, "cores")])
+def test_tower_kernel_matches_plain(cuda, H, bf16, atol, body):
     L = 40
     net = SirenNet(L * L, H, H, 3, device=cuda,
                    generator=torch.Generator(device=cuda).manual_seed(H))
     ll = _coords(777, seed=0, device=cuda)  # no multiple of the 64-query block
     md = torch.bfloat16 if bf16 else None
-    before = sh.siren_tower.launches
+    before = (sh.siren_tower.launches, sh.siren_tower.bf16_launches)
     with torch.no_grad():
-        got = sh.siren_tower(ll, L, net.tower_params(), matmul_dtype=md)
+        if bf16 and body == "cores":
+            got = _tower_cores_bf16(ll, L, net.tower_params())
+        else:
+            got = sh.siren_tower(ll, L, net.tower_params(), matmul_dtype=md)
         ref = sh._siren_tower_plain(ll, L, net.tower_params(), matmul_dtype=md)
     torch.cuda.synchronize()
-    assert sh.siren_tower.launches == before + 1
+    wrapped = int(body == "sm90" or not bf16)
+    assert (sh.siren_tower.launches, sh.siren_tower.bf16_launches) == (
+        before[0] + wrapped, before[1] + int(body == "sm90"))
     torch.testing.assert_close(got, ref, rtol=0, atol=atol)
+
+
+def _tower_cores_bf16(ll, L, params):
+    """`csrc/siren_tower.cu`'s bf16 form (bf16_ops = 1), launched alone:
+    no wrapper launches it."""
+    import ctypes
+
+    from range_tpu_torch.kernels._build import load_kernel_library
+
+    H = params["layers"][0]["w"].shape[1]
+    ftabT, wc, ws, deep, wl, bpack = sh._tower_f32(L, params, "analytic")
+    out = torch.empty(ll.shape[0], H, device=ll.device)
+    rc = load_kernel_library("siren_tower").siren_tower_launch(
+        ll.data_ptr(), ftabT.data_ptr(), wc.data_ptr(), ws.data_ptr(), bpack.data_ptr(),
+        deep.data_ptr(), wl.data_ptr(), out.data_ptr(), ll.shape[0], L, H,
+        len(params["layers"]) - 1, ctypes.c_float(30.0), ctypes.c_float(1.0), 1,
+        torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    return out
+
+
+# The Hopper body at every count of 16-column P blocks (L = 2..64: one to
+# four), ragged batches, one further layer or three: the same bf16 rule.
+@pytest.mark.parametrize("L", [2, 8, 21, 40, 64])
+@pytest.mark.parametrize("B,layers", [(1, 2), (37, 4), (1000, 3)])
+@pytest.mark.parametrize("H", [128, 256])
+def test_tower_sm90_every_depth(cuda, L, B, layers, H):
+    net = SirenNet(L * L, H, H, layers, device=cuda,
+                   generator=torch.Generator(device=cuda).manual_seed(L + B))
+    ll = _coords(B, seed=L, device=cuda)
+    with torch.no_grad():
+        got = sh.siren_tower(ll, L, net.tower_params(), matmul_dtype=torch.bfloat16)
+        ref = sh._siren_tower_plain(ll, L, net.tower_params(), matmul_dtype=torch.bfloat16)
+        slabs = sh._siren_tower_slabs(ll, L, sh._tower_images(L, net.tower_params(),
+                                                                "analytic"))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, rtol=0, atol=2e-2)
+    torch.testing.assert_close(got, slabs, rtol=0, atol=2e-2)
+
+
+def test_tower_sm90_plan_matches_the_kernel(cuda):
+    """`ops.sh._tower_plan`'s shared memory (the CPU tests' plans) is the
+    kernel's own at every (L, H); the combine's likewise."""
+    from range_tpu_torch.kernels._build import load_kernel_library
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    lib = load_kernel_library("siren_tower_sm90")
+    for L in range(2, 65):
+        for H in (128, 256):
+            assert lib.siren_tower_sm90_smem(L, H) == sh._tower_plan(1, L, H)["smem"]
+    assert lib.siren_tower_sm90_smem(65, 256) == -1 and lib.siren_tower_sm90_smem(40, 192) == -1
+    assert (load_kernel_library("combine_cat_sm90").combine_cat_sm90_smem()
+            == rh._combine_plan(128, 1024, 896)["smem"])
+
+
+def test_tower_wrapper_never_launches_the_f32_body_in_bf16(cuda, monkeypatch):
+    """`csrc/siren_tower.cu`'s bf16 form stays only as chip_smoke.py's
+    yardstick: the bf16 mode (every L, both widths, the flagship's encoder)
+    loads the Hopper body's library alone; the f32 mode the f32 body's."""
+    from range_tpu_torch.kernels import _build
+
+    loaded = []
+    real = _build.load_kernel_library
+
+    def spy(name):
+        loaded.append(name)
+        return real(name)
+
+    monkeypatch.setattr(_build, "load_kernel_library", spy)
+    for L, H in ((8, 128), (40, 256), (64, 128)):
+        net = SirenNet(L * L, H, H, 2, device=cuda,
+                       generator=torch.Generator(device=cuda).manual_seed(L))
+        with torch.no_grad():
+            sh.siren_tower(_coords(100, seed=L, device=cuda), L, net.tower_params(),
+                           matmul_dtype=torch.bfloat16)
+    enc = load_model("RANGE+", db_path="synthetic:5000", device="cuda", tower_matmul="bf16")
+    enc(_coords(300, seed=2, device=cuda))
+    torch.cuda.synchronize()
+    assert "siren_tower_sm90" in loaded and "siren_tower" not in loaded
+    loaded.clear()
+    net = SirenNet(64, 128, 128, 2, device=cuda, generator=torch.Generator(device=cuda))
+    with torch.no_grad():
+        sh.siren_tower(_coords(100, seed=1, device=cuda), 8, net.tower_params())
+    assert loaded == ["siren_tower"]
 
 
 def test_tower_kernel_is_forward_only(cuda):
@@ -429,11 +523,14 @@ def test_hier_kernels_match_plain(cuda, hier_bank):
     q_srt = torch.nn.functional.pad(q, (0, 0, 0, 768 - B))[order].contiguous()
     ck = dict(Ws=384, r=256, rrp=128, Dv=1024, beta=0.5, rg=384, Wg=512)
     c_args = (*parts, tails, q_srt, hb.w_sem, hb.u_sem, hb.w_geo, hb.u_geo)
-    torch.testing.assert_close(rh._combine_cat_call(*c_args, **ck),
-                               rh._combine_cat_plain(*c_args, **ck), rtol=1e-5, atol=1e-5)
+    ref = rh._combine_cat_plain(*c_args, **ck)
+    # both bodies: the TF32-split Hopper body (fast / high) and the f32 one (exact)
+    for tier in ("fast", "exact"):
+        torch.testing.assert_close(rh._combine_cat_call(*c_args, **ck, tier=tier), ref,
+                                   rtol=1e-5, atol=1e-5)
     torch.cuda.synchronize()
     assert (rh._hier_scan_call.launches, rh._hier_parts_family_call.launches,
-            rh._combine_cat_call.launches) == (n0[0] + 1, n0[1] + 2, n0[2] + 1)
+            rh._combine_cat_call.launches) == (n0[0] + 1, n0[1] + 2, n0[2] + 2)
 
 
 def test_hier_kernels_reject_f32_operands(cuda, hier_bank):
@@ -468,13 +565,15 @@ def test_flagship_main_path_launches_the_hier_kernels(cuda, hier_bank):
     enc = load_model("RANGE+", db_path=hier_bank, profile="flagship", hier_bn=128,
                      gsz_geo=16)
     coords = _coords(3000, seed=6, device=cuda)
-    n0 = (rh._hier_scan_call.launches, rh._hier_parts_family_call.launches,
-          rh._combine_cat_call.launches, sh.siren_tower.launches)
+    c = rh._combine_cat_call
+    count = lambda: (rh._hier_scan_call.launches, rh._hier_parts_family_call.launches,  # noqa
+                     c.launches, c.exact_launches, sh.siren_tower.launches,
+                     sh.siren_tower.bf16_launches)
+    n0 = count()
     out = enc(coords)
     torch.cuda.synchronize()
-    assert (rh._hier_scan_call.launches, rh._hier_parts_family_call.launches,
-            rh._combine_cat_call.launches, sh.siren_tower.launches) == \
-        (n0[0] + 1, n0[1] + 2, n0[2] + 1, n0[3] + 1)
+    # the tower and the combine on their Hopper bodies, once each
+    assert [a - b for a, b in zip(count(), n0)] == [1, 2, 1, 0, 1, 1]
     assert out.shape == (3000, 1280) and torch.isfinite(out).all()
     ref = retrieval.retrieve(out[:, 1024:], lonlat_deg_to_xyz(coords), hier_bank.bank)
     rel = (out[:, :1024] - ref).abs() / ref.abs().clamp_min(0.1)
@@ -1302,9 +1401,11 @@ def test_family_parts_variants_match_plain(cuda, hier_bank, variant, fam, quant)
         _within_terms(got[:, cols], ref[:, cols], mag[:, cols], rows_off_max=7)
 
 
-def test_combine_without_geo_lr_matches_plain(cuda, hier_bank):
+@pytest.mark.parametrize("tier", ["fast", "exact"])
+def test_combine_without_geo_lr_matches_plain(cuda, hier_bank, tier):
     """Kernel 16 with rg = 0: the geo family's rr-shape parts and its
-    full-width tail (acc_g = pg[:, :Dv] + tails_g[:, :Dv] + az @ w_geo); f32
+    full-width tail (acc_g = pg[:, :Dv] + tails_g[:, :Dv] + az @ w_geo), on
+    the TF32-split Hopper body (``fast``) and the f32 body (``exact``); f32
     products in another summation order."""
     from range_tpu_torch.ops import retrieval_hier as rh
 
@@ -1324,13 +1425,81 @@ def test_combine_without_geo_lr_matches_plain(cuda, hier_bank):
                         device=cuda)
     ck = dict(Ws=384, r=256, rrp=128, Dv=1024, beta=0.5, rg=0, Wg=1152)
     c_args = (*parts, tails, q_srt, hb.w_sem, hb.u_sem, hb.w_geo, None)
-    n0 = (rh._combine_cat_call.launches, rh._combine_cat_call.rg0_launches)
-    got = rh._combine_cat_call(*c_args, **ck)
+    c = rh._combine_cat_call
+    n0 = (c.launches, c.rg0_launches, c.exact_launches)
+    got = c(*c_args, **ck, tier=tier)
     torch.cuda.synchronize()
-    assert (rh._combine_cat_call.launches, rh._combine_cat_call.rg0_launches) == (
-        n0[0] + 1, n0[1] + 1)
+    exact = int(tier == "exact")
+    assert (c.launches, c.rg0_launches, c.exact_launches) == (
+        n0[0] + 1, n0[1] + 1 - exact, n0[2] + exact)
     torch.testing.assert_close(got, rh._combine_cat_plain(*c_args, **ck), rtol=1e-5,
                                atol=1e-5)
+
+
+def test_combine_sm90_ragged_and_cancelling_rows(cuda, hier_bank):
+    """The Hopper combine at batches of no whole 128-row block (1, 37, 700
+    padded rows) and on rows built to cancel (a pair of large opposite
+    corr terms on two nearly equal basis rows, corr columns that are
+    differences of nearly equal tails and approximations): within 1e-5 +
+    1e-5 |ref| of the plain version, the queries copied exactly."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    hb = hier_bank
+    g = torch.Generator(device=cuda).manual_seed(11)
+    ck = dict(Ws=384, r=256, rrp=128, Dv=1024, beta=0.3, rg=384, Wg=512)
+    u_sem = hb.u_sem.clone()
+    u_sem[1] = u_sem[0] * (1 + 1e-3 * torch.randn(1024, generator=g, device=cuda))
+    for Bp in (1, 37, 700):
+        ps = torch.rand(Bp, 640, generator=g, device=cuda) * 1e-2
+        pg = torch.rand(Bp, 768, generator=g, device=cuda) * 1e-2
+        tails = torch.rand(Bp, 896, generator=g, device=cuda) * 1e-2
+        ps[:, 128] += 1.0  # d_s, d_g well away from 0
+        pg[:, 128] += 1.0
+        big = 50.0 * torch.rand(Bp, generator=g, device=cuda)
+        tails[:, 0] += big
+        tails[:, 1] -= big
+        tails[:, 2:256] += 30.0
+        ps[:, 258:512] += 30.0
+        q = torch.randn(Bp, 256, generator=g, device=cuda)
+        args = (ps, pg, tails, q, hb.w_sem, u_sem, hb.w_geo, hb.u_geo)
+        got = rh._combine_cat_call(*args, **ck)
+        ref = rh._combine_cat_plain(*args, **ck)
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+        assert torch.equal(got[:, 1024:], q)
+
+
+def test_combine_routes_by_the_banks_tier(cuda, monkeypatch):
+    """retrieve_hier passes the bank's tier to the combine: at ``exact`` the
+    flagship's fused combine runs the f32 body `csrc/combine_cat.cu`
+    (counted in ``.exact_launches``), at ``fast`` and ``high`` the Hopper
+    body `csrc/combine_cat_sm90.cu`, whose library is the only combine
+    library those tiers load."""
+    from range_tpu_torch.kernels import _build
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    loaded = []
+    real = _build.load_kernel_library
+
+    def spy(name):
+        loaded.append(name)
+        return real(name)
+
+    monkeypatch.setattr(_build, "load_kernel_library", spy)
+    coords = _coords(500, seed=12, device=cuda)
+    c = rh._combine_cat_call
+    for tier in ("exact", "high", "fast"):
+        hb = _tier_bank(cuda, tier, None)
+        enc = load_model("RANGE+", db_path=hb, profile="flagship", hier_bn=128, gsz_geo=16,
+                         tier=tier)
+        loaded.clear()
+        n0 = (c.launches, c.exact_launches)
+        out = enc(coords)
+        torch.cuda.synchronize()
+        exact = int(tier == "exact")
+        assert (c.launches, c.exact_launches) == (n0[0] + 1, n0[1] + exact), tier
+        combine = {n for n in loaded if n.startswith("combine_cat")}
+        assert combine == {"combine_cat" if exact else "combine_cat_sm90"}, tier
+        assert torch.isfinite(out).all()
 
 
 @pytest.mark.parametrize("name", ["RANGE+", "RANGE"])
@@ -2890,11 +3059,15 @@ def test_tiers_serve_through_load_model(cuda, tier):
     for name, want in (("RANGE+", [1, 2, 0, 0]), ("RANGE", [1, 0, 1, 1])):
         enc = load_model(name, db_path=hb, profile="flagship", hier_bn=128, gsz_geo=16,
                          tier=tier)
-        n0, c0 = counts(), rh._combine_cat_call.launches
+        n0 = counts()
+        c0 = (rh._combine_cat_call.launches, rh._combine_cat_call.exact_launches)
         out = enc(coords)
         torch.cuda.synchronize()
         assert [a - b for a, b in zip(counts(), n0)] == want, name
-        assert rh._combine_cat_call.launches - c0 == int(name == "RANGE+")
+        # the combine: the f32 body at exact, the Hopper body at high
+        assert (rh._combine_cat_call.launches - c0[0],
+                rh._combine_cat_call.exact_launches - c0[1]) == (
+            int(name == "RANGE+"), int(name == "RANGE+" and tier == "exact"))
         assert out.shape == (3000, 1280) and torch.isfinite(out).all()
         ref = (retrieval.retrieve(out[:, 1024:], lonlat_deg_to_xyz(coords), hb.bank)
                if name == "RANGE+" else

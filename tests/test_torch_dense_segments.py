@@ -11,6 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's CPU threads under xdist)
 
 from range_tpu.bank.bank import GeoBank as JaxGeoBank
 from range_tpu.bank.bank import quantize_values as jax_quantize

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's CPU threads under xdist)
 
 from range_tpu.bank import clustered as jcl
 from range_tpu.bank.bank import GeoBank as JaxGeoBank

@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's CPU threads under xdist)
 
 import range_tpu
 from range_tpu.bank.bank import GeoBank as JaxGeoBank
@@ -40,10 +41,23 @@ def _regional_coords(locs, B, seed):
     return c.astype(np.float32)
 
 
+@pytest.fixture(scope="module")
+def flagship_cache(tmp_path_factory):
+    """The JAX bank and its flagship HierBank, built once by JAX's
+    `load_model` and saved as the hier cache that both tower modes load."""
+    jbank = JaxGeoBank.synthetic_informative(5, 3000, key_dim=256, value_dim=128,
+                                             pad_to=512, value_dtype=jnp.bfloat16)
+    cache = str(tmp_path_factory.mktemp("flagship") / "hb.npz")
+    range_tpu.load_model("RANGE+", db_path=jbank, profile="flagship", k_tiles=4, k_geo=2,
+                         hier_cache=cache, **SMALL)
+    return jbank, cache
+
+
 @pytest.mark.parametrize("tower_matmul", [None, "bf16"])
-def test_flagship_matches_jax(tmp_path, tower_matmul):
-    """JAX builds the HierBank and saves it as its hier cache; the port's
-    `load_model` with the same bank, knobs and cache path loads that archive
+def test_flagship_matches_jax(flagship_cache, tower_matmul):
+    """JAX builds the HierBank and saves it as its hier cache (once, for both
+    tower modes); the port's `load_model` with the same bank, knobs and
+    cache path loads that archive
     (the build signatures are equal) and serves through the same scan,
     selection, parts and combine.  k_tiles / k_geo are cut so that the
     selection keeps 12 / 6 of 24 tiles at B = 256 (the 3x small-batch
@@ -56,13 +70,11 @@ def test_flagship_matches_jax(tmp_path, tower_matmul):
     other way, moving the tower output by up to 2e-2 (tests/test_torch_sh.py),
     so the query part is held to 2e-2 and the retrieved part, a softmax of
     those queries, to 5e-2."""
-    jbank = JaxGeoBank.synthetic_informative(5, 3000, key_dim=256, value_dim=128,
-                                             pad_to=512, value_dtype=jnp.bfloat16)
-    cache = str(tmp_path / "hb.npz")
+    jbank, cache = flagship_cache
+    sig = th.peek_hier_build(cache)
     kw = dict(profile="flagship", k_tiles=4, k_geo=2, hier_cache=cache,
               tower_matmul=tower_matmul, **SMALL)
     jenc = range_tpu.load_model("RANGE+", db_path=jbank, **kw)
-    sig = th.peek_hier_build(cache)
     bank = geobank_from_arrays(jbank.locs_lonlat, jbank.xyz, jbank.keys_sem,
                                jbank.values, jbank.n_valid)
     enc = load_model("RANGE+", db_path=bank, device="cpu", **kw)

@@ -23,6 +23,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's CPU threads under xdist)
 from test_torch_hier import KW, _np, jbank, tbank  # noqa: F401
 from test_torch_topk import _hilo, _row_logits, _rows_agree_outside_near_ties
 

@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's CPU threads under xdist)
 
 import range_tpu
 from range_tpu.bank.bank import GeoBank as JaxGeoBank

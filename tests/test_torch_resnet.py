@@ -20,6 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's CPU threads under xdist)
 
 from range_tpu.models import resnet as jres
 from range_tpu.models import resnet_std as jstd

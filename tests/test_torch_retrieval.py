@@ -7,6 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's CPU threads under xdist)
 
 from range_tpu.bank.bank import GeoBank as JaxGeoBank
 from range_tpu.ops import retrieval as jr

@@ -11,6 +11,7 @@ same rows (the segment-sum tail).  Inputs are made from numpy seeds.
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's CPU threads under xdist)
 from test_torch_hier import GPT, KW, jbank, packed  # noqa: F401
 
 from range_tpu.ops import retrieval_hier as jh

@@ -13,6 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's CPU threads under xdist)
 
 from range_tpu.ops import sh as jsh
 from range_tpu.ops.nets import SirenNet as JaxSirenNet

@@ -17,6 +17,7 @@ import time
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's CPU threads under xdist)
 import torch.distributed as dist
 import torch.multiprocessing as mp
 

@@ -22,6 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's CPU threads under xdist)
 from test_torch_hier import _np, archive, jbank, jhb, thb  # noqa: F401
 
 from range_tpu.geometry import lonlat_deg_to_xyz as jax_xyz

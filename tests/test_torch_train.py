@@ -38,6 +38,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's CPU threads under xdist)
 
 from range_tpu.models import resnet_std as jstd
 from range_tpu.models.satclip import SatClipLocationConfig as JaxLocationConfig

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's CPU threads under xdist)
 from test_torch_hier import _within_terms, jbank, tbank  # noqa: F401
 from test_torch_two_level import B, _bf, _np, _t, jhb2, q_cat, regional, thb2  # noqa: F401
 

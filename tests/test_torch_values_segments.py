@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (torch's CPU threads under xdist)
 from test_torch_hier import GPT, KW, B, archive, jbank, jhb, packed, thb  # noqa: F401
 
 from range_tpu.bank.bank import quantize_values as jax_quantize
