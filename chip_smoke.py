@@ -178,8 +178,18 @@ SOURCES = ("siren_tower_sm90", "siren_tower", "fused_retrieval_sm90", "fused_ret
            "hier_parts_sm90", "hier_parts", "sh_times", "hier_refine", "hier_corr", "hier_cores")
 # sources whose ptxas log must show no spill and no serialized wgmma
 # (C7512: too few registers; C7514: issued in a loop or under a condition;
-# C7520: divergent code between issue and wait)
+# C7520: divergent code between issue and wait): every kernel of a source
+# named, and of the others the kernels whose mangled names match the
+# pattern.  The values kernel: its deep instances (logits over 256
+# columns); its one-pass int8 instance, <true, false>, spills a few bytes
+# (converting a step's codes holds 32 words) and is not held.  The rr
+# kernel: every instance but the rare groupings' deep one, <1, true>,
+# which spills 4 / 20 bytes at 128 registers a thread (512 threads; the
+# units path and the deep walk in one kernel: ROADMAP Queue 2, item 10 (d))
 PTXAS_CLEAN = ("hier_argmax_sm90", "siren_tower_sm90", "combine_cat_sm90")
+PTXAS_CLEAN_KERNELS = {"hier_parts_sm90": r"hier_parts_sm90_kernelIL[^E]*ELb1E",
+                       "hier_parts_family_sm90":
+                       r"hier_parts_family_sm90_kernelIL(i[02]ELb[01]E|i1ELb0E)"}
 WGMMA_WARNINGS = ("C7512", "C7514", "C7520")
 KERNELS = (("siren_tower", "siren_tower", "range_tpu/ops/sh.py:726"),
            # the tower's bf16 mode (the flagship's) on its Hopper body
@@ -242,8 +252,11 @@ CORES_ROWS = (("hier_scan", "range_tpu/ops/retrieval_hier.py:1443"),
               ("hier_parts_family", "range_tpu/ops/retrieval_hier.py:2282"),
               ("hier_parts", "range_tpu/ops/retrieval_hier.py:2515"))
 # the stats scan's deep form runs on its own kernel (its query block and
-# group tiles fit shared memory at 768 columns)
-KERNELS += tuple((f"{k}_{form}", "hier_scan_stats" if (k, form) == ("hier_scan_stats", "deep")
+# group tiles fit shared memory at 768 columns), kernels 14 and 15's on
+# their Hopper bodies' deep chains (passes of 256 columns)
+DEEP_SOURCES = {"hier_scan_stats": "hier_scan_stats", "hier_parts_family": "hier_parts_family_sm90",
+                "hier_parts": "hier_parts_sm90"}
+KERNELS += tuple((f"{k}_{form}", DEEP_SOURCES.get(k, "hier_cores") if form == "deep"
                   else "hier_cores", rep) for k, rep in CORES_ROWS for form, _ in CORES_FORMS)
 # the second bodies of the tower and the combine, each counted within its
 # wrapper's launches: (its counter, the wrapper's)
@@ -259,6 +272,8 @@ TS_M_CORR = 16  # a tail_super bank without lr_rank at the JAX defaults' k_tiles
 TRAIN_MICRO, TRAIN_ACCUM, TRAIN_STEPS = 512, 16, 2
 IMAGE = (13, 256, 256)
 RECALL_BAR = 0.999  # bench.py:190
+# a bank of keys wider than 256 columns (hier_topk's passes of 128 a step)
+WIDE_KEY_DIM, WIDE_ROWS = 512, 20_000
 
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): the bounds below
 HBM_BYTES_PER_S = 3.35e12
@@ -451,11 +466,17 @@ def _build_all(pool, jobs, t0):
             if ("Compiling entry" in line or "registers" in line or "spill" in line
                     or "warning" in line):
                 print(f"  ptxas: {line.strip()}")
-        if name in PTXAS_CLEAN:
+        if name in PTXAS_CLEAN or name in PTXAS_CLEAN_KERNELS:
             spill = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
-            bad = [line.strip() for line in log.splitlines()
-                   if any(code in line for code in WGMMA_WARNINGS)
-                   or any(int(n) for m in spill.finditer(line) for n in m.groups())]
+            held = re.compile(PTXAS_CLEAN_KERNELS.get(name, ""))
+            bad, kernel = [], ""
+            for line in log.splitlines():
+                if "Compiling entry" in line or "Function properties for" in line:
+                    kernel = line
+                if (held.search(kernel) or held.search(line)) and (
+                        any(code in line for code in WGMMA_WARNINGS)
+                        or any(int(n) for m in spill.finditer(line) for n in m.groups())):
+                    bad.append(line.strip())
             if bad:
                 raise AssertionError(f"ptxas on {name}: spills or serialized wgmma: {bad}")
 
@@ -1434,7 +1455,8 @@ def _counters() -> dict:
     counters["hier_refine_parts"] = (rh._hier_refine_call, "parts_launches")
     for k, _ in CORES_ROWS:
         for form, _ in CORES_FORMS:
-            counters[f"{k}_{form}"] = (wrappers[k], f"{form}_launches")
+            if hasattr(wrappers[k], f"{form}_launches"):  # not the parts kernels' deep forms
+                counters[f"{k}_{form}"] = (wrappers[k], f"{form}_launches")
     return counters
 
 
@@ -4481,7 +4503,9 @@ def _cores_row(report, name, errs, call, plain, flops, n_bytes, f32: bool, reps:
 
 
 def _tier_kernels(tier, form, hb, hb_ts, hb2, q, x, report, cfg) -> None:
-    """Each CUDA-core form of kernels 8, 9 and 12-15 against its plain
+    """Each CUDA-core form of kernels 8, 9 and 12-15 (at `high`, kernels 14
+    and 15 on their Hopper bodies' deep chains, then timed beside the
+    CUDA-core body: `_deep_parts_turns`) against its plain
     version at its path's shapes (B = 10,000): the flagship's scan and
     kernel 14's rr + lr shape (both families), kernel 15 lr at the RANGE
     flagship's selection, the stats scan at hier_topk's (the topk_gsz
@@ -4669,6 +4693,178 @@ def _tier_kernels(tier, form, hb, hb_ts, hb2, q, x, report, cfg) -> None:
     _cores_row(report, f"hier_refine_{form}", errs, lambda: rh._hier_refine_call(
         *ra, bm=bm, gpt_f=gpt_f, gpt_sup=gpt_u),
         lambda: rh._hier_refine_plain(q_2, idx_m, hb2.g_sem_cat, **pkw), flops, n_bytes, f32)
+    if form == "deep":  # kernels 14 and 15's Hopper bodies beside the CUDA-core body
+        _deep_parts_turns(hb, q, x, cfg)
+
+
+def _deep_parts_turns(hb, q, x, cfg) -> None:
+    """Kernels 14 (the flagship's rr + lr shape, both families) and 15 (lr
+    at RANGE's selection, the sem family) at the `high` tier on their Hopper
+    bodies' deep chains (`_hier_parts_family_call` / `_hier_parts_call`:
+    768 logit columns in passes of 256), in turns beside the CUDA-core
+    body's deep form (`_parts_family_cores` / `_parts_cores`, csrc/
+    hier_cores.cu, which only this yardstick launches), cores, Hopper,
+    Hopper, cores on CUDA events (`_turns_ms`; nothing counted), at B = 1,
+    37, 1,000 and 10,000, each batch its own request (the first b queries,
+    its plan's bm and budgets, tiles selected from the plain stats).  Each
+    held against the plain version over its b real rows (the padded rows,
+    sorted last, are dropped by the path): the terms rule, flips in at most
+    max(2, b / 100) rows; bound and share as the rows 14x / 15x count them.
+    At each batch the other `high` forms are held too (`_deep_forms`)."""
+    from range_tpu_torch.ops import retrieval_fused as rf
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    flip = ("a weight within the logits' f32 difference of a bf16 boundary rounds the "
+            "other way: one ulp of one term")
+    geo_real = rf.geo_real_cols(hb.tier)
+    gpt_s, gpt_g, Dv, sem_d = hb.bn // hb.gsz_sem, hb.bn // hb.gsz_geo, hb.value_dim, hb.sem_d
+    Ws = hb.g_sem_vw_lr.shape[1]
+    # an int8 bank's values: each row's codes and scale (its max / 127)
+    row_max = hb.values.float().abs().amax(1).clamp_min(1e-8) / 127
+    codes = ((hb.values.float() / row_max[:, None]).round().clamp(-127, 127).to(torch.int8),
+             row_max[None, :].contiguous())
+    for b in REQUESTS:
+        bm, k_tiles, k_geo, j_sem = cfg.hier_plan(b)
+        q_s, q_x = rh._pad_queries(q[:b], x[:b], bm)
+        order = rh._hybrid_order(q_x, b)
+        q_cat = rf.pack_queries(q_s, q_x, 12.0, 40.0, hb.tier)[order].contiguous()
+        Bp, cat_d = q_cat.shape
+        m_s, s_s, m_g, s_g = rh._hier_scan_stats_plain(q_cat, hb.g_sem_cat, hb.g_geo_cat,
+                                                       gpt_s=gpt_s, gpt_g=gpt_g)
+        sel = dict(t_real=hb.t_real, bm=bm, n_valid=b, mode="range")
+        idx_s = rh.select_tiles(m_s, s_s, m_g, s_g, k_tiles=k_tiles, j_sem=j_sem,
+                                j_geo=cfg.j_geo, **sel)[0]
+        idx_g = rh.select_tiles(m_g, s_g, m_s, s_s, k_tiles=k_geo, j_sem=cfg.j_geo,
+                                j_geo=j_sem, **sel)[0]
+        idx_r = rh.select_tiles(m_s, s_s, None, None, k_tiles=k_tiles, j_sem=j_sem,
+                                j_geo=cfg.j_geo, **sel)[0]
+
+        # kernel 14, both families
+        fams = [((q_cat, hb.k_cat, hb.mask_neg, idx, g_cat, vw, z),
+                 dict(sem_d=sem_d, bm=bm, bn=hb.bn, gpt=gpt_g if geo else gpt_s, geo=geo,
+                      lrr=lrr))
+                for geo, idx, g_cat, vw, z, lrr in (
+                    (False, idx_s, hb.g_sem_cat, hb.g_sem_vw_lr, hb.z_sem, hb.lr_rank),
+                    (True, idx_g, hb.g_geo_cat, hb.g_geo_vw_lr, hb.z_geo, hb.lr_geo))]
+        for a, k in fams:
+            got = rh._hier_parts_family_call(*a, **k, geo_cols=geo_real)
+            ref = rh._hier_parts_family_plain(*a, **k)
+            mag = rh._hier_parts_family_plain(*a, **k, magnitude=True)
+            _compare_terms(f"hier_parts_family_deep B={b} [{'geo' if k['geo'] else 'sem'}] "
+                           "vs plain", got[:b], ref[:b], mag[:b], flip,
+                           rows_off_max=max(2, b // 100))
+        cores_kw = dict(lr=True, values=None, scale=None, sel=False, dedup_pad=False,
+                        geo_cols=geo_real)
+        t = _turns_ms((
+            ("cores", lambda: [rh._parts_family_cores(*a, **k, **cores_kw) for a, k in fams]),
+            ("hopper", lambda: [rh._hier_parts_family_call(*a, **k, geo_cols=geo_real)
+                                for a, k in fams]),
+            ("hopper", lambda: [rh._hier_parts_family_call(*a, **k, geo_cols=geo_real)
+                                for a, k in fams]),
+            ("cores", lambda: [rh._parts_family_cores(*a, **k, **cores_kw) for a, k in fams])), 3)
+        flops = n_bytes = 0
+        for a, k in fams:
+            idx, K, gpt = a[3], a[3].shape[1], k["gpt"]
+            kf = geo_real if k["geo"] else sem_d
+            rows = idx.unique().numel() * hb.bn
+            W = a[5].shape[1]
+            flops += 2 * b * K * (hb.bn * (kf + hb.res_rank) + gpt * (kf + k["lrr"] + 1))
+            n_bytes += (rows * (cat_d * 2 + a[6].shape[1] * 2 + 4)
+                        + rows // hb.bn * gpt * (a[4].shape[1] + W) * 2
+                        + Bp * (cat_d * 2 + (a[6].shape[1] + 128 + W) * 4))
+        b_ms, b_by = _bound(n_bytes, flops, BF16_FLOPS)
+        print(f"hier_parts_family_deep B={b} K={idx_s.shape[1]} / {idx_g.shape[1]} bm={bm}: "
+              f"Hopper bodies {t['hopper']:.4f} ms, hier_cores.cu deep form {t['cores']:.4f} "
+              f"ms (CUDA events, turns cores, Hopper, Hopper, cores; "
+              f"{t['cores'] / t['hopper']:.2f}x); bound {b_ms:.4f} ms ({b_by}), share "
+              f"{b_ms / t['hopper']:.4f}")
+
+        # kernel 15 lr, the sem family
+        ma = (q_cat, hb.k_cat, hb.values, hb.value_scale, hb.mask_neg, idx_r, hb.g_sem_cat,
+              hb.g_geo_cat, hb.g_sem_vw_lr, hb.g_geo_vw)
+        mkw = dict(sem_d=sem_d, bm=bm, bn=hb.bn, gpt_s=gpt_s, gpt_g=gpt_g, lr=True, geo=False)
+        got = rh._hier_parts_call(*ma, **mkw)
+        ref = rh._hier_parts_plain(*ma, **mkw)
+        mag = rh._hier_parts_plain(*ma, **mkw, magnitude=True)
+        for name, c in (("acc_s", slice(0, Dv)), ("d_s", slice(2 * Dv, 2 * Dv + 1)),
+                        ("alr", slice(2 * Dv + 128, None))):
+            _compare_terms(f"hier_parts_deep B={b} {name} vs plain", got[:b, c], ref[:b, c],
+                           mag[:b, c], flip, rows_off_max=max(2, b // 100))
+        t = _turns_ms((("cores", lambda: rh._parts_cores(*ma, **mkw)),
+                       ("hopper", lambda: rh._hier_parts_call(*ma, **mkw)),
+                       ("hopper", lambda: rh._hier_parts_call(*ma, **mkw)),
+                       ("cores", lambda: rh._parts_cores(*ma, **mkw))), 3)
+        _deep_forms(hb, b, q_cat, idx_s, idx_r, codes, flip)
+        K = idx_r.shape[1]
+        rows = idx_r.unique().numel() * hb.bn
+        flops = 2 * b * K * (hb.bn * (sem_d + Dv) + gpt_s * (sem_d + hb.lr_rank + 1))
+        n_bytes = (rows * (sem_d * 2 + Dv * hb.values.element_size() + 4)
+                   + rows // hb.bn * gpt_s * (sem_d + Ws) * 2 + Bp * sem_d * 2
+                   + Bp * (2 * Dv + 128 + Ws) * 4)
+        b_ms, b_by = _bound(n_bytes, flops, BF16_FLOPS)
+        print(f"hier_parts_deep B={b} K={K} bm={bm}: Hopper body {t['hopper']:.4f} ms, "
+              f"hier_cores.cu deep form {t['cores']:.4f} ms (CUDA events, turns cores, "
+              f"Hopper, Hopper, cores; {t['cores'] / t['hopper']:.2f}x); bound {b_ms:.4f} ms "
+              f"({b_by}), share {b_ms / t['hopper']:.4f}")
+
+
+def _deep_forms(hb, b, q_cat, idx_s, idx_r, codes, flip) -> None:
+    """The `high` forms of kernels 14 and 15 beside the flagship's, at one
+    request's selection (the sem family, over its b real rows), each on its
+    Hopper body against the plain version (the terms rule, flips in at
+    most max(2, b / 100) rows): kernel 14's rr alone (the full-width sums),
+    rr + lr with each list's first entry repeated (dedup_pad) and over a
+    64-column sel sketch (the query's first 64 sem columns against the
+    centroids'), its value shapes (lr, plain); kernel 15 plain with the geo
+    family (the JAX defaults' launch) and lr over int8 codes of the bank's
+    values (``codes``: codes and row scales)."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    gpt_s, gpt_g, Dv, sem_d = hb.bn // hb.gsz_sem, hb.bn // hb.gsz_geo, hb.value_dim, hb.sem_d
+    bm = q_cat.shape[0] // idx_s.shape[0]
+    fam = dict(sem_d=sem_d, bm=bm, bn=hb.bn, gpt=gpt_s, geo=False)
+    rr = (q_cat, hb.k_cat, hb.mask_neg)
+    idx_d = torch.cat([idx_s[:, :1], idx_s[:, :-1]], 1).contiguous()
+    q_sel = torch.cat([q_cat, q_cat[:, :64]], 1).contiguous()
+    whole = [("", slice(None))]
+    merged = [("acc_s", slice(0, Dv)), ("acc_g", slice(Dv, 2 * Dv)),
+              ("d", slice(2 * Dv, 2 * Dv + 2)), ("alr", slice(2 * Dv + 128, None))]
+    value = [("acc", slice(0, Dv)), ("d", slice(Dv, Dv + 1)), ("alr", slice(Dv + 128, None))]
+    forms = (
+        ("hier_parts_family_deep rr", rh._hier_parts_family_call, rh._hier_parts_family_plain,
+         (*rr, idx_s, hb.g_sem_cat, hb.g_sem_vw, hb.z_sem), dict(fam, lrr=Dv, lr=False), whole),
+        ("hier_parts_family_deep rr + lr dedup_pad", rh._hier_parts_family_call,
+         rh._hier_parts_family_plain,
+         (*rr, idx_d, hb.g_sem_cat, hb.g_sem_vw_lr, hb.z_sem),
+         dict(fam, lrr=hb.lr_rank, dedup_pad=True), whole),
+        ("hier_parts_family_deep rr + lr sel", rh._hier_parts_family_call,
+         rh._hier_parts_family_plain,
+         (q_sel, hb.k_cat, hb.mask_neg, idx_s, hb.g_sem_cat[:, :64].contiguous(),
+          hb.g_sem_vw_lr, hb.z_sem), dict(fam, lrr=hb.lr_rank, sel=True), whole),
+        ("hier_parts_family_deep values lr", rh._hier_parts_family_call,
+         rh._hier_parts_family_plain,
+         (*rr, idx_s, hb.g_sem_cat, hb.g_sem_vw_lr, None),
+         dict(fam, lrr=0, lr=True, values=hb.values, scale=hb.value_scale), value),
+        ("hier_parts_family_deep values plain", rh._hier_parts_family_call,
+         rh._hier_parts_family_plain,
+         (*rr, idx_s, hb.g_sem_cat, hb.g_sem_vw, None),
+         dict(fam, lrr=0, lr=False, values=hb.values, scale=hb.value_scale), value[:2]),
+        ("hier_parts_deep plain + geo", rh._hier_parts_call, rh._hier_parts_plain,
+         (q_cat, hb.k_cat, hb.values, hb.value_scale, hb.mask_neg, idx_r, hb.g_sem_cat,
+          hb.g_geo_cat, hb.g_sem_vw, hb.g_geo_vw),
+         dict(sem_d=sem_d, bm=bm, bn=hb.bn, gpt_s=gpt_s, gpt_g=gpt_g, lr=False, geo=True),
+         merged[:3]),
+        ("hier_parts_deep lr int8", rh._hier_parts_call, rh._hier_parts_plain,
+         (q_cat, hb.k_cat, *codes, hb.mask_neg, idx_r, hb.g_sem_cat, hb.g_geo_cat,
+          hb.g_sem_vw_lr, hb.g_geo_vw),
+         dict(sem_d=sem_d, bm=bm, bn=hb.bn, gpt_s=gpt_s, gpt_g=gpt_g, lr=True, geo=False),
+         [merged[0], ("d_s", slice(2 * Dv, 2 * Dv + 1)), merged[3]]))
+    for tag, call, plain, args, kw, segs in forms:
+        got = call(*args, **kw)
+        ref, mag = plain(*args, **kw), plain(*args, **kw, magnitude=True)
+        for name, c in segs:
+            _compare_terms(f"{tag} B={b} {name} vs plain".replace("  ", " "), got[:b, c],
+                           ref[:b, c], mag[:b, c], flip, rows_off_max=max(2, b // 100))
 
 
 def _tier_fidelity(tag, out, coords, bank, mode, bar_mean, bar_p99=None):
@@ -4691,9 +4887,72 @@ def _tier_fidelity(tag, out, coords, bank, mode, bar_mean, bar_p99=None):
         raise AssertionError(f"{tag}: fidelity outside its bars")
 
 
+def wide_keys_phases(dev, gen, report) -> dict:
+    """`hier_topk` over keys wider than 256 columns (kernels 10 and 11,
+    passes of 128 columns a step): a 20,000-row informative bank of 512-d keys
+    (`GeoBank.synthetic_informative(key_dim=512)`; bn 512, gsz_sem 16,
+    gsz_geo 64, topk_gsz 8, built on the card), queries near its rows (a
+    row's key plus noise 0.3, its place jittered 3 degrees: the regional
+    batches the endpoint serves), k = 1 and 8 at B = 1,000 and 10,000,
+    each request's launches counted (the stats scan's 512 columns on its
+    deep form); the kernel's lists at each request held against the plain
+    version (`_compare_klist`, 1e-5, rows off only at near-ties) and timed
+    with their bound, recall@1 against exact_nn printed.  Adds the
+    launches to rows 10 and 11; returns each request's end-to-end ms."""
+    from range_tpu_torch import GeoBank
+    from range_tpu_torch.geometry import lonlat_deg_to_xyz
+    from range_tpu_torch.ops import retrieval
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    t0 = time.perf_counter()
+    bank = GeoBank.synthetic_informative(11, WIDE_ROWS, key_dim=WIDE_KEY_DIM, pad_to=512,
+                                         device=dev)
+    hb = rh.build_hier_bank(bank, bn=512, gsz_sem=16, gsz_geo=64, topk_gsz=8)
+    torch.cuda.synchronize()
+    print(f"wide keys: build_hier_bank ({WIDE_ROWS} rows, {WIDE_KEY_DIM}-d keys): "
+          f"{time.perf_counter() - t0:.2f} s")
+    rows = torch.randint(0, WIDE_ROWS, (BATCH,), generator=gen, device=dev)
+    q = torch.nn.functional.normalize(bank.keys_sem[rows].float() + 0.3 * torch.randn(
+        BATCH, WIDE_KEY_DIM, generator=gen, device=dev), dim=1)
+    ll = bank.locs_lonlat[rows].float() + 3.0 * torch.randn(BATCH, 2, generator=gen, device=dev)
+    x = lonlat_deg_to_xyz(torch.stack([(ll[:, 0] + 180) % 360 - 180,
+                                       ll[:, 1].clamp(-89.9, 89.9)], 1))
+    why = ("hi/lo logits in another f32 order (passes of one chain): rows off only at "
+           "near-ties")
+    e2e, launches = {}, {"hier_argmax": 0, "hier_topk": 0}
+    for b in (SMALL_BATCH, BATCH):
+        true = retrieval.exact_nn(q[:b], hb.bank)
+        args, kw = _klist_request(q, x, hb, b)
+        K = args[4].shape[1]
+        plan = rh._klist_plan(args[0].shape[0], kw["bm"], K, kw["bn"], kw["Dk"], 8)
+        for k in (1, 8):
+            name = "hier_argmax" if k == 1 else "hier_topk"
+            tag = (f"wide keys {name} k={k} B={b} Dk={kw['Dk']} K={K} bm={kw['bm']} "
+                   f"(plan {tuple(plan)})")
+            _compare_klist(f"{tag} vs plain", rh._sort_klist(*_klist_launch(args, kw, k)),
+                           rh._sort_klist(*rh._hier_klist_plain(*args, k=k, **kw)),
+                           args[0], args[1], hb, 1e-5, why)
+            ms = _cuda_ms(lambda: _klist_launch(args, kw, k), 5)
+            b_ms, b_by = _klist_bound(args, kw, b, k)
+            print(f"{tag}: kernel {ms:.4f} ms (CUDA events, with its fold), bound {b_ms:.4f} "
+                  f"ms ({b_by}), share {b_ms / ms:.4f}")
+            call = functools.partial(rh.hier_topk, q[:b], x[:b], hb, k_tiles=TOPK_K, k=k)
+            out, got = _drive(f"wide keys hier_topk k={k} B={b}", call,
+                              {"hier_scan_stats": 1, "hier_scan_stats_deep": 1, name: 1})
+            launches[name] += got[name]
+            top = out if k == 1 else out[:, 0]
+            print(f"wide keys hier_topk k={k} B={b}: recall@1 against exact_nn "
+                  f"{(top == true).float().mean().item():.5f}")
+            e2e[f"wide keys hier_topk k={k} B={b}"] = _host_ms(call, 3)
+    for name, n in launches.items():
+        report[name]["launches"] += n
+    return e2e
+
+
 def tiers_phases(dev, gen, report, bank, enc) -> dict:
     """Hierarchical banks at the `exact` and `high` tiers, served by the
-    CUDA-core body (`csrc/hier_cores.cu`): for each tier the flagship,
+    CUDA-core body (`csrc/hier_cores.cu`; at `high` kernels 14 and 15 by
+    their Hopper bodies' deep chains): for each tier the flagship,
     tail_super and two-level HierBanks of the informative bank, built on
     the card; each
     CUDA-core form against its plain version (`_tier_kernels`); RANGE+ and
@@ -4737,18 +4996,24 @@ def tiers_phases(dev, gen, report, bank, enc) -> dict:
         with torch.no_grad():
             _tier_kernels(tier, form, hb, hb_ts, hb2, q, x, report, enc.model.config)
 
-        c, cf = f"_{form}", {}  # the CUDA-core counters of a request
+        c, deep = f"_{form}", form == "deep"  # the CUDA-core counters of a request
         exact_c = {"combine_cat_exact": 1} if tier == "exact" else {}  # the f32 body
         scan = {"hier_scan": 1, "hier_scan" + c: 1}
         stats = {"hier_scan_stats": 1, "hier_scan_stats" + c: 1}
+        # kernels 14 and 15: the CUDA-core body at exact; at high their Hopper
+        # bodies' deep chains, counted as at fast (the rr + lr shape, plain)
+        fam2 = {"hier_parts_family": 2} if deep else {"hier_parts_family" + c: 2}
+
+        def parts(plain: bool) -> dict:
+            return ({"hier_parts": 1, **({"hier_parts_plain": 1} if plain else {})} if deep
+                    else {"hier_parts": 1, "hier_parts" + c: 1})
         drives = {}
         plus = load_model("RANGE+", db_path=hb, profile="flagship", tier=tier)
         rng = load_model("RANGE", db_path=hb, profile="flagship", tier=tier)
         requests = {
-            "flagship": (plus, {"siren_tower": 1, "siren_tower_bf16": 1, **scan,
-                                "hier_parts_family" + c: 2, "combine_cat": 1, **exact_c}),
-            "RANGE flagship": (rng, {"siren_tower": 1, **stats, **scan, "hier_parts": 1,
-                                     "hier_parts" + c: 1})}
+            "flagship": (plus, {"siren_tower": 1, "siren_tower_bf16": 1, **scan, **fam2,
+                                "combine_cat": 1, **exact_c}),
+            "RANGE flagship": (rng, {"siren_tower": 1, **stats, **scan, **parts(False)})}
         for name, (enc_t, want) in requests.items():
             out, drives[name] = _drive(f"{tier} {name} B={BATCH}", lambda: enc_t(coords), want)
             if name == "flagship":
@@ -4782,22 +5047,21 @@ def tiers_phases(dev, gen, report, bank, enc) -> dict:
         dflt = load_model("RANGE+", db_path=bank, retrieval="hier", tier=tier)
         out, drives["defaults"] = _drive(
             f"{tier} RANGE+ at the JAX defaults B={BATCH}", lambda: dflt(cs),
-            {"siren_tower": 1, **scan, "hier_parts": 1, "hier_parts" + c: 1})
+            {"siren_tower": 1, **scan, **parts(True)})
         _tier_fidelity(f"{tier} RANGE+ at the JAX defaults", out, cs, bank, "range+", 0.12)
         e2e[f"{tier} RANGE+ at the JAX defaults"] = _host_ms(lambda: dflt(cs), 3)
         ts = load_model("RANGE+", db_path=hb_ts, profile="flagship", tail_super=TAIL_SUPER,
                         m_corr=M_CORR, tier=tier)
         out, drives["tail_super"] = _drive(
             f"{tier} tail_super flagship B={BATCH}", lambda: ts(cs),
-            {"siren_tower": 1, **scan, "hier_parts_family" + c: 2, "hier_corr": 1,
-             "hier_corr" + c: 1, "combine_cat": 1, **exact_c})
+            {"siren_tower": 1, **scan, **fam2, "hier_corr": 1, "hier_corr" + c: 1,
+             "combine_cat": 1, **exact_c})
         _tier_fidelity(f"{tier} tail_super flagship", out, cs, bank, "range+", 0.04, 0.165)
         two = load_model("RANGE+", db_path=hb2, retrieval="hier", gsz_super=GSZ_SUPER,
                          tier=tier)
         out, drives["two_level"] = _drive(
             f"{tier} two-level feature path B={BATCH}", lambda: two(cs),
-            {"siren_tower": 1, **scan, "hier_refine": 1, "hier_refine" + c: 1,
-             "hier_parts": 1, "hier_parts" + c: 1})
+            {"siren_tower": 1, **scan, "hier_refine": 1, "hier_refine" + c: 1, **parts(True)})
         _tier_fidelity(f"{tier} two-level feature path", out, cs, bank, "range+", 0.12)
         with torch.no_grad():
             qs = two.model.query_embedding(cs).float()
@@ -4812,8 +5076,9 @@ def tiers_phases(dev, gen, report, bank, enc) -> dict:
             raise AssertionError(f"{tier} two-level hier_topk recall@1 {rec2:.5f} < 0.99")
         del dflt, ts, two
         for k in CORES_ROWS:
-            report[f"{k[0]}{c}"]["launches"] = sum(d.get(f"{k[0]}{c}", 0)
-                                                   for d in drives.values())
+            # kernels 14 and 15 at high: their Hopper bodies' launches in these drives
+            key = k[0] if deep and k[0] in ("hier_parts_family", "hier_parts") else k[0] + c
+            report[f"{k[0]}{c}"]["launches"] = sum(d.get(key, 0) for d in drives.values())
         report["combine_cat_exact"]["launches"] += sum(d["combine_cat_exact"]
                                                        for d in drives.values())
         del hb, hb_ts, hb2
@@ -4890,6 +5155,7 @@ def main() -> int:
     pruned_ms = timed("pruned", pruned_phases, dev, gen, report, bank)
     del hb
     torch.cuda.empty_cache()
+    wide_ms = timed("wide_keys", wide_keys_phases, dev, gen, report)
     tiers_ms = timed("tiers", tiers_phases, dev, gen, report, bank, enc)
     del enc, bank
     torch.cuda.empty_cache()
@@ -4902,7 +5168,7 @@ def main() -> int:
           + ", ".join(f"{k} {ms:.3f} ms" for k, ms in {**knob_ms, **gsz4_ms, **step_ms,
                                                         **odd_ms}.items()) + ", "
           + ", ".join(f"{k} {ms:.3f} ms" for k, ms in pruned_ms.items()) + ", "
-          + ", ".join(f"{k} {ms:.3f} ms" for k, ms in tiers_ms.items())
+          + ", ".join(f"{k} {ms:.3f} ms" for k, ms in {**tiers_ms, **wide_ms}.items())
           + f"; SatCLIP training step ({TRAIN_ACCUM} x {TRAIN_MICRO}) {step_s:.3f} s")
 
     kernels = [dict(name=k, route="cuda", source=f"range_tpu_torch/csrc/{src}.cu",

@@ -82,7 +82,18 @@
 // step (the box loads 64 rows, the columns past the tile are skipped).  A
 // stage is freed by an arrive of every consumer warp; the producer refills
 // it then.  bm = 64: 64 queries a block, warpgroup 1 idle.  One kernel
-// instance for each k (1..8) and each count of 64-column key boxes.  Every
+// instance for each k (1..8) and each count of 64-column key boxes (1..8).
+// Keys wider than 256 columns (5 to 8 boxes) take each step in 3 or 4
+// passes of 128 columns (2 boxes; the last what is left), a ring item
+// each: the pass's kh and kl boxes through the ring, its ql boxes from the
+// block's resident ones, its qh fragments loaded from device memory (L2)
+// for the pass; one accumulator chain runs through them all, so a row's
+// logit is one f32 chain, summed pass by pass (qh kh, qh kl, ql kh over
+// the first 128 columns, then the next).  A stage holds one pass's boxes
+// (32 KB for both halves of khl), so 128 queries share a block up to 512
+// columns (passes of 256 left room for 64: each key byte read from L2
+// twice as often).  At up to 4 boxes the plan, the stages and the sums are
+// those of one pass.  Every
 // wgmma issue sits between its fence and a wait for all groups, with no
 // divergent code between; walk positions advance by counters.  A wait on a
 // barrier that never completes traps after ~10 s instead of hanging.
@@ -102,6 +113,16 @@ constexpr int BOXB = BN * 128;    // one [64 rows][64 bf16] swizzled box: 8 KB
 constexpr int MASKB = BN * 4;     // a step's mask values
 constexpr int SCRB = 16 * 32 * 4; // a warp's scratch: a row's 16 columns, 32 lanes
 constexpr float NEG = -1e30f;     // the running list's initial score (`NEG`)
+constexpr int PASS_BOXES = 4;     // key boxes a step takes in one pass: 256 columns
+constexpr int DEEP_BOXES = 2;     // past them, key boxes of a pass: 128 columns
+constexpr int MAX_BOXES = 8;      // key widths up to 512 columns: four passes
+
+// Key boxes of one pass of a step (a ring stage's), and passes a step, at a
+// key width of KB boxes
+__host__ __device__ constexpr int pass_boxes(int kb) { return kb <= PASS_BOXES ? kb : DEEP_BOXES; }
+__host__ __device__ constexpr int n_passes(int kb) {
+  return (kb + pass_boxes(kb) - 1) / pass_boxes(kb);
+}
 
 struct Prm {
   const __nv_bfloat16* q2;  // [Bp, 2 Dk]: qh is its first Dk columns
@@ -111,14 +132,16 @@ struct Prm {
   uint32_t ring, stage, kl, mask, scr, bars, total;  // shared-memory offsets and size
 };
 
-// Offsets from the 1024-byte aligned base: each query half's ql boxes, the
-// ring's S stages of [kh boxes | kl boxes], their masks, each consumer
-// warp's scratch (16 x 32 floats), the barriers (bq, full[S], empty[S]);
-// `_klist_smem` in ops/retrieval_hier.py mirrors it.
+// Offsets from the 1024-byte aligned base: each query half's ql boxes (all
+// kb of them), the ring's S stages of [kh boxes | kl boxes] of one pass
+// (pass_boxes(kb) each), their masks, each consumer warp's scratch (16 x 32
+// floats), the barriers (bq, full[S], empty[S]); `_klist_smem` in
+// ops/retrieval_hier.py mirrors it.
 __host__ inline Prm layout(Prm P, int kb) {
+  const int kbs = pass_boxes(kb);
   P.ring = (uint32_t)(P.halves * kb * BOXB);
-  P.stage = (uint32_t)(2 * kb * BOXB);
-  P.kl = (uint32_t)(kb * BOXB);
+  P.stage = (uint32_t)(2 * kbs * BOXB);
+  P.kl = (uint32_t)(kbs * BOXB);
   P.mask = P.ring + P.S * P.stage;
   P.scr = P.mask + P.S * MASKB;
   P.bars = P.scr + P.halves * 4 * SCRB;
@@ -239,33 +262,93 @@ struct Maps {
   const CUtensorMap *tql, *tkh, *tkl, *tm;
 };
 
+// One pass of a step's logits chain: key boxes [PB PI, + NB) of the stage
+// at st (kh, then kl at st + P.kl; PB = pass_boxes(KB)) against the qh
+// fragments a of the same columns and the resident ql boxes at qa, into acc
+// (fresh at the first pass: one f32 chain a row over every pass).
+template <int KB, int PI>
+__device__ __forceinline__ void chain_pass(float (&acc)[32],
+                                           const uint32_t (&a)[4 * pass_boxes(KB)][4],
+                                           uint32_t st, uint32_t kl, uint32_t qa) {
+  constexpr int PB = pass_boxes(KB);
+  constexpr int NB = KB - PB * PI < PB ? KB - PB * PI : PB;
+  constexpr int KS = 4 * NB;
+  const uint32_t qp = qa + PB * PI * BOXB;  // this pass's ql boxes
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)  // qh . kh
+    wgmma_rs_n64(acc, a[ks], desc_k128(st + (ks >> 2) * BOXB + (ks & 3) * 32),
+                 PI > 0 || ks > 0 ? 1 : 0);
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)  // qh . kl
+    wgmma_rs_n64(acc, a[ks], desc_k128(st + kl + (ks >> 2) * BOXB + (ks & 3) * 32), 1);
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)  // ql . kh
+    wgmma_ss_n64(acc, desc_k128(qp + (ks >> 2) * BOXB + (ks & 3) * 32),
+                 desc_k128(st + (ks >> 2) * BOXB + (ks & 3) * 32), 1);
+  wgmma_commit();
+  wgmma_wait0();
+  fence_regs(acc);
+}
+
+// Pass `pass` (a constant where the pass loop is unrolled) of chain_pass.
+template <int KB>
+__device__ __forceinline__ void chain_any(int pass, float (&acc)[32],
+                                          const uint32_t (&a)[4 * pass_boxes(KB)][4],
+                                          uint32_t st, uint32_t kl, uint32_t qa) {
+  constexpr int NP = n_passes(KB);
+  if (pass == 0) {
+    chain_pass<KB, 0>(acc, a, st, kl, qa);
+  } else if constexpr (NP > 1) {
+    if (pass == 1) {
+      chain_pass<KB, 1>(acc, a, st, kl, qa);
+    } else if constexpr (NP > 2) {
+      if (pass == 2) {
+        chain_pass<KB, 2>(acc, a, st, kl, qa);
+      } else if constexpr (NP > 3) {
+        chain_pass<KB, 3>(acc, a, st, kl, qa);
+      }
+    }
+  }
+}
+
 // Warpgroup `wg` of a block: the 64 query rows of its half against every
-// step of the block's segment [lo, lo + n) of its list `lst`.
+// step of the block's segment [lo, lo + n) of its list `lst`.  A key width
+// of KB > PASS_BOXES boxes takes each step in NP = 3 or 4 passes of
+// DEEP_BOXES boxes (128 columns; the last of what is left), an item of
+// the ring each, the accumulator carried from one to the next; the qh
+// fragments of a pass are loaded for it (the rows' qh over every column
+// would not fit the registers).
 template <int KL, int KB>
 __device__ __forceinline__ void consume(const Prm& P, const Maps& M, uint32_t base, int q0,
                                         const int* lst, int lo, int n, int wg) {
-  constexpr int KS = 4 * KB;  // k16 steps of each of the chain's three parts
+  constexpr int NP = n_passes(KB);      // passes a step
+  constexpr int KBS = pass_boxes(KB);   // key boxes of a stage
+  constexpr int KS = 4 * KBS;  // k16 steps of a pass's three parts
+  static_assert(NP <= 4, "four passes at most");
   const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const bool producer = threadIdx.x == 0;
   const uint32_t bq = base + P.bars, full = bq + 8, empty = full + 8 * P.S;
-  const int n_items = n * P.spt;
+  const int n_items = n * P.spt * NP;
 
-  // the producer's walk: the next item to load (its tile slot and step)
-  int lj = 0, ls = 0, li = 0;
+  // the producer's walk: the next item to load (its tile slot, step, pass)
+  int lj = 0, ls = 0, lp = 0, li = 0;
   auto load = [&](int stg) {
     const int row = __ldg(lst + lj) * P.bn + ls * BN;
+    const int b0 = KBS * lp, nb = min(KB - b0, KBS);
     const uint32_t st = base + P.ring + stg * P.stage, f = full + 8 * stg;
-    mbar_expect_tx(f, 2 * KB * BOXB + MASKB);
-#pragma unroll
-    for (int i = 0; i < KB; ++i) tma_2d(st + i * BOXB, M.tkh, BOX * i, row, f);
-#pragma unroll
-    for (int i = 0; i < KB; ++i) tma_2d(st + P.kl + i * BOXB, M.tkl, BOX * i, row, f);
+    mbar_expect_tx(f, 2 * nb * BOXB + MASKB);
+    for (int i = 0; i < nb; ++i) tma_2d(st + i * BOXB, M.tkh, BOX * (b0 + i), row, f);
+    for (int i = 0; i < nb; ++i) tma_2d(st + P.kl + i * BOXB, M.tkl, BOX * (b0 + i), row, f);
     tma_1d(base + P.mask + stg * MASKB, M.tm, row, f);
     ++li;
-    if (++ls == P.spt) {
-      ls = 0;
-      ++lj;
+    if (++lp == NP) {
+      lp = 0;
+      if (++ls == P.spt) {
+        ls = 0;
+        ++lj;
+      }
     }
   };
   if (producer) {
@@ -278,21 +361,22 @@ __device__ __forceinline__ void consume(const Prm& P, const Maps& M, uint32_t ba
   }
   __syncwarp();
 
-  // qh as register fragments: rows r and r + 8 of the warp's 16, columns
-  // 16 ks + 2t (+1) and + 8; zero past Dk
+  // qh as register fragments of a pass: rows r and r + 8 of the warp's 16,
+  // columns 64 KBS pass + 16 ks + 2t (+1) and + 8; zero past Dk
   uint32_t a[KS][4];
-  {
-    const __nv_bfloat16* r0 = P.q2 + (size_t)(q0 + wg * BM + 16 * warp + g) * P.ld2;
-    const __nv_bfloat16* r1 = r0 + 8 * (size_t)P.ld2;
+  const __nv_bfloat16* r0 = P.q2 + (size_t)(q0 + wg * BM + 16 * warp + g) * P.ld2;
+  const __nv_bfloat16* r1 = r0 + 8 * (size_t)P.ld2;
+  auto load_a = [&](int pass) {
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks) {
-      const int c = 16 * ks + 2 * t;
+      const int c = KBS * BOX * pass + 16 * ks + 2 * t;
       a[ks][0] = ld_pair(r0 + c, c < P.Dk);
       a[ks][1] = ld_pair(r1 + c, c < P.Dk);
       a[ks][2] = ld_pair(r0 + c + 8, c + 8 < P.Dk);
       a[ks][3] = ld_pair(r1 + c + 8, c + 8 < P.Dk);
     }
-  }
+  };
+  if constexpr (NP == 1) load_a(0);
   const uint32_t qa = base + wg * KB * BOXB;  // this warpgroup's ql boxes
   // this warp's scratch: a row's 16 values a step, [column][lane]
   float* scr = reinterpret_cast<float*>(__cvta_shared_to_generic(base + P.scr)) +
@@ -319,24 +403,29 @@ __device__ __forceinline__ void consume(const Prm& P, const Maps& M, uint32_t ba
   const int qrow = q0 + wg * BM + 16 * warp + g + 8 * (t & 1);  // the row thread t < 2 writes
 
   int j = 0, s = 0, stg = 0, ph = 0;  // the consumers' walk and ring position
-  for (int it = 0; it < n_items; ++it) {
-    const uint32_t st = base + P.ring + stg * P.stage;
-    mbar_wait(full + 8 * stg, ph);
+  const int n_steps = n * P.spt;
+  for (int it = 0; it < n_steps; ++it) {
     float acc[32];
-    wgmma_fence();
 #pragma unroll
-    for (int ks = 0; ks < KS; ++ks)  // qh . kh
-      wgmma_rs_n64(acc, a[ks], desc_k128(st + (ks >> 2) * BOXB + (ks & 3) * 32), ks > 0 ? 1 : 0);
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks)  // qh . kl
-      wgmma_rs_n64(acc, a[ks], desc_k128(st + P.kl + (ks >> 2) * BOXB + (ks & 3) * 32), 1);
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks)  // ql . kh
-      wgmma_ss_n64(acc, desc_k128(qa + (ks >> 2) * BOXB + (ks & 3) * 32),
-                   desc_k128(st + (ks >> 2) * BOXB + (ks & 3) * 32), 1);
-    wgmma_commit();
-    wgmma_wait0();
-    fence_regs(acc);
+    for (int pass = 0; pass + 1 < NP; ++pass) {  // the passes but the last: released at once
+      load_a(pass);
+      mbar_wait(full + 8 * stg, ph);
+      chain_any<KB>(pass, acc, a, base + P.ring + stg * P.stage, P.kl, qa);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * stg);
+      if (producer && li < n_items) {
+        mbar_wait(empty + 8 * stg, ph);
+        load(stg);
+      }
+      __syncwarp();
+      if (++stg == P.S) {
+        stg = 0;
+        ph ^= 1;
+      }
+    }
+    if constexpr (NP > 1) load_a(NP - 1);
+    mbar_wait(full + 8 * stg, ph);
+    chain_any<KB>(NP - 1, acc, a, base + P.ring + stg * P.stage, P.kl, qa);
     // accumulator element 4 jj + 2 e2 + e is row g + 8 e2, column 8 jj + 2t + e
     const float* mk = reinterpret_cast<const float*>(
         __cvta_shared_to_generic(base + P.mask + stg * MASKB));
@@ -521,7 +610,11 @@ cudaError_t run(int kb, const CUtensorMap& tql, const CUtensorMap& tkh, const CU
   const auto kernel = kb == 1   ? hier_klist_sm90_kernel<KL, 1>
                       : kb == 2 ? hier_klist_sm90_kernel<KL, 2>
                       : kb == 3 ? hier_klist_sm90_kernel<KL, 3>
-                                : hier_klist_sm90_kernel<KL, 4>;
+                      : kb == 4 ? hier_klist_sm90_kernel<KL, 4>
+                      : kb == 5 ? hier_klist_sm90_kernel<KL, 5>
+                      : kb == 6 ? hier_klist_sm90_kernel<KL, 6>
+                      : kb == 7 ? hier_klist_sm90_kernel<KL, 7>
+                                : hier_klist_sm90_kernel<KL, 8>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P.total);
   if (err != cudaSuccess) return err;
@@ -537,7 +630,7 @@ int launch(const void* q2, const void* ql, const void* khl, const void* mask, co
            int k, int bmb, int n_seg, int S, void* stream) {
   if (Bp <= 0) return 0;
   if (k < 1 || k > 8 || K < 1 || bm <= 0 || bm % BM || Bp % bm || bn < 32 || bn % 32 ||
-      N < bn || N % bn || Dk < 8 || Dk > 256 || Dk % 8 || (bmb != BM && bmb != 2 * BM) ||
+      N < bn || N % bn || Dk < 8 || Dk > MAX_BOXES * BOX || Dk % 8 || (bmb != BM && bmb != 2 * BM) ||
       bm % bmb || n_seg < 1 || n_seg > K || S < 2 || S > 4)
     return (int)cudaErrorInvalidValue;
   const void* ptrs[] = {q2, ql, khl, mask, idx, scores, rows, work};
@@ -591,7 +684,7 @@ int launch(const void* q2, const void* ql, const void* khl, const void* mask, co
 }  // namespace
 
 // q2 [Bp, 2 Dk], ql [Bp, Dk], khl [N, 2 Dk] bf16 (Dk a multiple of 8, at
-// most 256); mask [N] f32; idx [Bp / bm, K] int32 (tiles < N / bn; bm a
+// most 512: over 256 columns in passes of 128, 3 or 4); mask [N] f32; idx [Bp / bm, K] int32 (tiles < N / bn; bm a
 // multiple of 64 dividing Bp, bn of 32 dividing N).  The plan
 // (`_klist_plan`): bmb = 64 or 128 queries a block (128 only where it
 // divides bm), n_seg segments of each list (1 <= n_seg <= K), S = 2..4 ring

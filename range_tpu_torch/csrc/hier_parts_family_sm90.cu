@@ -89,6 +89,29 @@
 // C7520).  No block-wide barrier in the walk; ring positions, tile, chunk
 // and group ends advance by counters (no division on the logits' chain).
 //
+// Deep logits (the `high` tier's 768 sem columns, wide-key banks at `fast`:
+// row or group logits over more than DEEP_BOXES = 4 boxes, up to 2,048
+// columns).  The query block over every column stays resident where it
+// fits (96 KB at 768), so a ring stage holding a whole step would not fit
+// beside it:
+// each step becomes np + 1 ring items, np passes of at most 4 key boxes
+// (256 columns) each, then its payload (the z boxes and the mask), in
+// stages of one pass's boxes (33 KB).  The logits warpgroup carries the
+// accumulator from pass to pass (fresh at the first), so a row's logit is
+// one f32 chain of wgmma over every column; the az warpgroups wait and
+// release the passes (every consumer warp releases every stage, as
+// before) and read the payload.  The group logits likewise take their
+// chunk's centroids in passes of 4 boxes through the centroid buffer,
+// each pass loaded once every warp is done with the one before.  Where
+// the query block over every column does not fit (past 768 columns at the
+// flagship's grouping), its first `res` boxes (a multiple of 4) stay
+// resident and the columns past them take passes of 2 boxes whose 2 query
+// boxes ride the ring stage beside the key boxes (row logits) or a buffer
+// of their own beside the centroids (group logits): `deep_pass`,
+// sm90_common.cuh.  The deep instances are kernels of their own (DEEP):
+// the others compile as before.  The rounding points, the group walk and
+// the segments are those of the one-pass kernel.
+//
 // Segments.  The plan (ops/retrieval_hier._parts_plan, a function of the
 // shape alone) cuts each list into n_seg segments of whole tiles, enough
 // blocks to fill the card's 132 SMs, none over 12,800 rows (one wgmma
@@ -109,6 +132,8 @@
 // barrier that never completes traps after ~10 s instead of hanging the
 // card.
 
+#include <algorithm>
+
 #include "sm90_common.cuh"
 
 namespace {
@@ -121,6 +146,9 @@ constexpr int THREADS = 512;    // four warpgroups
 constexpr int BOXB = BM * 128;  // one 64-column box of 64 rows: 8 KB
 constexpr int PST = BN / 16 * 2048;  // one p tile: [4 k16 blocks][64 rows][32 B]
 constexpr int PASS_BOXES = 8;   // alr boxes of 64 columns a pass: 2 a warpgroup
+constexpr int DEEP_BOXES = DEEP_PASS;  // logit boxes of one pass of a deep chain: 256 columns
+constexpr int MAX_BOXES = 32;   // logit columns at most: 2,048
+constexpr int SQ = DEEP_STREAM * BOXB;  // a streamed pass's query boxes within its stage
 constexpr float CLAMP2 = 86.0f;
 enum { K_COMMON, K_RARE, K_DIRECT };  // the kernel's instances (`groups_any`)
 
@@ -142,6 +170,9 @@ struct Prm {
   int n_qb, n_seg, K, bm, bn, gpt, gsz, dedup;
   int kb, kbg, share, nz;   // boxes: logits, group logits (share: the query block's), z
   int ks, ksg;              // k16 steps of the row logits and of the group logits
+  int np, npg;              // passes of the row and of the group logits (1: all at once)
+  int qres, gres;           // query and group query boxes resident (deep: the rest stream)
+  int nsub;                 // ring items a step: np key passes, then (deep) the payload
   int EG, NG, chunks, chunk_steps, gp16;
   int eg_last, cs_last;      // groups and steps of a tile's last chunk
   int lu, nu, upg;          // units of 2^lu rows: nu a step, upg a group
@@ -153,6 +184,7 @@ struct Prm {
   float asign;              // +1: alr; -1: [acc | d] -= D @ vw
   int abox, pb, n_pass, S, S2;
   uint32_t q, qg, ring, stage, kz, msk, p, g, e, cnt, us, sm, d, lst, bars, total;
+  uint32_t gqs;             // a streamed group pass's query boxes (past the centroids)
 };
 
 // One block's share: its query block and segment, its list entries, and
@@ -227,29 +259,67 @@ __device__ __forceinline__ void wgmma_t(float (&d)[N / 2], uint64_t a, uint64_t 
 // columns past the width zero-filled).
 __host__ __device__ constexpr int k16_steps(int width) { return width <= 16 ? 1 : 4 * ((width + 63) / 64); }
 
-// ---- the ring's producer: step `row`'s key boxes, z boxes and mask into
-// stage s (a lane of warpgroup 3)
-__device__ __forceinline__ void load_step(const Prm& P, const Blk& b, const CUtensorMap* tk,
-                                          const CUtensorMap* tz, const CUtensorMap* tm, int row,
-                                          int s) {
+// ---- the ring's producer: ring item `sub` of step `row` into stage s (a
+// lane of warpgroup 3): the step's key boxes, z boxes and mask; deep (np >
+// 1): a pass's key boxes (sub < np; a streamed pass's query boxes SQ
+// bytes in), or the payload, z boxes and mask
+template <bool DEEP>
+__device__ __forceinline__ void load_step(const Prm& P, const Blk& b, const CUtensorMap* tq,
+                                          const CUtensorMap* tk, const CUtensorMap* tz,
+                                          const CUtensorMap* tm, int row, int sub, int s) {
   const uint32_t st = b.base + P.ring + s * P.stage, full = b.full + 8 * s;
-  mbar_expect_tx(full, (P.kb + P.nz) * BOXB + BN * 4);
-  for (int i = 0; i < P.kb; ++i) tma_2d(st + i * BOXB, tk, BOX * i, row, full);
+  if (DEEP && P.np > 1 && sub < P.np) {
+    int b0, nb;
+    const bool sq = deep_pass(sub, P.kb, P.qres, b0, nb);
+    mbar_expect_tx(full, (sq ? 2 : 1) * nb * BOXB);
+    for (int i = 0; i < nb; ++i) tma_2d(st + i * BOXB, tk, BOX * (b0 + i), row, full);
+    if (sq)
+      for (int i = 0; i < nb; ++i) tma_2d(st + SQ + i * BOXB, tq, BOX * (b0 + i), b.qb * BM, full);
+    return;
+  }
+  const int kb = DEEP && P.np > 1 ? 0 : P.kb;
+  mbar_expect_tx(full, (kb + P.nz) * BOXB + BN * 4);
+  for (int i = 0; i < kb; ++i) tma_2d(st + i * BOXB, tk, BOX * i, row, full);
   tma_3d(st + P.kz, tz, 0, row, 0, full);
   tma_1d(st + P.msk, tm, row, full);
 }
 
-// The centroids of chunk c of list tile `tile` (warpgroup 2's first thread)
-__device__ __forceinline__ void load_g(const Prm& P, const Blk& b, const CUtensorMap* tg, int tile,
-                                       int c) {
+// The centroids of chunk c of list tile `tile` (warpgroup 2's first
+// thread): every box, or (DEEP, npg > 1) pass `pass`'s of them, with a
+// streamed pass's group query boxes (tqg) into their buffer
+template <bool DEEP>
+__device__ __forceinline__ void load_g(const Prm& P, const Blk& b, const CUtensorMap* tg,
+                                       const CUtensorMap* tqg, int tile, int c, int pass) {
   const int row = tile * P.gpt + c * P.EG;
-  mbar_expect_tx(b.gbar, P.kbg * P.EG * 128);
-  for (int i = 0; i < P.kbg; ++i)
-    tma_2d(b.base + P.g + i * P.EG * 128, tg, BOX * i, row, b.gbar);
+  int b0 = 0, nb = P.kbg;
+  const bool sq = DEEP && P.npg > 1 && deep_pass(pass, P.kbg, P.gres, b0, nb);
+  mbar_expect_tx(b.gbar, nb * (P.EG * 128 + (sq ? BOXB : 0)));
+  for (int i = 0; i < nb; ++i)
+    tma_2d(b.base + P.g + i * P.EG * 128, tg, BOX * (b0 + i), row, b.gbar);
+  if (sq)
+    for (int i = 0; i < nb; ++i)
+      tma_2d(b.base + P.gqs + i * BOXB, tqg, BOX * (b0 + i), b.qb * BM, b.gbar);
 }
 
 // ---- warpgroup 0, the logits
+// sc (+)= the query boxes at qa . the stage's key boxes at kst over KS k16
+// steps, fresh at `first`
 template <int KS>
+__device__ __forceinline__ void row_chain(float (&sc)[BN / 2], uint32_t qa, uint32_t kst,
+                                          bool first) {
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    const uint32_t off = (ks & 3) * 32;  // k16 step within the 128-byte row
+    wgmma_ss_n64(sc, desc_k128(qa + (ks >> 2) * BOXB + off),
+                 desc_k128(kst + (ks >> 2) * BOXB + off), first && ks == 0 ? 0 : 1);
+  }
+  wgmma_commit();
+  wgmma_wait0();
+  fence_regs(sc);
+}
+
+template <int KS, bool DEEP>
 __device__ __forceinline__ void logits(const Prm& P, const Blk& b, int steps) {
   const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -259,19 +329,28 @@ __device__ __forceinline__ void logits(const Prm& P, const Blk& b, int steps) {
   int sub = 0;  // the step within its tile
   mbar_wait(b.bq, 0);
   for (int it = 0; it < steps; ++it) {
-    const int s = ring.stage;
+    if (DEEP && P.np > 1) {  // the row logits in passes of DEEP_BOXES boxes, a ring item each
+      for (int pass = 0; pass < P.np; ++pass) {
+        const int s = ring.stage;
+        int b0, nb;
+        const bool sq = deep_pass(pass, P.kb, P.qres, b0, nb);
+        mbar_wait(b.full + 8 * s, ring.phase);
+        const uint32_t kst = b.base + P.ring + s * P.stage;
+        const uint32_t qa = sq ? kst + SQ : b.base + P.q + b0 * BOXB;
+        switch (nb) {
+          case 1: row_chain<4>(sc, qa, kst, pass == 0); break;
+          case 2: row_chain<8>(sc, qa, kst, pass == 0); break;
+          case 3: row_chain<12>(sc, qa, kst, pass == 0); break;
+          default: row_chain<16>(sc, qa, kst, pass == 0); break;
+        }
+        release(b.empty + 8 * s);
+        ring.next(P.S);
+      }
+    }
+    const int s = ring.stage;  // the step's last item: its keys (or payload) and mask
     mbar_wait(b.full + 8 * s, ring.phase);
     const uint32_t kst = b.base + P.ring + s * P.stage;
-    wgmma_fence();
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      const uint32_t off = (ks & 3) * 32;  // k16 step within the 128-byte row
-      wgmma_ss_n64(sc, desc_k128(b.base + P.q + (ks >> 2) * BOXB + off),
-                   desc_k128(kst + (ks >> 2) * BOXB + off), ks > 0 ? 1 : 0);
-    }
-    wgmma_commit();
-    wgmma_wait0();
-    fence_regs(sc);
+    if (!DEEP || P.np == 1) row_chain<KS>(sc, b.base + P.q, kst, true);
     // accumulator element 4j + e is row r0 + 8 (e >> 1), column 8j + 2t + (e & 1):
     // the mask of columns 8j + 2t, + 1
     float2 m[BN / 8];
@@ -320,7 +399,7 @@ __device__ __forceinline__ void logits(const Prm& P, const Blk& b, int steps) {
 
 // ---- warpgroups 1 and 3, az: NZB boxes of z from box zb0; `producer`, a
 // lane of warpgroup 3, issues the ring's copies
-template <int NZB>
+template <int NZB, bool DEEP>
 __device__ __forceinline__ void az(const Prm& P, const Blk& b, const CUtensorMap* tq,
                                    const CUtensorMap* tqg, const CUtensorMap* tk,
                                    const CUtensorMap* tz, const CUtensorMap* tm, int zb0,
@@ -332,26 +411,44 @@ __device__ __forceinline__ void az(const Prm& P, const Blk& b, const CUtensorMap
   float acc[NZB * 32];
 #pragma unroll
   for (int i = 0; i < NZB * 32; ++i) acc[i] = 0.f;
-  int lj = 0, lsub = 0;  // the next step to load: list slot, step within the tile
-  auto next_row = [&]() {
-    const int row = lst[b.lo + lj] * P.bn + lsub * BN;
-    if (++lsub == spt) {
-      lsub = 0;
-      ++lj;
+  // the next item to load: list slot, step within the tile, ring item of the step
+  int lj = 0, lsub = 0, li = 0;
+  const int nsub = DEEP ? P.nsub : 1;
+  const int items = steps * nsub;
+  auto load_next = [&](int s) {
+    load_step<DEEP>(P, b, tq, tk, tz, tm, lst[b.lo + lj] * P.bn + lsub * BN, li, s);
+    if (++li == nsub) {
+      li = 0;
+      if (++lsub == spt) {
+        lsub = 0;
+        ++lj;
+      }
     }
-    return row;
   };
   if (producer) {  // the query block (and the group query block), the first stages
-    mbar_expect_tx(b.bq, (P.kb + (P.share ? 0 : P.kbg)) * BOXB);
-    for (int i = 0; i < P.kb; ++i) tma_2d(b.base + P.q + i * BOXB, tq, BOX * i, b.qb * BM, b.bq);
+    mbar_expect_tx(b.bq, (P.qres + (P.share ? 0 : P.gres)) * BOXB);
+    for (int i = 0; i < P.qres; ++i)
+      tma_2d(b.base + P.q + i * BOXB, tq, BOX * i, b.qb * BM, b.bq);
     if (!P.share)
-      for (int i = 0; i < P.kbg; ++i)
+      for (int i = 0; i < P.gres; ++i)
         tma_2d(b.base + P.qg + i * BOXB, tqg, BOX * i, b.qb * BM, b.bq);
-    for (int s = 0; s < P.S && s < steps; ++s) load_step(P, b, tk, tz, tm, next_row(), s);
+    for (int s = 0; s < P.S && s < items; ++s) load_next(s);
   }
   __syncwarp();
   Ring ring;
+  int ii = 0;  // items done
   for (int it = 0; it < steps; ++it) {
+    for (int pass = 0; pass + 1 < nsub; ++pass, ++ii) {  // deep: the key passes, not read here
+      const int s = ring.stage;
+      mbar_wait(b.full + 8 * s, ring.phase);
+      release(b.empty + 8 * s);
+      if (producer && ii + P.S < items) {
+        mbar_wait(b.empty + 8 * s, ring.phase);
+        load_next(s);
+      }
+      ring.next(P.S);
+      __syncwarp();
+    }
     const int s = ring.stage, ps = it & 1;
     mbar_wait(b.full + 8 * s, ring.phase);
     mbar_wait(b.pfull + 8 * ps, (it >> 1) & 1);
@@ -367,10 +464,11 @@ __device__ __forceinline__ void az(const Prm& P, const Blk& b, const CUtensorMap
     release(b.empty + 8 * s);
     release(b.pempty + 8 * ps);
     // the next load into the stage this step read, once every reader is done
-    if (producer && it + P.S < steps) {
+    if (producer && ii + P.S < items) {
       mbar_wait(b.empty + 8 * s, ring.phase);
-      load_step(P, b, tk, tz, tm, next_row(), s);
+      load_next(s);
     }
+    ++ii;
     ring.next(P.S);
     __syncwarp();
   }
@@ -386,24 +484,29 @@ __device__ __forceinline__ void az(const Prm& P, const Blk& b, const CUtensorMap
 }
 
 // ---- warpgroup 2, the groups
-// A chunk's exponentials e = exp2(min(q_g . g, 86)) [64 x EG] into e_s (f32),
-// on wgmma over KSG k16 steps of the group logits' depth.
+// acc (+)= the group query boxes at qg . the chunk's centroid boxes at gb
+// (EG rows each) over KSG k16 steps, fresh at `first`
 template <int EG, int KSG>
-__device__ __forceinline__ void chunk_e(const Prm& P, const Blk& b, float* e_s) {
-  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const uint32_t qg = b.base + (P.share ? P.q : P.qg), gb = b.base + P.g;
-  float acc[EG / 2];
+__device__ __forceinline__ void chunk_chain(float (&acc)[EG / 2], uint32_t qg, uint32_t gb,
+                                            bool first) {
   wgmma_fence();
 #pragma unroll
   for (int ks = 0; ks < KSG; ++ks) {
     const uint32_t off = (ks & 3) * 32;
     wgmma_k<EG>(acc, desc_k128(qg + (ks >> 2) * BOXB + off),
-                desc_k128(gb + (ks >> 2) * (EG * 128) + off), ks > 0 ? 1 : 0);
+                desc_k128(gb + (ks >> 2) * (EG * 128) + off), first && ks == 0 ? 0 : 1);
   }
   wgmma_commit();
   wgmma_wait0();
   fence_regs(acc);
+}
+
+// A chunk's exponentials e = exp2(min(q_g . g, 86)) [64 x EG] into e_s
+// (f32) from its group logits acc
+template <int EG>
+__device__ __forceinline__ void chunk_exp(const float (&acc)[EG / 2], float* e_s) {
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int jj = 0; jj < EG / 8; ++jj)
 #pragma unroll
@@ -412,15 +515,44 @@ __device__ __forceinline__ void chunk_e(const Prm& P, const Blk& b, float* e_s) 
           exp2f(fminf(acc[4 * jj + e], CLAMP2));
 }
 
-template <int EG>
-__device__ __forceinline__ void chunk_e_any(const Prm& P, const Blk& b, float* e_s) {
-  switch (P.ksg) {
-    case 1: chunk_e<EG, 1>(P, b, e_s); break;
-    case 4: chunk_e<EG, 4>(P, b, e_s); break;
-    case 8: chunk_e<EG, 8>(P, b, e_s); break;
-    case 12: chunk_e<EG, 12>(P, b, e_s); break;
-    default: chunk_e<EG, 16>(P, b, e_s); break;
+// A chunk's exponentials, on wgmma over the group logits' depth: its
+// centroids waited at the barrier (gpar its phase), all at once, or (npg >
+// 1) in passes through the centroid buffer (`deep_pass`; a streamed pass's
+// group query boxes through their buffer beside it), each
+// loaded once every warp is done with the one before (the first a chunk
+// ahead, as the whole chunk is otherwise), the accumulator carried: one
+// f32 chain over every column.  (Taking a pass box by box, one instance
+// for every depth, made ptxas spill more.)
+template <int EG, bool DEEP>
+__device__ __forceinline__ void chunk_e_any(const Prm& P, const Blk& b, const CUtensorMap* tg,
+                                            const CUtensorMap* tqg, int j, int c, int& gpar,
+                                            float* e_s) {
+  const uint32_t qg = b.base + (P.share ? P.q : P.qg), gb = b.base + P.g;
+  const int npg = DEEP ? P.npg : 1;
+  float acc[EG / 2];
+  for (int pass = 0; pass < npg; ++pass) {
+    int b0 = 0, nb = P.kbg;
+    const bool sq = npg > 1 && deep_pass(pass, P.kbg, P.gres, b0, nb);
+    if (pass > 0) {
+      wg_sync(1);
+      if ((threadIdx.x & 127) == 0) {
+        const int* lst = reinterpret_cast<const int*>(__cvta_shared_to_generic(b.base + P.lst));
+        load_g<DEEP>(P, b, tg, tqg, lst[b.lo + j], c, pass);
+      }
+    }
+    mbar_wait(b.gbar, gpar);
+    gpar ^= 1;
+    const int ksg = npg > 1 ? 4 * nb : P.ksg;
+    const uint32_t qp = sq ? b.base + P.gqs : qg + b0 * BOXB;
+    switch (ksg) {
+      case 1: chunk_chain<EG, 1>(acc, qp, gb, pass == 0); break;
+      case 4: chunk_chain<EG, 4>(acc, qp, gb, pass == 0); break;
+      case 8: chunk_chain<EG, 8>(acc, qp, gb, pass == 0); break;
+      case 12: chunk_chain<EG, 12>(acc, qp, gb, pass == 0); break;
+      default: chunk_chain<EG, 16>(acc, qp, gb, pass == 0); break;
+    }
   }
+  chunk_exp<EG>(acc, e_s);
 }
 
 // EG groups a chunk; NG columns of a step's unit sums: ps = bf16(p) @ S on
@@ -432,9 +564,9 @@ __device__ __forceinline__ void chunk_e_any(const Prm& P, const Blk& b, float* e
 // the kernel built for such groups holds that path).  DIRECT (units of one
 // row, in that kernel alone): no product, the unit sums are the p tile's
 // bf16 values.  A tile's masked last step counts its nu_last units only.
-template <int EG, int NG, bool UNITS, bool DIRECT>
+template <int EG, int NG, bool UNITS, bool DIRECT, bool DEEP>
 __device__ __forceinline__ void groups(const Prm& P, const Blk& b, const CUtensorMap* tg,
-                                       int steps) {
+                                       const CUtensorMap* tqg, int steps) {
   const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int* lst = reinterpret_cast<const int*>(__cvta_shared_to_generic(b.base + P.lst));
@@ -442,7 +574,7 @@ __device__ __forceinline__ void groups(const Prm& P, const Blk& b, const CUtenso
   float* cnt_s = reinterpret_cast<float*>(__cvta_shared_to_generic(b.base + P.cnt));
   float* us_s = reinterpret_cast<float*>(__cvta_shared_to_generic(b.base + P.us));
   const int lde = EG + 1, ldu = NG + 1;
-  if (tid == 0) load_g(P, b, tg, lst[b.lo], 0);
+  if (tid == 0) load_g<DEEP>(P, b, tg, tqg, lst[b.lo], 0, 0);
   if constexpr (!DIRECT) {  // the segment matrix, K-major and 128-byte swizzled: (unit
                             // c, row r) at c * 128 + 16 ((r / 8) ^ (c % 8)) + 2 (r % 8)
     uint8_t* sm = reinterpret_cast<uint8_t*>(__cvta_shared_to_generic(b.base + P.sm));
@@ -491,9 +623,7 @@ __device__ __forceinline__ void groups(const Prm& P, const Blk& b, const CUtenso
   for (int it = 0; it < steps; ++it) {
     if (cs == 0) {  // a chunk begins: its exponentials and counts
       wg_sync(1);   // every thread is done with the previous chunk's
-      mbar_wait(b.gbar, gpar);
-      gpar ^= 1;
-      chunk_e_any<EG>(P, b, e_s);
+      chunk_e_any<EG, DEEP>(P, b, tg, tqg, j, c, gpar, e_s);
       const int tile = lst[b.lo + j];
       if (tid < EG)  // (a last chunk of fewer groups: the rest are never read)
         cnt_s[tid] = c * EG + tid < P.gpt
@@ -504,9 +634,9 @@ __device__ __forceinline__ void groups(const Prm& P, const Blk& b, const CUtenso
       wg_sync(1);  // e and the counts visible; the centroid tile is free
       if (tid == 0) {
         if (c + 1 < P.chunks) {
-          load_g(P, b, tg, tile, c + 1);
+          load_g<DEEP>(P, b, tg, tqg, tile, c + 1, 0);
         } else if (j + 1 < b.n) {
-          load_g(P, b, tg, lst[b.lo + j + 1], 0);
+          load_g<DEEP>(P, b, tg, tqg, lst[b.lo + j + 1], 0, 0);
         }
       }
       ci = 0;
@@ -665,44 +795,44 @@ __device__ __forceinline__ void alr(const Prm& P, const Blk& b, const CUtensorMa
 // (The unit-sum path and the (16, 16) pair, inlined beside the common
 // groupings, made ptxas spill at 128 registers: the rare groupings get
 // kernels of their own.)
-template <int MODE>
+template <int MODE, bool DEEP>
 __device__ __forceinline__ void groups_any(const Prm& P, const Blk& b, const CUtensorMap* tg,
-                                           int steps) {
+                                           const CUtensorMap* tqg, int steps) {
   constexpr bool UNITS = MODE == K_RARE;
   if constexpr (MODE == K_DIRECT) {
     if (P.EG == 64) {
-      groups<64, 64, true, true>(P, b, tg, steps);
+      groups<64, 64, true, true, DEEP>(P, b, tg, tqg, steps);
     } else if (P.EG == 32) {
-      groups<32, 64, true, true>(P, b, tg, steps);
+      groups<32, 64, true, true, DEEP>(P, b, tg, tqg, steps);
     } else if (P.EG == 16) {
-      groups<16, 64, true, true>(P, b, tg, steps);
+      groups<16, 64, true, true, DEEP>(P, b, tg, tqg, steps);
     } else {
-      groups<8, 64, true, true>(P, b, tg, steps);
+      groups<8, 64, true, true, DEEP>(P, b, tg, tqg, steps);
     }
   } else if (P.EG == 64) {
-    groups<64, 64, UNITS, false>(P, b, tg, steps);
+    groups<64, 64, UNITS, false, DEEP>(P, b, tg, tqg, steps);
   } else if (P.EG == 8) {
     if (!UNITS || P.NG == 8) {
-      groups<8, 8, UNITS, false>(P, b, tg, steps);
+      groups<8, 8, UNITS, false, DEEP>(P, b, tg, tqg, steps);
     } else if (P.NG == 16) {
-      groups<8, 16, UNITS, false>(P, b, tg, steps);
+      groups<8, 16, UNITS, false, DEEP>(P, b, tg, tqg, steps);
     } else {
-      groups<8, 32, UNITS, false>(P, b, tg, steps);
+      groups<8, 32, UNITS, false, DEEP>(P, b, tg, tqg, steps);
     }
   } else if (P.EG == 16) {
     if (!UNITS || P.NG == 8) {
-      groups<16, 8, UNITS, false>(P, b, tg, steps);
+      groups<16, 8, UNITS, false, DEEP>(P, b, tg, tqg, steps);
     } else if (P.NG == 16) {
-      groups<16, 16, UNITS, false>(P, b, tg, steps);
+      groups<16, 16, UNITS, false, DEEP>(P, b, tg, tqg, steps);
     } else {
-      groups<16, 32, UNITS, false>(P, b, tg, steps);
+      groups<16, 32, UNITS, false, DEEP>(P, b, tg, tqg, steps);
     }
   } else if (P.NG == 8) {
-    groups<32, 8, UNITS, false>(P, b, tg, steps);
+    groups<32, 8, UNITS, false, DEEP>(P, b, tg, tqg, steps);
   } else if (P.NG == 16) {
-    groups<32, 16, UNITS, false>(P, b, tg, steps);
+    groups<32, 16, UNITS, false, DEEP>(P, b, tg, tqg, steps);
   } else {
-    groups<32, 32, UNITS, false>(P, b, tg, steps);
+    groups<32, 32, UNITS, false, DEEP>(P, b, tg, tqg, steps);
   }
 }
 
@@ -710,7 +840,7 @@ __device__ __forceinline__ void groups_any(const Prm& P, const Blk& b, const CUt
 // ending inside a step and the (16, 16), (8, 16), (8, 32), (16, 32) pairs;
 // K_DIRECT, the DIRECT walk; the last two also the D block in device
 // memory.  Three kernels, which nvcc compiles in parallel.
-template <int MODE>
+template <int MODE, bool DEEP>
 __global__ void __launch_bounds__(THREADS, 1)
     hier_parts_family_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                                   const __grid_constant__ CUtensorMap tqg,
@@ -722,9 +852,12 @@ __global__ void __launch_bounds__(THREADS, 1)
                                   const __grid_constant__ Prm P0) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  // a copy in registers: a reference into the parameter space would be
-  // reloaded after every asm statement that clobbers memory
-  const Prm P = P0;
+  // the launch's parameters read where they lie (the grid constant), not
+  // copied into registers: with a copy the 512 threads' 128 registers fell
+  // short and the deep and rare instances spilled (92 / 280 and 472 / 832
+  // bytes); the reads again after an asm statement that clobbers memory
+  // cost no time that shows (PERF.md, section 6)
+  const Prm& P = P0;
   Blk b;
   b.base = smem_u32(smem);
   b.qb = blockIdx.x % P.n_qb;  // query block fastest: neighbours share tiles in L2
@@ -780,21 +913,21 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int wg = threadIdx.x / 128;
     if (wg == 0) {
       switch (P.ks) {
-        case 1: logits<1>(P, b, steps); break;
-        case 4: logits<4>(P, b, steps); break;
-        case 8: logits<8>(P, b, steps); break;
-        case 12: logits<12>(P, b, steps); break;
-        default: logits<16>(P, b, steps); break;
+        case 1: logits<1, DEEP>(P, b, steps); break;
+        case 4: logits<4, DEEP>(P, b, steps); break;
+        case 8: logits<8, DEEP>(P, b, steps); break;
+        case 12: logits<12, DEEP>(P, b, steps); break;
+        default: logits<16, DEEP>(P, b, steps); break;
       }
     } else if (wg == 2) {
-      groups_any<MODE>(P, b, &tg, steps);
+      groups_any<MODE, DEEP>(P, b, &tg, &tqg, steps);
     } else {  // warpgroup 1 the first half of z's boxes, 3 the second and the copies
       const int zb0 = wg == 3 ? P.nz / 2 : 0;
       const bool producer = threadIdx.x == 3 * 128;
       if (P.nz == 2) {
-        az<1>(P, b, &tq, &tqg, &tk, &tz, &tm, zb0, producer, steps, out);
+        az<1, DEEP>(P, b, &tq, &tqg, &tk, &tz, &tm, zb0, producer, steps, out);
       } else {
-        az<2>(P, b, &tq, &tqg, &tk, &tz, &tm, zb0, producer, steps, out);
+        az<2, DEEP>(P, b, &tq, &tqg, &tk, &tz, &tm, zb0, producer, steps, out);
       }
     }
   }
@@ -849,20 +982,22 @@ __global__ void parts_reduce_kernel(const float* __restrict__ part, float* __res
 // q_cat [Bp, qw] bf16 packed queries: the row logits contract its columns
 // [kc0, kc0 + kf) with k_cat's [N, cat_d], the group logits its columns
 // [qg0, qg0 + gwe) with the first gwe of g_cat [G, gw] (kf and gwe the
-// columns holding the family's real ones, multiples of 16 up to 256: the
-// rest add 0).  mask_neg [N] f32, idx [Bp / bm, K] int32 (tiles < N / bn),
+// columns holding the family's real ones, multiples of 16 up to 2,048, in
+// passes past 256: the rest add 0).  mask_neg [N] f32, idx [Bp / bm, K] int32 (tiles < N / bn),
 // g_vw [G, W] bf16 (W a multiple of 128) with the count in column lrr, z
 // [N, rrp] bf16 (rrp 128 or 256).  lr = 1: out [Bp, rrp + 128 + W] = az | 0
 // | alr; lr = 0 (g_vw the full-width group value sums, lrr = Dv): out [Bp,
 // lrr + 128 + rrp] = -alr[:, :lrr + 1] | 0 | az.  dedup = 1 skips an idx
 // entry equal to the one before it in its row.  The plan (`_parts_plan`):
 // n_seg segments of each list, of at most seg_cap tiles, S ring stages;
-// work holds [n_seg, Bp, out_w] f32 when n_seg > 1.  lay [22] the layout
+// work holds [n_seg, Bp, out_w] f32 when n_seg > 1.  lay [24] the layout
 // (`_parts_layout`): EG, NG, pb, S2, a stage's bytes and its z and mask
 // offsets, the offsets q, qg, ring, p, g, e, cnt, us, sm, d, lst, bars and
 // the total bytes, then the DIRECT walk (units of one row, EG = NG = 64)
 // and dglob (dwork holds each block's D blocks: Bp / 64 x n_seg x seg_cap x
-// gpt x 128 bytes, gpt % 16 == 0).  bn need not be a multiple of 64 (a
+// gpt x 128 bytes, gpt % 16 == 0), the query boxes resident (res: the
+// logits' passes past them stream theirs) and the streamed group query
+// boxes' offset (gqs).  bn need not be a multiple of 64 (a
 // masked last step).  All contiguous and 16-byte aligned.  Returns a CUDA
 // error code (cudaErrorInvalidValue for what it does not take, with
 // nothing launched).
@@ -875,8 +1010,9 @@ extern "C" int hier_parts_family_sm90_launch(
     int seg_cap, int S, void* stream) {
   if (lay == nullptr || Bp <= 0 || K <= 0 || bm <= 0 || bm % BM || Bp % bm || bn <= 0 ||
       N % bn || gpt < 8 || bn % gpt || (gpt <= 32 ? 32 % gpt : gpt % 32) || kf < 16 ||
-      kf > 256 || kf % 16 || kc0 % 8 ||
-      kc0 + kf > cat_d || cat_d % 8 || qw < cat_d || qw % 8 || gwe < 16 || gwe > 256 ||
+      kf > MAX_BOXES * BOX || kf % 16 || kc0 % 8 ||
+      kc0 + kf > cat_d || cat_d % 8 || qw < cat_d || qw % 8 || gwe < 16 ||
+      gwe > MAX_BOXES * BOX ||
       gwe % 16 || gwe > gw || gw % 8 || qg0 % 8 || qg0 + gwe > qw || (rrp != 128 && rrp != 256) ||
       W <= 0 || W % 128 || lrr < 0 || lrr >= W || (!lr && lrr % 4) || G % gpt || n_seg < 1 ||
       seg_cap < (K + n_seg - 1) / n_seg || S < 2 || S > 4)
@@ -929,6 +1065,18 @@ extern "C" int hier_parts_family_sm90_launch(
   P.ksg = k16_steps(gwe);
   P.share = qg0 == kc0 && gwe <= kf;
   P.nz = rrp / BOX;
+  // logits over more than DEEP_BOXES boxes: passes (the row logits' a ring
+  // item each, then the payload; the group logits' through the centroid buffer)
+  // (the first `res` boxes of each query block resident, the passes past
+  // them streaming theirs: a multiple of DEEP_BOXES)
+  const int res = L[22];
+  P.qres = std::min(P.kb, res);
+  P.gres = std::min(P.kbg, res);
+  if (res < 1 || (res < std::max(P.kb, P.kbg) && res % DEEP_BOXES))
+    return (int)cudaErrorInvalidValue;
+  P.np = P.kb > DEEP_BOXES ? deep_passes(P.kb, P.qres) : 1;
+  P.npg = P.kbg > DEEP_BOXES ? deep_passes(P.kbg, P.gres) : 1;
+  P.nsub = P.np > 1 ? P.np + 1 : 1;
   P.W = W;
   P.lrr = lrr;
   if (lr) {  // az | 0 (128) | alr
@@ -962,9 +1110,20 @@ extern "C" int hier_parts_family_sm90_launch(
   }
   // the layout's order, the alignment of what TMA and wgmma read, its size
   // (the sizes of its parts are the caller's)
+  // a stage: [key boxes | z boxes | mask]; deep: [a pass's key boxes, or
+  // the payload's z boxes (kz = 0) | mask]
   bool in_order = P.pb >= 1 && P.pb <= PASS_BOXES && P.S2 >= 2 && P.S2 <= 4 &&
-                  P.kz < P.msk && P.msk < P.stage;
+                  P.kz < P.msk && P.msk < P.stage &&
+                  (P.np > 1 ? P.kz == 0 && P.msk >= (uint32_t)(P.nz > DEEP_BOXES ? P.nz : DEEP_BOXES) * BOXB
+                            : P.kz >= (uint32_t)P.kb * BOXB && P.msk >= P.kz + P.nz * BOXB);
   for (int i = 4; i < 16; ++i) in_order = in_order && *off[i] >= *off[i - 1];
+  // the query boxes: resident ones before the ring, a streamed group pass's
+  // in their buffer between the centroids and the exponentials
+  P.gqs = (uint32_t)L[23];
+  in_order = in_order && P.qg >= P.q + P.qres * BOXB &&
+             P.ring >= P.qg + (P.share ? 0 : P.gres * BOXB) &&
+             (P.gres == P.kbg ||
+              (P.gqs >= P.g + DEEP_BOXES * P.EG * 128 && P.e >= P.gqs + SQ && P.gqs % 1024 == 0));
   if (!in_order || (P.ring | P.stage | P.kz | P.p | P.g | P.sm | P.d) % 1024 ||
       (P.e | P.cnt | P.us | P.lst | P.bars) % 16 || P.total > MAX_SMEM)
     return (int)cudaErrorInvalidValue;
@@ -988,16 +1147,22 @@ extern "C" int hier_parts_family_sm90_launch(
             map_2d(&tg, g_cat, gwe, G, gw, BOX, P.EG, sw) &&
             map_3d_boxes(&tv, g_vw, W, G, W, 16, P.pb);
   if (P.share) {
-    tqg = tq;  // never read
+    tqg = tq;  // the group logits' columns are the row logits'
   } else {
     ok = ok && map_2d(&tqg, q + qg0, gwe, Bp, qw, BOX, BM, sw);
   }
   if (!ok) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool rare = (P.nu > 1 && P.upg > 1) || rare_pair || P.dglob;
-  const auto kernel = P.direct ? hier_parts_family_sm90_kernel<K_DIRECT>
-                               : rare ? hier_parts_family_sm90_kernel<K_RARE>
-                                      : hier_parts_family_sm90_kernel<K_COMMON>;
+  // logits over more than DEEP_BOXES boxes: the deep instances
+  const bool deep = P.np > 1 || P.npg > 1;
+  const auto kernel =
+      P.direct ? (deep ? hier_parts_family_sm90_kernel<K_DIRECT, true>
+                       : hier_parts_family_sm90_kernel<K_DIRECT, false>)
+      : rare   ? (deep ? hier_parts_family_sm90_kernel<K_RARE, true>
+                       : hier_parts_family_sm90_kernel<K_RARE, false>)
+               : (deep ? hier_parts_family_sm90_kernel<K_COMMON, true>
+                       : hier_parts_family_sm90_kernel<K_COMMON, false>);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)P.total);
   if (err != cudaSuccess) return (int)err;

@@ -96,6 +96,32 @@
 // no divergent code between (ptxas keeps them asynchronous: no C7514 or
 // C7520); ring positions and list positions advance by counters.
 //
+// Deep logits (the `high` tier's 768 sem columns, wide-key banks at `fast`:
+// sem logits over more than PASS_BOXES = 4 boxes, up to 2,048 columns).
+// Each query half over every sem column stays resident where it fits (96
+// KB at 768), so 64 queries a block, and a stage holding a whole step
+// would not fit beside it: a step becomes np + 1 ring items (`Walk::sub`),
+// np passes of at most 4 sem key boxes (256 columns), then its payload (the geo key
+// box, the mask and scales, the value boxes, and int8 codes in 16 KB past
+// them, converted without a barrier between reads and writes); a sem
+// chunk likewise npg passes of 64 centroid rows (the logits' wgmma N),
+// then its payload (the counts and vw rows).  A stage holds one pass's
+// boxes or, in their place, the payload's (33 to 51 KB).  The accumulator
+// is carried from pass to pass, fresh at the first: a row's (or group's)
+// logit is one f32 chain over every column.  Where the query half over
+// every column does not fit beside the ring (past 1,024 columns, or 1,024
+// with int8 codes), its first qres boxes (a multiple of 4) stay resident
+// and the columns past them take passes of 2 key boxes whose 2 query
+// boxes ride the same stage (`deep_pass`, sm90_common.cuh).  The geo family's logits ride
+// the payload as before.  A one-family launch's block pairs two slices
+// (value or alr), a warpgroup each: both warpgroups take the block's 64
+// queries and every pass (each its own logits), and an item ends in two
+// payloads, one a slice, each read by its warpgroup alone; so the keys
+// stream once for two slices, where a block of one slice read them once a
+// slice with its second warpgroup idle (6.03 -> 4.28 ms at RANGE's `high`
+// flagship shape on the H100, PERF.md).  The deep instances are kernels
+// of their own (DEEP): the others compile as before.
+//
 // Segments.  The plan (ops/retrieval_hier._values_plan, a function of the
 // shape alone) cuts each list into n_seg segments of whole tiles, none over
 // 12,800 rows (one wgmma accumulation chain: the dense kernel's
@@ -130,6 +156,9 @@ constexpr int THREADS = 256;
 constexpr int GEO_D = 16;            // geo columns: one k16 step, a 32-byte box
 constexpr int BOXB = BM * 128;       // one 64-row box of 64 bf16 columns: 8 KB
 constexpr int GC = 64;               // groups a chunk at most
+constexpr int PASS_BOXES = DEEP_PASS;  // sem boxes of one pass of a deep logits chain: 256 columns
+constexpr int MAX_BOXES = 32;        // sem logit columns at most: 2,048
+constexpr int SQ = DEEP_STREAM * BOXB;  // a streamed pass's query boxes within its stage
 constexpr float CLAMP2 = 86.0f;
 
 // One family of the launch.
@@ -139,11 +168,13 @@ struct Fam {
   int ksg;         // k16 steps of the group logits
   uint32_t gq;     // the group query block's offset within a query half
   int kbg;         // centroid boxes of a chunk (sem)
+  int gres;        // its group query boxes resident (deep: the rest stream with the passes)
   int gpt;         // groups a tile
   int eg;          // a chunk's box rows: 16, 32 or 64, the first of them that holds it
   int chunks;      // chunks a tile: ceil(gpt / 64)
   int eg_last;     // groups of the tile's last chunk
   int grp;         // value blocks take its chunks (a plain family)
+  int nsub;        // ring items of a chunk: 1, or (deep sem) its passes and the payload
   int acc_off, d_off;  // its columns of acc and d in the output
 };
 
@@ -166,9 +197,16 @@ struct Prm {
   int pad_lo;       // zero columns [pad_lo, pad_hi) (the value slice 0)
   int pad_hi;
   int kb, has_kg, kbs;  // a half's sem boxes, its geo box, its sel boxes
+  int qres;         // sem boxes resident a half: kb, or (deep, 64 queries) a multiple of 4
   int step_bytes;   // TMA bytes of a step but its values
+  int deep;         // logits over more than PASS_BOXES sem boxes: passes, then a payload item
+  int pair;         // deep, one family: two slices a block, a warpgroup each, one payload each
+  int nsub_step;    // ring items of a step: 1, or (deep) its passes and its payloads
+  int nslb, nab;    // blocks of a query block's value slices and of its alr slices
   Fam f[2];
   uint32_t qhalf, qgeo, qsel, ring, stage, kg, aux, va, e, etile, lst, bars, total;
+  uint32_t codes;   // a step's int8 codes within its stage: over the value boxes' second
+                    // half, or (deep) past them
 };
 
 // A stage's place in the ring: its index and the parity of its phase,
@@ -187,11 +225,27 @@ struct Ring {
 // steps (value blocks), then the chunks of each family whose groups the
 // block takes (a value block: its plain families'; an alr block: the lr
 // family's).  `t` walks a tile's items; kind, step and chunk follow from it
-// by comparisons.
+// by comparisons.  A deep launch's step is several ring items (`sub`): its
+// passes of the sem keys, PASS_BOXES boxes each, then its payload (the geo
+// key box, the mask and scales, the values); a sem chunk likewise its
+// passes of the centroids, then its payload (the counts and vw rows).
 struct Walk {
   int nst, ch0, ch1, per_tile;  // steps, family 0's and family 1's chunks a tile
-  int j = 0, t = 0;             // list slot, item of the tile
+  int ns_step, ns0, ns1;        // ring items of a step and of each family's chunk
+  int npl;                      // payload items of each (2 in a pair block: a slice each)
+  int j = 0, t = 0, sub = 0;    // list slot, item of the tile, its ring item
+  __device__ __forceinline__ int nsub() const { return step() ? ns_step : fam() ? ns1 : ns0; }
+  // a payload ring item: the whole item, or a deep item's (one of npl)
+  __device__ __forceinline__ bool payload() const { return nsub() == 1 || sub + npl >= nsub(); }
+  // the slice whose payload it is (0 but in a pair block)
+  __device__ __forceinline__ int pslot() const { return nsub() == 1 ? 0 : sub + npl - nsub(); }
+  // the next ring item (DEEP: items of several; else each item one)
+  template <bool DEEP>
   __device__ __forceinline__ void next() {
+    if constexpr (DEEP) {
+      if (++sub < nsub()) return;
+      sub = 0;
+    }
     if (++t == per_tile) {
       t = 0;
       ++j;
@@ -205,8 +259,8 @@ struct Walk {
 struct Blk {
   int qb, y, seg, lo, n;
   bool alr;         // an alr block (y >= nsl)
-  int c0;           // its first value (or alr) column
-  int vboxes;       // value (or alr) boxes of its slice inside Dv (Wa)
+  int c0[2];        // its slices' first value (or alr) columns (slot 1: a pair block's second)
+  int vboxes[2];    // value (or alr) boxes of each slice inside Dv (Wa), 0 past them
   uint32_t base, bq, full, empty;
   Walk walk;
 };
@@ -297,6 +351,39 @@ __device__ __forceinline__ void convert_step(uint32_t va, int tid, int nthr, int
   asm volatile("bar.sync %0, %1;\n" ::"r"(bar_id), "r"(nthr) : "memory");
 }
 
+// A deep step's int8 codes, landed apart from its value boxes (at codes,
+// [64 rows][DVS] bytes past them), into the bf16 value boxes at va, by
+// `nthr` threads (tid of them): each task's 32 codes read and written at
+// once (no box overlays the codes: 8 words a thread live, not 32), then a
+// barrier (`bar_id`) publishes the boxes.
+__device__ __forceinline__ void convert_apart(uint32_t va, uint32_t codes, int tid, int nthr,
+                                              int bar_id) {
+  constexpr int CH = DVS / 32;  // 32-code tasks a row
+  for (int i = tid; i < BN * CH; i += nthr) {
+    const int k = i % CH, row = i / CH;
+    const uint32_t a = codes + row * DVS + k * 32;
+    uint32_t w[8];
+    asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(w[0]), "=r"(w[1]), "=r"(w[2]), "=r"(w[3])
+                 : "r"(a));
+    asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(w[4]), "=r"(w[5]), "=r"(w[6]), "=r"(w[7])
+                 : "r"(a + 16));
+    const uint32_t rb = va + (k >> 1) * BOXB + row * 128, sw = row & 7, c0 = (4 * k) & 7;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      uint32_t o0, o1, o2, o3;
+      codes_bf16(w[2 * q], o0, o1);
+      codes_bf16(w[2 * q + 1], o2, o3);
+      asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(rb + (((c0 + q) ^ sw) << 4)),
+                   "r"(o0), "r"(o1), "r"(o2), "r"(o3)
+                   : "memory");
+    }
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // for the tensor cores
+  asm volatile("bar.sync %0, %1;\n" ::"r"(bar_id), "r"(nthr) : "memory");
+}
+
 // ---- the producer, one lane of warpgroup 0: the block's query halves,
 // then each item's copies into its ring stage, once the item that stage
 // held before is released by every consumer warp
@@ -307,10 +394,10 @@ struct Maps {
 
 __device__ __forceinline__ void load_queries(const Prm& P, const Blk& b, const Maps& M) {
   const int q0 = b.qb * BM * P.halves;
-  mbar_expect_tx(b.bq, P.halves * (P.kb * BOXB + (P.has_kg ? BM * 32 : 0) + P.kbs * BOXB));
+  mbar_expect_tx(b.bq, P.halves * (P.qres * BOXB + (P.has_kg ? BM * 32 : 0) + P.kbs * BOXB));
   for (int h = 0; h < P.halves; ++h) {
     const uint32_t qa = b.base + h * P.qhalf;
-    for (int i = 0; i < P.kb; ++i) tma_2d(qa + i * BOXB, M.tq, BOX * i, q0 + h * BM, b.bq);
+    for (int i = 0; i < P.qres; ++i) tma_2d(qa + i * BOXB, M.tq, BOX * i, q0 + h * BM, b.bq);
     if (P.has_kg) tma_2d(qa + P.qgeo, M.tqg, 0, q0 + h * BM, b.bq);
     for (int i = 0; i < P.kbs; ++i)
       tma_2d(qa + P.qsel + i * BOXB, M.tqs, BOX * i, q0 + h * BM, b.bq);
@@ -320,51 +407,113 @@ __device__ __forceinline__ void load_queries(const Prm& P, const Blk& b, const M
 // Item w's copies into stage s: a step's key boxes, geo box, mask (with int8
 // codes its scales and the codes, into the second half of the value boxes'
 // memory), value boxes; a chunk's centroids, vw boxes and (value blocks)
-// counts.
+// counts.  DEEP: a pass's key (or centroid) boxes (a streamed pass's query
+// boxes SQ bytes in), or a payload: the rest (a pair block's: its slice's).
+template <bool DEEP>
 __device__ __forceinline__ void load_item(const Prm& P, const Blk& b, const int* lst,
                                           const Maps& M, const Walk& w, int s, bool i8) {
+  if constexpr (!DEEP) {
+    const uint32_t st = b.base + P.ring + s * P.stage, full = b.full + 8 * s;
+    const int tile = lst[b.lo + w.j];
+    if (w.step()) {
+      const int row = tile * P.bn + w.t * BN;
+      mbar_expect_tx(full, P.step_bytes + (i8 ? BN * DVS : b.vboxes[0] * BOXB));
+      for (int i = 0; i < P.kb; ++i) tma_2d(st + i * BOXB, M.tk, BOX * i, row, full);
+      if (P.has_kg) tma_2d(st + P.kg, M.tkg, 0, row, full);
+      tma_1d(st + P.aux, M.tm, row, full);
+      if (i8) {
+        tma_1d(st + P.aux + 256, M.ts, row, full);
+        tma_2d(st + P.codes, M.tv, b.c0[0], row, full);
+      } else {
+        for (int h = 0; h < b.vboxes[0]; ++h)
+          tma_2d(st + P.va + h * BOXB, M.tv, b.c0[0] + BOX * h, row, full);
+      }
+      return;
+    }
+    const int f = w.fam();
+    const Fam F = f ? P.f[1] : P.f[0];
+    const int grow = tile * F.gpt + w.chunk() * GC;
+    mbar_expect_tx(full, (F.geo ? F.eg * 32 : F.kbg * F.eg * 128) + b.vboxes[0] * F.eg * 128 +
+                             (b.alr ? 0 : F.eg * 16));
+    const CUtensorMap* tg = f ? M.tg1 : M.tg0;
+    const CUtensorMap* tw = f ? M.tw1 : M.tw0;
+    if (F.geo) {
+      tma_2d(st + P.kg, tg, 0, grow, full);
+    } else {
+      for (int i = 0; i < F.kbg; ++i) tma_2d(st + i * BOXB, tg, BOX * i, grow, full);
+    }
+    for (int h = 0; h < b.vboxes[0]; ++h)
+      tma_2d(st + P.va + h * BOXB, tw, b.c0[0] + BOX * h, grow, full);
+    if (!b.alr) tma_2d(st + P.aux, f ? M.tc1 : M.tc0, 0, grow, full);
+    return;
+  }
   const uint32_t st = b.base + P.ring + s * P.stage, full = b.full + 8 * s;
   const int tile = lst[b.lo + w.j];
+  const bool pass = !w.payload();  // a deep item's pass: nb boxes from box b0
+  const int q0 = b.qb * BM * P.halves;  // (a streamed pass: 64 queries a block)
+  int b0, nb;
+  // the payload's slice (selects: an array indexed at run time would live in local memory)
+  const bool k1 = !pass && w.pslot() == 1;
+  const int c0 = k1 ? b.c0[1] : b.c0[0], vboxes = k1 ? b.vboxes[1] : b.vboxes[0];
   if (w.step()) {
     const int row = tile * P.bn + w.t * BN;
-    mbar_expect_tx(full, P.step_bytes + (i8 ? BN * DVS : b.vboxes * BOXB));
-    for (int i = 0; i < P.kb; ++i) tma_2d(st + i * BOXB, M.tk, BOX * i, row, full);
+    if (pass) {
+      const bool sq = deep_pass(w.sub, P.kb, P.qres, b0, nb);
+      mbar_expect_tx(full, (sq ? 2 : 1) * nb * BOXB);
+      for (int i = 0; i < nb; ++i) tma_2d(st + i * BOXB, M.tk, BOX * (b0 + i), row, full);
+      if (sq)
+        for (int i = 0; i < nb; ++i) tma_2d(st + SQ + i * BOXB, M.tq, BOX * (b0 + i), q0, full);
+      return;
+    }
+    const int kb = P.deep ? 0 : P.kb;  // deep: the keys came in the passes
+    mbar_expect_tx(full, P.step_bytes - (P.kb - kb) * BOXB +
+                             (i8 ? BN * DVS : vboxes * BOXB));
+    for (int i = 0; i < kb; ++i) tma_2d(st + i * BOXB, M.tk, BOX * i, row, full);
     if (P.has_kg) tma_2d(st + P.kg, M.tkg, 0, row, full);
     tma_1d(st + P.aux, M.tm, row, full);
     if (i8) {
       tma_1d(st + P.aux + 256, M.ts, row, full);
-      tma_2d(st + P.va + BN * DVS, M.tv, b.c0, row, full);
+      tma_2d(st + P.codes, M.tv, c0, row, full);
     } else {
-      for (int h = 0; h < b.vboxes; ++h) tma_2d(st + P.va + h * BOXB, M.tv, b.c0 + BOX * h, row, full);
+      for (int h = 0; h < vboxes; ++h) tma_2d(st + P.va + h * BOXB, M.tv, c0 + BOX * h, row, full);
     }
     return;
   }
   const int f = w.fam();
   const Fam F = f ? P.f[1] : P.f[0];
   const int grow = tile * F.gpt + w.chunk() * GC;
-  mbar_expect_tx(full, (F.geo ? F.eg * 32 : F.kbg * F.eg * 128) + b.vboxes * F.eg * 128 +
-                           (b.alr ? 0 : F.eg * 16));
   const CUtensorMap* tg = f ? M.tg1 : M.tg0;
+  if (pass) {  // deep: GC centroid rows of the pass's boxes (the logits' wgmma N)
+    const bool sq = deep_pass(w.sub, F.kbg, F.gres, b0, nb);  // (sq: the sem family's)
+    mbar_expect_tx(full, (sq ? 2 : 1) * nb * BOXB);
+    for (int i = 0; i < nb; ++i) tma_2d(st + i * BOXB, tg, BOX * (b0 + i), grow, full);
+    if (sq)
+      for (int i = 0; i < nb; ++i) tma_2d(st + SQ + i * BOXB, M.tq, BOX * (b0 + i), q0, full);
+    return;
+  }
+  const int kbg = F.nsub > 1 ? 0 : F.kbg;  // deep: the centroids came in the passes
+  mbar_expect_tx(full, (F.geo ? F.eg * 32 : kbg * F.eg * 128) + vboxes * F.eg * 128 +
+                           (b.alr ? 0 : F.eg * 16));
   const CUtensorMap* tw = f ? M.tw1 : M.tw0;
   if (F.geo) {
     tma_2d(st + P.kg, tg, 0, grow, full);
   } else {
-    for (int i = 0; i < F.kbg; ++i) tma_2d(st + i * BOXB, tg, BOX * i, grow, full);
+    for (int i = 0; i < kbg; ++i) tma_2d(st + i * BOXB, tg, BOX * i, grow, full);
   }
-  for (int h = 0; h < b.vboxes; ++h) tma_2d(st + P.va + h * BOXB, tw, b.c0 + BOX * h, grow, full);
+  for (int h = 0; h < vboxes; ++h) tma_2d(st + P.va + h * BOXB, tw, c0 + BOX * h, grow, full);
   if (!b.alr) tma_2d(st + P.aux, f ? M.tc1 : M.tc0, 0, grow, full);
 }
 
 // ---- a consumer warpgroup
 
-// A step of the warpgroup's family: the row logits of its 64 queries (at
-// qa) against the stage's keys, p, the row sums, bf16(p s) as A fragments,
-// acc += them @ the stage's value boxes.  `last`: the tile's masked last
-// step.
-template <int KS, bool GEO, bool I8>
-__device__ __forceinline__ void step_item(const Prm& P, uint32_t qa, uint32_t st, bool last,
-                                          float (&acc)[2][64], float (&dsum)[2], int t) {
-  float sc[BN / 2];
+// The logits of a step or a chunk on wgmma m64n64k16 over KS k16 steps:
+// A the query boxes at qa, B the stage's 64-row boxes at st (keys, or a
+// deep chunk's 64 centroid rows), both K-major; fresh at `first`, else
+// added to sc (the passes of a deep chain).  GEO: one k16 step over the geo
+// boxes.
+template <int KS, bool GEO>
+__device__ __forceinline__ void step_logits(const Prm& P, uint32_t qa, uint32_t st,
+                                            float (&sc)[BN / 2], bool first) {
   wgmma_fence();
   if constexpr (GEO) {
     wgmma_ss_n64(sc, desc_k32(qa + P.qgeo), desc_k32(st + P.kg), 0);
@@ -373,15 +522,34 @@ __device__ __forceinline__ void step_item(const Prm& P, uint32_t qa, uint32_t st
     for (int ks = 0; ks < KS; ++ks) {
       const uint32_t off = (ks & 3) * 32;  // k16 step within the 128-byte row
       wgmma_ss_n64(sc, desc_k128(qa + (ks >> 2) * BOXB + off),
-                   desc_k128(st + (ks >> 2) * BOXB + off), ks > 0 ? 1 : 0);
+                   desc_k128(st + (ks >> 2) * BOXB + off), first && ks == 0 ? 0 : 1);
     }
   }
   wgmma_commit();
   wgmma_wait0();
   fence_regs(sc);
+}
+
+// One pass of a deep chain: nb (1..4) boxes.
+__device__ __forceinline__ void pass_logits(const Prm& P, uint32_t qa, uint32_t st,
+                                            float (&sc)[BN / 2], bool first, int nb) {
+  switch (nb) {
+    case 1: step_logits<4, false>(P, qa, st, sc, first); break;
+    case 2: step_logits<8, false>(P, qa, st, sc, first); break;
+    case 3: step_logits<12, false>(P, qa, st, sc, first); break;
+    default: step_logits<16, false>(P, qa, st, sc, first); break;
+  }
+}
+
+// A step's weights from its row logits sc: p = exp2(min(sc + mask, 86))
+// (the stage's mask and scales), the row sums, bf16(p s) as the A
+// fragments pa.  `last`: the tile's masked last step.
+template <bool I8>
+__device__ __forceinline__ void step_p(const Prm& P, uint32_t st, bool last,
+                                       const float (&sc)[BN / 2], uint32_t (&pa)[BN / 16][4],
+                                       float (&dsum)[2], int t) {
   // accumulator element 4j + e is row g + 8 (e >> 1), column 8j + 2t + (e & 1)
   const float* mk = reinterpret_cast<const float*>(__cvta_shared_to_generic(st + P.aux));
-  uint32_t pa[BN / 16][4];
 #pragma unroll
   for (int j = 0; j < BN / 8; ++j) {
     const int c = 8 * j + 2 * t;
@@ -406,6 +574,11 @@ __device__ __forceinline__ void step_item(const Prm& P, uint32_t qa, uint32_t st
     pa[j >> 1][2 * (j & 1)] = pack_bf16(p00, p01);
     pa[j >> 1][2 * (j & 1) + 1] = pack_bf16(p10, p11);
   }
+}
+
+// acc += pa @ the stage's value boxes.
+__device__ __forceinline__ void step_pv(const Prm& P, uint32_t st,
+                                        const uint32_t (&pa)[BN / 16][4], float (&acc)[2][64]) {
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < BN / 16; ++kk)
@@ -418,31 +591,29 @@ __device__ __forceinline__ void step_item(const Prm& P, uint32_t qa, uint32_t st
   fence_regs(acc[1]);
 }
 
-// A chunk of the warpgroup's family's groups (gc of them): e = exp2(min(q_g
-// . g, 86)) on wgmma (queries at gqa, the chunk's EG centroid rows in the
-// stage's key boxes), zero past gc, bf16 into the warpgroup's e tile (at
-// eb); a value block (`sub`): the count column's product into dcorr, then
-// acc -= e @ vw over the slice in four 64-column pieces, each summed in a
-// fresh fragment; an alr block: acc += e @ vw over its columns.
-template <int EG, int KSG, bool GEO>
-__device__ __forceinline__ void group_item(const Prm& P, uint32_t gqa, uint32_t st, uint32_t eb,
-                                           int gc, bool sub, int wg, float (&acc)[2][64],
-                                           float (&dcorr)[2], int warp, int g, int t) {
-  float ea[EG / 2];
-  wgmma_fence();
-  if constexpr (GEO) {
-    wgmma_k<EG>(ea, desc_k32(gqa), desc_k32(st + P.kg), 0);
-  } else {
-#pragma unroll
-    for (int ks = 0; ks < KSG; ++ks) {
-      const uint32_t off = (ks & 3) * 32;
-      wgmma_k<EG>(ea, desc_k128(gqa + (ks >> 2) * BOXB + off),
-                  desc_k128(st + (ks >> 2) * BOXB + off), ks > 0 ? 1 : 0);
-    }
-  }
-  wgmma_commit();
-  wgmma_wait0();
-  fence_regs(ea);
+// A step of the warpgroup's family: the row logits of its 64 queries (at
+// qa) against the stage's keys, then `step_values`.
+template <int KS, bool GEO, bool I8>
+__device__ __forceinline__ void step_item(const Prm& P, uint32_t qa, uint32_t st, bool last,
+                                          float (&acc)[2][64], float (&dsum)[2], int t) {
+  float sc[BN / 2];
+  uint32_t pa[BN / 16][4];
+  step_logits<KS, GEO>(P, qa, st, sc, true);
+  step_p<I8>(P, st, last, sc, pa, dsum, t);
+  step_pv(P, st, pa, acc);
+}
+
+// The rest of a chunk of gc groups from its group logits ea (the first EG
+// columns of an accumulator of NA / 4 n8 blocks): e = exp2(min(ea, 86)),
+// zero past gc, bf16 into the warpgroup's e tile (at eb); a value block
+// (`sub`): the count column's product into dcorr, then acc -= e @ vw over
+// the slice in four 64-column pieces, each summed in a fresh fragment; an
+// alr block: acc += e @ vw over its columns.
+template <int EG, int NA>
+__device__ __forceinline__ void group_rest(const Prm& P, uint32_t st, uint32_t eb, int gc,
+                                           bool sub, int wg, const float (&ea)[NA],
+                                           float (&acc)[2][64], float (&dcorr)[2], int warp,
+                                           int g, int t) {
   wg_sync(wg);  // every warp's last product from the e tile is done
   const unsigned short* cnt =
       reinterpret_cast<const unsigned short*>(__cvta_shared_to_generic(st + P.aux));
@@ -491,6 +662,31 @@ __device__ __forceinline__ void group_item(const Prm& P, uint32_t gqa, uint32_t 
   }
 }
 
+// A chunk of the warpgroup's family's groups (gc of them): e's logits on
+// wgmma m64nEGk16 (queries at gqa, the chunk's EG centroid rows in the
+// stage's key boxes), then `group_rest`.
+template <int EG, int KSG, bool GEO>
+__device__ __forceinline__ void group_item(const Prm& P, uint32_t gqa, uint32_t st, uint32_t eb,
+                                           int gc, bool sub, int wg, float (&acc)[2][64],
+                                           float (&dcorr)[2], int warp, int g, int t) {
+  float ea[EG / 2];
+  wgmma_fence();
+  if constexpr (GEO) {
+    wgmma_k<EG>(ea, desc_k32(gqa), desc_k32(st + P.kg), 0);
+  } else {
+#pragma unroll
+    for (int ks = 0; ks < KSG; ++ks) {
+      const uint32_t off = (ks & 3) * 32;
+      wgmma_k<EG>(ea, desc_k128(gqa + (ks >> 2) * BOXB + off),
+                  desc_k128(st + (ks >> 2) * BOXB + off), ks > 0 ? 1 : 0);
+    }
+  }
+  wgmma_commit();
+  wgmma_wait0();
+  fence_regs(ea);
+  group_rest<EG, EG / 2>(P, st, eb, gc, sub, wg, ea, acc, dcorr, warp, g, t);
+}
+
 template <int EG, bool GEO>
 __device__ __forceinline__ void group_ksg(const Prm& P, int ksg, uint32_t gqa, uint32_t st,
                                           uint32_t eb, int gc, bool sub, int wg,
@@ -513,7 +709,7 @@ __device__ __forceinline__ void group_ksg(const Prm& P, int ksg, uint32_t gqa, u
 // other family's chunks it only releases.  Thread 0 (warpgroup 0: in a
 // two-family launch the sem family, the slower one) is the producer.  Then
 // the warpgroup's rows of the output.
-template <bool GEO, bool I8>
+template <bool GEO, bool I8, bool DEEP>
 __device__ __forceinline__ void consume(const Prm& P, const Blk& b, const int* lst,
                                         const Maps& M, int wg, int act) {
   const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
@@ -521,7 +717,13 @@ __device__ __forceinline__ void consume(const Prm& P, const Blk& b, const int* l
   const bool producer = threadIdx.x == 0;
   const int f = P.two ? wg : 0;
   const Fam F = f ? P.f[1] : P.f[0];
-  const uint32_t qa = b.base + (P.two ? 0 : wg) * P.qhalf;  // this warpgroup's query half
+  // a pair block (DEEP, one family): the two warpgroups take the same 64
+  // queries, a slice each (`slot`), each its own logits and its payloads
+  const bool pair = DEEP && P.pair;
+  const int slot = pair ? wg : 0, c0 = slot ? b.c0[1] : b.c0[0];
+  // a pair block's second slice may lie past Dv (Wa)
+  const bool has = (slot ? b.vboxes[1] : b.vboxes[0]) > 0;
+  const uint32_t qa = b.base + (P.two || pair ? 0 : wg) * P.qhalf;  // this warpgroup's query half
   const uint32_t eb = b.base + P.e + wg * P.etile;
   float acc[2][64];
 #pragma unroll
@@ -529,25 +731,51 @@ __device__ __forceinline__ void consume(const Prm& P, const Blk& b, const int* l
 #pragma unroll
     for (int i = 0; i < 64; ++i) acc[h][i] = 0.f;
   float dsum[2] = {0.f, 0.f}, dcorr[2] = {0.f, 0.f};
+  float lg[BN / 2];  // DEEP: a sem chain's logits, carried from pass to pass
   Walk lw = b.walk;  // the producer's: the next item to load
   if (producer && b.n > 0) {
     load_queries(P, b, M);
-    for (int s = 0; s < P.S && lw.j < b.n; ++s, lw.next()) load_item(P, b, lst, M, lw, s, I8);
+    for (int s = 0; s < P.S && lw.j < b.n; ++s, lw.next<DEEP>())
+      load_item<DEEP>(P, b, lst, M, lw, s, I8);
   }
   __syncwarp();
   if (b.n > 0) mbar_wait(b.bq, 0);
   Ring ring;
   Walk w = b.walk;
-  for (; w.j < b.n; w.next()) {
+  for (; w.j < b.n; w.next<DEEP>()) {
     const int s = ring.stage;
     const uint32_t st = b.base + P.ring + s * P.stage;
     mbar_wait(b.full + 8 * s, ring.phase);
-    if (w.step()) {
-      if constexpr (I8) convert_step(st + P.va, threadIdx.x, 128 * act, 1);
+    if (DEEP && !w.payload()) {  // a pass of a sem chain (the geo family has none)
+      if constexpr (DEEP && !GEO) {
+        int b0, nb;
+        if (!has) {
+        } else if (w.step()) {
+          const bool sq = deep_pass(w.sub, P.kb, P.qres, b0, nb);
+          pass_logits(P, sq ? st + SQ : qa + b0 * BOXB, st, lg, w.sub == 0, nb);
+        } else if (w.fam() == f) {
+          const bool sq = deep_pass(w.sub, F.kbg, F.gres, b0, nb);
+          pass_logits(P, sq ? st + SQ : qa + F.gq + b0 * BOXB, st, lg, w.sub == 0, nb);
+        }
+      }
+    } else if (pair && (w.pslot() != wg || !has)) {  // (pair implies DEEP)
+      // the other warpgroup's payload (or none of this one's slice)
+    } else if (w.step()) {
       const bool last = w.t + 1 == P.spt && P.last_rows < BN;
+      if constexpr (I8 && DEEP) {  // the codes, apart from the boxes (a pair's: its owner's)
+        convert_apart(st + P.va, st + P.codes, pair ? tid : threadIdx.x, pair ? 128 : 128 * act,
+                      pair ? 4 + wg : 1);
+      } else if constexpr (I8) {
+        convert_step(st + P.va, threadIdx.x, 128 * act, 1);
+      }
+      if constexpr (DEEP && !GEO) {  // the passes' logits
+        uint32_t pa[BN / 16][4];
+        step_p<I8>(P, st, last, lg, pa, dsum, t);
+        step_pv(P, st, pa, acc);
+      }
       if constexpr (GEO) {
         step_item<1, true, I8>(P, qa, st, last, acc, dsum, t);
-      } else {
+      } else if constexpr (!DEEP) {
         switch (F.ks) {
           case 4: step_item<4, false, I8>(P, qa, st, last, acc, dsum, t); break;
           case 8: step_item<8, false, I8>(P, qa, st, last, acc, dsum, t); break;
@@ -559,7 +787,15 @@ __device__ __forceinline__ void consume(const Prm& P, const Blk& b, const int* l
       const int c = w.chunk();
       const int gc = c + 1 == F.chunks ? F.eg_last : GC;
       const uint32_t gqa = qa + F.gq;
-      if (F.eg == 16) {
+      if (DEEP && !GEO) {  // the passes' logits, over 64 centroid rows
+        if (F.eg == 16) {
+          group_rest<16, BN / 2>(P, st, eb, gc, !b.alr, wg, lg, acc, dcorr, warp, g, t);
+        } else if (F.eg == 32) {
+          group_rest<32, BN / 2>(P, st, eb, gc, !b.alr, wg, lg, acc, dcorr, warp, g, t);
+        } else {
+          group_rest<64, BN / 2>(P, st, eb, gc, !b.alr, wg, lg, acc, dcorr, warp, g, t);
+        }
+      } else if (F.eg == 16) {
         group_ksg<16, GEO>(P, F.ksg, gqa, st, eb, gc, !b.alr, wg, acc, dcorr, warp, g, t);
       } else if (F.eg == 32) {
         group_ksg<32, GEO>(P, F.ksg, gqa, st, eb, gc, !b.alr, wg, acc, dcorr, warp, g, t);
@@ -571,8 +807,8 @@ __device__ __forceinline__ void consume(const Prm& P, const Blk& b, const int* l
     // the next load into the stage this item read, once every reader is done
     if (producer && lw.j < b.n) {
       mbar_wait(b.empty + 8 * s, ring.phase);
-      load_item(P, b, lst, M, lw, s, I8);
-      lw.next();
+      load_item<DEEP>(P, b, lst, M, lw, s, I8);
+      lw.next<DEEP>();
     }
     ring.next(P.S);
     __syncwarp();
@@ -587,9 +823,9 @@ __device__ __forceinline__ void consume(const Prm& P, const Blk& b, const int* l
       dcorr[e] += __shfl_xor_sync(0xffffffffu, dcorr[e], off);
     }
   }
-  if (b.alr && f != 0) return;  // an alr block's columns are family 0's
+  if ((b.alr && f != 0) || !has) return;  // an alr block's columns are family 0's
   float* out = P.out + b.seg * P.plane;
-  const int qrow = b.qb * BM * P.halves + (P.two ? 0 : wg * BM) + 16 * warp + g;
+  const int qrow = b.qb * BM * P.halves + (P.two || pair ? 0 : wg * BM) + 16 * warp + g;
 #pragma unroll
   for (int e = 0; e < 2; ++e) {
     float* row = out + (size_t)(qrow + 8 * e) * P.out_w;
@@ -598,7 +834,7 @@ __device__ __forceinline__ void consume(const Prm& P, const Blk& b, const int* l
       for (int h = 0; h < 2; ++h)
 #pragma unroll
         for (int j = 0; j < 16; ++j) {
-          const int c = b.c0 + 128 * h + 8 * j + 2 * t;
+          const int c = c0 + 128 * h + 8 * j + 2 * t;
           if (c < P.Wa)
             *reinterpret_cast<float2*>(row + P.alr_off + c) =
                 make_float2(acc[h][4 * j + 2 * e], acc[h][4 * j + 2 * e + 1]);
@@ -609,14 +845,14 @@ __device__ __forceinline__ void consume(const Prm& P, const Blk& b, const int* l
     for (int h = 0; h < 2; ++h)
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
-        const int c = b.c0 + 128 * h + 8 * j + 2 * t;
+        const int c = c0 + 128 * h + 8 * j + 2 * t;
         if (c < P.Dv) {
           *reinterpret_cast<float2*>(row + F.acc_off + c) =
               make_float2(acc[h][4 * j + 2 * e], acc[h][4 * j + 2 * e + 1]);
           if (P.geo_zero) *reinterpret_cast<float2*>(row + P.Dv + c) = make_float2(0.f, 0.f);
         }
       }
-    if (b.y == 0) {  // d, and the zero columns
+    if (b.y == 0 && slot == 0) {  // d, and the zero columns
       if (t == 0) row[F.d_off] = dsum[e] - dcorr[e];
       if (wg == 0 || !P.two)
         for (int c = P.pad_lo + t; c < P.pad_hi; c += 4) row[c] = 0.f;
@@ -624,7 +860,7 @@ __device__ __forceinline__ void consume(const Prm& P, const Blk& b, const int* l
   }
 }
 
-template <bool I8>
+template <bool I8, bool DEEP>
 __global__ void __launch_bounds__(THREADS, 1)
     hier_parts_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tqg,
@@ -649,19 +885,22 @@ __global__ void __launch_bounds__(THREADS, 1)
   const Maps M{&tq, &tqg, &tqs, &tk, &tkg, &tm, &ts, &tv, &tg0, &tg1, &tw0, &tw1, &tc0, &tc1};
   Blk b;
   b.base = smem_u32(smem);
-  const int nsl = P.nsl + P.na;
+  const int nsl = P.nslb + P.nab;  // a query block's blocks: its value slices', its alr ones'
   b.y = blockIdx.x % nsl;  // a query block's slices fastest: they share its tiles in L2
   b.qb = (blockIdx.x / nsl) % P.n_qb;
   b.seg = blockIdx.x / (nsl * P.n_qb);
-  b.alr = b.y >= P.nsl;
-  b.c0 = (b.alr ? b.y - P.nsl : b.y) * DVS;
-  b.vboxes = min(DVS / BOX, ((b.alr ? P.Wa : P.Dv) - b.c0 + BOX - 1) / BOX);
+  b.alr = b.y >= P.nslb;
+  const int y0 = b.alr ? b.y - P.nslb : b.y, cols = b.alr ? P.Wa : P.Dv;
+  for (int k = 0; k < 2; ++k) {  // slot 1: a pair block's second slice
+    b.c0[k] = (P.pair ? 2 * y0 + k : y0) * DVS;
+    b.vboxes[k] = max(0, min(DVS / BOX, (cols - b.c0[k] + BOX - 1) / BOX));
+  }
   b.bq = b.base + P.bars;
   b.full = b.bq + 8;
   b.empty = b.full + 8 * P.S;
   int* lst = reinterpret_cast<int*>(smem + P.lst);
   int* info = reinterpret_cast<int*>(smem + P.bars + 8 * (1 + 2 * P.S));  // lo, n
-  const int act = P.two || P.halves == 2 ? 2 : 1;  // consumer warpgroups at work
+  const int act = P.two || P.halves == 2 || P.pair ? 2 : 1;  // consumer warpgroups at work
   const int lb = b.qb * BM * P.halves / P.bm;      // the query block's list
   for (int i = threadIdx.x; i < P.K; i += THREADS) lst[i] = P.idx[(size_t)lb * P.K + i];
   __syncthreads();
@@ -695,12 +934,16 @@ __global__ void __launch_bounds__(THREADS, 1)
   w.ch0 = (b.alr || P.f[0].grp) ? P.f[0].chunks : 0;
   w.ch1 = (P.two && !b.alr && P.f[1].grp) ? P.f[1].chunks : 0;
   w.per_tile = w.nst + w.ch0 + w.ch1;
+  w.ns_step = P.nsub_step;
+  w.ns0 = P.f[0].nsub;
+  w.ns1 = P.f[1].nsub;
+  w.npl = P.pair ? 2 : 1;
   const int wg = threadIdx.x / 128;
   if (wg >= act) return;
   if ((P.two && wg ? P.f[1] : P.f[0]).geo) {
-    consume<true, I8>(P, b, lst, M, wg, act);
+    consume<true, I8, DEEP>(P, b, lst, M, wg, act);
   } else {
-    consume<false, I8>(P, b, lst, M, wg, act);
+    consume<false, I8, DEEP>(P, b, lst, M, wg, act);
   }
 }
 
@@ -742,10 +985,10 @@ __host__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 // up to 512; else the group value sums with the count in column Dv.  out
 // [Bp, 2 Dv + 128 (+ W0 with lr)] merged, [Bp, Dv + 128 (+ W0)] family.
 // The plan (`_values_plan`): n_seg segments of each list (work holds [n_seg,
-// Bp, out_w] f32 when n_seg > 1); lay [15] the layout (`_values_layout`):
+// Bp, out_w] f32 when n_seg > 1); lay [16] the layout (`_values_layout`):
 // the query rows a block (64 or 128), the ring's stages, then the offsets
 // qhalf, qgeo, qsel, ring, stage, kg, aux, va, e, etile, lst, bars and
-// the total bytes.  All contiguous and 16-byte aligned.  Returns a CUDA
+// the total bytes, and the sem boxes resident a query half (qres).  All contiguous and 16-byte aligned.  Returns a CUDA
 // error code (cudaErrorInvalidValue for what it does not take, with nothing
 // launched).
 extern "C" int hier_parts_sm90_launch(
@@ -762,7 +1005,7 @@ extern "C" int hier_parts_sm90_launch(
            (lr ? W % 128 == 0 && W <= 512 : W >= Dv + 1 && W % 8 == 0);
   };
   if (lay == nullptr || Bp <= 0 || K <= 0 || N <= 0 || bm <= 0 || bm % BM || Bp % bm ||
-      bn < 32 || bn % 32 || N % bn || sem_d < 16 || sem_d > 256 || sem_d % 16 ||
+      bn < 32 || bn % 32 || N % bn || sem_d < 16 || sem_d > MAX_BOXES * BOX || sem_d % 16 ||
       sem_d + GEO_D > cat_d || cat_d % 8 || Dv <= 0 || Dv % 16 || n_seg < 1 || n_seg > K ||
       !fam_ok(geo0, lr0, gpt0, G0, gw0, W0))
     return (int)cudaErrorInvalidValue;
@@ -807,6 +1050,20 @@ extern "C" int hier_parts_sm90_launch(
   P.has_kg = two || geo0;
   P.kbs = sel ? cdiv(gw0, BOX) : 0;
   P.step_bytes = P.kb * BOXB + (P.has_kg ? BN * 32 : 0) + 256 + (i8 ? 256 : 0);
+  // deep: sem logits over more than PASS_BOXES boxes (rows or groups) take
+  // passes, each a ring item, and the rest of the item its payload
+  P.deep = P.kb > PASS_BOXES || P.kbs > PASS_BOXES;
+  // deep, one family: pairs of slices share a block (one warpgroup would
+  // idle at 64 queries a block), so the keys stream once for two slices
+  P.pair = P.deep && !two && bmb == BM;
+  const int npl = P.pair ? 2 : 1;
+  // the sem boxes resident a half: every one, or (deep, 64 queries a block)
+  // a multiple of 4, the passes past them streaming their query boxes
+  P.qres = L[15];
+  if (P.qres != P.kb && (!P.deep || bmb != BM || P.qres < PASS_BOXES || P.qres > P.kb ||
+                         P.qres % PASS_BOXES))
+    return (int)cudaErrorInvalidValue;
+  P.nsub_step = P.deep ? deep_passes(P.kb, P.qres) + npl : 1;
   auto fam = [&](Fam& F, int geo, int lr, int gpt, int kbg, uint32_t gq) {
     F.geo = geo;
     F.ks = geo ? 1 : 4 * P.kb;
@@ -818,6 +1075,8 @@ extern "C" int hier_parts_sm90_launch(
     F.chunks = cdiv(gpt, GC);
     F.eg_last = gpt - (F.chunks - 1) * GC;
     F.grp = !lr;
+    F.gres = gq ? kbg : std::min(kbg, P.qres);  // sel's boxes stay resident
+    F.nsub = P.deep && !geo ? deep_passes(kbg, F.gres) + npl : 1;
   };
   fam(P.f[0], geo0, lr0, gpt0, sel ? P.kbs : P.kb, geo0 ? P.qgeo : sel ? P.qsel : 0);
   P.f[0].acc_off = 0;
@@ -832,12 +1091,19 @@ extern "C" int hier_parts_sm90_launch(
   // the layout: what each region must hold, its alignment, the total
   const int egmax = std::max(P.f[0].eg, two ? P.f[1].eg : 0);
   const bool groups = P.f[0].grp || P.Wa || two;
-  const uint32_t kbox = std::max(P.kb, P.f[0].kbg);
-  bool ok = P.qgeo >= (uint32_t)P.kb * BOXB &&
+  // a stage: [key (or centroid) boxes | geo box | aux | value boxes]; deep:
+  // [a pass's boxes, or the payload's value boxes (va = 0) | geo box | aux]
+  const uint32_t kbox = P.deep ? PASS_BOXES : std::max(P.kb, P.f[0].kbg);
+  // int8 codes: over the value boxes' second half (converted in two rounds
+  // about a barrier), or (deep) in the 16 KB past them, before the geo box
+  P.codes = P.deep ? P.va + (DVS / BOX) * BOXB : P.va + BN * DVS;
+  bool ok = P.qgeo >= (uint32_t)P.qres * BOXB &&
             P.qsel >= P.qgeo + (P.has_kg ? BM * 32 : 0) &&
             P.qhalf >= P.qsel + P.kbs * BOXB && P.ring >= P.halves * P.qhalf &&
-            P.kg >= kbox * BOXB && P.aux >= P.kg + (P.has_kg ? BN * 32 : 0) &&
-            P.va >= P.aux + 1024 && P.stage >= P.va + (DVS / BOX) * BOXB &&
+            P.kg >= kbox * BOXB + (P.deep && i8 ? BN * DVS : 0) &&
+            P.aux >= P.kg + (P.has_kg ? BN * 32 : 0) &&
+            (P.deep ? P.va == 0 && P.stage >= P.aux + 1024
+                    : P.va >= P.aux + 1024 && P.stage >= P.va + (DVS / BOX) * BOXB) &&
             P.e >= P.ring + P.S * P.stage &&
             (!groups || P.etile >= (uint32_t)egmax / 16 * 2048) &&
             P.lst >= P.e + 2 * P.etile &&
@@ -876,19 +1142,26 @@ extern "C" int hier_parts_sm90_launch(
     const Fam& F = P.f[f];
     const bf* gp = static_cast<const bf*>(gs[f]);
     const bf* vp = static_cast<const bf*>(vws[f]);
+    // a deep chain's passes take GC centroid rows (the logits' wgmma N)
     ok = (F.geo ? map_2d(&tg[f], gp, GEO_D, Gs[f], gws[f], GEO_D, F.eg, sw32)
-                : map_2d(&tg[f], gp, sel ? gw0 : sem_d, Gs[f], gws[f], BOX, F.eg, sw128)) &&
+                : map_2d(&tg[f], gp, sel ? gw0 : sem_d, Gs[f], gws[f], BOX,
+                         F.nsub > 1 ? GC : F.eg, sw128)) &&
          map_2d(&tw[f], vp, Ws[f], Gs[f], Ws[f], BOX, F.eg, sw128) &&
          (F.grp ? map_2d(&tc[f], vp + Dv, 8, Gs[f], Ws[f], 8, F.eg, CU_TENSOR_MAP_SWIZZLE_NONE)
                 : (tc[f] = tm, true));
   }
   if (!ok) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto kernel = i8 ? hier_parts_sm90_kernel<true> : hier_parts_sm90_kernel<false>;
+  const auto kernel = P.deep ? (i8 ? hier_parts_sm90_kernel<true, true>
+                                   : hier_parts_sm90_kernel<false, true>)
+                             : (i8 ? hier_parts_sm90_kernel<true, false>
+                                   : hier_parts_sm90_kernel<false, false>);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P.total);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<P.n_qb * (P.nsl + P.na) * n_seg, THREADS, P.total, s>>>(
+  P.nslb = P.pair ? cdiv(P.nsl, 2) : P.nsl;
+  P.nab = P.pair ? cdiv(P.na, 2) : P.na;
+  kernel<<<P.n_qb * (P.nslb + P.nab) * n_seg, THREADS, P.total, s>>>(
       tq, tqg, tqs, tk, tkg, tm, ts, tv, tg[0], tg[1], tw[0], tw[1], tc[0], tc[1], P);
   err = cudaGetLastError();
   if (err != cudaSuccess || n_seg == 1) return (int)err;

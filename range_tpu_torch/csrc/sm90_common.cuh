@@ -19,6 +19,35 @@ __host__ __device__ constexpr uint32_t round_up(uint32_t x, uint32_t m) {
   return (x + m - 1) / m * m;
 }
 
+// Deep logits chains (the parts kernels' row and group logits over more
+// than DEEP_PASS boxes of 64 columns): the first `res` query boxes stay
+// resident in shared memory (res == kb, or a multiple of DEEP_PASS), and
+// the chain walks them in passes of DEEP_PASS boxes; the rest, whose query
+// boxes do not fit beside the ring, in passes of DEEP_STREAM boxes whose
+// query boxes ride the ring stage (or buffer) beside their key boxes,
+// DEEP_STREAM boxes in.  The accumulator is carried across the passes, so
+// a logit is one f32 chain over every column whatever the split.
+constexpr int DEEP_PASS = 4;
+constexpr int DEEP_STREAM = 2;
+
+__host__ __device__ constexpr int deep_passes(int kb, int res) {
+  return (res + DEEP_PASS - 1) / DEEP_PASS + (kb - res + DEEP_STREAM - 1) / DEEP_STREAM;
+}
+
+// Pass p of a chain over kb boxes, res of them resident: its first box b0
+// and its boxes nb; true where its query boxes are streamed.
+__device__ __forceinline__ bool deep_pass(int p, int kb, int res, int& b0, int& nb) {
+  const int npr = (res + DEEP_PASS - 1) / DEEP_PASS;
+  if (p < npr) {
+    b0 = DEEP_PASS * p;
+    nb = min(res - b0, DEEP_PASS);
+    return false;
+  }
+  b0 = res + DEEP_STREAM * (p - npr);
+  nb = min(kb - b0, DEEP_STREAM);
+  return true;
+}
+
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }

@@ -71,15 +71,18 @@ its own beyond the stats scan).
 
 Each kernel wrapper runs its plain PyTorch version on CPU tensors and the
 CUDA kernel (`csrc/`) on CUDA tensors, and counts launches in
-``.launches``.  On banks of the `exact` tier (f32 operands) and the `high`
-tier (768 semantic columns) the wrappers of the scan, the stats scan, the
-refine, the correction and both parts kernels launch the CUDA-core body
-`csrc/hier_cores.cu` (`_cores_form`; the stats scan's 768 columns run on
-its own kernel, whose shared memory holds them), counted also in
-``.f32_launches`` / ``.deep_launches``.  The numbers are f32 sums of bf16 products in both; the
-rounding points (bf16 p before every value product) are the JAX
-package's.  The sharded and host-staged builds raise `NotImplementedError`
-naming their ROADMAP item.
+``.launches``.  On banks of the `exact` tier (f32 operands) the wrappers
+of the scan, the stats scan, the refine, the correction and both parts
+kernels launch the CUDA-core body `csrc/hier_cores.cu` (`_cores_form`),
+counted also in ``.f32_launches``; at the `high` tier (768 semantic
+columns) the scan, the refine and the correction do
+(``.deep_launches``; the stats scan's 768 columns run on its own kernel,
+whose shared memory holds them), while both parts kernels and the top-k
+kernel take logits over more than 256 columns on their Hopper bodies, in
+passes of 256 columns with the accumulator carried.  The numbers are f32
+sums of bf16 products in both; the rounding points (bf16 p before every
+value product) are the JAX package's.  The sharded and host-staged
+builds raise `NotImplementedError` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -1802,12 +1805,14 @@ def _hier_parts_family_call(q_cat, k_cat, mask_neg, idx, g_cat, g_vw, z, *,
     the Hopper values kernel `csrc/hier_parts_sm90.cu` over
     `_values_plan`'s segments; both replace
     `_hier_parts_family_kernel` (`range_tpu/ops/retrieval_hier.py:2282`),
-    on bf16 operands of at most 256 logit columns; f32 operands and deeper
-    logits go to the CUDA-core body (`_parts_family_cores`, every shape and
-    form, counted in ``.launches`` and ``.f32_launches`` /
-    ``.deep_launches`` only).  A shape they do not take or a failed launch
-    raises.  Each launch of the other bodies counts in ``.launches`` and in
-    its shape's own counter:
+    on bf16 operands of up to DEEP_MAX logit columns (over 256, the `high`
+    tier's 768 or wide keys, in passes of 256; the query columns past what
+    a block holds beside the ring stream with passes of 128); f32 operands go to the
+    CUDA-core body (`_parts_family_cores`, every shape and form, counted in
+    ``.launches`` and ``.f32_launches`` only).  A shape they do not take
+    raises ValueError before any launch, and a failed launch raises.  Each
+    launch of the Hopper bodies counts in ``.launches`` and in its shape's
+    own counter:
     ``.rrlr_launches``, ``.rr_launches``, ``.lr_launches`` or
     ``.plain_launches``; and the sel form in ``.sel_launches``, the
     dedup_pad form in ``.dedup_launches`` (those of the rr shapes also in
@@ -1817,16 +1822,14 @@ def _hier_parts_family_call(q_cat, k_cat, mask_neg, idx, g_cat, g_vw, z, *,
             q_cat, k_cat, mask_neg, idx, g_cat, g_vw, z, sem_d=sem_d, bm=bm,
             bn=bn, gpt=gpt, geo=geo, lrr=lrr, lr=lr, values=values,
             scale=scale, sel=sel, dedup_pad=dedup_pad)
-    # the other bodies lay out sem_d columns of queries and keys whichever
-    # family they serve
-    form = _cores_form(max(sem_d, g_cat.shape[1]), q_cat, k_cat, g_cat, g_vw, z, values)
-    if form:
+    if any(t is not None and t.dtype == torch.float32
+           for t in (q_cat, k_cat, g_cat, g_vw, z, values)):
         out = _parts_family_cores(q_cat, k_cat, mask_neg, idx, g_cat, g_vw, z, sem_d=sem_d,
                                   bm=bm, bn=bn, gpt=gpt, geo=geo, lrr=lrr, lr=lr,
                                   values=values, scale=scale, sel=sel, dedup_pad=dedup_pad,
                                   geo_cols=geo_cols)
         if q_cat.shape[0] and idx.shape[1]:
-            _count_cores(_hier_parts_family_call, form)
+            _count_cores(_hier_parts_family_call, "f32")
         return out
     if z is None:  # the geo family's logits over one k16 step, as the merged launch's
         out = _values_sm90("hier_parts_family", q_cat, k_cat, values, scale, mask_neg, idx,
@@ -1857,6 +1860,13 @@ def _hier_parts_family_call(q_cat, k_cat, mask_neg, idx, g_cat, g_vw, z, *,
 PARTS_ROWS_MAX = SCAN_ROWS_MAX  # rows one az accumulation chain sums
 _PARTS_STEP = 64                # bank rows a step (the kernel's BN)
 _SM_FLOP_PER_US = 989e12 / SM90_SMS / 1e6  # bf16 tensor rate of one SM
+# logits deeper than PASS_BOXES boxes of 64 columns take passes of that
+# many, the accumulator carried (both parts kernels' deep layouts); where
+# the query boxes over every column do not fit beside the ring, passes of
+# STREAM_BOXES past the resident ones carry their query boxes too
+PASS_BOXES = 4
+STREAM_BOXES = 2
+DEEP_MAX = 2048  # logit columns the parts kernels take
 
 
 class PartsPlan(NamedTuple):
@@ -1865,12 +1875,13 @@ class PartsPlan(NamedTuple):
     most ``seg_cap`` tiles, and ``S`` stages of the key / z ring; where the
     common layout fits no block (`_parts_layout`), ``direct`` (the unit
     sums read from the p tile) and ``dglob`` (the D block in device
-    memory)."""
+    memory); ``res`` the query boxes resident (None: every one)."""
     n_seg: int
     seg_cap: int
     S: int
     direct: bool = False
     dglob: bool = False
+    res: Optional[int] = None
 
 
 # the (EG, NG) pairs the kernel's segment-matrix walk is built for
@@ -1898,7 +1909,8 @@ class PartsLayout(NamedTuple):
     centroids, exponentials and counts, the unit sums (groups of several
     units ending inside a step), the segment matrix, the D block of
     seg_cap tiles, the tile list, the barriers, and the total; then the
-    DIRECT walk and dglob (`PartsPlan`)."""
+    DIRECT walk and dglob (`PartsPlan`), the query boxes resident and a
+    streamed group pass's query boxes (past the centroids)."""
     EG: int
     NG: int
     pb: int
@@ -1921,29 +1933,42 @@ class PartsLayout(NamedTuple):
     total: int
     direct: int = 0
     dglob: int = 0
+    res: int = 0
+    gqs: int = 0
 
 
 def _parts_layout(K: int, bn: int, gpt: int, kf: int, gwe: int, share: bool, rrp: int,
                   acols: int, seg_cap: int, S: int, direct: bool = False,
-                  dglob: bool = False) -> PartsLayout:
+                  dglob: bool = False, res: Optional[int] = None) -> PartsLayout:
     """The Hopper family parts kernel's shared-memory layout (a box is 64
     rows of a 64-column bf16 block, 8 KB).  ``direct``: no segment matrix
     and no unit sums (read from the p tile); ``dglob``: no D block (in
-    device memory; phase 2's vw stages carry each k16 block of it)."""
+    device memory; phase 2's vw stages carry each k16 block of it).  Row
+    logits over more than PASS_BOXES boxes (deep): a stage holds one pass's
+    key boxes, or in their place the payload's z boxes, then the mask;
+    group logits over more than PASS_BOXES: the centroid buffer holds one
+    pass's boxes.  ``res`` (default: every one) the query boxes resident of
+    each query block, a multiple of PASS_BOXES below its boxes: a row pass
+    past them takes STREAM_BOXES key boxes and their query boxes a stage, a
+    group pass its query boxes through a buffer of their own."""
     box = 8192
     kb, kbg = -(-kf // 64), -(-gwe // 64)
+    res = max(kb, kbg) if res is None else res
+    qres, gres = min(kb, res), min(kbg, res)
     gsz = bn // gpt
     eg, ng = _parts_groups(gpt, gsz)
     # groups of several units ending inside a step
     units = gsz % 64 and 64 % gsz and not direct
-    kz = kb * box
-    msk = kz + rrp // 64 * box
+    deep = kb > PASS_BOXES
+    kz = 0 if deep else kb * box
+    msk = max(PASS_BOXES, rrp // 64) * box if deep else kz + rrp // 64 * box
     stage = msk + 1024  # the mask's 256 bytes, the next stage 1024-aligned
-    qg = kb * box
-    ring = qg + (0 if share else kbg * box)
+    qg = qres * box
+    ring = qg + (0 if share else gres * box)
     p = ring + S * stage
     g = p + 2 * box
-    e = g + kbg * eg * 128
+    gqs = g + min(kbg, PASS_BOXES) * eg * 128
+    e = gqs + (STREAM_BOXES * box if gres < kbg else 0)
     cnt = e + _round_up(64 * (eg + 1) * 4, 16)
     us = _round_up(cnt + eg * 4, 16)
     sm = _round_up(us + (64 * (ng + 1) * 4 if units else 0), 1024)
@@ -1956,7 +1981,7 @@ def _parts_layout(K: int, bn: int, gpt: int, kf: int, gwe: int, share: bool, rrp
     # the barriers, a segment's first entry and length, slack to align the base
     total = bars + 8 * (6 + 2 * S + S2) + 16 + 1024
     return PartsLayout(eg, ng, pb, S2, stage, kz, msk, 0, qg, ring, p, g, e, cnt, us, sm, d,
-                       lst, bars, total, int(direct), int(dglob))
+                       lst, bars, total, int(direct), int(dglob), res, gqs)
 
 
 def _parts_modes(bn: int, gpt: int):
@@ -2000,7 +2025,9 @@ def _parts_plan(Bp: int, K: int, bn: int, gpt: int, kf: int, gwe: int,
     segment, the planes' writes and the reduction's pass over them at ~3
     TB/s.  The ring: the deepest of 4, 3, 2 stages that fits.  The layout:
     the first of `_parts_modes` in which a cut fits (the common groupings
-    never leave the first).
+    never leave the first); deep, where no cut fits with every query box
+    resident, the same search with the most resident boxes (a multiple of
+    PASS_BOXES) that fit each cut with any ring.
     lru-cached: serving asks for the same few shapes."""
     n_qb = Bp // 64
     spt = -(-bn // _PARTS_STEP)
@@ -2010,27 +2037,35 @@ def _parts_plan(Bp: int, K: int, bn: int, gpt: int, kf: int, gwe: int,
     row_us = out_w * 4 / 3.0e6  # one query row of a plane, written or read
     cap = max(1, rows_max // bn)
     want = min(SM90_SMS, n_qb * K)
+    boxes = max(-(-kf // 64), -(-gwe // 64))
+    streamed = list(range((boxes - 1) // PASS_BOXES * PASS_BOXES, 0, -PASS_BOXES)
+                    if boxes > PASS_BOXES else [])
     best = None
-    for direct, dglob in _parts_modes(bn, gpt):
-        limit = None  # up to 8 waves of blocks past the first cut that fits
-        for n_seg in range(-(-K // cap), K + 1):
-            seg_cap = -(-K // n_seg)
-            if limit is not None and n_qb * n_seg > limit:
+    # every query box resident where any cut allows it, else the most that fit
+    for resident in ([None], streamed):
+        for direct, dglob in _parts_modes(bn, gpt):
+            limit = None  # up to 8 waves of blocks past the first cut that fits
+            for n_seg in range(-(-K // cap), K + 1):
+                seg_cap = -(-K // n_seg)
+                if limit is not None and n_qb * n_seg > limit:
+                    break
+                S, res = next(((S, r) for r in resident for S in (4, 3, 2) if _parts_fits(
+                    _parts_layout(K, bn, gpt, kf, gwe, share, rrp, acols, seg_cap, S, direct,
+                                  dglob, r))), (None, None))
+                if S is None:
+                    continue
+                if limit is None:
+                    limit = max(n_qb * n_seg, 8 * SM90_SMS)
+                costs = []
+                for seg in range(n_seg):
+                    t = (seg + 1) * K // n_seg - seg * K // n_seg
+                    costs += [t * (spt * step_us + alr_us) + 6.0] * n_qb
+                planes = Bp * row_us * (1 if n_seg == 1 else 2 * n_seg + 1)
+                key = (n_qb * n_seg < want, _makespan(costs, SM90_SMS) + planes)
+                if best is None or key < best[0]:
+                    best = (key, PartsPlan(n_seg, seg_cap, S, direct, dglob, res))
+            if best is not None:
                 break
-            S = next((S for S in (4, 3, 2) if _parts_fits(_parts_layout(
-                K, bn, gpt, kf, gwe, share, rrp, acols, seg_cap, S, direct, dglob))), None)
-            if S is None:
-                continue
-            if limit is None:
-                limit = max(n_qb * n_seg, 8 * SM90_SMS)
-            costs = []
-            for seg in range(n_seg):
-                t = (seg + 1) * K // n_seg - seg * K // n_seg
-                costs += [t * (spt * step_us + alr_us) + 6.0] * n_qb
-            planes = Bp * row_us * (1 if n_seg == 1 else 2 * n_seg + 1)
-            key = (n_qb * n_seg < want, _makespan(costs, SM90_SMS) + planes)
-            if best is None or key < best[0]:
-                best = (key, PartsPlan(n_seg, seg_cap, S, direct, dglob))
         if best is not None:
             break
     if best is None:
@@ -2065,7 +2100,7 @@ def _parts_shapes(q_cat, k_cat, mask_neg, idx, g_cat, g_vw, z, *, sem_d: int,
             or not _gpt_ok(gpt)
             or ((eg, ng) not in _PARTS_PAIRS and math.gcd(gsz, 64) > 1)
             or (eg * gsz % _PARTS_STEP and eg != gpt) or kf % 16
-            or kf > 256 or gwe % 16 or gwe > 256 or cols.start % 8
+            or kf > DEEP_MAX or gwe % 16 or gwe > DEEP_MAX or cols.start % 8
             or qcols.start % 8 or gw % 8 or cat_d % 8 or W % 128
             or rrp not in (128, 256) or not 0 <= lrr < W
             or (not lr and lrr % 4) or z.shape[0] != N or g_vw.shape[0] != G
@@ -2114,7 +2149,7 @@ def _parts_family_rr(q_cat, k_cat, mask_neg, idx, g_cat, g_vw, z, *,
     dwork = (torch.empty(Bp // 64 * plan.n_seg * plan.seg_cap * gpt * 128,
                          dtype=torch.uint8, device=dev) if plan.dglob else None)
     lay = _parts_layout(K, bn, gpt, sh["kf"], sh["gwe"], sh["share"], rrp, sh["acols"],
-                        plan.seg_cap, plan.S, plan.direct, plan.dglob)
+                        plan.seg_cap, plan.S, plan.direct, plan.dglob, plan.res)
     lay = (ctypes.c_int * len(lay))(*lay)
     held = [t.contiguous() for t in ops.values()]  # referenced until queued
     ptr = [t.data_ptr() for t in held] + [out.data_ptr(),
@@ -2147,7 +2182,7 @@ class ValuesLayout(NamedTuple):
     box's, aux's (mask and scales, or a chunk's counts) and value boxes'
     offsets (a step's int8 codes land in the second half of its value
     boxes' memory), the warpgroups' e tiles and the size of one, the tile
-    list, the barriers, the total."""
+    list, the barriers, the total; the sem boxes resident a query half."""
     bmb: int
     S: int
     qhalf: int
@@ -2163,63 +2198,81 @@ class ValuesLayout(NamedTuple):
     lst: int
     bars: int
     total: int
+    qres: int
 
 
 def _values_layout(K: int, bmb: int, kb: int, kbs: int, kbg: int, has_kg: bool,
-                   egmax: int, S: int) -> ValuesLayout:
+                   egmax: int, S: int, i8: bool = False,
+                   qres: Optional[int] = None) -> ValuesLayout:
     """The values kernel's layout: kb sem boxes (64 rows of 64 bf16
     columns, 8 KB) a query half and a step, kbs sel boxes a half, kbg
     centroid boxes a chunk, the geo box (2 KB) where a family is geo, e
-    tiles of egmax columns."""
+    tiles of egmax columns.  Deep (sem logits over more than PASS_BOXES
+    boxes): a stage holds one pass's PASS_BOXES boxes, or in their place
+    the payload's value boxes (va = 0), with ``i8`` the step's 16 KB of
+    codes past them, then the geo box and aux; ``qres`` (deep, 64 queries a
+    block; default kb) sem boxes of the query half resident, the passes
+    past them taking 2 key boxes and their 2 query boxes a stage."""
     box = 8192
-    qgeo = kb * box
+    qres = kb if qres is None else qres
+    qgeo = qres * box
     qsel = qgeo + (2048 if has_kg else 0)
     qhalf = _round_up(qsel + kbs * box, 1024)
     ring = bmb // 64 * qhalf
-    kg = max(kb, kbg) * box
+    deep = kb > PASS_BOXES or kbs > PASS_BOXES
+    kg = (PASS_BOXES * box + (64 * _VALUES_DVS if i8 else 0)) if deep else max(kb, kbg) * box
     aux = kg + (2048 if has_kg else 0)
-    va = aux + 1024
-    stage = va + 4 * box
+    va = 0 if deep else aux + 1024
+    stage = aux + 1024 if deep else va + 4 * box
     e = ring + S * stage
     etile = egmax // 16 * 2048
     lst = e + 2 * etile
     bars = lst + _round_up(4 * K, 16)
     total = bars + 8 * (1 + 2 * S) + 16 + 1024
     return ValuesLayout(bmb, S, qhalf, qgeo, qsel, ring, stage, kg, aux, va, e, etile, lst,
-                        bars, total)
+                        bars, total, qres)
 
 
 class ValuesPlan(NamedTuple):
     """128 or 64 queries a block (``bmb``), ``n_seg`` segments of each
     list (segment s a block's distinct entries [s n / n_seg, (s + 1) n /
-    n_seg)), ``S`` ring stages."""
+    n_seg)), ``S`` ring stages, ``qres`` sem query boxes resident."""
     bmb: int
     n_seg: int
     S: int
+    qres: Optional[int] = None
 
 
 @functools.lru_cache(maxsize=256)
 def _values_plan(Bp: int, K: int, bn: int, bm: int, Dv: int, Wa: int, two: bool,
-                 kb: int, kbs: int, kbg: int, has_kg: bool, egmax: int,
+                 kb: int, kbs: int, kbg: int, has_kg: bool, egmax: int, i8: bool = False,
                  rows_max: int = PARTS_ROWS_MAX) -> ValuesPlan:
     """The values kernel's plan, a function of the shape alone: 128 queries
     a block (the two halves of a selection block, one list) where the
     launch has one family, bm allows it and the layout fits, else 64; the
-    deepest ring of 4, 3, 2 stages that fits; segments of whole tiles, none
+    deepest ring of 4, 3, 2 stages that fits; where no layout with every
+    sem query box resident fits (deep), 64 queries and the most resident
+    boxes, a multiple of 4, that fit with any ring; segments of whole tiles, none
     over ``rows_max`` rows (one wgmma accumulation chain), and as many more
     as the card's 132 SMs need a block each where the lists allow it (the
     value slices ceil(Dv / 256) and the alr slices ceil(Wa / 256) of every
-    query block and segment are a block each).  lru-cached: serving asks
-    for the same few shapes."""
-    slices = -(-Dv // _VALUES_DVS) + -(-Wa // _VALUES_DVS)
-    for bmb in ((128, 64) if not two and bm % 128 == 0 else (64,)):
+    query block and segment are a block each; deep, one family: a pair of
+    them, a warpgroup each).  lru-cached: serving asks for the same few
+    shapes."""
+    nsl, na = -(-Dv // _VALUES_DVS), -(-Wa // _VALUES_DVS)
+    deep = kb > PASS_BOXES or kbs > PASS_BOXES
+    slices = -(-nsl // 2) + -(-na // 2) if deep and not two else nsl + na
+    fits = [(bmb, kb) for bmb in ((128, 64) if not two and bm % 128 == 0 else (64,))]
+    if deep:
+        fits += [(64, r) for r in range((kb - 1) // PASS_BOXES * PASS_BOXES, 0, -PASS_BOXES)]
+    for bmb, qres in fits:
         S = next((S for S in (4, 3, 2) if _values_layout(
-            K, bmb, kb, kbs, kbg, has_kg, egmax, S).total <= _SM90_MAX_SMEM), None)
+            K, bmb, kb, kbs, kbg, has_kg, egmax, S, i8, qres).total <= _SM90_MAX_SMEM), None)
         if S is None:
             continue
         blocks = Bp // bmb * slices
         n_seg = max(-(-K // max(1, rows_max // bn)), min(K, -(-SM90_SMS // blocks)))
-        return ValuesPlan(bmb, n_seg, S)
+        return ValuesPlan(bmb, n_seg, S, qres)
     raise ValueError(f"hier_parts kernel: unsupported shapes: no block of the values kernel "
                      f"holds sem boxes {kb}, sel boxes {kbs} and {egmax}-group chunks")
 
@@ -2275,7 +2328,7 @@ def _values_sm90(name: str, q_cat, k_cat, values, scale, mask_neg, idx, fam0, fa
     if (k_cat.shape != (N, cat_d) or mask_neg.shape != (1, N)
             or (scale is not None and scale.shape != (1, N))
             or Bp != nB * bm or bm % 64 or bn < 32 or bn % 32 or N % bn or N == 0
-            or not 16 <= sem_d <= 256 or sem_d % 16 or sem_d + 16 > cat_d or cat_d % 8
+            or not 16 <= sem_d <= DEEP_MAX or sem_d % 16 or sem_d + 16 > cat_d or cat_d % 8
             or Dv % 16 or Dv == 0 or not fams
             or not fam_ok(geo0, lr, gpt0, G0, gw0, W0, vw0)):
         raise ValueError(
@@ -2294,10 +2347,11 @@ def _values_sm90(name: str, q_cat, k_cat, values, scale, mask_neg, idx, fam0, fa
     kbg = 0 if geo0 else kbs if sel else kb
     has_kg = two or geo0
     egmax = max(_values_eg(gpt0), _values_eg(gpt1) if two else 0)
-    plan = plan or _values_plan(Bp, K, bn, bm, Dv, Wa, two, kb, kbs, kbg, has_kg, egmax)
+    i8 = scale is not None
+    plan = plan or _values_plan(Bp, K, bn, bm, Dv, Wa, two, kb, kbs, kbg, has_kg, egmax, i8)
     if n_seg:
         plan = plan._replace(n_seg=n_seg)
-    lay = _values_layout(K, plan.bmb, kb, kbs, kbg, has_kg, egmax, plan.S)
+    lay = _values_layout(K, plan.bmb, kb, kbs, kbg, has_kg, egmax, plan.S, i8, plan.qres)
     lay = (ctypes.c_int * len(lay))(*lay)
     work = (torch.empty(plan.n_seg * Bp * out_w, dtype=f32, device=q_cat.device)
             if plan.n_seg > 1 else None)
@@ -2321,7 +2375,6 @@ _hier_parts_family_call.dedup_launches = 0
 _hier_parts_family_call.sel_rr_launches = 0
 _hier_parts_family_call.dedup_rr_launches = 0
 _hier_parts_family_call.f32_launches = 0
-_hier_parts_family_call.deep_launches = 0
 
 
 def _rows_shapes(name: str, k_cat, mask_neg, idx, x, *, bn: int, scale=None) -> None:
@@ -2496,11 +2549,12 @@ def _hier_parts_call(q_cat, k_cat, values, scale, mask_neg, idx, g_sem_cat,
     CPU tensors: `_hier_parts_plain`.  CUDA tensors: the Hopper values
     kernel `csrc/hier_parts_sm90.cu` over `_values_plan`'s segments, which
     replaces `_hier_parts_kernel` (`range_tpu/ops/retrieval_hier.py:
-    2515`), on bf16 operands of at most 256 logit columns; f32 operands and
-    deeper logits on the CUDA-core body (`_parts_cores`, counted in
-    ``.f32_launches`` / ``.deep_launches`` besides ``.launches``).  A shape
-    it does not take raises ValueError before any launch, a launch failure
-    raises.  The ``lr=False`` launches of the Hopper body also count in
+    2515`), on bf16 operands of up to DEEP_MAX logit columns (over 256 in
+    passes of 256, the query columns past what a block holds beside the
+    ring streamed with passes of 128); f32 operands on the CUDA-core body (`_parts_cores`,
+    counted in ``.f32_launches`` besides ``.launches``).  A shape it does
+    not take raises ValueError before any launch, a launch failure raises.
+    The ``lr=False`` launches of the Hopper body also count in
     ``.plain_launches``."""
     if q_cat.device.type == "cpu":
         return _hier_parts_plain(q_cat, k_cat, values, scale, mask_neg, idx,
@@ -2508,13 +2562,13 @@ def _hier_parts_call(q_cat, k_cat, values, scale, mask_neg, idx, g_sem_cat,
                                  sem_d=sem_d, bm=bm, bn=bn, gpt_s=gpt_s,
                                  gpt_g=gpt_g, geo=geo, lr=lr)
     geo_ops = (g_geo_cat, g_geo_vw) if geo else ()
-    form = _cores_form(sem_d, q_cat, k_cat, values, g_sem_cat, g_sem_vw, *geo_ops)
-    if form:
+    if any(t is not None and t.dtype == torch.float32
+           for t in (q_cat, k_cat, values, g_sem_cat, g_sem_vw, *geo_ops)):
         out = _parts_cores(q_cat, k_cat, values, scale, mask_neg, idx, g_sem_cat, g_geo_cat,
                            g_sem_vw, g_geo_vw, sem_d=sem_d, bm=bm, bn=bn, gpt_s=gpt_s,
                            gpt_g=gpt_g, lr=lr, geo=geo)
         if q_cat.shape[0] and idx.shape[1]:
-            _count_cores(_hier_parts_call, form)
+            _count_cores(_hier_parts_call, "f32")
         return out
     out = _values_sm90("hier_parts", q_cat, k_cat, values, scale, mask_neg, idx,
                        (g_sem_cat, g_sem_vw, gpt_s),
@@ -2530,7 +2584,6 @@ def _hier_parts_call(q_cat, k_cat, values, scale, mask_neg, idx, g_sem_cat,
 _hier_parts_call.launches = 0
 _hier_parts_call.plain_launches = 0
 _hier_parts_call.f32_launches = 0
-_hier_parts_call.deep_launches = 0
 
 
 def _parts_cores(q_cat, k_cat, values, scale, mask_neg, idx, g_sem_cat, g_geo_cat, g_sem_vw,
@@ -2871,28 +2924,53 @@ class KlistPlan(NamedTuple):
     S: int
 
 
+KLIST_PASS_BOXES = 4  # key boxes (64 columns) the top-k kernel's chain takes in one pass
+KLIST_DEEP_BOXES = 2  # past them, key boxes of a pass: 128 columns
+KLIST_DK_MAX = 512    # key columns it takes: four passes
+
+
+def _klist_pass_boxes(Dk: int) -> int:
+    """Key boxes of one pass (a ring stage's) of the top-k kernel's chain."""
+    kb = -(-Dk // 64)
+    return kb if kb <= KLIST_PASS_BOXES else KLIST_DEEP_BOXES
+
+
+def _klist_passes(Dk: int) -> int:
+    """Passes a step of the top-k kernel takes: 1 up to 256 columns, else
+    one per 128."""
+    return -(-(-(-Dk // 64)) // _klist_pass_boxes(Dk))
+
+
 def _klist_smem(bmb: int, Dk: int, S: int) -> int:
     """Shared memory of a top-k block (`layout` in csrc/hier_argmax_sm90.cu):
-    each query half's ql boxes, S stages of kh and kl boxes (64 rows of 64
-    columns, 8 KB each), their masks, each consumer warp's 2 KB scratch,
-    the barriers, the alignment slack."""
+    each query half's ql boxes (every one of the key width's), S stages of
+    one pass's kh and kl boxes (64 rows of 64 columns, 8 KB each:
+    `_klist_pass_boxes` of each), their masks, each consumer warp's 2 KB
+    scratch, the barriers, the alignment slack."""
     box = KLIST_BN * 128
     kb = -(-Dk // 64)
-    return (bmb // 64 * (kb * box + 4 * 2048) + S * (2 * kb * box + KLIST_BN * 4)
+    kbs = _klist_pass_boxes(Dk)
+    return (bmb // 64 * (kb * box + 4 * 2048) + S * (2 * kbs * box + KLIST_BN * 4)
             + 8 * (1 + 2 * S) + 1024)
 
 
 @functools.lru_cache(maxsize=256)
 def _klist_plan(Bp: int, bm: int, K: int, bn: int, Dk: int, k: int) -> KlistPlan:
     """The top-k kernel's plan, a function of the shape alone: 128 queries
-    a block where bm allows it; the deepest ring of 4, 3, 2 stages that
-    fits; the segment count of least modelled time, ties to the fewest:
-    waves of blocks on the card's 132 SMs (one block an SM) times a
-    block's steps plus its start-up (KLIST_STARTUP_STEPS).  k does not
-    change it.  lru-cached: serving asks for the same few shapes."""
-    bmb = 128 if bm % 128 == 0 else 64
-    S = next(S for S in (4, 3, 2) if _klist_smem(bmb, Dk, S) <= _SM90_MAX_SMEM)
-    n_qb, spt = Bp // bmb, -(-bn // KLIST_BN)
+    a block where bm allows it and a ring of 2 stages fits beside them
+    (every width up to 512 columns), else 64; the deepest ring of 4, 3,
+    2 stages that fits; the segment count of least modelled time, ties to
+    the fewest: waves of blocks on the card's 132 SMs (one block an SM)
+    times a block's steps (each its `_klist_passes` ring items) plus its
+    start-up (KLIST_STARTUP_STEPS).  k does not change it.  lru-cached:
+    serving asks for the same few shapes."""
+    for bmb in ((128, 64) if bm % 128 == 0 else (64,)):
+        S = next((S for S in (4, 3, 2) if _klist_smem(bmb, Dk, S) <= _SM90_MAX_SMEM), None)
+        if S is not None:
+            break
+    else:
+        raise ValueError(f"hier_argmax kernel: no block holds {Dk}-column keys")
+    n_qb, spt = Bp // bmb, -(-bn // KLIST_BN) * _klist_passes(Dk)
 
     def cost(n):
         return -(-n_qb * n // SM90_SMS) * (-(-K // n) * spt + KLIST_STARTUP_STEPS)
@@ -2916,7 +2994,7 @@ def _klist_kernel(entry: str, q2, ql, khl, mask_neg, idx, *, Dk: int, k: int,
     if (q2.shape != (Bp, 2 * Dk) or ql.shape != (Bp, Dk)
             or khl.shape != (N, 2 * Dk) or mask_neg.shape != (1, N)
             or Bp != nB * bm or bm % 64 or bn < 32 or bn % 32 or N % bn or N == 0
-            or Dk % 8 or not 8 <= Dk <= 256 or K < 1 or not 1 <= k <= 8):
+            or Dk % 8 or not 8 <= Dk <= KLIST_DK_MAX or K < 1 or not 1 <= k <= 8):
         raise ValueError(
             f"hier_argmax kernel: unsupported shapes q2 {tuple(q2.shape)}, "
             f"ql {tuple(ql.shape)}, khl {tuple(khl.shape)}, idx "

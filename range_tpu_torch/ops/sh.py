@@ -215,22 +215,27 @@ def _fourier_synthesis_inputs(lonlat_deg: torch.Tensor, L: int):
 
 # The plans as tensors, cached per device so that a call copies nothing from
 # the host (a host-to-device copy would stall the caller on every request).
+# Built outside inference mode whatever the caller's mode (serving runs
+# under it): a cached inference tensor would break autograd for every later
+# caller that trains.
 @functools.lru_cache(maxsize=32)
 def _fourier_table(L: int, dtype: torch.dtype, device: torch.device,
                    transposed: bool = False) -> torch.Tensor:
     """`_sh_fourier_plan(L)` ([2L, L*L], or its transpose) on ``device``."""
     t = _sh_fourier_plan(L)
-    return torch.as_tensor(np.ascontiguousarray(t.T if transposed else t),
-                           dtype=dtype, device=device)
+    with torch.inference_mode(False):
+        return torch.as_tensor(np.ascontiguousarray(t.T if transposed else t),
+                               dtype=dtype, device=device)
 
 
 @functools.lru_cache(maxsize=32)
 def _fold_index(L: int, convention: str, device: torch.device):
     """`_sh_times_plan` as (j, p, scale) tensors on ``device``."""
-    return [(torch.as_tensor(j_idx, dtype=torch.long, device=device),
-             torch.as_tensor(p_idx, dtype=torch.long, device=device),
-             torch.as_tensor(sc, dtype=torch.float64, device=device))
-            for j_idx, p_idx, sc in _sh_times_plan(L, convention)]
+    with torch.inference_mode(False):
+        return [(torch.as_tensor(j_idx, dtype=torch.long, device=device),
+                 torch.as_tensor(p_idx, dtype=torch.long, device=device),
+                 torch.as_tensor(sc, dtype=torch.float64, device=device))
+                for j_idx, p_idx, sc in _sh_times_plan(L, convention)]
 
 
 def _fold_first_layer(w: torch.Tensor, L: int, convention: str,

@@ -753,6 +753,44 @@ def test_klist_sm90_matches_plain(cuda, shape, k):
         assert not ((gr != rr) & ((rival - rs.double()).abs() > KLIST_TOL)).any()
 
 
+# keys wider than 256 columns (passes of 128): 264 (a partial last box), 384,
+# 512, at each selection block size and a tile of a masked last step
+KLIST_WIDE_SHAPES = [(128, 512, 264, 24, 30), (256, 96, 384, 24, 40), (64, 512, 512, 24, 24),
+                     (128, 96, 512, 144, 150), (256, 512, 264, 1, 2)]
+
+
+@pytest.mark.parametrize("k", [1, 2, 8])
+@pytest.mark.parametrize("shape", KLIST_WIDE_SHAPES,
+                         ids=lambda s: "bm{}-bn{}-Dk{}-K{}-T{}".format(*s))
+def test_klist_sm90_wide_keys(cuda, shape, k):
+    """Keys of 264, 384 and 512 columns: each step's logits in passes of
+    128 columns (the pass's kh and kl through the ring, its qh fragments
+    loaded for it, one accumulator), over the plan's segments and one
+    segment a tile:
+    scores within KLIST_TOL of the plain version's, rows equal outside
+    near-ties; the argmax and the top-k through their wrappers, one count
+    each."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    bm, bn, Dk, K, T = shape
+    args = _klist_random(cuda, nB=3, bm=bm, bn=bn, Dk=Dk, K=K, T=T, seed=100 * k + Dk)
+    kw = dict(Dk=Dk, bm=bm, bn=bn)
+    plan = rh._klist_plan(3 * bm, bm, K, bn, Dk, k)
+    assert rh._klist_smem(plan.bmb, Dk, plan.S) <= rh._SM90_MAX_SMEM
+    for p in (plan, plan._replace(n_seg=K)):
+        (gs, gr), (rs, rr) = _klist_call(args, kw, k, p)
+        torch.cuda.synchronize()
+        assert gr.dtype == torch.int32 and gr.shape == rr.shape == (3 * bm, k)
+        torch.testing.assert_close(gs, rs, rtol=0, atol=KLIST_TOL)
+        rival = _row_logits(args[0], args[1], args[2], args[3], gr)
+        assert not ((gr != rr) & ((rival - rs.double()).abs() > KLIST_TOL)).any()
+    fn = rh._hier_argmax_call if k == 1 else rh._hier_topk_call
+    n0 = fn.launches
+    got = fn(*args, **kw) if k == 1 else fn(*args, k=k, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 1 and got[1].shape[0] == 3 * bm
+
+
 @pytest.mark.parametrize("k", [1, 2, 4, 8])
 @pytest.mark.parametrize("form", ["base", "bn96", "segments"])
 def test_klist_kernels_tie_rules(cuda, k, form):
@@ -801,14 +839,14 @@ def test_klist_kernels_tie_rules(cuda, k, form):
 
 def test_klist_sm90_rejects_shapes_before_a_launch(cuda):
     """Shapes the Hopper body does not take raise ValueError before any
-    launch: key widths of no multiple of 8 or over 256, a query block of no
-    multiple of 64, tiles of no multiple of 32 rows, k outside 1..8, an
-    empty list; no launch count moves."""
+    launch: key widths of no multiple of 8 (260, 12) or over 512, a query
+    block of no multiple of 64, tiles of no multiple of 32 rows, k outside
+    1..8, an empty list; no launch count moves."""
     from range_tpu_torch.ops import retrieval_hier as rh
 
     counts = (rh._hier_argmax_call.launches, rh._hier_topk_call.launches)
-    cases = [dict(Dk=260), dict(Dk=12), dict(bm=96), dict(bn=48), dict(k=9), dict(k=0),
-             dict(K=0)]
+    cases = [dict(Dk=260), dict(Dk=12), dict(Dk=520), dict(bm=96), dict(bn=48), dict(k=9),
+             dict(k=0), dict(K=0)]
     for case in cases:
         c = dict(dict(bm=64, bn=64, Dk=64, K=2, k=2), **case)
         Dk, bm, bn = c["Dk"], c["bm"], c["bn"]
@@ -2188,9 +2226,11 @@ def test_scan_sm90_plans_agree(cuda, form):
 
 
 def _rr_operands(cuda, *, Bp, bm, bn, gpt, K, T, rrp=128, W=384, lr=True, sel=0, seed=0,
-                 Dv=1024, geo=False):
-    """Random operands of kernel 14's rr shapes: 256 sem + 128 geo packed
-    columns (9 real geo ones), T tiles of bn rows and gpt groups, each
+                 Dv=1024, geo=False, sem=256):
+    """Random operands of kernel 14's rr shapes: ``sem`` (256; the `high`
+    tier's 768) sem + 128 geo packed columns (9 real geo ones; the sem ones
+    scaled so that a logit's spread is the 256 columns'), T tiles of bn
+    rows and gpt groups, each
     query block's list K distinct tiles, z [N, rrp], vw [G, W] with the
     group's row count in column lrr (lr: W - 128 coefficients; rr: the
     full-width sums, lrr = Dv), the last 7 rows of the bank masked; with
@@ -2203,10 +2243,11 @@ def _rr_operands(cuda, *, Bp, bm, bn, gpt, K, T, rrp=128, W=384, lr=True, sel=0,
             cuda).bfloat16()
 
     N, G = T * bn, T * gpt
-    q = bf((Bp, 384 + sel), 0.35)
-    k = bf((N, 384), 0.35)
-    q[:, 265:384] = 0
-    k[:, 265:384] = 0
+    sc = 0.35 * (256 / sem) ** 0.5
+    q = bf((Bp, sem + 128 + sel), sc)
+    k = bf((N, sem + 128), sc)
+    q[:, sem + 9:sem + 128] = 0
+    k[:, sem + 9:sem + 128] = 0
     mask = torch.zeros(1, N, device=cuda)
     mask[0, -7:] = -1e30
     idx = torch.from_numpy(np.stack([rng.permutation(T)[:K] for _ in range(Bp // bm)]).astype(
@@ -2216,7 +2257,7 @@ def _rr_operands(cuda, *, Bp, bm, bn, gpt, K, T, rrp=128, W=384, lr=True, sel=0,
     vw[:, lrr] = float(bn // gpt)
     vw[:, lrr + 1:] = 0
     z = bf((N, rrp), 1.0)
-    g = bf((G, 128 if geo else sel or 256), 0.35)
+    g = bf((G, 128 if geo else sel or sem), sc)
     if geo:
         g[:, 9:] = 0
     return (q, k, mask, idx, g, vw, z), lrr
@@ -2260,6 +2301,67 @@ def test_parts_sm90_matches_plain(cuda, form, gpt):
     assert (fam.launches, fam.rrlr_launches, fam.rr_launches) == (
         n0[0] + 1, n0[1] + int(lr), n0[2] + int(not lr))
     _hold_rr(got, args, kw)
+
+
+# logits deeper than 256 columns: the `high` tier's 768 sem columns (three
+# passes of 256), a wide-key bank's 384 and 1,024 at `fast` (1,024 with
+# int8 codes, and the rr shapes, keep 12 or 8 query boxes resident and
+# stream the rest) and the `high` tier of 384-d keys (1,152 columns)
+DEEP_SEMS = [768, 384, 1024, 1152]
+
+
+@pytest.mark.parametrize("sem", DEEP_SEMS)
+@pytest.mark.parametrize("form", ["rrlr", "rr", "sel", "dedup", "geo"])
+@pytest.mark.parametrize("gpt", [32, 64])
+def test_parts_sm90_deep_matches_plain(cuda, form, gpt, sem):
+    """Kernel 14's rr shapes over sem columns past 256 on the Hopper body:
+    the row logits (and the sem family's group logits) in passes of 256
+    columns, the accumulator carried; the geo family's logits at the sem
+    columns' end.  Held to the plain version under the terms rule
+    (`_hold_rr`: bf16 flips in at most max(7, B / 100) rows) over a plan of
+    several segments; one count of `.launches` and of its shape's
+    counter."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    lr = form != "rr"
+    args, lrr = _rr_operands(cuda, Bp=384, bm=128, bn=512, gpt=gpt, K=12, T=20,
+                             W=384 if lr else 1152, lr=lr, sel=64 if form == "sel" else 0,
+                             seed=gpt + sem, geo=form == "geo", sem=sem)
+    kw = dict(sem_d=sem, bm=128, bn=512, gpt=gpt, geo=form == "geo", lrr=lrr, lr=lr,
+              sel=form == "sel")
+    if form == "dedup":
+        idx = args[3]
+        args = args[:3] + (torch.cat([idx[:, :3], idx[:, 2:3], idx[:, 3:9], idx[:, 8:9].repeat(
+            1, 3)], 1).contiguous(),) + args[4:]
+        kw.update(dedup_pad=True)
+    fam = rh._hier_parts_family_call
+    n0 = (fam.launches, fam.rrlr_launches, fam.rr_launches, fam.f32_launches)
+    got = fam(*args, **kw, geo_cols=9 if form == "geo" else None)
+    again = fam(*args, **kw, geo_cols=9 if form == "geo" else None)
+    torch.cuda.synchronize()
+    assert (fam.launches, fam.rrlr_launches, fam.rr_launches, fam.f32_launches) == (
+        n0[0] + 2, n0[1] + 2 * int(lr), n0[2] + 2 * int(not lr), n0[3])
+    assert torch.equal(got, again)
+    _hold_rr(got, args, kw)
+
+
+def test_parts_sm90_deep_plans_agree(cuda):
+    """The flagship's `high` shape (768 columns, 32 groups a tile of 512
+    rows, 32 tiles a list) over the plan's segments and over one tile a
+    segment: each holds the plain version."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    args, lrr = _rr_operands(cuda, Bp=1024, bm=128, bn=512, gpt=32, K=32, T=40, sem=768)
+    kw = dict(sem_d=768, bm=128, bn=512, gpt=32, geo=False, lrr=lrr, lr=True, sel=False,
+              dedup_pad=False)
+    sh = rh._parts_shapes(*args, **{k: v for k, v in kw.items() if k != "dedup_pad"})
+    plan = rh._parts_plan(1024, 32, 512, 32, sh["kf"], sh["gwe"], sh["share"], 128,
+                          sh["acols"], sh["out_w"])
+    outs = [rh._parts_family_rr(*args, **kw, plan=p)
+            for p in (plan, plan._replace(n_seg=32, seg_cap=1))]
+    torch.cuda.synchronize()
+    for got in outs:
+        _hold_rr(got, args, kw)
 
 
 @pytest.mark.parametrize("lr", [True, False], ids=["rrlr", "rr"])
@@ -2674,9 +2776,11 @@ def test_odd_group_banks_serve(cuda, bn, gsz_sem, gsz_geo, name, bar):
 
 
 def _values_operands(cuda, *, Bp, bm, bn, K, T, gpt_s, gpt_g=8, Dv=1024, W=256, sel=0, seed=0,
-                     i8=False):
-    """Random operands of the values kernel: 256 sem + 128 geo packed
-    columns (9 real geo ones), T tiles of bn rows, gpt_s sem and gpt_g geo
+                     i8=False, sem=256):
+    """Random operands of the values kernel: ``sem`` (256; the `high`
+    tier's 768) sem + 128 geo packed columns (9 real geo ones; the sem ones
+    scaled so that a logit's spread is the 256 columns'), T tiles of bn
+    rows, gpt_s sem and gpt_g geo
     groups a tile, each query block's list K distinct tiles, values [N,
     Dv] (int8 codes and a row scale with ``i8``), the last 7 bank rows
     masked; the sem centroids [Gs, 256] (``sel``: [Gs, sel], the query
@@ -2691,10 +2795,11 @@ def _values_operands(cuda, *, Bp, bm, bn, K, T, gpt_s, gpt_g=8, Dv=1024, W=256, 
             cuda).bfloat16()
 
     N, Gs, Gg = T * bn, T * gpt_s, T * gpt_g
-    q = bf((Bp, 384 + sel), 0.35)
-    k = bf((N, 384), 0.35)
-    q[:, 265:384] = 0
-    k[:, 265:384] = 0
+    sc = 0.35 * (256 / sem) ** 0.5
+    q = bf((Bp, sem + 128 + sel), sc)
+    k = bf((N, sem + 128), sc)
+    q[:, sem + 9:sem + 128] = 0
+    k[:, sem + 9:sem + 128] = 0
     mask = torch.zeros(1, N, device=cuda)
     mask[0, -7:] = -1e30
     if i8:
@@ -2711,7 +2816,7 @@ def _values_operands(cuda, *, Bp, bm, bn, K, T, gpt_s, gpt_g=8, Dv=1024, W=256, 
         vw[:, Dv + 1:] = 0
         return vw
 
-    g_sem = bf((Gs, sel or 256), 0.35)
+    g_sem = bf((Gs, sel or sem), sc)
     g_geo = bf((Gg, 128), 0.35)
     g_geo[:, 9:] = 0
     return dict(q=q, k=k, values=values, scale=scale, mask=mask, idx=idx, g_sem=g_sem,
@@ -2722,14 +2827,15 @@ def _values_operands(cuda, *, Bp, bm, bn, K, T, gpt_s, gpt_g=8, Dv=1024, W=256, 
 def _merged_call(o, *, bm, bn, gpt_s, gpt_g, lr, geo):
     args = (o["q"], o["k"], o["values"], o["scale"], o["mask"], o["idx"], o["g_sem"],
             o["g_geo"], o["vw_lr"] if lr else o["vw_sem"], o["vw_geo"])
-    return args, dict(sem_d=256, bm=bm, bn=bn, gpt_s=gpt_s, gpt_g=gpt_g, lr=lr, geo=geo)
+    return args, dict(sem_d=o["k"].shape[1] - 128, bm=bm, bn=bn, gpt_s=gpt_s, gpt_g=gpt_g,
+                      lr=lr, geo=geo)
 
 
 def _family_call(o, *, bm, bn, gpt, lr, geo, sel=False, dedup=False):
     g = o["g_geo"] if geo else o["g_sem"]
     vw = (o["vw_geo_lr"] if geo else o["vw_lr"]) if lr else (o["vw_geo"] if geo else o["vw_sem"])
     args = (o["q"], o["k"], o["mask"], o["idx"], g, vw, None)
-    return args, dict(sem_d=256, bm=bm, bn=bn, gpt=gpt, geo=geo, lrr=0, lr=lr,
+    return args, dict(sem_d=o["k"].shape[1] - 128, bm=bm, bn=bn, gpt=gpt, geo=geo, lrr=0, lr=lr,
                       values=o["values"], scale=o["scale"], sel=sel, dedup_pad=dedup)
 
 
@@ -2755,14 +2861,14 @@ VALUE_FORMS = ["merged_lr", "merged_lr_geo", "merged_plain", "merged_plain_geo",
                "family_sel_lr", "family_sel_plain", "family_dedup_lr", "family_dedup_plain"]
 
 
-def _values_form(cuda, form, *, Bp, bm, bn, K, T, gpt, i8, seed, Dv=1024, W=256):
+def _values_form(cuda, form, *, Bp, bm, bn, K, T, gpt, i8, seed, Dv=1024, W=256, sem=256):
     """Operands, keywords, the wrapper and the plain version of one form."""
     from range_tpu_torch.ops import retrieval_hier as rh
 
     geo = form.endswith("geo")
     gpt_g = gpt if geo and form.startswith("family") else 8
     o = _values_operands(cuda, Bp=Bp, bm=bm, bn=bn, K=K, T=T, gpt_s=gpt, gpt_g=gpt_g, Dv=Dv,
-                         W=W, sel=64 if "sel" in form else 0, seed=seed, i8=i8)
+                         W=W, sel=64 if "sel" in form else 0, seed=seed, i8=i8, sem=sem)
     lr = "lr" in form
     if form.startswith("merged"):
         args, kw = _merged_call(o, bm=bm, bn=bn, gpt_s=gpt, gpt_g=8, lr=lr, geo=geo)
@@ -2792,6 +2898,115 @@ def test_values_sm90_matches_plain(cuda, form, quant):
     torch.cuda.synchronize()
     assert torch.equal(got, again)
     _hold_values(got, plain(*args, **kw), plain(*args, **kw, magnitude=True), args, kw)
+
+
+@pytest.mark.parametrize("sem", DEEP_SEMS)
+@pytest.mark.parametrize("quant", ["bf16", "int8"])
+@pytest.mark.parametrize("form", VALUE_FORMS)
+def test_values_sm90_deep_matches_plain(cuda, form, quant, sem):
+    """Every form of kernel 15 and of kernel 14's value shapes with sem
+    logits (row and group) over more than 256 columns on the values
+    kernel's Hopper body: each step and each sem chunk in passes of 256
+    columns (ring items of their own, the accumulator carried), then its
+    payload; against the plain version, deterministic, two counts of
+    `.launches` and none on the CUDA-core body.  1,024 queries, as
+    chip_smoke's B = 1,000 request: the deeper f32 chain moves a bf16(e)
+    over its rounding boundary more often than 256 columns do (one form's
+    d column at 768 columns: 5 of 384 rows past the row cap, 4 of 1,024,
+    each within 0.7% of its flip bound), against max(2, B / 100) rows."""
+    args, kw, call, plain = _values_form(cuda, form, Bp=1024, bm=128, bn=512, K=12, T=24,
+                                         gpt=32, i8=quant == "int8", seed=len(form) + sem,
+                                         sem=sem)
+    n0 = (call.launches, call.f32_launches)
+    got = call(*args, **kw)
+    again = call(*args, **kw)
+    torch.cuda.synchronize()
+    assert (call.launches, call.f32_launches) == (n0[0] + 2, n0[1])
+    assert torch.equal(got, again)
+    _hold_values(got, plain(*args, **kw), plain(*args, **kw, magnitude=True), args, kw)
+
+
+@pytest.mark.parametrize("form", ["merged_plain_geo", "merged_lr", "family_plain_sem",
+                                  "family_sel_lr"])
+@pytest.mark.parametrize("bn,gpt", [(512, 8), (512, 16), (512, 64), (512, 128), (96, 8)])
+def test_values_sm90_deep_groupings(cuda, bn, gpt, form):
+    """The `high` tier's 768 columns at chunks of 8 to 64 groups (centroid
+    passes of 64 rows, e over the chunk's), two chunks a tile, and 96-row
+    tiles (a masked last step)."""
+    args, kw, call, plain = _values_form(cuda, form, Bp=256, bm=128, bn=bn, K=8,
+                                         T=12, gpt=gpt, i8=False, seed=gpt + bn, sem=768)
+    got = call(*args, **kw)
+    torch.cuda.synchronize()
+    _hold_values(got, plain(*args, **kw), plain(*args, **kw, magnitude=True), args, kw)
+
+
+@pytest.mark.parametrize("sem", [1280, 2048])
+def test_parts_deep_streams_past_the_resident_boxes(cuda, sem):
+    """Past what a block holds beside the ring (1,280 columns, the
+    CUDA-core body's widest, and 2,048) both parts kernels keep their first
+    boxes resident (a multiple of 4, fewer than the logits') and stream the
+    rest, two boxes a pass with their query boxes: kernel 14's rr + lr and
+    rr shapes (both plans' layouts) and the values kernel's merged lr with
+    the geo family and family plain sem (bf16 and int8), against the plain
+    version; each launch counted in `.launches`, none on the CUDA-core
+    body.  The values forms over 1,024 queries, as in
+    `test_values_sm90_deep_matches_plain`: the d column's bf16(e) flips
+    grow with the chain's depth (3 of 256 rows at 2,048 columns against
+    an allowance of 2; the rule allows 1%)."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    fam = rh._hier_parts_family_call
+    for lr in (True, False):
+        args, lrr = _rr_operands(cuda, Bp=256, bm=128, bn=512, gpt=32, K=12, T=20,
+                                 W=384 if lr else 1152, lr=lr, seed=sem + lr, sem=sem)
+        kw = dict(sem_d=sem, bm=128, bn=512, gpt=32, geo=False, lrr=lrr, lr=lr, sel=False)
+        sh = rh._parts_shapes(*args, **kw)
+        plan = rh._parts_plan(256, 12, 512, 32, sh["kf"], sh["gwe"], sh["share"], 128,
+                              sh["acols"], sh["out_w"])
+        assert plan.res is not None and plan.res % 4 == 0 and plan.res < sem // 64
+        n0 = (fam.launches, fam.f32_launches)
+        _hold_rr(fam(*args, **kw), args, kw)
+        assert (fam.launches, fam.f32_launches) == (n0[0] + 1, n0[1])
+    for form in ("merged_lr_geo", "family_plain_sem"):
+        for i8 in (False, True):
+            args, kw, call, plain = _values_form(cuda, form, Bp=1024, bm=128, bn=512, K=8,
+                                                 T=12, gpt=32, i8=i8, seed=sem + i8, sem=sem)
+            n0 = (call.launches, call.f32_launches)
+            got = call(*args, **kw)
+            torch.cuda.synchronize()
+            assert (call.launches, call.f32_launches) == (n0[0] + 1, n0[1])
+            _hold_values(got, plain(*args, **kw), plain(*args, **kw, magnitude=True), args,
+                         kw)
+
+
+def test_deep_parts_never_launch_hier_cores(cuda, monkeypatch):
+    """`csrc/hier_cores.cu`'s bf16 deep instances of the parts kernels stay
+    only as chip_smoke.py's yardstick: kernel 14's four shapes (both
+    families) and kernel 15 (lr, plain) over 768 sem columns load the two
+    Hopper bodies' libraries alone."""
+    from range_tpu_torch.kernels import _build
+
+    loaded = []
+    real = _build.load_kernel_library
+
+    def spy(name):
+        loaded.append(name)
+        return real(name)
+
+    monkeypatch.setattr(_build, "load_kernel_library", spy)
+    for form in ("merged_lr_geo", "merged_plain", "family_lr_sem", "family_plain_geo"):
+        args, kw, call, _ = _values_form(cuda, form, Bp=128, bm=128, bn=128, K=4, T=6, gpt=8,
+                                         i8=False, seed=1, sem=768)
+        call(*args, **kw)
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    for lr in (True, False):
+        args, lrr = _rr_operands(cuda, Bp=128, bm=128, bn=128, gpt=8, K=4, T=6,
+                                 W=384 if lr else 1152, lr=lr, sem=768)
+        rh._hier_parts_family_call(*args, sem_d=768, bm=128, bn=128, gpt=8, geo=False,
+                                   lrr=lrr, lr=lr)
+    torch.cuda.synchronize()
+    assert set(loaded) == {"hier_parts_sm90", "hier_parts_family_sm90"}
 
 
 # (bn, gpt) of the groupings csrc/hier_parts.cu took: 8 to 512 groups a
@@ -2952,11 +3167,13 @@ def _tier_queries(hb, cuda, B=700, bm=128, seed=5):
 @pytest.mark.parametrize("tier,value_dtype", TIERS, ids=TIER_IDS)
 def test_cores_forms_match_plain(cuda, tier, value_dtype):
     """Every wrapper of kernels 8, 9 and 12-15 on a bank of the exact tier
-    (f32 operands) or the high tier (768 logit columns) launches the
-    CUDA-core body, once (`.f32_launches` / `.deep_launches`), and holds its
-    plain version: the scan (both families, the sem one alone), the stats
-    scan, kernel 14's four shapes on both families, kernel 15 lr and plain,
-    the refine (stats, parts) and the correction."""
+    (f32 operands) launches the CUDA-core body, once (`.f32_launches`), and
+    so do those of 8, 9, 12 and 13 on a bank of the high tier (768 logit
+    columns, `.deep_launches`), while kernels 14 and 15 there launch their
+    Hopper bodies' deep chains (`.launches`, no f32 launch); each holds
+    its plain version: the scan (both families, the sem one alone), the
+    stats scan, kernel 14's four shapes on both families, kernel 15 lr and
+    plain, the refine (stats, parts) and the correction."""
     from range_tpu_torch.ops import retrieval_fused as rf
     from range_tpu_torch.ops import retrieval_hier as rh
 
@@ -2968,10 +3185,14 @@ def test_cores_forms_match_plain(cuda, tier, value_dtype):
     bm, Dv, sem_d = 128, 1024, hb.sem_d
 
     def run(fn, *args, **kw):
-        n0 = getattr(fn, f"{form}_launches")
+        hopper = form == "deep" and fn in (rh._hier_parts_family_call, rh._hier_parts_call)
+        n0 = (fn.launches, fn.f32_launches if hopper else getattr(fn, f"{form}_launches"))
         out = fn(*args, **kw)
         torch.cuda.synchronize()
-        assert getattr(fn, f"{form}_launches") == n0 + 1, fn.__name__
+        if hopper:  # the Hopper body's count, and none of the CUDA-core body's
+            assert (fn.launches, fn.f32_launches) == (n0[0] + 1, n0[1]), fn.__name__
+        else:
+            assert getattr(fn, f"{form}_launches") == n0[1] + 1, fn.__name__
         return out
 
     scan_args = (q_cat, hb.g_sem_cat, hb.g_geo_cat, hb.g_sem_vw_lr, hb.g_geo_vw_lr)
@@ -3044,10 +3265,11 @@ def test_cores_forms_match_plain(cuda, tier, value_dtype):
 def test_tiers_serve_through_load_model(cuda, tier):
     """`load_model(retrieval="hier", tier=...)` on the card: the flagship
     RANGE+ (one scan, two parts and one combine launch, the first three on
-    the CUDA-core body), RANGE (the stats scan of its home-tile sort, the
-    scan and the merged parts kernel) and hier_topk (the stats scan on the
-    CUDA-core body, the argmax on its Hopper body), each within the small
-    bank's order of the exact f32 answer."""
+    the CUDA-core body at exact; at high the parts launches on their Hopper
+    bodies), RANGE (the stats scan of its home-tile sort, the scan and the
+    merged parts kernel) and hier_topk (the stats scan on the CUDA-core
+    body, the argmax on its Hopper body), each within the small bank's
+    order of the exact f32 answer."""
     from range_tpu_torch.ops import retrieval_hier as rh
 
     hb = _tier_bank(cuda, tier, None)
@@ -3055,7 +3277,10 @@ def test_tiers_serve_through_load_model(cuda, tier):
     coords = _coords(3000, seed=6, device=cuda)
     wrappers = (rh._hier_scan_call, rh._hier_parts_family_call, rh._hier_parts_call,
                 rh._hier_scan_stats_call)
-    counts = lambda: [getattr(w, f"{form}_launches") for w in wrappers]  # noqa: E731
+    # the parts kernels at high: their Hopper bodies' deep chains
+    hopper = (rh._hier_parts_family_call, rh._hier_parts_call) if form == "deep" else ()
+    counts = lambda: [w.launches if w in hopper else getattr(w, f"{form}_launches")  # noqa: E731
+                      for w in wrappers]
     for name, want in (("RANGE+", [1, 2, 0, 0]), ("RANGE", [1, 0, 1, 1])):
         enc = load_model(name, db_path=hb, profile="flagship", hier_bn=128, gsz_geo=16,
                          tier=tier)
@@ -3121,8 +3346,9 @@ def test_tier_knobs_serve(cuda, tier):
     """The knobs the fast tier serves, at each tier on the card: sel_lr 64
     (kernel 14's sel form, from the sketch's columns), sel_lr with dedup=2
     (B = 8,192: two blocks' lists merged, the dedup_pad form) and with the
-    rescue, each request's parts kernels on the CUDA-core body within the
-    small bank's order of the exact f32 answer; hier_topk over topk_lr 64
+    rescue, each request's parts kernels on the CUDA-core body (exact) or
+    their Hopper bodies (high) within the small bank's order of the exact
+    f32 answer; hier_topk over topk_lr 64
     (the stats scan over the sketch: a 64-column bf16 or f32 operand) on
     a regional batch (8 places, 3 degree jitter: the coherent batches the
     endpoint serves), its recall@1 within 0.02 of the full topk_gsz
@@ -3136,10 +3362,11 @@ def test_tier_knobs_serve(cuda, tier):
     for kw in (dict(), dict(dedup=2), dict(adaptive_frac=0.05, adaptive_mult=3)):
         enc = load_model("RANGE+", db_path=hb, profile="flagship", hier_bn=128, gsz_geo=16,
                          tier=tier, topk_lr=64, sel_lr=64, **kw)
-        n0 = getattr(fam, f"{form}_launches")
+        counter = "f32_launches" if form == "f32" else "launches"
+        n0 = getattr(fam, counter)
         out = enc(coords)
         torch.cuda.synchronize()
-        assert getattr(fam, f"{form}_launches") - n0 == (4 if kw.get("adaptive_frac") else 2)
+        assert getattr(fam, counter) - n0 == (4 if kw.get("adaptive_frac") else 2)
         ref = retrieval.retrieve(out[:, 1024:], lonlat_deg_to_xyz(coords), hb.bank)
         rel = (out[:, :1024] - ref).abs() / ref.abs().clamp_min(0.1)
         assert torch.isfinite(out).all() and rel.mean() < 0.1, (kw, rel.mean().item())

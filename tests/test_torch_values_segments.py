@@ -142,10 +142,15 @@ def test_values_plan_is_a_function_of_the_shape():
 
 
 def test_values_plan_raises_what_no_block_holds():
-    """Key widths past four 64-column boxes fit no block (the layout's
-    stages hold kb key boxes each): the plan raises its shape error."""
+    """A tile list of 40,000 entries (160 KB in shared memory) leaves no
+    room for two stages beside it, even with 4 query boxes resident: the
+    plan raises its shape error.  (12 boxes, the `high` tier's 768
+    columns, fit since the deep chains' passes, and 24, 1,536 columns,
+    since the passes past the resident boxes stream theirs.)"""
     with pytest.raises(ValueError, match="unsupported shapes"):
-        th._values_plan(1024, 16, 512, 128, 1024, 0, True, 12, 0, 12, True, 64)
+        th._values_plan(1024, 40_000, 512, 128, 1024, 0, True, 24, 0, 24, True, 64)
+    assert th._values_plan(1024, 16, 512, 128, 1024, 0, True, 12, 0, 12, True, 64).bmb == 64
+    assert th._values_plan(1024, 16, 512, 128, 1024, 0, True, 24, 0, 24, True, 64).qres < 24
 
 
 # ---- a tile's groups, chunk by chunk
