@@ -6,15 +6,19 @@ family parts kernel's plain / lr / rr shapes and their sel and dedup_pad
 forms, the refine kernel's has_parts form, the combine without lr_geo,
 the int8 forms of the parts and pruned kernels, and kernel 2's two bodies:
 the Hopper kernel of its bf16 tiers and the mma.sync body of its f32 tier)
-from the nineteen sources of `range_tpu_torch/csrc/` (one nvcc per source,
+from the twenty sources of `range_tpu_torch/csrc/` (one nvcc per source,
 all started together), holds each against its plain PyTorch version at the
 main paths' shapes, prints the tower's two modes on their Hopper bodies
 (`csrc/siren_tower_sm90.cu`, wgmma; the f32 mode every product three TF32
 products; its ptxas log held to no spill and no serialized wgmma) beside
 `csrc/siren_tower.cu`'s forms (launched here alone as the same-run
 yardstick), kernel 14's rr shapes at the `exact` tier on their TF32 x3
-body (`csrc/hier_rr_tf32_sm90.cu`, held the same way) beside the CUDA-core
-body (`csrc/hier_cores.cu`, which only this yardstick launches there) and kernel 16 (the combine, flagship rg
+body (`csrc/hier_rr_tf32_sm90.cu`, held the same way), kernel 15 and
+kernel 14's value shapes there on theirs (`csrc/hier_values_tf32_sm90.cu`,
+the logits three TF32 products, p once into device memory, the value
+products on wgmma; the group products on the rr body's groups pass) beside
+the CUDA-core body (`csrc/hier_cores.cu`, which only this yardstick
+launches there) and kernel 16 (the combine, flagship rg
 > 0 and rg = 0) on its Hopper body (`csrc/combine_cat_sm90.cu`, three TF32
 products) beside its f32 body (`csrc/combine_cat.cu`, the exact tier's
 route) at B = 1, 37, 1,000 and 10,000 in turns, with the bound and share of
@@ -102,14 +106,16 @@ drives the serving paths at full width (SatCLIP SH-L40 -> SIREN
     at bn 1,024 (padded packing): `retrieve_pruned` (RANGE+, RANGE, and a
     small int8 request) and `retrieve_hybrid` at bm 256;
   * hierarchical banks at the `exact` and `high` tiers (f32 operands;
-    768 semantic columns), served by the CUDA-core body
-    `csrc/hier_cores.cu` (`tiers_phases`): for each tier the informative
+    768 semantic columns), kernels 8, 9, 12 and 13 served by the CUDA-core
+    body `csrc/hier_cores.cu`, 14 and 15 by their TF32 x3 bodies (`exact`)
+    or deep chains (`high`) (`tiers_phases`): for each tier the informative
     bank's flagship, tail_super and two-level HierBanks built on the card,
     each of its forms of kernels 8, 9 and 12-15 against its plain version
     and timed beside it, RANGE+ and RANGE with ``profile="flagship"``,
     hier_topk (recall pooled over five batches), RANGE+ at the JAX
     defaults, the tail_super flagship and the two-level feature path and
-    top-k, each request's launches counted; and JAX's exactness check at
+    top-k (at `exact` also a lr + lr_geo bank at k_geo = 8: kernel 14's lr
+    value shape), each request's launches counted; and JAX's exactness check at
     its test bank's shape (the exact tier with f32 values, every tile
     selected, against the exact dense answer);
   * SatCLIP contrastive training of the full-width SatCLIP-ResNet18-L40
@@ -179,7 +185,7 @@ SOURCES = ("siren_tower_sm90", "siren_tower", "fused_retrieval_sm90", "fused_ret
            "hier_scan_sm90", "hier_parts_family_sm90", "hier_parts_family", "combine_cat_sm90",
            "combine_cat", "hier_scan_stats", "hier_argmax_sm90", "hier_argmax",
            "hier_parts_sm90", "hier_parts", "sh_times", "hier_refine", "hier_corr", "hier_cores",
-           "hier_rr_tf32_sm90")
+           "hier_rr_tf32_sm90", "hier_values_tf32_sm90")
 # sources whose ptxas log must show no spill and no serialized wgmma
 # (C7512: too few registers; C7514: issued in a loop or under a condition;
 # C7520: divergent code between issue and wait): every kernel of a source
@@ -190,7 +196,8 @@ SOURCES = ("siren_tower_sm90", "siren_tower", "fused_retrieval_sm90", "fused_ret
 # kernel: every instance but the rare groupings' deep one, <1, true>,
 # which spills 4 / 20 bytes at 128 registers a thread (512 threads; the
 # units path and the deep walk in one kernel: ROADMAP Queue 2, item 10 (d))
-PTXAS_CLEAN = ("hier_argmax_sm90", "siren_tower_sm90", "combine_cat_sm90", "hier_rr_tf32_sm90")
+PTXAS_CLEAN = ("hier_argmax_sm90", "siren_tower_sm90", "combine_cat_sm90", "hier_rr_tf32_sm90",
+               "hier_values_tf32_sm90")
 PTXAS_CLEAN_KERNELS = {"hier_parts_sm90": r"hier_parts_sm90_kernelIL[^E]*ELb1E",
                        "hier_parts_family_sm90":
                        r"hier_parts_family_sm90_kernelIL(i[02]ELb[01]E|i1ELb0E)"}
@@ -262,15 +269,20 @@ CORES_ROWS = (("hier_scan", "range_tpu/ops/retrieval_hier.py:1443"),
 # their Hopper bodies' deep chains (passes of 256 columns)
 DEEP_SOURCES = {"hier_scan_stats": "hier_scan_stats", "hier_parts_family": "hier_parts_family_sm90",
                 "hier_parts": "hier_parts_sm90"}
-# kernel 14's rr shapes at the exact tier (the paths' f32 form of it) on
-# their TF32 x3 body (`.tf32_launches`); its value shapes stay on the cores
-F32_SOURCES = {"hier_parts_family": "hier_rr_tf32_sm90"}
+# kernels 14 and 15 at the exact tier on their TF32 x3 bodies
+# (`.tf32_launches`): 14's rr shapes (the paths' f32 form of it) and, a row
+# of their own (`.values_tf32_launches`), its value shapes beside kernel 15
+F32_SOURCES = {"hier_parts_family": "hier_rr_tf32_sm90", "hier_parts": "hier_values_tf32_sm90"}
 KERNELS += tuple((f"{k}_{form}", DEEP_SOURCES.get(k, "hier_cores") if form == "deep"
                   else F32_SOURCES.get(k, "hier_cores"), rep)
                  for k, rep in CORES_ROWS for form, _ in CORES_FORMS)
-# the second bodies of the tower and the combine, each counted within its
-# wrapper's launches: (its counter, the wrapper's)
-VARIANTS = (("siren_tower_bf16", "siren_tower"), ("combine_cat_exact", "combine_cat"))
+KERNELS += (("hier_parts_family_values_f32", "hier_values_tf32_sm90",
+             "range_tpu/ops/retrieval_hier.py:2282"),)
+# the second bodies of the tower and the combine, and kernel 14's value
+# shapes at exact, each counted within its wrapper's launches: (its
+# counter, the wrapper's)
+VARIANTS = (("siren_tower_bf16", "siren_tower"), ("combine_cat_exact", "combine_cat"),
+            ("hier_parts_family_values_f32", "hier_parts_family_f32"))
 TOPK_K = 48  # the endpoint's tile budget, bench.py:150
 # the two-level top-k (tools/r3_time1.py:103,127: gsz_super 64, K=48 of M=96)
 # and the tail_super flagship (tools/r4_tsuper.py: "ts64 K32/m32/kg16")
@@ -1495,10 +1507,11 @@ def _counters() -> dict:
         for form, _ in CORES_FORMS:
             if hasattr(wrappers[k], f"{form}_launches"):  # not the parts kernels' deep forms
                 counters[f"{k}_{form}"] = (wrappers[k], f"{form}_launches")
-    # kernel 14 at exact: its rr shapes' TF32 x3 body in the f32 row, and a
-    # launch of the CUDA-core body (its value shapes) apart, in no row
+    # kernels 14 and 15 at exact: their TF32 x3 bodies (14's value shapes
+    # also in their own row)
     counters["hier_parts_family_f32"] = (fam, "tf32_launches")
-    counters["hier_parts_family_cores_f32"] = (fam, "f32_launches")
+    counters["hier_parts_family_values_f32"] = (fam, "values_tf32_launches")
+    counters["hier_parts_f32"] = (rh._hier_parts_call, "tf32_launches")
     return counters
 
 
@@ -4545,9 +4558,10 @@ def _cores_row(report, name, errs, call, plain, flops, n_bytes, f32: bool, reps:
 
 
 def _tier_kernels(tier, form, hb, hb_ts, hb2, q, x, report, cfg) -> None:
-    """Each CUDA-core form of kernels 8, 9 and 12-15 (at `high`, kernels 14
-    and 15 on their Hopper bodies' deep chains, then timed beside the
-    CUDA-core body: `_deep_parts_turns`) against its plain
+    """Each CUDA-core form of kernels 8, 9, 12 and 13, and kernels 14 and 15
+    on their own bodies (at `high` the Hopper bodies' deep chains, at
+    `exact` the TF32 x3 bodies; then timed beside the CUDA-core body:
+    `_deep_parts_turns`, `_exact_parts_turns`) against its plain
     version at its path's shapes (B = 10,000): the flagship's scan and
     kernel 14's rr + lr shape (both families), kernel 15 lr at the RANGE
     flagship's selection, the stats scan at hier_topk's (the topk_gsz
@@ -4671,6 +4685,13 @@ def _tier_kernels(tier, form, hb, hb_ts, hb2, q, x, report, cfg) -> None:
     _cores_row(report, f"hier_parts_{form}", errs, lambda: rh._hier_parts_call(*ma, **mkw),
                lambda: rh._hier_parts_plain(*ma, **mkw), flops + (pv if exact_sum else 0),
                n_bytes, f32, bf16_flops=0 if exact_sum else pv)
+    if f32:  # kernel 15's TF32 x3 body: its row's bound at that rate (the f32 one printed)
+        row = report[f"hier_parts_{form}"]
+        row["bound_ms"], row["bound_by"] = _bound(
+            n_bytes, 3 * (flops + (pv if exact_sum else 0)), TF32_FLOPS,
+            (0 if exact_sum else pv, BF16_FLOPS))
+        print(f"hier_parts_{form}: bound at the TF32 x3 rate {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}), share {row['bound_ms'] / row['ms']:.4f}")
 
     # kernel 9 at hier_topk's shape (the fine topk_gsz operand)
     gpt_t = hb.bn // hb.topk_gsz
@@ -4742,8 +4763,8 @@ def _tier_kernels(tier, form, hb, hb_ts, hb2, q, x, report, cfg) -> None:
         lambda: rh._hier_refine_plain(q_2, idx_m, hb2.g_sem_cat, **pkw), flops, n_bytes, f32)
     if form == "deep":  # kernels 14 and 15's Hopper bodies beside the CUDA-core body
         _deep_parts_turns(hb, q, x, cfg)
-    else:  # kernel 14's rr shapes' TF32 x3 body beside the CUDA-core body
-        _exact_parts_turns(hb, q, x, cfg)
+    else:  # kernels 14 and 15's TF32 x3 bodies beside the CUDA-core body
+        _exact_parts_turns(hb, q, x, cfg, report)
 
 
 def _request(hb, q, x, cfg, b):
@@ -4862,25 +4883,123 @@ def _rr_forms(hb, b, q_cat, idx_s, tag, hold) -> None:
         hold(f"{tag} {name} B={b} vs plain", got[:b], ref[:b], mag[:b], b)
 
 
-def _exact_parts_turns(hb, q, x, cfg) -> None:
-    """Kernel 14's rr shapes at the `exact` tier on their TF32 x3 body
-    (`_hier_parts_family_call`: `csrc/hier_rr_tf32_sm90.cu`) at B = 1, 37,
-    1,000 and 10,000, each batch its own request (`_request`): the
-    flagship's rr + lr in turns beside the CUDA-core body's f32 form
-    (`_parts_family_turns`), then rr alone, dedup_pad and sel
-    (`_rr_forms`); each held against the plain version by the exact tier's
-    bar (`_hold_cores`: 1e-4 x the sum of the terms' magnitudes + 1e-6),
-    the CUDA-core body too; bound at the TF32 x3 rate and at the f32
-    rate."""
+def _exact_parts_turns(hb, q, x, cfg, report) -> None:
+    """Kernels 14 and 15 at the `exact` tier on their TF32 x3 bodies at B =
+    1, 37, 1,000 and 10,000, each batch its own request (`_request`): kernel
+    14's rr shapes (`csrc/hier_rr_tf32_sm90.cu`: the flagship's rr + lr in
+    turns beside the CUDA-core body's f32 form, `_parts_family_turns`; rr
+    alone, dedup_pad and sel, `_rr_forms`), kernel 15 and kernel 14's
+    value shapes (`csrc/hier_values_tf32_sm90.cu`, `_exact_values_turns`);
+    each held against the plain version by the exact tier's bar
+    (`_hold_cores`: 1e-4 x the sum of the terms' magnitudes + 1e-6; after
+    a bf16 rounding point the flip rule), the CUDA-core body too; bound at
+    the TF32 x3 rate and at the f32 rate."""
     def hold(name, got, ref, mag, b):
         return _hold_cores(name, got, ref, mag, True, b, "")
 
     rates = (("the TF32 x3 rate", 3, TF32_FLOPS), ("the f32 rate", 1, F32_FLOPS))
+    # an int8 bank's values: each row's codes and scale (its max / 127)
+    row_max = hb.values.float().abs().amax(1).clamp_min(1e-8) / 127
+    codes = ((hb.values.float() / row_max[:, None]).round().clamp(-127, 127).to(torch.int8),
+             row_max[None, :].contiguous())
     for b in REQUESTS:
-        _, q_cat, idx_s, idx_g, _ = _request(hb, q, x, cfg, b)
+        _, q_cat, idx_s, idx_g, idx_r = _request(hb, q, x, cfg, b)
         _parts_family_turns(hb, b, q_cat, idx_s, idx_g, "hier_parts_family_f32",
                             "TF32 x3 body", hold, 4, rates, hold_cores=True)
         _rr_forms(hb, b, q_cat, idx_s, "hier_parts_family_f32", hold)
+        _exact_values_turns(hb, b, q_cat, idx_s, idx_r, codes, report)
+
+
+def _exact_values_turns(hb, b, q_cat, idx_s, idx_r, codes, report) -> None:
+    """Kernel 15 (lr at RANGE's selection, the sem family; plain with the geo
+    family, the JAX defaults' launch) and kernel 14's value shapes (lr and
+    plain, the sem family at the flagship's selection) at `exact` on their
+    TF32 x3 body (`csrc/hier_values_tf32_sm90.cu`) at one request: each held
+    against the plain version over its b real rows (`_hold_cores`: bf16
+    values, the flip rule in at most max(2, b / 100) rows), then timed in
+    turns beside the CUDA-core body's form (`_parts_cores` /
+    `_parts_family_cores`, csrc/hier_cores.cu, which only this yardstick
+    launches; held too): cores, body, body, cores on CUDA events; bound and
+    share at the TF32 x3 rate (the logits' and group products' three TF32
+    products a term, the value products at the bf16 rate) and at the f32
+    rate.  Kernel 15 lr over int8 codes (``codes``) is held too.  At B =
+    10,000 kernel 14's lr value shape writes its JSON row
+    (`hier_parts_family_values_f32`)."""
+    from range_tpu_torch.ops import retrieval_fused as rf
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    why = ("a weight within the logits' f32 difference of a bf16 boundary rounds the other "
+           "way: one ulp of one term")
+    gpt_s, gpt_g, Dv, sem_d = hb.bn // hb.gsz_sem, hb.bn // hb.gsz_geo, hb.value_dim, hb.sem_d
+    Bp, cat_d = q_cat.shape
+    bm = Bp // idx_s.shape[0]
+    geo_real = rf.geo_real_cols(hb.tier)
+
+    def merged(vw, lr, geo, values=hb.values, scale=hb.value_scale):
+        return ((q_cat, hb.k_cat, values, scale, hb.mask_neg, idx_r, hb.g_sem_cat, hb.g_geo_cat,
+                 vw, hb.g_geo_vw),
+                dict(sem_d=sem_d, bm=bm, bn=hb.bn, gpt_s=gpt_s, gpt_g=gpt_g, lr=lr, geo=geo))
+
+    def family(vw, lr):
+        return ((q_cat, hb.k_cat, hb.mask_neg, idx_s, hb.g_sem_cat, vw, None),
+                dict(sem_d=sem_d, bm=bm, bn=hb.bn, gpt=gpt_s, geo=False, lrr=0 if lr else Dv,
+                     lr=lr, values=hb.values, scale=hb.value_scale))
+
+    def fam_cores(*a, **k):
+        return rh._parts_family_cores(*a, **k, sel=False, dedup_pad=False)
+
+    m_call = (rh._hier_parts_call, rh._hier_parts_plain, rh._parts_cores)
+    f_call = (rh._hier_parts_family_call, rh._hier_parts_family_plain, fam_cores)
+    forms = (("hier_parts_f32 lr", *m_call, *merged(hb.g_sem_vw_lr, True, False), [False]),
+             ("hier_parts_f32 plain + geo", *m_call, *merged(hb.g_sem_vw, False, True),
+              [False, True]),
+             ("hier_parts_family_values_f32 lr", *f_call, *family(hb.g_sem_vw_lr, True),
+              [False]),
+             ("hier_parts_family_values_f32 plain", *f_call, *family(hb.g_sem_vw, False),
+              [False]))
+    for tag, call, plain, cores, args, kw, fams in forms:
+        ref, mag = plain(*args, **kw), plain(*args, **kw, magnitude=True)
+        got = call(*args, **kw)
+        errs = [_hold_cores(f"{tag} B={b} vs plain", got[:b], ref[:b], mag[:b], False, b, why),
+                _hold_cores(f"{tag} B={b} hier_cores.cu vs plain", cores(*args, **kw)[:b],
+                            ref[:b], mag[:b], False, b, why)]
+        t = _turns_ms((("cores", lambda: cores(*args, **kw)), ("new", lambda: call(*args, **kw)),
+                       ("new", lambda: call(*args, **kw)), ("cores", lambda: cores(*args, **kw))),
+                      3)
+        idx = args[5] if call is rh._hier_parts_call else args[3]
+        K = idx.shape[1]
+        rows = idx.unique().numel() * hb.bn
+        W = (args[8] if call is rh._hier_parts_call else args[5]).shape[1]
+        tf32_flops = pv = n_bytes = 0
+        for geo in fams:
+            kf = geo_real if geo else sem_d
+            gw = (hb.g_geo_cat if geo else hb.g_sem_cat).shape[1]
+            gpt = gpt_g if geo else gpt_s
+            acols = W if kw["lr"] and not geo else Dv + 1
+            tf32_flops += 2 * b * K * (hb.bn * kf + gpt * (kf + acols))
+            pv += 2 * b * K * hb.bn * Dv
+            n_bytes += rows // hb.bn * gpt * (gw + acols) * 4
+        n_bytes += (rows * (cat_d * 4 + Dv * hb.values.element_size() + 4) + Bp * cat_d * 4
+                    + Bp * got.shape[1] * 4)
+        x3 = _bound(n_bytes, 3 * tf32_flops, TF32_FLOPS, (pv, BF16_FLOPS))
+        f1 = _bound(n_bytes, tf32_flops, F32_FLOPS, (pv, BF16_FLOPS))
+        print(f"{tag} B={b} K={K} bm={bm}: TF32 x3 body {t['new']:.4f} ms, hier_cores.cu "
+              f"{t['cores']:.4f} ms (CUDA events, turns cores, body, body, cores; "
+              f"{t['cores'] / t['new']:.2f}x); bound at the TF32 x3 rate {x3[0]:.4f} ms "
+              f"({x3[1]}), shares {x3[0] / t['new']:.4f} / {x3[0] / t['cores']:.4f}; at the "
+              f"f32 rate {f1[0]:.4f} ms ({f1[1]}), shares {f1[0] / t['new']:.4f} / "
+              f"{f1[0] / t['cores']:.4f}")
+        if tag == "hier_parts_family_values_f32 lr" and b == BATCH:
+            report["hier_parts_family_values_f32"] = dict(
+                max_abs_err=errs[0][0], err_over_tol=errs[0][1], ms=t["new"],
+                plain_ms=_cuda_ms(lambda: plain(*args, **kw), 3), bound_ms=x3[0],
+                bound_by=x3[1], launches=0)
+    args, kw = merged(hb.g_sem_vw_lr, True, False, *codes)
+    got = rh._hier_parts_call(*args, **kw)
+    ref, mag = rh._hier_parts_plain(*args, **kw), rh._hier_parts_plain(*args, **kw,
+                                                                       magnitude=True)
+    _hold_cores(f"hier_parts_f32 lr int8 B={b} vs plain", got[:b], ref[:b], mag[:b], False, b,
+                why)
 
 
 def _deep_parts_turns(hb, q, x, cfg) -> None:
@@ -5196,10 +5315,25 @@ def tiers_phases(dev, gen, report, bank, enc) -> dict:
         if rec2 < 0.99:
             raise AssertionError(f"{tier} two-level hier_topk recall@1 {rec2:.5f} < 0.99")
         del dflt, ts, two
+        if not deep:  # kernel 14's lr value shape, both families, on its TF32 x3 body
+            hb_lr = rh.build_hier_bank(bank, bn=512, gsz_sem=8, gsz_geo=64, lr_rank=256,
+                                       lr_geo=384, tier=tier)
+            lrg = load_model("RANGE+", db_path=hb_lr, retrieval="hier", tier=tier,
+                             lr_rank=256, lr_geo=384, k_geo=8)
+            out, drives["lr_values"] = _drive(
+                f"{tier} RANGE+ lr + lr_geo, k_geo=8 B={BATCH}", lambda: lrg(cs),
+                {"siren_tower": 1, **scan, "hier_parts_family_f32": 2,
+                 "hier_parts_family_values_f32": 2})
+            _tier_fidelity(f"{tier} RANGE+ lr + lr_geo, k_geo=8", out, cs, bank, "range+", 0.12)
+            del lrg, hb_lr
         for k in CORES_ROWS:
             # kernels 14 and 15 at high: their Hopper bodies' launches in these drives
             key = k[0] if deep and k[0] in ("hier_parts_family", "hier_parts") else k[0] + c
             report[f"{k[0]}{c}"]["launches"] = sum(d.get(key, 0) for d in drives.values())
+        if not deep:  # kernel 14's value shapes in their own row
+            n = sum(d.get("hier_parts_family_values_f32", 0) for d in drives.values())
+            report["hier_parts_family_f32"]["launches"] -= n
+            report["hier_parts_family_values_f32"]["launches"] = n
         report["combine_cat_exact"]["launches"] += sum(d["combine_cat_exact"]
                                                        for d in drives.values())
         del hb, hb_ts, hb2

@@ -37,10 +37,14 @@
 //     column slices of alr (a consumer warpgroup each); per entry and
 //     block of NG = 32 groups, e [64 x 32] chunk by chunk over the group
 //     logits' columns (both warpgroups, redundant, from one ring; the
-//     query block resident at every width up to 512), D in
+//     query block's first GCRES chunks resident, 512 columns, the rest
+//     read from device memory as the rows pass reads its; up to 1,536
+//     columns: the value shapes of a bf16-logit bank with f32 values,
+//     csrc/hier_values_tf32_sm90.cu), D in
 //     registers from e, ps and the counts (read ahead of the products),
 //     then alr += D @ vw's rows (D's registers the A fragments).
-//   * fold_kernel: where a list is split into segments (few query blocks),
+//   * the fold (tf32_sm90.cuh): where a list is split into segments (few
+//     query blocks),
 //     each segment's partial sums go to a plane of `work` and are added in
 //     segment order.
 // A producer warpgroup's first lane streams every B tile (bulk copies of
@@ -61,6 +65,10 @@
 namespace {
 
 using namespace sm90;
+using tf32::fold;
+using tf32::global_frags;
+using tf32::next_stage;
+using tf32::segment;
 
 constexpr int BM = 64;            // queries of a block
 constexpr int CONSUMERS = 256;    // two consumer warpgroups
@@ -68,6 +76,8 @@ constexpr int THREADS = CONSUMERS + 128;
 constexpr int NSK = 3;            // stages of the key / centroid ring
 constexpr int KCMAX = 16;         // 32-column chunks of the logits, at most (512 f32 columns)
 constexpr int KCRES = 8;          // of them, the rows pass's query block holds (256 columns)
+constexpr int GCMAX = 48;         // of the group logits, at most (1,536 columns)
+constexpr int GCRES = 16;         // of them, the groups pass's query block holds (512 columns)
 constexpr int LDP = 65;           // f32 row stride of the p tile (odd: a warp's 32 rows
                                   // of one column, the group sums' reads, meet each bank once)
 constexpr int NG = 32;            // groups of a block: e's N, alr's one 32-deep chunk
@@ -87,34 +97,6 @@ __device__ __forceinline__ void acc_frags(const float (&v)[N], int c, uint32_t (
     const int j = 4 * c + s;
     tf32::split_frag(v[4 * j], v[4 * j + 2], v[4 * j + 1], v[4 * j + 3], ah[s], al[s]);
   }
-}
-
-// A chunk's A fragments read from device memory, as tf32::load_frags reads
-// the resident block: `row` points at query row r0's family column
-// 32 c + 2t, ld8 at row r0 + 8 from there, `rem` the family's columns left
-// from `row` (0 past them).
-__device__ __forceinline__ void global_frags(const float* row, size_t ld8, int rem,
-                                             uint32_t (&ah)[4][4], uint32_t (&al)[4][4]) {
-#pragma unroll
-  for (int s = 0; s < 4; ++s) {
-    const int c = 8 * s;
-    const float v00 = c < rem ? __ldg(row + c) : 0.f;
-    const float v01 = c + 1 < rem ? __ldg(row + c + 1) : 0.f;
-    const float v10 = c < rem ? __ldg(row + ld8 + c) : 0.f;
-    const float v11 = c + 1 < rem ? __ldg(row + ld8 + c + 1) : 0.f;
-    tf32::split_frag(v00, v10, v01, v11, ah[s], al[s]);
-  }
-}
-
-__device__ __forceinline__ void next_stage(int& s, uint32_t& ph, int n) {
-  s = s + 1 == n ? 0 : s + 1;
-  ph = s == 0 ? ph ^ 1 : ph;
-}
-
-// The list entries [e0, e1) of segment `seg` of n_seg.
-__device__ __forceinline__ void segment(int K, int seg, int n_seg, int& e0, int& e1) {
-  e0 = (int)((long long)K * seg / n_seg);
-  e1 = (int)((long long)K * (seg + 1) / n_seg);
 }
 
 // ---------------------------------------------------------------- rows
@@ -390,11 +372,14 @@ struct GroupsParams {
   const float* gimg;   // [T][nsb][GC][hi | lo][NG][32]
   const float* vwimg;  // [T][nsb][NS][NG / 32][hi | lo][128][32]
   const float* vw;     // [G, W] (counts at column lrr)
-  const float* ps;     // [Bp, K gpt]
+  const float* ps;     // [Bp, K gpt]; null: no group sums (the value shapes: D = e or -e)
   const int* idx;      // [Bp / bm, K]
   float* out;          // [Bp, ow]: alr at columns oc0 .. oc0 + acols (one segment)
   float* work;         // [n_seg, Bp, NS 128] (several)
   int Bp, qw, qg0, gwe, GC, bm, gpt, nsb, K, W, lrr, NS, acols, lr, ow, oc0, dedup, n_seg;
+  int accumulate;      // add into out instead of writing it
+  int dcol;            // >= 0: column lrr of the product goes to out column dcol
+  int ebf16;           // e rounded to bf16 (bf16 group sums: the TPU kernel's cast)
 };
 
 struct GroupsLayout {
@@ -404,7 +389,7 @@ struct GroupsLayout {
 
 __host__ __device__ inline GroupsLayout groups_layout(int GC) {
   GroupsLayout l;
-  l.SQ = 32 * GC + 8;
+  l.SQ = 32 * (GC < GCRES ? GC : GCRES) + 8;
   l.gring = round_up(BM * l.SQ * 4, 1024);
   l.vw = l.gring + NSK * 2 * NG * 128;           // [stage][hi | lo][NG][32]
   l.bars = l.vw + 2 * 2 * 128 * 128;             // [wg][hi | lo][128][32]
@@ -424,7 +409,7 @@ __device__ __forceinline__ void groups_consume(const GroupsParams& p, const Grou
   const uint32_t vst = base + lay.vw + wg * 2 * 128 * 128;
   float* qs = reinterpret_cast<float*>(smem);
 
-  const int gcols = 32 * p.GC;
+  const int gcols = 32 * min(p.GC, GCRES);
   for (int i = threadIdx.x; i < BM * gcols; i += 128 * active) {
     const int r = i / gcols, c = i % gcols;
     qs[r * lay.SQ + c] = c < p.gwe ? p.q[(size_t)(q0 + r) * p.qw + p.qg0 + c] : 0.f;
@@ -449,6 +434,7 @@ __device__ __forceinline__ void groups_consume(const GroupsParams& p, const Grou
 #pragma unroll
   for (int i = 0; i < 64; ++i) alr[i] = 0.f;
   const float* qrow = qs + r0 * lay.SQ + 2 * t;
+  const float* qg = p.q + (size_t)(q0 + r0) * p.qw + p.qg0 + 2 * t;
   const size_t psw = (size_t)p.K * p.gpt;
   uint32_t ah[4][4], al[4][4];
   int ks = 0;
@@ -468,7 +454,7 @@ __device__ __forceinline__ void groups_consume(const GroupsParams& p, const Grou
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int gg = NG * sb + 8 * j + 2 * t + e;
-          const bool ok = gg < p.gpt;
+          const bool ok = gg < p.gpt && p.ps != nullptr;
           const float cnt =
               ok ? __ldg(p.vw + ((size_t)tile * p.gpt + gg) * p.W + p.lrr) : 1.0f;
           const size_t col = (size_t)i * p.gpt + (ok ? gg : 0);
@@ -481,7 +467,10 @@ __device__ __forceinline__ void groups_consume(const GroupsParams& p, const Grou
 #pragma unroll 1
       for (int c = 0; c < p.GC; ++c) {
         float ef[NG / 2];
-        tf32::load_frags(qrow, lay.SQ, c, ah, al);
+        if (c < GCRES)
+          tf32::load_frags(qrow, lay.SQ, c, ah, al);
+        else
+          global_frags(qg + 32 * c, (size_t)8 * p.qw, p.gwe - 32 * c - 2 * t, ah, al);
         mbar_wait(gfull + 8 * ks, kph);
         wgmma_fence();
         tf32::issue_chunk(ef, ah, al, base + lay.gring + ks * 2 * NG * 128, NG * 128, nng);
@@ -493,13 +482,15 @@ __device__ __forceinline__ void groups_consume(const GroupsParams& p, const Grou
 #pragma unroll
         for (int j = 0; j < NG / 2; ++j) ev[j] = c ? ev[j] + ef[j] : ef[j];
       }
-      // ---- D = e - ps / max(cnt, 1) (rr alone: the negation), 0 past gpt
+      // ---- D = e - ps / max(cnt, 1) (rr alone: the negation; without ps,
+      // e or -e), 0 past gpt
 #pragma unroll
       for (int j = 0; j < NG / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const bool ok = NG * sb + 8 * j + 2 * t + (e & 1) < p.gpt;
-          const float ex = exp2f(fminf(ev[4 * j + e], CLAMP2));
+          float ex = exp2f(fminf(ev[4 * j + e], CLAMP2));
+          if (p.ebf16) ex = __bfloat162float(__float2bfloat16_rn(ex));
           ev[4 * j + e] = ok ? (p.lr ? ex - psn[4 * j + e] : psn[4 * j + e] - ex) : 0.f;
         }
       // ---- alr += D @ vw's NG rows (one chunk), D's registers the A
@@ -521,11 +512,14 @@ __device__ __forceinline__ void groups_consume(const GroupsParams& p, const Grou
     }
   }
 
-  // ---- alr's columns of slice sl
+  // ---- alr's columns of slice sl (with one segment, added into out with
+  // `accumulate`; where dcol >= 0 the product's last column, lrr (even:
+  // written alone), goes to out column dcol)
   float* dst;
   size_t ld;
   int cols;
-  if (p.n_seg == 1) {
+  const bool one = p.n_seg == 1;
+  if (one) {
     dst = p.out + p.oc0 + 128 * sl;
     ld = p.ow;
     cols = min(128, p.acols - 128 * sl);
@@ -540,10 +534,18 @@ __device__ __forceinline__ void groups_consume(const GroupsParams& p, const Grou
     for (int h = 0; h < 2; ++h) {
       const int r = r0 + 8 * h, c = 8 * j + 2 * t;
       float* o = dst + (size_t)(q0 + r) * ld + c;
+      const float2 v = make_float2(alr[4 * j + 2 * h], alr[4 * j + 2 * h + 1]);
       if (c + 1 < cols) {
-        *reinterpret_cast<float2*>(o) = make_float2(alr[4 * j + 2 * h], alr[4 * j + 2 * h + 1]);
+        float2 w = v;
+        if (one && p.accumulate) {
+          const float2 was = *reinterpret_cast<const float2*>(o);
+          w = make_float2(was.x + v.x, was.y + v.y);
+        }
+        *reinterpret_cast<float2*>(o) = w;
       } else if (c < cols) {
-        o[0] = alr[4 * j + 2 * h];
+        if (one && p.dcol >= 0 && 128 * sl + c == p.lrr)
+          o = p.out + (size_t)(q0 + r) * p.ow + p.dcol;
+        o[0] = one && p.accumulate ? o[0] + v.x : v.x;
       }
     }
 }
@@ -611,29 +613,6 @@ __global__ void __launch_bounds__(THREADS, 1) groups_kernel(const GroupsParams p
   groups_consume(p, lay, smem, base, active);
 }
 
-// ---------------------------------------------------------------- fold
-
-// out[q, oc0 + c] = sum over s in order of work[s, q, c], c < cols
-__global__ void fold_kernel(const float* __restrict__ work, float* __restrict__ out, int Bp,
-                            int wc, int cols, int n_seg, int ow, int oc0) {
-  const size_t n = (size_t)Bp * cols;
-  for (size_t u = (size_t)blockIdx.x * blockDim.x + threadIdx.x; u < n;
-       u += (size_t)gridDim.x * blockDim.x) {
-    const size_t q = u / cols, c = u % cols;
-    float s = 0.f;
-    for (int k = 0; k < n_seg; ++k) s += work[((size_t)k * Bp + q) * wc + c];
-    out[q * ow + oc0 + c] = s;
-  }
-}
-
-int fold(const float* work, float* out, int Bp, int wc, int cols, int n_seg, int ow, int oc0,
-         cudaStream_t s) {
-  const size_t n = (size_t)Bp * cols;
-  const int blocks = n / 256 + 1 < 4096 ? (int)(n / 256 + 1) : 4096;
-  fold_kernel<<<blocks, 256, 0, s>>>(work, out, Bp, wc, cols, n_seg, ow, oc0);
-  return (int)cudaGetLastError();
-}
-
 int launch_groups(const GroupsParams& p, cudaStream_t s) {
   const GroupsLayout lay = groups_layout(p.GC);
   if (lay.total > MAX_SMEM) return (int)cudaErrorInvalidValue;
@@ -652,7 +631,7 @@ int launch_groups(const GroupsParams& p, cudaStream_t s) {
 // (which == 0), of a groups block at KC chunks of group logit columns
 // (which == 1); -1 for what is not taken.
 extern "C" int hier_rr_tf32_smem(int KC, int which) {
-  if (KC < 1 || KC > KCMAX || which < 0 || which > 1) return -1;
+  if (KC < 1 || KC > (which ? GCMAX : KCMAX) || which < 0 || which > 1) return -1;
   return (int)(which ? groups_layout(KC).total : rows_layout(KC).total);
 }
 
@@ -695,10 +674,12 @@ extern "C" int hier_rr_tf32_rows_launch(const void* q, const void* kimg, const v
 }
 
 // The groups pass: q [Bp, qw]; gimg, vwimg the split images; vw [G, W] f32;
-// ps the rows pass's; idx; out [Bp, ow] (alr's acols columns at oc0, one
-// segment); work [n_seg, Bp, 128 NS] with several.  ints: Bp, qw, qg0,
-// gwe, GC, bm, gpt, NG, nsb, K, W, lrr, NS, acols, lr, ow, oc0, dedup,
-// n_seg.
+// ps the rows pass's (null for the value shapes: D = e with lr, else -e);
+// idx; out [Bp, ow] (alr's acols columns at oc0); work [n_seg, Bp, 128 NS]
+// with several.  ints: Bp, qw, qg0, gwe, GC, bm, gpt, NG, nsb, K, W, lrr,
+// NS, acols, lr, ow, oc0, dedup, n_seg, accumulate (add into out), dcol
+// (>= 0: the product's column lrr goes to out column dcol), ebf16 (e
+// rounded to bf16: the value shapes' bf16 group sums).
 extern "C" int hier_rr_tf32_groups_launch(const void* q, const void* gimg, const void* vwimg,
                                           const void* vw, const void* ps, const void* idx,
                                           void* out, void* work, const int* a, void* stream) {
@@ -714,14 +695,17 @@ extern "C" int hier_rr_tf32_groups_launch(const void* q, const void* gimg, const
   p.Bp = a[0], p.qw = a[1], p.qg0 = a[2], p.gwe = a[3], p.GC = a[4], p.bm = a[5], p.gpt = a[6];
   p.nsb = a[8], p.K = a[9], p.W = a[10], p.lrr = a[11], p.NS = a[12], p.acols = a[13];
   p.lr = a[14], p.ow = a[15], p.oc0 = a[16], p.dedup = a[17], p.n_seg = a[18];
-  if (p.Bp <= 0 || p.Bp % BM || p.bm % BM || p.GC < 1 || p.GC > KCMAX || p.gwe > 32 * p.GC ||
+  p.accumulate = a[19], p.dcol = a[20], p.ebf16 = a[21];
+  if (p.Bp <= 0 || p.Bp % BM || p.bm % BM || p.GC < 1 || p.GC > GCMAX || p.gwe > 32 * p.GC ||
       a[7] != NG || p.gpt < 1 || p.nsb != (p.gpt + NG - 1) / NG || p.K <= 0 ||
       p.NS < 1 || p.acols > 128 * p.NS || p.acols <= 128 * (p.NS - 1) || p.lrr < 0 ||
       p.lrr >= p.W || p.n_seg < 1 || p.n_seg > p.K || (p.n_seg > 1 && work == nullptr) ||
-      !aligned16(gimg) || !aligned16(vwimg) || p.ow % 2 || p.oc0 % 2)
+      !aligned16(gimg) || !aligned16(vwimg) || p.ow % 2 || p.oc0 % 2 ||
+      (p.dcol >= 0 && (p.lrr % 2 || p.acols != p.lrr + 1)) || p.dcol >= p.ow)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int rc = launch_groups(p, s);
   if (rc != 0 || p.n_seg == 1) return rc;
-  return fold(p.work, p.out, p.Bp, 128 * p.NS, p.acols, p.n_seg, p.ow, p.oc0, s);
+  return fold(p.work, p.out, p.Bp, 128 * p.NS, p.acols, p.n_seg, p.ow, p.oc0, s, p.accumulate,
+              p.lrr, p.dcol);
 }

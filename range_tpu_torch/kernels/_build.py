@@ -71,6 +71,9 @@ _SIGNATURES = {
     "hier_rr_tf32_sm90": {"hier_rr_tf32_rows_launch": [_P] * 10,
                           "hier_rr_tf32_groups_launch": [_P] * 10,
                           "hier_rr_tf32_smem": [_I, _I]},
+    "hier_values_tf32_sm90": {"hier_values_tf32_p_launch": [_P] * 10,
+                              "hier_values_tf32_v_launch": [_P] * 7,
+                              "hier_values_tf32_smem": [_I, _I]},
     "combine_cat": {"combine_cat_launch": [_P] * 7 + [_I] * 8 + [_F, _P]},
     "combine_cat_sm90": {"combine_cat_sm90_launch": [_P] * 6 + [_I] * 8 + [_F, _P],
                          "combine_cat_sm90_smem": []},

@@ -72,9 +72,14 @@ its own beyond the stats scan).
 Each kernel wrapper runs its plain PyTorch version on CPU tensors and the
 CUDA kernel (`csrc/`) on CUDA tensors, and counts launches in
 ``.launches``.  On banks of the `exact` tier (f32 operands) the wrappers
-of the scan, the stats scan, the refine, the correction and both parts
-kernels launch the CUDA-core body `csrc/hier_cores.cu` (`_cores_form`),
-counted also in ``.f32_launches``; at the `high` tier (768 semantic
+of the scan, the stats scan, the refine and the correction launch the
+CUDA-core body `csrc/hier_cores.cu` (`_cores_form`), counted also in
+``.f32_launches``, and both parts kernels their TF32 x3 bodies (every f32
+product three TF32 products on the tensor cores: kernel 14's rr shapes
+`csrc/hier_rr_tf32_sm90.cu`, kernel 15 and kernel 14's value shapes
+`csrc/hier_values_tf32_sm90.cu`), counted in ``.tf32_launches``; the
+CUDA-core body's parts forms (`_parts_cores`, `_parts_family_cores`) stay
+as chip_smoke.py's same-run yardsticks; at the `high` tier (768 semantic
 columns) the scan, the refine and the correction do
 (``.deep_launches``; the stats scan's 768 columns run on its own kernel,
 whose shared memory holds them), while both parts kernels and the top-k
@@ -830,10 +835,11 @@ def _launch(name: str, fn: str, *args) -> None:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
-# The CUDA-core body (`csrc/hier_cores.cu`): every form of kernels 8, 9 and
-# 12-15 whose operands are f32 (the `exact` tier) or whose logits are deeper
-# than the other bodies' 256 columns (the `high` tier), composed from its
-# kernels, the group pass (with its segments' fold) and the row pass
+# The CUDA-core body (`csrc/hier_cores.cu`): every form of kernels 8, 9, 12
+# and 13 whose operands are f32 (the `exact` tier) or whose logits are
+# deeper than the other bodies' 256 columns (the `high` tier), composed from
+# its kernels, the group pass (with its segments' fold) and the row pass;
+# its forms of kernels 14 and 15 are chip_smoke.py's yardsticks
 CORES_DEPTH = 256  # logit columns the Hopper and mma.sync bodies take at most
 CORES_NC = 512  # output columns of a CUDA-core block (a slice)
 _CORES_DT = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}
@@ -864,8 +870,8 @@ def _cores_form(depth: int, *ops) -> Optional[str]:
     """The CUDA-core form a launch takes: "f32" when an operand is f32,
     "deep" when its logits read more than `CORES_DEPTH` columns, else None
     (the function's own body).  Kernels 8, 9, 12 and 13 route by it;
-    kernels 14 and 15 test for f32 operands themselves, and kernel 14's
-    f32 rr shapes take their TF32 x3 body (`_hier_parts_family_call`)."""
+    kernels 14 and 15 test for f32 operands themselves and take their TF32
+    x3 bodies (`_rr_tf32`, `_values_tf32`)."""
     if any(t is not None and t.dtype == torch.float32 for t in ops):
         return "f32"
     return "deep" if depth > CORES_DEPTH else None
@@ -1811,10 +1817,12 @@ def _hier_parts_family_call(q_cat, k_cat, mask_neg, idx, g_cat, g_vw, z, *,
     tier's 768 or wide keys, in passes of 256; the query columns past what
     a block holds beside the ring stream with passes of 128).  f32 operands
     (the `exact` tier): the rr shapes on `csrc/hier_rr_tf32_sm90.cu`, every
-    f32 product three TF32 products (`_rr_tf32`, logits up to 512 columns;
-    counted in ``.launches`` and ``.tf32_launches`` only), the value shapes
-    on the CUDA-core body (`_parts_family_cores`, counted in ``.launches``
-    and ``.f32_launches`` only).  A shape they do not take raises
+    f32 product three TF32 products (`_rr_tf32`, logits up to 512 columns),
+    the value shapes on `csrc/hier_values_tf32_sm90.cu` (`_values_tf32`,
+    the same products, logits up to `VALUES_TF32_COLS` columns, f32 values
+    at a bf16 tier too; also counted in
+    ``.values_tf32_launches``), both counted in ``.launches`` and
+    ``.tf32_launches`` only.  A shape they do not take raises
     ValueError before any launch, and a failed launch raises.  Each bf16
     launch of the Hopper bodies counts in ``.launches`` and in its shape's
     own counter:
@@ -1827,8 +1835,10 @@ def _hier_parts_family_call(q_cat, k_cat, mask_neg, idx, g_cat, g_vw, z, *,
             q_cat, k_cat, mask_neg, idx, g_cat, g_vw, z, sem_d=sem_d, bm=bm,
             bn=bn, gpt=gpt, geo=geo, lrr=lrr, lr=lr, values=values,
             scale=scale, sel=sel, dedup_pad=dedup_pad)
+    # the rr shapes read no values: f32 values alone (a bf16 tier's bank
+    # built with them) leave them on the bf16 body
     f32_ops = any(t is not None and t.dtype == torch.float32
-                  for t in (q_cat, k_cat, g_cat, g_vw, z, values))
+                  for t in (q_cat, k_cat, g_cat, g_vw, z if z is not None else values))
     if f32_ops and z is not None:
         out = _rr_tf32(q_cat, k_cat, mask_neg, idx, g_cat, g_vw, z, sem_d=sem_d, bm=bm, bn=bn,
                        gpt=gpt, geo=geo, lrr=lrr, lr=lr, sel=sel, dedup_pad=dedup_pad,
@@ -1837,12 +1847,13 @@ def _hier_parts_family_call(q_cat, k_cat, mask_neg, idx, g_cat, g_vw, z, *,
             _count_cores(_hier_parts_family_call, "tf32")
         return out
     if f32_ops:
-        out = _parts_family_cores(q_cat, k_cat, mask_neg, idx, g_cat, g_vw, z, sem_d=sem_d,
-                                  bm=bm, bn=bn, gpt=gpt, geo=geo, lrr=lrr, lr=lr,
-                                  values=values, scale=scale, sel=sel, dedup_pad=dedup_pad,
-                                  geo_cols=geo_cols)
+        fams, out_w = _family_fams(q_cat, k_cat, values, g_cat, g_vw, sem_d=sem_d, gpt=gpt,
+                                   geo=geo, lr=lr, sel=sel, geo_cols=geo_cols)
+        out = _values_tf32("hier_parts_family", q_cat, k_cat, values, scale, mask_neg, idx,
+                           fams, bm=bm, bn=bn, out_w=out_w, dedup=dedup_pad)
         if q_cat.shape[0] and idx.shape[1]:
-            _count_cores(_hier_parts_family_call, "f32")
+            _count_cores(_hier_parts_family_call, "tf32")
+            _hier_parts_family_call.values_tf32_launches += 1
         return out
     if z is None:  # the geo family's logits over one k16 step, as the merged launch's
         out = _values_sm90("hier_parts_family", q_cat, k_cat, values, scale, mask_neg, idx,
@@ -2387,8 +2398,8 @@ _hier_parts_family_call.sel_launches = 0
 _hier_parts_family_call.dedup_launches = 0
 _hier_parts_family_call.sel_rr_launches = 0
 _hier_parts_family_call.dedup_rr_launches = 0
-_hier_parts_family_call.f32_launches = 0
 _hier_parts_family_call.tf32_launches = 0
+_hier_parts_family_call.values_tf32_launches = 0
 
 
 def _rows_shapes(name: str, k_cat, mask_neg, idx, x, *, bn: int, scale=None) -> None:
@@ -2410,8 +2421,9 @@ def _parts_family_cores(q_cat, k_cat, mask_neg, idx, g_cat, g_vw, z, *, sem_d: i
                         bm: int, bn: int, gpt: int, geo: bool, lrr: int, lr: bool,
                         values, scale, sel: bool, dedup_pad: bool,
                         geo_cols: Optional[int] = None):
-    """`_hier_parts_family_call`'s shapes on the CUDA-core body, the layout
-    of `_hier_parts_family_plain`: the row pass (d and the value product,
+    """`_hier_parts_family_call`'s shapes on the CUDA-core body (no wrapper
+    launches it: chip_smoke.py's same-run yardstick of the TF32 x3 bodies),
+    the layout of `_hier_parts_family_plain`: the row pass (d and the value product,
     or with ``z`` az and the segment sums of the rounded p), then the group
     pass (the approximation into alr or subtracted, or with ``z`` the
     rounded e - ps / cnt into alr, or ps / cnt - e into [acc | d]); the geo
@@ -2478,6 +2490,7 @@ def _parts_family_cores(q_cat, k_cat, mask_neg, idx, g_cat, g_vw, z, *, sem_d: i
 # cores: `csrc/hier_rr_tf32_sm90.cu`, every f32 product three TF32 products
 RR_TF32_COLS = 512  # logit columns it takes (32-column chunks: KCMAX)
 RR_TF32_RES = 8  # chunks of them the rows pass's query block holds (KCRES)
+RR_TF32_GRES = 16  # chunks of group logit columns the groups pass's block holds (GCRES)
 
 
 class RrTf32Shape(NamedTuple):
@@ -2541,13 +2554,14 @@ def _rr_tf32_shape(q_cat, k_cat, mask_neg, idx, g_cat, g_vw, z, *, sem_d: int, b
 def _rr_tf32_smem(KC: int, GC: int) -> Tuple[int, int]:
     """Dynamic shared memory of a rows block and a groups block (the
     kernels' `rows_layout` / `groups_layout`): the f32 query block (the
-    rows pass's first `RR_TF32_RES` chunks), a 3-stage ring of split
+    rows pass's first `RR_TF32_RES` chunks, the groups pass's first
+    `RR_TF32_GRES`), a 3-stage ring of split
     [64 | 32][32] chunks, two z (or vw) stages of [128][32], the rows
     pass's two p tiles and carries, the barriers."""
     rows = (-(-64 * (32 * min(KC, RR_TF32_RES) + 8) * 4 // 1024) * 1024 + 3 * 2 * 64 * 128
             + 4 * 128 * 128 + 2 * 64 * 65 * 4 + 2 * 64 * 4 + 8 * 10 + 1024)
-    groups = (-(-64 * (32 * GC + 8) * 4 // 1024) * 1024 + 3 * 2 * 32 * 128 + 4 * 128 * 128
-              + 8 * 10 + 1024)
+    groups = (-(-64 * (32 * min(GC, RR_TF32_GRES) + 8) * 4 // 1024) * 1024 + 3 * 2 * 32 * 128
+              + 4 * 128 * 128 + 8 * 10 + 1024)
     return rows, groups
 
 
@@ -2563,49 +2577,70 @@ def _rr_tf32_segments(Bp: int, K: int, slices: int) -> int:
 
 
 @torch.no_grad()
-def _rr_tf32_images(k_cat, z, g_cat, g_vw, sh: RrTf32Shape, *, bn: int, gpt: int):
-    """The split images the kernels copy, once per bank (`_prep.prepared`;
-    `_prep.kmajor_tf32`: [N][32] K-major tiles, each k8 block's columns
-    permuted, hi | lo): keys [T, spt, KC, 2, 64, 32] (the family's columns,
-    zero past kf and past a tile's bn rows), z [T, spt, 2, ZS, 2, 128, 32]
-    (z^T, each step's rows in two 32-row chunks), centroids [T, nsb, GC, 2,
-    NG, 32] and vw [T, nsb, NS, NG / 32, 2, 128, 32] (vw^T over acols'
-    slices), zero past each tile's gpt groups."""
-    f32 = torch.float32
-
-    def keys():
+def _tf32_keys_image(k_cat, *, kc0: int, kf: int, KC: int, spt: int, bn: int):
+    """The keys' split image, once per bank (`_prep.prepared`; `_prep.
+    kmajor_tf32`: [N][32] K-major tiles, each k8 block's columns permuted,
+    hi | lo): [T, spt, KC, 2, 64, 32], the columns [kc0, kc0 + kf), zero
+    past kf and past a tile's bn rows."""
+    def build():
         N = k_cat.shape[0]
         T = N // bn
-        k = torch.zeros(T, sh.spt * 64, 32 * sh.KC, dtype=f32, device=k_cat.device)
-        k[:, :bn, :sh.kf] = k_cat[:, sh.kc0:sh.kc0 + sh.kf].to(f32).reshape(T, bn, sh.kf)
-        return kmajor_tf32(k.reshape(T, sh.spt, 64, 32 * sh.KC))
+        k = torch.zeros(T, spt * 64, 32 * KC, dtype=torch.float32, device=k_cat.device)
+        k[:, :bn, :kf] = k_cat[:, kc0:kc0 + kf].to(torch.float32).reshape(T, bn, kf)
+        return kmajor_tf32(k.reshape(T, spt, 64, 32 * KC))
 
-    def zs():
-        N, rrp = z.shape
+    return prepared("tf32_keys", [k_cat], build, (kc0, kf, bn))
+
+
+@torch.no_grad()
+def _tf32_rows_image(x, *, spt: int, ZS: int, bn: int):
+    """An f32 operand of one row a bank row (z, or f32 values) as the B
+    tiles of a product over the rows, once per bank: [T, spt, 2, ZS, 2, 128,
+    32] (x^T, each step's rows in two 32-row chunks, ZS slices of 128
+    columns), zero past its columns and past a tile's bn rows."""
+    def build():
+        N, w = x.shape
         T = N // bn
-        m = torch.zeros(T, sh.spt * 64, rrp, dtype=f32, device=z.device)
-        m[:, :bn] = z.to(f32).reshape(T, bn, rrp)
-        m = m.reshape(T, sh.spt, 64, sh.ZS, 128).permute(0, 1, 3, 4, 2)  # [T, spt, ZS, 128, 64]
+        m = torch.zeros(T, spt * 64, 128 * ZS, dtype=torch.float32, device=x.device)
+        m[:, :bn, :w] = x.to(torch.float32).reshape(T, bn, w)
+        m = m.reshape(T, spt, 64, ZS, 128).permute(0, 1, 3, 4, 2)  # [T, spt, ZS, 128, 64]
         return kmajor_tf32(m).transpose(2, 3).contiguous()
 
+    return prepared("tf32_rows", [x], build, (bn, ZS))
+
+
+@torch.no_grad()
+def _tf32_group_images(g_cat, g_vw, *, gwe: int, GC: int, gpt: int, NG: int, nsb: int,
+                       NS: int):
+    """The centroids' and vw's split images, once per bank: [T, nsb, GC, 2,
+    NG, 32] and [T, nsb, NS, NG / 32, 2, 128, 32] (vw^T over NS slices of
+    128), zero past each tile's gpt groups and past gwe / vw's columns."""
     def cents():
         T = g_cat.shape[0] // gpt
-        g = torch.zeros(T, sh.nsb * sh.NG, 32 * sh.GC, dtype=f32, device=g_cat.device)
-        g[:, :gpt, :sh.gwe] = g_cat[:, :sh.gwe].to(f32).reshape(T, gpt, sh.gwe)
-        return kmajor_tf32(g.reshape(T, sh.nsb, sh.NG, 32 * sh.GC))
+        g = torch.zeros(T, nsb * NG, 32 * GC, dtype=torch.float32, device=g_cat.device)
+        g[:, :gpt, :gwe] = g_cat[:, :gwe].to(torch.float32).reshape(T, gpt, gwe)
+        return kmajor_tf32(g.reshape(T, nsb, NG, 32 * GC))
 
     def vws():
         T = g_vw.shape[0] // gpt
-        v = torch.zeros(T, sh.nsb * sh.NG, sh.NS * 128, dtype=f32, device=g_vw.device)
-        w = min(sh.NS * 128, g_vw.shape[1])
-        v[:, :gpt, :w] = g_vw[:, :w].to(f32).reshape(T, gpt, w)
-        v = v.reshape(T, sh.nsb, sh.NG, sh.NS, 128).permute(0, 1, 3, 4, 2)  # [T, nsb, NS, 128, NG]
+        v = torch.zeros(T, nsb * NG, NS * 128, dtype=torch.float32, device=g_vw.device)
+        w = min(NS * 128, g_vw.shape[1])
+        v[:, :gpt, :w] = g_vw[:, :w].to(torch.float32).reshape(T, gpt, w)
+        v = v.reshape(T, nsb, NG, NS, 128).permute(0, 1, 3, 4, 2)  # [T, nsb, NS, 128, NG]
         return kmajor_tf32(v)
 
-    return (prepared("rr_tf32_keys", [k_cat], keys, (sh.kc0, sh.kf, bn)),
-            prepared("rr_tf32_z", [z], zs, (bn,)),
-            prepared("rr_tf32_cents", [g_cat], cents, (sh.gwe, gpt, sh.NG)),
-            prepared("rr_tf32_vw", [g_vw], vws, (gpt, sh.NG, sh.NS)))
+    return (prepared("tf32_cents", [g_cat], cents, (gwe, gpt, NG)),
+            prepared("tf32_vw", [g_vw], vws, (gpt, NG, NS)))
+
+
+def _rr_tf32_images(k_cat, z, g_cat, g_vw, sh: RrTf32Shape, *, bn: int, gpt: int):
+    """The split images the rr kernels copy, once per bank: keys
+    (`_tf32_keys_image`), z [T, spt, 2, ZS, 2, 128, 32] (`_tf32_rows_image`),
+    centroids and vw (`_tf32_group_images`)."""
+    return (_tf32_keys_image(k_cat, kc0=sh.kc0, kf=sh.kf, KC=sh.KC, spt=sh.spt, bn=bn),
+            _tf32_rows_image(z, spt=sh.spt, ZS=sh.ZS, bn=bn),
+            *_tf32_group_images(g_cat, g_vw, gwe=sh.gwe, GC=sh.GC, gpt=gpt, NG=sh.NG,
+                                nsb=sh.nsb, NS=sh.NS))
 
 
 def _rr_tf32(q_cat, k_cat, mask_neg, idx, g_cat, g_vw, z, *, sem_d: int, bm: int, bn: int,
@@ -2644,7 +2679,7 @@ def _rr_tf32(q_cat, k_cat, mask_neg, idx, g_cat, g_vw, z, *, sem_d: int, bm: int
     n_g = _rr_tf32_segments(Bp, K, -(-sh.NS // 2))
     work_g = (torch.empty(n_g * Bp * 128 * sh.NS, dtype=f32, device=dev) if n_g > 1 else None)
     ints = [Bp, qw, sh.qg0, sh.gwe, sh.GC, bm, gpt, sh.NG, sh.nsb, K, g_vw.shape[1], lrr, sh.NS,
-            sh.acols, int(lr), sh.out_w, sh.alr0, int(dedup_pad), n_g]
+            sh.acols, int(lr), sh.out_w, sh.alr0, int(dedup_pad), n_g, 0, -1, 0]
     _launch("hier_rr_tf32_sm90", "hier_rr_tf32_groups_launch", q.data_ptr(), gimg.data_ptr(),
             vimg.data_ptr(), vw.data_ptr(), ps.data_ptr(), lst.data_ptr(), out.data_ptr(),
             None if work_g is None else work_g.data_ptr(), (ctypes.c_int * len(ints))(*ints),
@@ -2725,6 +2760,336 @@ def _rr_tf32_plain(q_cat, k_cat, mask_neg, idx, g_cat, g_vw, z, *, sem_d: int, b
         out[rows, sh.az0:sh.az0 + 128 * sh.ZS] = az[0] + az[1]
         out[rows, sh.alr0:sh.alr0 + sh.acols] = alr[:, :sh.acols]
     return out
+
+
+# Kernel 15 and kernel 14's value shapes at f32 operands (the `exact` tier)
+# on the tensor cores: `csrc/hier_values_tf32_sm90.cu` (the logits as three
+# TF32 products, p once into device memory, then the value products), the
+# group products on `csrc/hier_rr_tf32_sm90.cu`'s groups pass
+VALUES_TF32_COLS = 1536  # logit columns (rows and groups) it takes: KCMAX, GCMAX
+_VALUES_TF32_MODE = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}
+_VALUES_TF32_PBYTES = {0: 8192, 1: 32768, 2: 8192}  # p of 64 queries and a 64-row step
+
+
+class ValuesTf32Fam(NamedTuple):
+    """One family of a launch: the row logits over the keys' [kc0, kc0 + kf)
+    in KC chunks of 32, the group logits over the query's [qg0, qg0 + gwe)
+    against the centroids' first gwe columns in GC chunks, per block of NG
+    groups (nsb a tile); acc at out columns [acc0, acc0 + Dv), d at dcol;
+    with ``lr`` e @ vw (alr, acols = W columns in NS slices of 128) at
+    alr0, else e @ vw[:, :Dv + 1] (acols = Dv + 1) taken from acc and d."""
+    kc0: int
+    kf: int
+    KC: int
+    qg0: int
+    gwe: int
+    GC: int
+    NG: int
+    nsb: int
+    NS: int
+    acols: int
+    acc0: int
+    dcol: int
+    alr0: int
+    lr: bool
+    gpt: int
+
+
+class ValuesTf32Shape(NamedTuple):
+    """A launch: bn rows a tile in spt 64-row steps, Dv value columns in VS
+    slices of 128, its families."""
+    spt: int
+    Dv: int
+    VS: int
+    fams: tuple
+
+
+def _values_tf32_fam(*, kc0: int, kf: int, qg0: int, gwe: int, gpt: int, W: int, Dv: int,
+                     lr: bool, acc0: int, dcol: int, alr0: int) -> ValuesTf32Fam:
+    acols = W if lr else Dv + 1
+    return ValuesTf32Fam(kc0, kf, -(-kf // 32), qg0, gwe, -(-gwe // 32), 32, -(-gpt // 32),
+                         -(-acols // 128), acols, acc0, dcol, alr0, lr, gpt)
+
+
+def _values_tf32_shape(name: str, q_cat, k_cat, values, scale, mask_neg, idx, fams, *, bm: int,
+                       bn: int) -> ValuesTf32Shape:
+    """The launch's shape, raising ValueError on what the kernels do not take
+    (before any launch): ``fams`` [(g_cat, g_vw, cols, qcols, gpt, lr, acc0,
+    dcol, alr0)].  Logits up to `VALUES_TF32_COLS` columns (rows and
+    groups: f32 ones of the `exact` tier, bf16 ones of a bank with f32
+    values, 768 at `high`; the CUDA-core body took ~450 and ~1,290),
+    whole tiles of bn rows and of gpt groups, a batch of whole selection
+    blocks of 64-query multiples, Dv even, int8 codes with their [1, N]
+    scales, full-width group sums (Dv + 1 columns) where not lr."""
+    Bp = q_cat.shape[0]
+    N, cat_d = k_cat.shape
+    Dv = values.shape[1]
+    ok = (idx.dim() == 2 and Bp == idx.shape[0] * bm and bm % 64 == 0 and bn >= 1
+          and N % bn == 0 and N > 0 and values.shape[0] == N and Dv % 2 == 0 and Dv > 0
+          and mask_neg.shape == (1, N) and (values.dtype == torch.int8) == (scale is not None)
+          and (scale is None or scale.shape == (1, N)))
+    out = []
+    for g_cat, g_vw, cols, qcols, gpt, lr, acc0, dcol, alr0 in fams:
+        kf, gwe = cols.stop - cols.start, qcols.stop - qcols.start
+        G, W = g_cat.shape[0], g_vw.shape[1]
+        ok = ok and (0 < kf <= VALUES_TF32_COLS and 0 < gwe <= VALUES_TF32_COLS
+                     and gwe <= g_cat.shape[1]
+                     and cols.stop <= cat_d and qcols.stop <= q_cat.shape[1] and gpt >= 1
+                     and bn % gpt == 0 and G % gpt == 0 and G // gpt >= N // bn
+                     and g_vw.shape[0] == G and (W >= 1 if lr else W >= Dv + 1))
+        out.append(_values_tf32_fam(kc0=cols.start, kf=kf, qg0=qcols.start, gwe=gwe, gpt=gpt,
+                                    W=W, Dv=Dv, lr=lr, acc0=acc0, dcol=dcol, alr0=alr0))
+    if not ok:
+        raise ValueError(
+            f"{name} kernel (TF32 x3): unsupported shapes q {tuple(q_cat.shape)}, k "
+            f"{tuple(k_cat.shape)}, values {tuple(values.shape)} {values.dtype}, idx "
+            f"{tuple(idx.shape)}, g / vw " + ", ".join(
+                f"{tuple(f[0].shape)} / {tuple(f[1].shape)}" for f in fams)
+            + f", bm={bm}, bn={bn}")
+    return ValuesTf32Shape(-(-bn // 64), Dv, -(-Dv // 128), tuple(out))
+
+
+def _values_tf32_smem(KC: int, f32: bool) -> Tuple[int, int]:
+    """Dynamic shared memory of a p block at KC chunks of logit columns and
+    of a values block (the kernels' `p_layout` / `VCfg`): two warpgroups'
+    f32 query blocks (their first `RR_TF32_RES` chunks), a 4-stage ring of
+    split [64][32] key chunks; 5 stages of a bf16 p box and two value
+    slices' two boxes, or 2 of an f32 p chunk and two split value tiles."""
+    p = (-(-2 * 64 * (32 * min(KC, RR_TF32_RES) + 8) * 4 // 1024) * 1024 + 4 * 2 * 64 * 128
+         + 8 * 8 + 1024)
+    stage = (16384 + 2 * 32768) if f32 else (8192 + 2 * 16384)
+    S = 2 if f32 else 5
+    return p, S * stage + 16 * S + 1024
+
+
+def _values_tf32_segments(Bp: int, K: int, bm: int, VS: int) -> Tuple[int, int]:
+    """Segments of each list in the p pass (blocks of 128 queries where bm
+    allows it, else 64) and in the value pass (a block a pair of VS value
+    slices): `_rr_tf32_segments` over each pass's blocks."""
+    return (_rr_tf32_segments(Bp // (2 if bm % 128 == 0 else 1), K, 1),
+            _rr_tf32_segments(Bp, K, -(-VS // 2)))
+
+
+@torch.no_grad()
+def _values_bf16_image(x, *, spt: int, VS: int, bn: int):
+    """bf16 values (or int8 codes, converted exactly) as the value pass's B
+    tiles, once per bank: [T, spt, VS, 2, 64, 64] bf16, each 64-row step's
+    rows of each 128-column slice as two MN-major 64-column boxes in the
+    128-byte swizzle, zero past Dv and past a tile's bn rows."""
+    def build():
+        N, Dv = x.shape
+        T = N // bn
+        m = torch.zeros(T, spt * 64, 128 * VS, dtype=torch.bfloat16, device=x.device)
+        m[:, :bn, :Dv] = x.to(torch.bfloat16).reshape(T, bn, Dv)
+        m = m.reshape(T, spt, 64, 2 * VS, 64).permute(0, 1, 3, 2, 4)
+        return swizzle128(m.contiguous()).reshape(T, spt, VS, 2, 64, 64)
+
+    return prepared("values_bf16", [x], build, (bn, VS))
+
+
+def _values_tf32_images(values, sh: ValuesTf32Shape, *, bn: int):
+    """The value pass's B image: f32 values split (`_tf32_rows_image`), bf16
+    values and int8 codes in bf16 boxes (`_values_bf16_image`)."""
+    if values.dtype == torch.float32:
+        return _tf32_rows_image(values, spt=sh.spt, ZS=sh.VS, bn=bn)
+    return _values_bf16_image(values, spt=sh.spt, VS=sh.VS, bn=bn)
+
+
+def _values_tf32(name: str, q_cat, k_cat, values, scale, mask_neg, idx, fams, *, bm: int,
+                 bn: int, out_w: int, dedup: bool = False):
+    """Launch `csrc/hier_values_tf32_sm90.cu` for each family of ``fams``
+    (as `_values_tf32_shape` takes them): the p pass (d, and p into device
+    memory), the value pass (acc), then `csrc/hier_rr_tf32_sm90.cu`'s
+    groups pass without group sums (alr, or -e @ vw added into acc and d);
+    each pass's lists cut into `_rr_tf32_segments`.  Counted nowhere."""
+    f32, i32 = torch.float32, torch.int32
+    ops = dict(q_cat=q_cat, k_cat=k_cat, mask_neg=mask_neg, idx=idx, values=values)
+    for i, (g_cat, g_vw, *_) in enumerate(fams):
+        ops[f"g{i}"], ops[f"vw{i}"] = g_cat, g_vw
+    if scale is not None:
+        ops["scale"] = scale
+    # f32 or bf16 logit and group operands (bf16 ones, a `fast` bank's with
+    # f32 values, are exact in f32), f32 masks and scales
+    dtypes = {k: (torch.int32 if k == "idx" else f32 if k in ("mask_neg", "scale")
+                  else v.dtype if k == "values" or v.dtype == torch.bfloat16 else f32)
+              for k, v in ops.items()}
+    if values.dtype not in _VALUES_TF32_MODE:
+        raise ValueError(f"{name} kernel (TF32 x3): values must be bf16, f32 or int8 codes, "
+                         f"got {values.dtype}")
+    _check_cuda(name, ops, dtypes)
+    sh = _values_tf32_shape(name, q_cat, k_cat, values, scale, mask_neg, idx, fams, bm=bm,
+                            bn=bn)
+    Bp, qw = q_cat.shape
+    K, dev = idx.shape[1], q_cat.device
+    out = torch.zeros((Bp, out_w), dtype=f32, device=dev)
+    if not (Bp and K):
+        return out
+    mode = _VALUES_TF32_MODE[values.dtype]
+    held = [q_cat.to(f32).contiguous(), mask_neg.contiguous(), idx.contiguous(),
+            None if scale is None else scale.contiguous()]
+    q, mask, lst, sc = held
+    vimg = _values_tf32_images(values, sh, bn=bn)
+    pimg = torch.empty(Bp // 64 * K * sh.spt * _VALUES_TF32_PBYTES[mode], dtype=torch.uint8,
+                       device=dev)
+    n_p, n_v = _values_tf32_segments(Bp, K, bm, sh.VS)
+    work_p = torch.empty(n_p * Bp, dtype=f32, device=dev) if n_p > 1 else None
+    work_v = torch.empty(n_v * Bp * 128 * sh.VS, dtype=f32, device=dev) if n_v > 1 else None
+    stream = _stream(q_cat)
+    for fm, (g_cat, g_vw, *_) in zip(sh.fams, fams):
+        kimg = _tf32_keys_image(k_cat, kc0=fm.kc0, kf=fm.kf, KC=fm.KC, spt=sh.spt, bn=bn)
+        ints = [Bp, qw, fm.kc0, fm.kf, fm.KC, bm, bn, sh.spt, K, mode, out_w, fm.dcol,
+                int(dedup), n_p]
+        _launch("hier_values_tf32_sm90", "hier_values_tf32_p_launch", q.data_ptr(),
+                kimg.data_ptr(), mask.data_ptr(), None if sc is None else sc.data_ptr(),
+                lst.data_ptr(), pimg.data_ptr(), out.data_ptr(),
+                None if work_p is None else work_p.data_ptr(),
+                (ctypes.c_int * len(ints))(*ints), stream)
+        ints = [Bp, bm, sh.spt, K, sh.VS, sh.Dv, int(mode == 1), out_w, fm.acc0, int(dedup), n_v]
+        _launch("hier_values_tf32_sm90", "hier_values_tf32_v_launch", pimg.data_ptr(),
+                vimg.data_ptr(), lst.data_ptr(), out.data_ptr(),
+                None if work_v is None else work_v.data_ptr(),
+                (ctypes.c_int * len(ints))(*ints), stream)
+        gimg, vwimg = _tf32_group_images(g_cat, g_vw, gwe=fm.gwe, GC=fm.GC, gpt=fm.gpt,
+                                         NG=fm.NG, nsb=fm.nsb, NS=fm.NS)
+        n_g = _rr_tf32_segments(Bp, K, -(-fm.NS // 2))
+        work_g = (torch.empty(n_g * Bp * 128 * fm.NS, dtype=f32, device=dev) if n_g > 1
+                  else None)
+        vw = g_vw.contiguous()
+        ints = [Bp, qw, fm.qg0, fm.gwe, fm.GC, bm, fm.gpt, fm.NG, fm.nsb, K, vw.shape[1],
+                0 if fm.lr else sh.Dv, fm.NS, fm.acols, int(fm.lr), out_w,
+                fm.alr0 if fm.lr else fm.acc0, int(dedup), n_g, int(not fm.lr),
+                -1 if fm.lr else fm.dcol, int(g_vw.dtype == torch.bfloat16)]
+        _launch("hier_rr_tf32_sm90", "hier_rr_tf32_groups_launch", q.data_ptr(),
+                gimg.data_ptr(), vwimg.data_ptr(), vw.data_ptr(), None, lst.data_ptr(),
+                out.data_ptr(), None if work_g is None else work_g.data_ptr(),
+                (ctypes.c_int * len(ints))(*ints), stream)
+    return out
+
+
+def _values_tf32_plain(q_cat, k_cat, values, scale, mask_neg, idx, fams, *, bm: int, bn: int,
+                       out_w: int, dedup: bool = False, chain: str = "chunks"):
+    """Plain version of `_values_tf32`'s arithmetic, read from its images
+    (unswizzled and unpermuted here), the layout of `_hier_parts_plain` /
+    `_hier_parts_family_plain`.  Per 64 queries, family and listed tile
+    (repeats skipped with ``dedup``), per 64-row step (as two 32-row
+    halves: a logit's arithmetic is the same at any N): the logits
+    `_prep.tf32x3_matmul` chunk by chunk over the keys' columns, p =
+    exp2(min(l + mask, 86)) (0 past bn), d += sum p; then acc
+    += w @ v per step (bf16 w and values: the step's 64 exact products in a
+    fresh fragment) or per 32-row chunk (f32: twelve TF32 products in one);
+    e chunk by chunk over the centroids' columns per block of NG groups,
+    and alr (or the subtraction's sums) += e @ vw (-e without lr).  ``chain``
+    as `_prep.tf32x3_matmul`'s."""
+    from ._prep import kmajor_tf32_read
+    f32 = torch.float32
+    sh = _values_tf32_shape("hier_parts", q_cat, k_cat, values, scale, mask_neg, idx, fams,
+                            bm=bm, bn=bn)
+    vimg = _values_tf32_images(values, sh, bn=bn)
+    if values.dtype == torch.float32:
+        vh, vl = kmajor_tf32_read(vimg.transpose(2, 3))  # [T, spt, VS, 128, 64]
+        vh, vl = (v.permute(0, 1, 4, 2, 3).reshape(*v.shape[:2], 64, -1) for v in (vh, vl))
+    else:
+        v = swizzle128(vimg).float()  # [T, spt, VS, 2, 64, 64]
+        vh = v.permute(0, 1, 4, 2, 3, 5).reshape(*v.shape[:2], 64, -1)  # [T, spt, 64, 128 VS]
+    Bp, K = q_cat.shape[0], idx.shape[1]
+    dev = q_cat.device
+    q = q_cat.to(f32)
+    mask = mask_neg[0].to(f32)
+    sc = None if scale is None else scale[0].to(f32)
+    out = torch.zeros(Bp, out_w, dtype=f32, device=dev)
+    for fm, (g_cat, g_vw, *_) in zip(sh.fams, fams):
+        kimg = _tf32_keys_image(k_cat, kc0=fm.kc0, kf=fm.kf, KC=fm.KC, spt=sh.spt, bn=bn)
+        gimg, vwimg = _tf32_group_images(g_cat, g_vw, gwe=fm.gwe, GC=fm.GC, gpt=fm.gpt,
+                                         NG=fm.NG, nsb=fm.nsb, NS=fm.NS)
+        kh, kl = kmajor_tf32_read(kimg)    # [T, spt, 64, KC 32]
+        gh, gl = kmajor_tf32_read(gimg)    # [T, nsb, NG, GC 32]
+        wh, wl = kmajor_tf32_read(vwimg)   # [T, nsb, NS, 128, NG]
+        qk = torch.zeros(Bp, 32 * fm.KC, dtype=f32, device=dev)
+        qk[:, :fm.kf] = q[:, fm.kc0:fm.kc0 + fm.kf]
+        qg = torch.zeros(Bp, 32 * fm.GC, dtype=f32, device=dev)
+        qg[:, :fm.gwe] = q[:, fm.qg0:fm.qg0 + fm.gwe]
+        for q0 in range(0, Bp, 64):
+            lst = idx[q0 // bm].tolist()
+            rows = slice(q0, q0 + 64)
+            acc = torch.zeros(64, 128 * sh.VS, dtype=f32, device=dev)
+            grp = torch.zeros(64, 128 * fm.NS, dtype=f32, device=dev)
+            d = torch.zeros(64, dtype=f32, device=dev)
+            for i, tile in enumerate(lst):
+                if dedup and i and lst[i - 1] == tile:
+                    continue
+                for st in range(sh.spt):
+                    ws = []
+                    for w in range(2):
+                        r = slice(32 * w, 32 * w + 32)
+                        lg = tf32x3_matmul(qk[rows], kh[tile, st, r].T, kl[tile, st, r].T, chain)
+                        ir = 64 * st + 32 * w + torch.arange(32, device=dev)
+                        ok = ir < bn
+                        bank_rows = tile * bn + ir.clamp_max(bn - 1)
+                        p = torch.where(ok, torch.exp2(torch.clamp_max(lg + mask[bank_rows],
+                                                                       CLAMP2)), 0.0)
+                        d += p.sum(1)
+                        if values.dtype == torch.float32:
+                            acc = tf32x3_matmul(p, vh[tile, st, r], vl[tile, st, r], chain,
+                                                acc=acc)
+                        else:
+                            ws.append((p * sc[bank_rows] if sc is not None else p)
+                                      .to(torch.bfloat16).to(f32))
+                    if ws:
+                        frag = torch.cat(ws, 1).double() @ vh[tile, st].double()
+                        acc = acc + frag.to(f32)
+                for sb in range(fm.nsb):
+                    ev = tf32x3_matmul(qg[rows], gh[tile, sb].T, gl[tile, sb].T, chain)
+                    e = torch.exp2(torch.clamp_max(ev, CLAMP2))
+                    if g_vw.dtype == torch.bfloat16:
+                        e = e.to(torch.bfloat16).to(f32)
+                    e = e if fm.lr else -e
+                    e[:, torch.arange(fm.NG, device=dev) + fm.NG * sb >= fm.gpt] = 0.0
+                    for ns in range(fm.NS):
+                        ac = slice(128 * ns, 128 * ns + 128)
+                        grp[:, ac] = tf32x3_matmul(e, wh[tile, sb, ns].T, wl[tile, sb, ns].T,
+                                                   chain, acc=grp[:, ac])
+            out[rows, fm.acc0:fm.acc0 + sh.Dv] = acc[:, :sh.Dv]
+            out[rows, fm.dcol] = d
+            if fm.lr:
+                out[rows, fm.alr0:fm.alr0 + fm.acols] = grp[:, :fm.acols]
+            else:
+                out[rows, fm.acc0:fm.acc0 + sh.Dv] += grp[:, :sh.Dv]
+                out[rows, fm.dcol] += grp[:, sh.Dv]
+    return out
+
+
+def _merged_fams(q_cat, k_cat, values, g_sem_cat, g_geo_cat, g_sem_vw, g_geo_vw, *,
+                 sem_d: int, gpt_s: int, gpt_g: int, lr: bool, geo: bool):
+    """The merged launch's families as `_values_tf32_shape` takes them, in the
+    layout of `_hier_parts_plain` (acc_s | acc_g | d_s | d_g | 0 | alr), and
+    the output's width."""
+    cat_d, Dv = k_cat.shape[1], values.shape[1]
+    gs, gg = g_sem_cat.shape[1], g_geo_cat.shape[1]
+    fams = [(g_sem_cat, g_sem_vw, slice(0, sem_d), slice(0, gs), gpt_s, lr, 0, 2 * Dv,
+             2 * Dv + 128)]
+    if geo:
+        fams.append((g_geo_cat, g_geo_vw, slice(sem_d, cat_d), slice(cat_d - gg, cat_d),
+                     gpt_g, False, Dv, 2 * Dv + 1, 0))
+    return fams, 2 * Dv + 128 + (g_sem_vw.shape[1] if lr else 0)
+
+
+def _family_fams(q_cat, k_cat, values, g_cat, g_vw, *, sem_d: int, gpt: int, geo: bool,
+                 lr: bool, sel: bool, geo_cols: Optional[int] = None):
+    """A family launch's one family as `_values_tf32_shape` takes it, in the
+    layout of `_hier_parts_family_plain` (acc | d | 0 | alr); the geo
+    family's logits over the columns holding its ``geo_cols`` real ones."""
+    Dv = values.shape[1]
+    cols, qcols = _family_cols(geo, sem_d, k_cat.shape[1], g_cat.shape[1], q_cat.shape[1], sel)
+    if geo and geo_cols:
+        cut = _round_up(geo_cols, 16)
+        cols = slice(cols.start, min(cols.stop, cols.start + cut))
+        qcols = slice(qcols.start, min(qcols.stop, qcols.start + cut))
+    if (sel and geo) or q_cat.shape[1] != k_cat.shape[1] + (g_cat.shape[1] if sel else 0):
+        raise ValueError(
+            f"hier_parts_family kernel (TF32 x3): unsupported shapes q {tuple(q_cat.shape)}, "
+            f"k {tuple(k_cat.shape)}, g {tuple(g_cat.shape)}, sel={sel}, geo={geo}")
+    return ([(g_cat, g_vw, cols, qcols, gpt, lr, 0, Dv, Dv + 128)],
+            Dv + 128 + (g_vw.shape[1] if lr else 0))
 
 
 def _hier_parts_plain(q_cat, k_cat, values, scale, mask_neg, idx, g_sem_cat,
@@ -2818,9 +3183,12 @@ def _hier_parts_call(q_cat, k_cat, values, scale, mask_neg, idx, g_sem_cat,
     replaces `_hier_parts_kernel` (`range_tpu/ops/retrieval_hier.py:
     2515`), on bf16 operands of up to DEEP_MAX logit columns (over 256 in
     passes of 256, the query columns past what a block holds beside the
-    ring streamed with passes of 128); f32 operands on the CUDA-core body (`_parts_cores`,
-    counted in ``.f32_launches`` besides ``.launches``).  A shape it does
-    not take raises ValueError before any launch, a launch failure raises.
+    ring streamed with passes of 128); f32 operands (the `exact` tier) on
+    `csrc/hier_values_tf32_sm90.cu` (`_values_tf32`: every f32 product three
+    TF32 products, logits up to `VALUES_TF32_COLS` columns, f32 values at a
+    bf16 tier too; counted in ``.tf32_launches``
+    besides ``.launches``).  A shape it does not take raises ValueError
+    before any launch, a launch failure raises.
     The ``lr=False`` launches of the Hopper body also count in
     ``.plain_launches``."""
     if q_cat.device.type == "cpu":
@@ -2831,11 +3199,13 @@ def _hier_parts_call(q_cat, k_cat, values, scale, mask_neg, idx, g_sem_cat,
     geo_ops = (g_geo_cat, g_geo_vw) if geo else ()
     if any(t is not None and t.dtype == torch.float32
            for t in (q_cat, k_cat, values, g_sem_cat, g_sem_vw, *geo_ops)):
-        out = _parts_cores(q_cat, k_cat, values, scale, mask_neg, idx, g_sem_cat, g_geo_cat,
-                           g_sem_vw, g_geo_vw, sem_d=sem_d, bm=bm, bn=bn, gpt_s=gpt_s,
-                           gpt_g=gpt_g, lr=lr, geo=geo)
+        fams, out_w = _merged_fams(q_cat, k_cat, values, g_sem_cat, g_geo_cat, g_sem_vw,
+                                   g_geo_vw, sem_d=sem_d, gpt_s=gpt_s, gpt_g=gpt_g, lr=lr,
+                                   geo=geo)
+        out = _values_tf32("hier_parts", q_cat, k_cat, values, scale, mask_neg, idx, fams,
+                           bm=bm, bn=bn, out_w=out_w)
         if q_cat.shape[0] and idx.shape[1]:
-            _count_cores(_hier_parts_call, "f32")
+            _count_cores(_hier_parts_call, "tf32")
         return out
     out = _values_sm90("hier_parts", q_cat, k_cat, values, scale, mask_neg, idx,
                        (g_sem_cat, g_sem_vw, gpt_s),
@@ -2850,13 +3220,14 @@ def _hier_parts_call(q_cat, k_cat, values, scale, mask_neg, idx, g_sem_cat,
 
 _hier_parts_call.launches = 0
 _hier_parts_call.plain_launches = 0
-_hier_parts_call.f32_launches = 0
+_hier_parts_call.tf32_launches = 0
 
 
 def _parts_cores(q_cat, k_cat, values, scale, mask_neg, idx, g_sem_cat, g_geo_cat, g_sem_vw,
                  g_geo_vw, *, sem_d: int, bm: int, bn: int, gpt_s: int, gpt_g: int,
                  lr: bool, geo: bool):
-    """`_hier_parts_call` on the CUDA-core body, the layout of
+    """`_hier_parts_call` on the CUDA-core body (no wrapper launches it:
+    chip_smoke.py's same-run yardstick of `_values_tf32`), the layout of
     `_hier_parts_plain`: per family a row pass (acc, d) and a group pass
     (the sem approximation into alr with ``lr``, else each approximation
     subtracted from its family's acc and d)."""

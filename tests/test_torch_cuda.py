@@ -9,6 +9,7 @@ Without a CUDA device every test skips.
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -133,8 +134,9 @@ def test_tower_sm90_f32_every_depth(cuda, L, B, layers, H):
 
 def test_tower_sm90_plan_matches_the_kernel(cuda):
     """`ops.sh._tower_plan`'s and `_tower_plan_f32`'s shared memory (the
-    CPU tests' plans) is the kernel's own at every (L, H); the combine's
-    and kernel 14's TF32 x3 blocks' (`_rr_tf32_smem`) likewise."""
+    CPU tests' plans) is the kernel's own at every (L, H); the combine's,
+    kernel 14's TF32 x3 blocks' (`_rr_tf32_smem`) and the exact tier's
+    values blocks' (`_values_tf32_smem`) likewise."""
     from range_tpu_torch.kernels._build import load_kernel_library
     from range_tpu_torch.ops import retrieval_hier as rh
 
@@ -147,10 +149,17 @@ def test_tower_sm90_plan_matches_the_kernel(cuda):
     assert lib.siren_tower_sm90_f32_smem(1, 256) == -1
     assert lib.siren_tower_sm90_f32_smem(40, 192) == -1
     rr = load_kernel_library("hier_rr_tf32_sm90")
-    for KC in range(1, 17):
-        assert ((rr.hier_rr_tf32_smem(KC, 0), rr.hier_rr_tf32_smem(KC, 1))
-                == rh._rr_tf32_smem(KC, KC))
+    for KC in range(1, 49):  # the rows pass to 16 chunks, the groups pass to 48
+        assert ((rr.hier_rr_tf32_smem(min(KC, 16), 0), rr.hier_rr_tf32_smem(KC, 1))
+                == rh._rr_tf32_smem(min(KC, 16), KC))
     assert rr.hier_rr_tf32_smem(17, 0) == -1 and rr.hier_rr_tf32_smem(8, 2) == -1
+    assert rr.hier_rr_tf32_smem(49, 1) == -1
+    vt = load_kernel_library("hier_values_tf32_sm90")
+    for KC in range(1, 49):
+        for f32 in (False, True):
+            assert ((vt.hier_values_tf32_smem(KC, 0), vt.hier_values_tf32_smem(KC, 1 + f32))
+                    == rh._values_tf32_smem(KC, f32))
+    assert vt.hier_values_tf32_smem(49, 0) == -1 and vt.hier_values_tf32_smem(8, 3) == -1
     assert (load_kernel_library("combine_cat_sm90").combine_cat_sm90_smem()
             == rh._combine_plan(128, 1024, 896)["smem"])
 
@@ -2365,11 +2374,11 @@ def test_parts_sm90_deep_matches_plain(cuda, form, gpt, sem):
             1, 3)], 1).contiguous(),) + args[4:]
         kw.update(dedup_pad=True)
     fam = rh._hier_parts_family_call
-    n0 = (fam.launches, fam.rrlr_launches, fam.rr_launches, fam.f32_launches)
+    n0 = (fam.launches, fam.rrlr_launches, fam.rr_launches, fam.tf32_launches)
     got = fam(*args, **kw, geo_cols=9 if form == "geo" else None)
     again = fam(*args, **kw, geo_cols=9 if form == "geo" else None)
     torch.cuda.synchronize()
-    assert (fam.launches, fam.rrlr_launches, fam.rr_launches, fam.f32_launches) == (
+    assert (fam.launches, fam.rrlr_launches, fam.rr_launches, fam.tf32_launches) == (
         n0[0] + 2, n0[1] + 2 * int(lr), n0[2] + 2 * int(not lr), n0[3])
     assert torch.equal(got, again)
     _hold_rr(got, args, kw)
@@ -2947,11 +2956,11 @@ def test_values_sm90_deep_matches_plain(cuda, form, quant, sem):
     args, kw, call, plain = _values_form(cuda, form, Bp=1024, bm=128, bn=512, K=12, T=24,
                                          gpt=32, i8=quant == "int8", seed=len(form) + sem,
                                          sem=sem)
-    n0 = (call.launches, call.f32_launches)
+    n0 = (call.launches, call.tf32_launches)
     got = call(*args, **kw)
     again = call(*args, **kw)
     torch.cuda.synchronize()
-    assert (call.launches, call.f32_launches) == (n0[0] + 2, n0[1])
+    assert (call.launches, call.tf32_launches) == (n0[0] + 2, n0[1])
     assert torch.equal(got, again)
     _hold_values(got, plain(*args, **kw), plain(*args, **kw, magnitude=True), args, kw)
 
@@ -2994,17 +3003,17 @@ def test_parts_deep_streams_past_the_resident_boxes(cuda, sem):
         plan = rh._parts_plan(256, 12, 512, 32, sh["kf"], sh["gwe"], sh["share"], 128,
                               sh["acols"], sh["out_w"])
         assert plan.res is not None and plan.res % 4 == 0 and plan.res < sem // 64
-        n0 = (fam.launches, fam.f32_launches)
+        n0 = (fam.launches, fam.tf32_launches)
         _hold_rr(fam(*args, **kw), args, kw)
-        assert (fam.launches, fam.f32_launches) == (n0[0] + 1, n0[1])
+        assert (fam.launches, fam.tf32_launches) == (n0[0] + 1, n0[1])
     for form in ("merged_lr_geo", "family_plain_sem"):
         for i8 in (False, True):
             args, kw, call, plain = _values_form(cuda, form, Bp=1024, bm=128, bn=512, K=8,
                                                  T=12, gpt=32, i8=i8, seed=sem + i8, sem=sem)
-            n0 = (call.launches, call.f32_launches)
+            n0 = (call.launches, call.tf32_launches)
             got = call(*args, **kw)
             torch.cuda.synchronize()
-            assert (call.launches, call.f32_launches) == (n0[0] + 1, n0[1])
+            assert (call.launches, call.tf32_launches) == (n0[0] + 1, n0[1])
             _hold_values(got, plain(*args, **kw), plain(*args, **kw, magnitude=True), args,
                          kw)
 
@@ -3148,8 +3157,9 @@ def test_values_wrappers_never_launch_hier_parts_cu(cuda, monkeypatch):
 
 # (tier, the bank's value dtype): the exact tier with f32 values (JAX's
 # value_dtype override) and with the serving default, and the high tier
-TIERS = [("exact", torch.float32), ("exact", torch.bfloat16), ("high", torch.bfloat16)]
-TIER_IDS = ["exact-f32", "exact-bf16", "high"]
+TIERS = [("exact", torch.float32), ("exact", torch.bfloat16), ("high", torch.bfloat16),
+         ("high", torch.float32)]
+TIER_IDS = ["exact-f32", "exact-bf16", "high", "high-f32"]
 _TIER_BANKS = {}
 
 
@@ -3168,13 +3178,28 @@ def _tier_bank(cuda, tier, value_dtype, pad_to=512, **knobs):
     return _TIER_BANKS[key]
 
 
-def _hold_tier(name, got, ref, mag, exact_sum: bool, rows_off_max: int = 7):
+def _hold_tier(name, got, ref, mag, exact_sum: bool, rows_off_max: int = 7, pad_rows: int = 0):
     """An f32 product (exact_sum: every rounding point is f32) within 1e-4 of
     the sum of its terms' magnitudes, + 1e-6: f32 logits in another
     summation order move p by ~1e-5 of itself at |l| <= 86.  A product
     after a bf16 rounding point within `_within_terms` (a flip of one term
-    in at most rows_off_max rows)."""
+    in at most rows_off_max rows), except the last ``pad_rows`` rows (the
+    batch's padding, zero queries, sorted last) of an `exact` form with
+    bf16 values: there p = e = 1, and a plain form's exact minus
+    approximate sums cancel exactly (bf16 values and their f32 group sums
+    add without rounding), so its result is ~1e-4 and the row cap below
+    the TF32 x3 bodies' resolution of the group sums (hi + lo carries 22
+    of their 24 bits: 2^-22 of each term); those rows are held by 8 x
+    2^-22 x the sum of the terms' magnitudes + 1e-6 (that resolution and
+    the f32 additions of the sums in another order), their largest share
+    of it printed."""
     assert got.shape == ref.shape and torch.isfinite(got).all(), name
+    if pad_rows and not exact_sum:
+        pg, pr, pm = got[-pad_rows:], ref[-pad_rows:], mag[-pad_rows:]
+        ratio = ((pg - pr).abs() / (8 * 2.0 ** -22 * pm + 1e-6)).max().item()
+        print(f"{name}: padding rows at {ratio:.4g} of 8 x 2^-22 x sum |terms| + 1e-6")
+        assert ratio <= 1.0, (name + " padding", ratio)
+        got, ref, mag = got[:-pad_rows], ref[:-pad_rows], mag[:-pad_rows]
     if exact_sum:
         err = (got - ref).abs()
         ratio = (err / (1e-4 * mag + 1e-6)).max().item()
@@ -3196,13 +3221,18 @@ def _tier_queries(hb, cuda, B=700, bm=128, seed=5):
 
 @pytest.mark.parametrize("tier,value_dtype", TIERS, ids=TIER_IDS)
 def test_cores_forms_match_plain(cuda, tier, value_dtype):
-    """Every wrapper of kernels 8, 9 and 12-15 on a bank of the exact tier
+    """Every wrapper of kernels 8, 9, 12 and 13 on a bank of the exact tier
     (f32 operands) launches the CUDA-core body, once (`.f32_launches`),
-    except kernel 14's rr shapes, which launch their TF32 x3 body
-    (`.tf32_launches`, no f32 launch); so do those of 8, 9, 12 and 13 on a
+    while kernels 14 and 15 launch their TF32 x3 bodies (`.tf32_launches`:
+    the rr shapes `csrc/hier_rr_tf32_sm90.cu`, the value
+    shapes and kernel 15 `csrc/hier_values_tf32_sm90.cu`); so do those of
+    8, 9, 12 and 13 on a
     bank of the high tier (768 logit columns, `.deep_launches`), while
     kernels 14 and 15 there launch their Hopper bodies' deep chains
-    (`.launches`, no f32 launch); each holds
+    (`.launches`, no TF32 x3 launch), except, on a high bank built with
+    f32 values, kernel 15 and kernel 14's value shapes: the TF32 x3 body
+    at 768 bf16 logit columns (the rr shapes read no values and stay on
+    the Hopper body); each holds
     its plain version: the scan (both families, the sem one alone), the
     stats scan, kernel 14's four shapes on both families, kernel 15 lr and
     plain, the refine (stats, parts) and the correction."""
@@ -3215,20 +3245,23 @@ def test_cores_forms_match_plain(cuda, tier, value_dtype):
     assert hb.values.dtype == value_dtype and (hb.sem_d == 768) == (tier == "high")
     q_cat = _tier_queries(hb, cuda)
     bm, Dv, sem_d = 128, 1024, hb.sem_d
+    pad = 68 if tier == "exact" else 0  # 700 queries padded to 768, zero rows last
+    assert not q_cat[-68:].any()
 
     def run(fn, *args, **kw):
-        hopper = form == "deep" and fn in (rh._hier_parts_family_call, rh._hier_parts_call)
-        # kernel 14's rr shapes (z given) at f32 operands: the TF32 x3 body
-        tf32 = form == "f32" and fn is rh._hier_parts_family_call and args[6] is not None
-        n0 = (fn.launches, fn.f32_launches if hopper or tf32 else getattr(fn, f"{form}_launches"),
-              getattr(fn, "tf32_launches", 0))
+        parts = fn in (rh._hier_parts_family_call, rh._hier_parts_call)
+        rr = fn is rh._hier_parts_family_call and args[6] is not None
+        # kernels 14 and 15 at f32 operands: their TF32 x3 bodies (f32
+        # values alone: kernel 15 and 14's value shapes)
+        tf32 = parts and (form == "f32" or (f32v and not rr))
+        hopper = form == "deep" and parts and not tf32
+        n0 = (fn.launches, fn.tf32_launches if hopper or tf32 else getattr(fn, f"{form}_launches"))
         out = fn(*args, **kw)
         torch.cuda.synchronize()
-        if hopper:  # the Hopper body's count, and none of the CUDA-core body's
-            assert (fn.launches, fn.f32_launches) == (n0[0] + 1, n0[1]), fn.__name__
+        if hopper:  # the Hopper body's count, and none of the TF32 x3 body's
+            assert (fn.launches, fn.tf32_launches) == (n0[0] + 1, n0[1]), fn.__name__
         elif tf32:
-            assert (fn.launches, fn.f32_launches, fn.tf32_launches) == (
-                n0[0] + 1, n0[1], n0[2] + 1), fn.__name__
+            assert (fn.launches, fn.tf32_launches) == (n0[0] + 1, n0[1] + 1), fn.__name__
         else:
             assert getattr(fn, f"{form}_launches") == n0[1] + 1, fn.__name__
         return out
@@ -3268,7 +3301,8 @@ def test_cores_forms_match_plain(cuda, tier, value_dtype):
             mag = rh._hier_parts_family_plain(*args, **kw, magnitude=True)
             # the value shapes' acc follows the values' rounding point
             exact_sum = exact_vw and (z is not None or f32v)
-            _hold_tier(f"family {shape} geo={geo}", got, ref, mag, exact_sum)
+            _hold_tier(f"family {shape} geo={geo}", got, ref, mag, exact_sum,
+                       pad_rows=pad)
     for lr, vw_s in ((True, hb.g_sem_vw_lr), (False, hb.g_sem_vw)):
         args = (q_cat, hb.k_cat, hb.values, None, hb.mask_neg, idx_s, hb.g_sem_cat,
                 hb.g_geo_cat, vw_s, hb.g_geo_vw)
@@ -3276,7 +3310,7 @@ def test_cores_forms_match_plain(cuda, tier, value_dtype):
         got = run(rh._hier_parts_call, *args, **kw)
         ref = rh._hier_parts_plain(*args, **kw)
         mag = rh._hier_parts_plain(*args, **kw, magnitude=True)
-        _hold_tier(f"merged lr={lr}", got, ref, mag, exact_vw and f32v)
+        _hold_tier(f"merged lr={lr}", got, ref, mag, exact_vw and f32v, pad_rows=pad)
     # the refine over the sem groups as both levels (a supergroup operand of
     # the same shape, its value sums halved) and the correction
     for stats_only in (True, False):
@@ -3304,8 +3338,9 @@ def test_tiers_serve_through_load_model(cuda, tier):
     """`load_model(retrieval="hier", tier=...)` on the card: the flagship
     RANGE+ (one scan, two parts and one combine launch; at exact the scan
     and the combine on their f32 bodies and the parts on kernel 14's TF32 x3
-    body; at high the parts launches on their Hopper bodies), RANGE (the stats scan of its home-tile sort, the scan and the
-    merged parts kernel) and hier_topk (the stats scan on the CUDA-core
+    body; at high the parts launches on their Hopper bodies), RANGE (the
+    stats scan of its home-tile sort, the scan and the merged parts kernel,
+    at exact on its TF32 x3 body) and hier_topk (the stats scan on the CUDA-core
     body, the argmax on its Hopper body), each within the small bank's
     order of the exact f32 answer."""
     from range_tpu_torch.ops import retrieval_hier as rh
@@ -3318,7 +3353,8 @@ def test_tiers_serve_through_load_model(cuda, tier):
     # the parts kernels at high: their Hopper bodies' deep chains; kernel
     # 14's rr shapes at exact: their TF32 x3 body
     hopper = (rh._hier_parts_family_call, rh._hier_parts_call) if form == "deep" else ()
-    attr = {rh._hier_parts_family_call: "tf32_launches"} if form == "f32" else {}
+    attr = ({rh._hier_parts_family_call: "tf32_launches", rh._hier_parts_call: "tf32_launches"}
+            if form == "f32" else {})
     counts = lambda: [w.launches if w in hopper else  # noqa: E731
                       getattr(w, attr.get(w, f"{form}_launches")) for w in wrappers]
     for name, want in (("RANGE+", [1, 2, 0, 0]), ("RANGE", [1, 0, 1, 1])):
@@ -3438,7 +3474,6 @@ def test_rr_exact_wide_keys_serve(cuda):
     idx, _ = rh.select_tiles(m_s, s_s, m_g, s_g, t_real=hb.t_real, k_tiles=12, bm=128,
                              n_valid=700, mode="range")
     fam = rh._hier_parts_family_call
-    f0 = fam.f32_launches
     for shape in ("rr", "rrlr"):
         for geo in (False, True):
             for dedup in (False, True):
@@ -3456,17 +3491,223 @@ def test_rr_exact_wide_keys_serve(cuda):
     n0 = fam.tf32_launches
     out = rh.retrieve_hier(q, x, hb, k_tiles=12, bm=128)
     torch.cuda.synchronize()
-    assert fam.tf32_launches == n0 + 2 and fam.f32_launches == f0
+    assert fam.tf32_launches == n0 + 2
     ref = retrieval.retrieve(q, x, bank, chunk=512)
     rel = (out - ref).abs() / ref.abs().clamp_min(0.1)
     assert torch.isfinite(out).all() and rel.mean() < 0.1, rel.mean().item()
+
+
+# ---- kernel 15 and kernel 14's value shapes at exact: csrc/hier_values_tf32_sm90.cu
+
+VALUES_TF32_FORMS = ("merged_lr", "merged_lr_geo", "merged_plain", "merged_plain_geo",
+                     "family_lr_sem", "family_plain_sem", "family_lr_geo", "family_plain_geo",
+                     "family_lr_sel", "family_plain_sel", "family_lr_dedup",
+                     "family_plain_dedup")
+
+
+def _values_tf32_case(cuda, form, vdt, B=700, tier="exact"):
+    """One launch of kernel 15 (merged_*) or of kernel 14's value shapes
+    (family_*) with an f32 operand over the tier bank (at `exact` bf16 or
+    f32 values, or int8 codes of its bf16 values: each row's max / 127 its
+    scale; at `fast` f32 values): (wrapper, args, kw, plain version)."""
+    from range_tpu_torch.ops import retrieval_fused as rf
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    sel = form.endswith("sel")
+    hb = _tier_bank(cuda, tier, torch.float32 if vdt == "f32" else torch.bfloat16,
+                    **({"sel_lr": 64} if sel else {}))
+    values, scale = hb.values, None
+    if vdt == "int8":
+        row_max = values.float().abs().amax(1).clamp_min(1e-8) / 127
+        values = (values.float() / row_max[:, None]).round().clamp(-127, 127).to(torch.int8)
+        scale = row_max[None, :].contiguous()
+    q_cat = _tier_queries(hb, cuda, B=B)
+    m_s, s_s, m_g, s_g = rh._hier_scan_stats_plain(q_cat, hb.g_sem_cat, hb.g_geo_cat,
+                                                   gpt_s=8, gpt_g=8)
+    geo = form.endswith("geo") and form.startswith("family")
+    st = (m_g, s_g, m_s, s_s) if geo else (m_s, s_s, m_g, s_g)
+    idx, _ = rh.select_tiles(*st, t_real=hb.t_real, k_tiles=12, bm=128, n_valid=B,
+                             mode="range")
+    lr = "_lr" in form
+    if form.startswith("merged"):
+        args = (q_cat, hb.k_cat, values, scale, hb.mask_neg, idx, hb.g_sem_cat, hb.g_geo_cat,
+                hb.g_sem_vw_lr if lr else hb.g_sem_vw, hb.g_geo_vw)
+        kw = dict(sem_d=hb.sem_d, bm=128, bn=128, gpt_s=8, gpt_g=8, lr=lr,
+                  geo=form.endswith("geo"))
+        return rh._hier_parts_call, args, kw, rh._hier_parts_plain
+    dedup = form.endswith("dedup")
+    if dedup:
+        idx = torch.cat([idx[:, :1], idx[:, :-1]], 1).contiguous()
+    g, vw, _, _, _ = _family_operands(hb, "lr" if lr else "plain", geo, sel)
+    if sel:
+        q_cat = torch.cat([q_cat, q_cat[:, :hb.sem_d] @ hb.p_sel.T], 1).contiguous()
+    args = (q_cat, hb.k_cat, hb.mask_neg, idx, g, vw, None)
+    kw = dict(sem_d=hb.sem_d, bm=128, bn=128, gpt=8, geo=geo, lrr=0 if lr else 1024, lr=lr,
+              values=values, scale=scale, sel=sel, dedup_pad=dedup)
+    call = rh._hier_parts_family_call
+    if geo:
+        call = functools.partial(call, geo_cols=rf.geo_real_cols(tier))
+    return call, args, kw, rh._hier_parts_family_plain
+
+
+@pytest.mark.parametrize("vdt", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("form", VALUES_TF32_FORMS)
+def test_values_tf32_matches_plain(cuda, form, vdt):
+    """Kernel 15 (lr, plain, ± the geo family) and kernel 14's value shapes
+    (lr, plain; sem, geo, sel, dedup_pad) at the exact tier on their TF32 x3
+    body against the plain version: with f32 values 1e-4 x the sum of the
+    terms' magnitudes + 1e-6, no flips; with bf16 values and int8 codes the
+    terms rule, a bf16 flip of one term in at most 7 rows of 700, the
+    padding rows by the group sums' resolution (`_hold_tier`); the same
+    output twice."""
+    call, args, kw, plain = _values_tf32_case(cuda, form, vdt)
+    got = call(*args, **kw)
+    again = call(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _hold_tier(f"{form} {vdt}", got, plain(*args, **kw), plain(*args, **kw, magnitude=True),
+               vdt == "f32", pad_rows=68)
+
+
+@pytest.mark.parametrize("B", [1, 37, 10_000])
+@pytest.mark.parametrize("form", ["merged_lr", "merged_plain_geo", "family_plain_sem"])
+def test_values_tf32_batches(cuda, form, B):
+    """Each batch its own request: at B = 1 and 37 (one block of 128
+    queries) every pass cuts the lists into segments folded in order; at
+    10,000 the value pass and the groups pass write their slices direct.
+    f32 values by the exact tier's bar, bf16 by the terms rule."""
+    for vdt in ("f32", "bf16"):
+        call, args, kw, plain = _values_tf32_case(cuda, form, vdt, B=B)
+        got = call(*args, **kw)
+        torch.cuda.synchronize()
+        _hold_tier(f"{form} {vdt} B={B}", got, plain(*args, **kw),
+                   plain(*args, **kw, magnitude=True), vdt == "f32",
+                   rows_off_max=max(7, B // 100), pad_rows=-B % 128)
+
+
+@pytest.mark.parametrize("vdt", ["f32", "bf16"])
+@pytest.mark.parametrize("form", ["merged_lr", "family_lr_sem"])
+def test_values_tf32_odd_value_slices(cuda, form, vdt):
+    """320 value columns (the lr forms take any Dv): three 128-column
+    slices, so the value pass's second block has one active warpgroup
+    and its slice ends at 64 columns; against the plain version."""
+    call, args, kw, plain = _values_tf32_case(cuda, form, vdt)
+    if form.startswith("merged"):
+        args = (*args[:2], args[2][:, :320].contiguous(), *args[3:])
+    else:
+        kw = {**kw, "values": kw["values"][:, :320].contiguous()}
+    got = call(*args, **kw)
+    torch.cuda.synchronize()
+    _hold_tier(f"{form} {vdt} Dv=320", got, plain(*args, **kw),
+               plain(*args, **kw, magnitude=True), vdt == "f32", pad_rows=68)
+
+
+@pytest.mark.parametrize("form", ["merged_lr", "merged_plain_geo", "family_lr_sem",
+                                  "family_plain_geo", "high-merged_lr", "high-merged_plain",
+                                  "high-merged_plain_geo", "high-family_lr_sem",
+                                  "high-family_plain_geo"])
+def test_values_tf32_bf16_logits_f32_values(cuda, form):
+    """A `fast` or `high` bank built with f32 values
+    (`build_hier_bank(value_dtype=)`): its parts launches have an f32
+    operand, so they take the TF32 x3 body (the bf16 logit and group
+    operands exact in it, e rounded to bf16 before the bf16 group sums as
+    JAX's kernel does; at `high` 768 logit columns and 768-column sem
+    centroids, past both passes' resident chunks, which the CUDA-core
+    body served before), counted in `.launches` and `.tf32_launches`,
+    held by the terms rule."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    tier, form = form.split("-") if "-" in form else ("fast", form)
+    call, args, kw, plain = _values_tf32_case(cuda, form, "f32", tier=tier)
+    assert args[0].dtype == torch.bfloat16 and kw["sem_d"] == (768 if tier == "high" else 256)
+    fn = rh._hier_parts_call if form.startswith("merged") else rh._hier_parts_family_call
+    n0 = (fn.launches, fn.tf32_launches)
+    got = call(*args, **kw)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.tf32_launches) == (n0[0] + 1, n0[1] + 1)
+    _hold_tier(form, got, plain(*args, **kw), plain(*args, **kw, magnitude=True), False)
+
+
+def test_high_tier_f32_values_serve(cuda):
+    """`load_model` over a `high` bank with f32 values: RANGE+ (kernel 14's
+    rr shapes read no values: their Hopper body, no TF32 x3 launch) and
+    RANGE (kernel 15 on the TF32 x3 body), each within the small bank's
+    order of the exact f32 answer."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    hb = _tier_bank(cuda, "high", torch.float32)
+    coords = _coords(3000, seed=6, device=cuda)
+    fam, merged = rh._hier_parts_family_call, rh._hier_parts_call
+    for name, want in (("RANGE+", (2, 0, 0, 0)), ("RANGE", (0, 0, 1, 1))):
+        enc = load_model(name, db_path=hb, profile="flagship", hier_bn=128, gsz_geo=16,
+                         tier="high")
+        n0 = (fam.launches, fam.tf32_launches, merged.launches, merged.tf32_launches)
+        out = enc(coords)
+        torch.cuda.synchronize()
+        n1 = (fam.launches, fam.tf32_launches, merged.launches, merged.tf32_launches)
+        assert tuple(a - b for a, b in zip(n1, n0)) == want, name
+        assert out.shape == (3000, 1280) and torch.isfinite(out).all()
+        ref = (retrieval.retrieve(out[:, 1024:], lonlat_deg_to_xyz(coords), hb.bank)
+               if name == "RANGE+" else
+               retrieval.retrieve(out[:, 1024:], None, hb.bank, sem_temp=15.0, mode="range"))
+        rel = (out[:, :1024] - ref).abs() / ref.abs().clamp_min(0.1)
+        assert rel.mean() < 0.1, (name, rel.mean().item())
+
+
+def test_values_exact_never_launches_the_cores_body(cuda, monkeypatch):
+    """`csrc/hier_cores.cu`'s value forms stay only as chip_smoke.py's
+    yardsticks at `exact`: every f32 launch of kernel 15 and of kernel 14's
+    value shapes (each form, bf16 and f32 values and int8 codes) launches
+    no CUDA-core pass and loads no other library than the TF32 x3 bodies';
+    each counts once in `.launches` and `.tf32_launches` (kernel 14's also
+    in `.values_tf32_launches`); a shape the body
+    does not take (logits over 1,536 columns) raises before any launch."""
+    from range_tpu_torch.kernels import _build
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA-core pass was launched")
+
+    monkeypatch.setattr(rh, "_cores_rows", refuse)
+    monkeypatch.setattr(rh, "_cores_groups", refuse)
+    loaded = []
+    real = _build.load_kernel_library
+
+    def spy(name):
+        loaded.append(name)
+        return real(name)
+
+    monkeypatch.setattr(_build, "load_kernel_library", spy)
+    fam, merged = rh._hier_parts_family_call, rh._hier_parts_call
+    for form in VALUES_TF32_FORMS:
+        for vdt in ("f32", "bf16", "int8"):
+            call, args, kw, plain = _values_tf32_case(cuda, form, vdt, B=256)
+            fn = merged if form.startswith("merged") else fam
+            n0 = (fn.launches, fn.tf32_launches, fam.values_tf32_launches)
+            call(*args, **kw)
+            torch.cuda.synchronize()
+            assert (fn.launches, fn.tf32_launches, fam.values_tf32_launches) == (
+                n0[0] + 1, n0[1] + 1, n0[2] + (fn is fam)), (form, vdt)
+    assert set(loaded) == {"hier_values_tf32_sm90", "hier_rr_tf32_sm90"}
+    call, args, kw, _ = _values_tf32_case(cuda, "merged_lr", "f32", B=256)
+    # 1,792 f32 logit columns: past VALUES_TF32_COLS, and past what the
+    # CUDA-core body's block held (`_cores_fits`, ~450)
+    deep = (torch.cat([args[0]] * 7, 1), torch.cat([args[1]] * 7, 1), *args[2:6],
+            torch.cat([args[6]] * 7, 1), *args[7:])
+    with pytest.raises(ValueError):
+        rh._cores_fits("hier_parts", 7 * kw["sem_d"], False, False, True, 0)
+    n0 = merged.tf32_launches
+    with pytest.raises(ValueError, match="unsupported shapes"):
+        call(*deep, **{**kw, "sem_d": 7 * kw["sem_d"]})
+    assert merged.tf32_launches == n0
 
 
 def test_exact_tier_all_tiles_is_the_exact_answer(cuda):
     """JAX's exactness check (`tests/test_hier.py:73-80`) on the card, at its
     bank's shape (6,000 rows padded to 512, bn 128, gsz_sem 8, gsz_geo 16,
     tier exact, f32 values): with every tile selected the hierarchical
-    answer is the exact dense one, max relerr (floor 0.1) under 1e-4."""
+    answer is the exact dense one, max relerr (floor 0.1) under 1e-4; the
+    merged parts kernel on its TF32 x3 body."""
     from range_tpu_torch.ops import retrieval_hier as rh
 
     bank = GeoBank.synthetic_informative(0, 6000, pad_to=512, device=cuda)
@@ -3484,10 +3725,10 @@ def test_exact_tier_all_tiles_is_the_exact_answer(cuda):
     ll[:, 1] = ll[:, 1].clamp(-89.9, 89.9)
     x = lonlat_deg_to_xyz(ll)
     ref = retrieval.retrieve(q, x, bank, chunk=512)
-    n0 = rh._hier_parts_call.f32_launches
+    n0 = rh._hier_parts_call.tf32_launches
     out = rh.retrieve_hier(q, x, hb, k_tiles=hb.t_real, bm=128)
     torch.cuda.synchronize()
-    assert rh._hier_parts_call.f32_launches == n0 + 1
+    assert rh._hier_parts_call.tf32_launches == n0 + 1
     rel = (out - ref).abs() / ref.abs().clamp_min(0.1)
     assert rel.max().item() < 1e-4, rel.max().item()
 
