@@ -6,8 +6,8 @@ family parts kernel's plain / lr / rr shapes and their sel and dedup_pad
 forms, the refine kernel's has_parts form, the combine without lr_geo,
 the int8 forms of the parts and pruned kernels, and kernel 2's two bodies:
 the Hopper kernel of its bf16 tiers and the mma.sync body of its f32 tier)
-from the twenty sources of `range_tpu_torch/csrc/` (one nvcc per source,
-all started together), holds each against its plain PyTorch version at the
+from the twenty-one sources of `range_tpu_torch/csrc/` (one nvcc per
+source, all started together), holds each against its plain PyTorch version at the
 main paths' shapes, prints the tower's two modes on their Hopper bodies
 (`csrc/siren_tower_sm90.cu`, wgmma; the f32 mode every product three TF32
 products; its ptxas log held to no spill and no serialized wgmma) beside
@@ -18,7 +18,13 @@ kernel 14's value shapes there on theirs (`csrc/hier_values_tf32_sm90.cu`,
 the logits three TF32 products, p once into device memory, the value
 products on wgmma; the group products on the rr body's groups pass) beside
 the CUDA-core body (`csrc/hier_cores.cu`, which only this yardstick
-launches there) and kernel 16 (the combine, flagship rg
+launches there), kernel 8 at `exact` and kernel 9 in every form on the
+scans' TF32 x3 body (`csrc/hier_scan_tf32_sm90.cu`: the flagship's scan,
+RANGE's, the JAX defaults' wide tails, the tail_super flagship's, the
+stats scan over g_topk_cat and g_sem_cat; each held against its plain
+version `_scan_tf32_plain` and the one-pass plain version) beside the
+CUDA-core body's f32 forms and the mma.sync stats kernel
+(`csrc/hier_scan_stats.cu`, which only this yardstick launches) and kernel 16 (the combine, flagship rg
 > 0 and rg = 0) on its Hopper body (`csrc/combine_cat_sm90.cu`, three TF32
 products) beside its f32 body (`csrc/combine_cat.cu`, the exact tier's
 route) at B = 1, 37, 1,000 and 10,000 in turns, with the bound and share of
@@ -106,8 +112,9 @@ drives the serving paths at full width (SatCLIP SH-L40 -> SIREN
     at bn 1,024 (padded packing): `retrieve_pruned` (RANGE+, RANGE, and a
     small int8 request) and `retrieve_hybrid` at bm 256;
   * hierarchical banks at the `exact` and `high` tiers (f32 operands;
-    768 semantic columns), kernels 8, 9, 12 and 13 served by the CUDA-core
-    body `csrc/hier_cores.cu`, 14 and 15 by their TF32 x3 bodies (`exact`)
+    768 semantic columns), kernels 12 and 13 and kernel 8's `high` form
+    served by the CUDA-core body `csrc/hier_cores.cu`, 8 (`exact`) and 9 by
+    the scans' TF32 x3 body, 14 and 15 by their TF32 x3 bodies (`exact`)
     or deep chains (`high`) (`tiers_phases`): for each tier the informative
     bank's flagship, tail_super and two-level HierBanks built on the card,
     each of its forms of kernels 8, 9 and 12-15 against its plain version
@@ -185,7 +192,7 @@ SOURCES = ("siren_tower_sm90", "siren_tower", "fused_retrieval_sm90", "fused_ret
            "hier_scan_sm90", "hier_parts_family_sm90", "hier_parts_family", "combine_cat_sm90",
            "combine_cat", "hier_scan_stats", "hier_argmax_sm90", "hier_argmax",
            "hier_parts_sm90", "hier_parts", "sh_times", "hier_refine", "hier_corr", "hier_cores",
-           "hier_rr_tf32_sm90", "hier_values_tf32_sm90")
+           "hier_rr_tf32_sm90", "hier_values_tf32_sm90", "hier_scan_tf32_sm90")
 # sources whose ptxas log must show no spill and no serialized wgmma
 # (C7512: too few registers; C7514: issued in a loop or under a condition;
 # C7520: divergent code between issue and wait): every kernel of a source
@@ -197,7 +204,7 @@ SOURCES = ("siren_tower_sm90", "siren_tower", "fused_retrieval_sm90", "fused_ret
 # which spills 4 / 20 bytes at 128 registers a thread (512 threads; the
 # units path and the deep walk in one kernel: ROADMAP Queue 2, item 10 (d))
 PTXAS_CLEAN = ("hier_argmax_sm90", "siren_tower_sm90", "combine_cat_sm90", "hier_rr_tf32_sm90",
-               "hier_values_tf32_sm90")
+               "hier_values_tf32_sm90", "hier_scan_tf32_sm90")
 PTXAS_CLEAN_KERNELS = {"hier_parts_sm90": r"hier_parts_sm90_kernelIL[^E]*ELb1E",
                        "hier_parts_family_sm90":
                        r"hier_parts_family_sm90_kernelIL(i[02]ELb[01]E|i1ELb0E)"}
@@ -216,7 +223,9 @@ KERNELS = (("siren_tower", "siren_tower_sm90", "range_tpu/ops/sh.py:726"),
            ("combine_cat", "combine_cat_sm90", "range_tpu/ops/retrieval_hier.py:3102"),
            # kernel 16 at the exact tier, on its f32 body
            ("combine_cat_exact", "combine_cat", "range_tpu/ops/retrieval_hier.py:3102"),
-           ("hier_scan_stats", "hier_scan_stats", "range_tpu/ops/retrieval_hier.py:1582"),
+           # kernel 9 in every form on the scans' TF32 x3 body (bf16 logits: one
+           # TF32 product a term)
+           ("hier_scan_stats", "hier_scan_tf32_sm90", "range_tpu/ops/retrieval_hier.py:1582"),
            ("hier_argmax", "hier_argmax_sm90", "range_tpu/ops/retrieval_hier.py:1645"),
            ("hier_topk", "hier_argmax_sm90", "range_tpu/ops/retrieval_hier.py:1682"),
            ("hier_parts", "hier_parts_sm90", "range_tpu/ops/retrieval_hier.py:2515"),
@@ -264,15 +273,17 @@ CORES_ROWS = (("hier_scan", "range_tpu/ops/retrieval_hier.py:1443"),
               ("hier_corr", "range_tpu/ops/retrieval_hier.py:2209"),
               ("hier_parts_family", "range_tpu/ops/retrieval_hier.py:2282"),
               ("hier_parts", "range_tpu/ops/retrieval_hier.py:2515"))
-# the stats scan's deep form runs on its own kernel (its query block and
-# group tiles fit shared memory at 768 columns), kernels 14 and 15's on
-# their Hopper bodies' deep chains (passes of 256 columns)
-DEEP_SOURCES = {"hier_scan_stats": "hier_scan_stats", "hier_parts_family": "hier_parts_family_sm90",
-                "hier_parts": "hier_parts_sm90"}
-# kernels 14 and 15 at the exact tier on their TF32 x3 bodies
-# (`.tf32_launches`): 14's rr shapes (the paths' f32 form of it) and, a row
-# of their own (`.values_tf32_launches`), its value shapes beside kernel 15
-F32_SOURCES = {"hier_parts_family": "hier_rr_tf32_sm90", "hier_parts": "hier_values_tf32_sm90"}
+# the stats scan's deep form runs on the scans' TF32 x3 body (bf16 logits,
+# one TF32 product a term, past its resident query chunks from L2), kernels
+# 14 and 15's on their Hopper bodies' deep chains (passes of 256 columns)
+DEEP_SOURCES = {"hier_scan_stats": "hier_scan_tf32_sm90",
+                "hier_parts_family": "hier_parts_family_sm90", "hier_parts": "hier_parts_sm90"}
+# kernels 8, 9, 14 and 15 at the exact tier on their TF32 x3 bodies
+# (`.tf32_launches`): the scans on one body, 14's rr shapes (the paths' f32
+# form of it) and, a row of their own (`.values_tf32_launches`), its value
+# shapes beside kernel 15
+F32_SOURCES = {"hier_scan": "hier_scan_tf32_sm90", "hier_scan_stats": "hier_scan_tf32_sm90",
+               "hier_parts_family": "hier_rr_tf32_sm90", "hier_parts": "hier_values_tf32_sm90"}
 KERNELS += tuple((f"{k}_{form}", DEEP_SOURCES.get(k, "hier_cores") if form == "deep"
                   else F32_SOURCES.get(k, "hier_cores"), rep)
                  for k, rep in CORES_ROWS for form, _ in CORES_FORMS)
@@ -1507,8 +1518,10 @@ def _counters() -> dict:
         for form, _ in CORES_FORMS:
             if hasattr(wrappers[k], f"{form}_launches"):  # not the parts kernels' deep forms
                 counters[f"{k}_{form}"] = (wrappers[k], f"{form}_launches")
-    # kernels 14 and 15 at exact: their TF32 x3 bodies (14's value shapes
-    # also in their own row)
+    # kernels 8, 9, 14 and 15 at exact: their TF32 x3 bodies (14's value
+    # shapes also in their own row)
+    counters["hier_scan_f32"] = (rh._hier_scan_call, "tf32_launches")
+    counters["hier_scan_stats_f32"] = (rh._hier_scan_stats_call, "tf32_launches")
     counters["hier_parts_family_f32"] = (fam, "tf32_launches")
     counters["hier_parts_family_values_f32"] = (fam, "values_tf32_launches")
     counters["hier_parts_f32"] = (rh._hier_parts_call, "tf32_launches")
@@ -1993,7 +2006,10 @@ def topk_phases(dev, gen, report, hb, enc) -> float:
                 if stat[0] == "m" else (0.0, 1e-4, "f32 sums of f32 exp2 in another order"))))
         if operand == "g_topk_cat":  # hier_topk's operand
             stats = got
-            ms = _cuda_ms(lambda: rh._hier_scan_stats_call(*args, **kw), 10)
+            # device time (a spin ahead of the calls keeps the host's
+            # launches out of the span)
+            kernel = ("kernel", lambda: rh._hier_scan_stats_call(*args, **kw))
+            ms = _turns_ms((kernel, kernel), 10)["kernel"]
             plain_ms = _cuda_ms(lambda: rh._hier_scan_stats_plain(*args, **kw), 3)
             print(f"hier_scan_stats[{operand}] B={BATCH}: kernel {ms:.3f} ms, plain "
                   f"{plain_ms:.3f} ms")
@@ -2009,6 +2025,8 @@ def topk_phases(dev, gen, report, hb, enc) -> float:
                                              bound_by=b_by)
     report["hier_scan_stats"].update(max_abs_err=max(e for e, _ in errs),
                                      err_over_tol=max(r for _, r in errs))
+    # the bf16 form on the scans' TF32 x3 body beside the mma.sync body
+    _stats_batches("hier_scan_stats", hb, "g_topk_cat", q, x, BF16_FLOPS)
 
     idx, _ = rh.select_tiles(*stats, t_real=hb.t_real, k_tiles=k_tiles, bm=bm,
                              n_valid=BATCH, j_sem=j_sem, mode="range")
@@ -4605,21 +4623,35 @@ def _tier_kernels(tier, form, hb, hb_ts, hb2, q, x, report, cfg) -> None:
                + 4 * Bp * hb.t_pad * 4 + Bp * (Ws + Wg) * 4)
     _cores_row(report, f"hier_scan_{form}", errs, lambda: rh._hier_scan_call(*sa, **skw),
                lambda: rh._hier_scan_plain(*sa, **skw), flops, n_bytes, f32)
-    # the scan's sem group pass taken apart, at the wrapper's segments: the
-    # logits and stats over one 64-column piece and over every column, and
-    # with the tail product (what the time goes to: PERF.md section 5)
-    st = [torch.empty((Bp, hb.t_pad), dtype=torch.float32, device=q_cat.device)
-          for _ in range(2)]
-    out = torch.empty((Bp, Ws), dtype=torch.float32, device=q_cat.device)
-    n_seg = rh._cores_segments(Bp, -(-Ws // rh.CORES_NC), hb.t_pad)
-    part = dict(gpt=gpt_s, n_tiles=hb.t_pad, stats=st, n_seg=n_seg)
-    one = _cuda_ms(lambda: rh._cores_groups(q_cat, hb.g_sem_cat, wk=64, **part), 3)
-    full = _cuda_ms(lambda: rh._cores_groups(q_cat, hb.g_sem_cat, wk=sem_d, **part), 3)
-    tail = _cuda_ms(lambda: rh._cores_groups(q_cat, hb.g_sem_cat, wk=sem_d, vw=hb.g_sem_vw_lr,
-                                             nvc=Ws, out=out, **part), 3)
-    print(f"hier_scan_{form} sem pass ({n_seg} segments, {hb.g_sem_cat.shape[0] // 32} "
-          f"chunks of 32 groups a 64 queries): logits + stats {full:.3f} ms (over one "
-          f"64-column piece {one:.3f}), + the {Ws}-column tail {tail:.3f} ms")
+    if f32:  # the TF32 x3 body: its row's bound at that rate (the f32 one printed)
+        row = report[f"hier_scan_{form}"]
+        row["bound_ms"], row["bound_by"] = _bound(n_bytes, 3 * flops, TF32_FLOPS)
+        print(f"hier_scan_{form}: bound at the TF32 x3 rate {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}), share {row['bound_ms'] / row['ms']:.4f}")
+        # the logits and stats alone (the body's stats pass over the scan's
+        # operands) against the scan (the same pass writing D, then the
+        # value pass over it: PERF.md section 5)
+        t = _turns_ms((("scan", lambda: rh._hier_scan_call(*sa, **skw)),
+                       ("logits", lambda: rh._scan_tf32(*sa[:3], None, None, **skw))) * 2, 5)
+        print(f"hier_scan_{form} on the TF32 x3 body: the scan {t['scan']:.4f} ms, its logits "
+              f"and stats alone {t['logits']:.4f} ms (the rest: D written once, the value "
+              "pass over it)")
+    else:
+        # the scan's sem group pass taken apart, at the wrapper's segments:
+        # the logits and stats over one 64-column piece and over every
+        # column, and with the tail product (PERF.md section 5)
+        st = [torch.empty((Bp, hb.t_pad), dtype=torch.float32, device=q_cat.device)
+              for _ in range(2)]
+        out = torch.empty((Bp, Ws), dtype=torch.float32, device=q_cat.device)
+        n_seg = rh._cores_segments(Bp, -(-Ws // rh.CORES_NC), hb.t_pad)
+        part = dict(gpt=gpt_s, n_tiles=hb.t_pad, stats=st, n_seg=n_seg)
+        one = _cuda_ms(lambda: rh._cores_groups(q_cat, hb.g_sem_cat, wk=64, **part), 3)
+        full = _cuda_ms(lambda: rh._cores_groups(q_cat, hb.g_sem_cat, wk=sem_d, **part), 3)
+        tail = _cuda_ms(lambda: rh._cores_groups(q_cat, hb.g_sem_cat, wk=sem_d,
+                                                 vw=hb.g_sem_vw_lr, nvc=Ws, out=out, **part), 3)
+        print(f"hier_scan_{form} sem pass ({n_seg} segments, {hb.g_sem_cat.shape[0] // 32} "
+              f"chunks of 32 groups a 64 queries): logits + stats {full:.3f} ms (over one "
+              f"64-column piece {one:.3f}), + the {Ws}-column tail {tail:.3f} ms")
 
     # kernel 14, the rr + lr shape of both families (the flagship's)
     sel = dict(t_real=hb.t_real, bm=bm, n_valid=BATCH, mode="range")
@@ -4707,6 +4739,13 @@ def _tier_kernels(tier, form, hb, hb_ts, hb2, q, x, report, cfg) -> None:
     _cores_row(report, f"hier_scan_stats_{form}", errs,
                lambda: rh._hier_scan_stats_call(*ta, **tkw),
                lambda: rh._hier_scan_stats_plain(*ta, **tkw), flops, n_bytes, f32)
+    if f32:  # the TF32 x3 body: its row's bound at that rate (the f32 one printed)
+        row = report[f"hier_scan_stats_{form}"]
+        row["bound_ms"], row["bound_by"] = _bound(n_bytes, 3 * flops, TF32_FLOPS)
+        print(f"hier_scan_stats_{form}: bound at the TF32 x3 rate {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}), share {row['bound_ms'] / row['ms']:.4f}")
+    else:  # the deep form (768 bf16 columns) at each batch beside the mma.sync body
+        _stats_batches("hier_scan_stats_deep", hb, "g_topk_cat", q, x, BF16_FLOPS)
 
     # kernel 13 at the tail_super bank's selection (K + m_corr tiles)
     q_ts = packed(hb_ts)
@@ -4763,8 +4802,138 @@ def _tier_kernels(tier, form, hb, hb_ts, hb2, q, x, report, cfg) -> None:
         lambda: rh._hier_refine_plain(q_2, idx_m, hb2.g_sem_cat, **pkw), flops, n_bytes, f32)
     if form == "deep":  # kernels 14 and 15's Hopper bodies beside the CUDA-core body
         _deep_parts_turns(hb, q, x, cfg)
-    else:  # kernels 14 and 15's TF32 x3 bodies beside the CUDA-core body
+    else:  # kernels 8, 9, 14 and 15's TF32 x3 bodies beside the CUDA-core body
+        hb_d = rh.build_hier_bank(hb.bank, bn=512, gsz_sem=8, gsz_geo=64, tier=tier)
+        _exact_scan_turns(hb, hb_ts, hb_d, q, x, cfg)
+        del hb_d
         _exact_parts_turns(hb, q, x, cfg, report)
+
+
+def _scan_body_turns(tag: str, args, kw, b: int, old, rates) -> tuple:
+    """Kernel 8 or 9 on `csrc/hier_scan_tf32_sm90.cu` (`_scan_tf32`) at one
+    request whose first b rows are real queries and the rest zero padding,
+    held against its plain version (`_scan_tf32_plain`) and the one-pass
+    plain version (`_hier_scan_plain` / `_hier_scan_stats_plain`): m within
+    1e-4, s within 1e-4 of itself (the stats bars chip_smoke.py holds every
+    scan to), the tails by `_hold_cores` over the real rows and over the
+    padding rows by 8 x 2^-22 x the sum of their terms' magnitudes + 1e-6
+    (zero queries: p = 1, each tail the sum of its vw column, which the
+    split resolves to 22 bits); then timed in turns beside ``old`` (the
+    form's first body: old, new, new, old on CUDA events, `_turns_ms`;
+    nothing counted).  Prints both times and, for each (label, products a
+    term, rate) of ``rates``, the bound (every operand read once, the stats
+    and tails written once, the logits over the centroids' nonzero columns)
+    and both shares.  Returns (max abs error, largest error over its bar,
+    the new body's ms, the bound of the first rate)."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    q_cat, gs, gg, vs, vg = args
+    tails, has_geo = vs is not None, kw.get("has_geo", True)
+    got = rh._scan_tf32(*args, **kw)
+    mine = rh._scan_tf32_plain(*args, **kw)
+    if tails:
+        one = tuple(r for r in rh._hier_scan_plain(*args, **kw) if r is not None)
+        mag_args = (q_cat, gs, gg, vs.abs(), None if vg is None else vg.abs())
+        mags = (rh._hier_scan_plain(*mag_args, **kw)[-1], rh._scan_tf32_plain(*mag_args, **kw)[-1])
+    else:
+        one = rh._hier_scan_stats_plain(q_cat, gs, gg, **kw)
+    errs = []
+    for ref, which in ((mine, "its plain version"), (one, "the one-pass plain version")):
+        for i, name in enumerate(("m_s", "s_s", "m_g", "s_g")[:len(got) - tails]):
+            errs.append(_compare(f"{tag} B={b} {name} vs {which}", got[i], ref[i], *(
+                (1e-4, 0.0, "f32 logits in another summation order") if name[0] == "m"
+                else (0.0, 1e-4, "f32 exp2 sums in another order"))))
+        if tails:
+            mag = mags[ref is mine]
+            errs.append(_hold_cores(f"{tag} B={b} tails vs {which}", got[-1][:b], ref[-1][:b],
+                                    mag[:b], True, b, ""))
+            if got[-1].shape[0] > b:
+                pad = (got[-1][b:] - ref[-1][b:]).abs()
+                ratio = (pad / (8 * 2.0 ** -22 * mag[b:] + 1e-6)).max().item()
+                print(f"{tag} B={b} tails vs {which}, {got[-1].shape[0] - b} padding rows: "
+                      f"err/tol {ratio:.3e} (tolerance 8 x 2^-22 x sum |terms| + 1e-6)")
+                if ratio > 1.0:
+                    raise AssertionError(f"{tag} B={b}: padding rows {ratio:.3f}x their bar")
+    new = ("new", lambda: rh._scan_tf32(*args, **kw))
+    t = _turns_ms((("old", old), new, new, ("old", old)), 5)
+    Bp, cat_d = q_cat.shape
+    fams = [(gs, vs, kw["gpt_s"], kw.get("sup_r") or 1)]
+    if has_geo or not tails:
+        fams.append((gg, vg, kw["gpt_g"], 1))
+    flops = n_bytes = 0
+    for g, vw, gpt, sup in fams:
+        G = g.shape[0]
+        W = vw.shape[1] if tails else 0
+        flops += 2 * b * G * rh._nz_cols(g) + 2 * b * G // sup * W
+        n_bytes += (G * g.shape[1] * g.element_size() + 2 * Bp * (G // gpt) * 4
+                    + (vw.numel() * vw.element_size() + Bp * W * 4 if tails else 0))
+    n_bytes += Bp * cat_d * q_cat.element_size()
+    bounds, first = [], None
+    for label, n_products, rate in rates:
+        ms, by = _bound(n_bytes, n_products * flops, rate)
+        first = first or (ms, by)
+        bounds.append(f"bound at {label} {ms:.4f} ms ({by}), shares {ms / t['new']:.4f} / "
+                      f"{ms / t['old']:.4f}")
+    print(f"{tag} B={b} (Bp {Bp}): TF32 x3 body {t['new']:.4f} ms, first body {t['old']:.4f} ms "
+          f"(CUDA events, turns old, new, new, old; {t['old'] / t['new']:.2f}x); "
+          + "; ".join(bounds))
+    return (max(e for e, _ in errs), max(r for _, r in errs), t["new"], first)
+
+
+def _exact_scan_turns(hb, hb_ts, hb_d, q, x, cfg) -> None:
+    """Kernels 8 and 9 at the `exact` tier on `csrc/hier_scan_tf32_sm90.cu`
+    at B = 1, 37, 1,000 and 10,000, each batch its own request (`_request`):
+    the flagship's scan (both families, and the sem family alone as RANGE
+    runs it), the JAX defaults' (1,152-column tails), the tail_super
+    flagship's (its supergroup sem tail, sup_r 4) and the stats scan over
+    g_topk_cat (hier_topk's) and g_sem_cat (RANGE's home-tile sort), each
+    by `_scan_body_turns` beside the CUDA-core body's f32 form
+    (`_scan_cores`, csrc/hier_cores.cu, which only this yardstick
+    launches); bound and share at the TF32 x3 rate and at the f32 rate."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    rates = (("the TF32 x3 rate", 3, TF32_FLOPS), ("the f32 rate", 1, F32_FLOPS))
+    for b in REQUESTS:
+        q_cat = _request(hb, q, x, cfg, b)[1]
+        forms = []
+        for name, h, vs, vg, extra in (
+                ("flagship", hb, hb.g_sem_vw_lr, hb.g_geo_vw_lr, {}),
+                ("RANGE", hb, hb.g_sem_vw_lr, hb.g_geo_vw_lr, dict(has_geo=False)),
+                ("JAX defaults", hb_d, hb_d.g_sem_vw, hb_d.g_geo_vw, {}),
+                ("tail_super", hb_ts, hb_ts.g_sem_ts_vw, hb_ts.g_geo_vw_lr,
+                 dict(sup_r=TAIL_SUPER // hb_ts.gsz_sem))):
+            kw = dict(gpt_s=h.bn // h.gsz_sem, gpt_g=h.bn // h.gsz_geo, **extra)
+            forms.append((f"hier_scan_f32 [{name}]", (q_cat, h.g_sem_cat, h.g_geo_cat, vs, vg),
+                          kw))
+        for operand, gpt in (("g_topk_cat", hb.bn // hb.topk_gsz), ("g_sem_cat",
+                                                                      hb.bn // hb.gsz_sem)):
+            forms.append((f"hier_scan_stats_f32 [{operand}]",
+                          (q_cat, getattr(hb, operand), hb.g_geo_cat, None, None),
+                          dict(gpt_s=gpt, gpt_g=hb.bn // hb.gsz_geo)))
+        for tag, args, kw in forms:
+            _scan_body_turns(tag, args, kw, b,
+                             lambda args=args, kw=kw: rh._scan_cores("f32", *args, **kw), rates)
+
+
+def _stats_batches(tag: str, hb, operand: str, q, x, rate) -> None:
+    """Kernel 9's bf16 forms (`fast`: hier_topk's g_topk_cat, 256 columns;
+    `high`: 768) on `csrc/hier_scan_tf32_sm90.cu` (one TF32 product a term)
+    at B = 1, 37, 1,000 and 10,000, each batch its own `hier_topk` request
+    (its budget's bm, its queries sorted), by `_scan_body_turns` beside the
+    mma.sync body `csrc/hier_scan_stats.cu` (`_scan_stats_mma_sync`, which
+    only this yardstick launches); bound and share at the bf16 rate."""
+    from range_tpu_torch.ops import retrieval_fused as rf
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    for b in REQUESTS:
+        bm = rh._topk_budget(b, TOPK_K, 256, 6)[1]
+        q_s, q_x = rh._pad_queries(q[:b], x[:b], bm)
+        q_cat = rf.pack_queries(q_s, None, 12.0, 40.0, hb.tier)[rh._hybrid_order(q_x, b)]
+        args = (q_cat.contiguous(), getattr(hb, operand), hb.g_geo_cat, None, None)
+        kw = dict(gpt_s=hb.bn // hb.topk_gsz, gpt_g=hb.bn // hb.gsz_geo)
+        _scan_body_turns(f"{tag} [{operand}]", args, kw, b,
+                         lambda: rh._scan_stats_mma_sync(*args[:3], **kw),
+                         (("the bf16 rate", 1, rate),))
 
 
 def _request(hb, q, x, cfg, b):

@@ -1,13 +1,15 @@
-// Hierarchical retrieval, the CUDA-core and mma.sync body: the f32 and the
-// deep forms of the scan, the stats scan, the refine, corr and both parts
-// kernels.
+// Hierarchical retrieval, the CUDA-core and mma.sync body: the deep form of
+// the scan, the f32 and deep forms of the refine and corr kernels; its f32
+// scan, stats scan and parts forms are chip_smoke.py's same-run yardsticks.
 //
 // Replaces, in the forms their Hopper and mma.sync bodies do not take:
-//   range_tpu/ops/retrieval_hier.py:1443 `_hier_scan_kernel` (kernel 8),
-//   :1582 `_hier_scan_stats_kernel` (9), :2077 `_hier_refine_kernel` (12),
-//   :2209 `_hier_corr_kernel` (13), :2282 `_hier_parts_family_kernel` (14,
-//   its value shapes; its rr shapes only as chip_smoke.py's yardstick) and
-//   :2515 `_hier_parts_kernel` (15).
+//   range_tpu/ops/retrieval_hier.py:1443 `_hier_scan_kernel` (kernel 8,
+//   its deep form), :2077 `_hier_refine_kernel` (12) and :2209
+//   `_hier_corr_kernel` (13).  Its forms of :1443 at f32, :1582
+//   `_hier_scan_stats_kernel` (9), :2282 `_hier_parts_family_kernel` (14)
+//   and :2515 `_hier_parts_kernel` (15) are launched by no wrapper: kernels
+//   8 (f32) and 9 run on csrc/hier_scan_tf32_sm90.cu, 14 and 15 on their
+//   Hopper and TF32 x3 bodies.
 // The forms: f32 operands (the `exact` tier: f32 queries, keys and group
 // operands, f32 values with build_hier_bank(value_dtype=torch.float32)),
 // whose products the TPU kernel takes at Precision.HIGHEST; and bf16
@@ -72,11 +74,12 @@
 // 67 TFLOP/s, set their pace); the deep form's walk, its logits cheap on
 // the tensor cores.  A tf32 split whose three or six products run into one
 // accumulator misses the f32 bar where a row's value sums cancel, so the
-// f32 products here stay FMAs.  Kernel 14's rr shapes at f32 no longer run
-// here: csrc/hier_rr_tf32_sm90.cu takes them as three TF32 products with a
-// fresh fragment a 32-deep chunk (which holds that bar), and this body's
-// rr form is chip_smoke.py's yardstick there; its value shapes and kernel
-// 15 at f32 stay here (ROADMAP.md, Queue 2).
+// f32 products here stay FMAs.  The TF32 x3 bodies take three TF32
+// products with a fresh fragment a 32-deep chunk, which holds that bar:
+// kernel 14's rr shapes (csrc/hier_rr_tf32_sm90.cu), its value shapes and
+// kernel 15 (csrc/hier_values_tf32_sm90.cu), the scan at f32 and the stats
+// scan (csrc/hier_scan_tf32_sm90.cu); the refine and corr kernels at f32
+// stay here (ROADMAP.md, Queue 2).
 
 #include "mma_common.cuh"
 

@@ -1,6 +1,10 @@
-// Hierarchical retrieval: the stats-only group scan (no tail).
+// Hierarchical retrieval: the stats-only group scan (no tail), its first
+// body (mma.sync).  No wrapper launches it: kernel 9 runs in every form on
+// csrc/hier_scan_tf32_sm90.cu, and this source stays as chip_smoke.py's
+// same-run yardstick of it at bf16 (ops/retrieval_hier.py
+// `_scan_stats_mma_sync`).
 //
-// Replaces: range_tpu/ops/retrieval_hier.py, `_hier_scan_stats_kernel`
+// Replaced: range_tpu/ops/retrieval_hier.py, `_hier_scan_stats_kernel`
 // (reached via _hier_scan_stats_call <- hier_topk, hier_nn and the
 // sort="hybrid" pre-scan of retrieve_hier).  For every query and both
 // families (sem, geo): the group logits l = q . g against every packed

@@ -11,7 +11,11 @@
 //     sel and dedup_pad forms; reached via _hier_parts_family_call);
 // and at the bf16 tiers, where a bank's values are f32
 // (build_hier_bank(value_dtype=)), both with bf16 logits (exact in TF32:
-// lo = 0), up to 1,536 columns (the `high` tier's 768).
+// lo = 0), up to 1,536 columns (the `high` tier's 768).  Its value pass
+// also computes kernel 8's tail at f32 (:1443 `_hier_scan_kernel`) over
+// the D tiles csrc/hier_scan_tf32_sm90.cu writes: every tile of 64 groups
+// listed for each 64 queries, vw as the values (ops/retrieval_hier.py
+// `_scan_tf32`).
 // Per query block of bm and each tile of its list, for each family:
 //   p    = exp2(min(q . k + mask, 86))   over the tile's bn rows
 //   d   += sum p

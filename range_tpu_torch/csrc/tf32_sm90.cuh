@@ -3,8 +3,9 @@
 // instructions of the kernels that take f32 operands (the tower's f32 mode,
 // csrc/siren_tower_sm90.cu; kernel 14's rr shapes at the `exact` tier,
 // csrc/hier_rr_tf32_sm90.cu; kernel 15 and kernel 14's value shapes there,
-// csrc/hier_values_tf32_sm90.cu), and the segments and fold those two
-// share.  Nothing here launches anything but the fold.
+// csrc/hier_values_tf32_sm90.cu; kernels 8 and 9, csrc/hier_scan_tf32_sm90.cu),
+// and the segments and fold they share.  Nothing here launches anything but
+// the fold.
 //
 // x = hi + lo with hi = rna(x), lo = rna(x - hi) (x - hi is exact in f32);
 // a product a b is taken as lo_a hi_b + hi_a lo_b + hi_a hi_b (lo lo, ~2^-22

@@ -71,6 +71,8 @@ _SIGNATURES = {
     "hier_rr_tf32_sm90": {"hier_rr_tf32_rows_launch": [_P] * 10,
                           "hier_rr_tf32_groups_launch": [_P] * 10,
                           "hier_rr_tf32_smem": [_I, _I]},
+    "hier_scan_tf32_sm90": {"hier_scan_tf32_launch": [_P] * 7,
+                            "hier_scan_tf32_smem": [_I, _I]},
     "hier_values_tf32_sm90": {"hier_values_tf32_p_launch": [_P] * 10,
                               "hier_values_tf32_v_launch": [_P] * 7,
                               "hier_values_tf32_smem": [_I, _I]},

@@ -36,7 +36,10 @@ def _owner(t: torch.Tensor) -> torch.Tensor:
 
 
 def _stamp(t: torch.Tensor) -> tuple:
-    return (t.data_ptr(), tuple(t.shape), t.stride(), t.dtype, t.device, t._version)
+    # an inference tensor keeps no version counter (nor can it be updated
+    # in place outside inference mode)
+    version = -1 if t.is_inference() else t._version
+    return (t.data_ptr(), tuple(t.shape), t.stride(), t.dtype, t.device, version)
 
 
 def prepared(kind: str, sources: Sequence[torch.Tensor], build: Callable[[], object],
@@ -138,12 +141,14 @@ def tf32x3_matmul(a: torch.Tensor, b_hi: torch.Tensor, b_lo: torch.Tensor,
     each (a pessimistic model of the tensor cores' accumulator), the
     fragments added one by one into the running sum ``acc`` (zeros by
     default) rounded to nearest; ``"rz"`` all of them in one truncated
-    chain (one accumulator).  K a multiple of 8; a last chunk may be short."""
+    chain (one accumulator).  K a multiple of 8; a last chunk may be short.
+    Leading batch dimensions broadcast as in ``@``."""
     ah, al = (x.double() for x in tf32_split(a))
     bh, bl = b_hi.double(), b_lo.double()
-    K = a.shape[1]
-    acc = (torch.zeros(a.shape[0], b_hi.shape[1], dtype=torch.float32, device=a.device)
-           if acc is None else acc)
+    K = a.shape[-1]
+    shape = (*torch.broadcast_shapes(a.shape[:-2], b_hi.shape[:-2]), a.shape[-2],
+             b_hi.shape[-1])
+    acc = torch.zeros(shape, dtype=torch.float32, device=a.device) if acc is None else acc
     if chain == "exact":
         return (acc.double() + ah @ bh + ah @ bl + al @ bh).to(torch.float32)
     frag = torch.zeros_like(acc)
@@ -152,7 +157,7 @@ def tf32x3_matmul(a: torch.Tensor, b_hi: torch.Tensor, b_lo: torch.Tensor,
             frag = torch.zeros_like(acc)
         ks = slice(k0, k0 + 8)
         for x, y in ((al, bh), (ah, bl), (ah, bh)):
-            frag = rz_add(frag, x[:, ks] @ y[ks])
+            frag = rz_add(frag, x[..., ks] @ y[..., ks, :])
         if chain == "chunks" and (k0 % 32 == 24 or k0 + 8 == K):
             acc = acc + frag
     return acc + frag if chain == "rz" else acc

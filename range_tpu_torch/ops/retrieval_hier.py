@@ -71,23 +71,29 @@ its own beyond the stats scan).
 
 Each kernel wrapper runs its plain PyTorch version on CPU tensors and the
 CUDA kernel (`csrc/`) on CUDA tensors, and counts launches in
-``.launches``.  On banks of the `exact` tier (f32 operands) the wrappers
-of the scan, the stats scan, the refine and the correction launch the
-CUDA-core body `csrc/hier_cores.cu` (`_cores_form`), counted also in
-``.f32_launches``, and both parts kernels their TF32 x3 bodies (every f32
-product three TF32 products on the tensor cores: kernel 14's rr shapes
-`csrc/hier_rr_tf32_sm90.cu`, kernel 15 and kernel 14's value shapes
-`csrc/hier_values_tf32_sm90.cu`), counted in ``.tf32_launches``; the
-CUDA-core body's parts forms (`_parts_cores`, `_parts_family_cores`) stay
-as chip_smoke.py's same-run yardsticks; at the `high` tier (768 semantic
-columns) the scan, the refine and the correction do
-(``.deep_launches``; the stats scan's 768 columns run on its own kernel,
-whose shared memory holds them), while both parts kernels and the top-k
-kernel take logits over more than 256 columns on their Hopper bodies, in
-passes of 256 columns with the accumulator carried.  The numbers are f32
-sums of bf16 products in both; the rounding points (bf16 p before every
-value product) are the JAX package's.  The sharded and host-staged
-builds raise `NotImplementedError` naming their ROADMAP item.
+``.launches``.  The stats scan runs at every tier on
+`csrc/hier_scan_tf32_sm90.cu` (bf16 logits one TF32 product a term, f32
+ones three; ``.tf32_launches`` where an operand is f32, ``.deep_launches``
+past 256 columns).  On banks of the `exact` tier (f32 operands) the scan
+and both parts kernels launch their TF32 x3 bodies (every f32 product three
+TF32 products on the tensor cores: the scan `csrc/hier_scan_tf32_sm90.cu`,
+its logits once, D written once and the tail on the value pass of
+`csrc/hier_values_tf32_sm90.cu`; kernel 14's rr shapes
+`csrc/hier_rr_tf32_sm90.cu`, kernel 15 and kernel
+14's value shapes `csrc/hier_values_tf32_sm90.cu`), counted in
+``.tf32_launches``, and the refine and the correction the CUDA-core body
+`csrc/hier_cores.cu` (`_cores_form`), counted also in ``.f32_launches``;
+the CUDA-core body's scan and parts forms (`_scan_cores`, `_parts_cores`,
+`_parts_family_cores`) and `csrc/hier_scan_stats.cu`
+(`_scan_stats_mma_sync`) stay as chip_smoke.py's same-run yardsticks; at
+the `high` tier (768 semantic columns) the scan, the refine and the
+correction run on the CUDA-core body (``.deep_launches``), while both
+parts kernels and the top-k kernel take logits over more than 256 columns
+on their Hopper bodies, in passes of 256 columns with the accumulator
+carried.  The numbers are f32 sums of bf16 products in both; the rounding
+points (bf16 p before every value product) are the JAX package's.  The
+sharded and host-staged builds raise `NotImplementedError` naming their
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -835,11 +841,12 @@ def _launch(name: str, fn: str, *args) -> None:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
-# The CUDA-core body (`csrc/hier_cores.cu`): every form of kernels 8, 9, 12
-# and 13 whose operands are f32 (the `exact` tier) or whose logits are
-# deeper than the other bodies' 256 columns (the `high` tier), composed from
-# its kernels, the group pass (with its segments' fold) and the row pass;
-# its forms of kernels 14 and 15 are chip_smoke.py's yardsticks
+# The CUDA-core body (`csrc/hier_cores.cu`): every form of kernels 12 and 13
+# whose operands are f32 (the `exact` tier) or whose logits are deeper than
+# the other bodies' 256 columns (the `high` tier), and kernel 8's deep form,
+# composed from its kernels, the group pass (with its segments' fold) and
+# the row pass; its forms of kernels 8 (f32), 9, 14 and 15 are
+# chip_smoke.py's yardsticks
 CORES_DEPTH = 256  # logit columns the Hopper and mma.sync bodies take at most
 CORES_NC = 512  # output columns of a CUDA-core block (a slice)
 _CORES_DT = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}
@@ -869,9 +876,10 @@ def _cores_fits(name: str, depth: int, ltc: bool, vtc: bool, values: bool, K: in
 def _cores_form(depth: int, *ops) -> Optional[str]:
     """The CUDA-core form a launch takes: "f32" when an operand is f32,
     "deep" when its logits read more than `CORES_DEPTH` columns, else None
-    (the function's own body).  Kernels 8, 9, 12 and 13 route by it;
-    kernels 14 and 15 test for f32 operands themselves and take their TF32
-    x3 bodies (`_rr_tf32`, `_values_tf32`)."""
+    (the function's own body).  Kernels 8, 12 and 13 route by it, kernel
+    8's "f32" form to its TF32 x3 body (`_scan_tf32`); kernels 14 and 15
+    test for f32 operands themselves and take theirs (`_rr_tf32`,
+    `_values_tf32`), and kernel 9 takes `_scan_tf32` in every form."""
     if any(t is not None and t.dtype == torch.float32 for t in ops):
         return "f32"
     return "deep" if depth > CORES_DEPTH else None
@@ -1163,35 +1171,354 @@ def _scan_plan(Bp: int, fams: tuple, rows_max: int = SCAN_ROWS_MAX) -> ScanPlan:
     return ScanPlan(bn, gs, vs, out)
 
 
+# Kernels 8 and 9 on the tensor cores (`csrc/hier_scan_tf32_sm90.cu`): the
+# scan where an operand is f32 and the stats scan in every form, a launch a
+# family, every f32 product three TF32 products (bf16 logits: one); the
+# scan's tail on `csrc/hier_values_tf32_sm90.cu`'s value pass over D
+SCAN_TF32_COLS = 1536  # logit columns it takes (32-column chunks: GCMAX)
+_SCAN_RES = 8          # chunks of them a block's resident query rows hold (RES)
+_SCAN_NSK_MAX = 12     # stages of its centroid ring, at most (NSK_MAX)
+_SCAN_STAGE = 16384    # bytes of a stage: [hi | lo][64][32] or [hi][128][32]
+_SCAN_PLAIN_TILES = 32  # D tiles whose tail fragments the plain version takes at once
+
+
+class ScanTf32Fam(NamedTuple):
+    """One family of a launch: the query's logit columns [qg0, qg0 + gwe) in
+    GC chunks of 32 against the centroids' first gwe (past them every
+    centroid is zero, and their zero products change no bit); T tiles of
+    gpt groups in nblk steps of ng (64, or 128 at bf16 logits: one product
+    a term leaves the registers for an m64n128 fragment); for the scan, the
+    tail's W columns (0: the stats scan) in NS slices of 128 at output
+    column oc0, over supergroups of sup groups, by the value pass over KT
+    tiles of 64 groups of D; three TF32 products a logit term (lx3) and a
+    tail term (tx3: D split in f32 chunks, else bf16 boxes, D rounded to
+    bf16: tbf16)."""
+    qg0: int
+    gwe: int
+    GC: int
+    gpt: int
+    T: int
+    ng: int
+    nblk: int
+    W: int
+    NS: int
+    oc0: int
+    sup: int
+    KT: int
+    lx3: bool
+    tx3: bool
+    tbf16: bool
+
+
+def _nz_cols(g: torch.Tensor) -> int:
+    """Columns of g up to the last one that is not zero in every row (at
+    least 1), once per bank: the `exact` tier's geo centroids hold their 3
+    real columns in 128."""
+    def count():
+        nz = (g != 0).any(0).nonzero()
+        return int(nz.max()) + 1 if nz.numel() else 1
+
+    return prepared("nz_cols", [g], count)
+
+
+def _scan_tf32_fams(q_cat, g_sem_cat, g_geo_cat, g_sem_vw, g_geo_vw, *, gpt_s: int,
+                    gpt_g: int, has_geo: bool = True, sup_r: int = 0):
+    """The launches' families (sem first; without ``g_sem_vw`` the stats
+    scan, both families), raising ValueError before any launch on a shape
+    the kernel does not take: logits over more than `SCAN_TF32_COLS`
+    columns or wider than the queries, tiles of no whole number of groups,
+    a supergroup (``sup_r``) that divides neither the 32-group step nor the
+    tile, vw rows that are not one a (super)group.  Any group count a tile
+    serves, any tail width; a batch of any size (the launch pads it)."""
+    cat_d = q_cat.shape[1]
+    tails = g_sem_vw is not None
+    t_pad = g_sem_cat.shape[0] // max(gpt_s, 1)
+    fams = [(g_sem_cat, g_sem_vw, gpt_s, sup_r or 1)]
+    if has_geo or not tails:
+        fams.append((g_geo_cat, g_geo_vw, gpt_g, 1))
+    bad = sup_r < 0 or sup_r == 1 or t_pad < 1 or (sup_r and not tails) or q_cat.dim() != 2
+    out, oc0 = [], 0
+    for g, vw, gpt, sup in fams:
+        G, w = g.shape
+        bad = bad or (gpt < 1 or G != t_pad * gpt or not 0 < w <= min(cat_d, SCAN_TF32_COLS)
+                      or 32 % sup or gpt % sup
+                      or (tails and (vw.dim() != 2 or vw.shape[0] * sup != G
+                                     or vw.shape[1] < 1)))
+        if bad:
+            break
+        gwe, W = _nz_cols(g), vw.shape[1] if tails else 0
+        lx3 = not q_cat.dtype == g.dtype == torch.bfloat16
+        ng = 64 if lx3 else 128
+        tx3 = tails and vw.dtype == torch.float32
+        out.append(ScanTf32Fam(cat_d - w if out else 0, gwe, -(-gwe // 32), gpt, t_pad, ng,
+                               -(-G // ng), W, -(-W // 128), oc0, sup, -(-G // ng) * ng // 64,
+                               lx3, tx3, tails and not tx3))
+        oc0 += W
+    if bad:
+        raise ValueError(
+            f"{'hier_scan' if tails else 'hier_scan_stats'} kernel (TF32 x3): unsupported "
+            f"shapes q {tuple(q_cat.shape)}, g_sem {tuple(g_sem_cat.shape)}, g_geo "
+            f"{tuple(g_geo_cat.shape)}, vw {None if not tails else tuple(g_sem_vw.shape)}, "
+            f"gpt {gpt_s} / {gpt_g}, sup_r={sup_r}")
+    return tuple(out)
+
+
+def _scan_tf32_smem(GC: int, gpt: int) -> Tuple[int, int]:
+    """(dynamic shared memory, ring stages) of a block at GC chunks of
+    logit columns and gpt groups a tile (the kernel's `layout`): the 128
+    resident query rows over their first `_SCAN_RES` chunks, an l tile of
+    128 rows of 64 groups where gpt is no multiple of 8, the barriers, then
+    as many `_SCAN_STAGE` ring stages as fit, at most `_SCAN_NSK_MAX`."""
+    res = min(GC, _SCAN_RES)
+    lt = _round_up(128 * (32 * res + 8) * 4, 1024) + (0 if gpt % 8 == 0 else 128 * 65 * 4)
+    ring = _round_up(lt + 8 * 2 * _SCAN_NSK_MAX, 1024)
+    nsk = min(_SCAN_NSK_MAX, (_SM90_MAX_SMEM - 1024 - ring) // _SCAN_STAGE)
+    return ring + nsk * _SCAN_STAGE + 1024, nsk
+
+
+@functools.lru_cache(maxsize=256)
+def _scan_tf32_segments(blocks: int, T: int, gpt: int, ng: int) -> int:
+    """Segments of a family's T tiles (a block each, a block an SM): of 1 ..
+    T, the count whose waves of blocks (``blocks`` query blocks times the
+    segments over the card's SMs) walk the fewest steps of ng groups one
+    after another, a block's set-up counted as one step more; the fewest
+    segments among equals."""
+    def steps(n: int) -> int:
+        return -(-(-(-T // n) * gpt) // ng) + 1
+
+    return min(range(1, T + 1), key=lambda n: (-(-blocks * n // SM90_SMS) * steps(n), n))
+
+
+def _scan_tf32_plan(fm: ScanTf32Fam, Bp: int) -> Tuple[int, int, int]:
+    """(the padded batch, the stats pass's segments, the value pass's) of a
+    family's launch: blocks of 128 queries over segments of whole tiles;
+    the value pass's blocks of 64 queries and two tail slices over segments
+    of its KT tiles (`_rr_tf32_segments`; 0 for the stats scan)."""
+    Bq = _round_up(max(Bp, 1), 128)
+    n_v = _rr_tf32_segments(Bq, fm.KT, -(-fm.NS // 2)) if fm.W else 0
+    return Bq, _scan_tf32_segments(Bq // 128, fm.T, fm.gpt, fm.ng), n_v
+
+
+def _sup_rows(vw: torch.Tensor, sup: int, rows: int) -> torch.Tensor:
+    """A (supergroup) vw operand [G / sup, W] as one row a fine group, each
+    supergroup's row at its first group (the kernel puts a supergroup's
+    weight there), zeros at the others and past G to ``rows``."""
+    out = torch.zeros((rows, vw.shape[1]), dtype=vw.dtype, device=vw.device)
+    out[:vw.shape[0] * sup:sup] = vw
+    return out
+
+
+def _scan_tf32_images(g, vw, fm: ScanTf32Fam):
+    """The images a family's launches copy, once per bank: the centroids,
+    split, as one tile of all G groups in nblk steps of ng
+    (`_tf32_cents_image`: [1, nblk, GC, 2, ng, 32]) and, for the scan, vw
+    over KT tiles of 64 groups (`_sup_rows`) as the value pass's B image
+    (`_tf32_rows_image`'s layout, f32 split: [KT, 1, 2, NS, 2, 128, 32];
+    `_values_bf16_image`'s, bf16 boxes: [KT, 1, NS, 2, 64, 64])."""
+    gimg = _tf32_cents_image(g, gwe=fm.gwe, GC=fm.GC, gpt=g.shape[0], NG=fm.ng, nsb=fm.nblk)
+    if not fm.W:
+        return gimg, None
+
+    def build():
+        rows = _sup_rows(vw, fm.sup, 64 * fm.KT)
+        if fm.tx3:
+            return _rows_image_f32(rows, spt=1, ZS=fm.NS, bn=64)
+        return _rows_image_bf16(rows, spt=1, VS=fm.NS, bn=64)
+
+    return gimg, prepared("scan_vw", [vw], build, (fm.sup, fm.KT, fm.tx3))
+
+
+def _scan_tf32_query(q_cat, fm: ScanTf32Fam, Bq: int) -> torch.Tensor:
+    """The family's logit columns of the queries, f32 [Bq, 32 GC], zero past
+    them and past the batch."""
+    q = torch.zeros((Bq, 32 * fm.GC), dtype=torch.float32, device=q_cat.device)
+    q[:q_cat.shape[0], :fm.gwe] = q_cat[:, fm.qg0:fm.qg0 + fm.gwe]
+    return q
+
+
+def _scan_tf32(q_cat, g_sem_cat, g_geo_cat, g_sem_vw, g_geo_vw, *, gpt_s: int, gpt_g: int,
+               has_geo: bool = True, sup_r: int = 0):
+    """Launch `csrc/hier_scan_tf32_sm90.cu`, a launch a family: without
+    ``g_sem_vw`` the stats scan, (m_s, s_s, m_g, s_g) [Bp, t_pad]; else the
+    scan, each family's (m, s), D written once as the value pass's A tiles,
+    then `csrc/hier_values_tf32_sm90.cu`'s value pass over D and vw (the
+    tail), and the tails [Bp, Ws (+ Wg)].  Counted nowhere."""
+    f32 = torch.float32
+    tails = g_sem_vw is not None
+    ops = dict(q_cat=q_cat, g_sem_cat=g_sem_cat, g_sem_vw=g_sem_vw)
+    if has_geo or not tails:
+        ops.update(g_geo_cat=g_geo_cat, g_geo_vw=g_geo_vw)
+    _cores_check("hier_scan" if tails else "hier_scan_stats", ops)
+    fams = _scan_tf32_fams(q_cat, g_sem_cat, g_geo_cat, g_sem_vw, g_geo_vw, gpt_s=gpt_s,
+                           gpt_g=gpt_g, has_geo=has_geo, sup_r=sup_r)
+    Bp, dev, t_pad = q_cat.shape[0], q_cat.device, fams[0].T
+    Bq = _round_up(max(Bp, 1), 128)
+    stats = [torch.empty((Bq, t_pad), dtype=f32, device=dev) for _ in range(2 * len(fams))]
+    ow = sum(fm.W for fm in fams)
+    out = torch.empty((Bq, ow), dtype=f32, device=dev) if tails else None
+    stream = _stream(q_cat) if Bp else None
+    for f, (fm, g, vw) in enumerate(zip(fams, (g_sem_cat, g_geo_cat), (g_sem_vw, g_geo_vw))):
+        if not Bp:
+            break
+        _, n_seg, n_v = _scan_tf32_plan(fm, Bp)
+        q = _scan_tf32_query(q_cat, fm, Bq)
+        gimg, vimg = _scan_tf32_images(g, vw, fm)
+        d = (torch.empty(Bq // 64 * fm.KT * (32768 if fm.tx3 else 8192), dtype=torch.uint8,
+                         device=dev) if tails else None)
+        ints = [Bq, fm.GC, fm.gpt, fm.T, t_pad, n_seg, int(fm.lx3),
+                0 if d is None else 1 if fm.tx3 else 2, fm.KT, fm.sup, int(fm.tbf16)]
+        _launch("hier_scan_tf32_sm90", "hier_scan_tf32_launch", q.data_ptr(), gimg.data_ptr(),
+                stats[2 * f].data_ptr(), stats[2 * f + 1].data_ptr(),
+                None if d is None else d.data_ptr(), (ctypes.c_int * len(ints))(*ints), stream)
+        if not tails:
+            continue
+        # the value pass: a list of every tile for each 64 queries; even
+        # widths and offsets (its paired stores), else through a buffer
+        lst = torch.arange(fm.KT, dtype=torch.int32, device=dev).expand(Bq // 64, -1)
+        Dv = fm.W + fm.W % 2
+        even = not (fm.W % 2 or fm.oc0 % 2 or ow % 2)
+        dst = out if even else torch.empty((Bq, Dv), dtype=f32, device=dev)
+        work = (torch.empty(n_v * Bq * 128 * fm.NS, dtype=f32, device=dev) if n_v > 1
+                else None)
+        ints = [Bq, 64, 1, fm.KT, fm.NS, Dv, int(fm.tx3), dst.shape[1],
+                fm.oc0 if even else 0, 0, n_v]
+        _launch("hier_values_tf32_sm90", "hier_values_tf32_v_launch", d.data_ptr(),
+                vimg.data_ptr(), lst.contiguous().data_ptr(), dst.data_ptr(),
+                None if work is None else work.data_ptr(), (ctypes.c_int * len(ints))(*ints),
+                stream)
+        if not even:
+            out[:, fm.oc0:fm.oc0 + fm.W] = dst[:, :fm.W]
+    return tuple(t[:Bp] for t in stats) + ((out[:Bp],) if tails else ())
+
+
+def _scan_tf32_plain(q_cat, g_sem_cat, g_geo_cat, g_sem_vw, g_geo_vw, *, gpt_s: int,
+                     gpt_g: int, has_geo: bool = True, sup_r: int = 0, chain: str = "chunks",
+                     chunk: int = 1024):
+    """Plain version of `_scan_tf32`'s arithmetic, read from its images
+    (`_scan_tf32_images`, unswizzled and unpermuted here), with its
+    outputs.  Per family: the logits `_prep.tf32x3_matmul` chunk by chunk
+    over the centroids' columns (a fresh fragment each, added in f32), per
+    tile the max and the exp2 sum in group order (tiles of whole octets:
+    each octet's eight p as ((p0 + p1) + (p2 + p3)) + ((p4 + p5) + (p6 +
+    p7)), the kernel's shuffle tree); the tail per segment of the value
+    pass's plan (`_scan_tf32_plan`), per tile of 64 groups in it: D (p, with
+    sup > 1 each supergroup's sum at its first group as the tree of pairs,
+    quads, octets, octet pairs and quads; rounded to bf16 where vw is bf16)
+    @ vw's rows, a fresh fragment each 32 groups (f32: twelve TF32
+    products) or each tile (bf16: exact products), added in f32, the
+    segments' sums added in order.  ``chain`` as `_prep.tf32x3_matmul`'s."""
+    from ._prep import kmajor_tf32_read
+    f32 = torch.float32
+    tails = g_sem_vw is not None
+    fams = _scan_tf32_fams(q_cat, g_sem_cat, g_geo_cat, g_sem_vw, g_geo_vw, gpt_s=gpt_s,
+                           gpt_g=gpt_g, has_geo=has_geo, sup_r=sup_r)
+    Bp, dev = q_cat.shape[0], q_cat.device
+    stats, outs = [], []
+
+    def tree(x: torch.Tensor, n: int) -> torch.Tensor:  # pairwise sums down to n-term blocks
+        while x.shape[-1] > n:
+            x = x[..., 0::2] + x[..., 1::2]
+        return x
+
+    for fm, g, vw in zip(fams, (g_sem_cat, g_geo_cat), (g_sem_vw, g_geo_vw)):
+        G = g.shape[0]
+        gimg, vimg = _scan_tf32_images(g, vw, fm)
+        gh, gl = (x.reshape(fm.nblk * fm.ng, -1).T for x in kmajor_tf32_read(gimg[0]))
+        if tails:  # [KT, 64, 128 NS]: each D tile's B
+            if fm.tx3:
+                vh, vl = kmajor_tf32_read(vimg.transpose(2, 3))  # [KT, 1, NS, 128, 64]
+                vh, vl = (v.permute(0, 1, 4, 2, 3).reshape(fm.KT, 64, -1) for v in (vh, vl))
+            else:
+                v = swizzle128(vimg).float()  # [KT, 1, NS, 2, 64, 64]
+                vh = v.permute(0, 1, 4, 2, 3, 5).reshape(fm.KT, 64, -1)
+            n_v = _scan_tf32_plan(fm, Bp)[2]
+            segs = [(fm.KT * i // n_v, fm.KT * (i + 1) // n_v) for i in range(n_v)]
+        m_f, s_f, t_f = [], [], []
+        for lo in range(0, Bp, chunk):
+            q = _scan_tf32_query(q_cat[lo:lo + chunk], fm, min(chunk, Bp - lo))
+            lg = tf32x3_matmul(q, gh, gl, chain)  # [rows, nblk ng]
+            lt = lg[:, :G].reshape(q.shape[0], fm.T, fm.gpt)
+            m_f.append(lt.amax(2))
+            p = torch.exp2(torch.clamp_max(lt, CLAMP2))
+            if fm.gpt % 8 == 0:
+                p = tree(p.reshape(*p.shape[:2], -1, 8), 1)[..., 0]
+            s = torch.zeros_like(p[:, :, 0])
+            for k in range(p.shape[2]):
+                s = s + p[:, :, k]
+            s_f.append(s)
+            if not tails:
+                continue
+            e = torch.exp2(torch.clamp_max(lg[:, :G], CLAMP2))
+            d = torch.zeros((e.shape[0], 64 * fm.KT), dtype=f32, device=dev)
+            if fm.sup > 1:
+                d[:, :G:fm.sup] = tree(e.reshape(e.shape[0], -1, fm.sup), 1)[..., 0]
+            else:
+                d[:, :G] = e
+            if fm.tbf16:
+                d = d.to(torch.bfloat16).to(f32)
+            tail = None
+            for t0, t1 in segs:
+                part = torch.zeros((d.shape[0], vh.shape[2]), dtype=f32, device=dev)
+                for b0 in range(t0, t1, _SCAN_PLAIN_TILES):
+                    b1 = min(b0 + _SCAN_PLAIN_TILES, t1)
+                    a = d[:, 64 * b0:64 * b1].reshape(-1, b1 - b0, 64).transpose(0, 1)
+                    if fm.tx3:  # two chunks of 32 a tile
+                        frags = [tf32x3_matmul(a[..., 32 * u:32 * u + 32],
+                                               vh[b0:b1, 32 * u:32 * u + 32],
+                                               vl[b0:b1, 32 * u:32 * u + 32], chain)
+                                 for u in range(2)]
+                        frags = torch.stack(frags, 1).flatten(0, 1)
+                    else:
+                        frags = (a.double() @ vh[b0:b1].double()).to(f32)
+                    for fr in frags:
+                        part = part + fr
+                tail = part if tail is None else tail + part
+            t_f.append(tail[:, :fm.W])
+        empty = torch.zeros((0, fm.T), dtype=f32, device=dev)
+        stats += [torch.cat(m_f) if m_f else empty, torch.cat(s_f) if s_f else empty]
+        outs += [torch.cat(t_f) if t_f else torch.zeros((0, fm.W), dtype=f32, device=dev)]
+    return tuple(stats) + ((torch.cat(outs, 1),) if tails else ())
+
+
 def _hier_scan_stats_call(q_cat, g_sem_cat, g_geo_cat, *, gpt_s: int,
                           gpt_g: int):
     """The stats-only group scan: (m_s, s_s, m_g, s_g) [Bp, t_pad] f32.
 
-    CPU tensors: `_hier_scan_stats_plain`.  CUDA tensors:
-    `csrc/hier_scan_stats.cu`, which replaces `_hier_scan_stats_kernel`
-    (`range_tpu/ops/retrieval_hier.py:1582`), on bf16 operands whose query
-    block and group tiles fit its shared memory (`_stats_smem`: up to 864
-    logit columns, the `high` tier's 768 included); f32 operands, and
-    deeper bf16 ones, on the CUDA-core body.  Launches of f32 operands also
-    count in ``.f32_launches``, of logits deeper than 256 columns in
-    ``.deep_launches``.  A shape the kernel does not take or a failed
-    launch raises."""
+    CPU tensors: `_hier_scan_stats_plain`.  CUDA tensors: the stats pass of
+    `csrc/hier_scan_tf32_sm90.cu` (`_scan_tf32`), which replaces
+    `_hier_scan_stats_kernel` (`range_tpu/ops/retrieval_hier.py:1582`) at
+    every tier: bf16 logits (`fast`, `high`'s 768 columns) one TF32 product
+    a term, f32 ones (`exact`) three; logits up to `SCAN_TF32_COLS` columns.
+    Launches with an f32 operand also count in ``.tf32_launches``, of
+    logits deeper than 256 columns in ``.deep_launches``.  A shape the
+    kernel does not take or a failed launch raises."""
     if q_cat.device.type == "cpu":
         return _hier_scan_stats_plain(q_cat, g_sem_cat, g_geo_cat,
                                       gpt_s=gpt_s, gpt_g=gpt_g)
+    out = _scan_tf32(q_cat, g_sem_cat, g_geo_cat, None, None, gpt_s=gpt_s, gpt_g=gpt_g)
+    if q_cat.shape[0]:
+        fn = _hier_scan_stats_call
+        fn.launches += 1
+        if torch.float32 in (q_cat.dtype, g_sem_cat.dtype, g_geo_cat.dtype):
+            fn.tf32_launches += 1
+        if max(g_sem_cat.shape[1], g_geo_cat.shape[1]) > CORES_DEPTH:
+            fn.deep_launches += 1
+    return out
+
+
+def _scan_stats_mma_sync(q_cat, g_sem_cat, g_geo_cat, *, gpt_s: int, gpt_g: int):
+    """The stats scan on its first body, `csrc/hier_scan_stats.cu` (mma.sync,
+    bf16 operands whose query block and group tiles fit its shared memory,
+    `_stats_smem`): no wrapper launches it, chip_smoke.py's same-run
+    yardstick; counted nowhere."""
     ops = dict(q_cat=q_cat, g_sem_cat=g_sem_cat, g_geo_cat=g_geo_cat)
-    depth = max(g_sem_cat.shape[1], g_geo_cat.shape[1])
-    form = _cores_form(depth, *ops.values())
-    if form == "f32" or _stats_smem(depth) > _SM90_MAX_SMEM:
-        return _scan_cores(form, q_cat, g_sem_cat, g_geo_cat, None, None, gpt_s=gpt_s,
-                           gpt_g=gpt_g)
     _check_cuda("hier_scan_stats", ops, dict.fromkeys(ops, torch.bfloat16))
     Bp, cat_d = q_cat.shape
     (Gs, ws), (Gg, wg) = g_sem_cat.shape, g_geo_cat.shape
     t_pad = Gs // gpt_s
     if (not _gpt_ok(gpt_s) or not _gpt_ok(gpt_g) or Gs != t_pad * gpt_s
             or Gg != t_pad * gpt_g or Gs % 32 or Gg % 32 or ws % 16 or wg % 16
-            or ws > cat_d or wg > cat_d or cat_d % 8):
+            or ws > cat_d or wg > cat_d or cat_d % 8 or _stats_smem(max(ws, wg)) > _SM90_MAX_SMEM):
         raise ValueError(
             f"hier_scan_stats kernel: unsupported shapes q "
             f"{tuple(q_cat.shape)}, g_sem {tuple(g_sem_cat.shape)}, g_geo "
@@ -1203,9 +1530,6 @@ def _hier_scan_stats_call(q_cat, g_sem_cat, g_geo_cat, *, gpt_s: int,
         _launch("hier_scan_stats", "hier_scan_stats_launch",
                 *[t.data_ptr() for t in ops + stats], Bp, cat_d, ws, wg, Gs,
                 Gg, gpt_s, gpt_g, t_pad, _stream(q_cat))
-        _hier_scan_stats_call.launches += 1
-        if form:  # deep
-            _hier_scan_stats_call.deep_launches += 1
     return tuple(stats)
 
 
@@ -1217,7 +1541,7 @@ def _stats_smem(wk: int) -> int:
 
 
 _hier_scan_stats_call.launches = 0
-_hier_scan_stats_call.f32_launches = 0
+_hier_scan_stats_call.tf32_launches = 0
 _hier_scan_stats_call.deep_launches = 0
 
 
@@ -1247,7 +1571,10 @@ def _scan_cores(form: str, q_cat, g_sem_cat, g_geo_cat, g_sem_vw, g_geo_vw, *,
                 gpt_s: int, gpt_g: int, has_geo: bool = True, sup_r: int = 0):
     """The two scans on the CUDA-core body, a group pass a family: (m_s,
     s_s, m_g, s_g), and without ``g_sem_vw`` (the stats scan) nothing more,
-    else the tails [Bp, Ws (+ Wg)] too; counted in the scan's counters."""
+    else the tails [Bp, Ws (+ Wg)] too; counted nowhere.  ``form``
+    ("f32" or "deep") is the caller's: the scan's deep form serves here
+    (`_hier_scan_call`), the f32 forms and the stats scan are
+    chip_smoke.py's same-run yardsticks of `csrc/hier_scan_tf32_sm90.cu`."""
     ops = dict(q_cat=q_cat, g_sem_cat=g_sem_cat, g_sem_vw=g_sem_vw)
     if has_geo:
         ops.update(g_geo_cat=g_geo_cat, g_geo_vw=g_geo_vw)
@@ -1272,8 +1599,6 @@ def _scan_cores(form: str, q_cat, g_sem_cat, g_geo_cat, g_sem_vw, g_geo_vw, *,
         _cores_groups(q_cat, g, wk=g.shape[1], gpt=gpt, n_tiles=t_pad, qc0=qc0,
                       stats=stats[2 * f:2 * f + 2], vw=vw, sup=sup, nvc=W, out=out, oc0=oc0,
                       n_seg=_cores_segments(Bp, -(-W // CORES_NC) if tails else 1, t_pad))
-    fn = _hier_scan_call if tails else _hier_scan_stats_call
-    _count_cores(fn, form)
     return tuple(stats) + ((out,) if tails else ())
 
 
@@ -1356,16 +1681,19 @@ def _hier_scan_call(q_cat, g_sem_cat, g_geo_cat, g_sem_vw, g_geo_vw, *,
     full-width group value sums, Dv + 128) also count in
     ``.wide_launches``.
 
-    CPU tensors: `_hier_scan_plain`.  CUDA tensors: the Hopper kernel
-    `csrc/hier_scan_sm90.cu` over `_scan_plan`'s segments, which replaces
-    `_hier_scan_kernel` (`range_tpu/ops/retrieval_hier.py:1443`), on bf16
-    operands of at most 256 logit columns; f32 operands (the `exact` tier)
-    and deeper logits (`high`) on the CUDA-core body `csrc/hier_cores.cu`
-    (`_cores_form`), counted in ``.f32_launches`` / ``.deep_launches`` and
-    not in the Hopper body's ``.sup_launches`` / ``.wide_launches``.  A
-    shape the kernel does not take or a failed launch raises.
-    The TPU tiling knobs (bm, tc) have no counterpart: they only set
-    speed."""
+    CPU tensors: `_hier_scan_plain`.  CUDA tensors, each replacing
+    `_hier_scan_kernel` (`range_tpu/ops/retrieval_hier.py:1443`): bf16
+    operands of at most 256 logit columns on the Hopper kernel
+    `csrc/hier_scan_sm90.cu` over `_scan_plan`'s segments; an f32 operand
+    (the `exact` tier: `_cores_form`'s "f32") on
+    `csrc/hier_scan_tf32_sm90.cu` (`_scan_tf32`: every f32 product three
+    TF32 products, logits up to `SCAN_TF32_COLS` columns, the tail on
+    `csrc/hier_values_tf32_sm90.cu`'s value pass), counted in
+    ``.tf32_launches``; deeper bf16 logits (`high`) on the CUDA-core body
+    `csrc/hier_cores.cu`, counted in ``.deep_launches``; neither in the
+    Hopper body's ``.sup_launches`` / ``.wide_launches``.  A shape the
+    kernel does not take or a failed launch raises.  The TPU tiling knobs
+    (bm, tc) have no counterpart: they only set speed."""
     if q_cat.device.type == "cpu":
         return _hier_scan_plain(q_cat, g_sem_cat, g_geo_cat, g_sem_vw,
                                 g_geo_vw, gpt_s=gpt_s, gpt_g=gpt_g,
@@ -1374,8 +1702,11 @@ def _hier_scan_call(q_cat, g_sem_cat, g_geo_cat, g_sem_vw, g_geo_vw, *,
     form = _cores_form(max(g_sem_cat.shape[1], g_geo_cat.shape[1] if has_geo else 0),
                        q_cat, g_sem_cat, g_sem_vw, *geo_ops)
     if form:
-        out = _scan_cores(form, q_cat, g_sem_cat, g_geo_cat, g_sem_vw, g_geo_vw,
-                          gpt_s=gpt_s, gpt_g=gpt_g, has_geo=has_geo, sup_r=sup_r)
+        body = _scan_tf32 if form == "f32" else functools.partial(_scan_cores, form)
+        out = body(q_cat, g_sem_cat, g_geo_cat, g_sem_vw, g_geo_vw, gpt_s=gpt_s,
+                   gpt_g=gpt_g, has_geo=has_geo, sup_r=sup_r)
+        if q_cat.shape[0]:
+            _count_cores(_hier_scan_call, "tf32" if form == "f32" else form)
         return out if has_geo else out[:2] + (None, None, out[2])
     stats, tails = _launch_scan_sm90(q_cat, g_sem_cat, g_geo_cat, g_sem_vw,
                                      g_geo_vw, gpt_s=gpt_s, gpt_g=gpt_g,
@@ -1394,7 +1725,7 @@ def _hier_scan_call(q_cat, g_sem_cat, g_geo_cat, g_sem_vw, g_geo_vw, *,
 _hier_scan_call.launches = 0
 _hier_scan_call.sup_launches = 0
 _hier_scan_call.wide_launches = 0
-_hier_scan_call.f32_launches = 0
+_hier_scan_call.tf32_launches = 0
 _hier_scan_call.deep_launches = 0
 
 
@@ -2598,29 +2929,40 @@ def _tf32_rows_image(x, *, spt: int, ZS: int, bn: int):
     tiles of a product over the rows, once per bank: [T, spt, 2, ZS, 2, 128,
     32] (x^T, each step's rows in two 32-row chunks, ZS slices of 128
     columns), zero past its columns and past a tile's bn rows."""
-    def build():
-        N, w = x.shape
-        T = N // bn
-        m = torch.zeros(T, spt * 64, 128 * ZS, dtype=torch.float32, device=x.device)
-        m[:, :bn, :w] = x.to(torch.float32).reshape(T, bn, w)
-        m = m.reshape(T, spt, 64, ZS, 128).permute(0, 1, 3, 4, 2)  # [T, spt, ZS, 128, 64]
-        return kmajor_tf32(m).transpose(2, 3).contiguous()
+    return prepared("tf32_rows", [x], lambda: _rows_image_f32(x, spt=spt, ZS=ZS, bn=bn),
+                    (bn, ZS))
 
-    return prepared("tf32_rows", [x], build, (bn, ZS))
+
+def _rows_image_f32(x, *, spt: int, ZS: int, bn: int):
+    """`_tf32_rows_image`'s layout, built (not cached)."""
+    N, w = x.shape
+    T = N // bn
+    m = torch.zeros(T, spt * 64, 128 * ZS, dtype=torch.float32, device=x.device)
+    m[:, :bn, :w] = x.to(torch.float32).reshape(T, bn, w)
+    m = m.reshape(T, spt, 64, ZS, 128).permute(0, 1, 3, 4, 2)  # [T, spt, ZS, 128, 64]
+    return kmajor_tf32(m).transpose(2, 3).contiguous()
 
 
 @torch.no_grad()
-def _tf32_group_images(g_cat, g_vw, *, gwe: int, GC: int, gpt: int, NG: int, nsb: int,
-                       NS: int):
-    """The centroids' and vw's split images, once per bank: [T, nsb, GC, 2,
-    NG, 32] and [T, nsb, NS, NG / 32, 2, 128, 32] (vw^T over NS slices of
-    128), zero past each tile's gpt groups and past gwe / vw's columns."""
+def _tf32_cents_image(g_cat, *, gwe: int, GC: int, gpt: int, NG: int, nsb: int):
+    """The centroids' split image, once per bank: [T, nsb, GC, 2, NG, 32],
+    zero past each tile's gpt groups and past gwe columns."""
     def cents():
         T = g_cat.shape[0] // gpt
         g = torch.zeros(T, nsb * NG, 32 * GC, dtype=torch.float32, device=g_cat.device)
         g[:, :gpt, :gwe] = g_cat[:, :gwe].to(torch.float32).reshape(T, gpt, gwe)
         return kmajor_tf32(g.reshape(T, nsb, NG, 32 * GC))
 
+    return prepared("tf32_cents", [g_cat], cents, (gwe, gpt, NG))
+
+
+@torch.no_grad()
+def _tf32_group_images(g_cat, g_vw, *, gwe: int, GC: int, gpt: int, NG: int, nsb: int,
+                       NS: int):
+    """The centroids' and vw's split images, once per bank: [T, nsb, GC, 2,
+    NG, 32] (`_tf32_cents_image`) and [T, nsb, NS, NG / 32, 2, 128, 32]
+    (vw^T over NS slices of 128), zero past each tile's gpt groups and past
+    gwe / vw's columns."""
     def vws():
         T = g_vw.shape[0] // gpt
         v = torch.zeros(T, nsb * NG, NS * 128, dtype=torch.float32, device=g_vw.device)
@@ -2629,7 +2971,7 @@ def _tf32_group_images(g_cat, g_vw, *, gwe: int, GC: int, gpt: int, NG: int, nsb
         v = v.reshape(T, nsb, NG, NS, 128).permute(0, 1, 3, 4, 2)  # [T, nsb, NS, 128, NG]
         return kmajor_tf32(v)
 
-    return (prepared("tf32_cents", [g_cat], cents, (gwe, gpt, NG)),
+    return (_tf32_cents_image(g_cat, gwe=gwe, GC=GC, gpt=gpt, NG=NG, nsb=nsb),
             prepared("tf32_vw", [g_vw], vws, (gpt, NG, NS)))
 
 
@@ -2876,15 +3218,18 @@ def _values_bf16_image(x, *, spt: int, VS: int, bn: int):
     tiles, once per bank: [T, spt, VS, 2, 64, 64] bf16, each 64-row step's
     rows of each 128-column slice as two MN-major 64-column boxes in the
     128-byte swizzle, zero past Dv and past a tile's bn rows."""
-    def build():
-        N, Dv = x.shape
-        T = N // bn
-        m = torch.zeros(T, spt * 64, 128 * VS, dtype=torch.bfloat16, device=x.device)
-        m[:, :bn, :Dv] = x.to(torch.bfloat16).reshape(T, bn, Dv)
-        m = m.reshape(T, spt, 64, 2 * VS, 64).permute(0, 1, 3, 2, 4)
-        return swizzle128(m.contiguous()).reshape(T, spt, VS, 2, 64, 64)
+    return prepared("values_bf16", [x], lambda: _rows_image_bf16(x, spt=spt, VS=VS, bn=bn),
+                    (bn, VS))
 
-    return prepared("values_bf16", [x], build, (bn, VS))
+
+def _rows_image_bf16(x, *, spt: int, VS: int, bn: int):
+    """`_values_bf16_image`'s layout, built (not cached)."""
+    N, Dv = x.shape
+    T = N // bn
+    m = torch.zeros(T, spt * 64, 128 * VS, dtype=torch.bfloat16, device=x.device)
+    m[:, :bn, :Dv] = x.to(torch.bfloat16).reshape(T, bn, Dv)
+    m = m.reshape(T, spt, 64, 2 * VS, 64).permute(0, 1, 3, 2, 4)
+    return swizzle128(m.contiguous()).reshape(T, spt, VS, 2, 64, 64)
 
 
 def _values_tf32_images(values, sh: ValuesTf32Shape, *, bn: int):

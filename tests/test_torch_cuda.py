@@ -574,7 +574,7 @@ def test_hier_kernels_match_plain(cuda, hier_bank):
 
 def test_hier_kernels_reject_f32_operands(cuda, hier_bank):
     """The Hopper scan takes bf16 operands only: f16 ones raise before any
-    launch, and f32 ones (the exact tier's) take the CUDA-core body."""
+    launch, and f32 ones (the exact tier's) take the TF32 x3 body."""
     from range_tpu_torch.ops import retrieval_hier as rh
 
     hb = hier_bank
@@ -587,11 +587,11 @@ def test_hier_kernels_reject_f32_operands(cuda, hier_bank):
         rh._launch_scan_sm90(q, hb.g_sem_cat, hb.g_geo_cat, hb.g_sem_vw_lr, hb.g_geo_vw_lr,
                              gpt_s=8, gpt_g=8)
     assert rh._hier_scan_call.launches == n0
-    f0 = rh._hier_scan_call.f32_launches
+    f0 = rh._hier_scan_call.tf32_launches
     rh._hier_scan_call(q, hb.g_sem_cat, hb.g_geo_cat, hb.g_sem_vw_lr, hb.g_geo_vw_lr,
                        gpt_s=8, gpt_g=8)
     torch.cuda.synchronize()
-    assert rh._hier_scan_call.f32_launches == f0 + 1
+    assert rh._hier_scan_call.tf32_launches == f0 + 1
 
 
 def test_flagship_main_path_launches_the_hier_kernels(cuda, hier_bank):
@@ -931,7 +931,7 @@ def test_klist_and_stats_kernels_reject_f32_operands(cuda, hier_bank):
 
     hb = hier_bank
     q = torch.zeros(128, 384, device=cuda)
-    with pytest.raises(ValueError, match="bfloat16"):  # f32 takes the CUDA-core body
+    with pytest.raises(ValueError, match="bfloat16"):  # f32 takes the TF32 x3 body
         rh._hier_scan_stats_call(q.half(), hb.g_topk_cat, hb.g_geo_cat, gpt_s=16, gpt_g=8)
     q2, ql = torch.zeros(128, 512, device=cuda), torch.zeros(128, 256, device=cuda)
     idx = torch.zeros(1, 4, dtype=torch.int32, device=cuda)
@@ -2471,7 +2471,7 @@ def test_parts_sm90_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="unsupported shapes"):
         rh._hier_parts_family_call(*args, **kw)
     args, lrr = _rr_operands(cuda, Bp=128, bm=128, bn=512, gpt=32, K=4, T=8)
-    with pytest.raises(ValueError, match="bfloat16"):  # f32 takes the CUDA-core body
+    with pytest.raises(ValueError, match="bfloat16"):  # f32 takes the TF32 x3 body
         rh._hier_parts_family_call(args[0].half(), *args[1:], sem_d=256, bm=128, bn=512,
                                    gpt=32, geo=False, lrr=lrr)
     with pytest.raises(ValueError, match="bfloat16"):
@@ -3221,13 +3221,14 @@ def _tier_queries(hb, cuda, B=700, bm=128, seed=5):
 
 @pytest.mark.parametrize("tier,value_dtype", TIERS, ids=TIER_IDS)
 def test_cores_forms_match_plain(cuda, tier, value_dtype):
-    """Every wrapper of kernels 8, 9, 12 and 13 on a bank of the exact tier
-    (f32 operands) launches the CUDA-core body, once (`.f32_launches`),
-    while kernels 14 and 15 launch their TF32 x3 bodies (`.tf32_launches`:
-    the rr shapes `csrc/hier_rr_tf32_sm90.cu`, the value
-    shapes and kernel 15 `csrc/hier_values_tf32_sm90.cu`); so do those of
-    8, 9, 12 and 13 on a
-    bank of the high tier (768 logit columns, `.deep_launches`), while
+    """Every wrapper of kernels 12 and 13 on a bank of the exact tier (f32
+    operands) launches the CUDA-core body, once (`.f32_launches`), while
+    kernels 8, 9, 14 and 15 launch their TF32 x3 bodies (`.tf32_launches`:
+    both scans `csrc/hier_scan_tf32_sm90.cu`, the rr shapes
+    `csrc/hier_rr_tf32_sm90.cu`, the value shapes and kernel 15
+    `csrc/hier_values_tf32_sm90.cu`); so do those of 8, 12 and 13 on a
+    bank of the high tier (768 logit columns, `.deep_launches`; kernel 9
+    there on the scans' TF32 x3 body, one product a term), while
     kernels 14 and 15 there launch their Hopper bodies' deep chains
     (`.launches`, no TF32 x3 launch), except, on a high bank built with
     f32 values, kernel 15 and kernel 14's value shapes: the TF32 x3 body
@@ -3250,10 +3251,11 @@ def test_cores_forms_match_plain(cuda, tier, value_dtype):
 
     def run(fn, *args, **kw):
         parts = fn in (rh._hier_parts_family_call, rh._hier_parts_call)
+        scans = fn in (rh._hier_scan_call, rh._hier_scan_stats_call)
         rr = fn is rh._hier_parts_family_call and args[6] is not None
-        # kernels 14 and 15 at f32 operands: their TF32 x3 bodies (f32
+        # kernels 8, 9, 14 and 15 at f32 operands: their TF32 x3 bodies (f32
         # values alone: kernel 15 and 14's value shapes)
-        tf32 = parts and (form == "f32" or (f32v and not rr))
+        tf32 = (parts and (form == "f32" or (f32v and not rr))) or (scans and form == "f32")
         hopper = form == "deep" and parts and not tf32
         n0 = (fn.launches, fn.tf32_launches if hopper or tf32 else getattr(fn, f"{form}_launches"))
         out = fn(*args, **kw)
@@ -3337,12 +3339,12 @@ def test_cores_forms_match_plain(cuda, tier, value_dtype):
 def test_tiers_serve_through_load_model(cuda, tier):
     """`load_model(retrieval="hier", tier=...)` on the card: the flagship
     RANGE+ (one scan, two parts and one combine launch; at exact the scan
-    and the combine on their f32 bodies and the parts on kernel 14's TF32 x3
-    body; at high the parts launches on their Hopper bodies), RANGE (the
-    stats scan of its home-tile sort, the scan and the merged parts kernel,
-    at exact on its TF32 x3 body) and hier_topk (the stats scan on the CUDA-core
-    body, the argmax on its Hopper body), each within the small bank's
-    order of the exact f32 answer."""
+    and the parts on their TF32 x3 bodies and the combine on its f32 body;
+    at high the parts launches on their Hopper bodies), RANGE (the stats
+    scan of its home-tile sort, the scan and the merged parts kernel, at
+    exact each on its TF32 x3 body) and hier_topk (the stats scan on the
+    scans' TF32 x3 body, the argmax on its Hopper body), each within the
+    small bank's order of the exact f32 answer."""
     from range_tpu_torch.ops import retrieval_hier as rh
 
     hb = _tier_bank(cuda, tier, None)
@@ -3350,11 +3352,10 @@ def test_tiers_serve_through_load_model(cuda, tier):
     coords = _coords(3000, seed=6, device=cuda)
     wrappers = (rh._hier_scan_call, rh._hier_parts_family_call, rh._hier_parts_call,
                 rh._hier_scan_stats_call)
-    # the parts kernels at high: their Hopper bodies' deep chains; kernel
-    # 14's rr shapes at exact: their TF32 x3 body
+    # the parts kernels at high: their Hopper bodies' deep chains; every
+    # wrapper at exact: its TF32 x3 body
     hopper = (rh._hier_parts_family_call, rh._hier_parts_call) if form == "deep" else ()
-    attr = ({rh._hier_parts_family_call: "tf32_launches", rh._hier_parts_call: "tf32_launches"}
-            if form == "f32" else {})
+    attr = dict.fromkeys(wrappers, "tf32_launches") if form == "f32" else {}
     counts = lambda: [w.launches if w in hopper else  # noqa: E731
                       getattr(w, attr.get(w, f"{form}_launches")) for w in wrappers]
     for name, want in (("RANGE+", [1, 2, 0, 0]), ("RANGE", [1, 0, 1, 1])):
@@ -3628,30 +3629,182 @@ def test_values_tf32_bf16_logits_f32_values(cuda, form):
     _hold_tier(form, got, plain(*args, **kw), plain(*args, **kw, magnitude=True), False)
 
 
-def test_high_tier_f32_values_serve(cuda):
+def test_high_tier_f32_values_serve(cuda, monkeypatch):
     """`load_model` over a `high` bank with f32 values: RANGE+ (kernel 14's
     rr shapes read no values: their Hopper body, no TF32 x3 launch) and
     RANGE (kernel 15 on the TF32 x3 body), each within the small bank's
-    order of the exact f32 answer."""
+    order of the exact f32 answer; every stats scan of the requests (768
+    bf16 columns: RANGE's home-tile sort) on the scans' TF32 x3 body, a deep
+    launch, `csrc/hier_scan_stats.cu` never loaded."""
+    from range_tpu_torch.kernels import _build
     from range_tpu_torch.ops import retrieval_hier as rh
 
+    loaded = []
+    real = _build.load_kernel_library
+
+    def spy(name):
+        loaded.append(name)
+        return real(name)
+
+    monkeypatch.setattr(_build, "load_kernel_library", spy)
     hb = _tier_bank(cuda, "high", torch.float32)
     coords = _coords(3000, seed=6, device=cuda)
-    fam, merged = rh._hier_parts_family_call, rh._hier_parts_call
+    fam, merged, st = rh._hier_parts_family_call, rh._hier_parts_call, rh._hier_scan_stats_call
     for name, want in (("RANGE+", (2, 0, 0, 0)), ("RANGE", (0, 0, 1, 1))):
         enc = load_model(name, db_path=hb, profile="flagship", hier_bn=128, gsz_geo=16,
                          tier="high")
         n0 = (fam.launches, fam.tf32_launches, merged.launches, merged.tf32_launches)
+        s0 = (st.launches, st.deep_launches)
         out = enc(coords)
         torch.cuda.synchronize()
         n1 = (fam.launches, fam.tf32_launches, merged.launches, merged.tf32_launches)
         assert tuple(a - b for a, b in zip(n1, n0)) == want, name
+        assert st.launches - s0[0] == st.deep_launches - s0[1] == int(name == "RANGE"), name
         assert out.shape == (3000, 1280) and torch.isfinite(out).all()
         ref = (retrieval.retrieve(out[:, 1024:], lonlat_deg_to_xyz(coords), hb.bank)
                if name == "RANGE+" else
                retrieval.retrieve(out[:, 1024:], None, hb.bank, sem_temp=15.0, mode="range"))
         rel = (out[:, :1024] - ref).abs() / ref.abs().clamp_min(0.1)
         assert rel.mean() < 0.1, (name, rel.mean().item())
+    assert "hier_scan_stats" not in loaded and "hier_scan_tf32_sm90" in loaded
+
+
+SCAN_TF32_FORMS = ["flagship", "range", "wide", "tail_super", "stats_f32", "stats_fast",
+                   "stats_deep"]
+
+
+def _scan_tf32_case(cuda, form, B=700):
+    """(the wrapper, args, kw) of one form of the scans' TF32 x3 body on the
+    card tests' banks: the scan at `exact` (both families with lr tails,
+    the sem family alone, the full-width tails, a tail_super bank's
+    supergroup tail at sup_r 2) and the stats scan over g_topk_cat at
+    `exact` (f32), `fast` (bf16) and `high` (768 bf16 columns)."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    tier = {"stats_fast": "fast", "stats_deep": "high"}.get(form, "exact")
+    hb = _tier_bank(cuda, tier, None, **({"tail_super": 32} if form == "tail_super" else {}))
+    q_cat = _tier_queries(hb, cuda, B=B)
+    gpt_s, gpt_g = hb.bn // hb.gsz_sem, hb.bn // hb.gsz_geo
+    if form.startswith("stats"):
+        return (rh._hier_scan_stats_call, (q_cat, hb.g_topk_cat, hb.g_geo_cat, None, None),
+                dict(gpt_s=hb.bn // hb.topk_gsz, gpt_g=gpt_g))
+    vs = {"wide": hb.g_sem_vw, "tail_super": hb.g_sem_ts_vw}.get(form, hb.g_sem_vw_lr)
+    vg = hb.g_geo_vw if form == "wide" else hb.g_geo_vw_lr
+    kw = dict(gpt_s=gpt_s, gpt_g=gpt_g, has_geo=form != "range",
+              sup_r=32 // hb.gsz_sem if form == "tail_super" else 0)
+    return rh._hier_scan_call, (q_cat, hb.g_sem_cat, hb.g_geo_cat, vs, vg), kw
+
+
+@pytest.mark.parametrize("form", SCAN_TF32_FORMS)
+def test_scan_tf32_matches_plain(cuda, form):
+    """`csrc/hier_scan_tf32_sm90.cu` (`_scan_tf32`) in each form at B = 37
+    and 700 (padded to whole blocks), against its plain version
+    (`_scan_tf32_plain`: the same images, chunks, steps, segments and sum
+    orders) and the one-pass plain version: m within 1e-4, s within 1e-4 of
+    s, the tails by `_hold_tier`'s f32 bar (1e-4 x the sum of the terms'
+    magnitudes + 1e-6; the tensor cores truncate inside a k8 step in an
+    order the plain version does not model, which moves l by up to ~1e-5
+    at |l| ~ 60)."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    for B in (37, 700):
+        _, args, kw = _scan_tf32_case(cuda, form, B)
+        got = rh._scan_tf32(*args, **kw)
+        mine = rh._scan_tf32_plain(*args, **kw)
+        torch.cuda.synchronize()
+        tails = args[3] is not None
+        n = len(got) - tails
+        one = (rh._hier_scan_plain(*args, **kw) if tails
+               else rh._hier_scan_stats_plain(*args[:3], **kw))
+        one = [r for r in one if r is not None]
+        for ref in (mine, one):
+            for i in range(n):
+                torch.testing.assert_close(got[i], ref[i], rtol=1e-4 if i % 2 else 0,
+                                           atol=0 if i % 2 else 1e-4)
+        if tails:
+            mag_args = (*args[:3], args[3].abs(), args[4].abs())
+            _hold_tier(f"scan {form} B={B} vs its plain", got[-1], mine[-1],
+                       rh._scan_tf32_plain(*mag_args, **kw)[-1], True)
+            _hold_tier(f"scan {form} B={B}", got[-1], one[-1],
+                       rh._hier_scan_plain(*mag_args, **kw)[-1], True)
+
+
+def _spy_libraries(monkeypatch):
+    """The kernel libraries loaded from here on (a list), the CUDA-core
+    passes refused."""
+    from range_tpu_torch.kernels import _build
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA-core pass was launched")
+
+    monkeypatch.setattr(rh, "_cores_rows", refuse)
+    monkeypatch.setattr(rh, "_cores_groups", refuse)
+    loaded = []
+    real = _build.load_kernel_library
+
+    def spy(name):
+        loaded.append(name)
+        return real(name)
+
+    monkeypatch.setattr(_build, "load_kernel_library", spy)
+    return loaded
+
+
+def test_scan_exact_never_launches_the_cores_body(cuda, monkeypatch):
+    """`csrc/hier_cores.cu`'s scan forms stay only as chip_smoke.py's
+    yardsticks at `exact`: every f32 launch of kernel 8 (both families, the
+    sem family alone, the full-width tails, the supergroup tail) and of
+    kernel 9 launches no CUDA-core pass and loads no other library than
+    `hier_scan_tf32_sm90` and, for the scan's tail, `hier_values_tf32_sm90`
+    (its value pass); each counts once in `.launches` and `.tf32_launches`;
+    logits over 1,536 columns (past SCAN_TF32_COLS, and past what the
+    CUDA-core block held) raise before any launch."""
+    forms = [f for f in SCAN_TF32_FORMS if f not in ("stats_fast", "stats_deep")]
+    cases = [_scan_tf32_case(cuda, f, 256) for f in forms]
+    loaded = _spy_libraries(monkeypatch)
+    for form, (fn, args, kw) in zip(forms, cases):
+        n0 = (fn.launches, fn.tf32_launches)
+        fn(*args[:3], **kw) if args[3] is None else fn(*args, **kw)
+        torch.cuda.synchronize()
+        assert (fn.launches, fn.tf32_launches) == (n0[0] + 1, n0[1] + 1), form
+    assert set(loaded) == {"hier_scan_tf32_sm90", "hier_values_tf32_sm90"}
+    fn, args, kw = cases[0]
+    deep = (torch.cat([args[0]] * 7, 1), torch.cat([args[1]] * 7, 1), *args[2:])
+    n0 = (fn.launches, fn.tf32_launches)
+    with pytest.raises(ValueError, match="unsupported shapes"):
+        fn(*deep, **kw)
+    assert (fn.launches, fn.tf32_launches) == n0
+
+
+def test_stats_scan_never_launches_the_old_bodies(cuda, monkeypatch):
+    """Kernel 9 in every form on the scans' TF32 x3 body: hier_topk over
+    the `fast` bank (bf16, 256 columns: `.launches` only), the stats scan
+    at `high` (768 bf16 columns: `.deep_launches`) and at `exact` (f32:
+    `.tf32_launches`) load neither `csrc/hier_scan_stats.cu` nor the
+    CUDA-core body."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    st = rh._hier_scan_stats_call
+    hb = _tier_bank(cuda, "fast", None)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q = torch.nn.functional.normalize(torch.randn(1000, 256, generator=g, device=cuda), dim=1)
+    x = lonlat_deg_to_xyz(_coords(1000, seed=2, device=cuda))
+    cases = {f: _scan_tf32_case(cuda, f, 256) for f in ("stats_deep", "stats_f32")}
+    loaded = _spy_libraries(monkeypatch)
+    n0 = (st.launches, st.tf32_launches, st.deep_launches)
+    rh.hier_topk(q, x, hb, k_tiles=16)
+    torch.cuda.synchronize()
+    assert (st.launches, st.tf32_launches, st.deep_launches) == (n0[0] + 1, n0[1], n0[2])
+    for form, want in (("stats_deep", (1, 0, 1)), ("stats_f32", (1, 1, 0))):
+        fn, args, kw = cases[form]
+        n0 = (st.launches, st.tf32_launches, st.deep_launches)
+        fn(*args[:3], **kw)
+        torch.cuda.synchronize()
+        assert tuple(a - b for a, b in zip((st.launches, st.tf32_launches, st.deep_launches),
+                                           n0)) == want, form
+    assert "hier_scan_tf32_sm90" in loaded
+    assert not {"hier_scan_stats", "hier_cores"} & set(loaded)
 
 
 def test_values_exact_never_launches_the_cores_body(cuda, monkeypatch):
@@ -3769,11 +3922,11 @@ def test_tier_knobs_serve(cuda, tier):
     coords = torch.stack([(ll[:, 0] + 180) % 360 - 180, ll[:, 1].clamp(-89.9, 89.9)], 1)
     q = enc.model.query_embedding(coords).float()
     st = rh._hier_scan_stats_call
-    n0 = (st.launches, st.f32_launches, st.deep_launches)
+    n0 = (st.launches, st.tf32_launches, st.deep_launches)
     rows = rh.hier_topk(q, lonlat_deg_to_xyz(coords), hb, k_tiles=16)
     torch.cuda.synchronize()
-    # the sketch's 64 bf16 columns at high are a shape of the stats kernel's own
-    assert (st.launches, st.f32_launches, st.deep_launches) == (
+    # the sketch's 64 bf16 columns at high: no deep launch
+    assert (st.launches, st.tf32_launches, st.deep_launches) == (
         n0[0] + 1, n0[1] + int(tier == "exact"), n0[2])
     true = retrieval.exact_nn(q, hb.bank)
     full = dataclasses.replace(hb, topk_lr=0, g_topk_lr=None, p_topk=None)
@@ -3785,11 +3938,11 @@ def test_tier_knobs_serve(cuda, tier):
 def test_cores_walks_every_grouping(cuda, bn, gsz_sem, gsz_geo):
     """Groupings whose groups or entries are no whole unit of 8 columns take
     the CUDA-core body's walk of one thread a query: 12-row groups and 15
-    groups a tile (the stats, the weights); the scan and kernel 15 lr at
-    the exact tier (f32 values), and kernel 14's rr + lr shape on both
-    families on its TF32 x3 body (the segment sums walk a step's rows, 15
-    groups pad to a block of 32), hold their plain versions as in
-    test_cores_forms_match_plain."""
+    groups a tile; the scan at the exact tier on its TF32 x3 body (steps of
+    32 groups holding pieces of several tiles), kernel 15 lr (f32 values),
+    and kernel 14's rr + lr shape on both families on its TF32 x3 body (the
+    segment sums walk a step's rows, 15 groups pad to a block of 32), hold
+    their plain versions as in test_cores_forms_match_plain."""
     from range_tpu_torch.ops import retrieval_fused as rf
     from range_tpu_torch.ops import retrieval_hier as rh
 
@@ -3798,13 +3951,13 @@ def test_cores_walks_every_grouping(cuda, bn, gsz_sem, gsz_geo):
     q_cat = _tier_queries(hb, cuda)
     gpt_s, gpt_g = bn // gsz_sem, bn // gsz_geo
     sa = (q_cat, hb.g_sem_cat, hb.g_geo_cat, hb.g_sem_vw_lr, hb.g_geo_vw_lr)
-    n0 = rh._hier_scan_call.f32_launches
+    n0 = rh._hier_scan_call.tf32_launches
     got = rh._hier_scan_call(*sa, gpt_s=gpt_s, gpt_g=gpt_g)
     ref = rh._hier_scan_plain(*sa, gpt_s=gpt_s, gpt_g=gpt_g)
     mag = rh._hier_scan_plain(q_cat, hb.g_sem_cat, hb.g_geo_cat, hb.g_sem_vw_lr.abs(),
                               hb.g_geo_vw_lr.abs(), gpt_s=gpt_s, gpt_g=gpt_g)[4]
     torch.cuda.synchronize()
-    assert rh._hier_scan_call.f32_launches == n0 + 1
+    assert rh._hier_scan_call.tf32_launches == n0 + 1
     for i in range(4):
         torch.testing.assert_close(got[i], ref[i], rtol=1e-4, atol=1e-4)
     _hold_tier("scan", got[4], ref[4], mag, True)
