@@ -192,7 +192,8 @@ SOURCES = ("siren_tower_sm90", "siren_tower", "fused_retrieval_sm90", "fused_ret
            "hier_scan_sm90", "hier_parts_family_sm90", "hier_parts_family", "combine_cat_sm90",
            "combine_cat", "hier_scan_stats", "hier_argmax_sm90", "hier_argmax",
            "hier_parts_sm90", "hier_parts", "sh_times", "hier_refine", "hier_corr", "hier_cores",
-           "hier_rr_tf32_sm90", "hier_values_tf32_sm90", "hier_scan_tf32_sm90")
+           "hier_rr_tf32_sm90", "hier_values_tf32_sm90", "hier_scan_tf32_sm90",
+           "hier_refine_sm90", "fused_retrieval_tf32_sm90")
 # sources whose ptxas log must show no spill and no serialized wgmma
 # (C7512: too few registers; C7514: issued in a loop or under a condition;
 # C7520: divergent code between issue and wait): every kernel of a source
@@ -204,7 +205,8 @@ SOURCES = ("siren_tower_sm90", "siren_tower", "fused_retrieval_sm90", "fused_ret
 # which spills 4 / 20 bytes at 128 registers a thread (512 threads; the
 # units path and the deep walk in one kernel: ROADMAP Queue 2, item 10 (d))
 PTXAS_CLEAN = ("hier_argmax_sm90", "siren_tower_sm90", "combine_cat_sm90", "hier_rr_tf32_sm90",
-               "hier_values_tf32_sm90", "hier_scan_tf32_sm90")
+               "hier_values_tf32_sm90", "hier_scan_tf32_sm90", "hier_refine_sm90",
+               "fused_retrieval_tf32_sm90")
 PTXAS_CLEAN_KERNELS = {"hier_parts_sm90": r"hier_parts_sm90_kernelIL[^E]*ELb1E",
                        "hier_parts_family_sm90":
                        r"hier_parts_family_sm90_kernelIL(i[02]ELb[01]E|i1ELb0E)"}
@@ -215,8 +217,13 @@ KERNELS = (("siren_tower", "siren_tower_sm90", "range_tpu/ops/sh.py:726"),
            # the tower's bf16 mode (the flagship's) on its Hopper body
            ("siren_tower_bf16", "siren_tower_sm90", "range_tpu/ops/sh.py:726"),
            ("fused_retrieval", "fused_retrieval_sm90", "range_tpu/ops/retrieval_pallas.py:123"),
-           # kernel 2's 'exact' tier (f32 logits) on the mma.sync body
-           ("fused_retrieval_exact", "fused_retrieval", "range_tpu/ops/retrieval_pallas.py:123"),
+           # kernel 2's 'exact' tier (f32 logits) on its Hopper body, three TF32
+           # products a logit term
+           ("fused_retrieval_exact", "fused_retrieval_tf32_sm90",
+            "range_tpu/ops/retrieval_pallas.py:123"),
+           # kernels 3 and 5 at 'exact' (f32 queries) on the mma.sync body
+           ("fused_retrieval_i8_exact", "fused_retrieval", "range_tpu/ops/retrieval_pallas.py:181"),
+           ("fused_parts_exact", "fused_retrieval", "range_tpu/ops/retrieval_pallas.py:314"),
            ("fused_retrieval_i8", "fused_retrieval_sm90", "range_tpu/ops/retrieval_pallas.py:181"),
            ("hier_scan", "hier_scan_sm90", "range_tpu/ops/retrieval_hier.py:1443"),
            ("hier_parts_family", "hier_parts_family_sm90", "range_tpu/ops/retrieval_hier.py:2282"),
@@ -230,7 +237,7 @@ KERNELS = (("siren_tower", "siren_tower_sm90", "range_tpu/ops/sh.py:726"),
            ("hier_topk", "hier_argmax_sm90", "range_tpu/ops/retrieval_hier.py:1682"),
            ("hier_parts", "hier_parts_sm90", "range_tpu/ops/retrieval_hier.py:2515"),
            ("sh_times", "sh_times", "range_tpu/ops/sh.py:539"),
-           ("hier_refine", "hier_refine", "range_tpu/ops/retrieval_hier.py:2077"),
+           ("hier_refine", "hier_refine_sm90", "range_tpu/ops/retrieval_hier.py:2077"),
            ("hier_corr", "hier_corr", "range_tpu/ops/retrieval_hier.py:2209"),
            # the scan's segment-sum (sup_r_s) variant, `:1489-1497` of the kernel
            ("hier_scan_sup", "hier_scan_sm90", "range_tpu/ops/retrieval_hier.py:1443"),
@@ -254,9 +261,10 @@ KERNELS = (("siren_tower", "siren_tower_sm90", "range_tpu/ops/sh.py:726"),
            ("family_pruned", "fused_retrieval", "range_tpu/ops/retrieval_pallas.py:441"),
            ("family_pruned_i8", "fused_retrieval", "range_tpu/ops/retrieval_pallas.py:441"),
            ("fused_hybrid", "fused_retrieval", "range_tpu/ops/retrieval_pallas.py:660"),
-           # the refine kernel's has_parts form (the two-level feature path),
-           # kernel 14's sel and dedup_pad forms in their two sources
-           ("hier_refine_parts", "hier_refine", "range_tpu/ops/retrieval_hier.py:2077"),
+           # the refine kernel's has_parts form (the two-level feature path) on
+           # its Hopper body, kernel 14's sel and dedup_pad forms in their two
+           # sources
+           ("hier_refine_parts", "hier_refine_sm90", "range_tpu/ops/retrieval_hier.py:2077"),
            ("hier_parts_family_sel_rr", "hier_parts_family_sm90",
             "range_tpu/ops/retrieval_hier.py:2282"),
            ("hier_parts_family_sel", "hier_parts_sm90", "range_tpu/ops/retrieval_hier.py:2282"),
@@ -277,13 +285,15 @@ CORES_ROWS = (("hier_scan", "range_tpu/ops/retrieval_hier.py:1443"),
 # one TF32 product a term, past its resident query chunks from L2), kernels
 # 14 and 15's on their Hopper bodies' deep chains (passes of 256 columns)
 DEEP_SOURCES = {"hier_scan_stats": "hier_scan_tf32_sm90",
-                "hier_parts_family": "hier_parts_family_sm90", "hier_parts": "hier_parts_sm90"}
+                "hier_parts_family": "hier_parts_family_sm90", "hier_parts": "hier_parts_sm90",
+                "hier_refine": "hier_refine_sm90"}
 # kernels 8, 9, 14 and 15 at the exact tier on their TF32 x3 bodies
 # (`.tf32_launches`): the scans on one body, 14's rr shapes (the paths' f32
 # form of it) and, a row of their own (`.values_tf32_launches`), its value
 # shapes beside kernel 15
 F32_SOURCES = {"hier_scan": "hier_scan_tf32_sm90", "hier_scan_stats": "hier_scan_tf32_sm90",
-               "hier_parts_family": "hier_rr_tf32_sm90", "hier_parts": "hier_values_tf32_sm90"}
+               "hier_parts_family": "hier_rr_tf32_sm90", "hier_parts": "hier_values_tf32_sm90",
+               "hier_refine": "hier_refine_sm90"}
 KERNELS += tuple((f"{k}_{form}", DEEP_SOURCES.get(k, "hier_cores") if form == "deep"
                   else F32_SOURCES.get(k, "hier_cores"), rep)
                  for k, rep in CORES_ROWS for form, _ in CORES_FORMS)
@@ -1183,6 +1193,189 @@ def _combine_turns(tag: str, c_args, ck: dict, b: int, calls: int = 10) -> dict:
     return dict(new=(e_new, r_new, t["sm90"], bt, bt_by), old=(e_old, r_old, t["f32"], bf, bf_by))
 
 
+def _dense_exact_turns(bank, q, q_xyz, mask, flip_atol, why, report) -> None:
+    """Kernel 2 at `exact` (f32 packed operands, bf16 values) on its Hopper
+    body `csrc/fused_retrieval_tf32_sm90.cu` at B = 1, 37, 1,000 and 10,000
+    (RANGE+; RANGE at 1,000 and 10,000), each batch its own request: held
+    against the one-pass plain version (`_retrieve_fused_plain`, TF32 off)
+    under the dense bars (max |v| / 128; rows off by more than 1e-4 at most
+    max(2, B / 100)) and at B <= 37 against its plain version
+    (`_fused_tf32_plain`), the mma.sync body's f32 form too; timed in turns
+    beside it (`_launch_fused`, which only this yardstick launches); the
+    bound at the TF32 x3 rate (the logits three products a term, the value
+    products at the bf16 rate) and at the f32 rate (row 2e's old rule).
+    Writes row `fused_retrieval_exact` (RANGE+ at B = 10,000)."""
+    from range_tpu_torch.ops import retrieval_fused as rf
+
+    k_cat = rf.pack_bank(bank.keys_sem, bank.xyz, "exact")
+    sem_d = rf.packed_dims(bank.key_dim, "exact")[0]
+    n, Dv = bank.n_valid, bank.value_dim
+    for mode in ("range+", "range"):
+        beta, temp = (0.5, 12.0) if mode == "range+" else (1.0, 15.0)
+        for b in REQUESTS if mode == "range+" else (SMALL_BATCH, BATCH):
+            q_cat = rf.pack_queries(q[:b], q_xyz[:b] if mode == "range+" else None, temp, 40.0,
+                                    "exact")
+            tag = f"fused_retrieval_exact[{mode}] B={b} N={bank.num_rows}"
+
+            def new():
+                return rf.retrieve_fused(q_cat, k_cat, bank.values, mask, beta, sem_d=sem_d)
+
+            def old():
+                return rf._launch_fused("fused_retrieval_launch", q_cat, k_cat, bank.values,
+                                        None, mask, beta, sem_d)
+
+            def plain():
+                return rf._retrieve_fused_plain(q_cat, k_cat, bank.values, mask, beta,
+                                                sem_d=sem_d)
+
+            ref, cap = plain(), max(2, b // 100)
+            if b == SMALL_BATCH:  # the drift of each value-chain length (TF32_SEG_ROWS_MAX)
+                for rows in (12_800, 6_400, 3_200, 1_600):
+                    plan = rf._tf32_plan(b, bank.num_rows, Dv, rows)
+                    err_c = (rf._launch_tf32(q_cat, k_cat, bank.values, mask, beta, sem_d, plan)
+                             - ref).abs()
+                    print(f"{tag}: chains of at most {rows} rows {plan}: max_abs_err "
+                          f"{err_c.max().item():.3e}, rows off by > 1e-4: "
+                          f"{int((err_c > 1e-4).any(1).sum())} (at most {cap}; the path's "
+                          f"chains: at most {rf.TF32_SEG_ROWS_MAX} rows)")
+            err, ratio = _compare(f"{tag} vs the one-pass plain version", new(), ref, flip_atol,
+                                  0.0, why, rows_off_max=cap)
+            if b <= 37:
+                _compare(f"{tag} vs its plain version", new(), rf._fused_tf32_plain(
+                    q_cat, k_cat, bank.values, mask, beta, sem_d=sem_d), flip_atol, 0.0, why,
+                    rows_off_max=cap)
+            _compare(f"{tag}, the mma.sync body, vs the one-pass plain version", old(), ref,
+                     flip_atol, 0.0, why, rows_off_max=cap)
+            t = _turns_ms((("old", old), ("new", new), ("new", new), ("old", old)),
+                          2 if b >= SMALL_BATCH else 10)
+            plain_ms = _cuda_ms(plain, 2)
+            f32_ops, pv = 2 * b * n * (sem_d + 3), 2 * 2 * b * n * Dv
+            n_bytes = (b * q_cat.shape[1] * 4 + n * (k_cat.shape[1] * 4 + Dv * 2 + 4)
+                       + b * Dv * 4)
+            bt = _bound(n_bytes, 3 * f32_ops, TF32_FLOPS, (pv, BF16_FLOPS))
+            bf = _bound(n_bytes, f32_ops + pv * F32_FLOPS / BF16_FLOPS, F32_FLOPS)
+            print(f"{tag}: Hopper body (TF32 x3) {t['new']:.4f} ms, mma.sync body {t['old']:.4f} "
+                  f"ms ({t['old'] / t['new']:.2f}x; CUDA events, in turns), plain {plain_ms:.3f} "
+                  f"ms; bound at the TF32 x3 rate {bt[0]:.4f} ms ({bt[1]}), shares "
+                  f"{bt[0] / t['new']:.4f} / {bt[0] / t['old']:.4f}; at the f32 rate "
+                  f"{bf[0]:.4f} ms ({bf[1]}), shares {bf[0] / t['new']:.4f} / "
+                  f"{bf[0] / t['old']:.4f}; plan {rf._tf32_plan(b, bank.num_rows, Dv)}")
+            if mode == "range+" and b == BATCH:
+                report["fused_retrieval_exact"] = dict(
+                    max_abs_err=err, err_over_tol=ratio, ms=t["new"], plain_ms=plain_ms,
+                    bound_ms=bt[0], bound_by=bt[1], launches=0)
+
+
+def _attention_yardstick(bank, q, mask, report) -> None:
+    """Kernel 2's RANGE form (beta = 1) is one attention: softmax(q k^T ln 2)
+    V over the bank's valid rows (the packed queries carry log2 e and the
+    temperature).  Times `torch.nn.functional.scaled_dot_product_attention`
+    at B = 10,000 on rows 2 and 2e's operands (bf16 `fast` semantic
+    columns; f32 `exact` ones, TF32 off) with the first backend of flash,
+    memory-efficient, cuDNN and math that takes them, beside the kernel's
+    RANGE request, prints the largest difference of the two answers, and
+    writes its ms as the rows' library_ms beside the kernel's RANGE time
+    (library_kernel_ms; the rows' ms are RANGE+ requests).  A yardstick only: no path calls
+    it."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from range_tpu_torch.ops import retrieval_fused as rf
+
+    n = bank.n_valid
+    for row, tier in (("fused_retrieval", "fast"), ("fused_retrieval_exact", "exact")):
+        q_cat = rf.pack_queries(q, None, 15.0, 40.0, tier)
+        k_cat = rf.pack_bank(bank.keys_sem, bank.xyz, tier)
+        sem_d = rf.packed_dims(bank.key_dim, tier)[0]
+        dt = torch.float32 if tier == "exact" else torch.bfloat16
+        qa, ka = q_cat[:, :sem_d].to(dt)[None, None], k_cat[:n, :sem_d].to(dt)[None, None]
+        va = bank.values[:n].to(dt)[None, None]
+
+        def kernel():
+            return rf.retrieve_fused(q_cat, k_cat, bank.values, mask, 1.0, sem_d=sem_d)
+
+        found = None
+        names = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION", "MATH")
+        for backend in [getattr(SDPBackend, n) for n in names if hasattr(SDPBackend, n)]:
+            try:
+                with sdpa_kernel([backend]):
+                    out = F.scaled_dot_product_attention(qa, ka, va, scale=math.log(2.0))
+                torch.cuda.synchronize()
+            except RuntimeError as e:
+                print(f"attention yardstick [{tier}]: {backend.name} does not take q "
+                      f"{tuple(qa.shape)} {dt}, v {tuple(va.shape)}: "
+                      f"{str(e).splitlines()[0][:120]}")
+                continue
+            found = backend
+            break
+        if found is None:
+            raise AssertionError(f"attention yardstick [{tier}]: no backend ran")
+
+        def attention():
+            with sdpa_kernel([found]):
+                return F.scaled_dot_product_attention(qa, ka, va, scale=math.log(2.0))
+
+        diff = (out[0, 0].float() - kernel()).abs().max().item()
+        lib_ms, k_ms = _cuda_ms(attention, 3), _cuda_ms(kernel, 3)
+        del out
+        torch.cuda.empty_cache()
+        print(f"attention yardstick [{tier}] B={q.shape[0]} over {n} rows: "
+              f"scaled_dot_product_attention ({found.name}) {lib_ms:.3f} ms, kernel 2's RANGE "
+              f"request {k_ms:.3f} ms ({lib_ms / k_ms:.2f}x); largest difference of the answers "
+              f"{diff:.3e}")
+        # the library call computes the RANGE form; the row's ms is RANGE+'s
+        report[row].update(library_ms=lib_ms, library_form="RANGE (beta = 1)",
+                           library_kernel_ms=k_ms)
+
+
+def _exact_int8_row(bank, q, q_xyz, mask, why, report) -> None:
+    """Kernel 3 at `exact` (f32 queries, int8 codes: `csrc/fused_retrieval.cu`)
+    through `load_model(value_quant="int8", tier="exact")` at B = 1,000,
+    its launch counted, and held against its plain version at B = 10,000
+    (the dense bars, the weight p times its row's scale) with its time, its
+    plain version's and the bound at the f32 rate (row 2e's old rule): row
+    `fused_retrieval_i8_exact`."""
+    from range_tpu_torch import load_model
+    from range_tpu_torch.bank import dequantize_values, quantize_values
+    from range_tpu_torch.ops import retrieval_fused as rf
+
+    enc8 = load_model("RANGE+", db_path=bank, value_quant="int8", tier="exact", device="cuda")
+    c = _random_coords(SMALL_BATCH, torch.Generator(device="cuda").manual_seed(9), "cuda")
+    out, got = _drive(f"dense RANGE+ int8 tier='exact' B={SMALL_BATCH}", lambda: _send(enc8, c),
+                      {"siren_tower": 1, "fused_retrieval_i8_exact": 1})
+    if out.shape != (SMALL_BATCH, 1280) or not torch.isfinite(out).all():
+        raise AssertionError("dense int8 tier='exact': shape or non-finite")
+    del enc8
+    bank8 = quantize_values(bank)
+    q_cat = rf.pack_queries(q, q_xyz, 12.0, 40.0, "exact")
+    k_cat = rf.pack_bank(bank.keys_sem, bank.xyz, "exact")
+    sem_d = rf.packed_dims(bank.key_dim, "exact")[0]
+
+    def kernel():
+        return rf.retrieve_fused_i8(q_cat, k_cat, bank8.values, bank8.value_scale, mask, 0.5,
+                                    sem_d=sem_d)
+
+    def plain():
+        return rf._retrieve_fused_plain(q_cat, k_cat, bank8.values, mask, 0.5,
+                                        bank8.value_scale, sem_d=sem_d)
+
+    tag = f"fused_retrieval_i8_exact B={BATCH} N={bank.num_rows}"
+    err, ratio = _compare(tag, kernel(), plain(),
+                          dequantize_values(bank8).abs().max().item() / 128, 0.0,
+                          why + " (the weight being p times its row's scale)",
+                          rows_off_max=max(2, BATCH // 100))
+    ms, plain_ms = _cuda_ms(kernel, 2), _cuda_ms(plain, 2)
+    n, Dv = bank.n_valid, bank.value_dim
+    b_ms, b_by = _bound(BATCH * q_cat.shape[1] * 4 + n * (k_cat.shape[1] * 4 + Dv + 4 + 4)
+                        + BATCH * Dv * 4, 2 * BATCH * n * (sem_d + 3)
+                        + 2 * 2 * BATCH * n * Dv * F32_FLOPS / BF16_FLOPS, F32_FLOPS)
+    print(f"{tag}: mma.sync body {ms:.3f} ms, plain {plain_ms:.3f} ms, bound at the f32 rate "
+          f"{b_ms:.4f} ms ({b_by}), share {b_ms / ms:.4f}")
+    report["fused_retrieval_i8_exact"] = dict(max_abs_err=err, err_over_tol=ratio, ms=ms,
+                                              plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                                              launches=got["fused_retrieval_i8_exact"])
+
+
 def _send(enc, c):
     # the B=37 request arrives as a numpy float64 array, as numpy callers
     # send coordinates; the entry point casts it to f32
@@ -1289,10 +1482,9 @@ def dense_phases(dev, gen, report) -> float:
                     "difference of a bf16 rounding boundary rounds the other way "
                     "(one ulp <= 2^-7 of one weight, times max |v|) in rare rows")
         # kernel 2: the Hopper kernel (bf16 tiers) at the dense path's shape,
-        # the high tier and RANGE at B=1,000, the small requests; the exact
-        # tier on the mma.sync body
-        for tier, mode, b in (("fast", "range+", BATCH), ("exact", "range+", SMALL_BATCH),
-                              ("high", "range+", SMALL_BATCH),
+        # the high tier and RANGE at B=1,000, the small requests (the exact
+        # tier: `_dense_exact_turns`)
+        for tier, mode, b in (("fast", "range+", BATCH), ("high", "range+", SMALL_BATCH),
                               ("fast", "range", SMALL_BATCH), ("fast", "range+", 1),
                               ("fast", "range+", 37)):
             qx = q_xyz[:b] if mode == "range+" else None
@@ -1309,26 +1501,15 @@ def dense_phases(dev, gen, report) -> float:
                 return rf._retrieve_fused_plain(q_cat, k_cat, bank.values, mask, beta,
                                                 sem_d=sem_d)
 
-            name = "fused_retrieval_exact" if tier == "exact" else "fused_retrieval"
-            tag = f"{name}[{tier},{mode}] B={b} N={bank.num_rows}"
-            if tier != "exact":
-                plan = rf._segment_plan(b, bank.num_rows, bank.value_dim, sem_d)
-                print(f"{tag}: {plan}, {rf._sm90_smem(sem_d, *plan[:4])} bytes of shared "
-                      "memory a block")
+            tag = f"fused_retrieval[{tier},{mode}] B={b} N={bank.num_rows}"
+            plan = rf._segment_plan(b, bank.num_rows, bank.value_dim, sem_d)
+            print(f"{tag}: {plan}, {rf._sm90_smem(sem_d, *plan[:4])} bytes of shared "
+                  "memory a block")
             err, ratio = _compare(tag, kernel(), plain(), flip_atol, 0.0, retr_why,
                                   rows_off_max=max(2, b // 100))
             ms = _cuda_ms(kernel, 5 if b > 37 else 20)
             plain_ms = _cuda_ms(plain, 3)
             print(f"{tag}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-            if tier == "exact":  # f32 logits on the CUDA cores, bf16 value products
-                n, Dv = bank.n_valid, bank.value_dim
-                n_bytes = (b * q_cat.shape[1] * 4 + n * (k_cat.shape[1] * 4 + Dv * 2 + 4)
-                           + b * Dv * 4)
-                f32_ops = 2 * b * n * (sem_d + 3)
-                b_ms, b_by = _bound(n_bytes, f32_ops + 2 * 2 * b * n * Dv * F32_FLOPS
-                                    / BF16_FLOPS, F32_FLOPS)
-                report[name] = dict(max_abs_err=err, err_over_tol=ratio, ms=ms,
-                                    plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
             if b == BATCH:  # the dense path's tier and shape
                 n, Dv = bank.n_valid, bank.value_dim
                 # bf16 sem logits (sem_d) and hi/lo geo logits (9 columns),
@@ -1343,6 +1524,8 @@ def dense_phases(dev, gen, report) -> float:
 
         _sm90_drift(bank, q, q_xyz, mask, flip_atol)
         _sm90_times(bank, q, q_xyz, mask, flip_atol, retr_why)
+        _dense_exact_turns(bank, q, q_xyz, mask, flip_atol, retr_why, report)
+        _attention_yardstick(bank, q, mask, report)
 
         # the int8 kernel over the same bank's int8 codes (dense RANGE+, fast)
         bank8 = quantize_values(bank)
@@ -1423,18 +1606,29 @@ def dense_phases(dev, gen, report) -> float:
     print(f"dense RANGE+ end to end B={BATCH} (coords already on the card): "
           f"median {e2e:.3f} ms over 5 calls")
 
-    # ---- 4a. the exact tier through the entry point: kernel 2's mma.sync body
-    exact = load_model("RANGE+", db_path=bank, tier="exact", device="cuda")
-    out, got = _drive(f"dense RANGE+ tier='exact' B={SMALL_BATCH}",
-                      lambda: exact(requests[2]), {"siren_tower": 1, "fused_retrieval_exact": 1})
-    report["fused_retrieval_exact"]["launches"] = got["fused_retrieval_exact"]
-    with torch.no_grad():
-        ref = retrieval.retrieve(out[:, bank.value_dim:], lonlat_deg_to_xyz(requests[2]), bank,
-                                 sem_temp=12.0, beta=0.5)
-    _compare(f"RANGE+ tier='exact' B={SMALL_BATCH} vs exact f32 retrieve",
-             out[:, :bank.value_dim], ref, 5e-2, 1e-1, "the fast tier's tolerance (the exact "
-             "tier rounds only the weights to bf16)")
-    del exact
+    # ---- 4a. the exact tier through the entry point: kernel 2's Hopper body
+    # at f32 logits, RANGE+ and RANGE, each request; then kernel 3 at exact
+    # (int8 codes, f32 queries: the mma.sync body)
+    report["fused_retrieval_exact"]["launches"] = 0
+    for name in ("RANGE+", "RANGE"):
+        exact = load_model(name, db_path=bank, tier="exact", device="cuda")
+        mode = "range+" if name == "RANGE+" else "range"
+        for c in requests:
+            out, got = _drive(f"dense {name} tier='exact' B={c.shape[0]}", lambda: _send(exact, c),
+                              {"siren_tower": 1, "fused_retrieval_exact": 1})
+            report["fused_retrieval_exact"]["launches"] += got["fused_retrieval_exact"]
+            with torch.no_grad():
+                ref = retrieval.retrieve(
+                    out[:, bank.value_dim:], lonlat_deg_to_xyz(c) if mode == "range+" else None,
+                    bank, sem_temp=12.0 if mode == "range+" else 15.0, beta=0.5, mode=mode)
+            _compare(f"{name} tier='exact' B={c.shape[0]} vs exact f32 retrieve",
+                     out[:, :bank.value_dim], ref, 5e-2, 1e-1, "the fast tier's tolerance (the "
+                     "exact tier rounds only the weights to bf16)")
+        e2e_x = _host_ms(lambda: exact(requests[-1]), 3)
+        print(f"dense {name} tier='exact' end to end B={BATCH}: median {e2e_x:.3f} ms over 3 "
+              "calls")
+        del exact
+    _exact_int8_row(bank, q, q_xyz, mask, retr_why, report)
 
     # ---- 4b. RANGE+ with value_quant="int8", through the entry point
     enc8 = load_model("RANGE+", db_path=bank, value_quant="int8", device="cuda")
@@ -1500,7 +1694,9 @@ def _counters() -> dict:
     counters["combine_cat_exact"] = (rh._combine_cat_call, "exact_launches")
     counters["siren_tower_bf16"] = (sh.siren_tower, "bf16_launches")
     counters["hier_corr_wide"] = (rh._hier_corr_call, "wide_launches")
-    counters["fused_retrieval_exact"] = (rf.retrieve_fused, "exact_launches")
+    counters["fused_retrieval_exact"] = (rf.retrieve_fused, "tf32_launches")
+    counters["fused_retrieval_i8_exact"] = (rf.retrieve_fused_i8, "exact_launches")
+    counters["fused_parts_exact"] = (rf.retrieve_fused_parts, "exact_launches")
     counters["fused_parts"] = (rf.retrieve_fused_parts, "launches")
     counters["fused_parts_i8"] = (rf.retrieve_fused_parts, "i8_launches")
     counters["family_pruned"] = (rf._family_pruned_call, "launches")
@@ -1525,6 +1721,8 @@ def _counters() -> dict:
     counters["hier_parts_family_f32"] = (fam, "tf32_launches")
     counters["hier_parts_family_values_f32"] = (fam, "values_tf32_launches")
     counters["hier_parts_f32"] = (rh._hier_parts_call, "tf32_launches")
+    # kernel 12 at exact and high: its Hopper body (`.tf32_launches`, `.deep_launches`)
+    counters["hier_refine_f32"] = (rh._hier_refine_call, "tf32_launches")
     return counters
 
 
@@ -2690,6 +2888,10 @@ def two_level_topk_phases(dev, gen, report, bank, enc) -> float:
     report["hier_refine"] = dict(max_abs_err=max(e for e, _ in errs),
                                  err_over_tol=max(r for _, r in errs), ms=ms,
                                  plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    # the Hopper body's `fast` forms beside csrc/hier_refine.cu (mma.sync),
+    # their first body and now a yardstick only
+    _refine_turns("hier_refine_fast", hb, q, x, enc.model.config,
+                  (("the bf16 rate", 1, BF16_FLOPS),), rh._refine_mma_sync)
 
     # ---- 13g. the endpoint, with its launches counted, and recall@1
     small = SMALL_BATCH
@@ -4040,12 +4242,15 @@ def mesh_phases(dev, gen, report) -> float:
             mesh = make_mesh((1, 1))
             coords = _random_coords(BATCH, gen, dev)
             e2e = {}
-            for name, quant in (("RANGE+", None), ("RANGE+", "int8"), ("RANGE", None)):
-                kw = dict(db_path=f"synthetic:{BANK_ROWS}", value_quant=quant)
+            for name, quant, tier in (("RANGE+", None, "fast"), ("RANGE+", "int8", "fast"),
+                                      ("RANGE", None, "fast"), ("RANGE+", None, "exact")):
+                kw = dict(db_path=f"synthetic:{BANK_ROWS}", value_quant=quant, tier=tier)
                 enc = load_model(name, mesh=mesh, **kw)
                 one = load_model(name, **kw)
-                tag = f"mesh (1, 1) {name}{' int8' if quant else ''} B={BATCH}"
-                kernel = "fused_parts_i8" if quant else "fused_parts"
+                tag = (f"mesh (1, 1) {name}{' int8' if quant else ''}"
+                       f"{' exact' if tier == 'exact' else ''} B={BATCH}")
+                kernel = ("fused_parts_exact" if tier == "exact" else
+                          "fused_parts_i8" if quant else "fused_parts")
                 out, got = _drive(tag, lambda: enc(coords), {"siren_tower": 1, kernel: 1})
                 report.setdefault(kernel, {})["launches"] = (
                     report.get(kernel, {}).get("launches", 0) + got[kernel])
@@ -4063,7 +4268,7 @@ def mesh_phases(dev, gen, report) -> float:
                       f"{_host_ms(lambda: one(coords), 5):.3f} ms)")
                 if quant:
                     bank8 = enc.model.bank
-                else:
+                elif tier == "fast":
                     bank = enc.model.bank
                 del enc, one
         finally:
@@ -4092,6 +4297,21 @@ def mesh_phases(dev, gen, report) -> float:
                                 flops, BF16_FLOPS)
             report[kernel].update(max_abs_err=err, err_over_tol=ratio, ms=ms,
                                   plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        # kernel 5 at exact (f32 queries: the mma.sync body), the bound at the
+        # f32 rate (row 2e's old rule)
+        q_x = rf.pack_queries(q, x, 12.0, 40.0, "exact")
+        k_x = rf.pack_bank(bank.keys_sem, bank.xyz, "exact")
+        sem_x = rf.packed_dims(bank.key_dim, "exact")[0]
+        err, ratio, ms, plain_ms = _parts_check(
+            f"fused_parts_exact B={BATCH} N={bank.num_rows}", q_x, k_x, vb, mask, None, sem_x,
+            max(2, BATCH // 100))
+        b_ms, b_by = _bound(BATCH * k_x.shape[1] * 4 + n * (k_x.shape[1] * 4 + Dv * 2 + 4)
+                            + out_bytes, 2 * BATCH * n * (sem_x + 3)
+                            + 2 * 2 * BATCH * n * Dv * F32_FLOPS / BF16_FLOPS, F32_FLOPS)
+        report["fused_parts_exact"].update(max_abs_err=err, err_over_tol=ratio, ms=ms,
+                                           plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        print(f"fused_parts_exact: bound at the f32 rate {b_ms:.4f} ms ({b_by}), share "
+              f"{b_ms / ms:.4f}")
 
         # ---- the cross-shard combine: 4 slabs of partials against kernel 2
         N = bank.num_rows
@@ -4800,6 +5020,15 @@ def _tier_kernels(tier, form, hb, hb_ts, hb2, q, x, report, cfg) -> None:
     _cores_row(report, f"hier_refine_{form}", errs, lambda: rh._hier_refine_call(
         *ra, bm=bm, gpt_f=gpt_f, gpt_sup=gpt_u),
         lambda: rh._hier_refine_plain(q_2, idx_m, hb2.g_sem_cat, **pkw), flops, n_bytes, f32)
+    # the Hopper body (`csrc/hier_refine_sm90.cu`) in both forms at each
+    # batch beside the CUDA-core body; its row: the has_parts form's device
+    # time at B = 10,000 in those turns, bound at the rate it computes at
+    rates = ((("the TF32 x3 rate", 3, TF32_FLOPS), ("the f32 rate", 1, F32_FLOPS)) if f32
+             else (("the bf16 rate", 1, BF16_FLOPS),))
+    t = _refine_turns(f"hier_refine_{form}", hb2, q, x, cfg, rates,
+                      lambda *a, **k: rh._refine_cores(form, *a, **k))
+    row = report[f"hier_refine_{form}"]
+    row["ms"], row["bound_ms"], row["bound_by"] = t[False][0], *t[False][2:]
     if form == "deep":  # kernels 14 and 15's Hopper bodies beside the CUDA-core body
         _deep_parts_turns(hb, q, x, cfg)
     else:  # kernels 8, 9, 14 and 15's TF32 x3 bodies beside the CUDA-core body
@@ -4807,6 +5036,141 @@ def _tier_kernels(tier, form, hb, hb_ts, hb2, q, x, report, cfg) -> None:
         _exact_scan_turns(hb, hb_ts, hb_d, q, x, cfg)
         del hb_d
         _exact_parts_turns(hb, q, x, cfg, report)
+
+
+def _refine_turns(tag: str, hb2, q, x, cfg, rates, old) -> dict:
+    """Kernel 12 on `csrc/hier_refine_sm90.cu` (`_refine_sm90`) in both
+    forms at the two-level bank's shape (bn 512, gsz_sem 8, gsz_super 64;
+    each block's M = `TOPK_M` coarse tiles selected from the plain
+    supergroup stats) at B = 1, 37, 1,000 and 10,000, each batch its own
+    request (its plan's bm, its queries sorted): held against its plain
+    version (`_refine_sm90_plain`) and the one-pass plain version
+    (`_hier_refine_plain`): m within 1e-4, s within 1e-4 of itself, parts
+    by `_hold_cores` over the real rows (f32 vw: 1e-4 of the sum of its
+    terms' magnitudes; bf16: one ulp of a term in at most max(2, B / 100)
+    rows) and, at f32 vw, over the zero-query padding rows by 8 x 2^-22 x
+    that sum + 1e-6; then timed in turns beside ``old`` (the form's first
+    body: old, new, new, old on CUDA events, `_turns_ms`; nothing counted),
+    with the bound at each of ``rates`` ((label, products a term, rate):
+    the listed tiles' rows read once, the queries, stats and parts once)
+    and both shares (the value products at the bf16 rate where vw is
+    bf16, at the f32 logits' rate where it is f32).  Returns {stats_only: (the new body's ms at B =
+    10,000, the old body's, the bound at the first rate, what bounds it)}."""
+    from range_tpu_torch.ops import retrieval_fused as rf
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    gpt_f, gpt_u, gpt_g = hb2.bn // hb2.gsz_sem, hb2.bn // hb2.gsz_super, hb2.bn // hb2.gsz_geo
+    f32v = hb2.g_sem_vw.dtype == torch.float32
+    flip = ("a weight within the logits' TF32 x3 difference of a bf16 boundary rounds the "
+            "other way: one ulp of one term")
+    out = {}
+    for b in REQUESTS:
+        bm, _, _, j_sem = cfg.hier_plan(b)
+        q_s, q_x = rh._pad_queries(q[:b], x[:b], bm)
+        q_cat = rf.pack_queries(q_s, q_x, 12.0, 40.0, hb2.tier)[rh._hybrid_order(q_x, b)]
+        q_cat = q_cat.contiguous()
+        st = rh._hier_scan_stats_plain(q_cat, hb2.g_sup_cat, hb2.g_geo_cat, gpt_s=gpt_u,
+                                       gpt_g=gpt_g)
+        idx_m = rh.select_tiles(*st, t_real=hb2.t_real, k_tiles=min(TOPK_M, hb2.t_real),
+                                bm=bm, n_valid=b, j_sem=j_sem, j_geo=cfg.j_geo,
+                                mode="range")[0]
+        Bp, M = q_cat.shape[0], idx_m.shape[1]
+        args = (q_cat, idx_m, hb2.g_sem_cat, hb2.g_sup_cat, hb2.g_sem_vw, hb2.g_sup_vw)
+        for stats_only in (True, False):
+            kw = dict(bm=bm, gpt_f=gpt_f, gpt_sup=gpt_u, stats_only=stats_only)
+            pk = dict(bm=bm, gpt_f=gpt_f) if stats_only else dict(
+                bm=bm, gpt_f=gpt_f, g_sup_cat=hb2.g_sup_cat, g_sem_vw=hb2.g_sem_vw,
+                g_sup_vw=hb2.g_sup_vw, gpt_sup=gpt_u)
+            name = f"{tag}[{'stats' if stats_only else 'has_parts'}] B={b} M={M} bm={bm}"
+            got = rh._refine_sm90(*args, **kw)
+            mag = None if stats_only else rh._hier_refine_plain(
+                q_cat, idx_m, hb2.g_sem_cat, **pk, magnitude=True)[2]
+            for ref, which in ((rh._refine_sm90_plain(*args, **kw), "its plain version"),
+                               (rh._hier_refine_plain(q_cat, idx_m, hb2.g_sem_cat, **pk),
+                                "the one-pass plain version")):
+                _compare(f"{name} m_f vs {which}", got[0], ref[0], 1e-4, 0.0,
+                         "the logits in another summation order")
+                _compare(f"{name} s_f vs {which}", got[1], ref[1], 0.0, 1e-4,
+                         "f32 exp2 sums in another order")
+                if stats_only:
+                    continue
+                _hold_cores(f"{name} parts vs {which}", got[2][:b], ref[2][:b], mag[:b], f32v,
+                            b, flip)
+                if f32v and Bp > b:
+                    pad = (got[2][b:] - ref[2][b:]).abs()
+                    ratio = (pad / (8 * 2.0 ** -22 * mag[b:] + 1e-6)).max().item()
+                    print(f"{name} parts vs {which}, {Bp - b} padding rows: err/tol "
+                          f"{ratio:.3e} (tolerance 8 x 2^-22 x sum |terms| + 1e-6)")
+                    if ratio > 1.0:
+                        raise AssertionError(f"{name}: padding rows {ratio:.3f}x their bar")
+            new = ("new", lambda: rh._refine_sm90(*args, **kw))
+            t = _turns_ms((("old", lambda: old(*args, **kw)), new, new,
+                           ("old", lambda: old(*args, **kw))), 3 if b >= SMALL_BATCH else 10)
+            U = int(torch.unique(idx_m).numel())
+            wf, W = hb2.g_sem_cat.shape[1], hb2.g_sem_vw.shape[1]
+            rows = gpt_f if stats_only else gpt_f + gpt_u
+            el, vel = q_cat.element_size(), hb2.g_sem_vw.element_size()
+            # the logits at the form's rate; the value products (e @ vw) at
+            # the bf16 rate where vw is bf16, else as the f32 logits are
+            flops = 2 * b * M * (gpt_f * rh._nz_cols(hb2.g_sem_cat) + (
+                0 if stats_only else gpt_u * rh._nz_cols(hb2.g_sup_cat)))
+            v_flops = 0 if stats_only else 2 * b * M * rows * W
+            n_bytes = (Bp * wf * el + U * rows * (wf * el + (0 if stats_only else W * vel))
+                       + 2 * Bp * M * 4 + (0 if stats_only else Bp * W * 4))
+            bounds, first = [], None
+            for label, n_products, rate in rates:
+                values = ((v_flops, BF16_FLOPS) if not f32v else (v_flops, F32_FLOPS)
+                          if rate == F32_FLOPS else (3 * v_flops, TF32_FLOPS))
+                ms, by = _bound(n_bytes, n_products * flops, rate, values)
+                first = first or (ms, by)
+                bounds.append(f"bound at {label} {ms:.4f} ms ({by}), shares "
+                              f"{ms / t['new']:.4f} / {ms / t['old']:.4f}")
+            print(f"{name}: Hopper body {t['new']:.4f} ms, first body {t['old']:.4f} ms (CUDA "
+                  f"events, turns old, new, new, old; {t['old'] / t['new']:.2f}x); "
+                  + "; ".join(bounds) + f"; {U} distinct tiles listed")
+            if b == BATCH:
+                out[stats_only] = (t["new"], t["old"], *first)
+                if not stats_only:
+                    _refine_layouts(name, args, kw, new[1])
+    return out
+
+
+def _refine_layouts(name: str, args, kw, form) -> None:
+    """The refine's layouts compared (PERF.md, the refine's entry): the
+    p-once layout (``form``: the list pass writing D once, then the value
+    pass) against a floor of the recompute layout (e @ vw in the block of
+    the logits, which computes a tile's logits once for each pair of the
+    value pass's 128-column slices): the list pass over the same rows
+    without D (the logits and the stats alone) times those pairs.  In turns
+    on CUDA events."""
+    import ctypes
+
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    q_cat, idx = args[0], args[1].contiguous()
+    sh = rh._refine_shape(*args, **kw)
+    Bp, M, dev = q_cat.shape[0], idx.shape[1], q_cat.device
+    qi, (cimg, _) = rh._refine_query(q_cat, sh), rh._refine_images(*args[2:], sh)
+    d = torch.empty(Bp // 64 * M * sh.nu * (16384 if sh.tx3 else 8192), dtype=torch.uint8,
+                    device=dev)
+    m_f, s_f = (torch.empty((Bp, M), dtype=torch.float32, device=dev) for _ in range(2))
+    n_p = rh._refine_segments(sh, Bp, M)[0]
+
+    def list_pass(with_d: bool):
+        ints = [Bp, sh.C, kw["bm"], sh.spt, M, sh.gpt, sh.R, sh.nu if with_d else 0,
+                (1 if sh.tx3 else 2) if with_d else 0, n_p, sh.nw, int(sh.x3)]
+        rh._launch("hier_refine_sm90", "hier_refine_sm90_launch", qi.data_ptr(),
+                   cimg.data_ptr(), idx.data_ptr(), m_f.data_ptr(), s_f.data_ptr(),
+                   d.data_ptr() if with_d else None, (ctypes.c_int * len(ints))(*ints),
+                   rh._stream(q_cat))
+
+    t = _turns_ms((("p-once", form), ("with D", lambda: list_pass(True)),
+                   ("logits", lambda: list_pass(False))) * 2, 3)
+    pairs = -(-sh.VS // 2)
+    print(f"{name}: the p-once layout {t['p-once']:.4f} ms (its list pass writing D "
+          f"{t['with D']:.4f} ms, the logits and stats alone {t['logits']:.4f} ms); the "
+          f"recompute layout's logits alone, once for each of {pairs} pairs of value slices: "
+          f"{pairs * t['logits']:.4f} ms, a floor of its time (CUDA events, in turns)")
 
 
 def _scan_body_turns(tag: str, args, kw, b: int, old, rates) -> tuple:
@@ -5470,7 +5834,8 @@ def tiers_phases(dev, gen, report, bank, enc) -> dict:
                          tier=tier)
         out, drives["two_level"] = _drive(
             f"{tier} two-level feature path B={BATCH}", lambda: two(cs),
-            {"siren_tower": 1, **scan, "hier_refine": 1, "hier_refine" + c: 1, **parts(True)})
+            {"siren_tower": 1, **scan, "hier_refine": 1, "hier_refine" + c: 1,
+             "hier_refine_parts": 1, **parts(True)})
         _tier_fidelity(f"{tier} two-level feature path", out, cs, bank, "range+", 0.12)
         with torch.no_grad():
             qs = two.model.query_embedding(cs).float()
@@ -5600,7 +5965,9 @@ def main() -> int:
                     max_abs_err=report[k]["max_abs_err"],
                     err_over_tol=report[k]["err_over_tol"], ms=report[k]["ms"],
                     plain_ms=report[k]["plain_ms"], bound_ms=report[k]["bound_ms"],
-                    bound_by=report[k]["bound_by"], library_ms=None)
+                    bound_by=report[k]["bound_by"], library_ms=report[k].get("library_ms"),
+                    **{x: report[k][x] for x in ("library_form", "library_kernel_ms")
+                       if x in report[k]})
                for k, src, replaces in KERNELS]
     print(json.dumps({"kernels": kernels}))
     # the run drives one card

@@ -15,7 +15,10 @@
 // also computes kernel 8's tail at f32 (:1443 `_hier_scan_kernel`) over
 // the D tiles csrc/hier_scan_tf32_sm90.cu writes: every tile of 64 groups
 // listed for each 64 queries, vw as the values (ops/retrieval_hier.py
-// `_scan_tf32`).
+// `_scan_tf32`), and kernel 12's parts (:2077 `_hier_refine_kernel`) over
+// the D units csrc/hier_refine_sm90.cu writes: each query block's listed
+// tiles, a tile's fine vw rows and its negated supergroup rows as the
+// values (`_refine_sm90`).
 // Per query block of bm and each tile of its list, for each family:
 //   p    = exp2(min(q . k + mask, 86))   over the tile's bn rows
 //   d   += sum p
@@ -310,6 +313,7 @@ struct VParams {
   float* out;           // [Bp, ow]: acc at columns oc0 .. oc0 + Dv (one segment)
   float* work;          // [n_seg, Bp, 128 VS] (several)
   int Bp, bm, spt, K, VS, Dv, ow, oc0, dedup, n_seg;
+  int nu;               // units (stages) a list entry: spt U, or the refine's own count
 };
 
 // A stage: the A tile (a step's bf16 box, or a 32-row chunk's split f32
@@ -317,7 +321,6 @@ struct VParams {
 // boxes of the step's rows, or the chunk's split [128][32] K-major tile)
 template <bool F32>
 struct VCfg {
-  static constexpr int U = F32 ? 2 : 1;  // units (stages) a step
   static constexpr int S = F32 ? 2 : 5;  // stages
   static constexpr uint32_t A = F32 ? PCHUNK : PBOX;
   static constexpr uint32_t B = F32 ? 2 * 128 * 128 : 2 * 64 * 128;
@@ -346,7 +349,7 @@ __device__ __forceinline__ void values_consume(const VParams& p, uint32_t base, 
   for (int i = e0; i < e1; ++i) {
     if (p.dedup && i > 0 && list[i - 1] == list[i]) continue;
 #pragma unroll 1
-    for (int u = 0; u < p.spt * C::U; ++u) {
+    for (int u = 0; u < p.nu; ++u) {
       const uint32_t a = base + s * C::STAGE, b = a + C::A + wg * C::B;
       float fr[64];
       mbar_wait(full + 8 * s, ph);
@@ -431,19 +434,15 @@ __global__ void __launch_bounds__(THREADS, 1) values_kernel(const __grid_constan
     for (int i = e0; i < e1; ++i) {
       const int tile = list[i];
       if (p.dedup && i > 0 && list[i - 1] == tile) continue;
-      const size_t prow = ((size_t)blockIdx.x * p.K + i) * p.spt;
-      for (int st = 0; st < p.spt; ++st) {
-        for (int u = 0; u < C::U; ++u) {
-          const size_t vt = F32 ? (((size_t)tile * p.spt + st) * 2 + u) * p.VS
-                                : ((size_t)tile * p.spt + st) * p.VS;
-          mbar_wait(empty + 8 * s, ph ^ 1);
-          mbar_expect_tx(full + 8 * s, C::A + vbytes);
-          bulk_g2s(base + s * C::STAGE, p.pimg + ((prow + st) * C::U + u) * C::A, C::A,
-                   full + 8 * s);
-          bulk_g2s(base + s * C::STAGE + C::A, p.vimg + (vt + 2 * blockIdx.z) * C::B, vbytes,
-                   full + 8 * s);
-          next_stage(s, ph, C::S);
-        }
+      const size_t prow = ((size_t)blockIdx.x * p.K + i) * p.nu;
+      for (int u = 0; u < p.nu; ++u) {
+        const size_t vt = ((size_t)tile * p.nu + u) * p.VS;
+        mbar_wait(empty + 8 * s, ph ^ 1);
+        mbar_expect_tx(full + 8 * s, C::A + vbytes);
+        bulk_g2s(base + s * C::STAGE, p.pimg + (prow + u) * C::A, C::A, full + 8 * s);
+        bulk_g2s(base + s * C::STAGE + C::A, p.vimg + (vt + 2 * blockIdx.z) * C::B, vbytes,
+                 full + 8 * s);
+        next_stage(s, ph, C::S);
       }
     }
     return;
@@ -519,7 +518,9 @@ extern "C" int hier_values_tf32_p_launch(const void* q, const void* kimg, const 
 // MN-major swizzled boxes; f32: split K-major tiles, `_values_tf32_images`);
 // idx; out [Bp, ow] (acc at columns oc0 .. oc0 + Dv, one segment); work
 // [n_seg, Bp, 128 VS] with several.  ints: Bp, bm, spt, K, VS, Dv, f32, ow,
-// oc0, dedup, n_seg.
+// oc0, dedup, n_seg, nu: the units (a bf16 box of 64 rows, an f32 chunk of
+// 32) a list entry, 0 for spt steps' (the refine's tiles of
+// csrc/hier_refine_sm90.cu take their own count).
 extern "C" int hier_values_tf32_v_launch(const void* pimg, const void* vimg, const void* idx,
                                          void* out, void* work, const int* a, void* stream) {
   VParams p{};
@@ -531,6 +532,7 @@ extern "C" int hier_values_tf32_v_launch(const void* pimg, const void* vimg, con
   p.Bp = a[0], p.bm = a[1], p.spt = a[2], p.K = a[3], p.VS = a[4], p.Dv = a[5];
   const int f32 = a[6];
   p.ow = a[7], p.oc0 = a[8], p.dedup = a[9], p.n_seg = a[10];
+  p.nu = a[11] > 0 ? a[11] : p.spt * (f32 ? 2 : 1);
   if (p.Bp <= 0 || p.bm % BM || p.Bp % p.bm || p.spt < 1 || p.K <= 0 || p.VS < 1 ||
       p.Dv > 128 * p.VS || p.Dv <= 128 * (p.VS - 1) || p.Dv % 2 || f32 < 0 || f32 > 1 ||
       p.n_seg < 1 || p.n_seg > p.K || (p.n_seg > 1 && work == nullptr) || !aligned16(pimg) ||

@@ -73,6 +73,10 @@ _SIGNATURES = {
                           "hier_rr_tf32_smem": [_I, _I]},
     "hier_scan_tf32_sm90": {"hier_scan_tf32_launch": [_P] * 7,
                             "hier_scan_tf32_smem": [_I, _I]},
+    "hier_refine_sm90": {"hier_refine_sm90_launch": [_P] * 8,
+                         "hier_refine_sm90_smem": [_I, _I, _I]},
+    "fused_retrieval_tf32_sm90": {"fused_tf32_sm90_launch": [_P] * 7 + [_F, _P],
+                                  "fused_tf32_sm90_smem": [_I]},
     "hier_values_tf32_sm90": {"hier_values_tf32_p_launch": [_P] * 10,
                               "hier_values_tf32_v_launch": [_P] * 7,
                               "hier_values_tf32_smem": [_I, _I]},

@@ -132,7 +132,7 @@ def rz_add(acc: torch.Tensor, inc: torch.Tensor) -> torch.Tensor:
 
 
 def tf32x3_matmul(a: torch.Tensor, b_hi: torch.Tensor, b_lo: torch.Tensor,
-                  chain: str = "chunks", acc=None) -> torch.Tensor:
+                  chain: str = "chunks", acc=None, cross_first: bool = False) -> torch.Tensor:
     """a [M, K] f32 @ b [K, N] given in its TF32 halves, as the tf32 kernels
     take it: a split like b, the three products lo hi + hi lo + hi hi a k8
     step (lo lo dropped), summed ``"exact"`` in f64 (the split's error
@@ -141,8 +141,11 @@ def tf32x3_matmul(a: torch.Tensor, b_hi: torch.Tensor, b_lo: torch.Tensor,
     each (a pessimistic model of the tensor cores' accumulator), the
     fragments added one by one into the running sum ``acc`` (zeros by
     default) rounded to nearest; ``"rz"`` all of them in one truncated
-    chain (one accumulator).  K a multiple of 8; a last chunk may be short.
-    Leading batch dimensions broadcast as in ``@``."""
+    chain (one accumulator).  ``cross_first``: a chunk's products in the
+    order of `csrc/fused_retrieval_tf32_sm90.cu`, every step's lo hi and hi
+    lo, then every step's hi hi (else step by step).  K a multiple of 8; a
+    last chunk may be short.  Leading batch dimensions broadcast as in
+    ``@``."""
     ah, al = (x.double() for x in tf32_split(a))
     bh, bl = b_hi.double(), b_lo.double()
     K = a.shape[-1]
@@ -152,12 +155,15 @@ def tf32x3_matmul(a: torch.Tensor, b_hi: torch.Tensor, b_lo: torch.Tensor,
     if chain == "exact":
         return (acc.double() + ah @ bh + ah @ bl + al @ bh).to(torch.float32)
     frag = torch.zeros_like(acc)
-    for k0 in range(0, K, 8):
-        if chain == "chunks" and k0 % 32 == 0:
+    for c0 in range(0, K, 32):
+        if chain == "chunks":
             frag = torch.zeros_like(acc)
-        ks = slice(k0, k0 + 8)
-        for x, y in ((al, bh), (ah, bl), (ah, bh)):
+        steps = [slice(k0, k0 + 8) for k0 in range(c0, min(c0 + 32, K), 8)]
+        terms = ([(x, y, ks) for ks in steps for x, y in ((al, bh), (ah, bl))]
+                 + [(ah, bh, ks) for ks in steps] if cross_first else
+                 [(x, y, ks) for ks in steps for x, y in ((al, bh), (ah, bl), (ah, bh))])
+        for x, y, ks in terms:
             frag = rz_add(frag, x[..., ks] @ y[..., ks, :])
-        if chain == "chunks" and (k0 % 32 == 24 or k0 + 8 == K):
+        if chain == "chunks":
             acc = acc + frag
     return acc + frag if chain == "rz" else acc

@@ -20,10 +20,15 @@ into segments whose partials a second kernel adds in a fixed order:
 `_segment_plan`), with bf16 values (`retrieve_fused`), int8 value codes
 and their row scales (`retrieve_fused_i8`), and in the form that leaves
 one bank shard's unnormalized partials for the caller to sum across
-shards (`retrieve_fused_parts`, `parallel/sharded.py`); f32 operands (the
-'exact' tier) go to the mma.sync kernel body `csrc/fused_retrieval.cu`.
-That body also serves `_family_pruned_call` (one family's softmax over a
-tile plan's active bank tiles: `retrieve_pruned`) and
+shards (`retrieve_fused_parts`, `parallel/sharded.py`).  f32 operands (the
+'exact' tier) with bf16 values go to the Hopper kernel
+`csrc/fused_retrieval_tf32_sm90.cu` (the logits three TF32 products a term
+on the tensor cores, the keys' split image made once a bank: `_tf32_keys`),
+their int8 and partials forms to the mma.sync kernel body
+`csrc/fused_retrieval.cu`, which only chip_smoke.py's same-run yardstick
+launches for `retrieve_fused`'s.  That body also serves
+`_family_pruned_call` (one family's softmax over a tile plan's active bank
+tiles: `retrieve_pruned`) and
 `retrieve_fused_hybrid` (the geo family only in flagged tiles:
 `retrieve_hybrid`); the plans come from `bank/clustered.py`.
 
@@ -39,6 +44,8 @@ import ctypes
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+
+from ._prep import kmajor_tf32, kmajor_tf32_read, prepared, tf32x3_matmul
 
 NEG = -1e30
 LOG2E = 1.4426950408889634
@@ -526,10 +533,13 @@ def retrieve_fused(q_cat: torch.Tensor, k_cat: torch.Tensor,
     `range_tpu/ops/retrieval_pallas.py:123`: bf16 operands ('fast',
     'high') the Hopper kernel `csrc/fused_retrieval_sm90.cu` over
     `_segment_plan`'s segments (sem_d % 64 == 0: `_packed` pads the
-    semantic columns on the card), f32 operands ('exact')
-    `csrc/fused_retrieval.cu` (sem_d % 16 == 0).  A shape either kernel
-    does not take or a failed launch raises.  ``retrieve_fused.launches`` counts the Hopper
-    kernel's launches, ``.exact_launches`` the f32 kernel's."""
+    semantic columns on the card), f32 operands ('exact') the Hopper
+    kernel `csrc/fused_retrieval_tf32_sm90.cu` (`_launch_tf32`: the logits
+    three TF32 products a term, over `_tf32_plan`'s segments; sem_d % 16
+    == 0).  A shape either kernel does not take or a failed launch raises.
+    ``retrieve_fused.launches`` counts the bf16 kernel's launches,
+    ``.tf32_launches`` the f32 one's; ``.exact_launches`` the mma.sync
+    body's f32 form (`_launch_fused`), which no wrapper launches here."""
     if scale is not None:
         return retrieve_fused_i8(q_cat, k_cat, values, scale, mask_neg, beta,
                                  sem_d=sem_d)
@@ -540,10 +550,9 @@ def retrieve_fused(q_cat: torch.Tensor, k_cat: torch.Tensor,
     _check_values("retrieve_fused", values, None)
     _check_fused("retrieve_fused", q_cat, k_cat, values, mask_neg, sem_d)
     if q_cat.dtype == torch.float32:
-        out = _launch_fused("fused_retrieval_launch", q_cat, k_cat, values,
-                            None, mask_neg, beta, sem_d)
+        out = _launch_tf32(q_cat, k_cat, values, mask_neg, beta, sem_d)
         if q_cat.shape[0]:
-            retrieve_fused.exact_launches += 1
+            retrieve_fused.tf32_launches += 1
         return out
     out = _launch_sm90(q_cat, k_cat, values, mask_neg, beta, sem_d)
     if q_cat.shape[0]:
@@ -552,7 +561,127 @@ def retrieve_fused(q_cat: torch.Tensor, k_cat: torch.Tensor,
 
 
 retrieve_fused.launches = 0
+retrieve_fused.tf32_launches = 0
 retrieve_fused.exact_launches = 0
+
+
+# ---- kernel 2 at f32 operands on the tensor cores
+# (csrc/fused_retrieval_tf32_sm90.cu)
+
+_TF32_DVS = 256   # value columns of a block
+_TF32_KCMAX = 48  # 32-column chunks of the semantic logits it takes
+# the longest run of bank rows one block's value chain sums: with the TF32 x3
+# logits' own error, 12,800-row chains (the bf16 kernel's) put RANGE at
+# B = 1,000 past the dense bars on the H100 (chip_smoke.py prints the drift
+# of each chain length)
+TF32_SEG_ROWS_MAX = 3_200
+
+
+def _tf32_keys(k_cat: torch.Tensor, sem_d: int) -> torch.Tensor:
+    """The keys' split image, once per bank (`_prep.prepared`): each
+    64-row tile's semantic columns [0, sem_d) in KC = ceil(sem_d / 32)
+    chunks of 32, then the geo block's 16 columns from sem_d in one more,
+    as `_prep.kmajor_tf32` lays them out: [ceil(N / 64), KC + 1, 2, 64, 32]
+    f32, zero past N and past the columns."""
+    @torch.no_grad()
+    def build():
+        N, KC = k_cat.shape[0], -(-sem_d // 32)
+        T = max(1, -(-N // 64))
+        k = torch.zeros(T * 64, 32 * (KC + 1), dtype=torch.float32, device=k_cat.device)
+        k[:N, :sem_d] = k_cat[:, :sem_d]
+        k[:N, 32 * KC:32 * KC + _GEO_D] = k_cat[:, sem_d:sem_d + _GEO_D]
+        return kmajor_tf32(k.reshape(T, 64, -1))
+
+    return prepared("fused_tf32_keys", [k_cat], build, (sem_d,))
+
+
+def _tf32_plan(B: int, N: int, Dv: int,
+               seg_rows_max: int = TF32_SEG_ROWS_MAX) -> Tuple[int, int]:
+    """(n_seg, seg_rows) of a request: 64-row tiles cut into segments of
+    whole tiles, at least enough that no block sums more than
+    ``seg_rows_max`` rows and that the request gives the card's SM90_SMS SMs
+    a block each where the bank has the tiles (`_segment_plan`'s rule at the
+    kernel's blocks of 64 queries and 256 value columns)."""
+    tiles = max(1, -(-N // 64))
+    blocks = -(-B // 64) * -(-Dv // _TF32_DVS)
+    n_seg = min(tiles, max(-(-N // seg_rows_max), -(-SM90_SMS // max(blocks, 1)), 1))
+    seg_rows = tiles // n_seg * 64
+    return max(1, -(-N // seg_rows)), seg_rows
+
+
+def _launch_tf32(q_cat, k_cat, values, mask_neg, beta: float, sem_d: int,
+                 plan: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """Launch `csrc/fused_retrieval_tf32_sm90.cu` (and its segment
+    reduction) on f32 packed operands and bf16 values: [B, Dv] f32.
+    ``plan`` (n_seg, seg_rows) defaults to `_tf32_plan`'s."""
+    B, cat_d = q_cat.shape
+    N, Dv = values.shape
+    KC = -(-sem_d // 32)
+    if values.dtype != torch.bfloat16 or KC > _TF32_KCMAX:
+        raise ValueError(f"fused_tf32 kernel: needs bf16 values and sem_d <= "
+                         f"{32 * _TF32_KCMAX}, got {values.dtype}, sem_d={sem_d}")
+    out = torch.empty((B, Dv), dtype=torch.float32, device=q_cat.device)
+    if B == 0:
+        return out
+    n_seg, seg_rows = plan or _tf32_plan(B, N, Dv)
+    kimg = _tf32_keys(k_cat, sem_d)
+    q, v, m = q_cat.contiguous(), _aligned16(values), _aligned16(mask_neg)
+    work = (torch.empty((n_seg, B, 2 * Dv + 2), dtype=torch.float32, device=q_cat.device)
+            if n_seg > 1 else None)
+    ints = [B, N, cat_d, sem_d, Dv, KC, seg_rows, n_seg]
+    from ..kernels._build import load_kernel_library
+
+    rc = load_kernel_library("fused_retrieval_tf32_sm90").fused_tf32_sm90_launch(
+        q.data_ptr(), kimg.data_ptr(), v.data_ptr(), m.data_ptr(), out.data_ptr(),
+        None if work is None else work.data_ptr(), (ctypes.c_int * len(ints))(*ints),
+        ctypes.c_float(beta), _stream(q_cat))
+    _raise_on(rc, "fused_tf32")
+    return out
+
+
+def _fused_tf32_plain(q_cat, k_cat, values, mask_neg, beta: float, *, sem_d: int,
+                      chain: str = "chunks", rows: int = 4096) -> torch.Tensor:
+    """Plain version of `_launch_tf32`'s arithmetic, read from its keys'
+    image (`_tf32_keys`, unswizzled and unpermuted here): per segment of
+    `_tf32_plan`, the semantic logits `_prep.tf32x3_matmul` chunk by chunk
+    over the image's columns (a fresh fragment each, its cross terms first,
+    added in f32) and the geo logits over the geo chunk, plus the mask; p = exp2(min(l, 86)) per
+    family (0 past the bank); d the sums of p, acc += bf16(p) @ V (exact
+    products in f32); the segments' sums added in order, then each family
+    divided by its sum and blended.  ``chain`` as `_prep.tf32x3_matmul`'s;
+    ``rows`` bank rows at a time."""
+    f32 = torch.float32
+    B, N, Dv = q_cat.shape[0], values.shape[0], values.shape[1]
+    KC = -(-sem_d // 32)
+    kh, kl = kmajor_tf32_read(_tf32_keys(k_cat, sem_d))  # [T, 64, 32 (KC + 1)]
+    kh, kl = (x.reshape(-1, x.shape[-1]).T for x in (kh, kl))
+    qs = torch.zeros((B, 32 * KC), dtype=f32, device=q_cat.device)
+    qs[:, :sem_d] = q_cat[:, :sem_d]
+    qg = torch.zeros((B, 32), dtype=f32, device=q_cat.device)
+    qg[:, :_GEO_D] = q_cat[:, sem_d:sem_d + _GEO_D]
+    n_seg, seg_rows = _tf32_plan(B, N, Dv)
+    total = None
+    for s0 in range(0, max(N, 1), seg_rows):
+        acc_s = torch.zeros((B, Dv), dtype=f32, device=q_cat.device)
+        acc_g = torch.zeros_like(acc_s)
+        d_s = torch.zeros((B, 1), dtype=f32, device=q_cat.device)
+        d_g = torch.zeros_like(d_s)
+        for lo in range(s0, min(s0 + seg_rows, N), rows):
+            hi = min(lo + rows, s0 + seg_rows, N)
+            r = slice(lo, hi)
+            m = mask_neg[:, r].to(f32)
+            ls = tf32x3_matmul(qs, kh[:32 * KC, r], kl[:32 * KC, r], chain, cross_first=True)
+            lg = tf32x3_matmul(qg, kh[32 * KC:, r], kl[32 * KC:, r], chain, cross_first=True)
+            p_s = torch.exp2(torch.clamp_max(ls + m, CLAMP2))
+            p_g = torch.exp2(torch.clamp_max(lg + m, CLAMP2))
+            d_s += p_s.sum(1, keepdim=True)
+            d_g += p_g.sum(1, keepdim=True)
+            v = values[r].double()
+            acc_s += (p_s.to(torch.bfloat16).double() @ v).to(f32)
+            acc_g += (p_g.to(torch.bfloat16).double() @ v).to(f32)
+        part = (acc_s, acc_g, d_s, d_g)
+        total = part if total is None else tuple(a + b for a, b in zip(total, part))
+    return _normalize_blend(*total, beta)
 
 
 def retrieve_fused_i8(q_cat: torch.Tensor, k_cat: torch.Tensor,
@@ -807,15 +936,32 @@ def _bank_serving_values(bank) -> torch.Tensor:
     return _serving_values(bank.values)
 
 
+def _bank_keys(bank, tier: str, card: bool):
+    """(k_cat, mask_neg) of ``bank``: its packed keys (`pack_bank`) and its
+    row mask as an additive [1, N] f32 logit mask; on the card (``card``)
+    made once per bank (`_prep.prepared`), so that the kernels' images of
+    them are too."""
+    def keys():
+        return pack_bank(bank.keys_sem, bank.xyz, tier=tier, card=card)
+
+    def mask():
+        return (NEG * (1.0 - bank.row_mask()))[None, :].to(torch.float32)
+
+    if not card:
+        return keys(), mask()
+    rows = [bank.valid_mask] if bank.valid_mask is not None else [bank.keys_sem]
+    return (prepared("packed_keys", [bank.keys_sem, bank.xyz], keys, (tier,)),
+            prepared("packed_mask", rows, mask, (bank.n_valid, bank.num_rows)))
+
+
 def _packed(q_sem, q_xyz, bank, sem_temp: float, geo_temp: float, tier: str):
     """(q_cat, k_cat, sem_d, mask_neg) of a request over ``bank``: on the
-    card the padded packing its kernels read (`packed_dims`), on the CPU
-    JAX's."""
+    card the padded packing its kernels read (`packed_dims`), the keys and
+    mask made once per bank (`_bank_keys`); on the CPU JAX's."""
     card = bank.keys_sem.device.type != "cpu"
     q_cat = pack_queries(q_sem, q_xyz, sem_temp, geo_temp, tier=tier, card=card)
-    k_cat = pack_bank(bank.keys_sem, bank.xyz, tier=tier, card=card)
     sem_d, _ = packed_dims(bank.key_dim, tier, card)
-    mask_neg = (NEG * (1.0 - bank.row_mask()))[None, :].to(torch.float32)
+    k_cat, mask_neg = _bank_keys(bank, tier, card)
     return q_cat, k_cat, sem_d, mask_neg
 
 

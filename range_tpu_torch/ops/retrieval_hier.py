@@ -81,13 +81,17 @@ its logits once, D written once and the tail on the value pass of
 `csrc/hier_values_tf32_sm90.cu`; kernel 14's rr shapes
 `csrc/hier_rr_tf32_sm90.cu`, kernel 15 and kernel
 14's value shapes `csrc/hier_values_tf32_sm90.cu`), counted in
-``.tf32_launches``, and the refine and the correction the CUDA-core body
-`csrc/hier_cores.cu` (`_cores_form`), counted also in ``.f32_launches``;
-the CUDA-core body's scan and parts forms (`_scan_cores`, `_parts_cores`,
-`_parts_family_cores`) and `csrc/hier_scan_stats.cu`
-(`_scan_stats_mma_sync`) stay as chip_smoke.py's same-run yardsticks; at
-the `high` tier (768 semantic columns) the scan, the refine and the
-correction run on the CUDA-core body (``.deep_launches``), while both
+``.tf32_launches``, the refine its Hopper body `csrc/hier_refine_sm90.cu`
+(the logits three TF32 products, D once into device memory, parts on the
+same value pass; ``.tf32_launches``), and the correction the CUDA-core
+body `csrc/hier_cores.cu` (`_cores_form`), counted also in
+``.f32_launches``; the CUDA-core body's scan, refine and parts forms
+(`_scan_cores`, `_refine_cores`, `_parts_cores`, `_parts_family_cores`)
+and `csrc/hier_scan_stats.cu` (`_scan_stats_mma_sync`) stay as
+chip_smoke.py's same-run yardsticks; at the `high` tier (768 semantic
+columns) the refine runs on its Hopper body (bf16 k16 wgmma over every
+column, ``.deep_launches``), the scan and the correction on the CUDA-core
+body (``.deep_launches``), while both
 parts kernels and the top-k kernel take logits over more than 256 columns
 on their Hopper bodies, in passes of 256 columns with the accumulator
 carried.  The numbers are f32 sums of bf16 products in both; the rounding
@@ -1381,7 +1385,7 @@ def _scan_tf32(q_cat, g_sem_cat, g_geo_cat, g_sem_vw, g_geo_vw, *, gpt_s: int, g
         work = (torch.empty(n_v * Bq * 128 * fm.NS, dtype=f32, device=dev) if n_v > 1
                 else None)
         ints = [Bq, 64, 1, fm.KT, fm.NS, Dv, int(fm.tx3), dst.shape[1],
-                fm.oc0 if even else 0, 0, n_v]
+                fm.oc0 if even else 0, 0, n_v, 0]
         _launch("hier_values_tf32_sm90", "hier_values_tf32_v_launch", d.data_ptr(),
                 vimg.data_ptr(), lst.contiguous().data_ptr(), dst.data_ptr(),
                 None if work is None else work.data_ptr(), (ctypes.c_int * len(ints))(*ints),
@@ -1788,15 +1792,17 @@ def _hier_refine_call(q_cat, idx, g_sem_cat, g_sup_cat, g_sem_vw, g_sup_vw,
     partial [Bp, Dvp] f32 over the listed tiles (g_sup_cat [G / (gpt_f /
     gpt_sup), ws], g_sem_vw [G, Dvp], g_sup_vw [G_sup, Dvp]).
 
-    CPU tensors: `_hier_refine_plain`.  CUDA tensors: `csrc/hier_refine.cu`,
-    which replaces `_hier_refine_kernel` (`range_tpu/ops/retrieval_hier.py:
-    2077`), on bf16 operands of at most 256 logit columns; f32 operands and
-    deeper logits on the CUDA-core body (`_refine_cores`, counted in
-    ``.f32_launches`` / ``.deep_launches``, not ``.parts_launches``).  A
-    shape the kernel does not take or a failed launch raises.  The stats come
-    out in [query, column] order: the TPU's one-hot scratch and its 2 Mp
-    packing have no counterpart.  has_parts launches also count in
-    ``.parts_launches``."""
+    CPU tensors: `_hier_refine_plain`.  CUDA tensors, each replacing
+    `_hier_refine_kernel` (`range_tpu/ops/retrieval_hier.py:2077`): every
+    form at every tier on the Hopper body `csrc/hier_refine_sm90.cu`
+    (`_refine_sm90`: f32 logits three TF32 products, bf16 ones bf16 wgmma;
+    parts on `csrc/hier_values_tf32_sm90.cu`'s value pass), counted in
+    ``.launches`` and ``.sm90_launches`` and, for an f32 operand (`exact`) or
+    logits deeper than 256 columns (`high`), in ``.tf32_launches`` /
+    ``.deep_launches``.  A shape the kernel does not take or a
+    failed launch raises.  The stats come out in [query, column] order:
+    the TPU's one-hot scratch and its 2 Mp packing have no counterpart.
+    has_parts launches also count in ``.parts_launches``."""
     if q_cat.device.type == "cpu":
         if stats_only:
             return _hier_refine_plain(q_cat, idx, g_sem_cat, bm=bm,
@@ -1804,15 +1810,33 @@ def _hier_refine_call(q_cat, idx, g_sem_cat, g_sup_cat, g_sem_vw, g_sup_vw,
         return _hier_refine_plain(q_cat, idx, g_sem_cat, bm=bm, gpt_f=gpt_f,
                                   g_sup_cat=g_sup_cat, g_sem_vw=g_sem_vw,
                                   g_sup_vw=g_sup_vw, gpt_sup=gpt_sup)
-    bf = torch.bfloat16
     ops = dict(q_cat=q_cat, idx=idx, g_sem_cat=g_sem_cat)
     if not stats_only:
         ops.update(g_sup_cat=g_sup_cat, g_sem_vw=g_sem_vw, g_sup_vw=g_sup_vw)
     form = _cores_form(max(g_sem_cat.shape[1], 0 if stats_only else g_sup_cat.shape[1]),
                        *[t for k, t in ops.items() if k != "idx"])
-    if form:
-        return _refine_cores(form, q_cat, idx, g_sem_cat, g_sup_cat, g_sem_vw, g_sup_vw,
-                             bm=bm, gpt_f=gpt_f, gpt_sup=gpt_sup, stats_only=stats_only)
+    out = _refine_sm90(q_cat, idx, g_sem_cat, g_sup_cat, g_sem_vw, g_sup_vw, bm=bm,
+                       gpt_f=gpt_f, gpt_sup=gpt_sup, stats_only=stats_only)
+    if q_cat.shape[0] and idx.shape[1]:
+        fn = _hier_refine_call
+        fn.launches += 1
+        fn.sm90_launches += 1
+        fn.parts_launches += int(not stats_only)
+        fn.tf32_launches += int(form == "f32")
+        fn.deep_launches += int(form == "deep")
+    return out
+
+
+def _refine_mma_sync(q_cat, idx, g_sem_cat, g_sup_cat, g_sem_vw, g_sup_vw, *, bm: int,
+                     gpt_f: int, gpt_sup: int, stats_only: bool):
+    """The refine on its first body, `csrc/hier_refine.cu` (mma.sync, bf16
+    operands of at most 256 logit columns), in both forms: chip_smoke.py's
+    same-run yardstick for the `fast` tier only.  No wrapper launches it and
+    it moves no counter."""
+    bf = torch.bfloat16
+    ops = dict(q_cat=q_cat, idx=idx, g_sem_cat=g_sem_cat)
+    if not stats_only:
+        ops.update(g_sup_cat=g_sup_cat, g_sem_vw=g_sem_vw, g_sup_vw=g_sup_vw)
     _check_cuda("hier_refine", ops, {k: torch.int32 if k == "idx" else bf
                                      for k in ops})
     Bp, cat_d = q_cat.shape
@@ -1835,21 +1859,17 @@ def _hier_refine_call(q_cat, idx, g_sem_cat, g_sup_cat, g_sem_vw, g_sup_vw,
     dev = q_cat.device
     m_f, s_f = (torch.empty((Bp, M), dtype=torch.float32, device=dev)
                 for _ in range(2))
-    parts = None
     if stats_only:
         if Bp and M:
             _launch("hier_refine", "hier_refine_launch",
                     *[t.data_ptr() for t in ops + [m_f, s_f]], Bp, cat_d, wf,
                     bm, M, gpt_f, _stream(q_cat))
-            _hier_refine_call.launches += 1
         return m_f, s_f, None
     parts = torch.empty((Bp, W), dtype=torch.float32, device=dev)
     if Bp and M:
         _launch("hier_refine", "hier_refine_parts_launch",
                 *[t.data_ptr() for t in ops + [m_f, s_f, parts]], Bp, cat_d,
                 wf, ws, W, bm, M, gpt_f, gpt_sup, _stream(q_cat))
-        _hier_refine_call.launches += 1
-        _hier_refine_call.parts_launches += 1
     elif Bp:
         parts.zero_()
     return m_f, s_f, parts
@@ -1857,8 +1877,275 @@ def _hier_refine_call(q_cat, idx, g_sem_cat, g_sup_cat, g_sem_vw, g_sup_vw,
 
 _hier_refine_call.launches = 0
 _hier_refine_call.parts_launches = 0
-_hier_refine_call.f32_launches = 0
+_hier_refine_call.sm90_launches = 0
+_hier_refine_call.tf32_launches = 0
 _hier_refine_call.deep_launches = 0
+
+
+# Kernel 12 on the tensor cores (`csrc/hier_refine_sm90.cu`): the list pass
+# (the fine stats, and D once into device memory), then for parts the value
+# pass of `csrc/hier_values_tf32_sm90.cu` over D
+REFINE_COLS = 1536  # logit columns it takes
+
+
+class RefineShape(NamedTuple):
+    """A launch: the logits over the queries' first wc columns (x3: f32,
+    three TF32 products a term, in C chunks of 32; else bf16 in C boxes of
+    64); T tiles of gpt fine groups and, for parts, sup supergroups: R rows
+    a tile in spt 64-row steps; D (parts) in nu units a list entry (f32 vw,
+    tx3: split chunks of 32 rows; bf16 boxes of 64), W parts columns in VS
+    slices of 128; nw 64-query warpgroups a block."""
+    x3: bool
+    wc: int
+    C: int
+    T: int
+    gpt: int
+    sup: int
+    R: int
+    spt: int
+    tx3: bool
+    nu: int
+    W: int
+    VS: int
+    nw: int
+
+
+def _refine_shape(q_cat, idx, g_sem_cat, g_sup_cat, g_sem_vw, g_sup_vw, *, bm: int,
+                  gpt_f: int, gpt_sup: int, stats_only: bool) -> RefineShape:
+    """The launch's shape, raising ValueError before any launch on what the
+    kernel does not take: a batch of other than whole selection blocks of a
+    multiple of 64 queries, tiles of no whole number of groups, logits over
+    more than `REFINE_COLS` columns or wider than the queries, for parts
+    fewer than gpt_sup supergroups a fine tile, vw not one row a (super)group
+    or of two widths or dtypes.  Any gpt_f and gpt_sup, any list length."""
+    G, wf = g_sem_cat.shape
+    Bp, cat_d = q_cat.shape if q_cat.dim() == 2 else (0, 0)
+    T = G // max(gpt_f, 1)
+    ok = (q_cat.dim() == 2 and idx.dim() == 2 and bm >= 64 and bm % 64 == 0
+          and Bp == idx.shape[0] * bm and gpt_f >= 1 and G == T * gpt_f and T >= 1
+          and 0 < wf <= cat_d)
+    wc, sup, W, tx3, ops = wf, 0, 0, False, [q_cat, g_sem_cat]
+    if not stats_only:
+        Gs, ws = g_sup_cat.shape
+        W = g_sem_vw.shape[1] if g_sem_vw.dim() == 2 else 0
+        ok = ok and (gpt_sup >= 1 and Gs >= T * gpt_sup and 0 < ws <= cat_d and W >= 1
+                     and g_sem_vw.shape[0] == G and tuple(g_sup_vw.shape) == (Gs, W)
+                     and g_sem_vw.dtype == g_sup_vw.dtype
+                     and g_sem_vw.dtype in (torch.bfloat16, torch.float32))
+        wc, sup, tx3 = max(wf, ws), gpt_sup, g_sem_vw.dtype == torch.float32
+        ops.append(g_sup_cat)
+    x3 = any(t.dtype == torch.float32 for t in ops)
+    C = -(-wc // (32 if x3 else 64))
+    if not ok or wc > REFINE_COLS:
+        raise ValueError(
+            f"hier_refine kernel (Hopper): unsupported shapes q {tuple(q_cat.shape)}, idx "
+            f"{tuple(idx.shape)}, g {tuple(g_sem_cat.shape)} / "
+            f"{None if stats_only else tuple(g_sup_cat.shape)}, vw "
+            f"{None if stats_only else (tuple(g_sem_vw.shape), tuple(g_sup_vw.shape))}, "
+            f"bm={bm}, gpt_f={gpt_f}, gpt_sup={gpt_sup}, stats_only={stats_only}")
+    R = gpt_f + sup
+    nu = -(-R // (32 if tx3 else 64))
+    nw = 2 if bm % 128 == 0 and (x3 or C <= 12) else 1
+    return RefineShape(x3, wc, C, T, gpt_f, sup, R, -(-R // 64), tx3, nu, W, -(-W // 128), nw)
+
+
+def _refine_rows(g_sem, g_sup, sh: RefineShape, width: int) -> torch.Tensor:
+    """A tile's rows, its gpt fine ones then its sup supergroup ones (none
+    for the stats alone), zero to spt 64-row steps and to ``width``
+    columns: [T, 64 spt, width] f32."""
+    rows = torch.zeros(sh.T, 64 * sh.spt, width, dtype=torch.float32, device=g_sem.device)
+    rows[:, :sh.gpt, :g_sem.shape[1]] = g_sem.to(torch.float32).reshape(sh.T, sh.gpt, -1)
+    if sh.sup:
+        sup = g_sup[:sh.T * sh.sup].to(torch.float32).reshape(sh.T, sh.sup, -1)
+        rows[:, sh.gpt:sh.R, :sup.shape[2]] = sup
+    return rows
+
+
+def _refine_images(g_sem_cat, g_sup_cat, g_sem_vw, g_sup_vw, sh: RefineShape):
+    """The images the launches copy, once per bank: the tiles' rows
+    (`_refine_rows`) as f32 split chunks (x3: `kmajor_tf32`, [T, spt, C, 2,
+    64, 32]) or bf16 boxes ([T, spt, C, 64, 64] in the 128-byte swizzle);
+    for parts the value pass's B image of the same rows of [g_sem_vw |
+    -g_sup_vw] over nu units (f32 vw: [T, nu, VS, 2, 128, 32], the
+    `_tf32_rows_image` layout a 32-row chunk; bf16: [T, nu, VS, 2, 64, 64],
+    `_values_bf16_image`'s a 64-row box).  The supergroup vw negated is
+    exact, so the value pass's sum is e_f @ vw_f - e_sup @ vw_sup."""
+    srcs = [g_sem_cat] + ([g_sup_cat] if sh.sup else [])
+
+    def cents():
+        width = 32 * sh.C if sh.x3 else 64 * sh.C
+        rows = _refine_rows(g_sem_cat, g_sup_cat, sh, width).reshape(sh.T, sh.spt, 64, width)
+        if sh.x3:
+            return kmajor_tf32(rows)
+        boxes = rows.to(torch.bfloat16).reshape(sh.T, sh.spt, 64, sh.C, 64).transpose(2, 3)
+        return swizzle128(boxes.contiguous())
+
+    cimg = prepared("refine_cents", srcs, cents, (sh.x3, sh.C, sh.gpt, sh.sup))
+    if not sh.sup:
+        return cimg, None
+
+    def vws():
+        ur = 32 if sh.tx3 else 64
+        rows = torch.zeros(sh.T, ur * sh.nu, 128 * sh.VS, dtype=torch.float32,
+                           device=g_sem_vw.device)
+        rows[:, :sh.gpt, :sh.W] = g_sem_vw.to(torch.float32).reshape(sh.T, sh.gpt, sh.W)
+        rows[:, sh.gpt:sh.R, :sh.W] = -g_sup_vw[:sh.T * sh.sup].to(torch.float32).reshape(
+            sh.T, sh.sup, sh.W)
+        if sh.tx3:
+            m = rows.reshape(sh.T, sh.nu, 32, sh.VS, 128).permute(0, 1, 3, 4, 2)
+            return kmajor_tf32(m).reshape(sh.T, sh.nu, sh.VS, 2, 128, 32)
+        m = rows.to(torch.bfloat16).reshape(sh.T, sh.nu, 64, 2 * sh.VS, 64).permute(0, 1, 3, 2, 4)
+        return swizzle128(m.contiguous()).reshape(sh.T, sh.nu, sh.VS, 2, 64, 64)
+
+    return cimg, prepared("refine_vw", [g_sem_vw, g_sup_vw], vws, (sh.tx3, sh.gpt, sh.sup))
+
+
+def _refine_query(q_cat, sh: RefineShape) -> torch.Tensor:
+    """The queries' logit columns as the list pass reads them: f32 [Bp, 32
+    C] (x3), else bf16 boxes [Bp / 64, C, 64, 64] in the 128-byte swizzle;
+    zero past wc."""
+    Bp = q_cat.shape[0]
+    width = 32 * sh.C if sh.x3 else 64 * sh.C
+    q = torch.zeros((Bp, width), dtype=torch.float32 if sh.x3 else torch.bfloat16,
+                    device=q_cat.device)
+    q[:, :sh.wc] = q_cat[:, :sh.wc]
+    if sh.x3:
+        return q
+    return swizzle128(q.reshape(Bp // 64, 64, sh.C, 64).transpose(1, 2).contiguous())
+
+
+def _refine_segments(sh: RefineShape, Bp: int, K: int) -> Tuple[int, int]:
+    """Segments of each list in the list pass (blocks of 64 nw queries) and
+    in the value pass (a block a pair of VS slices): `_rr_tf32_segments`
+    over each pass's blocks."""
+    return (_rr_tf32_segments(Bp // sh.nw, K, 1),
+            _rr_tf32_segments(Bp, K, -(-sh.VS // 2)) if sh.sup else 0)
+
+
+def _refine_sm90(q_cat, idx, g_sem_cat, g_sup_cat, g_sem_vw, g_sup_vw, *, bm: int,
+                 gpt_f: int, gpt_sup: int, stats_only: bool):
+    """Launch `csrc/hier_refine_sm90.cu` (the stats; for parts D into device
+    memory), then for parts `csrc/hier_values_tf32_sm90.cu`'s value pass
+    over D and the tiles' [g_sem_vw | -g_sup_vw] rows: (m_f, s_f, parts or
+    None); counted nowhere."""
+    f32 = torch.float32
+    ops = dict(q_cat=q_cat, idx=idx, g_sem_cat=g_sem_cat)
+    if not stats_only:
+        ops.update(g_sup_cat=g_sup_cat, g_sem_vw=g_sem_vw, g_sup_vw=g_sup_vw)
+    _cores_check("hier_refine", ops)
+    sh = _refine_shape(q_cat, idx, g_sem_cat, g_sup_cat, g_sem_vw, g_sup_vw, bm=bm,
+                       gpt_f=gpt_f, gpt_sup=gpt_sup, stats_only=stats_only)
+    Bp, K, dev = q_cat.shape[0], idx.shape[1], q_cat.device
+    m_f, s_f = (torch.empty((Bp, K), dtype=f32, device=dev) for _ in range(2))
+    parts = None if stats_only else torch.zeros((Bp, sh.W), dtype=f32, device=dev)
+    if not (Bp and K):
+        return m_f, s_f, parts
+    q = _refine_query(q_cat, sh)
+    cimg, vimg = _refine_images(g_sem_cat, g_sup_cat, g_sem_vw, g_sup_vw, sh)
+    lst = idx.contiguous()
+    n_p, n_v = _refine_segments(sh, Bp, K)
+    unit = 16384 if sh.tx3 else 8192
+    d = (None if stats_only else
+         torch.empty(Bp // 64 * K * sh.nu * unit, dtype=torch.uint8, device=dev))
+    ints = [Bp, sh.C, bm, sh.spt, K, sh.gpt, sh.R, sh.nu if d is not None else 0,
+            0 if d is None else 1 if sh.tx3 else 2, n_p, sh.nw, int(sh.x3)]
+    stream = _stream(q_cat)
+    _launch("hier_refine_sm90", "hier_refine_sm90_launch", q.data_ptr(), cimg.data_ptr(),
+            lst.data_ptr(), m_f.data_ptr(), s_f.data_ptr(), None if d is None else d.data_ptr(),
+            (ctypes.c_int * len(ints))(*ints), stream)
+    if stats_only:
+        return m_f, s_f, None
+    # the value pass: even widths (its paired stores), else through a buffer
+    Dv = sh.W + sh.W % 2
+    dst = parts if Dv == sh.W else torch.empty((Bp, Dv), dtype=f32, device=dev)
+    work = torch.empty(n_v * Bp * 128 * sh.VS, dtype=f32, device=dev) if n_v > 1 else None
+    ints = [Bp, bm, 1, K, sh.VS, Dv, int(sh.tx3), Dv, 0, 0, n_v, sh.nu]
+    _launch("hier_values_tf32_sm90", "hier_values_tf32_v_launch", d.data_ptr(),
+            vimg.data_ptr(), lst.data_ptr(), dst.data_ptr(),
+            None if work is None else work.data_ptr(), (ctypes.c_int * len(ints))(*ints),
+            stream)
+    if dst is not parts:
+        parts.copy_(dst[:, :sh.W])
+    return m_f, s_f, parts
+
+
+def _refine_sm90_plain(q_cat, idx, g_sem_cat, g_sup_cat, g_sem_vw, g_sup_vw, *, bm: int,
+                       gpt_f: int, gpt_sup: int, stats_only: bool, chain: str = "chunks"):
+    """Plain version of `_refine_sm90`'s arithmetic, read from its images
+    (`_refine_images`, unswizzled and unpermuted here), with its outputs.
+    Per 64 queries, listed tile and 64-row step: the logits
+    `_prep.tf32x3_matmul` chunk by chunk over the columns (a fresh fragment
+    each, added in f32; bf16 logits: exact products); the fine rows' max,
+    and their exp2 sum as the kernel adds them (each lane of a quad its
+    columns 8j + 2t, + 1 in order, then ((t0 + t1) + (t2 + t3))); for parts
+    D = exp2(min(l, 86)) over the tile's R rows (rounded to bf16 where vw
+    is bf16) @ the [g_sem_vw | -g_sup_vw] rows a unit at a time (f32: a
+    fresh fragment of twelve TF32 products a 32-row chunk; bf16: exact
+    products a 64-row box), added in f32 in list order within each of the
+    value pass's segments, the segments added in order.  ``chain`` as
+    `_prep.tf32x3_matmul`'s."""
+    from ._prep import kmajor_tf32_read
+    f32 = torch.float32
+    sh = _refine_shape(q_cat, idx, g_sem_cat, g_sup_cat, g_sem_vw, g_sup_vw, bm=bm,
+                       gpt_f=gpt_f, gpt_sup=gpt_sup, stats_only=stats_only)
+    Bp, K, dev = q_cat.shape[0], idx.shape[1], q_cat.device
+    cimg, vimg = _refine_images(g_sem_cat, g_sup_cat, g_sem_vw, g_sup_vw, sh)
+    if sh.x3:
+        ch, cl = kmajor_tf32_read(cimg)  # [T, spt, 64, 32 C]
+        q = _refine_query(q_cat, sh)
+    else:
+        ch = swizzle128(cimg).transpose(2, 3).reshape(sh.T, sh.spt, 64, -1).float()
+        q = q_cat[:, :sh.wc].float()
+        ch = ch[..., :sh.wc]
+    if sh.sup:
+        if sh.tx3:
+            vh, vl = kmajor_tf32_read(vimg.unsqueeze(3))  # [T, nu, VS, 128, 32]
+            vh, vl = (v.permute(0, 1, 4, 2, 3).reshape(sh.T, sh.nu, 32, -1) for v in (vh, vl))
+        else:
+            v = swizzle128(vimg).float()  # [T, nu, VS, 2, 64, 64]
+            vh = v.permute(0, 1, 4, 2, 3, 5).reshape(sh.T, sh.nu, 64, -1)
+        n_v = _refine_segments(sh, Bp, K)[1]
+        segs = [(K * i // n_v, K * (i + 1) // n_v) for i in range(n_v)]
+    m_f = torch.empty((Bp, K), dtype=f32, device=dev)
+    s_f = torch.empty((Bp, K), dtype=f32, device=dev)
+    parts = None if stats_only else torch.zeros((Bp, 128 * sh.VS), dtype=f32, device=dev)
+    for q0 in range(0, Bp, 64):
+        tiles = idx[q0 // bm].long()
+        rows = q[q0:q0 + 64]
+        if sh.x3:  # [K, spt, 64 queries, 64 rows]
+            lg = tf32x3_matmul(rows, ch[tiles].transpose(-1, -2), cl[tiles].transpose(-1, -2),
+                               chain)
+        else:
+            lg = (rows.double() @ ch[tiles].double().transpose(-1, -2)).to(f32)
+        lg = lg.transpose(1, 2).reshape(K, 64, 64 * sh.spt)  # [K, queries, tile rows]
+        lf = lg[..., :sh.gpt]
+        m_f[q0:q0 + 64] = lf.amax(2).T
+        p = torch.exp2(torch.clamp_max(lf, CLAMP2))
+        lane = torch.zeros(K, 64, 4, dtype=f32, device=dev)
+        for c in range(sh.gpt):  # each quad lane's columns in order
+            lane[..., c % 8 // 2] += p[..., c]
+        s_f[q0:q0 + 64] = ((lane[..., 0] + lane[..., 1]) + (lane[..., 2] + lane[..., 3])).T
+        if stats_only:
+            continue
+        ur = 32 if sh.tx3 else 64
+        e = torch.zeros(K, 64, ur * sh.nu, dtype=f32, device=dev)
+        e[..., :sh.R] = torch.exp2(torch.clamp_max(lg[..., :sh.R], CLAMP2))
+        if not sh.tx3:
+            e = e.to(torch.bfloat16).to(f32)
+        a = e.reshape(K, 64, sh.nu, ur).transpose(1, 2)  # [K, nu, 64 queries, ur rows]
+        if sh.tx3:
+            frags = tf32x3_matmul(a, vh[tiles], vl[tiles], chain)
+        else:
+            frags = (a.double() @ vh[tiles].double()).to(f32)
+        frags = frags.flatten(0, 1)  # [K nu, 64, 128 VS], in list order
+        total = None
+        for e0, e1 in segs:
+            part = torch.zeros((64, 128 * sh.VS), dtype=f32, device=dev)
+            for fr in frags[e0 * sh.nu:e1 * sh.nu]:
+                part = part + fr
+            total = part if total is None else total + part
+        parts[q0:q0 + 64] = total
+    return m_f, s_f, None if stats_only else parts[:, :sh.W]
 
 
 def _list_shapes(name: str, q_cat, idx, *, bm: int, fams) -> None:
@@ -1880,9 +2167,12 @@ def _list_shapes(name: str, q_cat, idx, *, bm: int, fams) -> None:
 
 def _refine_cores(form: str, q_cat, idx, g_sem_cat, g_sup_cat, g_sem_vw, g_sup_vw, *,
                   bm: int, gpt_f: int, gpt_sup: int, stats_only: bool):
-    """`_hier_refine_call` on the CUDA-core body: the fine group pass (the
-    stats, and with parts E @ g_sem_vw), then the supergroups' E @ g_sup_vw
-    subtracted."""
+    """`_hier_refine_call`'s outputs on the CUDA-core body: the fine group
+    pass (the stats, and with parts E @ g_sem_vw), then the supergroups' E @
+    g_sup_vw subtracted; ``form`` ("f32" or "deep") is the caller's label.
+    No wrapper launches it (the refine's `exact` and `high` forms run on
+    `csrc/hier_refine_sm90.cu`): chip_smoke.py's same-run yardstick;
+    counted nowhere."""
     ops = dict(q_cat=q_cat, idx=idx, g_sem_cat=g_sem_cat)
     fams = [(g_sem_cat, None if stats_only else g_sem_vw, gpt_f)]
     if not stats_only:
@@ -1905,7 +2195,6 @@ def _refine_cores(form: str, q_cat, idx, g_sem_cat, g_sup_cat, g_sem_vw, g_sup_v
     if not stats_only:
         _cores_groups(q_cat, g_sup_cat, wk=g_sup_cat.shape[1], gpt=gpt_sup, idx=idx, bm=bm,
                       vw=g_sup_vw, nvc=W, out=parts, sign=-1.0, accumulate=True)
-    _count_cores(_hier_refine_call, form)
     return m_f, s_f, parts
 
 
@@ -3289,7 +3578,8 @@ def _values_tf32(name: str, q_cat, k_cat, values, scale, mask_neg, idx, fams, *,
                 lst.data_ptr(), pimg.data_ptr(), out.data_ptr(),
                 None if work_p is None else work_p.data_ptr(),
                 (ctypes.c_int * len(ints))(*ints), stream)
-        ints = [Bp, bm, sh.spt, K, sh.VS, sh.Dv, int(mode == 1), out_w, fm.acc0, int(dedup), n_v]
+        ints = [Bp, bm, sh.spt, K, sh.VS, sh.Dv, int(mode == 1), out_w, fm.acc0, int(dedup), n_v,
+                0]
         _launch("hier_values_tf32_sm90", "hier_values_tf32_v_launch", pimg.data_ptr(),
                 vimg.data_ptr(), lst.data_ptr(), out.data_ptr(),
                 None if work_v is None else work_v.data_ptr(),

@@ -334,7 +334,8 @@ def test_fused_kernel_matches_plain(cuda, tier, mode):
     q = q / torch.linalg.norm(q, dim=1, keepdim=True)
     x = lonlat_deg_to_xyz(_coords(77, seed=2, device=cuda))
     temp, beta = (12.0, 0.5) if mode == "range+" else (15.0, 1.0)
-    before, before_exact = rf.retrieve_fused.launches, rf.retrieve_fused.exact_launches
+    fn = rf.retrieve_fused
+    before = (fn.launches, fn.tf32_launches, fn.exact_launches)
     got = rf.retrieve_pallas(q, x, bank, sem_temp=temp, mode=mode, tier=tier)
     q_cat = rf.pack_queries(q, x if mode == "range+" else None, temp, 40.0, tier)
     ref = rf._retrieve_fused_plain(
@@ -342,9 +343,10 @@ def test_fused_kernel_matches_plain(cuda, tier, mode):
         (rf.NEG * (1 - bank.row_mask()))[None], beta,
         sem_d=rf.packed_dims(256, tier)[0])
     torch.cuda.synchronize()
-    # bf16 tiers: the Hopper kernel; 'exact' (f32 operands): the mma.sync body
-    assert rf.retrieve_fused.launches == before + (tier != "exact")
-    assert rf.retrieve_fused.exact_launches == before_exact + (tier == "exact")
+    # bf16 tiers: the Hopper kernel; 'exact' (f32 operands): its TF32 x3
+    # Hopper body, never the mma.sync body
+    assert (fn.launches, fn.tf32_launches, fn.exact_launches) == (
+        before[0] + (tier != "exact"), before[1] + (tier == "exact"), before[2])
     err = (got - ref).abs()
     assert err.max() <= bank.values.abs().max().float() / 128
     assert (err > 1e-4).any(dim=1).sum() <= 2
@@ -382,17 +384,19 @@ def test_fused_sm90_kernel_over_segments(cuda, B):
 
 
 def test_fused_f32_operands_launch_the_exact_body(cuda):
-    """f32 packed operands (the 'exact' tier) go to the mma.sync body, whose
-    counter moves; the Hopper kernel's does not."""
+    """f32 packed operands (the 'exact' tier) go to the exact tier's Hopper
+    body (`csrc/fused_retrieval_tf32_sm90.cu`, `.tf32_launches`), never to
+    the mma.sync body (`.exact_launches`) nor the bf16 kernel."""
     bank = GeoBank.synthetic(0, 500, key_dim=256, value_dim=128, pad_to=1,
                              value_dtype=torch.bfloat16, device=cuda)
     q = torch.nn.functional.normalize(torch.randn(9, 256, device=cuda), dim=1)
-    before = (rf.retrieve_fused.launches, rf.retrieve_fused.exact_launches)
+    fn = rf.retrieve_fused
+    before = (fn.launches, fn.tf32_launches, fn.exact_launches)
     out = rf.retrieve_pallas(q, None, bank, mode="range", tier="exact")
     torch.cuda.synchronize()
     assert out.shape == (9, 128) and torch.isfinite(out).all()
-    assert (rf.retrieve_fused.launches, rf.retrieve_fused.exact_launches) == (
-        before[0], before[1] + 1)
+    assert (fn.launches, fn.tf32_launches, fn.exact_launches) == (
+        before[0], before[1] + 1, before[2])
 
 
 @pytest.mark.parametrize("case", ["sem_d", "Dv"])
@@ -422,18 +426,20 @@ def test_fused_serves_key_widths_of_no_whole_box(cuda, key_dim, tier):
     """Dense banks whose key width is no multiple of 64 (of 16 at 40-d,
     'exact'), served through `retrieve_pallas` on the card: the packer pads
     the semantic columns (`packed_dims(card=True)`) and the tier's kernel
-    launches once; the answer matches the plain version over JAX's
+    launches once ('exact': the Hopper body, never the mma.sync body); the
+    answer matches the plain version over JAX's
     packing."""
     bank = GeoBank.synthetic(0, 3001, key_dim=key_dim, value_dim=256, pad_to=7,
                              value_dtype=torch.bfloat16, device=cuda)
     g = torch.Generator(device=cuda).manual_seed(key_dim)
     q = torch.nn.functional.normalize(torch.randn(77, key_dim, generator=g, device=cuda), dim=1)
     x = lonlat_deg_to_xyz(_coords(77, seed=3, device=cuda))
-    before = (rf.retrieve_fused.launches, rf.retrieve_fused.exact_launches)
+    fn = rf.retrieve_fused
+    before = (fn.launches, fn.tf32_launches, fn.exact_launches)
     got = rf.retrieve_pallas(q, x, bank, tier=tier)
     torch.cuda.synchronize()
-    assert (rf.retrieve_fused.launches, rf.retrieve_fused.exact_launches) == (
-        before[0] + (tier != "exact"), before[1] + (tier == "exact"))
+    assert (fn.launches, fn.tf32_launches, fn.exact_launches) == (
+        before[0] + (tier != "exact"), before[1] + (tier == "exact"), before[2])
     ref = rf._retrieve_fused_plain(
         rf.pack_queries(q, x, 12.0, 40.0, tier), rf.pack_bank(bank.keys_sem, bank.xyz, tier),
         bank.values, (rf.NEG * (1 - bank.row_mask()))[None], 0.5,
@@ -3221,13 +3227,14 @@ def _tier_queries(hb, cuda, B=700, bm=128, seed=5):
 
 @pytest.mark.parametrize("tier,value_dtype", TIERS, ids=TIER_IDS)
 def test_cores_forms_match_plain(cuda, tier, value_dtype):
-    """Every wrapper of kernels 12 and 13 on a bank of the exact tier (f32
-    operands) launches the CUDA-core body, once (`.f32_launches`), while
-    kernels 8, 9, 14 and 15 launch their TF32 x3 bodies (`.tf32_launches`:
-    both scans `csrc/hier_scan_tf32_sm90.cu`, the rr shapes
-    `csrc/hier_rr_tf32_sm90.cu`, the value shapes and kernel 15
-    `csrc/hier_values_tf32_sm90.cu`); so do those of 8, 12 and 13 on a
-    bank of the high tier (768 logit columns, `.deep_launches`; kernel 9
+    """Kernel 13's wrapper on a bank of the exact tier (f32 operands)
+    launches the CUDA-core body, once (`.f32_launches`), while kernels 8,
+    9, 12, 14 and 15 launch their TF32 x3 bodies (`.tf32_launches`: both
+    scans `csrc/hier_scan_tf32_sm90.cu`, the refine
+    `csrc/hier_refine_sm90.cu`, the rr shapes `csrc/hier_rr_tf32_sm90.cu`,
+    the value shapes and kernel 15 `csrc/hier_values_tf32_sm90.cu`); on a
+    bank of the high tier (768 logit columns, `.deep_launches`) 8 and 13
+    launch the CUDA-core body and 12 its Hopper body (kernel 9
     there on the scans' TF32 x3 body, one product a term), while
     kernels 14 and 15 there launch their Hopper bodies' deep chains
     (`.launches`, no TF32 x3 launch), except, on a high bank built with
@@ -3251,10 +3258,10 @@ def test_cores_forms_match_plain(cuda, tier, value_dtype):
 
     def run(fn, *args, **kw):
         parts = fn in (rh._hier_parts_family_call, rh._hier_parts_call)
-        scans = fn in (rh._hier_scan_call, rh._hier_scan_stats_call)
+        scans = fn in (rh._hier_scan_call, rh._hier_scan_stats_call, rh._hier_refine_call)
         rr = fn is rh._hier_parts_family_call and args[6] is not None
-        # kernels 8, 9, 14 and 15 at f32 operands: their TF32 x3 bodies (f32
-        # values alone: kernel 15 and 14's value shapes)
+        # kernels 8, 9, 12, 14 and 15 at f32 operands: their TF32 x3 bodies
+        # (f32 values alone: kernel 15 and 14's value shapes)
         tf32 = (parts and (form == "f32" or (f32v and not rr))) or (scans and form == "f32")
         hopper = form == "deep" and parts and not tf32
         n0 = (fn.launches, fn.tf32_launches if hopper or tf32 else getattr(fn, f"{form}_launches"))
@@ -4027,3 +4034,176 @@ def test_cores_refuse_what_does_not_fit(cuda):
         else:
             with pytest.raises(ValueError, match="shared memory"):
                 call()
+
+
+# ---- kernel 12 (the refine) on its Hopper body `csrc/hier_refine_sm90.cu`
+# in every form, and kernel 2's `exact` tier on `csrc/fused_retrieval_tf32_sm90.cu`
+
+REFINE_FORMS = [("exact", torch.float32), ("exact", torch.bfloat16), ("high", torch.bfloat16),
+                ("high", torch.float32), ("fast", torch.bfloat16)]
+REFINE_IDS = ["exact-f32", "exact-bf16", "high", "high-f32", "fast"]
+
+
+def _refine_case(cuda, tier, vw_dtype, gpt, gpt_sup, M, W, bm, B=700, T=60, seed=31):
+    """Random refine operands of ``tier`` (f32 logits over 256 columns at
+    exact; bf16 over 768 at high, 256 at fast), vw of ``vw_dtype``, a ragged
+    batch (zero queries past B), lists of M of T tiles."""
+    dt = torch.float32 if tier == "exact" else torch.bfloat16
+    wc = 768 if tier == "high" else 256
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    Bp = -(-B // bm) * bm
+    q = torch.randn(Bp, wc + 128, generator=g, device=cuda).to(dt)
+    q[B:] = 0
+    g_cat = (0.1 * torch.randn(T * gpt, wc, generator=g, device=cuda)).to(dt)
+    g_sup = (0.1 * torch.randn(T * gpt_sup, wc, generator=g, device=cuda)).to(dt)
+    vw = (0.3 * torch.randn(T * gpt, W, generator=g, device=cuda)).to(vw_dtype)
+    vw_sup = (0.3 * torch.randn(T * gpt_sup, W, generator=g, device=cuda)).to(vw_dtype)
+    idx = torch.stack([torch.randperm(T, generator=g, device=cuda)[:M]
+                       for _ in range(Bp // bm)]).to(torch.int32)
+    return q, idx, g_cat, g_sup, vw, vw_sup
+
+
+# Tolerances: the max logits within 1e-4, the exp2 sums within 1e-4 of
+# themselves (the stats scan's); parts by `_hold_tier`: within 1e-4 of the
+# sum of its terms' magnitudes where every rounding point is f32 (f32 vw),
+# else one bf16 ulp of a term in at most max(2, B / 100) rows; at f32 vw
+# the zero-query padding rows (e = 1: the plain sums' cancellation is the
+# split's resolution) within 8 x 2^-22 x that sum + 1e-6.
+@pytest.mark.parametrize("gpt,gpt_sup,M,W,bm", [(64, 8, 48, 1152, 128), (16, 8, 13, 384, 128),
+                                                (12, 3, 9, 200, 64), (32, 40, 5, 95, 64)])
+@pytest.mark.parametrize("tier,vw_dtype", REFINE_FORMS, ids=REFINE_IDS)
+def test_refine_sm90_matches_plain(cuda, tier, vw_dtype, gpt, gpt_sup, M, W, bm):
+    """Both forms through `_hier_refine_call`: every form on the Hopper
+    body (`.sm90_launches`), held against the Hopper body's plain version (`_refine_sm90_plain`, its
+    images and order) and the one-pass plain version; the two-level
+    shape (64 fine and 8 supergroups a tile, 1,152 columns), ragged lists,
+    a tile of two steps (72 rows), odd widths, both query blocks."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    args = _refine_case(cuda, tier, vw_dtype, gpt, gpt_sup, M, W, bm)
+    fn, f32v = rh._hier_refine_call, vw_dtype == torch.float32
+    for stats_only in (True, False):
+        kw = dict(bm=bm, gpt_f=gpt, gpt_sup=gpt_sup, stats_only=stats_only)
+        n0 = (fn.launches, fn.sm90_launches)
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        assert (fn.launches, fn.sm90_launches) == (n0[0] + 1, n0[1] + 1)
+        pk = dict(bm=bm, gpt_f=gpt) if stats_only else dict(
+            bm=bm, gpt_f=gpt, g_sup_cat=args[3], g_sem_vw=args[4], g_sup_vw=args[5],
+            gpt_sup=gpt_sup)
+        refs = [rh._hier_refine_plain(*args[:3], **pk), rh._refine_sm90_plain(*args, **kw)]
+        for ref in refs:
+            torch.testing.assert_close(out[0], ref[0], rtol=0, atol=1e-4)
+            torch.testing.assert_close(out[1], ref[1], rtol=1e-4, atol=0)
+            if stats_only:
+                assert out[2] is None
+                continue
+            mag = rh._hier_refine_plain(*args[:3], **pk, magnitude=True)[2]
+            _hold_tier(f"refine parts {tier}", out[2], ref[2], mag, f32v,
+                       rows_off_max=max(2, args[0].shape[0] // 100))
+            if f32v:
+                pad = (out[2][700:] - ref[2][700:]).abs()
+                assert (pad <= 8 * 2.0 ** -22 * mag[700:] + 1e-6).all()
+
+
+@pytest.mark.parametrize("tier", ["exact", "high", "fast"])
+def test_refine_never_launches_the_old_bodies(cuda, monkeypatch, tier):
+    """The two-level feature path and top-k through `load_model` on a
+    two-level bank at each tier: the refine's every launch on its Hopper
+    body, never the CUDA-core body (`_refine_cores`) nor either entry point
+    of `csrc/hier_refine.cu`; both within their bars."""
+    from range_tpu_torch.ops import retrieval_hier as rh
+
+    def refuse(*a, **k):
+        raise AssertionError("the refine's CUDA-core body was launched")
+
+    calls = []
+    real = rh._launch
+
+    def spy(name, fn, *args):
+        calls.append((name, fn))
+        return real(name, fn, *args)
+
+    monkeypatch.setattr(rh, "_refine_cores", refuse)
+    monkeypatch.setattr(rh, "_launch", spy)
+    bank = GeoBank.synthetic_informative(3, 9000, pad_to=512, device=cuda)
+    hb = rh.build_hier_bank(bank, bn=128, gsz_sem=8, gsz_geo=16, gsz_super=16, tier=tier)
+    enc = load_model("RANGE+", db_path=hb, retrieval="hier", hier_bn=128, gsz_sem=8,
+                     gsz_geo=16, gsz_super=16, tier=tier)
+    coords = _coords(3000, seed=33, device=cuda)
+    fn = rh._hier_refine_call
+    form = {"exact": "tf32", "high": "deep", "fast": None}[tier]
+    n0 = (fn.launches, fn.sm90_launches, fn.parts_launches,
+          form and getattr(fn, f"{form}_launches"))
+    out = enc(coords)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.sm90_launches, fn.parts_launches) == tuple(n + 1 for n in n0[:3])
+    if form:
+        assert getattr(fn, f"{form}_launches") == n0[3] + 1
+    ref = retrieval.retrieve(out[:, 1024:], lonlat_deg_to_xyz(coords), hb.bank)
+    assert ((out[:, :1024] - ref).abs() / ref.abs().clamp_min(0.1)).mean() < 0.1
+    q = out[:, 1024:].float()
+    n0 = (fn.launches, fn.sm90_launches)
+    rows = rh.hier_topk(q, lonlat_deg_to_xyz(coords), hb, k_tiles=24, m_tiles=48)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.sm90_launches) == (n0[0] + 1, n0[1] + 1)
+    assert (rows == retrieval.exact_nn(q, hb.bank)).float().mean() >= 0.99
+    refine = {f for n, f in calls if n in ("hier_refine", "hier_refine_sm90")}
+    assert refine == {"hier_refine_sm90_launch"}
+    assert not [n for n, _ in calls if n == "hier_refine"]
+
+
+# The dense bars (test_fused_kernel_matches_plain): the logits agree to
+# TF32 x3's 2^-21 of each term, so a p within that of a bf16 boundary may
+# round the other way before the value product.
+@pytest.mark.parametrize("B", [1, 37, 1000])
+def test_fused_tf32_matches_plain(cuda, B):
+    """Kernel 2 at `exact` on its Hopper body over a 30,001-row bank (the
+    request's segments, the last ragged), RANGE+ and RANGE: against the
+    one-pass plain version and, at B <= 37, the body's plain version
+    (`_fused_tf32_plain`, its keys' image and segments)."""
+    bank = GeoBank.synthetic(5, 30_001, key_dim=256, value_dim=1024, pad_to=1,
+                             value_dtype=torch.bfloat16, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(B)
+    q = torch.nn.functional.normalize(torch.randn(B, 256, generator=g, device=cuda), dim=1)
+    x = lonlat_deg_to_xyz(_coords(max(B, 2), seed=B, device=cuda)[:B])
+    k_cat = rf.pack_bank(bank.keys_sem, bank.xyz, "exact")
+    mask = (rf.NEG * (1 - bank.row_mask()))[None]
+    assert rf._tf32_plan(B, bank.num_rows, 1024)[0] > 1
+    for beta, temp, qx in ((0.5, 12.0, x), (1.0, 15.0, None)):
+        q_cat = rf.pack_queries(q, qx, temp, 40.0, "exact")
+        n0 = rf.retrieve_fused.tf32_launches
+        got = rf.retrieve_fused(q_cat, k_cat, bank.values, mask, beta, sem_d=256)
+        torch.cuda.synchronize()
+        assert rf.retrieve_fused.tf32_launches == n0 + 1
+        refs = [rf._retrieve_fused_plain(q_cat, k_cat, bank.values, mask, beta, sem_d=256)]
+        if B <= 37:
+            refs.append(rf._fused_tf32_plain(q_cat, k_cat, bank.values, mask, beta, sem_d=256))
+        for ref in refs:
+            err = (got - ref).abs()
+            assert err.max() <= bank.values.abs().max().float() / 128
+            assert (err > 1e-4).any(dim=1).sum() <= max(2, B // 100)
+
+
+def test_dense_exact_never_launches_the_mma_sync_body(cuda, monkeypatch):
+    """`load_model("RANGE+" | "RANGE", tier="exact")` over a dense bank: each
+    request on the exact tier's Hopper body (`.tf32_launches`), never the
+    mma.sync body's f32 form (`_launch_fused`), within the dense path's bar
+    of the exact f32 retrieve."""
+    def refuse(*a, **k):
+        raise AssertionError("the mma.sync body was launched")
+
+    monkeypatch.setattr(rf, "_launch_fused", refuse)
+    bank = GeoBank.synthetic(0, 5000, key_dim=256, value_dim=1024, pad_to=512,
+                             value_dtype=torch.bfloat16, device=cuda)
+    coords = _coords(300, seed=35, device=cuda)
+    for name, mode in (("RANGE+", "range+"), ("RANGE", "range")):
+        enc = load_model(name, db_path=bank, tier="exact")
+        n0 = rf.retrieve_fused.tf32_launches
+        out = enc(coords)
+        torch.cuda.synchronize()
+        assert rf.retrieve_fused.tf32_launches == n0 + 1
+        ref = retrieval.retrieve(out[:, 1024:], lonlat_deg_to_xyz(coords) if mode == "range+"
+                                 else None, bank, sem_temp=12.0 if mode == "range+" else 15.0,
+                                 mode=mode)
+        torch.testing.assert_close(out[:, :1024], ref, rtol=1e-1, atol=5e-2)
